@@ -1,0 +1,134 @@
+"""Greedy decoding CLI (counterpart of the whisper path of
+`agacs_tpu/bin/decode.py`): data dir -> hyp.trn + ref.trn + rtf.json.
+
+  python -m agacs_tpu_torch.bin.decode --config exp/x/config.yaml \
+      --params exp/x/valid.acc.ave.params.npz \
+      --data_dir data/dev --output_dir exp/x/decode_dev \
+      [--decode_config conf/decode_asr_whisper.yaml] [--max_steps 200] \
+      [--batch_size 8] [--compute_dtype bfloat16] [--device cuda]
+  python -m agacs_tpu.bin.score --ref exp/x/decode_dev/ref.trn \
+      --hyp exp/x/decode_dev/hyp.trn --output_dir exp/x/decode_dev/score
+
+`--params` is the `.params.npz` the JAX trainer writes. The .trn files
+have the format `agacs_tpu.bin.score` reads. Beam search, CTC / LM
+fusion and int8 cross-KV are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import os
+import sys
+
+import numpy as np
+import torch
+
+from agacs_tpu.eval.scoring import write_trn
+from agacs_tpu_torch.data.io import DataDir
+from agacs_tpu_torch.decode.speech2text import Speech2Text
+from agacs_tpu_torch.models.checkpoint import params_from_numpy
+from agacs_tpu_torch.models.whisper import Whisper
+from agacs_tpu_torch.utils.config import load_yaml, model_config_from_dict
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--config", required=True)
+    p.add_argument("--decode_config", default=None,
+                   help="decode-option YAML (decode_asr_whisper.yaml schema); "
+                        "CLI flags override it")
+    p.add_argument("--params", required=True)
+    p.add_argument("--data_dir", required=True)
+    p.add_argument("--output_dir", required=True)
+    p.add_argument("--beam_size", type=int, default=1)
+    p.add_argument("--max_steps", type=int, default=200,
+                   help="generated-token cap; 0 = derive from maxlenratio "
+                        "(0.0 -> encoder frame count)")
+    p.add_argument("--maxlenratio", type=float, default=0.0)
+    p.add_argument("--batch_size", type=int, default=8)
+    p.add_argument("--compute_dtype", default="bfloat16",
+                   choices=["bfloat16", "float32"])
+    p.add_argument("--cross_kv_int8", action="store_true",
+                   help="int8 cross-attention K/V (not ported yet: raises)")
+    p.add_argument("--device", default="cuda")
+    return p
+
+
+def _apply_decode_config(args, path: str, raw_argv: list[str]) -> dict:
+    """Decode-option YAML values become argparse defaults (explicit CLI
+    flags win); a config bearing maxlenratio derives maxlen from frames
+    unless --max_steps was given. Returns the scorer weights it sets."""
+    dc = load_yaml(path)
+    given = {a.split("=")[0].lstrip("-").replace("-", "_")
+             for a in raw_argv if a.startswith("--")}
+    for k in ("beam_size", "maxlenratio", "max_steps"):
+        if k in dc and k not in given:
+            setattr(args, k, type(getattr(args, k))(dc[k]))
+    if "maxlenratio" in dc and "max_steps" not in given:
+        args.max_steps = 0
+    return {k: float(dc.get(k, 0.0)) for k in ("ctc_weight", "lm_weight")}
+
+
+def main(argv: list[str] | None = None) -> dict:
+    args = build_argparser().parse_args(argv)
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
+    weights = {}
+    if args.decode_config:
+        weights = _apply_decode_config(
+            args, args.decode_config, argv if argv is not None else sys.argv[1:])
+    if args.cross_kv_int8:
+        raise NotImplementedError("--cross_kv_int8 is not ported yet")
+
+    cfg = model_config_from_dict(
+        load_yaml(args.config), compute_dtype=getattr(torch, args.compute_dtype))
+    tree = np.load(args.params)
+    if any(k.startswith("ctc/") for k in tree.files):
+        raise NotImplementedError(
+            "checkpoint has a CTC head: joint CTC/attention decoding is not "
+            "ported yet")
+    model = Whisper.from_state_dict(
+        cfg.whisper, params_from_numpy(tree, cfg.whisper), device=args.device)
+    s2t = Speech2Text(
+        model, cfg, beam_size=args.beam_size,
+        max_steps=args.max_steps if args.max_steps > 0 else None,
+        maxlenratio=args.maxlenratio, **weights,
+    )
+
+    ds = DataDir(args.data_dir)
+    hyps, refs = {}, {}
+    utts = sorted(ds.utt_ids, key=ds.num_samples)
+    for i in range(0, len(utts), args.batch_size):
+        chunk = utts[i : i + args.batch_size]
+        speech = [ds.speech(u) for u in chunk]
+        s_max = -(-max(len(x) for x in speech) // 16000) * 16000  # 1 s buckets
+        audio = np.zeros((len(chunk), s_max), np.float32)
+        lens = np.zeros((len(chunk),), np.int64)
+        for k, x in enumerate(speech):
+            audio[k, : len(x)] = x
+            lens[k] = len(x)
+        for u, r in zip(chunk, s2t(audio, lengths=lens)):
+            hyps[u] = r.text
+            refs[u] = ds.text[u]
+        logging.info("decoded %d/%d (running 1/RTF=%.1fx)",
+                     min(i + args.batch_size, len(utts)), len(utts), s2t.inverse_rtf)
+    rtf_report = {
+        "rtf": s2t.rtf, "inverse_rtf": s2t.inverse_rtf,
+        "audio_seconds": s2t._audio_seconds,
+        "decode_seconds": s2t._decode_seconds, "n_utts": len(utts),
+        "device": str(model.decoder.logits_weight.device),
+    }
+    os.makedirs(args.output_dir, exist_ok=True)
+    write_trn(os.path.join(args.output_dir, "hyp.trn"), hyps)
+    write_trn(os.path.join(args.output_dir, "ref.trn"), refs)
+    with open(os.path.join(args.output_dir, "rtf.json"), "w") as f:
+        json.dump(rtf_report, f, indent=1)
+    logging.info("RTF=%.4f (decode %.1fs / audio %.1fs)", rtf_report["rtf"],
+                 rtf_report["decode_seconds"], rtf_report["audio_seconds"])
+    return {"hyps": hyps, "refs": refs, "rtf": rtf_report}
+
+
+if __name__ == "__main__":
+    main()

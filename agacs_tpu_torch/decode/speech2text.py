@@ -1,0 +1,118 @@
+"""Speech2Text — audio -> hypotheses (counterpart of
+`agacs_tpu/decode/speech2text.py`), greedy branch only, with the same
+built-in RTF accounting.
+
+The recipes' decode config (`decode_asr_whisper.yaml`: beam_size 1, no
+CTC, no LM) runs here. Beam search, CTC, LM and n-gram fusion are not
+ported yet: asking for them raises instead of decoding greedily.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from agacs_tpu.text import WhisperTokenizer
+from agacs_tpu_torch.decode.greedy import WHISPER_CS_PRIMER, greedy_decode
+from agacs_tpu_torch.models.asr_model import ASRModelConfig, encode
+from agacs_tpu_torch.models.whisper import Whisper
+
+
+@dataclasses.dataclass
+class DecodeResult:
+    text: str
+    tokens: list[int]
+    score: float
+
+
+class Speech2Text:
+    """audio (16 kHz float) -> hypotheses on the model's device.
+
+    max_steps=None derives maxlen from the encoder frame count
+    (maxlenratio == 0 semantics); a positive maxlenratio multiplies it.
+    Both are capped by the decoder context."""
+
+    def __init__(
+        self,
+        model: Whisper,
+        cfg: ASRModelConfig,
+        tokenizer: WhisperTokenizer | None = None,
+        beam_size: int = 1,
+        max_steps: int | None = 200,
+        maxlenratio: float = 0.0,
+        ctc_weight: float = 0.0,
+        lm_weight: float = 0.0,
+        ngram_weight: float = 0.0,
+        primer: tuple[int, ...] = WHISPER_CS_PRIMER,
+    ):
+        unported = {"beam_size > 1": beam_size > 1, "ctc_weight": ctc_weight != 0.0,
+                    "lm_weight": lm_weight != 0.0, "ngram_weight": ngram_weight != 0.0}
+        asked = [k for k, v in unported.items() if v]
+        if asked:
+            raise NotImplementedError(
+                f"{', '.join(asked)}: only greedy decoding is ported yet")
+        self.model = model
+        self.cfg = cfg
+        self.tokenizer = tokenizer or WhisperTokenizer()
+        self.max_steps = max_steps
+        self.maxlenratio = maxlenratio
+        self.primer = tuple(primer)
+        self.device = next(model.parameters()).device
+        self._audio_seconds = 0.0
+        self._decode_seconds = 0.0
+
+    @property
+    def rtf(self) -> float:
+        """decode-time / audio-time (lower is better)."""
+        return self._decode_seconds / max(self._audio_seconds, 1e-9)
+
+    @property
+    def inverse_rtf(self) -> float:
+        return self._audio_seconds / max(self._decode_seconds, 1e-9)
+
+    def _maxlen(self, t_enc: int) -> int:
+        cap = self.cfg.whisper.n_text_ctx - len(self.primer) - 1
+        if self.max_steps is not None:
+            return min(self.max_steps, cap)
+        if self.maxlenratio > 0:
+            return min(max(1, int(self.maxlenratio * t_enc)), cap)
+        return min(t_enc, cap)
+
+    @torch.inference_mode()
+    def __call__(
+        self,
+        audio: np.ndarray,
+        fs: int = 16000,
+        lengths: np.ndarray | None = None,
+    ) -> list[DecodeResult]:
+        """audio: (T,) or (B, T) float waveform at 16 kHz; `lengths` gives
+        each padded row's true sample count (for the RTF)."""
+        audio = np.asarray(audio, np.float32)
+        if audio.ndim == 1:
+            audio = audio[None, :]
+        b, s = audio.shape
+        lengths = np.full((b,), s, np.int64) if lengths is None \
+            else np.asarray(lengths, np.int64)
+
+        t0 = time.perf_counter()
+        speech = torch.from_numpy(audio).to(self.device)
+        enc, _ = encode(self.model, self.cfg, speech,
+                        torch.from_numpy(lengths).to(self.device))
+        tokens, lens = greedy_decode(
+            self.model, enc, primer=self.primer,
+            max_steps=self._maxlen(int(enc.shape[1])),
+        )
+        tokens, lens = tokens.cpu().numpy(), lens.cpu().numpy()
+        self._decode_seconds += time.perf_counter() - t0
+        self._audio_seconds += float(lengths.sum()) / fs
+
+        out = []
+        for i in range(b):
+            ids = tokens[i, : lens[i]].tolist()
+            hyp_ids = [t for t in ids if t < self.tokenizer.special.eot]
+            out.append(DecodeResult(text=self.tokenizer.decode(hyp_ids),
+                                    tokens=ids, score=0.0))
+        return out

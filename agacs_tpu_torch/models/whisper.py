@@ -1,0 +1,442 @@
+"""Whisper encoder and KV-cached decoder (counterpart of
+`agacs_tpu/models/whisper.py`), as nn.Modules with OpenAI's parameter
+names, so `encoder.blocks.3.attn.query.weight` is where an OpenAI
+checkpoint puts it.
+
+Counterparts of the JAX functions:
+
+  layer_norm    -> LayerNorm (float32 with float32 affine, cast back)
+  linear        -> nn.Linear in the compute dtype (weights cast once, at load)
+  gelu          -> nn.GELU / F.gelu, exact erf form
+  conv1d        -> nn.Conv1d, padding 1 (cuDNN's TF32 switched off)
+  sinusoids     -> sinusoids
+  mha           -> MultiHeadAttention (non-causal self- and cross-attention)
+  adapter_fwd   -> Adapter
+  mlp_fwd       -> the `mlp` Sequential of a block (dense branch)
+  residual_block -> ResidualAttentionBlock.forward (encoder) / .step (decoder)
+  whisper_encode, encoder_olens, init_whisper_params, precompute_cross_kv,
+  init_self_kv_cache, whisper_decode_step -> functions of the same names
+
+On a CUDA tensor the encoder self-attention runs kernel K1
+(`ops/flash_train.py`) and the decode step's self- and cross-attention
+run kernel K3 (`ops/decode_attn.py`); on a CPU tensor both take their
+plain versions. Configurations the port cannot run yet (PE attention,
+side networks, int8 cross-KV) raise when the model is built.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from agacs_tpu_torch.ops.attention import packed_mha
+from agacs_tpu_torch.ops.decode_attn import decode_cache_attention, pad_time
+from agacs_tpu_torch.ops.flash_train import packed_flash_mha
+from agacs_tpu_torch.ops.logmel import full_fp32
+
+
+@dataclasses.dataclass(frozen=True)
+class SideNetworkConfig:
+    """Ladder side network (reference `model.py:349-484`); not ported yet."""
+
+    n_dim: int = 192
+    n_head: int = 4
+    layers: tuple[int, ...] = (0, 2, 4, 6, 8, 10)
+
+
+@dataclasses.dataclass(frozen=True)
+class WhisperConfig:
+    """ModelDimensions + PET flags of the JAX WhisperConfig, without its
+    TPU-only knobs (remat, layer unrolling, attention backend)."""
+
+    n_mels: int = 80
+    n_audio_ctx: int = 1500
+    n_audio_state: int = 768
+    n_audio_head: int = 12
+    n_audio_layer: int = 12
+    n_vocab: int = 51865
+    n_text_ctx: int = 448
+    n_text_state: int = 768
+    n_text_head: int = 12
+    n_text_layer: int = 12
+    adapter: bool = False
+    pe_attention: bool = False
+    adapter_encoder: bool | None = None
+    adapter_decoder: bool | None = None
+    pe_encoder: bool | None = None
+    pe_decoder: bool | None = None
+    side_network: SideNetworkConfig | None = None
+    compute_dtype: torch.dtype = torch.float32
+    cross_kv_int8: bool = False
+
+    def part(self, which: str) -> "WhisperConfig":
+        """Effective config for 'encoder' or 'decoder' blocks: resolves the
+        per-component PET overrides into the plain adapter/pe flags."""
+        if which == "encoder":
+            a = self.adapter if self.adapter_encoder is None else self.adapter_encoder
+            p = self.pe_attention if self.pe_encoder is None else self.pe_encoder
+        else:
+            a = self.adapter if self.adapter_decoder is None else self.adapter_decoder
+            p = self.pe_attention if self.pe_decoder is None else self.pe_decoder
+        if a == self.adapter and p == self.pe_attention:
+            return self
+        return dataclasses.replace(self, adapter=a, pe_attention=p)
+
+    @property
+    def d_audio_head(self) -> int:
+        return self.n_audio_state // self.n_audio_head
+
+    @property
+    def d_text_head(self) -> int:
+        return self.n_text_state // self.n_text_head
+
+
+WHISPER_PRESETS: dict[str, dict] = {
+    "tiny": dict(n_audio_state=384, n_audio_head=6, n_audio_layer=4,
+                 n_text_state=384, n_text_head=6, n_text_layer=4),
+    "base": dict(n_audio_state=512, n_audio_head=8, n_audio_layer=6,
+                 n_text_state=512, n_text_head=8, n_text_layer=6),
+    "small": dict(n_audio_state=768, n_audio_head=12, n_audio_layer=12,
+                  n_text_state=768, n_text_head=12, n_text_layer=12),
+    "medium": dict(n_audio_state=1024, n_audio_head=16, n_audio_layer=24,
+                   n_text_state=1024, n_text_head=16, n_text_layer=24),
+    "large": dict(n_audio_state=1280, n_audio_head=20, n_audio_layer=32,
+                  n_text_state=1280, n_text_head=20, n_text_layer=32),
+    # not a real OpenAI size: a minimal config for fast CPU tests
+    "test": dict(n_audio_state=64, n_audio_head=2, n_audio_layer=2,
+                 n_text_state=64, n_text_head=2, n_text_layer=2),
+}
+
+
+def make_config(model: str = "small", **overrides) -> WhisperConfig:
+    return WhisperConfig(**{**WHISPER_PRESETS[model], **overrides})
+
+
+def check_supported(cfg: WhisperConfig) -> None:
+    """Raise for the configurations the port cannot run yet."""
+    if cfg.part("encoder").pe_attention or cfg.part("decoder").pe_attention:
+        raise NotImplementedError("PE (gated dual-QK) attention is not ported yet")
+    if cfg.side_network is not None:
+        raise NotImplementedError("side networks are not ported yet")
+    if cfg.cross_kv_int8:
+        raise NotImplementedError("int8 cross-KV (cross_kv_int8) is not ported yet")
+
+
+# ---------------------------------------------------------------------------
+# layers
+# ---------------------------------------------------------------------------
+
+
+class LayerNorm(nn.LayerNorm):
+    """float32 layer norm with float32 affine params, output cast back to
+    the input dtype (reference model.py:30-32)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.float()).to(x.dtype)
+
+
+def sinusoids(length: int, channels: int, max_timescale: float = 10000.0) -> np.ndarray:
+    """Sinusoidal positions (model.py:53-59); a constant, not a parameter."""
+    assert channels % 2 == 0
+    log_inc = math.log(max_timescale) / (channels // 2 - 1)
+    inv = np.exp(-log_inc * np.arange(channels // 2))
+    t = np.arange(length)[:, None] * inv[None, :]
+    return np.concatenate([np.sin(t), np.cos(t)], axis=1).astype(np.float32)
+
+
+class MultiHeadAttention(nn.Module):
+    """`mha` (:352) for non-causal self-attention and cross-attention.
+
+    Self-attention goes through `packed_flash_mha` on the packed (B, T, D)
+    projections (kernel K1 on the card). Cross-attention (the
+    teacher-forced form; the decode step has its own cached path) is the
+    head-split plain attention with d_head**-0.25 on q and k."""
+
+    def __init__(self, d: int, n_head: int, dtype: torch.dtype, device=None):
+        super().__init__()
+        self.n_head = n_head
+        kw = dict(dtype=dtype, device=device)
+        self.query = nn.Linear(d, d, **kw)
+        self.key = nn.Linear(d, d, bias=False, **kw)
+        self.value = nn.Linear(d, d, **kw)
+        self.out = nn.Linear(d, d, **kw)
+
+    def forward(self, x: torch.Tensor, xa: torch.Tensor | None = None) -> torch.Tensor:
+        q = self.query(x)
+        kv_in = x if xa is None else xa
+        k, v = self.key(kv_in), self.value(kv_in)
+        attend = packed_flash_mha if xa is None else packed_mha
+        return self.out(attend(q, k, v, self.n_head))
+
+
+class Adapter(nn.Module):
+    """Bottleneck adapter with residual (model.py:181-194)."""
+
+    def __init__(self, d: int, dtype: torch.dtype, device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        self.model = nn.Sequential(
+            nn.Linear(d, d // 4, **kw), nn.GELU(), nn.Linear(d // 4, d, **kw))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self.model(x)
+
+
+class ResidualAttentionBlock(nn.Module):
+    """`residual_block` (:506): self-attn [+adapter+ln] [+cross-attn] + mlp
+    [+adapter+ln]. Encoder blocks run `forward`; decoder blocks run `step`
+    (one cached token); the teacher-forced decoder forward is not ported."""
+
+    def __init__(self, d: int, n_head: int, cfg: WhisperConfig, cross: bool,
+                 device=None):
+        super().__init__()
+        dtype = cfg.compute_dtype
+        kw = dict(dtype=dtype, device=device)
+        self.n_head = n_head
+        self.attn = MultiHeadAttention(d, n_head, dtype, device)
+        self.attn_ln = LayerNorm(d, device=device)
+        self.cross_attn = MultiHeadAttention(d, n_head, dtype, device) if cross else None
+        self.cross_attn_ln = LayerNorm(d, device=device) if cross else None
+        self.mlp = nn.Sequential(
+            nn.Linear(d, 4 * d, **kw), nn.GELU(), nn.Linear(4 * d, d, **kw))
+        self.mlp_ln = LayerNorm(d, device=device)
+        self.adapter = cfg.adapter
+        if cfg.adapter:
+            self.adapter_attn = Adapter(d, dtype, device)
+            self.adapter_attn_ln = LayerNorm(d, device=device)
+            self.adapter_mlp = Adapter(d, dtype, device)
+            self.adapter_mlp_ln = LayerNorm(d, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.cross_attn is not None:
+            raise NotImplementedError(
+                "the teacher-forced decoder forward is not ported; decode "
+                "with whisper_decode_step")
+        x = x + self.attn(self.attn_ln(x))
+        if self.adapter:
+            x = self.adapter_attn_ln(self.adapter_attn(x))
+        x = x + self.mlp(self.mlp_ln(x))
+        if self.adapter:
+            x = self.adapter_mlp_ln(self.adapter_mlp(x))
+        return x
+
+    def step(self, h, pos: int, k_cache, v_cache, cross_k, cross_v, t_audio: int):
+        """One decode token through this decoder block: h (N, d).
+
+        Writes this position's k/v row into the caches IN PLACE before the
+        attention reads them (write-first, as in the JAX step)."""
+        scale2 = (h.shape[-1] // self.n_head) ** -0.5
+        a = self.attn
+        y = self.attn_ln(h)
+        k_cache[:, pos] = a.key(y)
+        v_cache[:, pos] = a.value(y)
+        o = decode_cache_attention(a.query(y) * scale2, k_cache, v_cache, pos,
+                                   self.n_head)
+        h = h + a.out(o)
+        if self.adapter:
+            h = self.adapter_attn_ln(self.adapter_attn(h))
+        c = self.cross_attn
+        y = self.cross_attn_ln(h)
+        oc = decode_cache_attention(c.query(y) * scale2, cross_k, cross_v,
+                                    t_audio - 1, self.n_head)
+        h = h + c.out(oc)
+        h = h + self.mlp(self.mlp_ln(h))
+        if self.adapter:
+            h = self.adapter_mlp_ln(self.adapter_mlp(h))
+        return h
+
+
+# ---------------------------------------------------------------------------
+# model
+# ---------------------------------------------------------------------------
+
+
+class WhisperEncoder(nn.Module):
+    """`whisper_encode` (:709): conv stem, sinusoid positions, blocks, ln_post."""
+
+    def __init__(self, cfg: WhisperConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        d, dtype = cfg.n_audio_state, cfg.compute_dtype
+        kw = dict(dtype=dtype, device=device)
+        self.conv1 = nn.Conv1d(cfg.n_mels, d, 3, padding=1, **kw)
+        self.conv2 = nn.Conv1d(d, d, 3, stride=2, padding=1, **kw)
+        self.register_buffer(
+            "positional_embedding",
+            torch.from_numpy(sinusoids(cfg.n_audio_ctx, d)).to(device, dtype),
+            persistent=False,
+        )
+        enc_cfg = cfg.part("encoder")
+        self.blocks = nn.ModuleList(
+            ResidualAttentionBlock(d, cfg.n_audio_head, enc_cfg, cross=False,
+                                   device=device)
+            for _ in range(cfg.n_audio_layer)
+        )
+        self.ln_post = LayerNorm(d, device=device)
+
+    def forward(self, mel: torch.Tensor) -> torch.Tensor:
+        """mel (B, T_frames, n_mels) -> (B, min(ceil(T/2), n_audio_ctx), d).
+        Frames beyond n_audio_ctx * 2 are cropped (> 30 s inputs)."""
+        x = mel.to(self.cfg.compute_dtype).transpose(1, 2)  # (B, n_mels, T)
+        with full_fp32():
+            x = F.gelu(self.conv1(x))
+            x = F.gelu(self.conv2(x))
+        x = x.transpose(1, 2)[:, : self.cfg.n_audio_ctx].contiguous()
+        x = x + self.positional_embedding[: x.shape[1]]
+        for block in self.blocks:
+            x = block(x)
+        return self.ln_post(x)
+
+
+class WhisperDecoder(nn.Module):
+    """Token/position embeddings, decoder blocks and the output head.
+
+    The embedding table stays float32 (the step adds emb + pos in float32
+    before the cast, as the JAX step does); the logits use a copy of it in
+    the compute dtype, made once when weights are loaded."""
+
+    def __init__(self, cfg: WhisperConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        d = cfg.n_text_state
+        self.token_embedding = nn.Embedding(cfg.n_vocab, d, device=device)
+        self.positional_embedding = nn.Parameter(
+            torch.zeros(cfg.n_text_ctx, d, device=device))
+        dec_cfg = cfg.part("decoder")
+        self.blocks = nn.ModuleList(
+            ResidualAttentionBlock(d, cfg.n_text_head, dec_cfg, cross=True,
+                                   device=device)
+            for _ in range(cfg.n_text_layer)
+        )
+        self.ln = LayerNorm(d, device=device)
+        self.register_buffer("logits_weight", None, persistent=False)
+        self.cast_logits_weight()
+        self.register_load_state_dict_post_hook(
+            lambda module, _keys: module.cast_logits_weight())
+
+    def cast_logits_weight(self) -> None:
+        w = self.token_embedding.weight.detach()
+        self.logits_weight = w if w.dtype == self.cfg.compute_dtype \
+            else w.to(self.cfg.compute_dtype)
+
+
+class Whisper(nn.Module):
+    def __init__(self, cfg: WhisperConfig, device=None):
+        super().__init__()
+        check_supported(cfg)
+        self.cfg = cfg
+        self.encoder = WhisperEncoder(cfg, device)
+        self.decoder = WhisperDecoder(cfg, device)
+
+    @classmethod
+    def from_state_dict(cls, cfg: WhisperConfig, state_dict: dict,
+                        device=None) -> "Whisper":
+        """Build on `device` and load (casting to the compute dtype once)."""
+        model = cls(cfg, device)
+        model.load_state_dict(state_dict)
+        return model.eval()
+
+
+def whisper_encode(model: Whisper, mel: torch.Tensor) -> torch.Tensor:
+    return model.encoder(mel)
+
+
+def encoder_olens(ilens_frames: torch.Tensor, cfg: WhisperConfig) -> torch.Tensor:
+    """Output lengths after the stride-2 conv stem, clamped at n_audio_ctx."""
+    return torch.clamp(1 + (ilens_frames - 1) // 2, max=cfg.n_audio_ctx)
+
+
+def init_whisper_params(generator: torch.Generator, cfg: WhisperConfig) -> dict:
+    """Random float32 state dict (CPU) with the JAX init's distributions:
+    linears uniform(±1/sqrt(d_in)), layer norms 1/0, conv stem
+    normal/sqrt(3·d_in) with zero bias, token_emb normal·0.02, pos_emb
+    normal·0.01. Numbers differ from the JAX init (another generator)."""
+    sd = {}
+    meta = Whisper(cfg, device="meta")
+    for name, mod in meta.named_modules():
+        pre = name + "."
+        if isinstance(mod, nn.Linear):
+            bound = 1.0 / math.sqrt(mod.in_features)
+            sd[pre + "weight"] = (torch.rand(mod.weight.shape, generator=generator)
+                                  * 2 - 1) * bound
+            if mod.bias is not None:
+                sd[pre + "bias"] = (torch.rand(mod.bias.shape, generator=generator)
+                                    * 2 - 1) * bound
+        elif isinstance(mod, nn.LayerNorm):
+            sd[pre + "weight"] = torch.ones(mod.weight.shape)
+            sd[pre + "bias"] = torch.zeros(mod.bias.shape)
+        elif isinstance(mod, nn.Conv1d):
+            c_out, c_in, w = mod.weight.shape
+            sd[pre + "weight"] = torch.randn(mod.weight.shape, generator=generator) \
+                / math.sqrt(w * c_in)
+            sd[pre + "bias"] = torch.zeros(c_out)
+    sd["decoder.token_embedding.weight"] = torch.randn(
+        cfg.n_vocab, cfg.n_text_state, generator=generator) * 0.02
+    sd["decoder.positional_embedding"] = torch.randn(
+        cfg.n_text_ctx, cfg.n_text_state, generator=generator) * 0.01
+    return sd
+
+
+# ---------------------------------------------------------------------------
+# KV-cached decoding
+# ---------------------------------------------------------------------------
+
+
+def precompute_cross_kv(model: Whisper, audio_feats: torch.Tensor) -> dict:
+    """Per-layer cross-attention K/V, computed once per utterance batch:
+    packed (B, Tp, d) buffers, k unscaled (the step's query carries
+    d_head**-0.5), time zero-padded to `pad_time` (the step masks the pad
+    with pos = T_audio - 1)."""
+    cfg = model.cfg
+    xa = audio_feats.to(cfg.compute_dtype)
+    t_audio = xa.shape[1]
+    pad = pad_time(t_audio) - t_audio
+    ks, vs = [], []
+    for block in model.decoder.blocks:
+        ks.append(F.pad(block.cross_attn.key(xa), (0, 0, 0, pad)))
+        vs.append(F.pad(block.cross_attn.value(xa), (0, 0, 0, pad)))
+    return {"k_packed": tuple(ks), "v_packed": tuple(vs), "t_audio": t_audio}
+
+
+def init_self_kv_cache(cfg: WhisperConfig, batch: int, max_len: int | None = None,
+                       device=None) -> dict:
+    """Per-layer (batch, pad_time(max_len), d) self-attention K/V buffers;
+    rows past the current position are never read."""
+    max_len = pad_time(max_len or cfg.n_text_ctx)
+
+    def bufs():
+        return tuple(
+            torch.zeros(batch, max_len, cfg.n_text_state, dtype=cfg.compute_dtype,
+                        device=device)
+            for _ in range(cfg.n_text_layer)
+        )
+
+    return {"k": bufs(), "v": bufs()}
+
+
+def whisper_decode_step(
+    model: Whisper,
+    tokens: torch.Tensor,
+    pos: int,
+    self_kv: dict,
+    cross_kv: dict,
+) -> tuple[torch.Tensor, dict]:
+    """One KV-cached decode step (`whisper_decode_step` :1066, beam_groups 1).
+
+    tokens (N,) ids at position `pos` (a Python int). Updates `self_kv`
+    IN PLACE (row `pos` of every layer's k/v) and returns it with the
+    (N, n_vocab) float32 logits."""
+    dec = model.decoder
+    x = (dec.token_embedding.weight[tokens] + dec.positional_embedding[pos])
+    h = x.to(model.cfg.compute_dtype)
+    for l, block in enumerate(dec.blocks):
+        h = block.step(h, pos, self_kv["k"][l], self_kv["v"][l],
+                       cross_kv["k_packed"][l], cross_kv["v_packed"][l],
+                       cross_kv["t_audio"])
+    h = dec.ln(h)
+    return F.linear(h, dec.logits_weight).float(), self_kv
