@@ -1,0 +1,230 @@
+"""Training CLI (counterpart of the whisper path of `agacs_tpu/bin/train.py`).
+
+  python -m agacs_tpu_torch.bin.train \\
+      --config recipes/seame/conf/train_asr_whisper_small_adapter_csloss_2stage.yaml \\
+      --train_dir data/train --valid_dir data/valid --exp_dir exp/x \\
+      [--init_param exp/stage1/valid.acc.ave.params.npz] [--max_epoch N] \\
+      [--batch_bins N] [--override model_conf.cs_weight=0.02 ...] \\
+      [--freeze_param adapter] [--compute_dtype bfloat16] [--device cuda]
+
+One process, one device. Per epoch: numel batches (shuffled by seed +
+epoch), one optimizer step per `accum_grad` consecutive batches (a
+shorter group at the epoch's end steps with what it has), then a valid
+pass with CER/WER from the teacher-forced argmax. Writes `config.yaml`
+(the resolved config, which `agacs_tpu_torch.bin.decode --config` reads),
+`{n}epoch.params.npz` kept for the n best `valid.acc`, their average
+`valid.acc.ave.params.npz`, and `train_history.json`. The npz files hold
+the JAX package's flat layout, so `agacs_tpu` loads them too.
+
+The model is built in float32; the freeze preset's frozen Linear/Conv1d
+weights are then stored in the compute dtype, the trainable ones stay
+float32 masters. Not ported, and raising NotImplementedError: --resume,
+--tensor_parallel > 1, --optim_state_shard, --ckpt_backend orbax, batch
+types other than numel, freeze_quant int8, an OpenAI .pt --init_param.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import os
+import time
+
+import numpy as np
+import torch
+
+from agacs_tpu.train.error_calculator import ErrorCalculator
+from agacs_tpu_torch.data.collate import collate_batch, to_device
+from agacs_tpu_torch.data.dataset import ASRDataset
+from agacs_tpu_torch.data.sampler import num_elements_batches
+from agacs_tpu_torch.models.asr_model import check_trainable
+from agacs_tpu_torch.models.checkpoint import params_from_numpy
+from agacs_tpu_torch.models.whisper import Whisper, init_whisper_params
+from agacs_tpu_torch.train.checkpoint import CheckpointManager
+from agacs_tpu_torch.train.freeze import apply_freeze
+from agacs_tpu_torch.train.optim import build_optimizer
+from agacs_tpu_torch.train.trainer import make_eval_step, make_train_step
+from agacs_tpu_torch.utils.config import (
+    apply_overrides,
+    dump_resolved,
+    load_yaml,
+    model_config_from_dict,
+    optim_config_from_dict,
+    trainer_config_from_dict,
+)
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--config", required=True)
+    p.add_argument("--train_dir", required=True)
+    p.add_argument("--valid_dir", required=True)
+    p.add_argument("--exp_dir", required=True)
+    p.add_argument("--override", nargs="*", default=[])
+    p.add_argument("--freeze_param", default=None)
+    p.add_argument("--init_param", default=None,
+                   help=".params.npz checkpoint (JAX layout)")
+    p.add_argument("--resume", action="store_true", help="not ported: raises")
+    p.add_argument("--max_epoch", type=int, default=None)
+    p.add_argument("--batch_bins", type=int, default=None)
+    p.add_argument("--compute_dtype", default="bfloat16",
+                   choices=["bfloat16", "float32"])
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--tensor_parallel", type=int, default=1, help="not ported")
+    p.add_argument("--optim_state_shard", action="store_true", help="not ported")
+    p.add_argument("--batch_type", default=None)
+    p.add_argument("--ckpt_backend", default="npz", choices=["npz", "orbax"])
+    return p
+
+
+def check_supported(args, tcfg) -> None:
+    """Raise for the options this slice leaves unported."""
+    unported = {
+        "--resume": args.resume,
+        "--tensor_parallel > 1": args.tensor_parallel != 1,
+        "--optim_state_shard": args.optim_state_shard or tcfg.optim_state_shard,
+        "--ckpt_backend orbax": args.ckpt_backend == "orbax",
+        f"batch_type {args.batch_type or tcfg.batch_type!r}":
+            (args.batch_type or tcfg.batch_type) != "numel",
+        f"freeze_quant {tcfg.freeze_quant!r}": tcfg.freeze_quant not in (None, "none"),
+    }
+    init = args.init_param or tcfg.init_param
+    unported["an OpenAI .pt --init_param"] = bool(init) and init.endswith((".pt", ".pth"))
+    for what, bad in unported.items():
+        if bad:
+            raise NotImplementedError(f"{what} is not ported yet")
+
+
+def load_init_params(path: str, sd: dict, cfg) -> tuple[dict, int]:
+    """--init_param with ignore-mismatch semantics: each parameter present
+    in the npz with the same shape is loaded, the rest keep their init."""
+    with np.load(path) as data:
+        loaded = params_from_numpy({k: data[k] for k in data.files}, cfg, strict=False)
+    out = dict(sd)
+    n = 0
+    for name, t in loaded.items():
+        if name in out and out[name].shape == t.shape:
+            out[name] = t
+            n += 1
+    return out, n
+
+
+class _Mean:
+    """Per-epoch weighted means of step stats (weights: utterances)."""
+
+    def __init__(self):
+        self.sums: dict[str, float] = {}
+        self.weight = 0
+
+    def add(self, stats: dict, weight: int) -> None:
+        for k, v in stats.items():
+            self.sums[k] = self.sums.get(k, 0.0) + float(v) * weight
+        self.weight += weight
+
+    def result(self) -> dict:
+        return {k: v / max(self.weight, 1) for k, v in self.sums.items()}
+
+
+def main(argv: list[str] | None = None) -> dict:
+    args = build_argparser().parse_args(argv)
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
+    raw = apply_overrides(load_yaml(args.config), args.override)
+    tcfg = trainer_config_from_dict(raw)
+    check_supported(args, tcfg)
+    dtype = getattr(torch, args.compute_dtype)
+    device = torch.device(args.device)
+    cfg = model_config_from_dict(raw, compute_dtype=dtype)
+    check_trainable(cfg)
+    optim_cfg = optim_config_from_dict(raw)
+    max_epoch = args.max_epoch if args.max_epoch is not None else tcfg.max_epoch
+    batch_bins = args.batch_bins if args.batch_bins is not None else tcfg.batch_bins
+    freeze = args.freeze_param or tcfg.freeze_param
+    if freeze:
+        raw = {**raw, "freeze_param": freeze}
+    os.makedirs(args.exp_dir, exist_ok=True)
+    dump_resolved(os.path.join(args.exp_dir, "config.yaml"), raw)
+
+    train_ds, valid_ds = ASRDataset(args.train_dir), ASRDataset(args.valid_dir)
+    train_lens = {u: train_ds.num_samples(u) for u in train_ds.utt_ids}
+    valid_batches = num_elements_batches(
+        {u: valid_ds.num_samples(u) for u in valid_ds.utt_ids}, batch_bins)
+    logging.info("train: %d utts, valid: %d utts (%d batches)", len(train_ds),
+                 len(valid_ds), len(valid_batches))
+
+    sd = init_whisper_params(torch.Generator().manual_seed(tcfg.seed), cfg.whisper)
+    init_param = args.init_param or tcfg.init_param
+    if init_param:
+        sd, n = load_init_params(init_param, sd, cfg.whisper)
+        logging.info("init_param: loaded %d/%d parameters from %s", n, len(sd),
+                     init_param)
+    model = Whisper.from_state_dict(cfg.whisper, sd, device=device,
+                                    param_dtype=torch.float32)
+    params = apply_freeze(model, freeze)
+    model.cast_frozen_(dtype)
+    logging.info("freeze_param=%s: %.2fM / %.2fM trainable", freeze,
+                 sum(p.numel() for p in params) / 1e6,
+                 sum(p.numel() for p in model.parameters()) / 1e6)
+    optimizer, scheduler = build_optimizer(params, optim_cfg)
+    train_step = make_train_step(
+        model, cfg, optimizer, scheduler, grad_clip=optim_cfg.grad_clip,
+        generator=torch.Generator().manual_seed(tcfg.seed + 1))
+    eval_step = make_eval_step(model, cfg)
+    err_calc = ErrorCalculator(train_ds.tokenizer.id_to_token)
+    mgr = CheckpointManager(args.exp_dir, keep_nbest=tcfg.keep_nbest_models,
+                            criterion=tcfg.best_model_criterion)
+
+    def batch_of(ds, utts):
+        return to_device(collate_batch([ds[u] for u in utts]), device)
+
+    history: dict = {}
+    nonfinite = 0  # skipped steps so far (the step's cumulative counter)
+    for epoch in range(1, max_epoch + 1):
+        t0 = time.time()
+        batches = num_elements_batches(train_lens, batch_bins, shuffle_batches=True,
+                                       seed=tcfg.seed + epoch)
+        train = _Mean()
+        n_steps, nonfinite_before = 0, nonfinite
+        for i in range(0, len(batches), tcfg.accum_grad):
+            group = batches[i: i + tcfg.accum_grad]
+            stats = train_step([batch_of(train_ds, utts) for utts in group])
+            nonfinite = int(stats["grad_nonfinite_total"])
+            n_steps += 1
+            train.add(stats, sum(len(u) for u in group))
+            if n_steps % tcfg.log_interval == 0:
+                logging.info("train epoch %d step %d: %s", epoch, n_steps,
+                             ", ".join(f"{k}={float(v):.4g}" for k, v in sorted(stats.items())))
+        if n_steps and nonfinite - nonfinite_before >= n_steps:
+            raise RuntimeError(f"epoch {epoch}: all {n_steps} steps had non-finite "
+                               "gradients; aborting (check lr/data)")
+
+        valid = _Mean()
+        for utts in valid_batches:
+            stats, (ys_hat, ys_out) = eval_step(batch_of(valid_ds, utts))
+            stats = {k: float(v) for k, v in stats.items()}
+            cer, wer = err_calc(ys_hat.cpu().numpy(), ys_out.cpu().numpy())
+            if cer is not None:
+                stats["cer"] = cer
+            if wer is not None:
+                stats["wer"] = wer
+            valid.add(stats, len(utts))
+        history[epoch] = {"train": train.result(), "valid": valid.result()}
+        mgr.save_epoch(epoch, model, history)
+        logging.info("epoch %d done in %.1fs: valid %s", epoch, time.time() - t0,
+                     ", ".join(f"{k}={v:.4g}" for k, v in sorted(history[epoch]["valid"].items())))
+        if tcfg.patience is not None:
+            best = mgr.best_epoch(history)
+            if best is not None and epoch - best >= int(tcfg.patience):
+                logging.info("early stop: no improvement for %s epochs", tcfg.patience)
+                break
+
+    ave = mgr.average_nbest(history)
+    with open(os.path.join(args.exp_dir, "train_history.json"), "w") as f:
+        json.dump({str(k): v for k, v in history.items()}, f, indent=1)
+    logging.info("done; n-best average written to %s", ave)
+    return {"history": history, "exp_dir": args.exp_dir, "ave": ave}
+
+
+if __name__ == "__main__":
+    main()

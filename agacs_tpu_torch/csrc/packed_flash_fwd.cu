@@ -25,6 +25,11 @@
 // of lanes runs the softmax of one row. The key tail (T = 750 is not a
 // multiple of 64) is masked to -inf. wgmma, TMA and a deeper pipeline are
 // later work: this version is the simple, correct one.
+//
+// Under autograd the kernel also writes each row's f32 log-sum-exp,
+// lse = m + log(l), to a (B, H, T) buffer: the row statistics that the
+// backward kernel (packed_flash_bwd.cu) recomputes p from. The serving
+// path passes a null pointer and writes nothing extra.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -68,7 +73,7 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0,
 __global__ void __launch_bounds__(THREADS)
 packed_flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, bf16* __restrict__ o,
-                        int T, int H, float scale) {
+                        float* __restrict__ lse, int T, int H, float scale) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -166,15 +171,18 @@ packed_flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int j = 0; j < 32; j += 2)
       *reinterpret_cast<__nv_bfloat162*>(dst + j) =
           __floats2bfloat162_rn(acc[j] / l_i, acc[j + 1] / l_i);
+    if (lse != nullptr && (lane & 1) == 0)
+      lse[((size_t)b * H + h) * T + row] = m_i + logf(l_i);
   }
 }
 
 }  // namespace
 
-// q, k, v, o: (B, T, H*64) bf16, contiguous, 16-byte aligned.
-// Returns cudaGetLastError() after the launch.
+// q, k, v, o: (B, T, H*64) bf16, contiguous, 16-byte aligned; lse: null,
+// or (B, H, T) f32. Returns cudaGetLastError() after the launch.
 extern "C" int packed_flash_fwd(const void* q, const void* k, const void* v,
-                                void* o, int B, int T, int H, void* stream) {
+                                void* o, void* lse, int B, int T, int H,
+                                void* stream) {
   const int smem = (int)sizeof(Smem);  // 51200 bytes: above the 48 KB default
   // Set on every launch: the attribute is per device, and it is cheap.
   const cudaError_t attr = cudaFuncSetAttribute(
@@ -182,7 +190,7 @@ extern "C" int packed_flash_fwd(const void* q, const void* k, const void* v,
   if (attr != cudaSuccess) return (int)attr;
   dim3 grid((T + BQ - 1) / BQ, H, B);
   packed_flash_fwd_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, T, H,
-      0.125f /* 64^-0.5 */);
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse, T,
+      H, 0.125f /* 64^-0.5 */);
   return (int)cudaGetLastError();
 }

@@ -1,25 +1,89 @@
-"""ASR model config and encoder front half (counterpart of
-`agacs_tpu/models/asr_model.py`), serving fields only: waveform ->
-log-mel -> Whisper encoder. SpecAug, the losses and the CTC head belong
-to the training path and are not ported yet."""
+"""ASR model config, encoder front half and training forward (counterpart
+of `agacs_tpu/models/asr_model.py`): waveform -> log-mel (+SpecAug in
+training) -> Whisper encoder -> teacher-forced decoder with the language
+columns -> label-smoothed CE + CS loss.
+
+  loss = loss_att;  with cs_weight: loss = cs_weight * loss_cs + loss_att
+  (the reference overwrites the CTC mix here, espnet_model.py:694; the
+  JAX package keeps that quirk at asr_model.py:247-248 and so does this
+  port, though its CTC branch is not ported).
+
+Not ported, and raising NotImplementedError when asked for: the CTC head
+(`ctc_weight != 0`, TPU kernel K4), `cs_loss_type: lid_ce` and the
+learnable `estimate_c`.
+
+Batch layout (tensors on the model's device):
+  speech (B, S) float32, speech_lengths (B,), text (B, T) ids -1 padded,
+  cs_labels (B, T+1) int8 (needed when cs_weight != 0).
+"""
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
-from agacs_tpu_torch.models.whisper import Whisper, WhisperConfig, encoder_olens
+from agacs_tpu_torch.adapt.cs_loss import REFERENCE_50PCT_HEAD_MASK, cs_attention_loss
+from agacs_tpu_torch.models.whisper import (
+    Whisper,
+    WhisperConfig,
+    encoder_olens,
+    whisper_decode,
+)
 from agacs_tpu_torch.ops.logmel import WhisperAudioConfig, log_mel_spectrogram
+from agacs_tpu_torch.ops.specaug import SpecAugConfig, specaug
+from agacs_tpu_torch.train.losses import (
+    IGNORE_ID,
+    add_sos_eos,
+    label_smoothing_loss,
+    th_accuracy,
+)
 
 
 @dataclasses.dataclass(frozen=True)
 class ASRModelConfig:
     whisper: WhisperConfig
     ctc_weight: float = 0.0
+    cs_weight: float = 0.0
+    cs_loss_type: str = "attention"
+    c_val_attention: float = 0.6
+    lsm_weight: float = 0.1
+    length_normalized_loss: bool = False
+    src_layer: int = 1  # 1-based, like the YAML configs
     sos: int = 50258
     eos: int = 50257
+    ignore_id: int = IGNORE_ID
+    use_specaug: bool = True
+    estimate_c: bool = False
+    specaug: SpecAugConfig = SpecAugConfig()
     audio: WhisperAudioConfig = WhisperAudioConfig()
+    # (L, h) 0/1 head mask of the CS loss, tuple of tuples; None = the
+    # reference's 50% mask for 12 x 12 decoders, all heads otherwise
+    head_mask: tuple | None = None
+
+    def head_mask_array(self) -> np.ndarray:
+        if self.head_mask is not None:
+            return np.asarray(self.head_mask, np.float32)
+        n_l, n_h = self.whisper.n_text_layer, self.whisper.n_text_head
+        if (n_l, n_h) == (12, 12):
+            return REFERENCE_50PCT_HEAD_MASK
+        return np.ones((n_l, n_h), np.float32)
+
+
+def check_trainable(cfg: ASRModelConfig) -> None:
+    """Raise for the training options the port cannot run yet."""
+    if cfg.ctc_weight != 0.0:
+        raise NotImplementedError(
+            "ctc_weight != 0: the CTC head (TPU kernel K4, vocab_lse) is not "
+            "ported yet")
+    if cfg.cs_weight != 0.0 and cfg.cs_loss_type != "attention":
+        raise NotImplementedError(
+            f"cs_loss_type {cfg.cs_loss_type!r}: only the shipped 'attention' "
+            "CS loss is ported")
+    if cfg.estimate_c:
+        raise NotImplementedError("estimate_c (a learnable c_val) is not ported yet")
 
 
 def encode(
@@ -27,8 +91,61 @@ def encode(
     cfg: ASRModelConfig,
     speech: torch.Tensor,
     speech_lengths: torch.Tensor,
+    train: bool = False,
+    generator: torch.Generator | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(B, S) waveform -> (encoder_out (B, T_enc, d), encoder_out_lens (B,)),
-    the `train=False` path of the JAX `encode`."""
+    """(B, S) waveform -> (encoder_out (B, T_enc, d), encoder_out_lens (B,)).
+    SpecAug runs when `train`, `cfg.use_specaug` and a generator is given
+    (its draws come from `generator`)."""
     feats, feat_lens = log_mel_spectrogram(speech, speech_lengths, cfg.audio)
+    if train and cfg.use_specaug and generator is not None:
+        feats = specaug(generator, feats, cfg.specaug)
     return model.encoder(feats), encoder_olens(feat_lens, cfg.whisper)
+
+
+def forward(
+    model: Whisper,
+    cfg: ASRModelConfig,
+    batch: dict,
+    train: bool = True,
+    generator: torch.Generator | None = None,
+    return_preds: bool = False,
+):
+    """Training forward: (loss, stats) with stats loss_att, acc, loss_cs
+    (when cs_weight != 0) and loss, all 0-dim tensors; with
+    `return_preds` also (argmax ids, ys_out) for the eval epoch."""
+    check_trainable(cfg)
+    text = batch["text"]
+    enc_out, _ = encode(model, cfg, batch["speech"], batch["speech_lengths"],
+                        train=train, generator=generator)
+    ys_in, ys_out = add_sos_eos(text, cfg.sos, cfg.eos, cfg.ignore_id)
+    collect = cfg.cs_weight != 0.0
+    logits, aux = whisper_decode(model, ys_in, enc_out, src_layer=cfg.src_layer - 1,
+                                 collect_lang_cols=collect)
+    loss_att = label_smoothing_loss(logits, ys_out, cfg.lsm_weight, cfg.ignore_id,
+                                    cfg.length_normalized_loss)
+    stats = {"loss_att": loss_att, "acc": th_accuracy(logits, ys_out, cfg.ignore_id)}
+    loss = loss_att
+    if collect:
+        head_mask = torch.from_numpy(cfg.head_mask_array()[cfg.src_layer - 1:])
+        loss_cs = cs_attention_loss(aux["qk_cols"], batch["cs_labels"],
+                                    head_mask.to(logits.device), cfg.c_val_attention,
+                                    layer_offset=cfg.src_layer - 1)
+        loss = cfg.cs_weight * loss_cs + loss_att
+        stats["loss_cs"] = loss_cs
+    stats["loss"] = loss
+    if return_preds:
+        return loss, stats, (logits.argmax(-1), ys_out)
+    return loss, stats
+
+
+def nll(model: Whisper, cfg: ASRModelConfig, encoder_out: torch.Tensor,
+        ys_pad: torch.Tensor) -> torch.Tensor:
+    """Per-utterance negative log-likelihood of the attention decoder (B,):
+    teacher-forced logits, unsmoothed CE per token, ignore positions 0."""
+    ys_in, ys_out = add_sos_eos(ys_pad, cfg.sos, cfg.eos, cfg.ignore_id)
+    logits, _ = whisper_decode(model, ys_in, encoder_out)
+    ignore = ys_out == cfg.ignore_id
+    tok = F.cross_entropy(logits.float().transpose(1, 2),
+                          torch.where(ignore, 0, ys_out), reduction="none")
+    return torch.where(ignore, 0.0, tok).sum(-1)

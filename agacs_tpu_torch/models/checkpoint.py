@@ -1,13 +1,18 @@
-"""Weight converter: agacs_tpu (JAX) params -> this package's state dict.
+"""Weight converter between agacs_tpu (JAX) params and this package's state
+dict, both ways.
 
-Takes either
+`params_from_numpy` takes either
   * the JAX param pytree as numpy arrays (`jax.tree.map(np.asarray, params)`),
   * or the flat "/"-joined mapping that `agacs_tpu/train/checkpoint.py`
     `save_pytree` writes to `.params.npz` (`np.load(path)`), with keys like
     `decoder/blocks/attn/query/w` and a leading layer axis L,
-and returns float32 CPU tensors under OpenAI's names. Translations: JAX
-linear (in, out) -> nn.Linear (out, in); conv (3, in, out) -> nn.Conv1d
-(out, in, 3); stacked (L, ...) leaves -> `blocks.{i}.*`. Checkpoints the
+and returns float32 CPU tensors under OpenAI's names. `numpy_from_params`
+is its inverse: a state dict -> that flat mapping, which
+`agacs_tpu.train.checkpoint.load_pytree_like` reads.
+
+One name table (`jax_leaf`) serves both directions. Translations: JAX
+linear (in, out) <-> nn.Linear (out, in); conv (3, in, out) <-> nn.Conv1d
+(out, in, 3); stacked (L, ...) leaves <-> `blocks.{i}.*`. Checkpoints the
 port cannot run (int8 trunk `w_q`, serving-quantized `token_emb_q` /
 `logits_w_q`, PE attention, side networks) raise.
 """
@@ -19,7 +24,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from agacs_tpu_torch.models.whisper import WhisperConfig, check_supported
+from agacs_tpu_torch.models.whisper import Whisper, WhisperConfig, check_supported
 
 _UNSUPPORTED = {
     "w_q": "the int8 frozen trunk",
@@ -29,79 +34,93 @@ _UNSUPPORTED = {
     "encoder_side": "side networks",
     "decoder_side": "side networks",
 }
+_RENAME = {".mlp.0.": ".mlp.fc1.", ".mlp.2.": ".mlp.fc2.",
+           ".model.0.": ".down.", ".model.2.": ".up."}
+_SPECIAL = {"decoder.token_embedding.weight": "decoder/token_emb",
+            "decoder.positional_embedding": "decoder/pos_emb"}
 
 
-def _nest(flat: Mapping[str, Any]) -> dict:
-    tree: dict = {}
-    for key in flat:
-        node = tree
-        *parents, leaf = key.split("/")
-        for p in parents:
-            node = node.setdefault(p, {})
-        node[leaf] = flat[key]
-    return tree
+def jax_leaf(name: str) -> tuple[str, int | None, str]:
+    """State-dict name -> (flat JAX key, layer index or None, layout), e.g.
+    `encoder.blocks.3.adapter_attn.model.0.weight` ->
+    (`encoder/blocks/adapter_attn/down/w`, 3, "linear"). Layouts: "linear"
+    (transposed), "conv" ((3, in, out) vs (out, in, 3)), "plain"."""
+    if name in _SPECIAL:
+        return _SPECIAL[name], None, "plain"
+    parts = name.split(".")
+    layer = int(parts.pop(2)) if len(parts) > 2 and parts[1] == "blocks" else None
+    path = ".".join(parts)
+    for a, b in _RENAME.items():
+        path = path.replace(a, b)
+    *mods, leaf = path.split(".")
+    leaf = {"weight": "w", "bias": "b"}[leaf]
+    layout = "plain"
+    if leaf == "w" and mods[-1] in ("conv1", "conv2"):
+        layout = "conv"
+    elif leaf == "w" and not (mods[-1].endswith("ln") or mods[-1] == "ln_post"):
+        layout = "linear"
+    return "/".join(mods + [leaf]), layer, layout
 
 
-def _check_keys(tree: Mapping, path: str = "") -> None:
+def _flatten(tree: Mapping[str, Any], prefix: str = "") -> dict[str, Any]:
+    out = {}
     for key, val in tree.items():
-        if key in _UNSUPPORTED:
-            raise NotImplementedError(
-                f"{path}{key}: {_UNSUPPORTED[key]} is not ported yet")
         if isinstance(val, Mapping):
-            _check_keys(val, f"{path}{key}/")
+            out.update(_flatten(val, f"{prefix}{key}/"))
+        else:
+            out[prefix + key] = val
+    return out
 
 
-def _t(a) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, dtype=np.float32))
+def _check_keys(flat: Mapping[str, Any]) -> None:
+    for key in flat:
+        for part in key.split("/"):
+            if part in _UNSUPPORTED:
+                raise NotImplementedError(
+                    f"{key}: {_UNSUPPORTED[part]} is not ported yet")
 
 
-def _linear(sd: dict, name: str, p: Mapping, i: int) -> None:
-    sd[name + ".weight"] = _t(p["w"][i]).T.contiguous()
-    if "b" in p:
-        sd[name + ".bias"] = _t(p["b"][i])
-
-
-def _ln(sd: dict, name: str, p: Mapping, i: int | None = None) -> None:
-    pick = (lambda a: a) if i is None else (lambda a: a[i])
-    sd[name + ".weight"] = _t(pick(p["w"]))
-    sd[name + ".bias"] = _t(pick(p["b"]))
-
-
-def _blocks(sd: dict, prefix: str, blocks: Mapping, n_layer: int) -> None:
-    for i in range(n_layer):
-        pre = f"{prefix}.blocks.{i}."
-        for attn in ("attn", "cross_attn"):
-            if attn not in blocks:
-                continue
-            for proj in ("query", "key", "value", "out"):
-                _linear(sd, pre + f"{attn}.{proj}", blocks[attn][proj], i)
-            _ln(sd, pre + f"{attn}_ln", blocks[f"{attn}_ln"], i)
-        _linear(sd, pre + "mlp.0", blocks["mlp"]["fc1"], i)
-        _linear(sd, pre + "mlp.2", blocks["mlp"]["fc2"], i)
-        _ln(sd, pre + "mlp_ln", blocks["mlp_ln"], i)
-        for ad in ("adapter_attn", "adapter_mlp"):
-            if ad in blocks:
-                _linear(sd, pre + f"{ad}.model.0", blocks[ad]["down"], i)
-                _linear(sd, pre + f"{ad}.model.2", blocks[ad]["up"], i)
-                _ln(sd, pre + f"{ad}_ln", blocks[f"{ad}_ln"], i)
-
-
-def params_from_numpy(tree: Mapping[str, Any], cfg: WhisperConfig) -> dict:
-    """JAX params (nested tree or flat save_pytree mapping) -> state dict."""
+def params_from_numpy(tree: Mapping[str, Any], cfg: WhisperConfig,
+                      strict: bool = True) -> dict:
+    """JAX params (nested tree or flat save_pytree mapping) -> state dict.
+    With strict=False, names whose leaf is missing are left out (for
+    init_param's keep-the-init semantics)."""
     check_supported(cfg)
-    if not any(isinstance(v, Mapping) for v in tree.values()):
-        tree = _nest({k: tree[k] for k in tree})
-    _check_keys(tree)
-    enc, dec = tree["encoder"], tree["decoder"]
+    flat = _flatten(tree) if any(isinstance(v, Mapping) for v in tree.values()) \
+        else {k: tree[k] for k in tree}
+    _check_keys(flat)
     sd = {}
-    for conv in ("conv1", "conv2"):
-        sd[f"encoder.{conv}.weight"] = _t(enc[conv]["w"]).permute(2, 1, 0).contiguous()
-        sd[f"encoder.{conv}.bias"] = _t(enc[conv]["b"])
-    _blocks(sd, "encoder", enc["blocks"], cfg.n_audio_layer)
-    _ln(sd, "encoder.ln_post", enc["ln_post"])
-    # token_emb rows may be padded to a tensor-parallel multiple
-    sd["decoder.token_embedding.weight"] = _t(dec["token_emb"][: cfg.n_vocab])
-    sd["decoder.positional_embedding"] = _t(dec["pos_emb"])
-    _blocks(sd, "decoder", dec["blocks"], cfg.n_text_layer)
-    _ln(sd, "decoder.ln", dec["ln"])
+    for name in Whisper(cfg, device="meta").state_dict():
+        key, layer, layout = jax_leaf(name)
+        if key not in flat and not strict:
+            continue
+        a = np.array(flat[key] if layer is None else flat[key][layer], np.float32)
+        if key == "decoder/token_emb":
+            a = a[: cfg.n_vocab]  # rows may be padded to a tensor-parallel multiple
+        if layout == "linear":
+            a = a.T
+        elif layout == "conv":
+            a = a.transpose(2, 1, 0)
+        sd[name] = torch.from_numpy(np.ascontiguousarray(a))
     return sd
+
+
+def numpy_from_params(state_dict: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """State dict -> the flat "/"-joined float32 mapping `save_pytree`
+    writes (per-layer tensors stacked on a leading L axis)."""
+    out: dict[str, np.ndarray] = {}
+    layers: dict[str, dict[int, np.ndarray]] = {}
+    for name, t in state_dict.items():
+        key, layer, layout = jax_leaf(name)
+        a = t.detach().float().cpu().numpy()
+        if layout == "linear":
+            a = a.T
+        elif layout == "conv":
+            a = a.transpose(2, 1, 0)
+        if layer is None:
+            out[key] = np.ascontiguousarray(a)
+        else:
+            layers.setdefault(key, {})[layer] = a
+    for key, per in layers.items():
+        out[key] = np.stack([per[i] for i in range(len(per))])
+    return out

@@ -1,25 +1,33 @@
-"""Whisper encoder and KV-cached decoder (counterpart of
-`agacs_tpu/models/whisper.py`), as nn.Modules with OpenAI's parameter
-names, so `encoder.blocks.3.attn.query.weight` is where an OpenAI
-checkpoint puts it.
+"""Whisper encoder, teacher-forced decoder and KV-cached decoder
+(counterpart of `agacs_tpu/models/whisper.py`), as nn.Modules with
+OpenAI's parameter names, so `encoder.blocks.3.attn.query.weight` is where
+an OpenAI checkpoint puts it.
 
 Counterparts of the JAX functions:
 
   layer_norm    -> LayerNorm (float32 with float32 affine, cast back)
-  linear        -> nn.Linear in the compute dtype (weights cast once, at load)
+  linear        -> Linear: weight and bias cast to the input's dtype at use
   gelu          -> nn.GELU / F.gelu, exact erf form
-  conv1d        -> nn.Conv1d, padding 1 (cuDNN's TF32 switched off)
+  conv1d        -> Conv1d, padding 1, cast at use (cuDNN's TF32 switched off)
   sinusoids     -> sinusoids
-  mha           -> MultiHeadAttention (non-causal self- and cross-attention)
+  mha           -> MultiHeadAttention (non-causal self- and cross-attention;
+                   `causal_self` for the decoder, with the language columns)
   adapter_fwd   -> Adapter
   mlp_fwd       -> the `mlp` Sequential of a block (dense branch)
-  residual_block -> ResidualAttentionBlock.forward (encoder) / .step (decoder)
-  whisper_encode, encoder_olens, init_whisper_params, precompute_cross_kv,
-  init_self_kv_cache, whisper_decode_step -> functions of the same names
+  residual_block -> ResidualAttentionBlock.forward / .step (one cached token)
+  whisper_encode, encoder_olens, init_whisper_params, whisper_decode,
+  precompute_cross_kv, init_self_kv_cache, whisper_decode_step -> functions
+  of the same names
 
-On a CUDA tensor the encoder self-attention runs kernel K1
+Parameters are stored in `param_dtype` (default: the compute dtype, what
+the serving path loads). Training builds the model in float32 and casts
+only the frozen linears to the compute dtype (`Whisper.cast_frozen_`), so
+the trainable parameters stay float32 masters that each use casts, as JAX
+keeps trainable leaves float32 (`train/trainer.py:72-87`).
+
+On a CUDA tensor the encoder self-attention runs kernels K1f/K1b
 (`ops/flash_train.py`) and the decode step's self- and cross-attention
-run kernel K3 (`ops/decode_attn.py`); on a CPU tensor both take their
+run kernel K3 (`ops/decode_attn.py`); on a CPU tensor they take their
 plain versions. Configurations the port cannot run yet (PE attention,
 side networks, int8 cross-KV) raise when the model is built.
 """
@@ -34,7 +42,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from agacs_tpu_torch.ops.attention import packed_mha
+from agacs_tpu_torch.ops.attention import (
+    einsum_mha,
+    lang_col_scores,
+    merge_heads,
+    packed_mha,
+    split_heads,
+)
 from agacs_tpu_torch.ops.decode_attn import decode_cache_attention, pad_time
 from agacs_tpu_torch.ops.flash_train import packed_flash_mha
 from agacs_tpu_torch.ops.logmel import full_fp32
@@ -140,6 +154,24 @@ class LayerNorm(nn.LayerNorm):
         return super().forward(x.float()).to(x.dtype)
 
 
+class Linear(nn.Linear):
+    """nn.Linear whose weight and bias are cast to the input's dtype at use
+    (JAX `linear`): float32 trainable masters under bf16 activations; a
+    no-op for weights already stored in the compute dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), b)
+
+
+class Conv1d(nn.Conv1d):
+    """nn.Conv1d with the same cast at use (JAX `conv1d`)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), b)
+
+
 def sinusoids(length: int, channels: int, max_timescale: float = 10000.0) -> np.ndarray:
     """Sinusoidal positions (model.py:53-59); a constant, not a parameter."""
     assert channels % 2 == 0
@@ -150,21 +182,22 @@ def sinusoids(length: int, channels: int, max_timescale: float = 10000.0) -> np.
 
 
 class MultiHeadAttention(nn.Module):
-    """`mha` (:352) for non-causal self-attention and cross-attention.
+    """`mha` (:352).
 
-    Self-attention goes through `packed_flash_mha` on the packed (B, T, D)
-    projections (kernel K1 on the card). Cross-attention (the
-    teacher-forced form; the decode step has its own cached path) is the
-    head-split plain attention with d_head**-0.25 on q and k."""
+    Non-causal self-attention (the encoder) goes through `packed_flash_mha`
+    on the packed (B, T, D) projections (kernels K1f/K1b on the card).
+    Cross-attention (the teacher-forced form; the decode step has its own
+    cached path) and the decoder's causal self-attention (`causal_self`)
+    are the head-split plain attention with d_head**-0.25 on q and k."""
 
     def __init__(self, d: int, n_head: int, dtype: torch.dtype, device=None):
         super().__init__()
         self.n_head = n_head
         kw = dict(dtype=dtype, device=device)
-        self.query = nn.Linear(d, d, **kw)
-        self.key = nn.Linear(d, d, bias=False, **kw)
-        self.value = nn.Linear(d, d, **kw)
-        self.out = nn.Linear(d, d, **kw)
+        self.query = Linear(d, d, **kw)
+        self.key = Linear(d, d, bias=False, **kw)
+        self.value = Linear(d, d, **kw)
+        self.out = Linear(d, d, **kw)
 
     def forward(self, x: torch.Tensor, xa: torch.Tensor | None = None) -> torch.Tensor:
         q = self.query(x)
@@ -172,6 +205,18 @@ class MultiHeadAttention(nn.Module):
         k, v = self.key(kv_in), self.value(kv_in)
         attend = packed_flash_mha if xa is None else packed_mha
         return self.out(attend(q, k, v, self.n_head))
+
+    def causal_self(self, x: torch.Tensor, lang_cols: bool = False
+                    ) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """Causal self-attention (-inf above the diagonal) and, with
+        `lang_cols`, its pre-softmax scores at key columns 1:3 (B, h, T, 2),
+        computed analytically against the two language-token keys
+        (`mha` :436-446), so no (T, T) map is kept for them."""
+        sc = (x.shape[-1] // self.n_head) ** -0.25
+        qh = split_heads(self.query(x), self.n_head) * sc
+        kh = split_heads(self.key(x), self.n_head) * sc
+        o = einsum_mha(qh, kh, split_heads(self.value(x), self.n_head), causal=True)
+        return self.out(merge_heads(o)), lang_col_scores(qh, kh) if lang_cols else None
 
 
 class Adapter(nn.Module):
@@ -181,7 +226,7 @@ class Adapter(nn.Module):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         self.model = nn.Sequential(
-            nn.Linear(d, d // 4, **kw), nn.GELU(), nn.Linear(d // 4, d, **kw))
+            Linear(d, d // 4, **kw), nn.GELU(), Linear(d // 4, d, **kw))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x + self.model(x)
@@ -189,13 +234,14 @@ class Adapter(nn.Module):
 
 class ResidualAttentionBlock(nn.Module):
     """`residual_block` (:506): self-attn [+adapter+ln] [+cross-attn] + mlp
-    [+adapter+ln]. Encoder blocks run `forward`; decoder blocks run `step`
-    (one cached token); the teacher-forced decoder forward is not ported."""
+    [+adapter+ln]. `forward` runs a whole sequence (the encoder, and the
+    teacher-forced decoder with causal self-attention); decoder blocks run
+    `step` for one cached token."""
 
     def __init__(self, d: int, n_head: int, cfg: WhisperConfig, cross: bool,
-                 device=None):
+                 device=None, dtype: torch.dtype | None = None):
         super().__init__()
-        dtype = cfg.compute_dtype
+        dtype = dtype or cfg.compute_dtype
         kw = dict(dtype=dtype, device=device)
         self.n_head = n_head
         self.attn = MultiHeadAttention(d, n_head, dtype, device)
@@ -203,7 +249,7 @@ class ResidualAttentionBlock(nn.Module):
         self.cross_attn = MultiHeadAttention(d, n_head, dtype, device) if cross else None
         self.cross_attn_ln = LayerNorm(d, device=device) if cross else None
         self.mlp = nn.Sequential(
-            nn.Linear(d, 4 * d, **kw), nn.GELU(), nn.Linear(4 * d, d, **kw))
+            Linear(d, 4 * d, **kw), nn.GELU(), Linear(4 * d, d, **kw))
         self.mlp_ln = LayerNorm(d, device=device)
         self.adapter = cfg.adapter
         if cfg.adapter:
@@ -212,18 +258,26 @@ class ResidualAttentionBlock(nn.Module):
             self.adapter_mlp = Adapter(d, dtype, device)
             self.adapter_mlp_ln = LayerNorm(d, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.cross_attn is not None:
-            raise NotImplementedError(
-                "the teacher-forced decoder forward is not ported; decode "
-                "with whisper_decode_step")
-        x = x + self.attn(self.attn_ln(x))
+    def forward(self, x: torch.Tensor, xa: torch.Tensor | None = None,
+                lang_cols: bool = False) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """x (B, T, d) -> (x, qk_cols). Encoder blocks: non-causal
+        self-attention, qk_cols None. Decoder blocks: causal self-attention
+        over x, cross-attention over xa (B, T_audio, d), and with
+        `lang_cols` the (B, h, T, 2) language-column scores."""
+        qk_cols = None
+        if self.cross_attn is None:
+            x = x + self.attn(self.attn_ln(x))
+        else:
+            a, qk_cols = self.attn.causal_self(self.attn_ln(x), lang_cols)
+            x = x + a
         if self.adapter:
             x = self.adapter_attn_ln(self.adapter_attn(x))
+        if self.cross_attn is not None:
+            x = x + self.cross_attn(self.cross_attn_ln(x), xa)
         x = x + self.mlp(self.mlp_ln(x))
         if self.adapter:
             x = self.adapter_mlp_ln(self.adapter_mlp(x))
-        return x
+        return x, qk_cols
 
     def step(self, h, pos: int, k_cache, v_cache, cross_k, cross_v, t_audio: int):
         """One decode token through this decoder block: h (N, d).
@@ -259,22 +313,24 @@ class ResidualAttentionBlock(nn.Module):
 class WhisperEncoder(nn.Module):
     """`whisper_encode` (:709): conv stem, sinusoid positions, blocks, ln_post."""
 
-    def __init__(self, cfg: WhisperConfig, device=None):
+    def __init__(self, cfg: WhisperConfig, device=None,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.cfg = cfg
-        d, dtype = cfg.n_audio_state, cfg.compute_dtype
-        kw = dict(dtype=dtype, device=device)
-        self.conv1 = nn.Conv1d(cfg.n_mels, d, 3, padding=1, **kw)
-        self.conv2 = nn.Conv1d(d, d, 3, stride=2, padding=1, **kw)
+        d = cfg.n_audio_state
+        kw = dict(dtype=dtype or cfg.compute_dtype, device=device)
+        self.conv1 = Conv1d(cfg.n_mels, d, 3, padding=1, **kw)
+        self.conv2 = Conv1d(d, d, 3, stride=2, padding=1, **kw)
         self.register_buffer(
             "positional_embedding",
-            torch.from_numpy(sinusoids(cfg.n_audio_ctx, d)).to(device, dtype),
+            torch.from_numpy(sinusoids(cfg.n_audio_ctx, d)).to(device,
+                                                                cfg.compute_dtype),
             persistent=False,
         )
         enc_cfg = cfg.part("encoder")
         self.blocks = nn.ModuleList(
             ResidualAttentionBlock(d, cfg.n_audio_head, enc_cfg, cross=False,
-                                   device=device)
+                                   device=device, dtype=dtype)
             for _ in range(cfg.n_audio_layer)
         )
         self.ln_post = LayerNorm(d, device=device)
@@ -289,18 +345,21 @@ class WhisperEncoder(nn.Module):
         x = x.transpose(1, 2)[:, : self.cfg.n_audio_ctx].contiguous()
         x = x + self.positional_embedding[: x.shape[1]]
         for block in self.blocks:
-            x = block(x)
+            x, _ = block(x)
         return self.ln_post(x)
 
 
 class WhisperDecoder(nn.Module):
     """Token/position embeddings, decoder blocks and the output head.
 
-    The embedding table stays float32 (the step adds emb + pos in float32
-    before the cast, as the JAX step does); the logits use a copy of it in
-    the compute dtype, made once when weights are loaded."""
+    The embedding table stays float32 (emb + pos are added in float32
+    before the cast, as in JAX). The logits use the table in the compute
+    dtype (`logits_w`): a copy made once when weights are loaded while the
+    table is frozen, a cast in the forward when it trains, so the copy is
+    never stale."""
 
-    def __init__(self, cfg: WhisperConfig, device=None):
+    def __init__(self, cfg: WhisperConfig, device=None,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.cfg = cfg
         d = cfg.n_text_state
@@ -310,7 +369,7 @@ class WhisperDecoder(nn.Module):
         dec_cfg = cfg.part("decoder")
         self.blocks = nn.ModuleList(
             ResidualAttentionBlock(d, cfg.n_text_head, dec_cfg, cross=True,
-                                   device=device)
+                                   device=device, dtype=dtype)
             for _ in range(cfg.n_text_layer)
         )
         self.ln = LayerNorm(d, device=device)
@@ -320,30 +379,84 @@ class WhisperDecoder(nn.Module):
             lambda module, _keys: module.cast_logits_weight())
 
     def cast_logits_weight(self) -> None:
-        w = self.token_embedding.weight.detach()
-        self.logits_weight = w if w.dtype == self.cfg.compute_dtype \
-            else w.to(self.cfg.compute_dtype)
+        w = self.token_embedding.weight
+        self._logits_version = w._version
+        self.logits_weight = w.detach().to(self.cfg.compute_dtype)
+
+    def logits_w(self) -> torch.Tensor:
+        """The output head's weight in the compute dtype: cast in the
+        forward when the table takes a gradient, else the cached copy,
+        made anew when the table has changed since (an optimizer step)."""
+        w = self.token_embedding.weight
+        if w.requires_grad and torch.is_grad_enabled():
+            return w.to(self.cfg.compute_dtype)
+        if w._version != self._logits_version:
+            self.cast_logits_weight()
+        return self.logits_weight
 
 
 class Whisper(nn.Module):
-    def __init__(self, cfg: WhisperConfig, device=None):
+    def __init__(self, cfg: WhisperConfig, device=None,
+                 param_dtype: torch.dtype | None = None):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
-        self.encoder = WhisperEncoder(cfg, device)
-        self.decoder = WhisperDecoder(cfg, device)
+        self.encoder = WhisperEncoder(cfg, device, param_dtype)
+        self.decoder = WhisperDecoder(cfg, device, param_dtype)
 
     @classmethod
     def from_state_dict(cls, cfg: WhisperConfig, state_dict: dict,
-                        device=None) -> "Whisper":
-        """Build on `device` and load (casting to the compute dtype once)."""
-        model = cls(cfg, device)
+                        device=None, param_dtype: torch.dtype | None = None
+                        ) -> "Whisper":
+        """Build on `device` and load (casting to `param_dtype`, by default
+        the compute dtype, once)."""
+        model = cls(cfg, device, param_dtype)
         model.load_state_dict(state_dict)
         return model.eval()
+
+    def cast_frozen_(self, dtype: torch.dtype) -> "Whisper":
+        """Store the frozen (requires_grad False) Linear and Conv1d
+        parameters in `dtype`, IN PLACE: the serving dtypes for the frozen
+        trunk, float32 masters for what trains (JAX `cast_frozen_params`;
+        layer norms and embeddings stay float32 as in serving)."""
+        for mod in self.modules():
+            if isinstance(mod, (nn.Linear, nn.Conv1d)):
+                for p in mod.parameters(recurse=False):
+                    if not p.requires_grad:
+                        p.data = p.data.to(dtype)
+        return self
 
 
 def whisper_encode(model: Whisper, mel: torch.Tensor) -> torch.Tensor:
     return model.encoder(mel)
+
+
+def whisper_decode(
+    model: Whisper,
+    tokens: torch.Tensor,
+    audio_feats: torch.Tensor,
+    src_layer: int = 0,
+    collect_lang_cols: bool = False,
+) -> tuple[torch.Tensor, dict]:
+    """Teacher-forced decoder forward (`whisper_decode` :785-870).
+
+    tokens (B, T) sos-prefixed ids; audio_feats (B, T_audio, d). Returns
+    the (B, T, n_vocab) float32 logits (ln(x) @ emb^T in the compute
+    dtype, then float32) and aux; with `collect_lang_cols`, aux["qk_cols"]
+    is (L - src_layer, B, h, T, 2): each layer's pre-softmax self-attention
+    scores at the language columns 1:3, -inf where causally masked."""
+    dec = model.decoder
+    dtype = model.cfg.compute_dtype
+    t = tokens.shape[1]
+    x = (dec.token_embedding(tokens) + dec.positional_embedding[:t]).to(dtype)
+    xa = audio_feats.to(dtype)
+    cols = []
+    for block in dec.blocks:
+        x, c = block(x, xa, lang_cols=collect_lang_cols)
+        cols.append(c)
+    logits = F.linear(dec.ln(x), dec.logits_w()).float()
+    aux = {"qk_cols": torch.stack(cols[src_layer:])} if collect_lang_cols else {}
+    return logits, aux
 
 
 def encoder_olens(ilens_frames: torch.Tensor, cfg: WhisperConfig) -> torch.Tensor:
@@ -439,4 +552,4 @@ def whisper_decode_step(
                        cross_kv["k_packed"][l], cross_kv["v_packed"][l],
                        cross_kv["t_audio"])
     h = dec.ln(h)
-    return F.linear(h, dec.logits_weight).float(), self_kv
+    return F.linear(h, dec.logits_w()).float(), self_kv

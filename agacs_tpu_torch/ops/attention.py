@@ -1,5 +1,8 @@
 """Plain head-split attention (counterpart of `agacs_tpu/ops/attention.py`
-`einsum_mha`): the reference numerics the kernels are held against."""
+`einsum_mha`): the reference numerics the kernels are held against, the
+decoder's causal self-attention, and the two language-column scores the
+CS loss reads (`agacs_tpu/models/whisper.py:436-446`). JAX computes the
+last two with XLA einsums, outside any Pallas kernel; so does this port."""
 
 from __future__ import annotations
 
@@ -11,14 +14,30 @@ def einsum_mha(
     k: torch.Tensor,
     v: torch.Tensor,
     sm_scale: float = 1.0,
+    causal: bool = False,
 ) -> torch.Tensor:
     """(B, h, Tq, d) x (B, h, Tk, d) -> (B, h, Tq, d): scores in the input
     dtype, float32 softmax, weights cast back for the value product
-    (reference whisper/model.py:102-109). Non-causal: the serving path has
-    no causal full-sequence attention."""
+    (reference whisper/model.py:102-109). `causal` adds -inf above the
+    diagonal (key column > query row), as JAX's `triu` mask does."""
     qk = (torch.einsum("bhqd,bhkd->bhqk", q, k) * sm_scale).float()
+    if causal:
+        t_q, t_k = qk.shape[-2:]
+        qk = qk + torch.full((t_q, t_k), float("-inf"), device=qk.device).triu(1)
     w = torch.softmax(qk, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", w.to(v.dtype), v)
+
+
+def lang_col_scores(qh: torch.Tensor, kh: torch.Tensor, lo: int = 1,
+                    hi: int = 3) -> torch.Tensor:
+    """Pre-softmax causal self-attention scores at key columns [lo, hi):
+    (B, h, T, hi - lo) float32 from the scaled (B, h, T, d) q and k, with
+    -inf where the column is past the row (the causal mask). The CS loss
+    reads columns 1:3, the <|zh|> / <|en|> prompt positions."""
+    cols = torch.einsum("bhqd,bhkd->bhqk", qh, kh[:, :, lo:hi]).float()
+    rows = torch.arange(qh.shape[2], device=qh.device)
+    masked = torch.arange(lo, hi, device=qh.device)[None, :] > rows[:, None]
+    return cols.masked_fill(masked, float("-inf"))
 
 
 def split_heads(x: torch.Tensor, n_head: int) -> torch.Tensor:
@@ -27,14 +46,19 @@ def split_heads(x: torch.Tensor, n_head: int) -> torch.Tensor:
     return x.reshape(b, t, n_head, d // n_head).transpose(1, 2)
 
 
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """(B, h, T, d) -> (B, T, h*d)."""
+    b, h, t, d = x.shape
+    return x.transpose(1, 2).reshape(b, t, h * d)
+
+
 def packed_mha(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_head: int
 ) -> torch.Tensor:
     """(B, Tq, D) q over (B, Tk, D) k/v -> (B, Tq, D), packed layout in and
     out (JAX `flash_train._einsum_ref`): head split, d_head**-0.25 on q and
     k, `einsum_mha`, heads merged back."""
-    b, t, d = q.shape
-    sc = (d // n_head) ** -0.25
-    o = einsum_mha(split_heads(q, n_head) * sc, split_heads(k, n_head) * sc,
-                   split_heads(v, n_head))
-    return o.transpose(1, 2).reshape(b, t, d)
+    sc = (q.shape[-1] // n_head) ** -0.25
+    return merge_heads(einsum_mha(split_heads(q, n_head) * sc,
+                                  split_heads(k, n_head) * sc,
+                                  split_heads(v, n_head)))

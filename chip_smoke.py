@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's greedy serving path once on one CUDA card.
+"""Drive the PyTorch port's greedy serving path and its stage-2 training
+path once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -7,9 +8,12 @@ Run from (or point at) a checkout of the repository on a machine with a
 CUDA card and the CUDA toolkit (nvcc). It imports nothing of JAX. Phases,
 one line each; any failure ends the script with a non-zero exit:
 
-  1. device and build: the card, and the nvcc build of both kernels;
-  2. K1 (csrc/packed_flash_fwd.cu) against its plain PyTorch version at the
-     encoder shapes (8, 750, 768) and (2, 1500, 768), 12 heads;
+  1. device and build: the card, and the nvcc builds of the three kernel
+     sources, started together;
+  2. K1f (csrc/packed_flash_fwd.cu) against its plain PyTorch version at
+     the encoder shapes (8, 750, 768) and (2, 1500, 768), 12 heads;
+  2b. K1b (csrc/packed_flash_bwd.cu) against its plain version at the
+     training shapes (16, 750, 768) and (2, 1500, 768): dq, dk, dv;
   3. K3 (csrc/decode_attn.cu) against its plain version at the greedy
      decode shapes: self (8, 112, 768) at pos 0/4/57/103, cross
      (8, 752, 768) at pos 749;
@@ -21,7 +25,19 @@ one line each; any failure ends the script with a non-zero exit:
      weights, one utterance: encoder output and first-step logits;
   6. torch.profiler over one more warm request of phase 4: device busy
      time, device events per decode step, the device's idle share of
-     phase 4's ms per batch, and the kernels that take the most time.
+     phase 4's ms per batch, and the kernels that take the most time;
+  7. the training path (the stage-2 recipe's step, the shape of bench.py's
+     bf16 row): whisper-small + adapters, bf16 frozen trunk, float32
+     adapters, preset `adapter`, cs_weight 0.01, SpecAug on, AdamW with
+     WarmupLR 500, clip 1.0, on 16 x 15 s of seeded noise with 32-id texts;
+     one warm-up step, then 5 timed optimizer steps: ms per step,
+     audio-seconds per second, peak memory, exact K1f/K1b launch counts,
+     finite losses, the frozen trunk bit-identical, every adapter changed;
+  8. torch.profiler over one more train step: device busy time, idle
+     share, the top kernels and K1b's share;
+  9. one micro-step on one utterance, the card (bf16) against the port on
+     the CPU (float32), same weights, SpecAug off: loss, loss_cs, the
+     global gradient norm, and the cosine of the adapter gradients.
 
 The last three lines are the card's `name, power.limit` (nvidia-smi), a
 JSON line with each kernel's launches, error and times, and the
@@ -31,6 +47,7 @@ JSON line with each kernel's launches, error and times, and the
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import json
 import os
 import statistics
@@ -52,10 +69,27 @@ PRIMER = [50258, 50260, 50259, 50359, 50363]
 # dropped key tile, a missing online-softmax rescale or an unmasked key
 # tail moves the output by a large part of its range, not by an ulp.
 KERNEL_RTOL = 1e-2
+# K1b's dq, dk, dv: each a sum over up to 1500 products of ds (rounded to
+# bf16, 2^-9 relative) with k or q, and dv over p (bf16) times do. ds has
+# mixed signs, so the sums are smaller than their terms and the rounding
+# error is a larger share of max |plain| than in the forward: 2e-2.
+K1B_RTOL = 2e-2
 # card (bf16 weights and activations) vs CPU (float32): bf16 rounding
 # (~4e-3 relative per op) accumulated through 12 residual layers.
 ENC_REL_L2 = 5e-2
 LOGITS_REL_L2 = 5e-2
+# Train parity, card bf16 vs CPU float32, one utterance: the losses are
+# sums over 33 tokens of a 51865-way log-softmax of bf16 logits (each
+# ~2^-9 relative), so they move by well under 1%: 2e-2. loss_cs is a mean
+# of squared differences of bf16 scores with targets of 0.6, and the
+# gradient has passed back through 24 bf16 layers: 5e-2 for loss_cs and
+# the gradient norm, and a cosine of at least 0.98 between the adapter
+# gradients (bf16 noise is uncorrelated with the gradient's direction).
+TRAIN_LOSS_REL = 2e-2
+TRAIN_CS_REL = 5e-2
+TRAIN_GNORM_REL = 5e-2
+TRAIN_GRAD_COS = 0.98
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 16, 15, 5
 
 
 def check(ok: bool, what: str) -> None:
@@ -133,6 +167,49 @@ def check_k1(dev, g, timed=True) -> dict:
     return res
 
 
+def check_k1b(dev, g, timed=True) -> dict:
+    """K1b against its plain version at the training shapes: dq, dk and
+    dv, each within K1B_RTOL x its own max |plain|. The kernel and the
+    plain version read the same bf16 q, k, v, do and the same o (and lse)
+    from K1f; the plain version is evaluated in float32."""
+    from agacs_tpu_torch.ops import flash_train
+
+    res = {"err": 0.0}
+    for b, t in ((16, 750), (2, 1500)):
+        sets = []
+        for _ in range(4):
+            q, k, v = sharp_qkv(g, dev, (b, t, D), (b, t, D))
+            o, lse = flash_train._fwd_kernel(q, k, v, H, with_lse=True)
+            do = torch.randn(b, t, D, generator=g).to(dev, torch.bfloat16)
+            sets.append((q, k, v, o, lse, do, H))
+        q, k, v, o, lse, do, _ = sets[0]
+        grads = flash_train.packed_flash_mha_bwd(q, k, v, o, lse, do, H)
+        plain = flash_train.packed_flash_mha_bwd_ref(
+            q.float(), k.float(), v.float(), o.float(), do.float(), H)
+        torch.cuda.synchronize()
+        errs = []
+        for name, out, ref in zip(("dq", "dk", "dv"), grads, plain):
+            err = (out.float() - ref).abs().max().item()
+            bound = K1B_RTOL * ref.abs().max().item()
+            check(tuple(out.shape) == tuple(ref.shape) and err <= bound,
+                  f"K1b {name} ({b}, {t}, {D}): max_abs_err {err} <= {bound}")
+            errs.append(f"{name} {err:.3e} ({err / (bound / K1B_RTOL):.2e} of "
+                        "max|plain|)")
+            res["err"] = max(res["err"], err)
+        line = (f"phase 2b K1b packed_flash_bwd ({b}, {t}, {D}) H={H}: "
+                + ", ".join(errs) + f" (bound {K1B_RTOL} x max|plain f32|)")
+        if timed:
+            ms = cuda_ms(flash_train.packed_flash_mha_bwd, sets, 10)
+            plain_ms = cuda_ms(
+                lambda q, k, v, o, lse, do, h:
+                flash_train.packed_flash_mha_bwd_ref(q, k, v, o, do, h), sets, 3)
+            if t == 750:
+                res.update(ms=ms, plain_ms=plain_ms)
+            line += f" kernel {ms:.4f} ms plain bf16 {plain_ms:.4f} ms"
+        print(line, flush=True)
+    return res
+
+
 def check_k3(dev, g, timed=True) -> dict:
     """Phase 3: K3 against its plain version. Keys past pos are poisoned in
     the kernel's input (score 0, far above the others, and value 1e4), so
@@ -164,26 +241,178 @@ def check_k3(dev, g, timed=True) -> dict:
     return res
 
 
-def profile_request(s2t, audio, ms_batch: float, n_steps: int) -> None:
-    """Phase 6: one warm request under torch.profiler (CUDA activity)."""
+def device_profile(fn) -> tuple[float, int, dict]:
+    """Run fn() once under torch.profiler (CUDA activity): (device busy
+    ms, device events, ms by kernel name)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        s2t(audio)
+        fn()
         torch.cuda.synchronize()
     per_name: dict[str, float] = collections.defaultdict(float)
+    n_events = 0
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        # record_function ranges (e.g. Optimizer.step) also show on the
+        # device timeline; they overlap the kernels, so they are skipped
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
             per_name[e.name] += e.time_range.elapsed_us() / 1e3
-    n_events = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+            n_events += 1
     check(n_events > 0, "the profiler recorded device events")
-    busy = sum(per_name.values())
-    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:8]
+    return sum(per_name.values()), n_events, per_name
+
+
+def top_kernels(per_name: dict, n: int = 8) -> str:
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:n]
+    return "; ".join(f"{name[:48]} {t:.2f} ms" for name, t in top)
+
+
+def profile_request(s2t, audio, ms_batch: float, n_steps: int) -> None:
+    """Phase 6: one warm request under torch.profiler."""
+    busy, n_events, per_name = device_profile(lambda: s2t(audio))
     print(f"phase 6 profile: device busy {busy:.1f} ms in {n_events} device "
           f"events ({n_events / n_steps:.0f} per decode step); idle "
           f"{1 - busy / ms_batch:.1%} of phase 4's {ms_batch:.1f} ms/batch; top: "
-          + "; ".join(f"{n[:48]} {t:.2f} ms" for n, t in top), flush=True)
+          + top_kernels(per_name), flush=True)
+
+
+def make_train_batch(b: int, seconds: int, dev) -> dict:
+    """bench.py's `_make_batch` (:155-184): seeded noise at 0.05, 32-id
+    texts (primer, random ids, eot; rows 1-3 ids shorter), language labels
+    (prompt pattern, then ZH)."""
+    from agacs_tpu_torch.adapt.cs_loss import LANG_EN, LANG_PAD, LANG_ZH
+
+    rng = np.random.RandomState(0)
+    n_text = 32
+    text = np.full((b, n_text), -1, np.int64)
+    labels = np.full((b, n_text + 1), LANG_PAD, np.int8)
+    for i in range(b):
+        n = n_text - (i % 4)
+        text[i, :4] = [50260, 50259, 50359, 50363]
+        text[i, 4:n] = rng.randint(100, 50000, n - 4)
+        text[i, n - 1] = 50257
+        labels[i, :5] = [0, LANG_ZH, LANG_EN, 0, 0]
+        labels[i, 5: n + 1] = LANG_ZH
+    s = seconds * 16000
+    return {
+        "speech": torch.from_numpy((rng.randn(b, s) * 0.05).astype(np.float32)).to(dev),
+        "speech_lengths": torch.full((b,), s, device=dev),
+        "text": torch.from_numpy(text).to(dev),
+        "cs_labels": torch.from_numpy(labels).to(dev),
+    }
+
+
+def train_model(sd, dev, dtype, specaug: bool):
+    """The stage-2 recipe's trainable model: built in float32 from `sd`,
+    preset `adapter`, frozen linears stored in `dtype`; with its config."""
+    from agacs_tpu_torch.models import whisper as tw
+    from agacs_tpu_torch.models.asr_model import ASRModelConfig
+    from agacs_tpu_torch.train.freeze import apply_freeze
+
+    cfg = tw.make_config("small", adapter=True, adapter_encoder=True,
+                         adapter_decoder=True, compute_dtype=dtype)
+    model = tw.Whisper.from_state_dict(cfg, sd, device=dev, param_dtype=torch.float32)
+    params = apply_freeze(model, "adapter")
+    model.cast_frozen_(dtype)
+    return model, params, ASRModelConfig(whisper=cfg, cs_weight=0.01,
+                                         use_specaug=specaug)
+
+
+def train_phase(sd, dev) -> dict:
+    """Phases 7 and 8: timed adapter + CS-loss optimizer steps, then one
+    more under the profiler."""
+    from agacs_tpu_torch.ops import flash_train
+    from agacs_tpu_torch.train.optim import OptimConfig, build_optimizer
+    from agacs_tpu_torch.train.trainer import make_train_step
+
+    model, params, acfg = train_model(sd, dev, torch.bfloat16, specaug=True)
+    n_layer = acfg.whisper.n_audio_layer
+    opt, sched = build_optimizer(params, OptimConfig(warmup_steps=500))
+    step = make_train_step(model, acfg, opt, sched, grad_clip=1.0,
+                           generator=torch.Generator().manual_seed(1))
+    batch = make_train_batch(TRAIN_B, TRAIN_S, dev)
+    trainable = {id(p) for p in params}
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters()
+              if id(p) not in trainable}
+    before = [p.detach().clone() for p in params]
+    step([batch])  # warm-up: cuBLAS handles, the kernels' first launches
+    torch.cuda.synchronize()
+    flash_train.LAUNCHES = flash_train.BWD_LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        stats = step([batch])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append((float(stats["loss"]), float(stats["loss_cs"])))
+    launches = {"K1f": flash_train.LAUNCHES, "K1b": flash_train.BWD_LAUNCHES}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(np.isfinite(v) for pair in losses for v in pair)
+          and int(stats["grad_nonfinite_total"]) == 0, f"finite losses {losses}")
+    # layer 0's q/k/v need no gradient (nothing upstream of it trains), so
+    # its attention takes no backward: 12 K1f and 11 K1b per micro-step
+    check(launches["K1f"] == n_layer * TRAIN_STEPS,
+          f"K1f launches {launches['K1f']} == {n_layer} x {TRAIN_STEPS}")
+    check(launches["K1b"] == (n_layer - 1) * TRAIN_STEPS,
+          f"K1b launches {launches['K1b']} == {n_layer - 1} x {TRAIN_STEPS}")
+    for n, p in model.named_parameters():
+        if n in frozen:
+            check(torch.equal(p, frozen[n]), f"frozen {n} unchanged")
+    check(all(not torch.equal(a, p) for a, p in zip(before, params)),
+          "every adapter parameter changed")
+    ms = statistics.median(times) * 1e3
+    audio_s = TRAIN_B * TRAIN_S
+    print(f"phase 7 train: whisper-small+adapters, bf16 trunk / f32 adapters, "
+          f"{TRAIN_B} x {TRAIN_S} s, cs_weight 0.01, SpecAug on: {ms:.1f} ms/step "
+          f"(median of {[round(t * 1e3, 1) for t in times]}), "
+          f"{audio_s / (ms / 1e3):.1f} audio-s/s; peak {peak_gb:.2f} GB; "
+          f"{sum(p.numel() for p in params) / 1e6:.2f}M trainable; losses (loss, "
+          f"loss_cs) {[(round(a, 3), round(c, 3)) for a, c in losses]}; "
+          f"launches K1f {launches['K1f']} K1b {launches['K1b']} "
+          f"({n_layer} and {n_layer - 1} per step)", flush=True)
+
+    busy, n_events, per_name = device_profile(lambda: step([batch]))
+    k1b = sum(t for name, t in per_name.items()
+              if any(k in name for k in ("dkdv_kernel", "dq_kernel", "rowdot_kernel")))
+    k1f = sum(t for name, t in per_name.items() if "packed_flash_fwd" in name)
+    print(f"phase 8 train profile: device busy {busy:.1f} ms in {n_events} device "
+          f"events; idle {1 - busy / ms:.1%} of phase 7's {ms:.1f} ms/step; K1b "
+          f"{k1b:.2f} ms ({k1b / busy:.1%}), K1f {k1f:.2f} ms ({k1f / busy:.1%}); "
+          "top: " + top_kernels(per_name), flush=True)
+    del model, opt, frozen, before
+    torch.cuda.empty_cache()
+    return {"launches": launches, "ms": ms, "peak_gb": peak_gb, "batch": batch}
+
+
+def train_parity(sd, dev, batch) -> None:
+    """Phase 9: one micro-step on one utterance, card bf16 vs CPU f32."""
+    from agacs_tpu_torch.models import asr_model
+    from agacs_tpu_torch.train.optim import global_norm
+
+    one = {k: v[:1] for k, v in batch.items()}
+    res = []
+    for d, dtype in ((dev, torch.bfloat16), (torch.device("cpu"), torch.float32)):
+        model, params, acfg = train_model(sd, d, dtype, specaug=False)
+        loss, stats = asr_model.forward(model, acfg, {k: v.to(d) for k, v in one.items()})
+        loss.backward()
+        grads = [p.grad.float().cpu() for p in params]
+        res.append((float(loss.detach()), float(stats["loss_cs"]), float(global_norm(grads)),
+                    torch.cat([g.ravel() for g in grads])))
+        del model, params
+    (lg, cg, ng, gg), (lc, cc, nc, gc) = res
+    cos = float(torch.nn.functional.cosine_similarity(gg.double(), gc.double(), dim=0))
+    e_loss, e_cs, e_norm = abs(lg / lc - 1), abs(cg / cc - 1), abs(ng / nc - 1)
+    check(all(np.isfinite(x) for x in (lg, cg, ng)), "finite card loss and grads")
+    check(e_loss <= TRAIN_LOSS_REL, f"train loss rel {e_loss} <= {TRAIN_LOSS_REL}")
+    check(e_cs <= TRAIN_CS_REL, f"loss_cs rel {e_cs} <= {TRAIN_CS_REL}")
+    check(e_norm <= TRAIN_GNORM_REL, f"grad norm rel {e_norm} <= {TRAIN_GNORM_REL}")
+    check(cos >= TRAIN_GRAD_COS, f"adapter grad cosine {cos} >= {TRAIN_GRAD_COS}")
+    print(f"phase 9 train parity card bf16 vs cpu f32 (1 x {TRAIN_S} s): loss "
+          f"{lg:.4f} vs {lc:.4f} (rel {e_loss:.2e}, bound {TRAIN_LOSS_REL}); loss_cs "
+          f"{cg:.4f} vs {cc:.4f} (rel {e_cs:.2e}, bound {TRAIN_CS_REL}); grad norm "
+          f"{ng:.4f} vs {nc:.4f} (rel {e_norm:.2e}, bound {TRAIN_GNORM_REL}); adapter "
+          f"grad cosine {cos:.5f} (bound {TRAIN_GRAD_COS})", flush=True)
 
 
 def main() -> int:
@@ -207,8 +436,9 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    for name in ("packed_flash_fwd", "decode_attn"):
-        cuda_lib.build(name)
+    with concurrent.futures.ThreadPoolExecutor() as pool:  # one nvcc per source
+        list(pool.map(cuda_lib.build, ("packed_flash_fwd", "packed_flash_bwd",
+                                       "decode_attn")))
     build_s = time.perf_counter() - t0
     ptxas = "; ".join(
         f"{name}: {line.split(':', 1)[1].strip()}"
@@ -221,6 +451,7 @@ def main() -> int:
     # 2-3. each kernel against its plain version
     g = torch.Generator(device="cpu").manual_seed(0)
     k1 = check_k1(dev, g)
+    k1b = check_k1b(dev, g)
     k3 = check_k3(dev, g)
 
     # 4. the slice: Speech2Text, whisper-small + adapters, bf16, 8 x 15 s
@@ -306,15 +537,26 @@ def main() -> int:
 
     # 6. where the device time of one request goes
     profile_request(s2t, audio, ms_batch, n_steps)
+    del s2t, model
+    torch.cuda.empty_cache()
+
+    # 7-9. the training path
+    train = train_phase(sd, dev)
+    train_parity(sd, dev, train["batch"])
 
     check(not any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules),
           "no JAX module was imported")
     kernels = [
-        {"name": "packed_flash_fwd (K1, encoder self-attention)", "route": "cuda",
-         "source": "agacs_tpu_torch/csrc/packed_flash_fwd.cu",
+        {"name": "packed_flash_fwd (K1f, encoder self-attention forward)",
+         "route": "cuda", "source": "agacs_tpu_torch/csrc/packed_flash_fwd.cu",
          "replaces": "agacs_tpu/ops/flash_train.py:155",
-         "launches": launches["K1"], "max_abs_err": k1["err"],
+         "launches": train["launches"]["K1f"], "max_abs_err": k1["err"],
          "ms": k1["ms"], "plain_ms": k1["plain_ms"]},
+        {"name": "packed_flash_bwd (K1b, encoder self-attention backward)",
+         "route": "cuda", "source": "agacs_tpu_torch/csrc/packed_flash_bwd.cu",
+         "replaces": "agacs_tpu/ops/flash_train.py:177",
+         "launches": train["launches"]["K1b"], "max_abs_err": k1b["err"],
+         "ms": k1b["ms"], "plain_ms": k1b["plain_ms"]},
         {"name": "decode_attn_fwd (K3, decode-step cache attention)",
          "route": "cuda", "source": "agacs_tpu_torch/csrc/decode_attn.cu",
          "replaces": "agacs_tpu/ops/decode_attn.py:140",

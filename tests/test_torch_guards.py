@@ -13,6 +13,7 @@ import torch
 
 from agacs_tpu.models import whisper as jw
 from agacs_tpu_torch.decode.speech2text import Speech2Text
+from agacs_tpu_torch.models import asr_model
 from agacs_tpu_torch.models import whisper as tw
 from agacs_tpu_torch.models.asr_model import ASRModelConfig
 from agacs_tpu_torch.models.checkpoint import params_from_numpy
@@ -51,6 +52,20 @@ model = tw.Whisper.from_state_dict(
 out = Speech2Text(model, ASRModelConfig(whisper=cfg), max_steps=4)(
     np.random.RandomState(0).randn(2, 16000).astype(np.float32) * 0.1)
 assert [r.tokens[:5] for r in out] == [[50258, 50260, 50259, 50359, 50363]] * 2
+
+# one adapter + CS-loss training step
+from agacs_tpu_torch.train.freeze import apply_freeze
+from agacs_tpu_torch.train.optim import OptimConfig, build_optimizer
+from agacs_tpu_torch.train.trainer import make_train_step
+
+acfg = ASRModelConfig(whisper=cfg, cs_weight=0.5)
+opt, sched = build_optimizer(apply_freeze(model, "adapter"), OptimConfig())
+batch = {"speech": torch.randn(2, 16000) * 0.1, "speech_lengths": torch.tensor([16000, 9000]),
+         "text": torch.tensor([[50260, 50259, 50359, 50363, 1000, 50257]] * 2),
+         "cs_labels": torch.tensor([[0, 1, 2, 0, 0, 1, 3]] * 2, dtype=torch.int8)}
+stats = make_train_step(model, acfg, opt, sched,
+                        generator=torch.Generator().manual_seed(0))([batch])
+assert torch.isfinite(stats["loss"]) and float(stats["loss_cs"]) > 0
 assert not any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules)
 print("OK", len(mods))
 """
@@ -76,12 +91,17 @@ def test_wrappers_never_fall_back_off_cpu():
     x = torch.empty(2, 16, 128, device="meta", dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         flash_train.packed_flash_mha(x, x, x, 2)
+    lse = torch.empty(2, 2, 16, device="meta")
+    with pytest.raises(ValueError):
+        flash_train.packed_flash_mha_bwd(x, x, x, x, lse, x, 2)
+    with pytest.raises(ValueError):
+        flash_train.PackedFlashMHA.apply(x.requires_grad_(), x, x, 2)
     with pytest.raises(ValueError):
         decode_attn.decode_cache_attention(x[:, 0], x, x, 3, 2)
 
 
 def test_launch_counters_stay_zero_on_cpu():
-    flash_train.LAUNCHES = decode_attn.LAUNCHES = 0
+    flash_train.LAUNCHES = flash_train.BWD_LAUNCHES = decode_attn.LAUNCHES = 0
     cfg = tw.make_config("test", adapter=True)
     model = tw.Whisper.from_state_dict(
         cfg, tw.init_whisper_params(torch.Generator().manual_seed(1), cfg))
@@ -89,6 +109,7 @@ def test_launch_counters_stay_zero_on_cpu():
         np.random.RandomState(1).randn(1, 8000).astype(np.float32) * 0.1)
     assert len(out[0].tokens) >= 6
     assert flash_train.LAUNCHES == 0 and decode_attn.LAUNCHES == 0
+    assert flash_train.BWD_LAUNCHES == 0
 
 
 @pytest.mark.parametrize("flags", [
@@ -134,3 +155,31 @@ def test_unported_decode_attention_variants_raise(kw):
     q, kv = torch.zeros(4, 128), torch.zeros(4, 16, 128)
     with pytest.raises(NotImplementedError):
         decode_attn.decode_cache_attention(q, kv, kv, 3, 2, **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(ctc_weight=0.3), dict(cs_weight=0.1, cs_loss_type="lid_ce"),
+                                dict(estimate_c=True)], ids=str)
+def test_unported_training_options_raise(kw):
+    cfg = tw.make_config("test")
+    acfg = ASRModelConfig(whisper=cfg, **kw)
+    batch = {"speech": torch.zeros(1, 1600), "speech_lengths": torch.tensor([1600]),
+             "text": torch.tensor([[50257]]), "cs_labels": torch.zeros(1, 2, dtype=torch.int8)}
+    with pytest.raises(NotImplementedError):
+        asr_model.forward(tw.Whisper(cfg), acfg, batch)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--resume"], ["--tensor_parallel", "2"], ["--optim_state_shard"],
+    ["--ckpt_backend", "orbax"], ["--batch_type", "fixed_shapes"],
+    ["--override", "freeze_quant=int8"], ["--init_param", "small.pt"],
+    ["--override", "model_conf.ctc_weight=0.3"],
+], ids=str)
+def test_unported_train_cli_options_raise(flags, tmp_path):
+    from agacs_tpu_torch.bin import train
+
+    conf = os.path.join(REPO, "recipes", "seame", "conf",
+                        "train_asr_whisper_small_adapter_csloss_2stage.yaml")
+    with pytest.raises(NotImplementedError):
+        train.main(["--config", conf, "--train_dir", str(tmp_path), "--valid_dir",
+                    str(tmp_path), "--exp_dir", str(tmp_path / "exp"), "--device", "cpu",
+                    *flags])
