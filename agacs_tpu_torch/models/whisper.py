@@ -154,22 +154,27 @@ class LayerNorm(nn.LayerNorm):
         return super().forward(x.float()).to(x.dtype)
 
 
+def _as(p: torch.Tensor | None, dtype: torch.dtype) -> torch.Tensor | None:
+    """`p` in `dtype`; `p` itself, with no dispatcher call, when it already
+    is (the serving path: weights stored in the compute dtype, a decode
+    step of ~250 projections)."""
+    return p if p is None or p.dtype == dtype else p.to(dtype)
+
+
 class Linear(nn.Linear):
     """nn.Linear whose weight and bias are cast to the input's dtype at use
-    (JAX `linear`): float32 trainable masters under bf16 activations; a
-    no-op for weights already stored in the compute dtype."""
+    (JAX `linear`): float32 trainable masters under bf16 activations;
+    weights already stored in the compute dtype are used as they are."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b = None if self.bias is None else self.bias.to(x.dtype)
-        return F.linear(x, self.weight.to(x.dtype), b)
+        return F.linear(x, _as(self.weight, x.dtype), _as(self.bias, x.dtype))
 
 
 class Conv1d(nn.Conv1d):
     """nn.Conv1d with the same cast at use (JAX `conv1d`)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b = None if self.bias is None else self.bias.to(x.dtype)
-        return self._conv_forward(x, self.weight.to(x.dtype), b)
+        return self._conv_forward(x, _as(self.weight, x.dtype), _as(self.bias, x.dtype))
 
 
 def sinusoids(length: int, channels: int, max_timescale: float = 10000.0) -> np.ndarray:

@@ -89,11 +89,11 @@ def test_forward_without_grad_skips_the_function():
 
 @pytest.mark.cuda
 def test_k1b_matches_plain_on_card():
-    """K1b against its plain version on the card at the training shapes,
-    with chip_smoke.py's inputs and bound."""
+    """K1f (o and its lse rows) and K1b against their plain versions on the
+    card at the training shapes, with chip_smoke.py's inputs and bounds."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     import chip_smoke
 
-    chip_smoke.check_k1b(torch.device("cuda"), torch.Generator().manual_seed(0),
-                         timed=False)
+    chip_smoke.check_k1_train(torch.device("cuda"),
+                              torch.Generator().manual_seed(0), timed=False)
