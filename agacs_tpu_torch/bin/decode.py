@@ -1,17 +1,21 @@
-"""Greedy decoding CLI (counterpart of the whisper path of
-`agacs_tpu/bin/decode.py`): data dir -> hyp.trn + ref.trn + rtf.json.
+"""Decoding CLI (counterpart of the whisper path of
+`agacs_tpu/bin/decode.py`): data dir -> hyp.trn + ref.trn + rtf.json,
+greedy or beam search.
 
   python -m agacs_tpu_torch.bin.decode --config exp/x/config.yaml \
       --params exp/x/valid.acc.ave.params.npz \
       --data_dir data/dev --output_dir exp/x/decode_dev \
-      [--decode_config conf/decode_asr_whisper.yaml] [--max_steps 200] \
+      [--decode_config conf/decode_asr_whisper.yaml] [--beam_size 5] \
+      [--length_bonus 0.0] [--decode_loop scan] [--max_steps 200] \
       [--batch_size 8] [--compute_dtype bfloat16] [--device cuda]
   python -m agacs_tpu.bin.score --ref exp/x/decode_dev/ref.trn \
       --hyp exp/x/decode_dev/hyp.trn --output_dir exp/x/decode_dev/score
 
 `--params` is the `.params.npz` the JAX trainer writes. The .trn files
-have the format `agacs_tpu.bin.score` reads. Beam search, CTC / LM
-fusion and int8 cross-KV are not ported yet and raise.
+have the format `agacs_tpu.bin.score` reads. The decode YAML's keys
+apply as in JAX (`penalty` is the length bonus). CTC / LM fusion (a CTC
+head, or the YAML's ctc_weight / lm_weight) and int8 cross-KV are not
+ported yet and raise; the JAX CLI's LM and n-gram flags do not exist here.
 """
 
 from __future__ import annotations
@@ -48,7 +52,11 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="generated-token cap; 0 = derive from maxlenratio "
                         "(0.0 -> encoder frame count)")
     p.add_argument("--maxlenratio", type=float, default=0.0)
+    p.add_argument("--decode_loop", default="scan", choices=["scan", "while"],
+                   help="beam loop form: scan (to the step cap, no host read per "
+                        "step) or while (exits once every utterance has stopped)")
     p.add_argument("--batch_size", type=int, default=8)
+    p.add_argument("--length_bonus", type=float, default=0.0)
     p.add_argument("--compute_dtype", default="bfloat16",
                    choices=["bfloat16", "float32"])
     p.add_argument("--cross_kv_int8", action="store_true",
@@ -59,14 +67,17 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def _apply_decode_config(args, path: str, raw_argv: list[str]) -> dict:
     """Decode-option YAML values become argparse defaults (explicit CLI
-    flags win); a config bearing maxlenratio derives maxlen from frames
-    unless --max_steps was given. Returns the scorer weights it sets."""
+    flags win); `penalty` is the length bonus, as in JAX (:95); a config
+    bearing maxlenratio derives maxlen from frames unless --max_steps was
+    given. Returns the scorer weights it sets."""
     dc = load_yaml(path)
     given = {a.split("=")[0].lstrip("-").replace("-", "_")
              for a in raw_argv if a.startswith("--")}
-    for k in ("beam_size", "maxlenratio", "max_steps"):
-        if k in dc and k not in given:
-            setattr(args, k, type(getattr(args, k))(dc[k]))
+    for key, value in dc.items():
+        dest = {"penalty": "length_bonus"}.get(key, key)
+        if hasattr(args, dest) and dest not in given:
+            cur = getattr(args, dest)
+            setattr(args, dest, type(cur)(value) if cur is not None else value)
     if "maxlenratio" in dc and "max_steps" not in given:
         args.max_steps = 0
     return {k: float(dc.get(k, 0.0)) for k in ("ctc_weight", "lm_weight")}
@@ -94,7 +105,8 @@ def main(argv: list[str] | None = None) -> dict:
     s2t = Speech2Text(
         model, cfg, beam_size=args.beam_size,
         max_steps=args.max_steps if args.max_steps > 0 else None,
-        maxlenratio=args.maxlenratio, **weights,
+        maxlenratio=args.maxlenratio, length_bonus=args.length_bonus,
+        loop=args.decode_loop, **weights,
     )
 
     ds = DataDir(args.data_dir)

@@ -1,10 +1,10 @@
 """Speech2Text — audio -> hypotheses (counterpart of
-`agacs_tpu/decode/speech2text.py`), greedy branch only, with the same
-built-in RTF accounting.
+`agacs_tpu/decode/speech2text.py`), with the same built-in RTF accounting.
 
-The recipes' decode config (`decode_asr_whisper.yaml`: beam_size 1, no
-CTC, no LM) runs here. Beam search, CTC, LM and n-gram fusion are not
-ported yet: asking for them raises instead of decoding greedily.
+beam_size <= 1 runs greedy decoding (the recipes' `decode_asr_whisper.yaml`:
+beam_size 1, no CTC, no LM); beam_size > 1 runs `decode/beam.py` with the
+attention decoder and the length bonus. CTC, LM and n-gram fusion are not
+ported yet: asking for them raises instead of decoding without them.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from agacs_tpu.text import WhisperTokenizer
+from agacs_tpu_torch.decode.beam import beam_decode
 from agacs_tpu_torch.decode.greedy import WHISPER_CS_PRIMER, greedy_decode
 from agacs_tpu_torch.models.asr_model import ASRModelConfig, encode
 from agacs_tpu_torch.models.whisper import Whisper
@@ -31,9 +32,11 @@ class DecodeResult:
 class Speech2Text:
     """audio (16 kHz float) -> hypotheses on the model's device.
 
-    max_steps=None derives maxlen from the encoder frame count
-    (maxlenratio == 0 semantics); a positive maxlenratio multiplies it.
-    Both are capped by the decoder context."""
+    beam_size=1 uses the greedy path (score 0); beam_size > 1 the beam
+    search, whose hypotheses carry their score. max_steps=None derives
+    maxlen from the encoder frame count (maxlenratio == 0 semantics); a
+    positive maxlenratio multiplies it. Both are capped by the decoder
+    context. `loop` is the beam loop's form ("scan" or "while")."""
 
     def __init__(
         self,
@@ -43,23 +46,32 @@ class Speech2Text:
         beam_size: int = 1,
         max_steps: int | None = 200,
         maxlenratio: float = 0.0,
+        length_bonus: float = 0.0,
         ctc_weight: float = 0.0,
         lm_weight: float = 0.0,
         ngram_weight: float = 0.0,
+        pre_beam: int = 0,
+        use_end_detect: bool = True,
         primer: tuple[int, ...] = WHISPER_CS_PRIMER,
+        loop: str = "scan",
     ):
-        unported = {"beam_size > 1": beam_size > 1, "ctc_weight": ctc_weight != 0.0,
-                    "lm_weight": lm_weight != 0.0, "ngram_weight": ngram_weight != 0.0}
+        unported = {"ctc_weight": ctc_weight != 0.0, "lm_weight": lm_weight != 0.0,
+                    "ngram_weight": ngram_weight != 0.0}
         asked = [k for k, v in unported.items() if v]
         if asked:
             raise NotImplementedError(
-                f"{', '.join(asked)}: only greedy decoding is ported yet")
+                f"{', '.join(asked)}: CTC, LM and n-gram fusion are not ported yet")
         self.model = model
         self.cfg = cfg
         self.tokenizer = tokenizer or WhisperTokenizer()
+        self.beam_size = beam_size
         self.max_steps = max_steps
         self.maxlenratio = maxlenratio
+        self.length_bonus = length_bonus
+        self.pre_beam = pre_beam
+        self.use_end_detect = use_end_detect
         self.primer = tuple(primer)
+        self.loop = loop
         self.device = next(model.parameters()).device
         self._audio_seconds = 0.0
         self._decode_seconds = 0.0
@@ -101,11 +113,19 @@ class Speech2Text:
         speech = torch.from_numpy(audio).to(self.device)
         enc, _ = encode(self.model, self.cfg, speech,
                         torch.from_numpy(lengths).to(self.device))
-        tokens, lens = greedy_decode(
-            self.model, enc, primer=self.primer,
-            max_steps=self._maxlen(int(enc.shape[1])),
-        )
+        max_steps = self._maxlen(int(enc.shape[1]))
+        if self.beam_size <= 1:
+            tokens, lens = greedy_decode(self.model, enc, primer=self.primer,
+                                         max_steps=max_steps)
+            scores = torch.zeros(b)
+        else:
+            tokens, lens, scores = beam_decode(
+                self.model, enc, beam_size=self.beam_size, primer=self.primer,
+                max_steps=max_steps, length_bonus=self.length_bonus,
+                pre_beam=self.pre_beam, use_end_detect=self.use_end_detect,
+                loop=self.loop)
         tokens, lens = tokens.cpu().numpy(), lens.cpu().numpy()
+        scores = scores.cpu().numpy()
         self._decode_seconds += time.perf_counter() - t0
         self._audio_seconds += float(lengths.sum()) / fs
 
@@ -114,5 +134,5 @@ class Speech2Text:
             ids = tokens[i, : lens[i]].tolist()
             hyp_ids = [t for t in ids if t < self.tokenizer.special.eot]
             out.append(DecodeResult(text=self.tokenizer.decode(hyp_ids),
-                                    tokens=ids, score=0.0))
+                                    tokens=ids, score=float(scores[i])))
         return out

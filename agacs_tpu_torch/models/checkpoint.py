@@ -24,7 +24,12 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from agacs_tpu_torch.models.whisper import Whisper, WhisperConfig, check_supported
+from agacs_tpu_torch.models.whisper import (
+    Whisper,
+    WhisperConfig,
+    check_supported,
+    init_whisper_params,
+)
 
 _UNSUPPORTED = {
     "w_q": "the int8 frozen trunk",
@@ -124,3 +129,13 @@ def numpy_from_params(state_dict: Mapping[str, torch.Tensor]) -> dict[str, np.nd
     for key, per in layers.items():
         out[key] = np.stack([per[i] for i in range(len(per))])
     return out
+
+
+def load_model(cfg: WhisperConfig, params_path: str | None, device) -> Whisper:
+    """A serving model on `device`: weights from a `.params.npz` in the JAX
+    layout, or random from torch seed 0 when `params_path` is None."""
+    if params_path:
+        sd = params_from_numpy(np.load(params_path), cfg)
+    else:
+        sd = init_whisper_params(torch.Generator().manual_seed(0), cfg)
+    return Whisper.from_state_dict(cfg, sd, device=device)

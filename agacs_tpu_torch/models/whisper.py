@@ -27,9 +27,11 @@ keeps trainable leaves float32 (`train/trainer.py:72-87`).
 
 On a CUDA tensor the encoder self-attention runs kernels K1f/K1b
 (`ops/flash_train.py`) and the decode step's self- and cross-attention
-run kernel K3 (`ops/decode_attn.py`); on a CPU tensor they take their
-plain versions. Configurations the port cannot run yet (PE attention,
-side networks, int8 cross-KV) raise when the model is built.
+run kernel K3 (`ops/decode_attn.py`); a beam step runs K3a (self, through
+the ancestry map) and K3s (cross, one shared cache per utterance). On a
+CPU tensor they take their plain versions. Configurations the port
+cannot run yet (PE attention, side networks, int8 cross-KV) raise when
+the model is built.
 """
 
 from __future__ import annotations
@@ -48,8 +50,13 @@ from agacs_tpu_torch.ops.attention import (
     merge_heads,
     packed_mha,
     split_heads,
+    streaming_lse,
 )
-from agacs_tpu_torch.ops.decode_attn import decode_cache_attention, pad_time
+from agacs_tpu_torch.ops.decode_attn import (
+    decode_cache_attention,
+    decode_shared_cache_attention,
+    pad_time,
+)
 from agacs_tpu_torch.ops.flash_train import packed_flash_mha
 from agacs_tpu_torch.ops.logmel import full_fp32
 
@@ -211,17 +218,39 @@ class MultiHeadAttention(nn.Module):
         attend = packed_flash_mha if xa is None else packed_mha
         return self.out(attend(q, k, v, self.n_head))
 
-    def causal_self(self, x: torch.Tensor, lang_cols: bool = False
-                    ) -> tuple[torch.Tensor, torch.Tensor | None]:
-        """Causal self-attention (-inf above the diagonal) and, with
-        `lang_cols`, its pre-softmax scores at key columns 1:3 (B, h, T, 2),
-        computed analytically against the two language-token keys
-        (`mha` :436-446), so no (T, T) map is kept for them."""
+    def causal_self(self, x: torch.Tensor, lang_cols: bool = False,
+                    need_probs: bool = False, full_scores: bool = False
+                    ) -> tuple[torch.Tensor, dict]:
+        """Causal self-attention (-inf above the diagonal) and its aux
+        (`mha` :398-482). With `lang_cols`, "qk_cols": the pre-softmax
+        scores at key columns 1:3 (B, h, T, 2), computed analytically
+        against the two language-token keys, and with `need_probs` also
+        "p_cols" = exp(qk_cols - lse), lse from `streaming_lse`, so no
+        (T, T) map is kept for them. With `full_scores` the (T, T) scores
+        are formed: "qk_full" (B, h, T, T), -inf where causally masked, and
+        the language columns are sliced from it and from its softmax."""
         sc = (x.shape[-1] // self.n_head) ** -0.25
         qh = split_heads(self.query(x), self.n_head) * sc
         kh = split_heads(self.key(x), self.n_head) * sc
-        o = einsum_mha(qh, kh, split_heads(self.value(x), self.n_head), causal=True)
-        return self.out(merge_heads(o)), lang_col_scores(qh, kh) if lang_cols else None
+        vh = split_heads(self.value(x), self.n_head)
+        aux = {}
+        if not full_scores:
+            o = einsum_mha(qh, kh, vh, causal=True)
+            if lang_cols:
+                aux["qk_cols"] = lang_col_scores(qh, kh)
+                if need_probs:
+                    lse = streaming_lse(qh, kh, causal=True)
+                    aux["p_cols"] = torch.exp(aux["qk_cols"] - lse[..., None])
+            return self.out(merge_heads(o)), aux
+        qk = torch.einsum("bhqd,bhkd->bhqk", qh, kh).float()
+        t = qk.shape[-1]
+        qk = qk + torch.full((t, t), float("-inf"), device=qk.device).triu(1)
+        w = torch.softmax(qk, dim=-1)
+        o = torch.einsum("bhqk,bhkd->bhqd", w.to(vh.dtype), vh)
+        aux["qk_full"] = qk
+        if lang_cols:
+            aux["qk_cols"], aux["p_cols"] = qk[..., 1:3], w[..., 1:3]
+        return self.out(merge_heads(o)), aux
 
 
 class Adapter(nn.Module):
@@ -264,16 +293,18 @@ class ResidualAttentionBlock(nn.Module):
             self.adapter_mlp_ln = LayerNorm(d, device=device)
 
     def forward(self, x: torch.Tensor, xa: torch.Tensor | None = None,
-                lang_cols: bool = False) -> tuple[torch.Tensor, torch.Tensor | None]:
-        """x (B, T, d) -> (x, qk_cols). Encoder blocks: non-causal
-        self-attention, qk_cols None. Decoder blocks: causal self-attention
-        over x, cross-attention over xa (B, T_audio, d), and with
-        `lang_cols` the (B, h, T, 2) language-column scores."""
-        qk_cols = None
+                lang_cols: bool = False, need_probs: bool = False,
+                full_scores: bool = False) -> tuple[torch.Tensor, dict]:
+        """x (B, T, d) -> (x, aux). Encoder blocks: non-causal
+        self-attention, aux empty. Decoder blocks: causal self-attention
+        over x, cross-attention over xa (B, T_audio, d), and the
+        self-attention aux of `MultiHeadAttention.causal_self`."""
+        aux = {}
         if self.cross_attn is None:
             x = x + self.attn(self.attn_ln(x))
         else:
-            a, qk_cols = self.attn.causal_self(self.attn_ln(x), lang_cols)
+            a, aux = self.attn.causal_self(self.attn_ln(x), lang_cols, need_probs,
+                                           full_scores)
             x = x + a
         if self.adapter:
             x = self.adapter_attn_ln(self.adapter_attn(x))
@@ -282,27 +313,35 @@ class ResidualAttentionBlock(nn.Module):
         x = x + self.mlp(self.mlp_ln(x))
         if self.adapter:
             x = self.adapter_mlp_ln(self.adapter_mlp(x))
-        return x, qk_cols
+        return x, aux
 
-    def step(self, h, pos: int, k_cache, v_cache, cross_k, cross_v, t_audio: int):
+    def step(self, h, pos: int, k_cache, v_cache, cross_k, cross_v, t_audio: int,
+             anc_local: torch.Tensor | None = None, beam_groups: int = 1):
         """One decode token through this decoder block: h (N, d).
 
         Writes this position's k/v row into the caches IN PLACE before the
-        attention reads them (write-first, as in the JAX step)."""
+        attention reads them (write-first, as in the JAX step). With
+        `beam_groups` j > 1 the N = G*j rows are G utterances' beams: the
+        self-attention reads through `anc_local` (N, Tp) when given (K3a,
+        else its own rows) and the cross-attention reads each utterance's
+        un-repeated (G, Tp, d) cross-KV once for its j queries (K3s)."""
         scale2 = (h.shape[-1] // self.n_head) ** -0.5
         a = self.attn
         y = self.attn_ln(h)
         k_cache[:, pos] = a.key(y)
         v_cache[:, pos] = a.value(y)
         o = decode_cache_attention(a.query(y) * scale2, k_cache, v_cache, pos,
-                                   self.n_head)
+                                   self.n_head, anc_local=anc_local, beam=beam_groups)
         h = h + a.out(o)
         if self.adapter:
             h = self.adapter_attn_ln(self.adapter_attn(h))
         c = self.cross_attn
-        y = self.cross_attn_ln(h)
-        oc = decode_cache_attention(c.query(y) * scale2, cross_k, cross_v,
-                                    t_audio - 1, self.n_head)
+        qc = c.query(self.cross_attn_ln(h)) * scale2
+        if beam_groups > 1:
+            oc = decode_shared_cache_attention(qc, cross_k, cross_v, t_audio - 1,
+                                               self.n_head, beam_groups)
+        else:
+            oc = decode_cache_attention(qc, cross_k, cross_v, t_audio - 1, self.n_head)
         h = h + c.out(oc)
         h = h + self.mlp(self.mlp_ln(h))
         if self.adapter:
@@ -442,25 +481,42 @@ def whisper_decode(
     audio_feats: torch.Tensor,
     src_layer: int = 0,
     collect_lang_cols: bool = False,
+    collect_full_maps: bool = False,
+    need_probs: bool = False,
 ) -> tuple[torch.Tensor, dict]:
-    """Teacher-forced decoder forward (`whisper_decode` :785-870).
+    """Teacher-forced decoder forward (`whisper_decode` :785-872).
 
     tokens (B, T) sos-prefixed ids; audio_feats (B, T_audio, d). Returns
     the (B, T, n_vocab) float32 logits (ln(x) @ emb^T in the compute
-    dtype, then float32) and aux; with `collect_lang_cols`, aux["qk_cols"]
-    is (L - src_layer, B, h, T, 2): each layer's pre-softmax self-attention
-    scores at the language columns 1:3, -inf where causally masked."""
+    dtype, then float32) and aux, each entry stacked over layers
+    src_layer..L-1 (the reference's `torch.stack(attention_scores)`):
+    with `collect_lang_cols`, aux["qk_cols"] (L', B, h, T, 2), each layer's
+    pre-softmax self-attention scores at the language columns 1:3, -inf
+    where causally masked, and with `need_probs` aux["p_cols"], the same
+    columns after the softmax; with `collect_full_maps`, aux["maps"]
+    (L', B, h, T, T), the pre-softmax scores, -inf where masked."""
     dec = model.decoder
     dtype = model.cfg.compute_dtype
     t = tokens.shape[1]
     x = (dec.token_embedding(tokens) + dec.positional_embedding[:t]).to(dtype)
     xa = audio_feats.to(dtype)
-    cols = []
+    auxs = []
     for block in dec.blocks:
-        x, c = block(x, xa, lang_cols=collect_lang_cols)
-        cols.append(c)
+        x, a = block(x, xa, lang_cols=collect_lang_cols, need_probs=need_probs,
+                     full_scores=collect_full_maps)
+        auxs.append(a)
     logits = F.linear(dec.ln(x), dec.logits_w()).float()
-    aux = {"qk_cols": torch.stack(cols[src_layer:])} if collect_lang_cols else {}
+
+    def stacked(key):
+        return torch.stack([a[key] for a in auxs[src_layer:]])
+
+    aux = {}
+    if collect_lang_cols:
+        aux["qk_cols"] = stacked("qk_cols")
+        if need_probs:
+            aux["p_cols"] = stacked("p_cols")
+    if collect_full_maps:
+        aux["maps"] = stacked("qk_full")
     return logits, aux
 
 
@@ -522,9 +578,12 @@ def precompute_cross_kv(model: Whisper, audio_feats: torch.Tensor) -> dict:
 
 
 def init_self_kv_cache(cfg: WhisperConfig, batch: int, max_len: int | None = None,
-                       device=None) -> dict:
+                       device=None, ancestry: bool = False) -> dict:
     """Per-layer (batch, pad_time(max_len), d) self-attention K/V buffers;
-    rows past the current position are never read."""
+    rows past the current position are never read. With `ancestry`, also
+    "anc" (1, batch, Tp) int32: anc[0, i, t] is the physical row holding
+    position t of row i's hypothesis (JAX :1041-1050), initially i. Beam
+    search reorders this map instead of gathering the k/v buffers."""
     max_len = pad_time(max_len or cfg.n_text_ctx)
 
     def bufs():
@@ -534,7 +593,11 @@ def init_self_kv_cache(cfg: WhisperConfig, batch: int, max_len: int | None = Non
             for _ in range(cfg.n_text_layer)
         )
 
-    return {"k": bufs(), "v": bufs()}
+    cache = {"k": bufs(), "v": bufs()}
+    if ancestry:
+        cache["anc"] = torch.arange(batch, dtype=torch.int32, device=device)[
+            None, :, None].expand(1, batch, max_len).contiguous()
+    return cache
 
 
 def whisper_decode_step(
@@ -543,18 +606,33 @@ def whisper_decode_step(
     pos: int,
     self_kv: dict,
     cross_kv: dict,
+    beam_groups: int = 1,
 ) -> tuple[torch.Tensor, dict]:
-    """One KV-cached decode step (`whisper_decode_step` :1066, beam_groups 1).
+    """One KV-cached decode step (`whisper_decode_step` :1066).
 
     tokens (N,) ids at position `pos` (a Python int). Updates `self_kv`
-    IN PLACE (row `pos` of every layer's k/v) and returns it with the
-    (N, n_vocab) float32 logits."""
+    IN PLACE (row `pos` of every layer's k/v, and of "anc" when present)
+    and returns it with the (N, n_vocab) float32 logits.
+
+    beam_groups j > 1: the N = B*j rows are B utterances' beams and
+    `cross_kv` holds B un-repeated rows (JAX :1146-1176, :1290-1306); the
+    self-attention reads through "anc" when the cache has one."""
     dec = model.decoder
+    n = tokens.shape[0]
     x = (dec.token_embedding.weight[tokens] + dec.positional_embedding[pos])
     h = x.to(model.cfg.compute_dtype)
+    anc_local = None
+    anc = self_kv.get("anc")
+    if anc is not None:
+        # this step's rows live at their own physical rows; recorded
+        # before the layer loop (in place, where JAX returns an updated
+        # copy), so position pos resolves to each row's fresh k/v
+        anc[:, :, pos] = torch.arange(n, dtype=anc.dtype, device=anc.device)
+        if beam_groups > 1:
+            anc_local = anc[0] % beam_groups
     for l, block in enumerate(dec.blocks):
         h = block.step(h, pos, self_kv["k"][l], self_kv["v"][l],
                        cross_kv["k_packed"][l], cross_kv["v_packed"][l],
-                       cross_kv["t_audio"])
+                       cross_kv["t_audio"], anc_local, beam_groups)
     h = dec.ln(h)
     return F.linear(h, dec.logits_w()).float(), self_kv

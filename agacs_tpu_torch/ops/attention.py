@@ -1,8 +1,10 @@
 """Plain head-split attention (counterpart of `agacs_tpu/ops/attention.py`
-`einsum_mha`): the reference numerics the kernels are held against, the
-decoder's causal self-attention, and the two language-column scores the
-CS loss reads (`agacs_tpu/models/whisper.py:436-446`). JAX computes the
-last two with XLA einsums, outside any Pallas kernel; so does this port."""
+`einsum_mha` and `streaming_lse`): the reference numerics the kernels are
+held against, the decoder's causal self-attention, the two language-column
+scores the CS loss reads (`agacs_tpu/models/whisper.py:436-446`) and the
+row log-sum-exp that turns them into probabilities for head counting. JAX
+computes all of these with XLA einsums, outside any Pallas kernel; so does
+this port."""
 
 from __future__ import annotations
 
@@ -26,6 +28,31 @@ def einsum_mha(
         qk = qk + torch.full((t_q, t_k), float("-inf"), device=qk.device).triu(1)
     w = torch.softmax(qk, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", w.to(v.dtype), v)
+
+
+def streaming_lse(q: torch.Tensor, k: torch.Tensor, causal: bool = False,
+                  block: int = 512) -> torch.Tensor:
+    """Per-row float32 log-sum-exp of q.k^T over key blocks of `block`,
+    with a running max and denominator (JAX `streaming_lse`
+    :93-142), so no (Tq, Tk) score tensor is kept. q, k (B, h, T, d)
+    pre-scaled; `causal` masks key column > query row. -> (B, h, Tq)."""
+    b, h, tq, _ = q.shape
+    tk = k.shape[2]
+    rows = torch.arange(tq, device=q.device)
+    m = torch.full((b, h, tq), float("-inf"), device=q.device)
+    l = torch.zeros((b, h, tq), device=q.device)
+    for c0 in range(0, tk, min(block, tk)):
+        kb = k[:, :, c0:c0 + block]
+        s = torch.einsum("bhqd,bhkd->bhqk", q, kb).float()
+        if causal:
+            cols = c0 + torch.arange(kb.shape[2], device=q.device)
+            s = s.masked_fill(cols[None, :] > rows[:, None], float("-inf"))
+        new_m = torch.maximum(m, s.amax(-1))
+        safe_m = torch.where(torch.isfinite(new_m), new_m, 0.0)
+        l = (l * torch.exp(m - safe_m) * torch.isfinite(m)
+             + torch.exp(s - safe_m[..., None]).sum(-1))
+        m = new_m
+    return m + torch.log(torch.clamp(l, min=1e-38))
 
 
 def lang_col_scores(qh: torch.Tensor, kh: torch.Tensor, lo: int = 1,

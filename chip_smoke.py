@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's greedy serving path and its stage-2 training
-path once on one CUDA card.
+"""Drive the PyTorch port's greedy serving path, its beam-search serving
+path and its stage-2 training path once on one CUDA card.
 
     python3 chip_smoke.py
 
 Run from (or point at) a checkout of the repository on a machine with a
 CUDA card and the CUDA toolkit (nvcc). It imports nothing of JAX. Phases,
-one line each; any failure ends the script with a non-zero exit:
+one line each, in the order they run; any failure ends the script with a
+non-zero exit:
 
   1. device and build: the card, and the nvcc builds of the three kernel
      sources, started together;
@@ -19,15 +20,33 @@ one line each; any failure ends the script with a non-zero exit:
   3. K3 (csrc/decode_attn.cu) against its plain version at the greedy
      decode shapes: self (8, 112, 768) at pos 0/4/57/103, cross
      (8, 752, 768) at pos 749;
-  4. the slice: whisper-small with adapters in both stacks (the stage-2
-     recipe's flags), bf16, random weights from torch seed 0, Speech2Text
-     on 8 x 15 s of seeded noise, 100 greedy steps; ms per batch,
-     x realtime, and the launch counts of both kernels in that run;
+  3a. K3a (decode_attn.cu, the ancestry rows) against its plain version
+     at the beam self-attention shapes (40, 112, 768), beam 5, pos
+     4/57/103, and the full decoder context (10, 448, 768) at pos 447,
+     with an ancestry map drawn like a beam run and poisoned cache
+     entries (past pos, and every entry the map does not select);
+  3s. K3s (decode_attn.cu, the shared cross-KV) against its plain version
+     at (8 groups x 5, 752, 768), pos 749;
+  4. the greedy slice: whisper-small with adapters in both stacks (the
+     stage-2 recipe's flags), bf16, random weights from torch seed 0,
+     Speech2Text on 8 x 15 s of seeded noise, 100 greedy steps; ms per
+     batch, x realtime, and the launch counts of both kernels in that run;
   5. the card (bf16) against the port on the CPU (float32) on the same
      weights, one utterance: encoder output and first-step logits;
   6. torch.profiler over one more warm request of phase 4: device busy
      time, device events per decode step, the device's idle share of
      phase 4's ms per batch, and the kernels that take the most time;
+  10. the beam slice (bench.py's beam5_8x15s row): Speech2Text(beam_size=5,
+     max_steps=100, loop="scan") on phase 4's model and audio; ms per
+     batch, x realtime, peak memory, exact K1f/K3/K3a/K3s launch counts;
+  11. torch.profiler over one more beam request: device busy time, idle
+     share, K3a's and K3s's device time, the top kernels;
+  12. beam end to end: each returned hypothesis rescored teacher-forced
+     (the card in bf16 with the plain attention, and utterance 0 on the
+     CPU in float32) against the score the search reported, beside a
+     control search with every decode attention in its plain version;
+     and the same search with the caches gathered physically (K3 plain
+     rows instead of K3a) gives the same hypotheses;
   7. the training path (the stage-2 recipe's step, the shape of bench.py's
      bf16 row): whisper-small + adapters, bf16 frozen trunk, float32
      adapters, preset `adapter`, cs_weight 0.01, SpecAug on, AdamW with
@@ -106,6 +125,17 @@ LOGITS_REL_L2 = 5e-2
 TRAIN_REL = {"loss": 5e-4, "loss_cs": 2e-3, "grad_norm": 5e-3}
 TRAIN_COS = {"cos_enc": 0.9995, "cos_dec": 0.9995}
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 16, 15, 5
+BEAM = 5
+# Phase 12: a beam hypothesis's reported score against its teacher-forced
+# rescoring (sum of the searched tokens' log-softmax values plus the length
+# bonus), relative to |score|, max over the 8 utterances (card, bf16) and
+# for utterance 0 (CPU, float32). On the H100 the kernel run read 2.0e-4
+# and 2.6e-4 (card), 2.9e-4 and 3.4e-5 (CPU); the control search with
+# plain decode attention 1.7e-4 (card). A K3a that reads each row's own
+# cache instead of the ancestry row read 2.7e-2 (card) and 1.3e-2 (CPU):
+# with random weights the self-attention is nearly flat, so a wrong row
+# moves the scores by about 1%, not more (PERF.md, Findings).
+RESCORE_REL = {"card": 2e-3, "cpu": 2e-3}
 
 
 def check(ok: bool, what: str) -> None:
@@ -295,6 +325,93 @@ def check_k3(dev, g, timed=True) -> dict:
     return res
 
 
+def beam_ancestry(g, n: int, tp: int, j: int, pos: int) -> torch.Tensor:
+    """(n, tp) int32 local rows as a beam run leaves them: position t < pos
+    of row i points to another slot of its group 80% of the time, and
+    position pos to the row itself (the step writes it before attending)."""
+    own = torch.arange(n)[:, None] % j
+    other = (own + torch.randint(1, j, (n, tp), generator=g)) % j
+    anc = torch.where(torch.rand(n, tp, generator=g) < 0.2, own, other)
+    anc[:, pos] = own[:, 0]
+    return anc.to(torch.int32)
+
+
+def poison_unread(k, v, anc, j: int, pos: int):
+    """Copies of k, v in which keys past pos, and every (row, t) at t <= pos
+    that no row of its own group reads through the map, hold k = 0 (a
+    score far above the others) and v = 1e4: a kernel that reads outside
+    its group, or its own row instead of the ancestry row, lands on
+    poison at about a third of the keys."""
+    n, tp, _ = k.shape
+    rows = (torch.arange(n, device=k.device) // j * j)[:, None] + anc.long()
+    read = torch.zeros(n, tp, dtype=torch.bool, device=k.device)
+    read[rows, torch.arange(tp, device=k.device)[None, :]] = True
+    read[:, pos + 1:] = False
+    k_bad, v_bad = k.clone(), v.clone()
+    k_bad[~read], v_bad[~read] = 0.0, 1e4
+    return k_bad, v_bad
+
+
+def check_k3a(dev, g, timed=True) -> dict:
+    """Phase 3a: K3a against its plain version (the group's rows gathered
+    through the map, then the plain-row math) on poisoned caches."""
+    from agacs_tpu_torch.ops import decode_attn
+
+    def kernel(q, k, v, pos, h, anc):
+        return decode_attn.decode_cache_attention(q, k, v, pos, h, anc_local=anc,
+                                                  beam=BEAM)
+
+    def plain(q, k, v, pos, h, anc):
+        return decode_attn.decode_cache_attention_anc_ref(q, k, v, pos, h, anc, BEAM)
+
+    res = {"err": 0.0}
+    for n, tp, pos in ((40, 112, 4), (40, 112, 57), (40, 112, 103), (10, 448, 447)):
+        sets = [(*sharp_qkv(g, dev, (n, D), (n, tp, D), q_scale=0.125), pos, H,
+                 beam_ancestry(g, n, tp, BEAM, pos).to(dev)) for _ in range(8)]
+        q, k, v, _, _, anc = sets[0]
+        k_bad, v_bad = poison_unread(k, v, anc, BEAM, pos)
+        err = hold(f"K3a pos={pos}", kernel(q, k_bad, v_bad, pos, H, anc),
+                   plain(q.float(), k.float(), v.float(), pos, H, anc), (n, tp, D))
+        res["err"] = max(res["err"], err)
+        if not timed:
+            continue
+        ms = cuda_ms(kernel, sets, 50)
+        plain_ms = cuda_ms(plain, sets, 50)
+        if (tp, pos) == (112, 103):
+            res.update(ms=ms, plain_ms=plain_ms)
+        print(f"phase 3a K3a decode_attn_anc ({n}, {tp}, {D}) beam {BEAM} pos={pos}: "
+              f"max_abs_err {err:.3e} (bound {KERNEL_RTOL} x max|plain f32|) kernel "
+              f"{ms:.4f} ms plain bf16 {plain_ms:.4f} ms", flush=True)
+    return res
+
+
+def check_k3s(dev, g, timed=True) -> dict:
+    """Phase 3s: K3s against its plain version at the beam cross-attention
+    shape, 8 utterances x beam 5 distinct queries over (8, 752, 768), keys
+    past pos poisoned."""
+    from agacs_tpu_torch.ops import decode_attn
+
+    groups, tp, pos = 8, 752, 749
+    sets = [(*sharp_qkv(g, dev, (groups * BEAM, D), (groups, tp, D), q_scale=0.125),
+             pos, H, BEAM) for _ in range(8)]
+    q, k, v, _, _, _ = sets[0]
+    k_bad, v_bad = k.clone(), v.clone()
+    k_bad[:, pos + 1:] = 0.0
+    v_bad[:, pos + 1:] = 1e4
+    err = hold("K3s", decode_attn.decode_shared_cache_attention(q, k_bad, v_bad, pos, H, BEAM),
+               decode_attn.decode_shared_cache_attention_ref(
+                   q.float(), k.float(), v.float(), pos, H, BEAM), (groups, tp, D))
+    res = {"err": err}
+    line = (f"phase 3s K3s decode_attn_shared ({groups} x {BEAM}, {tp}, {D}) pos={pos}: "
+            f"max_abs_err {err:.3e} (bound {KERNEL_RTOL} x max|plain f32|)")
+    if timed:
+        res["ms"] = cuda_ms(decode_attn.decode_shared_cache_attention, sets, 50)
+        res["plain_ms"] = cuda_ms(decode_attn.decode_shared_cache_attention_ref, sets, 50)
+        line += f" kernel {res['ms']:.4f} ms plain bf16 {res['plain_ms']:.4f} ms"
+    print(line, flush=True)
+    return res
+
+
 def device_profile(fn) -> tuple[float, int, dict]:
     """Run fn() once under torch.profiler (CUDA activity): (device busy
     ms, device events, ms by kernel name)."""
@@ -328,6 +445,147 @@ def profile_request(s2t, audio, ms_batch: float, n_steps: int) -> None:
           f"events ({n_events / n_steps:.0f} per decode step); idle "
           f"{1 - busy / ms_batch:.1%} of phase 4's {ms_batch:.1f} ms/batch; top: "
           + top_kernels(per_name), flush=True)
+
+
+def beam_phase(model, asr_cfg, audio) -> dict:
+    """Phases 10 and 11: the beam5 8 x 15 s request (bench.py's
+    beam5_8x15s row) with exact launch counts, then one more under the
+    profiler. Returns its results, launches, time and kernel errors."""
+    from agacs_tpu_torch.decode.speech2text import Speech2Text
+    from agacs_tpu_torch.ops import decode_attn, flash_train
+
+    cfg = model.cfg
+    s2t = Speech2Text(model, asr_cfg, beam_size=BEAM, max_steps=100, loop="scan")
+    s2t(audio)  # warm-up
+    torch.cuda.synchronize()
+    flash_train.LAUNCHES = decode_attn.LAUNCHES = 0
+    decode_attn.ANC_LAUNCHES = decode_attn.SHARED_LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    results = s2t(audio)
+    times = [time.perf_counter() - t0]
+    launches = {"K1f": flash_train.LAUNCHES, "K3": decode_attn.LAUNCHES,
+                "K3a": decode_attn.ANC_LAUNCHES, "K3s": decode_attn.SHARED_LAUNCHES}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for _ in range(2):
+        t0 = time.perf_counter()
+        s2t(audio)
+        times.append(time.perf_counter() - t0)
+    n_steps = min(len(PRIMER) + 100, cfg.n_text_ctx) - 1  # prefill + search steps
+    per_step = cfg.n_text_layer * n_steps
+    check(len(results) == 8, "8 beam hypotheses")
+    for r in results:
+        check(r.tokens[:5] == PRIMER and 5 < len(r.tokens) <= 106 and np.isfinite(r.score),
+              f"beam hypothesis {r.tokens[:8]}... score {r.score}")
+    check(launches == {"K1f": cfg.n_audio_layer, "K3": 0, "K3a": per_step,
+                       "K3s": per_step},
+          f"beam launches {launches} == K1f 12, K3 0, K3a and K3s 12 x {n_steps}")
+    ms_batch = statistics.median(times) * 1e3
+    print(f"phase 10 beam slice: whisper-small+adapters bf16, 8 x 15 s, beam {BEAM}, "
+          f"{n_steps} decode steps, loop scan: {ms_batch:.1f} ms/batch (median of "
+          f"{[round(t * 1e3, 1) for t in times]}), {120.0 / (ms_batch / 1e3):.1f} x "
+          f"realtime, {ms_batch / n_steps:.2f} ms/step incl. encode; peak {peak_gb:.2f} GB; "
+          f"launches {launches}; lengths {[len(r.tokens) for r in results]}", flush=True)
+
+    busy, n_events, per_name = device_profile(lambda: s2t(audio))
+    k3a = sum(t for name, t in per_name.items() if "decode_attn_kernel<true>" in name)
+    k3s = sum(t for name, t in per_name.items() if "decode_attn_shared_kernel" in name)
+    print(f"phase 11 beam profile: device busy {busy:.1f} ms in {n_events} device events "
+          f"({n_events / n_steps:.0f} per decode step); idle {1 - busy / ms_batch:.1%} of "
+          f"phase 10's {ms_batch:.1f} ms/batch; K3a {k3a:.2f} ms ({k3a / busy:.1%}), K3s "
+          f"{k3s:.2f} ms ({k3s / busy:.1%}); top: " + top_kernels(per_name), flush=True)
+    return {"results": results, "launches": launches, "ms": ms_batch}
+
+
+def rescore(model, enc, hyps, limit: int) -> np.ndarray:
+    """Teacher-forced scores of beam hypotheses (token lists): the sum of
+    each searched token's log-softmax value (plus the length bonus per
+    searched token, 0 here). An eot the search selected counts; the eot
+    appended at the cap (length limit + 2) joins at an unchanged score and
+    counts nothing (composed_beam.py:326-345)."""
+    from agacs_tpu_torch.models import whisper as tw
+
+    n_p = len(PRIMER)
+    width = max(len(h) for h in hyps)
+    ids = torch.full((len(hyps), width), 50257, dtype=torch.long)
+    for i, h in enumerate(hyps):
+        ids[i, : len(h)] = torch.tensor(h)
+    ids = ids.to(enc.device)
+    with torch.inference_mode():
+        logits, _ = tw.whisper_decode(model, ids[:, :-1], enc)
+        logp = torch.log_softmax(logits.float(), -1).double().cpu()
+    out = []
+    for i, h in enumerate(hyps):
+        end = len(h) - 1 if len(h) == limit + 2 else len(h)
+        t = torch.arange(n_p, end)
+        out.append(float(logp[i, t - 1, ids[i, t].cpu()].sum()))
+    return np.array(out)
+
+
+@contextlib.contextmanager
+def plain_decode_attention():
+    """Every decode-step attention (self and cross) through its plain
+    PyTorch version instead of K3/K3a/K3s: phase 12's control."""
+    from agacs_tpu_torch.models import whisper as tw
+    from agacs_tpu_torch.ops import decode_attn
+
+    def self_attn(q, k, v, pos, h, anc_local=None, beam=1):
+        if anc_local is not None and beam > 1:
+            return decode_attn.decode_cache_attention_anc_ref(q, k, v, pos, h, anc_local, beam)
+        return decode_attn.decode_cache_attention_ref(q, k, v, pos, h)
+
+    kernels = tw.decode_cache_attention, tw.decode_shared_cache_attention
+    tw.decode_cache_attention = self_attn
+    tw.decode_shared_cache_attention = decode_attn.decode_shared_cache_attention_ref
+    try:
+        yield
+    finally:
+        tw.decode_cache_attention, tw.decode_shared_cache_attention = kernels
+
+
+def beam_e2e(model, asr_cfg, audio, beam, cpu_model, enc_cpu) -> dict:
+    """Phase 12: the beam request's reported scores against teacher-forced
+    rescoring, on the card (bf16, plain attention) and on the CPU (float32,
+    utterance 0); a control search with plain decode attention read the
+    same way; and the search with the caches gathered physically (K3
+    plain rows) against the ancestry map (K3a)."""
+    from agacs_tpu_torch.decode.beam import beam_decode
+    from agacs_tpu_torch.models.asr_model import encode
+    from agacs_tpu_torch.ops import decode_attn
+
+    dev = next(model.parameters()).device
+    limit = len(PRIMER) + 100 - 1
+    with torch.inference_mode():
+        enc, _ = encode(model, asr_cfg, torch.from_numpy(audio).to(dev),
+                        torch.full((audio.shape[0],), audio.shape[1], device=dev))
+    hyps = [r.tokens for r in beam["results"]]
+    scores = np.array([r.score for r in beam["results"]])
+    card = np.abs(rescore(model, enc, hyps, limit) / scores - 1)
+    cpu = abs(rescore(cpu_model, enc_cpu, hyps[:1], limit)[0] / scores[0] - 1)
+
+    def search(**kw):
+        with torch.inference_mode():
+            t, l, sc = beam_decode(model, enc, beam_size=BEAM, max_steps=100, loop="scan",
+                                   **kw)
+        return [t[i, : l[i]].tolist() for i in range(len(l))], sc.double().cpu().numpy()
+
+    k3 = decode_attn.LAUNCHES
+    gathered, g_scores = search(ancestry=False)
+    check(decode_attn.LAUNCHES - k3 == beam["launches"]["K3a"],
+          "the physical-gather search ran K3 plain rows")
+    with plain_decode_attention():
+        c_hyps, c_scores = search()
+    control = np.abs(rescore(model, enc, c_hyps, limit) / c_scores - 1)
+    same = gathered == hyps and np.array_equal(g_scores, scores)
+    print(f"phase 12 beam e2e: reported score vs teacher-forced rescore (rel, max over "
+          f"8): card bf16 {card.max():.2e}, cpu f32 (utt 0) {cpu:.2e}; control search "
+          f"with plain decode attention: card bf16 {control.max():.2e}; bounds "
+          f"{RESCORE_REL}; scores {np.round(scores, 2).tolist()}; physical-gather "
+          f"search (K3 rows) identical to the ancestry map (K3a): {same}", flush=True)
+    check(card.max() <= RESCORE_REL["card"] and cpu <= RESCORE_REL["cpu"],
+          f"beam rescore rel card {card.max()} cpu {cpu} within {RESCORE_REL}")
+    check(same, "the physical-gather search returns the same hypotheses and scores")
+    return {"card": card.max(), "cpu": cpu, "control": control.max()}
 
 
 def make_train_batch(b: int, seconds: int, dev) -> dict:
@@ -559,11 +817,13 @@ def main() -> int:
           f"{torch.__version__} cuda {torch.version.cuda} | kernels built in "
           f"{build_s:.2f} s | ptxas {ptxas or 'cached build'}", flush=True)
 
-    # 2-3. each kernel against its plain version
+    # 2-3s. each kernel against its plain version
     g = torch.Generator(device="cpu").manual_seed(0)
     check_k1(dev, g)
     k1f, k1b = check_k1_train(dev, g)
     k3 = check_k3(dev, g)
+    k3a = check_k3a(dev, g)
+    k3s = check_k3s(dev, g)
 
     # 4. the slice: Speech2Text, whisper-small + adapters, bf16, 8 x 15 s
     cfg = tw.make_config("small", adapter=True, adapter_encoder=True,
@@ -648,7 +908,11 @@ def main() -> int:
 
     # 6. where the device time of one request goes
     profile_request(s2t, audio, ms_batch, n_steps)
-    del s2t, model
+
+    # 10-12. the beam request, its profile, and its end-to-end checks
+    beam = beam_phase(model, asr_cfg, audio)
+    beam_e2e(model, asr_cfg, audio, beam, cpu_model, enc_c)
+    del s2t, model, cpu_model
     torch.cuda.empty_cache()
 
     # 7-9. the training path
@@ -673,6 +937,16 @@ def main() -> int:
          "replaces": "agacs_tpu/ops/decode_attn.py:140",
          "launches": launches["K3"], "max_abs_err": k3["err"],
          "ms": k3["ms"], "plain_ms": k3["plain_ms"]},
+        {"name": "decode_attn_anc_fwd (K3a, beam self-attention through the ancestry map)",
+         "route": "cuda", "source": "agacs_tpu_torch/csrc/decode_attn.cu",
+         "replaces": "agacs_tpu/ops/decode_attn.py:140",
+         "launches": beam["launches"]["K3a"], "max_abs_err": k3a["err"],
+         "ms": k3a["ms"], "plain_ms": k3a["plain_ms"]},
+        {"name": "decode_attn_shared_fwd (K3s, beam cross-attention, shared cross-KV)",
+         "route": "cuda", "source": "agacs_tpu_torch/csrc/decode_attn.cu",
+         "replaces": "agacs_tpu/ops/decode_attn.py:830",
+         "launches": beam["launches"]["K3s"], "max_abs_err": k3s["err"],
+         "ms": k3s["ms"], "plain_ms": k3s["plain_ms"]},
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -12,6 +12,7 @@ import jax
 import torch
 
 from agacs_tpu.models import whisper as jw
+from agacs_tpu_torch.decode.composed_beam import composed_beam_decode
 from agacs_tpu_torch.decode.speech2text import Speech2Text
 from agacs_tpu_torch.models import asr_model
 from agacs_tpu_torch.models import whisper as tw
@@ -66,6 +67,50 @@ batch = {"speech": torch.randn(2, 16000) * 0.1, "speech_lengths": torch.tensor([
 stats = make_train_step(model, acfg, opt, sched,
                         generator=torch.Generator().manual_seed(0))([batch])
 assert torch.isfinite(stats["loss"]) and float(stats["loss_cs"]) > 0
+
+# a beam decode (ancestry map, shared cross-KV), with its scores
+out = Speech2Text(model, ASRModelConfig(whisper=cfg), beam_size=3, max_steps=4,
+                  length_bonus=0.5)(np.random.RandomState(1).randn(2, 16000).astype(np.float32))
+assert all(r.tokens[:5] == [50258, 50260, 50259, 50359, 50363] for r in out)
+assert all(np.isfinite(r.score) and r.score != 0.0 for r in out)
+
+# bin.count_heads on a generated data dir, and the JAX package's
+# average_checkpoints (numpy only) on two port-written npz files
+import json, os, tempfile, wave
+from agacs_tpu_torch.bin import count_heads
+from agacs_tpu_torch.models.checkpoint import numpy_from_params, params_from_numpy
+
+tmp_dir = tempfile.TemporaryDirectory()
+tmp = tmp_dir.name
+rng = np.random.RandomState(2)
+with open(os.path.join(tmp, "wav.scp"), "w") as scp:
+    for u in ("a", "b"):
+        with wave.open(os.path.join(tmp, u + ".wav"), "wb") as w:
+            w.setnchannels(1); w.setsampwidth(2); w.setframerate(16000)
+            w.writeframes((rng.randn(12000) * 3000).astype(np.int16).tobytes())
+        scp.write(f"{u} {tmp}/{u}.wav\n")
+with open(os.path.join(tmp, "text"), "w") as f:
+    f.write("a 我们 go\nb hello\n")
+with open(os.path.join(tmp, "config.yaml"), "w") as f:
+    f.write("encoder: whisper\nencoder_conf: {whisper_model: test}\n"
+            "decoder_conf: {whisper_model: test}\n")
+res = count_heads.main(["--config", os.path.join(tmp, "config.yaml"), "--data_dir", tmp,
+                        "--output", os.path.join(tmp, "counts.json"), "--device", "cpu",
+                        "--compute_dtype", "float32"])
+assert res["counts"].shape == (2, 2)
+assert json.load(open(os.path.join(tmp, "counts.mask.json")))["head_mask"]
+
+paths = []
+for seed in (3, 4):
+    sd = tw.init_whisper_params(torch.Generator().manual_seed(seed), cfg)
+    paths.append(os.path.join(tmp, f"{seed}epoch.params.npz"))
+    np.savez(paths[-1], **numpy_from_params(sd))
+from agacs_tpu.bin.average_checkpoints import main as average
+average(["--inputs", *paths, "--output", os.path.join(tmp, "ave.params.npz")])
+ave = params_from_numpy(np.load(os.path.join(tmp, "ave.params.npz")), cfg)
+sds = [params_from_numpy(np.load(p), cfg) for p in paths]
+assert all(torch.allclose(ave[k], (sds[0][k] + sds[1][k]) / 2) for k in ave)
+tmp_dir.cleanup()
 assert not any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules)
 print("OK", len(mods))
 """
@@ -98,18 +143,45 @@ def test_wrappers_never_fall_back_off_cpu():
         flash_train.PackedFlashMHA.apply(x.requires_grad_(), x, x, 2)
     with pytest.raises(ValueError):
         decode_attn.decode_cache_attention(x[:, 0], x, x, 3, 2)
+    anc = torch.zeros(2, 16, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        decode_attn.decode_cache_attention(x[:, 0], x, x, 3, 2, anc_local=anc, beam=2)
+    with pytest.raises(ValueError):
+        decode_attn.decode_shared_cache_attention(x[:, 0], x[:1], x[:1], 3, 2, 2)
 
 
 def test_launch_counters_stay_zero_on_cpu():
     flash_train.LAUNCHES = flash_train.BWD_LAUNCHES = decode_attn.LAUNCHES = 0
+    decode_attn.ANC_LAUNCHES = decode_attn.SHARED_LAUNCHES = 0
     cfg = tw.make_config("test", adapter=True)
     model = tw.Whisper.from_state_dict(
         cfg, tw.init_whisper_params(torch.Generator().manual_seed(1), cfg))
-    out = Speech2Text(model, ASRModelConfig(whisper=cfg), max_steps=3)(
-        np.random.RandomState(1).randn(1, 8000).astype(np.float32) * 0.1)
-    assert len(out[0].tokens) >= 6
+    audio = np.random.RandomState(1).randn(1, 8000).astype(np.float32) * 0.1
+    for beam in (1, 3):
+        out = Speech2Text(model, ASRModelConfig(whisper=cfg), beam_size=beam,
+                          max_steps=3)(audio)
+        assert len(out[0].tokens) >= 6
     assert flash_train.LAUNCHES == 0 and decode_attn.LAUNCHES == 0
     assert flash_train.BWD_LAUNCHES == 0
+    assert decode_attn.ANC_LAUNCHES == 0 and decode_attn.SHARED_LAUNCHES == 0
+
+
+@pytest.mark.parametrize("kernel", ["K3a", "K3s"])
+def test_cuda_request_to_a_beam_kernel_without_a_card_raises(kernel):
+    """A CUDA-device request never falls back to the plain version: on a
+    machine without a card it raises before anything runs."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    with pytest.raises((RuntimeError, AssertionError)):
+        q = torch.zeros(6, 128, dtype=torch.bfloat16, device="cuda")
+        if kernel == "K3a":
+            kv = torch.zeros(6, 16, 128, dtype=torch.bfloat16, device="cuda")
+            decode_attn.decode_cache_attention(
+                q, kv, kv, 3, 2, beam=3,
+                anc_local=torch.zeros(6, 16, dtype=torch.int32, device="cuda"))
+        else:
+            kv = torch.zeros(2, 16, 128, dtype=torch.bfloat16, device="cuda")
+            decode_attn.decode_shared_cache_attention(q, kv, kv, 3, 2, 3)
 
 
 @pytest.mark.parametrize("flags", [
@@ -136,8 +208,9 @@ def test_unported_checkpoints_raise(leaf):
         params_from_numpy(tree, tw.make_config("test"))
 
 
-@pytest.mark.parametrize("kw", [dict(beam_size=2), dict(ctc_weight=0.3),
-                                dict(lm_weight=0.5), dict(ngram_weight=0.1)])
+@pytest.mark.parametrize("kw", [dict(beam_size=2, ctc_weight=0.3), dict(ctc_weight=0.3),
+                                dict(lm_weight=0.5), dict(ngram_weight=0.1),
+                                dict(beam_size=4, lm_weight=0.3)])
 def test_unported_decoding_raises(kw):
     cfg = tw.make_config("test")
     model = tw.Whisper(cfg)
@@ -145,16 +218,29 @@ def test_unported_decoding_raises(kw):
         Speech2Text(model, ASRModelConfig(whisper=cfg), **kw)
 
 
+def test_composed_beam_with_ctc_raises():
+    def step(cur, pos, state):
+        return torch.zeros(cur.shape[0], 8), state
+
+    with pytest.raises(NotImplementedError):
+        composed_beam_decode(step, torch.zeros(1, 2), batch=1, vocab=8, beam_size=2,
+                             primer=(1,), max_steps=3, eot=0, max_pos=8, ctc_weight=0.3,
+                             ctc_logp=torch.zeros(1, 5, 8))
+
+
 @pytest.mark.parametrize("kw", [
-    dict(anc_local=torch.zeros(4, 16, dtype=torch.long), beam=2),
     dict(q_cs=torch.zeros(4, 128), k_cs=torch.zeros(4, 16, 128),
          gate=torch.zeros(2)),
     dict(k_scale=torch.ones(128), v_scale=torch.ones(128)),
+    dict(k_scale=torch.ones(128), v_scale=torch.ones(128), shared=True),
 ])
 def test_unported_decode_attention_variants_raise(kw):
     q, kv = torch.zeros(4, 128), torch.zeros(4, 16, 128)
     with pytest.raises(NotImplementedError):
-        decode_attn.decode_cache_attention(q, kv, kv, 3, 2, **kw)
+        if kw.pop("shared", False):
+            decode_attn.decode_shared_cache_attention(q, kv[:2], kv[:2], 3, 2, 2, **kw)
+        else:
+            decode_attn.decode_cache_attention(q, kv, kv, 3, 2, **kw)
 
 
 @pytest.mark.parametrize("kw", [dict(ctc_weight=0.3), dict(cs_weight=0.1, cs_loss_type="lid_ce"),
