@@ -7,7 +7,7 @@ The decoder emits the pre-softmax self-attention scores at the <|zh|> /
 `qk_cols` (L, B, h, T, 2)); the loss pushes them toward c_val at the
 token's own language column. The per-token language labels are computed
 on the host with the tokenizer (`attention_target_labels`, numpy). The
-tokenizer comes from `agacs_tpu.text`, which imports no JAX.
+tokenizer is this package's copy (`text/tokenizer.py`).
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from agacs_tpu.text.tokenizer import WhisperTokenizer
+from agacs_tpu_torch.text.tokenizer import WhisperTokenizer
 
 # per-row language labels (host-computed, device-consumed)
 LANG_NONE = 0  # target [0, 0]

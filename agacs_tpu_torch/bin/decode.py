@@ -11,7 +11,11 @@ greedy or beam search.
   python -m agacs_tpu.bin.score --ref exp/x/decode_dev/ref.trn \
       --hyp exp/x/decode_dev/hyp.trn --output_dir exp/x/decode_dev/score
 
-`--params` is the `.params.npz` the JAX trainer writes. The .trn files
+`--params` is the `.params.npz` the JAX trainer writes. A checkpoint of
+the int8 frozen trunk (`freeze_quant: int8`, its `w_q`/`w_s` leaves)
+builds the quantised model and decodes on kernels K8 and K2; the config's
+`freeze_quant: int8` + `freeze_param` (what JAX's CLI keys on) and the npz
+must agree. The .trn files
 have the format `agacs_tpu.bin.score` reads. The decode YAML's keys
 apply as in JAX (`penalty` is the length bonus). CTC / LM fusion (a CTC
 head, or the YAML's ctc_weight / lm_weight) and int8 cross-KV are not
@@ -29,7 +33,7 @@ import sys
 import numpy as np
 import torch
 
-from agacs_tpu.eval.scoring import write_trn
+from agacs_tpu_torch.eval.scoring import write_trn
 from agacs_tpu_torch.data.io import DataDir
 from agacs_tpu_torch.decode.speech2text import Speech2Text
 from agacs_tpu_torch.models.checkpoint import params_from_numpy
@@ -93,9 +97,14 @@ def main(argv: list[str] | None = None) -> dict:
     if args.cross_kv_int8:
         raise NotImplementedError("--cross_kv_int8 is not ported yet")
 
-    cfg = model_config_from_dict(
-        load_yaml(args.config), compute_dtype=getattr(torch, args.compute_dtype))
+    raw = load_yaml(args.config)
+    cfg = model_config_from_dict(raw, compute_dtype=getattr(torch, args.compute_dtype))
     tree = np.load(args.params)
+    int8_conf = raw.get("freeze_quant") == "int8" and bool(raw.get("freeze_param"))
+    if int8_conf != any(k.endswith("/w_q") for k in tree.files):
+        raise ValueError(f"{args.params}: the config says freeze_quant int8 is "
+                         f"{'on' if int8_conf else 'off'}, the checkpoint's trunk "
+                         f"{'is not' if int8_conf else 'is'} int8")
     if any(k.startswith("ctc/") for k in tree.files):
         raise NotImplementedError(
             "checkpoint has a CTC head: joint CTC/attention decoding is not "

@@ -18,9 +18,13 @@ the JAX package's flat layout, so `agacs_tpu` loads them too.
 
 The model is built in float32; the freeze preset's frozen Linear/Conv1d
 weights are then stored in the compute dtype, the trainable ones stay
-float32 masters. Not ported, and raising NotImplementedError: --resume,
---tensor_parallel > 1, --optim_state_shard, --ckpt_backend orbax, batch
-types other than numel, freeze_quant int8, an OpenAI .pt --init_param.
+float32 masters. With `freeze_quant: int8` (and a freeze preset) the frozen
+trunk projections are then quantised to int8 (`Whisper.quantize_frozen_`,
+from the stored weights, as JAX does) and run kernels K8 and K2; the
+checkpoints hold them as `w_q`/`w_s`, which the decode CLI loads. Not
+ported, and raising NotImplementedError: --resume, --tensor_parallel > 1,
+--optim_state_shard, --ckpt_backend orbax, batch types other than numel,
+an OpenAI .pt --init_param.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ import time
 import numpy as np
 import torch
 
-from agacs_tpu.train.error_calculator import ErrorCalculator
+from agacs_tpu_torch.train.error_calculator import ErrorCalculator
 from agacs_tpu_torch.data.collate import collate_batch, to_device
 from agacs_tpu_torch.data.dataset import ASRDataset
 from agacs_tpu_torch.data.sampler import num_elements_batches
@@ -88,7 +92,6 @@ def check_supported(args, tcfg) -> None:
         "--ckpt_backend orbax": args.ckpt_backend == "orbax",
         f"batch_type {args.batch_type or tcfg.batch_type!r}":
             (args.batch_type or tcfg.batch_type) != "numel",
-        f"freeze_quant {tcfg.freeze_quant!r}": tcfg.freeze_quant not in (None, "none"),
     }
     init = args.init_param or tcfg.init_param
     unported["an OpenAI .pt --init_param"] = bool(init) and init.endswith((".pt", ".pth"))
@@ -141,6 +144,11 @@ def main(argv: list[str] | None = None) -> dict:
     max_epoch = args.max_epoch if args.max_epoch is not None else tcfg.max_epoch
     batch_bins = args.batch_bins if args.batch_bins is not None else tcfg.batch_bins
     freeze = args.freeze_param or tcfg.freeze_param
+    if tcfg.freeze_quant not in (None, "none") and not (
+            freeze and tcfg.freeze_quant == "int8"):
+        raise ValueError(f"unknown freeze_quant {tcfg.freeze_quant!r}"
+                         if tcfg.freeze_quant != "int8"
+                         else "freeze_quant=int8 requires freeze_param")
     if freeze:
         raw = {**raw, "freeze_param": freeze}
     os.makedirs(args.exp_dir, exist_ok=True)
@@ -163,6 +171,9 @@ def main(argv: list[str] | None = None) -> dict:
                                     param_dtype=torch.float32)
     params = apply_freeze(model, freeze)
     model.cast_frozen_(dtype)
+    if tcfg.freeze_quant == "int8":
+        model.quantize_frozen_()
+        logging.info("freeze_quant=int8: frozen trunk linears quantized")
     logging.info("freeze_param=%s: %.2fM / %.2fM trainable", freeze,
                  sum(p.numel() for p in params) / 1e6,
                  sum(p.numel() for p in model.parameters()) / 1e6)

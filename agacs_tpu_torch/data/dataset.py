@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from agacs_tpu.text import TextCleaner, WhisperTokenIdConverter, WhisperTokenizer
+from agacs_tpu_torch.text import TextCleaner, WhisperTokenIdConverter, WhisperTokenizer
 from agacs_tpu_torch.adapt.cs_loss import attention_target_labels
 from agacs_tpu_torch.data.io import DataDir
 

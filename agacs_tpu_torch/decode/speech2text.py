@@ -15,7 +15,7 @@ import time
 import numpy as np
 import torch
 
-from agacs_tpu.text import WhisperTokenizer
+from agacs_tpu_torch.text import WhisperTokenizer
 from agacs_tpu_torch.decode.beam import beam_decode
 from agacs_tpu_torch.decode.greedy import WHISPER_CS_PRIMER, greedy_decode
 from agacs_tpu_torch.models.asr_model import ASRModelConfig, encode

@@ -12,8 +12,11 @@ is its inverse: a state dict -> that flat mapping, which
 
 One name table (`jax_leaf`) serves both directions. Translations: JAX
 linear (in, out) <-> nn.Linear (out, in); conv (3, in, out) <-> nn.Conv1d
-(out, in, 3); stacked (L, ...) leaves <-> `blocks.{i}.*`. Checkpoints the
-port cannot run (int8 trunk `w_q`, serving-quantized `token_emb_q` /
+(out, in, 3); stacked (L, ...) leaves <-> `blocks.{i}.*`. The int8 trunk
+(`train/trainer.py quantize_frozen_linears` in JAX) maps `.../w_q` (int8,
+JAX's (in, out) layout kept) and `.../w_s` (float32) to an `Int8Linear`'s
+`weight_q` / `weight_s` buffers, both ways, in their own dtypes.
+Checkpoints the port cannot run (serving-quantized `token_emb_q` /
 `logits_w_q`, PE attention, side networks) raise.
 """
 
@@ -32,7 +35,6 @@ from agacs_tpu_torch.models.whisper import (
 )
 
 _UNSUPPORTED = {
-    "w_q": "the int8 frozen trunk",
     "token_emb_q": "serving-quantized token embeddings",
     "logits_w_q": "the int8 logits head",
     "query_cs": "PE attention",
@@ -58,7 +60,7 @@ def jax_leaf(name: str) -> tuple[str, int | None, str]:
     for a, b in _RENAME.items():
         path = path.replace(a, b)
     *mods, leaf = path.split(".")
-    leaf = {"weight": "w", "bias": "b"}[leaf]
+    leaf = {"weight": "w", "bias": "b", "weight_q": "w_q", "weight_s": "w_s"}[leaf]
     layout = "plain"
     if leaf == "w" and mods[-1] in ("conv1", "conv2"):
         layout = "conv"
@@ -94,12 +96,18 @@ def params_from_numpy(tree: Mapping[str, Any], cfg: WhisperConfig,
     flat = _flatten(tree) if any(isinstance(v, Mapping) for v in tree.values()) \
         else {k: tree[k] for k in tree}
     _check_keys(flat)
+    meta = Whisper(cfg, device="meta")
+    int8 = {name[: -len(".weight")] for name in meta.state_dict()
+            if name.endswith(".weight") and jax_leaf(name)[0][:-1] + "w_q" in flat}
+    if int8:
+        meta.int8_structure_(int8)
     sd = {}
-    for name in Whisper(cfg, device="meta").state_dict():
+    for name in meta.state_dict():
         key, layer, layout = jax_leaf(name)
         if key not in flat and not strict:
             continue
-        a = np.array(flat[key] if layer is None else flat[key][layer], np.float32)
+        a = np.asarray(flat[key] if layer is None else flat[key][layer])
+        a = a.astype(np.int8 if key.endswith("/w_q") else np.float32)
         if key == "decoder/token_emb":
             a = a[: cfg.n_vocab]  # rows may be padded to a tensor-parallel multiple
         if layout == "linear":
@@ -111,13 +119,15 @@ def params_from_numpy(tree: Mapping[str, Any], cfg: WhisperConfig,
 
 
 def numpy_from_params(state_dict: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray]:
-    """State dict -> the flat "/"-joined float32 mapping `save_pytree`
-    writes (per-layer tensors stacked on a leading L axis)."""
+    """State dict -> the flat "/"-joined mapping `save_pytree` writes
+    (per-layer tensors stacked on a leading L axis): float32, and the int8
+    trunk's `w_q` int8."""
     out: dict[str, np.ndarray] = {}
     layers: dict[str, dict[int, np.ndarray]] = {}
     for name, t in state_dict.items():
         key, layer, layout = jax_leaf(name)
-        a = t.detach().float().cpu().numpy()
+        t = t.detach().cpu()
+        a = (t if t.dtype == torch.int8 else t.float()).numpy()
         if layout == "linear":
             a = a.T
         elif layout == "conv":

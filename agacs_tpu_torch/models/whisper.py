@@ -13,7 +13,8 @@ Counterparts of the JAX functions:
   mha           -> MultiHeadAttention (non-causal self- and cross-attention;
                    `causal_self` for the decoder, with the language columns)
   adapter_fwd   -> Adapter
-  mlp_fwd       -> the `mlp` Sequential of a block (dense branch)
+  mlp_fwd       -> MLP, the `mlp` Sequential of a block (children 0 and 2 are
+                   JAX's fc1 and fc2)
   residual_block -> ResidualAttentionBlock.forward / .step (one cached token)
   whisper_encode, encoder_olens, init_whisper_params, whisper_decode,
   precompute_cross_kv, init_self_kv_cache, whisper_decode_step -> functions
@@ -24,6 +25,14 @@ the serving path loads). Training builds the model in float32 and casts
 only the frozen linears to the compute dtype (`Whisper.cast_frozen_`), so
 the trainable parameters stay float32 masters that each use casts, as JAX
 keeps trainable leaves float32 (`train/trainer.py:72-87`).
+
+The int8 frozen trunk (JAX `freeze_quant: int8`): `Whisper.quantize_frozen_`
+replaces each frozen projection (query, key, value, out, fc1, fc2) with an
+`Int8Linear` (JAX's {w_q, w_s, b}; `ops/int8_linear.py`, kernel K8), and an
+MLP whose two linears are int8 runs the fused K2 (`ops/int8_mlp.py`) for
+at least 256 rows and d, h multiples of 128, as JAX's `mlp_fwd` does.
+`from_state_dict` builds the same structure for a state dict holding
+`weight_q` buffers (a checkpoint trained that way).
 
 On a CUDA tensor the encoder self-attention runs kernels K1f/K1b
 (`ops/flash_train.py`) and the decode step's self- and cross-attention
@@ -57,7 +66,9 @@ from agacs_tpu_torch.ops.decode_attn import (
     decode_shared_cache_attention,
     pad_time,
 )
+from agacs_tpu_torch.ops import int8_mlp
 from agacs_tpu_torch.ops.flash_train import packed_flash_mha
+from agacs_tpu_torch.ops.int8_linear import int8_linear, int8_matmul, quantize_weight
 from agacs_tpu_torch.ops.logmel import full_fp32
 
 
@@ -177,6 +188,89 @@ class Linear(nn.Linear):
         return F.linear(x, _as(self.weight, x.dtype), _as(self.bias, x.dtype))
 
 
+# Frozen linears the int8 trunk quantises, by JAX module name (JAX
+# `train/trainer.py` QUANT_LINEAR_KEYS): the block projections; not the
+# adapters, the embedding/logits head or the conv stem. query_cs / key_cs
+# belong to PE attention, not ported.
+QUANT_LINEAR_KEYS = frozenset(
+    {"query", "key", "value", "out", "fc1", "fc2", "query_cs", "key_cs"})
+
+
+class Int8Linear(nn.Module):
+    """A frozen linear on the int8 path (JAX `int8_linear` over {w_q, w_s,
+    b}): buffers `weight_q` int8 in JAX's (in, out) layout and `weight_s`
+    float32 (out,), and a frozen `bias` in its stored dtype. Where JAX's
+    `mha` projects several of them from one input (`fused_linears`),
+    `MultiHeadAttention` does the same (`_project`)."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 device=None, bias_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.in_features, self.out_features = in_features, out_features
+        self.register_buffer("weight_q", torch.zeros(in_features, out_features,
+                                                     dtype=torch.int8, device=device))
+        self.register_buffer("weight_s", torch.ones(out_features, device=device))
+        self.bias = nn.Parameter(torch.zeros(out_features, dtype=bias_dtype, device=device),
+                                 requires_grad=False) if bias else None
+
+    @classmethod
+    def quantized(cls, lin: nn.Linear) -> "Int8Linear":
+        """`lin`'s weight, as stored (bf16 after `cast_frozen_`), quantised
+        per output channel; its bias kept as it is."""
+        mod = cls(lin.in_features, lin.out_features, bias=False, device="meta")
+        w_q, w_s = quantize_weight(lin.weight.detach().t())
+        mod.weight_q, mod.weight_s = w_q.contiguous(), w_s.contiguous()
+        mod.bias = lin.bias
+        return mod
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return int8_linear(x, self.weight_q, self.weight_s, self.bias)
+
+
+class MLP(nn.Sequential):
+    """`mlp_fwd` (:490): fc1 (child 0), exact GELU, fc2 (child 2). When both
+    linears are int8, at least `int8_mlp.TR` rows with d and h multiples of
+    128 run the fused int8 MLP (K2); other row counts (a decode step's 8 or
+    40 rows) take the unfused int8 linears."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        fc1, fc2 = self[0], self[2]
+        if (isinstance(fc1, Int8Linear) and isinstance(fc2, Int8Linear)
+                and x.numel() // x.shape[-1] >= int8_mlp.TR
+                and int8_mlp.supports(fc1.in_features, fc1.out_features)):
+            return int8_mlp.int8_mlp(x, fc1.weight_q, fc1.weight_s, fc1.bias,
+                                     fc2.weight_q, fc2.weight_s, fc2.bias)
+        return fc2(self[1](fc1(x)))
+
+
+def fused_linears(x: torch.Tensor, mods: list[nn.Module], cache: dict) -> list[torch.Tensor]:
+    """JAX `fused_linears` (:190): int8 projections of one input as ONE
+    product over their concatenated weights (kept in `cache` until a
+    buffer moves or is written), each output plus its bias; dense ones
+    each on its own. The
+    forward gives the numbers of separate products (the row scale depends
+    on x alone), but the backward does not: its dgrad row-quantises the
+    concatenated output gradient [dq | dk | dv] with one scale per row, so
+    the fusion is kept for parity with JAX's gradients."""
+    if not all(isinstance(m, Int8Linear) for m in mods):
+        return [m(x) for m in mods]
+    key = tuple((t.data_ptr(), t._version) for m in mods for t in (m.weight_q, m.weight_s))
+    cat = cache.get(key)
+    if cat is None:
+        cat = (torch.cat([m.weight_q for m in mods], 1),
+               torch.cat([m.weight_s for m in mods]))
+        cache.clear()
+        cache[key] = cat
+    y = int8_matmul(x, *cat)
+    outs = y.split([m.out_features for m in mods], -1)
+    return [o.contiguous() if m.bias is None else o + m.bias.to(o.dtype)
+            for o, m in zip(outs, mods)]
+
+
+def _jax_module_name(parent: nn.Module, child: str) -> str:
+    return {"0": "fc1", "2": "fc2"}.get(child, child) if isinstance(parent, MLP) else child
+
+
 class Conv1d(nn.Conv1d):
     """nn.Conv1d with the same cast at use (JAX `conv1d`)."""
 
@@ -210,11 +304,18 @@ class MultiHeadAttention(nn.Module):
         self.key = Linear(d, d, bias=False, **kw)
         self.value = Linear(d, d, **kw)
         self.out = Linear(d, d, **kw)
+        self._fused: dict = {}  # concatenated int8 weights (`fused_linears`)
+
+    def _project(self, x: torch.Tensor, xa: torch.Tensor | None = None):
+        """q, k, v as JAX `mha` (:389-396) forms them: self-attention fuses
+        the three projections, cross-attention the key and value of xa."""
+        if xa is None:
+            return fused_linears(x, [self.query, self.key, self.value], self._fused)
+        return (self.query(x),
+                *fused_linears(xa, [self.key, self.value], self._fused))
 
     def forward(self, x: torch.Tensor, xa: torch.Tensor | None = None) -> torch.Tensor:
-        q = self.query(x)
-        kv_in = x if xa is None else xa
-        k, v = self.key(kv_in), self.value(kv_in)
+        q, k, v = self._project(x, xa)
         attend = packed_flash_mha if xa is None else packed_mha
         return self.out(attend(q, k, v, self.n_head))
 
@@ -230,9 +331,10 @@ class MultiHeadAttention(nn.Module):
         are formed: "qk_full" (B, h, T, T), -inf where causally masked, and
         the language columns are sliced from it and from its softmax."""
         sc = (x.shape[-1] // self.n_head) ** -0.25
-        qh = split_heads(self.query(x), self.n_head) * sc
-        kh = split_heads(self.key(x), self.n_head) * sc
-        vh = split_heads(self.value(x), self.n_head)
+        q, k, v = self._project(x)
+        qh = split_heads(q, self.n_head) * sc
+        kh = split_heads(k, self.n_head) * sc
+        vh = split_heads(v, self.n_head)
         aux = {}
         if not full_scores:
             o = einsum_mha(qh, kh, vh, causal=True)
@@ -282,8 +384,7 @@ class ResidualAttentionBlock(nn.Module):
         self.attn_ln = LayerNorm(d, device=device)
         self.cross_attn = MultiHeadAttention(d, n_head, dtype, device) if cross else None
         self.cross_attn_ln = LayerNorm(d, device=device) if cross else None
-        self.mlp = nn.Sequential(
-            Linear(d, 4 * d, **kw), nn.GELU(), Linear(4 * d, d, **kw))
+        self.mlp = MLP(Linear(d, 4 * d, **kw), nn.GELU(), Linear(4 * d, d, **kw))
         self.mlp_ln = LayerNorm(d, device=device)
         self.adapter = cfg.adapter
         if cfg.adapter:
@@ -455,6 +556,9 @@ class Whisper(nn.Module):
         """Build on `device` and load (casting to `param_dtype`, by default
         the compute dtype, once)."""
         model = cls(cfg, device, param_dtype)
+        int8 = {k[: -len(".weight_q")] for k in state_dict if k.endswith(".weight_q")}
+        if int8:
+            model.int8_structure_(int8)
         model.load_state_dict(state_dict)
         return model.eval()
 
@@ -468,6 +572,42 @@ class Whisper(nn.Module):
                 for p in mod.parameters(recurse=False):
                     if not p.requires_grad:
                         p.data = p.data.to(dtype)
+        return self
+
+    def _int8_sites(self):
+        """(parent, child name, full name, Linear) of every Linear a JAX
+        QUANT_LINEAR_KEYS name could quantise."""
+        for pname, parent in list(self.named_modules()):
+            for cname, child in list(parent.named_children()):
+                if (isinstance(child, nn.Linear)
+                        and _jax_module_name(parent, cname) in QUANT_LINEAR_KEYS):
+                    yield parent, cname, f"{pname}.{cname}" if pname else cname, child
+
+    def quantize_frozen_(self) -> "Whisper":
+        """JAX `quantize_frozen_linears`, IN PLACE: each frozen Linear under a
+        QUANT_LINEAR_KEYS name becomes an `Int8Linear` quantised from its
+        weight as stored, so after `cast_frozen_` from the bf16 values, as
+        in JAX. Trainable linears (the adapters' down/up are not eligible
+        anyway) stay as they are; state-dict names keep their module paths
+        (`encoder.blocks.0.mlp.0.weight_q`)."""
+        for parent, cname, _, lin in self._int8_sites():
+            if not lin.weight.requires_grad:
+                setattr(parent, cname, Int8Linear.quantized(lin))
+        return self
+
+    def int8_structure_(self, names: set[str]) -> "Whisper":
+        """Empty `Int8Linear`s in place of the Linears named in `names`
+        (module paths), for loading a state dict of an int8 trunk."""
+        missing = set(names)
+        for parent, cname, full, lin in self._int8_sites():
+            if full in missing:
+                missing.discard(full)
+                setattr(parent, cname, Int8Linear(
+                    lin.in_features, lin.out_features, lin.bias is not None,
+                    device=lin.weight.device,
+                    bias_dtype=lin.bias.dtype if lin.bias is not None else torch.float32))
+        if missing:
+            raise KeyError(f"no quantisable linear at {sorted(missing)[:3]}")
         return self
 
 

@@ -2,8 +2,8 @@
 
 Each `csrc/<name>.cu` has a plain C interface. On first use it is compiled
 with nvcc for sm_90a into `build/agacs_tpu_torch/<name>-<hash>.so` under
-the checkout (the hash covers the source and the flags, so an edited
-source rebuilds) and loaded with ctypes. A failed build raises. Nothing
+the checkout (the hash covers the source, the `csrc/*.cuh` headers and the
+flags, so an edited source rebuilds) and loaded with ctypes. A failed build raises. Nothing
 here runs at import time.
 """
 
@@ -47,7 +47,8 @@ def nvcc_path() -> str:
 def build(name: str) -> Path:
     """Compile csrc/<name>.cu (if its hashed .so is missing); return the .so."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    headers = b"".join(h.read_bytes() for h in sorted(src.parent.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
     out = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
     if out.exists():
         return out

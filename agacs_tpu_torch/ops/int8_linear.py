@@ -1,0 +1,222 @@
+"""W8A8 int8 linear of the frozen trunk (counterpart of
+`agacs_tpu/ops/int8_linear.py`; kernel K8, `csrc/int8_gemm.cu`).
+
+Scheme, as in JAX: weights symmetric per-output-channel int8, quantised
+once (`quantize_weight`) in JAX's (d_in, d_out) layout; activations
+dynamic symmetric per-row int8 at each use; int32 accumulation; epilogue
+(acc * row scale) * channel scale, cast to the input's dtype. The frozen
+trunk takes no weight gradient, so the backward is dx only, with dy * w_s
+row-quantised to int8 against w_q^T (JAX `BWD_INT8 = True`).
+
+On a CUDA tensor each product is two launches: K8q `rowquant` and K8g
+`int8_gemm` (forward: w_q read row-major; dgrad: the same buffer read as
+w_q^T, so neither direction needs a transposed copy). On a CPU tensor the
+plain versions below run the same arithmetic (the int32 sums are formed
+exactly in float64). There is no fallback from the card to them.
+
+The W8A16 thin-row kernel K6 (`ops/int8_serve.py`) is off by default in
+JAX (`AGACS_W8A16` unset) and is not ported: every row count takes K8.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from agacs_tpu_torch.ops import cuda_lib
+
+QUANT_LAUNCHES = 0  # K8q launches since the last reset (chip_smoke.py reads them)
+LAUNCHES = 0        # K8g forward launches
+DGRAD_LAUNCHES = 0  # K8g dgrad launches
+
+
+def _scale(amax: torch.Tensor) -> torch.Tensor:
+    """max(amax, 1e-12) / 127 as an IEEE division (PyTorch's CUDA division
+    by a Python scalar multiplies by its reciprocal instead)."""
+    amax = torch.clamp(amax, min=1e-12)
+    return amax / torch.full_like(amax, 127.0)
+
+
+def quantize_weight(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-output-channel int8 of a (..., d_in, d_out) weight
+    (JAX `quantize_weight` :48): scale max|w| over d_in / 127, values
+    round-half-even and clipped to +-127. Returns (int8 w_q, f32 (..., d_out))."""
+    wf = w.float()
+    s = _scale(wf.abs().amax(-2))
+    q = torch.clamp(torch.round(wf / s[..., None, :]), -127, 127).to(torch.int8)
+    return q, s
+
+
+def dequantize_weight(w_q: torch.Tensor, w_s: torch.Tensor,
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return (w_q.float() * w_s[..., None, :]).to(dtype)
+
+
+def row_quant_ref(x: torch.Tensor, col_scale: torch.Tensor | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dynamic symmetric per-row int8 (JAX `_row_quant` :65): v = x (times
+    `col_scale` per column) in float32; s = max(max|v|, 1e-12) / 127;
+    q = round(v / s). Returns (int8 (..., k), f32 (..., 1))."""
+    v = x.float()
+    if col_scale is not None:
+        v = v * col_scale
+    s = _scale(v.abs().amax(-1, keepdim=True))
+    return torch.round(v / s).to(torch.int8), s
+
+
+def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The exact int32 sums of int8 a @ b, as float32 (formed in float64:
+    every partial sum is an integer below 2^53; the one rounding to float32
+    is the int32 -> float32 conversion of the JAX epilogue)."""
+    return (a.double() @ b.double()).float()
+
+
+def int8_gemm_ref(q, s_row, w_q, w_s=None, dgrad=False, out_dtype=torch.float32):
+    """K8g's plain version: (q . w_q) * s_row * w_s (forward) or
+    (q . w_q^T) * s_row (dgrad), cast to `out_dtype`. s_row (M, 1)."""
+    acc = int_mm(q, w_q.t() if dgrad else w_q) * s_row
+    if not dgrad:
+        acc = acc * w_s
+    return acc.to(out_dtype)
+
+
+def int8_matmul_ref(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor) -> torch.Tensor:
+    """x @ dequant(w_q, w_s) on the int8 path (JAX `_fwd_core` :83)."""
+    xq, sx = row_quant_ref(x)
+    return int8_gemm_ref(xq, sx, w_q, w_s, out_dtype=x.dtype)
+
+
+def int8_matmul_dgrad_ref(g: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
+                          x_dtype: torch.dtype) -> torch.Tensor:
+    """dx of `int8_matmul` (JAX `_int8_bwd` :108, BWD_INT8): q8[dy * w_s]
+    against w_q^T, times the row scale."""
+    gq, sg = row_quant_ref(g, w_s)
+    return int8_gemm_ref(gq, sg, w_q, dgrad=True, out_dtype=x_dtype)
+
+
+_DTYPES = {torch.bfloat16: 1, torch.float32: 0}
+
+
+def _check(what: str, **tensors) -> None:
+    for name, t in tensors.items():
+        if t is None:
+            continue
+        if t.device.type != "cuda":
+            raise ValueError(f"{what}: {name} is on {t.device}; the kernel takes a "
+                             "CUDA tensor")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must be contiguous and 16-byte aligned")
+
+
+def rowquant(x: torch.Tensor, col_scale: torch.Tensor | None = None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K8q on a CUDA x (M, K) bf16/f32: (int8 q (M, K), f32 s (M, 1));
+    `row_quant_ref` on a CPU x."""
+    if x.device.type == "cpu":
+        return row_quant_ref(x, col_scale)
+    _check("int8_rowquant", x=x, col_scale=col_scale)
+    if x.dtype not in _DTYPES or x.dim() != 2:
+        raise ValueError(f"int8_rowquant: x {tuple(x.shape)} {x.dtype}; the kernel "
+                         "takes a 2-D bfloat16 or float32 tensor")
+    m, k = x.shape
+    if col_scale is not None and (col_scale.dtype != torch.float32
+                                  or col_scale.shape != (k,)):
+        raise ValueError(f"int8_rowquant: col_scale must be float32 ({k},)")
+    q = torch.empty(m, k, dtype=torch.int8, device=x.device)
+    s = torch.empty(m, 1, dtype=torch.float32, device=x.device)
+    fn = cuda_lib.load("int8_gemm", "int8_rowquant",
+                       [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
+                       + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    rc = fn(x.data_ptr(), _DTYPES[x.dtype],
+            None if col_scale is None else col_scale.data_ptr(), q.data_ptr(),
+            s.data_ptr(), m, k, torch.cuda.current_stream(x.device).cuda_stream)
+    cuda_lib.check(rc, "int8_rowquant")
+    global QUANT_LAUNCHES
+    QUANT_LAUNCHES += 1
+    return q, s
+
+
+def int8_gemm(q: torch.Tensor, s_row: torch.Tensor, w_q: torch.Tensor,
+              w_s: torch.Tensor | None = None, dgrad: bool = False,
+              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """K8g on CUDA tensors: (q . w_q) * s_row * w_s, or (q . w_q^T) * s_row
+    with `dgrad`; `int8_gemm_ref` on CPU tensors. q (M, K) int8, s_row
+    (M, 1) f32, w_q (d_in, d_out) int8, w_s (d_out,) f32."""
+    if q.device.type == "cpu":
+        return int8_gemm_ref(q, s_row, w_q, w_s, dgrad, out_dtype)
+    _check("int8_gemm", q=q, s_row=s_row, w_q=w_q, w_s=w_s)
+    m, k = q.shape
+    n = w_q.shape[0] if dgrad else w_q.shape[1]
+    if (q.dtype != torch.int8 or w_q.dtype != torch.int8 or w_q.dim() != 2
+            or (w_q.shape[1] if dgrad else w_q.shape[0]) != k
+            or s_row.shape != (m, 1) or s_row.dtype != torch.float32
+            or (not dgrad and (w_s is None or w_s.shape != (n,)
+                               or w_s.dtype != torch.float32))
+            or out_dtype not in _DTYPES):
+        raise ValueError(f"int8_gemm: q {tuple(q.shape)} {q.dtype}, w_q "
+                         f"{tuple(w_q.shape)} {w_q.dtype}, dgrad={dgrad}, out "
+                         f"{out_dtype}: shapes or types the kernel does not take")
+    if k % 16 or n % 16:
+        raise ValueError(f"int8_gemm: K {k} and N {n} must be multiples of 16")
+    out = torch.empty(m, n, dtype=out_dtype, device=q.device)
+    fn = cuda_lib.load("int8_gemm", "int8_gemm",
+                       [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    rc = fn(q.data_ptr(), s_row.data_ptr(), w_q.data_ptr(),
+            None if dgrad else w_s.data_ptr(), out.data_ptr(), _DTYPES[out_dtype],
+            m, n, k, int(dgrad), torch.cuda.current_stream(q.device).cuda_stream)
+    cuda_lib.check(rc, "int8_gemm")
+    global LAUNCHES, DGRAD_LAUNCHES
+    if dgrad:
+        DGRAD_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
+    return out
+
+
+def _matmul(x2: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor) -> torch.Tensor:
+    q, s = rowquant(x2)
+    return int8_gemm(q, s, w_q, w_s, out_dtype=x2.dtype)
+
+
+def _dgrad(g2: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
+           x_dtype: torch.dtype) -> torch.Tensor:
+    q, s = rowquant(g2, w_s)
+    return int8_gemm(q, s, w_q, dgrad=True, out_dtype=x_dtype)
+
+
+class Int8Matmul(torch.autograd.Function):
+    """JAX's custom VJP (:92-130): no activation is saved; the backward
+    returns dx only, and only when x needs it."""
+
+    @staticmethod
+    def forward(ctx, x2, w_q, w_s):
+        ctx.save_for_backward(w_q, w_s)
+        ctx.x_dtype = x2.dtype
+        return _matmul(x2, w_q, w_s)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None
+        w_q, w_s = ctx.saved_tensors
+        return _dgrad(g.contiguous(), w_q, w_s, ctx.x_dtype), None, None
+
+
+def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor) -> torch.Tensor:
+    """x (..., d_in) @ dequant(w_q, w_s) on the int8 path, through the
+    autograd Function when x takes a gradient."""
+    x2 = x.reshape(-1, x.shape[-1])
+    if torch.is_grad_enabled() and x.requires_grad:
+        y = Int8Matmul.apply(x2, w_q, w_s)
+    else:
+        y = _matmul(x2, w_q, w_s)
+    return y.reshape(*x.shape[:-1], w_q.shape[1])
+
+
+def int8_linear(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
+                b: torch.Tensor | None = None) -> torch.Tensor:
+    """JAX `int8_linear` (:133) without the K6 branch: the bias is added
+    outside the product, in the output's dtype."""
+    y = int8_matmul(x, w_q, w_s)
+    return y if b is None else y + b.to(y.dtype)

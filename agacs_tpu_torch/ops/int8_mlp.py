@@ -1,0 +1,211 @@
+"""Fused W8A8 MLP of the frozen int8 trunk, fc2(gelu(fc1(x))), and its dx
+(counterpart of `agacs_tpu/ops/int8_mlp.py`; kernels K2f and K2b,
+`csrc/int8_mlp.cu`).
+
+Quantisation as in `ops/int8_linear.py`: x row-quantised to int8, int32
+products against the per-channel int8 weights, the hidden (bias, exact-erf
+GELU with the Abramowitz-Stegun erf, all float32) row-quantised again
+before fc2. The trunk is frozen: the backward is dx only, with the hidden
+recomputed (JAX `_bwd_kernel` :126):
+
+    dx = q8[(q8[dy * s2] . w2q^T) * gelu'(h) * s1] . w1q^T
+
+`int8_mlp` goes through the autograd Function `Int8MLP` when x takes a
+gradient. On a CPU tensor it runs the plain versions (`int8_mlp_fwd_ref`,
+`int8_mlp_bwd_ref`: the kernels' arithmetic, operation for operation); on
+a CUDA tensor it launches K2f / K2b or raises. Unlike the JAX VJP, which
+returns zero bias gradients, a bias that requires grad raises: no freeze
+preset trains the trunk's biases while its weights are frozen.
+
+The model (`models/whisper.py` `MLP`) takes this path, as JAX's `mlp_fwd`
+does, for at least `TR` rows and d, h multiples of 128 (`supports`); other
+shapes take the unfused `int8_linear` . gelu . `int8_linear` (`unfused`).
+The two differ numerically (float32 vs compute-dtype hidden), so the row
+rule is kept for parity with JAX, not for speed. JAX's VMEM budget in
+`supports` is TPU-only and is not carried over; the kernel itself takes
+h <= 3072 (its shared-memory budget) and raises beyond.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+import torch.nn.functional as F
+
+from agacs_tpu_torch.ops import cuda_lib
+from agacs_tpu_torch.ops.int8_linear import int8_linear, int_mm, row_quant_ref
+
+TR = 256       # JAX's forward row block: the fused path's least row count
+FWD_LAUNCHES = 0  # K2f launches since the last reset (chip_smoke.py reads them)
+BWD_LAUNCHES = 0  # K2b launches
+
+_A = (0.254829592, -0.284496736, 1.421413741, -1.453152027, 1.061405429)
+_P = 0.3275911
+_RSQRT2 = 2.0 ** -0.5
+_RSQRT2PI = 1.0 / math.sqrt(2.0 * math.pi)  # the same float32 as JAX's f32 sqrt
+
+
+def supports(d: int, h: int) -> bool:
+    return d % 128 == 0 and h % 128 == 0
+
+
+def _erf(x: torch.Tensor) -> torch.Tensor:
+    """Abramowitz-Stegun 7.1.26 (float32, |err| < 1.5e-7), as JAX `_erf`."""
+    a1, a2, a3, a4, a5 = _A
+    ax = x.abs()
+    t = 1.0 / (1.0 + _P * ax)
+    poly = t * (a1 + t * (a2 + t * (a3 + t * (a4 + t * a5))))
+    y = 1.0 - poly * torch.exp(-ax * ax)
+    return torch.sign(x) * y
+
+
+def gelu(h: torch.Tensor) -> torch.Tensor:
+    return 0.5 * h * (1.0 + _erf(h * _RSQRT2))
+
+
+def dgelu(h: torch.Tensor) -> torch.Tensor:
+    """d/dh [h Phi(h)] = Phi(h) + h phi(h)."""
+    cdf = 0.5 * (1.0 + _erf(h * _RSQRT2))
+    pdf = torch.exp(-0.5 * h * h) * _RSQRT2PI
+    return cdf + h * pdf
+
+
+def _hidden(x, w1q, s1, b1):
+    xq, sx = row_quant_ref(x)
+    return int_mm(xq, w1q) * sx * s1 + b1
+
+
+def int8_mlp_fwd_ref(x, w1q, s1, b1, w2q, s2, b2) -> torch.Tensor:
+    """K2f's plain version (JAX `_fwd_kernel` :112): x (n, d) -> (n, d) in
+    x's dtype; biases float32."""
+    g = gelu(_hidden(x, w1q, s1, b1))
+    gq, sg = row_quant_ref(g)
+    return (int_mm(gq, w2q) * sg * s2 + b2).to(x.dtype)
+
+
+def int8_mlp_bwd_ref(x, w1q, s1, b1, w2q, s2, dy) -> torch.Tensor:
+    """K2b's plain version (JAX `_bwd_kernel` :126): dx (n, d) in x's dtype."""
+    dgh = dgelu(_hidden(x, w1q, s1, b1))
+    dyq, sdy = row_quant_ref(dy, s2)
+    dg = int_mm(dyq, w2q.t()) * sdy * dgh
+    dg = dg * s1
+    dgq, sdg = row_quant_ref(dg)
+    return (int_mm(dgq, w1q.t()) * sdg).to(x.dtype)
+
+
+def unfused(x, w1q, s1, b1, w2q, s2, b2) -> torch.Tensor:
+    """The unfused composition (JAX `_ref` :196): int8_linear, exact GELU in
+    the compute dtype, int8_linear."""
+    return int8_linear(F.gelu(int8_linear(x, w1q, s1, b1)), w2q, s2, b2)
+
+
+_DTYPES = {torch.bfloat16: 1, torch.float32: 0}
+
+
+def _check(what: str, x, w1q, s1, b1, w2q, s2, other) -> None:
+    n, d = x.shape
+    h = w1q.shape[1]
+    for name, t in (("x", x), ("w1q", w1q), ("s1", s1), ("b1", b1), ("w2q", w2q),
+                    ("s2", s2), ("other", other)):
+        if t.device.type != "cuda" or t.device != x.device:
+            raise ValueError(f"{what}: {name} is on {t.device}; the kernel takes CUDA "
+                             f"tensors on {x.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must be contiguous and 16-byte aligned")
+    if (x.dtype not in _DTYPES or other.dtype not in (x.dtype, torch.float32)
+            or w1q.dtype != torch.int8 or w2q.dtype != torch.int8
+            or w1q.shape != (d, h) or w2q.shape != (h, d)
+            or any(t.dtype != torch.float32 for t in (s1, b1, s2))
+            or s1.shape != (h,) or b1.shape != (h,) or s2.shape != (d,)):
+        raise ValueError(f"{what}: x {tuple(x.shape)} {x.dtype}, w1q {tuple(w1q.shape)} "
+                         f"{w1q.dtype}, w2q {tuple(w2q.shape)}: shapes or types the "
+                         "kernel does not take")
+    if not supports(d, h) or h > 3072:
+        raise ValueError(f"{what}: d {d}, h {h}: the kernel takes multiples of 128 "
+                         "with h <= 3072 (its shared-memory budget)")
+
+
+def _fwd_kernel(x, w1q, s1, b1, w2q, s2, b2) -> torch.Tensor:
+    """Launch K2f: y (n, d) in x's dtype."""
+    _check("int8_mlp_fwd", x, w1q, s1, b1, w2q, s2, b2)
+    if b2.dtype != torch.float32 or b2.shape != (x.shape[1],):
+        raise ValueError("int8_mlp_fwd: b2 must be float32 (d,)")
+    n, d = x.shape
+    y = torch.empty_like(x)
+    fn = cuda_lib.load("int8_mlp", "int8_mlp_fwd",
+                       [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 7
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    rc = fn(x.data_ptr(), _DTYPES[x.dtype], w1q.data_ptr(), s1.data_ptr(), b1.data_ptr(),
+            w2q.data_ptr(), s2.data_ptr(), b2.data_ptr(), y.data_ptr(), n, d,
+            w1q.shape[1], torch.cuda.current_stream(x.device).cuda_stream)
+    cuda_lib.check(rc, "int8_mlp_fwd")
+    global FWD_LAUNCHES
+    FWD_LAUNCHES += 1
+    return y
+
+
+def _bwd_kernel(x, w1q, s1, b1, w2q, s2, dy) -> torch.Tensor:
+    """Launch K2b: dx (n, d) in x's dtype."""
+    _check("int8_mlp_bwd", x, w1q, s1, b1, w2q, s2, dy)
+    if dy.dtype != x.dtype or dy.shape != x.shape:
+        raise ValueError(f"int8_mlp_bwd: dy {tuple(dy.shape)} {dy.dtype} vs x "
+                         f"{tuple(x.shape)} {x.dtype}")
+    n, d = x.shape
+    dx = torch.empty_like(x)
+    fn = cuda_lib.load("int8_mlp", "int8_mlp_bwd",
+                       [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 7
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    rc = fn(x.data_ptr(), _DTYPES[x.dtype], w1q.data_ptr(), s1.data_ptr(), b1.data_ptr(),
+            w2q.data_ptr(), s2.data_ptr(), dy.data_ptr(), dx.data_ptr(), n, d,
+            w1q.shape[1], torch.cuda.current_stream(x.device).cuda_stream)
+    cuda_lib.check(rc, "int8_mlp_bwd")
+    global BWD_LAUNCHES
+    BWD_LAUNCHES += 1
+    return dx
+
+
+def int8_mlp_fwd(x, w1q, s1, b1, w2q, s2, b2) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return int8_mlp_fwd_ref(x, w1q, s1, b1, w2q, s2, b2)
+    return _fwd_kernel(x, w1q, s1, b1, w2q, s2, b2)
+
+
+def int8_mlp_bwd(x, w1q, s1, b1, w2q, s2, dy) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return int8_mlp_bwd_ref(x, w1q, s1, b1, w2q, s2, dy)
+    return _bwd_kernel(x, w1q, s1, b1, w2q, s2, dy)
+
+
+class Int8MLP(torch.autograd.Function):
+    """JAX's custom VJP (:270-292): x is the one residual; dx only."""
+
+    @staticmethod
+    def forward(ctx, x2, w1q, s1, b1, w2q, s2, b2):
+        ctx.save_for_backward(x2, w1q, s1, b1, w2q, s2)
+        return int8_mlp_fwd(x2, w1q, s1, b1, w2q, s2, b2)
+
+    @staticmethod
+    def backward(ctx, dy):
+        if not ctx.needs_input_grad[0]:
+            return (None,) * 7
+        x2, w1q, s1, b1, w2q, s2 = ctx.saved_tensors
+        return (int8_mlp_bwd(x2, w1q, s1, b1, w2q, s2, dy.contiguous()),) + (None,) * 6
+
+
+def int8_mlp(x: torch.Tensor, w1q, s1, b1, w2q, s2, b2) -> torch.Tensor:
+    """fc2(gelu(fc1(x))) on the fused int8 path; x (..., d), biases of any
+    float dtype (used in float32, as JAX casts them)."""
+    for name, b in (("fc1", b1), ("fc2", b2)):
+        if b.requires_grad:
+            raise ValueError(f"int8_mlp: the {name} bias requires grad; the fused int8 "
+                             "MLP returns no bias gradient (freeze it with the weights)")
+    shape = x.shape
+    x2 = x.reshape(-1, shape[-1])
+    args = (w1q, s1, b1.float(), w2q, s2, b2.float())
+    if torch.is_grad_enabled() and x.requires_grad:
+        y = Int8MLP.apply(x2, *args)
+    else:
+        y = int8_mlp_fwd(x2, *args)
+    return y.reshape(shape)

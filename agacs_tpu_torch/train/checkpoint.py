@@ -61,15 +61,23 @@ class CheckpointManager:
 
     def average_nbest(self, history: dict) -> str:
         """Write the mean of the n best epochs' params to
-        <phase>.<metric>.ave.params.npz; return its path."""
+        <phase>.<metric>.ave.params.npz; return its path. Integer leaves
+        (the int8 trunk's w_q, frozen across epochs) keep their dtype: the
+        rounded mean, as JAX's CheckpointManager and average_checkpoints
+        write it."""
         eps = self._ranked_epochs(history)[: self.keep_nbest]
         assert eps, "no scored epochs to average"
         acc: dict[str, np.ndarray] = {}
+        dtypes: dict[str, np.dtype] = {}
         for ep in eps:
             with np.load(self._epoch_path(ep)) as data:
                 for k in data.files:
                     acc[k] = acc.get(k, 0.0) + data[k].astype(np.float32)
+                    dtypes.setdefault(k, data[k].dtype)
         phase, metric, _ = self.criterion
         out = os.path.join(self.exp_dir, f"{phase}.{metric}.ave.params.npz")
-        np.savez(out, **{k: v / len(eps) for k, v in acc.items()})
+        np.savez(out, **{
+            k: np.round(v / len(eps)).astype(dtypes[k])
+            if np.issubdtype(dtypes[k], np.integer) else v / len(eps)
+            for k, v in acc.items()})
         return out

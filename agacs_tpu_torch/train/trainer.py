@@ -11,6 +11,11 @@
     not finite is skipped (no update, schedule not advanced) and counted
     in `grad_nonfinite_total`; otherwise clip to `grad_clip`, AdamW step,
     schedule step.
+
+The int8 frozen trunk: JAX's `quantize_frozen_linears` (:94-129) is
+`Whisper.quantize_frozen_`, run in place after `cast_frozen_`; the
+trainable set, and so the optimizer, is unchanged. `dequantize_params` is
+its inverse on a state dict (JAX :132-148).
 """
 
 from __future__ import annotations
@@ -23,7 +28,21 @@ import torch
 from agacs_tpu_torch.models import asr_model
 from agacs_tpu_torch.models.asr_model import ASRModelConfig
 from agacs_tpu_torch.models.whisper import Whisper
+from agacs_tpu_torch.ops.int8_linear import dequantize_weight
 from agacs_tpu_torch.train.optim import clip_by_global_norm_, global_norm
+
+
+def dequantize_params(state_dict: dict) -> dict:
+    """Every `*.weight_q` / `*.weight_s` pair becomes a float32 `*.weight`
+    in nn.Linear's (out, in) layout; everything else passes through."""
+    out = {}
+    for name, t in state_dict.items():
+        if name.endswith(".weight_q"):
+            base = name[: -len("_q")]
+            out[base] = dequantize_weight(t, state_dict[base + "_s"]).t().contiguous()
+        elif not name.endswith(".weight_s"):
+            out[name] = t
+    return out
 
 
 def make_train_step(

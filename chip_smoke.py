@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's greedy serving path, its beam-search serving
-path and its stage-2 training path once on one CUDA card.
+path, its stage-2 training path and both again on the int8 frozen trunk,
+once on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # every phase below
+    python3 chip_smoke.py --mutants    # the int8 kernel checks against mutants
 
 Run from (or point at) a checkout of the repository on a machine with a
 CUDA card and the CUDA toolkit (nvcc). It imports nothing of JAX. Phases,
 one line each, in the order they run; any failure ends the script with a
 non-zero exit:
 
-  1. device and build: the card, and the nvcc builds of the three kernel
+  1. device and build: the card, and the nvcc builds of the five kernel
      sources, started together;
   2. K1f (csrc/packed_flash_fwd.cu) against its plain PyTorch version at
      the encoder shapes (8, 750, 768) and (2, 1500, 768), 12 heads;
@@ -27,6 +29,12 @@ non-zero exit:
      entries (past pos, and every entry the map does not select);
   3s. K3s (decode_attn.cu, the shared cross-KV) against its plain version
      at (8 groups x 5, 752, 768), pos 749;
+  2i. K8q (rowquant) and K8g (int8_gemm, forward and dgrad;
+     csrc/int8_gemm.cu) against their plain versions at (12000, 768) -> 768,
+     (528, 768) -> 768, (8, 768) -> 3072, (8, 3072) -> 768, (8, 768) -> 768,
+     with torch._int_mm + the dequant timed beside them (M > 16);
+  2j. K2f and K2b (csrc/int8_mlp.cu) against their plain versions at
+     (12000, 768, 3072), (528, 768, 3072) and 1000 rows (a partial tile);
   4. the greedy slice: whisper-small with adapters in both stacks (the
      stage-2 recipe's flags), bf16, random weights from torch seed 0,
      Speech2Text on 8 x 15 s of seeded noise, 100 greedy steps; ms per
@@ -60,7 +68,24 @@ non-zero exit:
      the CPU (float32), same weights, SpecAug off: loss, loss_cs, the
      global gradient norm, and the cosines of the encoder's and the
      decoder's adapter gradients; beside it a bf16 control, the same step
-     on the card with the encoder's attention in its plain version.
+     on the card with the encoder's attention in its plain version;
+  13. phase 7's step with the frozen trunk quantised to int8 after the bf16
+     cast (`freeze_quant: int8`): ms per step, audio-s/s and peak memory
+     beside phase 7's, exact K2f/K2b/K8 launch counts per micro-step
+     (INT8_TRAIN_LAUNCHES), the int8 buffers bit-identical, adapters changed;
+  14. torch.profiler over one more int8 step: busy, idle share, the K2 and
+     K8 shares, the top kernels;
+  15. one int8 micro-step on one utterance, card (bf16, kernels) against
+     the CPU (float32, plain versions) on the same int8 weights, beside a
+     card control with the int8 plain versions;
+  16. greedy Speech2Text (8 x 15 s, 100 steps) on the int8 trunk: ms per
+     batch, x realtime, exact launch counts, first-step logits card bf16
+     against CPU float32, and one more request under torch.profiler;
+  17. the CLIs on the card: `bin.train --override freeze_quant=int8` (the
+     stage-2 recipe, whisper-small, one epoch) on a generated data dir
+     under build/, then `bin.decode` on its n-best average: an int8
+     checkpoint, hypotheses for every utterance, K2f and K8g launched by
+     both.
 
 The last three lines are the card's `name, power.limit` (nvidia-smi), a
 JSON line with each kernel's launches, error and times, and the
@@ -136,6 +161,40 @@ BEAM = 5
 # with random weights the self-attention is nearly flat, so a wrong row
 # moves the scores by about 1%, not more (PERF.md, Findings).
 RESCORE_REL = {"card": 2e-3, "cpu": 2e-3}
+# The int8 kernels (K8q/K8g, K2f/K2b) against their plain versions
+# evaluated in float32 on the same bf16 inputs and int8 weights: the int32
+# sums are exact on both sides and the kernels repeat the plain versions'
+# float32 operations in order, so what remains is the bf16 rounding of the
+# output (2^-9 relative) and, in K2, a hidden value that an ulp of exp
+# moves across a rounding boundary (one int8 step of one hidden value, a
+# few 1e-4 of the largest output): KERNEL_RTOL of max |plain|.
+# Phase 13's launches per micro-step, derived from which inputs need a
+# gradient. Forward: the encoder's fused q/k/v and out per layer (24) and
+# the decoder's fused self q/k/v, self out, cross q, fused cross k/v and
+# cross out per layer (60), as JAX's `mha` fuses them (`fused_linears`);
+# the MLPs run K2f (12000 and 16 x 33 = 528 rows, both >= 256). Dgrad:
+# nothing upstream of encoder layer 0's and decoder layer 0's
+# self-attention trains, so those take none: encoder layers 1-11 x 2,
+# decoder layer 0's cross q, k/v and out (3; the encoder output takes a
+# gradient through its adapters), decoder layers 1-11 x 5; every MLP's
+# input trains (K2b 24).
+INT8_TRAIN_LAUNCHES = {"K2f": 24, "K2b": 24, "K8g": 84, "K8g dgrad": 80, "K8q": 164}
+# Phase 15 (int8 train parity, card bf16 kernels vs CPU f32 plain
+# versions, same int8 weights) and phase 16 (int8 first-step logits, rel
+# L2): bounds set from the H100 readings (PERF.md, Findings).
+# First reading (H100, kernels): loss 2.5e-4, loss_cs 8.5e-4, grad norm
+# 9.9e-4, 1 - cos_enc 1.9e-4, 1 - cos_dec 3.5e-4, the control with the
+# plain versions identical (the kernels match them bit for bit); logits
+# 2.6e-2 (int8 rounding of bf16 activations that differ from the CPU's
+# float32 ones).
+INT8_TRAIN_REL = {"loss": 2e-3, "loss_cs": 5e-3, "grad_norm": 5e-3}
+INT8_TRAIN_COS = {"cos_enc": 0.999, "cos_dec": 0.999}
+INT8_LOGITS_REL_L2 = 5e-2
+# Published H100 SXM peaks (NVIDIA's datasheet, dense): the bound of a
+# kernel is the larger of its bytes over HBM's rate and its operations over
+# the peak rate of their type.
+HBM_BPS = 3.35e12
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 
 
 def check(ok: bool, what: str) -> None:
@@ -187,6 +246,18 @@ def hold(name, out, plain_f32, shape) -> float:
     check(tuple(out.shape) == tuple(plain_f32.shape) and err <= bound,
           f"{name} {shape}: max_abs_err {err} <= {bound}")
     return err
+
+
+def roofline(nbytes: float, ops: float, kind: str) -> dict:
+    """bound_ms and bound_by for a kernel moving `nbytes` and doing `ops`
+    operations of type `kind`."""
+    t_b, t_o = nbytes / HBM_BPS * 1e3, ops / PEAK_OPS[kind] * 1e3
+    return {"bound_ms": max(t_b, t_o), "bound_by": "bytes" if t_b >= t_o else "operations"}
+
+
+def sdpa_heads(x, h):
+    """(B, T, h*64) packed -> (B, h, T, 64) view for scaled_dot_product_attention."""
+    return x.unflatten(-1, (h, -1)).transpose(1, 2)
 
 
 def check_k1(dev, g, timed=True) -> dict:
@@ -256,7 +327,12 @@ def check_k1_train(dev, g, timed=True) -> tuple[dict, dict]:
                 lambda q, k, v: (flash_train.packed_flash_mha_ref(q, k, v, H),
                                  lse_ref(q, k, H)), qkv, 10)
             if t == 750:
-                fwd.update(ms=ms, plain_ms=plain_ms)
+                sd_sets = [tuple(sdpa_heads(x, H) for x in s) for s in qkv]
+                lib = cuda_ms(torch.nn.functional.scaled_dot_product_attention, sd_sets, 20)
+                fwd.update(ms=ms, plain_ms=plain_ms, library_ms=lib,
+                           **roofline(4 * b * t * D * 2 + b * H * t * 4, 4 * b * H * t * t * 64,
+                                   "bf16"))
+                line += f" sdpa {lib:.4f} ms"
             line += (f" kernel {ms:.4f} ms plain (bf16 o, f32 lse) "
                      f"{plain_ms:.4f} ms")
         print(line, flush=True)
@@ -288,7 +364,19 @@ def check_k1_train(dev, g, timed=True) -> tuple[dict, dict]:
                 lambda q, k, v, o, lse, do, h:
                 flash_train.packed_flash_mha_bwd_ref(q, k, v, o, do, h), sets, 3)
             if t == 750:
-                res.update(ms=ms, plain_ms=plain_ms)
+                lib_sets = []
+                for q, k, v, _, _, do, _ in sets:
+                    qs, ks, vs = (sdpa_heads(x, H).detach().requires_grad_() for x in (q, k, v))
+                    o_s = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs)
+                    lib_sets.append((o_s, (qs, ks, vs), sdpa_heads(do, H)))
+                lib = cuda_ms(lambda o_s, ins, do_s: torch.autograd.grad(
+                    o_s, ins, do_s, retain_graph=True), lib_sets, 10)
+                del lib_sets
+                # the least backward: S, dP, dV, dQ, dK, 2 T^2 d_head each
+                res.update(ms=ms, plain_ms=plain_ms, library_ms=lib,
+                           **roofline(8 * b * t * D * 2 + b * H * t * 4,
+                                   10 * b * H * t * t * 64, "bf16"))
+                line += f" sdpa backward {lib:.4f} ms"
             line += f" kernel {ms:.4f} ms plain bf16 {plain_ms:.4f} ms"
         print(line, flush=True)
     return fwd, res
@@ -318,11 +406,25 @@ def check_k3(dev, g, timed=True) -> dict:
         ms = cuda_ms(decode_attn.decode_cache_attention, sets, 50)
         plain_ms = cuda_ms(decode_attn.decode_cache_attention_ref, sets, 50)
         if tp == 752:
-            res.update(ms=ms, plain_ms=plain_ms)
+            lib = cuda_ms(lambda q, k, v, pos, h: sdpa_one_query(q, k, v, pos, h), sets, 50)
+            res.update(ms=ms, plain_ms=plain_ms, library_ms=lib,
+                       **roofline(2 * 8 * (pos + 1) * D * 2 + 2 * 8 * D * 2,
+                               4 * 8 * H * (pos + 1) * 64, "bf16"))
         print(f"phase 3 K3 decode_attn (8, {tp}, {D}) pos={pos}: max_abs_err "
               f"{err:.3e} (bound {KERNEL_RTOL} x max|plain f32|) kernel "
               f"{ms:.4f} ms plain bf16 {plain_ms:.4f} ms", flush=True)
     return res
+
+
+def sdpa_one_query(q, k, v, pos: int, h: int, beam: int = 1):
+    """scaled_dot_product_attention of `beam` queries per cache row (q
+    (N*beam, d), k/v (N, Tp, d)) over keys 0..pos: the one PyTorch call
+    that computes K3's (beam 1) and K3s's function."""
+    n = k.shape[0]
+    mask = (torch.arange(k.shape[1], device=k.device) <= pos)[None, :]
+    return torch.nn.functional.scaled_dot_product_attention(
+        q.view(n, beam, h, -1).transpose(1, 2), sdpa_heads(k, h), sdpa_heads(v, h),
+        attn_mask=mask, scale=1.0)
 
 
 def beam_ancestry(g, n: int, tp: int, j: int, pos: int) -> torch.Tensor:
@@ -378,7 +480,11 @@ def check_k3a(dev, g, timed=True) -> dict:
         ms = cuda_ms(kernel, sets, 50)
         plain_ms = cuda_ms(plain, sets, 50)
         if (tp, pos) == (112, 103):
-            res.update(ms=ms, plain_ms=plain_ms)
+            rows = (torch.arange(n, device=dev) // BEAM * BEAM)[:, None] + anc.long()
+            cells = (rows * tp + torch.arange(tp, device=dev))[:, : pos + 1].unique().numel()
+            res.update(ms=ms, plain_ms=plain_ms, library_ms=None,
+                       **roofline(2 * cells * D * 2 + 2 * n * D * 2 + n * (pos + 1) * 4,
+                               4 * n * H * (pos + 1) * 64, "bf16"))
         print(f"phase 3a K3a decode_attn_anc ({n}, {tp}, {D}) beam {BEAM} pos={pos}: "
               f"max_abs_err {err:.3e} (bound {KERNEL_RTOL} x max|plain f32|) kernel "
               f"{ms:.4f} ms plain bf16 {plain_ms:.4f} ms", flush=True)
@@ -407,8 +513,154 @@ def check_k3s(dev, g, timed=True) -> dict:
     if timed:
         res["ms"] = cuda_ms(decode_attn.decode_shared_cache_attention, sets, 50)
         res["plain_ms"] = cuda_ms(decode_attn.decode_shared_cache_attention_ref, sets, 50)
+        res["library_ms"] = cuda_ms(
+            lambda q, k, v, pos, h, j: sdpa_one_query(q, k, v, pos, h, j), sets, 50)
+        res.update(roofline(2 * groups * (pos + 1) * D * 2 + 2 * groups * BEAM * D * 2,
+                         4 * groups * BEAM * H * (pos + 1) * 64, "bf16"))
         line += f" kernel {res['ms']:.4f} ms plain bf16 {res['plain_ms']:.4f} ms"
     print(line, flush=True)
+    return res
+
+
+def int8_weight(g, dev, d_in: int, d_out: int):
+    """A whisper-like linear (uniform +-1/sqrt(d_in), rounded to bf16 as the
+    trainer stores the frozen trunk) quantised per output channel: (w_q,
+    w_s, f32 bias)."""
+    from agacs_tpu_torch.ops.int8_linear import quantize_weight
+
+    bnd = d_in ** -0.5
+    w = ((torch.rand(d_in, d_out, generator=g) * 2 - 1) * bnd).to(torch.bfloat16)
+    w_q, w_s = quantize_weight(w.to(dev))
+    b = ((torch.rand(d_out, generator=g) * 2 - 1) * bnd).to(torch.bfloat16).float()
+    return w_q, w_s, b.to(dev)
+
+
+def differ(out, plain) -> float:
+    """Share of output elements that differ from the plain version rounded
+    to the output's dtype."""
+    return (out != plain.to(out.dtype)).float().mean().item()
+
+
+def check_k8(dev, g, timed=True) -> dict:
+    """Phase 2i: K8q (rowquant) and K8g (int8_gemm, forward and dgrad)
+    against their plain versions at the trunk's shapes: the encoder and
+    cross k/v projections (12000, 768) -> 768, the teacher-forced decoder's
+    (528, 768) -> 768, a decode step's (8, 768) -> 3072 and (8, 3072) -> 768
+    (the unfused MLP) and (8, 768) -> 768. Returns errors and times at
+    (12000, 768) -> 768."""
+    from agacs_tpu_torch.ops import int8_linear as i8
+
+    res = {"q": {"err": 0.0}, "fwd": {"err": 0.0}, "dgrad": {"err": 0.0}}
+    for m, k, n in ((12000, 768, 768), (528, 768, 768), (8, 768, 3072), (8, 3072, 768),
+                    (8, 768, 768)):
+        n_sets = 4 if m > 16 else 24  # > 50 MB of distinct buffers per cycle
+        sets = []
+        for _ in range(n_sets):
+            w_q, w_s, _ = int8_weight(g, dev, k, n)
+            x = torch.randn(m, k, generator=g).to(dev, torch.bfloat16)
+            dy = torch.randn(m, n, generator=g).to(dev, torch.bfloat16)
+            sets.append((x, w_q, w_s, dy))
+        x, w_q, w_s, dy = sets[0]
+        q, s = i8.rowquant(x)
+        q_ref, s_ref = i8.row_quant_ref(x.float())
+        torch.cuda.synchronize()
+        q_err = (q.int() - q_ref.int()).abs().max().item()
+        check(q_err == 0 and torch.equal(s, s_ref), f"K8q ({m}, {k}): q off by {q_err} steps")
+        y = i8.int8_gemm(q, s, w_q, w_s, out_dtype=torch.bfloat16)
+        y_ref = i8.int8_matmul_ref(x.float(), w_q, w_s)
+        err = hold("K8g", y, y_ref, (m, k, n))
+        qd, sd = i8.rowquant(dy, w_s)
+        dx = i8.int8_gemm(qd, sd, w_q, dgrad=True, out_dtype=torch.bfloat16)
+        dx_ref = i8.int8_matmul_dgrad_ref(dy.float(), w_q, w_s, torch.float32)
+        qd_ref, _ = i8.row_quant_ref(dy.float(), w_s)
+        check(torch.equal(qd, qd_ref), f"K8q dgrad ({m}, {n}) with the column pre-scale")
+        d_err = hold("K8g dgrad", dx, dx_ref, (m, n, k))
+        res["fwd"]["err"] = max(res["fwd"]["err"], err)
+        res["dgrad"]["err"] = max(res["dgrad"]["err"], d_err)
+        line = (f"phase 2i K8 ({m}, {k}) -> {n}: K8q q/s identical to plain; K8g max_abs_err "
+                f"{err:.3e} ({differ(y, y_ref):.2%} of elements differ), dgrad {d_err:.3e} "
+                f"({differ(dx, dx_ref):.2%}) (bound {KERNEL_RTOL} x max|plain f32|)")
+        if timed:
+            qs = [(*i8.rowquant(x), w_q, w_s) for x, w_q, w_s, _ in sets]
+            qds = [(*i8.rowquant(dy, w_s), w_q) for _, w_q, w_s, dy in sets]
+            t = {
+                "q": cuda_ms(lambda x, *_: i8.rowquant(x), sets, 20),
+                "q_plain": cuda_ms(lambda x, *_: i8.row_quant_ref(x), sets, 20),
+                "fwd": cuda_ms(lambda q, s, w_q, w_s: i8.int8_gemm(
+                    q, s, w_q, w_s, out_dtype=torch.bfloat16), qs, 20),
+                "fwd_plain": cuda_ms(lambda q, s, w_q, w_s: i8.int8_gemm_ref(
+                    q, s, w_q, w_s, out_dtype=torch.bfloat16), qs, 10),
+                "dgrad": cuda_ms(lambda q, s, w_q: i8.int8_gemm(
+                    q, s, w_q, dgrad=True, out_dtype=torch.bfloat16), qds, 20),
+                "dgrad_plain": cuda_ms(lambda q, s, w_q: i8.int8_gemm_ref(
+                    q, s, w_q, dgrad=True, out_dtype=torch.bfloat16), qds, 10),
+            }
+            if m > 16:  # torch._int_mm refuses M <= 16
+                t["fwd_lib"] = cuda_ms(lambda q, s, w_q, w_s: (
+                    torch._int_mm(q, w_q).float() * s * w_s).to(torch.bfloat16), qs, 20)
+                wts = [w_q.t().contiguous() for _, _, w_q in qds]
+                t["dgrad_lib"] = cuda_ms(lambda q, s, wt: (
+                    torch._int_mm(q, wt).float() * s).to(torch.bfloat16),
+                    [(q, s, wt) for (q, s, _), wt in zip(qds, wts)], 20)
+            line += " | " + ", ".join(f"{key} {v:.4f} ms" for key, v in t.items())
+            if m == 12000:
+                res["q"].update(ms=t["q"], plain_ms=t["q_plain"], library_ms=None,
+                                **roofline(m * k * 2 + m * k + m * 4, 4 * m * k, "f32"))
+                for key in ("fwd", "dgrad"):
+                    res[key].update(ms=t[key], plain_ms=t[key + "_plain"],
+                                    library_ms=t[key + "_lib"],
+                                    **roofline(m * k + m * 4 + k * n + n * 4 + m * n * 2,
+                                            2 * m * k * n, "int8"))
+        print(line, flush=True)
+    return res
+
+
+def check_k2(dev, g, timed=True) -> dict:
+    """Phase 2j: K2f and K2b against their plain versions at the encoder's
+    (12000, 768, 3072), the teacher-forced decoder's (528, 768, 3072) and
+    1000 rows (not a multiple of the kernels' 16-row tile). Returns errors
+    and times at (12000, 768, 3072)."""
+    from agacs_tpu_torch.ops import int8_mlp
+
+    res = {"fwd": {"err": 0.0}, "bwd": {"err": 0.0}}
+    d, h = D, 4 * D
+    for n in (12000, 528, 1000):
+        sets = []
+        for _ in range(2 if n == 12000 else 4):
+            w1q, s1, b1 = int8_weight(g, dev, d, h)
+            w2q, s2, b2 = int8_weight(g, dev, h, d)
+            x = torch.randn(n, d, generator=g).to(dev, torch.bfloat16)
+            dy = torch.randn(n, d, generator=g).to(dev, torch.bfloat16)
+            sets.append((x, w1q, s1, b1, w2q, s2, b2, dy))
+        x, w1q, s1, b1, w2q, s2, b2, dy = sets[0]
+        y = int8_mlp._fwd_kernel(x, w1q, s1, b1, w2q, s2, b2)
+        y_ref = int8_mlp.int8_mlp_fwd_ref(x.float(), w1q, s1, b1, w2q, s2, b2)
+        err = hold("K2f", y, y_ref, (n, d, h))
+        dx = int8_mlp._bwd_kernel(x, w1q, s1, b1, w2q, s2, dy)
+        dx_ref = int8_mlp.int8_mlp_bwd_ref(x.float(), w1q, s1, b1, w2q, s2, dy.float())
+        b_err = hold("K2b", dx, dx_ref, (n, d, h))
+        res["fwd"]["err"] = max(res["fwd"]["err"], err)
+        res["bwd"]["err"] = max(res["bwd"]["err"], b_err)
+        line = (f"phase 2j K2 int8_mlp ({n}, {d}, {h}): K2f max_abs_err {err:.3e} "
+                f"({err / y_ref.abs().max().item():.2e} of max|plain|, "
+                f"{differ(y, y_ref):.2%} of elements differ), K2b {b_err:.3e} "
+                f"({b_err / dx_ref.abs().max().item():.2e}, {differ(dx, dx_ref):.2%}) "
+                f"(bound {KERNEL_RTOL} x max|plain f32|)")
+        if timed:
+            fsets = [a[:7] for a in sets]
+            bsets = [a[:6] + a[7:] for a in sets]
+            t = {"fwd": cuda_ms(int8_mlp._fwd_kernel, fsets, 10),
+                 "fwd_plain": cuda_ms(int8_mlp.int8_mlp_fwd_ref, fsets, 3),
+                 "bwd": cuda_ms(int8_mlp._bwd_kernel, bsets, 10),
+                 "bwd_plain": cuda_ms(int8_mlp.int8_mlp_bwd_ref, bsets, 3)}
+            line += " | " + ", ".join(f"{key} {v:.4f} ms" for key, v in t.items())
+            if n == 12000:
+                w_bytes = 2 * d * h + 4 * (2 * h + 2 * d)
+                res["fwd"].update(ms=t["fwd"], plain_ms=t["fwd_plain"], library_ms=None,
+                                  **roofline(2 * n * d * 2 + w_bytes, 4 * n * d * h, "int8"))
+                res["bwd"].update(ms=t["bwd"], plain_ms=t["bwd_plain"], library_ms=None,
+                                  **roofline(3 * n * d * 2 + w_bytes, 6 * n * d * h, "int8"))
+        print(line, flush=True)
     return res
 
 
@@ -614,9 +866,11 @@ def make_train_batch(b: int, seconds: int, dev) -> dict:
     }
 
 
-def train_model(sd, dev, dtype, specaug: bool):
+def train_model(sd, dev, dtype, specaug: bool, int8: bool = False):
     """The stage-2 recipe's trainable model: built in float32 from `sd`,
-    preset `adapter`, frozen linears stored in `dtype`; with its config."""
+    preset `adapter`, frozen linears stored in `dtype` (then, with `int8`,
+    quantised: `freeze_quant: int8`); with its config. A state dict that
+    already holds int8 buffers builds the int8 trunk from them."""
     from agacs_tpu_torch.models import whisper as tw
     from agacs_tpu_torch.models.asr_model import ASRModelConfig
     from agacs_tpu_torch.train.freeze import apply_freeze
@@ -626,18 +880,36 @@ def train_model(sd, dev, dtype, specaug: bool):
     model = tw.Whisper.from_state_dict(cfg, sd, device=dev, param_dtype=torch.float32)
     params = apply_freeze(model, "adapter")
     model.cast_frozen_(dtype)
+    if int8:
+        model.quantize_frozen_()
     return model, params, ASRModelConfig(whisper=cfg, cs_weight=0.01,
                                          use_specaug=specaug)
 
 
-def train_phase(sd, dev) -> dict:
-    """Phases 7 and 8: timed adapter + CS-loss optimizer steps, then one
-    more under the profiler."""
+def int8_counts() -> dict:
+    from agacs_tpu_torch.ops import int8_linear, int8_mlp
+
+    return {"K2f": int8_mlp.FWD_LAUNCHES, "K2b": int8_mlp.BWD_LAUNCHES,
+            "K8g": int8_linear.LAUNCHES, "K8g dgrad": int8_linear.DGRAD_LAUNCHES,
+            "K8q": int8_linear.QUANT_LAUNCHES}
+
+
+def reset_int8_counts() -> None:
+    from agacs_tpu_torch.ops import int8_linear, int8_mlp
+
+    int8_mlp.FWD_LAUNCHES = int8_mlp.BWD_LAUNCHES = 0
+    int8_linear.LAUNCHES = int8_linear.DGRAD_LAUNCHES = int8_linear.QUANT_LAUNCHES = 0
+
+
+def train_phase(sd, dev, int8: bool = False, bf16: dict | None = None) -> dict:
+    """Phases 7 and 8 (bf16 trunk), or 13 and 14 (`int8`: the trunk
+    quantised; `bf16` is phase 7's result, printed beside it): timed
+    adapter + CS-loss optimizer steps, then one more under the profiler."""
     from agacs_tpu_torch.ops import flash_train
     from agacs_tpu_torch.train.optim import OptimConfig, build_optimizer
     from agacs_tpu_torch.train.trainer import make_train_step
 
-    model, params, acfg = train_model(sd, dev, torch.bfloat16, specaug=True)
+    model, params, acfg = train_model(sd, dev, torch.bfloat16, specaug=True, int8=int8)
     n_layer = acfg.whisper.n_audio_layer
     opt, sched = build_optimizer(params, OptimConfig(warmup_steps=500))
     step = make_train_step(model, acfg, opt, sched, grad_clip=1.0,
@@ -646,10 +918,12 @@ def train_phase(sd, dev) -> dict:
     trainable = {id(p) for p in params}
     frozen = {n: p.detach().clone() for n, p in model.named_parameters()
               if id(p) not in trainable}
+    frozen.update((n, b.clone()) for n, b in model.named_buffers() if "weight_" in n)
     before = [p.detach().clone() for p in params]
     step([batch])  # warm-up: cuBLAS handles, the kernels' first launches
     torch.cuda.synchronize()
     flash_train.LAUNCHES = flash_train.BWD_LAUNCHES = 0
+    reset_int8_counts()
     torch.cuda.reset_peak_memory_stats()
     times, losses = [], []
     for _ in range(TRAIN_STEPS):
@@ -659,6 +933,8 @@ def train_phase(sd, dev) -> dict:
         times.append(time.perf_counter() - t0)
         losses.append((float(stats["loss"]), float(stats["loss_cs"])))
     launches = {"K1f": flash_train.LAUNCHES, "K1b": flash_train.BWD_LAUNCHES}
+    if int8:
+        launches.update(int8_counts())
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(all(np.isfinite(v) for pair in losses for v in pair)
           and int(stats["grad_nonfinite_total"]) == 0, f"finite losses {losses}")
@@ -668,42 +944,57 @@ def train_phase(sd, dev) -> dict:
           f"K1f launches {launches['K1f']} == {n_layer} x {TRAIN_STEPS}")
     check(launches["K1b"] == (n_layer - 1) * TRAIN_STEPS,
           f"K1b launches {launches['K1b']} == {n_layer - 1} x {TRAIN_STEPS}")
-    for n, p in model.named_parameters():
-        if n in frozen:
-            check(torch.equal(p, frozen[n]), f"frozen {n} unchanged")
+    if int8:
+        want = {k: v * TRAIN_STEPS for k, v in INT8_TRAIN_LAUNCHES.items()}
+        check({k: launches[k] for k in want} == want,
+              f"int8 launches {launches} == {INT8_TRAIN_LAUNCHES} x {TRAIN_STEPS}")
+    state = dict(model.named_parameters(), **dict(model.named_buffers()))
+    check(len(frozen) > 0 and all(torch.equal(state[n], t) for n, t in frozen.items()),
+          "every frozen parameter and int8 buffer bit-identical after the steps")
     check(all(not torch.equal(a, p) for a, p in zip(before, params)),
           "every adapter parameter changed")
     ms = statistics.median(times) * 1e3
     audio_s = TRAIN_B * TRAIN_S
-    print(f"phase 7 train: whisper-small+adapters, bf16 trunk / f32 adapters, "
+    phase = (13, 14) if int8 else (7, 8)
+    vs = (f" [phase 7 bf16: {bf16['ms']:.1f} ms/step, {audio_s / (bf16['ms'] / 1e3):.1f} "
+          f"audio-s/s, peak {bf16['peak_gb']:.2f} GB, loss {bf16['loss']:.3f}]") if bf16 else ""
+    print(f"phase {phase[0]} train: whisper-small+adapters, "
+          f"{'int8' if int8 else 'bf16'} trunk / f32 adapters, "
           f"{TRAIN_B} x {TRAIN_S} s, cs_weight 0.01, SpecAug on: {ms:.1f} ms/step "
           f"(median of {[round(t * 1e3, 1) for t in times]}), "
           f"{audio_s / (ms / 1e3):.1f} audio-s/s; peak {peak_gb:.2f} GB; "
           f"{sum(p.numel() for p in params) / 1e6:.2f}M trainable; losses (loss, "
           f"loss_cs) {[(round(a, 3), round(c, 3)) for a, c in losses]}; "
-          f"launches K1f {launches['K1f']} K1b {launches['K1b']} "
-          f"({n_layer} and {n_layer - 1} per step)", flush=True)
+          f"launches {launches} (K1f {n_layer} and K1b {n_layer - 1} per step"
+          + (f", int8 {INT8_TRAIN_LAUNCHES} per step" if int8 else "") + ")" + vs,
+          flush=True)
 
     busy, n_events, per_name = device_profile(lambda: step([batch]))
-    k1b = sum(t for name, t in per_name.items()
-              if any(k in name for k in ("dkdv_kernel", "dq_kernel", "rowdot_kernel")))
-    k1f = sum(t for name, t in per_name.items() if "packed_flash_fwd" in name)
-    print(f"phase 8 train profile: device busy {busy:.1f} ms in {n_events} device "
-          f"events; idle {1 - busy / ms:.1%} of phase 7's {ms:.1f} ms/step; K1b "
-          f"{k1b:.2f} ms ({k1b / busy:.1%}), K1f {k1f:.2f} ms ({k1f / busy:.1%}); "
-          "top: " + top_kernels(per_name), flush=True)
+
+    def share(*keys):
+        t = sum(v for name, v in per_name.items() if any(k in name for k in keys))
+        return f"{t:.2f} ms ({t / busy:.1%})"
+
+    print(f"phase {phase[1]} train profile: device busy {busy:.1f} ms in {n_events} device "
+          f"events; idle {1 - busy / ms:.1%} of phase {phase[0]}'s {ms:.1f} ms/step; K1b "
+          f"{share('dkdv_kernel', 'dq_kernel', 'rowdot_kernel')}, K1f "
+          f"{share('packed_flash_fwd')}"
+          + (f"; K2f {share('mlp_fwd_kernel')}, K2b {share('mlp_bwd_kernel')}, K8g "
+             f"{share('gemm_kernel')}, K8q {share('rowquant_kernel')}" if int8 else "")
+          + "; top: " + top_kernels(per_name), flush=True)
     del model, opt, frozen, before
     torch.cuda.empty_cache()
-    return {"launches": launches, "ms": ms, "peak_gb": peak_gb, "batch": batch}
+    return {"launches": launches, "ms": ms, "peak_gb": peak_gb, "batch": batch,
+            "loss": float(np.mean([a for a, _ in losses]))}
 
 
-def micro_step(sd, dev, dtype, one) -> tuple[float, float, dict]:
+def micro_step(sd, dev, dtype, one, int8: bool = False) -> tuple[float, float, dict]:
     """One micro-step of the stage-2 model on `dev` (SpecAug off): the
     loss, loss_cs, and every trainable parameter's gradient, float32 on
     the CPU, by name."""
     from agacs_tpu_torch.models import asr_model
 
-    model, _, acfg = train_model(sd, dev, dtype, specaug=False)
+    model, _, acfg = train_model(sd, dev, dtype, specaug=False, int8=int8)
     loss, stats = asr_model.forward(model, acfg, {k: v.to(dev) for k, v in one.items()})
     loss.backward()
     grads = {n: p.grad.float().cpu() for n, p in model.named_parameters()
@@ -752,7 +1043,7 @@ def fmt_parity(r: dict) -> str:
                      for k, v in r.items())
 
 
-def train_parity(sd, dev, batch) -> None:
+def train_parity(sd, dev, batch) -> float:
     """Phase 9: one micro-step on one utterance, card bf16 (the kernels,
     and the bf16 control without them) vs the port on the CPU in f32."""
     from agacs_tpu_torch.models import whisper as tw
@@ -782,6 +1073,278 @@ def train_parity(sd, dev, batch) -> None:
         check(card[key] <= bound, f"train parity {key} rel {card[key]} <= {bound}")
     for key, bound in TRAIN_COS.items():
         check(card[key] >= bound, f"train parity {key} {card[key]} >= {bound}")
+    return run[0]
+
+
+@contextlib.contextmanager
+def plain_int8():
+    """Every int8 product (K8q/K8g, K2f/K2b) through its plain PyTorch
+    version on the card: phase 15's control."""
+    from agacs_tpu_torch.ops import int8_linear as i8
+    from agacs_tpu_torch.ops import int8_mlp
+
+    saved = i8._matmul, i8._dgrad, int8_mlp.int8_mlp_fwd, int8_mlp.int8_mlp_bwd
+    i8._matmul = i8.int8_matmul_ref
+    i8._dgrad = i8.int8_matmul_dgrad_ref
+    int8_mlp.int8_mlp_fwd, int8_mlp.int8_mlp_bwd = (int8_mlp.int8_mlp_fwd_ref,
+                                                    int8_mlp.int8_mlp_bwd_ref)
+    try:
+        yield
+    finally:
+        i8._matmul, i8._dgrad, int8_mlp.int8_mlp_fwd, int8_mlp.int8_mlp_bwd = saved
+
+
+def int8_state(sd, dev) -> dict:
+    """The int8 trunk as the card's trainer builds it (bf16-stored frozen
+    linears, then quantised), as a CPU state dict: what both sides of
+    phases 15 and 16 load, so they run the same int8 weights."""
+    model, _, _ = train_model(sd, dev, torch.bfloat16, specaug=False, int8=True)
+    return {k: v.detach().cpu() for k, v in model.state_dict().items()}
+
+
+def int8_train_parity(sd8, dev, batch, bf16_loss: float) -> dict:
+    """Phase 15: one int8 micro-step on one utterance, the card (bf16,
+    K2/K8) against the port on the CPU (float32, plain versions) on the
+    same int8 weights; beside it the card with the int8 plain versions."""
+    one = {k: v[:1] for k, v in batch.items()}
+    ref = micro_step(sd8, torch.device("cpu"), torch.float32, one)
+    before = int8_counts()
+    run = micro_step(sd8, dev, torch.bfloat16, one)
+    after = int8_counts()
+    check(after["K2b"] - before["K2b"] == 12 and after["K8g dgrad"] > before["K8g dgrad"],
+          f"the card micro-step ran K2b in the 12 encoder MLPs and K8g dgrad: {after}")
+    with plain_int8():
+        control = parity(micro_step(sd8, dev, torch.bfloat16, one), ref)
+    check(int8_counts() == after, "the int8 control launched no int8 kernel")
+    card = parity(run, ref)
+    print(f"phase 15 int8 train parity vs cpu f32 (1 x {TRAIN_S} s, same int8 weights; "
+          f"rel errors, cosines): card bf16 {fmt_parity(card)}; control (int8 plain "
+          f"versions on the card) {fmt_parity(control)}; bounds {INT8_TRAIN_REL} "
+          f"{INT8_TRAIN_COS}; for information: int8 loss {run[0]:.4f} vs the bf16 "
+          f"trunk's {bf16_loss:.4f} (phase 9's card micro-step)", flush=True)
+    check(all(np.isfinite(x) for x in (run[0], run[1]))
+          and all(bool(torch.isfinite(g).all()) for g in run[2].values()),
+          "finite int8 card loss and grads")
+    for key, bnd in INT8_TRAIN_REL.items():
+        check(card[key] <= bnd, f"int8 train parity {key} rel {card[key]} <= {bnd}")
+    for key, bnd in INT8_TRAIN_COS.items():
+        check(card[key] >= bnd, f"int8 train parity {key} {card[key]} >= {bnd}")
+    return {"card": card, "control": control}
+
+
+def int8_serve_phase(sd8, dev, audio) -> dict:
+    """Phase 16: greedy Speech2Text (8 x 15 s, 100 steps) on the int8
+    trunk with exact launch counts, and its first-step logits (card bf16)
+    against the port on the CPU (float32) on the same int8 weights."""
+    from agacs_tpu_torch.decode.speech2text import Speech2Text
+    from agacs_tpu_torch.models import whisper as tw
+    from agacs_tpu_torch.models.asr_model import ASRModelConfig, encode
+    from agacs_tpu_torch.ops import decode_attn, flash_train
+
+    out = {}
+    for d, dtype in ((dev, torch.bfloat16), (torch.device("cpu"), torch.float32)):
+        cfg = tw.make_config("small", adapter=True, adapter_encoder=True,
+                             adapter_decoder=True, compute_dtype=dtype)
+        out[d.type] = (tw.Whisper.from_state_dict(cfg, sd8, device=d),
+                       ASRModelConfig(whisper=cfg))
+    model, asr_cfg = out["cuda"]
+    s2t = Speech2Text(model, asr_cfg, max_steps=100)
+    s2t(audio)  # warm-up
+    torch.cuda.synchronize()
+    flash_train.LAUNCHES = decode_attn.LAUNCHES = 0
+    reset_int8_counts()
+    t0 = time.perf_counter()
+    results = s2t(audio)
+    times = [time.perf_counter() - t0]
+    launches = {"K1f": flash_train.LAUNCHES, "K3": decode_attn.LAUNCHES, **int8_counts()}
+    for _ in range(2):
+        t0 = time.perf_counter()
+        s2t(audio)
+        times.append(time.perf_counter() - t0)
+    cfg = model.cfg
+    n_steps = min(len(PRIMER) + 100, cfg.n_text_ctx) - 1
+    L = cfg.n_text_layer
+    # encoder: fused q/k/v + out per layer (JAX's `mha`), K2f per layer;
+    # cross-KV: key and value per layer (JAX's precompute_cross_kv, unfused);
+    # a step: self q, k, v, out, cross q, out, and the 8-row MLP's fc1, fc2
+    want = {"K1f": cfg.n_audio_layer, "K3": 2 * L * n_steps, "K2f": cfg.n_audio_layer,
+            "K2b": 0, "K8g": 2 * cfg.n_audio_layer + 2 * L + 8 * L * n_steps,
+            "K8g dgrad": 0}
+    want["K8q"] = want["K8g"]
+    check(len(results) == 8 and all(r.tokens[:5] == PRIMER and 5 < len(r.tokens) <= 105
+                                    for r in results), "8 int8 hypotheses")
+    check(launches == want, f"int8 serving launches {launches} == {want}")
+    ms_batch = statistics.median(times) * 1e3
+    first = torch.tensor([PRIMER[0]])
+    logits = []
+    with torch.inference_mode():
+        for m, c in out.values():
+            d = next(m.parameters()).device
+            enc, _ = encode(m, c, torch.from_numpy(audio[:1]).to(d),
+                            torch.tensor([audio.shape[1]], device=d))
+            kv = tw.init_self_kv_cache(m.cfg, 1, 16, device=d)
+            lg, _ = tw.whisper_decode_step(m, first.to(d), 0, kv, tw.precompute_cross_kv(m, enc))
+            logits.append(lg.float().cpu())
+    e_log = rel_l2(*logits)
+    print(f"phase 16 int8 serving: whisper-small+adapters, int8 trunk, bf16, 8 x 15 s, "
+          f"{n_steps} greedy steps: {ms_batch:.1f} ms/batch (median of "
+          f"{[round(t * 1e3, 1) for t in times]}), {120.0 / (ms_batch / 1e3):.1f} x realtime; "
+          f"launches {launches}; first-step logits card bf16 vs cpu f32 rel L2 {e_log:.3e} "
+          f"(bound {INT8_LOGITS_REL_L2}), argmax card {int(logits[0].argmax())} cpu "
+          f"{int(logits[1].argmax())}", flush=True)
+    check(bool(torch.isfinite(logits[0]).all()) and e_log < INT8_LOGITS_REL_L2,
+          f"int8 first-step logits rel L2 {e_log} < {INT8_LOGITS_REL_L2}")
+    busy, n_events, per_name = device_profile(lambda: s2t(audio))
+
+    def share(*keys):
+        t = sum(v for name, v in per_name.items() if any(k in name for k in keys))
+        return f"{t:.2f} ms ({t / busy:.1%})"
+
+    print(f"phase 16 int8 serving profile: device busy {busy:.1f} ms in {n_events} device "
+          f"events ({n_events / n_steps:.0f} per decode step); idle {1 - busy / ms_batch:.1%} "
+          f"of {ms_batch:.1f} ms/batch; K8g {share('gemm_kernel')}, K8q "
+          f"{share('rowquant_kernel')}, K2f {share('mlp_fwd_kernel')}, K3 "
+          f"{share('decode_attn_kernel')}; top: " + top_kernels(per_name), flush=True)
+    del s2t, out, model
+    torch.cuda.empty_cache()
+    return {"ms": ms_batch, "launches": launches}
+
+
+# Broken copies of the int8 kernels that the checks must catch: name ->
+# (source, [(text, replacement)], checks to run). Built outside the
+# checkout by `mutants()`.
+MUTANTS = {
+    "unmutated source": ("int8_gemm.cu", [], ("k8", "k2", "p15")),
+    "K8q per-tensor scale (one fixed scale for every row)": (
+        "int8_gemm.cu", [("i8::quant_scale(i8::warp_max(m))", "i8::quant_scale(8.0f)")],
+        ("k8",)),
+    "K8g dequant with the tile's first row scale": (
+        "int8_gemm.cu", [("const float sr = s_row[row];", "const float sr = s_row[m0];")],
+        ("k8",)),
+    "K8g dgrad reads w_q untransposed": (
+        "int8_gemm.cu",
+        [("i8::stage_rows<BN, BK>(sB, LDS, w, K, n0, N, k0, K, tid, THREADS);",
+          "i8::stage_trans<BK, BN>(sB, LDS, w, N, k0, K, n0, N, tid, THREADS);")],
+        ("k8", "p15")),
+    "K2 last partial row tile dropped": (
+        "int8_mlp.cu", [("const dim3 grid((n + R - 1) / R);", "const dim3 grid(n / R);")] * 2,
+        ("k2", "p15")),
+    "K2b s1 not folded": ("int8_mlp.cu", [("dg = __fmul_rn(dg, s1[col]);", "")],
+                          ("k2", "p15")),
+    "K2f b1 missing": ("int8_mlp.cu", [("b1[col]);\n        const float gv",
+                                        "0.f);\n        const float gv")], ("k2",)),
+}
+
+
+def mutants(dev) -> None:
+    """Each MUTANTS entry: copy csrc/ to a temp dir, apply the edit, build
+    there, run its checks (timed=False) and print whether each fails."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from agacs_tpu_torch.models import whisper as tw
+    from agacs_tpu_torch.ops import cuda_lib
+
+    src, build, state = cuda_lib.CSRC, cuda_lib.BUILD_DIR, {}
+    for name, (fname, edits, checks) in MUTANTS.items():
+        tmp = Path(tempfile.mkdtemp(prefix="agacs_mutant_"))
+        for f in [*src.glob("*.cu"), *src.glob("*.cuh")]:
+            shutil.copy(f, tmp / f.name)
+        text = (tmp / fname).read_text()
+        for old, new in edits:
+            check(old in text, f"mutant {name!r}: {old!r} is in {fname}")
+            text = text.replace(old, new, 1)
+        (tmp / fname).write_text(text)
+        cuda_lib.CSRC, cuda_lib.BUILD_DIR = tmp, tmp / "build"
+        cuda_lib._LIBS.clear()
+        cuda_lib._FNS.clear()
+        for chk in checks:
+            g = torch.Generator().manual_seed(0)
+            try:
+                if chk == "k8":
+                    check_k8(dev, g, timed=False)
+                elif chk == "k2":
+                    check_k2(dev, g, timed=False)
+                else:
+                    if not state:
+                        cfg = tw.make_config("small", adapter=True, adapter_encoder=True,
+                                             adapter_decoder=True)
+                        sd = tw.init_whisper_params(torch.Generator().manual_seed(0), cfg)
+                        state.update(sd8=int8_state(sd, dev),
+                                     batch=make_train_batch(TRAIN_B, TRAIN_S, dev))
+                    int8_train_parity(state["sd8"], dev, state["batch"], float("nan"))
+                print(f"MUTANT [{name}] {chk}: passes", flush=True)
+            except RuntimeError as e:
+                print(f"MUTANT [{name}] {chk}: FAILS: {str(e)[:300]}", flush=True)
+            torch.cuda.synchronize()
+        shutil.rmtree(tmp, ignore_errors=True)
+    cuda_lib.CSRC, cuda_lib.BUILD_DIR = src, build
+    cuda_lib._LIBS.clear()
+    cuda_lib._FNS.clear()
+
+
+def cli_phase() -> dict:
+    """Phase 17: bin.train with freeze_quant=int8, then bin.decode on its
+    checkpoint, both on the card, on 6 utterances of 4-5 s of seeded noise
+    (a generated data dir under build/, removed afterwards)."""
+    import shutil
+    import wave
+
+    from agacs_tpu_torch.bin import decode, train
+
+    root = os.path.join(ROOT, "build", "chip_smoke_cli")
+    shutil.rmtree(root, ignore_errors=True)
+    data = os.path.join(root, "data")
+    os.makedirs(data)
+    rng = np.random.RandomState(3)
+    texts = ["我们 go", "hello 你好", "好 ok", "去 shop", "that 是 right", "走 了 bye"]
+    with open(os.path.join(data, "wav.scp"), "w") as scp, \
+            open(os.path.join(data, "text"), "w") as txt:
+        for i, t in enumerate(texts):
+            path = os.path.join(data, f"u{i}.wav")
+            with wave.open(path, "wb") as w:
+                w.setnchannels(1)
+                w.setsampwidth(2)
+                w.setframerate(16000)
+                w.writeframes((rng.randn(64000 + 4000 * (i % 3)) * 3000).astype(np.int16)
+                              .tobytes())
+            scp.write(f"u{i} {path}\n")
+            txt.write(f"u{i} {t}\n")
+    exp = os.path.join(root, "exp")
+    conf = os.path.join(ROOT, "recipes", "seame", "conf",
+                        "train_asr_whisper_small_adapter_csloss_2stage.yaml")
+    t0 = time.perf_counter()
+    reset_int8_counts()
+    out = train.main(["--config", conf, "--train_dir", data, "--valid_dir", data,
+                      "--exp_dir", exp, "--max_epoch", "1", "--batch_bins", "150000",
+                      "--override", "freeze_quant=int8", "accum_grad=1",
+                      "keep_nbest_models=1"])
+    train_launches, train_s = int8_counts(), time.perf_counter() - t0
+    with np.load(out["ave"]) as ave:
+        check(ave["encoder/blocks/mlp/fc1/w_q"].dtype == np.int8
+              and ave["decoder/blocks/attn/query/w_s"].dtype == np.float32,
+              "the int8 CLI's checkpoint holds int8 w_q and float32 w_s")
+    t0 = time.perf_counter()
+    reset_int8_counts()
+    res = decode.main(["--config", os.path.join(exp, "config.yaml"), "--params", out["ave"],
+                       "--data_dir", data, "--output_dir", os.path.join(root, "dec"),
+                       "--max_steps", "8"])
+    decode_launches, decode_s = int8_counts(), time.perf_counter() - t0
+    check(set(res["hyps"]) == {f"u{i}" for i in range(len(texts))}
+          and os.path.exists(os.path.join(root, "dec", "hyp.trn")),
+          "bin.decode wrote a hypothesis for every utterance")
+    check(all(c["K2f"] > 0 and c["K8g"] > 0 for c in (train_launches, decode_launches))
+          and train_launches["K2b"] > 0, f"the CLIs ran K2 and K8: {train_launches} "
+          f"{decode_launches}")
+    loss = out["history"][1]["train"]["loss"]
+    check(np.isfinite(loss), f"finite CLI train loss {loss}")
+    print(f"phase 17 int8 CLIs on the card: bin.train (whisper-small, freeze_quant=int8, "
+          f"1 epoch, 6 utterances) {train_s:.1f} s, loss {loss:.3f}, launches "
+          f"{train_launches}; bin.decode {decode_s:.1f} s, launches {decode_launches}; "
+          f"hyps {sorted(res['hyps'].items())[:2]}", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return {"train": train_launches, "decode": decode_launches}
 
 
 def main() -> int:
@@ -798,6 +1361,9 @@ def main() -> int:
     from agacs_tpu_torch.ops import cuda_lib, decode_attn, flash_train
 
     dev = torch.device("cuda:0")
+    if sys.argv[1:] == ["--mutants"]:
+        mutants(dev)
+        return 0
 
     # 1. device and build
     smi = subprocess.run(
@@ -807,7 +1373,7 @@ def main() -> int:
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor() as pool:  # one nvcc per source
         list(pool.map(cuda_lib.build, ("packed_flash_fwd", "packed_flash_bwd",
-                                       "decode_attn")))
+                                       "decode_attn", "int8_gemm", "int8_mlp")))
     build_s = time.perf_counter() - t0
     ptxas = "; ".join(
         f"{name}: {line.split(':', 1)[1].strip()}"
@@ -824,6 +1390,8 @@ def main() -> int:
     k3 = check_k3(dev, g)
     k3a = check_k3a(dev, g)
     k3s = check_k3s(dev, g)
+    k8 = check_k8(dev, g)
+    k2 = check_k2(dev, g)
 
     # 4. the slice: Speech2Text, whisper-small + adapters, bf16, 8 x 15 s
     cfg = tw.make_config("small", adapter=True, adapter_encoder=True,
@@ -917,37 +1485,54 @@ def main() -> int:
 
     # 7-9. the training path
     train = train_phase(sd, dev)
-    train_parity(sd, dev, train["batch"])
+    bf16_loss = train_parity(sd, dev, train["batch"])
 
-    check(not any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules),
-          "no JAX module was imported")
+    # 13-16. the int8 frozen trunk: training, its profile, parity, serving
+    train8 = train_phase(sd, dev, int8=True, bf16=train)
+    sd8 = int8_state(sd, dev)
+    int8_train_parity(sd8, dev, train["batch"], bf16_loss)
+    serve8 = int8_serve_phase(sd8, dev, audio)
+    del sd8
+    cli_phase()
+
+    check(not any(m.split(".")[0] in ("jax", "jaxlib", "agacs_tpu") for m in sys.modules),
+          "no jax, jaxlib or agacs_tpu module was imported")
+
+    def entry(name, source, replaces, launches, res):
+        return {"name": name, "route": "cuda", "source": "agacs_tpu_torch/csrc/" + source,
+                "replaces": replaces, "launches": launches, "max_abs_err": res["err"],
+                **{k: res[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                       "library_ms")}}
+
     kernels = [
-        {"name": "packed_flash_fwd (K1f, encoder self-attention forward)",
-         "route": "cuda", "source": "agacs_tpu_torch/csrc/packed_flash_fwd.cu",
-         "replaces": "agacs_tpu/ops/flash_train.py:155",
-         "launches": train["launches"]["K1f"], "max_abs_err": k1f["err"],
-         "ms": k1f["ms"], "plain_ms": k1f["plain_ms"]},
-        {"name": "packed_flash_bwd (K1b, encoder self-attention backward)",
-         "route": "cuda", "source": "agacs_tpu_torch/csrc/packed_flash_bwd.cu",
-         "replaces": "agacs_tpu/ops/flash_train.py:177",
-         "launches": train["launches"]["K1b"], "max_abs_err": k1b["err"],
-         "ms": k1b["ms"], "plain_ms": k1b["plain_ms"]},
-        {"name": "decode_attn_fwd (K3, decode-step cache attention)",
-         "route": "cuda", "source": "agacs_tpu_torch/csrc/decode_attn.cu",
-         "replaces": "agacs_tpu/ops/decode_attn.py:140",
-         "launches": launches["K3"], "max_abs_err": k3["err"],
-         "ms": k3["ms"], "plain_ms": k3["plain_ms"]},
-        {"name": "decode_attn_anc_fwd (K3a, beam self-attention through the ancestry map)",
-         "route": "cuda", "source": "agacs_tpu_torch/csrc/decode_attn.cu",
-         "replaces": "agacs_tpu/ops/decode_attn.py:140",
-         "launches": beam["launches"]["K3a"], "max_abs_err": k3a["err"],
-         "ms": k3a["ms"], "plain_ms": k3a["plain_ms"]},
-        {"name": "decode_attn_shared_fwd (K3s, beam cross-attention, shared cross-KV)",
-         "route": "cuda", "source": "agacs_tpu_torch/csrc/decode_attn.cu",
-         "replaces": "agacs_tpu/ops/decode_attn.py:830",
-         "launches": beam["launches"]["K3s"], "max_abs_err": k3s["err"],
-         "ms": k3s["ms"], "plain_ms": k3s["plain_ms"]},
+        entry("packed_flash_fwd (K1f, encoder self-attention forward)",
+              "packed_flash_fwd.cu", "agacs_tpu/ops/flash_train.py:155",
+              train["launches"]["K1f"], k1f),
+        entry("packed_flash_bwd (K1b, encoder self-attention backward)",
+              "packed_flash_bwd.cu", "agacs_tpu/ops/flash_train.py:177",
+              train["launches"]["K1b"], k1b),
+        entry("decode_attn_fwd (K3, decode-step cache attention)", "decode_attn.cu",
+              "agacs_tpu/ops/decode_attn.py:140", launches["K3"], k3),
+        entry("decode_attn_anc_fwd (K3a, beam self-attention through the ancestry map)",
+              "decode_attn.cu", "agacs_tpu/ops/decode_attn.py:140",
+              beam["launches"]["K3a"], k3a),
+        entry("decode_attn_shared_fwd (K3s, beam cross-attention, shared cross-KV)",
+              "decode_attn.cu", "agacs_tpu/ops/decode_attn.py:830",
+              beam["launches"]["K3s"], k3s),
+        entry("int8_mlp_fwd (K2f, fused W8A8 MLP forward)", "int8_mlp.cu",
+              "agacs_tpu/ops/int8_mlp.py:112", train8["launches"]["K2f"], k2["fwd"]),
+        entry("int8_mlp_bwd (K2b, fused W8A8 MLP dx)", "int8_mlp.cu",
+              "agacs_tpu/ops/int8_mlp.py:126", train8["launches"]["K2b"], k2["bwd"]),
+        entry("int8_rowquant (K8q, per-row int8 quantisation)", "int8_gemm.cu",
+              "agacs_tpu/ops/int8_linear.py:65", train8["launches"]["K8q"], k8["q"]),
+        entry("int8_gemm (K8g, W8A8 linear forward)", "int8_gemm.cu",
+              "agacs_tpu/ops/int8_linear.py:83", train8["launches"]["K8g"], k8["fwd"]),
+        entry("int8_gemm dgrad (K8g, W8A8 linear dx against w_q^T)", "int8_gemm.cu",
+              "agacs_tpu/ops/int8_linear.py:108", train8["launches"]["K8g dgrad"],
+              k8["dgrad"]),
     ]
+    check(serve8["launches"]["K2f"] > 0 and serve8["launches"]["K8g"] > 0,
+          "int8 serving launched K2f and K8g")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

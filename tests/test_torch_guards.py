@@ -1,5 +1,6 @@
-"""Guards of the port: it never imports JAX, never falls back from the
-card to the CPU or a plain version, and refuses what it cannot run yet."""
+"""Guards of the port: it never imports JAX or the JAX package, never
+falls back from the card to the CPU or a plain version, and refuses what
+it cannot run yet."""
 
 import os
 import subprocess
@@ -18,7 +19,7 @@ from agacs_tpu_torch.models import asr_model
 from agacs_tpu_torch.models import whisper as tw
 from agacs_tpu_torch.models.asr_model import ASRModelConfig
 from agacs_tpu_torch.models.checkpoint import params_from_numpy
-from agacs_tpu_torch.ops import decode_attn, flash_train
+from agacs_tpu_torch.ops import decode_attn, flash_train, int8_linear, int8_mlp
 
 torch.set_num_threads(1)
 
@@ -27,9 +28,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NO_JAX = r"""
 import importlib, importlib.abc, pkgutil, sys
 
+BLOCKED = ("jax", "jaxlib", "agacs_tpu")  # agacs_tpu_torch is another name
+
 class BlockJax(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
+        if name.split(".")[0] in BLOCKED:
             raise ImportError("blocked: " + name)
         return None
 
@@ -74,8 +77,8 @@ out = Speech2Text(model, ASRModelConfig(whisper=cfg), beam_size=3, max_steps=4,
 assert all(r.tokens[:5] == [50258, 50260, 50259, 50359, 50363] for r in out)
 assert all(np.isfinite(r.score) and r.score != 0.0 for r in out)
 
-# bin.count_heads on a generated data dir, and the JAX package's
-# average_checkpoints (numpy only) on two port-written npz files
+# bin.count_heads on a generated data dir, and the n-best average of two
+# port-written npz files
 import json, os, tempfile, wave
 from agacs_tpu_torch.bin import count_heads
 from agacs_tpu_torch.models.checkpoint import numpy_from_params, params_from_numpy
@@ -100,20 +103,76 @@ res = count_heads.main(["--config", os.path.join(tmp, "config.yaml"), "--data_di
 assert res["counts"].shape == (2, 2)
 assert json.load(open(os.path.join(tmp, "counts.mask.json")))["head_mask"]
 
-paths = []
-for seed in (3, 4):
-    sd = tw.init_whisper_params(torch.Generator().manual_seed(seed), cfg)
-    paths.append(os.path.join(tmp, f"{seed}epoch.params.npz"))
-    np.savez(paths[-1], **numpy_from_params(sd))
-from agacs_tpu.bin.average_checkpoints import main as average
-average(["--inputs", *paths, "--output", os.path.join(tmp, "ave.params.npz")])
-ave = params_from_numpy(np.load(os.path.join(tmp, "ave.params.npz")), cfg)
-sds = [params_from_numpy(np.load(p), cfg) for p in paths]
+from agacs_tpu_torch.train.checkpoint import CheckpointManager
+
+mgr = CheckpointManager(tmp, keep_nbest=2)
+paths, sds = [], []
+for ep, seed in ((1, 3), (2, 4)):
+    sds.append(tw.init_whisper_params(torch.Generator().manual_seed(seed), cfg))
+    np.savez(os.path.join(tmp, f"{ep}epoch.params.npz"), **numpy_from_params(sds[-1]))
+ave = params_from_numpy(np.load(mgr.average_nbest(
+    {1: {"valid": {"acc": 1.0}}, 2: {"valid": {"acc": 2.0}}})), cfg)
 assert all(torch.allclose(ave[k], (sds[0][k] + sds[1][k]) / 2) for k in ave)
+
+# the int8 frozen trunk: a train step (K2 plain versions: 16 encoder rows
+# are below the fused path's 256, so also the unfused MLP), then greedy
+# decoding on the quantised model
+from agacs_tpu_torch.ops import int8_linear, int8_mlp
+
+model = tw.Whisper.from_state_dict(cfg, tw.init_whisper_params(torch.Generator().manual_seed(5), cfg))
+opt, sched = build_optimizer(apply_freeze(model, "adapter"), OptimConfig())
+model.quantize_frozen_()
+stats = make_train_step(model, acfg, opt, sched,
+                        generator=torch.Generator().manual_seed(0))([batch])
+assert torch.isfinite(stats["loss"]) and float(stats["grad_norm"]) > 0
+out = Speech2Text(model, ASRModelConfig(whisper=cfg), max_steps=4)(
+    np.random.RandomState(0).randn(2, 16000).astype(np.float32) * 0.1)
+assert [r.tokens[:5] for r in out] == [[50258, 50260, 50259, 50359, 50363]] * 2
+assert model.state_dict()["decoder.blocks.1.mlp.2.weight_q"].dtype == torch.int8
+assert int8_linear.LAUNCHES == int8_mlp.FWD_LAUNCHES == 0
 tmp_dir.cleanup()
-assert not any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules)
+assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
 print("OK", len(mods))
 """
+
+
+def test_port_tokenizer_trn_and_error_calculator_match_jax():
+    """The port's copies of `agacs_tpu.text`, the .trn writer and the
+    ErrorCalculator give the JAX package's ids, texts, files and rates."""
+    from agacs_tpu.eval.scoring import read_trn as jax_read_trn
+    from agacs_tpu.eval.scoring import write_trn as jax_write_trn
+    from agacs_tpu.text import TextCleaner as JaxCleaner
+    from agacs_tpu.text import WhisperTokenIdConverter as JaxConverter
+    from agacs_tpu.text import WhisperTokenizer as JaxTokenizer
+    from agacs_tpu.train.error_calculator import ErrorCalculator as JaxErrorCalculator
+    from agacs_tpu_torch.eval.scoring import read_trn, write_trn
+    from agacs_tpu_torch.text import TextCleaner, WhisperTokenIdConverter, WhisperTokenizer
+    from agacs_tpu_torch.train.error_calculator import ErrorCalculator
+
+    texts = ["我们 go", "hello 你", "好 ok", "去 shop", "that 是 right", "嗯 ok lah",
+             "我 think so", "走 了 bye", "hello 你好", "Ça, c'est 好的!"]
+    tok, ref = WhisperTokenizer(), JaxTokenizer()
+    conv, jconv = WhisperTokenIdConverter(tok), JaxConverter(ref)
+    for t in texts:
+        ids = tok.encode(t)
+        assert ids == ref.encode(t) and tok.decode(ids) == ref.decode(ids) == t
+        assert tok.text2tokens(t) == ref.text2tokens(t)
+        assert conv.tokens2ids(tok.text2tokens(t)) == jconv.tokens2ids(ref.text2tokens(t))
+        assert TextCleaner("whisper_basic")(t) == JaxCleaner("whisper_basic")(t)
+    utts = {f"u{i}": t for i, t in enumerate(texts)}
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        write_trn(os.path.join(tmp, "a.trn"), utts)
+        jax_write_trn(os.path.join(tmp, "b.trn"), utts)
+        assert open(os.path.join(tmp, "a.trn")).read() == open(os.path.join(tmp, "b.trn")).read()
+        assert read_trn(os.path.join(tmp, "a.trn")) == jax_read_trn(os.path.join(tmp, "b.trn"))
+    ids = [conv.tokens2ids(tok.text2tokens(t)) for t in texts[:4]]
+    ys = np.full((4, max(map(len, ids))), -1)
+    for i, row in enumerate(ids):
+        ys[i, : len(row)] = row
+    hat = np.roll(np.where(ys < 0, 50257, ys), 1, axis=1)
+    assert ErrorCalculator(tok.id_to_token)(hat, ys) == JaxErrorCalculator(ref.id_to_token)(hat, ys)
 
 
 def test_port_runs_with_jax_blocked():
@@ -148,14 +207,26 @@ def test_wrappers_never_fall_back_off_cpu():
         decode_attn.decode_cache_attention(x[:, 0], x, x, 3, 2, anc_local=anc, beam=2)
     with pytest.raises(ValueError):
         decode_attn.decode_shared_cache_attention(x[:, 0], x[:1], x[:1], 3, 2, 2)
+    xq = torch.empty(32, 128, device="meta", dtype=torch.int8)
+    w_q = torch.empty(128, 256, device="meta", dtype=torch.int8)
+    s = torch.empty(256, device="meta")
+    with pytest.raises(ValueError):
+        int8_linear.int8_matmul(x[0], w_q, s)
+    with pytest.raises(ValueError):
+        int8_linear.int8_gemm(xq, torch.empty(32, 1, device="meta"), w_q, s)
+    with pytest.raises(ValueError):
+        int8_mlp.int8_mlp(x[0], w_q, s, s, w_q.t(), s[:128], s[:128])
 
 
 def test_launch_counters_stay_zero_on_cpu():
     flash_train.LAUNCHES = flash_train.BWD_LAUNCHES = decode_attn.LAUNCHES = 0
     decode_attn.ANC_LAUNCHES = decode_attn.SHARED_LAUNCHES = 0
+    int8_linear.QUANT_LAUNCHES = int8_linear.LAUNCHES = int8_linear.DGRAD_LAUNCHES = 0
+    int8_mlp.FWD_LAUNCHES = int8_mlp.BWD_LAUNCHES = 0
     cfg = tw.make_config("test", adapter=True)
     model = tw.Whisper.from_state_dict(
         cfg, tw.init_whisper_params(torch.Generator().manual_seed(1), cfg))
+    model.quantize_frozen_()
     audio = np.random.RandomState(1).randn(1, 8000).astype(np.float32) * 0.1
     for beam in (1, 3):
         out = Speech2Text(model, ASRModelConfig(whisper=cfg), beam_size=beam,
@@ -164,6 +235,8 @@ def test_launch_counters_stay_zero_on_cpu():
     assert flash_train.LAUNCHES == 0 and decode_attn.LAUNCHES == 0
     assert flash_train.BWD_LAUNCHES == 0
     assert decode_attn.ANC_LAUNCHES == 0 and decode_attn.SHARED_LAUNCHES == 0
+    assert int8_linear.QUANT_LAUNCHES == int8_linear.LAUNCHES == 0
+    assert int8_mlp.FWD_LAUNCHES == 0
 
 
 @pytest.mark.parametrize("kernel", ["K3a", "K3s"])
@@ -193,13 +266,16 @@ def test_unported_model_configs_raise(flags):
         tw.Whisper(tw.make_config("test", **flags))
 
 
-@pytest.mark.parametrize("leaf", ["w_q", "token_emb_q", "logits_w_q", "query_cs"])
+@pytest.mark.parametrize("leaf", ["serving_int8", "token_emb_q", "logits_w_q", "query_cs"])
 def test_unported_checkpoints_raise(leaf):
     cfg = jw.make_config("test")
     tree = jax.tree.map(np.asarray, jw.init_whisper_params(jax.random.PRNGKey(0), cfg))
-    if leaf == "w_q":
+    if leaf == "serving_int8":  # quantize_for_serving: an int8 trunk AND an int8 head
         tree["encoder"]["blocks"]["mlp"]["fc1"] = {
-            "w_q": np.zeros((2, 64, 256), np.int8), "w_s": np.ones((2, 256))}
+            "w_q": np.zeros((2, 64, 256), np.int8), "w_s": np.ones((2, 256)),
+            "b": np.zeros((2, 256))}
+        tree["decoder"]["token_emb_q"] = np.zeros((4, 64), np.int8)
+        tree["decoder"]["logits_w_q"] = np.zeros((64, 4), np.int8)
     elif leaf == "query_cs":
         tree["decoder"]["blocks"]["attn"]["query_cs"] = {"w": np.zeros((2, 64, 64))}
     else:
@@ -257,15 +333,15 @@ def test_unported_training_options_raise(kw):
 @pytest.mark.parametrize("flags", [
     ["--resume"], ["--tensor_parallel", "2"], ["--optim_state_shard"],
     ["--ckpt_backend", "orbax"], ["--batch_type", "fixed_shapes"],
-    ["--override", "freeze_quant=int8"], ["--init_param", "small.pt"],
-    ["--override", "model_conf.ctc_weight=0.3"],
+    ["--override", "freeze_quant=int8", "freeze_param=null"], ["--init_param", "small.pt"],
+    ["--override", "model_conf.ctc_weight=0.3"], ["--override", "freeze_quant=int4"],
 ], ids=str)
 def test_unported_train_cli_options_raise(flags, tmp_path):
     from agacs_tpu_torch.bin import train
 
     conf = os.path.join(REPO, "recipes", "seame", "conf",
                         "train_asr_whisper_small_adapter_csloss_2stage.yaml")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises((NotImplementedError, ValueError)):
         train.main(["--config", conf, "--train_dir", str(tmp_path), "--valid_dir",
                     str(tmp_path), "--exp_dir", str(tmp_path / "exp"), "--device", "cpu",
                     *flags])
