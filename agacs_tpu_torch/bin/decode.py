@@ -17,14 +17,17 @@ builds the quantised model and decodes on kernels K8 and K2; the config's
 `freeze_quant: int8` + `freeze_param` (what JAX's CLI keys on) and the npz
 must agree. The .trn files
 have the format `agacs_tpu.bin.score` reads. The decode YAML's keys
-apply as in JAX (`penalty` is the length bonus). CTC / LM fusion (a CTC
-head, or the YAML's ctc_weight / lm_weight) and int8 cross-KV are not
-ported yet and raise; the JAX CLI's LM and n-gram flags do not exist here.
+apply as in JAX (`penalty` is the length bonus). `--cross_kv_int8` stores
+the precomputed cross-attention K/V int8 (kernels K3-int8 / K3s-int8). A
+PE checkpoint (`pe_whisper` in the config) builds the PE model. CTC / LM
+fusion (a CTC head, or the YAML's ctc_weight / lm_weight) are not ported
+yet and raise; the JAX CLI's LM and n-gram flags do not exist here.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import logging
 import os
@@ -64,7 +67,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--compute_dtype", default="bfloat16",
                    choices=["bfloat16", "float32"])
     p.add_argument("--cross_kv_int8", action="store_true",
-                   help="int8 cross-attention K/V (not ported yet: raises)")
+                   help="store the precomputed cross-attention K/V int8 with "
+                        "per-channel scales (halves the bytes the decode "
+                        "step's cross-attention reads)")
     p.add_argument("--device", default="cuda")
     return p
 
@@ -94,11 +99,11 @@ def main(argv: list[str] | None = None) -> dict:
     if args.decode_config:
         weights = _apply_decode_config(
             args, args.decode_config, argv if argv is not None else sys.argv[1:])
-    if args.cross_kv_int8:
-        raise NotImplementedError("--cross_kv_int8 is not ported yet")
-
     raw = load_yaml(args.config)
     cfg = model_config_from_dict(raw, compute_dtype=getattr(torch, args.compute_dtype))
+    if args.cross_kv_int8:
+        cfg = dataclasses.replace(
+            cfg, whisper=dataclasses.replace(cfg.whisper, cross_kv_int8=True))
     tree = np.load(args.params)
     int8_conf = raw.get("freeze_quant") == "int8" and bool(raw.get("freeze_param"))
     if int8_conf != any(k.endswith("/w_q") for k in tree.files):

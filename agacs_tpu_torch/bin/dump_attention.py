@@ -2,7 +2,9 @@
 teacher-force each utterance's reference text (or, with --from_hyp, its
 greedy hypothesis) and write the per-layer, per-head decoder
 self-attention score maps, `<utt>.npz` (maps (L, h, T, T) pre-softmax,
--inf where causally masked; token_ids) and `<utt>.json` (tokens, shape).
+-inf where causally masked; a PE decoder's post-softmax mix, as the
+reference's PE block returns it; token_ids) and `<utt>.json` (tokens,
+shape).
 
   python -m agacs_tpu_torch.bin.dump_attention --config exp/x/config.yaml \\
       --params exp/x/valid.acc.ave.params.npz --data_dir data/dev \\

@@ -16,9 +16,11 @@ pass with CER/WER from the teacher-forced argmax. Writes `config.yaml`
 `valid.acc.ave.params.npz`, and `train_history.json`. The npz files hold
 the JAX package's flat layout, so `agacs_tpu` loads them too.
 
-The model is built in float32; the freeze preset's frozen Linear/Conv1d
-weights are then stored in the compute dtype, the trainable ones stay
-float32 masters. With `freeze_quant: int8` (and a freeze preset) the frozen
+The model is built in float32; the freeze preset's frozen parameters
+(linears, conv stem, layer norms, embeddings, PE gates) are then stored in
+the compute dtype, as JAX's `cast_frozen_params` stores them, the
+trainable ones stay float32 masters. The TMECS PE recipes (`pe_whisper`,
+presets `whisper_pe` / `freeze_decoder_pe`) train as any other. With `freeze_quant: int8` (and a freeze preset) the frozen
 trunk projections are then quantised to int8 (`Whisper.quantize_frozen_`,
 from the stored weights, as JAX does) and run kernels K8 and K2; the
 checkpoints hold them as `w_q`/`w_s`, which the decode CLI loads. Not

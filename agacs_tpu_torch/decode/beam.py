@@ -7,7 +7,9 @@ beams (`beam_groups = beam`: kernel K3s on the card). With `ancestry`
 (the default) the self-attention caches are never moved: the search
 reorders only the (1, B*beam, Tp) ancestry map, which the attention reads
 through (K3a). `ancestry=False` gathers the k/v buffers physically after
-every selection, the oracle path (plain-row K3 for the self-attention).
+every selection (a PE decoder's k_cs with them, as JAX's
+`decode/beam.py:105-111`), the oracle path (plain-row K3 for the
+self-attention).
 The hypothesis primer is the dual-language prompt
 `[50258, 50260, 50259, 50359, 50363]` (asr_inference.py:319-331).
 """

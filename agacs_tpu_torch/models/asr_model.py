@@ -4,6 +4,8 @@ training) -> Whisper encoder -> teacher-forced decoder with the language
 columns -> label-smoothed CE + CS loss.
 
   loss = loss_att;  with cs_weight: loss = cs_weight * loss_cs + loss_att
+  (loss_cs over the pre-softmax language columns, or the post-softmax
+  mixed ones for a PE decoder)
   (the reference overwrites the CTC mix here, espnet_model.py:694; the
   JAX package keeps that quirk at asr_model.py:247-248 and so does this
   port, though its CTC branch is not ported).
@@ -62,6 +64,16 @@ class ASRModelConfig:
     # (L, h) 0/1 head mask of the CS loss, tuple of tuples; None = the
     # reference's 50% mask for 12 x 12 decoders, all heads otherwise
     head_mask: tuple | None = None
+
+    def __post_init__(self):
+        if (self.cs_weight != 0.0 and self.cs_loss_type == "lid_ce"
+                and self.whisper.part("decoder").pe_attention):
+            # JAX asr_model.py:88-103: lid_ce reads pre-softmax maps, a PE
+            # decoder's are post-softmax
+            raise ValueError(
+                "cs_loss_type 'lid_ce' is incompatible with a pe_attention "
+                "decoder: the PE map collection is post-softmax; use "
+                "cs_loss_type 'attention' (p_cols) with PE decoders")
 
     def head_mask_array(self) -> np.ndarray:
         if self.head_mask is not None:
@@ -128,7 +140,10 @@ def forward(
     loss = loss_att
     if collect:
         head_mask = torch.from_numpy(cfg.head_mask_array()[cfg.src_layer - 1:])
-        loss_cs = cs_attention_loss(aux["qk_cols"], batch["cs_labels"],
+        # a PE decoder's CS loss reads the post-softmax mixed columns
+        # (JAX asr_model.py:238-242)
+        cols = aux["p_cols" if cfg.whisper.part("decoder").pe_attention else "qk_cols"]
+        loss_cs = cs_attention_loss(cols, batch["cs_labels"],
                                     head_mask.to(logits.device), cfg.c_val_attention,
                                     layer_offset=cfg.src_layer - 1)
         loss = cfg.cs_weight * loss_cs + loss_att

@@ -15,9 +15,10 @@ linear (in, out) <-> nn.Linear (out, in); conv (3, in, out) <-> nn.Conv1d
 (out, in, 3); stacked (L, ...) leaves <-> `blocks.{i}.*`. The int8 trunk
 (`train/trainer.py quantize_frozen_linears` in JAX) maps `.../w_q` (int8,
 JAX's (in, out) layout kept) and `.../w_s` (float32) to an `Int8Linear`'s
-`weight_q` / `weight_s` buffers, both ways, in their own dtypes.
-Checkpoints the port cannot run (serving-quantized `token_emb_q` /
-`logits_w_q`, PE attention, side networks) raise.
+`weight_q` / `weight_s` buffers, both ways, in their own dtypes. PE
+attention's `query_cs` / `key_cs` are linears like the others and its
+per-head `gate` a plain (n_head,) leaf. Checkpoints the port cannot run
+(serving-quantized `token_emb_q` / `logits_w_q`, side networks) raise.
 """
 
 from __future__ import annotations
@@ -37,7 +38,6 @@ from agacs_tpu_torch.models.whisper import (
 _UNSUPPORTED = {
     "token_emb_q": "serving-quantized token embeddings",
     "logits_w_q": "the int8 logits head",
-    "query_cs": "PE attention",
     "encoder_side": "side networks",
     "decoder_side": "side networks",
 }
@@ -60,7 +60,8 @@ def jax_leaf(name: str) -> tuple[str, int | None, str]:
     for a, b in _RENAME.items():
         path = path.replace(a, b)
     *mods, leaf = path.split(".")
-    leaf = {"weight": "w", "bias": "b", "weight_q": "w_q", "weight_s": "w_s"}[leaf]
+    leaf = {"weight": "w", "bias": "b", "weight_q": "w_q", "weight_s": "w_s",
+            "gate": "gate"}[leaf]
     layout = "plain"
     if leaf == "w" and mods[-1] in ("conv1", "conv2"):
         layout = "conv"

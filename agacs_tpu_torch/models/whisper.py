@@ -20,11 +20,13 @@ Counterparts of the JAX functions:
   precompute_cross_kv, init_self_kv_cache, whisper_decode_step -> functions
   of the same names
 
-Parameters are stored in `param_dtype` (default: the compute dtype, what
-the serving path loads). Training builds the model in float32 and casts
-only the frozen linears to the compute dtype (`Whisper.cast_frozen_`), so
-the trainable parameters stay float32 masters that each use casts, as JAX
-keeps trainable leaves float32 (`train/trainer.py:72-87`).
+Linear and conv parameters are stored in `param_dtype` (default: the
+compute dtype, what the serving path loads); layer norms, embeddings and
+the PE gate in float32. Training builds the model in float32 and casts
+every frozen parameter to the compute dtype (`Whisper.cast_frozen_`, JAX
+`cast_frozen_params`), so the trainable parameters stay float32 masters
+that each use casts, as JAX keeps trainable leaves float32
+(`train/trainer.py:72-87`).
 
 The int8 frozen trunk (JAX `freeze_quant: int8`): `Whisper.quantize_frozen_`
 replaces each frozen projection (query, key, value, out, fc1, fc2) with an
@@ -34,13 +36,20 @@ at least 256 rows and d, h multiples of 128, as JAX's `mlp_fwd` does.
 `from_state_dict` builds the same structure for a state dict holding
 `weight_q` buffers (a checkpoint trained that way).
 
+PE (gated dual-QK) attention (JAX `mha(pe=True)`, the TMECS `pe_whisper`
+recipes): a PE block's self-attention adds `query_cs`, `key_cs` and a
+per-head `gate`, and its scores are (1 - sigmoid(gate))·q.k +
+sigmoid(gate)·q_cs.k_cs; it bypasses K1 (plain full attention, as in JAX).
+`cross_kv_int8` stores the precomputed cross K/V int8 with per-channel
+scales (JAX `_quantize_kv`).
+
 On a CUDA tensor the encoder self-attention runs kernels K1f/K1b
 (`ops/flash_train.py`) and the decode step's self- and cross-attention
 run kernel K3 (`ops/decode_attn.py`); a beam step runs K3a (self, through
-the ancestry map) and K3s (cross, one shared cache per utterance). On a
-CPU tensor they take their plain versions. Configurations the port
-cannot run yet (PE attention, side networks, int8 cross-KV) raise when
-the model is built.
+the ancestry map) and K3s (cross, one shared cache per utterance). A PE
+decoder's self-attention runs K3-PE / K3a-PE, int8 cross-KV K3-int8 /
+K3s-int8. On a CPU tensor they take their plain versions. Side networks
+are not ported yet and raise when the model is built.
 """
 
 from __future__ import annotations
@@ -65,6 +74,8 @@ from agacs_tpu_torch.ops.decode_attn import (
     decode_cache_attention,
     decode_shared_cache_attention,
     pad_time,
+    TIME_ALIGN,
+    TIME_ALIGN_I8,
 )
 from agacs_tpu_torch.ops import int8_mlp
 from agacs_tpu_torch.ops.flash_train import packed_flash_mha
@@ -151,12 +162,8 @@ def make_config(model: str = "small", **overrides) -> WhisperConfig:
 
 def check_supported(cfg: WhisperConfig) -> None:
     """Raise for the configurations the port cannot run yet."""
-    if cfg.part("encoder").pe_attention or cfg.part("decoder").pe_attention:
-        raise NotImplementedError("PE (gated dual-QK) attention is not ported yet")
     if cfg.side_network is not None:
         raise NotImplementedError("side networks are not ported yet")
-    if cfg.cross_kv_int8:
-        raise NotImplementedError("int8 cross-KV (cross_kv_int8) is not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -165,11 +172,14 @@ def check_supported(cfg: WhisperConfig) -> None:
 
 
 class LayerNorm(nn.LayerNorm):
-    """float32 layer norm with float32 affine params, output cast back to
-    the input dtype (reference model.py:30-32)."""
+    """float32 layer norm with a float32 affine, output cast back to the
+    input dtype (reference model.py:30-32). An affine stored in bf16 (a
+    frozen one after `Whisper.cast_frozen_`) is read in float32, as JAX's
+    `layer_norm` promotes it."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.float()).to(x.dtype)
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight.float(),
+                            self.bias.float(), self.eps).to(x.dtype)
 
 
 def _as(p: torch.Tensor | None, dtype: torch.dtype) -> torch.Tensor | None:
@@ -190,8 +200,7 @@ class Linear(nn.Linear):
 
 # Frozen linears the int8 trunk quantises, by JAX module name (JAX
 # `train/trainer.py` QUANT_LINEAR_KEYS): the block projections; not the
-# adapters, the embedding/logits head or the conv stem. query_cs / key_cs
-# belong to PE attention, not ported.
+# adapters, the embedding/logits head or the conv stem.
 QUANT_LINEAR_KEYS = frozenset(
     {"query", "key", "value", "out", "fc1", "fc2", "query_cs", "key_cs"})
 
@@ -294,16 +303,27 @@ class MultiHeadAttention(nn.Module):
     on the packed (B, T, D) projections (kernels K1f/K1b on the card).
     Cross-attention (the teacher-forced form; the decode step has its own
     cached path) and the decoder's causal self-attention (`causal_self`)
-    are the head-split plain attention with d_head**-0.25 on q and k."""
+    are the head-split plain attention with d_head**-0.25 on q and k.
 
-    def __init__(self, d: int, n_head: int, dtype: torch.dtype, device=None):
+    With `pe` (JAX `_init_attn(pe=True)`): `query_cs` (with bias),
+    `key_cs` (without) and `gate` (n_head,) float32; the scores become
+    (1 - g)·q.k + g·q_cs.k_cs with g = sigmoid(gate) in float32 per head
+    (JAX `mha` :454-482), in the plain attention, for the encoder too."""
+
+    def __init__(self, d: int, n_head: int, dtype: torch.dtype, device=None,
+                 pe: bool = False):
         super().__init__()
         self.n_head = n_head
+        self.pe = pe
         kw = dict(dtype=dtype, device=device)
         self.query = Linear(d, d, **kw)
         self.key = Linear(d, d, bias=False, **kw)
         self.value = Linear(d, d, **kw)
         self.out = Linear(d, d, **kw)
+        if pe:
+            self.query_cs = Linear(d, d, **kw)
+            self.key_cs = Linear(d, d, bias=False, **kw)
+            self.gate = nn.Parameter(torch.zeros(n_head, device=device))
         self._fused: dict = {}  # concatenated int8 weights (`fused_linears`)
 
     def _project(self, x: torch.Tensor, xa: torch.Tensor | None = None):
@@ -314,7 +334,33 @@ class MultiHeadAttention(nn.Module):
         return (self.query(x),
                 *fused_linears(xa, [self.key, self.value], self._fused))
 
+    def gate_probs(self) -> torch.Tensor:
+        """sigmoid(gate) in float32 (n_head,), the PE mix weight per head."""
+        return torch.sigmoid(self.gate.float())
+
+    def _pe_attention(self, x: torch.Tensor, causal: bool):
+        """PE self-attention over x (B, T, d): (merged output before `out`,
+        mixed pre-softmax scores (B, h, T, T) float32, -inf where causally
+        masked, and their softmax)."""
+        sc = (x.shape[-1] // self.n_head) ** -0.25
+        q, k, v = self._project(x)
+        qk = torch.einsum("bhqd,bhkd->bhqk", split_heads(q, self.n_head) * sc,
+                          split_heads(k, self.n_head) * sc).float()
+        qk_cs = torch.einsum("bhqd,bhkd->bhqk",
+                             split_heads(self.query_cs(x), self.n_head) * sc,
+                             split_heads(self.key_cs(x), self.n_head) * sc).float()
+        g = self.gate_probs().view(1, -1, 1, 1)
+        qk = (1.0 - g) * qk + g * qk_cs
+        if causal:
+            t = qk.shape[-1]
+            qk = qk + torch.full((t, t), float("-inf"), device=qk.device).triu(1)
+        w = torch.softmax(qk, dim=-1)
+        vh = split_heads(v, self.n_head)
+        return merge_heads(torch.einsum("bhqk,bhkd->bhqd", w.to(vh.dtype), vh)), qk, w
+
     def forward(self, x: torch.Tensor, xa: torch.Tensor | None = None) -> torch.Tensor:
+        if self.pe:
+            return self.out(self._pe_attention(x, causal=False)[0])
         q, k, v = self._project(x, xa)
         attend = packed_flash_mha if xa is None else packed_mha
         return self.out(attend(q, k, v, self.n_head))
@@ -329,13 +375,23 @@ class MultiHeadAttention(nn.Module):
         "p_cols" = exp(qk_cols - lse), lse from `streaming_lse`, so no
         (T, T) map is kept for them. With `full_scores` the (T, T) scores
         are formed: "qk_full" (B, h, T, T), -inf where causally masked, and
-        the language columns are sliced from it and from its softmax."""
+        the language columns are sliced from it and from its softmax. A PE
+        block always forms the (T, T) mix: "qk_cols" and "p_cols" are its
+        columns before and after the softmax, "qk_full" the post-softmax
+        map (what the reference's PE block returns)."""
+        aux = {}
+        if self.pe:
+            o, qk, w = self._pe_attention(x, causal=True)
+            if lang_cols:
+                aux["qk_cols"], aux["p_cols"] = qk[..., 1:3], w[..., 1:3]
+            if full_scores:
+                aux["qk_full"] = w
+            return self.out(o), aux
         sc = (x.shape[-1] // self.n_head) ** -0.25
         q, k, v = self._project(x)
         qh = split_heads(q, self.n_head) * sc
         kh = split_heads(k, self.n_head) * sc
         vh = split_heads(v, self.n_head)
-        aux = {}
         if not full_scores:
             o = einsum_mha(qh, kh, vh, causal=True)
             if lang_cols:
@@ -380,7 +436,7 @@ class ResidualAttentionBlock(nn.Module):
         dtype = dtype or cfg.compute_dtype
         kw = dict(dtype=dtype, device=device)
         self.n_head = n_head
-        self.attn = MultiHeadAttention(d, n_head, dtype, device)
+        self.attn = MultiHeadAttention(d, n_head, dtype, device, pe=cfg.pe_attention)
         self.attn_ln = LayerNorm(d, device=device)
         self.cross_attn = MultiHeadAttention(d, n_head, dtype, device) if cross else None
         self.cross_attn_ln = LayerNorm(d, device=device) if cross else None
@@ -416,33 +472,49 @@ class ResidualAttentionBlock(nn.Module):
             x = self.adapter_mlp_ln(self.adapter_mlp(x))
         return x, aux
 
-    def step(self, h, pos: int, k_cache, v_cache, cross_k, cross_v, t_audio: int,
+    def step(self, h, pos: int, layer: int, self_kv: dict, cross_kv: dict,
              anc_local: torch.Tensor | None = None, beam_groups: int = 1):
-        """One decode token through this decoder block: h (N, d).
+        """One decode token through decoder block `layer`: h (N, d).
 
-        Writes this position's k/v row into the caches IN PLACE before the
-        attention reads them (write-first, as in the JAX step). With
-        `beam_groups` j > 1 the N = G*j rows are G utterances' beams: the
-        self-attention reads through `anc_local` (N, Tp) when given (K3a,
-        else its own rows) and the cross-attention reads each utterance's
-        un-repeated (G, Tp, d) cross-KV once for its j queries (K3s)."""
+        Writes this position's k/v (PE: and k_cs) row into the layer's
+        caches IN PLACE before the attention reads them (write-first, as in
+        the JAX step). With `beam_groups` j > 1 the N = G*j rows are G
+        utterances' beams: the self-attention reads through `anc_local`
+        (N, Tp) when given (K3a, else its own rows) and the cross-attention
+        reads each utterance's un-repeated (G, Tp, d) cross-KV once for its
+        j queries (K3s). A PE block passes q_cs, k_cs and sigmoid(gate)
+        (K3-PE / K3a-PE); int8 cross-KV passes its scales (K3-int8 /
+        K3s-int8)."""
         scale2 = (h.shape[-1] // self.n_head) ** -0.5
         a = self.attn
         y = self.attn_ln(h)
+        k_cache, v_cache = self_kv["k"][layer], self_kv["v"][layer]
         k_cache[:, pos] = a.key(y)
         v_cache[:, pos] = a.value(y)
+        pe = {}
+        if a.pe:
+            k_cs = self_kv["k_cs"][layer]
+            k_cs[:, pos] = a.key_cs(y)
+            pe = dict(q_cs=a.query_cs(y) * scale2, k_cs=k_cs, gate=a.gate_probs())
         o = decode_cache_attention(a.query(y) * scale2, k_cache, v_cache, pos,
-                                   self.n_head, anc_local=anc_local, beam=beam_groups)
+                                   self.n_head, anc_local=anc_local, beam=beam_groups, **pe)
         h = h + a.out(o)
         if self.adapter:
             h = self.adapter_attn_ln(self.adapter_attn(h))
         c = self.cross_attn
         qc = c.query(self.cross_attn_ln(h)) * scale2
+        cross_k, cross_v = cross_kv["k_packed"][layer], cross_kv["v_packed"][layer]
+        quant = {}
+        if "k_scale" in cross_kv:
+            quant = dict(k_scale=cross_kv["k_scale"][layer],
+                         v_scale=cross_kv["v_scale"][layer])
+        t_audio = cross_kv["t_audio"]
         if beam_groups > 1:
             oc = decode_shared_cache_attention(qc, cross_k, cross_v, t_audio - 1,
-                                               self.n_head, beam_groups)
+                                               self.n_head, beam_groups, **quant)
         else:
-            oc = decode_cache_attention(qc, cross_k, cross_v, t_audio - 1, self.n_head)
+            oc = decode_cache_attention(qc, cross_k, cross_v, t_audio - 1, self.n_head,
+                                        **quant)
         h = h + c.out(oc)
         h = h + self.mlp(self.mlp_ln(h))
         if self.adapter:
@@ -497,11 +569,12 @@ class WhisperEncoder(nn.Module):
 class WhisperDecoder(nn.Module):
     """Token/position embeddings, decoder blocks and the output head.
 
-    The embedding table stays float32 (emb + pos are added in float32
-    before the cast, as in JAX). The logits use the table in the compute
-    dtype (`logits_w`): a copy made once when weights are loaded while the
-    table is frozen, a cast in the forward when it trains, so the copy is
-    never stale."""
+    The embeddings are stored float32 (bf16 once `Whisper.cast_frozen_`
+    casts them frozen); emb + pos are added in their stored dtype before
+    the cast to the compute dtype, as in JAX (`embed`). The logits use the
+    table in the compute dtype (`logits_w`): a copy made once when weights
+    are loaded while the table is frozen, a cast in the forward when it
+    trains, so the copy is never stale."""
 
     def __init__(self, cfg: WhisperConfig, device=None,
                  dtype: torch.dtype | None = None):
@@ -522,6 +595,13 @@ class WhisperDecoder(nn.Module):
         self.cast_logits_weight()
         self.register_load_state_dict_post_hook(
             lambda module, _keys: module.cast_logits_weight())
+
+    def embed(self, tokens: torch.Tensor, pos) -> torch.Tensor:
+        """token_emb[tokens] + pos_emb[pos] in the stored dtypes (two bf16
+        leaves sum in bf16, as JAX's `whisper_decode` :815 and
+        `whisper_decode_step` :1122 do), then the compute dtype."""
+        x = self.token_embedding(tokens) + self.positional_embedding[pos]
+        return x.to(self.cfg.compute_dtype)
 
     def cast_logits_weight(self) -> None:
         w = self.token_embedding.weight
@@ -563,15 +643,14 @@ class Whisper(nn.Module):
         return model.eval()
 
     def cast_frozen_(self, dtype: torch.dtype) -> "Whisper":
-        """Store the frozen (requires_grad False) Linear and Conv1d
-        parameters in `dtype`, IN PLACE: the serving dtypes for the frozen
-        trunk, float32 masters for what trains (JAX `cast_frozen_params`;
-        layer norms and embeddings stay float32 as in serving)."""
-        for mod in self.modules():
-            if isinstance(mod, (nn.Linear, nn.Conv1d)):
-                for p in mod.parameters(recurse=False):
-                    if not p.requires_grad:
-                        p.data = p.data.to(dtype)
+        """Store every frozen (requires_grad False) float32 parameter in
+        `dtype`, IN PLACE, as JAX's `cast_frozen_params` stores every frozen
+        float32 leaf (`train/trainer.py:72-87`): linears, the conv stem,
+        layer norms, the embeddings and the PE gate. What trains stays a
+        float32 master."""
+        for p in self.parameters():
+            if not p.requires_grad and p.dtype == torch.float32:
+                p.data = p.data.to(dtype)
         return self
 
     def _int8_sites(self):
@@ -634,12 +713,12 @@ def whisper_decode(
     pre-softmax self-attention scores at the language columns 1:3, -inf
     where causally masked, and with `need_probs` aux["p_cols"], the same
     columns after the softmax; with `collect_full_maps`, aux["maps"]
-    (L', B, h, T, T), the pre-softmax scores, -inf where masked."""
+    (L', B, h, T, T), the pre-softmax scores, -inf where masked. A PE
+    decoder always returns "p_cols" with its columns (the CS loss reads
+    them), and its "maps" are post-softmax (JAX :479-481, :863-864)."""
     dec = model.decoder
-    dtype = model.cfg.compute_dtype
-    t = tokens.shape[1]
-    x = (dec.token_embedding(tokens) + dec.positional_embedding[:t]).to(dtype)
-    xa = audio_feats.to(dtype)
+    x = dec.embed(tokens, slice(0, tokens.shape[1]))
+    xa = audio_feats.to(model.cfg.compute_dtype)
     auxs = []
     for block in dec.blocks:
         x, a = block(x, xa, lang_cols=collect_lang_cols, need_probs=need_probs,
@@ -653,7 +732,7 @@ def whisper_decode(
     aux = {}
     if collect_lang_cols:
         aux["qk_cols"] = stacked("qk_cols")
-        if need_probs:
+        if need_probs or model.cfg.part("decoder").pe_attention:
             aux["p_cols"] = stacked("p_cols")
     if collect_full_maps:
         aux["maps"] = stacked("qk_full")
@@ -668,8 +747,9 @@ def encoder_olens(ilens_frames: torch.Tensor, cfg: WhisperConfig) -> torch.Tenso
 def init_whisper_params(generator: torch.Generator, cfg: WhisperConfig) -> dict:
     """Random float32 state dict (CPU) with the JAX init's distributions:
     linears uniform(±1/sqrt(d_in)), layer norms 1/0, conv stem
-    normal/sqrt(3·d_in) with zero bias, token_emb normal·0.02, pos_emb
-    normal·0.01. Numbers differ from the JAX init (another generator)."""
+    normal/sqrt(3·d_in) with zero bias, PE gates uniform(0, 1), token_emb
+    normal·0.02, pos_emb normal·0.01. Numbers differ from the JAX init
+    (another generator)."""
     sd = {}
     meta = Whisper(cfg, device="meta")
     for name, mod in meta.named_modules():
@@ -689,6 +769,8 @@ def init_whisper_params(generator: torch.Generator, cfg: WhisperConfig) -> dict:
             sd[pre + "weight"] = torch.randn(mod.weight.shape, generator=generator) \
                 / math.sqrt(w * c_in)
             sd[pre + "bias"] = torch.zeros(c_out)
+        elif isinstance(mod, MultiHeadAttention) and mod.pe:
+            sd[pre + "gate"] = torch.rand(mod.n_head, generator=generator)
     sd["decoder.token_embedding.weight"] = torch.randn(
         cfg.n_vocab, cfg.n_text_state, generator=generator) * 0.02
     sd["decoder.positional_embedding"] = torch.randn(
@@ -701,20 +783,45 @@ def init_whisper_params(generator: torch.Generator, cfg: WhisperConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """JAX `_quantize_kv` (:925-932): symmetric per-channel int8 of a
+    (B, T, d) buffer, one scale per channel over the whole batch and every
+    (padded) time row: max |x| / 127 floored at 1e-8, round half to even,
+    clipped to +-127. -> (int8 values, (d,) float32 scales)."""
+    xf = x.float()
+    # a tensor divisor: PyTorch's CUDA division by a Python scalar
+    # multiplies by its reciprocal, which can miss the quotient by an ulp
+    s = torch.clamp(xf.abs().amax(dim=(0, 1)) / torch.full((), 127.0, device=x.device),
+                    min=1e-8)
+    return torch.clamp(torch.round(xf / s), -127.0, 127.0).to(torch.int8), s
+
+
 def precompute_cross_kv(model: Whisper, audio_feats: torch.Tensor) -> dict:
     """Per-layer cross-attention K/V, computed once per utterance batch:
     packed (B, Tp, d) buffers, k unscaled (the step's query carries
     d_head**-0.5), time zero-padded to `pad_time` (the step masks the pad
-    with pos = T_audio - 1)."""
+    with pos = T_audio - 1). With `cross_kv_int8` the padded buffers are
+    stored int8 (Tp a multiple of TIME_ALIGN_I8, 750 -> 768) beside
+    per-layer "k_scale" / "v_scale" (JAX :951-985)."""
     cfg = model.cfg
     xa = audio_feats.to(cfg.compute_dtype)
     t_audio = xa.shape[1]
-    pad = pad_time(t_audio) - t_audio
-    ks, vs = [], []
+    int8 = cfg.cross_kv_int8
+    pad = pad_time(t_audio, TIME_ALIGN_I8 if int8 else TIME_ALIGN) - t_audio
+    ks, vs, k_scales, v_scales = [], [], [], []
     for block in model.decoder.blocks:
-        ks.append(F.pad(block.cross_attn.key(xa), (0, 0, 0, pad)))
-        vs.append(F.pad(block.cross_attn.value(xa), (0, 0, 0, pad)))
-    return {"k_packed": tuple(ks), "v_packed": tuple(vs), "t_audio": t_audio}
+        k = F.pad(block.cross_attn.key(xa), (0, 0, 0, pad))
+        v = F.pad(block.cross_attn.value(xa), (0, 0, 0, pad))
+        if int8:
+            (k, s_k), (v, s_v) = quantize_kv(k), quantize_kv(v)
+            k_scales.append(s_k)
+            v_scales.append(s_v)
+        ks.append(k)
+        vs.append(v)
+    out = {"k_packed": tuple(ks), "v_packed": tuple(vs), "t_audio": t_audio}
+    if int8:
+        out.update(k_scale=tuple(k_scales), v_scale=tuple(v_scales))
+    return out
 
 
 def init_self_kv_cache(cfg: WhisperConfig, batch: int, max_len: int | None = None,
@@ -723,7 +830,8 @@ def init_self_kv_cache(cfg: WhisperConfig, batch: int, max_len: int | None = Non
     rows past the current position are never read. With `ancestry`, also
     "anc" (1, batch, Tp) int32: anc[0, i, t] is the physical row holding
     position t of row i's hypothesis (JAX :1041-1050), initially i. Beam
-    search reorders this map instead of gathering the k/v buffers."""
+    search reorders this map instead of gathering the k/v buffers. A PE
+    decoder also gets "k_cs", its second key cache (JAX :1039-1040)."""
     max_len = pad_time(max_len or cfg.n_text_ctx)
 
     def bufs():
@@ -734,6 +842,8 @@ def init_self_kv_cache(cfg: WhisperConfig, batch: int, max_len: int | None = Non
         )
 
     cache = {"k": bufs(), "v": bufs()}
+    if cfg.part("decoder").pe_attention:
+        cache["k_cs"] = bufs()
     if ancestry:
         cache["anc"] = torch.arange(batch, dtype=torch.int32, device=device)[
             None, :, None].expand(1, batch, max_len).contiguous()
@@ -751,7 +861,7 @@ def whisper_decode_step(
     """One KV-cached decode step (`whisper_decode_step` :1066).
 
     tokens (N,) ids at position `pos` (a Python int). Updates `self_kv`
-    IN PLACE (row `pos` of every layer's k/v, and of "anc" when present)
+    IN PLACE (row `pos` of every layer's k/v and k_cs, and of "anc" when present)
     and returns it with the (N, n_vocab) float32 logits.
 
     beam_groups j > 1: the N = B*j rows are B utterances' beams and
@@ -759,8 +869,7 @@ def whisper_decode_step(
     self-attention reads through "anc" when the cache has one."""
     dec = model.decoder
     n = tokens.shape[0]
-    x = (dec.token_embedding.weight[tokens] + dec.positional_embedding[pos])
-    h = x.to(model.cfg.compute_dtype)
+    h = dec.embed(tokens, pos)
     anc_local = None
     anc = self_kv.get("anc")
     if anc is not None:
@@ -771,8 +880,6 @@ def whisper_decode_step(
         if beam_groups > 1:
             anc_local = anc[0] % beam_groups
     for l, block in enumerate(dec.blocks):
-        h = block.step(h, pos, self_kv["k"][l], self_kv["v"][l],
-                       cross_kv["k_packed"][l], cross_kv["v_packed"][l],
-                       cross_kv["t_audio"], anc_local, beam_groups)
+        h = block.step(h, pos, l, self_kv, cross_kv, anc_local, beam_groups)
     h = dec.ln(h)
     return F.linear(h, dec.logits_w()).float(), self_kv

@@ -1,6 +1,6 @@
 """Decode-step cache attention (counterpart of `agacs_tpu/ops/decode_attn.py`
-`decode_cache_attention` and `decode_shared_cache_attention`; kernels K3,
-K3a and K3s).
+`decode_cache_attention` and `decode_shared_cache_attention`; kernel K3
+and its variants).
 
 One query token per row attends over a (Tp, d) K/V cache, keys 0..pos.
 q is pre-scaled by d_head**-0.5; caches are raw, with Tp % TIME_ALIGN == 0
@@ -12,11 +12,23 @@ nothing but the bytes read.
   decode_cache_attention          K3: row n over its own cache row n;
                                   K3a (anc_local, beam j > 1): row n of
                                   group g = n // j reads position t from
-                                  the physical row g*j + anc_local[n, t]
+                                  the physical row g*j + anc_local[n, t];
+                                  PE (q_cs, k_cs, gate): scores
+                                  (1 - g_h)·q.k + g_h·q_cs.k_cs per head h
+                                  over a third cache (K3-PE, K3a-PE);
+                                  int8 (k_scale, v_scale): int8 caches with
+                                  per-channel scales (K3-int8, K3a-int8)
   decode_shared_cache_attention   K3s: the j beam queries of group g over
-                                  ONE shared (Tp, d) cache (cross-KV)
+                                  ONE shared (Tp, d) cache (cross-KV);
+                                  int8 caches with scales (K3s-int8)
 
-The PE gate mix and int8 caches are not ported yet and raise.
+The int8 kernels fold the scales as the TPU kernel does: q·s_k is formed
+in float32 and rounded to bf16 before the dot (int8 -> bf16 is exact), p
+is normalised and then rounded to bf16, and s_v multiplies the float32
+value sum. `decode_cache_attention_int8_ref` /
+`decode_shared_cache_attention_int8_ref` compute exactly that; JAX's own
+oracle, which dequantises the caches to the query's dtype first, is
+`decode_cache_attention_ref(..., k_scale=, v_scale=)`.
 
 Each wrapper takes its plain version for a CPU tensor and launches its
 kernel for a CUDA tensor (or raises): there is no fallback.
@@ -31,6 +43,7 @@ import torch
 from agacs_tpu_torch.ops import cuda_lib
 
 TIME_ALIGN = 16  # cache time axis padding (the JAX bf16 sublane tile)
+TIME_ALIGN_I8 = 32  # int8 cross-KV caches (the JAX int8 sublane tile)
 D_HEAD = 64
 MAX_KEYS = 8192  # K3 keeps pos+1 f32 scores in shared memory
 # K3a keeps pos+1 f32 scores and pos+1 int32 rows in the 48 KB of shared
@@ -45,30 +58,81 @@ MAX_SHARED_SMEM = 200 * 1024
 # kernel launches since the last reset (chip_smoke.py reads them)
 LAUNCHES = 0  # K3
 ANC_LAUNCHES = 0  # K3a
+PE_LAUNCHES = 0  # K3-PE
+ANC_PE_LAUNCHES = 0  # K3a-PE
+I8_LAUNCHES = 0  # K3-int8
+ANC_I8_LAUNCHES = 0  # K3a-int8
 SHARED_LAUNCHES = 0  # K3s
+SHARED_I8_LAUNCHES = 0  # K3s-int8
+# (ancestry, PE, int8) -> the counter of that kernel
+_COUNTER = {(False, False, False): "LAUNCHES", (True, False, False): "ANC_LAUNCHES",
+            (False, True, False): "PE_LAUNCHES", (True, True, False): "ANC_PE_LAUNCHES",
+            (False, False, True): "I8_LAUNCHES", (True, False, True): "ANC_I8_LAUNCHES"}
 
 
 def pad_time(t: int, align: int = TIME_ALIGN) -> int:
     return -(-t // align) * align
 
 
-def decode_cache_attention_ref(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: int, n_head: int
-) -> torch.Tensor:
-    """Plain version (JAX `decode_cache_attention_ref`, plain rows): scores
-    in the cache dtype, keys past pos masked with -1e30, float32 softmax,
-    weights cast back for the value sum."""
+def dequantize_kv(x: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """int8 cache x per-channel scale, in float32, then `dtype` (JAX's
+    oracle form, `decode_attn.py:762-768`)."""
+    return (x.float() * scale.float()).to(dtype)
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor, n_head: int) -> torch.Tensor:
+    """(N, d) q . (N, Tp, d) k per head -> (N, Tp, h) float32, the product
+    in the cache dtype (JAX's oracle einsum)."""
     n, tp, d = k.shape
     dh = d // n_head
-    s = torch.einsum(
-        "nhc,nthc->nth", q.reshape(n, n_head, dh).to(k.dtype),
-        k.reshape(n, tp, n_head, dh),
-    ).float()
-    t_ids = torch.arange(tp, device=k.device)[None, :, None]
-    s = torch.where(t_ids <= pos, s, torch.full_like(s, -1.0e30))
-    p = torch.softmax(s, dim=1)
-    o = torch.einsum("nth,nthc->nhc", p.to(v.dtype), v.reshape(n, tp, n_head, dh))
+    return torch.einsum("nhc,nthc->nth", q.reshape(n, n_head, dh).to(k.dtype),
+                        k.reshape(n, tp, n_head, dh)).float()
+
+
+def _masked_softmax(s: torch.Tensor, pos: int, axis: int) -> torch.Tensor:
+    t_ids = torch.arange(s.shape[axis], device=s.device).reshape(
+        [-1 if i == axis else 1 for i in range(s.dim())])
+    return torch.softmax(torch.where(t_ids <= pos, s, torch.full_like(s, -1.0e30)), dim=axis)
+
+
+def decode_cache_attention_ref(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: int, n_head: int,
+    q_cs: torch.Tensor | None = None, k_cs: torch.Tensor | None = None,
+    gate: torch.Tensor | None = None, k_scale: torch.Tensor | None = None,
+    v_scale: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Plain version (JAX `decode_cache_attention_ref`, plain rows): scores
+    in the cache dtype, with PE mixed (1 - g)·s + g·s_cs in float32 per
+    head; keys past pos masked with -1e30, float32 softmax, weights cast
+    back for the value sum. With `k_scale`/`v_scale` the int8 caches are
+    first dequantised to q's dtype (JAX's oracle, not the kernel's
+    folding: that is `decode_cache_attention_int8_ref`)."""
+    if k_scale is not None:
+        k, v = dequantize_kv(k, k_scale, q.dtype), dequantize_kv(v, v_scale, q.dtype)
+    n, tp, d = k.shape
+    s = _scores(q, k, n_head)
+    if q_cs is not None:
+        g = gate.float()
+        s = (1.0 - g) * s + g * _scores(q_cs, k_cs, n_head)
+    p = _masked_softmax(s, pos, 1)
+    o = torch.einsum("nth,nthc->nhc", p.to(v.dtype), v.reshape(n, tp, n_head, -1))
     return o.reshape(n, d).to(q.dtype)
+
+
+def decode_cache_attention_int8_ref(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: int, n_head: int,
+    k_scale: torch.Tensor, v_scale: torch.Tensor,
+) -> torch.Tensor:
+    """Plain version of K3-int8 (the TPU kernel's folding, `_make_kernel`
+    quant, `decode_attn.py:185-194`, `:257-263`): bf16(q·s_k) dotted with
+    the int8 keys in float32, float32 softmax, p rounded to bf16 after
+    normalising, the float32 value sum times s_v, then q's dtype."""
+    n, tp, d = k.shape
+    qs = (q.float() * k_scale.float()).to(torch.bfloat16).float()
+    s = _scores(qs, k.float(), n_head)
+    p = _masked_softmax(s, pos, 1).to(torch.bfloat16).float()
+    o = torch.einsum("nth,nthc->nhc", p, v.float().reshape(n, tp, n_head, -1))
+    return (o.reshape(n, d) * v_scale.float()).to(q.dtype)
 
 
 def gather_ancestry(x: torch.Tensor, anc_local: torch.Tensor, beam: int) -> torch.Tensor:
@@ -83,49 +147,119 @@ def gather_ancestry(x: torch.Tensor, anc_local: torch.Tensor, beam: int) -> torc
 
 def decode_cache_attention_anc_ref(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: int, n_head: int,
-    anc_local: torch.Tensor, beam: int,
+    anc_local: torch.Tensor, beam: int, q_cs: torch.Tensor | None = None,
+    k_cs: torch.Tensor | None = None, gate: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Plain version of K3a (JAX `decode_cache_attention_ref` with
-    `anc_local`): the group's rows gathered through the map, then the
-    plain-row math. JAX resolves the map with a one-hot mix 1.0*x + 0.0*y,
-    which is exact on finite caches, so the gather gives its numbers."""
-    return decode_cache_attention_ref(
-        q, gather_ancestry(k, anc_local, beam), gather_ancestry(v, anc_local, beam),
-        pos, n_head)
+    """Plain version of K3a and K3a-PE (JAX `decode_cache_attention_ref`
+    with `anc_local`): the group's rows of every cache (k_cs too) gathered
+    through the map, then the plain-row math. JAX resolves the map with a
+    one-hot mix 1.0*x + 0.0*y, which is exact on finite caches, so the
+    gather gives its numbers."""
+    if k_cs is not None:
+        k_cs = gather_ancestry(k_cs, anc_local, beam)
+    return decode_cache_attention_ref(q, gather_ancestry(k, anc_local, beam),
+                                      gather_ancestry(v, anc_local, beam), pos, n_head,
+                                      q_cs, k_cs, gate)
 
 
 def decode_shared_cache_attention_ref(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: int, n_head: int,
-    beam: int,
+    beam: int, k_scale: torch.Tensor | None = None, v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Plain version of K3s (JAX `decode_shared_cache_attention_ref`):
-    (G*beam, d) group-major queries over (G, Tp, d) caches."""
+    (G*beam, d) group-major queries over (G, Tp, d) caches; int8 caches
+    dequantised to q's dtype first, as JAX's oracle does."""
+    if k_scale is not None:
+        k, v = dequantize_kv(k, k_scale, q.dtype), dequantize_kv(v, v_scale, q.dtype)
     g, tp, d = k.shape
     dh = d // n_head
     s = torch.einsum(
         "gjhc,gthc->gjth", q.reshape(g, beam, n_head, dh).to(k.dtype),
         k.reshape(g, tp, n_head, dh),
     ).float()
-    t_ids = torch.arange(tp, device=k.device)[None, None, :, None]
-    s = torch.where(t_ids <= pos, s, torch.full_like(s, -1.0e30))
-    p = torch.softmax(s, dim=2)
+    p = _masked_softmax(s, pos, 2)
     o = torch.einsum("gjth,gthc->gjhc", p.to(v.dtype), v.reshape(g, tp, n_head, dh))
     return o.reshape(g * beam, d).to(q.dtype)
 
 
-def _check_kernel_inputs(what: str, n_head: int, d: int, tensors) -> None:
-    """What every decode kernel takes: bf16, one device, contiguous,
-    16-byte aligned, d_head 64."""
+def decode_shared_cache_attention_int8_ref(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: int, n_head: int,
+    beam: int, k_scale: torch.Tensor, v_scale: torch.Tensor,
+) -> torch.Tensor:
+    """Plain version of K3s-int8 (`_make_kernel_shared` quant,
+    `decode_attn.py:863-895`): the folding of
+    `decode_cache_attention_int8_ref` with the group's j queries over one
+    shared cache."""
+    g, tp, d = k.shape
+    dh = d // n_head
+    qs = (q.float() * k_scale.float()).to(torch.bfloat16).float()
+    s = torch.einsum("gjhc,gthc->gjth", qs.reshape(g, beam, n_head, dh),
+                     k.float().reshape(g, tp, n_head, dh))
+    p = _masked_softmax(s, pos, 2).to(torch.bfloat16).float()
+    o = torch.einsum("gjth,gthc->gjhc", p, v.float().reshape(g, tp, n_head, dh))
+    return (o.reshape(g * beam, d) * v_scale.float()).to(q.dtype)
+
+
+def decode_cache_attention_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: int, n_head: int, *,
+    anc_local: torch.Tensor | None = None, beam: int = 1,
+    q_cs: torch.Tensor | None = None, k_cs: torch.Tensor | None = None,
+    gate: torch.Tensor | None = None, k_scale: torch.Tensor | None = None,
+    v_scale: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The plain version of the kernel `decode_cache_attention` launches for
+    these arguments (what it runs for a CPU tensor); K3a-int8's is K3-int8's
+    over the caches gathered through the map."""
+    anc = anc_local is not None and beam > 1
+    if k_scale is not None:
+        if anc:
+            k, v = gather_ancestry(k, anc_local, beam), gather_ancestry(v, anc_local, beam)
+        return decode_cache_attention_int8_ref(q, k, v, pos, n_head, k_scale, v_scale)
+    if anc:
+        return decode_cache_attention_anc_ref(q, k, v, pos, n_head, anc_local, beam,
+                                              q_cs, k_cs, gate)
+    return decode_cache_attention_ref(q, k, v, pos, n_head, q_cs, k_cs, gate)
+
+
+def decode_shared_cache_attention_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: int, n_head: int,
+    beam: int, *, k_scale: torch.Tensor | None = None,
+    v_scale: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The plain version of K3s or K3s-int8 (what
+    `decode_shared_cache_attention` runs for a CPU tensor)."""
+    if k_scale is not None:
+        return decode_shared_cache_attention_int8_ref(q, k, v, pos, n_head, beam,
+                                                      k_scale, v_scale)
+    return decode_shared_cache_attention_ref(q, k, v, pos, n_head, beam)
+
+
+def _check_kernel_inputs(what: str, n_head: int, d: int, tensors,
+                         cache_dtype: torch.dtype = torch.bfloat16) -> None:
+    """What every decode kernel takes: bf16 queries, bf16 or int8 caches,
+    f32 scales and gate, one device, contiguous, 16-byte aligned, d_head 64."""
     dev = tensors[0][1].device
     for name, x in tensors:
-        if x.dtype != torch.bfloat16 or x.device != dev:
+        want = {"k": cache_dtype, "v": cache_dtype, "gate": torch.float32,
+                "k_scale": torch.float32, "v_scale": torch.float32}.get(name, torch.bfloat16)
+        if x.dtype != want or x.device != dev:
             raise ValueError(f"{what}: {name} is {x.dtype} on {x.device}; the "
-                             f"kernel takes bfloat16 on {dev}")
+                             f"kernel takes {want} on {dev}")
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"{what}: {name} must be contiguous and 16-byte aligned")
     if d != n_head * D_HEAD:
         raise ValueError(f"{what}: d {d} != {n_head} heads x {D_HEAD}; the kernel "
                          f"takes d_head = {D_HEAD}")
+
+
+def _check_scales(what: str, k: torch.Tensor, k_scale, v_scale) -> None:
+    """int8 caches: int8 k/v, (d,) scales, Tp a multiple of TIME_ALIGN_I8."""
+    tp, d = k.shape[1:]
+    if k.dtype != torch.int8 or k_scale.shape != (d,) or v_scale.shape != (d,):
+        raise ValueError(f"{what}: int8 caches take (d,) scales; k is {k.dtype}, "
+                         f"scales {tuple(k_scale.shape)} {tuple(v_scale.shape)}")
+    if tp % TIME_ALIGN_I8:
+        raise ValueError(f"{what}: Tp {tp} is not a multiple of {TIME_ALIGN_I8}")
 
 
 def _device_path(what: str, q: torch.Tensor) -> bool:
@@ -136,6 +270,10 @@ def _device_path(what: str, q: torch.Tensor) -> bool:
     if q.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {q.device}")
     return True
+
+
+def _ptr(x: torch.Tensor | None) -> int | None:
+    return None if x is None else x.data_ptr()
 
 
 def decode_cache_attention(
@@ -159,10 +297,14 @@ def decode_cache_attention(
     With `anc_local` (N, Tp) int32 in [0, beam) and beam > 1, row n reads
     position t from row (n // beam) * beam + anc_local[n, t] (K3a; a value
     outside [0, beam) is clamped into it, so no row reads outside its
-    group); otherwise each row reads its own cache row (K3)."""
-    if q_cs is not None or k_scale is not None:
-        raise NotImplementedError(
-            "decode_cache_attention: the PE and int8 variants are not ported yet")
+    group); otherwise each row reads its own cache row (K3). PE: q_cs (N,
+    d), k_cs (N, Tp, d) read through the same map, gate (h,) float32
+    post-sigmoid. int8: k/v int8 with (d,) float32 k_scale/v_scale and
+    Tp % TIME_ALIGN_I8 == 0. PE and int8 together raise, as JAX asserts."""
+    pe, quant = q_cs is not None, k_scale is not None
+    if pe and quant:
+        raise ValueError("decode_cache_attention: int8 caches are unsupported "
+                         "for the PE variant")
     n, tp, d = k.shape
     if not 0 <= pos < tp:
         raise ValueError(f"decode_cache_attention: pos {pos} outside [0, {tp})")
@@ -171,44 +313,44 @@ def decode_cache_attention(
         raise ValueError(f"decode_cache_attention: {n} rows in groups of {beam}, "
                          f"anc_local {tuple(anc_local.shape)} (want {(n, tp)})")
     if not _device_path("decode_cache_attention", q):
-        if anc:
-            return decode_cache_attention_anc_ref(q, k, v, pos, n_head, anc_local, beam)
-        return decode_cache_attention_ref(q, k, v, pos, n_head)
+        return decode_cache_attention_plain(q, k, v, pos, n_head, anc_local=anc_local,
+                                            beam=beam, q_cs=q_cs, k_cs=k_cs, gate=gate,
+                                            k_scale=k_scale, v_scale=v_scale)
     if q.shape != (n, d) or v.shape != k.shape:
         raise ValueError(f"decode_cache_attention: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    _check_kernel_inputs("decode_cache_attention", n_head, d,
-                         (("q", q), ("k", k), ("v", v)))
+    ins = [("q", q), ("k", k), ("v", v)]
+    if pe:
+        if q_cs.shape != q.shape or k_cs.shape != k.shape or gate.shape != (n_head,):
+            raise ValueError(f"decode_cache_attention: q_cs {tuple(q_cs.shape)}, k_cs "
+                             f"{tuple(k_cs.shape)}, gate {tuple(gate.shape)}")
+        ins += [("q_cs", q_cs), ("k_cs", k_cs), ("gate", gate)]
+    if quant:
+        _check_scales("decode_cache_attention", k, k_scale, v_scale)
+        ins += [("k_scale", k_scale), ("v_scale", v_scale)]
+    _check_kernel_inputs("decode_cache_attention", n_head, d, ins,
+                         torch.int8 if quant else torch.bfloat16)
     max_keys = MAX_ANC_KEYS if anc else MAX_KEYS
     if pos + 1 > max_keys:
         raise ValueError(f"decode_cache_attention: pos + 1 = {pos + 1} keys "
                          f"exceed the kernel's {max_keys}")
-    o = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    global LAUNCHES, ANC_LAUNCHES
-    if not anc:
-        fn = cuda_lib.load(
-            "decode_attn", "decode_attn_fwd",
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
-        )
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                n, tp, n_head, pos, stream)
-        cuda_lib.check(rc, "decode_attn_fwd")
-        LAUNCHES += 1
-        return o
-    if (anc_local.dtype != torch.int32 or anc_local.device != q.device
-            or not anc_local.is_contiguous()):
+    if anc and (anc_local.dtype != torch.int32 or anc_local.device != q.device
+                or not anc_local.is_contiguous()):
         raise ValueError(f"decode_cache_attention: anc_local is {anc_local.dtype} on "
                          f"{anc_local.device}; the kernel takes contiguous int32 "
                          f"on {q.device}")
+    o = torch.empty_like(q)
     fn = cuda_lib.load(
-        "decode_attn", "decode_attn_anc_fwd",
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+        "decode_attn", "decode_attn_fwd",
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     )
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), anc_local.data_ptr(),
-            o.data_ptr(), n, tp, n_head, pos, beam, stream)
-    cuda_lib.check(rc, "decode_attn_anc_fwd")
-    ANC_LAUNCHES += 1
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(anc_local if anc else None),
+            _ptr(q_cs), _ptr(k_cs), _ptr(gate), _ptr(k_scale), _ptr(v_scale),
+            o.data_ptr(), n, tp, n_head, pos, beam if anc else 1,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    cuda_lib.check(rc, "decode_attn_fwd")
+    counter = _COUNTER[(anc, pe, quant)]
+    globals()[counter] += 1
     return o
 
 
@@ -226,10 +368,9 @@ def decode_shared_cache_attention(
     """Grouped masked cache attention: (G*beam, d) queries over (G, Tp, d)
     shared caches -> (G*beam, d). Rows are group-major (row g*beam + i is
     utterance g's beam slot i); keys t > pos are masked (pass T_audio - 1
-    to mask the time padding)."""
-    if k_scale is not None:
-        raise NotImplementedError(
-            "decode_shared_cache_attention: int8 caches are not ported yet")
+    to mask the time padding). int8 caches: (d,) float32 k_scale/v_scale
+    (K3s-int8)."""
+    quant = k_scale is not None
     g, tp, d = k.shape
     if not 0 <= pos < tp:
         raise ValueError(f"decode_shared_cache_attention: pos {pos} outside [0, {tp})")
@@ -237,9 +378,14 @@ def decode_shared_cache_attention(
         raise ValueError(f"decode_shared_cache_attention: q {tuple(q.shape)} for "
                          f"{g} groups of {beam}, k {tuple(k.shape)}, v {tuple(v.shape)}")
     if not _device_path("decode_shared_cache_attention", q):
-        return decode_shared_cache_attention_ref(q, k, v, pos, n_head, beam)
-    _check_kernel_inputs("decode_shared_cache_attention", n_head, d,
-                         (("q", q), ("k", k), ("v", v)))
+        return decode_shared_cache_attention_plain(q, k, v, pos, n_head, beam,
+                                                   k_scale=k_scale, v_scale=v_scale)
+    ins = [("q", q), ("k", k), ("v", v)]
+    if quant:
+        _check_scales("decode_shared_cache_attention", k, k_scale, v_scale)
+        ins += [("k_scale", k_scale), ("v_scale", v_scale)]
+    _check_kernel_inputs("decode_shared_cache_attention", n_head, d, ins,
+                         torch.int8 if quant else torch.bfloat16)
     smem = beam * (pos + 1 + SHARED_WARPS * D_HEAD) * 4
     if not 1 <= beam <= MAX_BEAM or smem > MAX_SHARED_SMEM:
         raise ValueError(f"decode_shared_cache_attention: beam {beam} x {pos + 1} keys "
@@ -248,11 +394,15 @@ def decode_shared_cache_attention(
     o = torch.empty_like(q)
     fn = cuda_lib.load(
         "decode_attn", "decode_attn_shared_fwd",
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     )
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), g, tp, n_head,
-            pos, beam, torch.cuda.current_stream(q.device).cuda_stream)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(k_scale), _ptr(v_scale),
+            o.data_ptr(), g, tp, n_head, pos, beam,
+            torch.cuda.current_stream(q.device).cuda_stream)
     cuda_lib.check(rc, "decode_attn_shared_fwd")
-    global SHARED_LAUNCHES
-    SHARED_LAUNCHES += 1
+    global SHARED_LAUNCHES, SHARED_I8_LAUNCHES
+    if quant:
+        SHARED_I8_LAUNCHES += 1
+    else:
+        SHARED_LAUNCHES += 1
     return o

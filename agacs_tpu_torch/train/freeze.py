@@ -5,7 +5,9 @@ Each preset is the JAX package's predicate over a parameter's '.'-joined
 JAX pytree path; a port parameter is judged by the path its name converts
 to (`models/checkpoint.jax_leaf`), so a preset or a prefix list selects
 exactly the leaves JAX selects. Frozen parameters get requires_grad=False,
-so autograd computes no gradient for them at all.
+so autograd computes no gradient for them at all. Under `whisper_pe` the
+PE gate (path `.../attn/gate`, no "cs") stays frozen, as in the reference
+(`abs_task.py:1165-1168`).
 """
 
 from __future__ import annotations

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's greedy serving path, its beam-search serving
 path, its stage-2 training path and both again on the int8 frozen trunk,
-once on one CUDA card.
+serving with int8 cross-KV, and the TMECS PE recipes' serving and
+training, once on one CUDA card.
 
     python3 chip_smoke.py              # every phase below
-    python3 chip_smoke.py --mutants    # the int8 kernel checks against mutants
+    python3 chip_smoke.py --mutants    # the kernel checks against mutants
 
 Run from (or point at) a checkout of the repository on a machine with a
 CUDA card and the CUDA toolkit (nvcc). It imports nothing of JAX. Phases,
@@ -29,6 +30,14 @@ non-zero exit:
      entries (past pos, and every entry the map does not select);
   3s. K3s (decode_attn.cu, the shared cross-KV) against its plain version
      at (8 groups x 5, 752, 768), pos 749;
+  3p. K3-PE and K3a-PE (decode_attn.cu, the gated dual-QK scores) against
+     their plain version at (8, 112, 768) and (40, 112, 768), beam 5, and
+     (10, 448, 768) at pos 447: distinct per-head gates with 0 and 1,
+     poisoned k, k_cs and v; SDPA on [q|q_cs], [k|k_cs] timed beside them;
+  3q. K3-int8 (8, 768, 768) at pos 749 and 0, K3s-int8 (8 x 5, 768, 768)
+     and K3a-int8 (40, 128, 768) against the kernel-folding plain version,
+     and within 5e-2 x max of the attention over the unquantised caches;
+     SDPA on the dequantised caches timed beside them;
   2i. K8q (rowquant) and K8g (int8_gemm, forward and dgrad;
      csrc/int8_gemm.cu) against their plain versions at (12000, 768) -> 768,
      (528, 768) -> 768, (8, 768) -> 3072, (8, 3072) -> 768, (8, 768) -> 768,
@@ -85,7 +94,23 @@ non-zero exit:
      stage-2 recipe, whisper-small, one epoch) on a generated data dir
      under build/, then `bin.decode` on its n-best average: an int8
      checkpoint, hypotheses for every utterance, K2f and K8g launched by
-     both.
+     both;
+  18. (run right after 12, on phase 4's model) `cross_kv_int8`: greedy
+     (exact K3 1248, K3-int8 1248) and beam 5 (K3a 1248, K3s-int8 1248),
+     the int8 buffers bit-identical to the plain quantisation, first-step
+     logits against the bf16 cross-KV, token agreement, and ms/batch
+     alternating with the bf16 cross-KV;
+  19. a PE decoder (the TMECS pedecoder layout), whisper-small, bf16:
+     greedy (exact K3-PE 1248, K3 1248) and beam 5 (K3a-PE 1248, K3s
+     1248), first-step logits card bf16 against CPU float32;
+  20. phase 12's checks on its beam request (physical gather on K3-PE);
+  21. the TMECS cs_loss_pe step (PE in both stacks, `whisper_pe`), 16 x
+     15 s, bf16 with every frozen leaf stored bf16: ms per step, audio-s/s,
+     peak memory, only query_cs / key_cs changed, the frozen gates
+     bit-identical; 22. its profile; 23. one micro-step card bf16 against
+     CPU float32 (loss, loss_cs, grad norm, the *_cs gradient cosines);
+  24. `bin.train` on the TMECS pedecoder_csloss recipe for one epoch, then
+     `bin.decode` on its average, greedy and with `--cross_kv_int8`.
 
 The last three lines are the card's `name, power.limit` (nvidia-smi), a
 JSON line with each kernel's launches, error and times, and the
@@ -193,6 +218,17 @@ INT8_LOGITS_REL_L2 = 5e-2
 # Published H100 SXM peaks (NVIDIA's datasheet, dense): the bound of a
 # kernel is the larger of its bytes over HBM's rate and its operations over
 # the peak rate of their type.
+# The int8 decode kernels against the attention over the unquantised bf16
+# caches they were quantised from (JAX tests/test_decode_attn.py:209-213).
+INT8_VS_BF16 = 5e-2
+# Phase 18: first-step logits with the int8 cross-KV against the bf16
+# cross-KV on the card, rel L2: one int8 step (1/254 of a channel's range)
+# on every cross K/V, through 12 layers.
+INT8_CROSS_LOGITS_REL_L2 = 5e-2
+# Phase 23 (PE train parity, card bf16 vs CPU f32): phase 9's bounds, the
+# cosines over the query_cs / key_cs gradients of each stack.
+PE_TRAIN_REL = dict(TRAIN_REL)
+PE_TRAIN_COS = dict(TRAIN_COS)
 HBM_BPS = 3.35e12
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 
@@ -444,13 +480,9 @@ def poison_unread(k, v, anc, j: int, pos: int):
     score far above the others) and v = 1e4: a kernel that reads outside
     its group, or its own row instead of the ancestry row, lands on
     poison at about a third of the keys."""
-    n, tp, _ = k.shape
-    rows = (torch.arange(n, device=k.device) // j * j)[:, None] + anc.long()
-    read = torch.zeros(n, tp, dtype=torch.bool, device=k.device)
-    read[rows, torch.arange(tp, device=k.device)[None, :]] = True
-    read[:, pos + 1:] = False
+    bad = unread(anc, *k.shape[:2], j, pos, k.device)
     k_bad, v_bad = k.clone(), v.clone()
-    k_bad[~read], v_bad[~read] = 0.0, 1e4
+    k_bad[bad], v_bad[bad] = 0.0, 1e4
     return k_bad, v_bad
 
 
@@ -519,6 +551,213 @@ def check_k3s(dev, g, timed=True) -> dict:
                          4 * groups * BEAM * H * (pos + 1) * 64, "bf16"))
         line += f" kernel {res['ms']:.4f} ms plain bf16 {res['plain_ms']:.4f} ms"
     print(line, flush=True)
+    return res
+
+
+def pe_gate(g, dev) -> torch.Tensor:
+    """(H,) float32 post-sigmoid gates, distinct per head, with 0 and 1 among
+    them: a kernel that ignores the gate, or reads gate[0] for every head,
+    moves most heads' scores."""
+    return torch.cat([torch.tensor([0.0, 1.0]), torch.rand(H - 2, generator=g)]).to(dev)
+
+
+def sdpa_ms(fn, arg_sets, iters) -> tuple[float | None, str]:
+    """library_ms of a scaled_dot_product_attention call and the backend
+    that ran it: each backend alone, flash first; (None, "none") if none
+    takes the inputs."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]):
+                return cuda_ms(fn, arg_sets, iters), backend.name
+        except RuntimeError:
+            continue
+    return None, "none"
+
+
+def pe_sdpa_inputs(q, q_cs, k, k_cs, v, gate, pos: int):
+    """SDPA operands that give K3-PE's scores: per head q' = [(1-g) q | g q_cs]
+    and k' = [k | k_cs] (head dim 128), v as it is (64), keys <= pos."""
+    n, tp, _ = k.shape
+    g = gate.view(1, H, 1, 1)
+    qh = lambda x: x.view(n, 1, H, -1).transpose(1, 2).float()  # noqa: E731
+    q2 = torch.cat([(1 - g) * qh(q), g * qh(q_cs)], -1).to(torch.bfloat16)
+    k2 = torch.cat([sdpa_heads(k, H), sdpa_heads(k_cs, H)], -1).contiguous()
+    mask = (torch.arange(tp, device=k.device) <= pos)[None, :]
+    return q2, k2, sdpa_heads(v, H).contiguous(), mask
+
+
+def unread(anc, n: int, tp: int, j: int, pos: int, dev) -> torch.Tensor:
+    """(n, tp) True where no row of the entry's beam group reads it through
+    the map at t <= pos (and at every t > pos): where poison goes."""
+    if anc is None:
+        mask = torch.zeros(n, tp, dtype=torch.bool, device=dev)
+    else:
+        rows = (torch.arange(n, device=dev) // j * j)[:, None] + anc.long()
+        mask = torch.ones(n, tp, dtype=torch.bool, device=dev)
+        mask[rows, torch.arange(tp, device=dev)[None, :]] = False
+    mask[:, pos + 1:] = True
+    return mask
+
+
+def check_k3pe(dev, g, timed=True) -> dict:
+    """Phase 3p: K3-PE (plain rows) and K3a-PE (the ancestry map) against
+    their plain version at the PE greedy (8, 112, 768) and beam (40, 112,
+    768) self-attention shapes and the full context (10, 448, 768) at pos
+    447: sharp, shifted scores for both query/key pairs, distinct per-head
+    gates with 0 and 1, and k, k_cs poisoned to 0 (a score far above the
+    rest) and v to 1e9 past pos and at every entry the map does not
+    select. Returns {"pe": ..., "anc_pe": ...} errors and times at pos 103."""
+    from agacs_tpu_torch.ops import decode_attn as da
+
+    res = {"pe": {"err": 0.0}, "anc_pe": {"err": 0.0}}
+    cases = [(8, 112, 0, False), (8, 112, 57, False), (8, 112, 103, False),
+             (40, 112, 4, True), (40, 112, 57, True), (40, 112, 103, True),
+             (10, 448, 447, True)]
+    for n, tp, pos, anc_on in cases:
+        sets = []
+        for _ in range(8):
+            q, k, v = sharp_qkv(g, dev, (n, D), (n, tp, D), q_scale=0.125)
+            q_cs, k_cs, _ = sharp_qkv(g, dev, (n, D), (n, tp, D), q_scale=0.125)
+            anc = beam_ancestry(g, n, tp, BEAM, pos).to(dev) if anc_on else None
+            sets.append((q, k, v, pos, H, anc, q_cs, k_cs, pe_gate(g, dev)))
+
+        def kernel(q, k, v, pos, h, anc, q_cs, k_cs, gate, fn=da.decode_cache_attention):
+            return fn(q, k, v, pos, h, anc_local=anc, beam=BEAM, q_cs=q_cs, k_cs=k_cs,
+                      gate=gate)
+
+        def plain(*args):
+            return kernel(*args, fn=da.decode_cache_attention_plain)
+
+        q, k, v, _, _, anc, q_cs, k_cs, gate = sets[0]
+        bad = unread(anc, n, tp, BEAM, pos, dev)
+        k_bad, kcs_bad, v_bad = k.clone(), k_cs.clone(), v.clone()
+        k_bad[bad], kcs_bad[bad], v_bad[bad] = 0.0, 0.0, 1e9
+        name = "K3a-PE" if anc_on else "K3-PE"
+        err = hold(f"{name} pos={pos}", kernel(q, k_bad, v_bad, pos, H, anc, q_cs, kcs_bad, gate),
+                   plain(q.float(), k.float(), v.float(), pos, H, anc, q_cs.float(),
+                         k_cs.float(), gate), (n, tp, D))
+        key = "anc_pe" if anc_on else "pe"
+        res[key]["err"] = max(res[key]["err"], err)
+        line = (f"phase 3p {name} decode_attn ({n}, {tp}, {D}) pos={pos}: max_abs_err "
+                f"{err:.3e} (bound {KERNEL_RTOL} x max|plain f32|)")
+        if timed and pos == 103:
+            ms, plain_ms = cuda_ms(kernel, sets, 50), cuda_ms(plain, sets, 50)
+            lib_sets = []
+            for q, k, v, _, _, anc, q_cs, k_cs, gate in sets:
+                if anc_on:
+                    k, v, k_cs = (da.gather_ancestry(x, anc, BEAM) for x in (k, v, k_cs))
+                lib_sets.append(pe_sdpa_inputs(q, q_cs, k, k_cs, v, gate, pos))
+            lib, backend = sdpa_ms(lambda q2, k2, v2, m: torch.nn.functional
+                                   .scaled_dot_product_attention(q2, k2, v2, attn_mask=m,
+                                                                 scale=1.0), lib_sets, 50)
+            if anc_on:
+                rows = (torch.arange(n, device=dev) // BEAM * BEAM)[:, None] + anc.long()
+                cells = (rows * tp + torch.arange(tp, device=dev))[:, : pos + 1].unique().numel()
+                nbytes = 3 * cells * D * 2 + 3 * n * D * 2 + n * (pos + 1) * 4 + H * 4
+            else:
+                nbytes = 3 * n * (pos + 1) * D * 2 + 3 * n * D * 2 + H * 4
+            res[key].update(ms=ms, plain_ms=plain_ms, library_ms=lib, sdpa_backend=backend,
+                            **roofline(nbytes, 6 * n * H * (pos + 1) * 64, "bf16"))
+            line += (f" kernel {ms:.4f} ms plain bf16 {plain_ms:.4f} ms sdpa ([q|q_cs], "
+                     f"[k|k_cs], head dim 128/64, {backend}) "
+                     + (f"{lib:.4f} ms" if lib is not None else "none")
+                     + f" bound {res[key]['bound_ms']:.4f} ms")
+        print(line, flush=True)
+    return res
+
+
+def quantized(x, dev):
+    """JAX `_quantize_kv` of a (N, Tp, d) bf16 cache, on the card."""
+    from agacs_tpu_torch.models.whisper import quantize_kv
+
+    return quantize_kv(x.to(dev))
+
+
+def check_k3i8(dev, g, timed=True) -> dict:
+    """Phase 3q: K3-int8 (greedy cross-attention, (8, 768, 768) at pos 749
+    and pos 0), K3s-int8 (beam cross-attention, 8 x 5 queries over (8,
+    768, 768)) and K3a-int8 ((40, 128, 768), beam 5, pos 103; no decode
+    step launches it) against the kernel-folding plain version, bound
+    KERNEL_RTOL x max |plain|, and within INT8_VS_BF16 x max of the
+    attention over the unquantised bf16 caches. The int8 caches come from
+    sharp bf16 ones through `quantize_kv`; keys past pos (and entries the
+    map does not select) are poisoned to 127 x sign(q) (the largest score
+    an int8 key can give) and values to 127. Returns {"rows", "shared",
+    "anc"} errors and times."""
+    from agacs_tpu_torch.ops import decode_attn as da
+
+    res = {"rows": {"err": 0.0}, "shared": {"err": 0.0}, "anc": {"err": 0.0}}
+    for kind, n, tp, pos in (("rows", 8, 768, 749), ("rows", 8, 768, 0),
+                             ("shared", 8, 768, 749), ("anc", 40, 128, 103)):
+        nq = n * BEAM if kind == "shared" else n
+        sets = []
+        for _ in range(8):
+            q, k, v = sharp_qkv(g, dev, (nq, D), (n, tp, D), q_scale=0.125)
+            (k8, ks), (v8, vs) = quantized(k, dev), quantized(v, dev)
+            anc = beam_ancestry(g, n, tp, BEAM, pos).to(dev) if kind == "anc" else None
+            sets.append(((q, k8, v8, pos, H, anc, ks, vs), (k, v)))
+
+        def kernel(q, k8, v8, pos, h, anc, ks, vs, plain=False):
+            if kind == "shared":
+                fn = (da.decode_shared_cache_attention_plain if plain
+                      else da.decode_shared_cache_attention)
+                return fn(q, k8, v8, pos, h, BEAM, k_scale=ks, v_scale=vs)
+            fn = da.decode_cache_attention_plain if plain else da.decode_cache_attention
+            return fn(q, k8, v8, pos, h, anc_local=anc, beam=BEAM, k_scale=ks, v_scale=vs)
+
+        def plain(*args):
+            return kernel(*args, plain=True)
+
+        def unquantised(q, k, v, anc):
+            return kernel(q, k, v, pos, H, anc, None, None, plain=True)
+
+        (q, k8, v8, _, _, anc, ks, vs), (k, v) = sets[0]
+        bad = unread(anc, n, tp, BEAM, pos, dev)
+        q_row = q[:: BEAM] if kind == "shared" else q  # a group's first query
+        worst = (127 * torch.sign(q_row.float() * ks)).to(torch.int8)
+        k_bad, v_bad = k8.clone(), v8.clone()
+        k_bad[bad] = worst[:, None, :].expand(n, tp, D)[bad]
+        v_bad[bad] = 127
+        out = kernel(q, k_bad, v_bad, pos, H, anc, ks, vs)
+        name = {"rows": "K3-int8", "shared": "K3s-int8", "anc": "K3a-int8"}[kind]
+        err = hold(f"{name} pos={pos}", out,
+                   plain(q.float(), k8, v8, pos, H, anc, ks, vs), (nq, tp, D))
+        ref = unquantised(q.float(), k.float(), v.float(), anc)
+        q_err = (out.float() - ref).abs().max().item()
+        check(q_err <= INT8_VS_BF16 * ref.abs().max().item(),
+              f"{name} pos={pos} vs unquantised: {q_err} <= {INT8_VS_BF16} x max")
+        res[kind]["err"] = max(res[kind]["err"], err)
+        line = (f"phase 3q {name} ({nq} queries, {n} x {tp}, {D}) pos={pos}: max_abs_err "
+                f"{err:.3e} (bound {KERNEL_RTOL} x max|plain f32|), vs unquantised bf16 "
+                f"{q_err:.3e} ({q_err / ref.abs().max().item():.2e} of max; bound "
+                f"{INT8_VS_BF16})")
+        if timed and pos > 0:
+            args = [a for a, _ in sets]
+            ms, plain_ms = cuda_ms(kernel, args, 50), cuda_ms(plain, args, 50)
+            lib_ms = None
+            if kind != "anc":
+                deq = [(q, da.dequantize_kv(k8, ks, torch.bfloat16),
+                        da.dequantize_kv(v8, vs, torch.bfloat16), pos, H)
+                       for q, k8, v8, *_ in args]
+                lib_ms = cuda_ms(lambda q, k, v, pos, h: sdpa_one_query(
+                    q, k, v, pos, h, BEAM if kind == "shared" else 1), deq, 50)
+            if kind == "anc":
+                rows = (torch.arange(n, device=dev) // BEAM * BEAM)[:, None] + anc.long()
+                cells = (rows * tp + torch.arange(tp, device=dev))[:, : pos + 1].unique().numel()
+                nbytes = 2 * cells * D + n * (pos + 1) * 4
+            else:
+                nbytes = 2 * n * (pos + 1) * D
+            res[kind].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                             **roofline(nbytes + 2 * nq * D * 2 + 2 * D * 4,
+                                        4 * nq * H * (pos + 1) * 64, "bf16"))
+            line += (f" kernel {ms:.4f} ms plain {plain_ms:.4f} ms sdpa on dequantised "
+                     f"bf16 (not the same function) "
+                     + (f"{lib_ms:.4f} ms" if lib_ms is not None else "none")
+                     + f" bound {res[kind]['bound_ms']:.4f} ms")
+        print(line, flush=True)
     return res
 
 
@@ -740,13 +979,13 @@ def beam_phase(model, asr_cfg, audio) -> dict:
           f"launches {launches}; lengths {[len(r.tokens) for r in results]}", flush=True)
 
     busy, n_events, per_name = device_profile(lambda: s2t(audio))
-    k3a = sum(t for name, t in per_name.items() if "decode_attn_kernel<true>" in name)
+    k3a = sum(t for name, t in per_name.items() if "decode_attn_kernel<true," in name)
     k3s = sum(t for name, t in per_name.items() if "decode_attn_shared_kernel" in name)
     print(f"phase 11 beam profile: device busy {busy:.1f} ms in {n_events} device events "
           f"({n_events / n_steps:.0f} per decode step); idle {1 - busy / ms_batch:.1%} of "
           f"phase 10's {ms_batch:.1f} ms/batch; K3a {k3a:.2f} ms ({k3a / busy:.1%}), K3s "
           f"{k3s:.2f} ms ({k3s / busy:.1%}); top: " + top_kernels(per_name), flush=True)
-    return {"results": results, "launches": launches, "ms": ms_batch}
+    return {"results": results, "launches": launches, "ms": ms_batch, "s2t": s2t}
 
 
 def rescore(model, enc, hyps, limit: int) -> np.ndarray:
@@ -777,33 +1016,30 @@ def rescore(model, enc, hyps, limit: int) -> np.ndarray:
 @contextlib.contextmanager
 def plain_decode_attention():
     """Every decode-step attention (self and cross) through its plain
-    PyTorch version instead of K3/K3a/K3s: phase 12's control."""
+    PyTorch version instead of K3 and its variants: the beam phases'
+    control."""
     from agacs_tpu_torch.models import whisper as tw
     from agacs_tpu_torch.ops import decode_attn
 
-    def self_attn(q, k, v, pos, h, anc_local=None, beam=1):
-        if anc_local is not None and beam > 1:
-            return decode_attn.decode_cache_attention_anc_ref(q, k, v, pos, h, anc_local, beam)
-        return decode_attn.decode_cache_attention_ref(q, k, v, pos, h)
-
     kernels = tw.decode_cache_attention, tw.decode_shared_cache_attention
-    tw.decode_cache_attention = self_attn
-    tw.decode_shared_cache_attention = decode_attn.decode_shared_cache_attention_ref
+    tw.decode_cache_attention = decode_attn.decode_cache_attention_plain
+    tw.decode_shared_cache_attention = decode_attn.decode_shared_cache_attention_plain
     try:
         yield
     finally:
         tw.decode_cache_attention, tw.decode_shared_cache_attention = kernels
 
 
-def beam_e2e(model, asr_cfg, audio, beam, cpu_model, enc_cpu) -> dict:
-    """Phase 12: the beam request's reported scores against teacher-forced
-    rescoring, on the card (bf16, plain attention) and on the CPU (float32,
-    utterance 0); a control search with plain decode attention read the
-    same way; and the search with the caches gathered physically (K3
-    plain rows) against the ancestry map (K3a)."""
+def beam_e2e(model, asr_cfg, audio, beam, cpu_model, enc_cpu, phase: int = 12,
+             rows: str = "K3", anc: str = "K3a") -> dict:
+    """Phase 12 (and 20, on the PE decoder): the beam request's reported
+    scores against teacher-forced rescoring, on the card (bf16, plain
+    attention) and on the CPU (float32, utterance 0); a control search with
+    plain decode attention read the same way; and the search with the
+    caches gathered physically (the `rows` kernel) against the ancestry
+    map (the `anc` kernel)."""
     from agacs_tpu_torch.decode.beam import beam_decode
     from agacs_tpu_torch.models.asr_model import encode
-    from agacs_tpu_torch.ops import decode_attn
 
     dev = next(model.parameters()).device
     limit = len(PRIMER) + 100 - 1
@@ -821,19 +1057,19 @@ def beam_e2e(model, asr_cfg, audio, beam, cpu_model, enc_cpu) -> dict:
                                    **kw)
         return [t[i, : l[i]].tolist() for i in range(len(l))], sc.double().cpu().numpy()
 
-    k3 = decode_attn.LAUNCHES
+    k3 = decode_counts()[rows]
     gathered, g_scores = search(ancestry=False)
-    check(decode_attn.LAUNCHES - k3 == beam["launches"]["K3a"],
-          "the physical-gather search ran K3 plain rows")
+    check(decode_counts()[rows] - k3 == beam["launches"][anc],
+          f"the physical-gather search ran {rows} plain rows")
     with plain_decode_attention():
         c_hyps, c_scores = search()
     control = np.abs(rescore(model, enc, c_hyps, limit) / c_scores - 1)
     same = gathered == hyps and np.array_equal(g_scores, scores)
-    print(f"phase 12 beam e2e: reported score vs teacher-forced rescore (rel, max over "
+    print(f"phase {phase} beam e2e: reported score vs teacher-forced rescore (rel, max over "
           f"8): card bf16 {card.max():.2e}, cpu f32 (utt 0) {cpu:.2e}; control search "
           f"with plain decode attention: card bf16 {control.max():.2e}; bounds "
           f"{RESCORE_REL}; scores {np.round(scores, 2).tolist()}; physical-gather "
-          f"search (K3 rows) identical to the ancestry map (K3a): {same}", flush=True)
+          f"search ({rows} rows) identical to the ancestry map ({anc}): {same}", flush=True)
     check(card.max() <= RESCORE_REL["card"] and cpu <= RESCORE_REL["cpu"],
           f"beam rescore rel card {card.max()} cpu {cpu} within {RESCORE_REL}")
     check(same, "the physical-gather search returns the same hypotheses and scores")
@@ -866,23 +1102,28 @@ def make_train_batch(b: int, seconds: int, dev) -> dict:
     }
 
 
-def train_model(sd, dev, dtype, specaug: bool, int8: bool = False):
+def train_model(sd, dev, dtype, specaug: bool, int8: bool = False, pe: bool = False):
     """The stage-2 recipe's trainable model: built in float32 from `sd`,
-    preset `adapter`, frozen linears stored in `dtype` (then, with `int8`,
-    quantised: `freeze_quant: int8`); with its config. A state dict that
-    already holds int8 buffers builds the int8 trunk from them."""
+    preset `adapter`, frozen parameters stored in `dtype` (then, with
+    `int8`, quantised: `freeze_quant: int8`); with its config. A state dict
+    that already holds int8 buffers builds the int8 trunk from them. With
+    `pe`, the TMECS cs_loss_pe recipe's instead: PE attention in both
+    stacks, preset `whisper_pe` (only query_cs / key_cs train), cs_weight 1."""
     from agacs_tpu_torch.models import whisper as tw
     from agacs_tpu_torch.models.asr_model import ASRModelConfig
     from agacs_tpu_torch.train.freeze import apply_freeze
 
-    cfg = tw.make_config("small", adapter=True, adapter_encoder=True,
-                         adapter_decoder=True, compute_dtype=dtype)
+    if pe:
+        cfg = tw.make_config("small", pe_attention=True, compute_dtype=dtype)
+    else:
+        cfg = tw.make_config("small", adapter=True, adapter_encoder=True,
+                             adapter_decoder=True, compute_dtype=dtype)
     model = tw.Whisper.from_state_dict(cfg, sd, device=dev, param_dtype=torch.float32)
-    params = apply_freeze(model, "adapter")
+    params = apply_freeze(model, "whisper_pe" if pe else "adapter")
     model.cast_frozen_(dtype)
     if int8:
         model.quantize_frozen_()
-    return model, params, ASRModelConfig(whisper=cfg, cs_weight=0.01,
+    return model, params, ASRModelConfig(whisper=cfg, cs_weight=1.0 if pe else 0.01,
                                          use_specaug=specaug)
 
 
@@ -988,13 +1229,14 @@ def train_phase(sd, dev, int8: bool = False, bf16: dict | None = None) -> dict:
             "loss": float(np.mean([a for a, _ in losses]))}
 
 
-def micro_step(sd, dev, dtype, one, int8: bool = False) -> tuple[float, float, dict]:
-    """One micro-step of the stage-2 model on `dev` (SpecAug off): the
-    loss, loss_cs, and every trainable parameter's gradient, float32 on
-    the CPU, by name."""
+def micro_step(sd, dev, dtype, one, int8: bool = False,
+               pe: bool = False) -> tuple[float, float, dict]:
+    """One micro-step of the stage-2 (or, `pe`, the cs_loss_pe) model on
+    `dev` (SpecAug off): the loss, loss_cs, and every trainable parameter's
+    gradient, float32 on the CPU, by name."""
     from agacs_tpu_torch.models import asr_model
 
-    model, _, acfg = train_model(sd, dev, dtype, specaug=False, int8=int8)
+    model, _, acfg = train_model(sd, dev, dtype, specaug=False, int8=int8, pe=pe)
     loss, stats = asr_model.forward(model, acfg, {k: v.to(dev) for k, v in one.items()})
     loss.backward()
     grads = {n: p.grad.float().cpu() for n, p in model.named_parameters()
@@ -1210,11 +1452,309 @@ def int8_serve_phase(sd8, dev, audio) -> dict:
     return {"ms": ms_batch, "launches": launches}
 
 
-# Broken copies of the int8 kernels that the checks must catch: name ->
-# (source, [(text, replacement)], checks to run). Built outside the
-# checkout by `mutants()`.
+# Decode-attention launch counters (agacs_tpu_torch/ops/decode_attn.py) by
+# kernel name.
+DECODE_COUNTERS = {"K3": "LAUNCHES", "K3a": "ANC_LAUNCHES", "K3-PE": "PE_LAUNCHES",
+                   "K3a-PE": "ANC_PE_LAUNCHES", "K3-int8": "I8_LAUNCHES",
+                   "K3a-int8": "ANC_I8_LAUNCHES", "K3s": "SHARED_LAUNCHES",
+                   "K3s-int8": "SHARED_I8_LAUNCHES"}
+
+
+def decode_counts() -> dict:
+    from agacs_tpu_torch.ops import decode_attn, flash_train
+
+    return {"K1f": flash_train.LAUNCHES,
+            **{k: getattr(decode_attn, v) for k, v in DECODE_COUNTERS.items()}}
+
+
+def reset_decode_counts() -> None:
+    from agacs_tpu_torch.ops import decode_attn, flash_train
+
+    flash_train.LAUNCHES = 0
+    for v in DECODE_COUNTERS.values():
+        setattr(decode_attn, v, 0)
+
+
+def serve(label: str, model, asr_cfg, audio, beam: int, want: dict) -> dict:
+    """One serving configuration on 8 x 15 s, 100 steps (beam: loop scan):
+    a warm-up request, then three timed ones; the first of them must launch
+    exactly `want` (every other counter 0). ms/batch is the median."""
+    from agacs_tpu_torch.decode.speech2text import Speech2Text
+
+    s2t = Speech2Text(model, asr_cfg, beam_size=beam, max_steps=100, loop="scan")
+    s2t(audio)
+    torch.cuda.synchronize()
+    reset_decode_counts()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(3):
+        t0 = time.perf_counter()
+        out = s2t(audio)
+        times.append(time.perf_counter() - t0)
+        if i == 0:
+            results, launches = out, decode_counts()
+    want = {k: want.get(k, 0) for k in launches}
+    check(launches == want, f"{label} launches {launches} == {want}")
+    check(len(results) == 8 and all(r.tokens[:5] == PRIMER and 5 < len(r.tokens) <= 106
+                                    and np.isfinite(r.score) for r in results),
+          f"{label}: 8 hypotheses")
+    return {"results": results, "launches": {k: v for k, v in launches.items() if v},
+            "ms": statistics.median(times) * 1e3, "times": times, "s2t": s2t,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def first_step(model, asr_cfg, audio1) -> tuple[torch.Tensor, torch.Tensor]:
+    """(the first decode step's float32 logits, the encoder output) of one
+    utterance, both on the CPU."""
+    from agacs_tpu_torch.models import whisper as tw
+    from agacs_tpu_torch.models.asr_model import encode
+
+    d = next(model.parameters()).device
+    with torch.inference_mode():
+        enc, _ = encode(model, asr_cfg, torch.from_numpy(audio1).to(d),
+                        torch.tensor([audio1.shape[1]], device=d))
+        kv = tw.init_self_kv_cache(model.cfg, 1, 16, device=d)
+        logits, _ = tw.whisper_decode_step(model, torch.tensor([PRIMER[0]], device=d), 0,
+                                           kv, tw.precompute_cross_kv(model, enc))
+    return logits.float().cpu(), enc.float().cpu()
+
+
+def agreement(a, b) -> str:
+    """How far two runs' hypotheses agree: identical utterances, and the
+    share of equal tokens over each pair's common length."""
+    same = sum(x.tokens == y.tokens for x, y in zip(a, b))
+    eq = [np.mean([s == t for s, t in zip(x.tokens, y.tokens)]) for x, y in zip(a, b)]
+    return f"{same}/{len(a)} identical, {np.mean(eq):.1%} of tokens equal"
+
+
+def int8_cross_phase(model, sd, asr_cfg, audio, bf16_greedy: dict, bf16_beam: dict) -> dict:
+    """Phase 18: `--cross_kv_int8` on phase 4's stage-2 model: greedy (K3 for
+    the self-, K3-int8 for the cross-attention) and beam 5 (K3a, K3s-int8)
+    with exact launches; the int8 buffers and scales bit-identical to the
+    plain quantisation (on the CPU, float32) of the bf16 cross-KV; the
+    first-step logits within INT8_CROSS_LOGITS_REL_L2 of the bf16
+    cross-KV's; token agreement with phases 4 and 10 (`bf16_greedy`,
+    `bf16_beam`: their "s2t" and "results"); and ms/batch of bf16 and int8
+    cross-KV timed alternately in this process."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from agacs_tpu_torch.models import whisper as tw
+    from agacs_tpu_torch.models.asr_model import ASRModelConfig, encode
+
+    dev = next(model.parameters()).device
+    cfg8 = dataclasses.replace(model.cfg, cross_kv_int8=True)
+    model8 = tw.Whisper.from_state_dict(cfg8, sd, device=dev)
+    acfg8 = ASRModelConfig(whisper=cfg8)
+    per = model.cfg.n_text_layer * (min(len(PRIMER) + 100, model.cfg.n_text_ctx) - 1)
+    enc_layers = model.cfg.n_audio_layer
+    greedy = serve("int8 cross-KV greedy", model8, acfg8, audio, 1,
+                   {"K1f": enc_layers, "K3": per, "K3-int8": per})
+    beam = serve("int8 cross-KV beam", model8, acfg8, audio, BEAM,
+                 {"K1f": enc_layers, "K3a": per, "K3s-int8": per})
+    with torch.inference_mode():
+        enc, _ = encode(model, asr_cfg, torch.from_numpy(audio).to(dev),
+                        torch.full((audio.shape[0],), audio.shape[1], device=dev))
+        kv16, kv8 = tw.precompute_cross_kv(model, enc), tw.precompute_cross_kv(model8, enc)
+    tp = kv8["k_packed"][0].shape[1]
+    for name in ("k", "v"):
+        for l, x in enumerate(kv16[f"{name}_packed"]):
+            q, s = tw.quantize_kv(F.pad(x.float().cpu(), (0, 0, 0, tp - x.shape[1])))
+            check(torch.equal(kv8[f"{name}_packed"][l].cpu(), q)
+                  and torch.equal(kv8[f"{name}_scale"][l].cpu(), s),
+                  f"layer {l} int8 {name} buffer and scales identical to the plain "
+                  "quantisation")
+    e_log = rel_l2(first_step(model8, acfg8, audio[:1])[0],
+                   first_step(model, asr_cfg, audio[:1])[0])
+    check(e_log < INT8_CROSS_LOGITS_REL_L2,
+          f"int8 cross-KV first-step logits rel L2 {e_log} < {INT8_CROSS_LOGITS_REL_L2}")
+    runs = {("bf16", 1): bf16_greedy["s2t"], ("int8", 1): greedy["s2t"],
+            ("bf16", BEAM): bf16_beam["s2t"], ("int8", BEAM): beam["s2t"]}
+    alt = {key: [] for key in runs}
+    for _ in range(2):
+        for key, s2t in runs.items():
+            t0 = time.perf_counter()
+            s2t(audio)
+            alt[key].append((time.perf_counter() - t0) * 1e3)
+    ms = {key: statistics.median(v) for key, v in alt.items()}
+    busy, n_events, per_name = device_profile(lambda: greedy["s2t"](audio))
+    k3i8 = sum(t for name, t in per_name.items() if "signed char>" in name)
+    print(f"phase 18 int8 cross-KV serving (stage-2 model, bf16, 8 x 15 s, 100 steps): "
+          f"greedy {greedy['ms']:.1f} ms/batch, beam {BEAM} {beam['ms']:.1f} ms/batch "
+          f"(medians of 3); alternating with the bf16 cross-KV, median of 2 each: greedy "
+          f"bf16 {ms[('bf16', 1)]:.1f} / int8 {ms[('int8', 1)]:.1f} ms, beam bf16 "
+          f"{ms[('bf16', BEAM)]:.1f} / int8 {ms[('int8', BEAM)]:.1f} ms; launches greedy "
+          f"{greedy['launches']} beam {beam['launches']}; Tp {tp}, int8 buffers and "
+          f"scales identical to the plain quantisation; first-step logits vs bf16 "
+          f"cross-KV rel L2 {e_log:.3e} (bound {INT8_CROSS_LOGITS_REL_L2}); tokens vs "
+          f"phase 4: {agreement(greedy['results'], bf16_greedy['results'])}, beam vs "
+          f"phase 10: {agreement(beam['results'], bf16_beam['results'])}; greedy profile: "
+          f"device busy {busy:.1f} ms in {n_events} events, K3-int8 {k3i8:.2f} ms; top: "
+          + top_kernels(per_name, 4), flush=True)
+    del model8, greedy["s2t"], beam["s2t"]
+    return {"greedy": greedy["launches"], "beam": beam["launches"], "ms": ms}
+
+
+def pe_serve_phase(dev, audio) -> dict:
+    """Phases 19 and 20: a PE decoder (the TMECS pedecoder recipes' layout),
+    whisper-small, bf16, random weights from torch seed 1: greedy (K3-PE
+    for the self-, K3 for the cross-attention) and beam 5 (K3a-PE, K3s) on
+    8 x 15 s, 100 steps, with exact launches; the first-step logits against
+    the port on the CPU in float32 (LOGITS_REL_L2); then phase 12's checks
+    of the beam request (rescoring, plain-attention control, and the
+    physical-gather search on K3-PE rows)."""
+    from agacs_tpu_torch.models import whisper as tw
+    from agacs_tpu_torch.models.asr_model import ASRModelConfig
+
+    cfg = tw.make_config("small", pe_decoder=True, compute_dtype=torch.bfloat16)
+    sd = tw.init_whisper_params(torch.Generator().manual_seed(1), cfg)
+    model = tw.Whisper.from_state_dict(cfg, sd, device=dev)
+    asr_cfg = ASRModelConfig(whisper=cfg)
+    per = cfg.n_text_layer * (min(len(PRIMER) + 100, cfg.n_text_ctx) - 1)
+    greedy = serve("PE greedy", model, asr_cfg, audio, 1,
+                   {"K1f": cfg.n_audio_layer, "K3-PE": per, "K3": per})
+    beam = serve("PE beam", model, asr_cfg, audio, BEAM,
+                 {"K1f": cfg.n_audio_layer, "K3a-PE": per, "K3s": per})
+    cpu_cfg = tw.make_config("small", pe_decoder=True, compute_dtype=torch.float32)
+    cpu_model = tw.Whisper.from_state_dict(cpu_cfg, sd, device="cpu")
+    lg_card, _ = first_step(model, asr_cfg, audio[:1])
+    lg_cpu, enc_cpu = first_step(cpu_model, ASRModelConfig(whisper=cpu_cfg), audio[:1])
+    e_log = rel_l2(lg_card, lg_cpu)
+    busy, n_events, per_name = device_profile(lambda: greedy["s2t"](audio))
+    k3pe = sum(t for name, t in per_name.items() if "decode_attn_kernel<false, true," in name)
+    print(f"phase 19 PE serving: whisper-small, PE decoder, bf16, 8 x 15 s, 100 steps: "
+          f"greedy {greedy['ms']:.1f} ms/batch ({120.0 / (greedy['ms'] / 1e3):.1f} x "
+          f"realtime), beam {BEAM} {beam['ms']:.1f} ms/batch, peak {beam['peak_gb']:.2f} "
+          f"GB; launches greedy {greedy['launches']} beam {beam['launches']}; first-step "
+          f"logits card bf16 vs cpu f32 rel L2 {e_log:.3e} (bound {LOGITS_REL_L2}), argmax "
+          f"card {int(lg_card.argmax())} cpu {int(lg_cpu.argmax())}; greedy profile: device "
+          f"busy {busy:.1f} ms in {n_events} events "
+          f"({n_events * cfg.n_text_layer / per:.0f} per step), K3-PE {k3pe:.2f} ms; top: "
+          + top_kernels(per_name, 4), flush=True)
+    check(bool(torch.isfinite(lg_card).all()) and e_log < LOGITS_REL_L2,
+          f"PE first-step logits rel L2 {e_log} < {LOGITS_REL_L2}")
+    e2e = beam_e2e(model, asr_cfg, audio, beam, cpu_model, enc_cpu, phase=20,
+                   rows="K3-PE", anc="K3a-PE")
+    del model, cpu_model, greedy["s2t"], beam["s2t"]
+    torch.cuda.empty_cache()
+    return {"greedy": greedy["launches"], "beam": beam["launches"], "e2e": e2e}
+
+
+def pe_train_phase(dev) -> dict:
+    """Phases 21-23: the TMECS cs_loss_pe recipe's step (PE in both stacks,
+    preset `whisper_pe`, cs_weight 1.0 over the PE decoder's p_cols,
+    SpecAug on, AdamW + WarmupLR 500, clip 1.0) on whisper-small with random
+    weights from torch seed 2, bf16 with every frozen leaf stored bf16, on
+    phase 7's 16 x 15 s batch: one warm-up and 5 timed steps (a PE block
+    bypasses K1, so no kernel of this repository runs: no launch), only
+    query_cs / key_cs change, everything frozen (the gates among it)
+    bit-identical; one more step under the profiler; and one micro-step,
+    the card (bf16) against the port on the CPU (float32), SpecAug off:
+    loss, loss_cs, grad norm and the *_cs gradient cosines per stack."""
+    from agacs_tpu_torch.models import whisper as tw
+    from agacs_tpu_torch.ops import flash_train
+    from agacs_tpu_torch.train.optim import OptimConfig, build_optimizer
+    from agacs_tpu_torch.train.trainer import make_train_step
+
+    sd = tw.init_whisper_params(torch.Generator().manual_seed(2),
+                                tw.make_config("small", pe_attention=True))
+    model, params, acfg = train_model(sd, dev, torch.bfloat16, specaug=True, pe=True)
+    names = {id(p): n for n, p in model.named_parameters()}
+    check(len(params) == 3 * 24 and all("_cs." in names[id(p)] for p in params),
+          "only query_cs (w, b) and key_cs (w) train, in 24 PE blocks")
+    check(all(p.dtype == torch.bfloat16 for p in model.parameters() if not p.requires_grad),
+          "every frozen parameter (the gates, layer norms and embeddings among them) "
+          "stored bf16")
+    opt, sched = build_optimizer(params, OptimConfig(warmup_steps=500))
+    step = make_train_step(model, acfg, opt, sched, grad_clip=1.0,
+                           generator=torch.Generator().manual_seed(1))
+    batch = make_train_batch(TRAIN_B, TRAIN_S, dev)
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters()
+              if not p.requires_grad}
+    before = [p.detach().clone() for p in params]
+    step([batch])
+    torch.cuda.synchronize()
+    flash_train.LAUNCHES = flash_train.BWD_LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        stats = step([batch])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append((float(stats["loss"]), float(stats["loss_cs"])))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(np.isfinite(v) for pair in losses for v in pair)
+          and int(stats["grad_nonfinite_total"]) == 0, f"finite PE losses {losses}")
+    check(flash_train.LAUNCHES == flash_train.BWD_LAUNCHES == 0,
+          "the PE encoder bypasses K1")
+    state = dict(model.named_parameters())
+    check(all(torch.equal(state[n], t) for n, t in frozen.items()),
+          "every frozen parameter (the gates among them) bit-identical after the steps")
+    check(all(not torch.equal(a, p) for a, p in zip(before, params)),
+          "every query_cs / key_cs parameter changed")
+    ms = statistics.median(times) * 1e3
+    audio_s = TRAIN_B * TRAIN_S
+    print(f"phase 21 PE train: whisper-small, PE both stacks, whisper_pe, bf16 frozen / "
+          f"f32 *_cs, {TRAIN_B} x {TRAIN_S} s, cs_weight 1.0, SpecAug on: {ms:.1f} ms/step "
+          f"(median of {[round(t * 1e3, 1) for t in times]}), {audio_s / (ms / 1e3):.1f} "
+          f"audio-s/s; peak {peak_gb:.2f} GB; {sum(p.numel() for p in params) / 1e6:.2f}M "
+          f"trainable; losses (loss, loss_cs) "
+          f"{[(round(a, 3), round(c, 4)) for a, c in losses]}", flush=True)
+    busy, n_events, per_name = device_profile(lambda: step([batch]))
+    print(f"phase 22 PE train profile: device busy {busy:.1f} ms in {n_events} device "
+          f"events; idle {1 - busy / ms:.1%} of phase 21's {ms:.1f} ms/step; top: "
+          + top_kernels(per_name, 10), flush=True)
+    del model, opt, frozen, before, step
+    torch.cuda.empty_cache()
+
+    one = {k: v[:1] for k, v in batch.items()}
+    ref = micro_step(sd, torch.device("cpu"), torch.float32, one, pe=True)
+    run = micro_step(sd, dev, torch.bfloat16, one, pe=True)
+    card = parity(run, ref)
+    print(f"phase 23 PE train parity vs cpu f32 (1 x {TRAIN_S} s; rel errors, cosines of "
+          f"the *_cs gradients): card bf16 {fmt_parity(card)}; bounds {PE_TRAIN_REL} "
+          f"{PE_TRAIN_COS}", flush=True)
+    check(all(np.isfinite(x) for x in (run[0], run[1]))
+          and all(bool(torch.isfinite(g).all()) for g in run[2].values()),
+          "finite PE card loss and grads")
+    for key, bnd in PE_TRAIN_REL.items():
+        check(card[key] <= bnd, f"PE train parity {key} rel {card[key]} <= {bnd}")
+    for key, bnd in PE_TRAIN_COS.items():
+        check(card[key] >= bnd, f"PE train parity {key} {card[key]} >= {bnd}")
+    return {"ms": ms, "peak_gb": peak_gb, "parity": card}
+
+
+# Broken copies of the int8 kernels and of K3's PE and int8 variants that
+# the checks must catch: name -> (source, [(text, replacement)], checks to
+# run). Built outside the checkout by `mutants()`.
 MUTANTS = {
-    "unmutated source": ("int8_gemm.cu", [], ("k8", "k2", "p15")),
+    "unmutated source": ("int8_gemm.cu", [], ("k8", "k2", "p15", "k3pe", "k3i8")),
+    "K3-PE gate ignored (a fixed 0.5 mix)": (
+        "decode_attn.cu", [("const float g = PE ? gate[h] : 0.f;",
+                            "const float g = PE ? 0.5f : 0.f;")], ("k3pe",)),
+    "K3-PE gate[0] for every head": (
+        "decode_attn.cu", [("const float g = PE ? gate[h] : 0.f;",
+                            "const float g = PE ? gate[0] : 0.f;")], ("k3pe",)),
+    "K3-PE k_cs read from k": (
+        "decode_attn.cu", [("g * dot_head(k_cs + off, qcs)", "g * dot_head(k + off, qcs)")],
+        ("k3pe",)),
+    "K3a-PE k_cs read from the query's own row": (
+        "decode_attn.cu", [("g * dot_head(k_cs + off, qcs)",
+                            "g * dot_head(k_cs + ((size_t)n * Tp + t) * D + h * DH, qcs)")],
+        ("k3pe",)),
+    "K3-int8 / K3s-int8 s_v missing": (
+        "decode_attn.cu", [("if (QUANT) s *= v_scale[h * DH + tid];", ""),
+                           ("if (QUANT) s *= v_scale[h * DH + i % DH];", "")], ("k3i8",)),
+    "K3-int8 / K3s-int8 s_k applied after the softmax": (
+        "decode_attn.cu",
+        [("return __bfloat162float(__float2bfloat16(x * k_scale[c]));", "return x;"),
+         ("if (QUANT) s *= v_scale[h * DH + tid];",
+          "if (QUANT) s *= v_scale[h * DH + tid] * k_scale[h * DH + tid];"),
+         ("if (QUANT) s *= v_scale[h * DH + i % DH];",
+          "if (QUANT) s *= v_scale[h * DH + i % DH] * k_scale[h * DH + i % DH];")],
+        ("k3i8",)),
     "K8q per-tensor scale (one fixed scale for every row)": (
         "int8_gemm.cu", [("i8::quant_scale(i8::warp_max(m))", "i8::quant_scale(8.0f)")],
         ("k8",)),
@@ -1266,6 +1806,10 @@ def mutants(dev) -> None:
                     check_k8(dev, g, timed=False)
                 elif chk == "k2":
                     check_k2(dev, g, timed=False)
+                elif chk == "k3pe":
+                    check_k3pe(dev, g, timed=False)
+                elif chk == "k3i8":
+                    check_k3i8(dev, g, timed=False)
                 else:
                     if not state:
                         cfg = tw.make_config("small", adapter=True, adapter_encoder=True,
@@ -1284,16 +1828,12 @@ def mutants(dev) -> None:
     cuda_lib._FNS.clear()
 
 
-def cli_phase() -> dict:
-    """Phase 17: bin.train with freeze_quant=int8, then bin.decode on its
-    checkpoint, both on the card, on 6 utterances of 4-5 s of seeded noise
-    (a generated data dir under build/, removed afterwards)."""
+def cli_data(root: str) -> tuple[str, int]:
+    """A data dir of 6 utterances of 4-5 s of seeded noise under `root`
+    (emptied first): (its path, the utterance count)."""
     import shutil
     import wave
 
-    from agacs_tpu_torch.bin import decode, train
-
-    root = os.path.join(ROOT, "build", "chip_smoke_cli")
     shutil.rmtree(root, ignore_errors=True)
     data = os.path.join(root, "data")
     os.makedirs(data)
@@ -1311,6 +1851,19 @@ def cli_phase() -> dict:
                               .tobytes())
             scp.write(f"u{i} {path}\n")
             txt.write(f"u{i} {t}\n")
+    return data, len(texts)
+
+
+def cli_phase() -> dict:
+    """Phase 17: bin.train with freeze_quant=int8, then bin.decode on its
+    checkpoint, both on the card, on `cli_data`'s generated data dir under
+    build/ (removed afterwards)."""
+    import shutil
+
+    from agacs_tpu_torch.bin import decode, train
+
+    root = os.path.join(ROOT, "build", "chip_smoke_cli")
+    data, n_utts = cli_data(root)
     exp = os.path.join(root, "exp")
     conf = os.path.join(ROOT, "recipes", "seame", "conf",
                         "train_asr_whisper_small_adapter_csloss_2stage.yaml")
@@ -1331,7 +1884,7 @@ def cli_phase() -> dict:
                        "--data_dir", data, "--output_dir", os.path.join(root, "dec"),
                        "--max_steps", "8"])
     decode_launches, decode_s = int8_counts(), time.perf_counter() - t0
-    check(set(res["hyps"]) == {f"u{i}" for i in range(len(texts))}
+    check(set(res["hyps"]) == {f"u{i}" for i in range(n_utts)}
           and os.path.exists(os.path.join(root, "dec", "hyp.trn")),
           "bin.decode wrote a hypothesis for every utterance")
     check(all(c["K2f"] > 0 and c["K8g"] > 0 for c in (train_launches, decode_launches))
@@ -1345,6 +1898,62 @@ def cli_phase() -> dict:
           f"hyps {sorted(res['hyps'].items())[:2]}", flush=True)
     shutil.rmtree(root, ignore_errors=True)
     return {"train": train_launches, "decode": decode_launches}
+
+
+def pe_cli_phase() -> dict:
+    """Phase 24: bin.train on the TMECS pedecoder_csloss recipe (PE in the
+    decoder, preset freeze_decoder_pe: the whole encoder and the decoder's
+    query_cs / key_cs train, so K1f and K1b run) for one epoch on
+    `cli_data`'s data dir, then bin.decode on its n-best average, greedy
+    (K3-PE, K3) and with --cross_kv_int8 (K3-PE, K3-int8), all on the card."""
+    import shutil
+
+    from agacs_tpu_torch.bin import decode, train
+    from agacs_tpu_torch.ops import flash_train
+
+    root = os.path.join(ROOT, "build", "chip_smoke_cli_pe")
+    data, n_utts = cli_data(root)
+    exp = os.path.join(root, "exp")
+    conf = os.path.join(ROOT, "recipes", "tmecs", "conf",
+                        "train_asr_whisper_small_pedecoder_csloss.yaml")
+    t0 = time.perf_counter()
+    reset_decode_counts()
+    flash_train.BWD_LAUNCHES = 0
+    out = train.main(["--config", conf, "--train_dir", data, "--valid_dir", data,
+                      "--exp_dir", exp, "--max_epoch", "1", "--batch_bins", "150000",
+                      "--override", "accum_grad=1", "keep_nbest_models=1"])
+    train_s = time.perf_counter() - t0
+    train_launches = {"K1f": flash_train.LAUNCHES, "K1b": flash_train.BWD_LAUNCHES}
+    with np.load(out["ave"]) as ave:
+        check("decoder/blocks/attn/query_cs/w" in ave.files
+              and "decoder/blocks/attn/gate" in ave.files
+              and "encoder/blocks/attn/query_cs/w" not in ave.files,
+              "the PE CLI's checkpoint holds the decoder's PE leaves")
+    loss = out["history"][1]["train"]["loss"]
+    check(np.isfinite(loss) and out["history"][1]["train"]["loss_cs"] > 0
+          and train_launches["K1b"] > 0, f"PE CLI train: loss {loss}, {train_launches}")
+    decodes = {}
+    for name, flags in (("greedy", []), ("cross_kv_int8", ["--cross_kv_int8"])):
+        reset_decode_counts()
+        t0 = time.perf_counter()
+        res = decode.main(["--config", os.path.join(exp, "config.yaml"), "--params",
+                           out["ave"], "--data_dir", data, "--output_dir",
+                           os.path.join(root, name), "--max_steps", "8", *flags])
+        counts = {k: v for k, v in decode_counts().items() if v}
+        decodes[name] = (time.perf_counter() - t0, counts)
+        check(set(res["hyps"]) == {f"u{i}" for i in range(n_utts)},
+              f"PE bin.decode {name} wrote a hypothesis for every utterance")
+        cross = "K3-int8" if flags else "K3"
+        check(counts.get("K3-PE", 0) > 0 and counts.get(cross, 0) == counts["K3-PE"]
+              and set(counts) == {"K1f", "K3-PE", cross},
+              f"PE bin.decode {name} launches {counts}")
+    print(f"phase 24 PE CLIs on the card: bin.train (TMECS pedecoder_csloss, "
+          f"whisper-small, 1 epoch, {n_utts} utterances) {train_s:.1f} s, loss {loss:.3f}, "
+          f"launches {train_launches}; bin.decode "
+          + "; ".join(f"{k} {t:.1f} s, launches {c}" for k, (t, c) in decodes.items()),
+          flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return {"train": train_launches, "decode": {k: c for k, (_, c) in decodes.items()}}
 
 
 def main() -> int:
@@ -1361,6 +1970,7 @@ def main() -> int:
     from agacs_tpu_torch.ops import cuda_lib, decode_attn, flash_train
 
     dev = torch.device("cuda:0")
+    t_start = time.perf_counter()
     if sys.argv[1:] == ["--mutants"]:
         mutants(dev)
         return 0
@@ -1390,6 +2000,8 @@ def main() -> int:
     k3 = check_k3(dev, g)
     k3a = check_k3a(dev, g)
     k3s = check_k3s(dev, g)
+    k3pe = check_k3pe(dev, g)
+    k3i8 = check_k3i8(dev, g)
     k8 = check_k8(dev, g)
     k2 = check_k2(dev, g)
 
@@ -1480,7 +2092,11 @@ def main() -> int:
     # 10-12. the beam request, its profile, and its end-to-end checks
     beam = beam_phase(model, asr_cfg, audio)
     beam_e2e(model, asr_cfg, audio, beam, cpu_model, enc_c)
-    del s2t, model, cpu_model
+
+    # 18. int8 cross-KV serving on the same model
+    cross8 = int8_cross_phase(model, sd, asr_cfg, audio, {"s2t": s2t, "results": results},
+                              beam)
+    del s2t, model, cpu_model, beam["s2t"]
     torch.cuda.empty_cache()
 
     # 7-9. the training path
@@ -1494,6 +2110,12 @@ def main() -> int:
     serve8 = int8_serve_phase(sd8, dev, audio)
     del sd8
     cli_phase()
+
+    # 19-24. PE attention: serving a PE decoder, training the cs_loss_pe
+    # recipe, and the CLIs on a PE recipe
+    pe_serve = pe_serve_phase(dev, audio)
+    pe_train_phase(dev)
+    pe_cli_phase()
 
     check(not any(m.split(".")[0] in ("jax", "jaxlib", "agacs_tpu") for m in sys.modules),
           "no jax, jaxlib or agacs_tpu module was imported")
@@ -1519,6 +2141,20 @@ def main() -> int:
         entry("decode_attn_shared_fwd (K3s, beam cross-attention, shared cross-KV)",
               "decode_attn.cu", "agacs_tpu/ops/decode_attn.py:830",
               beam["launches"]["K3s"], k3s),
+        entry("decode_attn_fwd PE (K3-PE, a PE decoder's greedy self-attention)",
+              "decode_attn.cu", "agacs_tpu/ops/decode_attn.py:140",
+              pe_serve["greedy"]["K3-PE"], k3pe["pe"]),
+        entry("decode_attn_fwd PE + ancestry (K3a-PE, a PE decoder's beam self-attention)",
+              "decode_attn.cu", "agacs_tpu/ops/decode_attn.py:140",
+              pe_serve["beam"]["K3a-PE"], k3pe["anc_pe"]),
+        entry("decode_attn_fwd int8 (K3-int8, greedy cross-attention, int8 cross-KV)",
+              "decode_attn.cu", "agacs_tpu/ops/decode_attn.py:140",
+              cross8["greedy"]["K3-int8"], k3i8["rows"]),
+        entry("decode_attn_shared_fwd int8 (K3s-int8, beam cross-attention, int8 "
+              "cross-KV)", "decode_attn.cu", "agacs_tpu/ops/decode_attn.py:830",
+              cross8["beam"]["K3s-int8"], k3i8["shared"]),
+        entry("decode_attn_fwd int8 + ancestry (K3a-int8; no decode step launches it)",
+              "decode_attn.cu", "agacs_tpu/ops/decode_attn.py:140", 0, k3i8["anc"]),
         entry("int8_mlp_fwd (K2f, fused W8A8 MLP forward)", "int8_mlp.cu",
               "agacs_tpu/ops/int8_mlp.py:112", train8["launches"]["K2f"], k2["fwd"]),
         entry("int8_mlp_bwd (K2b, fused W8A8 MLP dx)", "int8_mlp.cu",
@@ -1533,6 +2169,8 @@ def main() -> int:
     ]
     check(serve8["launches"]["K2f"] > 0 and serve8["launches"]["K8g"] > 0,
           "int8 serving launched K2f and K8g")
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

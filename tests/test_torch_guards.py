@@ -1,6 +1,7 @@
 """Guards of the port: it never imports JAX or the JAX package, never
 falls back from the card to the CPU or a plain version, and refuses what
-it cannot run yet."""
+it cannot run yet (side networks, `lid_ce`, serving-quantised
+checkpoints, CTC)."""
 
 import os
 import subprocess
@@ -130,6 +131,24 @@ out = Speech2Text(model, ASRModelConfig(whisper=cfg), max_steps=4)(
 assert [r.tokens[:5] for r in out] == [[50258, 50260, 50259, 50359, 50363]] * 2
 assert model.state_dict()["decoder.blocks.1.mlp.2.weight_q"].dtype == torch.int8
 assert int8_linear.LAUNCHES == int8_mlp.FWD_LAUNCHES == 0
+
+# PE (the TMECS cs_loss_pe layout): a whisper_pe + CS-loss train step, then
+# greedy and beam decoding with the k_cs cache; and int8 cross-KV greedy
+cfg = tw.make_config("test", pe_attention=True)
+model = tw.Whisper.from_state_dict(cfg, tw.init_whisper_params(torch.Generator().manual_seed(6), cfg))
+opt, sched = build_optimizer(apply_freeze(model, "whisper_pe"), OptimConfig())
+stats = make_train_step(model, ASRModelConfig(whisper=cfg, cs_weight=1.0), opt, sched,
+                        generator=torch.Generator().manual_seed(0))([batch])
+assert torch.isfinite(stats["loss"]) and float(stats["loss_cs"]) > 0
+for beam in (1, 3):
+    out = Speech2Text(model, ASRModelConfig(whisper=cfg), beam_size=beam, max_steps=4)(
+        np.random.RandomState(0).randn(2, 16000).astype(np.float32) * 0.1)
+    assert all(r.tokens[:5] == [50258, 50260, 50259, 50359, 50363] for r in out)
+cfg = tw.make_config("test", adapter=True, cross_kv_int8=True)
+model = tw.Whisper.from_state_dict(cfg, tw.init_whisper_params(torch.Generator().manual_seed(0), cfg))
+out = Speech2Text(model, ASRModelConfig(whisper=cfg), max_steps=4)(
+    np.random.RandomState(0).randn(2, 16000).astype(np.float32) * 0.1)
+assert len(out[0].tokens) > 5
 tmp_dir.cleanup()
 assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
 print("OK", len(mods))
@@ -207,6 +226,16 @@ def test_wrappers_never_fall_back_off_cpu():
         decode_attn.decode_cache_attention(x[:, 0], x, x, 3, 2, anc_local=anc, beam=2)
     with pytest.raises(ValueError):
         decode_attn.decode_shared_cache_attention(x[:, 0], x[:1], x[:1], 3, 2, 2)
+    with pytest.raises(ValueError):
+        decode_attn.decode_cache_attention(x[:, 0], x, x, 3, 2, q_cs=x[:, 0], k_cs=x,
+                                           gate=torch.empty(2, device="meta"))
+    x8 = torch.empty(2, 32, 128, device="meta", dtype=torch.int8)
+    sc = torch.empty(128, device="meta")
+    with pytest.raises(ValueError):
+        decode_attn.decode_cache_attention(x[:, 0], x8, x8, 3, 2, k_scale=sc, v_scale=sc)
+    with pytest.raises(ValueError):
+        decode_attn.decode_shared_cache_attention(x[:, 0], x8[:1], x8[:1], 3, 2, 2,
+                                                  k_scale=sc, v_scale=sc)
     xq = torch.empty(32, 128, device="meta", dtype=torch.int8)
     w_q = torch.empty(128, 256, device="meta", dtype=torch.int8)
     s = torch.empty(256, device="meta")
@@ -218,9 +247,14 @@ def test_wrappers_never_fall_back_off_cpu():
         int8_mlp.int8_mlp(x[0], w_q, s, s, w_q.t(), s[:128], s[:128])
 
 
+DECODE_COUNTERS = ("LAUNCHES", "ANC_LAUNCHES", "PE_LAUNCHES", "ANC_PE_LAUNCHES",
+                   "I8_LAUNCHES", "ANC_I8_LAUNCHES", "SHARED_LAUNCHES", "SHARED_I8_LAUNCHES")
+
+
 def test_launch_counters_stay_zero_on_cpu():
-    flash_train.LAUNCHES = flash_train.BWD_LAUNCHES = decode_attn.LAUNCHES = 0
-    decode_attn.ANC_LAUNCHES = decode_attn.SHARED_LAUNCHES = 0
+    flash_train.LAUNCHES = flash_train.BWD_LAUNCHES = 0
+    for name in DECODE_COUNTERS:
+        setattr(decode_attn, name, 0)
     int8_linear.QUANT_LAUNCHES = int8_linear.LAUNCHES = int8_linear.DGRAD_LAUNCHES = 0
     int8_mlp.FWD_LAUNCHES = int8_mlp.BWD_LAUNCHES = 0
     cfg = tw.make_config("test", adapter=True)
@@ -232,14 +266,18 @@ def test_launch_counters_stay_zero_on_cpu():
         out = Speech2Text(model, ASRModelConfig(whisper=cfg), beam_size=beam,
                           max_steps=3)(audio)
         assert len(out[0].tokens) >= 6
-    assert flash_train.LAUNCHES == 0 and decode_attn.LAUNCHES == 0
-    assert flash_train.BWD_LAUNCHES == 0
-    assert decode_attn.ANC_LAUNCHES == 0 and decode_attn.SHARED_LAUNCHES == 0
+    cfg = tw.make_config("test", pe_decoder=True, cross_kv_int8=True)
+    model = tw.Whisper.from_state_dict(
+        cfg, tw.init_whisper_params(torch.Generator().manual_seed(2), cfg))
+    for beam in (1, 3):
+        Speech2Text(model, ASRModelConfig(whisper=cfg), beam_size=beam, max_steps=3)(audio)
+    assert flash_train.LAUNCHES == 0 and flash_train.BWD_LAUNCHES == 0
+    assert all(getattr(decode_attn, name) == 0 for name in DECODE_COUNTERS)
     assert int8_linear.QUANT_LAUNCHES == int8_linear.LAUNCHES == 0
     assert int8_mlp.FWD_LAUNCHES == 0
 
 
-@pytest.mark.parametrize("kernel", ["K3a", "K3s"])
+@pytest.mark.parametrize("kernel", ["K3a", "K3s", "K3-PE", "K3-int8", "K3s-int8"])
 def test_cuda_request_to_a_beam_kernel_without_a_card_raises(kernel):
     """A CUDA-device request never falls back to the plain version: on a
     machine without a card it raises before anything runs."""
@@ -247,26 +285,32 @@ def test_cuda_request_to_a_beam_kernel_without_a_card_raises(kernel):
         pytest.skip("this machine has a card")
     with pytest.raises((RuntimeError, AssertionError)):
         q = torch.zeros(6, 128, dtype=torch.bfloat16, device="cuda")
+        kv = torch.zeros(6, 32, 128, dtype=torch.bfloat16, device="cuda")
+        kv8 = torch.zeros(2, 32, 128, dtype=torch.int8, device="cuda")
+        sc = torch.ones(128, device="cuda")
         if kernel == "K3a":
-            kv = torch.zeros(6, 16, 128, dtype=torch.bfloat16, device="cuda")
             decode_attn.decode_cache_attention(
                 q, kv, kv, 3, 2, beam=3,
-                anc_local=torch.zeros(6, 16, dtype=torch.int32, device="cuda"))
+                anc_local=torch.zeros(6, 32, dtype=torch.int32, device="cuda"))
+        elif kernel == "K3-PE":
+            decode_attn.decode_cache_attention(q, kv, kv, 3, 2, q_cs=q, k_cs=kv,
+                                               gate=torch.zeros(2, device="cuda"))
+        elif kernel == "K3-int8":
+            decode_attn.decode_cache_attention(q[:2], kv8, kv8, 3, 2, k_scale=sc, v_scale=sc)
+        elif kernel == "K3s-int8":
+            decode_attn.decode_shared_cache_attention(q, kv8, kv8, 3, 2, 3, k_scale=sc,
+                                                      v_scale=sc)
         else:
-            kv = torch.zeros(2, 16, 128, dtype=torch.bfloat16, device="cuda")
-            decode_attn.decode_shared_cache_attention(q, kv, kv, 3, 2, 3)
+            decode_attn.decode_shared_cache_attention(q, kv[:2], kv[:2], 3, 2, 3)
 
 
-@pytest.mark.parametrize("flags", [
-    dict(pe_attention=True), dict(pe_decoder=True), dict(pe_encoder=True),
-    dict(side_network=tw.SideNetworkConfig()), dict(cross_kv_int8=True),
-])
+@pytest.mark.parametrize("flags", [dict(side_network=tw.SideNetworkConfig())])
 def test_unported_model_configs_raise(flags):
     with pytest.raises(NotImplementedError):
         tw.Whisper(tw.make_config("test", **flags))
 
 
-@pytest.mark.parametrize("leaf", ["serving_int8", "token_emb_q", "logits_w_q", "query_cs"])
+@pytest.mark.parametrize("leaf", ["serving_int8", "token_emb_q", "logits_w_q"])
 def test_unported_checkpoints_raise(leaf):
     cfg = jw.make_config("test")
     tree = jax.tree.map(np.asarray, jw.init_whisper_params(jax.random.PRNGKey(0), cfg))
@@ -276,8 +320,6 @@ def test_unported_checkpoints_raise(leaf):
             "b": np.zeros((2, 256))}
         tree["decoder"]["token_emb_q"] = np.zeros((4, 64), np.int8)
         tree["decoder"]["logits_w_q"] = np.zeros((64, 4), np.int8)
-    elif leaf == "query_cs":
-        tree["decoder"]["blocks"]["attn"]["query_cs"] = {"w": np.zeros((2, 64, 64))}
     else:
         tree["decoder"][leaf] = np.zeros((4, 64), np.int8)
     with pytest.raises(NotImplementedError):
@@ -302,21 +344,6 @@ def test_composed_beam_with_ctc_raises():
         composed_beam_decode(step, torch.zeros(1, 2), batch=1, vocab=8, beam_size=2,
                              primer=(1,), max_steps=3, eot=0, max_pos=8, ctc_weight=0.3,
                              ctc_logp=torch.zeros(1, 5, 8))
-
-
-@pytest.mark.parametrize("kw", [
-    dict(q_cs=torch.zeros(4, 128), k_cs=torch.zeros(4, 16, 128),
-         gate=torch.zeros(2)),
-    dict(k_scale=torch.ones(128), v_scale=torch.ones(128)),
-    dict(k_scale=torch.ones(128), v_scale=torch.ones(128), shared=True),
-])
-def test_unported_decode_attention_variants_raise(kw):
-    q, kv = torch.zeros(4, 128), torch.zeros(4, 16, 128)
-    with pytest.raises(NotImplementedError):
-        if kw.pop("shared", False):
-            decode_attn.decode_shared_cache_attention(q, kv[:2], kv[:2], 3, 2, 2, **kw)
-        else:
-            decode_attn.decode_cache_attention(q, kv, kv, 3, 2, **kw)
 
 
 @pytest.mark.parametrize("kw", [dict(ctc_weight=0.3), dict(cs_weight=0.1, cs_loss_type="lid_ce"),
