@@ -1,27 +1,43 @@
-"""Decoding CLI (counterpart of the whisper path of
-`agacs_tpu/bin/decode.py`): data dir -> hyp.trn + ref.trn + rtf.json,
-greedy or beam search.
+"""Decoding CLI (counterpart of `agacs_tpu/bin/decode.py`): data dir ->
+hyp.trn + ref.trn + rtf.json.
 
-  python -m agacs_tpu_torch.bin.decode --config exp/x/config.yaml \
-      --params exp/x/valid.acc.ave.params.npz \
-      --data_dir data/dev --output_dir exp/x/decode_dev \
-      [--decode_config conf/decode_asr_whisper.yaml] [--beam_size 5] \
-      [--length_bonus 0.0] [--decode_loop scan] [--max_steps 200] \
+  python -m agacs_tpu_torch.bin.decode --config exp/x/config.yaml \\
+      --params exp/x/valid.acc.ave.params.npz \\
+      --data_dir data/dev --output_dir exp/x/decode_dev \\
+      [--decode_config conf/decode_asr.yaml] [--beam_size 10] \\
+      [--ctc_weight 0.4] [--lm_exp exp/lm] [--lm_weight 0.2] \\
+      [--length_bonus 0.0] [--decode_loop scan] [--max_steps 200] \\
       [--batch_size 8] [--compute_dtype bfloat16] [--device cuda]
-  python -m agacs_tpu.bin.score --ref exp/x/decode_dev/ref.trn \
+  python -m agacs_tpu_torch.bin.score --ref exp/x/decode_dev/ref.trn \\
       --hyp exp/x/decode_dev/hyp.trn --output_dir exp/x/decode_dev/score
 
-`--params` is the `.params.npz` the JAX trainer writes. A checkpoint of
-the int8 frozen trunk (`freeze_quant: int8`, its `w_q`/`w_s` leaves)
-builds the quantised model and decodes on kernels K8 and K2; the config's
-`freeze_quant: int8` + `freeze_param` (what JAX's CLI keys on) and the npz
-must agree. The .trn files
-have the format `agacs_tpu.bin.score` reads. The decode YAML's keys
-apply as in JAX (`penalty` is the length bonus). `--cross_kv_int8` stores
-the precomputed cross-attention K/V int8 (kernels K3-int8 / K3s-int8). A
-PE checkpoint (`pe_whisper` in the config) builds the PE model. CTC / LM
-fusion (a CTC head, or the YAML's ctc_weight / lm_weight) are not ported
-yet and raise; the JAX CLI's LM and n-gram flags do not exist here.
+`--params` is the `.params.npz` the JAX trainer writes. The config's
+`encoder:` key picks the family, as in JAX.
+
+Whisper family: greedy or beam search with the dual-language primer. A
+checkpoint of the int8 frozen trunk (`freeze_quant: int8`, its `w_q`/`w_s`
+leaves) builds the quantised model and decodes on kernels K8 and K2; the
+config's `freeze_quant: int8` + `freeze_param` and the npz must agree.
+`--cross_kv_int8` stores the precomputed cross-attention K/V int8 (kernels
+K3-int8 / K3s-int8). A PE checkpoint (`pe_whisper`) builds the PE model.
+CTC and LM fusion on the whisper family are not ported yet and raise (a
+checkpoint with a CTC head, or `--lm_exp`).
+
+Conformer family (`recipes/seame/run_conformer.sh` stage 4, with
+`decode_asr.yaml`: beam 10, ctc_weight 0.4, lm_weight 0.2): the
+conformer encoder (kernel K5 in every block at bf16 within its envelope),
+CTC log-probs from the head's product in the encoder's dtype and a
+float32 log-softmax, and the joint CTC/attention beam search with the
+transformer LM of `--lm_exp` (its `config.yaml` lm_conf and
+`valid.loss.ave.params.npz`, built in float32) fused at `--lm_weight`
+(`decode/joint_beam.py`: K3 on the decoder's caches, K3-f32 on the LM's).
+`--max_steps 0` means the number of encoder frames. `--ngram_file` is not
+ported yet and raises.
+
+The decode YAML's keys apply as in JAX (`penalty` is the length bonus,
+explicit flags win, a YAML with maxlenratio sets --max_steps 0). The .trn
+files have the format `agacs_tpu.bin.score` and `agacs_tpu_torch.bin.score`
+read.
 """
 
 from __future__ import annotations
@@ -32,16 +48,17 @@ import json
 import logging
 import os
 import sys
+import time
 
 import numpy as np
 import torch
 
-from agacs_tpu_torch.eval.scoring import write_trn
 from agacs_tpu_torch.data.io import DataDir
 from agacs_tpu_torch.decode.speech2text import Speech2Text
+from agacs_tpu_torch.eval.scoring import write_trn
 from agacs_tpu_torch.models.checkpoint import params_from_numpy
 from agacs_tpu_torch.models.whisper import Whisper
-from agacs_tpu_torch.utils.config import load_yaml, model_config_from_dict
+from agacs_tpu_torch.utils.config import load_yaml, task_from_dict
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -49,8 +66,9 @@ def build_argparser() -> argparse.ArgumentParser:
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--config", required=True)
     p.add_argument("--decode_config", default=None,
-                   help="decode-option YAML (decode_asr_whisper.yaml schema); "
-                        "CLI flags override it")
+                   help="decode-option YAML (decode_asr_whisper.yaml / decode_asr.yaml: "
+                        "beam_size, ctc_weight, lm_weight, penalty, maxlenratio); CLI "
+                        "flags override it")
     p.add_argument("--params", required=True)
     p.add_argument("--data_dir", required=True)
     p.add_argument("--output_dir", required=True)
@@ -64,21 +82,27 @@ def build_argparser() -> argparse.ArgumentParser:
                         "step) or while (exits once every utterance has stopped)")
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--length_bonus", type=float, default=0.0)
+    p.add_argument("--ctc_weight", type=float, default=0.3,
+                   help="CTC weight in the joint beam (conformer family)")
+    p.add_argument("--lm_exp", default=None,
+                   help="LM experiment dir for shallow fusion (conformer family)")
+    p.add_argument("--lm_weight", type=float, default=0.3)
+    p.add_argument("--ngram_file", default=None, help="not ported: raises")
     p.add_argument("--compute_dtype", default="bfloat16",
                    choices=["bfloat16", "float32"])
     p.add_argument("--cross_kv_int8", action="store_true",
                    help="store the precomputed cross-attention K/V int8 with "
                         "per-channel scales (halves the bytes the decode "
-                        "step's cross-attention reads)")
+                        "step's cross-attention reads; whisper family)")
     p.add_argument("--device", default="cuda")
     return p
 
 
-def _apply_decode_config(args, path: str, raw_argv: list[str]) -> dict:
+def _apply_decode_config(args, path: str, raw_argv: list[str]) -> None:
     """Decode-option YAML values become argparse defaults (explicit CLI
     flags win); `penalty` is the length bonus, as in JAX (:95); a config
     bearing maxlenratio derives maxlen from frames unless --max_steps was
-    given. Returns the scorer weights it sets."""
+    given."""
     dc = load_yaml(path)
     given = {a.split("=")[0].lstrip("-").replace("-", "_")
              for a in raw_argv if a.startswith("--")}
@@ -89,18 +113,51 @@ def _apply_decode_config(args, path: str, raw_argv: list[str]) -> dict:
             setattr(args, dest, type(cur)(value) if cur is not None else value)
     if "maxlenratio" in dc and "max_steps" not in given:
         args.max_steps = 0
-    return {k: float(dc.get(k, 0.0)) for k in ("ctc_weight", "lm_weight")}
 
 
-def main(argv: list[str] | None = None) -> dict:
-    args = build_argparser().parse_args(argv)
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
-    weights = {}
-    if args.decode_config:
-        weights = _apply_decode_config(
-            args, args.decode_config, argv if argv is not None else sys.argv[1:])
-    raw = load_yaml(args.config)
-    cfg = model_config_from_dict(raw, compute_dtype=getattr(torch, args.compute_dtype))
+def _load_lm_config(lm_exp: str):
+    """The LM config from the LM experiment's config.yaml (`lm_conf`), in
+    float32 as JAX's CLI builds it."""
+    from agacs_tpu_torch.models.lm import TransformerLMConfig
+
+    path = os.path.join(lm_exp, "config.yaml")
+    if not os.path.exists(path):
+        logging.warning("%s missing; assuming default LM architecture", path)
+        return TransformerLMConfig(compute_dtype=torch.float32)
+    conf = load_yaml(path).get("lm_conf", {}) or {}
+    return TransformerLMConfig(compute_dtype=torch.float32, **conf)
+
+
+def _load_lm(args):
+    """The LM of --lm_exp on --device, or None (no --lm_exp, or lm_weight 0)."""
+    if not (args.lm_exp and args.lm_weight > 0.0):
+        return None
+    from agacs_tpu_torch.models.checkpoint import lm_params_from_numpy
+    from agacs_tpu_torch.models.lm import TransformerLM
+
+    cfg = _load_lm_config(args.lm_exp)
+    with np.load(os.path.join(args.lm_exp, "valid.loss.ave.params.npz")) as tree:
+        sd = lm_params_from_numpy({k: tree[k] for k in tree.files}, cfg)
+    return TransformerLM.from_state_dict(cfg, sd, device=args.device)
+
+
+def _chunks(args, ds: DataDir):
+    """Length-sorted chunks of --batch_size, padded to 1 s buckets:
+    (utterance ids, (B, S) float32 audio, (B,) lengths)."""
+    utts = sorted(ds.utt_ids, key=ds.num_samples)
+    for i in range(0, len(utts), args.batch_size):
+        chunk = utts[i : i + args.batch_size]
+        speech = [ds.speech(u) for u in chunk]
+        s_max = -(-max(len(x) for x in speech) // 16000) * 16000
+        audio = np.zeros((len(chunk), s_max), np.float32)
+        lens = np.zeros((len(chunk),), np.int64)
+        for k, x in enumerate(speech):
+            audio[k, : len(x)] = x
+            lens[k] = len(x)
+        yield chunk, audio, lens
+
+
+def _decode_whisper(args, raw: dict, cfg, ds: DataDir):
     if args.cross_kv_int8:
         cfg = dataclasses.replace(
             cfg, whisper=dataclasses.replace(cfg.whisper, cross_kv_int8=True))
@@ -112,40 +169,85 @@ def main(argv: list[str] | None = None) -> dict:
                          f"{'is not' if int8_conf else 'is'} int8")
     if any(k.startswith("ctc/") for k in tree.files):
         raise NotImplementedError(
-            "checkpoint has a CTC head: joint CTC/attention decoding is not "
-            "ported yet")
+            "checkpoint has a CTC head: joint CTC/attention decoding of the whisper "
+            "family is not ported yet")
     model = Whisper.from_state_dict(
         cfg.whisper, params_from_numpy(tree, cfg.whisper), device=args.device)
     s2t = Speech2Text(
         model, cfg, beam_size=args.beam_size,
         max_steps=args.max_steps if args.max_steps > 0 else None,
         maxlenratio=args.maxlenratio, length_bonus=args.length_bonus,
-        loop=args.decode_loop, **weights,
+        loop=args.decode_loop, lm_weight=args.lm_weight if args.lm_exp else 0.0,
     )
-
-    ds = DataDir(args.data_dir)
     hyps, refs = {}, {}
-    utts = sorted(ds.utt_ids, key=ds.num_samples)
-    for i in range(0, len(utts), args.batch_size):
-        chunk = utts[i : i + args.batch_size]
-        speech = [ds.speech(u) for u in chunk]
-        s_max = -(-max(len(x) for x in speech) // 16000) * 16000  # 1 s buckets
-        audio = np.zeros((len(chunk), s_max), np.float32)
-        lens = np.zeros((len(chunk),), np.int64)
-        for k, x in enumerate(speech):
-            audio[k, : len(x)] = x
-            lens[k] = len(x)
+    for chunk, audio, lens in _chunks(args, ds):
         for u, r in zip(chunk, s2t(audio, lengths=lens)):
             hyps[u] = r.text
             refs[u] = ds.text[u]
-        logging.info("decoded %d/%d (running 1/RTF=%.1fx)",
-                     min(i + args.batch_size, len(utts)), len(utts), s2t.inverse_rtf)
-    rtf_report = {
+        logging.info("decoded %d/%d (running 1/RTF=%.1fx)", len(hyps), len(ds.utt_ids),
+                     s2t.inverse_rtf)
+    return hyps, refs, {
         "rtf": s2t.rtf, "inverse_rtf": s2t.inverse_rtf,
         "audio_seconds": s2t._audio_seconds,
-        "decode_seconds": s2t._decode_seconds, "n_utts": len(utts),
+        "decode_seconds": s2t._decode_seconds, "n_utts": len(hyps),
         "device": str(model.decoder.logits_weight.device),
     }
+
+
+def _decode_conformer(args, cfg, ds: DataDir):
+    """JAX `_decode_conformer` + `_chunked_decode`: per chunk, encode, CTC
+    log-probs, joint beam with the LM; the RTF over all chunks and over the
+    chunks after the first (the first pays the kernel builds)."""
+    from agacs_tpu_torch.decode.joint_beam import decode_conformer_batch
+    from agacs_tpu_torch.models.checkpoint import conformer_params_from_numpy
+    from agacs_tpu_torch.models.conformer_asr import ConformerASR
+    from agacs_tpu_torch.text import WhisperTokenizer
+
+    with np.load(args.params) as tree:
+        sd = conformer_params_from_numpy({k: tree[k] for k in tree.files}, cfg)
+    model = ConformerASR.from_state_dict(cfg, sd, device=args.device)
+    lm = _load_lm(args)
+    tokenizer = WhisperTokenizer()
+    hyps, refs, secs = {}, {}, []
+    for chunk, audio, lens in _chunks(args, ds):
+        t0 = time.perf_counter()
+        rows, _ = decode_conformer_batch(
+            model, lm, torch.from_numpy(audio).to(args.device),
+            torch.from_numpy(lens).to(args.device), beam_size=args.beam_size,
+            ctc_weight=args.ctc_weight, lm_weight=args.lm_weight,
+            max_steps=args.max_steps, length_bonus=args.length_bonus,
+            loop=args.decode_loop)
+        secs.append((time.perf_counter() - t0, float(lens.sum()) / 16000.0))
+        for u, ids in zip(chunk, rows):
+            hyps[u] = tokenizer.decode(ids)
+            refs[u] = ds.text[u]
+        logging.info("decoded %d/%d", len(hyps), len(ds.utt_ids))
+    decode_s, audio_s = sum(d for d, _ in secs), sum(a for _, a in secs)
+    rtf = decode_s / max(audio_s, 1e-9)
+    report = {"rtf": rtf, "inverse_rtf": 1.0 / max(rtf, 1e-9), "audio_seconds": audio_s,
+              "decode_seconds": decode_s, "n_utts": len(hyps),
+              "device": str(model.ctc.weight.device)}
+    if len(secs) > 1:
+        warm = sum(d for d, _ in secs[1:]) / max(sum(a for _, a in secs[1:]), 1e-9)
+        report.update(rtf_warm=warm, inverse_rtf_warm=1.0 / max(warm, 1e-9))
+    return hyps, refs, report
+
+
+def main(argv: list[str] | None = None) -> dict:
+    args = build_argparser().parse_args(argv)
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
+    if args.decode_config:
+        _apply_decode_config(args, args.decode_config,
+                             argv if argv is not None else sys.argv[1:])
+    if args.ngram_file:
+        raise NotImplementedError("--ngram_file: n-gram fusion is not ported yet")
+    raw = load_yaml(args.config)
+    task = task_from_dict(raw, compute_dtype=getattr(torch, args.compute_dtype))
+    ds = DataDir(args.data_dir)
+    if task.kind == "conformer":
+        hyps, refs, rtf_report = _decode_conformer(args, task.cfg, ds)
+    else:
+        hyps, refs, rtf_report = _decode_whisper(args, raw, task.cfg, ds)
     os.makedirs(args.output_dir, exist_ok=True)
     write_trn(os.path.join(args.output_dir, "hyp.trn"), hyps)
     write_trn(os.path.join(args.output_dir, "ref.trn"), refs)

@@ -26,7 +26,8 @@ from the stored weights, as JAX does) and run kernels K8 and K2; the
 checkpoints hold them as `w_q`/`w_s`, which the decode CLI loads. Not
 ported, and raising NotImplementedError: --resume, --tensor_parallel > 1,
 --optim_state_shard, --ckpt_backend orbax, batch types other than numel,
-an OpenAI .pt --init_param.
+an OpenAI .pt --init_param, and the conformer and transducer families
+(`recipes/seame/run_conformer.sh` stage 3).
 """
 
 from __future__ import annotations
@@ -138,6 +139,9 @@ def main(argv: list[str] | None = None) -> dict:
     raw = apply_overrides(load_yaml(args.config), args.override)
     tcfg = trainer_config_from_dict(raw)
     check_supported(args, tcfg)
+    if raw.get("encoder", "whisper") != "whisper":
+        raise NotImplementedError(f"training the {raw.get('encoder')!r} family (the CTC "
+                                  "loss, K5's backward, K4) is not ported yet")
     dtype = getattr(torch, args.compute_dtype)
     device = torch.device(args.device)
     cfg = model_config_from_dict(raw, compute_dtype=dtype)

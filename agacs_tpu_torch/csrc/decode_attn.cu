@@ -15,7 +15,13 @@
 //   K3s  `_make_kernel_shared` (`decode_shared_cache_attention` ->
 //        `_call_shared`): the j beam queries of group g over ONE shared
 //        (Tp, d) cache, the utterance's cross-attention K/V; K3s-int8 its
-//        `quant=True` form.
+//        `quant=True` form;
+//   K3-f32  `_make_kernel` on float32 caches (`_dispatch` sizes its blocks
+//        by `k.dtype.itemsize`, decode_attn.py:615): the transformer LM's
+//        self-attention, which the decode CLI builds in float32
+//        (agacs_tpu/bin/decode.py:131-133). Query, caches and output are
+//        float32 and p is not rounded (the TPU kernel casts it to the
+//        cache's dtype).
 // Same math in all: one query token per row, q (pre-scaled by d_head^-0.5)
 // . k over a head's 64 channels with bf16 (or int8) inputs and float32
 // accumulation, float32 softmax over keys 0..pos, normalized BEFORE the
@@ -23,12 +29,14 @@
 // output. The int8 forms fold the scales as the TPU kernel does: q·s_k is
 // formed in float32 and rounded to bf16 once per block (the TPU's bf16
 // query matrix), int8 -> float is exact, and s_v multiplies the float32
-// value sum before the bf16 cast.
+// value sum before the bf16 cast. K3-f32 keeps everything in float32.
 //
 // What bounds them here: HBM bytes. A call reads 2*N*(pos+1)*d*2 bytes of
 // cache (K3 / K3a self-attention; K3a reads the same bytes as plain rows,
 // only from other rows of the group; PE 3*N*(pos+1)*d*2, 1.5x; int8
-// 2*N*(pos+1)*d, half) or 2*G*T_enc*d*2 (K3s: 18.4 MB at G=8, T_enc=750,
+// 2*N*(pos+1)*d, half; K3-f32 2*N*(pos+1)*d*4, twice; the LM's 80 rows x
+// 104 keys x 512 read 34 MB per layer at pos 103) or 2*G*T_enc*d*2 (K3s:
+// 18.4 MB at G=8, T_enc=750,
 // d=768, where the per-row layout of 40 beam rows would read 92 MB; int8
 // half of that), and does 4 FLOPs per byte-pair (K3s: 4*j), far below
 // the card's ~295 FLOP/byte ridge. So the design reads each needed byte
@@ -139,6 +147,18 @@ __device__ __forceinline__ void load_head(const int8_t* __restrict__ kp, float* 
   }
 }
 
+__device__ __forceinline__ void load_head(const float* __restrict__ kp, float* kf) {
+  const float4* kr = reinterpret_cast<const float4*>(kp);
+#pragma unroll
+  for (int i = 0; i < DH / 4; ++i) {
+    const float4 u = kr[i];
+    kf[4 * i] = u.x;
+    kf[4 * i + 1] = u.y;
+    kf[4 * i + 2] = u.z;
+    kf[4 * i + 3] = u.w;
+  }
+}
+
 // The channel pair (c, c+1) of a value row.
 __device__ __forceinline__ float2 load_pair(const bf16* __restrict__ vp) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(vp));
@@ -148,6 +168,26 @@ __device__ __forceinline__ float2 load_pair(const int8_t* __restrict__ vp) {
   const char2 c = *reinterpret_cast<const char2*>(vp);
   return make_float2((float)c.x, (float)c.y);
 }
+
+__device__ __forceinline__ float2 load_pair(const float* __restrict__ vp) {
+  return *reinterpret_cast<const float2*>(vp);
+}
+
+// The query / output type of a cache type: float32 caches (K3-f32) take
+// float32 queries and give float32 outputs; bf16 and int8 caches bf16.
+template <typename KT>
+struct Query {
+  typedef bf16 T;
+};
+template <>
+struct Query<float> {
+  typedef float T;
+};
+
+__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ void put(bf16* dst, float x) { *dst = __float2bfloat16(x); }
+__device__ __forceinline__ void put(float* dst, float x) { *dst = x; }
 
 // q . k over one head's 64 channels.
 template <typename KT>
@@ -160,12 +200,12 @@ __device__ __forceinline__ float dot_head(const KT* __restrict__ kp, const float
   return s;
 }
 
-// A query channel as the kernel dots it: bf16 as given; against int8 keys
-// q·s_k in float32, rounded to bf16 (the TPU's bf16 query matrix).
-template <typename KT>
-__device__ __forceinline__ float query_channel(bf16 q, const float* __restrict__ k_scale,
+// A query channel as the kernel dots it: as given; against int8 keys q·s_k
+// in float32, rounded to bf16 (the TPU's bf16 query matrix).
+template <typename KT, typename QT>
+__device__ __forceinline__ float query_channel(QT q, const float* __restrict__ k_scale,
                                                int c) {
-  const float x = __bfloat162float(q);
+  const float x = to_float(q);
   if constexpr (std::is_same<KT, int8_t>::value)
     return __bfloat162float(__float2bfloat16(x * k_scale[c]));
   return x;
@@ -173,18 +213,20 @@ __device__ __forceinline__ float query_channel(bf16 q, const float* __restrict__
 
 // K3 (ANC false), K3a (ANC true); PE: the gated dual-QK scores over k_cs
 // with the head's gate[h] (post-sigmoid, float32); KT int8: the int8
-// caches with k_scale / v_scale (d,) float32. anc: (N, Tp) int32 local
+// caches with k_scale / v_scale (d,) float32; KT float: K3-f32, float32
+// query, caches and output, p not rounded. anc: (N, Tp) int32 local
 // rows in [0, J) (clamped into it); row n of group n / J reads position t
 // from row (n / J) * J + anc[n, t], for k, k_cs and v alike.
 template <bool ANC, bool PE, typename KT>
 __global__ void __launch_bounds__(THREADS)
-decode_attn_kernel(const bf16* __restrict__ q, const KT* __restrict__ k,
+decode_attn_kernel(const typename Query<KT>::T* __restrict__ q, const KT* __restrict__ k,
                    const KT* __restrict__ v, const int* __restrict__ anc,
                    const bf16* __restrict__ q_cs, const bf16* __restrict__ k_cs,
                    const float* __restrict__ gate, const float* __restrict__ k_scale,
-                   const float* __restrict__ v_scale, bf16* __restrict__ o, int Tp,
-                   int H, int pos, int J) {
+                   const float* __restrict__ v_scale, typename Query<KT>::T* __restrict__ o,
+                   int Tp, int H, int pos, int J) {
   constexpr bool QUANT = std::is_same<KT, int8_t>::value;
+  constexpr bool F32 = std::is_same<KT, float>::value;
   extern __shared__ float p[];  // pos + 1 scores, then weights; K3a: then pos + 1 rows
   __shared__ float qs[DH];
   __shared__ float qcs[PE ? DH : 1];
@@ -228,8 +270,10 @@ decode_attn_kernel(const bf16* __restrict__ q, const KT* __restrict__ k,
     sum += e;
   }
   sum = block_sum<>(sum, red);
-  for (int t = tid; t < nk; t += THREADS)
-    p[t] = __bfloat162float(__float2bfloat16(p[t] / sum));  // normalize, then bf16
+  for (int t = tid; t < nk; t += THREADS) {
+    const float w = p[t] / sum;
+    p[t] = F32 ? w : __bfloat162float(__float2bfloat16(w));  // normalize, then bf16
+  }
   __syncthreads();
 
   float2 acc = make_float2(0.f, 0.f);
@@ -246,7 +290,7 @@ decode_attn_kernel(const bf16* __restrict__ q, const KT* __restrict__ k,
     float s = part[0][tid];
     for (int w = 1; w < WARPS; ++w) s += part[w][tid];
     if (QUANT) s *= v_scale[h * DH + tid];  // v's scale, after the sum
-    o[(size_t)n * D + h * DH + tid] = __float2bfloat16(s);
+    put(o + (size_t)n * D + h * DH + tid, s);
   }
 }
 
@@ -257,10 +301,11 @@ int launch_rows(const void* q, const void* k, const void* v, const void* anc,
                 cudaStream_t stream) {
   dim3 grid(H, N);
   const size_t smem = (size_t)(pos + 1) * (sizeof(float) + (ANC ? sizeof(int) : 0));
+  typedef typename Query<KT>::T QT;
   decode_attn_kernel<ANC, PE, KT><<<grid, THREADS, smem, stream>>>(
-      (const bf16*)q, (const KT*)k, (const KT*)v, (const int*)anc, (const bf16*)q_cs,
+      (const QT*)q, (const KT*)k, (const KT*)v, (const int*)anc, (const bf16*)q_cs,
       (const bf16*)k_cs, (const float*)gate, (const float*)ks, (const float*)vs,
-      (bf16*)o, Tp, H, pos, J);
+      (QT*)o, Tp, H, pos, J);
   return (int)cudaGetLastError();
 }
 
@@ -412,6 +457,16 @@ extern "C" int decode_attn_fwd(const void* q, const void* k, const void* v,
   if (pe) return anc ? ROWS(true, true, bf16) : ROWS(false, true, bf16);
   return anc ? ROWS(true, false, bf16) : ROWS(false, false, bf16);
 #undef ROWS
+}
+
+// K3-f32: q, o (N, H*64) float32; k, v (N, Tp, H*64) float32; all
+// contiguous and 16-byte aligned; 0 <= pos < Tp; (pos + 1) floats of
+// shared memory, as K3. Returns cudaGetLastError() after the launch.
+extern "C" int decode_attn_f32_fwd(const void* q, const void* k, const void* v, void* o,
+                                   int N, int Tp, int H, int pos, void* stream) {
+  return launch_rows<false, false, float>(q, k, v, nullptr, nullptr, nullptr, nullptr,
+                                          nullptr, nullptr, o, N, Tp, H, pos, 1,
+                                          (cudaStream_t)stream);
 }
 
 // K3s (k_scale null: bf16 caches) and K3s-int8. q, o: (G*J, H*64) bf16

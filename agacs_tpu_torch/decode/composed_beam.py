@@ -1,15 +1,20 @@
 """Scorer-composed beam search over dense (B, beam, L) hypotheses
-(counterpart of `agacs_tpu/decode/composed_beam.py`, attention-only
-scorer set).
+(counterpart of `agacs_tpu/decode/composed_beam.py`).
 
-Score of extending hypothesis g with token c (espnet's BeamSearch with
-the decoder as the only full scorer):
+Score of extending hypothesis g with token c (espnet's BeamSearch with the
+decoder and the LM as full scorers and CTC as a partial one):
 
-  s(g.c) = s(g) + log p_att(c | g, X) + length_bonus
+  s(g.c) = s(g) + (1-l)·log p_att(c | g, X) + l·[psi_ctc(g.c) - psi_ctc(g)]
+           + m·log p_lm(c | g) + length_bonus      (l = ctc_weight,
+                                                     m = lm_weight)
 
 Semantics, as in JAX (:1-41):
-  * the primer is forced token by token through the decoder at zero
-    score, outside the search loop;
+  * the primer is forced token by token through the decoder and the LM at
+    zero score, outside the search loop (not through the CTC state);
+  * with CTC, each row's `pre_beam` best tokens by the full (attention +
+    LM) score are the candidates; CTC prefix scoring
+    (`decode/ctc_prefix.py`) adds its increment to them, and an eot
+    candidate takes the CTC end-of-sentence score;
   * each step takes the global top-k over beam x vocab; a selected eot
     moves its hypothesis into a per-utterance top-k ENDED pool and leaves
     a dead slot (score NEG_INF) among the running beams;
@@ -23,7 +28,10 @@ Semantics, as in JAX (:1-41):
 
 The decoder is a `step_fn(cur (N,), pos, state) -> (logits (N, V), state)`
 over flat N = B*beam rows, so tests can drive the loop with a synthetic
-step. CTC, LM and n-gram fusion are not ported yet and raise.
+step; the LM an `lm_step_fn(cur, pos, state) -> (log-probs (N, V),
+state)` whose state (per-layer lists of (N, ...) caches) is reordered
+along axis 0. The CTC frames (B, T, V) are read per utterance, not
+repeated per beam row. n-gram fusion is not ported yet and raises.
 
 Ties: `jax.lax.top_k` ranks equal values by the lower index, and
 `torch.topk` promises no order among them. Ties are common here: dead
@@ -53,6 +61,14 @@ def top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     key = key * n + (n - 1 - torch.arange(n, device=x.device))
     idx = torch.topk(key, k, dim=-1).indices
     return x.gather(-1, idx), idx
+
+
+def _gather_axis0(state, idx):
+    if isinstance(state, torch.Tensor):
+        return state[idx]
+    if isinstance(state, dict):
+        return {key: _gather_axis0(x, idx) for key, x in state.items()}
+    return type(state)(_gather_axis0(x, idx) for x in state)
 
 
 def _gather_axis1(state, idx):
@@ -96,14 +112,19 @@ def composed_beam_decode(
     positions). reorder_state_fn(state, flat_parent) reorders the decoder
     state after each selection (default: axis 1 of every tensor in it, for
     stacked (L, N, ...) states, as in JAX).
-    `pre_beam` only matters with CTC and is accepted for the JAX
-    signature. loop "scan" runs to the step cap with no host read and
-    stopped rows frozen; "while" reads `stopped.all()` once per step and
-    exits when every row has stopped. Both give identical results."""
-    if (ctc_logp is not None and ctc_weight > 0.0) or ctc_frame_lens is not None:
-        raise NotImplementedError("composed_beam_decode: CTC prefix scoring is not ported yet")
-    if lm_step_fn is not None or lm_weight > 0.0:
-        raise NotImplementedError("composed_beam_decode: LM shallow fusion is not ported yet")
+    ctc_logp (B, T, V) float32 frame log-probs with ctc_weight > 0 enables
+    the CTC scorer (ctc_frame_lens (B,): valid frames, default T); pre_beam
+    candidates per row (0: int(1.5 * beam) + 1, espnet's ratio). lm_step_fn
+    with lm_weight > 0 enables LM fusion. loop "scan" runs to the step cap
+    with stopped rows frozen; "while" reads `stopped.all()` once per step
+    and exits when every row has stopped. Both give identical results."""
+    from agacs_tpu_torch.decode.ctc_prefix import (
+        CTCPrefixState,
+        ctc_eos_score,
+        ctc_prefix_init,
+        ctc_prefix_score,
+    )
+
     if ngram_step_fn is not None or ngram_weight > 0.0:
         raise NotImplementedError("composed_beam_decode: n-gram fusion is not ported yet")
     if loop not in ("scan", "while"):
@@ -116,6 +137,21 @@ def composed_beam_decode(
     rows = torch.arange(b, device=device)[:, None]
     if reorder_state_fn is None:
         reorder_state_fn = _gather_axis1
+    use_ctc = ctc_logp is not None and ctc_weight > 0.0
+    use_lm = lm_step_fn is not None and lm_weight > 0.0
+    w_att = (1.0 - ctc_weight) if use_ctc else 1.0
+    n_pre = pre_beam if pre_beam > 0 else int(1.5 * k) + 1
+    ctc = None
+    if use_ctc:
+        t_ctc = ctc_logp.shape[1]
+        lens = (ctc_frame_lens if ctc_frame_lens is not None
+                else torch.full((b,), t_ctc, device=ctc_logp.device))
+        lens_r = lens.long().repeat_interleave(k)
+        ctc_rows = torch.arange(b, device=ctc_logp.device).repeat_interleave(k)
+        valid_frames = (int(lens.min()), int(lens.max()))  # one host read per request
+        s0 = ctc_prefix_init(ctc_logp)
+        ctc = CTCPrefixState(r_nb=s0.r_nb[ctc_rows], r_b=s0.r_b[ctc_rows],
+                             last=s0.last[ctc_rows], score=s0.score[ctc_rows])
 
     def full(shape, value, dtype):
         return torch.full(shape, value, dtype=dtype, device=device)
@@ -125,9 +161,12 @@ def composed_beam_decode(
 
     # primer prefill: tokens 0..n_primer-2 forced through the decoder; the
     # loop starts at pos = n_primer-1, whose logits pick the first token
-    dec = dec_state0
+    dec, lm = dec_state0, lm_state0
     for p in range(n_primer - 1):
-        _, dec = step_fn(full((b * k,), primer[p], torch.long), p, dec)
+        cur_p = full((b * k,), primer[p], torch.long)
+        _, dec = step_fn(cur_p, p, dec)
+        if use_lm:
+            _, lm = lm_step_fn(cur_p, p, lm)
 
     scores0 = full((b, k), NEG_INF, torch.float32)
     scores0[:, 0] = 0.0
@@ -142,18 +181,35 @@ def composed_beam_decode(
         "stopped": full((b,), False, torch.bool),
     }
 
-    def body(c: dict, pos: int, dec):
+    def body(c: dict, pos: int, dec, lm, ctc):
         tokens, scores = c["tokens"], c["scores"]
         cur = tokens.reshape(b * k, total)[:, pos]
         logits, dec_state = step_fn(cur, pos, dec)
-        logp = torch.log_softmax(logits.float(), -1)
-        totals = scores[:, :, None] + (logp + length_bonus).reshape(b, k, v)
+        full_sc = w_att * torch.log_softmax(logits.float(), -1)
+        lm_state = lm
+        if use_lm:
+            lm_lp, lm_state = lm_step_fn(cur, pos, lm)
+            full_sc = full_sc + lm_weight * lm_lp
+        cands = cand_state = None
+        n_cand = v
+        if use_ctc:
+            pre_scores, cands = top_k(full_sc, n_pre)  # (N, C)
+            psi, cand_state = ctc_prefix_score(ctc_logp, ctc, cands, frame_lens=lens_r,
+                                               rows=ctc_rows, valid_frames=valid_frames)
+            ctc_inc = psi - ctc.score[:, None]
+            eos_inc = ctc_eos_score(ctc, lens_r) - ctc.score
+            ctc_inc = torch.where(cands == eot, eos_inc[:, None], ctc_inc)
+            full_sc = pre_scores + ctc_weight * ctc_inc
+            n_cand = n_pre
+        totals = scores[:, :, None] + (full_sc + length_bonus).reshape(b, k, n_cand)
         active = ~c["stopped"]
 
         # the step's global top-k: only selected candidates can end a
         # hypothesis (an eot outside the top-k is pruned, not ended)
-        sel_scores, sel_idx = top_k(totals.reshape(b, k * v), k)
-        sel_parent, sel_tok = sel_idx // v, sel_idx % v
+        sel_scores, sel_idx = top_k(totals.reshape(b, k * n_cand), k)
+        sel_parent, sel_cand = sel_idx // n_cand, sel_idx % n_cand
+        sel_tok = sel_cand if cands is None else \
+            cands.reshape(b, k, n_cand)[rows, sel_parent, sel_cand]
         ended_cand = torch.where((sel_tok == eot) & active[:, None], sel_scores,
                                  NEG_INF)
 
@@ -184,6 +240,15 @@ def composed_beam_decode(
         tokens_new[:, :, pos + 1] = sel_tok
         flat_parent = (rows * k + sel_parent).reshape(-1)
         dec_new = reorder_state_fn(dec_state, flat_parent)
+        lm_new = _gather_axis0(lm_state, flat_parent) if use_lm else lm_state
+        ctc_new = ctc
+        if use_ctc:
+            flat_cand = sel_cand.reshape(-1)
+            ctc_new = CTCPrefixState(
+                r_nb=cand_state.r_nb[flat_parent, :, flat_cand],
+                r_b=cand_state.r_b[flat_parent, :, flat_cand],
+                last=cand_state.last[flat_parent, flat_cand],
+                score=cand_state.score[flat_parent, flat_cand])
         # "no hypothesis. Finish decoding.": all live slots dead
         stopped = stopped | (new_scores.amax(1) <= NEG_INF / 2)
 
@@ -201,11 +266,11 @@ def composed_beam_decode(
             "best_ended": sel(best_ended, c["best_ended"]),
             "dry_count": sel(dry_count, c["dry_count"]),
             "stopped": stopped,
-        }, dec_new
+        }, dec_new, lm_new, ctc_new
 
     pos = n_primer - 1
     while pos < limit and (loop == "scan" or not bool(carry["stopped"].all())):
-        carry, dec = body(carry, pos, dec)
+        carry, dec, lm, ctc = body(carry, pos, dec, lm, ctc)
         pos += 1
 
     # "adding <eos> in the last position": live beams (eot appended, score

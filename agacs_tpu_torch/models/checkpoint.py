@@ -19,6 +19,13 @@ JAX's (in, out) layout kept) and `.../w_s` (float32) to an `Int8Linear`'s
 attention's `query_cs` / `key_cs` are linears like the others and its
 per-head `gate` a plain (n_head,) leaf. Checkpoints the port cannot run
 (serving-quantized `token_emb_q` / `logits_w_q`, side networks) raise.
+
+The conformer ASR model and the transformer LM have their own pair each
+(`conformer_params_from_numpy` / `numpy_from_conformer_params`,
+`lm_params_from_numpy` / `numpy_from_lm_params`): JAX's stacked `blocks`
+leaves split per layer, linears transposed, the encoder's q, k, v
+concatenated into one `qkv` linear, the conv stem HWIO <-> OIHW, the
+depthwise kernel (k, 1, d) <-> (d, 1, k), `mvn/mean` <-> `mvn_mean`.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ from typing import Any, Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
 from agacs_tpu_torch.models.whisper import (
     Whisper,
@@ -80,6 +88,12 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> dict[str, Any]:
     return out
 
 
+def _flat(tree: Mapping[str, Any]) -> dict[str, Any]:
+    """A nested tree or a flat save_pytree mapping -> the flat mapping."""
+    return _flatten(tree) if any(isinstance(v, Mapping) for v in tree.values()) \
+        else {k: tree[k] for k in tree}
+
+
 def _check_keys(flat: Mapping[str, Any]) -> None:
     for key in flat:
         for part in key.split("/"):
@@ -94,8 +108,7 @@ def params_from_numpy(tree: Mapping[str, Any], cfg: WhisperConfig,
     With strict=False, names whose leaf is missing are left out (for
     init_param's keep-the-init semantics)."""
     check_supported(cfg)
-    flat = _flatten(tree) if any(isinstance(v, Mapping) for v in tree.values()) \
-        else {k: tree[k] for k in tree}
+    flat = _flat(tree)
     _check_keys(flat)
     meta = Whisper(cfg, device="meta")
     int8 = {name[: -len(".weight")] for name in meta.state_dict()
@@ -150,3 +163,124 @@ def load_model(cfg: WhisperConfig, params_path: str | None, device) -> Whisper:
     else:
         sd = init_whisper_params(torch.Generator().manual_seed(0), cfg)
     return Whisper.from_state_dict(cfg, sd, device=device)
+
+
+# ---------------------------------------------------------------------------
+# the conformer ASR model and the transformer LM
+# ---------------------------------------------------------------------------
+
+
+def _module_leaves(model: nn.Module) -> dict[str, tuple[tuple[str, ...], int | None, str]]:
+    """State-dict name -> (JAX flat keys, layer index or None, layout) for
+    the conformer family's modules, decided by the owning module's type:
+    Linear "linear" (JAX (in, out) transposed; the fused `qkv` is JAX's
+    q, k, v concatenated, "qkv"), Conv2d "conv2d" (HWIO vs OIHW), the
+    depthwise Conv1d "dwconv" ((k, 1, d) vs (d, 1, k), its bias JAX's
+    `dw_b`), everything else "plain" (layer norms, embeddings, position
+    biases, batch-norm and MVN statistics)."""
+    owners = dict(model.named_modules())
+    out = {}
+    for name in model.state_dict():
+        path, _, leaf = name.rpartition(".")
+        mod = owners[path]
+        parts = path.split(".") if path else []
+        layer = None
+        if "blocks" in parts:
+            i = parts.index("blocks")
+            layer = int(parts.pop(i + 1))
+        short = {"weight": "w", "bias": "b"}.get(leaf, leaf)
+        layout = "plain"
+        if isinstance(mod, nn.Linear):
+            layout = "linear" if leaf == "weight" else "plain"
+            if parts[-1] == "qkv":
+                keys = tuple("/".join(parts[:-1] + [p, short]) for p in ("q", "k", "v"))
+                out[name] = (keys, layer, "qkv" if leaf == "weight" else "qkv_b")
+                continue
+        elif isinstance(mod, nn.Conv2d):
+            layout = "conv2d" if leaf == "weight" else "plain"
+        elif isinstance(mod, nn.Conv1d):
+            parts, short = parts[:-1], "dw" if leaf == "weight" else "dw_b"
+            layout = "dwconv" if leaf == "weight" else "plain"
+        elif leaf.startswith("mvn_"):
+            parts, short = ["mvn"], leaf[len("mvn_"):]
+        out[name] = (("/".join(parts + [short]),), layer, layout)
+    return out
+
+
+def _from_numpy(tree: Mapping[str, Any], meta: nn.Module) -> dict:
+    flat = _flat(tree)
+    sd = {}
+    for name, (keys, layer, layout) in _module_leaves(meta).items():
+        arrs = [np.asarray(flat[k] if layer is None else flat[k][layer], np.float32)
+                for k in keys]
+        a = arrs[0]
+        if layout == "linear":
+            a = a.T
+        elif layout == "qkv":
+            a = np.concatenate([x.T for x in arrs], 0)
+        elif layout == "qkv_b":
+            a = np.concatenate(arrs)
+        elif layout == "conv2d":
+            a = a.transpose(3, 2, 0, 1)
+        elif layout == "dwconv":
+            a = a.transpose(2, 1, 0)
+        sd[name] = torch.from_numpy(np.array(a, np.float32, order="C"))
+    return sd
+
+
+def _to_numpy(state_dict: Mapping[str, torch.Tensor], meta: nn.Module) -> dict[str, np.ndarray]:
+    out: dict[str, np.ndarray] = {}
+    layers: dict[str, dict[int, np.ndarray]] = {}
+    for name, (keys, layer, layout) in _module_leaves(meta).items():
+        a = state_dict[name].detach().float().cpu().numpy()
+        if layout == "linear":
+            arrs = [a.T]
+        elif layout == "qkv":
+            arrs = [x.T for x in np.split(a, 3, 0)]
+        elif layout == "qkv_b":
+            arrs = np.split(a, 3)
+        elif layout == "conv2d":
+            arrs = [a.transpose(2, 3, 1, 0)]
+        elif layout == "dwconv":
+            arrs = [a.transpose(2, 1, 0)]
+        else:
+            arrs = [a]
+        for key, x in zip(keys, arrs):
+            if layer is None:
+                out[key] = np.ascontiguousarray(x)
+            else:
+                layers.setdefault(key, {})[layer] = x
+    for key, per in layers.items():
+        out[key] = np.stack([per[i] for i in range(len(per))])
+    return out
+
+
+def conformer_params_from_numpy(tree: Mapping[str, Any], cfg) -> dict:
+    """JAX conformer-ASR params (`init_conformer_asr_params`'s tree as numpy
+    arrays, or the flat mapping `save_pytree` writes) -> float32 state dict
+    of `models.conformer_asr.ConformerASR` (with `mvn` and the `ctc` head)."""
+    from agacs_tpu_torch.models.conformer_asr import ConformerASR
+
+    return _from_numpy(tree, ConformerASR(cfg, device="meta"))
+
+
+def numpy_from_conformer_params(state_dict: Mapping[str, torch.Tensor], cfg) -> dict:
+    """The inverse: the flat "/"-joined float32 mapping `save_pytree` writes
+    (per-layer leaves stacked), which JAX's `load_pytree_like` reads."""
+    from agacs_tpu_torch.models.conformer_asr import ConformerASR
+
+    return _to_numpy(state_dict, ConformerASR(cfg, device="meta"))
+
+
+def lm_params_from_numpy(tree: Mapping[str, Any], cfg) -> dict:
+    """JAX transformer-LM params (tree or flat npz) -> float32 state dict of
+    `models.lm.TransformerLM`."""
+    from agacs_tpu_torch.models.lm import TransformerLM
+
+    return _from_numpy(tree, TransformerLM(cfg, device="meta"))
+
+
+def numpy_from_lm_params(state_dict: Mapping[str, torch.Tensor], cfg) -> dict:
+    from agacs_tpu_torch.models.lm import TransformerLM
+
+    return _to_numpy(state_dict, TransformerLM(cfg, device="meta"))

@@ -17,7 +17,9 @@ nothing but the bytes read.
                                   (1 - g_h)·q.k + g_h·q_cs.k_cs per head h
                                   over a third cache (K3-PE, K3a-PE);
                                   int8 (k_scale, v_scale): int8 caches with
-                                  per-channel scales (K3-int8, K3a-int8)
+                                  per-channel scales (K3-int8, K3a-int8);
+                                  float32 q and caches: K3-f32 (plain rows
+                                  only; the transformer LM's self-attention)
   decode_shared_cache_attention   K3s: the j beam queries of group g over
                                   ONE shared (Tp, d) cache (cross-KV);
                                   int8 caches with scales (K3s-int8)
@@ -64,6 +66,7 @@ I8_LAUNCHES = 0  # K3-int8
 ANC_I8_LAUNCHES = 0  # K3a-int8
 SHARED_LAUNCHES = 0  # K3s
 SHARED_I8_LAUNCHES = 0  # K3s-int8
+F32_LAUNCHES = 0  # K3-f32
 # (ancestry, PE, int8) -> the counter of that kernel
 _COUNTER = {(False, False, False): "LAUNCHES", (True, False, False): "ANC_LAUNCHES",
             (False, True, False): "PE_LAUNCHES", (True, True, False): "ANC_PE_LAUNCHES",
@@ -235,13 +238,15 @@ def decode_shared_cache_attention_plain(
 
 
 def _check_kernel_inputs(what: str, n_head: int, d: int, tensors,
-                         cache_dtype: torch.dtype = torch.bfloat16) -> None:
-    """What every decode kernel takes: bf16 queries, bf16 or int8 caches,
-    f32 scales and gate, one device, contiguous, 16-byte aligned, d_head 64."""
+                         cache_dtype: torch.dtype = torch.bfloat16,
+                         query_dtype: torch.dtype = torch.bfloat16) -> None:
+    """What every decode kernel takes: bf16 queries with bf16 or int8
+    caches, or float32 queries with float32 caches (K3-f32); f32 scales and
+    gate, one device, contiguous, 16-byte aligned, d_head 64."""
     dev = tensors[0][1].device
     for name, x in tensors:
         want = {"k": cache_dtype, "v": cache_dtype, "gate": torch.float32,
-                "k_scale": torch.float32, "v_scale": torch.float32}.get(name, torch.bfloat16)
+                "k_scale": torch.float32, "v_scale": torch.float32}.get(name, query_dtype)
         if x.dtype != want or x.device != dev:
             raise ValueError(f"{what}: {name} is {x.dtype} on {x.device}; the "
                              f"kernel takes {want} on {dev}")
@@ -300,7 +305,9 @@ def decode_cache_attention(
     group); otherwise each row reads its own cache row (K3). PE: q_cs (N,
     d), k_cs (N, Tp, d) read through the same map, gate (h,) float32
     post-sigmoid. int8: k/v int8 with (d,) float32 k_scale/v_scale and
-    Tp % TIME_ALIGN_I8 == 0. PE and int8 together raise, as JAX asserts."""
+    Tp % TIME_ALIGN_I8 == 0. PE and int8 together raise, as JAX asserts.
+    float32 q, k and v (K3-f32) take plain rows only: with a map, PE or
+    scales they raise; any other cache dtype raises too."""
     pe, quant = q_cs is not None, k_scale is not None
     if pe and quant:
         raise ValueError("decode_cache_attention: int8 caches are unsupported "
@@ -320,6 +327,11 @@ def decode_cache_attention(
         raise ValueError(f"decode_cache_attention: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     ins = [("q", q), ("k", k), ("v", v)]
+    if k.dtype == torch.float32:
+        if anc or pe or quant:
+            raise ValueError("decode_cache_attention: float32 caches take plain rows "
+                             "only (no ancestry map, PE or scales)")
+        return _f32_rows(q, k, v, pos, n_head)
     if pe:
         if q_cs.shape != q.shape or k_cs.shape != k.shape or gate.shape != (n_head,):
             raise ValueError(f"decode_cache_attention: q_cs {tuple(q_cs.shape)}, k_cs "
@@ -351,6 +363,25 @@ def decode_cache_attention(
     cuda_lib.check(rc, "decode_attn_fwd")
     counter = _COUNTER[(anc, pe, quant)]
     globals()[counter] += 1
+    return o
+
+
+def _f32_rows(q, k, v, pos: int, n_head: int) -> torch.Tensor:
+    """Launch K3-f32 (checked by the caller's shape tests)."""
+    n, tp, d = k.shape
+    _check_kernel_inputs("decode_cache_attention", n_head, d, [("q", q), ("k", k), ("v", v)],
+                         torch.float32, torch.float32)
+    if pos + 1 > MAX_KEYS:
+        raise ValueError(f"decode_cache_attention: pos + 1 = {pos + 1} keys exceed the "
+                         f"kernel's {MAX_KEYS}")
+    o = torch.empty_like(q)
+    fn = cuda_lib.load("decode_attn", "decode_attn_f32_fwd",
+                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), n, tp, n_head, pos,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    cuda_lib.check(rc, "decode_attn_f32_fwd")
+    global F32_LAUNCHES
+    F32_LAUNCHES += 1
     return o
 
 

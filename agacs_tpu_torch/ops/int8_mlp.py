@@ -18,11 +18,14 @@ returns zero bias gradients, a bias that requires grad raises: no freeze
 preset trains the trunk's biases while its weights are frozen.
 
 The model (`models/whisper.py` `MLP`) takes this path, as JAX's `mlp_fwd`
-does, for at least `TR` rows and d, h multiples of 128 (`supports`); other
-shapes take the unfused `int8_linear` . gelu . `int8_linear` (`unfused`).
-The two differ numerically (float32 vs compute-dtype hidden), so the row
-rule is kept for parity with JAX, not for speed. JAX's VMEM budget in
-`supports` is TPU-only and is not carried over; the kernel itself takes
+does, for at least `TR` rows and the shapes JAX's `supports` admits: d, h
+multiples of 128 within JAX's budget 2·d·h + 8·TR·h + 8·TR·d <= 13 MiB
+(`agacs_tpu/ops/int8_mlp.py:63-69`); other shapes take the unfused
+`int8_linear` . gelu . `int8_linear` (`unfused`). The two differ
+numerically (float32 vs compute-dtype hidden), so both the row rule and
+the budget decide the numbers and are kept for parity with JAX, not for
+speed: whisper-medium and -large (d 1024, h 4096 and d 1280, h 5120) fall
+outside the budget and run unfused, as in JAX. The kernel itself takes
 h <= 3072 (its shared-memory budget) and raises beyond.
 """
 
@@ -48,7 +51,10 @@ _RSQRT2PI = 1.0 / math.sqrt(2.0 * math.pi)  # the same float32 as JAX's f32 sqrt
 
 
 def supports(d: int, h: int) -> bool:
-    return d % 128 == 0 and h % 128 == 0
+    """JAX's `supports` shape rule, without its backend switch."""
+    if d % 128 or h % 128:
+        return False
+    return 2 * d * h + (TR * h) * 4 * 2 + TR * d * 8 <= 13 * 1024 * 1024
 
 
 def _erf(x: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,126 @@
+"""Relative-position (Transformer-XL) multi-head attention of the conformer
+encoder (counterpart of `agacs_tpu/ops/relpos_flash.py`; kernel K5's
+forward, `csrc/relpos_flash.cu`).
+
+Per head h, with qu = q + pos_bias_u and qv = q + pos_bias_v formed by the
+caller:
+
+  s[q, j] = (qu[q] . k[j] + qv[q] . pe[T-1-q+j]) * d_head^-0.5 + mask[j]
+  out[q]  = softmax_j(s[q]) . v
+
+qu, qv, k, v in the packed (B, T, D) layout the projections produce; pe
+(Wp, D) the projected positions T-1 .. -(T-1) in rows 0 .. 2T-2, zero-padded
+to Wp = 2T-1 rounded up to 128 (`pad_pe`); mask (B, T) additive float32,
+0 on valid keys and `NEG_MASK` on padded ones.
+
+`supports` is JAX's envelope of the kernel without its backend test:
+64 <= T <= 640, d % 128 == 0, d_head % 8 == 0, bf16 inputs. Inside it the
+conformer (`models/conformer.py`) calls `relpos_mha`; outside it takes the
+einsum path, as JAX's `_rel_attn` does. The two paths round differently
+(float32 scores here, bf16 einsums there), so the envelope decides the
+numbers and is not a fallback. `relpos_mha` runs the plain version
+`relpos_mha_plain` for a CPU tensor and launches K5 for a CUDA tensor (the
+kernel takes d_head 64) or raises. K5's backward (the conformer's training
+path) is not ported yet: a CUDA tensor that needs a gradient raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from agacs_tpu_torch.ops import cuda_lib
+
+MIN_T, MAX_T = 64, 640
+NEG_MASK = -1e30
+D_HEAD = 64  # what K5 takes
+LAUNCHES = 0  # K5 forward launches since the last reset (chip_smoke.py reads it)
+
+
+def _wp(t: int) -> int:
+    return -(-(2 * t - 1) // 128) * 128
+
+
+def pad_pe(pe: torch.Tensor, t: int) -> torch.Tensor:
+    """(2T-1, D) projected positions -> (Wp, D) zero-padded."""
+    return F.pad(pe, (0, 0, 0, _wp(t) - pe.shape[0]))
+
+
+def supports(t: int, d_model: int, n_head: int, dtype: torch.dtype) -> bool:
+    """Does the conformer take the kernel's path at these shapes (JAX
+    `supports` minus the backend test)?"""
+    if not MIN_T <= t <= MAX_T:
+        return False
+    if d_model % n_head or d_model % 128 or (d_model // n_head) % 8:
+        return False
+    return dtype == torch.bfloat16
+
+
+def relpos_mha_plain(qu, qv, k, v, pe, mask, n_head: int) -> torch.Tensor:
+    """The plain version: JAX `_fwd_kernel`'s arithmetic (:148-175). Scores
+    from products of the input dtype's values accumulated in float32, the
+    shift as a gather of columns T-1-q+j, the additive mask, a float32
+    softmax with the UN-normalized p rounded to v's dtype for the value
+    product, the division by the row sum after it."""
+    b, t, d = qu.shape
+    dh = d // n_head
+
+    def heads(x):
+        return x.reshape(b, t, n_head, dh).transpose(1, 2).float()
+
+    peh = pe[: 2 * t - 1].reshape(2 * t - 1, n_head, dh).transpose(0, 1).float()
+    ac = heads(qu) @ heads(k).transpose(-1, -2)  # (B, h, T, T)
+    bdf = heads(qv) @ peh.transpose(-1, -2)[None]  # (B, h, T, 2T-1)
+    cols = (t - 1) - torch.arange(t, device=qu.device)[:, None] \
+        + torch.arange(t, device=qu.device)[None, :]
+    bd = bdf.gather(3, cols.expand(b, n_head, t, t))
+    s = (ac + bd) * dh ** -0.5 + mask.float()[:, None, None, :]
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    o = (p.to(v.dtype).float() @ heads(v)) / p.sum(-1, keepdim=True)
+    return o.transpose(1, 2).reshape(b, t, d).to(qu.dtype)
+
+
+def _check(qu, qv, k, v, pe, mask, n_head: int) -> None:
+    b, t, d = qu.shape
+    for name, x in (("qu", qu), ("qv", qv), ("k", k), ("v", v), ("pe", pe), ("mask", mask)):
+        want = torch.float32 if name == "mask" else torch.bfloat16
+        if x.dtype != want or x.device != qu.device:
+            raise ValueError(f"relpos_flash_fwd: {name} is {x.dtype} on {x.device}; the "
+                             f"kernel takes {want} on {qu.device}")
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"relpos_flash_fwd: {name} must be contiguous and 16-byte "
+                             "aligned")
+    if any(x.shape != qu.shape for x in (qv, k, v)) or mask.shape != (b, t) \
+            or pe.dim() != 2 or pe.shape[0] < 2 * t - 1 or pe.shape[1] != d:
+        raise ValueError(f"relpos_flash_fwd: qu {tuple(qu.shape)}, qv {tuple(qv.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}, pe {tuple(pe.shape)}, "
+                         f"mask {tuple(mask.shape)}")
+    if d != n_head * D_HEAD or not supports(t, d, n_head, qu.dtype):
+        raise ValueError(f"relpos_flash_fwd: T {t}, d {d}, {n_head} heads: the kernel "
+                         f"takes {MIN_T} <= T <= {MAX_T} and d_head {D_HEAD}")
+
+
+def relpos_mha(qu, qv, k, v, pe, mask, n_head: int) -> torch.Tensor:
+    """(B, T, D) rel-pos attention before the output projection: the plain
+    version on the CPU, K5 on a CUDA tensor (or a raise)."""
+    if qu.device.type == "cpu":
+        return relpos_mha_plain(qu, qv, k, v, pe, mask, n_head)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (qu, qv, k, v, pe)):
+        raise NotImplementedError("relpos_mha: K5's backward (conformer training) is not "
+                                  "ported yet")
+    if qu.device.type != "cuda":
+        raise ValueError(f"relpos_mha: unsupported device {qu.device}")
+    _check(qu, qv, k, v, pe, mask, n_head)
+    b, t, _ = qu.shape
+    o = torch.empty_like(qu)
+    fn = cuda_lib.load("relpos_flash", "relpos_flash_fwd",
+                       [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    rc = fn(qu.data_ptr(), qv.data_ptr(), k.data_ptr(), v.data_ptr(), pe.data_ptr(),
+            mask.data_ptr(), o.data_ptr(), b, t, n_head,
+            torch.cuda.current_stream(qu.device).cuda_stream)
+    cuda_lib.check(rc, "relpos_flash_fwd")
+    global LAUNCHES
+    LAUNCHES += 1
+    return o

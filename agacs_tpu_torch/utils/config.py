@@ -1,8 +1,11 @@
 """Recipe YAML -> configs (counterpart of `agacs_tpu/utils/config.py`): the
 whisper model config with its training fields (model_conf, specaug_conf,
-src_layer, head_mask), the optimizer/scheduler, and the trainer fields.
-The same reference-schema YAML resolves to the same values as in the JAX
-package. `yaml` is imported only when a file is read or written."""
+src_layer, head_mask), the optimizer/scheduler, the trainer fields, and
+`task_from_dict`, the model family the `encoder:` key selects (whisper or
+the conformer recipe's hybrid CTC/attention model; the transducer is not
+ported yet). The same reference-schema YAML resolves to the same values as
+in the JAX package. `yaml` is imported only when a file is read or
+written."""
 
 from __future__ import annotations
 
@@ -81,8 +84,8 @@ def model_config_from_dict(d: dict, compute_dtype: Any = torch.bfloat16) -> ASRM
     dec_conf = d.get("decoder_conf", {}) or {}
     model_conf = d.get("model_conf", {}) or {}
     if d.get("encoder", "whisper") != "whisper":
-        raise NotImplementedError(
-            f"encoder family {d.get('encoder')!r}: only whisper is ported yet")
+        raise ValueError(f"encoder family {d.get('encoder')!r}: model_config_from_dict "
+                         "builds the whisper family; use task_from_dict")
     side = _side_network_config(
         enc_conf.get("side_network_conf") or dec_conf.get("side_network_conf")
         if (enc_conf.get("side_network") or dec_conf.get("side_network"))
@@ -154,3 +157,80 @@ def trainer_config_from_dict(d: dict) -> TrainerConfig:
         optim_state_shard=bool(d.get("optim_state_shard", False)),
         init_param=d.get("init_param"),
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class Task:
+    """Model family selected by the config's `encoder:` key (JAX `Task`):
+    kind "whisper" (cfg an ASRModelConfig) or "conformer" (a
+    ConformerASRConfig)."""
+
+    kind: str
+    cfg: Any
+
+
+def conformer_config_from_dict(d: dict, compute_dtype: Any = torch.bfloat16):
+    """ConformerASRConfig from a reference-schema dict (the conformer branch
+    of JAX `task_from_dict`, :206-297, with its key defaults;
+    encoder_conf.unroll_layers is accepted and has no counterpart)."""
+    from agacs_tpu_torch.models.conformer import ConformerConfig, TransformerDecoderConfig
+    from agacs_tpu_torch.models.conformer_asr import ConformerASRConfig
+    from agacs_tpu_torch.ops.frontend_default import DefaultFrontendConfig
+
+    enc_conf = d.get("encoder_conf", {}) or {}
+    dec_conf = d.get("decoder_conf", {}) or {}
+    model_conf = d.get("model_conf", {}) or {}
+    frontend_conf = d.get("frontend_conf", {}) or {}
+    enc = ConformerConfig(
+        input_size=int(frontend_conf.get("n_mels", 80)),
+        output_size=int(enc_conf.get("output_size", 256)),
+        attention_heads=int(enc_conf.get("attention_heads", 4)),
+        linear_units=int(enc_conf.get("linear_units", 2048)),
+        num_blocks=int(enc_conf.get("num_blocks", 12)),
+        cnn_module_kernel=int(enc_conf.get("cnn_module_kernel", 15)),
+        macaron_style=bool(enc_conf.get("macaron_style", True)),
+        use_cnn_module=bool(enc_conf.get("use_cnn_module", True)),
+        conv_norm=str(enc_conf.get("conv_norm", "layer")),
+        compute_dtype=compute_dtype,
+    )
+    dec = TransformerDecoderConfig(
+        vocab_size=int(d.get("vocab_size", 51865)),
+        attention_heads=int(dec_conf.get("attention_heads", 4)),
+        linear_units=int(dec_conf.get("linear_units", 2048)),
+        num_blocks=int(dec_conf.get("num_blocks", 6)),
+        d_model=enc.output_size,
+        compute_dtype=compute_dtype,
+    )
+    normalize = d.get("normalize", "utterance_mvn")
+    norm_conf = d.get("normalize_conf", {}) or {}
+    frontend = DefaultFrontendConfig(
+        n_fft=int(frontend_conf.get("n_fft", 512)),
+        hop_length=int(frontend_conf.get("hop_length", 128)),
+        n_mels=int(frontend_conf.get("n_mels", 80)),
+        normalize=normalize if normalize not in ("none",) else None,
+    )
+    return ConformerASRConfig(
+        encoder=enc,
+        decoder=dec,
+        frontend=frontend,
+        mvn_stats_path=norm_conf.get("stats_file"),
+        ctc_weight=float(model_conf.get("ctc_weight", 0.3)),
+        interctc_weight=float(model_conf.get("interctc_weight", 0.0)),
+        interctc_layers=tuple(enc_conf.get("interctc_layer_idx", ()) or ()),
+        lsm_weight=float(model_conf.get("lsm_weight", 0.1)),
+        length_normalized_loss=bool(model_conf.get("length_normalized_loss", False)),
+        use_specaug=d.get("specaug") == "specaug",
+        specaug=SpecAugConfig.from_dict(d.get("specaug_conf")),
+    )
+
+
+def task_from_dict(d: dict, compute_dtype: Any = torch.bfloat16) -> Task:
+    encoder = d.get("encoder", "whisper")
+    if encoder == "whisper":
+        return Task("whisper", model_config_from_dict(d, compute_dtype))
+    if encoder == "conformer":
+        if d.get("decoder") == "transducer":
+            raise NotImplementedError("the transducer family (decoder: transducer) is not "
+                                      "ported yet")
+        return Task("conformer", conformer_config_from_dict(d, compute_dtype))
+    raise ValueError(f"unknown encoder family: {encoder}")

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's greedy serving path, its beam-search serving
 path, its stage-2 training path and both again on the int8 frozen trunk,
-serving with int8 cross-KV, and the TMECS PE recipes' serving and
-training, once on one CUDA card.
+serving with int8 cross-KV, the TMECS PE recipes' serving and training,
+and the SEAME conformer recipe's serving (joint CTC/attention beam search
+with transformer-LM fusion), once on one CUDA card.
 
     python3 chip_smoke.py              # every phase below
     python3 chip_smoke.py --mutants    # the kernel checks against mutants
@@ -12,7 +13,7 @@ CUDA card and the CUDA toolkit (nvcc). It imports nothing of JAX. Phases,
 one line each, in the order they run; any failure ends the script with a
 non-zero exit:
 
-  1. device and build: the card, and the nvcc builds of the five kernel
+  1. device and build: the card, and the nvcc builds of the six kernel
      sources, started together;
   2. K1f (csrc/packed_flash_fwd.cu) against its plain PyTorch version at
      the encoder shapes (8, 750, 768) and (2, 1500, 768), 12 heads;
@@ -44,6 +45,12 @@ non-zero exit:
      with torch._int_mm + the dequant timed beside them (M > 16);
   2j. K2f and K2b (csrc/int8_mlp.cu) against their plain versions at
      (12000, 768, 3072), (528, 768, 3072) and 1000 rows (a partial tile);
+  2r. K5 (csrc/relpos_flash.cu) against its plain version at the conformer
+     encoder's (8, 468, 256), 4 heads, and at T 64, 67 and 640, keys and
+     values poisoned past each row's length; SDPA with the shifted
+     position scores as its materialised (B, h, T, T) bias timed beside;
+  3f. K3-f32 (decode_attn.cu, float32 caches) against its plain version at
+     the LM's beam shape (80, 112, 512), 8 heads, pos 103, within 1e-4;
   4. the greedy slice: whisper-small with adapters in both stacks (the
      stage-2 recipe's flags), bf16, random weights from torch seed 0,
      Speech2Text on 8 x 15 s of seeded noise, 100 greedy steps; ms per
@@ -110,7 +117,18 @@ non-zero exit:
      bit-identical; 22. its profile; 23. one micro-step card bf16 against
      CPU float32 (loss, loss_cs, grad norm, the *_cs gradient cosines);
   24. `bin.train` on the TMECS pedecoder_csloss recipe for one epoch, then
-     `bin.decode` on its average, greedy and with `--cross_kv_int8`.
+     `bin.decode` on its average, greedy and with `--cross_kv_int8`;
+  25. the conformer recipe's serving (run_conformer.sh stage 4 with
+     decode_asr.yaml) at full width: conformer 12 x 256 bf16, decoder 6
+     blocks, LM 16 x 512 float32, vocabulary 51865, random weights, beam 10,
+     ctc 0.4, lm 0.2, 100 steps, on 8 x 15 s: ms per batch (median of 2), exact launches
+     (K5 12 per encode, K3 600, K3-f32 1600), the CTC prefix scoring's share;
+  26. the same request at 5 steps under torch.profiler: busy, idle share,
+     the K5 / K3 / K3-f32 shares and the top kernels;
+  27. card vs CPU float32 on the same weights: the encoder output and the
+     first joint step's scores over the pre-beam candidates;
+  28. `bin.decode` with train_asr_conformer.yaml, a .params.npz, decode_asr.yaml
+     and an LM exp dir (4 blocks), then `bin.score --per_bucket` (stage 5).
 
 The last three lines are the card's `name, power.limit` (nvidia-smi), a
 JSON line with each kernel's launches, error and times, and the
@@ -421,21 +439,25 @@ def check_k1_train(dev, g, timed=True) -> tuple[dict, dict]:
 def check_k3(dev, g, timed=True) -> dict:
     """Phase 3: K3 against its plain version. Keys past pos are poisoned in
     the kernel's input (score 0, far above the others, and value 1e4), so
-    a kernel that reads one fails."""
+    a kernel that reads one fails. Whisper's greedy shapes (8 rows, d 768,
+    12 heads), then the conformer decoder's self-attention under beam 10
+    (80 rows, d 256, 4 heads; a 100-step request reaches pos 99)."""
     from agacs_tpu_torch.ops import decode_attn
 
     res = {"err": 0.0}
-    for tp, pos in ((112, 0), (112, 4), (112, 57), (112, 103), (752, 749)):
-        sets = [(*sharp_qkv(g, dev, (8, D), (8, tp, D), q_scale=0.125), pos, H)
+    for n, tp, d, h, pos in ((8, 112, D, H, 0), (8, 112, D, H, 4), (8, 112, D, H, 57),
+                             (8, 112, D, H, 103), (8, 752, D, H, 749),
+                             (80, 112, 256, 4, 99), (80, 112, 256, 4, 103)):
+        sets = [(*sharp_qkv(g, dev, (n, d), (n, tp, d), q_scale=0.125), pos, h)
                 for _ in range(8)]
         q, k, v, _, _ = sets[0]
         k_bad, v_bad = k.clone(), v.clone()
         k_bad[:, pos + 1:] = 0.0
         v_bad[:, pos + 1:] = 1e4
         err = hold(f"K3 pos={pos}",
-                   decode_attn.decode_cache_attention(q, k_bad, v_bad, pos, H),
+                   decode_attn.decode_cache_attention(q, k_bad, v_bad, pos, h),
                    decode_attn.decode_cache_attention_ref(
-                       q.float(), k.float(), v.float(), pos, H), (8, tp, D))
+                       q.float(), k.float(), v.float(), pos, h), (n, tp, d))
         res["err"] = max(res["err"], err)
         if not timed:
             continue
@@ -446,7 +468,7 @@ def check_k3(dev, g, timed=True) -> dict:
             res.update(ms=ms, plain_ms=plain_ms, library_ms=lib,
                        **roofline(2 * 8 * (pos + 1) * D * 2 + 2 * 8 * D * 2,
                                4 * 8 * H * (pos + 1) * 64, "bf16"))
-        print(f"phase 3 K3 decode_attn (8, {tp}, {D}) pos={pos}: max_abs_err "
+        print(f"phase 3 K3 decode_attn ({n}, {tp}, {d}) H={h} pos={pos}: max_abs_err "
               f"{err:.3e} (bound {KERNEL_RTOL} x max|plain f32|) kernel "
               f"{ms:.4f} ms plain bf16 {plain_ms:.4f} ms", flush=True)
     return res
@@ -903,13 +925,135 @@ def check_k2(dev, g, timed=True) -> dict:
     return res
 
 
+# The conformer recipe's encoder attention: d 256, 4 heads of 64.
+CD, CH = 256, 4
+# K5 against its plain version at the conformer encoder's 8 x 15 s shape
+# and at T 64, 67 (a partial key tile) and 640 (the envelope's top).
+K5_SHAPES = ((8, 468), (2, 64), (2, 67), (2, 640))
+# K3-f32 against its plain version (both float32; they differ by summation
+# order, ~1e-6 of the largest output): 1e-4 x max |plain|.
+K3F32_RTOL = 1e-4
+
+
+def k5_inputs(g, dev, b: int, t: int):
+    """bf16 (qu, qv, k, v, pe, mask) for K5 at (b, t, 256): qu and k as
+    sharp_qkv's (content scores ~-8 +- 2.7), qv and pe with a std of 1.5
+    (position scores +- 2.3, as large as the content scores' spread, so a
+    wrong pe row or shift moves the output), the projected pe padded to
+    128 rows, row i's keys valid up to t - i*t/(2b); and a copy of k and v
+    poisoned past each row's length (k = 0, a score far above the valid
+    ones; v = 1e4)."""
+    from agacs_tpu_torch.ops import relpos_flash
+
+    qu, k, v = sharp_qkv(g, dev, (b, t, CD), (b, t, CD))
+    qv = (torch.randn(b, t, CD, generator=g) * 1.5).to(dev, torch.bfloat16)
+    pe = relpos_flash.pad_pe(
+        (torch.randn(2 * t - 1, CD, generator=g) * 1.5).to(dev, torch.bfloat16), t)
+    lens = [t - i * t // (2 * b) for i in range(b)]
+    mask = torch.where(torch.arange(t)[None, :] < torch.tensor(lens)[:, None], 0.0,
+                       relpos_flash.NEG_MASK).float().to(dev)
+    k_bad, v_bad = k.clone(), v.clone()
+    for i, n in enumerate(lens):
+        k_bad[i, n:], v_bad[i, n:] = 0.0, 1e4
+    return (qu, qv, k, v, pe, mask), (qu, qv, k_bad, v_bad, pe, mask)
+
+
+def relpos_sdpa_bias(qu, qv, pe, mask, h: int) -> torch.Tensor:
+    """(B, h, T, T) bf16 additive bias for SDPA: the shifted position scores
+    qv . pe[T-1-q+j] times d_head^-0.5, plus the key mask."""
+    from agacs_tpu_torch.models.conformer import rel_shift
+
+    t = qu.shape[1]
+    peh = sdpa_heads(pe[None, : 2 * t - 1], h)[0]  # (h, 2T-1, 64)
+    bd = rel_shift(sdpa_heads(qv, h).float() @ peh.float().transpose(-1, -2))
+    return (bd * 0.125 + mask[:, None, None, :]).to(torch.bfloat16)
+
+
+def check_k5(dev, g, timed=True) -> dict:
+    """Phase 2r: K5 (csrc/relpos_flash.cu) against its plain version in
+    float32 on the same bf16 inputs, keys and values poisoned past each
+    row's length in the kernel's input, at K5_SHAPES; bound KERNEL_RTOL x
+    max |plain|. Times at (8, 468, 256): the kernel, the plain version (on
+    the bf16 inputs), and SDPA given the shifted position scores and the
+    mask as its materialised (B, h, T, T) additive bias (the bias is built
+    outside the timing)."""
+    from agacs_tpu_torch.ops import relpos_flash
+
+    res = {"err": 0.0}
+    for b, t in K5_SHAPES:
+        clean, bad = k5_inputs(g, dev, b, t)
+        err = hold(f"K5 T={t}", relpos_flash.relpos_mha(*bad, CH),
+                   relpos_flash.relpos_mha_plain(*(x.float() for x in clean), CH), (b, t, CD))
+        res["err"] = max(res["err"], err)
+        line = (f"phase 2r K5 relpos_flash_fwd ({b}, {t}, {CD}) H={CH}: max_abs_err {err:.3e} "
+                f"(bound {KERNEL_RTOL} x max|plain f32|; keys past each length poisoned)")
+        if timed and (b, t) == K5_SHAPES[0]:
+            sets = [k5_inputs(g, dev, b, t)[0] + (CH,) for _ in range(4)]
+            ms = cuda_ms(relpos_flash.relpos_mha, sets, 20)
+            plain_ms = cuda_ms(relpos_flash.relpos_mha_plain, sets, 5)
+            lib_sets = [(sdpa_heads(qu, CH), sdpa_heads(k, CH), sdpa_heads(v, CH),
+                         relpos_sdpa_bias(qu, qv, pe, mask, CH))
+                        for qu, qv, k, v, pe, mask, _ in sets]
+            lib = cuda_ms(lambda q, k, v, bias: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, attn_mask=bias, scale=0.125), lib_sets, 20)
+            del lib_sets
+            wp = sets[0][4].shape[0]
+            res.update(ms=ms, plain_ms=plain_ms, library_ms=lib,
+                       **roofline(5 * b * t * CD * 2 + wp * CD * 2 + b * t * 4,
+                                  6 * b * CH * t * t * 64, "bf16"))
+            line += (f" kernel {ms:.4f} ms plain bf16 {plain_ms:.4f} ms sdpa with the "
+                     f"materialised bias {lib:.4f} ms bound {res['bound_ms']:.4f} ms")
+        print(line, flush=True)
+    return res
+
+
+def check_k3f32(dev, g, timed=True) -> dict:
+    """Phase 3f: K3-f32 (decode_attn.cu, float32 query and caches) against
+    its plain version at the LM's beam shape (80 rows = 8 x beam 10, 112,
+    512), 8 heads, pos 103, keys past pos poisoned; bound K3F32_RTOL x max
+    |plain|; SDPA over the same keys timed beside it."""
+    from agacs_tpu_torch.ops import decode_attn
+
+    n, tp, d, h, pos = 80, 112, 512, 8, 103
+    sets = [tuple(x.float() for x in sharp_qkv(g, dev, (n, d), (n, tp, d), q_scale=0.125))
+            + (pos, h) for _ in range(8)]
+    q, k, v, _, _ = sets[0]
+    k_bad, v_bad = k.clone(), v.clone()
+    k_bad[:, pos + 1:] = 0.0
+    v_bad[:, pos + 1:] = 1e4
+    out = decode_attn.decode_cache_attention(q, k_bad, v_bad, pos, h)
+    plain = decode_attn.decode_cache_attention_ref(q, k, v, pos, h)
+    torch.cuda.synchronize()
+    err = (out - plain).abs().max().item()
+    bound = K3F32_RTOL * plain.abs().max().item()
+    check(out.dtype == torch.float32 and out.shape == plain.shape and err <= bound,
+          f"K3-f32: max_abs_err {err} <= {bound}")
+    res = {"err": err}
+    line = (f"phase 3f K3-f32 decode_attn_f32 ({n}, {tp}, {d}) H={h} pos={pos}: max_abs_err "
+            f"{err:.3e} (bound {K3F32_RTOL} x max|plain|)")
+    if timed:
+        res["ms"] = cuda_ms(decode_attn.decode_cache_attention, sets, 50)
+        res["plain_ms"] = cuda_ms(decode_attn.decode_cache_attention_ref, sets, 50)
+        res["library_ms"] = cuda_ms(lambda q, k, v, p, hh: sdpa_one_query(q, k, v, p, hh),
+                                    sets, 50)
+        res.update(roofline(2 * n * (pos + 1) * d * 4 + 2 * n * d * 4,
+                            4 * n * h * (pos + 1) * 64, "f32"))
+        line += (f" kernel {res['ms']:.4f} ms plain {res['plain_ms']:.4f} ms sdpa "
+                 f"{res['library_ms']:.4f} ms bound {res['bound_ms']:.4f} ms")
+    print(line, flush=True)
+    return res
+
+
 def device_profile(fn) -> tuple[float, int, dict]:
-    """Run fn() once under torch.profiler (CUDA activity): (device busy
-    ms, device events, ms by kernel name)."""
+    """Run fn() once under torch.profiler, device activity only: (device
+    busy ms, device events, ms by kernel name). Recording the host's
+    operator events as well gave the same busy time and tripled the time
+    the profile takes (H100, the greedy request of phase 6: 24-31 s
+    against 10-11 s)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     per_name: dict[str, float] = collections.defaultdict(float)
@@ -1457,20 +1601,20 @@ def int8_serve_phase(sd8, dev, audio) -> dict:
 DECODE_COUNTERS = {"K3": "LAUNCHES", "K3a": "ANC_LAUNCHES", "K3-PE": "PE_LAUNCHES",
                    "K3a-PE": "ANC_PE_LAUNCHES", "K3-int8": "I8_LAUNCHES",
                    "K3a-int8": "ANC_I8_LAUNCHES", "K3s": "SHARED_LAUNCHES",
-                   "K3s-int8": "SHARED_I8_LAUNCHES"}
+                   "K3s-int8": "SHARED_I8_LAUNCHES", "K3-f32": "F32_LAUNCHES"}
 
 
 def decode_counts() -> dict:
-    from agacs_tpu_torch.ops import decode_attn, flash_train
+    from agacs_tpu_torch.ops import decode_attn, flash_train, relpos_flash
 
-    return {"K1f": flash_train.LAUNCHES,
+    return {"K1f": flash_train.LAUNCHES, "K5": relpos_flash.LAUNCHES,
             **{k: getattr(decode_attn, v) for k, v in DECODE_COUNTERS.items()}}
 
 
 def reset_decode_counts() -> None:
-    from agacs_tpu_torch.ops import decode_attn, flash_train
+    from agacs_tpu_torch.ops import decode_attn, flash_train, relpos_flash
 
-    flash_train.LAUNCHES = 0
+    flash_train.LAUNCHES = relpos_flash.LAUNCHES = 0
     for v in DECODE_COUNTERS.values():
         setattr(decode_attn, v, 0)
 
@@ -1726,11 +1870,254 @@ def pe_train_phase(dev) -> dict:
     return {"ms": ms, "peak_gb": peak_gb, "parity": card}
 
 
+# The conformer recipe's serving (run_conformer.sh stage 4, decode_asr.yaml):
+# beam 10, ctc_weight 0.4, lm_weight 0.2, a step cap of 100 (loop scan: the
+# step runs 100 times whatever ends).
+CONF_BEAM, CONF_CTC, CONF_LM, CONF_S = 10, 0.4, 0.2, 100
+# Phase 26 profiles the request at 5 steps: it launches ~3100 kernels a
+# step, and collecting the events of 20 steps took ~35 s.
+CONF_PROFILE_S = 5
+# card (bf16 encoder and decoder, float32 LM) vs CPU (float32): bf16
+# rounding through 12 conformer blocks, as ENC_REL_L2.
+CONF_REL_L2 = 5e-2
+
+
+def conformer_models(dev, dtype, sd=None, lsd=None, lm_blocks: int = 16):
+    """The recipe's conformer (train_asr_conformer.yaml: 12 blocks, d 256,
+    4 heads, units 2048, kernel 15, decoder 6 blocks, vocabulary 51865,
+    global MVN) in `dtype` and the transformer LM (d 512, 8 heads, units
+    2048, `lm_blocks` blocks) in float32 on `dev`, random weights from torch
+    seeds 3 and 4 unless state dicts are given. Returns (model, lm, sd, lsd)."""
+    from agacs_tpu_torch.models import conformer_asr, lm as tlm
+    from agacs_tpu_torch.utils.config import load_yaml, task_from_dict
+
+    raw = load_yaml(os.path.join(ROOT, "recipes", "seame", "conf",
+                                 "train_asr_conformer.yaml"))
+    cfg = task_from_dict(raw, compute_dtype=dtype).cfg
+    lcfg = tlm.TransformerLMConfig(num_blocks=lm_blocks)
+    if sd is None:
+        sd = conformer_asr.init_conformer_asr_params(torch.Generator().manual_seed(3), cfg)
+        lsd = tlm.init_lm_params(torch.Generator().manual_seed(4), lcfg)
+    return (conformer_asr.ConformerASR.from_state_dict(cfg, sd, device=dev),
+            tlm.TransformerLM.from_state_dict(lcfg, lsd, device=dev), sd, lsd)
+
+
+def first_step_joint(model, lm, audio1, cands=None):
+    """Utterance 0's first joint-beam step, in the model's device and dtype:
+    (the joint scores (1-l)·log p_att + m·log p_lm + l·psi_ctc over
+    `cands` (default: the 20 best by attention + LM, the recipe's pre-beam),
+    cands, the encoder output), all float32 on the CPU."""
+    from agacs_tpu_torch.decode.composed_beam import top_k
+    from agacs_tpu_torch.decode.ctc_prefix import (ctc_eos_score, ctc_prefix_init,
+                                                   ctc_prefix_score)
+    from agacs_tpu_torch.models import conformer as tconf, lm as tlm
+    from agacs_tpu_torch.models.conformer_asr import ctc_log_probs, encode
+
+    d = next(model.parameters()).device
+    sos, eos = model.cfg.sos, model.cfg.eos
+    with torch.inference_mode():
+        enc, elen = encode(model, torch.from_numpy(audio1).to(d),
+                           torch.tensor([audio1.shape[1]], device=d))
+        logp = ctc_log_probs(model, enc)
+        first = torch.tensor([sos], device=d)
+        logits, _ = tconf.transformer_decode_step(
+            model.decoder, first, 0, tconf.init_decoder_kv_cache(model.cfg.decoder, 1, 8, d),
+            tconf.precompute_decoder_cross_kv(model.decoder, enc), elen)
+        lm_lp, _ = tlm.lm_score_step_cached(lm, first, 0, tlm.init_lm_kv_cache(lm.cfg, 1, 8, d))
+        full = (1 - CONF_CTC) * torch.log_softmax(logits.float(), -1) + CONF_LM * lm_lp
+        if cands is None:
+            cands = top_k(full, 2 * CONF_BEAM)[1]
+        cands = cands.to(d)
+        state = ctc_prefix_init(logp)
+        psi, _ = ctc_prefix_score(logp, state, cands, frame_lens=elen)
+        psi = torch.where(cands == eos, ctc_eos_score(state, elen)[:, None], psi)
+        joint = full.gather(1, cands) + CONF_CTC * psi
+    return joint.float().cpu(), cands.cpu(), enc.float().cpu()
+
+
+def conformer_serve_phase(dev, audio) -> dict:
+    """Phases 25-27: the conformer recipe's serving at full width (encoder
+    12 blocks bf16, decoder 6 blocks bf16, LM 16 blocks float32, vocabulary
+    51865), random weights, on phase 4's 8 x 15 s, through
+    `decode_conformer_batch` (the decode CLI's per-batch call): beam 10,
+    ctc 0.4, lm 0.2, CONF_S steps. A warm-up, then a request with exact
+    launch counts (K5 12 per encode, K3 6 per step, K3-f32 16 per step,
+    nothing else), one more timed; one more with the CTC prefix scoring
+    timed apart (synchronised around each call) for its share; a
+    CONF_PROFILE_S-step request under the profiler beside the same
+    request's wall time; and
+    utterance 0's encoder output and first joint step against the port on
+    the CPU in float32 (CONF_REL_L2)."""
+    from agacs_tpu_torch.decode import ctc_prefix
+    from agacs_tpu_torch.decode.joint_beam import decode_conformer_batch
+
+    t0 = time.perf_counter()
+    model, lm, sd, lsd = conformer_models(dev, torch.bfloat16)
+    load_s = time.perf_counter() - t0
+    speech = torch.from_numpy(audio).to(dev)
+    lens = torch.full((audio.shape[0],), audio.shape[1], device=dev)
+
+    def request(steps=CONF_S):
+        out = decode_conformer_batch(model, lm, speech, lens, beam_size=CONF_BEAM,
+                                     ctc_weight=CONF_CTC, lm_weight=CONF_LM,
+                                     max_steps=steps, loop="scan")
+        torch.cuda.synchronize()
+        return out
+
+    t_phase = time.perf_counter()
+    request(10)  # warm-up: cuBLAS handles, the kernels' first launches
+    reset_decode_counts()
+    times = []
+    for i in range(2):
+        t0 = time.perf_counter()
+        rows, scores = request()
+        times.append(time.perf_counter() - t0)
+        if i == 0:
+            launches = {k: v for k, v in decode_counts().items() if v}
+    want = {"K5": model.cfg.encoder.num_blocks,
+            "K3": model.cfg.decoder.num_blocks * CONF_S, "K3-f32": lm.cfg.num_blocks * CONF_S}
+    check(launches == want, f"conformer serving launches {launches} == {want}")
+    check(len(rows) == audio.shape[0] and bool(torch.isfinite(scores).all())
+          and all(len(r) <= CONF_S for r in rows), "conformer serving: 8 finite hypotheses")
+    ms = statistics.median(times) * 1e3
+
+    real, ctc_s = ctc_prefix.ctc_prefix_score, []
+
+    def timed_ctc(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real(*a, **k)
+        torch.cuda.synchronize()
+        ctc_s.append(time.perf_counter() - t)
+        return out
+
+    ctc_prefix.ctc_prefix_score = timed_ctc
+    try:
+        t0 = time.perf_counter()
+        request()
+        ctc_req = time.perf_counter() - t0
+    finally:
+        ctc_prefix.ctc_prefix_score = real
+    ctc_share = sum(ctc_s) / ctc_req
+    print(f"phase 25 conformer serving: conformer 12 x 256 bf16 + decoder 6 + LM 16 x 512 "
+          f"f32, vocabulary 51865, 8 x 15 s ({int(lens[0]) // 128 + 1} frames -> 468), beam "
+          f"{CONF_BEAM}, ctc {CONF_CTC}, lm {CONF_LM}, {CONF_S} steps: {ms:.1f} ms/batch "
+          f"(median of {[round(t * 1e3, 1) for t in times]}), {120.0 / (ms / 1e3):.1f} x "
+          f"realtime, {ms / CONF_S:.2f} ms/step incl. encode; launches {launches}; CTC prefix "
+          f"scoring {sum(ctc_s) * 1e3:.1f} ms of a {ctc_req * 1e3:.1f} ms request "
+          f"({ctc_share:.1%}, {len(ctc_s)} calls, synchronised around each); lengths "
+          f"{[len(r) for r in rows]}; models built in {load_s:.1f} s, phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    t_phase = time.perf_counter()
+    t_short = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        request(CONF_PROFILE_S)
+        t_short.append((time.perf_counter() - t0) * 1e3)
+    ms_short = statistics.median(t_short)
+    busy, n_events, per_name = device_profile(lambda: request(CONF_PROFILE_S))
+
+    def share(*keys):
+        t = sum(v for name, v in per_name.items() if any(k in name for k in keys))
+        return f"{t:.2f} ms ({t / busy:.1%})"
+
+    print(f"phase 26 conformer serving profile (the same request at {CONF_PROFILE_S} steps): "
+          f"{ms_short:.1f} ms/batch unprofiled; device busy {busy:.1f} ms in {n_events} device "
+          f"events ({n_events / CONF_PROFILE_S:.0f} per step); idle {1 - busy / ms_short:.1%}; K5 "
+          f"{share('relpos_flash')}, K3 {share('decode_attn_kernel<false, false, __nv')}, "
+          f"K3-f32 {share('decode_attn_kernel<false, false, float')}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s; top: " + top_kernels(per_name, 8), flush=True)
+    t_phase = time.perf_counter()
+
+    cpu_model, lm_cpu, _, _ = conformer_models("cpu", torch.float32, sd, lsd)
+    j_cpu, cands, enc_cpu = first_step_joint(cpu_model, lm_cpu, audio[:1])
+    j_card, _, enc_card = first_step_joint(model, lm, audio[:1], cands)
+    e_enc, e_joint = rel_l2(enc_card, enc_cpu), rel_l2(j_card, j_cpu)
+    print(f"phase 27 conformer card (bf16, K5/K3/K3-f32) vs cpu f32: encoder rel L2 "
+          f"{e_enc:.3e}, first-step joint scores over the {cands.shape[1]} pre-beam "
+          f"candidates rel L2 {e_joint:.3e} (bounds {CONF_REL_L2}); best candidate card "
+          f"{int(cands[0, j_card.argmax()])} cpu {int(cands[0, j_cpu.argmax()])}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    check(enc_card.shape == (1, 468, CD) and bool(torch.isfinite(enc_card).all())
+          and e_enc <= CONF_REL_L2, f"conformer encoder rel L2 {e_enc} <= {CONF_REL_L2}")
+    check(bool(torch.isfinite(j_card).all()) and e_joint <= CONF_REL_L2,
+          f"conformer first-step joint scores rel L2 {e_joint} <= {CONF_REL_L2}")
+    del model, lm, cpu_model, lm_cpu
+    torch.cuda.empty_cache()
+    return {"launches": launches, "ms": ms, "ctc_share": ctc_share, "sd": sd}
+
+
+def conformer_cli_phase(sd) -> dict:
+    """Phase 28: the recipe's stages 4 and 5 on the card: bin.decode with
+    train_asr_conformer.yaml as the config, phase 25's weights as a
+    .params.npz, decode_asr.yaml and an LM exp dir (config.yaml lm_conf +
+    valid.loss.ave.params.npz; 4 blocks, the rest at full width) on
+    `cli_data`'s 6 utterances (one batch), 8 steps: exact launches K5 12,
+    K3 6 x 8, K3-f32 4 x 8, a hypothesis for every utterance; then
+    bin.score --per_bucket on its .trn files."""
+    import shutil
+
+    import yaml
+
+    from agacs_tpu_torch.bin import decode, score
+    from agacs_tpu_torch.models import lm as tlm
+    from agacs_tpu_torch.models.checkpoint import numpy_from_conformer_params, numpy_from_lm_params
+    from agacs_tpu_torch.utils.config import load_yaml, task_from_dict
+
+    conf_dir = os.path.join(ROOT, "recipes", "seame", "conf")
+    config = os.path.join(conf_dir, "train_asr_conformer.yaml")
+    root = os.path.join(ROOT, "build", "chip_smoke_cli_conformer")
+    data, n_utts = cli_data(root)
+    cfg = task_from_dict(load_yaml(config)).cfg
+    np.savez(os.path.join(root, "p.params.npz"), **numpy_from_conformer_params(sd, cfg))
+    lm_dir = os.path.join(root, "lm")
+    os.makedirs(lm_dir)
+    lcfg = tlm.TransformerLMConfig(num_blocks=4)
+    with open(os.path.join(lm_dir, "config.yaml"), "w") as f:
+        yaml.safe_dump({"lm_conf": {"num_blocks": 4}}, f)
+    np.savez(os.path.join(lm_dir, "valid.loss.ave.params.npz"), **numpy_from_lm_params(
+        tlm.init_lm_params(torch.Generator().manual_seed(5), lcfg), lcfg))
+    reset_decode_counts()
+    t0 = time.perf_counter()
+    res = decode.main(["--config", config, "--params", os.path.join(root, "p.params.npz"),
+                       "--data_dir", data, "--output_dir", os.path.join(root, "dec"),
+                       "--decode_config", os.path.join(conf_dir, "decode_asr.yaml"),
+                       "--lm_exp", lm_dir, "--max_steps", "8"])
+    decode_s = time.perf_counter() - t0
+    counts = {k: v for k, v in decode_counts().items() if v}
+    check(set(res["hyps"]) == {f"u{i}" for i in range(n_utts)},
+          "conformer bin.decode wrote a hypothesis for every utterance")
+    check(counts == {"K5": 12, "K3": 6 * 8, "K3-f32": 4 * 8},
+          f"conformer bin.decode launches {counts}")
+    rep = score.main(["--ref", os.path.join(root, "dec", "ref.trn"), "--hyp",
+                      os.path.join(root, "dec", "hyp.trn"), "--output_dir",
+                      os.path.join(root, "score"), "--per_bucket"])
+    check(rep["mer"]["utts"] == n_utts, "bin.score scored every utterance")
+    print(f"phase 28 conformer CLIs on the card: bin.decode (train_asr_conformer.yaml, "
+          f"decode_asr.yaml, LM 4 x 512, {n_utts} utterances, 8 steps) {decode_s:.1f} s, "
+          f"launches {counts}, rtf {res['rtf']['rtf']:.3f}; bin.score MER "
+          f"{rep['mer']['err']}%; hyps {sorted(res['hyps'].items())[:2]}", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return {"decode": counts}
+
+
 # Broken copies of the int8 kernels and of K3's PE and int8 variants that
 # the checks must catch: name -> (source, [(text, replacement)], checks to
 # run). Built outside the checkout by `mutants()`.
 MUTANTS = {
-    "unmutated source": ("int8_gemm.cu", [], ("k8", "k2", "p15", "k3pe", "k3i8")),
+    "unmutated source": ("int8_gemm.cu", [], ("k8", "k2", "p15", "k3pe", "k3i8", "k5")),
+    "K5 shift off by one": (
+        "relpos_flash.cu", [("pos_w[r * QLD + 15 - r + cj]", "pos_w[r * QLD + 16 - r + cj]")],
+        ("k5",)),
+    "K5 key mask ignored": (
+        "relpos_flash.cu", [(" * scale + mrow[key];", " * scale;")], ("k5",)),
+    "K5 pe rows read without the offset p0": (
+        "relpos_flash.cu", [("load_rows(sm.pe, pe + h * DH, p0, PW, 0, n_real, D);",
+                             "load_rows(sm.pe, pe + h * DH, 0, PW, 0, n_real, D);")], ("k5",)),
+    "K5 p left unnormalised": (
+        "relpos_flash.cu", [("const float linv = 1.f / l_i;", "const float linv = 1.f;")],
+        ("k5",)),
     "K3-PE gate ignored (a fixed 0.5 mix)": (
         "decode_attn.cu", [("const float g = PE ? gate[h] : 0.f;",
                             "const float g = PE ? 0.5f : 0.f;")], ("k3pe",)),
@@ -1810,6 +2197,8 @@ def mutants(dev) -> None:
                     check_k3pe(dev, g, timed=False)
                 elif chk == "k3i8":
                     check_k3i8(dev, g, timed=False)
+                elif chk == "k5":
+                    check_k5(dev, g, timed=False)
                 else:
                     if not state:
                         cfg = tw.make_config("small", adapter=True, adapter_encoder=True,
@@ -1983,7 +2372,8 @@ def main() -> int:
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor() as pool:  # one nvcc per source
         list(pool.map(cuda_lib.build, ("packed_flash_fwd", "packed_flash_bwd",
-                                       "decode_attn", "int8_gemm", "int8_mlp")))
+                                       "decode_attn", "int8_gemm", "int8_mlp",
+                                       "relpos_flash")))
     build_s = time.perf_counter() - t0
     ptxas = "; ".join(
         f"{name}: {line.split(':', 1)[1].strip()}"
@@ -2004,6 +2394,8 @@ def main() -> int:
     k3i8 = check_k3i8(dev, g)
     k8 = check_k8(dev, g)
     k2 = check_k2(dev, g)
+    k5 = check_k5(dev, g)
+    k3f32 = check_k3f32(dev, g)
 
     # 4. the slice: Speech2Text, whisper-small + adapters, bf16, 8 x 15 s
     cfg = tw.make_config("small", adapter=True, adapter_encoder=True,
@@ -2117,6 +2509,10 @@ def main() -> int:
     pe_train_phase(dev)
     pe_cli_phase()
 
+    # 25-28. the conformer recipe's serving (stage 4) and its CLIs (4, 5)
+    conf = conformer_serve_phase(dev, audio)
+    conformer_cli_phase(conf.pop("sd"))
+
     check(not any(m.split(".")[0] in ("jax", "jaxlib", "agacs_tpu") for m in sys.modules),
           "no jax, jaxlib or agacs_tpu module was imported")
 
@@ -2166,6 +2562,12 @@ def main() -> int:
         entry("int8_gemm dgrad (K8g, W8A8 linear dx against w_q^T)", "int8_gemm.cu",
               "agacs_tpu/ops/int8_linear.py:108", train8["launches"]["K8g dgrad"],
               k8["dgrad"]),
+        entry("relpos_flash_fwd (K5, the conformer encoder's rel-pos self-attention)",
+              "relpos_flash.cu", "agacs_tpu/ops/relpos_flash.py:298",
+              conf["launches"]["K5"], k5),
+        entry("decode_attn_f32_fwd (K3-f32, the transformer LM's float32 cache attention)",
+              "decode_attn.cu", "agacs_tpu/ops/decode_attn.py:140",
+              conf["launches"]["K3-f32"], k3f32),
     ]
     check(serve8["launches"]["K2f"] > 0 and serve8["launches"]["K8g"] > 0,
           "int8 serving launched K2f and K8g")

@@ -1,7 +1,8 @@
 """Guards of the port: it never imports JAX or the JAX package, never
 falls back from the card to the CPU or a plain version, and refuses what
 it cannot run yet (side networks, `lid_ce`, serving-quantised
-checkpoints, CTC)."""
+checkpoints, CTC and LM fusion on the whisper family, conformer training,
+the transducer, n-gram fusion)."""
 
 import os
 import subprocess
@@ -20,7 +21,7 @@ from agacs_tpu_torch.models import asr_model
 from agacs_tpu_torch.models import whisper as tw
 from agacs_tpu_torch.models.asr_model import ASRModelConfig
 from agacs_tpu_torch.models.checkpoint import params_from_numpy
-from agacs_tpu_torch.ops import decode_attn, flash_train, int8_linear, int8_mlp
+from agacs_tpu_torch.ops import decode_attn, flash_train, int8_linear, int8_mlp, relpos_flash
 
 torch.set_num_threads(1)
 
@@ -149,6 +150,48 @@ model = tw.Whisper.from_state_dict(cfg, tw.init_whisper_params(torch.Generator()
 out = Speech2Text(model, ASRModelConfig(whisper=cfg), max_steps=4)(
     np.random.RandomState(0).randn(2, 16000).astype(np.float32) * 0.1)
 assert len(out[0].tokens) > 5
+
+# the conformer recipe's serving: encode (K5's path in bf16), CTC log-probs,
+# the joint beam with the LM (float32 caches), the decode and score CLIs
+import dataclasses, yaml
+from agacs_tpu_torch.decode.joint_beam import decode_conformer_batch
+from agacs_tpu_torch.models import conformer_asr, lm as tlm
+from agacs_tpu_torch.models.checkpoint import numpy_from_conformer_params, numpy_from_lm_params
+from agacs_tpu_torch.utils.config import task_from_dict
+from agacs_tpu_torch.bin import decode, score
+from agacs_tpu_torch.ops import decode_attn, relpos_flash
+
+conf = {"encoder": "conformer", "normalize": "global_mvn",
+        "encoder_conf": {"output_size": 128, "attention_heads": 2, "linear_units": 256,
+                         "num_blocks": 2},
+        "decoder_conf": {"attention_heads": 2, "linear_units": 256, "num_blocks": 1}}
+ccfg = task_from_dict(conf, compute_dtype=torch.bfloat16).cfg
+csd = conformer_asr.init_conformer_asr_params(torch.Generator().manual_seed(7), ccfg)
+cmodel = conformer_asr.ConformerASR.from_state_dict(ccfg, csd)
+lcfg = tlm.TransformerLMConfig(d_model=128, attention_heads=2, linear_units=256, num_blocks=1)
+lsd = tlm.init_lm_params(torch.Generator().manual_seed(8), lcfg)
+lmod = tlm.TransformerLM.from_state_dict(lcfg, lsd)
+rows, sc = decode_conformer_batch(cmodel, lmod, torch.randn(2, 40000) * 0.1,
+                                  torch.tensor([40000, 36000]), beam_size=3, max_steps=3)
+assert len(rows) == 2 and bool(torch.isfinite(sc).all())
+assert relpos_flash.LAUNCHES == decode_attn.F32_LAUNCHES == decode_attn.LAUNCHES == 0
+np.savez(os.path.join(tmp, "c.params.npz"), **numpy_from_conformer_params(csd, ccfg))
+os.makedirs(os.path.join(tmp, "lm"))
+np.savez(os.path.join(tmp, "lm", "valid.loss.ave.params.npz"), **numpy_from_lm_params(lsd, lcfg))
+with open(os.path.join(tmp, "lm", "config.yaml"), "w") as f:
+    yaml.safe_dump({"lm_conf": {"d_model": 128, "attention_heads": 2, "linear_units": 256,
+                                "num_blocks": 1}}, f)
+with open(os.path.join(tmp, "conformer.yaml"), "w") as f:
+    yaml.safe_dump(conf, f)
+res = decode.main(["--config", os.path.join(tmp, "conformer.yaml"), "--params",
+                   os.path.join(tmp, "c.params.npz"), "--data_dir", tmp, "--output_dir",
+                   os.path.join(tmp, "dec"), "--lm_exp", os.path.join(tmp, "lm"),
+                   "--beam_size", "2", "--max_steps", "2", "--device", "cpu"])
+assert set(res["hyps"]) == {"a", "b"}
+rep = score.main(["--ref", os.path.join(tmp, "dec", "ref.trn"), "--hyp",
+                  os.path.join(tmp, "dec", "hyp.trn"), "--output_dir", os.path.join(tmp, "sc"),
+                  "--per_bucket"])
+assert rep["mer"]["utts"] == 2
 tmp_dir.cleanup()
 assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
 print("OK", len(mods))
@@ -245,10 +288,19 @@ def test_wrappers_never_fall_back_off_cpu():
         int8_linear.int8_gemm(xq, torch.empty(32, 1, device="meta"), w_q, s)
     with pytest.raises(ValueError):
         int8_mlp.int8_mlp(x[0], w_q, s, s, w_q.t(), s[:128], s[:128])
+    x64 = torch.empty(2, 64, 128, device="meta", dtype=torch.bfloat16)
+    pe = torch.empty(128, 128, device="meta", dtype=torch.bfloat16)
+    mask = torch.empty(2, 64, device="meta")
+    with pytest.raises(ValueError):
+        relpos_flash.relpos_mha(x64, x64, x64, x64, pe, mask, 2)
+    xf = torch.empty(2, 16, 128, device="meta")
+    with pytest.raises(ValueError):
+        decode_attn.decode_cache_attention(xf[:, 0], xf, xf, 3, 2)
 
 
 DECODE_COUNTERS = ("LAUNCHES", "ANC_LAUNCHES", "PE_LAUNCHES", "ANC_PE_LAUNCHES",
-                   "I8_LAUNCHES", "ANC_I8_LAUNCHES", "SHARED_LAUNCHES", "SHARED_I8_LAUNCHES")
+                   "I8_LAUNCHES", "ANC_I8_LAUNCHES", "SHARED_LAUNCHES", "SHARED_I8_LAUNCHES",
+                   "F32_LAUNCHES")
 
 
 def test_launch_counters_stay_zero_on_cpu():
@@ -257,6 +309,7 @@ def test_launch_counters_stay_zero_on_cpu():
         setattr(decode_attn, name, 0)
     int8_linear.QUANT_LAUNCHES = int8_linear.LAUNCHES = int8_linear.DGRAD_LAUNCHES = 0
     int8_mlp.FWD_LAUNCHES = int8_mlp.BWD_LAUNCHES = 0
+    relpos_flash.LAUNCHES = 0
     cfg = tw.make_config("test", adapter=True)
     model = tw.Whisper.from_state_dict(
         cfg, tw.init_whisper_params(torch.Generator().manual_seed(1), cfg))
@@ -275,9 +328,35 @@ def test_launch_counters_stay_zero_on_cpu():
     assert all(getattr(decode_attn, name) == 0 for name in DECODE_COUNTERS)
     assert int8_linear.QUANT_LAUNCHES == int8_linear.LAUNCHES == 0
     assert int8_mlp.FWD_LAUNCHES == 0
+    _conformer_serving_on_cpu()
+    assert relpos_flash.LAUNCHES == 0
+    assert all(getattr(decode_attn, name) == 0 for name in DECODE_COUNTERS)
 
 
-@pytest.mark.parametrize("kernel", ["K3a", "K3s", "K3-PE", "K3-int8", "K3s-int8"])
+def _conformer_serving_on_cpu():
+    """A bf16 conformer (K5's path) with a float32 LM (K3-f32's) on the CPU."""
+    from agacs_tpu_torch.decode.joint_beam import decode_conformer_batch
+    from agacs_tpu_torch.models import conformer_asr, lm as tlm
+    from agacs_tpu_torch.utils.config import task_from_dict
+
+    conf = {"encoder": "conformer",
+            "encoder_conf": {"output_size": 128, "attention_heads": 2, "linear_units": 128,
+                             "num_blocks": 1},
+            "decoder_conf": {"attention_heads": 2, "linear_units": 128, "num_blocks": 1}}
+    ccfg = task_from_dict(conf, compute_dtype=torch.bfloat16).cfg
+    model = conformer_asr.ConformerASR.from_state_dict(
+        ccfg, conformer_asr.init_conformer_asr_params(torch.Generator().manual_seed(3), ccfg))
+    lcfg = tlm.TransformerLMConfig(d_model=128, attention_heads=2, linear_units=128,
+                                   num_blocks=1)
+    lm = tlm.TransformerLM.from_state_dict(
+        lcfg, tlm.init_lm_params(torch.Generator().manual_seed(4), lcfg))
+    rows, _ = decode_conformer_batch(model, lm, torch.randn(1, 36000) * 0.1,
+                                     torch.tensor([36000]), beam_size=2, max_steps=2)
+    assert len(rows) == 1
+
+
+@pytest.mark.parametrize("kernel", ["K3a", "K3s", "K3-PE", "K3-int8", "K3s-int8", "K3-f32",
+                                    "K5"])
 def test_cuda_request_to_a_beam_kernel_without_a_card_raises(kernel):
     """A CUDA-device request never falls back to the plain version: on a
     machine without a card it raises before anything runs."""
@@ -300,6 +379,11 @@ def test_cuda_request_to_a_beam_kernel_without_a_card_raises(kernel):
         elif kernel == "K3s-int8":
             decode_attn.decode_shared_cache_attention(q, kv8, kv8, 3, 2, 3, k_scale=sc,
                                                       v_scale=sc)
+        elif kernel == "K3-f32":
+            decode_attn.decode_cache_attention(q.float(), kv.float(), kv.float(), 3, 2)
+        elif kernel == "K5":
+            x = torch.zeros(2, 64, 128, dtype=torch.bfloat16, device="cuda")
+            relpos_flash.relpos_mha(x, x, x, x, x[0], torch.zeros(2, 64, device="cuda"), 2)
         else:
             decode_attn.decode_shared_cache_attention(q, kv[:2], kv[:2], 3, 2, 3)
 
@@ -336,14 +420,50 @@ def test_unported_decoding_raises(kw):
         Speech2Text(model, ASRModelConfig(whisper=cfg), **kw)
 
 
-def test_composed_beam_with_ctc_raises():
+def test_composed_beam_with_ngram_raises():
     def step(cur, pos, state):
         return torch.zeros(cur.shape[0], 8), state
 
     with pytest.raises(NotImplementedError):
         composed_beam_decode(step, torch.zeros(1, 2), batch=1, vocab=8, beam_size=2,
-                             primer=(1,), max_steps=3, eot=0, max_pos=8, ctc_weight=0.3,
-                             ctc_logp=torch.zeros(1, 5, 8))
+                             primer=(1,), max_steps=3, eot=0, max_pos=8,
+                             ngram_step_fn=lambda toks, pos: torch.zeros(2, 8),
+                             ngram_weight=0.3)
+
+
+def test_k5_backward_raises():
+    """K5's backward (conformer training) is not ported: a non-CPU tensor
+    that needs a gradient raises before anything runs."""
+    x = torch.empty(2, 64, 128, device="meta", dtype=torch.bfloat16, requires_grad=True)
+    with pytest.raises(NotImplementedError):
+        relpos_flash.relpos_mha(x, x, x, x, x[0].detach(), torch.empty(2, 64, device="meta"),
+                                2)
+
+
+@pytest.mark.parametrize("what", ["forward", "train_cli", "transducer", "ngram_cli"])
+def test_unported_conformer_family_parts_raise(what, tmp_path):
+    """Conformer training (`conformer_asr.forward`, `bin.train` on the
+    recipe's train_asr_conformer.yaml), the transducer family and
+    `bin.decode --ngram_file` raise."""
+    from agacs_tpu_torch.bin import decode, train
+    from agacs_tpu_torch.models import conformer_asr
+    from agacs_tpu_torch.utils.config import task_from_dict
+
+    conf_dir = os.path.join(REPO, "recipes", "seame", "conf")
+    with pytest.raises(NotImplementedError):
+        if what == "forward":
+            cfg = task_from_dict({"encoder": "conformer"}).cfg
+            conformer_asr.forward(None, cfg, {})
+        elif what == "train_cli":
+            train.main(["--config", os.path.join(conf_dir, "train_asr_conformer.yaml"),
+                        "--train_dir", str(tmp_path), "--valid_dir", str(tmp_path),
+                        "--exp_dir", str(tmp_path / "exp"), "--device", "cpu"])
+        elif what == "transducer":
+            task_from_dict({"encoder": "conformer", "decoder": "transducer"})
+        else:
+            decode.main(["--config", os.path.join(conf_dir, "train_asr_conformer.yaml"),
+                         "--params", "p.npz", "--data_dir", str(tmp_path), "--output_dir",
+                         str(tmp_path / "out"), "--ngram_file", "lm.npz", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("kw", [dict(ctc_weight=0.3), dict(cs_weight=0.1, cs_loss_type="lid_ce"),
