@@ -1,4 +1,6 @@
-"""Training CLI (counterpart of the whisper path of `agacs_tpu/bin/train.py`).
+"""Training CLI (counterpart of `agacs_tpu/bin/train.py`): the whisper
+family and the conformer recipe's hybrid CTC/attention model
+(`recipes/seame/run_conformer.sh` stage 3).
 
   python -m agacs_tpu_torch.bin.train \\
       --config recipes/seame/conf/train_asr_whisper_small_adapter_csloss_2stage.yaml \\
@@ -16,23 +18,35 @@ pass with CER/WER from the teacher-forced argmax. Writes `config.yaml`
 `valid.acc.ave.params.npz`, and `train_history.json`. The npz files hold
 the JAX package's flat layout, so `agacs_tpu` loads them too.
 
-The model is built in float32; the freeze preset's frozen parameters
+The whisper model is built in float32; the freeze preset's frozen parameters
 (linears, conv stem, layer norms, embeddings, PE gates) are then stored in
 the compute dtype, as JAX's `cast_frozen_params` stores them, the
 trainable ones stay float32 masters. The TMECS PE recipes (`pe_whisper`,
 presets `whisper_pe` / `freeze_decoder_pe`) train as any other. With `freeze_quant: int8` (and a freeze preset) the frozen
 trunk projections are then quantised to int8 (`Whisper.quantize_frozen_`,
 from the stored weights, as JAX does) and run kernels K8 and K2; the
-checkpoints hold them as `w_q`/`w_s`, which the decode CLI loads. Not
-ported, and raising NotImplementedError: --resume, --tensor_parallel > 1,
+checkpoints hold them as `w_q`/`w_s`, which the decode CLI loads.
+
+The conformer family (`encoder: conformer`, e.g.
+recipes/seame/conf/train_asr_conformer.yaml) trains every parameter as a
+float32 master under the compute dtype, with SpecAug, dropout and the
+hybrid loss of `models/conformer_asr.forward` (kernels K5 and K4 on the
+card); `normalize_conf.stats_file` (stage 1's feats_stats.npz) seeds the
+global MVN. With `conv_norm: batch` the BatchNorm running statistics are
+recalibrated after each epoch's training from the first <= 8 train batches
+(JAX :520-578). Checkpoints hold the JAX conformer layout, which both
+packages' decode CLIs load.
+
+Not ported, and raising NotImplementedError: --resume, --tensor_parallel > 1,
 --optim_state_shard, --ckpt_backend orbax, batch types other than numel,
-an OpenAI .pt --init_param, and the conformer and transducer families
-(`recipes/seame/run_conformer.sh` stage 3).
+an OpenAI .pt --init_param, a freeze preset on the conformer family, and the
+transducer family.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import logging
 import os
@@ -46,18 +60,25 @@ from agacs_tpu_torch.data.collate import collate_batch, to_device
 from agacs_tpu_torch.data.dataset import ASRDataset
 from agacs_tpu_torch.data.sampler import num_elements_batches
 from agacs_tpu_torch.models.asr_model import check_trainable
-from agacs_tpu_torch.models.checkpoint import params_from_numpy
-from agacs_tpu_torch.models.whisper import Whisper, init_whisper_params
+from agacs_tpu_torch.models.checkpoint import (
+    conformer_params_from_numpy,
+    numpy_from_conformer_params,
+    numpy_from_params,
+    params_from_numpy,
+)
+from agacs_tpu_torch.models.conformer import apply_bn_stats
+from agacs_tpu_torch.models.conformer_asr import ConformerASR, bn_calibration_stats
+from agacs_tpu_torch.models.whisper import Whisper
 from agacs_tpu_torch.train.checkpoint import CheckpointManager
 from agacs_tpu_torch.train.freeze import apply_freeze
 from agacs_tpu_torch.train.optim import build_optimizer
-from agacs_tpu_torch.train.trainer import make_eval_step, make_train_step
+from agacs_tpu_torch.train.trainer import EpochMean, make_eval_step, make_train_step
 from agacs_tpu_torch.utils.config import (
     apply_overrides,
     dump_resolved,
     load_yaml,
-    model_config_from_dict,
     optim_config_from_dict,
+    task_from_dict,
     trainer_config_from_dict,
 )
 
@@ -103,11 +124,15 @@ def check_supported(args, tcfg) -> None:
             raise NotImplementedError(f"{what} is not ported yet")
 
 
-def load_init_params(path: str, sd: dict, cfg) -> tuple[dict, int]:
+def load_init_params(path: str, sd: dict, cfg, kind: str = "whisper") -> tuple[dict, int]:
     """--init_param with ignore-mismatch semantics: each parameter present
     in the npz with the same shape is loaded, the rest keep their init."""
     with np.load(path) as data:
-        loaded = params_from_numpy({k: data[k] for k in data.files}, cfg, strict=False)
+        tree = {k: data[k] for k in data.files}
+    if kind == "conformer":
+        loaded = conformer_params_from_numpy(tree, cfg, strict=False)
+    else:
+        loaded = params_from_numpy(tree, cfg.whisper, strict=False)
     out = dict(sd)
     n = 0
     for name, t in loaded.items():
@@ -117,20 +142,14 @@ def load_init_params(path: str, sd: dict, cfg) -> tuple[dict, int]:
     return out, n
 
 
-class _Mean:
-    """Per-epoch weighted means of step stats (weights: utterances)."""
-
-    def __init__(self):
-        self.sums: dict[str, float] = {}
-        self.weight = 0
-
-    def add(self, stats: dict, weight: int) -> None:
-        for k, v in stats.items():
-            self.sums[k] = self.sums.get(k, 0.0) + float(v) * weight
-        self.weight += weight
-
-    def result(self) -> dict:
-        return {k: v / max(self.weight, 1) for k, v in self.sums.items()}
+@torch.no_grad()
+def recalibrate(model: ConformerASR, batches) -> None:
+    """Conv BatchNorm running statistics := the mean over `batches` of
+    their batch statistics (no SpecAug, no dropout)."""
+    stats = [bn_calibration_stats(model, b["speech"], b["speech_lengths"]) for b in batches]
+    if stats:
+        apply_bn_stats(model.encoder, sum(m for m, _ in stats) / len(stats),
+                       sum(v for _, v in stats) / len(stats))
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -139,17 +158,18 @@ def main(argv: list[str] | None = None) -> dict:
     raw = apply_overrides(load_yaml(args.config), args.override)
     tcfg = trainer_config_from_dict(raw)
     check_supported(args, tcfg)
-    if raw.get("encoder", "whisper") != "whisper":
-        raise NotImplementedError(f"training the {raw.get('encoder')!r} family (the CTC "
-                                  "loss, K5's backward, K4) is not ported yet")
     dtype = getattr(torch, args.compute_dtype)
     device = torch.device(args.device)
-    cfg = model_config_from_dict(raw, compute_dtype=dtype)
-    check_trainable(cfg)
+    task = task_from_dict(raw, compute_dtype=dtype)
+    cfg = task.cfg
     optim_cfg = optim_config_from_dict(raw)
     max_epoch = args.max_epoch if args.max_epoch is not None else tcfg.max_epoch
     batch_bins = args.batch_bins if args.batch_bins is not None else tcfg.batch_bins
     freeze = args.freeze_param or tcfg.freeze_param
+    if task.kind == "conformer" and freeze:
+        raise NotImplementedError("a freeze preset on the conformer family is not ported")
+    if task.kind == "whisper":
+        check_trainable(cfg)
     if tcfg.freeze_quant not in (None, "none") and not (
             freeze and tcfg.freeze_quant == "int8"):
         raise ValueError(f"unknown freeze_quant {tcfg.freeze_quant!r}"
@@ -167,30 +187,38 @@ def main(argv: list[str] | None = None) -> dict:
     logging.info("train: %d utts, valid: %d utts (%d batches)", len(train_ds),
                  len(valid_ds), len(valid_batches))
 
-    sd = init_whisper_params(torch.Generator().manual_seed(tcfg.seed), cfg.whisper)
+    sd = task.init_fn(torch.Generator().manual_seed(tcfg.seed), cfg)
     init_param = args.init_param or tcfg.init_param
     if init_param:
-        sd, n = load_init_params(init_param, sd, cfg.whisper)
+        sd, n = load_init_params(init_param, sd, cfg, task.kind)
         logging.info("init_param: loaded %d/%d parameters from %s", n, len(sd),
                      init_param)
-    model = Whisper.from_state_dict(cfg.whisper, sd, device=device,
-                                    param_dtype=torch.float32)
-    params = apply_freeze(model, freeze)
-    model.cast_frozen_(dtype)
-    if tcfg.freeze_quant == "int8":
-        model.quantize_frozen_()
-        logging.info("freeze_quant=int8: frozen trunk linears quantized")
+    if task.kind == "conformer":
+        model = ConformerASR.from_state_dict(cfg, sd, device=device,
+                                             param_dtype=torch.float32)
+        params = list(model.parameters())
+        to_numpy = functools.partial(numpy_from_conformer_params, cfg=cfg)
+    else:
+        model = Whisper.from_state_dict(cfg.whisper, sd, device=device,
+                                        param_dtype=torch.float32)
+        params = apply_freeze(model, freeze)
+        model.cast_frozen_(dtype)
+        if tcfg.freeze_quant == "int8":
+            model.quantize_frozen_()
+            logging.info("freeze_quant=int8: frozen trunk linears quantized")
+        to_numpy = numpy_from_params
     logging.info("freeze_param=%s: %.2fM / %.2fM trainable", freeze,
                  sum(p.numel() for p in params) / 1e6,
                  sum(p.numel() for p in model.parameters()) / 1e6)
     optimizer, scheduler = build_optimizer(params, optim_cfg)
     train_step = make_train_step(
         model, cfg, optimizer, scheduler, grad_clip=optim_cfg.grad_clip,
-        generator=torch.Generator().manual_seed(tcfg.seed + 1))
-    eval_step = make_eval_step(model, cfg)
+        generator=torch.Generator().manual_seed(tcfg.seed + 1), loss_fn=task.loss_fn)
+    eval_step = make_eval_step(model, cfg, loss_fn=task.loss_fn)
     err_calc = ErrorCalculator(train_ds.tokenizer.id_to_token)
     mgr = CheckpointManager(args.exp_dir, keep_nbest=tcfg.keep_nbest_models,
-                            criterion=tcfg.best_model_criterion)
+                            criterion=tcfg.best_model_criterion, to_numpy=to_numpy)
+    recalibrate_bn = task.kind == "conformer" and cfg.encoder.conv_norm == "batch"
 
     def batch_of(ds, utts):
         return to_device(collate_batch([ds[u] for u in utts]), device)
@@ -201,7 +229,7 @@ def main(argv: list[str] | None = None) -> dict:
         t0 = time.time()
         batches = num_elements_batches(train_lens, batch_bins, shuffle_batches=True,
                                        seed=tcfg.seed + epoch)
-        train = _Mean()
+        train = EpochMean()
         n_steps, nonfinite_before = 0, nonfinite
         for i in range(0, len(batches), tcfg.accum_grad):
             group = batches[i: i + tcfg.accum_grad]
@@ -215,8 +243,10 @@ def main(argv: list[str] | None = None) -> dict:
         if n_steps and nonfinite - nonfinite_before >= n_steps:
             raise RuntimeError(f"epoch {epoch}: all {n_steps} steps had non-finite "
                                "gradients; aborting (check lr/data)")
+        if recalibrate_bn:
+            recalibrate(model, (batch_of(train_ds, u) for u in batches[:8]))
 
-        valid = _Mean()
+        valid = EpochMean()
         for utts in valid_batches:
             stats, (ys_hat, ys_out) = eval_step(batch_of(valid_ds, utts))
             stats = {k: float(v) for k, v in stats.items()}

@@ -3,16 +3,18 @@ of `agacs_tpu/models/asr_model.py`): waveform -> log-mel (+SpecAug in
 training) -> Whisper encoder -> teacher-forced decoder with the language
 columns -> label-smoothed CE + CS loss.
 
-  loss = loss_att;  with cs_weight: loss = cs_weight * loss_cs + loss_att
+  loss = loss_att;  with ctc_weight: ctc_weight * loss_ctc
+  + (1 - ctc_weight) * loss_att, loss_ctc from the CTC head over the
+  encoder output (`ctc_loss_streaming`, kernel K4 on the card);
+  with cs_weight: loss = cs_weight * loss_cs + loss_att
   (loss_cs over the pre-softmax language columns, or the post-softmax
   mixed ones for a PE decoder)
   (the reference overwrites the CTC mix here, espnet_model.py:694; the
   JAX package keeps that quirk at asr_model.py:247-248 and so does this
-  port, though its CTC branch is not ported).
+  port).
 
-Not ported, and raising NotImplementedError when asked for: the CTC head
-(`ctc_weight != 0`, TPU kernel K4), `cs_loss_type: lid_ce` and the
-learnable `estimate_c`.
+Not ported, and raising NotImplementedError when asked for:
+`cs_loss_type: lid_ce` and the learnable `estimate_c`.
 
 Batch layout (tensors on the model's device):
   speech (B, S) float32, speech_lengths (B,), text (B, T) ids -1 padded,
@@ -32,6 +34,7 @@ from agacs_tpu_torch.models.whisper import (
     Whisper,
     WhisperConfig,
     encoder_olens,
+    init_whisper_params,
     whisper_decode,
 )
 from agacs_tpu_torch.ops.logmel import WhisperAudioConfig, log_mel_spectrogram
@@ -39,6 +42,7 @@ from agacs_tpu_torch.ops.specaug import SpecAugConfig, specaug
 from agacs_tpu_torch.train.losses import (
     IGNORE_ID,
     add_sos_eos,
+    ctc_loss_streaming,
     label_smoothing_loss,
     th_accuracy,
 )
@@ -84,12 +88,20 @@ class ASRModelConfig:
         return np.ones((n_l, n_h), np.float32)
 
 
+def init_asr_params(generator: torch.Generator, cfg: ASRModelConfig) -> dict:
+    """Random float32 state dict (CPU): the whisper parameters and, with a
+    nonzero ctc_weight, the CTC head (normal / sqrt(d), zero bias; JAX
+    `init_asr_params`)."""
+    sd = init_whisper_params(generator, cfg.whisper)
+    if cfg.ctc_weight != 0.0:
+        d, v = cfg.whisper.n_audio_state, cfg.whisper.n_vocab
+        sd["ctc.weight"] = torch.randn(v, d, generator=generator) / np.sqrt(d)
+        sd["ctc.bias"] = torch.zeros(v)
+    return sd
+
+
 def check_trainable(cfg: ASRModelConfig) -> None:
     """Raise for the training options the port cannot run yet."""
-    if cfg.ctc_weight != 0.0:
-        raise NotImplementedError(
-            "ctc_weight != 0: the CTC head (TPU kernel K4, vocab_lse) is not "
-            "ported yet")
     if cfg.cs_weight != 0.0 and cfg.cs_loss_type != "attention":
         raise NotImplementedError(
             f"cs_loss_type {cfg.cs_loss_type!r}: only the shipped 'attention' "
@@ -128,8 +140,8 @@ def forward(
     `return_preds` also (argmax ids, ys_out) for the eval epoch."""
     check_trainable(cfg)
     text = batch["text"]
-    enc_out, _ = encode(model, cfg, batch["speech"], batch["speech_lengths"],
-                        train=train, generator=generator)
+    enc_out, enc_lens = encode(model, cfg, batch["speech"], batch["speech_lengths"],
+                               train=train, generator=generator)
     ys_in, ys_out = add_sos_eos(text, cfg.sos, cfg.eos, cfg.ignore_id)
     collect = cfg.cs_weight != 0.0
     logits, aux = whisper_decode(model, ys_in, enc_out, src_layer=cfg.src_layer - 1,
@@ -138,6 +150,11 @@ def forward(
                                     cfg.length_normalized_loss)
     stats = {"loss_att": loss_att, "acc": th_accuracy(logits, ys_out, cfg.ignore_id)}
     loss = loss_att
+    if cfg.ctc_weight != 0.0:
+        loss_ctc = ctc_loss_streaming(enc_out, model.ctc.weight.t(), model.ctc.bias, enc_lens,
+                                      text, (text != cfg.ignore_id).sum(-1))
+        stats["loss_ctc"] = loss_ctc
+        loss = cfg.ctc_weight * loss_ctc + (1.0 - cfg.ctc_weight) * loss_att
     if collect:
         head_mask = torch.from_numpy(cfg.head_mask_array()[cfg.src_layer - 1:])
         # a PE decoder's CS loss reads the post-softmax mixed columns

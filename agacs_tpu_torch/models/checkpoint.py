@@ -15,7 +15,8 @@ linear (in, out) <-> nn.Linear (out, in); conv (3, in, out) <-> nn.Conv1d
 (out, in, 3); stacked (L, ...) leaves <-> `blocks.{i}.*`. The int8 trunk
 (`train/trainer.py quantize_frozen_linears` in JAX) maps `.../w_q` (int8,
 JAX's (in, out) layout kept) and `.../w_s` (float32) to an `Int8Linear`'s
-`weight_q` / `weight_s` buffers, both ways, in their own dtypes. PE
+`weight_q` / `weight_s` buffers, both ways, in their own dtypes. A CTC
+head's `ctc/w` (d, V) and `ctc/b` are the `ctc` linear, both ways. PE
 attention's `query_cs` / `key_cs` are linears like the others and its
 per-head `gate` a plain (n_head,) leaf. Checkpoints the port cannot run
 (serving-quantized `token_emb_q` / `logits_w_q`, side networks) raise.
@@ -110,7 +111,7 @@ def params_from_numpy(tree: Mapping[str, Any], cfg: WhisperConfig,
     check_supported(cfg)
     flat = _flat(tree)
     _check_keys(flat)
-    meta = Whisper(cfg, device="meta")
+    meta = Whisper(cfg, device="meta", ctc="ctc/w" in flat)
     int8 = {name[: -len(".weight")] for name in meta.state_dict()
             if name.endswith(".weight") and jax_leaf(name)[0][:-1] + "w_q" in flat}
     if int8:
@@ -207,10 +208,12 @@ def _module_leaves(model: nn.Module) -> dict[str, tuple[tuple[str, ...], int | N
     return out
 
 
-def _from_numpy(tree: Mapping[str, Any], meta: nn.Module) -> dict:
+def _from_numpy(tree: Mapping[str, Any], meta: nn.Module, strict: bool = True) -> dict:
     flat = _flat(tree)
     sd = {}
     for name, (keys, layer, layout) in _module_leaves(meta).items():
+        if not strict and any(k not in flat for k in keys):
+            continue
         arrs = [np.asarray(flat[k] if layer is None else flat[k][layer], np.float32)
                 for k in keys]
         a = arrs[0]
@@ -255,13 +258,14 @@ def _to_numpy(state_dict: Mapping[str, torch.Tensor], meta: nn.Module) -> dict[s
     return out
 
 
-def conformer_params_from_numpy(tree: Mapping[str, Any], cfg) -> dict:
+def conformer_params_from_numpy(tree: Mapping[str, Any], cfg, strict: bool = True) -> dict:
     """JAX conformer-ASR params (`init_conformer_asr_params`'s tree as numpy
     arrays, or the flat mapping `save_pytree` writes) -> float32 state dict
-    of `models.conformer_asr.ConformerASR` (with `mvn` and the `ctc` head)."""
+    of `models.conformer_asr.ConformerASR` (with `mvn` and the `ctc` head).
+    With strict=False, names whose leaves are missing are left out."""
     from agacs_tpu_torch.models.conformer_asr import ConformerASR
 
-    return _from_numpy(tree, ConformerASR(cfg, device="meta"))
+    return _from_numpy(tree, ConformerASR(cfg, device="meta"), strict)
 
 
 def numpy_from_conformer_params(state_dict: Mapping[str, torch.Tensor], cfg) -> dict:

@@ -18,8 +18,14 @@ Counterparts of the JAX functions:
                             einsum path with its bf16 / float32 rounding
   _ffn_fwd / _ffn_fwd2   -> FFN (swish for the encoder, relu for the decoder)
   _conv_module           -> ConvModule, conv_norm "layer" (the recipe's) or
-                            "batch" in eval mode (running_mean/running_var)
-  conformer_encode       -> ConformerEncoder.forward (eval mode)
+                            "batch": biased batch statistics over every
+                            (B, T) position, padding included, in training;
+                            running_mean/running_var at eval
+  dropout                -> dropout (inverted, from a torch.Generator)
+  conformer_encode       -> ConformerEncoder.forward: eval, or training with
+                            dropout on the four residual branches of each
+                            block, interCTC taps and the BN statistics
+  collect_bn_batch_stats, apply_bn_stats -> the same
   transformer_decode, init_decoder_kv_cache, precompute_decoder_cross_kv,
   transformer_decode_step -> functions of the same names over a
                             TransformerDecoder; the step's self-attention is
@@ -27,11 +33,12 @@ Counterparts of the JAX functions:
                             float32 caches), its cross-attention a plain
                             einsum as in JAX
 
-Linear, conv, embedding and position-bias parameters are stored in the
-compute dtype (JAX casts its float32 leaves at use: the same values);
-layer norms and batch-norm statistics in float32.
-`unroll_layers` (scan against unroll) is TPU-only and has no counterpart.
-Training (dropout, batch statistics, the CTC loss) is not ported yet.
+Linear, conv, embedding and position-bias parameters are stored in
+`param_dtype`: by default the compute dtype (serving; JAX casts its float32
+leaves at use: the same values), float32 masters for training, cast at use;
+layer norms and batch-norm statistics in float32. The decoder has no
+dropout, as in JAX. `unroll_layers` (scan against unroll) is TPU-only and
+has no counterpart.
 """
 
 from __future__ import annotations
@@ -90,6 +97,16 @@ def sigmoid(x: torch.Tensor) -> torch.Tensor:
 
 def swish(x: torch.Tensor) -> torch.Tensor:
     return x * sigmoid(x)
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
+    """Inverted dropout (JAX `dropout`): each element kept with probability
+    1 - rate (uniform draws from `generator`, on x's device) and scaled by
+    1 / (1 - rate); identity without a generator or at rate 0."""
+    if generator is None or rate <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
 @functools.lru_cache(maxsize=None)
@@ -253,7 +270,9 @@ class ConvModule(nn.Module):
             self.register_buffer("running_mean", torch.zeros(d, device=device))
             self.register_buffer("running_var", torch.ones(d, device=device))
 
-    def forward(self, x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, valid: torch.Tensor, train: bool = False):
+        """-> (out, (mean, var)): the batch statistics with conv_norm
+        "batch" in training, else None."""
         m = valid[..., None].to(x.dtype)
         a, g = self.pw1(x * m).chunk(2, -1)
         h = a * sigmoid(g) * m
@@ -262,18 +281,23 @@ class ConvModule(nn.Module):
             h = F.conv1d(h.transpose(1, 2), self.dw.weight.to(h.dtype), None, padding=pad,
                          groups=h.shape[-1]).transpose(1, 2)
         h = h + self.dw.bias.to(h.dtype)
+        stats = None
         if self.conv_norm == "batch":
-            hf = (h.float() - self.running_mean) * torch.rsqrt(self.running_var + BN_EPS)
+            hf = h.float()
+            if train:
+                stats = (hf.mean((0, 1)), hf.var((0, 1), unbiased=False))
+            mean, var = stats or (self.running_mean, self.running_var)
+            hf = (hf - mean) * torch.rsqrt(var + BN_EPS)
             h = (hf * self.norm.weight.float() + self.norm.bias.float()).to(h.dtype)
         else:
             h = self.norm(h)
-        return self.pw2(swish(h))
+        return self.pw2(swish(h)), stats
 
 
 class ConformerBlock(nn.Module):
-    def __init__(self, cfg: ConformerConfig, device=None):
+    def __init__(self, cfg: ConformerConfig, device=None, param_dtype=None):
         super().__init__()
-        d, dt = cfg.output_size, cfg.compute_dtype
+        d, dt = cfg.output_size, param_dtype or cfg.compute_dtype
         self.cfg = cfg
         self.ff1 = FFN(d, cfg.linear_units, swish, dt, device)
         self.ff1_ln = LayerNorm(d, device=device)
@@ -286,35 +310,77 @@ class ConformerBlock(nn.Module):
             self.conv = ConvModule(d, cfg.cnn_module_kernel, cfg.conv_norm, dt, device)
             self.conv_ln = LayerNorm(d, device=device)
 
-    def forward(self, h, pos, valid):
+    def forward(self, h, pos, valid, train: bool = False,
+                generator: torch.Generator | None = None):
+        """-> (out, BN batch statistics or None); dropout on the four
+        residual branches when `generator` is given."""
+        rate = self.cfg.dropout_rate
         if self.cfg.macaron_style:
-            h = h + 0.5 * self.ff1(self.ff1_ln(h))
-        h = h + self.attn(self.attn_ln(h), pos, valid)
+            h = h + 0.5 * dropout(self.ff1(self.ff1_ln(h)), rate, generator)
+        h = h + dropout(self.attn(self.attn_ln(h), pos, valid), rate, generator)
+        stats = None
         if self.cfg.use_cnn_module:
-            h = h + self.conv(self.conv_ln(h), valid)
-        h = h + 0.5 * self.ff2(self.ff2_ln(h))
-        return self.final_ln(h)
+            conv, stats = self.conv(self.conv_ln(h), valid, train)
+            h = h + dropout(conv, rate, generator)
+        h = h + 0.5 * dropout(self.ff2(self.ff2_ln(h)), rate, generator)
+        return self.final_ln(h), stats
 
 
 class ConformerEncoder(nn.Module):
-    def __init__(self, cfg: ConformerConfig, device=None):
+    def __init__(self, cfg: ConformerConfig, device=None, param_dtype=None):
         super().__init__()
         self.cfg = cfg
-        self.subsample = Conv2dSubsample(cfg.input_size, cfg.output_size, cfg.compute_dtype,
-                                         device)
-        self.blocks = nn.ModuleList(ConformerBlock(cfg, device) for _ in range(cfg.num_blocks))
+        self.subsample = Conv2dSubsample(cfg.input_size, cfg.output_size,
+                                         param_dtype or cfg.compute_dtype, device)
+        self.blocks = nn.ModuleList(ConformerBlock(cfg, device, param_dtype)
+                                    for _ in range(cfg.num_blocks))
         self.after_ln = LayerNorm(cfg.output_size, device=device)
 
-    def forward(self, feats: torch.Tensor, ilens: torch.Tensor):
-        """(B, T, F) features -> ((B, T/4, d), olens)."""
+    def forward(self, feats: torch.Tensor, ilens: torch.Tensor,
+                generator: torch.Generator | None = None, train: bool = False,
+                interctc_layers: tuple[int, ...] = (), collect_bn_stats: bool = False):
+        """(B, T, F) features -> ((B, T/4, d), olens) (JAX
+        `conformer_encode`). `train` puts conv_norm "batch" on batch
+        statistics (JAX: an rng is given); `generator` draws dropout. With
+        `interctc_layers` (1-based) the result gains [(idx, that block's
+        output), ...]; with `collect_bn_stats` the stacked (L, d) batch
+        means and variances."""
         x, olens = self.subsample(feats.to(self.cfg.compute_dtype), ilens)
         t, d = x.shape[1], self.cfg.output_size
         x = x * math.sqrt(d)  # xscale
         pos = _pe_rows(rel_positional_encoding(t, d), x.device, x.dtype)
         valid = torch.arange(t, device=x.device)[None, :] < olens[:, None]
-        for block in self.blocks:
-            x = block(x, pos, valid)
-        return self.after_ln(x), olens
+        taps, stats = {}, []
+        for i, block in enumerate(self.blocks):
+            x, st = block(x, pos, valid, train, generator)
+            stats.append(st)
+            taps[i + 1] = x
+        x = self.after_ln(x)
+        if collect_bn_stats:
+            return x, olens, (torch.stack([m for m, _ in stats]),
+                              torch.stack([v for _, v in stats]))
+        if interctc_layers:
+            return x, olens, [(li, taps[li]) for li in interctc_layers]
+        return x, olens
+
+
+def collect_bn_batch_stats(encoder: ConformerEncoder, feats: torch.Tensor,
+                           ilens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-block conv BatchNorm batch statistics ((L, d) mean, (L, d) var)
+    of one batch, the recalibration probe: batch statistics, no dropout."""
+    _, _, stats = encoder(feats, ilens, train=True, collect_bn_stats=True)
+    return stats
+
+
+def apply_bn_stats(encoder: ConformerEncoder, mean: torch.Tensor, var: torch.Tensor) -> None:
+    """Write averaged (L, d) batch statistics into the blocks'
+    running_mean / running_var buffers, IN PLACE (JAX returns a new tree):
+    the post-epoch recalibration that stands in for torch BatchNorm's
+    per-step running average."""
+    with torch.no_grad():
+        for i, block in enumerate(encoder.blocks):
+            block.conv.running_mean.copy_(mean[i])
+            block.conv.running_var.copy_(var[i])
 
 
 # ---------------------------------------------------------------------------
@@ -344,9 +410,9 @@ def _mha(m: MHA, xq: torch.Tensor, xkv: torch.Tensor, mask: torch.Tensor,
 
 
 class DecoderBlock(nn.Module):
-    def __init__(self, cfg: TransformerDecoderConfig, device=None):
+    def __init__(self, cfg: TransformerDecoderConfig, device=None, param_dtype=None):
         super().__init__()
-        d, dt = cfg.d_model, cfg.compute_dtype
+        d, dt = cfg.d_model, param_dtype or cfg.compute_dtype
         self.self_attn = MHA(d, dt, device)
         self.self_ln = LayerNorm(d, device=device)
         self.src_attn = MHA(d, dt, device)
@@ -358,15 +424,16 @@ class DecoderBlock(nn.Module):
 class TransformerDecoder(nn.Module):
     """`embed` (V, d), the blocks, `after_ln` and the `output` linear."""
 
-    def __init__(self, cfg: TransformerDecoderConfig, device=None):
+    def __init__(self, cfg: TransformerDecoderConfig, device=None, param_dtype=None):
         super().__init__()
         self.cfg = cfg
-        self.embed = nn.Parameter(torch.zeros(cfg.vocab_size, cfg.d_model,
-                                              dtype=cfg.compute_dtype, device=device))
-        self.blocks = nn.ModuleList(DecoderBlock(cfg, device) for _ in range(cfg.num_blocks))
+        dt = param_dtype or cfg.compute_dtype
+        self.embed = nn.Parameter(torch.zeros(cfg.vocab_size, cfg.d_model, dtype=dt,
+                                              device=device))
+        self.blocks = nn.ModuleList(DecoderBlock(cfg, device, param_dtype)
+                                    for _ in range(cfg.num_blocks))
         self.after_ln = LayerNorm(cfg.d_model, device=device)
-        self.output = Linear(cfg.d_model, cfg.vocab_size, dtype=cfg.compute_dtype,
-                             device=device)
+        self.output = Linear(cfg.d_model, cfg.vocab_size, dtype=dt, device=device)
 
 
 def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor, pos_rows: torch.Tensor,

@@ -6,8 +6,9 @@ and the cached scorer of beam fusion, `init_lm_kv_cache` +
 `lm_score_step_cached` (next-token log-probabilities). The decode CLI
 builds it in float32 (`bin/decode.py _load_lm_config`, as JAX's), so its
 caches are float32 and the cached step's self-attention is kernel K3-f32
-(`ops/decode_attn.py`) on the card. LM training (`lm_loss`, `bin/lm_train`)
-is not ported yet.
+(`ops/decode_attn.py`) on the card. `lm_loss` is the teacher-forced
+next-token loss that `bin/lm_train` (the recipe's stage 2) trains with; it
+runs no kernel of this package.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from agacs_tpu_torch.models.conformer import (
@@ -45,9 +47,9 @@ class TransformerLMConfig:
 
 
 class LMBlock(nn.Module):
-    def __init__(self, cfg: TransformerLMConfig, device=None):
+    def __init__(self, cfg: TransformerLMConfig, device=None, param_dtype=None):
         super().__init__()
-        d, dt = cfg.d_model, cfg.compute_dtype
+        d, dt = cfg.d_model, param_dtype or cfg.compute_dtype
         self.attn = MHA(d, dt, device)
         self.attn_ln = LayerNorm(d, device=device)
         self.ffn = FFN(d, cfg.linear_units, torch.relu, dt, device)
@@ -55,22 +57,25 @@ class LMBlock(nn.Module):
 
 
 class TransformerLM(nn.Module):
-    """`embed` (V, d), the blocks, `after_ln` and the `output` linear."""
+    """`embed` (V, d), the blocks, `after_ln` and the `output` linear;
+    parameters stored in `param_dtype` (default: the compute dtype)."""
 
-    def __init__(self, cfg: TransformerLMConfig, device=None):
+    def __init__(self, cfg: TransformerLMConfig, device=None, param_dtype=None):
         super().__init__()
         self.cfg = cfg
-        self.embed = nn.Parameter(torch.zeros(cfg.vocab_size, cfg.d_model,
-                                              dtype=cfg.compute_dtype, device=device))
-        self.blocks = nn.ModuleList(LMBlock(cfg, device) for _ in range(cfg.num_blocks))
+        dt = param_dtype or cfg.compute_dtype
+        self.embed = nn.Parameter(torch.zeros(cfg.vocab_size, cfg.d_model, dtype=dt,
+                                              device=device))
+        self.blocks = nn.ModuleList(LMBlock(cfg, device, param_dtype)
+                                    for _ in range(cfg.num_blocks))
         self.after_ln = LayerNorm(cfg.d_model, device=device)
-        self.output = Linear(cfg.d_model, cfg.vocab_size, dtype=cfg.compute_dtype,
-                             device=device)
+        self.output = Linear(cfg.d_model, cfg.vocab_size, dtype=dt, device=device)
 
     @classmethod
     def from_state_dict(cls, cfg: TransformerLMConfig, state_dict: dict,
-                        device=None) -> "TransformerLM":
-        model = cls(cfg, device="meta").to_empty(device=device or "cpu")
+                        device=None, param_dtype=None) -> "TransformerLM":
+        model = cls(cfg, device="meta", param_dtype=param_dtype).to_empty(
+            device=device or "cpu")
         model.load_state_dict(state_dict)
         return model.eval()
 
@@ -95,6 +100,21 @@ def lm_forward(lm: TransformerLM, tokens: torch.Tensor) -> torch.Tensor:
         x = x + _mha(bp.attn, hn, hn, causal, cfg.attention_heads)
         x = x + bp.ffn(bp.ffn_ln(x))
     return lm.output(lm.after_ln(x)).float()
+
+
+def lm_loss(lm: TransformerLM, cfg: TransformerLMConfig, batch: dict, train: bool = True,
+            generator: torch.Generator | None = None, return_preds: bool = False):
+    """Next-token cross entropy over a (B, T) -1-padded text batch, the
+    mean over its tokens (JAX `lm_loss`): (loss, {"loss", "ppl"})."""
+    text = batch["text"]
+    sos = torch.full_like(text[:, :1], cfg.sos)
+    ys_in = torch.cat([sos, torch.where(text == -1, cfg.eos, text)], 1)[:, :-1]
+    logits = lm_forward(lm, ys_in)
+    mask = text != -1
+    nll = F.cross_entropy(logits.transpose(1, 2), torch.where(mask, text, 0),
+                          reduction="none")
+    loss = torch.where(mask, nll, 0.0).sum() / mask.sum().clamp(min=1)
+    return loss, {"loss": loss, "ppl": torch.exp(loss)}
 
 
 def init_lm_kv_cache(cfg: TransformerLMConfig, batch: int, max_len: int,

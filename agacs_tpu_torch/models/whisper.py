@@ -621,13 +621,19 @@ class WhisperDecoder(nn.Module):
 
 
 class Whisper(nn.Module):
+    """With `ctc`, also the CTC head `ctc` (n_audio_state -> n_vocab; JAX's
+    (d, V) `ctc/w` transposed) that a nonzero ctc_weight trains."""
+
     def __init__(self, cfg: WhisperConfig, device=None,
-                 param_dtype: torch.dtype | None = None):
+                 param_dtype: torch.dtype | None = None, ctc: bool = False):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
         self.encoder = WhisperEncoder(cfg, device, param_dtype)
         self.decoder = WhisperDecoder(cfg, device, param_dtype)
+        if ctc:
+            self.ctc = nn.Linear(cfg.n_audio_state, cfg.n_vocab, device=device,
+                                 dtype=param_dtype or cfg.compute_dtype)
 
     @classmethod
     def from_state_dict(cls, cfg: WhisperConfig, state_dict: dict,
@@ -635,7 +641,7 @@ class Whisper(nn.Module):
                         ) -> "Whisper":
         """Build on `device` and load (casting to `param_dtype`, by default
         the compute dtype, once)."""
-        model = cls(cfg, device, param_dtype)
+        model = cls(cfg, device, param_dtype, ctc="ctc.weight" in state_dict)
         int8 = {k[: -len(".weight_q")] for k in state_dict if k.endswith(".weight_q")}
         if int8:
             model.int8_structure_(int8)

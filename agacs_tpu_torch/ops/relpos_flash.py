@@ -1,6 +1,6 @@
 """Relative-position (Transformer-XL) multi-head attention of the conformer
 encoder (counterpart of `agacs_tpu/ops/relpos_flash.py`; kernel K5's
-forward, `csrc/relpos_flash.cu`).
+forward and backward, `csrc/relpos_flash.cu`).
 
 Per head h, with qu = q + pos_bias_u and qv = q + pos_bias_v formed by the
 caller:
@@ -20,8 +20,12 @@ einsum path, as JAX's `_rel_attn` does. The two paths round differently
 (float32 scores here, bf16 einsums there), so the envelope decides the
 numbers and is not a fallback. `relpos_mha` runs the plain version
 `relpos_mha_plain` for a CPU tensor and launches K5 for a CUDA tensor (the
-kernel takes d_head 64) or raises. K5's backward (the conformer's training
-path) is not ported yet: a CUDA tensor that needs a gradient raises.
+kernel takes d_head 64) or raises. Under autograd it is a
+`torch.autograd.Function` (JAX's custom VJP): on the card the forward also
+keeps each row's max and sum and the backward is K5's backward kernel; on
+the CPU the backward is `relpos_mha_bwd_plain`, `_bwd_kernel`'s
+arithmetic. dpe is summed over the batch in float32 and cast to pe's
+dtype, as JAX's `_vjp_bwd` does; the mask gets no gradient.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ MIN_T, MAX_T = 64, 640
 NEG_MASK = -1e30
 D_HEAD = 64  # what K5 takes
 LAUNCHES = 0  # K5 forward launches since the last reset (chip_smoke.py reads it)
+BWD_LAUNCHES = 0  # K5 backward launches
 
 
 def _wp(t: int) -> int:
@@ -84,6 +89,8 @@ def relpos_mha_plain(qu, qv, k, v, pe, mask, n_head: int) -> torch.Tensor:
 
 def _check(qu, qv, k, v, pe, mask, n_head: int) -> None:
     b, t, d = qu.shape
+    if qu.device.type != "cuda":
+        raise ValueError(f"relpos_flash: K5 runs on a CUDA tensor, not on {qu.device}")
     for name, x in (("qu", qu), ("qv", qv), ("k", k), ("v", v), ("pe", pe), ("mask", mask)):
         want = torch.float32 if name == "mask" else torch.bfloat16
         if x.dtype != want or x.device != qu.device:
@@ -102,25 +109,118 @@ def _check(qu, qv, k, v, pe, mask, n_head: int) -> None:
                          f"takes {MIN_T} <= T <= {MAX_T} and d_head {D_HEAD}")
 
 
-def relpos_mha(qu, qv, k, v, pe, mask, n_head: int) -> torch.Tensor:
-    """(B, T, D) rel-pos attention before the output projection: the plain
-    version on the CPU, K5 on a CUDA tensor (or a raise)."""
-    if qu.device.type == "cpu":
-        return relpos_mha_plain(qu, qv, k, v, pe, mask, n_head)
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (qu, qv, k, v, pe)):
-        raise NotImplementedError("relpos_mha: K5's backward (conformer training) is not "
-                                  "ported yet")
-    if qu.device.type != "cuda":
-        raise ValueError(f"relpos_mha: unsupported device {qu.device}")
+def relpos_mha_bwd_plain(qu, qv, k, v, pe, mask, o, do, n_head: int):
+    """The plain backward: JAX `_bwd_kernel`'s arithmetic (:178-246) ->
+    (dqu, dqv, dk, dv, dpe). p = exp(s - m) unnormalised, rounded to do's
+    dtype for dv against bf16(do / l); dd = rowsum(do * o) in float32;
+    ds = (p (dp - dd) / l * d_head^-0.5) rounded to the input dtype before
+    its products; dqv and dpe through the un-shifted ds (a scatter onto
+    columns T-1-q+j); dpe summed over the batch in float32, then cast to
+    pe's dtype (its rows from 2T-1 on are zero)."""
+    b, t, d = qu.shape
+    dh = d // n_head
+    dt = do.dtype
+    isd = dh ** -0.5
+
+    def heads(x):
+        return x.reshape(b, t, n_head, dh).transpose(1, 2).float()
+
+    def merge(x, dtype):
+        return x.transpose(1, 2).reshape(b, t, d).to(dtype)
+
+    peh = pe[: 2 * t - 1].reshape(2 * t - 1, n_head, dh).transpose(0, 1).float()
+    quh, qvh, kh, vh, doh = heads(qu), heads(qv), heads(k), heads(v), heads(do)
+    cols = ((t - 1) - torch.arange(t, device=qu.device)[:, None]
+            + torch.arange(t, device=qu.device)[None, :]).expand(b, n_head, t, t)
+    bd = (qvh @ peh.transpose(-1, -2)[None]).gather(3, cols)
+    s = (quh @ kh.transpose(-1, -2) + bd) * isd + mask.float()[:, None, None, :]
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    linv = 1.0 / p.sum(-1, keepdim=True)
+    dd = (doh * heads(o)).sum(-1, keepdim=True)
+    don = (doh * linv).to(dt).float()
+    dv = p.to(dt).float().transpose(-1, -2) @ don
+    dp = doh @ vh.transpose(-1, -2)
+    ds = (p * (dp - dd) * linv * isd).to(dt).float()
+    dbd = torch.zeros(b, n_head, t, 2 * t - 1, device=qu.device).scatter(3, cols, ds)
+    dqv = (dbd @ peh[None]).to(dt).float()
+    dpe = (dbd.transpose(-1, -2) @ qvh).sum(0)  # (h, 2T-1, dh)
+    dpe = pad_pe(dpe.transpose(0, 1).reshape(2 * t - 1, d), t)[: pe.shape[0]]
+    return (merge(ds @ kh, qu.dtype), merge(dqv, qv.dtype),
+            merge(ds.transpose(-1, -2) @ quh, k.dtype), merge(dv, v.dtype), dpe.to(pe.dtype))
+
+
+def _launch_fwd(qu, qv, k, v, pe, mask, n_head: int, stats: bool):
+    """K5's forward on the card -> o, and with `stats` the (B, H, T) float32
+    row max and row sum the backward reads."""
     _check(qu, qv, k, v, pe, mask, n_head)
     b, t, _ = qu.shape
     o = torch.empty_like(qu)
+    m = l = None
+    if stats:
+        m = torch.empty(b, n_head, t, device=qu.device)
+        l = torch.empty_like(m)
     fn = cuda_lib.load("relpos_flash", "relpos_flash_fwd",
-                       [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                       [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     rc = fn(qu.data_ptr(), qv.data_ptr(), k.data_ptr(), v.data_ptr(), pe.data_ptr(),
-            mask.data_ptr(), o.data_ptr(), b, t, n_head,
+            mask.data_ptr(), o.data_ptr(), m.data_ptr() if stats else None,
+            l.data_ptr() if stats else None, b, t, n_head,
             torch.cuda.current_stream(qu.device).cuda_stream)
     cuda_lib.check(rc, "relpos_flash_fwd")
     global LAUNCHES
     LAUNCHES += 1
-    return o
+    return o, m, l
+
+
+def _launch_bwd(qu, qv, k, v, pe, mask, o, do, m, l, n_head: int):
+    """K5's backward on the card -> (dqu, dqv, dk, dv, dpe in pe's dtype)."""
+    _check(qu, qv, k, v, pe, mask, n_head)
+    do = do.contiguous()
+    if do.shape != qu.shape or do.dtype != qu.dtype:
+        raise ValueError(f"relpos_flash_bwd: do {tuple(do.shape)} {do.dtype}")
+    b, t, _ = qu.shape
+    dd = torch.empty_like(m)
+    dqu, dqv, dk, dv = (torch.empty_like(qu) for _ in range(4))
+    dpe = torch.zeros(pe.shape, device=pe.device)
+    fn = cuda_lib.load("relpos_flash", "relpos_flash_bwd",
+                       [ctypes.c_void_p] * 16 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    rc = fn(qu.data_ptr(), qv.data_ptr(), k.data_ptr(), v.data_ptr(), pe.data_ptr(),
+            mask.data_ptr(), o.data_ptr(), do.data_ptr(), m.data_ptr(), l.data_ptr(),
+            dd.data_ptr(), dqu.data_ptr(), dqv.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            dpe.data_ptr(), b, t, n_head, torch.cuda.current_stream(qu.device).cuda_stream)
+    cuda_lib.check(rc, "relpos_flash_bwd")
+    global BWD_LAUNCHES
+    BWD_LAUNCHES += 1
+    return dqu, dqv, dk, dv, dpe.to(pe.dtype)
+
+
+class _RelposMHA(torch.autograd.Function):
+    """K5 under autograd: the plain forward and backward on the CPU, the
+    kernels on the card (the forward keeps the row statistics only when an
+    input needs a gradient)."""
+
+    @staticmethod
+    def forward(ctx, qu, qv, k, v, pe, mask, n_head):
+        if qu.device.type == "cpu":
+            o, m, l = relpos_mha_plain(qu, qv, k, v, pe, mask, n_head), None, None
+        else:
+            o, m, l = _launch_fwd(qu, qv, k, v, pe, mask, n_head,
+                                  stats=any(ctx.needs_input_grad[:5]))
+        ctx.n_head = n_head
+        ctx.save_for_backward(qu, qv, k, v, pe, mask, o, m, l)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        qu, qv, k, v, pe, mask, o, m, l = ctx.saved_tensors
+        if qu.device.type == "cpu":
+            grads = relpos_mha_bwd_plain(qu, qv, k, v, pe, mask, o, do, ctx.n_head)
+        else:
+            grads = _launch_bwd(qu, qv, k, v, pe, mask, o, do, m, l, ctx.n_head)
+        return (*grads, None, None)
+
+
+def relpos_mha(qu, qv, k, v, pe, mask, n_head: int) -> torch.Tensor:
+    """(B, T, D) rel-pos attention before the output projection: the plain
+    version on the CPU, K5 on a CUDA tensor (or a raise); differentiable in
+    qu, qv, k, v and pe."""
+    return _RelposMHA.apply(qu, qv, k, v, pe, mask, n_head)

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import json
 import os
+from typing import Callable
 
 import numpy as np
 from torch import nn
@@ -24,9 +25,16 @@ from agacs_tpu_torch.models.checkpoint import numpy_from_params
 
 
 class CheckpointManager:
+    """`to_numpy` turns the model's state dict into the flat JAX mapping:
+    the whisper converter by default, `numpy_from_conformer_params` /
+    `numpy_from_lm_params` for the conformer family (its BN buffers
+    included) and the LM."""
+
     def __init__(self, exp_dir: str, keep_nbest: int = 3,
-                 criterion: tuple[str, str, str] = ("valid", "acc", "max")):
+                 criterion: tuple[str, str, str] = ("valid", "acc", "max"),
+                 to_numpy: Callable[[dict], dict] = numpy_from_params):
         self.exp_dir = exp_dir
+        self.to_numpy = to_numpy
         self.keep_nbest = keep_nbest
         self.criterion = tuple(criterion)
         os.makedirs(exp_dir, exist_ok=True)
@@ -36,7 +44,7 @@ class CheckpointManager:
 
     def save_epoch(self, epoch: int, model: nn.Module, history: dict) -> None:
         """history: {epoch: {"train": {...}, "valid": {...}}}."""
-        np.savez(self._epoch_path(epoch), **numpy_from_params(model.state_dict()))
+        np.savez(self._epoch_path(epoch), **self.to_numpy(model.state_dict()))
         with open(os.path.join(self.exp_dir, "checkpoint_meta.json"), "w") as f:
             json.dump({"epoch": epoch,
                        "history": {str(k): v for k, v in history.items()}}, f, indent=1)

@@ -52,10 +52,14 @@ def make_train_step(
     scheduler,
     grad_clip: float = 1.0,
     generator: torch.Generator | None = None,
+    loss_fn: Callable | None = None,
 ) -> Callable[[list[dict]], dict]:
     """step(micro_batches) -> stats (0-dim tensors on the model's device:
-    the means over micro-batches of loss, loss_att, loss_cs, acc, plus
-    grad_norm and grad_nonfinite_total). `generator` draws SpecAug."""
+    the means over micro-batches of the loss function's stats, plus
+    grad_norm and grad_nonfinite_total). `generator` draws SpecAug (and
+    seeds dropout); `loss_fn` is the task's (JAX `loss_fn`; default the
+    whisper `asr_model.forward`)."""
+    fwd = loss_fn or asr_model.forward
     params = [p for group in optimizer.param_groups for p in group["params"]]
     nonfinite = [0]
 
@@ -64,8 +68,7 @@ def make_train_step(
             p.grad = None
         totals: dict = {}
         for mb in micro_batches:
-            loss, stats = asr_model.forward(model, cfg, mb, train=True,
-                                            generator=generator)
+            loss, stats = fwd(model, cfg, mb, train=True, generator=generator)
             loss.backward()
             for k, v in stats.items():
                 totals[k] = totals.get(k, 0.0) + v.detach().float()
@@ -93,13 +96,34 @@ def make_train_step(
     return step
 
 
-def make_eval_step(model: Whisper, cfg: ASRModelConfig) -> Callable:
-    """step(batch) -> (stats, (argmax ids, ys_out)), no gradient, no SpecAug."""
+def make_eval_step(model: Whisper, cfg: ASRModelConfig, loss_fn: Callable | None = None,
+                   return_preds: bool = True) -> Callable:
+    """step(batch) -> (stats, (argmax ids, ys_out)), or stats alone without
+    `return_preds`; no gradient, no SpecAug."""
+    fwd = loss_fn or asr_model.forward
 
     @torch.no_grad()
     def step(batch: dict):
-        _, stats, preds = asr_model.forward(model, cfg, batch, train=False,
-                                            return_preds=True)
+        if not return_preds:
+            return fwd(model, cfg, batch, train=False)[1]
+        _, stats, preds = fwd(model, cfg, batch, train=False, return_preds=True)
         return stats, preds
 
     return step
+
+
+class EpochMean:
+    """Per-epoch weighted means of step stats (weights: utterances), as
+    JAX's Reporter keeps them."""
+
+    def __init__(self):
+        self.sums: dict[str, float] = {}
+        self.weight = 0
+
+    def add(self, stats: dict, weight: int) -> None:
+        for k, v in stats.items():
+            self.sums[k] = self.sums.get(k, 0.0) + float(v) * weight
+        self.weight += weight
+
+    def result(self) -> dict:
+        return {k: v / max(self.weight, 1) for k, v in self.sums.items()}

@@ -163,10 +163,14 @@ def trainer_config_from_dict(d: dict) -> TrainerConfig:
 class Task:
     """Model family selected by the config's `encoder:` key (JAX `Task`):
     kind "whisper" (cfg an ASRModelConfig) or "conformer" (a
-    ConformerASRConfig)."""
+    ConformerASRConfig), with the family's `init_fn(generator, cfg)` (a
+    float32 state dict) and `loss_fn(model, cfg, batch, train, generator,
+    return_preds)` (the training forward)."""
 
     kind: str
     cfg: Any
+    init_fn: Any
+    loss_fn: Any
 
 
 def conformer_config_from_dict(d: dict, compute_dtype: Any = torch.bfloat16):
@@ -227,10 +231,16 @@ def conformer_config_from_dict(d: dict, compute_dtype: Any = torch.bfloat16):
 def task_from_dict(d: dict, compute_dtype: Any = torch.bfloat16) -> Task:
     encoder = d.get("encoder", "whisper")
     if encoder == "whisper":
-        return Task("whisper", model_config_from_dict(d, compute_dtype))
+        from agacs_tpu_torch.models import asr_model
+
+        return Task("whisper", model_config_from_dict(d, compute_dtype),
+                    asr_model.init_asr_params, asr_model.forward)
     if encoder == "conformer":
         if d.get("decoder") == "transducer":
             raise NotImplementedError("the transducer family (decoder: transducer) is not "
                                       "ported yet")
-        return Task("conformer", conformer_config_from_dict(d, compute_dtype))
+        from agacs_tpu_torch.models import conformer_asr
+
+        return Task("conformer", conformer_config_from_dict(d, compute_dtype),
+                    conformer_asr.init_conformer_asr_params, conformer_asr.forward)
     raise ValueError(f"unknown encoder family: {encoder}")

@@ -3,7 +3,8 @@
 path, its stage-2 training path and both again on the int8 frozen trunk,
 serving with int8 cross-KV, the TMECS PE recipes' serving and training,
 and the SEAME conformer recipe's serving (joint CTC/attention beam search
-with transformer-LM fusion), once on one CUDA card.
+with transformer-LM fusion) and training (run_conformer.sh stages 1-5),
+once on one CUDA card.
 
     python3 chip_smoke.py              # every phase below
     python3 chip_smoke.py --mutants    # the kernel checks against mutants
@@ -13,7 +14,7 @@ CUDA card and the CUDA toolkit (nvcc). It imports nothing of JAX. Phases,
 one line each, in the order they run; any failure ends the script with a
 non-zero exit:
 
-  1. device and build: the card, and the nvcc builds of the six kernel
+  1. device and build: the card, and the nvcc builds of the seven kernel
      sources, started together;
   2. K1f (csrc/packed_flash_fwd.cu) against its plain PyTorch version at
      the encoder shapes (8, 750, 768) and (2, 1500, 768), 12 heads;
@@ -49,6 +50,13 @@ non-zero exit:
      encoder's (8, 468, 256), 4 heads, and at T 64, 67 and 640, keys and
      values poisoned past each row's length; SDPA with the shifted
      position scores as its materialised (B, h, T, T) bias timed beside;
+  2s. K5's backward (relpos_flash.cu) against its plain version at the
+     training shape (16, 468, 256), 4 heads, and T 64, 67 and 640, keys and
+     values poisoned: dqu, dqv, dk, dv, dpe; SDPA's backward with the bias
+     requiring a gradient timed beside;
+  2v. K4 (csrc/vocab_lse.cu: forward, dx, dw) against its plain version at
+     the CTC head's (7488, 256) x (256, 51865) and a ragged (700, 256) x
+     (256, 5000); cuBLAS with the logits materialised timed beside;
   3f. K3-f32 (decode_attn.cu, float32 caches) against its plain version at
      the LM's beam shape (80, 112, 512), 8 heads, pos 103, within 1e-4;
   4. the greedy slice: whisper-small with adapters in both stacks (the
@@ -127,8 +135,20 @@ non-zero exit:
      the K5 / K3 / K3-f32 shares and the top kernels;
   27. card vs CPU float32 on the same weights: the encoder output and the
      first joint step's scores over the pre-beam candidates;
+  28a. the recipe's stages 1-5 through the CLIs on generated wavs:
+     `bin.collect_stats`, `bin.lm_train` (2 blocks, one epoch), `bin.train`
+     with train_asr_conformer.yaml (2 + 2 blocks, one epoch: K5 and K4 both
+     ways), `bin.decode` on its average with the stage-2 LM, `bin.score`;
   28. `bin.decode` with train_asr_conformer.yaml, a .params.npz, decode_asr.yaml
-     and an LM exp dir (4 blocks), then `bin.score --per_bucket` (stage 5).
+     and an LM exp dir (4 blocks), then `bin.score --per_bucket` (stage 5);
+  29. the conformer recipe's training step at full width (12 blocks, decoder
+     6, vocabulary 51865, ctc 0.3, Adam, WarmupLR, clip 5, SpecAug, dropout)
+     on 16 x 15 s a step: ms per step, audio-s/s, peak memory, exact launches
+     (K5 12 + 12 backward, K4 1 + dx 1 + dw 1 per step), the CTC lattice's
+     share; 30. one more step under torch.profiler;
+  31. one micro-step on one utterance, card bf16 against CPU float32 (loss,
+     loss_ctc, grad norm, encoder / decoder / CTC-head gradient cosines),
+     beside a bf16 control with K5's and K4's plain versions.
 
 The last three lines are the card's `name, power.limit` (nvidia-smi), a
 JSON line with each kernel's launches, error and times, and the
@@ -463,14 +483,18 @@ def check_k3(dev, g, timed=True) -> dict:
             continue
         ms = cuda_ms(decode_attn.decode_cache_attention, sets, 50)
         plain_ms = cuda_ms(decode_attn.decode_cache_attention_ref, sets, 50)
-        if tp == 752:
+        extra = ""
+        if tp == 752 or n == 80:
             lib = cuda_ms(lambda q, k, v, pos, h: sdpa_one_query(q, k, v, pos, h), sets, 50)
-            res.update(ms=ms, plain_ms=plain_ms, library_ms=lib,
-                       **roofline(2 * 8 * (pos + 1) * D * 2 + 2 * 8 * D * 2,
-                               4 * 8 * H * (pos + 1) * 64, "bf16"))
+            # bytes: the keys and values 0..pos read, q read and o written
+            bound = roofline(2 * n * (pos + 1) * d * 2 + 2 * n * d * 2,
+                             4 * n * h * (pos + 1) * 64, "bf16")
+            extra = f" sdpa {lib:.4f} ms bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})"
+            if tp == 752:
+                res.update(ms=ms, plain_ms=plain_ms, library_ms=lib, **bound)
         print(f"phase 3 K3 decode_attn ({n}, {tp}, {d}) H={h} pos={pos}: max_abs_err "
               f"{err:.3e} (bound {KERNEL_RTOL} x max|plain f32|) kernel "
-              f"{ms:.4f} ms plain bf16 {plain_ms:.4f} ms", flush=True)
+              f"{ms:.4f} ms plain bf16 {plain_ms:.4f} ms" + extra, flush=True)
     return res
 
 
@@ -1004,6 +1028,187 @@ def check_k5(dev, g, timed=True) -> dict:
             line += (f" kernel {ms:.4f} ms plain bf16 {plain_ms:.4f} ms sdpa with the "
                      f"materialised bias {lib:.4f} ms bound {res['bound_ms']:.4f} ms")
         print(line, flush=True)
+    return res
+
+
+# K5's backward against its plain version (float32, the same bf16 inputs
+# and do) at the conformer's training shape (16 x 15 s: T 468) and at T 64,
+# 67 and 640: dqu, dqv, dk, dv and dpe each within K1B_RTOL x its own max
+# |plain| (ds rounded to bf16 and summed with mixed signs, as K1b's; dpe
+# also sums over the batch).
+K5B_SHAPES = ((16, 468), (2, 64), (2, 67), (2, 640))
+
+
+def k5_bwd_lib(qu, qv, k, v, pe, mask, do):
+    """The library yardstick of K5's backward: SDPA on the split heads with
+    the shifted position scores as a materialised (B, h, T, T) bias that
+    requires a gradient, run forward once; returns (its output, inputs, do)
+    for torch.autograd.grad."""
+    ins = [sdpa_heads(x, CH).detach().requires_grad_() for x in (qu, k, v)]
+    bias = relpos_sdpa_bias(qu, qv, pe, mask, CH).detach().requires_grad_()
+    o_s = torch.nn.functional.scaled_dot_product_attention(*ins, attn_mask=bias, scale=0.125)
+    return o_s, (*ins, bias), sdpa_heads(do, CH)
+
+
+def check_k5_bwd(dev, g, timed=True) -> dict:
+    """Phase 2s: K5's backward (relpos_flash.cu: rowdot, dkdv, dq with the
+    dpe band) against its plain version evaluated in float32 on the same
+    bf16 inputs and do, at K5B_SHAPES, keys and values poisoned past each
+    row's length in the kernel's input (K5's forward, with its row
+    statistics, runs first on the same inputs). Times at (16, 468, 256):
+    the kernel, the plain backward on the bf16 inputs, and SDPA's backward
+    with the bias requiring a gradient (its forward run outside the
+    timing)."""
+    from agacs_tpu_torch.ops import relpos_flash
+
+    res = {"err": 0.0}
+    for b, t in K5B_SHAPES:
+        clean, bad = k5_inputs(g, dev, b, t)
+        do = torch.randn(b, t, CD, generator=g).to(dev, torch.bfloat16)
+        o, m, l = relpos_flash._launch_fwd(*bad, CH, stats=True)
+        got = relpos_flash._launch_bwd(*bad, o, do, m, l, CH)
+        f32 = [x.float() for x in clean]
+        want = relpos_flash.relpos_mha_bwd_plain(
+            *f32, relpos_flash.relpos_mha_plain(*f32, CH), do.float(), CH)
+        torch.cuda.synchronize()
+        errs = []
+        for name, out, ref in zip(("dqu", "dqv", "dk", "dv", "dpe"), got, want):
+            err = (out.float() - ref).abs().max().item()
+            bound = K1B_RTOL * ref.abs().max().item()
+            check(tuple(out.shape) == tuple(ref.shape) and err <= bound,
+                  f"K5 backward {name} ({b}, {t}, {CD}): max_abs_err {err} <= {bound}")
+            errs.append(f"{name} {err:.3e} ({err / (bound / K1B_RTOL):.2e} of max|plain|)")
+            res["err"] = max(res["err"], err)
+        line = (f"phase 2s K5 relpos_flash_bwd ({b}, {t}, {CD}) H={CH}: " + ", ".join(errs)
+                + f" (bound {K1B_RTOL} x max|plain f32|; keys past each length poisoned)")
+        if timed and (b, t) == K5B_SHAPES[0]:
+            sets = []
+            for _ in range(3):
+                x = k5_inputs(g, dev, b, t)[0]
+                o, m, l = relpos_flash._launch_fwd(*x, CH, stats=True)
+                sets.append((*x, o, torch.randn(b, t, CD, generator=g).to(dev, torch.bfloat16),
+                             m, l))
+            ms = cuda_ms(lambda *a: relpos_flash._launch_bwd(*a, CH), sets, 10)
+            plain_ms = cuda_ms(lambda *a: relpos_flash.relpos_mha_bwd_plain(*a[:8], CH), sets, 3)
+            try:
+                lib_sets = [k5_bwd_lib(*a[:6], a[7]) for a in sets]
+                lib = cuda_ms(lambda o_s, ins, do_s: torch.autograd.grad(
+                    o_s, ins, do_s, retain_graph=True), lib_sets, 10)
+                lib_line = f"sdpa backward with the bias's gradient {lib:.4f} ms"
+            except RuntimeError as e:  # no SDPA backend returns a bias gradient
+                lib, lib_line = None, f"sdpa backward: none ({str(e)[:120]})"
+            lib_sets = None
+            wp = sets[0][4].shape[0]
+            # bytes: qu, qv, k, v, o, do read, dqu, dqv, dk, dv written (bf16),
+            # pe read and dpe written, the mask and the row statistics read;
+            # operations: the recomputed scores (content and position) and
+            # dp, dv, dqu, dk, dqv, dpe: 8 products of 2 T^2 d_head a head
+            res.update(ms=ms, plain_ms=plain_ms, library_ms=lib,
+                       **roofline(10 * b * t * CD * 2 + 2 * wp * CD * 2 + b * t * 4
+                                  + 2 * b * CH * t * 4, 16 * b * CH * t * t * 64, "bf16"))
+            line += (f" kernel {ms:.4f} ms plain bf16 {plain_ms:.4f} ms {lib_line} bound "
+                     f"{res['bound_ms']:.4f} ms")
+        print(line, flush=True)
+    return res
+
+
+# K4 against its plain version (float32 on the same bf16 x and W): the
+# conformer's training shape (16 x 468 rows, d 256, the Whisper vocabulary)
+# and a ragged one (rows not a multiple of 64, V not a multiple of 64). lse
+# within K4_LSE_RTOL relative per row, |lse| floored at 1 nat (float32 sums
+# of exps in another order); dx
+# and dW within KERNEL_RTOL x max |plain| (bf16 dz, bf16 outputs); db within
+# K4_DB_RTOL x max |plain| (float32 column sums).
+K4_SHAPES = ((7488, 256, 51865), (700, 256, 5000))
+K4_LSE_RTOL, K4_DB_RTOL = 1e-4, 1e-4
+
+
+def k4_inputs(g, dev, n: int, k: int, v: int):
+    """bf16 x (N, K) and W (K, V) with products of std ~3 (a peaked
+    softmax), f32 b with mean -20 and std 1, and g (the loss's d/d lse,
+    std 1). Every real logit sits below 0, so a padded column counted with
+    its zero logit would dominate the lse."""
+    x = torch.randn(n, k, generator=g).to(dev, torch.bfloat16)
+    w = (torch.randn(k, v, generator=g) * 3 / k ** 0.5).to(dev, torch.bfloat16)
+    b = torch.randn(v, generator=g) - 20
+    return x, w, b.to(dev), torch.randn(n, generator=g).to(dev)
+
+
+def k4_lib(x, w, b, lse=None, g=None, part="fwd"):
+    """The library yardsticks of K4, cuBLAS with the (N, V) logits
+    materialised in float32: logsumexp(x W + b); bf16(dz) W^T; x^T bf16(dz)
+    and the column sums of dz, dz recomputed from the logits."""
+    z = torch.mm(x, w).float() + b
+    if part == "fwd":
+        return torch.logsumexp(z, -1)
+    dz = torch.exp(z - lse[:, None]) * g[:, None]
+    if part == "dx":
+        return torch.mm(dz.to(w.dtype), w.t())
+    return torch.mm(x.t(), dz.to(x.dtype)), dz.sum(0)
+
+
+def check_k4(dev, g, timed=True) -> dict:
+    """Phase 2v: K4's forward, dx and dw (csrc/vocab_lse.cu) against their
+    plain versions at K4_SHAPES. Times at the training shape: each kernel,
+    its plain version (bf16 inputs) and its cuBLAS yardstick (k4_lib).
+    Returns {"fwd", "dx", "dw"} results."""
+    from agacs_tpu_torch.ops import vocab_lse
+
+    res = {part: {"err": 0.0} for part in ("fwd", "dx", "dw")}
+    for n, k, v in K4_SHAPES:
+        x, w, b, gr = k4_inputs(g, dev, n, k, v)
+        lse = vocab_lse._launch_fwd(x, w, b)
+        dx = vocab_lse._launch_dx(x, w, b, lse, gr)
+        dw, db = vocab_lse._launch_dw(x, w, b, lse, gr)
+        lse_p = vocab_lse.lse_plain(x.float(), w.float(), b)
+        dx_p, dw_p, db_p = vocab_lse.lse_bwd_plain(x.float(), w.float(), b, lse_p, gr)
+        torch.cuda.synchronize()
+        errs = {}
+        for part, name, out, ref, rtol in (
+                ("fwd", "lse", lse, lse_p, None), ("dx", "dx", dx, dx_p, KERNEL_RTOL),
+                ("dw", "dW", dw, dw_p, KERNEL_RTOL), ("dw", "db", db, db_p, K4_DB_RTOL)):
+            diff = (out.float() - ref).abs()
+            err = diff.max().item()
+            if rtol is None:  # relative per row, |lse| floored at 1 nat
+                ok = bool((diff <= K4_LSE_RTOL * ref.abs().clamp(min=1.0)).all())
+                bound = f"{K4_LSE_RTOL} x max(|lse|, 1) per row"
+            else:
+                bound = rtol * ref.abs().max().item()
+                ok = err <= bound
+            check(tuple(out.shape) == tuple(ref.shape) and ok,
+                  f"K4 {name} ({n}, {k}) x ({k}, {v}): max_abs_err {err} <= {bound}")
+            errs[name] = err
+            res[part]["err"] = max(res[part]["err"], err)
+        line = (f"phase 2v K4 vocab_lse ({n}, {k}) x ({k}, {v}): max_abs_err "
+                + ", ".join(f"{nm} {e:.3e}" for nm, e in errs.items())
+                + f" (bounds lse {K4_LSE_RTOL} relative, dx/dW {KERNEL_RTOL} and db "
+                f"{K4_DB_RTOL} x max|plain f32|)")
+        if timed and (n, k, v) == K4_SHAPES[0]:
+            sets = [(x, w, b)] + [k4_inputs(g, dev, n, k, v)[:3] for _ in range(1)]
+            bw = [(*s, vocab_lse.lse_plain(*s), gr) for s in sets]
+            io = n * k * 2 + k * v * 2 + v * 4
+            ops = 2 * n * k * v
+            for part, kern, plain, lib_fn, nbytes, nops, it in (
+                    ("fwd", lambda *a: vocab_lse._launch_fwd(*a[:3]),
+                     lambda *a: vocab_lse.lse_plain(*a[:3]), lambda *a: k4_lib(*a[:3]),
+                     io + n * 4, ops, 10),
+                    ("dx", vocab_lse._launch_dx,
+                     lambda *a: vocab_lse.lse_bwd_plain(*a)[0],
+                     lambda *a: k4_lib(*a, part="dx"), io + 8 * n + n * k * 2, 2 * ops, 5),
+                    ("dw", vocab_lse._launch_dw,
+                     lambda *a: vocab_lse.lse_bwd_plain(*a)[1:],
+                     lambda *a: k4_lib(*a, part="dw"), io + 8 * n + k * v * 2 + v * 4,
+                     2 * ops, 5)):
+                ms = cuda_ms(kern, bw, it)
+                plain_ms = cuda_ms(plain, bw, 3)
+                lib = cuda_ms(lib_fn, bw, 3)
+                res[part].update(ms=ms, plain_ms=plain_ms, library_ms=lib,
+                                 **roofline(nbytes, nops, "bf16"))
+                line += (f"; {part} kernel {ms:.4f} ms plain {plain_ms:.4f} ms cuBLAS+logits "
+                         f"{lib:.4f} ms bound {res[part]['bound_ms']:.4f} ms")
+            del sets, bw
+        print(line, flush=True)
+        torch.cuda.empty_cache()
     return res
 
 
@@ -1888,12 +2093,16 @@ def conformer_models(dev, dtype, sd=None, lsd=None, lm_blocks: int = 16):
     global MVN) in `dtype` and the transformer LM (d 512, 8 heads, units
     2048, `lm_blocks` blocks) in float32 on `dev`, random weights from torch
     seeds 3 and 4 unless state dicts are given. Returns (model, lm, sd, lsd)."""
+    import dataclasses
+
     from agacs_tpu_torch.models import conformer_asr, lm as tlm
     from agacs_tpu_torch.utils.config import load_yaml, task_from_dict
 
     raw = load_yaml(os.path.join(ROOT, "recipes", "seame", "conf",
                                  "train_asr_conformer.yaml"))
-    cfg = task_from_dict(raw, compute_dtype=dtype).cfg
+    # identity MVN statistics: the recipe's stats file is stage 1's output
+    cfg = dataclasses.replace(task_from_dict(raw, compute_dtype=dtype).cfg,
+                              mvn_stats_path=None)
     lcfg = tlm.TransformerLMConfig(num_blocks=lm_blocks)
     if sd is None:
         sd = conformer_asr.init_conformer_asr_params(torch.Generator().manual_seed(3), cfg)
@@ -2049,18 +2258,21 @@ def conformer_serve_phase(dev, audio) -> dict:
 
 
 def conformer_cli_phase(sd) -> dict:
-    """Phase 28: the recipe's stages 4 and 5 on the card: bin.decode with
-    train_asr_conformer.yaml as the config, phase 25's weights as a
-    .params.npz, decode_asr.yaml and an LM exp dir (config.yaml lm_conf +
-    valid.loss.ave.params.npz; 4 blocks, the rest at full width) on
-    `cli_data`'s 6 utterances (one batch), 8 steps: exact launches K5 12,
-    K3 6 x 8, K3-f32 4 x 8, a hypothesis for every utterance; then
-    bin.score --per_bucket on its .trn files."""
+    """Phase 28: the recipe's stages 1-5 on the card, on `cli_data`'s 6
+    utterances: bin.collect_stats (stage 1), bin.lm_train (stage 2: the LM
+    at 2 blocks, the rest at full width, one epoch), bin.train with
+    train_asr_conformer.yaml (stage 3: 2 encoder and 2 decoder blocks, the
+    rest at full width, one epoch, the stage-1 statistics), then bin.decode
+    with decode_asr.yaml and the stage-2 LM on its n-best average and
+    bin.score --per_bucket (stages 4, 5). Then bin.decode on phase 25's
+    full-depth weights as a .params.npz with an LM exp dir (4 blocks), 8
+    steps: exact launches K5 12, K3 6 x 8, K3-f32 4 x 8, a hypothesis for
+    every utterance, and bin.score."""
     import shutil
 
     import yaml
 
-    from agacs_tpu_torch.bin import decode, score
+    from agacs_tpu_torch.bin import collect_stats, decode, lm_train, score, train
     from agacs_tpu_torch.models import lm as tlm
     from agacs_tpu_torch.models.checkpoint import numpy_from_conformer_params, numpy_from_lm_params
     from agacs_tpu_torch.utils.config import load_yaml, task_from_dict
@@ -2069,6 +2281,62 @@ def conformer_cli_phase(sd) -> dict:
     config = os.path.join(conf_dir, "train_asr_conformer.yaml")
     root = os.path.join(ROOT, "build", "chip_smoke_cli_conformer")
     data, n_utts = cli_data(root)
+    utts = {f"u{i}" for i in range(n_utts)}
+    stage_s = {}
+    t0 = time.perf_counter()
+    stats = collect_stats.main(["--data_dir", data, "--output_dir", os.path.join(root, "stats")])
+    stage_s[1] = time.perf_counter() - t0
+    check(stats["n_frames"] > 0 and np.isfinite(stats["std"]).all(), "stage 1 statistics")
+    t0 = time.perf_counter()
+    lm_out = lm_train.main(["--train_text", os.path.join(data, "text"), "--valid_text",
+                            os.path.join(data, "text"), "--exp_dir", os.path.join(root, "lm1"),
+                            "--num_blocks", "2", "--max_epoch", "1"])
+    stage_s[2] = time.perf_counter() - t0
+    check(np.isfinite(lm_out["history"][1]["valid"]["loss"]), "stage 2 LM loss")
+    reset_conformer_counts()
+    t0 = time.perf_counter()
+    out = train.main(["--config", config, "--train_dir", data, "--valid_dir", data,
+                      "--exp_dir", os.path.join(root, "exp"), "--max_epoch", "1",
+                      "--batch_bins", "150000", "--override", "encoder_conf.num_blocks=2",
+                      "decoder_conf.num_blocks=2", "keep_nbest_models=1",
+                      "normalize_conf.stats_file=" + os.path.join(root, "stats",
+                                                                  "feats_stats.npz")])
+    stage_s[3] = time.perf_counter() - t0
+    train_counts = conformer_counts()
+    hist = out["history"][1]
+    check(np.isfinite(hist["train"]["loss"]) and hist["train"]["loss_ctc"] > 0
+          and "cer" in hist["valid"], f"stage 3 history {hist}")
+    check(all(train_counts[k] > 0 for k in CONF_TRAIN_LAUNCHES)
+          and train_counts["K5"] % 2 == 0 and train_counts["K5 bwd"] % 2 == 0,
+          f"stage 3 ran K5 and K4 both ways: {train_counts}")
+    with np.load(out["ave"]) as ave:
+        check(np.array_equal(ave["mvn/mean"], stats["mean"].astype(np.float32))
+              and ave["encoder/blocks/attn/q/w"].shape == (2, 256, 256),
+              "the stage-3 checkpoint holds the stage-1 statistics and 2 blocks")
+    reset_decode_counts()
+    t0 = time.perf_counter()
+    res = decode.main(["--config", os.path.join(root, "exp", "config.yaml"), "--params",
+                       out["ave"], "--data_dir", data, "--output_dir", os.path.join(root, "dec1"),
+                       "--decode_config", os.path.join(conf_dir, "decode_asr.yaml"),
+                       "--lm_exp", os.path.join(root, "lm1"), "--max_steps", "8"])
+    stage_s[4] = time.perf_counter() - t0
+    trained_counts = {k: v for k, v in decode_counts().items() if v}
+    check(set(res["hyps"]) == utts and trained_counts == {"K5": 2, "K3": 2 * 8,
+                                                          "K3-f32": 2 * 8},
+          f"stage 4 on the trained checkpoint: launches {trained_counts}")
+    rep1 = score.main(["--ref", os.path.join(root, "dec1", "ref.trn"), "--hyp",
+                       os.path.join(root, "dec1", "hyp.trn"), "--output_dir",
+                       os.path.join(root, "score1"), "--per_bucket"])
+    check(rep1["mer"]["utts"] == n_utts, "stage 5 scored every utterance")
+    print(f"phase 28a conformer recipe stages 1-5 on the card ({n_utts} utterances): "
+          f"collect_stats {stats['n_frames']} frames {stage_s[1]:.1f} s; lm_train (2 x 512, "
+          f"1 epoch) valid loss {lm_out['history'][1]['valid']['loss']:.3f} {stage_s[2]:.1f} s; "
+          f"train (train_asr_conformer.yaml, 2 + 2 blocks, 1 epoch) loss "
+          f"{hist['train']['loss']:.3f} valid cer {hist['valid']['cer']:.3f} {stage_s[3]:.1f} s, "
+          f"launches {train_counts}; decode (decode_asr.yaml, the stage-2 LM, 8 steps) "
+          f"{stage_s[4]:.1f} s, launches {trained_counts}; score MER {rep1['mer']['err']}%",
+          flush=True)
+
     cfg = task_from_dict(load_yaml(config)).cfg
     np.savez(os.path.join(root, "p.params.npz"), **numpy_from_conformer_params(sd, cfg))
     lm_dir = os.path.join(root, "lm")
@@ -2086,8 +2354,7 @@ def conformer_cli_phase(sd) -> dict:
                        "--lm_exp", lm_dir, "--max_steps", "8"])
     decode_s = time.perf_counter() - t0
     counts = {k: v for k, v in decode_counts().items() if v}
-    check(set(res["hyps"]) == {f"u{i}" for i in range(n_utts)},
-          "conformer bin.decode wrote a hypothesis for every utterance")
+    check(set(res["hyps"]) == utts, "conformer bin.decode wrote a hypothesis for every utterance")
     check(counts == {"K5": 12, "K3": 6 * 8, "K3-f32": 4 * 8},
           f"conformer bin.decode launches {counts}")
     rep = score.main(["--ref", os.path.join(root, "dec", "ref.trn"), "--hyp",
@@ -2099,14 +2366,274 @@ def conformer_cli_phase(sd) -> dict:
           f"launches {counts}, rtf {res['rtf']['rtf']:.3f}; bin.score MER "
           f"{rep['mer']['err']}%; hyps {sorted(res['hyps'].items())[:2]}", flush=True)
     shutil.rmtree(root, ignore_errors=True)
-    return {"decode": counts}
+    return {"decode": counts, "train": train_counts}
+
+
+# Phase 29: the conformer recipe's training step (train_asr_conformer.yaml,
+# 16 x 15 s in one micro-batch): exact launches per micro-batch. 12 blocks
+# each run K5 forward and backward; the CTC head runs K4 once each way.
+CONF_TRAIN_LAUNCHES = {"K5": 12, "K5 bwd": 12, "K4": 1, "K4 dx": 1, "K4 dw": 1}
+# Phase 31: one micro-step on one 15 s utterance, card bf16 against the port
+# on the CPU in float32 (dropout and SpecAug off): relative errors of the
+# loss, loss_ctc and the global gradient norm, and the gradient cosines of
+# the encoder, the decoder and the CTC head. The card must also be within
+# 2x a bf16 control on the card with K5's and K4's plain versions under
+# torch autograd, or within a tenth of the fixed bound where both sit at
+# bf16 noise; a fixed bound the control itself misses becomes 2x the
+# control's reading (PERF.md, Findings).
+CONF_TRAIN_REL = {"loss": 5e-3, "loss_ctc": 5e-3, "grad_norm": 2e-2}
+CONF_TRAIN_COS = {"cos_enc": 0.995, "cos_dec": 0.995, "cos_ctc": 0.995}
+
+
+def conformer_counts() -> dict:
+    from agacs_tpu_torch.ops import relpos_flash, vocab_lse
+
+    return {"K5": relpos_flash.LAUNCHES, "K5 bwd": relpos_flash.BWD_LAUNCHES,
+            "K4": vocab_lse.FWD_LAUNCHES, "K4 dx": vocab_lse.DX_LAUNCHES,
+            "K4 dw": vocab_lse.DW_LAUNCHES}
+
+
+def reset_conformer_counts() -> None:
+    from agacs_tpu_torch.ops import relpos_flash, vocab_lse
+
+    relpos_flash.LAUNCHES = relpos_flash.BWD_LAUNCHES = 0
+    vocab_lse.FWD_LAUNCHES = vocab_lse.DX_LAUNCHES = vocab_lse.DW_LAUNCHES = 0
+
+
+def conformer_train_model(dev, dtype, sd=None, aug: bool = True):
+    """The conformer recipe's trainable model (train_asr_conformer.yaml,
+    full width, identity MVN statistics) in float32 masters under `dtype`,
+    random weights from torch seed 6 unless `sd` is given; `aug` False turns
+    SpecAug and dropout off. Returns (model, cfg, sd, raw config)."""
+    import dataclasses
+
+    from agacs_tpu_torch.models import conformer_asr
+    from agacs_tpu_torch.utils.config import load_yaml, task_from_dict
+
+    raw = load_yaml(os.path.join(ROOT, "recipes", "seame", "conf", "train_asr_conformer.yaml"))
+    cfg = dataclasses.replace(task_from_dict(raw, compute_dtype=dtype).cfg, mvn_stats_path=None)
+    if not aug:
+        cfg = dataclasses.replace(cfg, use_specaug=False, encoder=dataclasses.replace(
+            cfg.encoder, dropout_rate=0.0))
+    if sd is None:
+        sd = conformer_asr.init_conformer_asr_params(torch.Generator().manual_seed(6), cfg)
+    model = conformer_asr.ConformerASR.from_state_dict(cfg, sd, device=dev,
+                                                       param_dtype=torch.float32)
+    return model, cfg, sd, raw
+
+
+def ctc_lattice_ms(batch, t_enc: int, dev) -> float:
+    """The CTC lattice (`ctc_loss_from_planes`, forward and backward) alone
+    on a micro-batch's plane shapes (B, t_enc) and (B, t_enc, U) in float32,
+    synchronised: median ms of 3."""
+    from agacs_tpu_torch.train.losses import ctc_loss_from_planes
+
+    text = batch["text"]
+    b, u = text.shape
+    lens = (text != -1).sum(-1)
+    times = []
+    for i in range(4):
+        lpb = torch.randn(b, t_enc, device=dev).requires_grad_()
+        lpl = torch.randn(b, t_enc, u, device=dev).requires_grad_()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ctc_loss_from_planes(lpb - 5, lpl - 5, torch.full((b,), t_enc, device=dev),
+                             torch.where(text == -1, 0, text), lens).backward()
+        torch.cuda.synchronize()
+        if i:
+            times.append(time.perf_counter() - t0)
+    return statistics.median(times) * 1e3
+
+
+def conformer_train_phase(dev) -> dict:
+    """Phases 29 and 30: the recipe's stage 3 step at full width
+    (train_asr_conformer.yaml: conformer 12 x 256, decoder 6, vocabulary
+    51865, ctc_weight 0.3, lsm 0.1, Adam lr 1e-3 WarmupLR 25000, clip 5,
+    SpecAug on, dropout 0.1; accum_grad 1: one 16 x 15 s micro-batch a
+    step), random weights: one warm-up step, then TRAIN_STEPS timed steps
+    with exact launch counts (CONF_TRAIN_LAUNCHES per step), ms per step,
+    audio-s/s, peak memory, the CTC lattice's share; then one more step
+    under torch.profiler."""
+    from agacs_tpu_torch.models import conformer_asr
+    from agacs_tpu_torch.train.optim import build_optimizer
+    from agacs_tpu_torch.train.trainer import make_train_step
+    from agacs_tpu_torch.utils.config import optim_config_from_dict
+
+    t0 = time.perf_counter()
+    model, cfg, sd, raw = conformer_train_model(dev, torch.bfloat16)
+    ocfg = optim_config_from_dict(raw)
+    check(ocfg.optim == "adam" and ocfg.warmup_steps == 25000 and ocfg.grad_clip == 5,
+          f"the recipe's optimizer {ocfg}")
+    opt, sched = build_optimizer(model.parameters(), ocfg)
+    step = make_train_step(model, cfg, opt, sched, grad_clip=ocfg.grad_clip,
+                           generator=torch.Generator().manual_seed(1),
+                           loss_fn=conformer_asr.forward)
+    batch = make_train_batch(TRAIN_B, TRAIN_S, dev)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()
+              if n.endswith(("ctc.weight", "blocks.11.attn.qkv.weight"))}
+    step([batch])  # warm-up: cuBLAS handles, the kernels' first launches
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    reset_conformer_counts()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        stats = step([batch])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append((float(stats["loss"]), float(stats["loss_ctc"]), float(stats["loss_att"])))
+    launches = conformer_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {k: v * TRAIN_STEPS for k, v in CONF_TRAIN_LAUNCHES.items()}
+    check(launches == want, f"conformer train launches {launches} == {want}")
+    check(all(np.isfinite(v) for row in losses for v in row)
+          and int(stats["grad_nonfinite_total"]) == 0, f"finite conformer losses {losses}")
+    params = dict(model.named_parameters())
+    check(all(not torch.equal(params[n], p) for n, p in before.items()),
+          "the CTC head and block 11's q/k/v changed")
+    ms = statistics.median(times) * 1e3
+    t_enc = ((TRAIN_S * 16000 // 128 + 1 - 1) // 2 - 1) // 2
+    lattice = ctc_lattice_ms(batch, t_enc, dev)
+    audio_s = TRAIN_B * TRAIN_S
+    print(f"phase 29 conformer train: train_asr_conformer.yaml (12 x 256, decoder 6, vocabulary "
+          f"51865, ctc 0.3, Adam, WarmupLR 25000, clip 5, SpecAug, dropout 0.1), bf16 / f32 "
+          f"masters, {TRAIN_B} x {TRAIN_S} s (T {t_enc}) a step: {ms:.1f} ms/step (median of "
+          f"{[round(t * 1e3, 1) for t in times]}), {audio_s / (ms / 1e3):.1f} audio-s/s; peak "
+          f"{peak_gb:.2f} GB; {sum(p.numel() for p in model.parameters()) / 1e6:.2f}M "
+          f"parameters; losses (loss, ctc, att) "
+          f"{[tuple(round(v, 3) for v in row) for row in losses]}; launches {launches} "
+          f"({CONF_TRAIN_LAUNCHES} per step); the CTC lattice alone (forward + backward, "
+          f"synchronised) {lattice:.1f} ms = {lattice / ms:.1%} of the step; built + warm-up "
+          f"{load_s:.1f} s", flush=True)
+
+    busy, n_events, per_name = device_profile(lambda: step([batch]))
+
+    def share(*keys):
+        t = sum(v for name, v in per_name.items() if any(k in name for k in keys))
+        return f"{t:.2f} ms ({t / busy:.1%})"
+
+    print(f"phase 30 conformer train profile: device busy {busy:.1f} ms in {n_events} device "
+          f"events; idle {1 - busy / ms:.1%} of phase 29's {ms:.1f} ms/step; K5 fwd "
+          f"{share('relpos_flash_fwd')}, K5 bwd "
+          f"{share('relpos_dkdv', 'relpos_dq', 'relpos_rowdot')}, K4 fwd "
+          f"{share('vocab_lse_fwd', 'vocab_lse_combine')}, K4 dx {share('vocab_lse_dx')}, "
+          f"K4 dw {share('vocab_lse_dw')}; top: " + top_kernels(per_name), flush=True)
+    del model, opt, step, before, params
+    torch.cuda.empty_cache()
+    return {"launches": launches, "ms": ms, "sd": sd, "batch": batch, "lattice_ms": lattice,
+            "busy": busy}
+
+
+def conformer_micro_step(sd, dev, dtype, one) -> tuple[dict, dict]:
+    """One micro-step of the conformer recipe's model on `dev` (SpecAug and
+    dropout off): ({loss, loss_ctc, loss_att}, every gradient in float32 on
+    the CPU by name)."""
+    from agacs_tpu_torch.models import conformer_asr
+
+    model, cfg, _, _ = conformer_train_model(dev, dtype, sd, aug=False)
+    loss, stats = conformer_asr.forward(model, cfg, {k: v.to(dev) for k, v in one.items()},
+                                        generator=torch.Generator().manual_seed(0))
+    loss.backward()
+    return ({k: float(stats[k].detach()) for k in ("loss", "loss_ctc", "loss_att")},
+            {n: p.grad.float().cpu() for n, p in model.named_parameters()})
+
+
+def conformer_parity(run, ref) -> dict:
+    (vals, grads), (vals_r, grads_r) = run, ref
+
+    def flat(g, prefix=""):
+        return torch.cat([x.double().ravel() for n, x in sorted(g.items())
+                          if n.startswith(prefix)])
+
+    def cos(prefix):
+        return float(torch.nn.functional.cosine_similarity(
+            flat(grads, prefix), flat(grads_r, prefix), dim=0))
+
+    out = {k: abs(vals[k] / vals_r[k] - 1) for k in ("loss", "loss_ctc", "loss_att")}
+    out["grad_norm"] = abs(flat(grads).norm().item() / flat(grads_r).norm().item() - 1)
+    out.update(cos_enc=cos("encoder."), cos_dec=cos("decoder."), cos_ctc=cos("ctc."))
+    return out
+
+
+@contextlib.contextmanager
+def plain_k5_k4():
+    """K5's and K4's plain versions under torch autograd on the card (bf16
+    products, float32 softmax and logits): the bf16 control of phase 31."""
+    from agacs_tpu_torch.ops import relpos_flash, vocab_lse
+
+    k5, k4 = relpos_flash.relpos_mha, vocab_lse.streaming_lse
+    relpos_flash.relpos_mha, vocab_lse.streaming_lse = (relpos_flash.relpos_mha_plain,
+                                                        vocab_lse.lse_plain)
+    try:
+        yield
+    finally:
+        relpos_flash.relpos_mha, vocab_lse.streaming_lse = k5, k4
+
+
+def conformer_train_parity(sd, dev, batch) -> dict:
+    """Phase 31: one micro-step on one 15 s utterance, card bf16 (K5, K4)
+    and the bf16 control (their plain versions) against the port on the CPU
+    in float32, same weights."""
+    one = {k: v[:1] for k, v in batch.items()}
+    t0 = time.perf_counter()
+    ref = conformer_micro_step(sd, torch.device("cpu"), torch.float32, one)
+    cpu_s = time.perf_counter() - t0
+    reset_conformer_counts()
+    run = conformer_micro_step(sd, dev, torch.bfloat16, one)
+    check(conformer_counts() == CONF_TRAIN_LAUNCHES,
+          f"the card micro-step's launches {conformer_counts()}")
+    with plain_k5_k4():
+        control = conformer_parity(conformer_micro_step(sd, dev, torch.bfloat16, one), ref)
+    check(conformer_counts() == CONF_TRAIN_LAUNCHES, "the bf16 control launched no K5 or K4")
+    card = conformer_parity(run, ref)
+    check(all(np.isfinite(v) for v in run[0].values())
+          and all(bool(torch.isfinite(g).all()) for g in run[1].values()),
+          "finite card loss and gradients")
+    bounds = {}
+    for key, bound in {**CONF_TRAIN_REL, **CONF_TRAIN_COS}.items():
+        is_cos = key.startswith("cos")
+        c_err, k_err = (1 - control[key], 1 - card[key]) if is_cos else (control[key], card[key])
+        fixed = 1 - bound if is_cos else bound
+        limit = fixed if c_err <= fixed else 2 * c_err
+        bounds[key] = limit
+        check(k_err <= limit, f"conformer train parity {key}: card {k_err} <= {limit}")
+        check(k_err <= max(2 * c_err, fixed / 10),
+              f"conformer train parity {key}: card {k_err} <= 2 x control {c_err} "
+              f"(or {fixed / 10})")
+    fmt = lambda r: ", ".join(f"{k} {v:.2e}" if not k.startswith("cos") else f"{k} {v:.6f}"
+                              for k, v in r.items())
+    print(f"phase 31 conformer train parity vs cpu f32 (1 x {TRAIN_S} s; rel errors, "
+          f"cosines): card bf16 {fmt(card)}; bf16 control (plain K5 and K4) {fmt(control)}; "
+          f"bounds (1 - cos for cosines) {bounds}; cpu step {cpu_s:.1f} s", flush=True)
+    return {"card": card, "control": control}
 
 
 # Broken copies of the int8 kernels and of K3's PE and int8 variants that
 # the checks must catch: name -> (source, [(text, replacement)], checks to
 # run). Built outside the checkout by `mutants()`.
 MUTANTS = {
-    "unmutated source": ("int8_gemm.cu", [], ("k8", "k2", "p15", "k3pe", "k3i8", "k5")),
+    "unmutated source": ("int8_gemm.cu", [], ("k8", "k2", "p15", "k3pe", "k3i8", "k5", "k5b",
+                                              "k4")),
+    "K5 bwd dpe un-shifted one row off": (
+        "relpos_flash.cu", [("const int p = p0 + (i >> 6);", "const int p = p0 + 1 + (i >> 6);")],
+        ("k5b",)),
+    "K5 bwd dv without 1/l": (
+        "relpos_flash.cu",
+        [("sm.don[i] = __float2bfloat16(__bfloat162float(sm.dout[i]) * sm.linv[i / DH]);",
+          "sm.don[i] = sm.dout[i];")], ("k5b",)),
+    "K5 bwd key mask ignored in ds": (
+        "relpos_flash.cu", [("* scale + sm.kmask[kj];", "* scale;")], ("k5b",)),
+    "K4 padded columns unmasked": (
+        "vocab_lse.cu", [("z_w[r * ZLD + c] = col < V ? z_w[r * ZLD + c] + bias[col] : -INFINITY;",
+                          "z_w[r * ZLD + c] = z_w[r * ZLD + c] + (col < V ? bias[col] : 0.f);")],
+        ("k4",)),
+    "K4 dx without g": (
+        "vocab_lse.cu", [("dz_tile(s, lse, g, r0, N, false);",
+                          "dz_tile(s, lse, nullptr, r0, N, false);")], ("k4",)),
+    "K4 dw with db dropped": (
+        "vocab_lse.cu", [("if (with_db && tid < BV) db[v0 + tid] = db_acc;",
+                          "if (with_db && tid < BV) db[v0 + tid] = 0.f;")], ("k4",)),
     "K5 shift off by one": (
         "relpos_flash.cu", [("pos_w[r * QLD + 15 - r + cj]", "pos_w[r * QLD + 16 - r + cj]")],
         ("k5",)),
@@ -2199,6 +2726,10 @@ def mutants(dev) -> None:
                     check_k3i8(dev, g, timed=False)
                 elif chk == "k5":
                     check_k5(dev, g, timed=False)
+                elif chk == "k5b":
+                    check_k5_bwd(dev, g, timed=False)
+                elif chk == "k4":
+                    check_k4(dev, g, timed=False)
                 else:
                     if not state:
                         cfg = tw.make_config("small", adapter=True, adapter_encoder=True,
@@ -2373,7 +2904,7 @@ def main() -> int:
     with concurrent.futures.ThreadPoolExecutor() as pool:  # one nvcc per source
         list(pool.map(cuda_lib.build, ("packed_flash_fwd", "packed_flash_bwd",
                                        "decode_attn", "int8_gemm", "int8_mlp",
-                                       "relpos_flash")))
+                                       "relpos_flash", "vocab_lse")))
     build_s = time.perf_counter() - t0
     ptxas = "; ".join(
         f"{name}: {line.split(':', 1)[1].strip()}"
@@ -2395,6 +2926,8 @@ def main() -> int:
     k8 = check_k8(dev, g)
     k2 = check_k2(dev, g)
     k5 = check_k5(dev, g)
+    k5b = check_k5_bwd(dev, g)
+    k4 = check_k4(dev, g)
     k3f32 = check_k3f32(dev, g)
 
     # 4. the slice: Speech2Text, whisper-small + adapters, bf16, 8 x 15 s
@@ -2513,6 +3046,10 @@ def main() -> int:
     conf = conformer_serve_phase(dev, audio)
     conformer_cli_phase(conf.pop("sd"))
 
+    # 29-31. the conformer recipe's training (stage 3) at full width
+    conf_train = conformer_train_phase(dev)
+    conformer_train_parity(conf_train.pop("sd"), dev, conf_train.pop("batch"))
+
     check(not any(m.split(".")[0] in ("jax", "jaxlib", "agacs_tpu") for m in sys.modules),
           "no jax, jaxlib or agacs_tpu module was imported")
 
@@ -2568,6 +3105,16 @@ def main() -> int:
         entry("decode_attn_f32_fwd (K3-f32, the transformer LM's float32 cache attention)",
               "decode_attn.cu", "agacs_tpu/ops/decode_attn.py:140",
               conf["launches"]["K3-f32"], k3f32),
+        entry("relpos_flash_bwd (K5 backward, the conformer encoder's rel-pos attention "
+              "gradients)", "relpos_flash.cu", "agacs_tpu/ops/relpos_flash.py:320",
+              conf_train["launches"]["K5 bwd"], k5b),
+        entry("vocab_lse_fwd (K4, the CTC head's streaming log-sum-exp)", "vocab_lse.cu",
+              "agacs_tpu/ops/vocab_lse.py:169", conf_train["launches"]["K4"], k4["fwd"]),
+        entry("vocab_lse_dx (K4 dx, its gradient in the encoder output)", "vocab_lse.cu",
+              "agacs_tpu/ops/vocab_lse.py:207", conf_train["launches"]["K4 dx"], k4["dx"]),
+        entry("vocab_lse_dw (K4 dw, its gradient in the head's weight and bias)",
+              "vocab_lse.cu", "agacs_tpu/ops/vocab_lse.py:224", conf_train["launches"]["K4 dw"],
+              k4["dw"]),
     ]
     check(serve8["launches"]["K2f"] > 0 and serve8["launches"]["K8g"] > 0,
           "int8 serving launched K2f and K8g")

@@ -1,8 +1,8 @@
 """Guards of the port: it never imports JAX or the JAX package, never
 falls back from the card to the CPU or a plain version, and refuses what
 it cannot run yet (side networks, `lid_ce`, serving-quantised
-checkpoints, CTC and LM fusion on the whisper family, conformer training,
-the transducer, n-gram fusion)."""
+checkpoints, CTC and LM fusion in whisper decoding, the transducer, n-gram
+fusion)."""
 
 import os
 import subprocess
@@ -21,7 +21,14 @@ from agacs_tpu_torch.models import asr_model
 from agacs_tpu_torch.models import whisper as tw
 from agacs_tpu_torch.models.asr_model import ASRModelConfig
 from agacs_tpu_torch.models.checkpoint import params_from_numpy
-from agacs_tpu_torch.ops import decode_attn, flash_train, int8_linear, int8_mlp, relpos_flash
+from agacs_tpu_torch.ops import (
+    decode_attn,
+    flash_train,
+    int8_linear,
+    int8_mlp,
+    relpos_flash,
+    vocab_lse,
+)
 
 torch.set_num_threads(1)
 
@@ -192,6 +199,23 @@ rep = score.main(["--ref", os.path.join(tmp, "dec", "ref.trn"), "--hyp",
                   os.path.join(tmp, "dec", "hyp.trn"), "--output_dir", os.path.join(tmp, "sc"),
                   "--per_bucket"])
 assert rep["mer"]["utts"] == 2
+
+# the conformer recipe's training: a bf16 step (K5 forward and backward,
+# K4 forward, dx and dw: their plain versions here) with SpecAug and dropout
+from agacs_tpu_torch.ops import vocab_lse
+from agacs_tpu_torch.train.optim import OptimConfig, build_optimizer
+from agacs_tpu_torch.train.trainer import make_train_step
+
+tmodel = conformer_asr.ConformerASR.from_state_dict(ccfg, csd, param_dtype=torch.float32)
+opt, sched = build_optimizer(tmodel.parameters(), OptimConfig(optim="adam"))
+stats = make_train_step(tmodel, ccfg, opt, sched, grad_clip=5.0,
+                        generator=torch.Generator().manual_seed(0),
+                        loss_fn=conformer_asr.forward)([
+    {"speech": torch.randn(2, 40000) * 0.1, "speech_lengths": torch.tensor([40000, 36000]),
+     "text": torch.tensor([[1000, 1001, 1001, -1], [2000, 2001, -1, -1]])}])
+assert torch.isfinite(stats["loss"]) and float(stats["loss_ctc"]) > 0
+assert relpos_flash.LAUNCHES == relpos_flash.BWD_LAUNCHES == 0
+assert vocab_lse.FWD_LAUNCHES == vocab_lse.DX_LAUNCHES == vocab_lse.DW_LAUNCHES == 0
 tmp_dir.cleanup()
 assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
 print("OK", len(mods))
@@ -293,6 +317,21 @@ def test_wrappers_never_fall_back_off_cpu():
     mask = torch.empty(2, 64, device="meta")
     with pytest.raises(ValueError):
         relpos_flash.relpos_mha(x64, x64, x64, x64, pe, mask, 2)
+    xg = x64.clone().requires_grad_()
+    with pytest.raises(ValueError):  # K5 under autograd (its backward's forward)
+        relpos_flash.relpos_mha(xg, x64, x64, x64, pe, mask, 2)
+    stat = torch.empty(2, 2, 64, device="meta")
+    with pytest.raises(ValueError):
+        relpos_flash._launch_bwd(x64, x64, x64, x64, pe, mask, x64, x64, stat, stat, 2)
+    xk = torch.empty(40, 128, device="meta", dtype=torch.bfloat16)
+    wk = torch.empty(128, 300, device="meta", dtype=torch.bfloat16)
+    bk = torch.empty(300, device="meta")
+    with pytest.raises(ValueError):
+        vocab_lse.streaming_lse(xk, wk, bk)
+    with pytest.raises(ValueError):
+        vocab_lse._launch_dx(xk, wk, bk, bk[:40], bk[:40])
+    with pytest.raises(ValueError):
+        vocab_lse._launch_dw(xk, wk, bk, bk[:40], bk[:40])
     xf = torch.empty(2, 16, 128, device="meta")
     with pytest.raises(ValueError):
         decode_attn.decode_cache_attention(xf[:, 0], xf, xf, 3, 2)
@@ -309,7 +348,8 @@ def test_launch_counters_stay_zero_on_cpu():
         setattr(decode_attn, name, 0)
     int8_linear.QUANT_LAUNCHES = int8_linear.LAUNCHES = int8_linear.DGRAD_LAUNCHES = 0
     int8_mlp.FWD_LAUNCHES = int8_mlp.BWD_LAUNCHES = 0
-    relpos_flash.LAUNCHES = 0
+    relpos_flash.LAUNCHES = relpos_flash.BWD_LAUNCHES = 0
+    vocab_lse.FWD_LAUNCHES = vocab_lse.DX_LAUNCHES = vocab_lse.DW_LAUNCHES = 0
     cfg = tw.make_config("test", adapter=True)
     model = tw.Whisper.from_state_dict(
         cfg, tw.init_whisper_params(torch.Generator().manual_seed(1), cfg))
@@ -331,6 +371,9 @@ def test_launch_counters_stay_zero_on_cpu():
     _conformer_serving_on_cpu()
     assert relpos_flash.LAUNCHES == 0
     assert all(getattr(decode_attn, name) == 0 for name in DECODE_COUNTERS)
+    _conformer_training_on_cpu()
+    assert relpos_flash.LAUNCHES == relpos_flash.BWD_LAUNCHES == 0
+    assert vocab_lse.FWD_LAUNCHES == vocab_lse.DX_LAUNCHES == vocab_lse.DW_LAUNCHES == 0
 
 
 def _conformer_serving_on_cpu():
@@ -355,8 +398,43 @@ def _conformer_serving_on_cpu():
     assert len(rows) == 1
 
 
+def _conformer_training_on_cpu():
+    """A bf16 conformer train step on the CPU: K5's and K4's paths, forward
+    and backward, in their plain versions."""
+    from agacs_tpu_torch.models import conformer_asr
+    from agacs_tpu_torch.utils.config import task_from_dict
+
+    conf = {"encoder": "conformer",
+            "encoder_conf": {"output_size": 128, "attention_heads": 2, "linear_units": 128,
+                             "num_blocks": 1, "conv_norm": "batch"},
+            "decoder_conf": {"attention_heads": 2, "linear_units": 128, "num_blocks": 1}}
+    cfg = task_from_dict(conf, compute_dtype=torch.bfloat16).cfg
+    model = conformer_asr.ConformerASR.from_state_dict(
+        cfg, conformer_asr.init_conformer_asr_params(torch.Generator().manual_seed(3), cfg),
+        param_dtype=torch.float32)
+    batch = {"speech": torch.randn(1, 36000) * 0.1, "speech_lengths": torch.tensor([36000]),
+             "text": torch.tensor([[1000, 1001]])}
+    loss, _ = conformer_asr.forward(model, cfg, batch, generator=torch.Generator().manual_seed(0))
+    loss.backward()
+    assert all(p.grad is not None for p in model.parameters())
+
+
+def test_ctc_lattice_does_not_use_torch_ctc_loss():
+    """F.ctc_loss's backward assumes log-softmax inputs; the lattice's
+    planes are not normalised over a class axis."""
+    import ast
+    import inspect
+
+    from agacs_tpu_torch.train import losses
+
+    tree = ast.parse(inspect.getsource(losses.ctc_loss_from_planes))
+    called = {getattr(n.func, "attr", getattr(n.func, "id", None))
+              for n in ast.walk(tree) if isinstance(n, ast.Call)}
+    assert called and not called & {"ctc_loss", "ctc_loss_streaming"}
+
+
 @pytest.mark.parametrize("kernel", ["K3a", "K3s", "K3-PE", "K3-int8", "K3s-int8", "K3-f32",
-                                    "K5"])
+                                    "K5", "K5 backward", "K4"])
 def test_cuda_request_to_a_beam_kernel_without_a_card_raises(kernel):
     """A CUDA-device request never falls back to the plain version: on a
     machine without a card it raises before anything runs."""
@@ -381,9 +459,13 @@ def test_cuda_request_to_a_beam_kernel_without_a_card_raises(kernel):
                                                       v_scale=sc)
         elif kernel == "K3-f32":
             decode_attn.decode_cache_attention(q.float(), kv.float(), kv.float(), 3, 2)
-        elif kernel == "K5":
-            x = torch.zeros(2, 64, 128, dtype=torch.bfloat16, device="cuda")
+        elif kernel in ("K5", "K5 backward"):
+            x = torch.zeros(2, 64, 128, dtype=torch.bfloat16, device="cuda",
+                            requires_grad=kernel == "K5 backward")
             relpos_flash.relpos_mha(x, x, x, x, x[0], torch.zeros(2, 64, device="cuda"), 2)
+        elif kernel == "K4":
+            x = torch.zeros(8, 128, dtype=torch.bfloat16, device="cuda")
+            vocab_lse.streaming_lse(x, x.t().contiguous(), torch.zeros(8, device="cuda"))
         else:
             decode_attn.decode_shared_cache_attention(q, kv[:2], kv[:2], 3, 2, 3)
 
@@ -431,34 +513,15 @@ def test_composed_beam_with_ngram_raises():
                              ngram_weight=0.3)
 
 
-def test_k5_backward_raises():
-    """K5's backward (conformer training) is not ported: a non-CPU tensor
-    that needs a gradient raises before anything runs."""
-    x = torch.empty(2, 64, 128, device="meta", dtype=torch.bfloat16, requires_grad=True)
-    with pytest.raises(NotImplementedError):
-        relpos_flash.relpos_mha(x, x, x, x, x[0].detach(), torch.empty(2, 64, device="meta"),
-                                2)
-
-
-@pytest.mark.parametrize("what", ["forward", "train_cli", "transducer", "ngram_cli"])
+@pytest.mark.parametrize("what", ["transducer", "ngram_cli"])
 def test_unported_conformer_family_parts_raise(what, tmp_path):
-    """Conformer training (`conformer_asr.forward`, `bin.train` on the
-    recipe's train_asr_conformer.yaml), the transducer family and
-    `bin.decode --ngram_file` raise."""
-    from agacs_tpu_torch.bin import decode, train
-    from agacs_tpu_torch.models import conformer_asr
+    """The transducer family and `bin.decode --ngram_file` raise."""
+    from agacs_tpu_torch.bin import decode
     from agacs_tpu_torch.utils.config import task_from_dict
 
     conf_dir = os.path.join(REPO, "recipes", "seame", "conf")
     with pytest.raises(NotImplementedError):
-        if what == "forward":
-            cfg = task_from_dict({"encoder": "conformer"}).cfg
-            conformer_asr.forward(None, cfg, {})
-        elif what == "train_cli":
-            train.main(["--config", os.path.join(conf_dir, "train_asr_conformer.yaml"),
-                        "--train_dir", str(tmp_path), "--valid_dir", str(tmp_path),
-                        "--exp_dir", str(tmp_path / "exp"), "--device", "cpu"])
-        elif what == "transducer":
+        if what == "transducer":
             task_from_dict({"encoder": "conformer", "decoder": "transducer"})
         else:
             decode.main(["--config", os.path.join(conf_dir, "train_asr_conformer.yaml"),
@@ -466,7 +529,7 @@ def test_unported_conformer_family_parts_raise(what, tmp_path):
                          str(tmp_path / "out"), "--ngram_file", "lm.npz", "--device", "cpu"])
 
 
-@pytest.mark.parametrize("kw", [dict(ctc_weight=0.3), dict(cs_weight=0.1, cs_loss_type="lid_ce"),
+@pytest.mark.parametrize("kw", [dict(cs_weight=0.1, cs_loss_type="lid_ce"),
                                 dict(estimate_c=True)], ids=str)
 def test_unported_training_options_raise(kw):
     cfg = tw.make_config("test")
@@ -481,7 +544,7 @@ def test_unported_training_options_raise(kw):
     ["--resume"], ["--tensor_parallel", "2"], ["--optim_state_shard"],
     ["--ckpt_backend", "orbax"], ["--batch_type", "fixed_shapes"],
     ["--override", "freeze_quant=int8", "freeze_param=null"], ["--init_param", "small.pt"],
-    ["--override", "model_conf.ctc_weight=0.3"], ["--override", "freeze_quant=int4"],
+    ["--override", "freeze_quant=int4"],
 ], ids=str)
 def test_unported_train_cli_options_raise(flags, tmp_path):
     from agacs_tpu_torch.bin import train
