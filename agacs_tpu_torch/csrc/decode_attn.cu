@@ -81,6 +81,9 @@ typedef __nv_bfloat16 bf16;
 
 namespace {
 
+// Head width of every kernel but K3's plain bf16 rows, which also run at
+// d_head 48 (the ladder side network's 192 / 4 heads): their kernel takes
+// the width as a template parameter (`DW`).
 constexpr int DH = 64;
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
@@ -114,12 +117,14 @@ __device__ __forceinline__ float block_sum(float x, float* red) {
   return x;
 }
 
-// One head's 64 cache channels into float registers: bf16 as eight
-// 16-byte loads, int8 as four (exact conversions both).
+// One head's DW cache channels into float registers: bf16 as DW / 8
+// 16-byte loads (eight at 64, six at 48: a 96-byte head slice, still
+// 16-byte aligned), int8 as DW / 16 (exact conversions both).
+template <int DW>
 __device__ __forceinline__ void load_head(const bf16* __restrict__ kp, float* kf) {
   const uint4* kr = reinterpret_cast<const uint4*>(kp);
 #pragma unroll
-  for (int i = 0; i < DH / 8; ++i) {
+  for (int i = 0; i < DW / 8; ++i) {
     const uint4 u = kr[i];
     const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
@@ -131,10 +136,11 @@ __device__ __forceinline__ void load_head(const bf16* __restrict__ kp, float* kf
   }
 }
 
+template <int DW>
 __device__ __forceinline__ void load_head(const int8_t* __restrict__ kp, float* kf) {
   const int4* kr = reinterpret_cast<const int4*>(kp);
 #pragma unroll
-  for (int i = 0; i < DH / 16; ++i) {
+  for (int i = 0; i < DW / 16; ++i) {
     const int4 u = kr[i];
     const char4* c4 = reinterpret_cast<const char4*>(&u);
 #pragma unroll
@@ -147,10 +153,11 @@ __device__ __forceinline__ void load_head(const int8_t* __restrict__ kp, float* 
   }
 }
 
+template <int DW>
 __device__ __forceinline__ void load_head(const float* __restrict__ kp, float* kf) {
   const float4* kr = reinterpret_cast<const float4*>(kp);
 #pragma unroll
-  for (int i = 0; i < DH / 4; ++i) {
+  for (int i = 0; i < DW / 4; ++i) {
     const float4 u = kr[i];
     kf[4 * i] = u.x;
     kf[4 * i + 1] = u.y;
@@ -189,14 +196,14 @@ __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ void put(bf16* dst, float x) { *dst = __float2bfloat16(x); }
 __device__ __forceinline__ void put(float* dst, float x) { *dst = x; }
 
-// q . k over one head's 64 channels.
-template <typename KT>
+// q . k over one head's DW channels.
+template <int DW, typename KT>
 __device__ __forceinline__ float dot_head(const KT* __restrict__ kp, const float* qs) {
-  float kf[DH];
-  load_head(kp, kf);
+  float kf[DW];
+  load_head<DW>(kp, kf);
   float s = 0.f;
 #pragma unroll
-  for (int c = 0; c < DH; ++c) s = fmaf(qs[c], kf[c], s);
+  for (int c = 0; c < DW; ++c) s = fmaf(qs[c], kf[c], s);
   return s;
 }
 
@@ -216,8 +223,10 @@ __device__ __forceinline__ float query_channel(QT q, const float* __restrict__ k
 // caches with k_scale / v_scale (d,) float32; KT float: K3-f32, float32
 // query, caches and output, p not rounded. anc: (N, Tp) int32 local
 // rows in [0, J) (clamped into it); row n of group n / J reads position t
-// from row (n / J) * J + anc[n, t], for k, k_cs and v alike.
-template <bool ANC, bool PE, typename KT>
+// from row (n / J) * J + anc[n, t], for k, k_cs and v alike. DW: the head
+// width, 64, or 48 for the plain bf16 rows (lanes 24-31 then carry no
+// channel pair in phase 3).
+template <bool ANC, bool PE, typename KT, int DW = DH>
 __global__ void __launch_bounds__(THREADS)
 decode_attn_kernel(const typename Query<KT>::T* __restrict__ q, const KT* __restrict__ k,
                    const KT* __restrict__ v, const int* __restrict__ anc,
@@ -228,21 +237,21 @@ decode_attn_kernel(const typename Query<KT>::T* __restrict__ q, const KT* __rest
   constexpr bool QUANT = std::is_same<KT, int8_t>::value;
   constexpr bool F32 = std::is_same<KT, float>::value;
   extern __shared__ float p[];  // pos + 1 scores, then weights; K3a: then pos + 1 rows
-  __shared__ float qs[DH];
-  __shared__ float qcs[PE ? DH : 1];
+  __shared__ float qs[DW];
+  __shared__ float qcs[PE ? DW : 1];
   __shared__ float red[WARPS];
-  __shared__ float part[WARPS][DH];
+  __shared__ float part[WARPS][DW];
   const int h = blockIdx.x, n = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int D = H * DH;
+  const int D = H * DW;
   const int nk = pos + 1;
   int* rows = reinterpret_cast<int*>(p + nk);
   const int* an = ANC ? anc + (size_t)n * Tp : nullptr;
   const int base = ANC ? (n / J) * J : n;
 
-  if (tid < DH) {
-    const size_t qi = (size_t)n * D + h * DH + tid;
-    qs[tid] = query_channel<KT>(q[qi], k_scale, h * DH + tid);
+  if (tid < DW) {
+    const size_t qi = (size_t)n * D + h * DW + tid;
+    qs[tid] = query_channel<KT>(q[qi], k_scale, h * DW + tid);
     if (PE) qcs[tid] = __bfloat162float(q_cs[qi]);
   }
   const float g = PE ? gate[h] : 0.f;
@@ -255,9 +264,9 @@ decode_attn_kernel(const typename Query<KT>::T* __restrict__ q, const KT* __rest
       r = base + min(max(an[t], 0), J - 1);  // never outside the group
       rows[t] = r;
     }
-    const size_t off = ((size_t)r * Tp + t) * D + h * DH;
-    float s = dot_head(k + off, qs);
-    if (PE) s = (1.f - g) * s + g * dot_head(k_cs + off, qcs);
+    const size_t off = ((size_t)r * Tp + t) * D + h * DW;
+    float s = dot_head<DW>(k + off, qs);
+    if (PE) s = (1.f - g) * s + g * dot_head<DW>(k_cs + off, qcs);
     p[t] = s;
     mx = fmaxf(mx, s);
   }
@@ -277,24 +286,26 @@ decode_attn_kernel(const typename Query<KT>::T* __restrict__ q, const KT* __rest
   __syncthreads();
 
   float2 acc = make_float2(0.f, 0.f);
-  for (int t = warp; t < nk; t += WARPS) {
+  for (int t = warp; t < nk && 2 * lane < DW; t += WARPS) {
     const int r = ANC ? rows[t] : n;
-    const float2 f = load_pair(v + ((size_t)r * Tp + t) * D + h * DH + 2 * lane);
+    const float2 f = load_pair(v + ((size_t)r * Tp + t) * D + h * DW + 2 * lane);
     acc.x = fmaf(p[t], f.x, acc.x);
     acc.y = fmaf(p[t], f.y, acc.y);
   }
-  part[warp][2 * lane] = acc.x;
-  part[warp][2 * lane + 1] = acc.y;
+  if (2 * lane < DW) {
+    part[warp][2 * lane] = acc.x;
+    part[warp][2 * lane + 1] = acc.y;
+  }
   __syncthreads();
-  if (tid < DH) {
+  if (tid < DW) {
     float s = part[0][tid];
     for (int w = 1; w < WARPS; ++w) s += part[w][tid];
-    if (QUANT) s *= v_scale[h * DH + tid];  // v's scale, after the sum
-    put(o + (size_t)n * D + h * DH + tid, s);
+    if (QUANT) s *= v_scale[h * DW + tid];  // v's scale, after the sum
+    put(o + (size_t)n * D + h * DW + tid, s);
   }
 }
 
-template <bool ANC, bool PE, typename KT>
+template <bool ANC, bool PE, typename KT, int DW = DH>
 int launch_rows(const void* q, const void* k, const void* v, const void* anc,
                 const void* q_cs, const void* k_cs, const void* gate, const void* ks,
                 const void* vs, void* o, int N, int Tp, int H, int pos, int J,
@@ -302,7 +313,7 @@ int launch_rows(const void* q, const void* k, const void* v, const void* anc,
   dim3 grid(H, N);
   const size_t smem = (size_t)(pos + 1) * (sizeof(float) + (ANC ? sizeof(int) : 0));
   typedef typename Query<KT>::T QT;
-  decode_attn_kernel<ANC, PE, KT><<<grid, THREADS, smem, stream>>>(
+  decode_attn_kernel<ANC, PE, KT, DW><<<grid, THREADS, smem, stream>>>(
       (const QT*)q, (const KT*)k, (const KT*)v, (const int*)anc, (const bf16*)q_cs,
       (const bf16*)k_cs, (const float*)gate, (const float*)ks, (const float*)vs,
       (QT*)o, Tp, H, pos, J);
@@ -341,7 +352,7 @@ decode_attn_shared_kernel(const bf16* __restrict__ q, const KT* __restrict__ k,
   // queries stay in shared memory and out of registers).
   for (int t = tid; t < nk; t += SH_THREADS) {
     float kf[DH];
-    load_head(kb + (size_t)t * D, kf);
+    load_head<DH>(kb + (size_t)t * D, kf);
 #pragma unroll 1
     for (int i = 0; i < J; ++i) {
       float s = 0.f;
@@ -467,6 +478,17 @@ extern "C" int decode_attn_f32_fwd(const void* q, const void* k, const void* v, 
   return launch_rows<false, false, float>(q, k, v, nullptr, nullptr, nullptr, nullptr,
                                           nullptr, nullptr, o, N, Tp, H, pos, 1,
                                           (cudaStream_t)stream);
+}
+
+// K3 at d_head 48 (the side ladder's self- and cross-attention): plain
+// bf16 rows, q, o (N, H*48), k, v (N, Tp, H*48); all contiguous and
+// 16-byte aligned; 0 <= pos < Tp; (pos + 1) floats of shared memory, as
+// K3. Returns cudaGetLastError() after the launch.
+extern "C" int decode_attn_d48_fwd(const void* q, const void* k, const void* v, void* o,
+                                   int N, int Tp, int H, int pos, void* stream) {
+  return launch_rows<false, false, bf16, 48>(q, k, v, nullptr, nullptr, nullptr, nullptr,
+                                             nullptr, nullptr, o, N, Tp, H, pos, 1,
+                                             (cudaStream_t)stream);
 }
 
 // K3s (k_scale null: bf16 caches) and K3s-int8. q, o: (G*J, H*64) bf16

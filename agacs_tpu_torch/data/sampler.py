@@ -3,7 +3,14 @@
 utterances sorted by length, packed greedily so that batch size x longest
 length stays under `batch_bins`; optional rounding of batch sizes to a
 grid, and a seeded shuffle of the batch order. The other batch types
-(sorted, folded, length, fixed_shapes) are not ported."""
+(sorted, folded, length, fixed_shapes) are not ported.
+
+The port's train CLI packs with the grid at 1 (`bin/train.py`), as the
+reference's sampler does. JAX's train CLI rounds every batch size to a
+multiple of `b_grid = 8` (`agacs_tpu/bin/train.py:236`), which bounds the
+shapes XLA compiles and keeps a batch shardable over its data axis; eager
+PyTorch on one card needs neither, so the two CLIs can form different
+batches from the same data dir and batch_bins."""
 
 from __future__ import annotations
 

@@ -10,6 +10,11 @@ through (K3a). `ancestry=False` gathers the k/v buffers physically after
 every selection (a PE decoder's k_cs with them, as JAX's
 `decode/beam.py:105-111`), the oracle path (plain-row K3 for the
 self-attention).
+A side network keeps the physical gather (JAX `decode/beam.py:82-115`): its
+ladder caches are keyed per decoding row, so cross-KV is precomputed on
+the encoder output repeated per beam, `beam_groups` is 1 (the trunk's
+cross-attention runs plain-row K3, not K3s), there is no ancestry map, and
+`_reorder_caches` gathers the side caches with the trunk's.
 The hypothesis primer is the dual-language prompt
 `[50258, 50260, 50259, 50359, 50363]` (asr_inference.py:319-331).
 """
@@ -60,12 +65,16 @@ def beam_decode(
     b, dev = enc_out.shape[0], enc_out.device
     k = beam_size
     max_ctx = min(model.cfg.n_text_ctx, len(primer) + max_steps)
-    cross_kv = precompute_cross_kv(model, enc_out)
-    use_anc = ancestry and k > 1
+    if model.cfg.side_network is None:
+        cross_kv, groups = precompute_cross_kv(model, enc_out), k
+    else:
+        cross_kv = precompute_cross_kv(model, enc_out.repeat_interleave(k, 0))
+        groups = 1
+    use_anc = ancestry and groups > 1
     self_kv = init_self_kv_cache(model.cfg, b * k, max_ctx, device=dev, ancestry=use_anc)
 
     def step(cur, pos, kv):
-        return whisper_decode_step(model, cur, pos, kv, cross_kv, beam_groups=k)
+        return whisper_decode_step(model, cur, pos, kv, cross_kv, beam_groups=groups)
 
     return composed_beam_decode(
         step, self_kv, batch=b, vocab=model.cfg.n_vocab, beam_size=k,

@@ -36,6 +36,7 @@ from agacs_tpu_torch.models.whisper import (
     encoder_olens,
     init_whisper_params,
     whisper_decode,
+    whisper_encode,
 )
 from agacs_tpu_torch.ops.logmel import WhisperAudioConfig, log_mel_spectrogram
 from agacs_tpu_torch.ops.specaug import SpecAugConfig, specaug
@@ -124,7 +125,7 @@ def encode(
     feats, feat_lens = log_mel_spectrogram(speech, speech_lengths, cfg.audio)
     if train and cfg.use_specaug and generator is not None:
         feats = specaug(generator, feats, cfg.specaug)
-    return model.encoder(feats), encoder_olens(feat_lens, cfg.whisper)
+    return whisper_encode(model, feats), encoder_olens(feat_lens, cfg.whisper)
 
 
 def forward(

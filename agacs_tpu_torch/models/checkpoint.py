@@ -18,8 +18,14 @@ JAX's (in, out) layout kept) and `.../w_s` (float32) to an `Int8Linear`'s
 `weight_q` / `weight_s` buffers, both ways, in their own dtypes. A CTC
 head's `ctc/w` (d, V) and `ctc/b` are the `ctc` linear, both ways. PE
 attention's `query_cs` / `key_cs` are linears like the others and its
-per-head `gate` a plain (n_head,) leaf. Checkpoints the port cannot run
-(serving-quantized `token_emb_q` / `logits_w_q`, side networks) raise.
+per-head `gate` a plain (n_head,) leaf. A serving-quantised tree (JAX
+`int8_serve.quantize_for_serving`: every trunk linear's `w_q`/`w_s` and
+the decoder's `token_emb_q`/`_s`, `logits_w_q`/`_s`) maps to the
+`Int8Linear`s and the decoder's int8 head buffers, in their own dtypes and
+JAX's layouts. Side networks: `encoder_side/...` and `decoder_side/...`
+are the `encoder_side` / `decoder_side` modules, their stacked `blocks`
+and `downsample_layers` leaves split per ladder block, `gates` and
+`gate_output` plain leaves.
 
 The conformer ASR model and the transformer LM have their own pair each
 (`conformer_params_from_numpy` / `numpy_from_conformer_params`,
@@ -38,22 +44,18 @@ import torch
 from torch import nn
 
 from agacs_tpu_torch.models.whisper import (
+    INT8_HEAD,
     Whisper,
     WhisperConfig,
-    check_supported,
     init_whisper_params,
 )
 
-_UNSUPPORTED = {
-    "token_emb_q": "serving-quantized token embeddings",
-    "logits_w_q": "the int8 logits head",
-    "encoder_side": "side networks",
-    "decoder_side": "side networks",
-}
 _RENAME = {".mlp.0.": ".mlp.fc1.", ".mlp.2.": ".mlp.fc2.",
            ".model.0.": ".down.", ".model.2.": ".up."}
 _SPECIAL = {"decoder.token_embedding.weight": "decoder/token_emb",
-            "decoder.positional_embedding": "decoder/pos_emb"}
+            "decoder.positional_embedding": "decoder/pos_emb",
+            **{f"decoder.{n}": f"decoder/{n}" for n in INT8_HEAD}}
+_STACKED = ("blocks", "downsample_layers")  # leaves with a leading layer axis in JAX
 
 
 def jax_leaf(name: str) -> tuple[str, int | None, str]:
@@ -64,13 +66,13 @@ def jax_leaf(name: str) -> tuple[str, int | None, str]:
     if name in _SPECIAL:
         return _SPECIAL[name], None, "plain"
     parts = name.split(".")
-    layer = int(parts.pop(2)) if len(parts) > 2 and parts[1] == "blocks" else None
+    layer = int(parts.pop(2)) if len(parts) > 2 and parts[1] in _STACKED else None
     path = ".".join(parts)
     for a, b in _RENAME.items():
         path = path.replace(a, b)
     *mods, leaf = path.split(".")
     leaf = {"weight": "w", "bias": "b", "weight_q": "w_q", "weight_s": "w_s",
-            "gate": "gate"}[leaf]
+            "gate": "gate", "gates": "gates", "gate_output": "gate_output"}[leaf]
     layout = "plain"
     if leaf == "w" and mods[-1] in ("conv1", "conv2"):
         layout = "conv"
@@ -95,34 +97,27 @@ def _flat(tree: Mapping[str, Any]) -> dict[str, Any]:
         else {k: tree[k] for k in tree}
 
 
-def _check_keys(flat: Mapping[str, Any]) -> None:
-    for key in flat:
-        for part in key.split("/"):
-            if part in _UNSUPPORTED:
-                raise NotImplementedError(
-                    f"{key}: {_UNSUPPORTED[part]} is not ported yet")
-
-
 def params_from_numpy(tree: Mapping[str, Any], cfg: WhisperConfig,
                       strict: bool = True) -> dict:
     """JAX params (nested tree or flat save_pytree mapping) -> state dict.
     With strict=False, names whose leaf is missing are left out (for
     init_param's keep-the-init semantics)."""
-    check_supported(cfg)
     flat = _flat(tree)
-    _check_keys(flat)
     meta = Whisper(cfg, device="meta", ctc="ctc/w" in flat)
     int8 = {name[: -len(".weight")] for name in meta.state_dict()
             if name.endswith(".weight") and jax_leaf(name)[0][:-1] + "w_q" in flat}
     if int8:
         meta.int8_structure_(int8)
+    if "decoder/token_emb_q" in flat:
+        meta.decoder.set_int8_head(*(torch.empty(np.shape(flat["decoder/" + n]))
+                                     for n in INT8_HEAD))
     sd = {}
     for name in meta.state_dict():
         key, layer, layout = jax_leaf(name)
         if key not in flat and not strict:
             continue
         a = np.asarray(flat[key] if layer is None else flat[key][layer])
-        a = a.astype(np.int8 if key.endswith("/w_q") else np.float32)
+        a = a.astype(np.int8 if key.endswith("_q") else np.float32)
         if key == "decoder/token_emb":
             a = a[: cfg.n_vocab]  # rows may be padded to a tensor-parallel multiple
         if layout == "linear":
@@ -136,7 +131,7 @@ def params_from_numpy(tree: Mapping[str, Any], cfg: WhisperConfig,
 def numpy_from_params(state_dict: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray]:
     """State dict -> the flat "/"-joined mapping `save_pytree` writes
     (per-layer tensors stacked on a leading L axis): float32, and the int8
-    trunk's `w_q` int8."""
+    leaves (`w_q`, `token_emb_q`, `logits_w_q`) int8."""
     out: dict[str, np.ndarray] = {}
     layers: dict[str, dict[int, np.ndarray]] = {}
     for name, t in state_dict.items():

@@ -43,13 +43,30 @@ sigmoid(gate)·q_cs.k_cs; it bypasses K1 (plain full attention, as in JAX).
 `cross_kv_int8` stores the precomputed cross K/V int8 with per-channel
 scales (JAX `_quantize_kv`).
 
+Thin-row int8 products (at most 32 rows, `AGACS_W8A16` on) take the W8A16
+kernel K6 (`ops/int8_serve.py`), as JAX's `int8_linear` and
+`fused_linears` do. A serving-quantised model (`int8_serve.
+quantize_for_serving`, JAX's of the same name) also carries the int8
+token table `token_emb_q`/`token_emb_s`, which the decode step's embedding
+dequantises, and the int8 logits head `logits_w_q`/`logits_w_s`, which the
+decode step runs through K6 whatever `AGACS_W8A16` says.
+
+The ladder side network (reference `model.py:349-484`, JAX
+`SideNetworkConfig`): `encoder_side` and `decoder_side` hold their own
+narrow blocks (n_dim 192, 4 heads of 48 by default) fed by gated taps of
+the trunk's layer outputs; the encoder blends its output with the trunk's
+through `gate_output`, the decoder's ladder replaces the trunk's output
+head (upsample + its own `ln`). Side blocks run plain attention in the
+encoder (JAX's `fused_mha`; K1 takes d_head 64 only) and K3 at d_head 48
+in the decode step.
+
 On a CUDA tensor the encoder self-attention runs kernels K1f/K1b
 (`ops/flash_train.py`) and the decode step's self- and cross-attention
 run kernel K3 (`ops/decode_attn.py`); a beam step runs K3a (self, through
 the ancestry map) and K3s (cross, one shared cache per utterance). A PE
 decoder's self-attention runs K3-PE / K3a-PE, int8 cross-KV K3-int8 /
-K3s-int8. On a CPU tensor they take their plain versions. Side networks
-are not ported yet and raise when the model is built.
+K3s-int8, the side ladder K3 at d_head 48. On a CPU tensor they take
+their plain versions.
 """
 
 from __future__ import annotations
@@ -77,7 +94,8 @@ from agacs_tpu_torch.ops.decode_attn import (
     TIME_ALIGN,
     TIME_ALIGN_I8,
 )
-from agacs_tpu_torch.ops import int8_mlp
+from agacs_tpu_torch.ops import int8_mlp, int8_serve
+from agacs_tpu_torch.ops.flash_train import D_HEAD as FLASH_D_HEAD
 from agacs_tpu_torch.ops.flash_train import packed_flash_mha
 from agacs_tpu_torch.ops.int8_linear import int8_linear, int8_matmul, quantize_weight
 from agacs_tpu_torch.ops.logmel import full_fp32
@@ -85,7 +103,8 @@ from agacs_tpu_torch.ops.logmel import full_fp32
 
 @dataclasses.dataclass(frozen=True)
 class SideNetworkConfig:
-    """Ladder side network (reference `model.py:349-484`); not ported yet."""
+    """Ladder side network (reference `model.py:349-484`): its width, heads
+    and the trunk layers whose outputs it taps."""
 
     n_dim: int = 192
     n_head: int = 4
@@ -160,10 +179,19 @@ def make_config(model: str = "small", **overrides) -> WhisperConfig:
     return WhisperConfig(**{**WHISPER_PRESETS[model], **overrides})
 
 
-def check_supported(cfg: WhisperConfig) -> None:
-    """Raise for the configurations the port cannot run yet."""
-    if cfg.side_network is not None:
-        raise NotImplementedError("side networks are not ported yet")
+def side_config(cfg: WhisperConfig) -> WhisperConfig:
+    """The config of the side ladder's blocks (JAX `side_cfg`): no
+    adapters, no PE."""
+    return dataclasses.replace(cfg, adapter=False, pe_attention=False, adapter_encoder=None,
+                               adapter_decoder=None, pe_encoder=None, pe_decoder=None)
+
+
+def scale_query(q: torch.Tensor, d_head: int) -> torch.Tensor:
+    """q * d_head**-0.5 as JAX's decode step forms it (`q * (scale *
+    scale)`, a Python float times a compute-dtype array): the scale is
+    rounded to q's dtype first. Exact in bf16 at d_head 64 (0.125), not at
+    48 (the side ladder)."""
+    return q * torch.tensor(d_head ** -0.5, dtype=q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -256,7 +284,8 @@ def fused_linears(x: torch.Tensor, mods: list[nn.Module], cache: dict) -> list[t
     """JAX `fused_linears` (:190): int8 projections of one input as ONE
     product over their concatenated weights (kept in `cache` until a
     buffer moves or is written), each output plus its bias; dense ones
-    each on its own. The
+    each on its own. Thin rows under `AGACS_W8A16` take K6 on the
+    concatenation, as JAX's int8 branch does. The
     forward gives the numbers of separate products (the row scale depends
     on x alone), but the backward does not: its dgrad row-quantises the
     concatenated output gradient [dq | dk | dv] with one scale per row, so
@@ -270,7 +299,10 @@ def fused_linears(x: torch.Tensor, mods: list[nn.Module], cache: dict) -> list[t
                torch.cat([m.weight_s for m in mods]))
         cache.clear()
         cache[key] = cat
-    y = int8_matmul(x, *cat)
+    if int8_serve.thin_rows(x) and int8_serve.fits(cat[0]):  # JAX :203-210
+        y = int8_serve.w8a16_matmul(x, *cat)
+    else:
+        y = int8_matmul(x, *cat)
     outs = y.split([m.out_features for m in mods], -1)
     return [o.contiguous() if m.bias is None else o + m.bias.to(o.dtype)
             for o, m in zip(outs, mods)]
@@ -300,7 +332,8 @@ class MultiHeadAttention(nn.Module):
     """`mha` (:352).
 
     Non-causal self-attention (the encoder) goes through `packed_flash_mha`
-    on the packed (B, T, D) projections (kernels K1f/K1b on the card).
+    on the packed (B, T, D) projections (kernels K1f/K1b on the card) at
+    d_head 64, and the plain `packed_mha` at any other width.
     Cross-attention (the teacher-forced form; the decode step has its own
     cached path) and the decoder's causal self-attention (`causal_self`)
     are the head-split plain attention with d_head**-0.25 on q and k.
@@ -362,7 +395,11 @@ class MultiHeadAttention(nn.Module):
         if self.pe:
             return self.out(self._pe_attention(x, causal=False)[0])
         q, k, v = self._project(x, xa)
-        attend = packed_flash_mha if xa is None else packed_mha
+        # K1 takes d_head 64 (JAX `flash_train.supports`); the side
+        # ladder's narrower heads take the plain attention, as JAX's
+        # `fused_mha` does off the TPU's flash shapes
+        flash = xa is None and q.shape[-1] == self.n_head * FLASH_D_HEAD
+        attend = packed_flash_mha if flash else packed_mha
         return self.out(attend(q, k, v, self.n_head))
 
     def causal_self(self, x: torch.Tensor, lang_cols: bool = False,
@@ -473,8 +510,12 @@ class ResidualAttentionBlock(nn.Module):
         return x, aux
 
     def step(self, h, pos: int, layer: int, self_kv: dict, cross_kv: dict,
-             anc_local: torch.Tensor | None = None, beam_groups: int = 1):
+             anc_local: torch.Tensor | None = None, beam_groups: int = 1,
+             prefix: str = ""):
         """One decode token through decoder block `layer`: h (N, d).
+        `prefix` "side_" reads the side ladder's caches ("side_k",
+        "side_v", "side_k_packed", "side_v_packed") in place of the
+        trunk's.
 
         Writes this position's k/v (PE: and k_cs) row into the layer's
         caches IN PLACE before the attention reads them (write-first, as in
@@ -485,27 +526,29 @@ class ResidualAttentionBlock(nn.Module):
         j queries (K3s). A PE block passes q_cs, k_cs and sigmoid(gate)
         (K3-PE / K3a-PE); int8 cross-KV passes its scales (K3-int8 /
         K3s-int8)."""
-        scale2 = (h.shape[-1] // self.n_head) ** -0.5
+        d_head = h.shape[-1] // self.n_head
         a = self.attn
         y = self.attn_ln(h)
-        k_cache, v_cache = self_kv["k"][layer], self_kv["v"][layer]
+        k_cache, v_cache = self_kv[prefix + "k"][layer], self_kv[prefix + "v"][layer]
         k_cache[:, pos] = a.key(y)
         v_cache[:, pos] = a.value(y)
         pe = {}
         if a.pe:
             k_cs = self_kv["k_cs"][layer]
             k_cs[:, pos] = a.key_cs(y)
-            pe = dict(q_cs=a.query_cs(y) * scale2, k_cs=k_cs, gate=a.gate_probs())
-        o = decode_cache_attention(a.query(y) * scale2, k_cache, v_cache, pos,
+            pe = dict(q_cs=scale_query(a.query_cs(y), d_head), k_cs=k_cs,
+                      gate=a.gate_probs())
+        o = decode_cache_attention(scale_query(a.query(y), d_head), k_cache, v_cache, pos,
                                    self.n_head, anc_local=anc_local, beam=beam_groups, **pe)
         h = h + a.out(o)
         if self.adapter:
             h = self.adapter_attn_ln(self.adapter_attn(h))
         c = self.cross_attn
-        qc = c.query(self.cross_attn_ln(h)) * scale2
-        cross_k, cross_v = cross_kv["k_packed"][layer], cross_kv["v_packed"][layer]
+        qc = scale_query(c.query(self.cross_attn_ln(h)), d_head)
+        cross_k = cross_kv[prefix + "k_packed"][layer]
+        cross_v = cross_kv[prefix + "v_packed"][layer]
         quant = {}
-        if "k_scale" in cross_kv:
+        if not prefix and "k_scale" in cross_kv:
             quant = dict(k_scale=cross_kv["k_scale"][layer],
                          v_scale=cross_kv["v_scale"][layer])
         t_audio = cross_kv["t_audio"]
@@ -552,18 +595,23 @@ class WhisperEncoder(nn.Module):
         )
         self.ln_post = LayerNorm(d, device=device)
 
-    def forward(self, mel: torch.Tensor) -> torch.Tensor:
+    def forward(self, mel: torch.Tensor, side: "EncoderSide | None" = None) -> torch.Tensor:
         """mel (B, T_frames, n_mels) -> (B, min(ceil(T/2), n_audio_ctx), d).
-        Frames beyond n_audio_ctx * 2 are cropped (> 30 s inputs)."""
+        Frames beyond n_audio_ctx * 2 are cropped (> 30 s inputs). With
+        `side` the output is blended with the side ladder's (JAX :749-771)."""
         x = mel.to(self.cfg.compute_dtype).transpose(1, 2)  # (B, n_mels, T)
         with full_fp32():
             x = F.gelu(self.conv1(x))
             x = F.gelu(self.conv2(x))
         x = x.transpose(1, 2)[:, : self.cfg.n_audio_ctx].contiguous()
         x = x + self.positional_embedding[: x.shape[1]]
+        x_embed, layer_outs = x, []  # the ladder's taps, kept only for a side
         for block in self.blocks:
             x, _ = block(x)
-        return self.ln_post(x)
+            if side is not None:
+                layer_outs.append(x)
+        out = self.ln_post(x)
+        return out if side is None else side(x_embed, layer_outs, out)
 
 
 class WhisperDecoder(nn.Module):
@@ -591,17 +639,42 @@ class WhisperDecoder(nn.Module):
             for _ in range(cfg.n_text_layer)
         )
         self.ln = LayerNorm(d, device=device)
+        for name in INT8_HEAD:  # set by `set_int8_head`
+            self.register_buffer(name, None)
         self.register_buffer("logits_weight", None, persistent=False)
         self.cast_logits_weight()
         self.register_load_state_dict_post_hook(
             lambda module, _keys: module.cast_logits_weight())
 
-    def embed(self, tokens: torch.Tensor, pos) -> torch.Tensor:
+    def embed(self, tokens: torch.Tensor, pos, int8_head: bool = False) -> torch.Tensor:
         """token_emb[tokens] + pos_emb[pos] in the stored dtypes (two bf16
         leaves sum in bf16, as JAX's `whisper_decode` :815 and
-        `whisper_decode_step` :1122 do), then the compute dtype."""
-        x = self.token_embedding(tokens) + self.positional_embedding[pos]
-        return x.to(self.cfg.compute_dtype)
+        `whisper_decode_step` :1122 do), then the compute dtype. With
+        `int8_head` and a serving-quantised table (the decode step, JAX
+        :1113-1117) the looked-up rows are f32(q[tokens]) * s[tokens]."""
+        if int8_head and self.token_emb_q is not None:
+            emb = self.token_emb_q[tokens].float() * self.token_emb_s[tokens][..., None]
+        else:
+            emb = self.token_embedding(tokens)
+        return (emb + self.positional_embedding[pos]).to(self.cfg.compute_dtype)
+
+    def set_int8_head(self, token_emb_q, token_emb_s, logits_w_q, logits_w_s) -> None:
+        """Carry the serving-quantised token table and logits head
+        (`int8_serve.quantize_for_serving`): (V, d) int8 + (V,) f32 and
+        (d, Vp) int8 + (Vp,) f32, as buffers on the table's device."""
+        dev = self.token_embedding.weight.device
+        self.token_emb_q, self.token_emb_s = token_emb_q.to(dev), token_emb_s.to(dev)
+        self.logits_w_q, self.logits_w_s = logits_w_q.to(dev), logits_w_s.to(dev)
+
+    def logits(self, h: torch.Tensor, int8_head: bool = False) -> torch.Tensor:
+        """float32 (..., n_vocab) logits of the final hidden states: with
+        `int8_head` and an int8 logits head (the decode step, JAX
+        :1362-1370), K6 over `logits_w_q`, sliced to n_vocab in float32;
+        else ln(x) @ emb^T in the compute dtype, then float32."""
+        if int8_head and self.logits_w_q is not None:
+            y = int8_serve.w8a16_matmul(h, self.logits_w_q, self.logits_w_s)
+            return y.float()[..., : self.cfg.n_vocab]
+        return F.linear(h, self.logits_w()).float()
 
     def cast_logits_weight(self) -> None:
         w = self.token_embedding.weight
@@ -620,6 +693,93 @@ class WhisperDecoder(nn.Module):
         return self.logits_weight
 
 
+INT8_HEAD = ("token_emb_q", "token_emb_s", "logits_w_q", "logits_w_s")
+
+
+def _blend(g: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(1 - sigmoid(g)) * a + sigmoid(g) * b, the gate cast to a's dtype
+    (JAX `(1.0 - g) * down + g * h_side`)."""
+    g = torch.sigmoid(g).to(a.dtype)
+    return (1.0 - g) * a + g * b
+
+
+class _Side(nn.Module):
+    """What both side ladders share (JAX `_init_encoder_side` :654,
+    `_init_decoder_side` :679): `downsample_input` (d -> n_dim), one
+    `downsample_layers` tap per ladder block, the per-block `gates`
+    (float32, sigmoid at use), the narrow `blocks` and `upsample_output`
+    (n_dim -> d)."""
+
+    def __init__(self, cfg: WhisperConfig, d: int, cross: bool, device, dtype):
+        super().__init__()
+        sc = cfg.side_network
+        n = len(sc.layers)
+        kw = dict(dtype=dtype or cfg.compute_dtype, device=device)
+        self.layers = sc.layers
+        self.downsample_input = Linear(d, sc.n_dim, **kw)
+        self.downsample_layers = nn.ModuleList(Linear(d, sc.n_dim, **kw) for _ in range(n))
+        self.gates = nn.Parameter(torch.zeros(n, device=device))
+        self.blocks = nn.ModuleList(
+            ResidualAttentionBlock(sc.n_dim, sc.n_head, side_config(cfg), cross=cross,
+                                   device=device, dtype=dtype) for _ in range(n))
+        self.upsample_output = Linear(sc.n_dim, d, **kw)
+
+    def tap(self, i: int, trunk_h: torch.Tensor, h_side: torch.Tensor) -> torch.Tensor:
+        """Ladder block i's input: the gated mix of the trunk's tapped layer
+        output (downsampled) and the ladder so far."""
+        return _blend(self.gates[i], self.downsample_layers[i](trunk_h), h_side)
+
+
+class EncoderSide(_Side):
+    """The encoder's side ladder (JAX `whisper_encode` :749-771): over the
+    post-position trunk input and the trunk's layer outputs, then
+    `upsample_output`, `ln_post`, and the output blend through
+    `gate_output`."""
+
+    def __init__(self, cfg: WhisperConfig, device=None, dtype: torch.dtype | None = None):
+        super().__init__(cfg, cfg.n_audio_state, False, device, dtype)
+        self.ln_post = LayerNorm(cfg.n_audio_state, device=device)
+        self.gate_output = nn.Parameter(torch.zeros(1, device=device))
+
+    def forward(self, x_embed, layer_outs, out):
+        h = self.downsample_input(x_embed)
+        for i, layer in enumerate(self.layers):
+            h, _ = self.blocks[i](self.tap(i, layer_outs[layer], h))
+        h = self.ln_post(self.upsample_output(h))
+        return _blend(self.gate_output[0], out, h)
+
+
+class DecoderSide(_Side):
+    """The decoder's side ladder (JAX `_decoder_side_fwd` :875-915): causal
+    blocks with cross-attention over `downsample_encoder_input(xa)`; its
+    `upsample_output` and `ln` replace the trunk's output head."""
+
+    def __init__(self, cfg: WhisperConfig, device=None, dtype: torch.dtype | None = None):
+        super().__init__(cfg, cfg.n_text_state, True, device, dtype)
+        self.downsample_encoder_input = Linear(
+            cfg.n_text_state, cfg.side_network.n_dim,
+            dtype=dtype or cfg.compute_dtype, device=device)
+        self.ln = LayerNorm(cfg.n_text_state, device=device)
+
+    def forward(self, x_embed, layer_outs, xa):
+        h = self.downsample_input(x_embed)
+        xa_side = self.downsample_encoder_input(xa)
+        for i, layer in enumerate(self.layers):
+            h, _ = self.blocks[i](self.tap(i, layer_outs[layer], h), xa_side)
+        return self.ln(self.upsample_output(h))
+
+    def step(self, x_embed, trunk_outs, pos: int, self_kv: dict, cross_kv: dict):
+        """One cached token through the ladder (JAX `_side_decode_step`
+        :1376-1452): each block writes its row of "side_k"/"side_v" and
+        reads them and the precomputed "side_k_packed"/"side_v_packed"
+        through K3 at the ladder's head width."""
+        h = self.downsample_input(x_embed)
+        for i, layer in enumerate(self.layers):
+            h = self.blocks[i].step(self.tap(i, trunk_outs[layer], h), pos, i, self_kv,
+                                    cross_kv, prefix="side_")
+        return self.ln(self.upsample_output(h))
+
+
 class Whisper(nn.Module):
     """With `ctc`, also the CTC head `ctc` (n_audio_state -> n_vocab; JAX's
     (d, V) `ctc/w` transposed) that a nonzero ctc_weight trains."""
@@ -627,10 +787,12 @@ class Whisper(nn.Module):
     def __init__(self, cfg: WhisperConfig, device=None,
                  param_dtype: torch.dtype | None = None, ctc: bool = False):
         super().__init__()
-        check_supported(cfg)
         self.cfg = cfg
         self.encoder = WhisperEncoder(cfg, device, param_dtype)
         self.decoder = WhisperDecoder(cfg, device, param_dtype)
+        if cfg.side_network is not None:
+            self.encoder_side = EncoderSide(cfg, device, param_dtype)
+            self.decoder_side = DecoderSide(cfg, device, param_dtype)
         if ctc:
             self.ctc = nn.Linear(cfg.n_audio_state, cfg.n_vocab, device=device,
                                  dtype=param_dtype or cfg.compute_dtype)
@@ -645,6 +807,8 @@ class Whisper(nn.Module):
         int8 = {k[: -len(".weight_q")] for k in state_dict if k.endswith(".weight_q")}
         if int8:
             model.int8_structure_(int8)
+        if "decoder.token_emb_q" in state_dict:
+            model.decoder.set_int8_head(*(state_dict["decoder." + n] for n in INT8_HEAD))
         model.load_state_dict(state_dict)
         return model.eval()
 
@@ -697,7 +861,7 @@ class Whisper(nn.Module):
 
 
 def whisper_encode(model: Whisper, mel: torch.Tensor) -> torch.Tensor:
-    return model.encoder(mel)
+    return model.encoder(mel, getattr(model, "encoder_side", None))
 
 
 def whisper_decode(
@@ -721,16 +885,23 @@ def whisper_decode(
     columns after the softmax; with `collect_full_maps`, aux["maps"]
     (L', B, h, T, T), the pre-softmax scores, -inf where masked. A PE
     decoder always returns "p_cols" with its columns (the CS loss reads
-    them), and its "maps" are post-softmax (JAX :479-481, :863-864)."""
+    them), and its "maps" are post-softmax (JAX :479-481, :863-864). With
+    a side network the decoder's side ladder, fed by every trunk layer's
+    output, replaces the trunk's `ln` (JAX :845-848); the aux stays the
+    trunk's."""
     dec = model.decoder
     x = dec.embed(tokens, slice(0, tokens.shape[1]))
     xa = audio_feats.to(model.cfg.compute_dtype)
-    auxs = []
+    side = getattr(model, "decoder_side", None)
+    x_embed, layer_outs, auxs = x, [], []
     for block in dec.blocks:
         x, a = block(x, xa, lang_cols=collect_lang_cols, need_probs=need_probs,
                      full_scores=collect_full_maps)
+        if side is not None:
+            layer_outs.append(x)
         auxs.append(a)
-    logits = F.linear(dec.ln(x), dec.logits_w()).float()
+    x = dec.ln(x) if side is None else side(x_embed, layer_outs, xa)
+    logits = dec.logits(x)
 
     def stacked(key):
         return torch.stack([a[key] for a in auxs[src_layer:]])
@@ -753,9 +924,10 @@ def encoder_olens(ilens_frames: torch.Tensor, cfg: WhisperConfig) -> torch.Tenso
 def init_whisper_params(generator: torch.Generator, cfg: WhisperConfig) -> dict:
     """Random float32 state dict (CPU) with the JAX init's distributions:
     linears uniform(±1/sqrt(d_in)), layer norms 1/0, conv stem
-    normal/sqrt(3·d_in) with zero bias, PE gates uniform(0, 1), token_emb
-    normal·0.02, pos_emb normal·0.01. Numbers differ from the JAX init
-    (another generator)."""
+    normal/sqrt(3·d_in) with zero bias, PE gates uniform(0, 1), the side
+    ladders' gates and gate_output uniform(-1, 1), token_emb normal·0.02,
+    pos_emb normal·0.01. Numbers differ from the JAX init (another
+    generator)."""
     sd = {}
     meta = Whisper(cfg, device="meta")
     for name, mod in meta.named_modules():
@@ -777,6 +949,10 @@ def init_whisper_params(generator: torch.Generator, cfg: WhisperConfig) -> dict:
             sd[pre + "bias"] = torch.zeros(c_out)
         elif isinstance(mod, MultiHeadAttention) and mod.pe:
             sd[pre + "gate"] = torch.rand(mod.n_head, generator=generator)
+        elif isinstance(mod, _Side):
+            sd[pre + "gates"] = torch.rand(len(mod.layers), generator=generator) * 2 - 1
+            if isinstance(mod, EncoderSide):
+                sd[pre + "gate_output"] = torch.rand(1, generator=generator) * 2 - 1
     sd["decoder.token_embedding.weight"] = torch.randn(
         cfg.n_vocab, cfg.n_text_state, generator=generator) * 0.02
     sd["decoder.positional_embedding"] = torch.randn(
@@ -808,7 +984,10 @@ def precompute_cross_kv(model: Whisper, audio_feats: torch.Tensor) -> dict:
     d_head**-0.5), time zero-padded to `pad_time` (the step masks the pad
     with pos = T_audio - 1). With `cross_kv_int8` the padded buffers are
     stored int8 (Tp a multiple of TIME_ALIGN_I8, 750 -> 768) beside
-    per-layer "k_scale" / "v_scale" (JAX :951-985)."""
+    per-layer "k_scale" / "v_scale" (JAX :951-985). With a side network
+    also "side_k_packed" / "side_v_packed": each ladder block's cross K/V
+    over `downsample_encoder_input(xa)`, in the compute dtype, padded alike
+    (JAX :987-1010)."""
     cfg = model.cfg
     xa = audio_feats.to(cfg.compute_dtype)
     t_audio = xa.shape[1]
@@ -827,6 +1006,13 @@ def precompute_cross_kv(model: Whisper, audio_feats: torch.Tensor) -> dict:
     out = {"k_packed": tuple(ks), "v_packed": tuple(vs), "t_audio": t_audio}
     if int8:
         out.update(k_scale=tuple(k_scales), v_scale=tuple(v_scales))
+    side = getattr(model, "decoder_side", None)
+    if side is not None:
+        xa_side = side.downsample_encoder_input(xa)
+        out["side_k_packed"] = tuple(F.pad(b.cross_attn.key(xa_side), (0, 0, 0, pad))
+                                     for b in side.blocks)
+        out["side_v_packed"] = tuple(F.pad(b.cross_attn.value(xa_side), (0, 0, 0, pad))
+                                     for b in side.blocks)
     return out
 
 
@@ -837,17 +1023,19 @@ def init_self_kv_cache(cfg: WhisperConfig, batch: int, max_len: int | None = Non
     "anc" (1, batch, Tp) int32: anc[0, i, t] is the physical row holding
     position t of row i's hypothesis (JAX :1041-1050), initially i. Beam
     search reorders this map instead of gathering the k/v buffers. A PE
-    decoder also gets "k_cs", its second key cache (JAX :1039-1040)."""
+    decoder also gets "k_cs", its second key cache (JAX :1039-1040); a side
+    network "side_k" / "side_v", (batch, Tp, n_dim) per ladder block (JAX
+    :1051-1062)."""
     max_len = pad_time(max_len or cfg.n_text_ctx)
 
-    def bufs():
-        return tuple(
-            torch.zeros(batch, max_len, cfg.n_text_state, dtype=cfg.compute_dtype,
-                        device=device)
-            for _ in range(cfg.n_text_layer)
-        )
+    def bufs(d=cfg.n_text_state, n=cfg.n_text_layer):
+        return tuple(torch.zeros(batch, max_len, d, dtype=cfg.compute_dtype, device=device)
+                     for _ in range(n))
 
     cache = {"k": bufs(), "v": bufs()}
+    if cfg.side_network is not None:
+        cache["side_k"] = bufs(cfg.side_network.n_dim, len(cfg.side_network.layers))
+        cache["side_v"] = bufs(cfg.side_network.n_dim, len(cfg.side_network.layers))
     if cfg.part("decoder").pe_attention:
         cache["k_cs"] = bufs()
     if ancestry:
@@ -872,10 +1060,14 @@ def whisper_decode_step(
 
     beam_groups j > 1: the N = B*j rows are B utterances' beams and
     `cross_kv` holds B un-repeated rows (JAX :1146-1176, :1290-1306); the
-    self-attention reads through "anc" when the cache has one."""
+    self-attention reads through "anc" when the cache has one.
+
+    A side network's ladder (its caches in `self_kv`, its cross K/V in
+    `cross_kv`) replaces the trunk's `ln`; a serving-quantised model embeds
+    from its int8 table and runs its int8 logits head (K6)."""
     dec = model.decoder
     n = tokens.shape[0]
-    h = dec.embed(tokens, pos)
+    h = dec.embed(tokens, pos, int8_head=True)
     anc_local = None
     anc = self_kv.get("anc")
     if anc is not None:
@@ -885,7 +1077,10 @@ def whisper_decode_step(
         anc[:, :, pos] = torch.arange(n, dtype=anc.dtype, device=anc.device)
         if beam_groups > 1:
             anc_local = anc[0] % beam_groups
+    x_embed, trunk_outs = h, []
     for l, block in enumerate(dec.blocks):
         h = block.step(h, pos, l, self_kv, cross_kv, anc_local, beam_groups)
-    h = dec.ln(h)
-    return F.linear(h, dec.logits_w()).float(), self_kv
+        trunk_outs.append(h)
+    side = getattr(model, "decoder_side", None)
+    h = dec.ln(h) if side is None else side.step(x_embed, trunk_outs, pos, self_kv, cross_kv)
+    return dec.logits(h, int8_head=True), self_kv

@@ -19,7 +19,9 @@ nothing but the bytes read.
                                   int8 (k_scale, v_scale): int8 caches with
                                   per-channel scales (K3-int8, K3a-int8);
                                   float32 q and caches: K3-f32 (plain rows
-                                  only; the transformer LM's self-attention)
+                                  only; the transformer LM's self-attention);
+                                  d_head 48: K3 at the side ladder's head
+                                  width (plain bf16 rows only)
   decode_shared_cache_attention   K3s: the j beam queries of group g over
                                   ONE shared (Tp, d) cache (cross-KV);
                                   int8 caches with scales (K3s-int8)
@@ -47,6 +49,9 @@ from agacs_tpu_torch.ops import cuda_lib
 TIME_ALIGN = 16  # cache time axis padding (the JAX bf16 sublane tile)
 TIME_ALIGN_I8 = 32  # int8 cross-KV caches (the JAX int8 sublane tile)
 D_HEAD = 64
+# the ladder side network's head width (n_dim 192 / 4 heads): K3's plain
+# bf16 rows are also built at it; every other form stays at D_HEAD
+D_HEAD_SIDE = 48
 MAX_KEYS = 8192  # K3 keeps pos+1 f32 scores in shared memory
 # K3a keeps pos+1 f32 scores and pos+1 int32 rows in the 48 KB of shared
 # memory a block gets without the opt-in attribute (beside ~1.3 KB static)
@@ -67,6 +72,7 @@ ANC_I8_LAUNCHES = 0  # K3a-int8
 SHARED_LAUNCHES = 0  # K3s
 SHARED_I8_LAUNCHES = 0  # K3s-int8
 F32_LAUNCHES = 0  # K3-f32
+D48_LAUNCHES = 0  # K3 at d_head 48
 # (ancestry, PE, int8) -> the counter of that kernel
 _COUNTER = {(False, False, False): "LAUNCHES", (True, False, False): "ANC_LAUNCHES",
             (False, True, False): "PE_LAUNCHES", (True, True, False): "ANC_PE_LAUNCHES",
@@ -239,10 +245,12 @@ def decode_shared_cache_attention_plain(
 
 def _check_kernel_inputs(what: str, n_head: int, d: int, tensors,
                          cache_dtype: torch.dtype = torch.bfloat16,
-                         query_dtype: torch.dtype = torch.bfloat16) -> None:
+                         query_dtype: torch.dtype = torch.bfloat16,
+                         d_head: int = D_HEAD) -> None:
     """What every decode kernel takes: bf16 queries with bf16 or int8
     caches, or float32 queries with float32 caches (K3-f32); f32 scales and
-    gate, one device, contiguous, 16-byte aligned, d_head 64."""
+    gate, one device, contiguous, 16-byte aligned, d_head 64 (48 for K3's
+    plain bf16 rows at the side ladder's width)."""
     dev = tensors[0][1].device
     for name, x in tensors:
         want = {"k": cache_dtype, "v": cache_dtype, "gate": torch.float32,
@@ -252,9 +260,9 @@ def _check_kernel_inputs(what: str, n_head: int, d: int, tensors,
                              f"kernel takes {want} on {dev}")
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"{what}: {name} must be contiguous and 16-byte aligned")
-    if d != n_head * D_HEAD:
-        raise ValueError(f"{what}: d {d} != {n_head} heads x {D_HEAD}; the kernel "
-                         f"takes d_head = {D_HEAD}")
+    if d != n_head * d_head:
+        raise ValueError(f"{what}: d {d} != {n_head} heads x {d_head}; the kernel "
+                         f"takes d_head = {d_head}")
 
 
 def _check_scales(what: str, k: torch.Tensor, k_scale, v_scale) -> None:
@@ -307,7 +315,9 @@ def decode_cache_attention(
     post-sigmoid. int8: k/v int8 with (d,) float32 k_scale/v_scale and
     Tp % TIME_ALIGN_I8 == 0. PE and int8 together raise, as JAX asserts.
     float32 q, k and v (K3-f32) take plain rows only: with a map, PE or
-    scales they raise; any other cache dtype raises too."""
+    scales they raise; any other cache dtype raises too. d_head 48 (d ==
+    48 x n_head) takes plain bf16 rows only, as the side ladder launches
+    it; anything else at that width raises."""
     pe, quant = q_cs is not None, k_scale is not None
     if pe and quant:
         raise ValueError("decode_cache_attention: int8 caches are unsupported "
@@ -327,6 +337,11 @@ def decode_cache_attention(
         raise ValueError(f"decode_cache_attention: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     ins = [("q", q), ("k", k), ("v", v)]
+    if d == n_head * D_HEAD_SIDE:
+        if anc or pe or quant or k.dtype != torch.bfloat16:
+            raise ValueError("decode_cache_attention: d_head 48 takes plain bf16 rows "
+                             "only (no ancestry map, PE, scales or float32)")
+        return _d48_rows(q, k, v, pos, n_head)
     if k.dtype == torch.float32:
         if anc or pe or quant:
             raise ValueError("decode_cache_attention: float32 caches take plain rows "
@@ -382,6 +397,25 @@ def _f32_rows(q, k, v, pos: int, n_head: int) -> torch.Tensor:
     cuda_lib.check(rc, "decode_attn_f32_fwd")
     global F32_LAUNCHES
     F32_LAUNCHES += 1
+    return o
+
+
+def _d48_rows(q, k, v, pos: int, n_head: int) -> torch.Tensor:
+    """Launch K3 at d_head 48 (checked by the caller's shape tests)."""
+    n, tp, d = k.shape
+    _check_kernel_inputs("decode_cache_attention", n_head, d, [("q", q), ("k", k), ("v", v)],
+                         d_head=D_HEAD_SIDE)
+    if pos + 1 > MAX_KEYS:
+        raise ValueError(f"decode_cache_attention: pos + 1 = {pos + 1} keys exceed the "
+                         f"kernel's {MAX_KEYS}")
+    o = torch.empty_like(q)
+    fn = cuda_lib.load("decode_attn", "decode_attn_d48_fwd",
+                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), n, tp, n_head, pos,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    cuda_lib.check(rc, "decode_attn_d48_fwd")
+    global D48_LAUNCHES
+    D48_LAUNCHES += 1
     return o
 
 

@@ -14,8 +14,12 @@ w_q^T, so neither direction needs a transposed copy). On a CPU tensor the
 plain versions below run the same arithmetic (the int32 sums are formed
 exactly in float64). There is no fallback from the card to them.
 
-The W8A16 thin-row kernel K6 (`ops/int8_serve.py`) is off by default in
-JAX (`AGACS_W8A16` unset) and is not ported: every row count takes K8.
+`int8_linear` dispatches as JAX's (:133-150): a 2-D weight whose input
+has thin rows (`int8_serve.thin_rows`: at most 32 rows, `AGACS_W8A16` on)
+and that `int8_serve.fits` takes the weight-only W8A16 kernel K6
+(`ops/int8_serve.py`, bf16 math on the dequantised weight, no row
+quantisation); every other product takes K8q + K8g. `AGACS_W8A16` is off
+by default, as in JAX.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import ctypes
 
 import torch
 
-from agacs_tpu_torch.ops import cuda_lib
+from agacs_tpu_torch.ops import cuda_lib, int8_serve
 
 QUANT_LAUNCHES = 0  # K8q launches since the last reset (chip_smoke.py reads them)
 LAUNCHES = 0        # K8g forward launches
@@ -216,7 +220,10 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor) -> torch.
 
 def int8_linear(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
                 b: torch.Tensor | None = None) -> torch.Tensor:
-    """JAX `int8_linear` (:133) without the K6 branch: the bias is added
-    outside the product, in the output's dtype."""
-    y = int8_matmul(x, w_q, w_s)
+    """JAX `int8_linear` (:133): K6 for thin rows under `AGACS_W8A16`, else
+    K8; the bias is added outside the product, in the output's dtype."""
+    if w_q.dim() == 2 and int8_serve.thin_rows(x) and int8_serve.fits(w_q):
+        y = int8_serve.w8a16_matmul(x, w_q, w_s)
+    else:
+        y = int8_matmul(x, w_q, w_s)
     return y if b is None else y + b.to(y.dtype)

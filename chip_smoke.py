@@ -2,19 +2,22 @@
 """Drive the PyTorch port's greedy serving path, its beam-search serving
 path, its stage-2 training path and both again on the int8 frozen trunk,
 serving with int8 cross-KV, the TMECS PE recipes' serving and training,
-and the SEAME conformer recipe's serving (joint CTC/attention beam search
+the SEAME conformer recipe's serving (joint CTC/attention beam search
 with transformer-LM fusion) and training (run_conformer.sh stages 1-5),
-once on one CUDA card.
+the W8A16 thin-row path (AGACS_W8A16 and serving-quantised checkpoints)
+and the ladder side network's serving and training, once on one CUDA
+card.
 
     python3 chip_smoke.py              # every phase below
     python3 chip_smoke.py --mutants    # the kernel checks against mutants
+    python3 chip_smoke.py --mutants K6 K3@48   # only the mutants so named
 
 Run from (or point at) a checkout of the repository on a machine with a
 CUDA card and the CUDA toolkit (nvcc). It imports nothing of JAX. Phases,
 one line each, in the order they run; any failure ends the script with a
 non-zero exit:
 
-  1. device and build: the card, and the nvcc builds of the seven kernel
+  1. device and build: the card, and the nvcc builds of the eight kernel
      sources, started together;
   2. K1f (csrc/packed_flash_fwd.cu) against its plain PyTorch version at
      the encoder shapes (8, 750, 768) and (2, 1500, 768), 12 heads;
@@ -59,6 +62,15 @@ non-zero exit:
      (256, 5000); cuBLAS with the logits materialised timed beside;
   3f. K3-f32 (decode_attn.cu, float32 caches) against its plain version at
      the LM's beam shape (80, 112, 512), 8 heads, pos 103, within 1e-4;
+  2w. K6 (csrc/w8a16.cu, the W8A16 thin-row matmul) against its plain
+     version at (768 -> 768), (768 -> 3072), (3072 -> 768) and the padded
+     logits head (768 -> 52224), rows 1, 5, 8 and 32: 1e-2 x max |plain|,
+     and elementwise K6_ELEM; cuBLAS on the pre-dequantised bf16 weight and
+     K8q + K8g timed beside it, with its bytes bound;
+  3d. K3 at d_head 48 (decode_attn.cu, the side ladder's width) against its
+     plain version at (8, 112, 192), 4 heads, pos 0/57/103 and (40, 112,
+     192) pos 103, keys past pos poisoned, and the cross shape (8, 752,
+     192) at pos 749; SDPA timed beside it;
   4. the greedy slice: whisper-small with adapters in both stacks (the
      stage-2 recipe's flags), bf16, random weights from torch seed 0,
      Speech2Text on 8 x 15 s of seeded noise, 100 greedy steps; ms per
@@ -148,7 +160,26 @@ non-zero exit:
      share; 30. one more step under torch.profiler;
   31. one micro-step on one utterance, card bf16 against CPU float32 (loss,
      loss_ctc, grad norm, encoder / decoder / CTC-head gradient cosines),
-     beside a bf16 control with K5's and K4's plain versions.
+     beside a bf16 control with K5's and K4's plain versions;
+  32. (right after 16, on its int8 trunk) greedy under AGACS_W8A16=1: ms
+     per batch, exact launches (K6 8 x 12 per step, K8g only in the
+     encoder and the cross-KV), token agreement with phase 16 (reported:
+     W8A16 and W8A8 differ), first-step logits card against CPU float32
+     (K6's plain version there), and K6's profile share beside phase 16's
+     K8g;
+  33. `quantize_for_serving` of phase 4's weights: greedy and beam 5 with
+     and without AGACS_W8A16, exact launches (the logits head's K6 once a
+     step, every trunk product on K6 or K8 by the rule), first-step logits
+     card against CPU float32;
+  34. the ladder side network (whisper-small + the default ladder: n_dim
+     192, 4 heads, taps 0, 2, ..., 10), bf16: greedy and beam 5 with exact
+     launches (K3 at d_head 48 12 a step, trunk K3 24, no K3a or K3s),
+     first-step logits card against CPU float32, beam scores against
+     teacher-forced rescoring;
+  35. the `sidenetwork` training step at 16 x 15 s: ms per step (median of
+     3 after a warm-up), peak memory, idle share, K1f 12 and K1b 0 a step,
+     the trunk bit-identical; one micro-step card bf16 against CPU float32
+     (loss, grad norm, the side ladders' gradient cosines).
 
 The last three lines are the card's `name, power.limit` (nvidia-smi), a
 JSON line with each kernel's launches, error and times, and the
@@ -267,6 +298,23 @@ INT8_CROSS_LOGITS_REL_L2 = 5e-2
 # cosines over the query_cs / key_cs gradients of each stack.
 PE_TRAIN_REL = dict(TRAIN_REL)
 PE_TRAIN_COS = dict(TRAIN_COS)
+# K6 against its plain version, element by element: both sum the same exact
+# products of bf16 values in float32 (in another order) and round to bf16
+# once, so an element moves by its output rounding (2^-9 of itself) plus
+# the summation order (~1e-6 of the largest output): 2^-8 |plain| + 1e-4 x
+# max |plain|. Folding w_s in after the sum rounds other weights (each
+# bf16(w_q · w_s) is off by up to 2^-9 of itself) and moves elements whose
+# sum cancels past that bound.
+K6_SHAPES = ((768, 768), (768, 3072), (3072, 768), (768, 52224))
+K6_ROWS = (1, 5, 8, 32)
+K6_ELEM = (2.0 ** -8, 1e-4)
+# Phases 34-35: the default ladder (SideNetworkConfig()), seed 3; the side
+# micro-step's bounds, card bf16 vs CPU f32, before a reading: the ladder
+# reads bf16 trunk taps from all 12 layers, so phase 15's int8 bounds
+# (loss 2e-3, grad norm 5e-3, cosines 0.999) rather than phase 9's.
+SIDE_SEED = 3
+SIDE_TRAIN_REL = {"loss": 2e-3, "grad_norm": 5e-3}
+SIDE_TRAIN_COS = {"cos_enc": 0.999, "cos_dec": 0.999}
 HBM_BPS = 3.35e12
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 
@@ -1249,6 +1297,103 @@ def check_k3f32(dev, g, timed=True) -> dict:
     return res
 
 
+def check_k6(dev, g, timed=True) -> dict:
+    """Phase 2w: K6 against its plain version (the same bf16-rounded
+    weight, float32 sums) at the decode step's products and the padded
+    logits head, rows 1, 5, 8 and 32 (a ragged count is padded on chip):
+    1e-2 x max |plain| and element by element K6_ELEM. Timed beside it:
+    cuBLAS (`torch.matmul`) on the pre-dequantised bf16 weight and K8q +
+    K8g on the int8 one. Distinct weights per call fill more than the 50 MB
+    L2, as a decode step's 99 MB of weights do. Returns the error and the
+    times at 8 rows of the logits head."""
+    from agacs_tpu_torch.ops import int8_linear as i8
+    from agacs_tpu_torch.ops import int8_serve
+
+    res = {"err": 0.0}
+    for k, n in K6_SHAPES:
+        n_sets = max(2, -(-(64 << 20) // (k * n))) if timed else 1
+        weights = [int8_weight(g, dev, k, n)[:2] for _ in range(n_sets)]
+        bf = [int8_serve.dequant_bf(w_q, w_s, torch.bfloat16) for w_q, w_s in weights]
+        line = []
+        for rows in K6_ROWS:
+            xs = [torch.randn(rows, k, generator=g).to(dev, torch.bfloat16) for _ in weights]
+            w_q, w_s = weights[0]
+            before = int8_serve.LAUNCHES
+            y = int8_serve.w8a16_matmul(xs[0], w_q, w_s)
+            check(int8_serve.LAUNCHES == before + 1, "K6 launched")
+            plain = xs[0].float() @ bf[0].float()
+            err = hold(f"K6 ({rows}, {k}) -> {n}", y, plain, (rows, k, n))
+            over = ((y.float() - plain).abs()
+                    > K6_ELEM[0] * plain.abs() + K6_ELEM[1] * plain.abs().max()).sum().item()
+            check(over == 0, f"K6 ({rows}, {k}) -> {n}: {over} elements past "
+                             f"{K6_ELEM[0]} |plain| + {K6_ELEM[1]} max |plain|")
+            res["err"] = max(res["err"], err)
+            item = f"rows {rows}: err {err:.2e}"
+            if timed:
+                sets = [(x, wq, ws) for x, (wq, ws) in zip(xs, weights)]
+                iters = 20 if n > 10000 else 100
+                t = {"k6": cuda_ms(int8_serve.w8a16_matmul, sets, iters),
+                     "cublas": cuda_ms(torch.matmul, list(zip(xs, bf)), iters),
+                     "k8": cuda_ms(lambda x, wq, ws: i8.int8_gemm(
+                         *i8.rowquant(x), wq, ws, out_dtype=torch.bfloat16), sets, iters)}
+                bound = roofline(k * n + n * 4 + rows * k * 2 + rows * n * 2,
+                                 2 * rows * k * n, "bf16")
+                item += (f" K6 {t['k6']:.4f} cuBLAS {t['cublas']:.4f} K8q+K8g {t['k8']:.4f} "
+                         f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+                if rows == 8:
+                    t["plain"] = cuda_ms(int8_serve.w8a16_matmul_ref, sets, 10)
+                    item += f" plain {t['plain']:.4f}"
+                    if n == 52224:
+                        res.update(ms=t["k6"], plain_ms=t["plain"], library_ms=t["cublas"],
+                                   **bound)
+            line.append(item)
+        print(f"phase 2w K6 w8a16 ({k} -> {n}), {n_sets} weight sets: " + "; ".join(line)
+              + f" (bounds {KERNEL_RTOL} x max|plain f32|, elementwise {K6_ELEM})",
+              flush=True)
+        del weights, bf
+    return res
+
+
+def check_k3_d48(dev, g, timed=True) -> dict:
+    """Phase 3d: K3 at d_head 48 against its plain version at the side
+    ladder's greedy self-attention (8, 112, 192), 4 heads, pos 0/57/103,
+    its beam rows (40, 112, 192) pos 103 and its cross-attention (8, 752,
+    192) pos 749, keys past pos poisoned as in phase 3. Returns the error
+    and the times at the cross shape."""
+    from agacs_tpu_torch.ops import decode_attn
+
+    h, d = 4, 192
+    res = {"err": 0.0}
+    for n, tp, pos in ((8, 112, 0), (8, 112, 57), (8, 112, 103), (40, 112, 103),
+                       (8, 752, 749)):
+        sets = [(*sharp_qkv(g, dev, (n, d), (n, tp, d), q_scale=48 ** -0.5), pos, h)
+                for _ in range(8)]
+        q, k, v, _, _ = sets[0]
+        k_bad, v_bad = k.clone(), v.clone()
+        k_bad[:, pos + 1:] = 0.0
+        v_bad[:, pos + 1:] = 1e4
+        before = decode_attn.D48_LAUNCHES
+        out = decode_attn.decode_cache_attention(q, k_bad, v_bad, pos, h)
+        check(decode_attn.D48_LAUNCHES == before + 1, "K3 at d_head 48 launched")
+        err = hold(f"K3@48 pos={pos}", out, decode_attn.decode_cache_attention_ref(
+            q.float(), k.float(), v.float(), pos, h), (n, tp, d))
+        res["err"] = max(res["err"], err)
+        line = (f"phase 3d K3@48 decode_attn ({n}, {tp}, {d}) H={h} pos={pos}: max_abs_err "
+                f"{err:.3e} (bound {KERNEL_RTOL} x max|plain f32|)")
+        if timed:
+            ms = cuda_ms(decode_attn.decode_cache_attention, sets, 50)
+            plain_ms = cuda_ms(decode_attn.decode_cache_attention_ref, sets, 50)
+            lib = cuda_ms(lambda q, k, v, pos, h: sdpa_one_query(q, k, v, pos, h), sets, 50)
+            bound = roofline(2 * n * (pos + 1) * d * 2 + 2 * n * d * 2,
+                             4 * n * h * (pos + 1) * 48, "bf16")
+            line += (f" kernel {ms:.4f} ms plain bf16 {plain_ms:.4f} ms sdpa {lib:.4f} ms "
+                     f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+            if tp == 752:
+                res.update(ms=ms, plain_ms=plain_ms, library_ms=lib, **bound)
+        print(line, flush=True)
+    return res
+
+
 def device_profile(fn) -> tuple[float, int, dict]:
     """Run fn() once under torch.profiler, device activity only: (device
     busy ms, device events, ms by kernel name). Recording the host's
@@ -1451,24 +1596,30 @@ def make_train_batch(b: int, seconds: int, dev) -> dict:
     }
 
 
-def train_model(sd, dev, dtype, specaug: bool, int8: bool = False, pe: bool = False):
+def train_model(sd, dev, dtype, specaug: bool, int8: bool = False, pe: bool = False,
+                side: bool = False):
     """The stage-2 recipe's trainable model: built in float32 from `sd`,
     preset `adapter`, frozen parameters stored in `dtype` (then, with
     `int8`, quantised: `freeze_quant: int8`); with its config. A state dict
     that already holds int8 buffers builds the int8 trunk from them. With
     `pe`, the TMECS cs_loss_pe recipe's instead: PE attention in both
-    stacks, preset `whisper_pe` (only query_cs / key_cs train), cs_weight 1."""
+    stacks, preset `whisper_pe` (only query_cs / key_cs train), cs_weight 1.
+    With `side`, the side-network recipe's: the default ladder, no adapters,
+    preset `sidenetwork` (both ladders train, the trunk is frozen)."""
     from agacs_tpu_torch.models import whisper as tw
     from agacs_tpu_torch.models.asr_model import ASRModelConfig
     from agacs_tpu_torch.train.freeze import apply_freeze
 
     if pe:
         cfg = tw.make_config("small", pe_attention=True, compute_dtype=dtype)
+    elif side:
+        cfg = tw.make_config("small", side_network=tw.SideNetworkConfig(),
+                             compute_dtype=dtype)
     else:
         cfg = tw.make_config("small", adapter=True, adapter_encoder=True,
                              adapter_decoder=True, compute_dtype=dtype)
     model = tw.Whisper.from_state_dict(cfg, sd, device=dev, param_dtype=torch.float32)
-    params = apply_freeze(model, "whisper_pe" if pe else "adapter")
+    params = apply_freeze(model, "whisper_pe" if pe else "sidenetwork" if side else "adapter")
     model.cast_frozen_(dtype)
     if int8:
         model.quantize_frozen_()
@@ -1578,14 +1729,14 @@ def train_phase(sd, dev, int8: bool = False, bf16: dict | None = None) -> dict:
             "loss": float(np.mean([a for a, _ in losses]))}
 
 
-def micro_step(sd, dev, dtype, one, int8: bool = False,
-               pe: bool = False) -> tuple[float, float, dict]:
-    """One micro-step of the stage-2 (or, `pe`, the cs_loss_pe) model on
-    `dev` (SpecAug off): the loss, loss_cs, and every trainable parameter's
-    gradient, float32 on the CPU, by name."""
+def micro_step(sd, dev, dtype, one, int8: bool = False, pe: bool = False,
+               side: bool = False) -> tuple[float, float, dict]:
+    """One micro-step of the stage-2 (or, `pe`, the cs_loss_pe; `side`, the
+    side-network) model on `dev` (SpecAug off): the loss, loss_cs, and
+    every trainable parameter's gradient, float32 on the CPU, by name."""
     from agacs_tpu_torch.models import asr_model
 
-    model, _, acfg = train_model(sd, dev, dtype, specaug=False, int8=int8, pe=pe)
+    model, _, acfg = train_model(sd, dev, dtype, specaug=False, int8=int8, pe=pe, side=side)
     loss, stats = asr_model.forward(model, acfg, {k: v.to(dev) for k, v in one.items()})
     loss.backward()
     grads = {n: p.grad.float().cpu() for n, p in model.named_parameters()
@@ -1593,10 +1744,11 @@ def micro_step(sd, dev, dtype, one, int8: bool = False,
     return float(loss.detach()), float(stats["loss_cs"].detach()), grads
 
 
-def parity(run, ref) -> dict:
+def parity(run, ref, groups=("encoder.", "decoder.")) -> dict:
     """`run` against `ref` (micro_step results): relative errors of the
     loss, loss_cs and the global gradient norm; cosines of all, the
-    encoder's and the decoder's adapter gradients."""
+    encoder's and the decoder's trainable gradients (`groups`: their
+    name prefixes)."""
     (loss, cs, grads), (loss_r, cs_r, grads_r) = run, ref
     check(grads.keys() == grads_r.keys(), "the same trainable parameters")
 
@@ -1610,7 +1762,7 @@ def parity(run, ref) -> dict:
 
     return {"loss": abs(loss / loss_r - 1), "loss_cs": abs(cs / cs_r - 1),
             "grad_norm": abs(flat(grads).norm().item() / flat(grads_r).norm().item() - 1),
-            "cos": cos(""), "cos_enc": cos("encoder."), "cos_dec": cos("decoder.")}
+            "cos": cos(""), "cos_enc": cos(groups[0]), "cos_dec": cos(groups[1])}
 
 
 @contextlib.contextmanager
@@ -1729,16 +1881,11 @@ def int8_serve_phase(sd8, dev, audio) -> dict:
     against the port on the CPU (float32) on the same int8 weights."""
     from agacs_tpu_torch.decode.speech2text import Speech2Text
     from agacs_tpu_torch.models import whisper as tw
-    from agacs_tpu_torch.models.asr_model import ASRModelConfig, encode
+    from agacs_tpu_torch.models.asr_model import encode
     from agacs_tpu_torch.ops import decode_attn, flash_train
 
-    out = {}
-    for d, dtype in ((dev, torch.bfloat16), (torch.device("cpu"), torch.float32)):
-        cfg = tw.make_config("small", adapter=True, adapter_encoder=True,
-                             adapter_decoder=True, compute_dtype=dtype)
-        out[d.type] = (tw.Whisper.from_state_dict(cfg, sd8, device=d),
-                       ASRModelConfig(whisper=cfg))
-    model, asr_cfg = out["cuda"]
+    out = model_pair(sd8, dev)
+    model, asr_cfg = out["card"]
     s2t = Speech2Text(model, asr_cfg, max_steps=100)
     s2t(audio)  # warm-up
     torch.cuda.synchronize()
@@ -1798,7 +1945,8 @@ def int8_serve_phase(sd8, dev, audio) -> dict:
           f"{share('decode_attn_kernel')}; top: " + top_kernels(per_name), flush=True)
     del s2t, out, model
     torch.cuda.empty_cache()
-    return {"ms": ms_batch, "launches": launches}
+    return {"ms": ms_batch, "launches": launches, "results": results,
+            "k8g": share("gemm_kernel"), "busy": busy}
 
 
 # Decode-attention launch counters (agacs_tpu_torch/ops/decode_attn.py) by
@@ -1806,27 +1954,32 @@ def int8_serve_phase(sd8, dev, audio) -> dict:
 DECODE_COUNTERS = {"K3": "LAUNCHES", "K3a": "ANC_LAUNCHES", "K3-PE": "PE_LAUNCHES",
                    "K3a-PE": "ANC_PE_LAUNCHES", "K3-int8": "I8_LAUNCHES",
                    "K3a-int8": "ANC_I8_LAUNCHES", "K3s": "SHARED_LAUNCHES",
-                   "K3s-int8": "SHARED_I8_LAUNCHES", "K3-f32": "F32_LAUNCHES"}
+                   "K3s-int8": "SHARED_I8_LAUNCHES", "K3-f32": "F32_LAUNCHES",
+                   "K3@48": "D48_LAUNCHES"}
 
 
 def decode_counts() -> dict:
-    from agacs_tpu_torch.ops import decode_attn, flash_train, relpos_flash
+    """Every serving kernel's launches: the decode attention's, K1f, K5,
+    and the int8 products (K6, K8q, K8g, K2f)."""
+    from agacs_tpu_torch.ops import decode_attn, flash_train, int8_serve, relpos_flash
 
     return {"K1f": flash_train.LAUNCHES, "K5": relpos_flash.LAUNCHES,
-            **{k: getattr(decode_attn, v) for k, v in DECODE_COUNTERS.items()}}
+            **{k: getattr(decode_attn, v) for k, v in DECODE_COUNTERS.items()},
+            "K6": int8_serve.LAUNCHES, **int8_counts()}
 
 
 def reset_decode_counts() -> None:
-    from agacs_tpu_torch.ops import decode_attn, flash_train, relpos_flash
+    from agacs_tpu_torch.ops import decode_attn, flash_train, int8_serve, relpos_flash
 
-    flash_train.LAUNCHES = relpos_flash.LAUNCHES = 0
+    flash_train.LAUNCHES = relpos_flash.LAUNCHES = int8_serve.LAUNCHES = 0
     for v in DECODE_COUNTERS.values():
         setattr(decode_attn, v, 0)
+    reset_int8_counts()
 
 
-def serve(label: str, model, asr_cfg, audio, beam: int, want: dict) -> dict:
+def serve(label: str, model, asr_cfg, audio, beam: int, want: dict, timed: int = 3) -> dict:
     """One serving configuration on 8 x 15 s, 100 steps (beam: loop scan):
-    a warm-up request, then three timed ones; the first of them must launch
+    a warm-up request, then `timed` ones; the first of them must launch
     exactly `want` (every other counter 0). ms/batch is the median."""
     from agacs_tpu_torch.decode.speech2text import Speech2Text
 
@@ -1836,7 +1989,7 @@ def serve(label: str, model, asr_cfg, audio, beam: int, want: dict) -> dict:
     reset_decode_counts()
     torch.cuda.reset_peak_memory_stats()
     times = []
-    for i in range(3):
+    for i in range(timed):
         t0 = time.perf_counter()
         out = s2t(audio)
         times.append(time.perf_counter() - t0)
@@ -1850,6 +2003,243 @@ def serve(label: str, model, asr_cfg, audio, beam: int, want: dict) -> dict:
     return {"results": results, "launches": {k: v for k, v in launches.items() if v},
             "ms": statistics.median(times) * 1e3, "times": times, "s2t": s2t,
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+@contextlib.contextmanager
+def w8a16_env(value: str):
+    """AGACS_W8A16 set to `value` inside the block (the wrappers read it at
+    call time), unset after it."""
+    os.environ["AGACS_W8A16"] = value
+    try:
+        yield
+    finally:
+        del os.environ["AGACS_W8A16"]
+
+
+def model_pair(sd, dev, **flags) -> dict:
+    """A whisper-small model built from `sd` (which may hold int8 buffers
+    and an int8 head) with config `flags` (by default the stage-2 recipe's
+    adapters) on the card (bf16) and on the CPU (float32): {"card":
+    (model, asr_cfg), "cpu": (model, asr_cfg)}."""
+    from agacs_tpu_torch.models import whisper as tw
+    from agacs_tpu_torch.models.asr_model import ASRModelConfig
+
+    flags = flags or dict(adapter=True, adapter_encoder=True, adapter_decoder=True)
+    out = {}
+    for role, d, dtype in (("card", dev, torch.bfloat16),
+                           ("cpu", torch.device("cpu"), torch.float32)):
+        cfg = tw.make_config("small", compute_dtype=dtype, **flags)
+        out[role] = (tw.Whisper.from_state_dict(cfg, sd, device=d),
+                     ASRModelConfig(whisper=cfg))
+    return out
+
+
+def w8a16_serve_phase(sd8, dev, audio, int8_greedy: dict) -> dict:
+    """Phase 32: phase 16's int8-trunk greedy request under AGACS_W8A16=1:
+    every thin-row product (the decode step's self q, k, v, out, cross q,
+    out, fc1, fc2 at 8 rows) on K6, K8 left in the encoder and the cross-KV
+    projections; first-step logits card bf16 against the CPU in float32
+    (under "interpret", so the CPU runs K6's plain version too); K6's share
+    of the device time beside phase 16's K8g."""
+    models = model_pair(sd8, dev)
+    model, asr_cfg = models["card"]
+    cfg = model.cfg
+    n_steps = min(len(PRIMER) + 100, cfg.n_text_ctx) - 1
+    L = cfg.n_text_layer
+    want = {"K1f": cfg.n_audio_layer, "K3": 2 * L * n_steps, "K2f": cfg.n_audio_layer,
+            "K6": 8 * L * n_steps, "K8g": 2 * cfg.n_audio_layer + 2 * L,
+            "K8q": 2 * cfg.n_audio_layer + 2 * L}
+    with w8a16_env("1"):
+        run = serve("phase 32 W8A16 greedy", model, asr_cfg, audio, 1, want, timed=2)
+        busy, n_events, per_name = device_profile(lambda: run["s2t"](audio))
+    with w8a16_env("interpret"):
+        (lg_c, _), (lg_g, _) = (first_step(m, c, audio[:1]) for m, c in
+                                (models["cpu"], models["card"]))
+    e_log = rel_l2(lg_g, lg_c)
+    k6 = sum(v for name, v in per_name.items() if "w8a16_kernel" in name or "splitk" in name)
+    print(f"phase 32 W8A16 int8 greedy: whisper-small+adapters, int8 trunk, AGACS_W8A16=1, "
+          f"8 x 15 s, {n_steps} steps: {run['ms']:.1f} ms/batch (times "
+          f"{[round(t * 1e3, 1) for t in run['times']]}; phase 16 W8A8: "
+          f"{int8_greedy['ms']:.1f}), launches {run['launches']}; tokens vs phase 16: "
+          f"{agreement(run['results'], int8_greedy['results'])}; first-step logits card vs "
+          f"cpu f32 rel L2 {e_log:.3e} (bound {INT8_LOGITS_REL_L2}); profile: busy "
+          f"{busy:.1f} ms in {n_events} events, idle {1 - busy / run['ms']:.1%}, K6 {k6:.2f} "
+          f"ms ({k6 / busy:.1%}) [phase 16: K8g {int8_greedy['k8g']} of "
+          f"{int8_greedy['busy']:.1f} ms busy]; top: " + top_kernels(per_name), flush=True)
+    check(bool(torch.isfinite(lg_g).all()) and e_log < INT8_LOGITS_REL_L2,
+          f"W8A16 first-step logits rel L2 {e_log} < {INT8_LOGITS_REL_L2}")
+    del run["s2t"], models, model
+    torch.cuda.empty_cache()
+    return {"launches": run["launches"], "ms": run["ms"]}
+
+
+def serving_quant_phase(sd, dev, audio) -> dict:
+    """Phase 33: `quantize_for_serving` of phase 4's weights (on the CPU
+    in float32, as JAX quantises a checkpoint), served on the card: greedy
+    and beam 5, without and with AGACS_W8A16=1. The logits head runs K6
+    once a step in every request; the trunk's products run K6 for thin
+    rows under the variable (greedy: 8 rows) and K8 otherwise (beam: 40
+    rows); first-step logits card against CPU float32."""
+    from agacs_tpu_torch.models import whisper as tw
+    from agacs_tpu_torch.ops import int8_serve
+
+    cpu = model_pair(sd, dev)["cpu"][0]
+    sdq = int8_serve.quantize_for_serving(cpu).state_dict()
+    models = model_pair(sdq, dev)
+    model, asr_cfg = models["card"]
+    cfg = model.cfg
+    L, E = cfg.n_text_layer, cfg.n_audio_layer
+    n_steps = min(len(PRIMER) + 100, cfg.n_text_ctx) - 1
+    out, line = {}, []
+    for env in ("0", "1"):
+        for beam in (1, BEAM):
+            thin = env == "1" and beam == 1
+            want = {"K1f": E, "K2f": E, "K6": n_steps * (1 + (8 * L if thin else 0)),
+                    "K8g": 2 * E + 2 * L + (0 if thin else 8 * L * n_steps)}
+            want["K8q"] = want["K8g"]
+            if beam == 1:
+                want["K3"] = 2 * L * n_steps
+            else:
+                want.update({"K3a": L * n_steps, "K3s": L * n_steps})
+            with w8a16_env(env):
+                run = serve(f"phase 33 AGACS_W8A16={env} beam {beam}", model, asr_cfg,
+                            audio, beam, want, timed=1)
+            out[(env, beam)] = run
+            line.append(f"AGACS_W8A16={env} beam {beam}: {run['ms']:.1f} ms/batch, K6 "
+                        f"{run['launches'].get('K6', 0)}")
+            del run["s2t"]
+    (lg_c, _), (lg_g, _) = (first_step(m, c, audio[:1]) for m, c in
+                            (models["cpu"], models["card"]))
+    e_log = rel_l2(lg_g, lg_c)
+    print(f"phase 33 serving-quantised (int8 trunk, int8 token table and logits head "
+          f"(768, 52224)), 8 x 15 s, {n_steps} steps: " + "; ".join(line) + f"; greedy "
+          f"tokens with vs without the variable: "
+          f"{agreement(out[('1', 1)]['results'], out[('0', 1)]['results'])}; first-step "
+          f"logits card vs cpu f32 rel L2 {e_log:.3e} (bound {INT8_LOGITS_REL_L2})",
+          flush=True)
+    check(bool(torch.isfinite(lg_g).all()) and e_log < INT8_LOGITS_REL_L2,
+          f"serving-quantised first-step logits rel L2 {e_log} < {INT8_LOGITS_REL_L2}")
+    check(isinstance(model.decoder.blocks[0].mlp[0], tw.Int8Linear)
+          and model.decoder.logits_w_q.shape == (cfg.n_text_state, 52224),
+          "the served model carries the int8 trunk and the int8 head")
+    del models, model, cpu, sdq
+    torch.cuda.empty_cache()
+    return {k: v["launches"] for k, v in out.items()}
+
+
+def side_state() -> dict:
+    """The side-network model's random float32 state dict (SIDE_SEED)."""
+    from agacs_tpu_torch.models import whisper as tw
+
+    cfg = tw.make_config("small", side_network=tw.SideNetworkConfig())
+    return tw.init_whisper_params(torch.Generator().manual_seed(SIDE_SEED), cfg)
+
+
+def side_serve_phase(dev, audio) -> dict:
+    """Phase 34: greedy and beam 5 on the side-network model (8 x 15 s, 100
+    steps) with exact launches: K3 at d_head 48 for the ladder's 6 self-
+    and 6 cross-attentions a step, the trunk's plain-row K3 24 a step (a
+    side beam keeps per-row caches: no K3a, no K3s); first-step logits card
+    against CPU float32; each beam hypothesis's score against its
+    teacher-forced rescoring (card bf16)."""
+    from agacs_tpu_torch.models import whisper as tw
+    from agacs_tpu_torch.models.asr_model import encode
+
+    models = model_pair(side_state(), dev, side_network=tw.SideNetworkConfig())
+    model, asr_cfg = models["card"]
+    cfg = model.cfg
+    n_steps = min(len(PRIMER) + 100, cfg.n_text_ctx) - 1
+    n_side = len(cfg.side_network.layers)
+    want = {"K1f": cfg.n_audio_layer, "K3": 2 * cfg.n_text_layer * n_steps,
+            "K3@48": 2 * n_side * n_steps}
+    greedy = serve("phase 34 side greedy", model, asr_cfg, audio, 1, want, timed=2)
+    beam = serve("phase 34 side beam", model, asr_cfg, audio, BEAM, want, timed=2)
+    (lg_c, enc_c), (lg_g, _) = (first_step(m, c, audio[:1]) for m, c in
+                                (models["cpu"], models["card"]))
+    e_log = rel_l2(lg_g, lg_c)
+    limit = len(PRIMER) + 100 - 1
+    with torch.inference_mode():
+        enc, _ = encode(model, asr_cfg, torch.from_numpy(audio).to(dev),
+                        torch.full((audio.shape[0],), audio.shape[1], device=dev))
+    scores = np.array([r.score for r in beam["results"]])
+    resc = np.abs(rescore(model, enc, [r.tokens for r in beam["results"]], limit) / scores - 1)
+    print(f"phase 34 side network (whisper-small + ladder 192 x 4 heads, taps "
+          f"{list(cfg.side_network.layers)}), bf16, 8 x 15 s, {n_steps} steps: greedy "
+          f"{greedy['ms']:.1f} ms/batch, beam {BEAM} {beam['ms']:.1f} ms/batch (peak "
+          f"{beam['peak_gb']:.2f} GB); launches greedy {greedy['launches']} beam "
+          f"{beam['launches']}; first-step logits card vs cpu f32 rel L2 {e_log:.3e} "
+          f"(bound {LOGITS_REL_L2}); beam score vs teacher-forced rescore (rel, max over 8) "
+          f"{resc.max():.2e} (bound {RESCORE_REL['card']})", flush=True)
+    check(bool(torch.isfinite(lg_g).all()) and e_log < LOGITS_REL_L2,
+          f"side first-step logits rel L2 {e_log} < {LOGITS_REL_L2}")
+    check(resc.max() <= RESCORE_REL["card"], f"side beam rescore rel {resc.max()}")
+    del greedy["s2t"], beam["s2t"], models, model
+    torch.cuda.empty_cache()
+    return {"greedy": greedy["launches"], "beam": beam["launches"]}
+
+
+def side_train_phase(dev) -> dict:
+    """Phase 35: the `sidenetwork` step on 16 x 15 s (AdamW, WarmupLR 500,
+    clip 1.0, SpecAug): one warm-up and 3 timed steps, exact launches (K1f
+    12 a step in the frozen trunk's encoder, K1b none: nothing upstream of
+    the trunk trains), the trunk bit-identical, every ladder parameter
+    changed; its profile; then one micro-step card bf16 against CPU float32
+    (loss, grad norm, the encoder and decoder ladders' gradient cosines)."""
+    from agacs_tpu_torch.ops import flash_train
+    from agacs_tpu_torch.train.optim import OptimConfig, build_optimizer
+    from agacs_tpu_torch.train.trainer import make_train_step
+
+    sd = side_state()
+    model, params, acfg = train_model(sd, dev, torch.bfloat16, specaug=True, side=True)
+    opt, sched = build_optimizer(params, OptimConfig(warmup_steps=500))
+    step = make_train_step(model, acfg, opt, sched, grad_clip=1.0,
+                           generator=torch.Generator().manual_seed(1))
+    batch = make_train_batch(TRAIN_B, TRAIN_S, dev)
+    trainable = {id(p) for p in params}
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters()
+              if id(p) not in trainable}
+    before = [p.detach().clone() for p in params]
+    step([batch])
+    torch.cuda.synchronize()
+    flash_train.LAUNCHES = flash_train.BWD_LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        stats = step([batch])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = {"K1f": flash_train.LAUNCHES, "K1b": flash_train.BWD_LAUNCHES}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ms = statistics.median(times) * 1e3
+    check(np.isfinite(float(stats["loss"])) and int(stats["grad_nonfinite_total"]) == 0,
+          "finite side-network losses")
+    check(launches == {"K1f": 3 * acfg.whisper.n_audio_layer, "K1b": 0},
+          f"side training launches {launches} == K1f 12, K1b 0 a step")
+    check(all(torch.equal(dict(model.named_parameters())[n], t) for n, t in frozen.items()),
+          "the frozen trunk bit-identical after the steps")
+    check(all(not torch.equal(a, p) for a, p in zip(before, params)),
+          "every ladder parameter changed")
+    busy, n_events, per_name = device_profile(lambda: step([batch]))
+    del model, opt, frozen, before
+    torch.cuda.empty_cache()
+    one = {k: v[:1] for k, v in batch.items()}
+    ref = micro_step(sd, torch.device("cpu"), torch.float32, one, side=True)
+    run = micro_step(sd, dev, torch.bfloat16, one, side=True)
+    card = parity(run, ref, ("encoder_side.", "decoder_side."))
+    print(f"phase 35 side training: whisper-small + ladder, bf16 trunk / f32 ladders, "
+          f"`sidenetwork`, {TRAIN_B} x {TRAIN_S} s, SpecAug on: {ms:.1f} ms/step (median of "
+          f"{[round(t * 1e3, 1) for t in times]}), {TRAIN_B * TRAIN_S / (ms / 1e3):.1f} "
+          f"audio-s/s; peak {peak_gb:.2f} GB; {sum(p.numel() for p in params) / 1e6:.2f}M "
+          f"trainable; launches {launches}; profile: busy {busy:.1f} ms in {n_events} "
+          f"events, idle {1 - busy / ms:.1%}; top: {top_kernels(per_name)}; micro-step card "
+          f"bf16 vs cpu f32: {fmt_parity(card)}; bounds {SIDE_TRAIN_REL} {SIDE_TRAIN_COS}",
+          flush=True)
+    for key, bound in SIDE_TRAIN_REL.items():
+        check(card[key] <= bound, f"side train parity {key} rel {card[key]} <= {bound}")
+    for key, bound in SIDE_TRAIN_COS.items():
+        check(card[key] >= bound, f"side train parity {key} {card[key]} >= {bound}")
+    return {"launches": launches, "ms": ms}
 
 
 def first_step(model, asr_cfg, audio1) -> tuple[torch.Tensor, torch.Tensor]:
@@ -2614,7 +3004,26 @@ def conformer_train_parity(sd, dev, batch) -> dict:
 # run). Built outside the checkout by `mutants()`.
 MUTANTS = {
     "unmutated source": ("int8_gemm.cu", [], ("k8", "k2", "p15", "k3pe", "k3i8", "k5", "k5b",
-                                              "k4")),
+                                              "k4", "k6", "k3d48")),
+    "K6 with its scale per row (w_s[k])": (
+        "w8a16.cu", [("__fmul_rn((float)a8[j], sc[j])", "__fmul_rn((float)a8[j], w_s[ka % N])"),
+                     ("__fmul_rn((float)b8[j], sc[j])",
+                      "__fmul_rn((float)b8[j], w_s[(ka + 1) % N])")], ("k6",)),
+    "K6 with the scale folded after the sum": (
+        "w8a16.cu", [("__fmul_rn((float)a8[j], sc[j])", "(float)a8[j]"),
+                     ("__fmul_rn((float)b8[j], sc[j])", "(float)b8[j]"),
+                     ("make_float2(acc[i][2 * hh], acc[i][2 * hh + 1])",
+                      "make_float2(acc[i][2 * hh] * w_s[col], acc[i][2 * hh + 1] * w_s[col + 1])"),
+                     ("__floats2bfloat162_rn(acc[i][2 * hh], acc[i][2 * hh + 1])",
+                      "__floats2bfloat162_rn(acc[i][2 * hh] * w_s[col], "
+                      "acc[i][2 * hh + 1] * w_s[col + 1])")], ("k6",)),
+    "K6 with the last column tile dropped": (
+        "w8a16.cu", [("const dim3 grid((N + BN - 1) / BN, splits",
+                      "const dim3 grid((N + BN - 1) / BN - 1, splits")], ("k6",)),
+    "K3@48 reading 64 channels": (
+        "decode_attn.cu", [("float s = dot_head<DW>(k + off, qs);",
+                            "float s = dot_head<(DW == 48 ? 64 : DW)>(k + off, qs);")],
+        ("k3d48",)),
     "K5 bwd dpe un-shifted one row off": (
         "relpos_flash.cu", [("const int p = p0 + (i >> 6);", "const int p = p0 + 1 + (i >> 6);")],
         ("k5b",)),
@@ -2690,9 +3099,11 @@ MUTANTS = {
 }
 
 
-def mutants(dev) -> None:
-    """Each MUTANTS entry: copy csrc/ to a temp dir, apply the edit, build
-    there, run its checks (timed=False) and print whether each fails."""
+def mutants(dev, only=()) -> None:
+    """Each MUTANTS entry (those whose name contains a word of `only`, and
+    the unmutated source, when it is given): copy csrc/ to a temp dir,
+    apply the edit, build there, run its checks (timed=False) and print
+    whether each fails."""
     import shutil
     import tempfile
     from pathlib import Path
@@ -2701,7 +3112,13 @@ def mutants(dev) -> None:
     from agacs_tpu_torch.ops import cuda_lib
 
     src, build, state = cuda_lib.CSRC, cuda_lib.BUILD_DIR, {}
+    chosen = {name for name, (_, edits, _) in MUTANTS.items()
+              if not only or any(word in name for word in only)}
     for name, (fname, edits, checks) in MUTANTS.items():
+        if not edits and only:  # the unmutated source: the chosen mutants' checks
+            checks = sorted({c for m in chosen for c in MUTANTS[m][2]})
+        elif name not in chosen:
+            continue
         tmp = Path(tempfile.mkdtemp(prefix="agacs_mutant_"))
         for f in [*src.glob("*.cu"), *src.glob("*.cuh")]:
             shutil.copy(f, tmp / f.name)
@@ -2730,6 +3147,10 @@ def mutants(dev) -> None:
                     check_k5_bwd(dev, g, timed=False)
                 elif chk == "k4":
                     check_k4(dev, g, timed=False)
+                elif chk == "k6":
+                    check_k6(dev, g, timed=False)
+                elif chk == "k3d48":
+                    check_k3_d48(dev, g, timed=False)
                 else:
                     if not state:
                         cfg = tw.make_config("small", adapter=True, adapter_encoder=True,
@@ -2891,8 +3312,8 @@ def main() -> int:
 
     dev = torch.device("cuda:0")
     t_start = time.perf_counter()
-    if sys.argv[1:] == ["--mutants"]:
-        mutants(dev)
+    if sys.argv[1:2] == ["--mutants"]:
+        mutants(dev, sys.argv[2:])
         return 0
 
     # 1. device and build
@@ -2904,7 +3325,7 @@ def main() -> int:
     with concurrent.futures.ThreadPoolExecutor() as pool:  # one nvcc per source
         list(pool.map(cuda_lib.build, ("packed_flash_fwd", "packed_flash_bwd",
                                        "decode_attn", "int8_gemm", "int8_mlp",
-                                       "relpos_flash", "vocab_lse")))
+                                       "relpos_flash", "vocab_lse", "w8a16")))
     build_s = time.perf_counter() - t0
     ptxas = "; ".join(
         f"{name}: {line.split(':', 1)[1].strip()}"
@@ -2929,6 +3350,8 @@ def main() -> int:
     k5b = check_k5_bwd(dev, g)
     k4 = check_k4(dev, g)
     k3f32 = check_k3f32(dev, g)
+    k6 = check_k6(dev, g)
+    k3d48 = check_k3_d48(dev, g)
 
     # 4. the slice: Speech2Text, whisper-small + adapters, bf16, 8 x 15 s
     cfg = tw.make_config("small", adapter=True, adapter_encoder=True,
@@ -3033,7 +3456,11 @@ def main() -> int:
     sd8 = int8_state(sd, dev)
     int8_train_parity(sd8, dev, train["batch"], bf16_loss)
     serve8 = int8_serve_phase(sd8, dev, audio)
-    del sd8
+    # 32-33. K6: the int8 trunk under AGACS_W8A16, then a serving-quantised
+    # model (int8 trunk, token table and logits head)
+    w8 = w8a16_serve_phase(sd8, dev, audio, serve8)
+    del sd8, serve8["results"]
+    serving_quant_phase(sd, dev, audio)
     cli_phase()
 
     # 19-24. PE attention: serving a PE decoder, training the cs_loss_pe
@@ -3041,6 +3468,10 @@ def main() -> int:
     pe_serve = pe_serve_phase(dev, audio)
     pe_train_phase(dev)
     pe_cli_phase()
+
+    # 34-35. the ladder side network: serving and `sidenetwork` training
+    side = side_serve_phase(dev, audio)
+    side_train = side_train_phase(dev)
 
     # 25-28. the conformer recipe's serving (stage 4) and its CLIs (4, 5)
     conf = conformer_serve_phase(dev, audio)
@@ -3116,8 +3547,19 @@ def main() -> int:
               "vocab_lse.cu", "agacs_tpu/ops/vocab_lse.py:224", conf_train["launches"]["K4 dw"],
               k4["dw"]),
     ]
+    kernels += [
+        entry("w8a16_matmul (K6, the W8A16 thin-row matmul: 8-row decode products under "
+              "AGACS_W8A16 and the int8 logits head)", "w8a16.cu",
+              "agacs_tpu/ops/int8_serve.py:80", w8["launches"]["K6"], k6),
+        entry("decode_attn_d48_fwd (K3 at d_head 48, the side ladder's self- and "
+              "cross-attention)", "decode_attn.cu", "agacs_tpu/ops/decode_attn.py:140",
+              side["greedy"]["K3@48"], k3d48),
+    ]
     check(serve8["launches"]["K2f"] > 0 and serve8["launches"]["K8g"] > 0,
           "int8 serving launched K2f and K8g")
+    check(side_train["launches"]["K1b"] == 0 and all(k["launches"] > 0 for k in kernels
+                                                    if "no decode step" not in k["name"]),
+          "every kernel of the paths launched on its path, K1b none in side training")
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(smi)

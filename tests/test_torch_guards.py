@@ -1,8 +1,7 @@
 """Guards of the port: it never imports JAX or the JAX package, never
 falls back from the card to the CPU or a plain version, and refuses what
-it cannot run yet (side networks, `lid_ce`, serving-quantised
-checkpoints, CTC and LM fusion in whisper decoding, the transducer, n-gram
-fusion)."""
+it cannot run yet (`lid_ce`, CTC and LM fusion in whisper decoding, the
+transducer, n-gram fusion)."""
 
 import os
 import subprocess
@@ -11,21 +10,19 @@ import sys
 import numpy as np
 import pytest
 
-import jax
 import torch
 
-from agacs_tpu.models import whisper as jw
 from agacs_tpu_torch.decode.composed_beam import composed_beam_decode
 from agacs_tpu_torch.decode.speech2text import Speech2Text
 from agacs_tpu_torch.models import asr_model
 from agacs_tpu_torch.models import whisper as tw
 from agacs_tpu_torch.models.asr_model import ASRModelConfig
-from agacs_tpu_torch.models.checkpoint import params_from_numpy
 from agacs_tpu_torch.ops import (
     decode_attn,
     flash_train,
     int8_linear,
     int8_mlp,
+    int8_serve,
     relpos_flash,
     vocab_lse,
 )
@@ -157,6 +154,41 @@ model = tw.Whisper.from_state_dict(cfg, tw.init_whisper_params(torch.Generator()
 out = Speech2Text(model, ASRModelConfig(whisper=cfg), max_steps=4)(
     np.random.RandomState(0).randn(2, 16000).astype(np.float32) * 0.1)
 assert len(out[0].tokens) > 5
+
+# K6's paths: greedy on an int8 trunk under AGACS_W8A16=interpret (every
+# decode-step product on K6's plain version), then on a serving-quantised
+# model (its int8 token table and logits head) with and without it
+from agacs_tpu_torch.ops import decode_attn, int8_serve
+
+cfg = tw.make_config("test", adapter=True)
+model = tw.Whisper.from_state_dict(cfg, tw.init_whisper_params(torch.Generator().manual_seed(9), cfg))
+apply_freeze(model, "adapter")
+model.quantize_frozen_()
+os.environ["AGACS_W8A16"] = "interpret"
+audio = np.random.RandomState(0).randn(2, 16000).astype(np.float32) * 0.1
+out = Speech2Text(model, ASRModelConfig(whisper=cfg), max_steps=4)(audio)
+assert [r.tokens[:5] for r in out] == [[50258, 50260, 50259, 50359, 50363]] * 2
+model = int8_serve.quantize_for_serving(
+    tw.Whisper.from_state_dict(cfg, tw.init_whisper_params(torch.Generator().manual_seed(9), cfg)))
+for env in ("interpret", "0"):
+    os.environ["AGACS_W8A16"] = env
+    out = Speech2Text(model, ASRModelConfig(whisper=cfg), beam_size=2, max_steps=4)(audio)
+    assert all(r.tokens[:5] == [50258, 50260, 50259, 50359, 50363] for r in out)
+del os.environ["AGACS_W8A16"]
+assert int8_serve.LAUNCHES == 0 and model.decoder.logits_w_q.dtype == torch.int8
+
+# the ladder side network (d_head 48): greedy and beam, and a sidenetwork
+# train step
+cfg = tw.make_config("test", side_network=tw.SideNetworkConfig(96, 2, (0, 1)))
+model = tw.Whisper.from_state_dict(cfg, tw.init_whisper_params(torch.Generator().manual_seed(10), cfg))
+for beam in (1, 3):
+    out = Speech2Text(model, ASRModelConfig(whisper=cfg), beam_size=beam, max_steps=4)(audio)
+    assert all(r.tokens[:5] == [50258, 50260, 50259, 50359, 50363] for r in out)
+opt, sched = build_optimizer(apply_freeze(model, "sidenetwork"), OptimConfig())
+stats = make_train_step(model, ASRModelConfig(whisper=cfg, cs_weight=0.5), opt, sched,
+                        generator=torch.Generator().manual_seed(0))([batch])
+assert torch.isfinite(stats["loss"]) and float(stats["grad_norm"]) > 0
+assert decode_attn.D48_LAUNCHES == 0
 
 # the conformer recipe's serving: encode (K5's path in bf16), CTC log-probs,
 # the joint beam with the LM (float32 caches), the decode and score CLIs
@@ -309,6 +341,11 @@ def test_wrappers_never_fall_back_off_cpu():
     with pytest.raises(ValueError):
         int8_linear.int8_matmul(x[0], w_q, s)
     with pytest.raises(ValueError):
+        int8_serve.w8a16_matmul(x[0], w_q, s)
+    with pytest.raises(ValueError):
+        decode_attn.decode_cache_attention(x[:, 0, :96], x[..., :96].contiguous(),
+                                           x[..., :96].contiguous(), 3, 2)
+    with pytest.raises(ValueError):
         int8_linear.int8_gemm(xq, torch.empty(32, 1, device="meta"), w_q, s)
     with pytest.raises(ValueError):
         int8_mlp.int8_mlp(x[0], w_q, s, s, w_q.t(), s[:128], s[:128])
@@ -339,7 +376,7 @@ def test_wrappers_never_fall_back_off_cpu():
 
 DECODE_COUNTERS = ("LAUNCHES", "ANC_LAUNCHES", "PE_LAUNCHES", "ANC_PE_LAUNCHES",
                    "I8_LAUNCHES", "ANC_I8_LAUNCHES", "SHARED_LAUNCHES", "SHARED_I8_LAUNCHES",
-                   "F32_LAUNCHES")
+                   "F32_LAUNCHES", "D48_LAUNCHES")
 
 
 def test_launch_counters_stay_zero_on_cpu():
@@ -348,6 +385,7 @@ def test_launch_counters_stay_zero_on_cpu():
         setattr(decode_attn, name, 0)
     int8_linear.QUANT_LAUNCHES = int8_linear.LAUNCHES = int8_linear.DGRAD_LAUNCHES = 0
     int8_mlp.FWD_LAUNCHES = int8_mlp.BWD_LAUNCHES = 0
+    int8_serve.LAUNCHES = 0
     relpos_flash.LAUNCHES = relpos_flash.BWD_LAUNCHES = 0
     vocab_lse.FWD_LAUNCHES = vocab_lse.DX_LAUNCHES = vocab_lse.DW_LAUNCHES = 0
     cfg = tw.make_config("test", adapter=True)
@@ -364,6 +402,11 @@ def test_launch_counters_stay_zero_on_cpu():
         cfg, tw.init_whisper_params(torch.Generator().manual_seed(2), cfg))
     for beam in (1, 3):
         Speech2Text(model, ASRModelConfig(whisper=cfg), beam_size=beam, max_steps=3)(audio)
+    cfg = tw.make_config("test", side_network=tw.SideNetworkConfig(96, 2, (0, 1)))
+    model = int8_serve.quantize_for_serving(tw.Whisper.from_state_dict(
+        cfg, tw.init_whisper_params(torch.Generator().manual_seed(3), cfg)))
+    Speech2Text(model, ASRModelConfig(whisper=cfg), max_steps=3)(audio)
+    assert int8_serve.LAUNCHES == 0
     assert flash_train.LAUNCHES == 0 and flash_train.BWD_LAUNCHES == 0
     assert all(getattr(decode_attn, name) == 0 for name in DECODE_COUNTERS)
     assert int8_linear.QUANT_LAUNCHES == int8_linear.LAUNCHES == 0
@@ -434,7 +477,7 @@ def test_ctc_lattice_does_not_use_torch_ctc_loss():
 
 
 @pytest.mark.parametrize("kernel", ["K3a", "K3s", "K3-PE", "K3-int8", "K3s-int8", "K3-f32",
-                                    "K5", "K5 backward", "K4"])
+                                    "K5", "K5 backward", "K4", "K6", "K3 d_head 48"])
 def test_cuda_request_to_a_beam_kernel_without_a_card_raises(kernel):
     """A CUDA-device request never falls back to the plain version: on a
     machine without a card it raises before anything runs."""
@@ -466,30 +509,13 @@ def test_cuda_request_to_a_beam_kernel_without_a_card_raises(kernel):
         elif kernel == "K4":
             x = torch.zeros(8, 128, dtype=torch.bfloat16, device="cuda")
             vocab_lse.streaming_lse(x, x.t().contiguous(), torch.zeros(8, device="cuda"))
+        elif kernel == "K6":
+            int8_serve.w8a16_matmul(q, torch.zeros(128, 512, dtype=torch.int8, device="cuda"),
+                                    torch.ones(512, device="cuda"))
+        elif kernel == "K3 d_head 48":
+            decode_attn.decode_cache_attention(q[:, :96], kv[..., :96], kv[..., :96], 3, 2)
         else:
             decode_attn.decode_shared_cache_attention(q, kv[:2], kv[:2], 3, 2, 3)
-
-
-@pytest.mark.parametrize("flags", [dict(side_network=tw.SideNetworkConfig())])
-def test_unported_model_configs_raise(flags):
-    with pytest.raises(NotImplementedError):
-        tw.Whisper(tw.make_config("test", **flags))
-
-
-@pytest.mark.parametrize("leaf", ["serving_int8", "token_emb_q", "logits_w_q"])
-def test_unported_checkpoints_raise(leaf):
-    cfg = jw.make_config("test")
-    tree = jax.tree.map(np.asarray, jw.init_whisper_params(jax.random.PRNGKey(0), cfg))
-    if leaf == "serving_int8":  # quantize_for_serving: an int8 trunk AND an int8 head
-        tree["encoder"]["blocks"]["mlp"]["fc1"] = {
-            "w_q": np.zeros((2, 64, 256), np.int8), "w_s": np.ones((2, 256)),
-            "b": np.zeros((2, 256))}
-        tree["decoder"]["token_emb_q"] = np.zeros((4, 64), np.int8)
-        tree["decoder"]["logits_w_q"] = np.zeros((64, 4), np.int8)
-    else:
-        tree["decoder"][leaf] = np.zeros((4, 64), np.int8)
-    with pytest.raises(NotImplementedError):
-        params_from_numpy(tree, tw.make_config("test"))
 
 
 @pytest.mark.parametrize("kw", [dict(beam_size=2, ctc_weight=0.3), dict(ctc_weight=0.3),
