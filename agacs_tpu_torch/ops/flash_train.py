@@ -71,9 +71,9 @@ def packed_flash_mha_bwd_ref(
 
 
 def _check(what: str, n_head: int, **tensors) -> None:
+    """Raise on what the kernels do not take. The device comes last, so a
+    CPU test reaches every other check."""
     q = tensors["q"]
-    if q.device.type != "cuda":
-        raise ValueError(f"{what}: unsupported device {q.device}")
     d = q.shape[-1]
     for name, x in tensors.items():
         if x.shape != q.shape or x.device != q.device:
@@ -88,6 +88,8 @@ def _check(what: str, n_head: int, **tensors) -> None:
     if d != n_head * D_HEAD:
         raise ValueError(f"{what}: d_model {d} != {n_head} heads x {D_HEAD}; "
                          f"the kernel takes d_head = {D_HEAD}")
+    if q.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {q.device}")
 
 
 def _fwd_kernel(q, k, v, n_head: int, with_lse: bool):

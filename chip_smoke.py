@@ -193,6 +193,7 @@ import concurrent.futures
 import contextlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -223,6 +224,16 @@ K1B_RTOL = 2e-2
 # every p the backward recomputes by e^-x; 1e-3 holds that to 0.1%, 20x
 # inside K1B_RTOL (KERNEL_RTOL x max |lse| would allow ~0.1, a 10% scale).
 LSE_ATOL = 1e-3
+# K1's tail shapes in phases 2 and 2b, under the same bounds: one ragged
+# 64-row tile (37), exactly one (64), one row past a 128-row tile (129),
+# and the CLI phases' utterances (200); at B = 2. K1_DEEP runs once more
+# with q and k means of -4 and +4 and a std of 0.5: every score of a row
+# sits near -128 (std ~2.8), so exp(-lse) overflows float32 and a key past
+# T that a kernel failed to mask (TMA fills it with zeros, so it scores 0)
+# would carry an infinite or dominant weight.
+K1_TAILS = ((2, 37), (2, 64), (2, 129), (2, 200))
+K1_DEEP = (2, 129)
+K1_DEEP_QK = {"shift": 4.0, "std": 0.5}
 # card (bf16 weights and activations) vs CPU (float32): bf16 rounding
 # (~4e-3 relative per op) accumulated through 12 residual layers.
 ENC_REL_L2 = 5e-2
@@ -349,15 +360,16 @@ def rel_l2(a, b) -> float:
     return ((a - b).norm() / b.norm()).item()
 
 
-def sharp_qkv(g, dev, q_shape, kv_shape, q_scale=1.0):
+def sharp_qkv(g, dev, q_shape, kv_shape, q_scale=1.0, shift=1.0, std=1.5):
     """bf16 q, k, v on `dev` whose softmax is sharp and shifted: q and k
     have a std of 1.5 and means of -1 and +1 per channel, so the scaled
-    scores q.k/8 have a std of ~2.7 around ~-8; v is standard normal."""
+    scores q.k/8 have a std of ~2.7 around ~-8; v is standard normal.
+    `shift`, `std`: other means (-shift, +shift) and std of q and k."""
     def rnd(shape, mean, scale):
         x = torch.randn(*shape, generator=g) * scale + mean
         return x.to(dev, torch.bfloat16)
-    q = (rnd(q_shape, -1.0, 1.5).float() * q_scale).to(torch.bfloat16)
-    return q, rnd(kv_shape, 1.0, 1.5), rnd(kv_shape, 0.0, 1.0)
+    q = (rnd(q_shape, -shift, std).float() * q_scale).to(torch.bfloat16)
+    return q, rnd(kv_shape, shift, std), rnd(kv_shape, 0.0, 1.0)
 
 
 def hold(name, out, plain_f32, shape) -> float:
@@ -382,13 +394,28 @@ def sdpa_heads(x, h):
     return x.unflatten(-1, (h, -1)).transpose(1, 2)
 
 
+def k1_cases(big) -> list:
+    """K1's cases in phases 2 and 2b, (b, t, deep): the timed shapes `big`,
+    K1_TAILS, and K1_DEEP with deep inputs."""
+    return [(b, t, False) for b, t in (*big, *K1_TAILS)] + [(*K1_DEEP, True)]
+
+
+def k1_qkv(g, dev, b: int, t: int, deep: bool):
+    """sharp_qkv at (b, t, D); `deep`: the K1_DEEP inputs."""
+    return sharp_qkv(g, dev, (b, t, D), (b, t, D), **(K1_DEEP_QK if deep else {}))
+
+
 def check_k1(dev, g, timed=True) -> dict:
-    """Phase 2: K1 against its plain version; returns its err and times."""
+    """Phase 2: K1 against its plain version at the serving shapes (8, 750)
+    and (2, 1500) (timed), the tail shapes and the deep case; returns its
+    err and times."""
     from agacs_tpu_torch.ops import flash_train
 
+    big = ((8, 750), (2, 1500))
     res = {"err": 0.0}
-    for b, t in ((8, 750), (2, 1500)):
-        sets = [(*sharp_qkv(g, dev, (b, t, D), (b, t, D)), H) for _ in range(4)]
+    for b, t, deep in k1_cases(big):
+        clock = timed and (b, t) in big
+        sets = [(*k1_qkv(g, dev, b, t, deep), H) for _ in range(4 if clock else 1)]
         q, k, v, _ = sets[0]
         err = hold("K1", flash_train.packed_flash_mha(q, k, v, H),
                    flash_train.packed_flash_mha_ref(q.float(), k.float(),
@@ -396,13 +423,15 @@ def check_k1(dev, g, timed=True) -> dict:
         res["err"] = max(res["err"], err)
         if not timed:
             continue
-        ms = cuda_ms(flash_train.packed_flash_mha, sets, 20)
-        plain_ms = cuda_ms(flash_train.packed_flash_mha_ref, sets, 20)
-        if t == 750:
-            res.update(ms=ms, plain_ms=plain_ms)
-        print(f"phase 2 K1 packed_flash_fwd ({b}, {t}, {D}) H={H}: max_abs_err "
-              f"{err:.3e} (bound {KERNEL_RTOL} x max|plain f32|) kernel "
-              f"{ms:.4f} ms plain bf16 {plain_ms:.4f} ms", flush=True)
+        line = (f"phase 2 K1 packed_flash_fwd ({b}, {t}, {D}) H={H}{' deep' if deep else ''}: "
+                f"max_abs_err {err:.3e} (bound {KERNEL_RTOL} x max|plain f32|)")
+        if clock:
+            ms = cuda_ms(flash_train.packed_flash_mha, sets, 20)
+            plain_ms = cuda_ms(flash_train.packed_flash_mha_ref, sets, 20)
+            if t == 750:
+                res.update(ms=ms, plain_ms=plain_ms)
+            line += f" kernel {ms:.4f} ms plain bf16 {plain_ms:.4f} ms"
+        print(line, flush=True)
     return res
 
 
@@ -419,18 +448,22 @@ def lse_ref(q, k, n_head):
 
 def check_k1_train(dev, g, timed=True) -> tuple[dict, dict]:
     """Phase 2b: K1f as the training path launches it (with the lse rows)
-    and K1b, at the training shapes (16, 750, 768) and (2, 1500, 768).
-    K1f's o is held within KERNEL_RTOL of its plain version and its lse
-    within LSE_ATOL of the plain f32 log-sum-exp; K1b's dq, dk and dv each
-    within K1B_RTOL x its own max |plain|, the kernel and the plain version
-    reading the same bf16 q, k, v, do and K1f's o (and lse); plain versions
-    evaluated in float32. Returns (K1f's, K1b's) errors and times at
-    (16, 750, 768)."""
+    and K1b, at the training shapes (16, 750, 768) and (2, 1500, 768)
+    (timed), the tail shapes and the deep case. K1f's o is held within
+    KERNEL_RTOL of its plain version and its lse within LSE_ATOL of the
+    plain f32 log-sum-exp; K1b's dq, dk and dv each within K1B_RTOL x its
+    own max |plain|, the kernel and the plain version reading the same bf16
+    q, k, v, do and K1f's o (and lse); plain versions evaluated in float32.
+    A second K1b run on the same inputs must give bit-identical dq, dk, dv.
+    Returns (K1f's, K1b's) errors and times at (16, 750, 768)."""
     from agacs_tpu_torch.ops import flash_train
 
+    big = ((16, 750), (2, 1500))
     fwd, res = {"err": 0.0, "lse_err": 0.0}, {"err": 0.0}
-    for b, t in ((16, 750), (2, 1500)):
-        qkv = [sharp_qkv(g, dev, (b, t, D), (b, t, D)) for _ in range(4)]
+    for b, t, deep in k1_cases(big):
+        clock = timed and (b, t) in big
+        shape = f"({b}, {t}, {D}) H={H}{' deep' if deep else ''}"
+        qkv = [k1_qkv(g, dev, b, t, deep) for _ in range(4 if clock else 1)]
         q, k, v = qkv[0]
         o, lse = flash_train._fwd_kernel(q, k, v, H, with_lse=True)
         err = hold("K1f", o, flash_train.packed_flash_mha_ref(
@@ -439,10 +472,10 @@ def check_k1_train(dev, g, timed=True) -> tuple[dict, dict]:
         check(tuple(lse.shape) == (b, H, t) and lse_err <= LSE_ATOL,
               f"K1f lse ({b}, {H}, {t}): max_abs_err {lse_err} <= {LSE_ATOL}")
         fwd["err"], fwd["lse_err"] = max(fwd["err"], err), max(fwd["lse_err"], lse_err)
-        line = (f"phase 2b K1f packed_flash_fwd with lse ({b}, {t}, {D}) H={H}: o "
+        line = (f"phase 2b K1f packed_flash_fwd with lse {shape}: o "
                 f"max_abs_err {err:.3e} (bound {KERNEL_RTOL} x max|plain f32|), lse "
                 f"max_abs_err {lse_err:.3e} (bound {LSE_ATOL})")
-        if timed:
+        if clock:
             ms = cuda_ms(lambda q, k, v: flash_train._fwd_kernel(q, k, v, H, True),
                          qkv, 20)
             plain_ms = cuda_ms(
@@ -457,7 +490,8 @@ def check_k1_train(dev, g, timed=True) -> tuple[dict, dict]:
                 line += f" sdpa {lib:.4f} ms"
             line += (f" kernel {ms:.4f} ms plain (bf16 o, f32 lse) "
                      f"{plain_ms:.4f} ms")
-        print(line, flush=True)
+        if timed:
+            print(line, flush=True)
 
         sets = []
         for q, k, v in qkv:
@@ -466,6 +500,7 @@ def check_k1_train(dev, g, timed=True) -> tuple[dict, dict]:
             sets.append((q, k, v, o, lse, do, H))
         q, k, v, o, lse, do, _ = sets[0]
         grads = flash_train.packed_flash_mha_bwd(q, k, v, o, lse, do, H)
+        again = flash_train.packed_flash_mha_bwd(q, k, v, o, lse, do, H)
         plain = flash_train.packed_flash_mha_bwd_ref(
             q.float(), k.float(), v.float(), o.float(), do.float(), H)
         torch.cuda.synchronize()
@@ -474,13 +509,15 @@ def check_k1_train(dev, g, timed=True) -> tuple[dict, dict]:
             err = (out.float() - ref).abs().max().item()
             bound = K1B_RTOL * ref.abs().max().item()
             check(tuple(out.shape) == tuple(ref.shape) and err <= bound,
-                  f"K1b {name} ({b}, {t}, {D}): max_abs_err {err} <= {bound}")
+                  f"K1b {name} {shape}: max_abs_err {err} <= {bound}")
             errs.append(f"{name} {err:.3e} ({err / (bound / K1B_RTOL):.2e} of "
                         "max|plain|)")
             res["err"] = max(res["err"], err)
-        line = (f"phase 2b K1b packed_flash_bwd ({b}, {t}, {D}) H={H}: "
-                + ", ".join(errs) + f" (bound {K1B_RTOL} x max|plain f32|)")
-        if timed:
+        check(all(torch.equal(x, y) for x, y in zip(grads, again)),
+              f"K1b {shape}: two runs on the same inputs give bit-identical dq, dk, dv")
+        line = (f"phase 2b K1b packed_flash_bwd {shape}: " + ", ".join(errs)
+                + f" (bound {K1B_RTOL} x max|plain f32|), two runs bit-identical")
+        if clock:
             ms = cuda_ms(flash_train.packed_flash_mha_bwd, sets, 10)
             plain_ms = cuda_ms(
                 lambda q, k, v, o, lse, do, h:
@@ -500,7 +537,8 @@ def check_k1_train(dev, g, timed=True) -> tuple[dict, dict]:
                                    10 * b * H * t * t * 64, "bf16"))
                 line += f" sdpa backward {lib:.4f} ms"
             line += f" kernel {ms:.4f} ms plain bf16 {plain_ms:.4f} ms"
-        print(line, flush=True)
+        if timed:
+            print(line, flush=True)
     return fwd, res
 
 
@@ -2999,12 +3037,31 @@ def conformer_train_parity(sd, dev, batch) -> dict:
     return {"card": card, "control": control}
 
 
-# Broken copies of the int8 kernels and of K3's PE and int8 variants that
-# the checks must catch: name -> (source, [(text, replacement)], checks to
-# run). Built outside the checkout by `mutants()`.
+# Broken copies of the kernels that the checks must catch: name -> (source,
+# [(text, replacement)], checks to run). Built outside the checkout by
+# `mutants()`.
 MUTANTS = {
     "unmutated source": ("int8_gemm.cu", [], ("k8", "k2", "p15", "k3pe", "k3i8", "k5", "k5b",
-                                              "k4", "k6", "k3d48")),
+                                              "k4", "k6", "k3d48", "k1", "k1b")),
+    "K1f without the online rescale": (
+        "packed_flash_fwd.cu", [("const float a0 = hop::ex2((m0 - mx0) * C), a1 = hop::ex2((m1 - mx1) * C);",
+                                 "const float a0 = 1.f, a1 = 1.f;")], ("k1", "k1b")),
+    "K1f with the key tail unmasked (zero keys scoring 0)": (
+        "packed_flash_fwd.cu", [("if (k0 + BK > T) {  // the key tail",
+                                 "if (false) {  // the key tail")],
+        ("k1", "k1b")),
+    "K1f lse in log2 units": (
+        "packed_flash_fwd.cu", [("(half ? m1 : m0) * SCALE + logf(l)",
+                                 "(half ? m1 : m0) * C + log2f(l)")], ("k1b",)),
+    "K1b without the D term": (
+        "packed_flash_bwd.cu", [("return p * (dp - d);", "return p * dp;")], ("k1b",)),
+    "K1b dkdv with the last partial q tile dropped": (
+        "packed_flash_bwd.cu", [("const int n_q_tiles = (T + BS - 1) / BS;",
+                                 "const int n_q_tiles = T / BS;")], ("k1b",)),
+    "K1b dq with the key tail unmasked": (
+        "packed_flash_bwd.cu", [("if (k0 + BS > T) {  // the key tail",
+                                 "if (false) {  // the key tail")],
+        ("k1b",)),
     "K6 with its scale per row (w_s[k])": (
         "w8a16.cu", [("__fmul_rn((float)a8[j], sc[j])", "__fmul_rn((float)a8[j], w_s[ka % N])"),
                      ("__fmul_rn((float)b8[j], sc[j])",
@@ -3151,6 +3208,10 @@ def mutants(dev, only=()) -> None:
                     check_k6(dev, g, timed=False)
                 elif chk == "k3d48":
                     check_k3_d48(dev, g, timed=False)
+                elif chk == "k1":
+                    check_k1(dev, g, timed=False)
+                elif chk == "k1b":
+                    check_k1_train(dev, g, timed=False)
                 else:
                     if not state:
                         cfg = tw.make_config("small", adapter=True, adapter_encoder=True,
@@ -3167,6 +3228,33 @@ def mutants(dev, only=()) -> None:
     cuda_lib.CSRC, cuda_lib.BUILD_DIR = src, build
     cuda_lib._LIBS.clear()
     cuda_lib._FNS.clear()
+
+
+def demangled_kernel(mangled: str) -> str:
+    """The identifier of a mangled `..._kernel(...)` name: the part of it
+    that a length prefix of the mangling (the digits before it) spans."""
+    m = re.search(r"\w+?_kernel(?=E)", mangled)
+    s = m.group(0) if m else mangled
+    for j in range(1, len(s)):
+        if s[j - 1].isdigit() and not s[j].isdigit():
+            digits = re.search(r"\d+$", s[:j]).group()
+            if any(int(digits[i:]) == len(s) - j for i in range(len(digits))):
+                return s[j:]
+    return s
+
+
+def ptxas_entries(log: str) -> str:
+    """Each kernel of an `nvcc -Xptxas -v` log with its registers and spill
+    bytes, or 'cached build' when the log is empty."""
+    out, name, spill = [], "", ""
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            name = demangled_kernel(m.group(1))
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            spill = f"spill {m.group(1)}/{m.group(2)} bytes (stores/loads)"
+        elif m := re.search(r"Used (\d+) registers", line):
+            out.append(f"{name} {m.group(1)} registers, {spill}")
+    return ", ".join(out) or "cached build"
 
 
 def cli_data(root: str) -> tuple[str, int]:
@@ -3334,6 +3422,9 @@ def main() -> int:
     print(f"phase 1 device: {torch.cuda.get_device_name(0)} | {smi} | torch "
           f"{torch.__version__} cuda {torch.version.cuda} | kernels built in "
           f"{build_s:.2f} s | ptxas {ptxas or 'cached build'}", flush=True)
+    print("phase 1 K1 ptxas: " + "; ".join(
+        ptxas_entries(cuda_lib.BUILD_LOG.get(name, ""))
+        for name in ("packed_flash_fwd", "packed_flash_bwd")), flush=True)
 
     # 2-3s. each kernel against its plain version
     g = torch.Generator(device="cpu").manual_seed(0)

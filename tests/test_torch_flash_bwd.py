@@ -3,7 +3,7 @@ the CPU: the gradients through `PackedFlashMHA` (plain forward and plain
 backward on a CPU tensor) and `packed_flash_mha_bwd_ref` against
 `agacs_tpu.ops.flash_train.packed_flash_mha(..., interpret=True)`, whose
 custom VJP runs the Pallas backward kernels interpreted: `_bwd_kernel` at
-T = 200, `_bwd_kernel_qc` at T = 1100 (> MAX_T = 1024).
+T = 200, 129 and 750, `_bwd_kernel_qc` at T = 1100 (> MAX_T = 1024).
 
 Tolerances: bf16 inputs, the two sides round p, do·linv and ds to bf16 at
 the same points but sum in other orders, so a gradient element moves by a
@@ -33,10 +33,12 @@ def _inputs(shape, seed):
 
 
 def _jax_grads(q, k, v, do, h):
-    """JAX's packed kernel and its VJP, interpreted, on bf16 inputs."""
+    """JAX's packed kernel and its VJP, interpreted, on bf16 inputs: (o,
+    [dq, dk, dv])."""
     qj, kj, vj, doj = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, do))
     o, vjp = jax.vjp(lambda a, b, c: jft.packed_flash_mha(a, b, c, h, True), qj, kj, vj)
-    return [np.asarray(g.astype(jnp.float32)) for g in vjp(doj)]
+    return (np.asarray(o.astype(jnp.float32)),
+            [np.asarray(g.astype(jnp.float32)) for g in vjp(doj)])
 
 
 def _assert_close(out, ref, rtol):
@@ -46,11 +48,15 @@ def _assert_close(out, ref, rtol):
         assert err <= rtol * np.abs(b).max(), (name, err, np.abs(b).max())
 
 
-@pytest.mark.parametrize("b,t,d,h", [(1, 200, 384, 6), (1, 1100, 128, 2)])
+@pytest.mark.parametrize("b,t,d,h", [(1, 200, 384, 6), (1, 1100, 128, 2), (1, 129, 128, 2),
+                                     (1, 750, 128, 2)])
 def test_grads_match_jax_kernel(b, t, d, h):
-    """T = 200 takes `_bwd_kernel`, T = 1100 the q-chunked `_bwd_kernel_qc`."""
+    """T = 200, 129 and 750 take `_bwd_kernel`, T = 1100 the q-chunked
+    `_bwd_kernel_qc`; 129 is one row past the Hopper kernels' 128-row tile,
+    750 (5 x 128 + 110) the encoder's length. The forward output is held
+    too (2e-2 x max |JAX o|)."""
     q, k, v, do = _inputs((b, t, d), seed=t)
-    ref = _jax_grads(q, k, v, do, h)
+    ref_o, ref = _jax_grads(q, k, v, do, h)
 
     qt, kt, vt = (torch.from_numpy(x).to(torch.bfloat16).requires_grad_() for x in (q, k, v))
     dot = torch.from_numpy(do).to(torch.bfloat16)
@@ -59,6 +65,7 @@ def test_grads_match_jax_kernel(b, t, d, h):
     assert type(o.grad_fn).__name__ == "PackedFlashMHABackward"
     o.backward(dot)
     assert flash_train.LAUNCHES == 0 and flash_train.BWD_LAUNCHES == 0
+    assert np.abs(o.detach().float().numpy() - ref_o).max() <= 2e-2 * np.abs(ref_o).max()
     _assert_close((qt.grad, kt.grad, vt.grad), ref, rtol=2e-2)
 
     plain = flash_train.packed_flash_mha_bwd_ref(qt.detach(), kt.detach(), vt.detach(),

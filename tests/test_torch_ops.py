@@ -80,6 +80,50 @@ def test_packed_flash_plain_matches_einsum_ref_f32():
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
 
 
+@pytest.mark.parametrize("t", [129, 750])
+def test_packed_flash_function_matches_jax_kernel_bf16(t):
+    """The forward through `PackedFlashMHA` (inputs that need a gradient)
+    and without it, at the kernels' tile edges: 129 is one row past a
+    128-row tile, 750 the encoder's length (5 x 128 + 110)."""
+    b, d, h = 2, 128, 2
+    (qj, qt), (kj, kt), (vj, vt) = _qkv((b, t, d), bf16=True)
+    ref = _np(jax_packed(qj, kj, vj, h, True))
+    leaves = [x.clone().requires_grad_() for x in (qt, kt, vt)]
+    out = flash_train.packed_flash_mha(*leaves, h)
+    assert type(out.grad_fn).__name__ == "PackedFlashMHABackward"
+    assert out.dtype == torch.bfloat16 and out.shape == (b, t, d)
+    np.testing.assert_allclose(_np(out.detach()), ref, atol=2e-2)
+    np.testing.assert_allclose(_np(flash_train.packed_flash_mha(qt, kt, vt, h)), ref, atol=2e-2)
+
+
+@pytest.mark.parametrize("case", ["float32", "non_contiguous", "misaligned", "d_head_32",
+                                  "cpu"])
+def test_packed_flash_kernel_wrappers_refuse(case):
+    """K1f's and K1b's wrappers raise on what their kernels do not take:
+    a non-bf16, non-contiguous or misaligned tensor, d_head != 64, and (on
+    a tensor that passes the rest) a device other than the card."""
+    b, t, h = 1, 8, 2
+    x = torch.zeros(b, t, h * 64, dtype=torch.bfloat16)
+    match = "unsupported device"
+    if case == "float32":
+        x, match = x.float(), "the kernel takes bfloat16"
+    elif case == "non_contiguous":
+        x = torch.zeros(b, h * 64, t, dtype=torch.bfloat16).transpose(1, 2)
+        match = "contiguous and 16-byte aligned"
+    elif case == "misaligned":
+        x = torch.zeros(b * t * h * 64 + 1, dtype=torch.bfloat16)[1:].view(b, t, h * 64)
+        match = "contiguous and 16-byte aligned"
+    elif case == "d_head_32":
+        h, match = 4, "the kernel takes d_head = 64"
+    lse = torch.zeros(b, h, t)
+    flash_train.LAUNCHES = flash_train.BWD_LAUNCHES = 0
+    with pytest.raises(ValueError, match=match):
+        flash_train._fwd_kernel(x, x, x, h, with_lse=True)
+    with pytest.raises(ValueError, match=match):
+        flash_train.packed_flash_mha_bwd(x, x, x, x, lse, x, h)
+    assert flash_train.LAUNCHES == 0 and flash_train.BWD_LAUNCHES == 0
+
+
 @pytest.mark.parametrize("bf16,atol", [(False, 1e-5), (True, 2e-2)])
 @pytest.mark.parametrize("pos", [0, 9, 37, 63])
 def test_decode_attention_plain_matches_jax(bf16, atol, pos):
