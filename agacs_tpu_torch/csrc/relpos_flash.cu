@@ -1,8 +1,9 @@
 // K5: Transformer-XL relative-position multi-head attention, forward and
 // backward (sm_90a).
 //
-// Replaces the TPU kernel `_fwd_kernel` of agacs_tpu/ops/relpos_flash.py
-// (`relpos_mha` -> `_fwd_pallas`), the conformer encoder's rel-pos
+// Replaces the TPU kernels `_fwd_kernel` and `_bwd_kernel` of
+// agacs_tpu/ops/relpos_flash.py (`relpos_mha` -> `_fwd_pallas`, and its
+// custom VJP -> `_bwd_pallas`), the conformer encoder's rel-pos
 // self-attention. Same function: per head h, with qu = q + pos_bias_u and
 // qv = q + pos_bias_v given,
 //
@@ -13,210 +14,333 @@
 // value product with float32 accumulation, and the division by the row sum
 // at the end. pe holds the projected positions T-1 .. -(T-1) in rows
 // 0 .. 2T-2; rows from 2T-1 on (the JAX padding to a multiple of 128) are
-// never read.
+// never read. Under autograd the forward also writes each row's float32
+// max m (in the units of s) and sum l, (B, H, T), which the backward reads.
 //
-// What bounds it here: at the recipe's shape (B=8, T=468, 4 heads of 64) a
-// call is 3 products of 2*B*H*T*T*64 = 3.6 GFLOP against ~10 MB of
-// qu/qv/k/v/pe/mask/o, so the tensor cores bound it, not HBM. The TPU
-// kernel held a head's whole (T, T) content scores and (T, Wp) position
-// scores in VMEM and realigned the position scores with a strided lane
-// rotate, because Mosaic has no per-row gather (relpos_flash.py:94-145).
-// A Hopper SM has 227 KB of shared memory, so this kernel streams 64-key
-// tiles with an online softmax (running f32 max and sum per row), as K1f
-// (packed_flash_fwd.cu) does, and turns the shift into an index: for the
-// 64 queries q0.. and 64 keys k0.. of a tile, the position scores needed
-// are qv_tile . pe[p0 .. p0+126]^T with p0 = T-1-(q0+63)+k0, and
-// bd[q, j] = P[q, 63-(q-q0)+(j-k0)]. A warp owns 16 query rows, whose
-// columns of P span 16+63 = 79, so each warp computes a (16, 80) block of
-// P from its own 80 rows of the block's 128-row pe tile. The streaming
-// reorders the f32 sums relative to the TPU's whole-row softmax, which
-// with the bf16 cast of p is why it is compared with its plain version
-// under a tolerance.
+// What bounds it here: at the recipe's serving shape (B=8, T=468, 4 heads
+// of 64) the forward is 3 products of 2*B*H*T*T*64 (2.7 GFLOP) against
+// ~10 MB of qu/qv/k/v/pe/mask/o, and the backward at the training shape
+// (B=16) 8 such products (14.4 GFLOP) against ~40 MB: the tensor cores
+// bound both, not HBM.
 //
-// Design: one block of 4 warps per (64-query tile, head, batch row),
-// reading qu/qv/k/v straight from the packed (B, T, H*64) layout at column
-// h*64 with 16-byte loads; the three products are bf16 tensor-core tiles
-// (nvcuda::wmma 16x16x16, f32 accumulation); each pair of lanes runs the
-// softmax of one row. Keys past T get -inf; pe rows outside 0 .. 2T-2
-// (only ever read for padded query rows q >= T or padded keys j >= T) are
-// loaded as zeros. wgmma, TMA and a deeper pipeline are later work. Under
-// autograd the forward also writes each row's float32 max m and sum l
-// (B, H, T), which the backward reads (see `relpos_flash_bwd` below).
+// The TPU kernel held a head's whole (T, T) content scores and (T, Wp)
+// position scores in VMEM and realigned the position scores with a strided
+// lane rotate, because Mosaic has no per-row gather. A Hopper SM has 227 KB
+// of shared memory, so these kernels stream 64-key (or 64-query) tiles with
+// an online softmax and turn the shift into an index:
+//
+// The position block. For the 64 query rows qa.. of a warpgroup and the
+// 64 keys k0.. of a tile, every pe row a (q, j) pair reads lies in the
+// 128-row window from T-1-(qa+63)+k0, so Pw = Qv . window^T is a 64 x 128
+// wgmma product (two m64n64 halves), and bd[q, j] = Pw[r, 63-r+c] with
+// r = q-qa, c = j-k0. The shift moves values between threads, so each
+// warp stages the 80 columns of Pw its own 16 rows read (48-16w .. 127-16w)
+// in float32 in shared memory, row stride PL = 88 floats (float2 stores
+// without bank conflicts), and reads them back at the shifted column. bd
+// stays float32 as JAX adds it.
+//
+// The pe tensor map is 2D over (H*64 columns, 2T-1 rows): its row extent
+// ends at 2T-1, not at pe's own rows, so the JAX padding rows read as
+// zeros whatever they hold, and a box that starts at a negative row (the
+// last query tile's window) is zero-filled before row 0. Only padded
+// queries or keys ever read such rows.
+//
+// Forward: one block per (128 query rows, head, batch row): two consumer
+// warpgroups of 64 rows each and a producer warp. The producer loads the
+// block's qu and qv once and streams 64-key k and v tiles, the 192-row pe
+// tile that holds both warpgroups' windows, and the tile's mask strip,
+// through a 2-stage ring (TMA, full/empty mbarriers). A warpgroup computes
+// and stages the position block, then S = Qu K^T, adds the shifted block,
+// masks, and runs the online softmax on the accumulator
+// registers (quad shuffles, ex2 with log2 e folded in), packs p to bf16 as
+// the register A operand of O += P V (v read MN-major). Keys past T (TMA
+// zero-fills them, which would score bd * 0.125 + 0) get -inf by index
+// before the max.
+//
+// Registers: three warpgroups leave 168 a thread; the producer warpgroup
+// hands registers to the consumers at the start (setmaxnreg: 56 a producer
+// thread, 224 a consumer thread). ptxas still reports 168 for every kernel
+// here, and the dq pass spills (chip_smoke.py's phase 1 prints both).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int DH = 64;        // head width
-constexpr int BQ = 64;        // query rows per block
-constexpr int BK = 64;        // keys per tile
-constexpr int WARPS = 4;      // each warp owns 16 query rows
-constexpr int THREADS = WARPS * 32;
-constexpr int PW = BQ + BK;   // pe rows a tile reads (127 used)
-constexpr int PC = 80;        // columns of P one warp computes (79 used)
-constexpr int SLD = BK + 4;   // f32 score-row stride
-constexpr int QLD = PC + 4;   // f32 position-score-row stride
-constexpr int PLD = BK + 8;   // bf16 p-row stride
+constexpr int DH = 64;                 // head width
+constexpr int BR = 128;                // rows a block owns (queries, or keys in dkdv)
+constexpr int BS = 64;                 // rows per streamed tile (keys, or queries in dkdv)
+constexpr int PR = 192;                // pe rows a tile reads: both warpgroups' windows
+constexpr int THREADS = 3 * 128;       // two consumer warpgroups, a producer warpgroup
+constexpr int PL = 88;                 // f32 row stride of a staged position block
+constexpr int OWN = BR * DH * 2;       // bytes of a 128-row tile
+constexpr int STR = BS * DH * 2;       // bytes of a 64-row tile
+constexpr int PEB = PR * DH * 2;       // bytes of a pe tile
+constexpr float SCALE = 0.125f;        // 64^-0.5
+constexpr float LOG2E = 1.4426950408889634f;
 
-struct Smem {
-  bf16 qu[BQ * DH];
-  bf16 qv[BQ * DH];
-  bf16 k[BK * DH];
-  bf16 v[BK * DH];
-  bf16 pe[PW * DH];
-  float s[WARPS][16 * SLD];    // content scores, then the P.V tile
-  float pos[WARPS][16 * QLD];  // position scores
-  bf16 p[WARPS][16 * PLD];
+// Stage the columns [48-16w, 128-16w) of one 64 x 64 half (columns c0 ..
+// c0+63) of a warpgroup's position block: row r of warp w at
+// pw[r * PL + col - (48 - 16w)]. The test on the 8-column block is the
+// same for the whole warp.
+__device__ __forceinline__ void stage_half(float* pw, const float (&a)[32], int c0) {
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 32; i += 2) {
+    const int x = c0 + 8 * (i >> 2) - 48 + 16 * warp;
+    if (x >= 0 && x < 80) {
+      const int r = 16 * warp + g + 8 * ((i >> 1) & 1);
+      *reinterpret_cast<float2*>(pw + r * PL + x + 2 * t) = make_float2(a[i], a[i + 1]);
+    }
+  }
+}
+
+// Both halves of the position block Pw = Qv . window^T (qv: the
+// warpgroup's 64 rows, K-major; window: 128 pe rows, K-major) into the
+// staging buffer. Issued and waited here, so only 32 accumulators live.
+__device__ __forceinline__ void position_block(float* pw, uint64_t qvd, uint64_t wd) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    float a[32];
+    hop::wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc)
+      hop::wgmma_ss_n64(a, qvd + 2 * kc, wd + half * (64 * 128 >> 4) + 2 * kc, kc);
+    hop::wgmma_commit();
+    hop::wgmma_wait();
+    hop::fence_regs(a);
+    stage_half(pw, a, 64 * half);
+  }
+}
+
+// The shifted position score of accumulator element i of this thread (row
+// r = 16w + g (+8), key column c): Pw[r, 63-r+c] from the staging buffer.
+__device__ __forceinline__ float shifted(const float* pw, int i) {
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int r = (lane >> 2) + 8 * ((i >> 1) & 1);  // the row within the warp's 16
+  const int c = 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+  return pw[(16 * warp + r) * PL + 15 - r + c];
+}
+
+// The 3D tile maps and the pe map of the forward and the dq pass: the
+// block's own 128 query rows, the streamed 64-key tiles and the pe tile.
+struct QMaps {
+  CUtensorMap own[3];  // fwd: qu, qv; dq: qu, qv, do
+  CUtensorMap k, v, pe;
 };
 
-// Copy rows [row0, row0 + nrows) x 64 columns of a row-major matrix with
-// leading dimension ld into a dense (nrows, 64) tile; rows outside [lo, hi)
-// are zero (row0 may be negative).
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int row0, int nrows,
-                                          int lo, int hi, int ld) {
-  for (int i = threadIdx.x; i < nrows * 8; i += THREADS) {
-    const int r = i >> 3, c = (i & 7) * 8, row = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row >= lo && row < hi)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)row * ld + c);
-    *reinterpret_cast<uint4*>(dst + r * DH + c) = val;
-  }
-}
+struct SmemF {
+  alignas(1024) bf16 qu[BR * DH];
+  alignas(1024) bf16 qv[BR * DH];
+  alignas(1024) bf16 k[3][BS * DH];
+  alignas(1024) bf16 v[3][BS * DH];
+  alignas(1024) bf16 pe[3][PR * DH];
+  float pw[2][64 * PL];  // each warpgroup's staged position block
+  float mask[3][BS];     // the key tile's mask strip
+  uint64_t own_full, full[3], empty[3];
+  static constexpr bool kTma = false;
+};
 
-// out (16 x 16*NT, f32, row stride ldo) = a (16 x 64, row-major) . b^T,
-// b holding 16*NT rows of 64 (so read column-major).
-template <int NT>
-__device__ __forceinline__ void rows_dot(float* out, int ldo, const bf16* a, const bf16* b) {
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> sf;
-    wmma::fill_fragment(sf, 0.f);
-#pragma unroll
-    for (int kt = 0; kt < 4; ++kt) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bfr;
-      wmma::load_matrix_sync(af, a + kt * 16, DH);
-      wmma::load_matrix_sync(bfr, b + nt * 16 * DH + kt * 16, DH);
-      wmma::mma_sync(sf, af, bfr, sf);
+// The producer of the forward and the dq pass (one warp): the block's own
+// tiles, then for every 64-key tile its k, v, pe tile (from row
+// T-1-(q0+127)+k0) and mask strip (lane 0 issues the copies, every lane
+// stores two mask values and arrives).
+template <int ST, class S>
+__device__ __forceinline__ void produce_keys(S& sm, const QMaps& mp, bf16* const* own,
+                                             int n_own, const float* mask, int T) {
+  const int lane = threadIdx.x & 31, c = blockIdx.y * DH, b = blockIdx.z;
+  const int q0 = blockIdx.x * BR, n_tiles = (T + BS - 1) / BS;
+  if (lane == 0) {
+    hop::mbar_expect_tx(&sm.own_full, n_own * OWN);
+    for (int i = 0; i < n_own; ++i) hop::tma_load(own[i], &mp.own[i], &sm.own_full, c, q0, b);
+  }
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % ST, k0 = it * BS;
+    hop::mbar_wait(&sm.empty[s], ((it / ST) & 1) ^ 1);
+    for (int i = lane; i < BS; i += 32)
+      sm.mask[s][i] = k0 + i < T ? mask[(size_t)b * T + k0 + i] : 0.f;
+    if (lane == 0) {
+      hop::mbar_expect_tx(&sm.full[s], 2 * STR + PEB);
+      hop::tma_load(sm.k[s], &mp.k, &sm.full[s], c, k0, b);
+      hop::tma_load(sm.v[s], &mp.v, &sm.full[s], c, k0, b);
+      hop::tma_load_2d(sm.pe[s], &mp.pe, &sm.full[s], c, T - 1 - (q0 + BR - 1) + k0);
+    } else {
+      hop::mbar_arrive(&sm.full[s]);
     }
-    wmma::store_matrix_sync(out + nt * 16, sf, ldo, wmma::mem_row_major);
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-relpos_flash_fwd_kernel(const bf16* __restrict__ qu, const bf16* __restrict__ qv,
-                        const bf16* __restrict__ k, const bf16* __restrict__ v,
-                        const bf16* __restrict__ pe, const float* __restrict__ mask,
+// The 1024-byte aligned shared storage, its barriers initialised (`tma`,
+// where a kernel has it: the streamed copies, which its producer waits for).
+template <class S, int ST>
+__device__ __forceinline__ S& setup(unsigned char* raw) {
+  S& sm = *reinterpret_cast<S*>((reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
+  if (threadIdx.x == 0) {
+    hop::mbar_init(&sm.own_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      hop::mbar_init(&sm.full[s], 32);  // the producer warp's lanes
+      hop::mbar_init(&sm.empty[s], 8);  // one arrival per consumer warp
+      if constexpr (S::kTma) hop::mbar_init(&sm.tma[s], 1);
+    }
+    hop::mbar_fence_init();
+  }
+  __syncthreads();
+  return sm;
+}
+
+// Store rows row0 and row0 + 8 (if < T) of a warp's accumulator, each
+// divided by its own value of `div` (1 for none).
+__device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[32], int row0,
+                                           int T, int D, float div0, float div1) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + 8 * half;
+    const float dv = half ? div1 : div0;
+    if (row < T) {
+      bf16* out = dst + (size_t)row * D + 2 * t;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) = __floats2bfloat162_rn(
+            acc[4 * j + 2 * half] / dv, acc[4 * j + 2 * half + 1] / dv);
+    }
+  }
+}
+
+constexpr int FST = 2;  // the forward's ring depth
+
+__global__ void __launch_bounds__(THREADS, 1)
+relpos_flash_fwd_kernel(const __grid_constant__ QMaps mp, const float* __restrict__ mask,
                         bf16* __restrict__ o, float* __restrict__ row_m,
-                        float* __restrict__ row_l, int T, int H, float scale) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int D = H * DH;
-  const int n_real = 2 * T - 1;  // pe rows of the positions T-1 .. -(T-1)
-  const size_t base = (size_t)b * T * D + (size_t)h * DH;
-  const float* mrow = mask + (size_t)b * T;
+                        float* __restrict__ row_l, int T, int H) {
+  extern __shared__ unsigned char smem_raw[];
+  SmemF& sm = setup<SmemF, FST>(smem_raw);
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * BR, h = blockIdx.y, b = blockIdx.z;
+  const int n_tiles = (T + BS - 1) / BS;
+  if (tid >= 256) {
+    hop::reg_dealloc<56>();
+    if (tid < 256 + 32) {
+      bf16* own[2] = {sm.qu, sm.qv};
+      produce_keys<FST>(sm, mp, own, 2, mask, T);
+    }
+    return;
+  }
+  hop::reg_alloc<224>();
 
-  load_rows(sm.qu, qu + base, q0, BQ, 0, T, D);
-  load_rows(sm.qv, qv + base, q0, BQ, 0, T, D);
-
-  const int r = lane >> 1;         // this lane's row within the warp's 16
-  const int c0 = (lane & 1) * 32;  // and its half of the 64 key columns
-  float* s_w = sm.s[warp];
-  float* pos_w = sm.pos[warp];
-  bf16* p_w = sm.p[warp];
-  const bf16* qu_w = sm.qu + warp * 16 * DH;
-  const bf16* qv_w = sm.qv + warp * 16 * DH;
-  // the warp's rows q0+16w+i need P columns 63-(16w+i)+(j-k0), i.e. tile
-  // rows 48-16w .. 127-16w: its column c reads tile row 48-16w+c
-  const bf16* pe_w = sm.pe + (48 - 16 * warp) * DH;
-  float m_i = -INFINITY, l_i = 0.f;
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31, t = lane & 3;
+  const uint64_t qud = hop::desc(sm.qu, wg * 64 * 128), qvd = hop::desc(sm.qv, wg * 64 * 128);
+  float* pw = sm.pw[wg];
   float acc[32];
 #pragma unroll
-  for (int j = 0; j < 32; ++j) acc[j] = 0.f;
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  // rows g and g + 8 of the warp's 16: running max of s, this lane's share of the sum
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  hop::mbar_wait(&sm.own_full, 0);
 
-  for (int k0 = 0; k0 < T; k0 += BK) {
-    __syncthreads();  // the previous tile's k/v/pe reads are done
-    load_rows(sm.k, k + base, k0, BK, 0, T, D);
-    load_rows(sm.v, v + base, k0, BK, 0, T, D);
-    // query q and key j read pe row T-1-q+j: p0 = T-1-(q0+63)+k0 is the
-    // least row the tile reads
-    const int p0 = T - 1 - (q0 + BQ - 1) + k0;
-    load_rows(sm.pe, pe + h * DH, p0, PW, 0, n_real, D);
-    __syncthreads();
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % FST, k0 = it * BS;
+    hop::mbar_wait(&sm.full[s], (it / FST) & 1);
 
-    rows_dot<BK / 16>(s_w, SLD, qu_w, sm.k);   // content scores (16 x 64)
-    rows_dot<PC / 16>(pos_w, QLD, qv_w, pe_w);  // position scores (16 x 80)
+    // The position block's halves (against the warpgroup's pe window, the
+    // tile's rows from 64 (1 - wg)) and S = qu k^T, issued together; each
+    // half is staged while the later products are in flight.
+    const uint64_t wd = hop::desc(sm.pe[s], (1 - wg) * 64 * 128);
+    float plo[32], phi[32], sc[32];
+    __syncwarp();
+    hop::wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) hop::wgmma_ss_n64(plo, qvd + 2 * kc, wd + 2 * kc, kc);
+    hop::wgmma_commit();
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc)
+      hop::wgmma_ss_n64(phi, qvd + 2 * kc, wd + (64 * 128 >> 4) + 2 * kc, kc);
+    hop::wgmma_commit();
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc)
+      hop::wgmma_ss_n64(sc, qud + 2 * kc, hop::desc(sm.k[s]) + 2 * kc, kc);
+    hop::wgmma_commit();
+    hop::wgmma_wait_n<2>();
+    hop::fence_regs(plo);
+    stage_half(pw, plo, 0);
+    hop::wgmma_wait_n<1>();
+    hop::fence_regs(phi);
+    stage_half(pw, phi, 64);
+    hop::wgmma_wait();
+    hop::fence_regs(sc);
     __syncwarp();
 
-    // online softmax over this tile for row r (two lanes per row); key
-    // column cj of row r takes position column 15 - r + cj
-    float sv[32];
-    float mx = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const int cj = c0 + j, key = k0 + cj;
-      float x = -INFINITY;
-      if (key < T)
-        x = (s_w[r * SLD + cj] + pos_w[r * QLD + 15 - r + cj]) * scale + mrow[key];
-      sv[j] = x;
-      mx = fmaxf(mx, x);
+    for (int i = 0; i < 32; ++i)
+      sc[i] = (sc[i] + shifted(pw, i)) * SCALE + sm.mask[s][8 * (i >> 2) + 2 * t + (i & 1)];
+    if (k0 + BS > T) {  // the key tail: zero-filled keys must not score bd * 0.125
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        if (k0 + 8 * (i >> 2) + 2 * t + (i & 1) >= T) sc[i] = -INFINITY;
     }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m_i, mx);  // finite: key 0 is always below T
-    const float alpha = expf(m_i - m_new);  // 0 on the first tile
-    float sum = 0.f;
+    float mx0 = m0, mx1 = m1;
 #pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const float e = expf(sv[j] - m_new);
-      sum += e;
-      p_w[r * PLD + c0 + j] = __float2bfloat16(e);
+    for (int i = 0; i < 32; ++i) {
+      if (i & 2) mx1 = fmaxf(mx1, sc[i]);
+      else mx0 = fmaxf(mx0, sc[i]);
     }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    l_i = l_i * alpha + sum;
-    m_i = m_new;
-    __syncwarp();
+#pragma unroll
+    for (int x = 1; x < 4; x <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
+    }
+    // finite: key 0 is in the first tile. The rescale is 0 on that tile.
+    const float a0 = hop::ex2((m0 - mx0) * LOG2E), a1 = hop::ex2((m1 - mx1) * LOG2E);
+    m0 = mx0;
+    m1 = mx1;
+    l0 *= a0;
+    l1 *= a1;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] *= (i & 2) ? a1 : a0;
 
-    // P.V (16 x 64) = p_w (bf16) . v, f32 accumulation, into s_w
+    // p = exp(s - m) into the bf16 A fragments of P.V
+    const float mc0 = m0 * LOG2E, mc1 = m1 * LOG2E;
+    uint32_t pa[16];
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> of;
-      wmma::fill_fragment(of, 0.f);
-#pragma unroll
-      for (int kt = 0; kt < 4; ++kt) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr;
-        wmma::load_matrix_sync(af, p_w + kt * 16, PLD);
-        wmma::load_matrix_sync(bfr, sm.v + kt * 16 * DH + nt * 16, DH);
-        wmma::mma_sync(of, af, bfr, of);
-      }
-      wmma::store_matrix_sync(s_w + nt * 16, of, SLD, wmma::mem_row_major);
+    for (int i = 0; i < 32; i += 2) {
+      const float mc = (i & 2) ? mc1 : mc0;
+      const float p0 = hop::ex2(fmaf(sc[i], LOG2E, -mc));
+      const float p1 = hop::ex2(fmaf(sc[i + 1], LOG2E, -mc));
+      if (i & 2) l1 += p0 + p1;
+      else l0 += p0 + p1;
+      pa[i >> 1] = hop::pack_bf16(p0, p1);
     }
-    __syncwarp();
+
+    // acc (64 x 64) += p (bf16) v
+    hop::wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < 32; ++j) acc[j] = acc[j] * alpha + s_w[r * SLD + c0 + j];
+    for (int kk = 0; kk < BS / 16; ++kk)
+      hop::wgmma_rs_n64_t(acc, &pa[4 * kk], hop::desc(sm.v[s], kk * 16 * 128));
+    hop::wgmma_commit();
+    hop::wgmma_wait();
+    hop::fence_regs(acc);
     __syncwarp();
+    if (lane == 0) hop::mbar_arrive(&sm.empty[s]);
   }
 
-  const int row = q0 + warp * 16 + r;
-  if (row < T) {
-    bf16* dst = o + base + (size_t)row * D + c0;
-    const float linv = 1.f / l_i;
 #pragma unroll
-    for (int j = 0; j < 32; j += 2)
-      *reinterpret_cast<__nv_bfloat162*>(dst + j) =
-          __floats2bfloat162_rn(acc[j] * linv, acc[j + 1] * linv);
-    if (row_m != nullptr && (lane & 1) == 0) {
-      const size_t at = ((size_t)b * H + h) * T + row;
-      row_m[at] = m_i;
-      row_l[at] = l_i;
+  for (int x = 1; x < 4; x <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, x);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, x);
+  }
+  const int D = H * DH, row0 = q0 + wg * 64 + warp * 16 + (lane >> 2);
+  store_rows(o + (size_t)b * T * D + (size_t)h * DH, acc, row0, T, D, l0, l1);
+  if (row_m != nullptr && t == 0) {
+    const size_t at = ((size_t)b * H + h) * T + row0;
+    if (row0 < T) {
+      row_m[at] = m0;
+      row_l[at] = l0;
+    }
+    if (row0 + 8 < T) {
+      row_m[at + 8] = m1;
+      row_l[at + 8] = l1;
     }
   }
 }
@@ -224,10 +348,9 @@ relpos_flash_fwd_kernel(const bf16* __restrict__ qu, const bf16* __restrict__ qv
 // ---------------------------------------------------------------------------
 // Backward
 //
-// Replaces the TPU kernel `_bwd_kernel` of agacs_tpu/ops/relpos_flash.py
-// (`relpos_mha`'s custom VJP -> `_bwd_pallas`). Same arithmetic as there
-// (:178-246), per head, with s recomputed as the forward computes it and
-// the forward's row max m and row sum l read back:
+// Same arithmetic as JAX's `_bwd_kernel` (relpos_flash.py:178-246), per
+// head, with s recomputed as the forward computes it and the forward's row
+// max m and row sum l read back:
 //
 //   p   = exp(s - m)                     unnormalised, f32
 //   dd  = rowsum(do * o)                 f32
@@ -238,344 +361,393 @@ relpos_flash_fwd_kernel(const bf16* __restrict__ qu, const bf16* __restrict__ qv
 //   dqv[q] = sum_j ds[q, j] pe[T-1-q+j]
 //   dpe[p] = sum_(b, q) ds[q, p-(T-1-q)] qv[q]    (float32 over the batch)
 //
-// What bounds it: at the training shape (B=16, T=468, 4 heads of 64) the
-// passes below run ~11 products of 2*B*H*T*T*64 (the two recomputed score
-// pairs, dp twice, dv, dk, dqu, dqv, dpe) = ~20 GFLOP against ~40 MB of
-// bf16 inputs and outputs, so the tensor cores bound it, not HBM.
-//
-// Design. The TPU kernel held a head's whole (T, T) and (T, Wp) score
-// blocks in VMEM and un-shifted the position-score gradient with a row
-// reversal and a strided lane rotate, because Mosaic cannot gather
-// (`_shift_bwd_rolled`, `_rev_matrix`). Here the un-shift is an index, as
-// the forward's shift is: for a 64 x 64 (query, key) tile the position
-// rows read are the 127 rows from p0 = T-1-(q0+63)+k0, and a warp owning
-// query rows q0+16w.. touches the 80 of them from tile row 48-16w, at
-// column 15-r+kj for its row r and key kj. Three passes, as K1b's
-// (packed_flash_bwd.cu), with nothing carried between blocks:
-//   (a) rowdot: dd = rowsum(do * o) (B, H, T), one warp per (row, head);
-//   (b) dkdv: one block per (64-key tile, head, batch row), looping over
-//       the query tiles; the position scores of the query tile are the
-//       forward's four (16, 80) warp blocks, read across warps after a
-//       block barrier, because here a warp owns keys;
-//   (c) dq: one block per (64-query tile, head, batch row), looping over
-//       the key tiles; each warp writes its ds rows twice, as a (16, 64)
-//       tile for dqu and shifted onto its 80 pe rows for dqv and dpe;
-//       dpe's per-tile (80, 64) products are summed into a 128-row float32
-//       band in shared memory (shared atomics, a lane per column so that
-//       a warp's 32 atomics hit 32 banks: the warps' rows overlap).
-//       The band slides with the key tile: after tile k0 its first 64 rows
-//       are final for this block and are added into the (Wp, D) float32
-//       dpe with global float32 atomics (every batch row and query tile
-//       adds into the same rows), the upper 64 move down. The caller zeroes
-//       dpe and casts it to pe's dtype.
-// Products are bf16 wmma 16x16x16 tiles with float32 accumulation. Keys
-// and queries past T get p = 0; pe rows outside 0 .. 2T-2 are loaded as
-// zeros and get no gradient.
+// The TPU kernel held a head's whole score blocks in VMEM and un-shifted
+// the position-score gradient with a row reversal and a strided lane
+// rotate. Here the un-shift is an index, as the forward's shift is, and
+// the work splits into three passes with nothing carried between blocks:
+//   (a) rowdot: dd (B, H, T), eight threads a (row, head), 16-byte loads;
+//   (b) dkdv: one block per (128 keys, head, batch row), two consumer
+//       warpgroups of 64 keys each, looping over 64-row query tiles with
+//       keys as wgmma's M: S^T = K Qu^T and dP^T = V dO^T. The position
+//       scores are the forward's block Pw for the query tile and the
+//       warpgroup's keys, staged whole and read transposed (a barrier of
+//       the warpgroup's four warps on each side, since a warp reads every
+//       staged row). The producer warp stages the tile's m (log2 units,
+//       +inf past T), 1/l and dd rows in shared memory and builds
+//       don = bf16(do / l) in shared memory from the do tile (the plain
+//       version rounds it per element), in the swizzled layout wgmma
+//       reads. dV += P^T don and dK += dS^T Qu take P^T and dS^T as
+//       register A operands, don and Qu MN-major.
+//   (c) dq: one block per (128 query rows, head, batch row), looping over
+//       64-key tiles: Pw, S and dP, then dS; dQu += dS K (register A);
+//       dS is also written shifted, dSh[r, 63-r+c] = dS[r, c], into a
+//       64 x 128 bf16 tile (two swizzled 64-column halves, zeroed once:
+//       the band a row writes is the same on every tile), so that
+//       dQv += dSh . window (window MN-major) and dpe's share of the
+//       window, dSh^T . Qv (both MN-major), are wgmma products.
+//       Consecutive key tiles' windows overlap by 64 rows, so the share of
+//       the lower 64 rows is added to the upper half of the previous tile
+//       in the accumulator registers and then added into the (Wp, D)
+//       float32 dpe with global float32 atomics (every batch row and query
+//       tile adds into the same rows); the caller zeroes dpe and casts it.
+// Both passes recompute s, the position block and dp: 15 products of
+// T^2 * 64 a head where the bound counts 8. dqu, dqv, dk and dv are
+// bit-identical from run to run; dpe's atomics sum in a varying order.
+// Keys past T get p = 0 in (c) by index; query rows past T get p = 0 in
+// (b) through m = +inf; rows past T are never stored.
 
-constexpr int DLD = PC + 8;  // bf16 stride of the shifted ds rows (80 used)
-
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
-
-// acc[nt] += a (16 x 16*KT bf16, stride lda) . b (16*KT x 64, stride DH).
-template <int KT>
-__device__ __forceinline__ void mm_ab_acc(Acc* acc, const bf16* a, int lda, const bf16* b) {
+// acc += a (the 64 x 64 bf16 A fragments) b, b a 64-row tile read MN-major:
+// issued, not committed.
+__device__ __forceinline__ void issue_ab(float (&acc)[32], const uint32_t (&a)[16],
+                                         const bf16* b) {
 #pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-    for (int kt = 0; kt < KT; ++kt) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr;
-      wmma::load_matrix_sync(af, a + kt * 16, lda);
-      wmma::load_matrix_sync(bfr, b + kt * 16 * DH + nt * 16, DH);
-      wmma::mma_sync(acc[nt], af, bfr, acc[nt]);
-    }
-  }
-}
-
-// Write a warp's 16 x 64 accumulator rows [row0, row0 + 16) of a packed
-// output (rows >= T skipped) through the f32 tile s_w.
-__device__ __forceinline__ void store_rows(bf16* dst, Acc* acc, float* s_w, int row0,
-                                           int T, int D) {
-  const int lane = threadIdx.x & 31, r = lane >> 1, c0 = (lane & 1) * 32;
-  __syncwarp();
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt)
-    wmma::store_matrix_sync(s_w + nt * 16, acc[nt], SLD, wmma::mem_row_major);
-  __syncwarp();
-  if (row0 + r < T) {
-    bf16* out = dst + (size_t)(row0 + r) * D + c0;
-#pragma unroll
-    for (int j = 0; j < 32; j += 2)
-      *reinterpret_cast<__nv_bfloat162*>(out + j) =
-          __floats2bfloat162_rn(s_w[r * SLD + c0 + j], s_w[r * SLD + c0 + j + 1]);
-  }
+  for (int kc = 0; kc < BS / 16; ++kc)
+    hop::wgmma_rs_n64_t(acc, &a[4 * kc], hop::desc(b, kc * 16 * 128));
 }
 
 // (a) dd[b, h, t] = sum over the head's 64 columns of do * o, in f32.
 __global__ void relpos_rowdot_kernel(const bf16* __restrict__ dout,
                                      const bf16* __restrict__ o, float* __restrict__ dd,
                                      int B, int T, int H) {
-  const int w = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (w >= B * T * H) return;
-  const int h = w % H, bt = w / H;  // bt = b * T + t
-  const size_t off = (size_t)bt * H * DH + (size_t)h * DH + lane * 2;
-  const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dout + off));
-  const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(o + off));
-  float sum = x.x * y.x + x.y * y.y;
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t w = i >> 3;  // the (row, head): b * T * H + t * H + h
+  const bool live = w < (size_t)B * T * H;
+  float sum = 0.f;
+  if (live) {
+    const uint4 x = *reinterpret_cast<const uint4*>(dout + i * 8);
+    const uint4 y = *reinterpret_cast<const uint4*>(o + i * 8);
+    const __nv_bfloat162* xa = reinterpret_cast<const __nv_bfloat162*>(&x);
+    const __nv_bfloat162* ya = reinterpret_cast<const __nv_bfloat162*>(&y);
 #pragma unroll
-  for (int m = 16; m > 0; m >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, m);
-  if (lane == 0) {
-    const int b = bt / T, t = bt % T;
-    dd[((size_t)b * H + h) * T + t] = sum;
+    for (int j = 0; j < 4; ++j) {
+      const float2 a = __bfloat1622float2(xa[j]), c = __bfloat1622float2(ya[j]);
+      sum += a.x * c.x + a.y * c.y;
+    }
+  }
+#pragma unroll
+  for (int m = 4; m > 0; m >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, m);
+  if (live && (i & 7) == 0) {
+    const int h = (int)(w % H);
+    const size_t bt = w / H;  // b * T + t
+    dd[((bt / T) * H + h) * T + bt % T] = sum;
   }
 }
 
-struct SmemDkdv {
-  bf16 k[BK * DH];  // the block's own keys
-  bf16 v[BK * DH];
-  bf16 qu[BQ * DH];  // the streamed query tile
-  bf16 qv[BQ * DH];
-  bf16 dout[BQ * DH];
-  bf16 don[BQ * DH];  // bf16(do / l)
-  bf16 pe[PW * DH];
-  float m[BQ], linv[BQ], dd[BQ];
-  float pos[WARPS][16 * QLD];  // the query tile's position scores, as the forward's
-  float s[WARPS][16 * SLD];
-  bf16 p[WARPS][16 * PLD];
-  bf16 ds[WARPS][16 * PLD];
+constexpr int BST = 2;  // the backward passes' ring depth
+
+struct KVMaps {
+  CUtensorMap k, v;            // the block's own 128 keys
+  CUtensorMap qu, qv, dout;    // 64-row query tiles
+  CUtensorMap pe;
 };
 
-// (b) dk, dv of one (64-key tile, head, batch row).
-__global__ void __launch_bounds__(THREADS)
-relpos_dkdv_kernel(const bf16* __restrict__ qu, const bf16* __restrict__ qv,
-                   const bf16* __restrict__ k, const bf16* __restrict__ v,
-                   const bf16* __restrict__ pe, const float* __restrict__ mask,
-                   const bf16* __restrict__ dout, const float* __restrict__ row_m,
-                   const float* __restrict__ row_l, const float* __restrict__ dd,
-                   bf16* __restrict__ dk, bf16* __restrict__ dv, int T, int H, float scale) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  SmemDkdv& sm = *reinterpret_cast<SmemDkdv*>(smem_raw);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int k0 = blockIdx.x * BK, h = blockIdx.y, b = blockIdx.z;
-  const int D = H * DH;
-  const int n_real = 2 * T - 1;
-  const size_t base = (size_t)b * T * D + (size_t)h * DH;
+struct SmemKV {
+  alignas(1024) bf16 k[BR * DH];
+  alignas(1024) bf16 v[BR * DH];
+  alignas(1024) bf16 qu[BST][BS * DH];
+  alignas(1024) bf16 qv[BST][BS * DH];
+  alignas(1024) bf16 dout[BST][BS * DH];
+  alignas(1024) bf16 don[BST][BS * DH];  // bf16(do / l), built by the producer
+  alignas(1024) bf16 pe[BST][PR * DH];
+  float pw[2][64 * PL];
+  float ml[BST][BS], linv[BST][BS], dd[BST][BS];  // the query tile's rows
+  uint64_t own_full, full[BST], empty[BST], tma[BST];
+  static constexpr bool kTma = true;
+};
+
+// (b) dk, dv of one (128 keys, head, batch row).
+__global__ void __launch_bounds__(THREADS, 1)
+relpos_dkdv_kernel(const __grid_constant__ KVMaps mp, const float* __restrict__ mask,
+                   const float* __restrict__ row_m, const float* __restrict__ row_l,
+                   const float* __restrict__ dd, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                   int T, int H) {
+  extern __shared__ unsigned char smem_raw[];
+  SmemKV& sm = setup<SmemKV, BST>(smem_raw);
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int k0 = blockIdx.x * BR, h = blockIdx.y, b = blockIdx.z, c = h * DH;
+  const int n_q_tiles = (T + BS - 1) / BS;
   const size_t bh = ((size_t)b * H + h) * T;
-
-  load_rows(sm.k, k + base, k0, BK, 0, T, D);
-  load_rows(sm.v, v + base, k0, BK, 0, T, D);
-
-  const int r = lane >> 1;         // this lane's key row within the warp's 16
-  const int c0 = (lane & 1) * 32;  // and its half of the tile's 64 query columns
-  const int key = k0 + warp * 16 + r;
-  const float kmask = key < T ? mask[(size_t)b * T + key] : 0.f;
-  float* s_w = sm.s[warp];
-  bf16* p_w = sm.p[warp];
-  bf16* ds_w = sm.ds[warp];
-  const bf16* k_w = sm.k + warp * 16 * DH;
-  const bf16* v_w = sm.v + warp * 16 * DH;
-
-  Acc dk_acc[4], dv_acc[4];
+  if (tid >= 256) {
+    hop::reg_dealloc<56>();
+    if (tid >= 256 + 32) return;
+    // The producer warp: the block's keys, then each query tile's rows,
+    // statistics and don.
+    if (lane == 0) {
+      hop::mbar_expect_tx(&sm.own_full, 2 * OWN);
+      hop::tma_load(sm.k, &mp.k, &sm.own_full, c, k0, b);
+      hop::tma_load(sm.v, &mp.v, &sm.own_full, c, k0, b);
+    }
+    for (int it = 0; it < n_q_tiles; ++it) {
+      const int s = it % BST, q0 = it * BS;
+      hop::mbar_wait(&sm.empty[s], ((it / BST) & 1) ^ 1);
+      for (int i = lane; i < BS; i += 32) {
+        const int q = q0 + i;
+        sm.ml[s][i] = q < T ? row_m[bh + q] * LOG2E : INFINITY;
+        sm.linv[s][i] = q < T ? 1.f / row_l[bh + q] : 0.f;
+        sm.dd[s][i] = q < T ? dd[bh + q] : 0.f;
+      }
+      if (lane == 0) {
+        hop::mbar_expect_tx(&sm.tma[s], 3 * STR + PEB);
+        hop::tma_load(sm.qu[s], &mp.qu, &sm.tma[s], c, q0, b);
+        hop::tma_load(sm.qv[s], &mp.qv, &sm.tma[s], c, q0, b);
+        hop::tma_load(sm.dout[s], &mp.dout, &sm.tma[s], c, q0, b);
+        hop::tma_load_2d(sm.pe[s], &mp.pe, &sm.tma[s], c, T - 1 - (q0 + BS - 1) + k0);
+      }
+      hop::mbar_wait(&sm.tma[s], (it / BST) & 1);
+      __syncwarp();
+      // don: a 16-byte chunk lies in one row (the swizzle moves chunks
+      // within their row), row = chunk / 8
+      const uint4* src = reinterpret_cast<const uint4*>(sm.dout[s]);
+      uint4* dst = reinterpret_cast<uint4*>(sm.don[s]);
+      for (int i = lane; i < BS * DH / 8; i += 32) {
+        const float li = sm.linv[s][i >> 3];
+        uint4 xv = src[i], yv;
+        const bf16* x = reinterpret_cast<const bf16*>(&xv);
+        bf16* y = reinterpret_cast<bf16*>(&yv);
 #pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    wmma::fill_fragment(dk_acc[nt], 0.f);
-    wmma::fill_fragment(dv_acc[nt], 0.f);
+        for (int e = 0; e < 8; ++e) y[e] = __float2bfloat16(__bfloat162float(x[e]) * li);
+        dst[i] = yv;
+      }
+      hop::fence_proxy_async();
+      hop::mbar_arrive(&sm.full[s]);
+    }
+    return;
+  }
+  hop::reg_alloc<224>();
+
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, t = lane & 3;
+  const int row0 = k0 + wg * 64 + warp * 16 + (lane >> 2);  // this thread's keys: row0, row0 + 8
+  const float km0 = row0 < T ? mask[(size_t)b * T + row0] : 0.f;
+  const float km1 = row0 + 8 < T ? mask[(size_t)b * T + row0 + 8] : 0.f;
+  const uint64_t kd = hop::desc(sm.k, wg * 64 * 128), vd = hop::desc(sm.v, wg * 64 * 128);
+  float* pw = sm.pw[wg];
+  float dk_acc[32], dv_acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  hop::mbar_wait(&sm.own_full, 0);
+
+  for (int it = 0; it < n_q_tiles; ++it) {
+    const int s = it % BST;
+    hop::mbar_wait(&sm.full[s], (it / BST) & 1);
+
+    // the query tile's position block against the warpgroup's window (the
+    // pe tile's rows from 64 wg), staged whole: a warp reads every row
+    hop::bar_sync(1 + wg, 128);
+    position_block(pw, hop::desc(sm.qv[s]), hop::desc(sm.pe[s], wg * 64 * 128));
+    hop::bar_sync(1 + wg, 128);
+
+    // S^T (64 keys x 64 q) = K Qu^T and dP^T = V dO^T
+    float st[32], dpt[32];
+    hop::wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) hop::wgmma_ss_n64(st, kd + 2 * kc, hop::desc(sm.qu[s]) + 2 * kc, kc);
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc)
+      hop::wgmma_ss_n64(dpt, vd + 2 * kc, hop::desc(sm.dout[s]) + 2 * kc, kc);
+    hop::wgmma_commit();
+    hop::wgmma_wait();
+    hop::fence_regs(st);
+    hop::fence_regs(dpt);
+
+    // P^T = exp(s - m), dS^T = P^T (dP^T - dd) / l * 0.125: bf16 A fragments.
+    // Key row j, query column q reads Pw[q, 63-q+j] at column 15-(q%16)+j.
+    uint32_t pa[16], dsa[16];
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int qc = 8 * (i >> 2) + 2 * t, jr = warp * 16 + (lane >> 2) + 8 * ((i >> 1) & 1);
+      const float km = (i & 2) ? km1 : km0;
+      const float* pr = pw + qc * PL + 15 - (qc & 15) + jr;
+      const float x0 = (st[i] + pr[0]) * SCALE + km;
+      const float x1 = (st[i + 1] + pr[PL - 1]) * SCALE + km;
+      const float p0 = hop::ex2(fmaf(x0, LOG2E, -sm.ml[s][qc]));
+      const float p1 = hop::ex2(fmaf(x1, LOG2E, -sm.ml[s][qc + 1]));
+      pa[i >> 1] = hop::pack_bf16(p0, p1);
+      dsa[i >> 1] = hop::pack_bf16(p0 * (dpt[i] - sm.dd[s][qc]) * (sm.linv[s][qc] * SCALE),
+                                   p1 * (dpt[i + 1] - sm.dd[s][qc + 1]) *
+                                       (sm.linv[s][qc + 1] * SCALE));
+    }
+
+    // dV += P^T don, dK += dS^T Qu (don and Qu read MN-major)
+    hop::wgmma_fence();
+    issue_ab(dv_acc, pa, sm.don[s]);
+    issue_ab(dk_acc, dsa, sm.qu[s]);
+    hop::wgmma_commit();
+    hop::wgmma_wait();
+    hop::fence_regs(dv_acc);
+    hop::fence_regs(dk_acc);
+    __syncwarp();
+    if (lane == 0) hop::mbar_arrive(&sm.empty[s]);
   }
 
-  for (int q0 = 0; q0 < T; q0 += BQ) {
-    __syncthreads();  // the previous query tile's reads are done
-    load_rows(sm.qu, qu + base, q0, BQ, 0, T, D);
-    load_rows(sm.qv, qv + base, q0, BQ, 0, T, D);
-    load_rows(sm.dout, dout + base, q0, BQ, 0, T, D);
-    const int p0 = T - 1 - (q0 + BQ - 1) + k0;
-    load_rows(sm.pe, pe + h * DH, p0, PW, 0, n_real, D);
-    if (tid < BQ) {
-      const int qi = q0 + tid;
-      sm.m[tid] = qi < T ? row_m[bh + qi] : 0.f;
-      sm.linv[tid] = qi < T ? 1.f / row_l[bh + qi] : 0.f;
-      sm.dd[tid] = qi < T ? dd[bh + qi] : 0.f;
-    }
-    __syncthreads();
-    for (int i = tid; i < BQ * DH; i += THREADS)
-      sm.don[i] = __float2bfloat16(__bfloat162float(sm.dout[i]) * sm.linv[i / DH]);
-    // the query rows 16w.. of the tile: their position scores against
-    // the 80 pe rows from tile row 48-16w (the forward's warp block)
-    rows_dot<PC / 16>(sm.pos[warp], QLD, sm.qv + warp * 16 * DH, sm.pe + (48 - 16 * warp) * DH);
-    rows_dot<BQ / 16>(s_w, SLD, k_w, sm.qu);  // content scores^T (16 keys x 64 q)
-    __syncthreads();  // every warp's position block and don are written
-
-    // query column c of key row r: position column 15-(c%16)+(key-k0) of
-    // the block of the warp that owns query row c
-    float pv[32];
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const int c = c0 + j;
-      const float x = (s_w[r * SLD + c] +
-                       sm.pos[c >> 4][(c & 15) * QLD + 15 - (c & 15) + warp * 16 + r]) * scale +
-                      kmask;
-      pv[j] = (q0 + c < T && key < T) ? expf(x - sm.m[c]) : 0.f;
-      p_w[r * PLD + c] = __float2bfloat16(pv[j]);
-    }
-    __syncwarp();
-    rows_dot<BQ / 16>(s_w, SLD, v_w, sm.dout);  // dp^T (16 keys x 64 q)
-    __syncwarp();
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const int c = c0 + j;
-      ds_w[r * PLD + c] =
-          __float2bfloat16(pv[j] * (s_w[r * SLD + c] - sm.dd[c]) * sm.linv[c] * scale);
-    }
-    __syncwarp();
-    mm_ab_acc<4>(dv_acc, p_w, PLD, sm.don);  // dv += p^T . (do / l)
-    mm_ab_acc<4>(dk_acc, ds_w, PLD, sm.qu);  // dk += ds^T . qu
-  }
-
-  store_rows(dk + base, dk_acc, s_w, k0 + warp * 16, T, D);
-  store_rows(dv + base, dv_acc, s_w, k0 + warp * 16, T, D);
+  const int D = H * DH;
+  const size_t base = (size_t)b * T * D + (size_t)h * DH;
+  store_rows(dk + base, dk_acc, row0, T, D, 1.f, 1.f);
+  store_rows(dv + base, dv_acc, row0, T, D, 1.f, 1.f);
 }
 
-struct SmemDq {
-  bf16 qu[BQ * DH];  // the block's own query rows
-  bf16 qv[BQ * DH];
-  bf16 dout[BQ * DH];
-  bf16 k[BK * DH];  // the streamed key tile
-  bf16 v[BK * DH];
-  bf16 pe[PW * DH];
-  float kmask[BK];
-  float pos[WARPS][16 * QLD];
-  float s[WARPS][16 * SLD];
-  bf16 ds[WARPS][16 * PLD];
-  bf16 dsh[WARPS][16 * DLD];  // ds shifted onto the warp's 80 pe rows
-  float band[PW * DH];        // dpe of the tile's 128 pe rows
+struct SmemQ {
+  alignas(1024) bf16 qu[BR * DH];
+  alignas(1024) bf16 qv[BR * DH];
+  alignas(1024) bf16 dout[BR * DH];
+  alignas(1024) bf16 k[BST][BS * DH];
+  alignas(1024) bf16 v[BST][BS * DH];
+  alignas(1024) bf16 pe[BST][PR * DH];
+  alignas(1024) bf16 dsh[2][2][64 * DH];  // each warpgroup's shifted dS, two 64-column halves
+  float pw[2][64 * PL];
+  float mask[BST][BS];
+  uint64_t own_full, full[BST], empty[BST];
+  static constexpr bool kTma = false;
 };
 
-// Add the band's rows [0, 64) (pe rows p0 ..) into dpe and slide the
-// upper 64 rows down.
-__device__ __forceinline__ void flush_band(float* band, float* dpe, int p0, int n_real,
-                                           int D, int h) {
-  for (int i = threadIdx.x; i < 64 * DH; i += THREADS) {
-    const int p = p0 + (i >> 6);
-    const float val = band[i];
-    if (p >= 0 && p < n_real && val != 0.f)
-      atomicAdd(dpe + (size_t)p * D + h * DH + (i & 63), val);
-    band[i] = band[i + 64 * DH];
-    band[i + 64 * DH] = 0.f;
+// Add a warpgroup's 64 x 64 share of dpe (rows p0 .. p0+63 of pe) into
+// dpe; rows outside 0 .. 2T-2 get nothing.
+__device__ __forceinline__ void flush_dpe(float* dpe, const float (&a)[32], int p0, int n_real,
+                                          int D, int h) {
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < 32; i += 2) {
+    const int p = p0 + 16 * warp + (lane >> 2) + 8 * ((i >> 1) & 1);
+    if (p >= 0 && p < n_real) {
+      float* at = dpe + (size_t)p * D + h * DH + 8 * (i >> 2) + 2 * (lane & 3);
+      atomicAdd(at, a[i]);
+      atomicAdd(at + 1, a[i + 1]);
+    }
   }
 }
 
-// (c) dqu, dqv of one (64-query tile, head, batch row), and its share of dpe.
-__global__ void __launch_bounds__(THREADS)
-relpos_dq_kernel(const bf16* __restrict__ qu, const bf16* __restrict__ qv,
-                 const bf16* __restrict__ k, const bf16* __restrict__ v,
-                 const bf16* __restrict__ pe, const float* __restrict__ mask,
-                 const bf16* __restrict__ dout, const float* __restrict__ row_m,
-                 const float* __restrict__ row_l, const float* __restrict__ dd,
-                 bf16* __restrict__ dqu, bf16* __restrict__ dqv, float* __restrict__ dpe,
-                 int T, int H, float scale) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  SmemDq& sm = *reinterpret_cast<SmemDq*>(smem_raw);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int D = H * DH;
-  const int n_real = 2 * T - 1;
+// (c) dqu, dqv of one (128 query rows, head, batch row), and its share of dpe.
+__global__ void __launch_bounds__(THREADS, 1)
+relpos_dq_kernel(const __grid_constant__ QMaps mp, const float* __restrict__ mask,
+                 const float* __restrict__ row_m, const float* __restrict__ row_l,
+                 const float* __restrict__ dd, bf16* __restrict__ dqu, bf16* __restrict__ dqv,
+                 float* __restrict__ dpe, int T, int H) {
+  extern __shared__ unsigned char smem_raw[];
+  SmemQ& sm = setup<SmemQ, BST>(smem_raw);
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * BR, h = blockIdx.y, b = blockIdx.z;
+  const int n_k_tiles = (T + BS - 1) / BS;
+  if (tid >= 256) {
+    hop::reg_dealloc<56>();
+    if (tid < 256 + 32) {
+      bf16* own[3] = {sm.qu, sm.qv, sm.dout};
+      produce_keys<BST>(sm, mp, own, 3, mask, T);
+    }
+    return;
+  }
+  hop::reg_alloc<224>();
+
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31, t = lane & 3;
+  const int row0 = q0 + wg * 64 + warp * 16 + (lane >> 2);  // and row0 + 8
+  const size_t bh = ((size_t)b * H + h) * T;
+  // the rows' m in log2 units (+inf past T: p = 0), 1/l * 0.125 and dd
+  const float ml0 = row0 < T ? row_m[bh + row0] * LOG2E : INFINITY;
+  const float ml1 = row0 + 8 < T ? row_m[bh + row0 + 8] * LOG2E : INFINITY;
+  const float li0 = row0 < T ? SCALE / row_l[bh + row0] : 0.f;
+  const float li1 = row0 + 8 < T ? SCALE / row_l[bh + row0 + 8] : 0.f;
+  const float dr0 = row0 < T ? dd[bh + row0] : 0.f;
+  const float dr1 = row0 + 8 < T ? dd[bh + row0 + 8] : 0.f;
+  const uint64_t qud = hop::desc(sm.qu, wg * 64 * 128), qvd = hop::desc(sm.qv, wg * 64 * 128);
+  const uint64_t dod = hop::desc(sm.dout, wg * 64 * 128);
+  float* pw = sm.pw[wg];
+  bf16* dsh = sm.dsh[wg][0];
+  {  // zero dSh once: the band a row writes is the same on every key tile
+    uint4* z = reinterpret_cast<uint4*>(dsh);
+    for (int i = tid & 127; i < 2 * 64 * DH / 8; i += 128) z[i] = make_uint4(0u, 0u, 0u, 0u);
+    hop::fence_proxy_async();
+    hop::bar_sync(1 + wg, 128);
+  }
+  float dqu_acc[32], dqv_acc[32], dpe_acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dqu_acc[i] = dqv_acc[i] = dpe_acc[i] = 0.f;
+  const int D = H * DH, n_real = 2 * T - 1;
+  // the warpgroup's pe window on key tile 0: rows from T-1-(qa+63)
+  const int pw0 = T - 1 - (q0 + wg * 64 + 63);
+  hop::mbar_wait(&sm.own_full, 0);
+
+  for (int it = 0; it < n_k_tiles; ++it) {
+    const int s = it % BST, k0 = it * BS;
+    hop::mbar_wait(&sm.full[s], (it / BST) & 1);
+    const int win = (1 - wg) * 64 * 128;  // the window's byte offset in the pe tile
+
+    __syncwarp();
+    position_block(pw, qvd, hop::desc(sm.pe[s], win));
+    float sc[32], dp[32];  // S = Qu K^T, dP = dO V^T
+    hop::wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc)
+      hop::wgmma_ss_n64(sc, qud + 2 * kc, hop::desc(sm.k[s]) + 2 * kc, kc);
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc)
+      hop::wgmma_ss_n64(dp, dod + 2 * kc, hop::desc(sm.v[s]) + 2 * kc, kc);
+    hop::wgmma_commit();
+    hop::wgmma_wait();
+    hop::fence_regs(sc);
+    hop::fence_regs(dp);
+    __syncwarp();
+
+    // dS = P (dP - dd) / l * 0.125, P = exp(s - m): bf16 A fragments, and
+    // written shifted into dSh (row r, column 63 - r + c)
+    uint32_t dsa[16];
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int c = 8 * (i >> 2) + 2 * t, hi = (i >> 1) & 1;
+      const float ml = hi ? ml1 : ml0, li = hi ? li1 : li0, dr = hi ? dr1 : dr0;
+      float x[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        x[e] = (sc[i + e] + shifted(pw, i + e)) * SCALE + sm.mask[s][c + e];
+        if (k0 + c + e >= T) x[e] = -INFINITY;  // the key tail: p = 0 past T
+        x[e] = hop::ex2(fmaf(x[e], LOG2E, -ml)) * (dp[i + e] - dr) * li;
+      }
+      dsa[i >> 1] = hop::pack_bf16(x[0], x[1]);
+      const __nv_bfloat162 pair = *reinterpret_cast<const __nv_bfloat162*>(&dsa[i >> 1]);
+      const int r = warp * 16 + (lane >> 2) + 8 * hi;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 63 - r + c + e, cc = col & 63;
+        dsh[(col >> 6) * 64 * DH + r * DH + (((cc >> 3) ^ (r & 7)) << 3) + (cc & 7)] =
+            e ? pair.y : pair.x;
+      }
+    }
+    hop::fence_proxy_async();
+    hop::bar_sync(1 + wg, 128);  // every warp's dSh rows are written
+
+    // dQu += dS K (K MN-major); dQv += dSh . window (dSh K-major, two
+    // 64-column halves; the window MN-major)
+    hop::wgmma_fence();
+    issue_ab(dqu_acc, dsa, sm.k[s]);
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      hop::wgmma_ss_n64_tb(dqv_acc, hop::desc(dsh + (kk >> 2) * 64 * DH) + 2 * (kk & 3),
+                           hop::desc(sm.pe[s], win + kk * 16 * 128), 1);
+    // dpe of the window's lower 64 rows, onto the previous tile's upper 64
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hop::wgmma_ss_n64_tab(dpe_acc, hop::desc(dsh, kk * 16 * 128),
+                            hop::desc(sm.qv, wg * 64 * 128 + kk * 16 * 128), kk > 0 || it > 0);
+    hop::wgmma_commit();
+    hop::wgmma_wait();
+    hop::fence_regs(dqu_acc);
+    hop::fence_regs(dqv_acc);
+    hop::fence_regs(dpe_acc);
+    flush_dpe(dpe, dpe_acc, pw0 + k0, n_real, D, h);
+    // the upper 64 rows start the next tile's lower half
+    hop::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hop::wgmma_ss_n64_tab(dpe_acc, hop::desc(dsh + 64 * DH, kk * 16 * 128),
+                            hop::desc(sm.qv, wg * 64 * 128 + kk * 16 * 128), kk > 0);
+    hop::wgmma_commit();
+    hop::wgmma_wait();
+    hop::fence_regs(dpe_acc);
+    __syncwarp();
+    if (lane == 0) hop::mbar_arrive(&sm.empty[s]);
+  }
+  flush_dpe(dpe, dpe_acc, pw0 + n_k_tiles * BS, n_real, D, h);
+
   const size_t base = (size_t)b * T * D + (size_t)h * DH;
-
-  load_rows(sm.qu, qu + base, q0, BQ, 0, T, D);
-  load_rows(sm.qv, qv + base, q0, BQ, 0, T, D);
-  load_rows(sm.dout, dout + base, q0, BQ, 0, T, D);
-  for (int i = tid; i < PW * DH; i += THREADS) sm.band[i] = 0.f;
-
-  const int r = lane >> 1;         // this lane's query row within the warp's 16
-  const int c0 = (lane & 1) * 32;  // and its half of the tile's 64 keys
-  const int row = q0 + warp * 16 + r;
-  const size_t at = ((size_t)b * H + h) * T + row;
-  const float row_max = row < T ? row_m[at] : 0.f;
-  const float row_linv = row < T ? 1.f / row_l[at] : 0.f;
-  const float row_dd = row < T ? dd[at] : 0.f;
-  float* s_w = sm.s[warp];
-  float* pos_w = sm.pos[warp];
-  bf16* ds_w = sm.ds[warp];
-  bf16* dsh_w = sm.dsh[warp];
-  const bf16* qu_w = sm.qu + warp * 16 * DH;
-  const bf16* qv_w = sm.qv + warp * 16 * DH;
-  const bf16* do_w = sm.dout + warp * 16 * DH;
-  const bf16* pe_w = sm.pe + (48 - 16 * warp) * DH;
-
-  Acc dqu_acc[4], dqv_acc[4];
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    wmma::fill_fragment(dqu_acc[nt], 0.f);
-    wmma::fill_fragment(dqv_acc[nt], 0.f);
-  }
-
-  int p0 = 0;
-  for (int k0 = 0; k0 < T; k0 += BK) {
-    __syncthreads();  // the previous key tile's reads and the band's slide are done
-    load_rows(sm.k, k + base, k0, BK, 0, T, D);
-    load_rows(sm.v, v + base, k0, BK, 0, T, D);
-    p0 = T - 1 - (q0 + BQ - 1) + k0;
-    load_rows(sm.pe, pe + h * DH, p0, PW, 0, n_real, D);
-    if (tid < BK) sm.kmask[tid] = k0 + tid < T ? mask[(size_t)b * T + k0 + tid] : 0.f;
-    for (int i = lane; i < 16 * DLD; i += 32) dsh_w[i] = __float2bfloat16(0.f);
-    __syncthreads();
-
-    rows_dot<BK / 16>(s_w, SLD, qu_w, sm.k);   // content scores (16 x 64)
-    rows_dot<PC / 16>(pos_w, QLD, qv_w, pe_w);  // position scores (16 x 80)
-    __syncwarp();
-    float pv[32];
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const int kj = c0 + j;
-      const float x = (s_w[r * SLD + kj] + pos_w[r * QLD + 15 - r + kj]) * scale + sm.kmask[kj];
-      pv[j] = (row < T && k0 + kj < T) ? expf(x - row_max) : 0.f;
-    }
-    __syncwarp();
-    rows_dot<BK / 16>(s_w, SLD, do_w, sm.v);  // dp (16 x 64)
-    __syncwarp();
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const int kj = c0 + j;
-      const bf16 d = __float2bfloat16(pv[j] * (s_w[r * SLD + kj] - row_dd) * row_linv * scale);
-      ds_w[r * PLD + kj] = d;
-      dsh_w[r * DLD + 15 - r + kj] = d;
-    }
-    __syncwarp();
-    mm_ab_acc<4>(dqu_acc, ds_w, PLD, sm.k);       // dqu += ds . k
-    mm_ab_acc<PC / 16>(dqv_acc, dsh_w, DLD, pe_w);  // dqv += ds (shifted) . pe
-
-    // dpe rows 48-16w+c of the tile += dsh[:, c]^T . qv_w, 16 columns at a time
-#pragma unroll 1
-    for (int pt = 0; pt < PC / 16; ++pt) {
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        Acc acc;
-        wmma::fill_fragment(acc, 0.f);
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> af;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr;
-        wmma::load_matrix_sync(af, dsh_w + pt * 16, DLD);
-        wmma::load_matrix_sync(bfr, qv_w + nt * 16, DH);
-        wmma::mma_sync(acc, af, bfr, acc);
-        wmma::store_matrix_sync(s_w + nt * 16, acc, SLD, wmma::mem_row_major);
-      }
-      __syncwarp();
-      // lane = column: the 32 lanes of each atomic hit 32 banks
-      float* band_w = sm.band + (48 - 16 * warp + pt * 16) * DH;
-#pragma unroll 4
-      for (int i = 0; i < 16; ++i) {
-        atomicAdd(&band_w[i * DH + lane], s_w[i * SLD + lane]);
-        atomicAdd(&band_w[i * DH + 32 + lane], s_w[i * SLD + 32 + lane]);
-      }
-      __syncwarp();
-    }
-    __syncthreads();  // the band holds every warp's share of this tile
-    flush_band(sm.band, dpe, p0, n_real, D, h);
-  }
-  __syncthreads();
-  flush_band(sm.band, dpe, p0 + 64, n_real, D, h);
-
-  store_rows(dqu + base, dqu_acc, s_w, q0 + warp * 16, T, D);
-  store_rows(dqv + base, dqv_acc, s_w, q0 + warp * 16, T, D);
+  store_rows(dqu + base, dqu_acc, row0, T, D, 1.f, 1.f);
+  store_rows(dqv + base, dqv_acc, row0, T, D, 1.f, 1.f);
 }
 
 }  // namespace
@@ -584,21 +756,27 @@ relpos_dq_kernel(const bf16* __restrict__ qu, const bf16* __restrict__ qv,
 // 0 .. 2T-2 read); mask: (B, T) f32 additive; all contiguous and 16-byte
 // aligned. row_m, row_l: (B, H, T) f32 outputs (the row max and sum the
 // backward reads), or both null. Returns cudaGetLastError() after the
-// launch.
+// launch, or a negative code if a tensor map could not be encoded.
 extern "C" int relpos_flash_fwd(const void* qu, const void* qv, const void* k,
                                 const void* v, const void* pe, const void* mask, void* o,
                                 void* row_m, void* row_l, int B, int T, int H,
                                 void* stream) {
-  const int smem = (int)sizeof(Smem);  // 97280 bytes: above the 48 KB default
+  QMaps mp = {};
+  int rc;
+  if ((rc = hop_host::encode(&mp.own[0], qu, B, T, H, BR)) ||
+      (rc = hop_host::encode(&mp.own[1], qv, B, T, H, BR)) ||
+      (rc = hop_host::encode(&mp.k, k, B, T, H, BS)) ||
+      (rc = hop_host::encode(&mp.v, v, B, T, H, BS)) ||
+      (rc = hop_host::encode_2d(&mp.pe, pe, 2 * T - 1, H, PR)))
+    return rc;
+  const int smem = (int)sizeof(SmemF) + 1024;  // + the 1024-byte alignment
   // Set on every launch: the attribute is per device, and it is cheap.
   const cudaError_t attr = cudaFuncSetAttribute(
       relpos_flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return (int)attr;
-  dim3 grid((T + BQ - 1) / BQ, H, B);
+  dim3 grid((T + BR - 1) / BR, H, B);
   relpos_flash_fwd_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const bf16*)qu, (const bf16*)qv, (const bf16*)k, (const bf16*)v, (const bf16*)pe,
-      (const float*)mask, (bf16*)o, (float*)row_m, (float*)row_l, T, H,
-      0.125f /* 64^-0.5 */);
+      mp, (const float*)mask, (bf16*)o, (float*)row_m, (float*)row_l, T, H);
   return (int)cudaGetLastError();
 }
 
@@ -607,37 +785,51 @@ extern "C" int relpos_flash_fwd(const void* qu, const void* qv, const void* k,
 // (B, H, T) f32 scratch; outputs dqu, dqv, dk, dv (B, T, H*64) bf16 and dpe
 // (n_pe, H*64) f32, which the caller zeroes (rows from 2T-1 on stay 0).
 // Launches (a), (b), (c) on `stream`; returns the first cudaGetLastError()
-// that is not cudaSuccess, or cudaSuccess.
+// that is not cudaSuccess, a negative code if a tensor map could not be
+// encoded, or cudaSuccess.
 extern "C" int relpos_flash_bwd(const void* qu, const void* qv, const void* k,
                                 const void* v, const void* pe, const void* mask,
                                 const void* o, const void* dout, const void* row_m,
                                 const void* row_l, void* dd, void* dqu, void* dqv, void* dk,
                                 void* dv, void* dpe, int B, int T, int H, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  const int smem_kv = (int)sizeof(SmemDkdv), smem_q = (int)sizeof(SmemDq);
+  KVMaps kv = {};
+  QMaps qm = {};
+  int rc;
+  if ((rc = hop_host::encode(&kv.k, k, B, T, H, BR)) ||
+      (rc = hop_host::encode(&kv.v, v, B, T, H, BR)) ||
+      (rc = hop_host::encode(&kv.qu, qu, B, T, H, BS)) ||
+      (rc = hop_host::encode(&kv.qv, qv, B, T, H, BS)) ||
+      (rc = hop_host::encode(&kv.dout, dout, B, T, H, BS)) ||
+      (rc = hop_host::encode_2d(&kv.pe, pe, 2 * T - 1, H, PR)) ||
+      (rc = hop_host::encode(&qm.own[0], qu, B, T, H, BR)) ||
+      (rc = hop_host::encode(&qm.own[1], qv, B, T, H, BR)) ||
+      (rc = hop_host::encode(&qm.own[2], dout, B, T, H, BR)) ||
+      (rc = hop_host::encode(&qm.k, k, B, T, H, BS)) ||
+      (rc = hop_host::encode(&qm.v, v, B, T, H, BS)))
+    return rc;
+  qm.pe = kv.pe;
+  const int smem_kv = (int)sizeof(SmemKV) + 1024, smem_q = (int)sizeof(SmemQ) + 1024;
   cudaError_t err = cudaFuncSetAttribute(
       relpos_dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(relpos_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem_q);
   if (err != cudaSuccess) return (int)err;
-  const float scale = 0.125f;  // 64^-0.5
 
-  const int rows = B * T * H;
-  relpos_rowdot_kernel<<<(rows + 7) / 8, 256, 0, st>>>((const bf16*)dout, (const bf16*)o,
-                                                       (float*)dd, B, T, H);
+  const size_t threads = (size_t)B * T * H * 8;
+  relpos_rowdot_kernel<<<(unsigned)((threads + 255) / 256), 256, 0, st>>>(
+      (const bf16*)dout, (const bf16*)o, (float*)dd, B, T, H);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  dim3 grid((T + BQ - 1) / BQ, H, B);
+  dim3 grid((T + BR - 1) / BR, H, B);
   relpos_dkdv_kernel<<<grid, THREADS, smem_kv, st>>>(
-      (const bf16*)qu, (const bf16*)qv, (const bf16*)k, (const bf16*)v, (const bf16*)pe,
-      (const float*)mask, (const bf16*)dout, (const float*)row_m, (const float*)row_l,
-      (const float*)dd, (bf16*)dk, (bf16*)dv, T, H, scale);
+      kv, (const float*)mask, (const float*)row_m, (const float*)row_l, (const float*)dd,
+      (bf16*)dk, (bf16*)dv, T, H);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   relpos_dq_kernel<<<grid, THREADS, smem_q, st>>>(
-      (const bf16*)qu, (const bf16*)qv, (const bf16*)k, (const bf16*)v, (const bf16*)pe,
-      (const float*)mask, (const bf16*)dout, (const float*)row_m, (const float*)row_l,
-      (const float*)dd, (bf16*)dqu, (bf16*)dqv, (float*)dpe, T, H, scale);
+      qm, (const float*)mask, (const float*)row_m, (const float*)row_l, (const float*)dd,
+      (bf16*)dqu, (bf16*)dqv, (float*)dpe, T, H);
   return (int)cudaGetLastError();
 }

@@ -17,8 +17,8 @@ CUDA card and the CUDA toolkit (nvcc). It imports nothing of JAX. Phases,
 one line each, in the order they run; any failure ends the script with a
 non-zero exit:
 
-  1. device and build: the card, and the nvcc builds of the eight kernel
-     sources, started together;
+  1. device and build: the card, the nvcc builds of the eight kernel
+     sources, started together, and K1's and K5's registers and spills;
   2. K1f (csrc/packed_flash_fwd.cu) against its plain PyTorch version at
      the encoder shapes (8, 750, 768) and (2, 1500, 768), 12 heads;
   2b. at the training shapes (16, 750, 768) and (2, 1500, 768): K1f as
@@ -50,13 +50,15 @@ non-zero exit:
   2j. K2f and K2b (csrc/int8_mlp.cu) against their plain versions at
      (12000, 768, 3072), (528, 768, 3072) and 1000 rows (a partial tile);
   2r. K5 (csrc/relpos_flash.cu) against its plain version at the conformer
-     encoder's (8, 468, 256), 4 heads, and at T 64, 67 and 640, keys and
-     values poisoned past each row's length; SDPA with the shifted
-     position scores as its materialised (B, h, T, T) bias timed beside;
+     encoder's (8, 468, 256), 4 heads, and at T 64, 67, 128, 129, 257 and
+     640, keys and values poisoned past each row's length; SDPA with the
+     shifted position scores as its materialised (B, h, T, T) bias timed
+     beside, and the whole PyTorch route (that bias built, then SDPA);
   2s. K5's backward (relpos_flash.cu) against its plain version at the
-     training shape (16, 468, 256), 4 heads, and T 64, 67 and 640, keys and
-     values poisoned: dqu, dqv, dk, dv, dpe; SDPA's backward with the bias
-     requiring a gradient timed beside;
+     training shape (16, 468, 256), 4 heads, and the same T, keys and
+     values poisoned: dqu, dqv, dk, dv, dpe, and a second run bit-identical
+     in dqu, dqv, dk, dv; SDPA's backward with the bias requiring a
+     gradient timed beside;
   2v. K4 (csrc/vocab_lse.cu: forward, dx, dw) against its plain version at
      the CTC head's (7488, 256) x (256, 51865) and a ragged (700, 256) x
      (256, 5000); cuBLAS with the logits materialised timed beside;
@@ -1038,8 +1040,10 @@ def check_k2(dev, g, timed=True) -> dict:
 # The conformer recipe's encoder attention: d 256, 4 heads of 64.
 CD, CH = 256, 4
 # K5 against its plain version at the conformer encoder's 8 x 15 s shape
-# and at T 64, 67 (a partial key tile) and 640 (the envelope's top).
-K5_SHAPES = ((8, 468), (2, 64), (2, 67), (2, 640))
+# and at T 64, 67 (a partial key tile), 128, 129 and 257 (the edges of the
+# kernels' 128-row tiles) and 640 (the envelope's top).
+K5_TAILS = ((2, 64), (2, 67), (2, 128), (2, 129), (2, 257), (2, 640))
+K5_SHAPES = ((8, 468), *K5_TAILS)
 # K3-f32 against its plain version (both float32; they differ by summation
 # order, ~1e-6 of the largest output): 1e-4 x max |plain|.
 K3F32_RTOL = 1e-4
@@ -1084,9 +1088,11 @@ def check_k5(dev, g, timed=True) -> dict:
     float32 on the same bf16 inputs, keys and values poisoned past each
     row's length in the kernel's input, at K5_SHAPES; bound KERNEL_RTOL x
     max |plain|. Times at (8, 468, 256): the kernel, the plain version (on
-    the bf16 inputs), and SDPA given the shifted position scores and the
-    mask as its materialised (B, h, T, T) additive bias (the bias is built
-    outside the timing)."""
+    the bf16 inputs), SDPA given the shifted position scores and the mask
+    as its materialised (B, h, T, T) additive bias (the bias is built
+    outside the timing: `library_ms`, the redesign order's yardstick), and
+    the whole PyTorch route, the bias built inside the timed call
+    (`route_ms`)."""
     from agacs_tpu_torch.ops import relpos_flash
 
     res = {"err": 0.0}
@@ -1107,12 +1113,18 @@ def check_k5(dev, g, timed=True) -> dict:
             lib = cuda_ms(lambda q, k, v, bias: torch.nn.functional.scaled_dot_product_attention(
                 q, k, v, attn_mask=bias, scale=0.125), lib_sets, 20)
             del lib_sets
+            route = cuda_ms(lambda qu, qv, k, v, pe, mask, h:
+                            torch.nn.functional.scaled_dot_product_attention(
+                                sdpa_heads(qu, h), sdpa_heads(k, h), sdpa_heads(v, h),
+                                attn_mask=relpos_sdpa_bias(qu, qv, pe, mask, h), scale=0.125),
+                            sets, 10)
             wp = sets[0][4].shape[0]
-            res.update(ms=ms, plain_ms=plain_ms, library_ms=lib,
+            res.update(ms=ms, plain_ms=plain_ms, library_ms=lib, route_ms=route,
                        **roofline(5 * b * t * CD * 2 + wp * CD * 2 + b * t * 4,
                                   6 * b * CH * t * t * 64, "bf16"))
             line += (f" kernel {ms:.4f} ms plain bf16 {plain_ms:.4f} ms sdpa with the "
-                     f"materialised bias {lib:.4f} ms bound {res['bound_ms']:.4f} ms")
+                     f"materialised bias {lib:.4f} ms, the whole route (bias built, then "
+                     f"sdpa) {route:.4f} ms bound {res['bound_ms']:.4f} ms")
         print(line, flush=True)
     return res
 
@@ -1122,7 +1134,7 @@ def check_k5(dev, g, timed=True) -> dict:
 # 67 and 640: dqu, dqv, dk, dv and dpe each within K1B_RTOL x its own max
 # |plain| (ds rounded to bf16 and summed with mixed signs, as K1b's; dpe
 # also sums over the batch).
-K5B_SHAPES = ((16, 468), (2, 64), (2, 67), (2, 640))
+K5B_SHAPES = ((16, 468), *K5_TAILS)
 
 
 def k5_bwd_lib(qu, qv, k, v, pe, mask, do):
@@ -1141,7 +1153,9 @@ def check_k5_bwd(dev, g, timed=True) -> dict:
     dpe band) against its plain version evaluated in float32 on the same
     bf16 inputs and do, at K5B_SHAPES, keys and values poisoned past each
     row's length in the kernel's input (K5's forward, with its row
-    statistics, runs first on the same inputs). Times at (16, 468, 256):
+    statistics, runs first on the same inputs); a second backward on the
+    same inputs must give bit-identical dqu, dqv, dk and dv (dpe sums with
+    float32 atomics, in a varying order). Times at (16, 468, 256):
     the kernel, the plain backward on the bf16 inputs, and SDPA's backward
     with the bias requiring a gradient (its forward run outside the
     timing)."""
@@ -1153,6 +1167,11 @@ def check_k5_bwd(dev, g, timed=True) -> dict:
         do = torch.randn(b, t, CD, generator=g).to(dev, torch.bfloat16)
         o, m, l = relpos_flash._launch_fwd(*bad, CH, stats=True)
         got = relpos_flash._launch_bwd(*bad, o, do, m, l, CH)
+        again = relpos_flash._launch_bwd(*bad, o, do, m, l, CH)
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(got[:4], again[:4])),
+              f"K5 backward ({b}, {t}, {CD}): a second run gives bit-identical dqu, dqv, dk, dv")
+        del again
         f32 = [x.float() for x in clean]
         want = relpos_flash.relpos_mha_bwd_plain(
             *f32, relpos_flash.relpos_mha_plain(*f32, CH), do.float(), CH)
@@ -1166,7 +1185,8 @@ def check_k5_bwd(dev, g, timed=True) -> dict:
             errs.append(f"{name} {err:.3e} ({err / (bound / K1B_RTOL):.2e} of max|plain|)")
             res["err"] = max(res["err"], err)
         line = (f"phase 2s K5 relpos_flash_bwd ({b}, {t}, {CD}) H={CH}: " + ", ".join(errs)
-                + f" (bound {K1B_RTOL} x max|plain f32|; keys past each length poisoned)")
+                + f" (bound {K1B_RTOL} x max|plain f32|; keys past each length poisoned; "
+                "a second run bit-identical in dqu, dqv, dk, dv)")
         if timed and (b, t) == K5B_SHAPES[0]:
             sets = []
             for _ in range(3):
@@ -3082,14 +3102,21 @@ MUTANTS = {
                             "float s = dot_head<(DW == 48 ? 64 : DW)>(k + off, qs);")],
         ("k3d48",)),
     "K5 bwd dpe un-shifted one row off": (
-        "relpos_flash.cu", [("const int p = p0 + (i >> 6);", "const int p = p0 + 1 + (i >> 6);")],
+        "relpos_flash.cu", [("const int p = p0 + 16 * warp", "const int p = p0 + 1 + 16 * warp")],
         ("k5b",)),
     "K5 bwd dv without 1/l": (
         "relpos_flash.cu",
-        [("sm.don[i] = __float2bfloat16(__bfloat162float(sm.dout[i]) * sm.linv[i / DH]);",
-          "sm.don[i] = sm.dout[i];")], ("k5b",)),
+        [("y[e] = __float2bfloat16(__bfloat162float(x[e]) * li);", "y[e] = x[e];")], ("k5b",)),
     "K5 bwd key mask ignored in ds": (
-        "relpos_flash.cu", [("* scale + sm.kmask[kj];", "* scale;")], ("k5b",)),
+        "relpos_flash.cu", [("* SCALE + sm.mask[s][c + e];", "* SCALE;")], ("k5b",)),
+    "K5 bwd m written in log2 units": (
+        "relpos_flash.cu", [("row_m[at] = m0;", "row_m[at] = m0 * LOG2E;"),
+                            ("row_m[at + 8] = m1;", "row_m[at + 8] = m1 * LOG2E;")], ("k5b",)),
+    "K5 bwd dkdv with the last partial query tile dropped": (
+        "relpos_flash.cu", [("const int n_q_tiles = (T + BS - 1) / BS;",
+                             "const int n_q_tiles = T / BS;")], ("k5b",)),
+    "K5 bwd dq with the key tail unmasked": (
+        "relpos_flash.cu", [("if (k0 + c + e >= T) x[e] = -INFINITY;", "")], ("k5b",)),
     "K4 padded columns unmasked": (
         "vocab_lse.cu", [("z_w[r * ZLD + c] = col < V ? z_w[r * ZLD + c] + bias[col] : -INFINITY;",
                           "z_w[r * ZLD + c] = z_w[r * ZLD + c] + (col < V ? bias[col] : 0.f);")],
@@ -3101,15 +3128,19 @@ MUTANTS = {
         "vocab_lse.cu", [("if (with_db && tid < BV) db[v0 + tid] = db_acc;",
                           "if (with_db && tid < BV) db[v0 + tid] = 0.f;")], ("k4",)),
     "K5 shift off by one": (
-        "relpos_flash.cu", [("pos_w[r * QLD + 15 - r + cj]", "pos_w[r * QLD + 16 - r + cj]")],
-        ("k5",)),
+        "relpos_flash.cu", [("return pw[(16 * warp + r) * PL + 15 - r + c];",
+                             "return pw[(16 * warp + r) * PL + 16 - r + c];")], ("k5",)),
     "K5 key mask ignored": (
-        "relpos_flash.cu", [(" * scale + mrow[key];", " * scale;")], ("k5",)),
+        "relpos_flash.cu", [("* SCALE + sm.mask[s][8 * (i >> 2) + 2 * t + (i & 1)];", "* SCALE;")],
+        ("k5",)),
     "K5 pe rows read without the offset p0": (
-        "relpos_flash.cu", [("load_rows(sm.pe, pe + h * DH, p0, PW, 0, n_real, D);",
-                             "load_rows(sm.pe, pe + h * DH, 0, PW, 0, n_real, D);")], ("k5",)),
+        "relpos_flash.cu", [("&sm.full[s], c, T - 1 - (q0 + BR - 1) + k0);",
+                             "&sm.full[s], c, 0);")], ("k5",)),
     "K5 p left unnormalised": (
-        "relpos_flash.cu", [("const float linv = 1.f / l_i;", "const float linv = 1.f;")],
+        "relpos_flash.cu", [("acc, row0, T, D, l0, l1);", "acc, row0, T, D, 1.f, 1.f);")],
+        ("k5",)),
+    "K5 forward key tail unmasked": (
+        "relpos_flash.cu", [("if (k0 + BS > T) {  // the key tail", "if (false) {  // the key tail")],
         ("k5",)),
     "K3-PE gate ignored (a fixed 0.5 mix)": (
         "decode_attn.cu", [("const float g = PE ? gate[h] : 0.f;",
@@ -3422,9 +3453,9 @@ def main() -> int:
     print(f"phase 1 device: {torch.cuda.get_device_name(0)} | {smi} | torch "
           f"{torch.__version__} cuda {torch.version.cuda} | kernels built in "
           f"{build_s:.2f} s | ptxas {ptxas or 'cached build'}", flush=True)
-    print("phase 1 K1 ptxas: " + "; ".join(
+    print("phase 1 K1 and K5 ptxas: " + "; ".join(
         ptxas_entries(cuda_lib.BUILD_LOG.get(name, ""))
-        for name in ("packed_flash_fwd", "packed_flash_bwd")), flush=True)
+        for name in ("packed_flash_fwd", "packed_flash_bwd", "relpos_flash")), flush=True)
 
     # 2-3s. each kernel against its plain version
     g = torch.Generator(device="cpu").manual_seed(0)

@@ -165,11 +165,12 @@ def _k5_inputs(t, dtype, seed=0):
     return j, tt
 
 
-@pytest.mark.parametrize("t", [64, 67, 130])
+@pytest.mark.parametrize("t", [64, 67, 130, 257])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_k5_plain_matches_pallas_interpreted(t, dtype):
-    """T 67 and 130: (T-1) % 8 != 0 (the Mosaic roll's offset c0); the second
-    utterance's last 20 keys masked."""
+    """T 67 and 130: (T-1) % 8 != 0 (the Mosaic roll's offset c0); T 257:
+    one past the card kernels' 128-row tiles, as chip_smoke's phase 2r; the
+    second utterance's last 20 keys masked."""
     j, tt = _k5_inputs(t, dtype)
     ref = jrf._fwd_pallas(*j, 2, True)
     out = relpos_flash.relpos_mha(*tt, 2)
@@ -414,3 +415,15 @@ def test_conformer_kernels_match_plain_on_card():
     g = torch.Generator().manual_seed(0)
     chip_smoke.check_k5(torch.device("cuda"), g, timed=False)
     chip_smoke.check_k3f32(torch.device("cuda"), g, timed=False)
+
+
+@pytest.mark.cuda
+def test_k5_backward_matches_plain_on_card():
+    """K5's backward against its plain version on the card at chip_smoke's
+    phase 2s shapes and bounds, with its bit-identity check."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import chip_smoke
+
+    g = torch.Generator().manual_seed(0)
+    chip_smoke.check_k5_bwd(torch.device("cuda"), g, timed=False)

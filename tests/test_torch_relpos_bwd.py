@@ -3,7 +3,8 @@
 `_bwd_pallas` run in interpret mode, and the port's autograd through
 `relpos_mha` against `jax.vjp` of JAX's `relpos_mha` (its Pallas backward
 interpreted in bf16, the einsum path in float32), at T 64, 67 (a partial
-tile) and 130, with keys masked past each row's length. Inputs are made
+tile), 130 and 257 (one past the card kernels' 128-row tiles), with keys
+masked past each row's length. Inputs are made
 with numpy from a seed.
 
 Tolerances, with their reasons: float32 inputs 1e-5 x max |ref| (the same
@@ -52,7 +53,7 @@ def _close(out, ref, rtol, what):
     assert err <= bound, f"{what}: max |err| {err} > {rtol} x max |ref| ({bound})"
 
 
-CASES = [(dt, t) for dt in ("float32", "bfloat16") for t in (64, 67, 130)]
+CASES = [(dt, t) for dt in ("float32", "bfloat16") for t in (64, 67, 130, 257)]
 
 
 @pytest.mark.parametrize("dtype,t", CASES)
