@@ -36,6 +36,13 @@ oracle, which dequantises the caches to the query's dtype first, is
 
 Each wrapper takes its plain version for a CPU tensor and launches its
 kernel for a CUDA tensor (or raises): there is no fallback.
+
+On the card each (head, row) is split over time: S blocks of one
+thread-block cluster take ceil(Tp / S) keys each and combine at the
+plain version's rounding point (the global max and sum first, then
+bf16(exp(s - m) / l), then the partial outputs in rank order).
+`time_splits` picks S from the shapes alone, never from pos;
+`decode_cache_attention_split_ref` is that split in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -52,16 +59,25 @@ D_HEAD = 64
 # the ladder side network's head width (n_dim 192 / 4 heads): K3's plain
 # bf16 rows are also built at it; every other form stays at D_HEAD
 D_HEAD_SIDE = 48
-MAX_KEYS = 8192  # K3 keeps pos+1 f32 scores in shared memory
-# K3a keeps pos+1 f32 scores and pos+1 int32 rows in the 48 KB of shared
-# memory a block gets without the opt-in attribute (beside ~1.3 KB static)
-MAX_ANC_KEYS = 4096
-MAX_BEAM = 16  # K3s: the j queries of a group live in registers
-SHARED_WARPS = 16  # K3s's warps per block (SH_WARPS in decode_attn.cu)
-# K3s keeps j x (pos+1) f32 scores and its warps' j x 64 f32 partial
-# outputs in dynamic shared memory (set per launch); 200 KB leaves room
-# for its <= 4.2 KB static arrays in 227 KB
+MAX_KEYS = 8192  # K3 keeps a block's f32 scores in shared memory
+MAX_ANC_KEYS = 4096  # K3a also keeps each key's physical row there
+MAX_BEAM = 16  # K3s: a lane keeps one accumulator per query of the group
+# K3s's acceptance rule: j x (pos + 1 + 16 x 64) f32 within 200 KB. The
+# kernel's own shared memory (j x (its keys + S x 66) f32 beside a ring of
+# tiles that shrinks to fit) stays inside the card's 227 KB for any call
+# the rule admits.
+SHARED_SMEM_COLS = 16 * D_HEAD
 MAX_SHARED_SMEM = 200 * 1024
+# The split over time (`time_splits`): the H100 SXM's streaming
+# multiprocessors, the largest portable cluster, the fewest keys worth a
+# block, and the blocks a launch should reach (four an SM), as tuned on
+# the card (`chip_smoke.py --splits`).
+SMS = 132
+MAX_SPLITS = 8
+MIN_CHUNK = 80
+SPLIT_BLOCKS = 4 * SMS
+# K3s's blocks each carry the group's j queries: two an SM
+SHARED_SPLIT_BLOCKS = 2 * SMS
 # kernel launches since the last reset (chip_smoke.py reads them)
 LAUNCHES = 0  # K3
 ANC_LAUNCHES = 0  # K3a
@@ -81,6 +97,25 @@ _COUNTER = {(False, False, False): "LAUNCHES", (True, False, False): "ANC_LAUNCH
 
 def pad_time(t: int, align: int = TIME_ALIGN) -> int:
     return -(-t // align) * align
+
+
+def time_splits(rows: int, heads: int, tp: int, blocks: int = SPLIT_BLOCKS) -> int:
+    """S, the blocks that split one (head, row)'s keys (a cluster): enough
+    for the launch to reach `blocks` blocks (SPLIT_BLOCKS for K3's rows,
+    SHARED_SPLIT_BLOCKS for K3s's groups), at most MAX_SPLITS, and
+    chunks of at least MIN_CHUNK keys of the padded Tp (so S = 1 below
+    2 x MIN_CHUNK: a short cache gains less from the split than its
+    cluster barriers cost). Shapes only, never pos, so every step of a
+    decode loop launches one grid. `rows`: the query rows (K3) or the
+    groups (K3s)."""
+    return max(1, min(MAX_SPLITS, tp // MIN_CHUNK, -(-blocks // max(1, heads * rows))))
+
+
+def split_chunks(tp: int, pos: int, splits: int) -> list[tuple[int, int]]:
+    """The keys [start, stop) of each block of the split, in rank order:
+    ceil(Tp / S) a block, cut at pos (a block past pos takes none)."""
+    chunk = -(-tp // splits)
+    return [(min(b * chunk, pos + 1), min((b + 1) * chunk, pos + 1)) for b in range(splits)]
 
 
 def dequantize_kv(x: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -209,6 +244,44 @@ def decode_shared_cache_attention_int8_ref(
     return (o.reshape(g * beam, d) * v_scale.float()).to(q.dtype)
 
 
+def decode_cache_attention_split_ref(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: int, n_head: int,
+    splits: int, *, beam: int | None = None, k_scale: torch.Tensor | None = None,
+    v_scale: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The kernels' split over time in plain PyTorch (for tests): `splits`
+    blocks take the keys of `split_chunks`. Scores in float32 (q, or
+    bf16(q·s_k) against int8 caches, dotted with the float32 keys); the
+    global max m over all keys 0..pos; the global sum l, the blocks' sums
+    of exp(s - m) added in rank order; p = exp(s - m) / l, then bf16 unless
+    the caches are float32; each block's float32 partial output over its
+    own keys, the partials added in rank order, times s_v for int8; q's
+    dtype. `beam`: the shared form, (G*beam, d) queries over (G, Tp, d)."""
+    g, tp, d = k.shape
+    j, dh = beam or 1, d // n_head
+    qf = q.float()
+    if k_scale is not None:
+        qf = (qf * k_scale.float()).to(torch.bfloat16).float()
+    s = torch.einsum("gjhc,gthc->gjht", qf.reshape(g, j, n_head, dh),
+                     k.float().reshape(g, tp, n_head, dh))[..., : pos + 1]
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    chunks = split_chunks(tp, pos, splits)
+    l = torch.zeros_like(e[..., :1])
+    for a, z in chunks:
+        l = l + e[..., a:z].sum(-1, keepdim=True)
+    p = e / l
+    if k.dtype != torch.float32:
+        p = p.to(torch.bfloat16).float()
+    vh = v.float().reshape(g, tp, n_head, dh)
+    o = torch.zeros(g, j, n_head, dh, dtype=torch.float32, device=q.device)
+    for a, z in chunks:
+        o = o + torch.einsum("gjht,gthc->gjhc", p[..., a:z], vh[:, a:z])
+    o = o.reshape(g * j, d)
+    if v_scale is not None:
+        o = o * v_scale.float()
+    return o.to(q.dtype)
+
+
 def decode_cache_attention_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: int, n_head: int, *,
     anc_local: torch.Tensor | None = None, beam: int = 1,
@@ -289,6 +362,16 @@ def _ptr(x: torch.Tensor | None) -> int | None:
     return None if x is None else x.data_ptr()
 
 
+def _splits(what: str, splits: int | None, rows: int, heads: int, tp: int,
+            blocks: int = SPLIT_BLOCKS) -> int:
+    """`splits` if given (1..MAX_SPLITS), else `time_splits`'s choice."""
+    if splits is None:
+        return time_splits(rows, heads, tp, blocks)
+    if not 1 <= splits <= MAX_SPLITS:
+        raise ValueError(f"{what}: splits {splits} outside [1, {MAX_SPLITS}]")
+    return splits
+
+
 def decode_cache_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -303,6 +386,7 @@ def decode_cache_attention(
     gate: torch.Tensor | None = None,
     k_scale: torch.Tensor | None = None,
     v_scale: torch.Tensor | None = None,
+    splits: int | None = None,
 ) -> torch.Tensor:
     """One decode step of masked cache attention: (N, d) output.
 
@@ -317,7 +401,8 @@ def decode_cache_attention(
     float32 q, k and v (K3-f32) take plain rows only: with a map, PE or
     scales they raise; any other cache dtype raises too. d_head 48 (d ==
     48 x n_head) takes plain bf16 rows only, as the side ladder launches
-    it; anything else at that width raises."""
+    it; anything else at that width raises. `splits` (card only): the
+    blocks a (head, row) is split over, instead of `time_splits`'s."""
     pe, quant = q_cs is not None, k_scale is not None
     if pe and quant:
         raise ValueError("decode_cache_attention: int8 caches are unsupported "
@@ -337,16 +422,17 @@ def decode_cache_attention(
         raise ValueError(f"decode_cache_attention: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     ins = [("q", q), ("k", k), ("v", v)]
+    s = _splits("decode_cache_attention", splits, n, n_head, tp)
     if d == n_head * D_HEAD_SIDE:
         if anc or pe or quant or k.dtype != torch.bfloat16:
             raise ValueError("decode_cache_attention: d_head 48 takes plain bf16 rows "
                              "only (no ancestry map, PE, scales or float32)")
-        return _d48_rows(q, k, v, pos, n_head)
+        return _d48_rows(q, k, v, pos, n_head, s)
     if k.dtype == torch.float32:
         if anc or pe or quant:
             raise ValueError("decode_cache_attention: float32 caches take plain rows "
                              "only (no ancestry map, PE or scales)")
-        return _f32_rows(q, k, v, pos, n_head)
+        return _f32_rows(q, k, v, pos, n_head, s)
     if pe:
         if q_cs.shape != q.shape or k_cs.shape != k.shape or gate.shape != (n_head,):
             raise ValueError(f"decode_cache_attention: q_cs {tuple(q_cs.shape)}, k_cs "
@@ -369,11 +455,11 @@ def decode_cache_attention(
     o = torch.empty_like(q)
     fn = cuda_lib.load(
         "decode_attn", "decode_attn_fwd",
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     )
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(anc_local if anc else None),
             _ptr(q_cs), _ptr(k_cs), _ptr(gate), _ptr(k_scale), _ptr(v_scale),
-            o.data_ptr(), n, tp, n_head, pos, beam if anc else 1,
+            o.data_ptr(), n, tp, n_head, pos, beam if anc else 1, s,
             torch.cuda.current_stream(q.device).cuda_stream)
     cuda_lib.check(rc, "decode_attn_fwd")
     counter = _COUNTER[(anc, pe, quant)]
@@ -381,7 +467,7 @@ def decode_cache_attention(
     return o
 
 
-def _f32_rows(q, k, v, pos: int, n_head: int) -> torch.Tensor:
+def _f32_rows(q, k, v, pos: int, n_head: int, splits: int) -> torch.Tensor:
     """Launch K3-f32 (checked by the caller's shape tests)."""
     n, tp, d = k.shape
     _check_kernel_inputs("decode_cache_attention", n_head, d, [("q", q), ("k", k), ("v", v)],
@@ -391,16 +477,16 @@ def _f32_rows(q, k, v, pos: int, n_head: int) -> torch.Tensor:
                          f"kernel's {MAX_KEYS}")
     o = torch.empty_like(q)
     fn = cuda_lib.load("decode_attn", "decode_attn_f32_fwd",
-                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), n, tp, n_head, pos,
-            torch.cuda.current_stream(q.device).cuda_stream)
+            splits, torch.cuda.current_stream(q.device).cuda_stream)
     cuda_lib.check(rc, "decode_attn_f32_fwd")
     global F32_LAUNCHES
     F32_LAUNCHES += 1
     return o
 
 
-def _d48_rows(q, k, v, pos: int, n_head: int) -> torch.Tensor:
+def _d48_rows(q, k, v, pos: int, n_head: int, splits: int) -> torch.Tensor:
     """Launch K3 at d_head 48 (checked by the caller's shape tests)."""
     n, tp, d = k.shape
     _check_kernel_inputs("decode_cache_attention", n_head, d, [("q", q), ("k", k), ("v", v)],
@@ -410,9 +496,9 @@ def _d48_rows(q, k, v, pos: int, n_head: int) -> torch.Tensor:
                          f"kernel's {MAX_KEYS}")
     o = torch.empty_like(q)
     fn = cuda_lib.load("decode_attn", "decode_attn_d48_fwd",
-                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), n, tp, n_head, pos,
-            torch.cuda.current_stream(q.device).cuda_stream)
+            splits, torch.cuda.current_stream(q.device).cuda_stream)
     cuda_lib.check(rc, "decode_attn_d48_fwd")
     global D48_LAUNCHES
     D48_LAUNCHES += 1
@@ -429,12 +515,14 @@ def decode_shared_cache_attention(
     *,
     k_scale: torch.Tensor | None = None,
     v_scale: torch.Tensor | None = None,
+    splits: int | None = None,
 ) -> torch.Tensor:
     """Grouped masked cache attention: (G*beam, d) queries over (G, Tp, d)
     shared caches -> (G*beam, d). Rows are group-major (row g*beam + i is
     utterance g's beam slot i); keys t > pos are masked (pass T_audio - 1
     to mask the time padding). int8 caches: (d,) float32 k_scale/v_scale
-    (K3s-int8)."""
+    (K3s-int8). `splits` (card only): the blocks a (head, group) is split
+    over, instead of `time_splits`'s."""
     quant = k_scale is not None
     g, tp, d = k.shape
     if not 0 <= pos < tp:
@@ -451,7 +539,8 @@ def decode_shared_cache_attention(
         ins += [("k_scale", k_scale), ("v_scale", v_scale)]
     _check_kernel_inputs("decode_shared_cache_attention", n_head, d, ins,
                          torch.int8 if quant else torch.bfloat16)
-    smem = beam * (pos + 1 + SHARED_WARPS * D_HEAD) * 4
+    s = _splits("decode_shared_cache_attention", splits, g, n_head, tp, SHARED_SPLIT_BLOCKS)
+    smem = beam * (pos + 1 + SHARED_SMEM_COLS) * 4
     if not 1 <= beam <= MAX_BEAM or smem > MAX_SHARED_SMEM:
         raise ValueError(f"decode_shared_cache_attention: beam {beam} x {pos + 1} keys "
                          f"exceed the kernel's {MAX_BEAM} queries or "
@@ -459,10 +548,10 @@ def decode_shared_cache_attention(
     o = torch.empty_like(q)
     fn = cuda_lib.load(
         "decode_attn", "decode_attn_shared_fwd",
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     )
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(k_scale), _ptr(v_scale),
-            o.data_ptr(), g, tp, n_head, pos, beam,
+            o.data_ptr(), g, tp, n_head, pos, beam, s,
             torch.cuda.current_stream(q.device).cuda_stream)
     cuda_lib.check(rc, "decode_attn_shared_fwd")
     global SHARED_LAUNCHES, SHARED_I8_LAUNCHES

@@ -11,6 +11,7 @@ card.
     python3 chip_smoke.py              # every phase below
     python3 chip_smoke.py --mutants    # the kernel checks against mutants
     python3 chip_smoke.py --mutants K6 K3@48   # only the mutants so named
+    python3 chip_smoke.py --splits     # K3's instances timed at each split S
 
 Run from (or point at) a checkout of the repository on a machine with a
 CUDA card and the CUDA toolkit (nvcc). It imports nothing of JAX. Phases,
@@ -25,22 +26,30 @@ non-zero exit:
      training launches it, o and its lse rows, and K1b
      (csrc/packed_flash_bwd.cu): dq, dk, dv, each against its plain
      version;
-  3. K3 (csrc/decode_attn.cu) against its plain version at the greedy
-     decode shapes: self (8, 112, 768) at pos 0/4/57/103, cross
-     (8, 752, 768) at pos 749;
+  3. K3 (csrc/decode_attn.cu, each (head, row) split over a cluster of S
+     blocks, `decode_attn.time_splits`) against its plain version at the
+     greedy decode shapes: self (8, 112, 768) at pos 0/4/57/103, cross
+     (8, 752, 768) at pos 749, the conformer decoder's (80, 112, 256), and
+     the split's edges (K3_CASES: empty blocks, either side of a chunk
+     edge, S at its largest); every K3 phase calls each kernel twice and
+     requires bit-identical outputs, and times SDPA beside K3, K3@48,
+     K3-int8 and K3s both masked over the whole cache and on the key slice
+     k[:, :pos+1] unmasked (the flash backend), library_ms the faster;
   3a. K3a (decode_attn.cu, the ancestry rows) against its plain version
      at the beam self-attention shapes (40, 112, 768), beam 5, pos
      4/57/103, and the full decoder context (10, 448, 768) at pos 447,
      with an ancestry map drawn like a beam run and poisoned cache
      entries (past pos, and every entry the map does not select);
-  3s. K3s (decode_attn.cu, the shared cross-KV) against its plain version
-     at (8 groups x 5, 752, 768), pos 749;
+  3s. K3s (decode_attn.cu, the shared cross-KV, on mma.sync) against its
+     plain version at (8 groups x 5, 752, 768), pos 749, and the split's
+     edges, S = 1 and 16 queries a group;
   3p. K3-PE and K3a-PE (decode_attn.cu, the gated dual-QK scores) against
      their plain version at (8, 112, 768) and (40, 112, 768), beam 5, and
      (10, 448, 768) at pos 447: distinct per-head gates with 0 and 1,
      poisoned k, k_cs and v; SDPA on [q|q_cs], [k|k_cs] timed beside them;
   3q. K3-int8 (8, 768, 768) at pos 749 and 0, K3s-int8 (8 x 5, 768, 768)
-     and K3a-int8 (40, 128, 768) against the kernel-folding plain version,
+     and K3a-int8 (40, 128, 768), and the split's edges (K3I8_CASES),
+     against the kernel-folding plain version,
      and within 5e-2 x max of the attention over the unquantised caches;
      SDPA on the dequantised caches timed beside them;
   2i. K8q (rowquant) and K8g (int8_gemm, forward and dgrad;
@@ -72,7 +81,7 @@ non-zero exit:
   3d. K3 at d_head 48 (decode_attn.cu, the side ladder's width) against its
      plain version at (8, 112, 192), 4 heads, pos 0/57/103 and (40, 112,
      192) pos 103, keys past pos poisoned, and the cross shape (8, 752,
-     192) at pos 749; SDPA timed beside it;
+     192) at pos 749 (S 8) and 0, 93, 94; SDPA timed beside it;
   4. the greedy slice: whisper-small with adapters in both stacks (the
      stage-2 recipe's flags), bf16, random weights from torch seed 0,
      Speech2Text on 8 x 15 s of seeded noise, 100 greedy steps; ms per
@@ -81,7 +90,8 @@ non-zero exit:
      weights, one utterance: encoder output and first-step logits;
   6. torch.profiler over one more warm request of phase 4: device busy
      time, device events per decode step, the device's idle share of
-     phase 4's ms per batch, and the kernels that take the most time;
+     phase 4's ms per batch, K3's device time, and the kernels that take
+     the most time;
   10. the beam slice (bench.py's beam5_8x15s row): Speech2Text(beam_size=5,
      max_steps=100, loop="scan") on phase 4's model and audio; ms per
      batch, x realtime, peak memory, exact K1f/K3/K3a/K3s launch counts;
@@ -175,7 +185,9 @@ non-zero exit:
      card against CPU float32;
   34. the ladder side network (whisper-small + the default ladder: n_dim
      192, 4 heads, taps 0, 2, ..., 10), bf16: greedy and beam 5 with exact
-     launches (K3 at d_head 48 12 a step, trunk K3 24, no K3a or K3s),
+     launches (K3 at d_head 48 12 a step, trunk K3 24, no K3a or K3s), a
+     greedy request under torch.profiler (K3@48's and the trunk K3's
+     device time),
      first-step logits card against CPU float32, beam scores against
      teacher-forced rescoring;
   35. the `sidenetwork` training step at 16 x 15 s: ms per step (median of
@@ -186,6 +198,11 @@ non-zero exit:
 The last three lines are the card's `name, power.limit` (nvidia-smi), a
 JSON line with each kernel's launches, error and times, and the
 `{"ok": true, "device": ...}` line.
+
+`--mutants` builds each MUTANTS entry (an edit of one csrc/ source) outside
+the checkout and runs the checks it names, the unmutated source first;
+`--splits` times K3's instances at every S from 1 to 8 (SPLIT_SWEEP), the
+reading `decode_attn.time_splits` was tuned on.
 """
 
 from __future__ import annotations
@@ -544,54 +561,102 @@ def check_k1_train(dev, g, timed=True) -> tuple[dict, dict]:
     return fwd, res
 
 
+def twice(name, fn, *args) -> torch.Tensor:
+    """fn(*args) twice; the two outputs must be bit-identical (the split's
+    sums have a fixed order). Returns the first."""
+    a, b = fn(*args), fn(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(a, b), f"{name}: two calls on the same inputs bit-identical")
+    return a
+
+
+def poison_past(k, v, pos: int):
+    """Copies of k, v with every key past pos set to 0 (a score far above
+    the others) and every value to 1e4."""
+    k_bad, v_bad = k.clone(), v.clone()
+    k_bad[:, pos + 1:] = 0.0
+    v_bad[:, pos + 1:] = 1e4
+    return k_bad, v_bad
+
+
+# K3's shapes in phase 3, (rows, Tp, d, heads, pos, timed): whisper's greedy
+# self- and cross-attention (8 rows, 12 heads), the conformer decoder's
+# self-attention under beam 10 (80 rows, d 256, 4 heads; a 100-step request
+# reaches pos 99), then the split's edges: the cross shape (S 6, chunks of
+# 126 keys) at pos 0 (five empty blocks) and either side of the first chunk
+# edge, and 2 rows (S 8, the most, chunks of 94) at pos 0, 93, 94 and 749.
+K3_CASES = ((8, 112, D, H, 0, True), (8, 112, D, H, 4, True), (8, 112, D, H, 57, True),
+            (8, 112, D, H, 103, True), (8, 752, D, H, 749, True),
+            (80, 112, 256, 4, 99, True), (80, 112, 256, 4, 103, True),
+            (8, 752, D, H, 0, False), (8, 752, D, H, 125, False), (8, 752, D, H, 126, False),
+            (2, 752, D, H, 0, False), (2, 752, D, H, 93, False), (2, 752, D, H, 94, False),
+            (2, 752, D, H, 749, False))
+
+
 def check_k3(dev, g, timed=True) -> dict:
-    """Phase 3: K3 against its plain version. Keys past pos are poisoned in
-    the kernel's input (score 0, far above the others, and value 1e4), so
-    a kernel that reads one fails. Whisper's greedy shapes (8 rows, d 768,
-    12 heads), then the conformer decoder's self-attention under beam 10
-    (80 rows, d 256, 4 heads; a 100-step request reaches pos 99)."""
+    """Phase 3: K3 against its plain version at K3_CASES. Keys past pos are
+    poisoned in the kernel's input (score 0, far above the others, and
+    value 1e4), so a kernel that reads one fails; every call is made twice
+    and must repeat bit for bit."""
     from agacs_tpu_torch.ops import decode_attn
 
     res = {"err": 0.0}
-    for n, tp, d, h, pos in ((8, 112, D, H, 0), (8, 112, D, H, 4), (8, 112, D, H, 57),
-                             (8, 112, D, H, 103), (8, 752, D, H, 749),
-                             (80, 112, 256, 4, 99), (80, 112, 256, 4, 103)):
+    for n, tp, d, h, pos, timed_case in K3_CASES:
         sets = [(*sharp_qkv(g, dev, (n, d), (n, tp, d), q_scale=0.125), pos, h)
-                for _ in range(8)]
+                for _ in range(8 if timed and timed_case else 1)]
         q, k, v, _, _ = sets[0]
-        k_bad, v_bad = k.clone(), v.clone()
-        k_bad[:, pos + 1:] = 0.0
-        v_bad[:, pos + 1:] = 1e4
-        err = hold(f"K3 pos={pos}",
-                   decode_attn.decode_cache_attention(q, k_bad, v_bad, pos, h),
+        s = decode_attn.time_splits(n, h, tp)
+        err = hold(f"K3 ({n}, {tp}) pos={pos} S={s}",
+                   twice("K3", decode_attn.decode_cache_attention, q,
+                         *poison_past(k, v, pos), pos, h),
                    decode_attn.decode_cache_attention_ref(
                        q.float(), k.float(), v.float(), pos, h), (n, tp, d))
         res["err"] = max(res["err"], err)
-        if not timed:
-            continue
-        ms = cuda_ms(decode_attn.decode_cache_attention, sets, 50)
-        plain_ms = cuda_ms(decode_attn.decode_cache_attention_ref, sets, 50)
-        extra = ""
-        if tp == 752 or n == 80:
-            lib = cuda_ms(lambda q, k, v, pos, h: sdpa_one_query(q, k, v, pos, h), sets, 50)
-            # bytes: the keys and values 0..pos read, q read and o written
-            bound = roofline(2 * n * (pos + 1) * d * 2 + 2 * n * d * 2,
-                             4 * n * h * (pos + 1) * 64, "bf16")
-            extra = f" sdpa {lib:.4f} ms bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})"
-            if tp == 752:
-                res.update(ms=ms, plain_ms=plain_ms, library_ms=lib, **bound)
-        print(f"phase 3 K3 decode_attn ({n}, {tp}, {d}) H={h} pos={pos}: max_abs_err "
-              f"{err:.3e} (bound {KERNEL_RTOL} x max|plain f32|) kernel "
-              f"{ms:.4f} ms plain bf16 {plain_ms:.4f} ms" + extra, flush=True)
+        line = (f"phase 3 K3 decode_attn ({n}, {tp}, {d}) H={h} pos={pos} S={s}: "
+                f"max_abs_err {err:.3e} (bound {KERNEL_RTOL} x max|plain f32|), bit-identical "
+                f"twice")
+        if timed and timed_case:
+            ms = cuda_ms(decode_attn.decode_cache_attention, sets, 50)
+            plain_ms = cuda_ms(decode_attn.decode_cache_attention_ref, sets, 50)
+            line += f" kernel {ms:.4f} ms plain bf16 {plain_ms:.4f} ms"
+            if tp == 752 or n == 80:
+                lib = sdpa_yardsticks(sets)
+                # bytes: the keys and values 0..pos read, q read and o written
+                bound = roofline(2 * n * (pos + 1) * d * 2 + 2 * n * d * 2,
+                                 4 * n * h * (pos + 1) * 64, "bf16")
+                line += (f" {lib['text']} bound {bound['bound_ms']:.4f} ms "
+                         f"({bound['bound_by']})")
+                if tp == 752:
+                    res.update(ms=ms, plain_ms=plain_ms, library_ms=lib["library_ms"],
+                               **bound)
+        if timed:
+            print(line, flush=True)
     return res
 
 
-def sdpa_one_query(q, k, v, pos: int, h: int, beam: int = 1):
+def sdpa_yardsticks(sets, beam: int = 1) -> dict:
+    """K3's and K3s's library yardsticks on `sets` of (q, k, v, pos, h[,
+    beam]): scaled_dot_product_attention over the whole cache with the keys
+    past pos masked, and over the key slice k[:, :pos+1] without a mask
+    (which the flash backend takes), each through `sdpa_ms`; library_ms is
+    the faster, and `text` names both and their backends."""
+    masked = sdpa_ms(lambda q, k, v, pos, h, *_: sdpa_one_query(q, k, v, pos, h, beam),
+                     sets, 50)
+    sliced = sdpa_ms(lambda q, k, v, pos, h, *_: sdpa_one_query(
+        q, k[:, : pos + 1], v[:, : pos + 1], pos, h, beam, masked=False), sets, 50)
+    times = [t for t, _ in (masked, sliced) if t is not None]
+    fmt = lambda r: "none" if r[0] is None else f"{r[0]:.4f} ms ({r[1]})"  # noqa: E731
+    return {"library_ms": min(times) if times else None,
+            "text": f"sdpa masked {fmt(masked)}, key slice {fmt(sliced)}"}
+
+
+def sdpa_one_query(q, k, v, pos: int, h: int, beam: int = 1, masked: bool = True):
     """scaled_dot_product_attention of `beam` queries per cache row (q
     (N*beam, d), k/v (N, Tp, d)) over keys 0..pos: the one PyTorch call
-    that computes K3's (beam 1) and K3s's function."""
+    that computes K3's (beam 1) and K3s's function. masked=False: no mask,
+    for k and v already cut to keys 0..pos."""
     n = k.shape[0]
-    mask = (torch.arange(k.shape[1], device=k.device) <= pos)[None, :]
+    mask = (torch.arange(k.shape[1], device=k.device) <= pos)[None, :] if masked else None
     return torch.nn.functional.scaled_dot_product_attention(
         q.view(n, beam, h, -1).transpose(1, 2), sdpa_heads(k, h), sdpa_heads(v, h),
         attn_mask=mask, scale=1.0)
@@ -638,7 +703,7 @@ def check_k3a(dev, g, timed=True) -> dict:
                  beam_ancestry(g, n, tp, BEAM, pos).to(dev)) for _ in range(8)]
         q, k, v, _, _, anc = sets[0]
         k_bad, v_bad = poison_unread(k, v, anc, BEAM, pos)
-        err = hold(f"K3a pos={pos}", kernel(q, k_bad, v_bad, pos, H, anc),
+        err = hold(f"K3a pos={pos}", twice("K3a", kernel, q, k_bad, v_bad, pos, H, anc),
                    plain(q.float(), k.float(), v.float(), pos, H, anc), (n, tp, D))
         res["err"] = max(res["err"], err)
         if not timed:
@@ -660,31 +725,42 @@ def check_k3a(dev, g, timed=True) -> dict:
 def check_k3s(dev, g, timed=True) -> dict:
     """Phase 3s: K3s against its plain version at the beam cross-attention
     shape, 8 utterances x beam 5 distinct queries over (8, 752, 768), keys
-    past pos poisoned."""
+    past pos poisoned, at pos 749 (timed), and the split's edges: pos 0 (S
+    3: two empty blocks) and either side of the first chunk edge (251),
+    one utterance (S 8, the most) at pos 749, S = 1 at pos 749 (one block a
+    (head, group), a ring of many tiles), and 2 groups of 16 queries (the
+    kernel's MAX_BEAM). Every call twice, bit for bit."""
     from agacs_tpu_torch.ops import decode_attn
 
-    groups, tp, pos = 8, 752, 749
-    sets = [(*sharp_qkv(g, dev, (groups * BEAM, D), (groups, tp, D), q_scale=0.125),
-             pos, H, BEAM) for _ in range(8)]
-    q, k, v, _, _, _ = sets[0]
-    k_bad, v_bad = k.clone(), v.clone()
-    k_bad[:, pos + 1:] = 0.0
-    v_bad[:, pos + 1:] = 1e4
-    err = hold("K3s", decode_attn.decode_shared_cache_attention(q, k_bad, v_bad, pos, H, BEAM),
-               decode_attn.decode_shared_cache_attention_ref(
-                   q.float(), k.float(), v.float(), pos, H, BEAM), (groups, tp, D))
-    res = {"err": err}
-    line = (f"phase 3s K3s decode_attn_shared ({groups} x {BEAM}, {tp}, {D}) pos={pos}: "
-            f"max_abs_err {err:.3e} (bound {KERNEL_RTOL} x max|plain f32|)")
-    if timed:
-        res["ms"] = cuda_ms(decode_attn.decode_shared_cache_attention, sets, 50)
-        res["plain_ms"] = cuda_ms(decode_attn.decode_shared_cache_attention_ref, sets, 50)
-        res["library_ms"] = cuda_ms(
-            lambda q, k, v, pos, h, j: sdpa_one_query(q, k, v, pos, h, j), sets, 50)
-        res.update(roofline(2 * groups * (pos + 1) * D * 2 + 2 * groups * BEAM * D * 2,
-                         4 * groups * BEAM * H * (pos + 1) * 64, "bf16"))
-        line += f" kernel {res['ms']:.4f} ms plain bf16 {res['plain_ms']:.4f} ms"
-    print(line, flush=True)
+    tp, res = 752, {"err": 0.0}
+    for groups, j, pos, timed_case, splits in (
+            (8, BEAM, 749, True, None), (8, BEAM, 0, False, None), (8, BEAM, 250, False, None),
+            (8, BEAM, 251, False, None), (1, BEAM, 749, False, None), (8, BEAM, 749, False, 1),
+            (2, decode_attn.MAX_BEAM, 749, False, None)):
+        sets = [(*sharp_qkv(g, dev, (groups * j, D), (groups, tp, D), q_scale=0.125),
+                 pos, H, j) for _ in range(8 if timed and timed_case else 1)]
+        q, k, v, _, _, _ = sets[0]
+        s = splits or decode_attn.time_splits(groups, H, tp, decode_attn.SHARED_SPLIT_BLOCKS)
+        err = hold(f"K3s ({groups} x {j}) pos={pos} S={s}",
+                   twice("K3s", lambda *a: decode_attn.decode_shared_cache_attention(
+                       *a, splits=splits), q, *poison_past(k, v, pos), pos, H, j),
+                   decode_attn.decode_shared_cache_attention_ref(
+                       q.float(), k.float(), v.float(), pos, H, j), (groups, tp, D))
+        res["err"] = max(res["err"], err)
+        line = (f"phase 3s K3s decode_attn_shared ({groups} x {j}, {tp}, {D}) pos={pos} "
+                f"S={s}: max_abs_err {err:.3e} (bound {KERNEL_RTOL} x max|plain f32|), "
+                f"bit-identical twice")
+        if timed and timed_case:
+            lib = sdpa_yardsticks(sets, BEAM)
+            res.update(ms=cuda_ms(decode_attn.decode_shared_cache_attention, sets, 50),
+                       plain_ms=cuda_ms(decode_attn.decode_shared_cache_attention_ref, sets, 50),
+                       library_ms=lib["library_ms"],
+                       **roofline(2 * groups * (pos + 1) * D * 2 + 2 * groups * BEAM * D * 2,
+                                  4 * groups * BEAM * H * (pos + 1) * 64, "bf16"))
+            line += (f" kernel {res['ms']:.4f} ms plain bf16 {res['plain_ms']:.4f} ms "
+                     f"{lib['text']} bound {res['bound_ms']:.4f} ms")
+        if timed:
+            print(line, flush=True)
     return res
 
 
@@ -770,7 +846,8 @@ def check_k3pe(dev, g, timed=True) -> dict:
         k_bad, kcs_bad, v_bad = k.clone(), k_cs.clone(), v.clone()
         k_bad[bad], kcs_bad[bad], v_bad[bad] = 0.0, 0.0, 1e9
         name = "K3a-PE" if anc_on else "K3-PE"
-        err = hold(f"{name} pos={pos}", kernel(q, k_bad, v_bad, pos, H, anc, q_cs, kcs_bad, gate),
+        err = hold(f"{name} pos={pos}",
+                   twice(name, kernel, q, k_bad, v_bad, pos, H, anc, q_cs, kcs_bad, gate),
                    plain(q.float(), k.float(), v.float(), pos, H, anc, q_cs.float(),
                          k_cs.float(), gate), (n, tp, D))
         key = "anc_pe" if anc_on else "pe"
@@ -810,6 +887,20 @@ def quantized(x, dev):
     return quantize_kv(x.to(dev))
 
 
+# Phase 3q's cases, (kind, rows or groups, Tp, pos, timed, splits): the
+# greedy and beam cross-attention on the int8 cross-KV (K3-int8 S 6, chunks
+# of 128 keys; K3s-int8 S 3, chunks of 256) at pos 749, 0 (empty blocks)
+# and either side of the first chunk edge, 2 rows (S 8, the most) at pos
+# 749, K3s-int8 at S = 1 (a ring of many tiles), and K3a-int8 at (40, 128)
+# pos 103.
+K3I8_CASES = (("rows", 8, 768, 749, True, None), ("rows", 8, 768, 0, False, None),
+              ("rows", 8, 768, 127, False, None), ("rows", 8, 768, 128, False, None),
+              ("rows", 2, 768, 749, False, None), ("shared", 8, 768, 749, True, None),
+              ("shared", 8, 768, 0, False, None), ("shared", 8, 768, 255, False, None),
+              ("shared", 8, 768, 256, False, None),
+              ("shared", 8, 768, 749, False, 1), ("anc", 40, 128, 103, True, None))
+
+
 def check_k3i8(dev, g, timed=True) -> dict:
     """Phase 3q: K3-int8 (greedy cross-attention, (8, 768, 768) at pos 749
     and pos 0), K3s-int8 (beam cross-attention, 8 x 5 queries over (8,
@@ -824,11 +915,10 @@ def check_k3i8(dev, g, timed=True) -> dict:
     from agacs_tpu_torch.ops import decode_attn as da
 
     res = {"rows": {"err": 0.0}, "shared": {"err": 0.0}, "anc": {"err": 0.0}}
-    for kind, n, tp, pos in (("rows", 8, 768, 749), ("rows", 8, 768, 0),
-                             ("shared", 8, 768, 749), ("anc", 40, 128, 103)):
+    for kind, n, tp, pos, timed_case, splits in K3I8_CASES:
         nq = n * BEAM if kind == "shared" else n
         sets = []
-        for _ in range(8):
+        for _ in range(8 if timed and timed_case else 1):
             q, k, v = sharp_qkv(g, dev, (nq, D), (n, tp, D), q_scale=0.125)
             (k8, ks), (v8, vs) = quantized(k, dev), quantized(v, dev)
             anc = beam_ancestry(g, n, tp, BEAM, pos).to(dev) if kind == "anc" else None
@@ -836,9 +926,11 @@ def check_k3i8(dev, g, timed=True) -> dict:
 
         def kernel(q, k8, v8, pos, h, anc, ks, vs, plain=False):
             if kind == "shared":
-                fn = (da.decode_shared_cache_attention_plain if plain
-                      else da.decode_shared_cache_attention)
-                return fn(q, k8, v8, pos, h, BEAM, k_scale=ks, v_scale=vs)
+                if plain:
+                    return da.decode_shared_cache_attention_plain(q, k8, v8, pos, h, BEAM,
+                                                                  k_scale=ks, v_scale=vs)
+                return da.decode_shared_cache_attention(q, k8, v8, pos, h, BEAM, k_scale=ks,
+                                                        v_scale=vs, splits=splits)
             fn = da.decode_cache_attention_plain if plain else da.decode_cache_attention
             return fn(q, k8, v8, pos, h, anc_local=anc, beam=BEAM, k_scale=ks, v_scale=vs)
 
@@ -855,8 +947,8 @@ def check_k3i8(dev, g, timed=True) -> dict:
         k_bad, v_bad = k8.clone(), v8.clone()
         k_bad[bad] = worst[:, None, :].expand(n, tp, D)[bad]
         v_bad[bad] = 127
-        out = kernel(q, k_bad, v_bad, pos, H, anc, ks, vs)
         name = {"rows": "K3-int8", "shared": "K3s-int8", "anc": "K3a-int8"}[kind]
+        out = twice(name, kernel, q, k_bad, v_bad, pos, H, anc, ks, vs)
         err = hold(f"{name} pos={pos}", out,
                    plain(q.float(), k8, v8, pos, H, anc, ks, vs), (nq, tp, D))
         ref = unquantised(q.float(), k.float(), v.float(), anc)
@@ -864,33 +956,32 @@ def check_k3i8(dev, g, timed=True) -> dict:
         check(q_err <= INT8_VS_BF16 * ref.abs().max().item(),
               f"{name} pos={pos} vs unquantised: {q_err} <= {INT8_VS_BF16} x max")
         res[kind]["err"] = max(res[kind]["err"], err)
-        line = (f"phase 3q {name} ({nq} queries, {n} x {tp}, {D}) pos={pos}: max_abs_err "
+        s = splits or da.time_splits(n, H, tp, da.SHARED_SPLIT_BLOCKS if kind == "shared"
+                                     else da.SPLIT_BLOCKS)
+        line = (f"phase 3q {name} ({nq} queries, {n} x {tp}, {D}) pos={pos} S={s}: max_abs_err "
                 f"{err:.3e} (bound {KERNEL_RTOL} x max|plain f32|), vs unquantised bf16 "
                 f"{q_err:.3e} ({q_err / ref.abs().max().item():.2e} of max; bound "
-                f"{INT8_VS_BF16})")
-        if timed and pos > 0:
+                f"{INT8_VS_BF16}), bit-identical twice")
+        if timed and timed_case:
             args = [a for a, _ in sets]
             ms, plain_ms = cuda_ms(kernel, args, 50), cuda_ms(plain, args, 50)
-            lib_ms = None
+            lib = {"library_ms": None, "text": "sdpa none"}
             if kind != "anc":
                 deq = [(q, da.dequantize_kv(k8, ks, torch.bfloat16),
                         da.dequantize_kv(v8, vs, torch.bfloat16), pos, H)
                        for q, k8, v8, *_ in args]
-                lib_ms = cuda_ms(lambda q, k, v, pos, h: sdpa_one_query(
-                    q, k, v, pos, h, BEAM if kind == "shared" else 1), deq, 50)
+                lib = sdpa_yardsticks(deq, BEAM if kind == "shared" else 1)
             if kind == "anc":
                 rows = (torch.arange(n, device=dev) // BEAM * BEAM)[:, None] + anc.long()
                 cells = (rows * tp + torch.arange(tp, device=dev))[:, : pos + 1].unique().numel()
                 nbytes = 2 * cells * D + n * (pos + 1) * 4
             else:
                 nbytes = 2 * n * (pos + 1) * D
-            res[kind].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            res[kind].update(ms=ms, plain_ms=plain_ms, library_ms=lib["library_ms"],
                              **roofline(nbytes + 2 * nq * D * 2 + 2 * D * 4,
                                         4 * nq * H * (pos + 1) * 64, "bf16"))
-            line += (f" kernel {ms:.4f} ms plain {plain_ms:.4f} ms sdpa on dequantised "
-                     f"bf16 (not the same function) "
-                     + (f"{lib_ms:.4f} ms" if lib_ms is not None else "none")
-                     + f" bound {res[kind]['bound_ms']:.4f} ms")
+            line += (f" kernel {ms:.4f} ms plain {plain_ms:.4f} ms on dequantised bf16 (not "
+                     f"the same function): {lib['text']} bound {res[kind]['bound_ms']:.4f} ms")
         print(line, flush=True)
     return res
 
@@ -1332,7 +1423,7 @@ def check_k3f32(dev, g, timed=True) -> dict:
     k_bad, v_bad = k.clone(), v.clone()
     k_bad[:, pos + 1:] = 0.0
     v_bad[:, pos + 1:] = 1e4
-    out = decode_attn.decode_cache_attention(q, k_bad, v_bad, pos, h)
+    out = twice("K3-f32", decode_attn.decode_cache_attention, q, k_bad, v_bad, pos, h)
     plain = decode_attn.decode_cache_attention_ref(q, k, v, pos, h)
     torch.cuda.synchronize()
     err = (out - plain).abs().max().item()
@@ -1340,8 +1431,9 @@ def check_k3f32(dev, g, timed=True) -> dict:
     check(out.dtype == torch.float32 and out.shape == plain.shape and err <= bound,
           f"K3-f32: max_abs_err {err} <= {bound}")
     res = {"err": err}
-    line = (f"phase 3f K3-f32 decode_attn_f32 ({n}, {tp}, {d}) H={h} pos={pos}: max_abs_err "
-            f"{err:.3e} (bound {K3F32_RTOL} x max|plain|)")
+    line = (f"phase 3f K3-f32 decode_attn_f32 ({n}, {tp}, {d}) H={h} pos={pos} S="
+            f"{decode_attn.time_splits(n, h, tp)}: max_abs_err {err:.3e} (bound {K3F32_RTOL} "
+            f"x max|plain|), bit-identical twice")
     if timed:
         res["ms"] = cuda_ms(decode_attn.decode_cache_attention, sets, 50)
         res["plain_ms"] = cuda_ms(decode_attn.decode_cache_attention_ref, sets, 50)
@@ -1416,38 +1508,40 @@ def check_k3_d48(dev, g, timed=True) -> dict:
     """Phase 3d: K3 at d_head 48 against its plain version at the side
     ladder's greedy self-attention (8, 112, 192), 4 heads, pos 0/57/103,
     its beam rows (40, 112, 192) pos 103 and its cross-attention (8, 752,
-    192) pos 749, keys past pos poisoned as in phase 3. Returns the error
-    and the times at the cross shape."""
+    192) pos 749 (S 8, the most: chunks of 94 keys), and at the cross
+    shape's split edges, pos 0 (seven empty blocks), 93 and 94; keys past
+    pos poisoned as in phase 3, every call twice, bit for bit. Returns the
+    error and the times at the cross shape."""
     from agacs_tpu_torch.ops import decode_attn
 
     h, d = 4, 192
     res = {"err": 0.0}
     for n, tp, pos in ((8, 112, 0), (8, 112, 57), (8, 112, 103), (40, 112, 103),
-                       (8, 752, 749)):
+                       (8, 752, 749), (8, 752, 0), (8, 752, 93), (8, 752, 94)):
+        timed_case = (tp, pos) not in ((752, 0), (752, 93), (752, 94))
         sets = [(*sharp_qkv(g, dev, (n, d), (n, tp, d), q_scale=48 ** -0.5), pos, h)
-                for _ in range(8)]
+                for _ in range(8 if timed and timed_case else 1)]
         q, k, v, _, _ = sets[0]
-        k_bad, v_bad = k.clone(), v.clone()
-        k_bad[:, pos + 1:] = 0.0
-        v_bad[:, pos + 1:] = 1e4
         before = decode_attn.D48_LAUNCHES
-        out = decode_attn.decode_cache_attention(q, k_bad, v_bad, pos, h)
-        check(decode_attn.D48_LAUNCHES == before + 1, "K3 at d_head 48 launched")
+        out = twice("K3@48", decode_attn.decode_cache_attention, q, *poison_past(k, v, pos),
+                    pos, h)
+        check(decode_attn.D48_LAUNCHES == before + 2, "K3 at d_head 48 launched")
         err = hold(f"K3@48 pos={pos}", out, decode_attn.decode_cache_attention_ref(
             q.float(), k.float(), v.float(), pos, h), (n, tp, d))
         res["err"] = max(res["err"], err)
-        line = (f"phase 3d K3@48 decode_attn ({n}, {tp}, {d}) H={h} pos={pos}: max_abs_err "
-                f"{err:.3e} (bound {KERNEL_RTOL} x max|plain f32|)")
-        if timed:
+        line = (f"phase 3d K3@48 decode_attn ({n}, {tp}, {d}) H={h} pos={pos} S="
+                f"{decode_attn.time_splits(n, h, tp)}: max_abs_err {err:.3e} (bound "
+                f"{KERNEL_RTOL} x max|plain f32|), bit-identical twice")
+        if timed and timed_case:
             ms = cuda_ms(decode_attn.decode_cache_attention, sets, 50)
             plain_ms = cuda_ms(decode_attn.decode_cache_attention_ref, sets, 50)
-            lib = cuda_ms(lambda q, k, v, pos, h: sdpa_one_query(q, k, v, pos, h), sets, 50)
+            lib = sdpa_yardsticks(sets)
             bound = roofline(2 * n * (pos + 1) * d * 2 + 2 * n * d * 2,
                              4 * n * h * (pos + 1) * 48, "bf16")
-            line += (f" kernel {ms:.4f} ms plain bf16 {plain_ms:.4f} ms sdpa {lib:.4f} ms "
+            line += (f" kernel {ms:.4f} ms plain bf16 {plain_ms:.4f} ms {lib['text']} "
                      f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
             if tp == 752:
-                res.update(ms=ms, plain_ms=plain_ms, library_ms=lib, **bound)
+                res.update(ms=ms, plain_ms=plain_ms, library_ms=lib["library_ms"], **bound)
         print(line, flush=True)
     return res
 
@@ -1484,10 +1578,11 @@ def top_kernels(per_name: dict, n: int = 8) -> str:
 def profile_request(s2t, audio, ms_batch: float, n_steps: int) -> None:
     """Phase 6: one warm request under torch.profiler."""
     busy, n_events, per_name = device_profile(lambda: s2t(audio))
+    k3 = sum(t for name, t in per_name.items() if "decode_attn_kernel" in name)
     print(f"phase 6 profile: device busy {busy:.1f} ms in {n_events} device "
           f"events ({n_events / n_steps:.0f} per decode step); idle "
-          f"{1 - busy / ms_batch:.1%} of phase 4's {ms_batch:.1f} ms/batch; top: "
-          + top_kernels(per_name), flush=True)
+          f"{1 - busy / ms_batch:.1%} of phase 4's {ms_batch:.1f} ms/batch; K3 {k3:.2f} ms "
+          f"({k3 / busy:.1%}); top: " + top_kernels(per_name), flush=True)
 
 
 def beam_phase(model, asr_cfg, audio) -> dict:
@@ -2221,6 +2316,13 @@ def side_serve_phase(dev, audio) -> dict:
                         torch.full((audio.shape[0],), audio.shape[1], device=dev))
     scores = np.array([r.score for r in beam["results"]])
     resc = np.abs(rescore(model, enc, [r.tokens for r in beam["results"]], limit) / scores - 1)
+    busy, _, per_name = device_profile(lambda: greedy["s2t"](audio))
+    k3_48 = sum(t for name, t in per_name.items()
+                if "decode_attn_kernel" in name and ", 48>" in name)
+    k3 = sum(t for name, t in per_name.items() if "decode_attn_kernel" in name) - k3_48
+    print(f"phase 34 side greedy profile: device busy {busy:.1f} ms, idle "
+          f"{1 - busy / greedy['ms']:.1%} of {greedy['ms']:.1f} ms/batch; K3@48 {k3_48:.2f} ms, "
+          f"trunk K3 {k3:.2f} ms; top: " + top_kernels(per_name), flush=True)
     print(f"phase 34 side network (whisper-small + ladder 192 x 4 heads, taps "
           f"{list(cfg.side_network.layers)}), bf16, 8 x 15 s, {n_steps} steps: greedy "
           f"{greedy['ms']:.1f} ms/batch, beam {BEAM} {beam['ms']:.1f} ms/batch (peak "
@@ -3057,12 +3159,71 @@ def conformer_train_parity(sd, dev, batch) -> dict:
     return {"card": card, "control": control}
 
 
+# `--splits`: K3's instances at their main-path shapes, (name, rows or
+# groups, Tp, d, heads, pos, form).
+SPLIT_SWEEP = (("K3 greedy cross", 8, 752, D, H, 749, "bf16"),
+               ("K3 greedy self", 8, 112, D, H, 103, "bf16"),
+               ("K3@48 side cross", 8, 752, 192, 4, 749, "bf16"),
+               ("K3 conformer self", 80, 112, 256, 4, 99, "bf16"),
+               ("K3-f32 LM", 80, 112, 512, 8, 103, "f32"),
+               ("K3-int8 cross", 8, 768, D, H, 749, "int8"),
+               ("K3s beam cross", 8, 752, D, H, 749, "shared"),
+               ("K3s-int8 beam cross", 8, 768, D, H, 749, "shared_int8"))
+
+
+def split_sweep(dev) -> None:
+    """`--splits`: each SPLIT_SWEEP shape timed at every S from 1 to
+    MAX_SPLITS, each S first held against the plain version (KERNEL_RTOL;
+    K3F32_RTOL for float32), beside the S `time_splits` picks."""
+    from agacs_tpu_torch.ops import decode_attn as da
+
+    g = torch.Generator().manual_seed(0)
+    for name, n, tp, d, h, pos, form in SPLIT_SWEEP:
+        shared, quant = form.startswith("shared"), form.endswith("int8")
+        nq = n * BEAM if shared else n
+        sets = []
+        for _ in range(8):
+            q, k, v = sharp_qkv(g, dev, (nq, d), (n, tp, d), q_scale=(d // h) ** -0.5)
+            if form == "f32":
+                q, k, v = q.float(), k.float(), v.float()
+            sc = {}
+            if quant:
+                (k, ks), (v, vs) = quantized(k, dev), quantized(v, dev)
+                sc = {"k_scale": ks, "v_scale": vs}
+            sets.append((q, k, v, sc))
+
+        def run(q, k, v, sc, splits=None, fn=None):
+            if shared:
+                fn = fn or da.decode_shared_cache_attention
+                return fn(q, k, v, pos, h, BEAM, splits=splits, **sc)
+            fn = fn or da.decode_cache_attention
+            return fn(q, k, v, pos, h, splits=splits, **sc)
+
+        q, k, v, sc = sets[0]
+        plain = da.decode_cache_attention_split_ref(q.float(), k, v, pos, h, 1,
+                                                    beam=BEAM if shared else None, **sc)
+        rtol = K3F32_RTOL if form == "f32" else KERNEL_RTOL
+        times = []
+        for splits in range(1, da.MAX_SPLITS + 1):
+            out = run(q, k, v, sc, splits)
+            torch.cuda.synchronize()
+            err = (out.float() - plain.float()).abs().max().item()
+            check(err <= rtol * plain.float().abs().max().item(),
+                  f"{name} S={splits}: max_abs_err {err}")
+            times.append(cuda_ms(lambda *a: run(*a, splits=splits), sets, 50))
+        blocks = da.SHARED_SPLIT_BLOCKS if shared else da.SPLIT_BLOCKS
+        print(f"splits {name} ({nq}, {tp}, {d}) H={h} pos={pos}: time_splits "
+              f"{da.time_splits(n, h, tp, blocks)}; ms by S "
+              + ", ".join(f"{i + 1}: {t:.4f}" for i, t in enumerate(times)), flush=True)
+
+
 # Broken copies of the kernels that the checks must catch: name -> (source,
 # [(text, replacement)], checks to run). Built outside the checkout by
 # `mutants()`.
 MUTANTS = {
-    "unmutated source": ("int8_gemm.cu", [], ("k8", "k2", "p15", "k3pe", "k3i8", "k5", "k5b",
-                                              "k4", "k6", "k3d48", "k1", "k1b")),
+    "unmutated source": ("int8_gemm.cu", [], ("k8", "k2", "p15", "k3", "k3a", "k3s", "k3f32",
+                                              "k3pe", "k3i8", "k5", "k5b", "k4", "k6",
+                                              "k3d48", "k1", "k1b")),
     "K1f without the online rescale": (
         "packed_flash_fwd.cu", [("const float a0 = hop::ex2((m0 - mx0) * C), a1 = hop::ex2((m1 - mx1) * C);",
                                  "const float a0 = 1.f, a1 = 1.f;")], ("k1", "k1b")),
@@ -3098,8 +3259,8 @@ MUTANTS = {
         "w8a16.cu", [("const dim3 grid((N + BN - 1) / BN, splits",
                       "const dim3 grid((N + BN - 1) / BN - 1, splits")], ("k6",)),
     "K3@48 reading 64 channels": (
-        "decode_attn.cu", [("float s = dot_head<DW>(k + off, qs);",
-                            "float s = dot_head<(DW == 48 ? 64 : DW)>(k + off, qs);")],
+        "decode_attn.cu", [("const bool act = sub < SL::PIECES;",
+                            "const bool act = sub < (DW == 48 ? 8 : SL::PIECES);")],
         ("k3d48",)),
     "K5 bwd dpe un-shifted one row off": (
         "relpos_flash.cu", [("const int p = p0 + 16 * warp", "const int p = p0 + 1 + 16 * warp")],
@@ -3149,23 +3310,65 @@ MUTANTS = {
         "decode_attn.cu", [("const float g = PE ? gate[h] : 0.f;",
                             "const float g = PE ? gate[0] : 0.f;")], ("k3pe",)),
     "K3-PE k_cs read from k": (
-        "decode_attn.cu", [("g * dot_head(k_cs + off, qcs)", "g * dot_head(k + off, qcs)")],
-        ("k3pe",)),
+        "decode_attn.cu", [("(PE && pc >= SL::PIECES ? reinterpret_cast<const KT*>(k_cs) : k)",
+                            "(PE && pc >= SL::PIECES ? k : k)")], ("k3pe",)),
     "K3a-PE k_cs read from the query's own row": (
-        "decode_attn.cu", [("g * dot_head(k_cs + off, qcs)",
-                            "g * dot_head(k_cs + ((size_t)n * Tp + t) * D + h * DH, qcs)")],
-        ("k3pe",)),
+        "decode_attn.cu", [("const size_t off = ((size_t)r * Tp + c0 + t0 + kk) * D + h * DW;",
+                            "const size_t off = ((size_t)(PE && !val && pc >= SL::PIECES ? n : r)"
+                            " * Tp + c0 + t0 + kk) * D + h * DW;")], ("k3pe",)),
     "K3-int8 / K3s-int8 s_v missing": (
-        "decode_attn.cu", [("if (QUANT) s *= v_scale[h * DH + tid];", ""),
-                           ("if (QUANT) s *= v_scale[h * DH + i % DH];", "")], ("k3i8",)),
+        "decode_attn.cu", [("if (QUANT) s *= v_scale[h * DW + tid];", ""),
+                           ("if (QUANT) s *= v_scale[h * DH + idx % DH];", "")], ("k3i8",)),
     "K3-int8 / K3s-int8 s_k applied after the softmax": (
         "decode_attn.cu",
         [("return __bfloat162float(__float2bfloat16(x * k_scale[c]));", "return x;"),
-         ("if (QUANT) s *= v_scale[h * DH + tid];",
-          "if (QUANT) s *= v_scale[h * DH + tid] * k_scale[h * DH + tid];"),
-         ("if (QUANT) s *= v_scale[h * DH + i % DH];",
-          "if (QUANT) s *= v_scale[h * DH + i % DH] * k_scale[h * DH + i % DH];")],
+         ("return pack_bf16(f.x * k_scale[h * DH + c], f.y * k_scale[h * DH + c + 1]);",
+          "return pack_bf16(f.x, f.y);"),
+         ("if (QUANT) s *= v_scale[h * DW + tid];",
+          "if (QUANT) s *= v_scale[h * DW + tid] * k_scale[h * DW + tid];"),
+         ("if (QUANT) s *= v_scale[h * DH + idx % DH];",
+          "if (QUANT) s *= v_scale[h * DH + idx % DH] * k_scale[h * DH + idx % DH];")],
         ("k3i8",)),
+    "K3 p left unnormalised": (
+        "decode_attn.cu", [("const float w = sc[t] / l;", "const float w = sc[t];")], ("k3",)),
+    "K3 one key past pos": (
+        "decode_attn.cu", [("const int nk = pos + 1;", "const int nk = min(pos + 2, Tp);")],
+        ("k3",)),
+    "K3a reading each row's own cache row": (
+        "decode_attn.cu", [("rows[t] = base + min(max(an[c0 + t], 0), J - 1);", "rows[t] = n;")],
+        ("k3a",)),
+    "K3-f32 p rounded to bf16": (
+        "decode_attn.cu", [("sc[t] = F32 ? w : __bfloat162float(__float2bfloat16(w));",
+                            "sc[t] = __bfloat162float(__float2bfloat16(w));")], ("k3f32",)),
+    "K3 split: rank 0 sums S - 1 partials": (
+        "decode_attn.cu",
+        [("for (int r = 0; r < S; ++r) s += parts[r][tid];",
+          "for (int r = 0; r < S - 1; ++r) s += parts[r][tid];"),
+         ("for (int r = 0; r < S; ++r) s += parts[r * J * DH + idx];",
+          "for (int r = 0; r < S - 1; ++r) s += parts[r * J * DH + idx];")],
+        ("k3", "k3s")),
+    "K3 split: each block's own max and sum": (
+        "decode_attn.cu",
+        [("for (int r = 0; r < S; ++r) m = fmaxf(m, xm[r]);", "m = mx;"),
+         ("for (int r = 0; r < S; ++r) l += xl[r];", "l = sum;"),
+         ("for (int r = 0; r < S; ++r) m = fmaxf(m, xm[r * J + i]);", "m = xm[rank * J + i];"),
+         ("for (int r = 0; r < S; ++r) l += xl[r * J + i];", "l = xl[rank * J + i];")],
+        ("k3", "k3s")),
+    "K3 split: a chunk edge one key off": (
+        "decode_attn.cu", [("const int c0 = rank * chunk;",
+                            "const int c0 = rank * chunk + (rank > 0);")] * 2, ("k3", "k3s")),
+    "K3 split: the last chunk reads a key past pos": (
+        "decode_attn.cu", [("const int nkb = max(0, min(chunk, nk - c0));",
+                            "const int nkb = max(0, min(chunk, min(nk + (S > 1 && rank == S - 1),"
+                            " Tp) - c0));")] * 2, ("k3", "k3s")),
+    "K3 split: an empty block's sum 1": (
+        "decode_attn.cu", [("*cluster.map_shared_rank(&xl[rank], tid) = sum;",
+                            "*cluster.map_shared_rank(&xl[rank], tid) = nkb ? sum : 1.f;")],
+        ("k3",)),
+    "K3s split: query i's partial from query i+1": (
+        "decode_attn.cu", [("s += parts[r * J * DH + idx];",
+                            "s += parts[r * J * DH + (idx + DH < J * DH ? idx + DH : idx)];")],
+        ("k3s",)),
     "K8q per-tensor scale (one fixed scale for every row)": (
         "int8_gemm.cu", [("i8::quant_scale(i8::warp_max(m))", "i8::quant_scale(8.0f)")],
         ("k8",)),
@@ -3187,6 +3390,14 @@ MUTANTS = {
 }
 
 
+# The kernel checks a mutant can name (each run with timed=False); "p15",
+# phase 15's int8 micro-step, is the other.
+KERNEL_CHECKS = {"k1": check_k1, "k1b": check_k1_train, "k2": check_k2, "k3": check_k3,
+                 "k3a": check_k3a, "k3s": check_k3s, "k3f32": check_k3f32, "k3pe": check_k3pe,
+                 "k3i8": check_k3i8, "k3d48": check_k3_d48, "k4": check_k4, "k5": check_k5,
+                 "k5b": check_k5_bwd, "k6": check_k6, "k8": check_k8}
+
+
 def mutants(dev, only=()) -> None:
     """Each MUTANTS entry (those whose name contains a word of `only`, and
     the unmutated source, when it is given): copy csrc/ to a temp dir,
@@ -3199,6 +3410,9 @@ def mutants(dev, only=()) -> None:
     from agacs_tpu_torch.models import whisper as tw
     from agacs_tpu_torch.ops import cuda_lib
 
+    unknown = {c for _, _, cs in MUTANTS.values() for c in cs} - set(KERNEL_CHECKS) - {"p15"}
+    if unknown:
+        raise ValueError(f"MUTANTS name unknown checks {sorted(unknown)}")
     src, build, state = cuda_lib.CSRC, cuda_lib.BUILD_DIR, {}
     chosen = {name for name, (_, edits, _) in MUTANTS.items()
               if not only or any(word in name for word in only)}
@@ -3221,29 +3435,7 @@ def mutants(dev, only=()) -> None:
         for chk in checks:
             g = torch.Generator().manual_seed(0)
             try:
-                if chk == "k8":
-                    check_k8(dev, g, timed=False)
-                elif chk == "k2":
-                    check_k2(dev, g, timed=False)
-                elif chk == "k3pe":
-                    check_k3pe(dev, g, timed=False)
-                elif chk == "k3i8":
-                    check_k3i8(dev, g, timed=False)
-                elif chk == "k5":
-                    check_k5(dev, g, timed=False)
-                elif chk == "k5b":
-                    check_k5_bwd(dev, g, timed=False)
-                elif chk == "k4":
-                    check_k4(dev, g, timed=False)
-                elif chk == "k6":
-                    check_k6(dev, g, timed=False)
-                elif chk == "k3d48":
-                    check_k3_d48(dev, g, timed=False)
-                elif chk == "k1":
-                    check_k1(dev, g, timed=False)
-                elif chk == "k1b":
-                    check_k1_train(dev, g, timed=False)
-                else:
+                if chk == "p15":
                     if not state:
                         cfg = tw.make_config("small", adapter=True, adapter_encoder=True,
                                              adapter_decoder=True)
@@ -3251,6 +3443,8 @@ def mutants(dev, only=()) -> None:
                         state.update(sd8=int8_state(sd, dev),
                                      batch=make_train_batch(TRAIN_B, TRAIN_S, dev))
                     int8_train_parity(state["sd8"], dev, state["batch"], float("nan"))
+                else:
+                    KERNEL_CHECKS[chk](dev, g, timed=False)
                 print(f"MUTANT [{name}] {chk}: passes", flush=True)
             except RuntimeError as e:
                 print(f"MUTANT [{name}] {chk}: FAILS: {str(e)[:300]}", flush=True)
@@ -3433,6 +3627,9 @@ def main() -> int:
     t_start = time.perf_counter()
     if sys.argv[1:2] == ["--mutants"]:
         mutants(dev, sys.argv[2:])
+        return 0
+    if sys.argv[1:2] == ["--splits"]:
+        split_sweep(dev)
         return 0
 
     # 1. device and build
