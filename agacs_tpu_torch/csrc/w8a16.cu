@@ -4,40 +4,51 @@
 //   y = x . bf16(f32(w_q) * w_s)   x (M, K) bf16, w_q (K, N) int8 row-major,
 //                                  w_s (N,) f32, y (M, N) bf16.
 // Each weight value is dequantised on chip, in float32, with its column's
-// scale and rounded to bf16 before the dot (the TPU kernel's `wt`); the
-// dot is bf16 mma.sync with float32 accumulation and the output is rounded
-// to bf16 once. Rows past M are zero in shared memory (JAX pads x to a
-// multiple of 8 rows) and are never written.
+// scale and rounded to bf16 once before the dot (the TPU kernel's `wt`);
+// the dot is bf16 mma.sync with float32 accumulation and the output is
+// rounded to bf16 once.
 //
 // What bounds it on the H100: the weight's bytes. A decode step's 8 rows
-// do 2 * 8 = 16 operations per weight byte, far below the card's ~295
-// FLOP/byte ridge: (768, 768) is 0.59 MB (0.18 us at 3.35 TB/s), fc1 and
-// fc2 2.36 MB (0.70 us), the padded logits head (768, 52224) 40.1 MB
-// (12.0 us; its bf16 table would be twice that). So the design reads each
-// weight byte once, in 16-byte loads, and keeps enough blocks in flight to
-// cover the 132 SMs even at N = 768: a block owns 32 output columns (4
-// warps x 8) and up to 64 rows, and the wrapper splits K over gridDim.y
-// until there are at least 264 blocks; the float32 partials of a split
-// then meet in a second pass (`splitk_reduce`), summed in split order.
-// Per 128-row stage a thread loads the int8 of two k rows x 16 columns,
-// dequantises them and stores them as (k, k+1) bf16 pairs in a [n][k]
-// tile, so each B fragment is two 32-bit shared loads; x's stage is staged
-// row-major [m][k]. No double buffering, TMA or wgmma yet: later work.
+// do 16 operations per weight byte, far below the card's ~295 FLOP/byte
+// ridge: (768, 768) is 0.59 MB (0.18 us at 3.35 TB/s), fc1 and fc2 2.36 MB
+// (0.70 us), the padded logits head (768, 52224) 40.1 MB (12.0 us).
+//
+// The design (thin_rows.cuh): one launch a call. The raw int8 weight
+// streams through a 4-slot cp.async ring (3 stages of 64 k rows in flight
+// beside the stage being used), x's 64-column slice of the block's rows
+// beside each stage. A thread reads 4-byte words of the weight from shared
+// memory, widens each byte exactly (the byte ^ 0x80 as the low mantissa of
+// 2^23, less 2^23 + 128), multiplies by its column's scale in float32 and
+// rounds to bf16: those registers are the mma's A fragments (the weight
+// tile is A, x^T is B), so no bf16 copy of the weight exists anywhere.
+// A block is 4 warps over 128 columns (the logits head: 408 blocks, 8.5 KB
+// a stage) or over 32 columns with the warps splitting each stage's four
+// k-steps; below 264 column tiles K is split over a cluster of S <= 8
+// blocks whose float32 partials rank 0 adds in rank order
+// (`int8_serve.thin_tiling` picks BN and S from the shapes).
 
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "thin_rows.cuh"
 
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int BN = 32;          // output columns per block (4 warps x 8)
-constexpr int KT = 128;         // k rows per shared-memory stage
-constexpr int MR = 64;          // rows of x per block (4 m16 tiles)
-constexpr int THREADS = 128;
-constexpr int LDX = KT + 8;     // bf16 per staged x row: 272 bytes, no bank conflicts
-constexpr int LDW = KT + 8;     // bf16 per staged weight column [n][k]
+using namespace thin;
+
+constexpr int KR = 64;  // weight rows (k) a stage: 4 mma steps of 16
+constexpr int G = 4;    // rows a thread reads per step (wrow's pad period)
+
+template <int BN>
+__host__ __device__ constexpr int w_bytes() {
+  return KR * BN + (KR / G) * 32;
+}
+
+template <int BN, int NT>
+__host__ __device__ constexpr int stage_bytes() {
+  return w_bytes<BN>() + 8 * NT * A_LD;
+}
 
 // c += a (16x16 bf16, row) * b (16x8 bf16, col), float32.
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
@@ -49,142 +60,149 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// Byte c of w as the exact float32 of its int8 value.
+__device__ __forceinline__ float i8f(uint32_t w, int c) {
+  return __fsub_rn(__uint_as_float(__byte_perm(w ^ 0x80808080u, 0x4B000000u, 0x7650 | c)),
+                   8388736.f);
 }
 
-// Block (blockIdx.x, blockIdx.y, blockIdx.z): columns [32x, 32x + 32),
-// k [y * k_split, (y + 1) * k_split) and rows [64z, 64z + 64). PARTIAL:
-// float32 partials into part[y] (M, N); else bf16 y directly.
-template <bool PARTIAL>
+// bf16 pair (lo in the low half), each rounded once.
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// Block (x, rank, z): columns [BN x, BN x + BN), rows [64 z, 64 z + 8 NT),
+// k stages [rank * per, rank * per + per) of 64 rows.
+template <int BN, int NT>
 __global__ void __launch_bounds__(THREADS)
 w8a16_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w,
-             const float* __restrict__ w_s, bf16* __restrict__ y,
-             float* __restrict__ part, int M, int N, int K, int k_split) {
-  __shared__ __align__(16) bf16 sx[MR * LDX];
-  __shared__ __align__(16) bf16 sw[BN * LDW];
+             const float* __restrict__ w_s, bf16* __restrict__ y, int M, int N, int K,
+             int per) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int WK = THREADS / BN;  // warps of a column group: they split each stage
+  constexpr int SB = stage_bytes<BN, NT>();
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  if (S > 1) cluster_arrive_relaxed();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.z * MR;
-  const int k_begin = blockIdx.y * k_split, k_end = min(K, k_begin + k_split);
-  const int rows = min(MR, M - m0);
-  const int mt = (rows + 15) >> 4;  // m16 tiles holding rows
+  const int wn = warp % (BN / 32), wk = warp / (BN / 32);
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.z * 8 * MAX_NT;
+  const int rows = min(8 * NT, M - m0);
+  const int n_stages = (K + KR - 1) / KR;
+  const int st0 = rank * per, nst = max(0, min(n_stages, st0 + per) - st0);
 
-  // this thread's weight slice of a stage: k rows 2p, 2p + 1, columns c..c+15
-  const int p = tid >> 1, c = (tid & 1) * 16;
-  const bool col_ok = n0 + c < N;  // N % 16 == 0: a slice is all in or all out
-  float sc[16];
+  // this thread's columns 4g..4g+3 of the warp's 32 (all in or all out: N % 16 == 0)
+  const int cq = n0 + wn * 32 + 4 * g;
+  float sc[4];
 #pragma unroll
-  for (int j = 0; j < 16; ++j) sc[j] = col_ok ? w_s[n0 + c + j] : 0.f;
+  for (int c = 0; c < 4; ++c) sc[c] = cq < N ? w_s[cq + c] : 0.f;
 
-  float acc[4][4];
+  float acc[2][NT][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
-  for (int k0 = k_begin; k0 < k_end; k0 += KT) {
-    for (int i = tid; i < mt * 16 * (KT / 8); i += THREADS) {
-      const int r = i / (KT / 8), kc = (i % (KT / 8)) * 8;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (r < rows && k0 + kc < k_end)
-        v = *reinterpret_cast<const uint4*>(x + (size_t)(m0 + r) * K + k0 + kc);
-      *reinterpret_cast<uint4*>(sx + r * LDX + kc) = v;
+  const unsigned char* xa = reinterpret_cast<const unsigned char*>(x + (size_t)m0 * K);
+  // Stage j of this split into slot j % STAGES as one cp.async group; past
+  // the end an empty group, so every step commits one.
+  auto fetch = [&](int j) {
+    if (j < nst) {
+      unsigned char* slot = smem + (j % STAGES) * SB;
+      const int k0 = (st0 + j) * KR;
+      fetch_stage<BN, KR, G, NT>(slot, slot + w_bytes<BN>(), w, K, N, k0, n0, xa,
+                                 (size_t)K * 2, rows, (size_t)k0 * 2, (size_t)K * 2, tid);
     }
-    {
-      const int ka = k0 + 2 * p;
-      int4 ra = make_int4(0, 0, 0, 0), rb = make_int4(0, 0, 0, 0);
-      if (col_ok && ka < k_end)
-        ra = *reinterpret_cast<const int4*>(w + (size_t)ka * N + n0 + c);
-      if (col_ok && ka + 1 < k_end)
-        rb = *reinterpret_cast<const int4*>(w + (size_t)(ka + 1) * N + n0 + c);
-      const int8_t* a8 = reinterpret_cast<const int8_t*>(&ra);
-      const int8_t* b8 = reinterpret_cast<const int8_t*>(&rb);
+    cp_commit();
+  };
+  for (int j = 0; j < STAGES - 1; ++j) fetch(j);
+
+  for (int j = 0; j < nst; ++j) {
+    cp_wait<STAGES - 2>();  // stage j has landed (this thread's copies)
+    __syncthreads();        // ... and everyone's; slot (j - 1) % STAGES is free
+    fetch(j + STAGES - 1);
+    const unsigned char* tile = smem + (j % STAGES) * SB;
+    const unsigned char* act = tile + w_bytes<BN>();
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        // f32(w_q) * w_s in float32, then one rounding to bf16
-        const __nv_bfloat162 pr = __floats2bfloat162_rn(__fmul_rn((float)a8[j], sc[j]),
-                                                        __fmul_rn((float)b8[j], sc[j]));
-        *reinterpret_cast<__nv_bfloat162*>(sw + (c + j) * LDW + 2 * p) = pr;
+    for (int s = 0; s < STEPS / WK; ++s) {
+      const int q = wk + s * WK;
+      // k rows 16q + 4t .. + 3: the mma's k pairs (2t, 2t+1) and (2t+8, 2t+9)
+      uint32_t wv[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        wv[r] = ld32(tile + wrow<BN, G>(16 * q + 4 * t + r) + wn * 32 + 4 * g);
+      float f[4][4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) f[r][c] = __fmul_rn(i8f(wv[r], c), sc[c]);
+      uint32_t a[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        a[i][0] = pack(f[0][2 * i], f[1][2 * i]);
+        a[i][1] = pack(f[0][2 * i + 1], f[1][2 * i + 1]);
+        a[i][2] = pack(f[2][2 * i], f[3][2 * i]);
+        a[i][3] = pack(f[2][2 * i + 1], f[3][2 * i + 1]);
+      }
+#pragma unroll
+      for (int jt = 0; jt < NT; ++jt) {
+        const uint2 b2 = ld64(act + (8 * jt + g) * A_LD + (16 * q + 4 * t) * 2);
+        const uint32_t b[2] = {b2.x, b2.y};
+        mma_bf16(acc[0][jt], a[0], b);
+        mma_bf16(acc[1][jt], a[1], b);
       }
     }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < KT; kk += 16) {
-      const bf16* bp = sw + (warp * 8 + g) * LDW + kk + 2 * t;
-      const uint32_t b[2] = {ld32(bp), ld32(bp + 8)};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if (i < mt) {
-          const bf16* ap = sx + (i * 16 + g) * LDX + kk + 2 * t;
-          const uint32_t a[4] = {ld32(ap), ld32(ap + 8 * LDX), ld32(ap + 8),
-                                 ld32(ap + 8 * LDX + 8)};
-          mma_bf16(acc[i], a, b);
-        }
-      }
-    }
-    __syncthreads();
   }
+  cp_wait<0>();
+  __syncthreads();
 
-  const int col = n0 + warp * 8 + 2 * t;
-  if (col >= N) return;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int r = i * 16 + g + 8 * hh;
-      if (i >= mt || r >= rows) continue;
-      const size_t o = (size_t)(m0 + r) * N + col;
-      if (PARTIAL)
-        *reinterpret_cast<float2*>(part + (size_t)blockIdx.y * M * N + o) =
-            make_float2(acc[i][2 * hh], acc[i][2 * hh + 1]);
-      else
-        *reinterpret_cast<__nv_bfloat162*>(y + o) =
-            __floats2bfloat162_rn(acc[i][2 * hh], acc[i][2 * hh + 1]);
-    }
-  }
+  reduce_put<BN, NT>(acc, reinterpret_cast<float*>(smem),
+                     reinterpret_cast<float*>(smem + STAGES * SB), wn, wk, rows, S, rank,
+                     [&](int r, int c, float4 v) {
+                       if (n0 + c < N) {  // four columns, all in or all out
+                         __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(
+                             y + (size_t)(m0 + r) * N + n0 + c);
+                         o[0] = __floats2bfloat162_rn(v.x, v.y);
+                         o[1] = __floats2bfloat162_rn(v.z, v.w);
+                       }
+                     });
 }
 
-// y = bf16(sum over the S splits' float32 partials, in split order).
-__global__ void __launch_bounds__(256)
-splitk_reduce(const float* __restrict__ part, bf16* __restrict__ y, int S, size_t mn) {
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < mn;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float s = part[i];
-    for (int j = 1; j < S; ++j) s += part[(size_t)j * mn + i];
-    y[i] = __float2bfloat16_rn(s);
-  }
+template <int BN, int NT>
+int launch_k6(const void* x, const void* w_q, const void* w_s, void* y, int M, int N, int K,
+              int S, cudaStream_t stream) {
+  static bool opted[MAX_DEVICES] = {};
+  return launch_split<BN, NT, stage_bytes<BN, NT>(), float>(
+      w8a16_kernel<BN, NT>, opted, (K + KR - 1) / KR, S, (N + BN - 1) / BN,
+      (M + 8 * MAX_NT - 1) / (8 * MAX_NT), stream, (const bf16*)x, (const int8_t*)w_q,
+      (const float*)w_s, (bf16*)y, M, N, K);
+}
+
+template <int BN>
+int launch_k6_rows(const void* x, const void* w_q, const void* w_s, void* y, int M, int N,
+                   int K, int S, cudaStream_t stream) {
+  if (M <= 8) return launch_k6<BN, 1>(x, w_q, w_s, y, M, N, K, S, stream);
+  if (M <= 16) return launch_k6<BN, 2>(x, w_q, w_s, y, M, N, K, S, stream);
+  if (M <= 32) return launch_k6<BN, 4>(x, w_q, w_s, y, M, N, K, S, stream);
+  return launch_k6<BN, 8>(x, w_q, w_s, y, M, N, K, S, stream);
 }
 
 }  // namespace
 
-// y (M, N) bf16 = x (M, K) bf16 . bf16(w_q (K, N) int8 * w_s (N,) f32).
-// K % 16 == 0, N % 16 == 0, 16-byte aligned contiguous buffers. splits >
-// 1 splits K into that many ranges of whole 128-row stages and needs
-// `work`, (splits, M, N) float32. Returns cudaGetLastError() after the
-// launches.
+// y (M, N) bf16 = x (M, K) bf16 . bf16(w_q (K, N) int8 * w_s (N,) f32), one
+// launch. K % 16 == 0, N % 16 == 0, 16-byte aligned contiguous buffers. bn
+// (32 or 128) output columns a block and K split over `splits` (1..8; 1
+// at bn 128) blocks of a cluster, each ceil(stages / splits) 64-row stages
+// (none empty). Returns cudaGetLastError() after the launch.
 extern "C" int w8a16_matmul(const void* x, const void* w_q, const void* w_s, void* y,
-                            void* work, int M, int N, int K, int splits, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || N % 16 || K % 16 || splits < 1 ||
-      (splits > 1 && !work))
+                            int M, int N, int K, int bn, int splits, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || N % 16 || K % 16 || (bn != 32 && bn != 128))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const int chunks = (K + KT - 1) / KT;
-  const int k_split = ((chunks + splits - 1) / splits) * KT;
-  const dim3 grid((N + BN - 1) / BN, splits, (M + MR - 1) / MR);
-  if (splits == 1) {
-    w8a16_kernel<false><<<grid, THREADS, 0, s>>>(
-        (const bf16*)x, (const int8_t*)w_q, (const float*)w_s, (bf16*)y, nullptr, M, N, K,
-        k_split);
-    return (int)cudaGetLastError();
-  }
-  w8a16_kernel<true><<<grid, THREADS, 0, s>>>(
-      (const bf16*)x, (const int8_t*)w_q, (const float*)w_s, nullptr, (float*)work, M, N,
-      K, k_split);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const size_t mn = (size_t)M * N;
-  const int blocks = (int)((mn + 255) / 256 < 1024 ? (mn + 255) / 256 : 1024);
-  splitk_reduce<<<blocks, 256, 0, s>>>((const float*)work, (bf16*)y, splits, mn);
-  return (int)cudaGetLastError();
+  if (bn == 128) return launch_k6_rows<128>(x, w_q, w_s, y, M, N, K, splits, s);
+  return launch_k6_rows<32>(x, w_q, w_s, y, M, N, K, splits, s);
 }

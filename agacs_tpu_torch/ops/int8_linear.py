@@ -10,9 +10,12 @@ row-quantised to int8 against w_q^T (JAX `BWD_INT8 = True`).
 
 On a CUDA tensor each product is two launches: K8q `rowquant` and K8g
 `int8_gemm` (forward: w_q read row-major; dgrad: the same buffer read as
-w_q^T, so neither direction needs a transposed copy). On a CPU tensor the
-plain versions below run the same arithmetic (the int32 sums are formed
-exactly in float64). There is no fallback from the card to them.
+w_q^T, so neither direction needs a transposed copy). K8g's forward at
+THIN_ROWS rows or fewer (a decode step's 8 or 40) takes its thin-row
+kernel, K split over a cluster by `int8_serve.thin_tiling`. On a CPU
+tensor the plain versions below run the same arithmetic (the int32 sums
+are formed exactly in float64). There is no fallback from the card to
+them.
 
 `int8_linear` dispatches as JAX's (:133-150): a 2-D weight whose input
 has thin rows (`int8_serve.thin_rows`: at most 32 rows, `AGACS_W8A16` on)
@@ -33,6 +36,8 @@ from agacs_tpu_torch.ops import cuda_lib, int8_serve
 QUANT_LAUNCHES = 0  # K8q launches since the last reset (chip_smoke.py reads them)
 LAUNCHES = 0        # K8g forward launches
 DGRAD_LAUNCHES = 0  # K8g dgrad launches
+THIN_LAUNCHES = 0   # of LAUNCHES, those of the thin-row forward kernel
+THIN_ROWS = 64      # K8g's forward takes the thin-row kernel at <= this many rows
 
 
 def _scale(amax: torch.Tensor) -> torch.Tensor:
@@ -102,6 +107,26 @@ def int8_matmul_dgrad_ref(g: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
 _DTYPES = {torch.bfloat16: 1, torch.float32: 0}
 
 
+def thin_gemm(m: int, dgrad: bool) -> bool:
+    """Whether K8g takes its thin-row kernel: the forward at THIN_ROWS rows
+    or fewer (csrc/int8_gemm.cu dispatches on the same condition)."""
+    return not dgrad and m <= THIN_ROWS
+
+
+def int8_gemm_split_ref(q: torch.Tensor, s_row: torch.Tensor, w_q: torch.Tensor,
+                        w_s: torch.Tensor, splits: int,
+                        out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The thin K8g's split over K in plain PyTorch (for tests): each
+    block's exact int32 partial over its `int8_serve.split_ranges` rows
+    (K8_KR-row stages), the partials added in rank order, then the
+    epilogue (acc * s_row) * w_s, cast once."""
+    acc = None
+    for k0, k1 in int8_serve.split_ranges(q.shape[-1], int8_serve.K8_KR, splits):
+        part = q[:, k0:k1].long() @ w_q[k0:k1].long()
+        acc = part if acc is None else acc + part
+    return (acc.float() * s_row * w_s).to(out_dtype)
+
+
 def _check(what: str, **tensors) -> None:
     for name, t in tensors.items():
         if t is None:
@@ -164,17 +189,20 @@ def int8_gemm(q: torch.Tensor, s_row: torch.Tensor, w_q: torch.Tensor,
     if k % 16 or n % 16:
         raise ValueError(f"int8_gemm: K {k} and N {n} must be multiples of 16")
     out = torch.empty(m, n, dtype=out_dtype, device=q.device)
+    thin = thin_gemm(m, dgrad)
+    bn, splits = int8_serve.thin_tiling(m, n, k, int8_serve.K8_KR) if thin else (0, 0)
     fn = cuda_lib.load("int8_gemm", "int8_gemm",
-                       [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                       [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     rc = fn(q.data_ptr(), s_row.data_ptr(), w_q.data_ptr(),
             None if dgrad else w_s.data_ptr(), out.data_ptr(), _DTYPES[out_dtype],
-            m, n, k, int(dgrad), torch.cuda.current_stream(q.device).cuda_stream)
+            m, n, k, int(dgrad), bn, splits, torch.cuda.current_stream(q.device).cuda_stream)
     cuda_lib.check(rc, "int8_gemm")
-    global LAUNCHES, DGRAD_LAUNCHES
+    global LAUNCHES, DGRAD_LAUNCHES, THIN_LAUNCHES
     if dgrad:
         DGRAD_LAUNCHES += 1
     else:
         LAUNCHES += 1
+        THIN_LAUNCHES += thin
     return out
 
 

@@ -21,8 +21,9 @@ K6's plain version, as JAX interprets its Pallas kernel); any other value
 is on for a CUDA tensor only (JAX: on its TPU backend only), so a CPU
 tensor takes K8's plain version.
 
-On a CUDA tensor `w8a16_matmul` launches K6 (bf16 x only) or raises; on a
-CPU tensor it takes `w8a16_matmul_ref`. The backward is dx only,
+On a CUDA tensor `w8a16_matmul` launches K6 (bf16 x only; one launch, its
+split over K summed inside it, `thin_tiling`) or raises; on a CPU tensor
+it takes `w8a16_matmul_ref`. The backward is dx only,
 (g·w_s) @ w_q^T in x's dtype, a plain product as in JAX's VJP (:114-124).
 """
 
@@ -38,10 +39,15 @@ from agacs_tpu_torch.ops import cuda_lib
 
 MAX_ROWS = 32  # above this K8's row quantisation amortizes (JAX :37)
 _NT = 512      # JAX's VMEM column tile: `fits` keeps its shape rule
-# K6's tiles (csrc/w8a16.cu): 32 output columns and 128 k rows per stage,
-# 64 rows of x per block; the wrapper splits K until the grid has at
-# least two blocks for each of the H100's 132 SMs
-BN, KT, MR = 32, 128, 64
+# The thin-row kernels' tiling (csrc/thin_rows.cuh): a block takes 32 or
+# 128 output columns and up to THIN_MR rows; K is split over at most
+# MAX_SPLITS blocks of a cluster, in whole ring stages of K6_KR (K6) or
+# K8_KR (K8g's thin form) weight rows, until the launch reaches MIN_BLOCKS
+# blocks (two for each of the H100's 132 SMs).
+WIDE, NARROW = 128, 32
+THIN_MR = 64
+K6_KR, K8_KR = 64, 128
+MAX_SPLITS = 8
 MIN_BLOCKS = 2 * 132
 LAUNCHES = 0  # K6 launches since the last reset (chip_smoke.py reads it)
 
@@ -74,16 +80,43 @@ def w8a16_matmul_ref(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor) -> t
     return (x.float() @ dequant_bf(w_q, w_s, x.dtype).float()).to(x.dtype)
 
 
-def splits_for(m: int, n: int, k: int) -> int:
-    """K6's split over K: 1 when the column tiles alone fill MIN_BLOCKS,
-    else splits of whole 128-row stages, as few stages per split as reach
-    MIN_BLOCKS (a second pass then sums the float32 partials)."""
-    tiles = -(-n // BN) * -(-m // MR)
-    chunks = -(-k // KT)
+def thin_tiling(m: int, n: int, k: int, kr: int) -> tuple[int, int]:
+    """(BN, S) of a thin-row launch, from the shapes alone (so every decode
+    step launches one grid): BN = 128 when those column tiles alone reach
+    MIN_BLOCKS, else 32; S = 1 when the tiles reach MIN_BLOCKS, else K's
+    `kr`-row stages split into at most MAX_SPLITS ranges of whole stages,
+    as few stages a range as reach MIN_BLOCKS (none empty)."""
+    z = -(-m // THIN_MR)
+    if -(-n // WIDE) * z >= MIN_BLOCKS:
+        return WIDE, 1
+    tiles = -(-n // NARROW) * z
     if tiles >= MIN_BLOCKS:
-        return 1
-    per = max(1, chunks // -(-MIN_BLOCKS // tiles))
-    return -(-chunks // per)
+        return NARROW, 1
+    stages = -(-k // kr)
+    per = max(1, -(-stages // MAX_SPLITS), stages // -(-MIN_BLOCKS // tiles))
+    return NARROW, -(-stages // per)
+
+
+def split_ranges(k: int, kr: int, splits: int) -> list[tuple[int, int]]:
+    """The k rows [start, stop) of each block of a split, in rank order:
+    ceil(stages / S) stages of `kr` rows each, the last cut at K (the
+    kernels' `per`)."""
+    stages = -(-k // kr)
+    per = -(-stages // splits) * kr
+    return [(min(k, r * per), min(k, (r + 1) * per)) for r in range(splits)]
+
+
+def w8a16_split_ref(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
+                    splits: int) -> torch.Tensor:
+    """K6's split over K in plain PyTorch (for tests): each block's float32
+    partial over its `split_ranges` rows of the dequantised bf16 weight,
+    the partials added in rank order, cast to x's dtype once."""
+    wt = dequant_bf(w_q, w_s, x.dtype).float()
+    y = None
+    for k0, k1 in split_ranges(x.shape[-1], K6_KR, splits):
+        part = x[:, k0:k1].float() @ wt[k0:k1]
+        y = part if y is None else y + part
+    return y.to(x.dtype)
 
 
 def _launch(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor) -> torch.Tensor:
@@ -103,14 +136,11 @@ def _launch(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor) -> torch.Tens
     if k % 16 or n % 16:
         raise ValueError(f"w8a16_matmul: K {k} and N {n} must be multiples of 16")
     out = torch.empty(m, n, dtype=x.dtype, device=x.device)
-    splits = splits_for(m, n, k)
-    work = (torch.empty(splits, m, n, dtype=torch.float32, device=x.device)
-            if splits > 1 else None)
+    bn, splits = thin_tiling(m, n, k, K6_KR)
     fn = cuda_lib.load("w8a16", "w8a16_matmul",
-                       [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    rc = fn(x.data_ptr(), w_q.data_ptr(), w_s.data_ptr(), out.data_ptr(),
-            None if work is None else work.data_ptr(), m, n, k, splits,
-            torch.cuda.current_stream(x.device).cuda_stream)
+                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    rc = fn(x.data_ptr(), w_q.data_ptr(), w_s.data_ptr(), out.data_ptr(), m, n, k, bn,
+            splits, torch.cuda.current_stream(x.device).cuda_stream)
     cuda_lib.check(rc, "w8a16_matmul")
     global LAUNCHES
     LAUNCHES += 1

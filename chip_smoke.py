@@ -54,8 +54,11 @@ non-zero exit:
      SDPA on the dequantised caches timed beside them;
   2i. K8q (rowquant) and K8g (int8_gemm, forward and dgrad;
      csrc/int8_gemm.cu) against their plain versions at (12000, 768) -> 768,
-     (528, 768) -> 768, (8, 768) -> 3072, (8, 3072) -> 768, (8, 768) -> 768,
-     with torch._int_mm + the dequant timed beside them (M > 16);
+     (528, 768) -> 768, (8, 768) -> 3072, (8, 3072) -> 768, (8, 768) -> 768
+     and (40, 768) -> 768, with torch._int_mm + the dequant timed beside
+     them (M > 16); at 64 rows or fewer K8g's thin kernel: no element may
+     differ from the plain version, two calls bit-identical, one device
+     launch a call, cuBLAS on the dequantised bf16 weight timed beside;
   2j. K2f and K2b (csrc/int8_mlp.cu) against their plain versions at
      (12000, 768, 3072), (528, 768, 3072) and 1000 rows (a partial tile);
   2r. K5 (csrc/relpos_flash.cu) against its plain version at the conformer
@@ -75,9 +78,11 @@ non-zero exit:
      the LM's beam shape (80, 112, 512), 8 heads, pos 103, within 1e-4;
   2w. K6 (csrc/w8a16.cu, the W8A16 thin-row matmul) against its plain
      version at (768 -> 768), (768 -> 3072), (3072 -> 768) and the padded
-     logits head (768 -> 52224), rows 1, 5, 8 and 32: 1e-2 x max |plain|,
-     and elementwise K6_ELEM; cuBLAS on the pre-dequantised bf16 weight and
-     K8q + K8g timed beside it, with its bytes bound;
+     logits head (768 -> 52224), rows 1, 5, 8 and 32 (the head also 40):
+     1e-2 x max |plain|,
+     and elementwise K6_ELEM, two calls bit-identical, one device launch a
+     call, the tiling (BN, S) the rule chose; cuBLAS on the pre-dequantised
+     bf16 weight and K8q + K8g timed beside it, with its bytes bound;
   3d. K3 at d_head 48 (decode_attn.cu, the side ladder's width) against its
      plain version at (8, 112, 192), 4 heads, pos 0/57/103 and (40, 112,
      192) pos 103, keys past pos poisoned, and the cross shape (8, 752,
@@ -127,8 +132,10 @@ non-zero exit:
      the CPU (float32, plain versions) on the same int8 weights, beside a
      card control with the int8 plain versions;
   16. greedy Speech2Text (8 x 15 s, 100 steps) on the int8 trunk: ms per
-     batch, x realtime, exact launch counts, first-step logits card bf16
-     against CPU float32, and one more request under torch.profiler;
+     batch, x realtime, exact launch counts (the decode steps' 8-row
+     products on K8g's thin kernel), first-step logits card bf16 against
+     CPU float32, and one more request under torch.profiler (K8g's and
+     its thin kernel's device ms, one device event a K8g call);
   17. the CLIs on the card: `bin.train --override freeze_quant=int8` (the
      stage-2 recipe, whisper-small, one epoch) on a generated data dir
      under build/, then `bin.decode` on its n-best average: an int8
@@ -178,11 +185,13 @@ non-zero exit:
      encoder and the cross-KV), token agreement with phase 16 (reported:
      W8A16 and W8A8 differ), first-step logits card against CPU float32
      (K6's plain version there), and K6's profile share beside phase 16's
-     K8g;
+     K8g, its device events one a K6 call;
   33. `quantize_for_serving` of phase 4's weights: greedy and beam 5 with
      and without AGACS_W8A16, exact launches (the logits head's K6 once a
-     step, every trunk product on K6 or K8 by the rule), first-step logits
-     card against CPU float32;
+     step, every trunk product on K6 or K8 by the rule), greedy and beam 5
+     without the variable under the profiler (K6's and the thin K8g's
+     device ms, one device event a call), first-step logits card against
+     CPU float32;
   34. the ladder side network (whisper-small + the default ladder: n_dim
      192, 4 heads, taps 0, 2, ..., 10), bf16: greedy and beam 5 with exact
      launches (K3 at d_head 48 12 a step, trunk K3 24, no K3a or K3s), a
@@ -336,7 +345,14 @@ PE_TRAIN_COS = dict(TRAIN_COS)
 # bf16(w_q · w_s) is off by up to 2^-9 of itself) and moves elements whose
 # sum cancels past that bound.
 K6_SHAPES = ((768, 768), (768, 3072), (3072, 768), (768, 52224))
+# Phase 2i's (rows, d_in, d_out): the trunk's 12000- and 528-row products
+# (K8g's 64-row kernel) and a decode step's (K8g's thin kernel): greedy's
+# 8 rows and beam 5's 40; the kernels line's thin entry at K8_THIN_ENTRY.
+K8_SHAPES = ((12000, 768, 768), (528, 768, 768), (8, 768, 3072), (8, 3072, 768),
+             (8, 768, 768), (40, 768, 768))
+K8_THIN_ENTRY = (8, 768, 768)
 K6_ROWS = (1, 5, 8, 32)
+K6_HEAD_BEAM = 40  # the logits head's rows at beam 5 (a serving-quantised model)
 K6_ELEM = (2.0 ** -8, 1e-4)
 # Phases 34-35: the default ladder (SideNetworkConfig()), seed 3; the side
 # micro-step's bounds, card bf16 vs CPU f32, before a reading: the ladder
@@ -999,6 +1015,18 @@ def int8_weight(g, dev, d_in: int, d_out: int):
     return w_q, w_s, b.to(dev)
 
 
+_L2_FLUSH: list = []
+
+
+def cold_l2(dev) -> None:
+    """Evict the 50 MB L2: write a 128 MB buffer, so the next kernel reads
+    its weights from HBM, as a decode step streaming 99 MB of them does (a
+    ring stage read before its copy arrived then shows)."""
+    if not _L2_FLUSH:
+        _L2_FLUSH.append(torch.empty(128 << 20, dtype=torch.uint8, device=dev))
+    _L2_FLUSH[0].zero_()
+
+
 def differ(out, plain) -> float:
     """Share of output elements that differ from the plain version rounded
     to the output's dtype."""
@@ -1010,14 +1038,22 @@ def check_k8(dev, g, timed=True) -> dict:
     against their plain versions at the trunk's shapes: the encoder and
     cross k/v projections (12000, 768) -> 768, the teacher-forced decoder's
     (528, 768) -> 768, a decode step's (8, 768) -> 3072 and (8, 3072) -> 768
-    (the unfused MLP) and (8, 768) -> 768. Returns errors and times at
-    (12000, 768) -> 768."""
+    (the unfused MLP) and (8, 768) -> 768, and a beam-5 step's (40, 768) ->
+    768. At 64 rows or fewer the forward is K8g's thin kernel: no element
+    may differ from the plain version (both sum exact int32 products and
+    repeat the same float32 epilogue), and two calls must be bit-identical;
+    timed beside it: cuBLAS on the dequantised bf16 weight and, above 16
+    rows, `torch._int_mm` + dequant. Returns errors and times at (12000,
+    768) -> 768 and the thin kernel's at (8, 768) -> 768."""
     from agacs_tpu_torch.ops import int8_linear as i8
+    from agacs_tpu_torch.ops import int8_serve
 
-    res = {"q": {"err": 0.0}, "fwd": {"err": 0.0}, "dgrad": {"err": 0.0}}
-    for m, k, n in ((12000, 768, 768), (528, 768, 768), (8, 768, 3072), (8, 3072, 768),
-                    (8, 768, 768)):
-        n_sets = 4 if m > 16 else 24  # > 50 MB of distinct buffers per cycle
+    res = {"q": {"err": 0.0}, "fwd": {"err": 0.0}, "dgrad": {"err": 0.0},
+           "thin": {"err": 0.0}}
+    for m, k, n in K8_SHAPES:
+        thin = i8.thin_gemm(m, False)
+        # > 50 MB of distinct buffers per cycle: the weights at decode shapes
+        n_sets = (max(4, -(-(64 << 20) // (k * n))) if thin else 4) if timed else 1
         sets = []
         for _ in range(n_sets):
             w_q, w_s, _ = int8_weight(g, dev, k, n)
@@ -1030,28 +1066,40 @@ def check_k8(dev, g, timed=True) -> dict:
         torch.cuda.synchronize()
         q_err = (q.int() - q_ref.int()).abs().max().item()
         check(q_err == 0 and torch.equal(s, s_ref), f"K8q ({m}, {k}): q off by {q_err} steps")
-        y = i8.int8_gemm(q, s, w_q, w_s, out_dtype=torch.bfloat16)
+        before = i8.THIN_LAUNCHES
+        gemm = lambda: i8.int8_gemm(q, s, w_q, w_s, out_dtype=torch.bfloat16)  # noqa: E731
+        cold_l2(dev)
+        y = twice(f"K8g thin ({m}, {k}) -> {n}", gemm) if thin else gemm()
+        check(i8.THIN_LAUNCHES - before == (2 if thin else 0),
+              f"K8g ({m}, {k}) -> {n} took the {'thin' if thin else '64-row'} kernel")
         y_ref = i8.int8_matmul_ref(x.float(), w_q, w_s)
         err = hold("K8g", y, y_ref, (m, k, n))
+        if thin:
+            check(differ(y, y_ref) == 0, f"K8g thin ({m}, {k}) -> {n}: "
+                                         f"{differ(y, y_ref):.2%} of elements differ from plain")
+            one_launch(f"K8g thin ({m}, {k}) -> {n}", gemm, "thin_gemm_kernel", 1)
         qd, sd = i8.rowquant(dy, w_s)
         dx = i8.int8_gemm(qd, sd, w_q, dgrad=True, out_dtype=torch.bfloat16)
         dx_ref = i8.int8_matmul_dgrad_ref(dy.float(), w_q, w_s, torch.float32)
         qd_ref, _ = i8.row_quant_ref(dy.float(), w_s)
         check(torch.equal(qd, qd_ref), f"K8q dgrad ({m}, {n}) with the column pre-scale")
         d_err = hold("K8g dgrad", dx, dx_ref, (m, n, k))
-        res["fwd"]["err"] = max(res["fwd"]["err"], err)
+        res["thin" if thin else "fwd"]["err"] = max(res["thin" if thin else "fwd"]["err"], err)
         res["dgrad"]["err"] = max(res["dgrad"]["err"], d_err)
-        line = (f"phase 2i K8 ({m}, {k}) -> {n}: K8q q/s identical to plain; K8g max_abs_err "
-                f"{err:.3e} ({differ(y, y_ref):.2%} of elements differ), dgrad {d_err:.3e} "
-                f"({differ(dx, dx_ref):.2%}) (bound {KERNEL_RTOL} x max|plain f32|)")
+        line = (f"phase 2i K8 ({m}, {k}) -> {n}: K8q q/s identical to plain; K8g "
+                + (f"thin (BN, S) {int8_serve.thin_tiling(m, n, k, int8_serve.K8_KR)}, "
+                   "bit-identical twice, " if thin else "")
+                + f"max_abs_err {err:.3e} ({differ(y, y_ref):.2%} of elements differ), dgrad "
+                f"{d_err:.3e} ({differ(dx, dx_ref):.2%}) (bound {KERNEL_RTOL} x max|plain f32|)")
         if timed:
+            iters = 100 if thin else 20
             qs = [(*i8.rowquant(x), w_q, w_s) for x, w_q, w_s, _ in sets]
             qds = [(*i8.rowquant(dy, w_s), w_q) for _, w_q, w_s, dy in sets]
             t = {
-                "q": cuda_ms(lambda x, *_: i8.rowquant(x), sets, 20),
+                "q": cuda_ms(lambda x, *_: i8.rowquant(x), sets, iters),
                 "q_plain": cuda_ms(lambda x, *_: i8.row_quant_ref(x), sets, 20),
                 "fwd": cuda_ms(lambda q, s, w_q, w_s: i8.int8_gemm(
-                    q, s, w_q, w_s, out_dtype=torch.bfloat16), qs, 20),
+                    q, s, w_q, w_s, out_dtype=torch.bfloat16), qs, iters),
                 "fwd_plain": cuda_ms(lambda q, s, w_q, w_s: i8.int8_gemm_ref(
                     q, s, w_q, w_s, out_dtype=torch.bfloat16), qs, 10),
                 "dgrad": cuda_ms(lambda q, s, w_q: i8.int8_gemm(
@@ -1059,22 +1107,31 @@ def check_k8(dev, g, timed=True) -> dict:
                 "dgrad_plain": cuda_ms(lambda q, s, w_q: i8.int8_gemm_ref(
                     q, s, w_q, dgrad=True, out_dtype=torch.bfloat16), qds, 10),
             }
+            if thin:
+                bfs = [(x, int8_serve.dequant_bf(w_q, w_s, torch.bfloat16))
+                       for x, w_q, w_s, _ in sets]
+                t["fwd_cublas_bf16"] = cuda_ms(torch.matmul, bfs, iters)
+                del bfs
             if m > 16:  # torch._int_mm refuses M <= 16
                 t["fwd_lib"] = cuda_ms(lambda q, s, w_q, w_s: (
-                    torch._int_mm(q, w_q).float() * s * w_s).to(torch.bfloat16), qs, 20)
-                wts = [w_q.t().contiguous() for _, _, w_q in qds]
-                t["dgrad_lib"] = cuda_ms(lambda q, s, wt: (
-                    torch._int_mm(q, wt).float() * s).to(torch.bfloat16),
-                    [(q, s, wt) for (q, s, _), wt in zip(qds, wts)], 20)
-            line += " | " + ", ".join(f"{key} {v:.4f} ms" for key, v in t.items())
+                    torch._int_mm(q, w_q).float() * s * w_s).to(torch.bfloat16), qs, iters)
+                if not thin:
+                    wts = [w_q.t().contiguous() for _, _, w_q in qds]
+                    t["dgrad_lib"] = cuda_ms(lambda q, s, wt: (
+                        torch._int_mm(q, wt).float() * s).to(torch.bfloat16),
+                        [(q, s, wt) for (q, s, _), wt in zip(qds, wts)], 20)
+            bound = roofline(m * k + m * 4 + k * n + n * 4 + m * n * 2, 2 * m * k * n, "int8")
+            line += (" | " + ", ".join(f"{key} {v:.4f} ms" for key, v in t.items())
+                     + f", bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
             if m == 12000:
                 res["q"].update(ms=t["q"], plain_ms=t["q_plain"], library_ms=None,
                                 **roofline(m * k * 2 + m * k + m * 4, 4 * m * k, "f32"))
                 for key in ("fwd", "dgrad"):
                     res[key].update(ms=t[key], plain_ms=t[key + "_plain"],
-                                    library_ms=t[key + "_lib"],
-                                    **roofline(m * k + m * 4 + k * n + n * 4 + m * n * 2,
-                                            2 * m * k * n, "int8"))
+                                    library_ms=t[key + "_lib"], **bound)
+            if (m, k, n) == K8_THIN_ENTRY:
+                res["thin"].update(ms=t["fwd"], plain_ms=t["fwd_plain"],
+                                   library_ms=t["fwd_cublas_bf16"], **bound)
         print(line, flush=True)
     return res
 
@@ -1450,12 +1507,15 @@ def check_k3f32(dev, g, timed=True) -> dict:
 def check_k6(dev, g, timed=True) -> dict:
     """Phase 2w: K6 against its plain version (the same bf16-rounded
     weight, float32 sums) at the decode step's products and the padded
-    logits head, rows 1, 5, 8 and 32 (a ragged count is padded on chip):
-    1e-2 x max |plain| and element by element K6_ELEM. Timed beside it:
-    cuBLAS (`torch.matmul`) on the pre-dequantised bf16 weight and K8q +
-    K8g on the int8 one. Distinct weights per call fill more than the 50 MB
-    L2, as a decode step's 99 MB of weights do. Returns the error and the
-    times at 8 rows of the logits head."""
+    logits head, rows 1, 5, 8 and 32 (a ragged count is padded on chip;
+    the head also at beam 5's 40):
+    1e-2 x max |plain| and element by element K6_ELEM, each called twice
+    and bit-identical (the split's partials are added in rank order), one
+    launch a call. Timed beside it: cuBLAS (`torch.matmul`) on the
+    pre-dequantised bf16 weight and K8q + K8g on the int8 one. Distinct
+    weights per call fill more than the 50 MB L2, as a decode step's 99 MB
+    of weights do. Returns the error and the times at 8 rows of the logits
+    head."""
     from agacs_tpu_torch.ops import int8_linear as i8
     from agacs_tpu_torch.ops import int8_serve
 
@@ -1465,12 +1525,14 @@ def check_k6(dev, g, timed=True) -> dict:
         weights = [int8_weight(g, dev, k, n)[:2] for _ in range(n_sets)]
         bf = [int8_serve.dequant_bf(w_q, w_s, torch.bfloat16) for w_q, w_s in weights]
         line = []
-        for rows in K6_ROWS:
+        all_rows = K6_ROWS + ((K6_HEAD_BEAM,) if n == 52224 else ())
+        for rows in all_rows:
             xs = [torch.randn(rows, k, generator=g).to(dev, torch.bfloat16) for _ in weights]
             w_q, w_s = weights[0]
             before = int8_serve.LAUNCHES
-            y = int8_serve.w8a16_matmul(xs[0], w_q, w_s)
-            check(int8_serve.LAUNCHES == before + 1, "K6 launched")
+            cold_l2(dev)
+            y = twice(f"K6 ({rows}, {k}) -> {n}", int8_serve.w8a16_matmul, xs[0], w_q, w_s)
+            check(int8_serve.LAUNCHES == before + 2, "K6 launched once a call")
             plain = xs[0].float() @ bf[0].float()
             err = hold(f"K6 ({rows}, {k}) -> {n}", y, plain, (rows, k, n))
             over = ((y.float() - plain).abs()
@@ -1478,7 +1540,8 @@ def check_k6(dev, g, timed=True) -> dict:
             check(over == 0, f"K6 ({rows}, {k}) -> {n}: {over} elements past "
                              f"{K6_ELEM[0]} |plain| + {K6_ELEM[1]} max |plain|")
             res["err"] = max(res["err"], err)
-            item = f"rows {rows}: err {err:.2e}"
+            bn, splits = int8_serve.thin_tiling(rows, n, k, int8_serve.K6_KR)
+            item = f"rows {rows} (BN {bn}, S {splits}): err {err:.2e}"
             if timed:
                 sets = [(x, wq, ws) for x, (wq, ws) in zip(xs, weights)]
                 iters = 20 if n > 10000 else 100
@@ -1497,7 +1560,12 @@ def check_k6(dev, g, timed=True) -> dict:
                         res.update(ms=t["k6"], plain_ms=t["plain"], library_ms=t["cublas"],
                                    **bound)
             line.append(item)
-        print(f"phase 2w K6 w8a16 ({k} -> {n}), {n_sets} weight sets: " + "; ".join(line)
+        ins = [(torch.randn(rows, k, generator=g).to(dev, torch.bfloat16), *weights[0])
+               for rows in all_rows]
+        one_launch(f"K6 ({k} -> {n})", lambda: [int8_serve.w8a16_matmul(*a) for a in ins],
+                   "w8a16_kernel", len(ins))
+        print(f"phase 2w K6 w8a16 ({k} -> {n}), {n_sets} weight sets, one launch a call, "
+              "bit-identical twice: " + "; ".join(line)
               + f" (bounds {KERNEL_RTOL} x max|plain f32|, elementwise {K6_ELEM})",
               flush=True)
         del weights, bf
@@ -1546,28 +1614,54 @@ def check_k3_d48(dev, g, timed=True) -> dict:
     return res
 
 
-def device_profile(fn) -> tuple[float, int, dict]:
+def device_profile(fn, counts: dict | None = None) -> tuple[float, int, dict]:
     """Run fn() once under torch.profiler, device activity only: (device
-    busy ms, device events, ms by kernel name). Recording the host's
-    operator events as well gave the same busy time and tripled the time
-    the profile takes (H100, the greedy request of phase 6: 24-31 s
-    against 10-11 s)."""
+    busy ms, device events, ms by kernel name); `counts`, when given, gets
+    the events by name. Recording the host's operator events as well gave
+    the same busy time and tripled the time the profile takes (H100, the
+    greedy request of phase 6: 24-31 s against 10-11 s). A short sleep
+    kernel and 50 ms on the host lead in, outside the tallies, and 50 ms
+    lead out: without them a kernel at an end of the trace was missing
+    from it (H100: one of four K6 calls, or a lone K8g call, in a profile
+    of those calls alone)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        time.sleep(0.05)
         fn()
         torch.cuda.synchronize()
+        time.sleep(0.05)
     per_name: dict[str, float] = collections.defaultdict(float)
     n_events = 0
     for e in prof.events():
         # record_function ranges (e.g. Optimizer.step) also show on the
         # device timeline; they overlap the kernels, so they are skipped
-        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+        if (e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+                and "spin_kernel" not in e.name):
             per_name[e.name] += e.time_range.elapsed_us() / 1e3
             n_events += 1
+            if counts is not None:
+                counts[e.name] = counts.get(e.name, 0) + 1
     check(n_events > 0, "the profiler recorded device events")
     return sum(per_name.values()), n_events, per_name
+
+
+def events_of(counts: dict, word: str) -> int:
+    """Device events whose kernel name contains `word`."""
+    return sum(c for name, c in counts.items() if word in name)
+
+
+def one_launch(what: str, fn, word: str, calls: int) -> None:
+    """fn(), which makes `calls` calls of a kernel wrapper, under the
+    profiler: exactly `calls` device events, every one a kernel whose name
+    holds `word` (one launch a call, nothing else on the device)."""
+    counts: dict = {}
+    device_profile(fn, counts)
+    check(sum(counts.values()) == calls == events_of(counts, word),
+          f"{what}: {calls} calls made one {word} launch each: {counts}")
 
 
 def top_kernels(per_name: dict, n: int = 8) -> str:
@@ -1793,6 +1887,7 @@ def reset_int8_counts() -> None:
 
     int8_mlp.FWD_LAUNCHES = int8_mlp.BWD_LAUNCHES = 0
     int8_linear.LAUNCHES = int8_linear.DGRAD_LAUNCHES = int8_linear.QUANT_LAUNCHES = 0
+    int8_linear.THIN_LAUNCHES = 0
 
 
 def train_phase(sd, dev, int8: bool = False, bf16: dict | None = None) -> dict:
@@ -2035,7 +2130,7 @@ def int8_serve_phase(sd8, dev, audio) -> dict:
     from agacs_tpu_torch.decode.speech2text import Speech2Text
     from agacs_tpu_torch.models import whisper as tw
     from agacs_tpu_torch.models.asr_model import encode
-    from agacs_tpu_torch.ops import decode_attn, flash_train
+    from agacs_tpu_torch.ops import decode_attn, flash_train, int8_linear
 
     out = model_pair(sd8, dev)
     model, asr_cfg = out["card"]
@@ -2048,6 +2143,7 @@ def int8_serve_phase(sd8, dev, audio) -> dict:
     results = s2t(audio)
     times = [time.perf_counter() - t0]
     launches = {"K1f": flash_train.LAUNCHES, "K3": decode_attn.LAUNCHES, **int8_counts()}
+    thin = int8_linear.THIN_LAUNCHES
     for _ in range(2):
         t0 = time.perf_counter()
         s2t(audio)
@@ -2065,6 +2161,10 @@ def int8_serve_phase(sd8, dev, audio) -> dict:
     check(len(results) == 8 and all(r.tokens[:5] == PRIMER and 5 < len(r.tokens) <= 105
                                     for r in results), "8 int8 hypotheses")
     check(launches == want, f"int8 serving launches {launches} == {want}")
+    # the decode steps' products (8 rows) take K8g's thin kernel, the
+    # encoder's and the cross-KV projections' (12000 rows) the 64-row one
+    check(thin == 8 * L * n_steps, f"int8 serving: {thin} thin K8g launches == "
+                                   f"{8 * L * n_steps}")
     ms_batch = statistics.median(times) * 1e3
     first = torch.tensor([PRIMER[0]])
     logits = []
@@ -2085,7 +2185,14 @@ def int8_serve_phase(sd8, dev, audio) -> dict:
           f"{int(logits[1].argmax())}", flush=True)
     check(bool(torch.isfinite(logits[0]).all()) and e_log < INT8_LOGITS_REL_L2,
           f"int8 first-step logits rel L2 {e_log} < {INT8_LOGITS_REL_L2}")
-    busy, n_events, per_name = device_profile(lambda: s2t(audio))
+    reset_int8_counts()
+    counts: dict = {}
+    busy, n_events, per_name = device_profile(lambda: s2t(audio), counts)
+    # one device kernel a K8g call: the thin kernel's events are its calls
+    check(events_of(counts, "thin_gemm_kernel") == int8_linear.THIN_LAUNCHES == thin
+          and events_of(counts, "gemm_kernel") == int8_linear.LAUNCHES == want["K8g"],
+          f"int8 serving profile: one launch a K8g call ({int8_linear.THIN_LAUNCHES} thin, "
+          f"{int8_linear.LAUNCHES} in all): {counts}")
 
     def share(*keys):
         t = sum(v for name, v in per_name.items() if any(k in name for k in keys))
@@ -2093,12 +2200,13 @@ def int8_serve_phase(sd8, dev, audio) -> dict:
 
     print(f"phase 16 int8 serving profile: device busy {busy:.1f} ms in {n_events} device "
           f"events ({n_events / n_steps:.0f} per decode step); idle {1 - busy / ms_batch:.1%} "
-          f"of {ms_batch:.1f} ms/batch; K8g {share('gemm_kernel')}, K8q "
-          f"{share('rowquant_kernel')}, K2f {share('mlp_fwd_kernel')}, K3 "
+          f"of {ms_batch:.1f} ms/batch; K8g {share('gemm_kernel')} (of it the thin kernel "
+          f"{share('thin_gemm_kernel')} in {events_of(counts, 'thin_gemm_kernel')} launches), "
+          f"K8q {share('rowquant_kernel')}, K2f {share('mlp_fwd_kernel')}, K3 "
           f"{share('decode_attn_kernel')}; top: " + top_kernels(per_name), flush=True)
     del s2t, out, model
     torch.cuda.empty_cache()
-    return {"ms": ms_batch, "launches": launches, "results": results,
+    return {"ms": ms_batch, "launches": launches, "thin": thin, "results": results,
             "k8g": share("gemm_kernel"), "busy": busy}
 
 
@@ -2202,14 +2310,20 @@ def w8a16_serve_phase(sd8, dev, audio, int8_greedy: dict) -> dict:
     want = {"K1f": cfg.n_audio_layer, "K3": 2 * L * n_steps, "K2f": cfg.n_audio_layer,
             "K6": 8 * L * n_steps, "K8g": 2 * cfg.n_audio_layer + 2 * L,
             "K8q": 2 * cfg.n_audio_layer + 2 * L}
+    counts: dict = {}
     with w8a16_env("1"):
         run = serve("phase 32 W8A16 greedy", model, asr_cfg, audio, 1, want, timed=2)
-        busy, n_events, per_name = device_profile(lambda: run["s2t"](audio))
+        reset_decode_counts()
+        busy, n_events, per_name = device_profile(lambda: run["s2t"](audio), counts)
+        k6_calls = decode_counts()["K6"]
+    # one device kernel a K6 call (no second pass)
+    check(events_of(counts, "w8a16_kernel") == k6_calls == want["K6"],
+          f"W8A16 profile: one launch a K6 call ({k6_calls} calls): {counts}")
     with w8a16_env("interpret"):
         (lg_c, _), (lg_g, _) = (first_step(m, c, audio[:1]) for m, c in
                                 (models["cpu"], models["card"]))
     e_log = rel_l2(lg_g, lg_c)
-    k6 = sum(v for name, v in per_name.items() if "w8a16_kernel" in name or "splitk" in name)
+    k6 = sum(v for name, v in per_name.items() if "w8a16_kernel" in name)
     print(f"phase 32 W8A16 int8 greedy: whisper-small+adapters, int8 trunk, AGACS_W8A16=1, "
           f"8 x 15 s, {n_steps} steps: {run['ms']:.1f} ms/batch (times "
           f"{[round(t * 1e3, 1) for t in run['times']]}; phase 16 W8A8: "
@@ -2217,13 +2331,40 @@ def w8a16_serve_phase(sd8, dev, audio, int8_greedy: dict) -> dict:
           f"{agreement(run['results'], int8_greedy['results'])}; first-step logits card vs "
           f"cpu f32 rel L2 {e_log:.3e} (bound {INT8_LOGITS_REL_L2}); profile: busy "
           f"{busy:.1f} ms in {n_events} events, idle {1 - busy / run['ms']:.1%}, K6 {k6:.2f} "
-          f"ms ({k6 / busy:.1%}) [phase 16: K8g {int8_greedy['k8g']} of "
+          f"ms ({k6 / busy:.1%}) in {events_of(counts, 'w8a16_kernel')} launches [phase 16: "
+          f"K8g {int8_greedy['k8g']} of "
           f"{int8_greedy['busy']:.1f} ms busy]; top: " + top_kernels(per_name), flush=True)
     check(bool(torch.isfinite(lg_g).all()) and e_log < INT8_LOGITS_REL_L2,
           f"W8A16 first-step logits rel L2 {e_log} < {INT8_LOGITS_REL_L2}")
     del run["s2t"], models, model
     torch.cuda.empty_cache()
     return {"launches": run["launches"], "ms": run["ms"]}
+
+
+def quant_profile(s2t, audio, ms_batch: float) -> str:
+    """One more request of a serving-quantised model under the profiler:
+    one device kernel a K6 and a K8g call; device busy, idle share, and
+    K6's and thin K8g's device ms."""
+    from agacs_tpu_torch.ops import int8_linear
+
+    reset_decode_counts()
+    counts: dict = {}
+    busy, n_events, per_name = device_profile(lambda: s2t(audio), counts)
+    calls = decode_counts()
+    check(events_of(counts, "w8a16_kernel") == calls["K6"]
+          and events_of(counts, "thin_gemm_kernel") == int8_linear.THIN_LAUNCHES
+          and events_of(counts, "gemm_kernel") == calls["K8g"],
+          f"phase 33 profile: one launch a K6 and a K8g call ({calls}, thin "
+          f"{int8_linear.THIN_LAUNCHES}): {counts}")
+
+    def ms(word):
+        t = sum(v for name, v in per_name.items() if word in name)
+        return f"{t:.2f} ms ({t / busy:.1%})"
+
+    return (f"busy {busy:.1f} ms in {n_events} events, idle {1 - busy / ms_batch:.1%}, K6 "
+            f"{ms('w8a16_kernel')} in {calls['K6']} launches, K8g thin "
+            f"{ms('thin_gemm_kernel')} in {int8_linear.THIN_LAUNCHES}, K8g in all "
+            f"{ms('gemm_kernel')}")
 
 
 def serving_quant_phase(sd, dev, audio) -> dict:
@@ -2260,6 +2401,8 @@ def serving_quant_phase(sd, dev, audio) -> dict:
             out[(env, beam)] = run
             line.append(f"AGACS_W8A16={env} beam {beam}: {run['ms']:.1f} ms/batch, K6 "
                         f"{run['launches'].get('K6', 0)}")
+            if env == "0":  # the default: the device time of K6's head and thin K8g
+                line[-1] += ", profile: " + quant_profile(run["s2t"], audio, run["ms"])
             del run["s2t"]
     (lg_c, _), (lg_g, _) = (first_step(m, c, audio[:1]) for m, c in
                             (models["cpu"], models["card"]))
@@ -3244,20 +3387,29 @@ MUTANTS = {
                                  "if (false) {  // the key tail")],
         ("k1b",)),
     "K6 with its scale per row (w_s[k])": (
-        "w8a16.cu", [("__fmul_rn((float)a8[j], sc[j])", "__fmul_rn((float)a8[j], w_s[ka % N])"),
-                     ("__fmul_rn((float)b8[j], sc[j])",
-                      "__fmul_rn((float)b8[j], w_s[(ka + 1) % N])")], ("k6",)),
+        "w8a16.cu", [("f[r][c] = __fmul_rn(i8f(wv[r], c), sc[c]);",
+                      "f[r][c] = __fmul_rn(i8f(wv[r], c), "
+                      "w_s[((st0 + j) * KR + 16 * q + 4 * t + r) % N]);")], ("k6",)),
     "K6 with the scale folded after the sum": (
-        "w8a16.cu", [("__fmul_rn((float)a8[j], sc[j])", "(float)a8[j]"),
-                     ("__fmul_rn((float)b8[j], sc[j])", "(float)b8[j]"),
-                     ("make_float2(acc[i][2 * hh], acc[i][2 * hh + 1])",
-                      "make_float2(acc[i][2 * hh] * w_s[col], acc[i][2 * hh + 1] * w_s[col + 1])"),
-                     ("__floats2bfloat162_rn(acc[i][2 * hh], acc[i][2 * hh + 1])",
-                      "__floats2bfloat162_rn(acc[i][2 * hh] * w_s[col], "
-                      "acc[i][2 * hh + 1] * w_s[col + 1])")], ("k6",)),
+        "w8a16.cu", [("f[r][c] = __fmul_rn(i8f(wv[r], c), sc[c]);", "f[r][c] = i8f(wv[r], c);"),
+                     ("o[0] = __floats2bfloat162_rn(v.x, v.y);",
+                      "o[0] = __floats2bfloat162_rn(v.x * w_s[n0 + c], v.y * w_s[n0 + c + 1]);"),
+                     ("o[1] = __floats2bfloat162_rn(v.z, v.w);",
+                      "o[1] = __floats2bfloat162_rn(v.z * w_s[n0 + c + 2], "
+                      "v.w * w_s[n0 + c + 3]);")], ("k6",)),
     "K6 with the last column tile dropped": (
-        "w8a16.cu", [("const dim3 grid((N + BN - 1) / BN, splits",
-                      "const dim3 grid((N + BN - 1) / BN - 1, splits")], ("k6",)),
+        "w8a16.cu", [("(K + KR - 1) / KR, S, (N + BN - 1) / BN,",
+                      "(K + KR - 1) / KR, S, (N + BN - 1) / BN - 1,")], ("k6",)),
+    "K6 split: rank 0 sums S - 1 partials": (
+        "thin_rows.cuh", [("for (int r = 1; r < S; ++r) add4(v, recv4[r * E4 + e]);",
+                           "for (int r = 1; r < S - 1; ++r) add4(v, recv4[r * E4 + e]);")],
+        ("k6",)),
+    "K6 ring: a stage read before its copy arrived (one wait group short)": (
+        "w8a16.cu", [("cp_wait<STAGES - 2>();  // stage j has landed",
+                      "cp_wait<STAGES - 1>();  // stage j has landed")], ("k6",)),
+    "K6 with the neighbouring column's scale": (
+        "w8a16.cu", [("f[r][c] = __fmul_rn(i8f(wv[r], c), sc[c]);",
+                      "f[r][c] = __fmul_rn(i8f(wv[r], c), sc[(c + 1) & 3]);")], ("k6",)),
     "K3@48 reading 64 channels": (
         "decode_attn.cu", [("const bool act = sub < SL::PIECES;",
                             "const bool act = sub < (DW == 48 ? 8 : SL::PIECES);")],
@@ -3372,8 +3524,25 @@ MUTANTS = {
     "K8q per-tensor scale (one fixed scale for every row)": (
         "int8_gemm.cu", [("i8::quant_scale(i8::warp_max(m))", "i8::quant_scale(8.0f)")],
         ("k8",)),
-    "K8g dequant with the tile's first row scale": (
+    "K8g 64-row kernel: dequant with the tile's first row scale": (
         "int8_gemm.cu", [("const float sr = s_row[row];", "const float sr = s_row[m0];")],
+        ("k8",)),
+    "K8g thin: the last split dropped": (
+        "int8_gemm.cu", [("nst = max(0, min(n_stages, st0 + per) - st0);",
+                          "nst = rank == S - 1 ? 0 : max(0, min(n_stages, st0 + per) - st0);")],
+        ("k8",)),
+    "K8g thin: row 0's scale for every row": (
+        "int8_gemm.cu", [("const float sr = s_row[r];", "const float sr = s_row[0];")],
+        ("k8",)),
+    "K8g thin: w_q read untransposed": (
+        "int8_gemm.cu", [("trans4(lo, wv[0], wv[1], wv[2], wv[3]);",
+                          "lo[0] = wv[0], lo[1] = wv[1], lo[2] = wv[2], lo[3] = wv[3];"),
+                         ("trans4(hi, wv[4], wv[5], wv[6], wv[7]);",
+                          "hi[0] = wv[4], hi[1] = wv[5], hi[2] = wv[6], hi[3] = wv[7];")],
+        ("k8",)),
+    "K8g thin: the last column tile dropped": (
+        "int8_gemm.cu", [("(K + TKR - 1) / TKR, S, (N + BN - 1) / BN, 1,",
+                          "(K + TKR - 1) / TKR, S, (N + BN - 1) / BN - 1, 1,")],
         ("k8",)),
     "K8g dgrad reads w_q untransposed": (
         "int8_gemm.cu",
@@ -3849,6 +4018,9 @@ def main() -> int:
         entry("int8_gemm dgrad (K8g, W8A8 linear dx against w_q^T)", "int8_gemm.cu",
               "agacs_tpu/ops/int8_linear.py:108", train8["launches"]["K8g dgrad"],
               k8["dgrad"]),
+        entry("int8_gemm thin (K8g's forward at 64 rows or fewer: the int8-trunk decode "
+              "step's products)", "int8_gemm.cu", "agacs_tpu/ops/int8_linear.py:83",
+              serve8["thin"], k8["thin"]),
         entry("relpos_flash_fwd (K5, the conformer encoder's rel-pos self-attention)",
               "relpos_flash.cu", "agacs_tpu/ops/relpos_flash.py:298",
               conf["launches"]["K5"], k5),

@@ -117,16 +117,19 @@ def test_dispatch_follows_jax(monkeypatch, env, rows, want):
 
 
 def test_splits_cover_the_card():
-    """K6's grid: at least 264 blocks for every decode-step shape, K split
-    into whole 128-row stages, no split for the logits head."""
+    """K6's grid (`thin_tiling`): a block for each of the H100's 132 SMs at
+    every decode-step shape (and every block the rule can make where K
+    has fewer stages), K split into whole 64-row stages over at most 8
+    blocks of a cluster with none empty, no split for the logits head."""
     for m, k, n in ((8, 768, 768), (8, 768, 3072), (8, 3072, 768), (8, 768, 52224),
                     (40, 768, 52224), (1, 256, 1024)):
-        s = int8_serve.splits_for(m, n, k)
-        chunks = -(-k // int8_serve.KT)
-        assert 1 <= s <= chunks
-        tiles = -(-n // int8_serve.BN)
-        assert tiles * s >= min(2 * 132, tiles * chunks)
-    assert int8_serve.splits_for(8, 52224, 768) == 1
+        bn, s = int8_serve.thin_tiling(m, n, k, int8_serve.K6_KR)
+        chunks = -(-k // int8_serve.K6_KR)
+        assert 1 <= s <= min(chunks, int8_serve.MAX_SPLITS)
+        assert (s - 1) * -(-chunks // s) < chunks  # no empty rank
+        tiles = -(-n // bn) * -(-m // int8_serve.THIN_MR)
+        assert tiles * s >= min(132, -(-n // 32) * min(chunks, int8_serve.MAX_SPLITS))
+    assert int8_serve.thin_tiling(8, 52224, 768, int8_serve.K6_KR) == (128, 1)
 
 
 # ---------------------------------------------------------------------------
