@@ -1,9 +1,14 @@
-// Shared pieces of the Hopper attention kernels K1f, K1b and K5
-// (packed_flash_fwd.cu, packed_flash_bwd.cu, relpos_flash.cu): TMA tile loads from the
-// packed (B, T, H*64) layout into 128-byte-swizzled shared memory, the
-// mbarriers that report their arrival, the wgmma products that read those
-// tiles (bf16 in, f32 accumulators in registers), named barriers and the
+// Shared pieces of the Hopper kernels K1f, K1b, K5 and K2 (packed_flash_fwd.cu,
+// packed_flash_bwd.cu, relpos_flash.cu, int8_mlp.cu): TMA tile loads from the
+// packed (B, T, H*64) layout (K2: row-major int8 matrices) into
+// 128-byte-swizzled shared memory, the mbarriers that report their arrival,
+// the wgmma products that read those tiles (bf16 in, f32 accumulators; s8
+// in, s32 accumulators; in registers), named and cluster barriers and the
 // special-function unit's exp2.
+//
+// An int8 tile of 128-byte rows is laid out exactly as a bf16 tile of 64
+// columns: a k32 step of s8 is 32 bytes, as a k16 step of bf16 is, so the
+// K-major descriptor below serves both (s8 wgmma reads A and B K-major only).
 //
 // Tiles. Every operand tile is R rows x 64 bf16 (one head's 128 bytes per
 // row), loaded by TMA with CU_TENSOR_MAP_SWIZZLE_128B into a 1024-byte
@@ -114,6 +119,17 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// The same for the remote shared memory of the cluster's blocks (a store
+// into another block's tile that its wgmma reads).
+__device__ __forceinline__ void fence_proxy_async_cluster() {
+  asm volatile("fence.proxy.async.shared::cluster;\n" ::: "memory");
+}
+
+// Fetch a tensor map into the TMA unit's cache ahead of its first load.
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
 // Hand registers from the producer warpgroup to the consumer warpgroups
 // (every warp of a warpgroup executes the same one).
 template <int N>
@@ -165,6 +181,22 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// Cluster barriers: every thread of every block of the cluster arrives.
+// The relaxed arrive at a kernel's start, paired with the wait before its
+// first store into another block's shared memory, makes sure that block
+// has started.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
 // d (64 x 64, f32) += a (64 x 16, shared memory) . b (16 x 64, shared
@@ -257,6 +289,23 @@ __device__ __forceinline__ void wgmma_rs_n64_t(float (&d)[32], const uint32_t* a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x 64, s32) += a (64 x 32 s8, shared memory) . b (32 x 64 s8,
+// shared memory); scale_d = 0 overwrites d. Both K-major.
+__device__ __forceinline__ void wgmma_s8_n64(int (&d)[32], uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // 2^x on the special-function unit, results below 2^-126 flushed to 0
 // (exp2f adds a range fix-up around the same instruction).
 __device__ __forceinline__ float ex2(float x) {
@@ -315,6 +364,22 @@ static int encode_2d(CUtensorMap* map, const void* ptr, int rows, int H, int box
   const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
   const cuuint32_t unit[2] = {1, 1};
   const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
+                          dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : -(int)res;
+}
+
+// The map of a row-major (rows, cols) int8 matrix read in boxes of 128
+// rows x 128 bytes (K2's K-major operand tiles). Returns as `encode`.
+static int encode_i8(CUtensorMap* map, const void* ptr, int rows, int cols) {
+  const EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return -1;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols};
+  const cuuint32_t box[2] = {128, 128};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr),
                           dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                           CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

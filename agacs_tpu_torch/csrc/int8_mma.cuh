@@ -1,8 +1,9 @@
-// Shared pieces of the hand-written int8 kernels (int8_gemm.cu, int8_mlp.cu):
-// the m16n8k32 s8 tensor-core product (mma.sync, int32 accumulators), its
-// fragment loads from shared memory, the staging of int8 tiles into shared
-// memory, and JAX's quantisation arithmetic (agacs_tpu/ops/int8_linear.py
-// `_row_quant`, agacs_tpu/ops/int8_mlp.py `_rowq`, `_erf`, `_gelu`, `_dgelu`).
+// Shared pieces of the hand-written int8 kernels: the m16n8k32 s8
+// tensor-core product (mma.sync, int32 accumulators), its fragment loads
+// from shared memory and the staging of int8 tiles into shared memory
+// (int8_gemm.cu), and JAX's quantisation arithmetic (int8_gemm.cu and
+// int8_mlp.cu; agacs_tpu/ops/int8_linear.py `_row_quant`,
+// agacs_tpu/ops/int8_mlp.py `_rowq`, `_erf`, `_gelu`, `_dgelu`).
 //
 // The s8 mma takes A row-major and B "col" (each column's 32 k values
 // contiguous): B is staged in shared memory as Bt[n][k]. The JAX layout of
@@ -129,7 +130,7 @@ __device__ __forceinline__ float warp_max(float m) {
 // intrinsics keep nvcc from fusing a product and a sum into one rounding).
 __device__ __forceinline__ float erf_as(float x) {
   const float ax = fabsf(x);
-  const float t = __fdiv_rn(1.0f, __fadd_rn(1.0f, __fmul_rn(0.3275911f, ax)));
+  const float t = __frcp_rn(__fadd_rn(1.0f, __fmul_rn(0.3275911f, ax)));  // RN(1 / .)
   float poly = __fadd_rn(-1.453152027f, __fmul_rn(t, 1.061405429f));
   poly = __fadd_rn(1.421413741f, __fmul_rn(t, poly));
   poly = __fadd_rn(-0.284496736f, __fmul_rn(t, poly));

@@ -268,7 +268,17 @@ class MLP(nn.Sequential):
     """`mlp_fwd` (:490): fc1 (child 0), exact GELU, fc2 (child 2). When both
     linears are int8, at least `int8_mlp.TR` rows with d and h multiples of
     128 run the fused int8 MLP (K2); other row counts (a decode step's 8 or
-    40 rows) take the unfused int8 linears."""
+    40 rows) take the unfused int8 linears. On the card K2 reads the int8
+    weights transposed: `k2_weights` keeps those copies (not state)."""
+
+    def __init__(self, *mods: nn.Module):
+        super().__init__(*mods)
+        self._k2_cache: dict = {}
+
+    def k2_weights(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """fc1's and fc2's int8 weights transposed (K2's K-major operands),
+        kept until a buffer moves or is written (`int8_mlp.transposed`)."""
+        return int8_mlp.transposed(self[0].weight_q, self[2].weight_q, self._k2_cache)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         fc1, fc2 = self[0], self[2]
@@ -276,7 +286,8 @@ class MLP(nn.Sequential):
                 and x.numel() // x.shape[-1] >= int8_mlp.TR
                 and int8_mlp.supports(fc1.in_features, fc1.out_features)):
             return int8_mlp.int8_mlp(x, fc1.weight_q, fc1.weight_s, fc1.bias,
-                                     fc2.weight_q, fc2.weight_s, fc2.bias)
+                                     fc2.weight_q, fc2.weight_s, fc2.bias,
+                                     self.k2_weights() if x.is_cuda else None)
         return fc2(self[1](fc1(x)))
 
 

@@ -19,7 +19,8 @@ one line each, in the order they run; any failure ends the script with a
 non-zero exit:
 
   1. device and build: the card, the nvcc builds of the eight kernel
-     sources, started together, and K1's and K5's registers and spills;
+     sources, started together, and K1's, K5's and K2's registers and
+     spills;
   2. K1f (csrc/packed_flash_fwd.cu) against its plain PyTorch version at
      the encoder shapes (8, 750, 768) and (2, 1500, 768), 12 heads;
   2b. at the training shapes (16, 750, 768) and (2, 1500, 768): K1f as
@@ -60,7 +61,13 @@ non-zero exit:
      differ from the plain version, two calls bit-identical, one device
      launch a call, cuBLAS on the dequantised bf16 weight timed beside;
   2j. K2f and K2b (csrc/int8_mlp.cu) against their plain versions at
-     (12000, 768, 3072), (528, 768, 3072) and 1000 rows (a partial tile);
+     (12000, 768, 3072), (6000, 768, 3072) (int8 serving's encode),
+     (528, 768, 3072), 1000 rows (a partial tile), whisper-base's
+     (6000, 512, 2048) and whisper-tiny's (1000, 384, 1536): after the L2
+     is evicted two calls bit-identical, one device launch a call, no
+     element different from the plain version;
+     cuBLAS `torch._int_mm` on the same int8 products (K2f's two, K2b's
+     three) timed beside;
   2r. K5 (csrc/relpos_flash.cu) against its plain version at the conformer
      encoder's (8, 468, 256), 4 heads, and at T 64, 67, 128, 129, 257 and
      640, keys and values poisoned past each row's length; SDPA with the
@@ -351,6 +358,13 @@ K6_SHAPES = ((768, 768), (768, 3072), (3072, 768), (768, 52224))
 K8_SHAPES = ((12000, 768, 768), (528, 768, 768), (8, 768, 3072), (8, 3072, 768),
              (8, 768, 768), (40, 768, 768))
 K8_THIN_ENTRY = (8, 768, 768)
+# Phase 2j's (rows, d, h): the int8 trunk's training encoder (16 x 15 s),
+# its serving encode (8 x 15 s), the teacher-forced decoder's 16 x 33 rows,
+# 1000 rows (not a multiple of the kernels' 64-row tile), whisper-base's
+# encoder at 8 x 15 s (cluster of 8, 2 units a rank) and whisper-tiny's
+# MLP (cluster of 4, 3 units a rank); the kernels line reads the first.
+K2_SHAPES = ((12000, D, 4 * D), (6000, D, 4 * D), (528, D, 4 * D), (1000, D, 4 * D),
+             (6000, 512, 2048), (1000, 384, 1536))
 K6_ROWS = (1, 5, 8, 32)
 K6_HEAD_BEAM = 40  # the logits head's rows at beam 5 (a serving-quantised model)
 K6_ELEM = (2.0 ** -8, 1e-4)
@@ -1136,51 +1150,98 @@ def check_k8(dev, g, timed=True) -> dict:
     return res
 
 
+def k2_inputs(g, dev, n: int, d: int, h: int) -> tuple:
+    """Phase 2j's inputs at (n, d, h): x, w1q, s1, b1, w2q, s2, b2, dy
+    (whisper-like int8 linears, bf16 activations)."""
+    w1q, s1, b1 = int8_weight(g, dev, d, h)
+    w2q, s2, b2 = int8_weight(g, dev, h, d)
+    x = torch.randn(n, d, generator=g).to(dev, torch.bfloat16)
+    dy = torch.randn(n, d, generator=g).to(dev, torch.bfloat16)
+    return x, w1q, s1, b1, w2q, s2, b2, dy
+
+
+def k2_agreement(shape, inputs, y, dx) -> tuple[str, float, float]:
+    """K2f's y and K2b's dx against the plain versions (float32 on the same
+    inputs), held to KERNEL_RTOL; and no element may differ from the plain
+    version rounded to the output's dtype (both sum exact int32 products,
+    divide by the same scales and repeat the same float32 epilogue): (the
+    readout, K2f's and K2b's max abs error)."""
+    from agacs_tpu_torch.ops import int8_mlp
+
+    x, w1q, s1, b1, w2q, s2, b2, dy = inputs
+    y_ref = int8_mlp.int8_mlp_fwd_ref(x.float(), w1q, s1, b1, w2q, s2, b2)
+    dx_ref = int8_mlp.int8_mlp_bwd_ref(x.float(), w1q, s1, b1, w2q, s2, dy.float())
+    f_diff, b_diff = differ(y, y_ref), differ(dx, dx_ref)
+    check(f_diff == 0 and b_diff == 0, f"K2 {shape}: K2f {f_diff:.3e}, K2b {b_diff:.3e} of "
+                                       "elements differ from plain")
+    err = hold("K2f", y, y_ref, shape)
+    b_err = hold("K2b", dx, dx_ref, shape)
+    return (f"K2f max_abs_err {err:.3e} ({err / y_ref.abs().max().item():.2e} of max|plain|, "
+            f"{f_diff:.4%} of elements differ), K2b {b_err:.3e} "
+            f"({b_err / dx_ref.abs().max().item():.2e}, {b_diff:.4%}) (bound "
+            f"{KERNEL_RTOL} x max|plain f32|; no element may differ)", err, b_err)
+
+
 def check_k2(dev, g, timed=True) -> dict:
-    """Phase 2j: K2f and K2b against their plain versions at the encoder's
-    (12000, 768, 3072), the teacher-forced decoder's (528, 768, 3072) and
-    1000 rows (not a multiple of the kernels' 16-row tile). Returns errors
-    and times at (12000, 768, 3072)."""
+    """Phase 2j: K2f and K2b against their plain versions at K2_SHAPES.
+    Each is called twice after the L2 is evicted (a ring slot read before
+    its copy landed then shows) and must give bit-identical outputs, one
+    device event a call; no element may differ from the plain version
+    (`k2_agreement`). Timed beside the kernels: the plain versions and
+    cuBLAS `torch._int_mm` on the same int8 products (K2f's two, K2b's
+    three, in one call each; products only, no quantisation or epilogue).
+    Returns errors and times at (12000, 768, 3072)."""
+    from agacs_tpu_torch.ops import int8_linear as i8
     from agacs_tpu_torch.ops import int8_mlp
 
     res = {"fwd": {"err": 0.0}, "bwd": {"err": 0.0}}
-    d, h = D, 4 * D
-    for n in (12000, 528, 1000):
-        sets = []
-        for _ in range(2 if n == 12000 else 4):
-            w1q, s1, b1 = int8_weight(g, dev, d, h)
-            w2q, s2, b2 = int8_weight(g, dev, h, d)
-            x = torch.randn(n, d, generator=g).to(dev, torch.bfloat16)
-            dy = torch.randn(n, d, generator=g).to(dev, torch.bfloat16)
-            sets.append((x, w1q, s1, b1, w2q, s2, b2, dy))
-        x, w1q, s1, b1, w2q, s2, b2, dy = sets[0]
-        y = int8_mlp._fwd_kernel(x, w1q, s1, b1, w2q, s2, b2)
-        y_ref = int8_mlp.int8_mlp_fwd_ref(x.float(), w1q, s1, b1, w2q, s2, b2)
-        err = hold("K2f", y, y_ref, (n, d, h))
-        dx = int8_mlp._bwd_kernel(x, w1q, s1, b1, w2q, s2, dy)
-        dx_ref = int8_mlp.int8_mlp_bwd_ref(x.float(), w1q, s1, b1, w2q, s2, dy.float())
-        b_err = hold("K2b", dx, dx_ref, (n, d, h))
+    for n, d, h in K2_SHAPES:
+        sets = [k2_inputs(g, dev, n, d, h) for _ in range((2 if n >= 6000 else 4) if timed else 1)]
+        sets = [(*a, int8_mlp.transposed(a[1], a[4])) for a in sets]
+        x, w1q, s1, b1, w2q, s2, b2, dy, wt = sets[0]
+        shape = (n, d, h)
+        fwd = lambda: int8_mlp._fwd_kernel(x, w1q, s1, b1, w2q, s2, b2, wt)  # noqa: E731
+        bwd = lambda: int8_mlp._bwd_kernel(x, w1q, s1, b1, w2q, s2, dy, wt)  # noqa: E731
+        cold_l2(dev)
+        y = twice(f"K2f {shape}", fwd)
+        cold_l2(dev)
+        dx = twice(f"K2b {shape}", bwd)
+        agree, err, b_err = k2_agreement(shape, sets[0][:8], y, dx)
+        one_launch(f"K2f {shape}", lambda: (fwd(), fwd()), "mlp_fwd_kernel", 2)
+        one_launch(f"K2b {shape}", lambda: (bwd(), bwd()), "mlp_bwd_kernel", 2)
         res["fwd"]["err"] = max(res["fwd"]["err"], err)
         res["bwd"]["err"] = max(res["bwd"]["err"], b_err)
-        line = (f"phase 2j K2 int8_mlp ({n}, {d}, {h}): K2f max_abs_err {err:.3e} "
-                f"({err / y_ref.abs().max().item():.2e} of max|plain|, "
-                f"{differ(y, y_ref):.2%} of elements differ), K2b {b_err:.3e} "
-                f"({b_err / dx_ref.abs().max().item():.2e}, {differ(dx, dx_ref):.2%}) "
-                f"(bound {KERNEL_RTOL} x max|plain f32|)")
+        tf, tb = int8_mlp.mlp_tiling(d, h, False), int8_mlp.mlp_tiling(d, h, True)
+        line = (f"phase 2j K2 int8_mlp {shape} (cluster {tf['C']}, {tf['units']} units a "
+                f"rank, ring {tf['S']}/{tb['S']}, smem {tf['smem']}/{tb['smem']} B): bit-"
+                f"identical twice after an L2 eviction, one launch a call; {agree}")
         if timed:
-            fsets = [a[:7] for a in sets]
-            bsets = [a[:6] + a[7:] for a in sets]
+            fsets = [(*a[:7], a[8]) for a in sets]
+            bsets = [(*a[:6], a[7], a[8]) for a in sets]
+            lsets = [(i8.rowquant(a[0])[0], i8.rowquant(a[7], a[5])[0],
+                      torch.randint(-127, 128, (n, h), generator=g, dtype=torch.int8).to(dev),
+                      a[1], a[4], *a[8]) for a in sets]
             t = {"fwd": cuda_ms(int8_mlp._fwd_kernel, fsets, 10),
-                 "fwd_plain": cuda_ms(int8_mlp.int8_mlp_fwd_ref, fsets, 3),
+                 "fwd_plain": cuda_ms(lambda *a: int8_mlp.int8_mlp_fwd_ref(*a[:7]), fsets, 3),
+                 "fwd_int_mm": cuda_ms(lambda xq, dq, gq, w1q, w2q, w1t, w2t: (
+                     torch._int_mm(xq, w1q), torch._int_mm(gq, w2q)), lsets, 10),
                  "bwd": cuda_ms(int8_mlp._bwd_kernel, bsets, 10),
-                 "bwd_plain": cuda_ms(int8_mlp.int8_mlp_bwd_ref, bsets, 3)}
-            line += " | " + ", ".join(f"{key} {v:.4f} ms" for key, v in t.items())
-            if n == 12000:
-                w_bytes = 2 * d * h + 4 * (2 * h + 2 * d)
-                res["fwd"].update(ms=t["fwd"], plain_ms=t["fwd_plain"], library_ms=None,
-                                  **roofline(2 * n * d * 2 + w_bytes, 4 * n * d * h, "int8"))
-                res["bwd"].update(ms=t["bwd"], plain_ms=t["bwd_plain"], library_ms=None,
-                                  **roofline(3 * n * d * 2 + w_bytes, 6 * n * d * h, "int8"))
+                 "bwd_plain": cuda_ms(lambda *a: int8_mlp.int8_mlp_bwd_ref(*a[:7]), bsets, 3),
+                 "bwd_int_mm": cuda_ms(lambda xq, dq, gq, w1q, w2q, w1t, w2t: (
+                     torch._int_mm(xq, w1q), torch._int_mm(dq, w2t), torch._int_mm(gq, w1t)),
+                     lsets, 10)}
+            w_bytes = 2 * d * h + 4 * (2 * h + 2 * d)
+            bound = {"fwd": roofline(2 * n * d * 2 + w_bytes, 4 * n * d * h, "int8"),
+                     "bwd": roofline(3 * n * d * 2 + w_bytes, 6 * n * d * h, "int8")}
+            line += (" | " + ", ".join(f"{key} {v:.4f} ms" for key, v in t.items())
+                     + f", bound fwd {bound['fwd']['bound_ms']:.4f} ms, bwd "
+                     f"{bound['bwd']['bound_ms']:.4f} ms ({bound['fwd']['bound_by']})")
+            if shape == K2_SHAPES[0]:
+                for key in ("fwd", "bwd"):
+                    res[key].update(ms=t[key], plain_ms=t[key + "_plain"],
+                                    library_ms=t[key + "_int_mm"], **bound[key])
+            del fsets, bsets, lsets
+        del sets
         print(line, flush=True)
     return res
 
@@ -2077,8 +2138,9 @@ def plain_int8():
     saved = i8._matmul, i8._dgrad, int8_mlp.int8_mlp_fwd, int8_mlp.int8_mlp_bwd
     i8._matmul = i8.int8_matmul_ref
     i8._dgrad = i8.int8_matmul_dgrad_ref
-    int8_mlp.int8_mlp_fwd, int8_mlp.int8_mlp_bwd = (int8_mlp.int8_mlp_fwd_ref,
-                                                    int8_mlp.int8_mlp_bwd_ref)
+    # the refs without the transposed weights (the wrappers' last argument)
+    int8_mlp.int8_mlp_fwd = lambda *a: int8_mlp.int8_mlp_fwd_ref(*a[:7])
+    int8_mlp.int8_mlp_bwd = lambda *a: int8_mlp.int8_mlp_bwd_ref(*a[:7])
     try:
         yield
     finally:
@@ -3549,13 +3611,35 @@ MUTANTS = {
         [("i8::stage_rows<BN, BK>(sB, LDS, w, K, n0, N, k0, K, tid, THREADS);",
           "i8::stage_trans<BK, BN>(sB, LDS, w, N, k0, K, n0, N, tid, THREADS);")],
         ("k8", "p15")),
+    "K2 x tile: each rank's quantised rows kept in its own tile": (
+        "int8_mlp.cu", [("unsigned char* qd = cluster.map_shared_rank(q, dst);",
+                         "unsigned char* qd = q;")], ("k2", "p15")),
     "K2 last partial row tile dropped": (
-        "int8_mlp.cu", [("const dim3 grid((n + R - 1) / R);", "const dim3 grid(n / R);")] * 2,
+        "int8_mlp.cu", [("const int tiles = (n + BM - 1) / BM;", "const int tiles = n / BM;")],
         ("k2", "p15")),
-    "K2b s1 not folded": ("int8_mlp.cu", [("dg = __fmul_rn(dg, s1[col]);", "")],
-                          ("k2", "p15")),
-    "K2f b1 missing": ("int8_mlp.cu", [("b1[col]);\n        const float gv",
-                                        "0.f);\n        const float gv")], ("k2",)),
+    "K2 row max: one rank's maximum left out of the exchange": (  # phase 15 passes with it
+        "int8_mlp.cu", [("for (int from = 0; from < C; ++from)",
+                         "for (int from = 0; from < C - 1; ++from)")], ("k2",)),
+    "K2 split: the last rank's int32 partial dropped": (
+        "int8_mlp.cu", [("if (src < C) v.x += part[src].x", "if (src < C - 1) v.x += part[src].x")],
+        ("k2", "p15")),
+    "K2b s1 fold dropped": ("int8_mlp.cu", [("v = __fmul_rn(v, s1[col]);", "")],
+                            ("k2", "p15")),
+    # One correction already gives the IEEE quotient (y is 1/s correctly
+    # rounded), so dropping one of the two changes nothing; RN(v y) alone is
+    # off by an ulp near half-integers: one quantisation step on a few
+    # elements, which KERNEL_RTOL need not see and the zero-difference
+    # check must.
+    "K2 quant_by: RN(v / s) without its FMA corrections": (
+        "int8_mlp.cu", [("  q = __fmaf_rn(__fmaf_rn(-q, s, v), y, q);\n"
+                         "  q = __fmaf_rn(__fmaf_rn(-q, s, v), y, q);\n", "")], ("k2",)),
+    "K2 b1 dropped": ("int8_mlp.cu", [("b1[col]);\n        float v;", "0.f);\n        float v;")],
+                      ("k2",)),  # phase 15 passes with it
+    # Last: its kernel breaks the ring's barrier protocol and traps, and the
+    # process's CUDA context is lost with it, so nothing can run after it.
+    "K2 ring: a slot read one phase early": (
+        "int8_mlp.cu", [("hop::mbar_wait(&R.full[cur.s], cur.ph);",
+                         "hop::mbar_wait(&R.full[cur.s], cur.ph ^ 1);")], ("k2",)),
 }
 
 
@@ -3582,7 +3666,7 @@ def mutants(dev, only=()) -> None:
     unknown = {c for _, _, cs in MUTANTS.values() for c in cs} - set(KERNEL_CHECKS) - {"p15"}
     if unknown:
         raise ValueError(f"MUTANTS name unknown checks {sorted(unknown)}")
-    src, build, state = cuda_lib.CSRC, cuda_lib.BUILD_DIR, {}
+    src, build, state, lost = cuda_lib.CSRC, cuda_lib.BUILD_DIR, {}, False
     chosen = {name for name, (_, edits, _) in MUTANTS.items()
               if not only or any(word in name for word in only)}
     for name, (fname, edits, checks) in MUTANTS.items():
@@ -3617,8 +3701,16 @@ def mutants(dev, only=()) -> None:
                 print(f"MUTANT [{name}] {chk}: passes", flush=True)
             except RuntimeError as e:
                 print(f"MUTANT [{name}] {chk}: FAILS: {str(e)[:300]}", flush=True)
-            torch.cuda.synchronize()
+            try:
+                torch.cuda.synchronize()
+            except RuntimeError:  # a trapped kernel: the process's CUDA context is lost
+                print(f"MUTANT [{name}]: the CUDA context is lost; no later check can run",
+                      flush=True)
+                lost = True
+                break
         shutil.rmtree(tmp, ignore_errors=True)
+        if lost:
+            break
     cuda_lib.CSRC, cuda_lib.BUILD_DIR = src, build
     cuda_lib._LIBS.clear()
     cuda_lib._FNS.clear()
@@ -3627,7 +3719,7 @@ def mutants(dev, only=()) -> None:
 def demangled_kernel(mangled: str) -> str:
     """The identifier of a mangled `..._kernel(...)` name: the part of it
     that a length prefix of the mangling (the digits before it) spans."""
-    m = re.search(r"\w+?_kernel(?=E)", mangled)
+    m = re.search(r"\w+?_kernel(?=E|I)", mangled)
     s = m.group(0) if m else mangled
     for j in range(1, len(s)):
         if s[j - 1].isdigit() and not s[j].isdigit():
@@ -3819,9 +3911,10 @@ def main() -> int:
     print(f"phase 1 device: {torch.cuda.get_device_name(0)} | {smi} | torch "
           f"{torch.__version__} cuda {torch.version.cuda} | kernels built in "
           f"{build_s:.2f} s | ptxas {ptxas or 'cached build'}", flush=True)
-    print("phase 1 K1 and K5 ptxas: " + "; ".join(
+    print("phase 1 K1, K5 and K2 ptxas: " + "; ".join(
         ptxas_entries(cuda_lib.BUILD_LOG.get(name, ""))
-        for name in ("packed_flash_fwd", "packed_flash_bwd", "relpos_flash")), flush=True)
+        for name in ("packed_flash_fwd", "packed_flash_bwd", "relpos_flash", "int8_mlp")),
+        flush=True)
 
     # 2-3s. each kernel against its plain version
     g = torch.Generator(device="cpu").manual_seed(0)
