@@ -1,6 +1,7 @@
-// Shared pieces of the Hopper kernels K1f, K1b, K5 and K2 (packed_flash_fwd.cu,
-// packed_flash_bwd.cu, relpos_flash.cu, int8_mlp.cu): TMA tile loads from the
-// packed (B, T, H*64) layout (K2: row-major int8 matrices) into
+// Shared pieces of the Hopper kernels K1f, K1b, K5, K2 and the wide K8g
+// (packed_flash_fwd.cu, packed_flash_bwd.cu, relpos_flash.cu, int8_mlp.cu,
+// int8_gemm.cu): TMA tile loads from the packed (B, T, H*64) layout (K2,
+// K8g: row-major int8 matrices) into
 // 128-byte-swizzled shared memory, the mbarriers that report their arrival,
 // the wgmma products that read those tiles (bf16 in, f32 accumulators; s8
 // in, s32 accumulators; in registers), named and cluster barriers and the
@@ -306,6 +307,29 @@ __device__ __forceinline__ void wgmma_s8_n64(int (&d)[32], uint64_t da, uint64_t
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// As wgmma_s8_n64 at N = 128: d (64 x 128, s32) += a (64 x 32 s8) . b (32 x
+// 128 s8), both K-major in shared memory.
+__device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t da, uint64_t db,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // 2^x on the special-function unit, results below 2^-126 flushed to 0
 // (exp2f adds a range fix-up around the same instruction).
 __device__ __forceinline__ float ex2(float x) {
@@ -370,14 +394,16 @@ static int encode_2d(CUtensorMap* map, const void* ptr, int rows, int H, int box
   return res == CUDA_SUCCESS ? 0 : -(int)res;
 }
 
-// The map of a row-major (rows, cols) int8 matrix read in boxes of 128
-// rows x 128 bytes (K2's K-major operand tiles). Returns as `encode`.
-static int encode_i8(CUtensorMap* map, const void* ptr, int rows, int cols) {
+// The map of a row-major (rows, cols) int8 matrix read in boxes of
+// `box_rows` rows x 128 bytes (K2's and K8g's K-major operand tiles).
+// Returns as `encode`.
+static int encode_i8(CUtensorMap* map, const void* ptr, int rows, int cols,
+                     int box_rows = 128) {
   const EncodeTiled fn = encode_fn();
   if (fn == nullptr) return -1;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cols};
-  const cuuint32_t box[2] = {128, 128};
+  const cuuint32_t box[2] = {128, (cuuint32_t)box_rows};
   const cuuint32_t unit[2] = {1, 1};
   const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr),
                           dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,

@@ -50,7 +50,7 @@
 //      buffers alternate (over x's dead tiles): one barrier a chunk.
 // Every quantisation divides by one scale a row: y = 1/s correctly rounded
 // once, then RN(v y) with two FMA corrections is the IEEE quotient, without
-// the division's slow-path branch in the inner loop (`quant_by`).
+// the division's slow-path branch in the inner loop (`i8::quant_by`).
 // The B operands must be K-major: K2f reads w1q^T (h, d) and w2q^T (d, h),
 // K2b w1q^T, w2q (h, d) and w1q (d, h); the wrapper keeps the transposed
 // copies (ops/int8_mlp.py `transposed`). Every B tile is one TMA box of 128
@@ -106,17 +106,6 @@ struct Maps {
 // 128-byte swizzle (the 16-byte chunk c of row r stored at c ^ (r % 8)).
 __device__ __forceinline__ int swz(int r, int k) {
   return r * 128 + (((k >> 4) ^ (r & 7)) << 4) + (k & 15);
-}
-
-// i8::quant(v, s) given y = 1/s correctly rounded: RN(v y) refined by two
-// FMA corrections is RN(v / s) for a normal s and |v / s| <= 127 (a row's
-// own scale), the IEEE quotient without the division's slow-path branch,
-// so the int8 is i8::quant's.
-__device__ __forceinline__ uint32_t quant_by(float v, float s, float y) {
-  float q = __fmul_rn(v, y);
-  q = __fmaf_rn(__fmaf_rn(-q, s, v), y, q);
-  q = __fmaf_rn(__fmaf_rn(-q, s, v), y, q);
-  return (uint32_t)(uint8_t)(int8_t)__float2int_rn(q);
 }
 
 template <bool BF16>
@@ -184,7 +173,7 @@ __device__ __forceinline__ void quant_share(cg::cluster_group& cluster, int C, c
       if (i >= nkb) break;
       word[i] = 0;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) word[i] |= quant_by(v[i][e], sc, y) << (8 * e);
+      for (int e = 0; e < 4; ++e) word[i] |= i8::quant_by(v[i][e], sc, y) << (8 * e);
     }
     for (int dst = 0; dst < C; ++dst) {
       unsigned char* qd = cluster.map_shared_rank(q, dst);
@@ -409,8 +398,8 @@ __device__ __forceinline__ void mlp_body(const Maps& mp, const void* __restrict_
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           const float s = half ? sc1 : sc0, y = half ? y1 : y0;
-          const uint32_t lo = quant_by(hid[u][4 * j + 2 * half], s, y);
-          const uint32_t hi = quant_by(hid[u][4 * j + 2 * half + 1], s, y);
+          const uint32_t lo = i8::quant_by(hid[u][4 * j + 2 * half], s, y);
+          const uint32_t hi = i8::quant_by(hid[u][4 * j + 2 * half + 1], s, y);
           *reinterpret_cast<uint16_t*>(gq + u * TILE +
                                        swz(row0 + 8 * half, 64 * wg + 8 * j + 2 * t)) =
               (uint16_t)(lo | (hi << 8));

@@ -1,8 +1,9 @@
 // Shared pieces of the hand-written int8 kernels: the m16n8k32 s8
 // tensor-core product (mma.sync, int32 accumulators), its fragment loads
 // from shared memory and the staging of int8 tiles into shared memory
-// (int8_gemm.cu), and JAX's quantisation arithmetic (int8_gemm.cu and
-// int8_mlp.cu; agacs_tpu/ops/int8_linear.py `_row_quant`,
+// (int8_gemm.cu), and JAX's quantisation arithmetic, by division and by a
+// correctly rounded reciprocal (int8_gemm.cu and int8_mlp.cu;
+// agacs_tpu/ops/int8_linear.py `_row_quant`,
 // agacs_tpu/ops/int8_mlp.py `_rowq`, `_erf`, `_gelu`, `_dgelu`).
 //
 // The s8 mma takes A row-major and B "col" (each column's 32 k values
@@ -117,6 +118,17 @@ __device__ __forceinline__ float quant_scale(float amax) {
 }
 __device__ __forceinline__ int8_t quant(float v, float s) {
   return (int8_t)__float2int_rn(__fdiv_rn(v, s));
+}
+
+// quant(v, s) given y = 1/s correctly rounded: RN(v y) refined by two FMA
+// corrections is RN(v / s) for a normal s and |v / s| <= 127 (a row's own
+// scale), the IEEE quotient without the division's slow-path branch, so
+// the int8 (returned as its byte) is quant's.
+__device__ __forceinline__ uint32_t quant_by(float v, float s, float y) {
+  float q = __fmul_rn(v, y);
+  q = __fmaf_rn(__fmaf_rn(-q, s, v), y, q);
+  q = __fmaf_rn(__fmaf_rn(-q, s, v), y, q);
+  return (uint32_t)(uint8_t)(int8_t)__float2int_rn(q);
 }
 
 __device__ __forceinline__ float warp_max(float m) {

@@ -97,7 +97,8 @@ from agacs_tpu_torch.ops.decode_attn import (
 from agacs_tpu_torch.ops import int8_mlp, int8_serve
 from agacs_tpu_torch.ops.flash_train import D_HEAD as FLASH_D_HEAD
 from agacs_tpu_torch.ops.flash_train import packed_flash_mha
-from agacs_tpu_torch.ops.int8_linear import int8_linear, int8_matmul, quantize_weight
+from agacs_tpu_torch.ops.int8_linear import (int8_linear, int8_matmul, quantize_weight,
+                                             transposed)
 from agacs_tpu_torch.ops.logmel import full_fp32
 
 
@@ -238,7 +239,10 @@ class Int8Linear(nn.Module):
     b}): buffers `weight_q` int8 in JAX's (in, out) layout and `weight_s`
     float32 (out,), and a frozen `bias` in its stored dtype. Where JAX's
     `mha` projects several of them from one input (`fused_linears`),
-    `MultiHeadAttention` does the same (`_project`)."""
+    `MultiHeadAttention` does the same (`_project`). The wide K8g forward
+    on the card reads `weight_q` transposed: `weight_t` makes that copy at
+    its first use and keeps it (not state) until the buffer moves or is
+    written."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  device=None, bias_dtype: torch.dtype = torch.float32):
@@ -249,6 +253,7 @@ class Int8Linear(nn.Module):
         self.register_buffer("weight_s", torch.ones(out_features, device=device))
         self.bias = nn.Parameter(torch.zeros(out_features, dtype=bias_dtype, device=device),
                                  requires_grad=False) if bias else None
+        self._t_cache: dict = {}
 
     @classmethod
     def quantized(cls, lin: nn.Linear) -> "Int8Linear":
@@ -260,8 +265,16 @@ class Int8Linear(nn.Module):
         mod.bias = lin.bias
         return mod
 
+    def weight_t(self) -> torch.Tensor:
+        """weight_q^T, contiguous (`int8_linear.transposed`)."""
+        return transposed(self.weight_q, cache=self._t_cache)[0]
+
+    def _apply(self, fn, *args, **kwargs):
+        self._t_cache.clear()  # a moved buffer drops its copy at once
+        return super()._apply(fn, *args, **kwargs)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return int8_linear(x, self.weight_q, self.weight_s, self.bias)
+        return int8_linear(x, self.weight_q, self.weight_s, self.bias, self.weight_t)
 
 
 class MLP(nn.Sequential):
@@ -277,8 +290,8 @@ class MLP(nn.Sequential):
 
     def k2_weights(self) -> tuple[torch.Tensor, torch.Tensor]:
         """fc1's and fc2's int8 weights transposed (K2's K-major operands),
-        kept until a buffer moves or is written (`int8_mlp.transposed`)."""
-        return int8_mlp.transposed(self[0].weight_q, self[2].weight_q, self._k2_cache)
+        kept until a buffer moves or is written (`int8_linear.transposed`)."""
+        return transposed(self[0].weight_q, self[2].weight_q, cache=self._k2_cache)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         fc1, fc2 = self[0], self[2]
@@ -291,12 +304,21 @@ class MLP(nn.Sequential):
         return fc2(self[1](fc1(x)))
 
 
+def _transposed_cat(cat: tuple) -> torch.Tensor:
+    """The concatenation cat[0] transposed, made once and kept in its entry
+    (cat[2]), which lives exactly as long as the concatenation does."""
+    if "t" not in cat[2]:
+        cat[2]["t"] = cat[0].t().contiguous()
+    return cat[2]["t"]
+
+
 def fused_linears(x: torch.Tensor, mods: list[nn.Module], cache: dict) -> list[torch.Tensor]:
     """JAX `fused_linears` (:190): int8 projections of one input as ONE
     product over their concatenated weights (kept in `cache` until a
-    buffer moves or is written), each output plus its bias; dense ones
-    each on its own. Thin rows under `AGACS_W8A16` take K6 on the
-    concatenation, as JAX's int8 branch does. The
+    buffer moves or is written, with the concatenation transposed once a
+    wide K8g forward on the card has read it), each output plus its bias;
+    dense ones each on its own. Thin rows under `AGACS_W8A16` take K6 on
+    the concatenation, as JAX's int8 branch does. The
     forward gives the numbers of separate products (the row scale depends
     on x alone), but the backward does not: its dgrad row-quantises the
     concatenated output gradient [dq | dk | dv] with one scale per row, so
@@ -307,13 +329,13 @@ def fused_linears(x: torch.Tensor, mods: list[nn.Module], cache: dict) -> list[t
     cat = cache.get(key)
     if cat is None:
         cat = (torch.cat([m.weight_q for m in mods], 1),
-               torch.cat([m.weight_s for m in mods]))
+               torch.cat([m.weight_s for m in mods]), {})
         cache.clear()
         cache[key] = cat
     if int8_serve.thin_rows(x) and int8_serve.fits(cat[0]):  # JAX :203-210
-        y = int8_serve.w8a16_matmul(x, *cat)
+        y = int8_serve.w8a16_matmul(x, cat[0], cat[1])
     else:
-        y = int8_matmul(x, *cat)
+        y = int8_matmul(x, cat[0], cat[1], lambda: _transposed_cat(cat))
     outs = y.split([m.out_features for m in mods], -1)
     return [o.contiguous() if m.bias is None else o + m.bias.to(o.dtype)
             for o, m in zip(outs, mods)]
@@ -369,6 +391,10 @@ class MultiHeadAttention(nn.Module):
             self.key_cs = Linear(d, d, bias=False, **kw)
             self.gate = nn.Parameter(torch.zeros(n_head, device=device))
         self._fused: dict = {}  # concatenated int8 weights (`fused_linears`)
+
+    def _apply(self, fn, *args, **kwargs):
+        self._fused.clear()  # moved buffers drop their concatenations at once
+        return super()._apply(fn, *args, **kwargs)
 
     def _project(self, x: torch.Tensor, xa: torch.Tensor | None = None):
         """q, k, v as JAX `mha` (:389-396) forms them: self-attention fuses

@@ -8,26 +8,31 @@ dynamic symmetric per-row int8 at each use; int32 accumulation; epilogue
 trunk takes no weight gradient, so the backward is dx only, with dy * w_s
 row-quantised to int8 against w_q^T (JAX `BWD_INT8 = True`).
 
-On a CUDA tensor each product is two launches: K8q `rowquant` and K8g
-`int8_gemm` (forward: w_q read row-major; dgrad: the same buffer read as
-w_q^T, so neither direction needs a transposed copy). K8g's forward at
-THIN_ROWS rows or fewer (a decode step's 8 or 40) takes its thin-row
-kernel, K split over a cluster by `int8_serve.thin_tiling`. On a CPU
-tensor the plain versions below run the same arithmetic (the int32 sums
-are formed exactly in float64). There is no fallback from the card to
-them.
+On a CUDA tensor a forward at THIN_ROWS rows or fewer (a decode step's 8
+or 40) is one launch, `thin_matmul`: the thin-row K8g with K8q folded in
+(each rank of its K-split cluster takes its slice's row maxima, the ranks
+exchange them, and each stage of x is quantised as it is staged;
+`int8_serve.thin_tiling`). Every other product is two launches, K8q
+`rowquant` and the wide K8g `int8_gemm` (s8 wgmma fed by TMA,
+`gemm_tiling`; it takes any number of rows): the dgrad reads w_q as
+stored, the forward w_q^T, which
+the caller keeps (`w_t`: `models/whisper.py` `Int8Linear.weight_t` and the
+fused projections' cache) and the CUDA path requires. On a CPU tensor the
+plain versions below run the same arithmetic (the int32 sums are formed
+exactly in float64). There is no fallback from the card to them.
 
 `int8_linear` dispatches as JAX's (:133-150): a 2-D weight whose input
 has thin rows (`int8_serve.thin_rows`: at most 32 rows, `AGACS_W8A16` on)
 and that `int8_serve.fits` takes the weight-only W8A16 kernel K6
 (`ops/int8_serve.py`, bf16 math on the dequantised weight, no row
-quantisation); every other product takes K8q + K8g. `AGACS_W8A16` is off
-by default, as in JAX.
+quantisation); every other product takes K8. `AGACS_W8A16` is off by
+default, as in JAX.
 """
 
 from __future__ import annotations
 
 import ctypes
+from collections.abc import Callable
 
 import torch
 
@@ -36,8 +41,9 @@ from agacs_tpu_torch.ops import cuda_lib, int8_serve
 QUANT_LAUNCHES = 0  # K8q launches since the last reset (chip_smoke.py reads them)
 LAUNCHES = 0        # K8g forward launches
 DGRAD_LAUNCHES = 0  # K8g dgrad launches
-THIN_LAUNCHES = 0   # of LAUNCHES, those of the thin-row forward kernel
-THIN_ROWS = 64      # K8g's forward takes the thin-row kernel at <= this many rows
+THIN_LAUNCHES = 0   # of LAUNCHES, those of `thin_matmul`
+THIN_ROWS = 64      # a forward takes `thin_matmul` at <= this many rows
+WIDE_BN = 128       # output columns of a wide K8g tile (csrc/int8_gemm.cu WBN)
 
 
 def _scale(amax: torch.Tensor) -> torch.Tensor:
@@ -108,18 +114,44 @@ _DTYPES = {torch.bfloat16: 1, torch.float32: 0}
 
 
 def thin_gemm(m: int, dgrad: bool) -> bool:
-    """Whether K8g takes its thin-row kernel: the forward at THIN_ROWS rows
-    or fewer (csrc/int8_gemm.cu dispatches on the same condition)."""
+    """Whether a product takes the thin-row K8g (`thin_matmul`, K8q folded
+    in): the forward at THIN_ROWS rows or fewer."""
     return not dgrad and m <= THIN_ROWS
+
+
+def gemm_tiling(m: int, n: int, sms: int) -> tuple[int, int]:
+    """(BM, BN) of the wide K8g's output tiles on a card of `sms` SMs (the
+    kernel's persistent grid takes one block an SM): 128 x 128 when those
+    tiles give every SM one, else 64 x 128 (the teacher-forced decoder's
+    528 rows on the H100's 132 SMs: 30 tiles of 128 rows, 54 of 64)."""
+    tiles_n = -(-n // WIDE_BN)
+    return (128 if -(-m // 128) * tiles_n >= sms else 64), WIDE_BN
+
+
+def thin_matmul_split_ref(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
+                          splits: int) -> torch.Tensor:
+    """`thin_matmul`'s cluster split in plain PyTorch (for tests): each
+    rank's partial row maxima of |x| over its `int8_serve.split_ranges`
+    slice of K (K8_KR-row stages; a rank past K holds none), the max of
+    the S partials as every rank's scale, each rank's slice quantised with
+    it, then `int8_gemm_split_ref` (the int32 partials in rank order and
+    the epilogue), cast to x's dtype once."""
+    v = x.float()
+    ranges = int8_serve.split_ranges(x.shape[-1], int8_serve.K8_KR, splits)
+    amax = torch.stack([v[:, k0:k1].abs().amax(-1) if k1 > k0 else v.new_zeros(len(v))
+                        for k0, k1 in ranges]).amax(0)  # an empty rank's partial: 0
+    s_row = _scale(amax)[:, None]
+    q = torch.round(v / s_row).to(torch.int8)  # every rank's slice with the one scale
+    return int8_gemm_split_ref(q, s_row, w_q, w_s, splits, x.dtype)
 
 
 def int8_gemm_split_ref(q: torch.Tensor, s_row: torch.Tensor, w_q: torch.Tensor,
                         w_s: torch.Tensor, splits: int,
                         out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """The thin K8g's split over K in plain PyTorch (for tests): each
-    block's exact int32 partial over its `int8_serve.split_ranges` rows
-    (K8_KR-row stages), the partials added in rank order, then the
-    epilogue (acc * s_row) * w_s, cast once."""
+    """The thin K8g's split over K after the row quantisation, in plain
+    PyTorch (for tests): each block's exact int32 partial over its
+    `int8_serve.split_ranges` rows (K8_KR-row stages), the partials added
+    in rank order, then the epilogue (acc * s_row) * w_s, cast once."""
     acc = None
     for k0, k1 in int8_serve.split_ranges(q.shape[-1], int8_serve.K8_KR, splits):
         part = q[:, k0:k1].long() @ w_q[k0:k1].long()
@@ -168,13 +200,16 @@ def rowquant(x: torch.Tensor, col_scale: torch.Tensor | None = None
 
 def int8_gemm(q: torch.Tensor, s_row: torch.Tensor, w_q: torch.Tensor,
               w_s: torch.Tensor | None = None, dgrad: bool = False,
-              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """K8g on CUDA tensors: (q . w_q) * s_row * w_s, or (q . w_q^T) * s_row
-    with `dgrad`; `int8_gemm_ref` on CPU tensors. q (M, K) int8, s_row
-    (M, 1) f32, w_q (d_in, d_out) int8, w_s (d_out,) f32."""
+              out_dtype: torch.dtype = torch.float32,
+              w_t: torch.Tensor | None = None) -> torch.Tensor:
+    """The wide K8g on CUDA tensors: (q . w_q) * s_row * w_s, or (q . w_q^T)
+    * s_row with `dgrad`; `int8_gemm_ref` on CPU tensors. q (M, K) int8
+    (any M), s_row (M, 1) f32, w_q (d_in, d_out) int8, w_s (d_out,) f32.
+    The forward reads `w_t` = w_q^T (d_out, d_in), contiguous, and raises
+    without it."""
     if q.device.type == "cpu":
         return int8_gemm_ref(q, s_row, w_q, w_s, dgrad, out_dtype)
-    _check("int8_gemm", q=q, s_row=s_row, w_q=w_q, w_s=w_s)
+    _check("int8_gemm", q=q, s_row=s_row, w_q=w_q, w_s=w_s, w_t=w_t)
     m, k = q.shape
     n = w_q.shape[0] if dgrad else w_q.shape[1]
     if (q.dtype != torch.int8 or w_q.dtype != torch.int8 or w_q.dim() != 2
@@ -188,27 +223,82 @@ def int8_gemm(q: torch.Tensor, s_row: torch.Tensor, w_q: torch.Tensor,
                          f"{out_dtype}: shapes or types the kernel does not take")
     if k % 16 or n % 16:
         raise ValueError(f"int8_gemm: K {k} and N {n} must be multiples of 16")
+    if not dgrad and (w_t is None or w_t.dtype != torch.int8 or w_t.shape != (n, k)):
+        raise ValueError("int8_gemm: the forward takes w_t = w_q^T "
+                         f"({n}, {k}) int8, kept by the caller")
     out = torch.empty(m, n, dtype=out_dtype, device=q.device)
-    thin = thin_gemm(m, dgrad)
-    bn, splits = int8_serve.thin_tiling(m, n, k, int8_serve.K8_KR) if thin else (0, 0)
+    bm = gemm_tiling(m, n, torch.cuda.get_device_properties(q.device).multi_processor_count)[0]
     fn = cuda_lib.load("int8_gemm", "int8_gemm",
-                       [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+                       [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     rc = fn(q.data_ptr(), s_row.data_ptr(), w_q.data_ptr(),
-            None if dgrad else w_s.data_ptr(), out.data_ptr(), _DTYPES[out_dtype],
-            m, n, k, int(dgrad), bn, splits, torch.cuda.current_stream(q.device).cuda_stream)
+            None if dgrad else w_t.data_ptr(), None if dgrad else w_s.data_ptr(),
+            out.data_ptr(), _DTYPES[out_dtype], m, n, k, int(dgrad), bm,
+            torch.cuda.current_stream(q.device).cuda_stream)
     cuda_lib.check(rc, "int8_gemm")
-    global LAUNCHES, DGRAD_LAUNCHES, THIN_LAUNCHES
+    global LAUNCHES, DGRAD_LAUNCHES
     if dgrad:
         DGRAD_LAUNCHES += 1
     else:
         LAUNCHES += 1
-        THIN_LAUNCHES += thin
     return out
 
 
-def _matmul(x2: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor) -> torch.Tensor:
+def thin_matmul(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor) -> torch.Tensor:
+    """x (M, K) @ dequant(w_q, w_s) on the int8 path for M <= THIN_ROWS in
+    ONE launch on a CUDA x (bf16 or f32; the output in x's dtype): K8q
+    folded into the thin K8g. `int8_matmul_ref` on a CPU x."""
+    if x.device.type == "cpu":
+        return int8_matmul_ref(x, w_q, w_s)
+    _check("int8_thin_matmul", x=x, w_q=w_q, w_s=w_s)
+    m, k = x.shape[0], x.shape[-1]
+    n = w_q.shape[-1]
+    if (x.dtype not in _DTYPES or x.dim() != 2 or not 0 < m <= THIN_ROWS
+            or w_q.dtype != torch.int8 or w_q.shape != (k, n)
+            or w_s.dtype != torch.float32 or w_s.shape != (n,)):
+        raise ValueError(f"int8_thin_matmul: x {tuple(x.shape)} {x.dtype}, w_q "
+                         f"{tuple(w_q.shape)} {w_q.dtype}: the kernel takes 1 to "
+                         f"{THIN_ROWS} rows of bf16 or f32 against an int8 (K, N) weight")
+    if k % 16 or n % 16:
+        raise ValueError(f"int8_thin_matmul: K {k} and N {n} must be multiples of 16")
+    out = torch.empty(m, n, dtype=x.dtype, device=x.device)
+    bn, splits = int8_serve.thin_tiling(m, n, k, int8_serve.K8_KR)
+    fn = cuda_lib.load("int8_gemm", "int8_thin_matmul",
+                       [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
+                       + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    rc = fn(x.data_ptr(), _DTYPES[x.dtype], w_q.data_ptr(), w_s.data_ptr(), out.data_ptr(),
+            m, n, k, bn, splits, torch.cuda.current_stream(x.device).cuda_stream)
+    cuda_lib.check(rc, "int8_thin_matmul")
+    global LAUNCHES, THIN_LAUNCHES
+    LAUNCHES += 1
+    THIN_LAUNCHES += 1
+    return out
+
+
+def transposed(*weights: torch.Tensor, cache: dict | None = None) -> tuple[torch.Tensor, ...]:
+    """Each weight transposed, contiguous: the K-major B operands of the s8
+    wgmma kernels (the wide K8g forward reads w_q^T; K2 w1q^T and w2q^T).
+    Kept in `cache` (when given) until a weight moves or is written in
+    place, keyed as `models/whisper.py` `fused_linears` keys its
+    concatenation; the entry holds the weights too, so no new tensor can
+    take their addresses while it lives."""
+    key = tuple((t.data_ptr(), t._version) for t in weights)
+    hit = cache.get(key) if cache is not None else None
+    if hit is not None:
+        return hit[0]
+    wt = tuple(t.t().contiguous() for t in weights)
+    if cache is not None:
+        cache.clear()
+        cache[key] = (wt, weights)
+    return wt
+
+
+def _matmul(x2: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
+            w_t: Callable[[], torch.Tensor] | None = None) -> torch.Tensor:
+    if thin_gemm(x2.shape[0], False):
+        return thin_matmul(x2, w_q, w_s)
     q, s = rowquant(x2)
-    return int8_gemm(q, s, w_q, w_s, out_dtype=x2.dtype)
+    return int8_gemm(q, s, w_q, w_s, out_dtype=x2.dtype,
+                     w_t=w_t() if w_t is not None and q.is_cuda else None)
 
 
 def _dgrad(g2: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
@@ -219,39 +309,46 @@ def _dgrad(g2: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
 
 class Int8Matmul(torch.autograd.Function):
     """JAX's custom VJP (:92-130): no activation is saved; the backward
-    returns dx only, and only when x needs it."""
+    returns dx only, and only when x needs it. `w_t` (a function giving
+    w_q^T, which the wide forward reads on the card) rides along
+    untracked."""
 
     @staticmethod
-    def forward(ctx, x2, w_q, w_s):
+    def forward(ctx, x2, w_q, w_s, w_t=None):
         ctx.save_for_backward(w_q, w_s)
         ctx.x_dtype = x2.dtype
-        return _matmul(x2, w_q, w_s)
+        return _matmul(x2, w_q, w_s, w_t)
 
     @staticmethod
     def backward(ctx, g):
         if not ctx.needs_input_grad[0]:
-            return None, None, None
+            return None, None, None, None
         w_q, w_s = ctx.saved_tensors
-        return _dgrad(g.contiguous(), w_q, w_s, ctx.x_dtype), None, None
+        return _dgrad(g.contiguous(), w_q, w_s, ctx.x_dtype), None, None, None
 
 
-def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor) -> torch.Tensor:
+def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
+                w_t: Callable[[], torch.Tensor] | None = None) -> torch.Tensor:
     """x (..., d_in) @ dequant(w_q, w_s) on the int8 path, through the
-    autograd Function when x takes a gradient."""
+    autograd Function when x takes a gradient. `w_t`: a function giving
+    w_q^T (contiguous), called only where the wide K8g forward runs on the
+    card, which requires it."""
     x2 = x.reshape(-1, x.shape[-1])
     if torch.is_grad_enabled() and x.requires_grad:
-        y = Int8Matmul.apply(x2, w_q, w_s)
+        y = Int8Matmul.apply(x2, w_q, w_s, w_t)
     else:
-        y = _matmul(x2, w_q, w_s)
+        y = _matmul(x2, w_q, w_s, w_t)
     return y.reshape(*x.shape[:-1], w_q.shape[1])
 
 
 def int8_linear(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
-                b: torch.Tensor | None = None) -> torch.Tensor:
+                b: torch.Tensor | None = None,
+                w_t: Callable[[], torch.Tensor] | None = None) -> torch.Tensor:
     """JAX `int8_linear` (:133): K6 for thin rows under `AGACS_W8A16`, else
-    K8; the bias is added outside the product, in the output's dtype."""
+    K8 (`w_t` as `int8_matmul`'s); the bias is added outside the product,
+    in the output's dtype."""
     if w_q.dim() == 2 and int8_serve.thin_rows(x) and int8_serve.fits(w_q):
         y = int8_serve.w8a16_matmul(x, w_q, w_s)
     else:
-        y = int8_matmul(x, w_q, w_s)
+        y = int8_matmul(x, w_q, w_s, w_t)
     return y if b is None else y + b.to(y.dtype)

@@ -36,8 +36,8 @@ the split in plain PyTorch). They take d a multiple of 128 up to 1024 and
 h = 128 · C · U with C in {1, 2, 4, 8} and U <= 3, so h <= 3072 (whisper
 tiny 384/1536, base 512/2048, small 768/3072); `_check` raises on other
 shapes. Their B operands are K-major, so they read w1q^T and w2q^T:
-`transposed` makes those once, `MLP` keeps them until a weight moves or is
-written, and the CUDA wrappers raise without them.
+`int8_linear.transposed` makes those once, `MLP` keeps them until a
+weight moves or is written, and the CUDA wrappers raise without them.
 """
 
 from __future__ import annotations
@@ -103,24 +103,6 @@ def mlp_tiling(d: int, h: int, bwd: bool) -> dict | None:
         return None
     return {"C": c, "BM": K2_BM, "unit": K2_UNIT, "units": units, "S": stages,
             "smem": fixed + stages * K2_SLOT}
-
-
-def transposed(w1q: torch.Tensor, w2q: torch.Tensor,
-               cache: dict | None = None) -> tuple[torch.Tensor, torch.Tensor]:
-    """(w1q^T, w2q^T), contiguous: the kernels' K-major B operands. Kept in
-    `cache` (when given) until a weight moves or is written in place, keyed
-    as `models/whisper.py` `fused_linears` keys its concatenation; the entry
-    holds the weights too, so no new tensor can take their addresses while
-    it lives."""
-    key = tuple((t.data_ptr(), t._version) for t in (w1q, w2q))
-    hit = cache.get(key) if cache is not None else None
-    if hit is not None:
-        return hit[0]
-    wt = (w1q.t().contiguous(), w2q.t().contiguous())
-    if cache is not None:
-        cache.clear()
-        cache[key] = (wt, (w1q, w2q))
-    return wt
 
 
 def _erf(x: torch.Tensor) -> torch.Tensor:
@@ -246,8 +228,8 @@ def _check(what: str, bwd: bool, x, w1q, s1, b1, w2q, s2, other) -> dict:
 def _transposes(what: str, w1q, w2q, wt):
     """`wt` checked against w1q and w2q."""
     if wt is None:
-        raise ValueError(f"{what}: wt, the transposed weights (`transposed`), is required "
-                         "on CUDA")
+        raise ValueError(f"{what}: wt, the transposed weights "
+                         "(`int8_linear.transposed`), is required on CUDA")
     d, h = w1q.shape
     if (wt[0].shape != (h, d) or wt[1].shape != (d, h)
             or any(t.dtype != torch.int8 or t.device != w1q.device or not t.is_contiguous()

@@ -54,12 +54,16 @@ non-zero exit:
      and within 5e-2 x max of the attention over the unquantised caches;
      SDPA on the dequantised caches timed beside them;
   2i. K8q (rowquant) and K8g (int8_gemm, forward and dgrad;
-     csrc/int8_gemm.cu) against their plain versions at (12000, 768) -> 768,
-     (528, 768) -> 768, (8, 768) -> 3072, (8, 3072) -> 768, (8, 768) -> 768
-     and (40, 768) -> 768, with torch._int_mm + the dequant timed beside
-     them (M > 16); at 64 rows or fewer K8g's thin kernel: no element may
-     differ from the plain version, two calls bit-identical, one device
-     launch a call, cuBLAS on the dequantised bf16 weight timed beside;
+     csrc/int8_gemm.cu) against their plain versions at (12000, 768) ->
+     768, 1536 and 2304, (528, 768) -> 768 (the wide kernel, the forward
+     on the kept w_q^T), (8, 768) -> 3072, (8, 3072) -> 768, (8, 768) ->
+     768, (40, 768) -> 768 and (64, 768) -> 768 (`thin_matmul`, K8q
+     folded into the thin K8g): no element may differ from the plain
+     version, two calls after an L2 eviction bit-identical, one device
+     launch a call, the wide
+     kernel's rows past M untouched; timed beside them: torch._int_mm +
+     the dequant (M > 16), and at the thin shapes cuBLAS on the
+     dequantised bf16 weight;
   2j. K2f and K2b (csrc/int8_mlp.cu) against their plain versions at
      (12000, 768, 3072), (6000, 768, 3072) (int8 serving's encode),
      (528, 768, 3072), 1000 rows (a partial tile), whisper-base's
@@ -89,7 +93,8 @@ non-zero exit:
      1e-2 x max |plain|,
      and elementwise K6_ELEM, two calls bit-identical, one device launch a
      call, the tiling (BN, S) the rule chose; cuBLAS on the pre-dequantised
-     bf16 weight and K8q + K8g timed beside it, with its bytes bound;
+     bf16 weight and K8's `thin_matmul` timed beside it, with its bytes
+     bound;
   3d. K3 at d_head 48 (decode_attn.cu, the side ladder's width) against its
      plain version at (8, 112, 192), 4 heads, pos 0/57/103 and (40, 112,
      192) pos 103, keys past pos poisoned, and the cross shape (8, 752,
@@ -131,7 +136,8 @@ non-zero exit:
      on the card with the encoder's attention in its plain version;
   13. phase 7's step with the frozen trunk quantised to int8 after the bf16
      cast (`freeze_quant: int8`): ms per step, audio-s/s and peak memory
-     beside phase 7's, exact K2f/K2b/K8 launch counts per micro-step
+     beside phase 7's (and the bytes of the int8 weights kept transposed
+     for K8g and K2), exact K2f/K2b/K8 launch counts per micro-step
      (INT8_TRAIN_LAUNCHES), the int8 buffers bit-identical, adapters changed;
   14. torch.profiler over one more int8 step: busy, idle share, the K2 and
      K8 shares, the top kernels;
@@ -140,9 +146,10 @@ non-zero exit:
      card control with the int8 plain versions;
   16. greedy Speech2Text (8 x 15 s, 100 steps) on the int8 trunk: ms per
      batch, x realtime, exact launch counts (the decode steps' 8-row
-     products on K8g's thin kernel), first-step logits card bf16 against
-     CPU float32, and one more request under torch.profiler (K8g's and
-     its thin kernel's device ms, one device event a K8g call);
+     products one `thin_matmul` launch each, K8q only before the wide
+     products), first-step logits card bf16 against CPU float32, and one
+     more request under torch.profiler (K8g's, its thin kernel's and K8q's
+     device ms, one device event a K8g or K8q call);
   17. the CLIs on the card: `bin.train --override freeze_quant=int8` (the
      stage-2 recipe, whisper-small, one epoch) on a generated data dir
      under build/, then `bin.decode` on its n-best average: an int8
@@ -226,6 +233,8 @@ from __future__ import annotations
 import collections
 import concurrent.futures
 import contextlib
+import ctypes
+import functools
 import json
 import os
 import re
@@ -352,11 +361,14 @@ PE_TRAIN_COS = dict(TRAIN_COS)
 # bf16(w_q · w_s) is off by up to 2^-9 of itself) and moves elements whose
 # sum cancels past that bound.
 K6_SHAPES = ((768, 768), (768, 3072), (3072, 768), (768, 52224))
-# Phase 2i's (rows, d_in, d_out): the trunk's 12000- and 528-row products
-# (K8g's 64-row kernel) and a decode step's (K8g's thin kernel): greedy's
-# 8 rows and beam 5's 40; the kernels line's thin entry at K8_THIN_ENTRY.
-K8_SHAPES = ((12000, 768, 768), (528, 768, 768), (8, 768, 3072), (8, 3072, 768),
-             (8, 768, 768), (40, 768, 768))
+# Phase 2i's (rows, d_in, d_out): the int8 train step's wide products (the
+# wide K8g): the encoder's out (12000, 768) -> 768 (the kernels line reads
+# it), the cross k/v -> 1536 and the fused q/k/v -> 2304, the teacher-forced
+# decoder's 528 rows; and a decode step's (`thin_matmul`): greedy's 8 rows
+# and beam 5's 40, and the 64 rows of its widest instance (eight row
+# tiles); the kernels line's thin entry at K8_THIN_ENTRY.
+K8_SHAPES = ((12000, 768, 768), (12000, 768, 1536), (12000, 768, 2304), (528, 768, 768),
+             (8, 768, 3072), (8, 3072, 768), (8, 768, 768), (40, 768, 768), (64, 768, 768))
 K8_THIN_ENTRY = (8, 768, 768)
 # Phase 2j's (rows, d, h): the int8 trunk's training encoder (16 x 15 s),
 # its serving encode (8 x 15 s), the teacher-forced decoder's 16 x 33 rows,
@@ -1047,23 +1059,48 @@ def differ(out, plain) -> float:
     return (out != plain.to(out.dtype)).float().mean().item()
 
 
+def wide_into(buf, q, s, w_q, w_s=None, w_t=None) -> None:
+    """The wide K8g's C entry writing `buf` (M, N) bf16, a view of a larger
+    buffer: the dgrad without `w_s`, else the forward on w_t = w_q^T.
+    Phase 2i's seam for the rows past M (`int8_gemm` allocates its own
+    output); not counted as a launch."""
+    from agacs_tpu_torch.ops import cuda_lib
+    from agacs_tpu_torch.ops import int8_linear as i8
+
+    (m, k), n, dgrad = q.shape, buf.shape[1], w_s is None
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    fn = cuda_lib.load("int8_gemm", "int8_gemm",
+                       [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    cuda_lib.check(fn(q.data_ptr(), s.data_ptr(), w_q.data_ptr(),
+                      None if dgrad else w_t.data_ptr(), None if dgrad else w_s.data_ptr(),
+                      buf.data_ptr(), 1, m, n, k, int(dgrad), i8.gemm_tiling(m, n, sms)[0],
+                      torch.cuda.current_stream(q.device).cuda_stream), "int8_gemm")
+
+
 def check_k8(dev, g, timed=True) -> dict:
     """Phase 2i: K8q (rowquant) and K8g (int8_gemm, forward and dgrad)
-    against their plain versions at the trunk's shapes: the encoder and
-    cross k/v projections (12000, 768) -> 768, the teacher-forced decoder's
-    (528, 768) -> 768, a decode step's (8, 768) -> 3072 and (8, 3072) -> 768
-    (the unfused MLP) and (8, 768) -> 768, and a beam-5 step's (40, 768) ->
-    768. At 64 rows or fewer the forward is K8g's thin kernel: no element
-    may differ from the plain version (both sum exact int32 products and
-    repeat the same float32 epilogue), and two calls must be bit-identical;
-    timed beside it: cuBLAS on the dequantised bf16 weight and, above 16
-    rows, `torch._int_mm` + dequant. Returns errors and times at (12000,
-    768) -> 768 and the thin kernel's at (8, 768) -> 768."""
+    against their plain versions at K8_SHAPES. Above 64 rows the forward
+    and every dgrad run the wide kernel (`int8_linear.gemm_tiling`), the
+    forward on the kept w_q^T; at 64 rows or fewer the forward is one
+    launch, `thin_matmul` (K8q folded into the thin K8g). Each product is
+    called twice after the L2 is evicted and must give bit-identical
+    outputs, one device event a call, with no element different from the
+    plain version (both sum exact int32 products and repeat the same
+    float32 epilogue); the wide kernel, given an output buffer with rows
+    past M (`wide_into`), must leave those rows as they were. Timed beside
+    them: the plain versions; at the thin shapes cuBLAS on the dequantised
+    bf16 weight; above 16 rows `torch._int_mm` + dequant. (The two-launch
+    design this replaced, K8q + a thin K8g on the int8 rows, is timed by
+    its own tree's phase 2i.) Returns errors and times at (12000, 768) ->
+    768 and the thin product's at (8, 768) -> 768."""
     from agacs_tpu_torch.ops import int8_linear as i8
     from agacs_tpu_torch.ops import int8_serve
 
     res = {"q": {"err": 0.0}, "fwd": {"err": 0.0}, "dgrad": {"err": 0.0},
            "thin": {"err": 0.0}}
+    bf16 = torch.bfloat16
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    profiles = []  # one-launch checks, after every value check (a mutant fails on its fault)
     for m, k, n in K8_SHAPES:
         thin = i8.thin_gemm(m, False)
         # > 50 MB of distinct buffers per cycle: the weights at decode shapes
@@ -1071,82 +1108,113 @@ def check_k8(dev, g, timed=True) -> dict:
         sets = []
         for _ in range(n_sets):
             w_q, w_s, _ = int8_weight(g, dev, k, n)
-            x = torch.randn(m, k, generator=g).to(dev, torch.bfloat16)
-            dy = torch.randn(m, n, generator=g).to(dev, torch.bfloat16)
-            sets.append((x, w_q, w_s, dy))
-        x, w_q, w_s, dy = sets[0]
+            x = torch.randn(m, k, generator=g).to(dev, bf16)
+            dy = torch.randn(m, n, generator=g).to(dev, bf16)
+            sets.append((x, w_q, w_s, dy, None if thin else w_q.t().contiguous()))
+        x, w_q, w_s, dy, w_t = sets[0]
         q, s = i8.rowquant(x)
         q_ref, s_ref = i8.row_quant_ref(x.float())
         torch.cuda.synchronize()
         q_err = (q.int() - q_ref.int()).abs().max().item()
         check(q_err == 0 and torch.equal(s, s_ref), f"K8q ({m}, {k}): q off by {q_err} steps")
-        before = i8.THIN_LAUNCHES
-        gemm = lambda: i8.int8_gemm(q, s, w_q, w_s, out_dtype=torch.bfloat16)  # noqa: E731
-        cold_l2(dev)
-        y = twice(f"K8g thin ({m}, {k}) -> {n}", gemm) if thin else gemm()
-        check(i8.THIN_LAUNCHES - before == (2 if thin else 0),
-              f"K8g ({m}, {k}) -> {n} took the {'thin' if thin else '64-row'} kernel")
-        y_ref = i8.int8_matmul_ref(x.float(), w_q, w_s)
-        err = hold("K8g", y, y_ref, (m, k, n))
+        shape = f"({m}, {k}) -> {n}"
         if thin:
-            check(differ(y, y_ref) == 0, f"K8g thin ({m}, {k}) -> {n}: "
-                                         f"{differ(y, y_ref):.2%} of elements differ from plain")
-            one_launch(f"K8g thin ({m}, {k}) -> {n}", gemm, "thin_gemm_kernel", 1)
+            name, word = f"K8g thin_matmul {shape}", "thin_gemm_kernel"
+            fwd = functools.partial(i8.thin_matmul, x, w_q, w_s)
+        else:
+            name, word = f"K8g wide {shape}", "wide_gemm_kernel"
+            fwd = functools.partial(i8.int8_gemm, q, s, w_q, w_s, out_dtype=bf16, w_t=w_t)
+        counts = i8.QUANT_LAUNCHES, i8.THIN_LAUNCHES
+        cold_l2(dev)
+        y = twice(name, fwd)
+        check((i8.QUANT_LAUNCHES, i8.THIN_LAUNCHES) == (counts[0], counts[1] + 2 * thin),
+              f"{name}: {'one thin launch, no K8q' if thin else 'the wide kernel'} a call")
+        y_ref = i8.int8_matmul_ref(x.float(), w_q, w_s)
+        check(differ(y, y_ref) == 0, f"{name}: {differ(y, y_ref):.4%} of elements differ "
+                                     "from plain")
+        err = hold(name, y, y_ref, (m, k, n))
         qd, sd = i8.rowquant(dy, w_s)
-        dx = i8.int8_gemm(qd, sd, w_q, dgrad=True, out_dtype=torch.bfloat16)
-        dx_ref = i8.int8_matmul_dgrad_ref(dy.float(), w_q, w_s, torch.float32)
         qd_ref, _ = i8.row_quant_ref(dy.float(), w_s)
         check(torch.equal(qd, qd_ref), f"K8q dgrad ({m}, {n}) with the column pre-scale")
+        dgr = functools.partial(i8.int8_gemm, qd, sd, w_q, dgrad=True, out_dtype=bf16)
+        cold_l2(dev)
+        dx = twice(f"K8g dgrad {shape}", dgr)
+        dx_ref = i8.int8_matmul_dgrad_ref(dy.float(), w_q, w_s, torch.float32)
+        check(differ(dx, dx_ref) == 0, f"K8g dgrad {shape}: {differ(dx, dx_ref):.4%} of "
+                                       "elements differ from plain")
         d_err = hold("K8g dgrad", dx, dx_ref, (m, n, k))
+        profiles += [(name, fwd, word), (f"K8g dgrad {shape}", dgr, "wide_gemm_kernel")]
+        # the wide kernel's stores stop at row M: rows past it keep their value
+        outs = [("dgrad", dx, (qd, sd, w_q))]
+        if not thin:
+            outs.append(("forward", y, (q, s, w_q, w_s, w_t)))
+        for what, want, args in outs:
+            buf = torch.full((m + 128, want.shape[1]), 7.0, dtype=bf16, device=dev)
+            wide_into(buf[:m], *args)
+            torch.cuda.synchronize()
+            check(bool((buf[m:] == 7.0).all()) and torch.equal(buf[:m], want),
+                  f"K8g wide {what} {shape}: the output's rows, and none past M, written")
         res["thin" if thin else "fwd"]["err"] = max(res["thin" if thin else "fwd"]["err"], err)
         res["dgrad"]["err"] = max(res["dgrad"]["err"], d_err)
-        line = (f"phase 2i K8 ({m}, {k}) -> {n}: K8q q/s identical to plain; K8g "
-                + (f"thin (BN, S) {int8_serve.thin_tiling(m, n, k, int8_serve.K8_KR)}, "
-                   "bit-identical twice, " if thin else "")
-                + f"max_abs_err {err:.3e} ({differ(y, y_ref):.2%} of elements differ), dgrad "
-                f"{d_err:.3e} ({differ(dx, dx_ref):.2%}) (bound {KERNEL_RTOL} x max|plain f32|)")
+        line = (f"phase 2i K8 {shape}: K8q q/s identical to plain; "
+                + (f"thin_matmul (BN, S) {int8_serve.thin_tiling(m, n, k, int8_serve.K8_KR)}"
+                   if thin else f"wide (BM, BN) {i8.gemm_tiling(m, n, sms)}")
+                + f", dgrad wide (BM, BN) {i8.gemm_tiling(m, k, sms)}: bit-identical twice "
+                f"after an L2 eviction, no element different from plain; max_abs_err "
+                f"{err:.3e}, dgrad {d_err:.3e}")
         if timed:
             iters = 100 if thin else 20
-            qs = [(*i8.rowquant(x), w_q, w_s) for x, w_q, w_s, _ in sets]
-            qds = [(*i8.rowquant(dy, w_s), w_q) for _, w_q, w_s, dy in sets]
-            t = {
-                "q": cuda_ms(lambda x, *_: i8.rowquant(x), sets, iters),
-                "q_plain": cuda_ms(lambda x, *_: i8.row_quant_ref(x), sets, 20),
-                "fwd": cuda_ms(lambda q, s, w_q, w_s: i8.int8_gemm(
-                    q, s, w_q, w_s, out_dtype=torch.bfloat16), qs, iters),
-                "fwd_plain": cuda_ms(lambda q, s, w_q, w_s: i8.int8_gemm_ref(
-                    q, s, w_q, w_s, out_dtype=torch.bfloat16), qs, 10),
-                "dgrad": cuda_ms(lambda q, s, w_q: i8.int8_gemm(
-                    q, s, w_q, dgrad=True, out_dtype=torch.bfloat16), qds, 20),
-                "dgrad_plain": cuda_ms(lambda q, s, w_q: i8.int8_gemm_ref(
-                    q, s, w_q, dgrad=True, out_dtype=torch.bfloat16), qds, 10),
-            }
+            qs = [(*i8.rowquant(x), w_q, w_s, w_t) for x, w_q, w_s, _, w_t in sets]
+            qds = [(*i8.rowquant(dy, w_s), w_q) for _, w_q, w_s, dy, _ in sets]
+            xs = [(x, w_q, w_s) for x, w_q, w_s, _, _ in sets]
+            t = {"q": cuda_ms(lambda x, *_: i8.rowquant(x), xs, iters),
+                 "q_plain": cuda_ms(lambda x, *_: i8.row_quant_ref(x), xs, 20)}
             if thin:
-                bfs = [(x, int8_serve.dequant_bf(w_q, w_s, torch.bfloat16))
-                       for x, w_q, w_s, _ in sets]
+                t["fwd"] = cuda_ms(i8.thin_matmul, xs, iters)
+                t["fwd_plain"] = cuda_ms(i8.int8_matmul_ref, xs, 10)
+                bfs = [(x, int8_serve.dequant_bf(w_q, w_s, bf16)) for x, w_q, w_s in xs]
                 t["fwd_cublas_bf16"] = cuda_ms(torch.matmul, bfs, iters)
                 del bfs
+            else:
+                t["fwd"] = cuda_ms(lambda q, s, w_q, w_s, w_t: i8.int8_gemm(
+                    q, s, w_q, w_s, out_dtype=bf16, w_t=w_t), qs, iters)
+                t["fwd_plain"] = cuda_ms(lambda q, s, w_q, w_s, _: i8.int8_gemm_ref(
+                    q, s, w_q, w_s, out_dtype=bf16), qs, 10)
+            t["dgrad"] = cuda_ms(lambda q, s, w_q: i8.int8_gemm(
+                q, s, w_q, dgrad=True, out_dtype=bf16), qds, 20)
+            t["dgrad_plain"] = cuda_ms(lambda q, s, w_q: i8.int8_gemm_ref(
+                q, s, w_q, dgrad=True, out_dtype=bf16), qds, 10)
             if m > 16:  # torch._int_mm refuses M <= 16
-                t["fwd_lib"] = cuda_ms(lambda q, s, w_q, w_s: (
-                    torch._int_mm(q, w_q).float() * s * w_s).to(torch.bfloat16), qs, iters)
-                if not thin:
-                    wts = [w_q.t().contiguous() for _, _, w_q in qds]
-                    t["dgrad_lib"] = cuda_ms(lambda q, s, wt: (
-                        torch._int_mm(q, wt).float() * s).to(torch.bfloat16),
-                        [(q, s, wt) for (q, s, _), wt in zip(qds, wts)], 20)
-            bound = roofline(m * k + m * 4 + k * n + n * 4 + m * n * 2, 2 * m * k * n, "int8")
+                t["fwd_lib"] = cuda_ms(lambda q, s, w_q, w_s, _: (
+                    torch._int_mm(q, w_q).float() * s * w_s).to(bf16), qs, iters)
+                wts = [w_q.t().contiguous() for _, _, w_q in qds]
+                t["dgrad_lib"] = cuda_ms(lambda q, s, wt: (
+                    torch._int_mm(q, wt).float() * s).to(bf16),
+                    [(q, s, wt) for (q, s, _), wt in zip(qds, wts)], 20)
+                del wts
+            # the forward's bound: x (bf16 for the thin product, else q and
+            # its scales), the weight, its scales and the output, once each
+            x_bytes = m * k * 2 if thin else m * k + m * 4
+            bound = roofline(x_bytes + k * n + n * 4 + m * n * 2, 2 * m * k * n, "int8")
+            d_bound = roofline(m * n + m * 4 + k * n + m * k * 2, 2 * m * k * n, "int8")
             line += (" | " + ", ".join(f"{key} {v:.4f} ms" for key, v in t.items())
-                     + f", bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
-            if m == 12000:
+                     + f", bound fwd {bound['bound_ms']:.4f} ms ({bound['bound_by']}), dgrad "
+                     f"{d_bound['bound_ms']:.4f} ms")
+            if (m, k, n) == K8_SHAPES[0]:
                 res["q"].update(ms=t["q"], plain_ms=t["q_plain"], library_ms=None,
                                 **roofline(m * k * 2 + m * k + m * 4, 4 * m * k, "f32"))
-                for key in ("fwd", "dgrad"):
-                    res[key].update(ms=t[key], plain_ms=t[key + "_plain"],
-                                    library_ms=t[key + "_lib"], **bound)
+                res["fwd"].update(ms=t["fwd"], plain_ms=t["fwd_plain"],
+                                  library_ms=t["fwd_lib"], **bound)
+                res["dgrad"].update(ms=t["dgrad"], plain_ms=t["dgrad_plain"],
+                                    library_ms=t["dgrad_lib"], **d_bound)
             if (m, k, n) == K8_THIN_ENTRY:
                 res["thin"].update(ms=t["fwd"], plain_ms=t["fwd_plain"],
                                    library_ms=t["fwd_cublas_bf16"], **bound)
         print(line, flush=True)
+    for what, fn, word in profiles:
+        one_launch(what, fn, word, 1)
+    print(f"phase 2i K8: one device event a call in each of the {len(profiles)} products",
+          flush=True)
     return res
 
 
@@ -1197,7 +1265,7 @@ def check_k2(dev, g, timed=True) -> dict:
     res = {"fwd": {"err": 0.0}, "bwd": {"err": 0.0}}
     for n, d, h in K2_SHAPES:
         sets = [k2_inputs(g, dev, n, d, h) for _ in range((2 if n >= 6000 else 4) if timed else 1)]
-        sets = [(*a, int8_mlp.transposed(a[1], a[4])) for a in sets]
+        sets = [(*a, i8.transposed(a[1], a[4])) for a in sets]
         x, w1q, s1, b1, w2q, s2, b2, dy, wt = sets[0]
         shape = (n, d, h)
         fwd = lambda: int8_mlp._fwd_kernel(x, w1q, s1, b1, w2q, s2, b2, wt)  # noqa: E731
@@ -1573,7 +1641,8 @@ def check_k6(dev, g, timed=True) -> dict:
     1e-2 x max |plain| and element by element K6_ELEM, each called twice
     and bit-identical (the split's partials are added in rank order), one
     launch a call. Timed beside it: cuBLAS (`torch.matmul`) on the
-    pre-dequantised bf16 weight and K8q + K8g on the int8 one. Distinct
+    pre-dequantised bf16 weight and K8's one-launch `thin_matmul` on the
+    int8 one. Distinct
     weights per call fill more than the 50 MB L2, as a decode step's 99 MB
     of weights do. Returns the error and the times at 8 rows of the logits
     head."""
@@ -1608,11 +1677,10 @@ def check_k6(dev, g, timed=True) -> dict:
                 iters = 20 if n > 10000 else 100
                 t = {"k6": cuda_ms(int8_serve.w8a16_matmul, sets, iters),
                      "cublas": cuda_ms(torch.matmul, list(zip(xs, bf)), iters),
-                     "k8": cuda_ms(lambda x, wq, ws: i8.int8_gemm(
-                         *i8.rowquant(x), wq, ws, out_dtype=torch.bfloat16), sets, iters)}
+                     "k8": cuda_ms(i8.thin_matmul, sets, iters)}
                 bound = roofline(k * n + n * 4 + rows * k * 2 + rows * n * 2,
                                  2 * rows * k * n, "bf16")
-                item += (f" K6 {t['k6']:.4f} cuBLAS {t['cublas']:.4f} K8q+K8g {t['k8']:.4f} "
+                item += (f" K6 {t['k6']:.4f} cuBLAS {t['cublas']:.4f} K8 thin_matmul {t['k8']:.4f} "
                          f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
                 if rows == 8:
                     t["plain"] = cuda_ms(int8_serve.w8a16_matmul_ref, sets, 10)
@@ -1943,6 +2011,23 @@ def int8_counts() -> dict:
             "K8q": int8_linear.QUANT_LAUNCHES}
 
 
+def kept_transposes(model) -> dict:
+    """Bytes of the int8 weights a model keeps transposed for the kernels
+    (not state): the wide K8g forward's (`Int8Linear.weight_t` and the
+    fused projections' cache) and K2's (`MLP.k2_weights`)."""
+    from agacs_tpu_torch.models import whisper as tw
+
+    k8 = k2 = 0
+    for m in model.modules():
+        if isinstance(m, tw.Int8Linear):
+            k8 += sum(t.numel() for wt, _ in m._t_cache.values() for t in wt)
+        elif isinstance(m, tw.MultiHeadAttention):
+            k8 += sum(t.numel() for c in m._fused.values() for t in c[2].values())
+        elif isinstance(m, tw.MLP):
+            k2 += sum(t.numel() for wt, _ in m._k2_cache.values() for t in wt)
+    return {"K8g": k8, "K2": k2}
+
+
 def reset_int8_counts() -> None:
     from agacs_tpu_torch.ops import int8_linear, int8_mlp
 
@@ -1986,6 +2071,7 @@ def train_phase(sd, dev, int8: bool = False, bf16: dict | None = None) -> dict:
     if int8:
         launches.update(int8_counts())
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    kept = kept_transposes(model) if int8 else {}
     check(all(np.isfinite(v) for pair in losses for v in pair)
           and int(stats["grad_nonfinite_total"]) == 0, f"finite losses {losses}")
     # layer 0's q/k/v need no gradient (nothing upstream of it trains), so
@@ -2012,7 +2098,9 @@ def train_phase(sd, dev, int8: bool = False, bf16: dict | None = None) -> dict:
           f"{'int8' if int8 else 'bf16'} trunk / f32 adapters, "
           f"{TRAIN_B} x {TRAIN_S} s, cs_weight 0.01, SpecAug on: {ms:.1f} ms/step "
           f"(median of {[round(t * 1e3, 1) for t in times]}), "
-          f"{audio_s / (ms / 1e3):.1f} audio-s/s; peak {peak_gb:.2f} GB; "
+          f"{audio_s / (ms / 1e3):.1f} audio-s/s; peak {peak_gb:.2f} GB"
+          + (f" (of it the int8 weights kept transposed: K8g {kept['K8g'] / 1e6:.1f} MB, "
+             f"K2 {kept['K2'] / 1e6:.1f} MB)" if int8 else "") + "; "
           f"{sum(p.numel() for p in params) / 1e6:.2f}M trainable; losses (loss, "
           f"loss_cs) {[(round(a, 3), round(c, 3)) for a, c in losses]}; "
           f"launches {launches} (K1f {n_layer} and K1b {n_layer - 1} per step"
@@ -2136,7 +2224,7 @@ def plain_int8():
     from agacs_tpu_torch.ops import int8_mlp
 
     saved = i8._matmul, i8._dgrad, int8_mlp.int8_mlp_fwd, int8_mlp.int8_mlp_bwd
-    i8._matmul = i8.int8_matmul_ref
+    i8._matmul = lambda x2, w_q, w_s, w_t=None: i8.int8_matmul_ref(x2, w_q, w_s)
     i8._dgrad = i8.int8_matmul_dgrad_ref
     # the refs without the transposed weights (the wrappers' last argument)
     int8_mlp.int8_mlp_fwd = lambda *a: int8_mlp.int8_mlp_fwd_ref(*a[:7])
@@ -2215,16 +2303,16 @@ def int8_serve_phase(sd8, dev, audio) -> dict:
     L = cfg.n_text_layer
     # encoder: fused q/k/v + out per layer (JAX's `mha`), K2f per layer;
     # cross-KV: key and value per layer (JAX's precompute_cross_kv, unfused);
-    # a step: self q, k, v, out, cross q, out, and the 8-row MLP's fc1, fc2
+    # a step: self q, k, v, out, cross q, out, and the 8-row MLP's fc1, fc2,
+    # each one `thin_matmul` launch (no K8q)
     want = {"K1f": cfg.n_audio_layer, "K3": 2 * L * n_steps, "K2f": cfg.n_audio_layer,
             "K2b": 0, "K8g": 2 * cfg.n_audio_layer + 2 * L + 8 * L * n_steps,
-            "K8g dgrad": 0}
-    want["K8q"] = want["K8g"]
+            "K8g dgrad": 0, "K8q": 2 * cfg.n_audio_layer + 2 * L}
     check(len(results) == 8 and all(r.tokens[:5] == PRIMER and 5 < len(r.tokens) <= 105
                                     for r in results), "8 int8 hypotheses")
     check(launches == want, f"int8 serving launches {launches} == {want}")
-    # the decode steps' products (8 rows) take K8g's thin kernel, the
-    # encoder's and the cross-KV projections' (12000 rows) the 64-row one
+    # the decode steps' products (8 rows) take `thin_matmul`, the
+    # encoder's and the cross-KV projections' (6000 rows) the wide kernel
     check(thin == 8 * L * n_steps, f"int8 serving: {thin} thin K8g launches == "
                                    f"{8 * L * n_steps}")
     ms_batch = statistics.median(times) * 1e3
@@ -2250,11 +2338,14 @@ def int8_serve_phase(sd8, dev, audio) -> dict:
     reset_int8_counts()
     counts: dict = {}
     busy, n_events, per_name = device_profile(lambda: s2t(audio), counts)
-    # one device kernel a K8g call: the thin kernel's events are its calls
+    # one device kernel a K8g call (the thin one with its K8q folded in), one
+    # K8q kernel a wide call
     check(events_of(counts, "thin_gemm_kernel") == int8_linear.THIN_LAUNCHES == thin
-          and events_of(counts, "gemm_kernel") == int8_linear.LAUNCHES == want["K8g"],
+          and events_of(counts, "gemm_kernel") == int8_linear.LAUNCHES == want["K8g"]
+          and events_of(counts, "rowquant_kernel") == int8_linear.QUANT_LAUNCHES
+          == want["K8q"],
           f"int8 serving profile: one launch a K8g call ({int8_linear.THIN_LAUNCHES} thin, "
-          f"{int8_linear.LAUNCHES} in all): {counts}")
+          f"{int8_linear.LAUNCHES} in all) and a K8q call: {counts}")
 
     def share(*keys):
         t = sum(v for name, v in per_name.items() if any(k in name for k in keys))
@@ -2451,8 +2542,8 @@ def serving_quant_phase(sd, dev, audio) -> dict:
         for beam in (1, BEAM):
             thin = env == "1" and beam == 1
             want = {"K1f": E, "K2f": E, "K6": n_steps * (1 + (8 * L if thin else 0)),
-                    "K8g": 2 * E + 2 * L + (0 if thin else 8 * L * n_steps)}
-            want["K8q"] = want["K8g"]
+                    "K8g": 2 * E + 2 * L + (0 if thin else 8 * L * n_steps),
+                    "K8q": 2 * E + 2 * L}  # the wide products': `thin_matmul` folds it in
             if beam == 1:
                 want["K3"] = 2 * L * n_steps
             else:
@@ -3586,16 +3677,22 @@ MUTANTS = {
     "K8q per-tensor scale (one fixed scale for every row)": (
         "int8_gemm.cu", [("i8::quant_scale(i8::warp_max(m))", "i8::quant_scale(8.0f)")],
         ("k8",)),
-    "K8g 64-row kernel: dequant with the tile's first row scale": (
-        "int8_gemm.cu", [("const float sr = s_row[row];", "const float sr = s_row[m0];")],
-        ("k8",)),
+    "K8g wide: dequant with the tile's first row scale": (
+        "int8_gemm.cu", [("sr[h] = row < M ? s_row[row] : 0.f;",
+                          "sr[h] = row < M ? s_row[m0] : 0.f;")], ("k8",)),
     "K8g thin: the last split dropped": (
         "int8_gemm.cu", [("nst = max(0, min(n_stages, st0 + per) - st0);",
                           "nst = rank == S - 1 ? 0 : max(0, min(n_stages, st0 + per) - st0);")],
         ("k8",)),
     "K8g thin: row 0's scale for every row": (
-        "int8_gemm.cu", [("const float sr = s_row[r];", "const float sr = s_row[0];")],
+        "int8_gemm.cu", [("const float sr = sc[r];", "const float sr = sc[0];")],
         ("k8",)),
+    "K8g thin_matmul: each rank its own partial row max (no exchange)": (
+        "int8_gemm.cu", [("for (int q = 0; q < S; ++q) m = fmaxf(m, pmax[q][r]);",
+                          "m = pmax[rank][r];")], ("k8",)),
+    "K8g thin_matmul: the row max over the rank's first stage only": (
+        "int8_gemm.cu", [("for (int j = nst - 1; j >= 0; --j) {",
+                          "for (int j = 0; j >= 0; --j) {")], ("k8",)),
     "K8g thin: w_q read untransposed": (
         "int8_gemm.cu", [("trans4(lo, wv[0], wv[1], wv[2], wv[3]);",
                           "lo[0] = wv[0], lo[1] = wv[1], lo[2] = wv[2], lo[3] = wv[3];"),
@@ -3606,10 +3703,17 @@ MUTANTS = {
         "int8_gemm.cu", [("(K + TKR - 1) / TKR, S, (N + BN - 1) / BN, 1,",
                           "(K + TKR - 1) / TKR, S, (N + BN - 1) / BN - 1, 1,")],
         ("k8",)),
-    "K8g dgrad reads w_q untransposed": (
+    "K8g wide: each B box read at swapped coordinates (w_q untransposed)": (
         "int8_gemm.cu",
-        [("i8::stage_rows<BN, BK>(sB, LDS, w, K, n0, N, k0, K, tid, THREADS);",
-          "i8::stage_trans<BK, BN>(sB, LDS, w, N, k0, K, n0, N, tid, THREADS);")],
+        [("hop::tma_load_2d(slot + BM * WBK, &mp.b, &full[s], kb * WBK, n0);",
+          "hop::tma_load_2d(slot + BM * WBK, &mp.b, &full[s], n0, kb * WBK);")],
+        ("k8", "p15")),
+    "K8g wide forward reads w_q instead of w_q^T": (
+        "int8_gemm.cu", [("const int8_t* b = dgrad ? w : w_t;", "const int8_t* b = w;")],
+        ("k8", "p15")),
+    "K8g wide: the last k-block dropped": (
+        "int8_gemm.cu", [("const int nkb = (K + WBK - 1) / WBK;",
+                          "const int nkb = (K - 1) / WBK;")],
         ("k8", "p15")),
     "K2 x tile: each rank's quantised rows kept in its own tile": (
         "int8_mlp.cu", [("unsigned char* qd = cluster.map_shared_rank(q, dst);",
@@ -3631,10 +3735,14 @@ MUTANTS = {
     # elements, which KERNEL_RTOL need not see and the zero-difference
     # check must.
     "K2 quant_by: RN(v / s) without its FMA corrections": (
-        "int8_mlp.cu", [("  q = __fmaf_rn(__fmaf_rn(-q, s, v), y, q);\n"
+        "int8_mma.cuh", [("  q = __fmaf_rn(__fmaf_rn(-q, s, v), y, q);\n"
                          "  q = __fmaf_rn(__fmaf_rn(-q, s, v), y, q);\n", "")], ("k2",)),
     "K2 b1 dropped": ("int8_mlp.cu", [("b1[col]);\n        float v;", "0.f);\n        float v;")],
                       ("k2",)),  # phase 15 passes with it
+    # Next to last: its stores run past the output's last row, into whatever
+    # the allocator placed there, which may end the process's CUDA use.
+    "K8g wide: the M tail unmasked": (
+        "int8_gemm.cu", [("if (row < M && col < N)", "if (col < N)")], ("k8",)),
     # Last: its kernel breaks the ring's barrier protocol and traps, and the
     # process's CUDA context is lost with it, so nothing can run after it.
     "K2 ring: a slot read one phase early": (
@@ -4104,16 +4212,18 @@ def main() -> int:
               "agacs_tpu/ops/int8_mlp.py:112", train8["launches"]["K2f"], k2["fwd"]),
         entry("int8_mlp_bwd (K2b, fused W8A8 MLP dx)", "int8_mlp.cu",
               "agacs_tpu/ops/int8_mlp.py:126", train8["launches"]["K2b"], k2["bwd"]),
-        entry("int8_rowquant (K8q, per-row int8 quantisation)", "int8_gemm.cu",
-              "agacs_tpu/ops/int8_linear.py:65", train8["launches"]["K8q"], k8["q"]),
-        entry("int8_gemm (K8g, W8A8 linear forward)", "int8_gemm.cu",
-              "agacs_tpu/ops/int8_linear.py:83", train8["launches"]["K8g"], k8["fwd"]),
-        entry("int8_gemm dgrad (K8g, W8A8 linear dx against w_q^T)", "int8_gemm.cu",
+        entry("int8_rowquant (K8q, per-row int8 quantisation ahead of the wide K8g)",
+              "int8_gemm.cu", "agacs_tpu/ops/int8_linear.py:65", train8["launches"]["K8q"],
+              k8["q"]),
+        entry("int8_gemm (K8g, W8A8 linear forward, wide: s8 wgmma fed by TMA)",
+              "int8_gemm.cu", "agacs_tpu/ops/int8_linear.py:83", train8["launches"]["K8g"],
+              k8["fwd"]),
+        entry("int8_gemm dgrad (K8g, W8A8 linear dx against w_q^T, wide)", "int8_gemm.cu",
               "agacs_tpu/ops/int8_linear.py:108", train8["launches"]["K8g dgrad"],
               k8["dgrad"]),
-        entry("int8_gemm thin (K8g's forward at 64 rows or fewer: the int8-trunk decode "
-              "step's products)", "int8_gemm.cu", "agacs_tpu/ops/int8_linear.py:83",
-              serve8["thin"], k8["thin"]),
+        entry("int8_thin_matmul (K8q folded into the thin K8g: the int8-trunk decode "
+              "step's products, 64 rows or fewer, one launch)", "int8_gemm.cu",
+              "agacs_tpu/ops/int8_linear.py:83", serve8["thin"], k8["thin"]),
         entry("relpos_flash_fwd (K5, the conformer encoder's rel-pos self-attention)",
               "relpos_flash.cu", "agacs_tpu/ops/relpos_flash.py:298",
               conf["launches"]["K5"], k5),

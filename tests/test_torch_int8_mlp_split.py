@@ -23,7 +23,7 @@ import torch
 
 from agacs_tpu.ops import int8_mlp as jmlp
 from agacs_tpu_torch.models import whisper as tw
-from agacs_tpu_torch.ops import cuda_lib, int8_mlp
+from agacs_tpu_torch.ops import cuda_lib, int8_linear, int8_mlp
 from agacs_tpu_torch.train.freeze import apply_freeze
 
 from test_torch_int8 import K2_RTOL, _close, _mlp_inputs, _np, _targs  # tests/ is on sys.path
@@ -228,7 +228,7 @@ def test_kernels_take_only_the_kept_transposes():
         int8_mlp._transposes("int8_mlp_fwd", w1q, w2q, None)
     with pytest.raises(ValueError, match="w1q\\^T"):
         int8_mlp._transposes("int8_mlp_fwd", w1q, w2q, (w1q, w2q))
-    wt = int8_mlp.transposed(w1q, w2q)
+    wt = int8_linear.transposed(w1q, w2q)
     assert int8_mlp._transposes("int8_mlp_fwd", w1q, w2q, wt) is wt
     x = torch.randn(4, 128)
     s1, b1, s2, b2 = torch.rand(256) / 100, torch.randn(256), torch.rand(128) / 100, torch.randn(128)

@@ -87,13 +87,13 @@ def test_decode_shapes_fill_the_card(kernel, m, k, n):
 def test_rules_match_the_sources():
     """The constants the Python rules and the CUDA sources share: the
     stage heights, the cluster's size, the rows of a block and the thin
-    K8g's row limit (the C entry dispatches on it too)."""
+    K8g's row limit (its C entry refuses more rows)."""
     assert _constant("KR", "w8a16.cu") == int8_serve.K6_KR
     assert _constant("TKR", "int8_gemm.cu") == int8_serve.K8_KR
     assert _constant("MAX_SPLITS", "thin_rows.cuh") == int8_serve.MAX_SPLITS
     assert 8 * _constant("MAX_NT", "thin_rows.cuh") == int8_serve.THIN_MR
     assert _constant("THIN_ROWS", "int8_gemm.cu") == int8_linear.THIN_ROWS == 64
-    assert "if (!dgrad && M <= THIN_ROWS)" in _source("int8_gemm.cu")
+    assert "if (M > THIN_ROWS || (bn != 32 && bn != 128))" in _source("int8_gemm.cu")
     assert "splitk" not in _source("w8a16.cu")
 
 
