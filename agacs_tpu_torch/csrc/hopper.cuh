@@ -1,11 +1,11 @@
-// Shared pieces of the Hopper kernels K1f, K1b, K5, K2 and the wide K8g
-// (packed_flash_fwd.cu, packed_flash_bwd.cu, relpos_flash.cu, int8_mlp.cu,
-// int8_gemm.cu): TMA tile loads from the packed (B, T, H*64) layout (K2,
-// K8g: row-major int8 matrices) into
-// 128-byte-swizzled shared memory, the mbarriers that report their arrival,
-// the wgmma products that read those tiles (bf16 in, f32 accumulators; s8
-// in, s32 accumulators; in registers), named and cluster barriers and the
-// special-function unit's exp2.
+// Shared pieces of the Hopper kernels K1f, K1b, K5, K2, the wide K8g and
+// K4's backward (packed_flash_fwd.cu, packed_flash_bwd.cu, relpos_flash.cu,
+// int8_mlp.cu, int8_gemm.cu, vocab_lse.cu): TMA tile loads from the packed
+// (B, T, H*64) layout (K2, K8g: row-major int8 matrices; K4: row-major bf16
+// matrices of any row stride) into 128-byte-swizzled shared memory, the
+// mbarriers that report their arrival, the wgmma products that read those
+// tiles (bf16 in, f32 accumulators; s8 in, s32 accumulators; in registers),
+// named and cluster barriers and the special-function unit's exp2.
 //
 // An int8 tile of 128-byte rows is laid out exactly as a bf16 tile of 64
 // columns: a k32 step of s8 is 32 bytes, as a k16 step of bf16 is, so the
@@ -21,8 +21,9 @@
 //   MN-major (the tile's rows are the product's k): the k16 step j starts
 //   16 rows in (start address + 128j).
 // In both, the 8-row groups are 1024 bytes apart (the stride field). The
-// leading field, which only an MN-major tile wider than 64 would read, is
-// set to the same 1024.
+// leading field, which only an MN-major tile wider than 64 reads (the
+// distance between its 64-column blocks), is set to the same 1024 by
+// `desc` and to the caller's distance by `desc_lbo`.
 //
 // Tensor maps. One 3D map per input over (H*64 columns, T rows, B), box
 // (64, R, 1) at column h*64: the row stride H*128 bytes and the batch
@@ -152,6 +153,14 @@ __device__ __forceinline__ uint64_t desc(const void* tile, uint32_t offset = 0) 
          (uint64_t(1) << 62);  // 128-byte swizzle
 }
 
+// As desc, for an MN-major tile wider than 64: its 64-column blocks (each R
+// rows x 128 bytes, swizzled) lie `lbo` bytes apart.
+__device__ __forceinline__ uint64_t desc_lbo(const void* tile, uint32_t offset, uint32_t lbo) {
+  const uint64_t addr = (smem_u32(tile) + offset) & 0x3FFFF;
+  return (addr >> 4) | (uint64_t(lbo >> 4) << 16) | (uint64_t(1024 >> 4) << 32) |
+         (uint64_t(1) << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -185,6 +194,13 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 }
 template <int N>
 __device__ __forceinline__ void fence_regs(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+// The same for register A fragments: after the wait that ends their
+// product, so the compiler reuses their registers only once it has read them.
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
@@ -290,6 +306,85 @@ __device__ __forceinline__ void wgmma_rs_n64_t(float (&d)[32], const uint32_t* a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// As wgmma_ss_n64, a MN-major (its rows are the k, 64 of m across a row) and
+// b K-major.
+__device__ __forceinline__ void wgmma_ss_n64_ta(float (&d)[32], uint64_t da, uint64_t db,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 128, f32) += a (64 x 16 bf16, registers: the m64k16 A fragment)
+// . b (16 x 128, shared memory), b K-major (TB 0) or MN-major (TB 1).
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
+}
+
+// d (64 x 256, f32) += a (64 x 16 bf16, registers: the m64k16 A fragment)
+// . b (16 x 256, shared memory), b K-major (TB 0) or MN-major (TB 1).
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
+}
+
 // d (64 x 64, s32) += a (64 x 32 s8, shared memory) . b (32 x 64 s8,
 // shared memory); scale_d = 0 overwrites d. Both K-major.
 __device__ __forceinline__ void wgmma_s8_n64(int (&d)[32], uint64_t da, uint64_t db,
@@ -377,14 +472,15 @@ static EncodeTiled encode_fn() {
   return fn;
 }
 
-// The map of a (rows, H*64) bf16 matrix read in (64, box_rows) boxes: a
-// row extent `rows` that may end before the tensor does (rows past it read
-// as zeros, like rows before 0). Returns as `encode`.
-static int encode_2d(CUtensorMap* map, const void* ptr, int rows, int H, int box_rows) {
+// The map of a (rows, cols) bf16 matrix in rows of `ld` elements (a multiple
+// of 8, >= cols), read in (64, box_rows) boxes: columns from `cols` on and
+// rows from `rows` on read as zeros. Returns as `encode`.
+static int encode_bf16(CUtensorMap* map, const void* ptr, int rows, int cols, int ld,
+                       int box_rows) {
   const EncodeTiled fn = encode_fn();
   if (fn == nullptr) return -1;
-  const cuuint64_t dims[2] = {(cuuint64_t)H * 64, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)H * 64 * 2};
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
   const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
   const cuuint32_t unit[2] = {1, 1};
   const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
@@ -392,6 +488,13 @@ static int encode_2d(CUtensorMap* map, const void* ptr, int rows, int H, int box
                           CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : -(int)res;
+}
+
+// The map of a (rows, H*64) bf16 matrix read in (64, box_rows) boxes: a
+// row extent `rows` that may end before the tensor does (rows past it read
+// as zeros, like rows before 0). Returns as `encode`.
+static int encode_2d(CUtensorMap* map, const void* ptr, int rows, int H, int box_rows) {
+  return encode_bf16(map, ptr, rows, H * 64, H * 64, box_rows);
 }
 
 // The map of a row-major (rows, cols) int8 matrix read in boxes of

@@ -16,42 +16,88 @@
 // What bounds it: at the conformer's training shape (N = 16 x 468 = 7488
 // rows, K 256, V 51865) each z is 2*N*K*V = 199 GFLOP against ~31 MB of
 // x, W and b, so the tensor cores bound all three (0.20 ms for the forward
-// at 989 TFLOP/s; dx and dW each recompute z: 0.40 ms). The point of the
-// kernel is what it keeps out of device memory: the (N, V) float32 logits
-// are 1.55 GB.
+// at 989 TFLOP/s; dx and dW each need z and one more product of the same
+// size: 0.40 ms). The point of the kernels is what they keep out of device
+// memory: the (N, V) float32 logits are 1.55 GB.
 //
-// Design. The TPU kernels tile rows x V (512 x up to 2048) with the whole
-// x block and W tile in VMEM, and carry dx and dW in scratch across their
-// sequential grid axis. Here every block owns 64 rows (forward, dx) or 64
-// vocabulary columns (dw) and loops over the other axis itself:
-//   * a z tile (64 rows x 64 columns) is computed by 4 warps of 16 rows,
-//     bf16 wmma 16x16x16 with f32 accumulation, from the block's x tile
-//     (64 x K, resident in shared memory) and 64 x 64 chunks of W streamed
-//     through shared memory with 16-byte loads (W's row stride ldw is a
-//     multiple of 8: the caller pads W's rows when V is not); columns
-//     >= V are masked by index (no -1e30 bias padding) and rows >= N are
-//     never written.
-//   * forward: grid (row tiles, V splits). Each block sweeps its share of
-//     the V tiles with an online (max, sum-exp) per row (two lanes a row)
-//     and writes one (m, s) pair per row and split; a second small kernel
-//     combines the splits, as the TPU path combines its per-tile partials
-//     outside the kernel. The split keeps the card full at N = 7488 (117
-//     row tiles for 132 SMs).
-//   * dx: grid (row tiles, K / 128). Each block sweeps every V tile,
-//     recomputes z, and accumulates bf16(dz) . W[kc:kc+128, tile]^T for its
-//     128 columns of dx in registers (8 fragments a warp): z is recomputed
-//     K / 128 times, the price of keeping the accumulator in registers.
-//   * dw: grid (V tiles, K / 128). Each block sweeps every row tile,
-//     recomputes z, and accumulates x[:, kc:kc+128]^T . bf16(dz) for its
-//     128 x 64 slice of dW (8 fragments a warp) and, in the kc = 0
-//     blocks, the column sums of the f32 dz for db.
-// wgmma, TMA and a pipeline are later work: this is the simple, right one.
+// Forward (wmma). Every block owns 64 rows and loops over V itself: a z
+// tile (64 rows x 64 columns) is computed by 4 warps of 16 rows, bf16 wmma
+// 16x16x16 with f32 accumulation, from the block's x tile (64 x K,
+// resident in shared memory) and 64 x 64 chunks of W streamed through
+// shared memory with 16-byte loads (W's row stride ldw is a multiple of 8:
+// the caller pads W's rows when V is not); columns >= V are masked by
+// index (no -1e30 bias padding) and rows >= N are never written. Grid (row
+// tiles, V splits): each block sweeps its share of the V tiles with an
+// online (max, sum-exp) per row (two lanes a row) and writes one (m, s)
+// pair per row and split; a second small kernel combines the splits, as
+// the TPU path combines its per-tile partials outside the kernel. The
+// split keeps the card full at N = 7488 (117 row tiles for 132 SMs).
+//
+// Backward at K <= 256 (wgmma; `vocab_lse_dx_kernel`, `vocab_lse_dw_kernel`).
+// It replaced wmma kernels that rebuilt z once for every 128 output columns
+// (K / 128 times: 3 products of 199 GFLOP a pass at K 256, not 2), loaded W
+// synchronously and round-tripped z and dz through shared memory. Here z is
+// computed once per (row tile, V tile), and dz never leaves registers:
+//   * dx: a block of two consumer warpgroups (64 rows each) and a producer
+//     warpgroup owns 128 rows of x, resident in shared memory (TMA, K / 64
+//     swizzled 128 x 64 boxes). The producer streams W's K x 64 column
+//     tiles through a ring of 4 slots (TMA; full / empty mbarriers),
+//     with each tile's bias strip (b, or -inf from column V on: the V tail
+//     is masked by index). Per tile a warpgroup computes S = X W_tile
+//     (wgmma m64n64k16, x K-major, the tile MN-major), P = exp2((S + b)
+//     log2 e - lse log2 e) g on the accumulator registers (lse and g held
+//     per row; rows >= N get lse +inf and g 0), packs P to bf16 as the
+//     register A operand of dX += P W_tile^T (m64nKk16, the same staged
+//     tile read K-major): W is read from L2 once per row tile and serves
+//     both products. The next tile's S is issued before this tile's second
+//     product, so its exp runs while that product is in flight. 59 row
+//     tiles at N 7488 do not fill 132 SMs, so each row tile's V sweep is
+//     split over a thread-block cluster of C blocks (`vocab_lse.dx_tiling`:
+//     C 2 there; rank r sweeps V tiles [r n / C, (r + 1) n / C) of the n,
+//     C <= n); each rank writes its f32 partial dX into its own shared
+//     memory (over its dead x and ring), and rank r sums rows [r 128 / C,
+//     (r + 1) 128 / C) of every rank's partial in rank order through
+//     distributed shared memory and stores them as bf16: no atomics, and
+//     the result is bit-identical from run to run.
+//   * dw: a block owns 128 vocabulary columns, 64 a consumer warpgroup, whose
+//     K x 64 W tile stays resident; the producer streams 64-row x tiles
+//     (TMA) with their strips of lse log2 e and g (+inf and 0 from row N
+//     on: the row tail is masked by index) through the ring. Per x tile a
+//     warpgroup computes S^T = W_tile^T X_tile^T (m64n64k16, the W tile
+//     MN-major as A, the x tile K-major), dz^T = exp2(...) g with the bias
+//     per accumulator row (-inf from column V on), adds the f32 dz^T into
+//     its two rows' db sums, packs dz^T to bf16 as the register A operand
+//     of dW^T += dz^T X_tile (m64nKk16, the x tile MN-major: its K / 64
+//     boxes 8 KB apart). At the end the quads' db sums are added by
+//     shuffles and dW^T is stored transposed into dW (K, Vp) f32, every
+//     warp store filling whole 32-byte sectors.
+//   Both kernels run one block of 384 threads an SM; the producer
+//   warpgroup (one warp of it loads) gives its registers to the consumers
+//   (setmaxnreg: 40 a producer thread, 232 a consumer thread), which hold
+//   the f32 accumulator of 64 x K (128 registers at K 256), S (32) and the
+//   packed P (16). At K 256 ptxas still spills ~240 bytes a thread around
+//   the products and serialises the wgmma groups (its C7512 note); at K 128
+//   it does neither. Splitting the accumulator into two of 64, packing P
+//   into a second buffer, or 240 registers did not help.
+//
+// Backward at K > 256 (wmma; `vocab_lse_dx_wmma_kernel`,
+// `vocab_lse_dw_wmma_kernel`): the accumulator of 64 x K does not fit the
+// registers, and x's 128 rows do not fit shared memory beside a ring, so
+// the earlier design stays for those widths (only the whisper family's CTC
+// head, K 768, takes it; no shipped recipe trains that head): grid (row
+// tiles or V tiles, K / 128), each block recomputing z for its 128 columns
+// of dx or rows of dW, with the column sums of the f32 dz for db in the
+// first column block. The C entries dispatch by K, and the tiling rules
+// `vocab_lse.dx_tiling` / `dw_tiling` mirror them.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
@@ -222,7 +268,7 @@ __global__ void vocab_lse_combine_kernel(const float* __restrict__ part_m,
 }
 
 __global__ void __launch_bounds__(THREADS)
-vocab_lse_dx_kernel(const bf16* __restrict__ x, const bf16* __restrict__ W, int ldw,
+vocab_lse_dx_wmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ W, int ldw,
                     const float* __restrict__ bias, const float* __restrict__ lse,
                     const float* __restrict__ g, bf16* __restrict__ dx, int N, int K, int V) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -268,7 +314,7 @@ vocab_lse_dx_kernel(const bf16* __restrict__ x, const bf16* __restrict__ W, int 
 }
 
 __global__ void __launch_bounds__(THREADS)
-vocab_lse_dw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ W, int ldw,
+vocab_lse_dw_wmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ W, int ldw,
                     const float* __restrict__ bias, const float* __restrict__ lse,
                     const float* __restrict__ g, float* __restrict__ dw,
                     float* __restrict__ db, int N, int K, int V, int Vp) {
@@ -328,6 +374,438 @@ int set_smem(const void* kernel, size_t bytes) {
 
 }  // namespace
 
+// ---------------------------------------------------------------------------
+// The backward at K <= 256: wgmma fed by TMA (see the header note)
+
+namespace {
+
+namespace cg = cooperative_groups;
+
+constexpr int HK_MAX = 256;     // the widest K of the wgmma backward
+constexpr int DX_BM = 128;      // dx: rows a block owns, 64 a consumer warpgroup
+constexpr int VT = 64;          // columns of a streamed W tile (dx), of a warpgroup (dw)
+constexpr int DW_BV = 128;      // dw: vocabulary columns a block owns
+constexpr int DW_BN = 64;       // dw: rows of a streamed x tile
+constexpr int MAX_C = 8;        // dx: blocks of a cluster (the portable size)
+constexpr int STAGES = 4;       // ring slots
+constexpr int CONSUMERS = 256;  // two consumer warpgroups
+constexpr int HTHREADS = CONSUMERS + 128;  // and a producer warpgroup (one warp loads)
+constexpr int PAD = 8;          // f32 row padding of dx's partial (no bank conflicts)
+constexpr int STRIPS = STAGES * VT * 4;  // bytes of one table of per-slot strips
+constexpr int BARS = (1 + 2 * STAGES) * 8;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// dx's shared memory: x (128 x K), the ring (STAGES x K x 64), and over
+// both, once the sweep is done, the f32 partial dX (128 x (K + PAD)); then
+// the bias strips and the barriers.
+__host__ __device__ constexpr int dx_region(int K) {
+  return DX_BM * K * 2 + STAGES * K * 128 > DX_BM * (K + PAD) * 4
+             ? DX_BM * K * 2 + STAGES * K * 128 : DX_BM * (K + PAD) * 4;
+}
+__host__ __device__ constexpr size_t dx_smem(int K) {
+  return 1024 + dx_region(K) + STRIPS + BARS;
+}
+// dw's: the two warpgroups' W tiles (2 x K x 64), the ring (STAGES x 64 x
+// K), the lse and g strips and the barriers.
+__host__ __device__ constexpr int dw_region(int K) {
+  return 2 * K * 128 + STAGES * DW_BN * K * 2;
+}
+__host__ __device__ constexpr size_t dw_smem(int K) {
+  return 1024 + dw_region(K) + 2 * STRIPS + BARS;
+}
+// A block's shared memory on sm_90 is at most 227 KB.
+static_assert(dx_smem(HK_MAX) <= 232448 && dw_smem(HK_MAX) <= 232448,
+              "K4's backward ring does not fit shared memory at K 256");
+
+struct BwdMaps {
+  CUtensorMap x, w;  // x (N, K) in (64, DX_BM or DW_BN) boxes; W (K, V) in (64, 64) boxes
+};
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) &
+                                          ~uintptr_t(1023));
+}
+
+// The register A fragments of a 64 x 64 f32 accumulator, rounded to bf16.
+__device__ __forceinline__ void pack(uint32_t (&pa)[16], const float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) pa[i] = hop::pack_bf16(d[2 * i], d[2 * i + 1]);
+}
+
+// acc (64 x K) += pa (64 x 64, registers) . b (64 x K, the k16 step kk at
+// `step` bytes times kk), b read K-major (TB 0) or MN-major (TB 1, its 64
+// columns blocks `lbo` bytes apart). Issued and committed.
+template <int K, int TB>
+__device__ __forceinline__ void issue_pv(float (&acc)[K / 2], const uint32_t (&pa)[16],
+                                         const unsigned char* b, int step, int lbo) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t db = hop::desc_lbo(b, kk * step, lbo);
+    if constexpr (K == 128) hop::wgmma_rs_n128<TB>(acc, &pa[4 * kk], db);
+    else hop::wgmma_rs_n256<TB>(acc, &pa[4 * kk], db);
+  }
+  hop::wgmma_commit();
+}
+
+// dx's dz on the accumulator of S (rows a and b of this thread, the tile's
+// 64 columns): exp2((S + bias) log2 e - lse log2 e) g. The strip holds the
+// tile's bias (-inf from column V on); la, lb are lse log2 e (+inf from row
+// N on) and ga, gb the rows' g (0 from row N on).
+__device__ __forceinline__ void dz_rows(float (&sc)[32], const float* strip, float la,
+                                        float lb, float ga, float gb) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 bv = *reinterpret_cast<const float2*>(strip + 8 * j + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)  // d[4j + e]: row a (e < 2) or b, column 8j + 2t + e % 2
+      sc[4 * j + e] = hop::ex2(fmaf(sc[4 * j + e] + ((e & 1) ? bv.y : bv.x), LOG2E,
+                                    -(e < 2 ? la : lb))) * (e < 2 ? ga : gb);
+  }
+}
+
+// S = X (the warpgroup's 64 rows, K-major: K / 64 boxes of 128 rows; xd
+// its descriptor) . the W tile (K x 64, MN-major). Issued and committed.
+// A descriptor's address field counts 16 bytes, so offsets add >> 4.
+template <int K>
+__device__ __forceinline__ void issue_s(float (&sc)[32], uint64_t xd, const unsigned char* wt) {
+  const uint64_t wd = hop::desc(wt);
+#pragma unroll
+  for (int j = 0; j < K / 16; ++j)
+    hop::wgmma_ss_n64_tb(sc, xd + (((j >> 2) * DX_BM * 128 + (j & 3) * 32) >> 4),
+                         wd + ((j * 2048) >> 4), j);
+  hop::wgmma_commit();
+}
+
+template <int K>
+__global__ void __launch_bounds__(HTHREADS, 1)
+vocab_lse_dx_kernel(const __grid_constant__ BwdMaps mp, const float* __restrict__ bias,
+                    const float* __restrict__ lse, const float* __restrict__ g,
+                    bf16* __restrict__ dx, int N, int V) {
+  constexpr int STAGE = K * 128;  // bytes of a W tile: K rows x 64 columns
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  extern __shared__ unsigned char raw[];
+  unsigned char* base = align1024(raw);
+  unsigned char* xs = base;
+  unsigned char* ring = base + DX_BM * K * 2;
+  float* strip = reinterpret_cast<float*>(base + dx_region(K));  // [slot][column]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(strip + STAGES * VT);
+  uint64_t* xfull = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + STAGES;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int r0 = blockIdx.y * DX_BM;
+  const int n_vt = (V + VT - 1) / VT;
+  const int vt0 = rank * n_vt / C, nt = (rank + 1) * n_vt / C - vt0;  // this rank's V tiles, >= 1
+  if (tid == 0) {
+    hop::mbar_init(xfull, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hop::mbar_init(&full[s], 32);  // the producer warp's lanes
+      hop::mbar_init(&empty[s], CONSUMERS / 32);
+    }
+    hop::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= CONSUMERS / 32) {  // the producer: x once, then W tiles and their bias strips
+    hop::reg_dealloc<40>();
+    if (warp == CONSUMERS / 32) {  // one warp loads
+      if (lane == 0) {
+        hop::prefetch_map(&mp.x);
+        hop::prefetch_map(&mp.w);
+        hop::mbar_expect_tx(xfull, DX_BM * K * 2);
+        for (int kb = 0; kb < K / 64; ++kb)
+          hop::tma_load_2d(xs + kb * DX_BM * 128, &mp.x, xfull, kb * 64, r0);
+      }
+      for (int it = 0; it < nt; ++it) {
+        const int s = it % STAGES, v0 = (vt0 + it) * VT;
+        hop::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+        for (int c = lane; c < VT; c += 32)
+          strip[s * VT + c] = v0 + c < V ? bias[v0 + c] : -INFINITY;
+        if (lane == 0) {
+          hop::mbar_expect_tx(&full[s], STAGE);
+          for (int kb = 0; kb < K / 64; ++kb)
+            hop::tma_load_2d(ring + s * STAGE + kb * 8192, &mp.w, &full[s], v0, kb * 64);
+        } else {
+          hop::mbar_arrive(&full[s]);
+        }
+      }
+    }
+    __syncwarp();
+    cluster.sync();  // every rank's partial written
+    cluster.sync();  // and read
+    return;
+  }
+  hop::reg_alloc<232>();
+
+  const int wg = warp >> 2, t = lane & 3;
+  const int ra = r0 + 64 * wg + 16 * (warp & 3) + (lane >> 2), rb = ra + 8;
+  const float la = ra < N ? lse[ra] * LOG2E : INFINITY, lb = rb < N ? lse[rb] * LOG2E : INFINITY;
+  const float ga = ra < N ? g[ra] : 0.f, gb = rb < N ? g[rb] : 0.f;
+  const uint64_t xd = hop::desc(xs + wg * 64 * 128);
+  float acc[K / 2];
+#pragma unroll
+  for (int i = 0; i < K / 2; ++i) acc[i] = 0.f;
+  float sc[32];
+  uint32_t pa[16];
+  hop::mbar_wait(xfull, 0);
+  hop::mbar_wait(&full[0], 0);
+  __syncwarp();
+  hop::wgmma_fence();
+  issue_s<K>(sc, xd, ring);
+  hop::wgmma_wait();
+  hop::fence_regs(sc);
+  dz_rows(sc, strip, la, lb, ga, gb);
+  pack(pa, sc);
+  // Tile it's second product in flight while tile it + 1's dz is computed;
+  // the last tile's product after the loop (no wgmma under a condition).
+  int s = 0, s1 = 1, ph1 = 0;  // the slots of tiles it and it + 1, the phase of s1
+  for (int it = 0; it + 1 < nt; ++it) {
+    hop::mbar_wait(&full[s1], ph1);
+    __syncwarp();
+    hop::wgmma_fence();
+    issue_s<K>(sc, xd, ring + s1 * STAGE);  // the next tile's S first
+    issue_pv<K, 0>(acc, pa, ring + s * STAGE, 32, 1024);  // dX += P W_tile^T
+    hop::wgmma_wait_n<1>();
+    hop::fence_regs(sc);
+    dz_rows(sc, strip + s1 * VT, la, lb, ga, gb);
+    hop::wgmma_wait();
+    hop::fence_regs(acc);
+    hop::fence_regs(pa);  // read by the product in flight until here
+    __syncwarp();
+    if (lane == 0) hop::mbar_arrive(&empty[s]);
+    pack(pa, sc);
+    s = s1;
+    if (++s1 == STAGES) s1 = 0, ph1 ^= 1;
+  }
+  __syncwarp();
+  hop::wgmma_fence();
+  issue_pv<K, 0>(acc, pa, ring + s * STAGE, 32, 1024);
+  hop::wgmma_wait();
+  hop::fence_regs(acc);
+  hop::fence_regs(pa);
+
+  // The rank's partial over its dead x and ring, then rows [rank 128 / C,
+  // +128 / C) of the C partials summed in rank order.
+  constexpr int PL = K + PAD;
+  float* part = reinterpret_cast<float*>(base);
+  hop::bar_sync(1, CONSUMERS);  // both warpgroups are done with x and the ring
+  {
+    const int pr = ra - r0;
+#pragma unroll
+    for (int j = 0; j < K / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(part + (pr + 8 * h) * PL + 8 * j + 2 * t) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  }
+  cluster.sync();
+  const int rows = DX_BM / C;
+  for (int q = tid; q < rows * (K / 8); q += CONSUMERS) {
+    const int r = rank * rows + q / (K / 8), c = (q % (K / 8)) * 8;
+    float4 lo[MAX_C], hi[MAX_C];  // every rank's 8 values read at once, then added in rank order
+#pragma unroll
+    for (int src = 0; src < MAX_C; ++src)
+      if (src < C) {
+        const float4* p = reinterpret_cast<const float4*>(cluster.map_shared_rank(part, src) +
+                                                          r * PL + c);
+        lo[src] = p[0];
+        hi[src] = p[1];
+      }
+    float4 a = lo[0], b = hi[0];
+#pragma unroll
+    for (int src = 1; src < MAX_C; ++src)
+      if (src < C) {
+        a.x += lo[src].x, a.y += lo[src].y, a.z += lo[src].z, a.w += lo[src].w;
+        b.x += hi[src].x, b.y += hi[src].y, b.z += hi[src].z, b.w += hi[src].w;
+      }
+    if (r0 + r < N) {
+      uint4 o;
+      o.x = hop::pack_bf16(a.x, a.y), o.y = hop::pack_bf16(a.z, a.w);
+      o.z = hop::pack_bf16(b.x, b.y), o.w = hop::pack_bf16(b.z, b.w);
+      *reinterpret_cast<uint4*>(dx + (size_t)(r0 + r) * (K) + c) = o;
+    }
+  }
+  cluster.sync();  // no block exits while another still reads its partial
+}
+
+// dw's dz^T on the accumulator of S^T (rows a and b of this thread: its two
+// vocabulary columns, with their bias, -inf from V on; the tile's 64 x
+// rows, whose lse log2 e and g the strips hold, +inf and 0 from row N on),
+// the f32 values added into the rows' db sums.
+__device__ __forceinline__ void dz_cols(float (&sc)[32], const float* sl, const float* sg,
+                                        float ba, float bb, float& da, float& dbb) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 l = *reinterpret_cast<const float2*>(sl + 8 * j + 2 * t);
+    const float2 gg = *reinterpret_cast<const float2*>(sg + 8 * j + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float d = hop::ex2(fmaf(sc[4 * j + e] + (e < 2 ? ba : bb), LOG2E,
+                                    -((e & 1) ? l.y : l.x))) * ((e & 1) ? gg.y : gg.x);
+      sc[4 * j + e] = d;
+      if (e < 2) da += d;
+      else dbb += d;
+    }
+  }
+}
+
+// S^T = the warpgroup's W tile^T (K x 64, MN-major as A; wd its
+// descriptor) . the x tile^T (64 rows x K, K-major: K / 64 boxes of 64
+// rows). Issued and committed.
+template <int K>
+__device__ __forceinline__ void issue_st(float (&sc)[32], uint64_t wd, const unsigned char* xt) {
+  const uint64_t xd = hop::desc(xt);
+#pragma unroll
+  for (int j = 0; j < K / 16; ++j)
+    hop::wgmma_ss_n64_ta(sc, wd + ((j * 2048) >> 4),
+                         xd + (((j >> 2) * DW_BN * 128 + (j & 3) * 32) >> 4), j);
+  hop::wgmma_commit();
+}
+
+template <int K>
+__global__ void __launch_bounds__(HTHREADS, 1)
+vocab_lse_dw_kernel(const __grid_constant__ BwdMaps mp, const float* __restrict__ bias,
+                    const float* __restrict__ lse, const float* __restrict__ g,
+                    float* __restrict__ dw, float* __restrict__ db, int N, int V, int Vp) {
+  constexpr int STAGE = DW_BN * K * 2;  // bytes of an x tile: 64 rows x K
+  extern __shared__ unsigned char raw[];
+  unsigned char* base = align1024(raw);
+  unsigned char* wt = base;
+  unsigned char* ring = base + 2 * K * 128;
+  float* sl = reinterpret_cast<float*>(base + dw_region(K));  // [slot][row]
+  float* sg = sl + STAGES * VT;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sg + STAGES * VT);
+  uint64_t* wfull = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + STAGES;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int v0 = blockIdx.x * DW_BV, n_rt = (N + DW_BN - 1) / DW_BN;
+  if (tid == 0) {
+    hop::mbar_init(wfull, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hop::mbar_init(&full[s], 32);
+      hop::mbar_init(&empty[s], CONSUMERS / 32);
+    }
+    hop::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= CONSUMERS / 32) {  // the producer: the W tiles once, then x tiles and strips
+    hop::reg_dealloc<40>();
+    if (warp > CONSUMERS / 32) return;
+    if (lane == 0) {
+      hop::prefetch_map(&mp.x);
+      hop::prefetch_map(&mp.w);
+      hop::mbar_expect_tx(wfull, 2 * K * 128);
+      for (int h = 0; h < 2; ++h)
+        for (int kb = 0; kb < K / 64; ++kb)
+          hop::tma_load_2d(wt + h * K * 128 + kb * 8192, &mp.w, wfull, v0 + 64 * h, kb * 64);
+    }
+    for (int it = 0; it < n_rt; ++it) {
+      const int s = it % STAGES;
+      hop::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+      for (int c = lane; c < DW_BN; c += 32) {
+        const int row = it * DW_BN + c;
+        sl[s * VT + c] = row < N ? lse[row] * LOG2E : INFINITY;
+        sg[s * VT + c] = row < N ? g[row] : 0.f;
+      }
+      if (lane == 0) {
+        hop::mbar_expect_tx(&full[s], STAGE);
+        for (int kb = 0; kb < K / 64; ++kb)
+          hop::tma_load_2d(ring + s * STAGE + kb * 8192, &mp.x, &full[s], kb * 64, it * DW_BN);
+      } else {
+        hop::mbar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+  hop::reg_alloc<232>();
+
+  const int wg = warp >> 2, t = lane & 3;
+  const int va = v0 + 64 * wg + 16 * (warp & 3) + (lane >> 2), vb = va + 8;
+  const float ba = va < V ? bias[va] : -INFINITY, bb = vb < V ? bias[vb] : -INFINITY;
+  const uint64_t wd = hop::desc(wt + wg * K * 128);
+  float acc[K / 2];
+#pragma unroll
+  for (int i = 0; i < K / 2; ++i) acc[i] = 0.f;
+  float sc[32], da = 0.f, dbb = 0.f;
+  uint32_t pa[16];
+  hop::mbar_wait(wfull, 0);
+  hop::mbar_wait(&full[0], 0);
+  __syncwarp();
+  hop::wgmma_fence();
+  issue_st<K>(sc, wd, ring);
+  hop::wgmma_wait();
+  hop::fence_regs(sc);
+  dz_cols(sc, sl, sg, ba, bb, da, dbb);
+  pack(pa, sc);
+  int s = 0, s1 = 1, ph1 = 0;  // the slots of tiles it and it + 1, the phase of s1
+  for (int it = 0; it + 1 < n_rt; ++it) {
+    hop::mbar_wait(&full[s1], ph1);
+    __syncwarp();
+    hop::wgmma_fence();
+    issue_st<K>(sc, wd, ring + s1 * STAGE);
+    issue_pv<K, 1>(acc, pa, ring + s * STAGE, 2048, DW_BN * 128);  // dW^T += dz^T X_tile
+    hop::wgmma_wait_n<1>();
+    hop::fence_regs(sc);
+    dz_cols(sc, sl + s1 * VT, sg + s1 * VT, ba, bb, da, dbb);
+    hop::wgmma_wait();
+    hop::fence_regs(acc);
+    hop::fence_regs(pa);  // read by the product in flight until here
+    __syncwarp();
+    if (lane == 0) hop::mbar_arrive(&empty[s]);
+    pack(pa, sc);
+    s = s1;
+    if (++s1 == STAGES) s1 = 0, ph1 ^= 1;
+  }
+  __syncwarp();
+  hop::wgmma_fence();
+  issue_pv<K, 1>(acc, pa, ring + s * STAGE, 2048, DW_BN * 128);
+  hop::wgmma_wait();
+  hop::fence_regs(acc);
+  hop::fence_regs(pa);
+
+  da += __shfl_xor_sync(0xffffffffu, da, 1);
+  da += __shfl_xor_sync(0xffffffffu, da, 2);
+  dbb += __shfl_xor_sync(0xffffffffu, dbb, 1);
+  dbb += __shfl_xor_sync(0xffffffffu, dbb, 2);
+  if (t == 0) db[va] = da, db[vb] = dbb;
+  // dW[k, v] = dW^T[v, k]: for each register, a warp fills 4 rows x 32 bytes
+#pragma unroll
+  for (int j = 0; j < K / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      dw[(size_t)(8 * j + 2 * t + (e & 1)) * Vp + (e < 2 ? va : vb)] = acc[4 * j + e];
+}
+
+template <typename... KArgs, typename... Args>
+int launch_hk(void (*kern)(KArgs...), dim3 grid, int cluster_x, size_t smem,
+              cudaStream_t stream, Args... args) {
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(HTHREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster_x;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kern, args...);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 // x: (N, K) bf16, K a multiple of 128 up to 1024, rows 16-byte aligned;
 // W: (K, V) bf16 in rows of stride ldw (a multiple of 8, >= V; 16-byte
 // aligned); b: (V,) f32; part_m, part_s:
@@ -353,31 +831,77 @@ extern "C" int vocab_lse_fwd(const void* x, const void* W, int ldw, const void* 
 }
 
 // The gradient of the row lse for g = d loss / d lse (N,) f32: dx (N, K)
-// bf16 out.
+// bf16 out. K <= 256 runs the wgmma kernel on clusters of C blocks (1, 2,
+// 4 or 8, no more than V's 64-column tiles; `vocab_lse.dx_tiling`), a
+// wider K the wmma kernel, with C 1. x, W, b, lse and g as for
+// vocab_lse_fwd (lse and g (N,) f32). Returns cudaErrorInvalidValue for a
+// shape or cluster the kernels do not take.
 extern "C" int vocab_lse_dx(const void* x, const void* W, int ldw, const void* b,
                             const void* lse, const void* g, void* dx, int N, int K, int V,
-                            void* stream) {
-  const size_t smem = smem_bytes(K, true);
-  int err = set_smem((const void*)vocab_lse_dx_kernel, smem);
-  if (err) return err;
-  dim3 grid((N + BR - 1) / BR, K / CK);
-  vocab_lse_dx_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const bf16*)x, (const bf16*)W, ldw, (const float*)b, (const float*)lse,
-      (const float*)g, (bf16*)dx, N, K, V);
-  return (int)cudaGetLastError();
+                            int C, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (N <= 0 || V <= 0 || K <= 0 || K % 128 || K > 1024 || ldw < V || ldw % 8)
+    return (int)cudaErrorInvalidValue;
+  if (K > HK_MAX) {
+    if (C != 1) return (int)cudaErrorInvalidValue;
+    const size_t smem = smem_bytes(K, true);
+    int err = set_smem((const void*)vocab_lse_dx_wmma_kernel, smem);
+    if (err) return err;
+    dim3 grid((N + BR - 1) / BR, K / CK);
+    vocab_lse_dx_wmma_kernel<<<grid, THREADS, smem, st>>>(
+        (const bf16*)x, (const bf16*)W, ldw, (const float*)b, (const float*)lse,
+        (const float*)g, (bf16*)dx, N, K, V);
+    return (int)cudaGetLastError();
+  }
+  if (C < 1 || C > MAX_C || (C & (C - 1)) || C > (V + VT - 1) / VT)
+    return (int)cudaErrorInvalidValue;
+  BwdMaps mp = {};
+  int rc;
+  if ((rc = hop_host::encode_bf16(&mp.x, x, N, K, K, DX_BM)) ||
+      (rc = hop_host::encode_bf16(&mp.w, W, K, V, ldw, 64)))
+    return rc;
+  const dim3 grid(C, (N + DX_BM - 1) / DX_BM);
+  const size_t smem = dx_smem(K);
+  const float *bf = (const float*)b, *lf = (const float*)lse, *gf = (const float*)g;
+  if (K == 128)
+    return launch_hk(vocab_lse_dx_kernel<128>, grid, C, smem, st, mp, bf, lf, gf, (bf16*)dx, N,
+                     V);
+  return launch_hk(vocab_lse_dx_kernel<256>, grid, C, smem, st, mp, bf, lf, gf, (bf16*)dx, N,
+                   V);
 }
 
-// dW (K, Vp) f32 and db (Vp,) f32 out, Vp = V rounded up to 64 (the
-// columns from V on are written as zeros; the caller slices them off).
+// dW (K, Vp) f32 and db (Vp,) f32 out, Vp = V rounded up to the kernel's
+// vocabulary block (`vocab_lse.dw_tiling`: 128 at K <= 256, 64 above). The
+// columns from V on are written as zeros; the caller slices them off.
 extern "C" int vocab_lse_dw(const void* x, const void* W, int ldw, const void* b,
                             const void* lse, const void* g, void* dw, void* db, int N, int K,
                             int V, int Vp, void* stream) {
-  const size_t smem = smem_bytes(K, false);
-  int err = set_smem((const void*)vocab_lse_dw_kernel, smem);
-  if (err) return err;
-  dim3 grid(Vp / BV, K / CK);
-  vocab_lse_dw_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const bf16*)x, (const bf16*)W, ldw, (const float*)b, (const float*)lse,
-      (const float*)g, (float*)dw, (float*)db, N, K, V, Vp);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (N <= 0 || V <= 0 || K <= 0 || K % 128 || K > 1024 || ldw < V || ldw % 8 || Vp < V)
+    return (int)cudaErrorInvalidValue;
+  if (K > HK_MAX) {
+    if (Vp % BV) return (int)cudaErrorInvalidValue;
+    const size_t smem = smem_bytes(K, false);
+    int err = set_smem((const void*)vocab_lse_dw_wmma_kernel, smem);
+    if (err) return err;
+    dim3 grid(Vp / BV, K / CK);
+    vocab_lse_dw_wmma_kernel<<<grid, THREADS, smem, st>>>(
+        (const bf16*)x, (const bf16*)W, ldw, (const float*)b, (const float*)lse,
+        (const float*)g, (float*)dw, (float*)db, N, K, V, Vp);
+    return (int)cudaGetLastError();
+  }
+  if (Vp % DW_BV) return (int)cudaErrorInvalidValue;
+  BwdMaps mp = {};
+  int rc;
+  if ((rc = hop_host::encode_bf16(&mp.x, x, N, K, K, DW_BN)) ||
+      (rc = hop_host::encode_bf16(&mp.w, W, K, V, ldw, 64)))
+    return rc;
+  const dim3 grid(Vp / DW_BV);
+  const size_t smem = dw_smem(K);
+  const float *bf = (const float*)b, *lf = (const float*)lse, *gf = (const float*)g;
+  if (K == 128)
+    return launch_hk(vocab_lse_dw_kernel<128>, grid, 1, smem, st, mp, bf, lf, gf, (float*)dw,
+                     (float*)db, N, V, Vp);
+  return launch_hk(vocab_lse_dw_kernel<256>, grid, 1, smem, st, mp, bf, lf, gf, (float*)dw,
+                   (float*)db, N, V, Vp);
 }

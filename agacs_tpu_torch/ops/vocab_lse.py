@@ -18,7 +18,20 @@ kernels' arithmetic), on a CUDA tensor it launches K4 or raises: the card
 has no dense-logits fallback. K4 takes bf16 x and w, float32 b, and K a
 multiple of 128 up to 1024; a w whose V is not a multiple of 8 (the
 Whisper vocabulary's 51865) is handed over as a copy with its rows padded,
-for the kernels' 16-byte loads.
+for the kernels' 16-byte row stride, made once for both backward passes.
+
+The backward dispatches by K, never by a failure. At K <= 256 (the
+conformer's 256, the tests' 128) dx and dw are wgmma kernels fed by TMA
+that compute z once per (row tile, V tile) and keep dz in registers as the
+A operand of the second product; they replaced wmma kernels that rebuilt z
+once for every 128 output columns (at the conformer's training shape,
+(7488, 256) x (256, 51865), 9.54 and 9.12 ms on an H100 against a bound of
+0.40 ms each). `dx_tiling` splits each 128-row tile's V sweep over a
+cluster of C blocks whose f32 partials are summed in rank order;
+`dw_tiling` gives each block 128 vocabulary columns; the ring depth, 4
+slots, is fixed in the source. Wider K (the whisper family's CTC head, K
+768) keeps the wmma kernels, whose accumulators and x tiles the wgmma
+design cannot hold.
 """
 
 from __future__ import annotations
@@ -29,10 +42,40 @@ import torch
 
 from agacs_tpu_torch.ops import cuda_lib
 
-BV = 64  # the kernels' vocabulary tile
+BV = 64  # the forward's (and the wmma backward's) vocabulary tile
 FWD_LAUNCHES = 0  # K4 launches since the last reset (chip_smoke.py reads them)
 DX_LAUNCHES = 0
 DW_LAUNCHES = 0
+
+# The wgmma backward's tiling constants (csrc/vocab_lse.cu; the tests read
+# them back from the source).
+HK_MAX = 256      # the widest K it takes; wider K runs the wmma kernels
+DX_BM = 128       # dx: rows a block owns
+VT = 64           # columns of a streamed W tile
+DW_BV = 128       # dw: vocabulary columns a block owns
+MAX_C = 8         # dx: blocks of a cluster (the portable size)
+
+
+def dx_tiling(n: int, k: int, v: int, sms: int) -> dict:
+    """K4 dx's route and cluster size C: at K <= 256 the wgmma kernel on
+    (C, ceil(N / 128)) blocks in clusters of C, C the largest of 1, 2, 4, 8
+    with no more blocks than SMs and no more ranks than V's 64-column tiles;
+    above, the wmma kernel (C 1)."""
+    if k > HK_MAX:
+        return {"route": "wmma", "C": 1}
+    tiles, n_vt = -(-n // DX_BM), -(-v // VT)
+    c = 1
+    while 2 * c <= MAX_C and 2 * c <= n_vt and 2 * c * tiles <= sms:
+        c *= 2
+    return {"route": "wgmma", "C": c}
+
+
+def dw_tiling(k: int) -> dict:
+    """K4 dw's route and the vocabulary columns BV of a block, to which dW's
+    columns are padded: 128 at K <= 256 (the wgmma kernel: two warpgroups
+    of 64, each keeping its 64 x K dW^T in registers), 64 above (the wmma
+    kernel)."""
+    return {"route": "wgmma", "BV": DW_BV} if k <= HK_MAX else {"route": "wmma", "BV": BV}
 
 
 def lse_plain(x, w, b) -> torch.Tensor:
@@ -71,6 +114,10 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def _sms(x) -> int:
+    return torch.cuda.get_device_properties(x.device).multi_processor_count
+
+
 def _rows8(w: torch.Tensor) -> torch.Tensor:
     """w with its rows padded to a multiple of 8 columns (zeros), so that
     the kernels read them with 16-byte loads: a copy when V % 8 != 0."""
@@ -84,8 +131,7 @@ def _launch_fwd(x, w, b) -> torch.Tensor:
     v = w.shape[1]
     n_vt = -(-v // BV)
     row_tiles = -(-n // 64)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    splits = max(1, min(n_vt, -(-4 * sms // row_tiles)))  # ~4 blocks an SM
+    splits = max(1, min(n_vt, -(-4 * _sms(x) // row_tiles)))  # ~4 blocks an SM
     part = torch.empty(2, splits, n, device=x.device)
     lse = torch.empty(n, device=x.device)
     wp = _rows8(w)
@@ -100,33 +146,36 @@ def _launch_fwd(x, w, b) -> torch.Tensor:
     return lse
 
 
-def _launch_dx(x, w, b, lse, g) -> torch.Tensor:
-    """K4's dx pass: (N, K) in x's dtype."""
+def _launch_dx(x, w, b, lse, g, wp=None) -> torch.Tensor:
+    """K4's dx pass: (N, K) in x's dtype. wp: w with its rows padded
+    (`_rows8`), when the caller has it."""
     _check(x, w, b)
     n, k = x.shape
+    v = w.shape[1]
     dx = torch.empty_like(x)
-    wp = _rows8(w)
+    wp = _rows8(w) if wp is None else wp
     fn = cuda_lib.load("vocab_lse", "vocab_lse_dx",
                        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
-                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     rc = fn(x.data_ptr(), wp.data_ptr(), wp.shape[1], b.data_ptr(), lse.data_ptr(),
-            g.data_ptr(), dx.data_ptr(), n, k, w.shape[1], _stream(x))
+            g.data_ptr(), dx.data_ptr(), n, k, v, dx_tiling(n, k, v, _sms(x))["C"], _stream(x))
     cuda_lib.check(rc, "vocab_lse_dx")
     global DX_LAUNCHES
     DX_LAUNCHES += 1
     return dx
 
 
-def _launch_dw(x, w, b, lse, g) -> tuple[torch.Tensor, torch.Tensor]:
+def _launch_dw(x, w, b, lse, g, wp=None) -> tuple[torch.Tensor, torch.Tensor]:
     """K4's dw pass: dW (K, V) accumulated in float32, cast to w's dtype,
-    and db (V,) float32."""
+    and db (V,) float32. wp as for `_launch_dx`."""
     _check(x, w, b)
     n, k = x.shape
     v = w.shape[1]
-    vp = -(-v // BV) * BV
+    bv = dw_tiling(k)["BV"]
+    vp = -(-v // bv) * bv
     dw = torch.empty(k, vp, device=x.device)
     db = torch.empty(vp, device=x.device)
-    wp = _rows8(w)
+    wp = _rows8(w) if wp is None else wp
     fn = cuda_lib.load("vocab_lse", "vocab_lse_dw",
                        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
                        + [ctypes.c_int] * 4 + [ctypes.c_void_p])
@@ -151,7 +200,8 @@ class _StreamingLSE(torch.autograd.Function):
         if x.device.type == "cpu":
             return lse_bwd_plain(x, w, b, lse, g)
         g = g.float().contiguous()
-        return (_launch_dx(x, w, b, lse, g), *_launch_dw(x, w, b, lse, g))
+        wp = _rows8(w)
+        return (_launch_dx(x, w, b, lse, g, wp), *_launch_dw(x, w, b, lse, g, wp))
 
 
 def streaming_lse(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -19,8 +19,8 @@ one line each, in the order they run; any failure ends the script with a
 non-zero exit:
 
   1. device and build: the card, the nvcc builds of the eight kernel
-     sources, started together, and K1's, K5's and K2's registers and
-     spills;
+     sources, started together, and K1's, K5's, K2's and K4's registers
+     and spills;
   2. K1f (csrc/packed_flash_fwd.cu) against its plain PyTorch version at
      the encoder shapes (8, 750, 768) and (2, 1500, 768), 12 heads;
   2b. at the training shapes (16, 750, 768) and (2, 1500, 768): K1f as
@@ -83,8 +83,11 @@ non-zero exit:
      in dqu, dqv, dk, dv; SDPA's backward with the bias requiring a
      gradient timed beside;
   2v. K4 (csrc/vocab_lse.cu: forward, dx, dw) against its plain version at
-     the CTC head's (7488, 256) x (256, 51865) and a ragged (700, 256) x
-     (256, 5000); cuBLAS with the logits materialised timed beside;
+     the CTC head's (7488, 256) x (256, 51865) and the ragged (700, 256) x
+     (256, 5000), (300, 128) x (128, 1001) and (700, 768) x (768, 5000)
+     (dx and dw: the wgmma kernels at K <= 256, the wmma ones above), with
+     b, lse and g NaN past their ends and dx and dw bit-identical on a
+     second run; cuBLAS with the logits materialised timed beside;
   3f. K3-f32 (decode_attn.cu, float32 caches) against its plain version at
      the LM's beam shape (80, 112, 512), 8 heads, pos 103, within 1e-4;
   2w. K6 (csrc/w8a16.cu, the W8A16 thin-row matmul) against its plain
@@ -223,7 +226,9 @@ JSON line with each kernel's launches, error and times, and the
 `{"ok": true, "device": ...}` line.
 
 `--mutants` builds each MUTANTS entry (an edit of one csrc/ source) outside
-the checkout and runs the checks it names, the unmutated source first;
+the checkout and runs the checks it names, the unmutated source first (a
+mutant that traps its kernel ends the process's CUDA use: the chosen
+mutants after it run in a new process);
 `--splits` times K3's instances at every S from 1 to 8 (SPLIT_SWEEP), the
 reading `decode_attn.time_splits` was tuned on.
 """
@@ -1497,13 +1502,24 @@ def check_k5_bwd(dev, g, timed=True) -> dict:
 
 # K4 against its plain version (float32 on the same bf16 x and W): the
 # conformer's training shape (16 x 468 rows, d 256, the Whisper vocabulary)
-# and a ragged one (rows not a multiple of 64, V not a multiple of 64). lse
+# and ragged ones (rows not a multiple of 64, V not a multiple of 64) at K
+# 256, at K 128 (V not a multiple of 8 either: W's rows padded) and at K
+# 768 (the wmma backward, which the wrapper takes above K 256). lse
 # within K4_LSE_RTOL relative per row, |lse| floored at 1 nat (float32 sums
 # of exps in another order); dx
 # and dW within KERNEL_RTOL x max |plain| (bf16 dz, bf16 outputs); db within
 # K4_DB_RTOL x max |plain| (float32 column sums).
-K4_SHAPES = ((7488, 256, 51865), (700, 256, 5000))
+K4_SHAPES = ((7488, 256, 51865), (700, 256, 5000), (300, 128, 1001), (700, 768, 5000))
 K4_LSE_RTOL, K4_DB_RTOL = 1e-4, 1e-4
+
+
+def poisoned(t: torch.Tensor, extra: int = 128) -> torch.Tensor:
+    """t (1-D) as the first entries of a buffer whose `extra` others hold
+    NaN: a kernel that reads past its end (b past V, lse or g past N) gives
+    NaN."""
+    buf = torch.full((t.numel() + extra,), float("nan"), device=t.device, dtype=t.dtype)
+    buf[:t.numel()] = t
+    return buf[:t.numel()]
 
 
 def k4_inputs(g, dev, n: int, k: int, v: int):
@@ -1538,11 +1554,17 @@ def check_k4(dev, g, timed=True) -> dict:
     from agacs_tpu_torch.ops import vocab_lse
 
     res = {part: {"err": 0.0} for part in ("fwd", "dx", "dw")}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for n, k, v in K4_SHAPES:
         x, w, b, gr = k4_inputs(g, dev, n, k, v)
-        lse = vocab_lse._launch_fwd(x, w, b)
+        b, gr = poisoned(b), poisoned(gr)
+        lse = poisoned(vocab_lse._launch_fwd(x, w, b))
         dx = vocab_lse._launch_dx(x, w, b, lse, gr)
         dw, db = vocab_lse._launch_dw(x, w, b, lse, gr)
+        # a second run, bit-identical: the cluster's partials are summed in
+        # rank order and nothing is added atomically
+        dx2 = vocab_lse._launch_dx(x, w, b, lse, gr)
+        dw2, db2 = vocab_lse._launch_dw(x, w, b, lse, gr)
         lse_p = vocab_lse.lse_plain(x.float(), w.float(), b)
         dx_p, dw_p, db_p = vocab_lse.lse_bwd_plain(x.float(), w.float(), b, lse_p, gr)
         torch.cuda.synchronize()
@@ -1558,30 +1580,41 @@ def check_k4(dev, g, timed=True) -> dict:
             else:
                 bound = rtol * ref.abs().max().item()
                 ok = err <= bound
-            check(tuple(out.shape) == tuple(ref.shape) and ok,
-                  f"K4 {name} ({n}, {k}) x ({k}, {v}): max_abs_err {err} <= {bound}")
+            check(tuple(out.shape) == tuple(ref.shape) and ok
+                  and bool(torch.isfinite(out).all()),
+                  f"K4 {name} ({n}, {k}) x ({k}, {v}): finite, max_abs_err {err} <= {bound}")
             errs[name] = err
             res[part]["err"] = max(res[part]["err"], err)
+        check(torch.equal(dx, dx2) and torch.equal(dw, dw2) and torch.equal(db, db2),
+              f"K4 dx and dw ({n}, {k}) x ({k}, {v}): a second run bit-identical")
+        del dx2, dw2, db2
+        tx, tw = vocab_lse.dx_tiling(n, k, v, sms), vocab_lse.dw_tiling(k)
         line = (f"phase 2v K4 vocab_lse ({n}, {k}) x ({k}, {v}): max_abs_err "
                 + ", ".join(f"{nm} {e:.3e}" for nm, e in errs.items())
                 + f" (bounds lse {K4_LSE_RTOL} relative, dx/dW {KERNEL_RTOL} and db "
-                f"{K4_DB_RTOL} x max|plain f32|)")
+                f"{K4_DB_RTOL} x max|plain f32|), all finite; b, lse and g NaN past their "
+                f"ends; dx and dw bit-identical on a second run; backward {tx['route']} (dx "
+                f"C {tx['C']}; dw block {tw['BV']} columns)")
         if timed and (n, k, v) == K4_SHAPES[0]:
             sets = [(x, w, b)] + [k4_inputs(g, dev, n, k, v)[:3] for _ in range(1)]
-            bw = [(*s, vocab_lse.lse_plain(*s), gr) for s in sets]
+            # (x, w, b, lse, g, w padded): the backward pads W once for both
+            # passes (_rows8), so the kernels are timed without the copy,
+            # whose time is printed beside them
+            bw = [(*s, vocab_lse.lse_plain(*s), gr, vocab_lse._rows8(s[1])) for s in sets]
+            pad_ms = cuda_ms(lambda *a: vocab_lse._rows8(a[1]), bw, 20)
             io = n * k * 2 + k * v * 2 + v * 4
             ops = 2 * n * k * v
             for part, kern, plain, lib_fn, nbytes, nops, it in (
                     ("fwd", lambda *a: vocab_lse._launch_fwd(*a[:3]),
                      lambda *a: vocab_lse.lse_plain(*a[:3]), lambda *a: k4_lib(*a[:3]),
                      io + n * 4, ops, 10),
-                    ("dx", vocab_lse._launch_dx,
-                     lambda *a: vocab_lse.lse_bwd_plain(*a)[0],
-                     lambda *a: k4_lib(*a, part="dx"), io + 8 * n + n * k * 2, 2 * ops, 5),
-                    ("dw", vocab_lse._launch_dw,
-                     lambda *a: vocab_lse.lse_bwd_plain(*a)[1:],
-                     lambda *a: k4_lib(*a, part="dw"), io + 8 * n + k * v * 2 + v * 4,
-                     2 * ops, 5)):
+                    ("dx", lambda *a: vocab_lse._launch_dx(*a[:5], wp=a[5]),
+                     lambda *a: vocab_lse.lse_bwd_plain(*a[:5])[0],
+                     lambda *a: k4_lib(*a[:5], part="dx"), io + 8 * n + n * k * 2, 2 * ops, 20),
+                    ("dw", lambda *a: vocab_lse._launch_dw(*a[:5], wp=a[5]),
+                     lambda *a: vocab_lse.lse_bwd_plain(*a[:5])[1:],
+                     lambda *a: k4_lib(*a[:5], part="dw"), io + 8 * n + k * v * 2 + v * 4,
+                     2 * ops, 20)):
                 ms = cuda_ms(kern, bw, it)
                 plain_ms = cuda_ms(plain, bw, 3)
                 lib = cuda_ms(lib_fn, bw, 3)
@@ -1589,6 +1622,7 @@ def check_k4(dev, g, timed=True) -> dict:
                                  **roofline(nbytes, nops, "bf16"))
                 line += (f"; {part} kernel {ms:.4f} ms plain {plain_ms:.4f} ms cuBLAS+logits "
                          f"{lib:.4f} ms bound {res[part]['bound_ms']:.4f} ms")
+            line += f"; W's rows padded (once a backward) {pad_ms:.4f} ms"
             del sets, bw
         print(line, flush=True)
         torch.cuda.empty_cache()
@@ -3588,11 +3622,33 @@ MUTANTS = {
                           "z_w[r * ZLD + c] = z_w[r * ZLD + c] + (col < V ? bias[col] : 0.f);")],
         ("k4",)),
     "K4 dx without g": (
-        "vocab_lse.cu", [("dz_tile(s, lse, g, r0, N, false);",
-                          "dz_tile(s, lse, nullptr, r0, N, false);")], ("k4",)),
+        "vocab_lse.cu", [("const float ga = ra < N ? g[ra] : 0.f, gb = rb < N ? g[rb] : 0.f;",
+                          "const float ga = ra < N ? 1.f : 0.f, gb = rb < N ? 1.f : 0.f;")],
+        ("k4",)),
     "K4 dw with db dropped": (
-        "vocab_lse.cu", [("if (with_db && tid < BV) db[v0 + tid] = db_acc;",
-                          "if (with_db && tid < BV) db[v0 + tid] = 0.f;")], ("k4",)),
+        "vocab_lse.cu", [("if (t == 0) db[va] = da, db[vb] = dbb;",
+                          "if (t == 0) db[va] = 0.f, db[vb] = 0.f;")], ("k4",)),
+    # b is NaN past V in the check: the V tail's zero W columns would hide
+    # any finite value there
+    "K4 dx V tail unmasked (b read past V)": (
+        "vocab_lse.cu", [("strip[s * VT + c] = v0 + c < V ? bias[v0 + c] : -INFINITY;",
+                          "strip[s * VT + c] = bias[v0 + c];")], ("k4",)),
+    "K4 dx bias from the neighbouring column": (
+        "vocab_lse.cu", [("strip[s * VT + c] = v0 + c < V ? bias[v0 + c] : -INFINITY;",
+                          "strip[s * VT + c] = v0 + c < V ? bias[v0 + c + 1] : -INFINITY;")],
+        ("k4",)),
+    # lse and g are NaN past N in the check
+    "K4 dw row tail unmasked (lse and g read past N)": (
+        "vocab_lse.cu", [("sl[s * VT + c] = row < N ? lse[row] * LOG2E : INFINITY;",
+                          "sl[s * VT + c] = lse[row] * LOG2E;"),
+                         ("sg[s * VT + c] = row < N ? g[row] : 0.f;", "sg[s * VT + c] = g[row];")],
+        ("k4",)),
+    "K4 dw without g": (
+        "vocab_lse.cu", [("sg[s * VT + c] = row < N ? g[row] : 0.f;",
+                          "sg[s * VT + c] = row < N ? 1.f : 0.f;")], ("k4",)),
+    "K4 dx split: the last rank's partial dropped": (
+        "vocab_lse.cu", [("      if (src < C) {\n        a.x += lo[src].x",
+                          "      if (src < C - 1) {\n        a.x += lo[src].x")], ("k4",)),
     "K5 shift off by one": (
         "relpos_flash.cu", [("return pw[(16 * warp + r) * PL + 15 - r + c];",
                              "return pw[(16 * warp + r) * PL + 16 - r + c];")], ("k5",)),
@@ -3743,8 +3799,13 @@ MUTANTS = {
     # the allocator placed there, which may end the process's CUDA use.
     "K8g wide: the M tail unmasked": (
         "int8_gemm.cu", [("if (row < M && col < N)", "if (col < N)")], ("k8",)),
-    # Last: its kernel breaks the ring's barrier protocol and traps, and the
-    # process's CUDA context is lost with it, so nothing can run after it.
+    # Last: their kernels break the ring's barrier protocol and trap, and the
+    # process's CUDA context is lost with it; `mutants` runs what is left in
+    # a new process.
+    "K4 ring: dx reads a W slot one phase early": (
+        "vocab_lse.cu", [("hop::mbar_wait(&full[s1], ph1);",
+                          "hop::mbar_wait(&full[s1], ph1 ^ 1);")],
+        ("k4",)),
     "K2 ring: a slot read one phase early": (
         "int8_mlp.cu", [("hop::mbar_wait(&R.full[cur.s], cur.ph);",
                          "hop::mbar_wait(&R.full[cur.s], cur.ph ^ 1);")], ("k2",)),
@@ -3812,12 +3873,15 @@ def mutants(dev, only=()) -> None:
             try:
                 torch.cuda.synchronize()
             except RuntimeError:  # a trapped kernel: the process's CUDA context is lost
-                print(f"MUTANT [{name}]: the CUDA context is lost; no later check can run",
-                      flush=True)
+                print(f"MUTANT [{name}]: the CUDA context is lost; no later check can run "
+                      "in this process", flush=True)
                 lost = True
                 break
         shutil.rmtree(tmp, ignore_errors=True)
         if lost:
+            left = [m for m in list(MUTANTS)[list(MUTANTS).index(name) + 1:] if m in chosen]
+            if left:  # the chosen mutants after it, in a new process
+                subprocess.run([sys.executable, __file__, "--mutants", *left], check=False)
             break
     cuda_lib.CSRC, cuda_lib.BUILD_DIR = src, build
     cuda_lib._LIBS.clear()
@@ -4019,10 +4083,10 @@ def main() -> int:
     print(f"phase 1 device: {torch.cuda.get_device_name(0)} | {smi} | torch "
           f"{torch.__version__} cuda {torch.version.cuda} | kernels built in "
           f"{build_s:.2f} s | ptxas {ptxas or 'cached build'}", flush=True)
-    print("phase 1 K1, K5 and K2 ptxas: " + "; ".join(
+    print("phase 1 K1, K5, K2 and K4 ptxas: " + "; ".join(
         ptxas_entries(cuda_lib.BUILD_LOG.get(name, ""))
-        for name in ("packed_flash_fwd", "packed_flash_bwd", "relpos_flash", "int8_mlp")),
-        flush=True)
+        for name in ("packed_flash_fwd", "packed_flash_bwd", "relpos_flash", "int8_mlp",
+                     "vocab_lse")), flush=True)
 
     # 2-3s. each kernel against its plain version
     g = torch.Generator(device="cpu").manual_seed(0)
