@@ -1,5 +1,5 @@
 // Shared pieces of the Hopper kernels K1f, K1b, K5, K2, the wide K8g and
-// K4's backward (packed_flash_fwd.cu, packed_flash_bwd.cu, relpos_flash.cu,
+// K4 (packed_flash_fwd.cu, packed_flash_bwd.cu, relpos_flash.cu,
 // int8_mlp.cu, int8_gemm.cu, vocab_lse.cu): TMA tile loads from the packed
 // (B, T, H*64) layout (K2, K8g: row-major int8 matrices; K4: row-major bf16
 // matrices of any row stride) into 128-byte-swizzled shared memory, the
@@ -290,9 +290,10 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
 }
 
 // d (64 x 64, f32) += a (64 x 16 bf16, registers: the m64k16 A fragment)
-// . b (16 x 64, shared memory, MN-major: the transposed form).
+// . b (16 x 64, shared memory, MN-major: the transposed form); scale_d = 0
+// overwrites d.
 __device__ __forceinline__ void wgmma_rs_n64_t(float (&d)[32], const uint32_t* a,
-                                               uint64_t db) {
+                                               uint64_t db, int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -303,7 +304,7 @@ __device__ __forceinline__ void wgmma_rs_n64_t(float (&d)[32], const uint32_t* a
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
 // As wgmma_ss_n64, a MN-major (its rows are the k, 64 of m across a row) and

@@ -20,18 +20,36 @@
 // size: 0.40 ms). The point of the kernels is what they keep out of device
 // memory: the (N, V) float32 logits are 1.55 GB.
 //
-// Forward (wmma). Every block owns 64 rows and loops over V itself: a z
-// tile (64 rows x 64 columns) is computed by 4 warps of 16 rows, bf16 wmma
-// 16x16x16 with f32 accumulation, from the block's x tile (64 x K,
-// resident in shared memory) and 64 x 64 chunks of W streamed through
-// shared memory with 16-byte loads (W's row stride ldw is a multiple of 8:
-// the caller pads W's rows when V is not); columns >= V are masked by
-// index (no -1e30 bias padding) and rows >= N are never written. Grid (row
-// tiles, V splits): each block sweeps its share of the V tiles with an
-// online (max, sum-exp) per row (two lanes a row) and writes one (m, s)
-// pair per row and split; a second small kernel combines the splits, as
-// the TPU path combines its per-tile partials outside the kernel. The
-// split keeps the card full at N = 7488 (117 row tiles for 132 SMs).
+// Forward (wgmma fed by TMA, `vocab_lse_fwd_kernel`; one launch at every
+// K). It replaced a wmma kernel (15x its bound: 64 x 64 W chunks loaded
+// synchronously between two block barriers, z round-tripped through
+// shared memory as f32, two lanes a row) and a second kernel that combined
+// its per-split (m, s) pairs through device memory. A block of BM rows
+// (`vocab_lse.fwd_tiling`: 128, two consumer warpgroups of 64 rows; 64,
+// one, where x's 128 rows do not fit beside the ring) and a producer
+// warpgroup holds x resident in shared memory (TMA, K / 64 swizzled boxes
+// of BM x 64); the producer streams W through a ring of 4 slots with each
+// V tile's bias strip (b log2 e, -inf from column V on: the V tail is
+// masked by index; W's map ends at column V and rows >= N read as zeros
+// and are never written). Per 64-column V tile a warpgroup computes S = X
+// W_tile on wgmma m64n64k16 into 32 f32 registers a thread, folds b and
+// log2 e in with one fmaf, takes the tile's row maxima over the quad (2
+// shuffles) and updates its rows' running (m, s) in log2 units, s
+// rescaled only when m grows (`online_rows`). At K <= 256 a slot holds a
+// whole K x 64 tile, the warpgroup's 64 rows of x sit in its registers as
+// the product's A operand (K / 4 registers a thread, loaded once with
+// ldmatrix; with A read from shared memory too, both operands of every
+// m64n64k16 step come from shared memory and the kernel was ~20% slower
+// on an H100: PERF.md, PR 16), and two S buffers alternate: the next
+// tile's S is issued before this tile's exps, which run under it. Above
+// 256 x is read from shared memory, a slot is a 64 x 64 chunk (8 KB) and
+// S is summed over K / 64 chunk products. Each row tile's V sweep is split
+// over a cluster of C blocks as dx's (rank r sweeps V tiles [r n / C, (r +
+// 1) n / C)); each rank writes its (m, s) per row into its shared memory,
+// and rank r merges rows [r BM / C, (r + 1) BM / C) of the C pairs in
+// rank order through distributed shared memory, m = max m_r, s = sum s_r
+// 2^(m_r - m), and stores lse = (m + log2 s) ln 2: no atomics, no second
+// pass, bit-identical from run to run.
 //
 // Backward at K <= 256 (wgmma; `vocab_lse_dx_kernel`, `vocab_lse_dw_kernel`).
 // It replaced wmma kernels that rebuilt z once for every 128 output columns
@@ -219,55 +237,6 @@ __device__ __forceinline__ void dz_tile(const Bufs& s, const float* lse, const f
 }
 
 __global__ void __launch_bounds__(THREADS)
-vocab_lse_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ W, int ldw,
-                     const float* __restrict__ bias, float* __restrict__ part_m,
-                     float* __restrict__ part_s, int N, int K, int V, int tiles_per_split) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const Bufs s = carve(smem_raw, K);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r0 = blockIdx.x * BR, split = blockIdx.y;
-  const int n_vt = (V + BV - 1) / BV;
-  const int vt0 = split * tiles_per_split, vt1 = min(vt0 + tiles_per_split, n_vt);
-  load_x(s.x, x, r0, N, K);
-
-  const int r = lane >> 1, c0 = (lane & 1) * 32;  // two lanes a row
-  const float* z_r = s.z + (warp * 16 + r) * ZLD + c0;
-  float m = -INFINITY, sum = 0.f;
-  for (int vt = vt0; vt < vt1; ++vt) {
-    z_tile(s, W, ldw, bias, K, V, vt * BV);
-    float mx = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < 32; ++j) mx = fmaxf(mx, z_r[j]);
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m, mx);  // finite: a tile's first column is < V
-    float e = 0.f;
-#pragma unroll
-    for (int j = 0; j < 32; ++j) e += expf(z_r[j] - m_new);
-    e += __shfl_xor_sync(0xffffffffu, e, 1);
-    sum = sum * expf(m - m_new) + e;
-    m = m_new;
-  }
-  const int row = r0 + warp * 16 + r;
-  if ((lane & 1) == 0 && row < N) {
-    part_m[(size_t)split * N + row] = m;
-    part_s[(size_t)split * N + row] = sum;
-  }
-}
-
-__global__ void vocab_lse_combine_kernel(const float* __restrict__ part_m,
-                                         const float* __restrict__ part_s,
-                                         float* __restrict__ lse, int N, int splits) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= N) return;
-  float m = -INFINITY;
-  for (int i = 0; i < splits; ++i) m = fmaxf(m, part_m[(size_t)i * N + row]);
-  float sum = 0.f;
-  for (int i = 0; i < splits; ++i)
-    sum += expf(part_m[(size_t)i * N + row] - m) * part_s[(size_t)i * N + row];
-  lse[row] = m + logf(sum);
-}
-
-__global__ void __launch_bounds__(THREADS)
 vocab_lse_dx_wmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ W, int ldw,
                     const float* __restrict__ bias, const float* __restrict__ lse,
                     const float* __restrict__ g, bf16* __restrict__ dx, int N, int K, int V) {
@@ -417,8 +386,8 @@ __host__ __device__ constexpr size_t dw_smem(int K) {
 static_assert(dx_smem(HK_MAX) <= 232448 && dw_smem(HK_MAX) <= 232448,
               "K4's backward ring does not fit shared memory at K 256");
 
-struct BwdMaps {
-  CUtensorMap x, w;  // x (N, K) in (64, DX_BM or DW_BN) boxes; W (K, V) in (64, 64) boxes
+struct Maps {
+  CUtensorMap x, w;  // x (N, K) in (64, rows) boxes; W (K, V) in (64, 64) boxes
 };
 
 __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
@@ -479,7 +448,7 @@ __device__ __forceinline__ void issue_s(float (&sc)[32], uint64_t xd, const unsi
 
 template <int K>
 __global__ void __launch_bounds__(HTHREADS, 1)
-vocab_lse_dx_kernel(const __grid_constant__ BwdMaps mp, const float* __restrict__ bias,
+vocab_lse_dx_kernel(const __grid_constant__ Maps mp, const float* __restrict__ bias,
                     const float* __restrict__ lse, const float* __restrict__ g,
                     bf16* __restrict__ dx, int N, int V) {
   constexpr int STAGE = K * 128;  // bytes of a W tile: K rows x 64 columns
@@ -667,7 +636,7 @@ __device__ __forceinline__ void issue_st(float (&sc)[32], uint64_t wd, const uns
 
 template <int K>
 __global__ void __launch_bounds__(HTHREADS, 1)
-vocab_lse_dw_kernel(const __grid_constant__ BwdMaps mp, const float* __restrict__ bias,
+vocab_lse_dw_kernel(const __grid_constant__ Maps mp, const float* __restrict__ bias,
                     const float* __restrict__ lse, const float* __restrict__ g,
                     float* __restrict__ dw, float* __restrict__ db, int N, int V, int Vp) {
   constexpr int STAGE = DW_BN * K * 2;  // bytes of an x tile: 64 rows x K
@@ -781,15 +750,310 @@ vocab_lse_dw_kernel(const __grid_constant__ BwdMaps mp, const float* __restrict_
       dw[(size_t)(8 * j + 2 * t + (e & 1)) * Vp + (e < 2 ? va : vb)] = acc[4 * j + e];
 }
 
+// ---------------------------------------------------------------------------
+// The forward: wgmma fed by TMA at every K (see the header note)
+
+constexpr int FWD_KC = 64;        // depth of a ring slot above HK_MAX: 64 x 64 W chunks
+constexpr int SMEM_MAX = 232448;  // a block's shared memory on sm_90 (227 KB)
+constexpr float LN2 = 0.6931471805599453f;
+
+// The forward's shared memory at K and BM rows a block: x (BM x K), the
+// ring (STAGES slots of fwd_kc(K) W rows x 64 columns), the bias strips and
+// the barriers; the ranks' (m, s) per row go over the dead ring once the
+// sweep is done.
+__host__ __device__ constexpr int fwd_kc(int K) { return K <= HK_MAX ? K : FWD_KC; }
+__host__ __device__ constexpr size_t fwd_smem(int K, int BM) {
+  return 1024 + BM * K * 2 + STAGES * fwd_kc(K) * 128 + STRIPS + BARS;
+}
+// 128 rows a block where x's 128 rows fit beside the ring, else 64.
+__host__ __device__ constexpr int fwd_bm(int K) { return fwd_smem(K, 128) <= SMEM_MAX ? 128 : 64; }
+static_assert(fwd_bm(HK_MAX) == 128 && fwd_bm(768) == 128 && fwd_bm(896) == 64 &&
+                  fwd_smem(1024, 64) <= SMEM_MAX,
+              "K4's forward does not fit shared memory at some K up to 1024");
+
+// A V tile's bias strip (b log2 e, -inf from column V on): the 16 values
+// of this thread's columns 8j + 2t, 8j + 2t + 1.
+__device__ __forceinline__ void load_strip(float2 (&bv)[8], const float* strip) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) bv[j] = *reinterpret_cast<const float2*>(strip + 8 * j + 2 * t);
+}
+
+// The online (max, sum) of this thread's rows a and b over one S tile (the
+// m64n64 accumulator: 16 columns of each row, the quad holding all 64), in
+// log2 units: y = S log2 e + b log2 e; the tile's row maxima over the quad;
+// m raised to them, s rescaled only when m grows; then s += the sum of
+// exp2(y - m) over the thread's columns. m is the quad's, s the thread's
+// share of it.
+__device__ __forceinline__ void online_rows(const float (&sc)[32], const float2 (&bv)[8],
+                                            float& ma, float& mb, float& sa, float& sb) {
+  float y[32], xa = -INFINITY, xb = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {  // d[4j + e]: row a (e < 2) or b, column 8j + 2t + e % 2
+      y[4 * j + e] = fmaf(sc[4 * j + e], LOG2E, (e & 1) ? bv[j].y : bv[j].x);
+      if (e < 2) xa = fmaxf(xa, y[4 * j + e]);
+      else xb = fmaxf(xb, y[4 * j + e]);
+    }
+  xa = fmaxf(xa, __shfl_xor_sync(0xffffffffu, xa, 1));
+  xa = fmaxf(xa, __shfl_xor_sync(0xffffffffu, xa, 2));
+  xb = fmaxf(xb, __shfl_xor_sync(0xffffffffu, xb, 1));
+  xb = fmaxf(xb, __shfl_xor_sync(0xffffffffu, xb, 2));
+  if (xa > ma) sa *= hop::ex2(ma - xa), ma = xa;
+  if (xb > mb) sb *= hop::ex2(mb - xb), mb = xb;
+  float ea = 0.f, eb = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (e < 2) ea += hop::ex2(y[4 * j + e] - ma);
+      else eb += hop::ex2(y[4 * j + e] - mb);
+    }
+  sa += ea;
+  sb += eb;
+}
+
+// The warpgroup's 64 rows of x (xs: its first row in x's K / 64 swizzled
+// boxes of DX_BM rows) as the register A operand of K / 16 k16 steps:
+// registers 4j..4j+3 hold columns 16j..16j+15 (ldmatrix .x4: lanes 0-7
+// address rows 0-7 of the warp's 16 at k 0-7, lanes 8-15 rows 8-15, lanes
+// 16-31 the same rows at k 8-15).
+template <int K>
+__device__ __forceinline__ void load_xa(uint32_t (&xa)[K / 4], const unsigned char* xs) {
+  const int lane = threadIdx.x & 31;
+  const int r = 16 * ((threadIdx.x >> 5) & 3) + (lane & 7) + 8 * ((lane >> 3) & 1);
+#pragma unroll
+  for (int j = 0; j < K / 16; ++j) {
+    const int ch = 2 * (j & 3) + (lane >> 4);  // the 16-byte chunk of the row, before the swizzle
+    const unsigned char* p = xs + (j >> 2) * DX_BM * 128 + r * 128 + ((ch ^ (r & 7)) << 4);
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(xa[4 * j]), "=r"(xa[4 * j + 1]), "=r"(xa[4 * j + 2]), "=r"(xa[4 * j + 3])
+                 : "r"(hop::smem_u32(p)));
+  }
+}
+
+// S = X (the warpgroup's 64 rows, in registers: `load_xa`) . the W tile
+// (K x 64, MN-major). Issued and committed.
+template <int K>
+__device__ __forceinline__ void issue_s_rs(float (&sc)[32], const uint32_t (&xa)[K / 4],
+                                           const unsigned char* wt) {
+  const uint64_t wd = hop::desc(wt);
+#pragma unroll
+  for (int j = 0; j < K / 16; ++j) hop::wgmma_rs_n64_t(sc, &xa[4 * j], wd + ((j * 2048) >> 4), j);
+  hop::wgmma_commit();
+}
+
+// S (+)= X[:, 64c : 64c + 64] (the warpgroup's 64 rows; xd the descriptor
+// of x's box 0, its boxes BM x 128 bytes) . a 64 x 64 W chunk (MN-major);
+// chunk 0 overwrites S. Issued and committed.
+template <int BM>
+__device__ __forceinline__ void issue_chunk(float (&sc)[32], uint64_t xd, const unsigned char* wt,
+                                            int c) {
+  const uint64_t xc = xd + ((c * BM * 128) >> 4), wd = hop::desc(wt);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    hop::wgmma_ss_n64_tb(sc, xc + ((j * 32) >> 4), wd + ((j * 2048) >> 4), c | j);
+  hop::wgmma_commit();
+}
+
+// The ring position of a consumer: slot s, phase ph.
+struct Pos {
+  int s = 0, ph = 0;
+  __device__ __forceinline__ Pos next() const {
+    return s + 1 == STAGES ? Pos{0, ph ^ 1} : Pos{s + 1, ph};
+  }
+};
+
+// One V tile at K <= HK_MAX (a slot holds the whole K x 64 tile): S of the
+// next tile (slot p.next(); after the rank's last tile the slot p again, a
+// product whose result is dropped, so that no wgmma sits under a
+// condition) issued into nx, then this tile's online (max, sum) from cur
+// while it runs. The slot is released once its strip is read: its W tile
+// was read by cur's product, which has landed.
+template <int K>
+__device__ __forceinline__ void fwd_tile(const float (&cur)[32], float (&nx)[32],
+                                         const uint32_t (&xa)[K / 4],
+                                         const unsigned char* ring, const float* strip,
+                                         uint64_t* full, uint64_t* empty, Pos& p, bool more,
+                                         float& ma, float& mb, float& sa, float& sb) {
+  const Pos q = p.next();
+  if (more) hop::mbar_wait(&full[q.s], q.ph);
+  __syncwarp();
+  hop::wgmma_fence();
+  issue_s_rs<K>(nx, xa, ring + (more ? q.s : p.s) * K * 128);
+  float2 bv[8];
+  load_strip(bv, strip + p.s * VT);
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) hop::mbar_arrive(&empty[p.s]);
+  online_rows(cur, bv, ma, mb, sa, sb);
+  hop::wgmma_wait();
+  hop::fence_regs(nx);
+  p = q;
+}
+
+// lse of rows [r0, r0 + BM): KC = K (128 or 256; whole W tiles, two S
+// buffers) or FWD_KC (K / 64 chunks a tile, one S buffer); BM / 64
+// consumer warpgroups and a producer warpgroup. Grid (C, row tiles) in
+// clusters of C along x.
+template <int KC, int BM>
+__global__ void __launch_bounds__(BM * 2 + 128, 1)
+vocab_lse_fwd_kernel(const __grid_constant__ Maps mp, const float* __restrict__ bias,
+                     float* __restrict__ lse, int N, int K, int V) {
+  constexpr int CONS = BM * 2;        // consumer threads: a warpgroup of 128 per 64 rows
+  constexpr int STAGE = KC * 128;     // bytes of a ring slot: KC W rows x 64 columns
+  constexpr bool WHOLE = KC > FWD_KC;  // a slot holds a whole K x 64 tile
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  extern __shared__ unsigned char raw[];
+  unsigned char* base = align1024(raw);
+  unsigned char* xs = base;
+  unsigned char* ring = base + BM * K * 2;
+  float* strip = reinterpret_cast<float*>(ring + STAGES * STAGE);  // [slot][column]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(strip + STAGES * VT);
+  uint64_t* xfull = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + STAGES;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int r0 = blockIdx.y * BM;
+  const int n_vt = (V + VT - 1) / VT, nch = K / KC;  // V tiles; ring slots a tile takes
+  const int vt0 = rank * n_vt / C, nt = (rank + 1) * n_vt / C - vt0;  // this rank's V tiles, >= 1
+  if (tid == 0) {
+    hop::mbar_init(xfull, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hop::mbar_init(&full[s], 32);  // the producer warp's lanes
+      hop::mbar_init(&empty[s], CONS / 32);
+    }
+    hop::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= CONS / 32) {  // the producer: x once, then W slots and each tile's bias strip
+    if constexpr (CONS == 256) hop::reg_dealloc<40>();
+    if (warp == CONS / 32) {  // one warp loads
+      if (lane == 0) {
+        hop::prefetch_map(&mp.x);
+        hop::prefetch_map(&mp.w);
+        hop::mbar_expect_tx(xfull, BM * K * 2);
+        for (int kb = 0; kb < K / 64; ++kb)
+          hop::tma_load_2d(xs + kb * BM * 128, &mp.x, xfull, kb * 64, r0);
+      }
+      Pos p;
+      for (int it = 0; it < nt; ++it) {
+        const int v0 = (vt0 + it) * VT;
+        for (int c = 0; c < nch; ++c, p = p.next()) {
+          hop::mbar_wait(&empty[p.s], p.ph ^ 1);
+          if (c == 0)
+            for (int j = lane; j < VT; j += 32)
+              strip[p.s * VT + j] = v0 + j < V ? bias[v0 + j] * LOG2E : -INFINITY;
+          if (lane == 0) {
+            hop::mbar_expect_tx(&full[p.s], STAGE);
+            for (int kb = 0; kb < KC / 64; ++kb)
+              hop::tma_load_2d(ring + p.s * STAGE + kb * 8192, &mp.w, &full[p.s], v0,
+                               c * KC + kb * 64);
+          } else {
+            hop::mbar_arrive(&full[p.s]);
+          }
+        }
+      }
+    }
+    __syncwarp();
+    cluster.sync();  // every rank's (m, s) written
+    cluster.sync();  // and read
+    return;
+  }
+  if constexpr (CONS == 256) hop::reg_alloc<232>();
+
+  const int wg = warp >> 2, t = lane & 3;
+  const int la = 64 * wg + 16 * (warp & 3) + (lane >> 2);  // rows la and la + 8 of the block
+  float ma = -INFINITY, mb = -INFINITY, sa = 0.f, sb = 0.f;
+  hop::mbar_wait(xfull, 0);
+  if constexpr (WHOLE) {
+    uint32_t xa[KC / 4];
+    load_xa<KC>(xa, xs + wg * 64 * 128);
+    float s0[32], s1[32];
+    hop::mbar_wait(&full[0], 0);
+    __syncwarp();
+    hop::wgmma_fence();
+    issue_s_rs<KC>(s0, xa, ring);
+    hop::wgmma_wait();
+    hop::fence_regs(s0);
+    Pos p;
+    for (int it = 0;;) {  // two tiles a pass, so that each S buffer stays in its registers
+      fwd_tile<KC>(s0, s1, xa, ring, strip, full, empty, p, it + 1 < nt, ma, mb, sa, sb);
+      if (++it == nt) break;
+      fwd_tile<KC>(s1, s0, xa, ring, strip, full, empty, p, it + 1 < nt, ma, mb, sa, sb);
+      if (++it == nt) break;
+    }
+  } else {
+    const uint64_t xd = hop::desc(xs + wg * 64 * 128);
+    float sc[32];
+    Pos p, prev;
+    for (int it = 0; it < nt; ++it) {
+      float2 bv[8];
+      for (int c = 0; c < nch; ++c) {
+        hop::mbar_wait(&full[p.s], p.ph);
+        if (c == 0) load_strip(bv, strip + p.s * VT);
+        __syncwarp();
+        hop::wgmma_fence();
+        issue_chunk<BM>(sc, xd, ring + p.s * STAGE, c);
+        hop::wgmma_wait_n<1>();  // the previous chunk's product has landed: free its slot
+        __syncwarp();
+        if (c > 0 && lane == 0) hop::mbar_arrive(&empty[prev.s]);
+        prev = p;
+        p = p.next();
+      }
+      hop::wgmma_wait();
+      hop::fence_regs(sc);
+      __syncwarp();
+      if (lane == 0) hop::mbar_arrive(&empty[prev.s]);
+      online_rows(sc, bv, ma, mb, sa, sb);
+    }
+  }
+
+  // The quad's shares of s summed; each rank's (m, s) per row over its dead
+  // ring, then rows [rank BM / C, +BM / C) of the C pairs merged in rank
+  // order.
+  sa += __shfl_xor_sync(0xffffffffu, sa, 1);
+  sa += __shfl_xor_sync(0xffffffffu, sa, 2);
+  sb += __shfl_xor_sync(0xffffffffu, sb, 1);
+  sb += __shfl_xor_sync(0xffffffffu, sb, 2);
+  float* pm = reinterpret_cast<float*>(ring);
+  float* ps = pm + BM;
+  hop::bar_sync(1, CONS);  // every consumer is done with the ring
+  if (t == 0) pm[la] = ma, ps[la] = sa, pm[la + 8] = mb, ps[la + 8] = sb;
+  cluster.sync();
+  const int rows = BM / C;
+  for (int q = tid; q < rows; q += CONS) {
+    const int r = rank * rows + q;
+    float mr[MAX_C], sr[MAX_C];  // every rank's pair read at once, then merged in rank order
+#pragma unroll
+    for (int src = 0; src < MAX_C; ++src)
+      if (src < C) {
+        mr[src] = *cluster.map_shared_rank(pm + r, src);
+        sr[src] = *cluster.map_shared_rank(ps + r, src);
+      }
+    float m = mr[0], sum = 0.f;
+#pragma unroll
+    for (int src = 1; src < MAX_C; ++src)
+      if (src < C) m = fmaxf(m, mr[src]);
+#pragma unroll
+    for (int src = 0; src < MAX_C; ++src)
+      if (src < C) sum += sr[src] * hop::ex2(mr[src] - m);
+    if (r0 + r < N) lse[r0 + r] = (m + log2f(sum)) * LN2;
+  }
+  cluster.sync();  // no block exits while another still reads its pairs
+}
+
 template <typename... KArgs, typename... Args>
-int launch_hk(void (*kern)(KArgs...), dim3 grid, int cluster_x, size_t smem,
+int launch_hk(void (*kern)(KArgs...), dim3 grid, int cluster_x, int threads, size_t smem,
               cudaStream_t stream, Args... args) {
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
-  cfg.blockDim = dim3(HTHREADS);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -806,28 +1070,39 @@ int launch_hk(void (*kern)(KArgs...), dim3 grid, int cluster_x, size_t smem,
 
 }  // namespace
 
-// x: (N, K) bf16, K a multiple of 128 up to 1024, rows 16-byte aligned;
-// W: (K, V) bf16 in rows of stride ldw (a multiple of 8, >= V; 16-byte
-// aligned); b: (V,) f32; part_m, part_s:
-// (splits, N) f32 scratch; lse: (N,) f32 out. Returns the first
-// cudaGetLastError() that is not cudaSuccess, or cudaSuccess.
-extern "C" int vocab_lse_fwd(const void* x, const void* W, int ldw, const void* b,
-                             void* part_m, void* part_s, void* lse, int N, int K, int V,
-                             int splits, void* stream) {
+// The row lse of x W + b: x (N, K) bf16, K a multiple of 128 up to 1024,
+// rows 16-byte aligned; W (K, V) bf16 in rows of stride ldw (a multiple of
+// 8, >= V; 16-byte aligned); b (V,) f32; lse (N,) f32 out. One launch:
+// blocks of BM rows (`vocab_lse.fwd_tiling`: fwd_bm(K)), each row tile's
+// V sweep split over a cluster of C blocks (1, 2, 4 or 8, no more than V's
+// 64-column tiles). Returns cudaErrorInvalidValue for a shape, BM or C the
+// kernel does not take, else the first launch error or cudaSuccess.
+extern "C" int vocab_lse_fwd(const void* x, const void* W, int ldw, const void* b, void* lse,
+                             int N, int K, int V, int BM, int C, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem = smem_bytes(K, false);
-  int err = set_smem((const void*)vocab_lse_fwd_kernel, smem);
-  if (err) return err;
-  const int n_vt = (V + BV - 1) / BV;
-  const int per = (n_vt + splits - 1) / splits;
-  dim3 grid((N + BR - 1) / BR, splits);
-  vocab_lse_fwd_kernel<<<grid, THREADS, smem, st>>>(
-      (const bf16*)x, (const bf16*)W, ldw, (const float*)b, (float*)part_m, (float*)part_s, N,
-      K, V, per);
-  if ((err = (int)cudaGetLastError())) return err;
-  vocab_lse_combine_kernel<<<(N + 255) / 256, 256, 0, st>>>(
-      (const float*)part_m, (const float*)part_s, (float*)lse, N, splits);
-  return (int)cudaGetLastError();
+  if (N <= 0 || V <= 0 || K <= 0 || K % 128 || K > 1024 || ldw < V || ldw % 8 ||
+      BM != fwd_bm(K) || C < 1 || C > MAX_C || (C & (C - 1)) || C > (V + VT - 1) / VT)
+    return (int)cudaErrorInvalidValue;
+  Maps mp = {};
+  int rc;
+  if ((rc = hop_host::encode_bf16(&mp.x, x, N, K, K, BM)) ||
+      (rc = hop_host::encode_bf16(&mp.w, W, K, V, ldw, 64)))
+    return rc;
+  const dim3 grid(C, (N + BM - 1) / BM);
+  const size_t smem = fwd_smem(K, BM);
+  const float* bf = (const float*)b;
+  float* out = (float*)lse;
+  if (K == 128)
+    return launch_hk(vocab_lse_fwd_kernel<128, 128>, grid, C, HTHREADS, smem, st, mp, bf, out,
+                     N, K, V);
+  if (K == 256)
+    return launch_hk(vocab_lse_fwd_kernel<256, 128>, grid, C, HTHREADS, smem, st, mp, bf, out,
+                     N, K, V);
+  if (BM == 128)
+    return launch_hk(vocab_lse_fwd_kernel<FWD_KC, 128>, grid, C, HTHREADS, smem, st, mp, bf,
+                     out, N, K, V);
+  return launch_hk(vocab_lse_fwd_kernel<FWD_KC, 64>, grid, C, 256, smem, st, mp, bf, out, N, K,
+                   V);
 }
 
 // The gradient of the row lse for g = d loss / d lse (N,) f32: dx (N, K)
@@ -855,7 +1130,7 @@ extern "C" int vocab_lse_dx(const void* x, const void* W, int ldw, const void* b
   }
   if (C < 1 || C > MAX_C || (C & (C - 1)) || C > (V + VT - 1) / VT)
     return (int)cudaErrorInvalidValue;
-  BwdMaps mp = {};
+  Maps mp = {};
   int rc;
   if ((rc = hop_host::encode_bf16(&mp.x, x, N, K, K, DX_BM)) ||
       (rc = hop_host::encode_bf16(&mp.w, W, K, V, ldw, 64)))
@@ -864,10 +1139,10 @@ extern "C" int vocab_lse_dx(const void* x, const void* W, int ldw, const void* b
   const size_t smem = dx_smem(K);
   const float *bf = (const float*)b, *lf = (const float*)lse, *gf = (const float*)g;
   if (K == 128)
-    return launch_hk(vocab_lse_dx_kernel<128>, grid, C, smem, st, mp, bf, lf, gf, (bf16*)dx, N,
-                     V);
-  return launch_hk(vocab_lse_dx_kernel<256>, grid, C, smem, st, mp, bf, lf, gf, (bf16*)dx, N,
-                   V);
+    return launch_hk(vocab_lse_dx_kernel<128>, grid, C, HTHREADS, smem, st, mp, bf, lf, gf,
+                     (bf16*)dx, N, V);
+  return launch_hk(vocab_lse_dx_kernel<256>, grid, C, HTHREADS, smem, st, mp, bf, lf, gf,
+                   (bf16*)dx, N, V);
 }
 
 // dW (K, Vp) f32 and db (Vp,) f32 out, Vp = V rounded up to the kernel's
@@ -891,7 +1166,7 @@ extern "C" int vocab_lse_dw(const void* x, const void* W, int ldw, const void* b
     return (int)cudaGetLastError();
   }
   if (Vp % DW_BV) return (int)cudaErrorInvalidValue;
-  BwdMaps mp = {};
+  Maps mp = {};
   int rc;
   if ((rc = hop_host::encode_bf16(&mp.x, x, N, K, K, DW_BN)) ||
       (rc = hop_host::encode_bf16(&mp.w, W, K, V, ldw, 64)))
@@ -900,8 +1175,8 @@ extern "C" int vocab_lse_dw(const void* x, const void* W, int ldw, const void* b
   const size_t smem = dw_smem(K);
   const float *bf = (const float*)b, *lf = (const float*)lse, *gf = (const float*)g;
   if (K == 128)
-    return launch_hk(vocab_lse_dw_kernel<128>, grid, 1, smem, st, mp, bf, lf, gf, (float*)dw,
-                     (float*)db, N, V, Vp);
-  return launch_hk(vocab_lse_dw_kernel<256>, grid, 1, smem, st, mp, bf, lf, gf, (float*)dw,
-                   (float*)db, N, V, Vp);
+    return launch_hk(vocab_lse_dw_kernel<128>, grid, 1, HTHREADS, smem, st, mp, bf, lf, gf,
+                     (float*)dw, (float*)db, N, V, Vp);
+  return launch_hk(vocab_lse_dw_kernel<256>, grid, 1, HTHREADS, smem, st, mp, bf, lf, gf,
+                   (float*)dw, (float*)db, N, V, Vp);
 }

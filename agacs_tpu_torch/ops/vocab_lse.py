@@ -18,20 +18,31 @@ kernels' arithmetic), on a CUDA tensor it launches K4 or raises: the card
 has no dense-logits fallback. K4 takes bf16 x and w, float32 b, and K a
 multiple of 128 up to 1024; a w whose V is not a multiple of 8 (the
 Whisper vocabulary's 51865) is handed over as a copy with its rows padded,
-for the kernels' 16-byte row stride, made once for both backward passes.
+for the kernels' 16-byte row stride, made once a step: the forward saves
+it for both backward passes.
+
+The forward is one launch of a wgmma kernel fed by TMA at every K: x's
+rows resident (at K <= 256 in registers, as the product's A operand), W
+streamed through a 4-slot ring (whole K x 64 tiles at K <= 256, 64 x 64
+chunks above), S on the tensor cores and an online (max, sum) per row in
+registers; `fwd_tiling` picks the block's rows (128, or 64 where x's 128
+rows do not fit shared memory beside the ring) and splits each row tile's
+V sweep over a cluster of C blocks whose (max, sum) pairs are merged in
+rank order. It replaced a wmma kernel and a combine pass (3.0451 ms at
+the conformer's training shape, (7488, 256) x (256, 51865), on an H100,
+against a bound of 0.2011 ms).
 
 The backward dispatches by K, never by a failure. At K <= 256 (the
 conformer's 256, the tests' 128) dx and dw are wgmma kernels fed by TMA
 that compute z once per (row tile, V tile) and keep dz in registers as the
 A operand of the second product; they replaced wmma kernels that rebuilt z
-once for every 128 output columns (at the conformer's training shape,
-(7488, 256) x (256, 51865), 9.54 and 9.12 ms on an H100 against a bound of
-0.40 ms each). `dx_tiling` splits each 128-row tile's V sweep over a
-cluster of C blocks whose f32 partials are summed in rank order;
-`dw_tiling` gives each block 128 vocabulary columns; the ring depth, 4
-slots, is fixed in the source. Wider K (the whisper family's CTC head, K
-768) keeps the wmma kernels, whose accumulators and x tiles the wgmma
-design cannot hold.
+once for every 128 output columns (at the conformer's training shape 9.54
+and 9.12 ms on an H100 against a bound of 0.40 ms each). `dx_tiling`
+splits each 128-row tile's V sweep over a cluster of C blocks whose f32
+partials are summed in rank order; `dw_tiling` gives each block 128
+vocabulary columns; the ring depth, 4 slots, is fixed in the source. Wider
+K (the whisper family's CTC head, K 768) keeps the wmma kernels, whose
+accumulators and x tiles the wgmma design cannot hold.
 """
 
 from __future__ import annotations
@@ -42,18 +53,51 @@ import torch
 
 from agacs_tpu_torch.ops import cuda_lib
 
-BV = 64  # the forward's (and the wmma backward's) vocabulary tile
+BV = 64  # the wmma backward's vocabulary tile
 FWD_LAUNCHES = 0  # K4 launches since the last reset (chip_smoke.py reads them)
 DX_LAUNCHES = 0
 DW_LAUNCHES = 0
 
-# The wgmma backward's tiling constants (csrc/vocab_lse.cu; the tests read
+# The wgmma kernels' tiling constants (csrc/vocab_lse.cu; the tests read
 # them back from the source).
-HK_MAX = 256      # the widest K it takes; wider K runs the wmma kernels
+HK_MAX = 256      # the widest K of the wgmma backward and of whole W tiles in the forward
 DX_BM = 128       # dx: rows a block owns
 VT = 64           # columns of a streamed W tile
 DW_BV = 128       # dw: vocabulary columns a block owns
-MAX_C = 8         # dx: blocks of a cluster (the portable size)
+MAX_C = 8         # dx, forward: blocks of a cluster (the portable size)
+STAGES = 4        # ring slots
+FWD_KC = 64       # forward: W rows of a ring slot above HK_MAX (64 x 64 chunks)
+SMEM_MAX = 232448  # a block's shared memory on sm_90 (227 KB)
+
+
+def _cluster(tiles: int, v: int, sms: int) -> int:
+    """The blocks C of a cluster that splits each of `tiles` row tiles' V
+    sweep: the largest of 1, 2, 4, 8 with C x tiles no more than the SMs
+    and C no more than V's 64-column tiles."""
+    n_vt, c = -(-v // VT), 1
+    while 2 * c <= MAX_C and 2 * c <= n_vt and 2 * c * tiles <= sms:
+        c *= 2
+    return c
+
+
+def fwd_smem(k: int, bm: int) -> int:
+    """The forward's shared memory at K and BM rows a block (the source's
+    `fwd_smem`): alignment slack, x (BM x K bf16), the ring (STAGES slots
+    of K or FWD_KC W rows x 64 bf16), the bias strips and the barriers."""
+    kc = k if k <= HK_MAX else FWD_KC
+    return 1024 + bm * k * 2 + STAGES * kc * 128 + STAGES * VT * 4 + (1 + 2 * STAGES) * 8
+
+
+def fwd_tiling(n: int, k: int, v: int, sms: int) -> dict:
+    """K4's forward: its route ("tiles": whole K x 64 W tiles and two S
+    buffers at K <= 256; "chunks": 64 x 64 chunks above), the rows BM of a
+    block (128, or 64 where x's 128 rows do not fit beside the ring) and
+    the cluster size C that splits each row tile's V sweep: the largest of
+    1, 2, 4, 8 with no more blocks than SMs and no more ranks than V's
+    64-column tiles (`_cluster`, dx's rule)."""
+    bm = DX_BM if fwd_smem(k, DX_BM) <= SMEM_MAX else 64
+    return {"route": "tiles" if k <= HK_MAX else "chunks", "BM": bm,
+            "C": _cluster(-(-n // bm), v, sms)}
 
 
 def dx_tiling(n: int, k: int, v: int, sms: int) -> dict:
@@ -63,11 +107,7 @@ def dx_tiling(n: int, k: int, v: int, sms: int) -> dict:
     above, the wmma kernel (C 1)."""
     if k > HK_MAX:
         return {"route": "wmma", "C": 1}
-    tiles, n_vt = -(-n // DX_BM), -(-v // VT)
-    c = 1
-    while 2 * c <= MAX_C and 2 * c <= n_vt and 2 * c * tiles <= sms:
-        c *= 2
-    return {"route": "wgmma", "C": c}
+    return {"route": "wgmma", "C": _cluster(-(-n // DX_BM), v, sms)}
 
 
 def dw_tiling(k: int) -> dict:
@@ -125,21 +165,19 @@ def _rows8(w: torch.Tensor) -> torch.Tensor:
     return w if v % 8 == 0 else torch.nn.functional.pad(w, (0, 8 - v % 8))
 
 
-def _launch_fwd(x, w, b) -> torch.Tensor:
+def _launch_fwd(x, w, b, wp=None) -> torch.Tensor:
+    """K4's forward: lse (N,) float32. wp as for `_launch_dx`."""
     _check(x, w, b)
     n, k = x.shape
     v = w.shape[1]
-    n_vt = -(-v // BV)
-    row_tiles = -(-n // 64)
-    splits = max(1, min(n_vt, -(-4 * _sms(x) // row_tiles)))  # ~4 blocks an SM
-    part = torch.empty(2, splits, n, device=x.device)
+    tiling = fwd_tiling(n, k, v, _sms(x))
     lse = torch.empty(n, device=x.device)
-    wp = _rows8(w)
+    wp = _rows8(w) if wp is None else wp
     fn = cuda_lib.load("vocab_lse", "vocab_lse_fwd",
-                       [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
-                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    rc = fn(x.data_ptr(), wp.data_ptr(), wp.shape[1], b.data_ptr(), part[0].data_ptr(),
-            part[1].data_ptr(), lse.data_ptr(), n, k, v, splits, _stream(x))
+                       [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2
+                       + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    rc = fn(x.data_ptr(), wp.data_ptr(), wp.shape[1], b.data_ptr(), lse.data_ptr(), n, k, v,
+            tiling["BM"], tiling["C"], _stream(x))
     cuda_lib.check(rc, "vocab_lse_fwd")
     global FWD_LAUNCHES
     FWD_LAUNCHES += 1
@@ -190,17 +228,20 @@ def _launch_dw(x, w, b, lse, g, wp=None) -> tuple[torch.Tensor, torch.Tensor]:
 class _StreamingLSE(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, b):
-        lse = lse_plain(x, w, b) if x.device.type == "cpu" else _launch_fwd(x, w, b)
-        ctx.save_for_backward(x, w, b, lse)
+        if x.device.type == "cpu":
+            lse, wp = lse_plain(x, w, b), w
+        else:
+            wp = _rows8(w)  # one padded copy a step, for the forward and both backward passes
+            lse = _launch_fwd(x, w, b, wp)
+        ctx.save_for_backward(x, w, b, lse, wp)
         return lse
 
     @staticmethod
     def backward(ctx, g):
-        x, w, b, lse = ctx.saved_tensors
+        x, w, b, lse, wp = ctx.saved_tensors
         if x.device.type == "cpu":
             return lse_bwd_plain(x, w, b, lse, g)
         g = g.float().contiguous()
-        wp = _rows8(w)
         return (_launch_dx(x, w, b, lse, g, wp), *_launch_dw(x, w, b, lse, g, wp))
 
 

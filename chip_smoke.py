@@ -84,10 +84,14 @@ non-zero exit:
      gradient timed beside;
   2v. K4 (csrc/vocab_lse.cu: forward, dx, dw) against its plain version at
      the CTC head's (7488, 256) x (256, 51865) and the ragged (700, 256) x
-     (256, 5000), (300, 128) x (128, 1001) and (700, 768) x (768, 5000)
-     (dx and dw: the wgmma kernels at K <= 256, the wmma ones above), with
-     b, lse and g NaN past their ends and dx and dw bit-identical on a
-     second run; cuBLAS with the logits materialised timed beside;
+     (256, 5000), (300, 128) x (128, 1001), (700, 768) x (768, 5000),
+     (300, 1024) x (1024, 1001) and (60, 128) x (128, 500) (one V tile a
+     rank) (the forward: whole W tiles at K <= 256,
+     64 x 64 chunks above; dx and dw: the wgmma kernels at K <= 256, the
+     wmma ones above), with b, lse and g NaN past their ends and lse, dx
+     and dw bit-identical on a second run; cuBLAS with the logits
+     materialised timed beside, at the training shape and at the whisper
+     CTC head's (12000, 768) x (768, 51865);
   3f. K3-f32 (decode_attn.cu, float32 caches) against its plain version at
      the LM's beam shape (80, 112, 512), 8 heads, pos 103, within 1e-4;
   2w. K6 (csrc/w8a16.cu, the W8A16 thin-row matmul) against its plain
@@ -1503,13 +1507,18 @@ def check_k5_bwd(dev, g, timed=True) -> dict:
 # K4 against its plain version (float32 on the same bf16 x and W): the
 # conformer's training shape (16 x 468 rows, d 256, the Whisper vocabulary)
 # and ragged ones (rows not a multiple of 64, V not a multiple of 64) at K
-# 256, at K 128 (V not a multiple of 8 either: W's rows padded) and at K
-# 768 (the wmma backward, which the wrapper takes above K 256). lse
-# within K4_LSE_RTOL relative per row, |lse| floored at 1 nat (float32 sums
-# of exps in another order); dx
-# and dW within KERNEL_RTOL x max |plain| (bf16 dz, bf16 outputs); db within
-# K4_DB_RTOL x max |plain| (float32 column sums).
-K4_SHAPES = ((7488, 256, 51865), (700, 256, 5000), (300, 128, 1001), (700, 768, 5000))
+# 256, at K 128 (V not a multiple of 8 either: W's rows padded), at K 768
+# (the forward's 64 x 64 chunks on 128-row blocks; the wmma backward, which
+# the wrapper takes above K 256), at K 1024 (the forward's 64-row blocks)
+# and at V 500 (8 V tiles on a cluster of 8: one tile a rank, so the
+# forward's last tile is its first). lse within K4_LSE_RTOL relative per
+# row, |lse| floored at 1 nat (float32 sums of exps in another order); dx
+# and dW within KERNEL_RTOL x max |plain| (bf16 dz, bf16 outputs); db
+# within K4_DB_RTOL x max |plain| (float32 column sums). K4_WIDE: the whisper CTC head's shape (K 768,
+# 12000 rows: 8 x 15 s at 750 frames x 2), timed only.
+K4_SHAPES = ((7488, 256, 51865), (700, 256, 5000), (300, 128, 1001), (700, 768, 5000),
+             (300, 1024, 1001), (60, 128, 500))
+K4_WIDE = (12000, 768, 51865)
 K4_LSE_RTOL, K4_DB_RTOL = 1e-4, 1e-4
 
 
@@ -1546,11 +1555,50 @@ def k4_lib(x, w, b, lse=None, g=None, part="fwd"):
     return torch.mm(x.t(), dz.to(x.dtype)), dz.sum(0)
 
 
+def k4_times(g, dev, shape, gr, n_sets: int, iters: dict, line: str) -> tuple[dict, str]:
+    """K4's forward, dx and dw timed at `shape` (the padded W handed in,
+    as the step hands it over), each beside its plain version (bf16
+    inputs), its cuBLAS yardstick (k4_lib) and its bound; W's padding copy
+    timed alone and added to the forward's time ("kernel + copy", the
+    wrapper's cost when no copy is handed in). `n_sets` sets of inputs
+    (larger than the L2 together); `iters`: the kernels' calls by part.
+    Returns ({part: results}, line extended)."""
+    from agacs_tpu_torch.ops import vocab_lse
+
+    n, k, v = shape
+    res = {}
+    sets = [k4_inputs(g, dev, n, k, v)[:3] for _ in range(n_sets)]
+    bw = [(*s, vocab_lse.lse_plain(*s), gr, vocab_lse._rows8(s[1])) for s in sets]
+    pad_ms = cuda_ms(lambda *a: vocab_lse._rows8(a[1]), bw, 20)
+    io = n * k * 2 + k * v * 2 + v * 4
+    ops = 2 * n * k * v
+    for part, kern, plain, lib_fn, nbytes, nops in (
+            ("fwd", lambda *a: vocab_lse._launch_fwd(*a[:3], wp=a[5]),
+             lambda *a: vocab_lse.lse_plain(*a[:3]), lambda *a: k4_lib(*a[:3]), io + n * 4, ops),
+            ("dx", lambda *a: vocab_lse._launch_dx(*a[:5], wp=a[5]),
+             lambda *a: vocab_lse.lse_bwd_plain(*a[:5])[0],
+             lambda *a: k4_lib(*a[:5], part="dx"), io + 8 * n + n * k * 2, 2 * ops),
+            ("dw", lambda *a: vocab_lse._launch_dw(*a[:5], wp=a[5]),
+             lambda *a: vocab_lse.lse_bwd_plain(*a[:5])[1:],
+             lambda *a: k4_lib(*a[:5], part="dw"), io + 8 * n + k * v * 2 + v * 4, 2 * ops)):
+        ms = cuda_ms(kern, bw, iters[part])
+        plain_ms = cuda_ms(plain, bw, min(3, iters[part]))
+        lib = cuda_ms(lib_fn, bw, min(3, iters[part]))
+        res[part] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib,
+                     **roofline(nbytes, nops, "bf16")}
+        line += (f"; {part} kernel {ms:.4f} ms plain {plain_ms:.4f} ms cuBLAS+logits "
+                 f"{lib:.4f} ms bound {res[part]['bound_ms']:.4f} ms")
+        if part == "fwd":
+            line += f" (kernel + W's padding copy {ms + pad_ms:.4f} ms)"
+    return res, line + f"; W's rows padded (once a step) {pad_ms:.4f} ms"
+
+
 def check_k4(dev, g, timed=True) -> dict:
     """Phase 2v: K4's forward, dx and dw (csrc/vocab_lse.cu) against their
-    plain versions at K4_SHAPES. Times at the training shape: each kernel,
-    its plain version (bf16 inputs) and its cuBLAS yardstick (k4_lib).
-    Returns {"fwd", "dx", "dw"} results."""
+    plain versions at K4_SHAPES; when timed, their times at the training
+    shape and at K4_WIDE (`k4_times`), where the forward is also held
+    against its plain version. Returns {"fwd", "dx", "dw"} results at the
+    training shape."""
     from agacs_tpu_torch.ops import vocab_lse
 
     res = {part: {"err": 0.0} for part in ("fwd", "dx", "dw")}
@@ -1561,8 +1609,9 @@ def check_k4(dev, g, timed=True) -> dict:
         lse = poisoned(vocab_lse._launch_fwd(x, w, b))
         dx = vocab_lse._launch_dx(x, w, b, lse, gr)
         dw, db = vocab_lse._launch_dw(x, w, b, lse, gr)
-        # a second run, bit-identical: the cluster's partials are summed in
-        # rank order and nothing is added atomically
+        # a second run, bit-identical: the cluster's pairs and partials are
+        # merged in rank order and nothing is added atomically
+        lse2 = vocab_lse._launch_fwd(x, w, b)
         dx2 = vocab_lse._launch_dx(x, w, b, lse, gr)
         dw2, db2 = vocab_lse._launch_dw(x, w, b, lse, gr)
         lse_p = vocab_lse.lse_plain(x.float(), w.float(), b)
@@ -1585,46 +1634,41 @@ def check_k4(dev, g, timed=True) -> dict:
                   f"K4 {name} ({n}, {k}) x ({k}, {v}): finite, max_abs_err {err} <= {bound}")
             errs[name] = err
             res[part]["err"] = max(res[part]["err"], err)
-        check(torch.equal(dx, dx2) and torch.equal(dw, dw2) and torch.equal(db, db2),
-              f"K4 dx and dw ({n}, {k}) x ({k}, {v}): a second run bit-identical")
-        del dx2, dw2, db2
+        check(torch.equal(lse, lse2) and torch.equal(dx, dx2) and torch.equal(dw, dw2)
+              and torch.equal(db, db2),
+              f"K4 lse, dx and dw ({n}, {k}) x ({k}, {v}): a second run bit-identical")
+        del lse2, dx2, dw2, db2
+        tf = vocab_lse.fwd_tiling(n, k, v, sms)
         tx, tw = vocab_lse.dx_tiling(n, k, v, sms), vocab_lse.dw_tiling(k)
         line = (f"phase 2v K4 vocab_lse ({n}, {k}) x ({k}, {v}): max_abs_err "
                 + ", ".join(f"{nm} {e:.3e}" for nm, e in errs.items())
                 + f" (bounds lse {K4_LSE_RTOL} relative, dx/dW {KERNEL_RTOL} and db "
                 f"{K4_DB_RTOL} x max|plain f32|), all finite; b, lse and g NaN past their "
-                f"ends; dx and dw bit-identical on a second run; backward {tx['route']} (dx "
+                f"ends; lse, dx and dw bit-identical on a second run; forward "
+                f"{tf['route']} (BM {tf['BM']}, C {tf['C']}); backward {tx['route']} (dx "
                 f"C {tx['C']}; dw block {tw['BV']} columns)")
         if timed and (n, k, v) == K4_SHAPES[0]:
-            sets = [(x, w, b)] + [k4_inputs(g, dev, n, k, v)[:3] for _ in range(1)]
-            # (x, w, b, lse, g, w padded): the backward pads W once for both
-            # passes (_rows8), so the kernels are timed without the copy,
-            # whose time is printed beside them
-            bw = [(*s, vocab_lse.lse_plain(*s), gr, vocab_lse._rows8(s[1])) for s in sets]
-            pad_ms = cuda_ms(lambda *a: vocab_lse._rows8(a[1]), bw, 20)
-            io = n * k * 2 + k * v * 2 + v * 4
-            ops = 2 * n * k * v
-            for part, kern, plain, lib_fn, nbytes, nops, it in (
-                    ("fwd", lambda *a: vocab_lse._launch_fwd(*a[:3]),
-                     lambda *a: vocab_lse.lse_plain(*a[:3]), lambda *a: k4_lib(*a[:3]),
-                     io + n * 4, ops, 10),
-                    ("dx", lambda *a: vocab_lse._launch_dx(*a[:5], wp=a[5]),
-                     lambda *a: vocab_lse.lse_bwd_plain(*a[:5])[0],
-                     lambda *a: k4_lib(*a[:5], part="dx"), io + 8 * n + n * k * 2, 2 * ops, 20),
-                    ("dw", lambda *a: vocab_lse._launch_dw(*a[:5], wp=a[5]),
-                     lambda *a: vocab_lse.lse_bwd_plain(*a[:5])[1:],
-                     lambda *a: k4_lib(*a[:5], part="dw"), io + 8 * n + k * v * 2 + v * 4,
-                     2 * ops, 20)):
-                ms = cuda_ms(kern, bw, it)
-                plain_ms = cuda_ms(plain, bw, 3)
-                lib = cuda_ms(lib_fn, bw, 3)
-                res[part].update(ms=ms, plain_ms=plain_ms, library_ms=lib,
-                                 **roofline(nbytes, nops, "bf16"))
-                line += (f"; {part} kernel {ms:.4f} ms plain {plain_ms:.4f} ms cuBLAS+logits "
-                         f"{lib:.4f} ms bound {res[part]['bound_ms']:.4f} ms")
-            line += f"; W's rows padded (once a backward) {pad_ms:.4f} ms"
-            del sets, bw
+            times, line = k4_times(g, dev, (n, k, v), gr, 2, {"fwd": 10, "dx": 20, "dw": 20},
+                                   line)
+            for part in res:
+                res[part].update(times[part])
         print(line, flush=True)
+        torch.cuda.empty_cache()
+    if timed:  # the whisper CTC head: PR 7's wmma backward, a few calls
+        n, k, v = K4_WIDE
+        x, w, b, gr = k4_inputs(g, dev, n, k, v)
+        lse_p = vocab_lse.lse_plain(x, w, b)
+        diff = (vocab_lse._launch_fwd(x, w, poisoned(b)) - lse_p).abs()
+        check(bool((diff <= K4_LSE_RTOL * lse_p.abs().clamp(min=1.0)).all()),
+              f"K4 lse {K4_WIDE}: finite, within {K4_LSE_RTOL} relative per row")
+        tf = vocab_lse.fwd_tiling(n, k, v, sms)
+        _, line = k4_times(g, dev, K4_WIDE, gr, 1, {"fwd": 3, "dx": 2, "dw": 2},
+                           f"phase 2v K4 vocab_lse {K4_WIDE} (the whisper CTC head): lse "
+                           f"max_abs_err {diff.max().item():.3e}; forward {tf['route']} (BM "
+                           f"{tf['BM']}, C {tf['C']}); backward "
+                           f"{vocab_lse.dx_tiling(n, k, v, sms)['route']}")
+        print(line, flush=True)
+        del x, w, b, gr, lse_p, diff
         torch.cuda.empty_cache()
     return res
 
@@ -3397,7 +3441,7 @@ def conformer_train_phase(dev) -> dict:
           f"events; idle {1 - busy / ms:.1%} of phase 29's {ms:.1f} ms/step; K5 fwd "
           f"{share('relpos_flash_fwd')}, K5 bwd "
           f"{share('relpos_dkdv', 'relpos_dq', 'relpos_rowdot')}, K4 fwd "
-          f"{share('vocab_lse_fwd', 'vocab_lse_combine')}, K4 dx {share('vocab_lse_dx')}, "
+          f"{share('vocab_lse_fwd')}, K4 dx {share('vocab_lse_dx')}, "
           f"K4 dw {share('vocab_lse_dw')}; top: " + top_kernels(per_name), flush=True)
     del model, opt, step, before, params
     torch.cuda.empty_cache()
@@ -3617,10 +3661,25 @@ MUTANTS = {
                              "const int n_q_tiles = T / BS;")], ("k5b",)),
     "K5 bwd dq with the key tail unmasked": (
         "relpos_flash.cu", [("if (k0 + c + e >= T) x[e] = -INFINITY;", "")], ("k5b",)),
+    # The forward's strip gives the columns from V on (zero W columns, so
+    # S 0) a bias of 0 instead of -inf: every real logit is below 0 in the
+    # check, so they dominate the lse.
     "K4 padded columns unmasked": (
-        "vocab_lse.cu", [("z_w[r * ZLD + c] = col < V ? z_w[r * ZLD + c] + bias[col] : -INFINITY;",
-                          "z_w[r * ZLD + c] = z_w[r * ZLD + c] + (col < V ? bias[col] : 0.f);")],
+        "vocab_lse.cu", [("strip[p.s * VT + j] = v0 + j < V ? bias[v0 + j] * LOG2E : -INFINITY;",
+                          "strip[p.s * VT + j] = v0 + j < V ? bias[v0 + j] * LOG2E : 0.f;")],
         ("k4",)),
+    "K4 forward V tail unmasked (b read past V)": (
+        "vocab_lse.cu", [("strip[p.s * VT + j] = v0 + j < V ? bias[v0 + j] * LOG2E : -INFINITY;",
+                          "strip[p.s * VT + j] = bias[v0 + j] * LOG2E;")], ("k4",)),
+    "K4 forward: the running sum not rescaled when m grows": (
+        "vocab_lse.cu", [("if (xa > ma) sa *= hop::ex2(ma - xa), ma = xa;",
+                          "if (xa > ma) ma = xa;"),
+                         ("if (xb > mb) sb *= hop::ex2(mb - xb), mb = xb;",
+                          "if (xb > mb) mb = xb;")],
+        ("k4",)),
+    "K4 forward split: the last rank's pair left out of the merge": (
+        "vocab_lse.cu", [("if (src < C) sum += sr[src] * hop::ex2(mr[src] - m);",
+                          "if (src < C - 1) sum += sr[src] * hop::ex2(mr[src] - m);")], ("k4",)),
     "K4 dx without g": (
         "vocab_lse.cu", [("const float ga = ra < N ? g[ra] : 0.f, gb = rb < N ? g[rb] : 0.f;",
                           "const float ga = ra < N ? 1.f : 0.f, gb = rb < N ? 1.f : 0.f;")],
@@ -3805,6 +3864,10 @@ MUTANTS = {
     "K4 ring: dx reads a W slot one phase early": (
         "vocab_lse.cu", [("hop::mbar_wait(&full[s1], ph1);",
                           "hop::mbar_wait(&full[s1], ph1 ^ 1);")],
+        ("k4",)),
+    "K4 ring: the forward reads a W slot one phase early": (
+        "vocab_lse.cu", [("if (more) hop::mbar_wait(&full[q.s], q.ph);",
+                          "if (more) hop::mbar_wait(&full[q.s], q.ph ^ 1);")],
         ("k4",)),
     "K2 ring: a slot read one phase early": (
         "int8_mlp.cu", [("hop::mbar_wait(&R.full[cur.s], cur.ph);",
