@@ -91,6 +91,42 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
     if (clock64() - t0 > (1LL << 34)) __trap();
 }
 
+// ---- mbarriers across a cluster ------------------------------------------
+//
+// A block's barrier that other blocks of its cluster arrive on: the arrival
+// releases, at cluster scope, the arriving thread's earlier writes (and those
+// ordered before them, e.g. its warp's, by a __syncwarp), and the wait
+// acquires them, so that after it the block reads what the others wrote into
+// its shared memory, or into their own, through distributed shared memory.
+
+// One arrival on the barrier at `bar`'s place in the shared memory of the
+// cluster's block `rank` (this block's own when rank is its own).
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t rank) {
+  asm volatile(
+      "{\n.reg .b32 ra;\nmapa.shared::cluster.u32 ra, %0, %1;\n"
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [ra];\n}\n" ::"r"(smem_u32(bar)),
+      "r"(rank) : "memory");
+}
+
+__device__ __forceinline__ uint32_t mbar_try_wait_cluster(uint32_t addr, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+  return done;
+}
+
+// As mbar_wait, acquiring at cluster scope what the arrivals released.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  if (mbar_try_wait_cluster(addr, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait_cluster(addr, parity))
+    if (clock64() - t0 > (1LL << 34)) __trap();
+}
+
 // ---- TMA -----------------------------------------------------------------
 
 // Load the box of `map` at (column c0, row c1, batch c2) into dst; its

@@ -98,250 +98,64 @@
 //   it does neither. Splitting the accumulator into two of 64, packing P
 //   into a second buffer, or 240 registers did not help.
 //
-// Backward at K > 256 (wmma; `vocab_lse_dx_wmma_kernel`,
-// `vocab_lse_dw_wmma_kernel`): the accumulator of 64 x K does not fit the
-// registers, and x's 128 rows do not fit shared memory beside a ring, so
-// the earlier design stays for those widths (only the whisper family's CTC
-// head, K 768, takes it; no shipped recipe trains that head): grid (row
-// tiles or V tiles, K / 128), each block recomputing z for its 128 columns
-// of dx or rows of dW, with the column sums of the f32 dz for db in the
-// first column block. The C entries dispatch by K, and the tiling rules
+// Backward above K 256 (the whisper family's CTC head: K 384, 512, 768,
+// 1024; `vocab_lse_split_kernel<DW, XCH>`, one template for dx and dw). A
+// warpgroup's 64 x K f32 accumulator does not fit its registers there (384
+// a thread at K 768) and x's 128 rows take 192 KB, so the K-wide
+// accumulator is split over a thread-block cluster: C = K / KS ranks (KS
+// 128: C 3 to 8, the portable size at K 1024) work on one output tile (dx:
+// 128 rows, dw: 128 vocabulary columns; two consumer warpgroups of 64), and
+// rank r owns the K-slice [r KS, (r + 1) KS) of the accumulator and of the
+// resident operand (dx: x's slice of the row tile; dw: W's slice of the
+// column block; TMA). Each rank streams its slice of the other operand
+// through its own 4-slot TMA ring (dx: W's KS x 64 tiles with their bias
+// strips; dw: x's 64 x KS tiles with their lse and g strips), a producer
+// warpgroup handing its registers to the consumers (setmaxnreg) as at K <=
+// 256: every element is read from L2 by one rank, once per output tile,
+// and no rank rebuilds z. Per tile a warpgroup computes its partial S_r
+// over the slice on wgmma m64n64k16 (`issue_s`, `issue_st`), writes it into
+// its own shared memory (two slots; a thread's 32 values as 8 float4,
+// swizzled by the thread's index so that a warp's stores fill every bank)
+// and arrives on every rank's barrier for that slot (mapa + a remote
+// mbarrier arrival, released at cluster scope; `hopper.cuh`). The exchange
+// (XCH) then gives every rank the same S, the C partials added in rank
+// order, with no atomics, bit-identical from run to run:
+//   GATHER: each thread reads its 32 values from every rank's partial
+//     through distributed shared memory and adds them; every rank then
+//     takes dz of the whole tile in registers ((C - 1) x 32 KB read and C x
+//     the exps a tile);
+//   SCATTER: rank r takes quads [r 32 / C, (r + 1) 32 / C) of the
+//     warpgroup's 32 (a quad: the 4 threads that hold rows a, a + 8), adds
+//     the C partials of those in rank order, takes their dz and stores the
+//     packed bf16 pairs into every rank's P (two slots), then arrives on
+//     every rank's second barrier; each thread loads its own packed P after
+//     that barrier ((C - 1) / C x 48 KB moved a tile). The product of P lags
+//     its exchange by a tile, so the second barrier completes under a
+//     tile's work.
+// A rank arrives for tile t + 2 only after it has seen every rank's
+// arrival for tile t + 1, which each made after reading tile t, so the
+// double-buffered slots need no release barrier. P (dx) or dz^T (dw) then
+// is the register A operand of dX[:, slice] += P W_slice^T or dW^T[:,
+// slice] += dz^T X_slice (wgmma m64n128k16, on the tile still in the
+// ring). dx stores its bf16 slice directly (ranks own distinct columns); dw
+// stores dW^T transposed into dW (K, Vp) rows [r KS, (r + 1) KS), and db,
+// from the f32 dz, comes from one rank per column (GATHER: rank 0;
+// SCATTER: the rank that owns the column's quad). Rows >= N and columns >=
+// V are masked by index (lse log2 e +inf and g 0; the bias -inf). Shared
+// memory: 200,840 bytes at every K (`split_smem`); registers of a consumer
+// thread: the accumulator KS / 2 = 64, S 32, packed P 16 (GATHER also the
+// summed S, 32). The C entries dispatch by K, and the tiling rules
 // `vocab_lse.dx_tiling` / `dw_tiling` mirror them.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "hopper.cuh"
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
-
-namespace {
-
-constexpr int BR = 64;      // rows per tile
-constexpr int BV = 64;      // vocabulary columns per tile
-constexpr int KC = 64;      // depth of one streamed W chunk
-constexpr int CK = 128;     // dx columns / dW rows per block
-constexpr int WARPS = 4;    // each warp owns 16 rows (or 32 dW rows)
-constexpr int THREADS = WARPS * 32;
-constexpr int ZLD = BV + 4;  // f32 z-row stride
-constexpr int WLD = BV + 8;  // bf16 W-chunk and dz-row stride
-
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
-
-// Shared memory: the x tile (64 x (K+8) bf16), a W chunk (64 x WLD bf16),
-// the z tile (64 x ZLD f32), the dz tile (64 x WLD bf16), and, for dx, the
-// W slice of the block's dx columns (128 x WLD bf16).
-__host__ __device__ inline size_t x_bytes(int K) { return (size_t)BR * (K + 8) * 2; }
-constexpr size_t W_BYTES = (size_t)KC * WLD * 2;
-constexpr size_t Z_BYTES = (size_t)BR * ZLD * 4;
-constexpr size_t DZ_BYTES = (size_t)BR * WLD * 2;
-constexpr size_t WC_BYTES = (size_t)CK * WLD * 2;
-
-struct Bufs {
-  bf16* x;
-  bf16* w;
-  float* z;
-  bf16* dz;
-  bf16* wc;
-};
-
-__device__ __forceinline__ Bufs carve(unsigned char* raw, int K) {
-  Bufs s;
-  s.x = reinterpret_cast<bf16*>(raw);
-  s.w = reinterpret_cast<bf16*>(raw + x_bytes(K));
-  s.z = reinterpret_cast<float*>(raw + x_bytes(K) + W_BYTES);
-  s.dz = reinterpret_cast<bf16*>(raw + x_bytes(K) + W_BYTES + Z_BYTES);
-  s.wc = reinterpret_cast<bf16*>(raw + x_bytes(K) + W_BYTES + Z_BYTES + DZ_BYTES);
-  return s;
-}
-
-// x rows [r0, r0 + 64) (rows >= N zero) into the (64, K+8) tile.
-__device__ __forceinline__ void load_x(bf16* xs, const bf16* x, int r0, int N, int K) {
-  const int xld = K + 8, vecs = K / 8;
-  for (int i = threadIdx.x; i < BR * vecs; i += THREADS) {
-    const int r = i / vecs, c = (i % vecs) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < N) val = *reinterpret_cast<const uint4*>(x + (size_t)(r0 + r) * K + c);
-    *reinterpret_cast<uint4*>(xs + r * xld + c) = val;
-  }
-}
-
-// W[k0 : k0 + rows, v0 : v0 + 64] into dst (rows x WLD) from rows of
-// stride ldw (a multiple of 8); columns >= ldw read as zero (columns from
-// V on are masked later by index).
-__device__ __forceinline__ void load_w(bf16* dst, const bf16* W, int ldw, int k0, int rows,
-                                       int v0) {
-  for (int i = threadIdx.x; i < rows * (BV / 8); i += THREADS) {
-    const int r = i / (BV / 8), c = (i % (BV / 8)) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (v0 + c < ldw) val = *reinterpret_cast<const uint4*>(W + (size_t)(k0 + r) * ldw + v0 + c);
-    *reinterpret_cast<uint4*>(dst + r * WLD + c) = val;
-  }
-}
-
-// The z tile of the block's x tile and vocabulary columns [v0, v0 + 64):
-// each warp writes its 16 rows of z (f32, stride ZLD), plus the bias, and
-// -inf in columns >= V. Starts and ends with a block barrier.
-__device__ __forceinline__ void z_tile(const Bufs& s, const bf16* W, int ldw,
-                                       const float* bias, int K, int V, int v0) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, xld = K + 8;
-  Acc acc[4];
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) wmma::fill_fragment(acc[nt], 0.f);
-  for (int k0 = 0; k0 < K; k0 += KC) {
-    __syncthreads();  // the previous chunk's readers are done
-    load_w(s.w, W, ldw, k0, KC, v0);
-    __syncthreads();
-#pragma unroll
-    for (int kt = 0; kt < KC / 16; ++kt) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
-      wmma::load_matrix_sync(af, s.x + warp * 16 * xld + k0 + kt * 16, xld);
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr;
-        wmma::load_matrix_sync(bfr, s.w + kt * 16 * WLD + nt * 16, WLD);
-        wmma::mma_sync(acc[nt], af, bfr, acc[nt]);
-      }
-    }
-  }
-  float* z_w = s.z + warp * 16 * ZLD;
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt)
-    wmma::store_matrix_sync(z_w + nt * 16, acc[nt], ZLD, wmma::mem_row_major);
-  __syncwarp();
-  for (int i = lane; i < 16 * BV; i += 32) {
-    const int r = i / BV, c = i % BV, col = v0 + c;
-    z_w[r * ZLD + c] = col < V ? z_w[r * ZLD + c] + bias[col] : -INFINITY;
-  }
-  __syncthreads();
-}
-
-// dz = exp(z - lse) * g over the z tile (0 in columns >= V and rows >= N;
-// g null: 1): bf16 into s.dz; with keep_f32 also f32 back into s.z.
-__device__ __forceinline__ void dz_tile(const Bufs& s, const float* lse, const float* g,
-                                        int r0, int N, bool keep_f32) {
-  for (int i = threadIdx.x; i < BR * BV; i += THREADS) {
-    const int r = i / BV, c = i % BV, row = r0 + r;
-    const float zv = s.z[r * ZLD + c];
-    const float d = (row < N && zv != -INFINITY)
-                        ? expf(zv - lse[row]) * (g != nullptr ? g[row] : 1.f) : 0.f;
-    s.dz[r * WLD + c] = __float2bfloat16(d);
-    if (keep_f32) s.z[r * ZLD + c] = d;
-  }
-  __syncthreads();
-}
-
-__global__ void __launch_bounds__(THREADS)
-vocab_lse_dx_wmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ W, int ldw,
-                    const float* __restrict__ bias, const float* __restrict__ lse,
-                    const float* __restrict__ g, bf16* __restrict__ dx, int N, int K, int V) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const Bufs s = carve(smem_raw, K);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r0 = blockIdx.x * BR, kc = blockIdx.y * CK;
-  load_x(s.x, x, r0, N, K);
-
-  Acc acc[CK / 16];  // the warp's 16 rows x 128 columns of dx
-#pragma unroll
-  for (int nt = 0; nt < CK / 16; ++nt) wmma::fill_fragment(acc[nt], 0.f);
-  for (int v0 = 0; v0 < V; v0 += BV) {
-    z_tile(s, W, ldw, bias, K, V, v0);
-    load_w(s.wc, W, ldw, kc, CK, v0);
-    dz_tile(s, lse, g, r0, N, false);
-    // acc += dz (16 rows x 64 v) . W[kc:kc+128, v0:v0+64]^T (64 v x 128)
-#pragma unroll
-    for (int kt = 0; kt < BV / 16; ++kt) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
-      wmma::load_matrix_sync(af, s.dz + warp * 16 * WLD + kt * 16, WLD);
-#pragma unroll
-      for (int nt = 0; nt < CK / 16; ++nt) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bfr;
-        wmma::load_matrix_sync(bfr, s.wc + nt * 16 * WLD + kt * 16, WLD);
-        wmma::mma_sync(acc[nt], af, bfr, acc[nt]);
-      }
-    }
-  }
-  // write the warp's rows through its z rows, 64 columns at a time
-  float* z_w = s.z + warp * 16 * ZLD;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    __syncwarp();
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-      wmma::store_matrix_sync(z_w + nt * 16, acc[half * 4 + nt], ZLD, wmma::mem_row_major);
-    __syncwarp();
-    for (int i = lane; i < 16 * 64; i += 32) {
-      const int r = i / 64, c = i % 64, row = r0 + warp * 16 + r;
-      if (row < N) dx[(size_t)row * K + kc + half * 64 + c] = __float2bfloat16(z_w[r * ZLD + c]);
-    }
-  }
-}
-
-__global__ void __launch_bounds__(THREADS)
-vocab_lse_dw_wmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ W, int ldw,
-                    const float* __restrict__ bias, const float* __restrict__ lse,
-                    const float* __restrict__ g, float* __restrict__ dw,
-                    float* __restrict__ db, int N, int K, int V, int Vp) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const Bufs s = carve(smem_raw, K);
-  const int warp = threadIdx.x >> 5, tid = threadIdx.x;
-  const int v0 = blockIdx.x * BV, kc = blockIdx.y * CK, xld = K + 8;
-  const bool with_db = blockIdx.y == 0;
-
-  Acc acc[2][4];  // the warp's 32 dW rows (kc + 32w ..) x 64 columns
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) wmma::fill_fragment(acc[i][nt], 0.f);
-  float db_acc = 0.f;  // column tid's sum (tid < 64)
-  for (int r0 = 0; r0 < N; r0 += BR) {
-    __syncthreads();  // the previous row tile's readers of x are done
-    load_x(s.x, x, r0, N, K);
-    z_tile(s, W, ldw, bias, K, V, v0);
-    dz_tile(s, lse, g, r0, N, with_db);
-    if (with_db && tid < BV) {
-      for (int r = 0; r < BR; ++r) db_acc += s.z[r * ZLD + tid];
-    }
-    // acc += x[:, kc + 32w + 16i ..]^T (16 x 64 rows) . dz (64 rows x 64 v)
-#pragma unroll
-    for (int kt = 0; kt < BR / 16; ++kt) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> af;
-        wmma::load_matrix_sync(af, s.x + kt * 16 * xld + kc + warp * 32 + i * 16, xld);
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr;
-          wmma::load_matrix_sync(bfr, s.dz + kt * 16 * WLD + nt * 16, WLD);
-          wmma::mma_sync(acc[i][nt], af, bfr, acc[i][nt]);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-      wmma::store_matrix_sync(dw + (size_t)(kc + warp * 32 + i * 16) * Vp + v0 + nt * 16,
-                              acc[i][nt], Vp, wmma::mem_row_major);
-  if (with_db && tid < BV) db[v0 + tid] = db_acc;
-}
-
-size_t smem_bytes(int K, bool dx) {
-  return x_bytes(K) + W_BYTES + Z_BYTES + DZ_BYTES + (dx ? WC_BYTES : 0);
-}
-
-int set_smem(const void* kernel, size_t bytes) {
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)bytes);
-}
-
-}  // namespace
 
 // ---------------------------------------------------------------------------
 // The backward at K <= 256: wgmma fed by TMA (see the header note)
@@ -1045,6 +859,398 @@ vocab_lse_fwd_kernel(const __grid_constant__ Maps mp, const float* __restrict__ 
   cluster.sync();  // no block exits while another still reads its pairs
 }
 
+// ---------------------------------------------------------------------------
+// The backward above K 256: the K-wide accumulator split over a cluster (see
+// the header note)
+
+constexpr int KS = 128;                   // the K-slice of a cluster rank
+constexpr int SPLIT_STAGE = KS * 128;     // bytes of a ring slot: KS x 64 or 64 x KS bf16
+constexpr int FRAG = 128 * 32;            // floats of a warpgroup's S tile: 32 a thread
+constexpr int GATHER = 0, SCATTER = 1;    // the exchange (XCH)
+constexpr int SPLIT_BARS = (1 + 2 * STAGES + 8) * 8;
+
+// The split kernels' shared memory, the same at every K (a rank holds a
+// KS-wide slice): the resident slice (128 x KS bf16), the ring (STAGES
+// slots), the S partials (2 slots x 2 warpgroups, f32), the packed P (2 x
+// 2, bf16 pairs), the per-slot strips (two tables), the block's row or
+// column tables (2 x 128 f32) and the barriers.
+__host__ __device__ constexpr size_t split_smem() {
+  return 1024 + 128 * KS * 2 + STAGES * SPLIT_STAGE + 4 * FRAG * 4 + 4 * FRAG * 2 +
+         2 * STRIPS + 2 * 128 * 4 + SPLIT_BARS;
+}
+static_assert(split_smem() <= 232448 && MAX_C * KS >= 1024 && 3 * KS > HK_MAX,
+              "K4's split backward does not fit shared memory, or a cluster, at some K");
+
+// A thread's 32 S values into a warpgroup's partial: 8 float4, float4 j at
+// j ^ (tw % 8) of the thread's 128 bytes (tw: the thread of the warpgroup).
+__device__ __forceinline__ void put_part(float* part, const float (&sc)[32], int tw) {
+  float4* q = reinterpret_cast<float4*>(part) + tw * 8;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    q[j ^ (tw & 7)] = make_float4(sc[4 * j], sc[4 * j + 1], sc[4 * j + 2], sc[4 * j + 3]);
+}
+
+// One arrival of this warp on `bar` in every block of the cluster, after
+// the warp's writes.
+__device__ __forceinline__ void arrive_all(uint64_t* bar, int C) {
+  __syncwarp();
+  if ((threadIdx.x & 31) < C) hop::mbar_arrive_cluster(bar, threadIdx.x & 31);
+}
+
+// GATHER: this thread's 32 values of S, the C ranks' partials (one slot of
+// its warpgroup) added in rank order.
+__device__ __forceinline__ void gather_s(float (&z)[32], cg::cluster_group& cluster,
+                                         float* part, int C, int tw) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int at = tw * 8 + (j ^ (tw & 7));
+    float4 v[MAX_C];  // every rank's float4 read at once, then added in rank order
+#pragma unroll
+    for (int r = 0; r < MAX_C; ++r)
+      if (r < C) v[r] = reinterpret_cast<const float4*>(cluster.map_shared_rank(part, r))[at];
+    float4 a = v[0];
+#pragma unroll
+    for (int r = 1; r < MAX_C; ++r)
+      if (r < C) a.x += v[r].x, a.y += v[r].y, a.z += v[r].z, a.w += v[r].w;
+    z[4 * j] = a.x, z[4 * j + 1] = a.y, z[4 * j + 2] = a.z, z[4 * j + 3] = a.w;
+  }
+}
+
+// SCATTER: this rank's quads of one tile of a warpgroup (see the header
+// note; warp w of the warpgroup takes quads q0 + w, q0 + w + 4, ...: at C
+// >= 3 a rank has at most 11, 3 a warp): a lane reads one float4 of the
+// quad's 32 from every rank's partial, adds them in rank order, takes dz
+// (dx: the strip's bias by column, lse log2 e and g by row from the block's
+// tables; dw: the table's bias by row, the strips' lse log2 e and g by
+// column, its f32 values added into the lane's db sums sa, sb) and stores
+// the two packed bf16 pairs into every rank's P at the same place.
+template <bool DW>
+__device__ __forceinline__ void scatter_tile(cg::cluster_group& cluster, float* part,
+                                             uint32_t* pk, int C, int rank, int wg,
+                                             const float* st0, const float* st1,
+                                             const float* tb0, const float* tb1,
+                                             float (&sa)[3], float (&sb)[3]) {
+  const int lane = threadIdx.x & 31, q1 = (rank + 1) * 32 / C;
+#pragma unroll
+  for (int m = 0; m < 3; ++m) {
+    const int quad = rank * 32 / C + ((threadIdx.x >> 5) & 3) + 4 * m;
+    if (quad >= q1) break;
+    const int at = quad * 32 + lane, tq = at >> 3;  // tq: the thread of the warpgroup that owns it
+    float4 v[MAX_C];
+#pragma unroll
+    for (int r = 0; r < MAX_C; ++r)
+      if (r < C) v[r] = reinterpret_cast<const float4*>(cluster.map_shared_rank(part, r))[at];
+    float4 z = v[0];
+#pragma unroll
+    for (int r = 1; r < MAX_C; ++r)
+      if (r < C) z.x += v[r].x, z.y += v[r].y, z.z += v[r].z, z.w += v[r].w;
+    // z: rows a, a + 8 of the tile at columns c, c + 1
+    const int a = 64 * wg + 16 * (quad >> 3) + (quad & 7);
+    const int c = 8 * ((lane & 7) ^ (tq & 7)) + 2 * (tq & 3);
+    float d0, d1, d2, d3;
+    if constexpr (DW) {
+      const float ba = tb0[a], bb = tb0[a + 8];
+      const float2 l = *reinterpret_cast<const float2*>(st0 + c);
+      const float2 gg = *reinterpret_cast<const float2*>(st1 + c);
+      d0 = hop::ex2(fmaf(z.x + ba, LOG2E, -l.x)) * gg.x;
+      d1 = hop::ex2(fmaf(z.y + ba, LOG2E, -l.y)) * gg.y;
+      d2 = hop::ex2(fmaf(z.z + bb, LOG2E, -l.x)) * gg.x;
+      d3 = hop::ex2(fmaf(z.w + bb, LOG2E, -l.y)) * gg.y;
+      sa[m] += d0 + d1;
+      sb[m] += d2 + d3;
+    } else {
+      const float2 bv = *reinterpret_cast<const float2*>(st0 + c);
+      const float la = tb0[a], lb = tb0[a + 8], ga = tb1[a], gb = tb1[a + 8];
+      d0 = hop::ex2(fmaf(z.x + bv.x, LOG2E, -la)) * ga;
+      d1 = hop::ex2(fmaf(z.y + bv.y, LOG2E, -la)) * ga;
+      d2 = hop::ex2(fmaf(z.z + bv.x, LOG2E, -lb)) * gb;
+      d3 = hop::ex2(fmaf(z.w + bv.y, LOG2E, -lb)) * gb;
+    }
+    const uint2 pv = make_uint2(hop::pack_bf16(d0, d1), hop::pack_bf16(d2, d3));
+#pragma unroll
+    for (int r = 0; r < MAX_C; ++r)
+      if (r < C) reinterpret_cast<uint2*>(cluster.map_shared_rank(pk, r))[at] = pv;
+  }
+}
+
+// SCATTER: this thread's packed P (its 16 register A fragments) from P.
+__device__ __forceinline__ void load_pa(uint32_t (&pa)[16], const uint32_t* pk, int tw) {
+  const uint2* q = reinterpret_cast<const uint2*>(pk) + tw * 8;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const uint2 u = q[j ^ (tw & 7)];
+    pa[2 * j] = u.x, pa[2 * j + 1] = u.y;
+  }
+}
+
+// A tile's partial S_r (dx: the warpgroup's 64 rows of x's slice . the W
+// tile; dw: its 64 columns of W's slice^T . the x tile^T) and the second
+// product (dx: dX += P W_tile^T; dw: dW^T += dz^T X_tile). Issued and
+// committed.
+template <bool DW>
+__device__ __forceinline__ void split_s(float (&sc)[32], uint64_t rd, const unsigned char* slot) {
+  if constexpr (DW) issue_st<KS>(sc, rd, slot);
+  else issue_s<KS>(sc, rd, slot);
+}
+template <bool DW>
+__device__ __forceinline__ void split_pv(float (&acc)[KS / 2], const uint32_t (&pa)[16],
+                                         const unsigned char* slot) {
+  if constexpr (DW) issue_pv<KS, 1>(acc, pa, slot, 2048, DW_BN * 128);
+  else issue_pv<KS, 0>(acc, pa, slot, 32, 1024);
+}
+
+// dx (DW false: out the (N, K) bf16 dx) or dw (out the (K, Vp) f32 dW, db
+// (Vp,)) at K = C KS: grid (C, row tiles or column blocks) in clusters of C
+// along x.
+template <bool DW, int XCH>
+__global__ void __launch_bounds__(HTHREADS, 1)
+vocab_lse_split_kernel(const __grid_constant__ Maps mp, const float* __restrict__ bias,
+                       const float* __restrict__ lse, const float* __restrict__ g,
+                       void* __restrict__ out, float* __restrict__ db, int N, int K, int V,
+                       int Vp) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  extern __shared__ unsigned char raw[];
+  unsigned char* base = align1024(raw);
+  unsigned char* res = base;  // the resident slice: dx x's 128 rows, dw W's 128 columns
+  unsigned char* ring = res + 128 * KS * 2;
+  float* part = reinterpret_cast<float*>(ring + STAGES * SPLIT_STAGE);  // [slot][wg][FRAG]
+  uint32_t* pk = reinterpret_cast<uint32_t*>(part + 4 * FRAG);          // [slot][wg][FRAG / 2]
+  float* st0 = reinterpret_cast<float*>(pk + 2 * FRAG);  // [ring slot][64]: dx b, dw lse log2 e
+  float* st1 = st0 + STAGES * VT;                        // dw: g
+  float* tb0 = st1 + STAGES * VT;  // the block's 128 rows' lse log2 e (dx) or columns' b (dw)
+  float* tb1 = tb0 + 128;          // dx: the rows' g
+  uint64_t* bars = reinterpret_cast<uint64_t*>(tb1 + 128);
+  uint64_t* rfull = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + STAGES;
+  uint64_t* sfull = empty + STAGES;  // [slot][wg]: every rank's partial written
+  uint64_t* pfull = sfull + 4;       // [slot][wg]: every rank's share of P written
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int b0 = blockIdx.y * 128, k0 = rank * KS;  // the block's first row (dx) or column (dw)
+  const int nt = DW ? (N + DW_BN - 1) / DW_BN : (V + VT - 1) / VT;  // tiles a rank sweeps
+  if (tid == 0) {
+    hop::mbar_init(rfull, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hop::mbar_init(&full[s], 32);  // the producer warp's lanes
+      hop::mbar_init(&empty[s], CONSUMERS / 32);
+    }
+    for (int i = 0; i < 4; ++i) {
+      hop::mbar_init(&sfull[i], 4 * C);  // the warpgroup's 4 warps in each rank
+      hop::mbar_init(&pfull[i], 4 * C);
+    }
+    hop::mbar_fence_init();
+  }
+  cluster.sync();  // every rank's barriers initialised before the first remote arrival
+
+  if (warp >= CONSUMERS / 32) {  // the producer: the tables and the slice once, then the tiles
+    hop::reg_dealloc<40>();
+    if (warp == CONSUMERS / 32) {  // one warp loads
+      for (int i = lane; i < 128; i += 32) {
+        const int j = b0 + i;
+        if (DW) {
+          tb0[i] = j < V ? bias[j] : -INFINITY;
+        } else {
+          tb0[i] = j < N ? lse[j] * LOG2E : INFINITY;
+          tb1[i] = j < N ? g[j] : 0.f;
+        }
+      }
+      __syncwarp();
+      if (lane == 0) {
+        hop::prefetch_map(&mp.x);
+        hop::prefetch_map(&mp.w);
+        hop::mbar_expect_tx(rfull, 128 * KS * 2);
+        for (int kb = 0; kb < KS / 64; ++kb) {
+          if (DW) {
+            for (int h = 0; h < 2; ++h)
+              hop::tma_load_2d(res + h * KS * 128 + kb * 8192, &mp.w, rfull, b0 + 64 * h,
+                               k0 + 64 * kb);
+          } else {
+            hop::tma_load_2d(res + kb * DX_BM * 128, &mp.x, rfull, k0 + 64 * kb, b0);
+          }
+        }
+      }
+      for (int it = 0; it < nt; ++it) {
+        const int s = it % STAGES, j0 = it * 64;
+        hop::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+        for (int c = lane; c < 64; c += 32) {
+          const int j = j0 + c;
+          if (DW) {
+            st0[s * VT + c] = j < N ? lse[j] * LOG2E : INFINITY;
+            st1[s * VT + c] = j < N ? g[j] : 0.f;
+          } else {
+            st0[s * VT + c] = j < V ? bias[j] : -INFINITY;
+          }
+        }
+        if (lane == 0) {
+          hop::mbar_expect_tx(&full[s], SPLIT_STAGE);
+          for (int kb = 0; kb < KS / 64; ++kb) {
+            if (DW)
+              hop::tma_load_2d(ring + s * SPLIT_STAGE + kb * 8192, &mp.x, &full[s],
+                               k0 + 64 * kb, j0);
+            else
+              hop::tma_load_2d(ring + s * SPLIT_STAGE + kb * 8192, &mp.w, &full[s], j0,
+                               k0 + 64 * kb);
+          }
+        } else {
+          hop::mbar_arrive(&full[s]);
+        }
+      }
+    }
+    __syncwarp();
+    cluster.sync();  // no block exits while another still reads or writes its shared memory
+    return;
+  }
+  hop::reg_alloc<232>();
+
+  const int wg = warp >> 2, tw = tid & 127, t = lane & 3;
+  const int ra = 64 * wg + 16 * (warp & 3) + (lane >> 2);  // this thread's rows ra, ra + 8
+  float* mypart = part + wg * FRAG;        // + slot * 2 * FRAG
+  uint32_t* mypk = pk + wg * (FRAG / 2);   // + slot * FRAG
+  const uint64_t rd = hop::desc(res + wg * (DW ? KS * 128 : 64 * 128));
+  float acc[KS / 2];
+#pragma unroll
+  for (int i = 0; i < KS / 2; ++i) acc[i] = 0.f;
+  float sc[32];
+  uint32_t pa[16];
+  float sa[3] = {0.f, 0.f, 0.f}, sb[3] = {0.f, 0.f, 0.f};  // dw's db sums
+  hop::mbar_wait(rfull, 0);
+  hop::mbar_wait(&full[0], 0);
+  __syncwarp();
+  hop::wgmma_fence();
+  split_s<DW>(sc, rd, ring);
+  hop::wgmma_wait();
+  hop::fence_regs(sc);
+  put_part(mypart, sc, tw);
+  arrive_all(&sfull[wg], C);
+  Pos p;  // tile t's ring slot
+  if constexpr (XCH == GATHER) {
+    const float ta = tb0[ra], tbb = tb0[ra + 8], ga = tb1[ra], gb = tb1[ra + 8];
+    for (int it = 0; it < nt; ++it) {
+      const bool more = it + 1 < nt;
+      const Pos nx = p.next();
+      if (more) hop::mbar_wait(&full[nx.s], nx.ph);
+      __syncwarp();
+      hop::wgmma_fence();
+      // the next tile's S_r (after the last tile a product whose result is dropped)
+      split_s<DW>(sc, rd, ring + (more ? nx.s : p.s) * SPLIT_STAGE);
+      float z[32];
+      hop::mbar_wait_cluster(&sfull[(it & 1) * 2 + wg], (it >> 1) & 1);
+      gather_s(z, cluster, mypart + (it & 1) * 2 * FRAG, C, tw);
+      if constexpr (DW) dz_cols(z, st0 + p.s * VT, st1 + p.s * VT, ta, tbb, sa[0], sb[0]);
+      else dz_rows(z, st0 + p.s * VT, ta, tbb, ga, gb);
+      pack(pa, z);
+      __syncwarp();
+      hop::wgmma_fence();
+      split_pv<DW>(acc, pa, ring + p.s * SPLIT_STAGE);
+      hop::wgmma_wait_n<1>();
+      hop::fence_regs(sc);
+      if (more) {
+        put_part(mypart + ((it + 1) & 1) * 2 * FRAG, sc, tw);
+        arrive_all(&sfull[((it + 1) & 1) * 2 + wg], C);
+      }
+      hop::wgmma_wait();
+      hop::fence_regs(acc);
+      hop::fence_regs(pa);
+      __syncwarp();
+      if (lane == 0) hop::mbar_arrive(&empty[p.s]);
+      p = nx;
+    }
+    if constexpr (DW) {
+      sa[0] += __shfl_xor_sync(0xffffffffu, sa[0], 1);
+      sa[0] += __shfl_xor_sync(0xffffffffu, sa[0], 2);
+      sb[0] += __shfl_xor_sync(0xffffffffu, sb[0], 1);
+      sb[0] += __shfl_xor_sync(0xffffffffu, sb[0], 2);
+      if (rank == 0 && t == 0) db[b0 + ra] = sa[0], db[b0 + ra + 8] = sb[0];
+    }
+  } else {
+    // tile it's exchange beside the product of tile it - 1's P (at tile 0 a
+    // product of zeros on tile 0's slot, so that no wgmma sits under a
+    // condition)
+#pragma unroll
+    for (int i = 0; i < 16; ++i) pa[i] = 0u;
+    Pos pp = p;  // tile it - 1's slot
+    for (int it = 0; it < nt; ++it) {
+      const bool more = it + 1 < nt;
+      const Pos nx = p.next();
+      const int x = it & 1;
+      if (more) hop::mbar_wait(&full[nx.s], nx.ph);
+      __syncwarp();
+      hop::wgmma_fence();
+      split_s<DW>(sc, rd, ring + (more ? nx.s : p.s) * SPLIT_STAGE);  // the next tile's S_r
+      hop::mbar_wait_cluster(&sfull[x * 2 + wg], (it >> 1) & 1);
+      scatter_tile<DW>(cluster, mypart + x * 2 * FRAG, mypk + x * FRAG, C, rank, wg,
+                       st0 + p.s * VT, st1 + p.s * VT, tb0, tb1, sa, sb);
+      arrive_all(&pfull[x * 2 + wg], C);
+      if (it > 0) {
+        hop::mbar_wait_cluster(&pfull[(x ^ 1) * 2 + wg], ((it - 1) >> 1) & 1);
+        load_pa(pa, mypk + (x ^ 1) * FRAG, tw);
+      }
+      __syncwarp();
+      hop::wgmma_fence();
+      split_pv<DW>(acc, pa, ring + pp.s * SPLIT_STAGE);
+      hop::wgmma_wait_n<1>();
+      hop::fence_regs(sc);
+      if (more) {
+        put_part(mypart + (x ^ 1) * 2 * FRAG, sc, tw);
+        arrive_all(&sfull[(x ^ 1) * 2 + wg], C);
+      }
+      hop::wgmma_wait();
+      hop::fence_regs(acc);
+      hop::fence_regs(pa);
+      __syncwarp();
+      if (it > 0 && lane == 0) hop::mbar_arrive(&empty[pp.s]);
+      pp = p;
+      p = nx;
+    }
+    const int x = (nt - 1) & 1;
+    hop::mbar_wait_cluster(&pfull[x * 2 + wg], ((nt - 1) >> 1) & 1);
+    load_pa(pa, mypk + x * FRAG, tw);
+    __syncwarp();
+    hop::wgmma_fence();
+    split_pv<DW>(acc, pa, ring + pp.s * SPLIT_STAGE);  // the last tile's product
+    hop::wgmma_wait();
+    hop::fence_regs(acc);
+    hop::fence_regs(pa);
+    if constexpr (DW) {
+      const int q1 = (rank + 1) * 32 / C;
+#pragma unroll
+      for (int m = 0; m < 3; ++m) {
+        const int quad = rank * 32 / C + (warp & 3) + 4 * m;
+        if (quad >= q1) break;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          sa[m] += __shfl_xor_sync(0xffffffffu, sa[m], o);
+          sb[m] += __shfl_xor_sync(0xffffffffu, sb[m], o);
+        }
+        const int a = b0 + 64 * wg + 16 * (quad >> 3) + (quad & 7);
+        if (lane == 0) db[a] = sa[m], db[a + 8] = sb[m];
+      }
+    }
+  }
+
+  if constexpr (DW) {  // dW[k0 + k, v] = dW^T[v, k]: for each register, a warp fills 4 rows x 32 bytes
+    float* dw = static_cast<float*>(out);
+#pragma unroll
+    for (int j = 0; j < KS / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dw[(size_t)(k0 + 8 * j + 2 * t + (e & 1)) * Vp + b0 + ra + 8 * (e >> 1)] = acc[4 * j + e];
+  } else {  // dx[row, k0 + k] as bf16 pairs
+    bf16* dx = static_cast<bf16*>(out);
+#pragma unroll
+    for (int j = 0; j < KS / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = b0 + ra + 8 * h;
+        if (row < N)
+          *reinterpret_cast<uint32_t*>(dx + (size_t)row * K + k0 + 8 * j + 2 * t) =
+              hop::pack_bf16(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+  }
+  cluster.sync();  // no block exits while another still reads or writes its shared memory
+}
+
 template <typename... KArgs, typename... Args>
 int launch_hk(void (*kern)(KArgs...), dim3 grid, int cluster_x, int threads, size_t smem,
               cudaStream_t stream, Args... args) {
@@ -1105,30 +1311,45 @@ extern "C" int vocab_lse_fwd(const void* x, const void* W, int ldw, const void* 
                    V);
 }
 
+namespace {
+
+// The exchange the split kernels run (GATHER or SCATTER; see the header
+// note): `vocab_lse_set_exchange` sets it, so that one build times both.
+int split_exchange = SCATTER;
+
+template <bool DW>
+int launch_split(const Maps& mp, dim3 grid, int C, cudaStream_t st, const float* bf,
+                 const float* lf, const float* gf, void* out, float* db, int N, int K, int V,
+                 int Vp) {
+  return split_exchange == GATHER
+             ? launch_hk(vocab_lse_split_kernel<DW, GATHER>, grid, C, HTHREADS, split_smem(), st,
+                         mp, bf, lf, gf, out, db, N, K, V, Vp)
+             : launch_hk(vocab_lse_split_kernel<DW, SCATTER>, grid, C, HTHREADS, split_smem(),
+                         st, mp, bf, lf, gf, out, db, N, K, V, Vp);
+}
+
+}  // namespace
+
+extern "C" int vocab_lse_set_exchange(int xch) {
+  if (xch != GATHER && xch != SCATTER) return (int)cudaErrorInvalidValue;
+  split_exchange = xch;
+  return 0;
+}
+
 // The gradient of the row lse for g = d loss / d lse (N,) f32: dx (N, K)
 // bf16 out. K <= 256 runs the wgmma kernel on clusters of C blocks (1, 2,
-// 4 or 8, no more than V's 64-column tiles; `vocab_lse.dx_tiling`), a
-// wider K the wmma kernel, with C 1. x, W, b, lse and g as for
-// vocab_lse_fwd (lse and g (N,) f32). Returns cudaErrorInvalidValue for a
-// shape or cluster the kernels do not take.
+// 4 or 8, no more than V's 64-column tiles), a wider K the split kernel on
+// clusters of C = K / 128 (`vocab_lse.dx_tiling`). x, W, b, lse and g as
+// for vocab_lse_fwd (lse and g (N,) f32). Returns cudaErrorInvalidValue for
+// a shape or cluster the kernels do not take.
 extern "C" int vocab_lse_dx(const void* x, const void* W, int ldw, const void* b,
                             const void* lse, const void* g, void* dx, int N, int K, int V,
                             int C, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   if (N <= 0 || V <= 0 || K <= 0 || K % 128 || K > 1024 || ldw < V || ldw % 8)
     return (int)cudaErrorInvalidValue;
-  if (K > HK_MAX) {
-    if (C != 1) return (int)cudaErrorInvalidValue;
-    const size_t smem = smem_bytes(K, true);
-    int err = set_smem((const void*)vocab_lse_dx_wmma_kernel, smem);
-    if (err) return err;
-    dim3 grid((N + BR - 1) / BR, K / CK);
-    vocab_lse_dx_wmma_kernel<<<grid, THREADS, smem, st>>>(
-        (const bf16*)x, (const bf16*)W, ldw, (const float*)b, (const float*)lse,
-        (const float*)g, (bf16*)dx, N, K, V);
-    return (int)cudaGetLastError();
-  }
-  if (C < 1 || C > MAX_C || (C & (C - 1)) || C > (V + VT - 1) / VT)
+  if (K > HK_MAX ? C != K / KS
+                 : C < 1 || C > MAX_C || (C & (C - 1)) || C > (V + VT - 1) / VT)
     return (int)cudaErrorInvalidValue;
   Maps mp = {};
   int rc;
@@ -1136,8 +1357,10 @@ extern "C" int vocab_lse_dx(const void* x, const void* W, int ldw, const void* b
       (rc = hop_host::encode_bf16(&mp.w, W, K, V, ldw, 64)))
     return rc;
   const dim3 grid(C, (N + DX_BM - 1) / DX_BM);
-  const size_t smem = dx_smem(K);
   const float *bf = (const float*)b, *lf = (const float*)lse, *gf = (const float*)g;
+  if (K > HK_MAX)
+    return launch_split<false>(mp, grid, C, st, bf, lf, gf, dx, nullptr, N, K, V, 0);
+  const size_t smem = dx_smem(K);
   if (K == 128)
     return launch_hk(vocab_lse_dx_kernel<128>, grid, C, HTHREADS, smem, st, mp, bf, lf, gf,
                      (bf16*)dx, N, V);
@@ -1145,38 +1368,56 @@ extern "C" int vocab_lse_dx(const void* x, const void* W, int ldw, const void* b
                    (bf16*)dx, N, V);
 }
 
-// dW (K, Vp) f32 and db (Vp,) f32 out, Vp = V rounded up to the kernel's
-// vocabulary block (`vocab_lse.dw_tiling`: 128 at K <= 256, 64 above). The
+// dW (K, Vp) f32 and db (Vp,) f32 out, Vp = V rounded up to the 128
+// vocabulary columns of a block (`vocab_lse.dw_tiling`). K <= 256 runs the
+// wgmma kernel, a wider K the split kernel on clusters of K / 128. The
 // columns from V on are written as zeros; the caller slices them off.
 extern "C" int vocab_lse_dw(const void* x, const void* W, int ldw, const void* b,
                             const void* lse, const void* g, void* dw, void* db, int N, int K,
                             int V, int Vp, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  if (N <= 0 || V <= 0 || K <= 0 || K % 128 || K > 1024 || ldw < V || ldw % 8 || Vp < V)
+  if (N <= 0 || V <= 0 || K <= 0 || K % 128 || K > 1024 || ldw < V || ldw % 8 || Vp < V ||
+      Vp % DW_BV)
     return (int)cudaErrorInvalidValue;
-  if (K > HK_MAX) {
-    if (Vp % BV) return (int)cudaErrorInvalidValue;
-    const size_t smem = smem_bytes(K, false);
-    int err = set_smem((const void*)vocab_lse_dw_wmma_kernel, smem);
-    if (err) return err;
-    dim3 grid(Vp / BV, K / CK);
-    vocab_lse_dw_wmma_kernel<<<grid, THREADS, smem, st>>>(
-        (const bf16*)x, (const bf16*)W, ldw, (const float*)b, (const float*)lse,
-        (const float*)g, (float*)dw, (float*)db, N, K, V, Vp);
-    return (int)cudaGetLastError();
-  }
-  if (Vp % DW_BV) return (int)cudaErrorInvalidValue;
   Maps mp = {};
   int rc;
   if ((rc = hop_host::encode_bf16(&mp.x, x, N, K, K, DW_BN)) ||
       (rc = hop_host::encode_bf16(&mp.w, W, K, V, ldw, 64)))
     return rc;
+  const float *bf = (const float*)b, *lf = (const float*)lse, *gf = (const float*)g;
+  if (K > HK_MAX)
+    return launch_split<true>(mp, dim3(K / KS, Vp / DW_BV), K / KS, st, bf, lf, gf, dw,
+                              (float*)db, N, K, V, Vp);
   const dim3 grid(Vp / DW_BV);
   const size_t smem = dw_smem(K);
-  const float *bf = (const float*)b, *lf = (const float*)lse, *gf = (const float*)g;
   if (K == 128)
     return launch_hk(vocab_lse_dw_kernel<128>, grid, 1, HTHREADS, smem, st, mp, bf, lf, gf,
                      (float*)dw, (float*)db, N, V, Vp);
   return launch_hk(vocab_lse_dw_kernel<256>, grid, 1, HTHREADS, smem, st, mp, bf, lf, gf,
                    (float*)dw, (float*)db, N, V, Vp);
+}
+
+// The clusters of the split kernel at K (dx, or dw when `dw`) that the card
+// holds at once (cudaOccupancyMaxActiveClusters), or a negative error.
+extern "C" int vocab_lse_split_clusters(int K, int dw) {
+  if (K <= HK_MAX || K % KS || K > MAX_C * KS) return -(int)cudaErrorInvalidValue;
+  const void* kern = dw ? (const void*)vocab_lse_split_kernel<true, SCATTER>
+                        : (const void*)vocab_lse_split_kernel<false, SCATTER>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)split_smem());
+  if (e != cudaSuccess) return -(int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(K / KS, 1024);
+  cfg.blockDim = dim3(HTHREADS);
+  cfg.dynamicSmemBytes = split_smem();
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = K / KS;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, kern, &cfg);
+  return e == cudaSuccess ? n : -(int)e;
 }

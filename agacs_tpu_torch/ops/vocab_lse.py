@@ -40,9 +40,19 @@ once for every 128 output columns (at the conformer's training shape 9.54
 and 9.12 ms on an H100 against a bound of 0.40 ms each). `dx_tiling`
 splits each 128-row tile's V sweep over a cluster of C blocks whose f32
 partials are summed in rank order; `dw_tiling` gives each block 128
-vocabulary columns; the ring depth, 4 slots, is fixed in the source. Wider
-K (the whisper family's CTC head, K 768) keeps the wmma kernels, whose
-accumulators and x tiles the wgmma design cannot hold.
+vocabulary columns; the ring depth, 4 slots, is fixed in the source.
+Above K 256 (the whisper family's CTC head: K 384 to 1024) one output tile
+(dx: 128 rows; dw: 128 vocabulary columns) is split over a cluster of C =
+K / 128 blocks, rank r owning the K-slice [128 r, 128 (r + 1)) of the
+accumulator and of the resident operand: each rank computes its partial S
+over its slice, the ranks add their partials in rank order through
+distributed shared memory, and each then adds P (or dz^T) times its slice
+into its share of dX (or dW^T). That replaced wmma kernels that rebuilt z
+K / 128 times a pass (147 and 162 ms at (12000, 768) x (768, 51865) on an
+H100, against a bound of 1.93 ms each).
+
+The backward computes only the gradients autograd asks for: dx when x
+needs one, dW and db when w or b does (a frozen CTC head pays no dw pass).
 """
 
 from __future__ import annotations
@@ -53,7 +63,6 @@ import torch
 
 from agacs_tpu_torch.ops import cuda_lib
 
-BV = 64  # the wmma backward's vocabulary tile
 FWD_LAUNCHES = 0  # K4 launches since the last reset (chip_smoke.py reads them)
 DX_LAUNCHES = 0
 DW_LAUNCHES = 0
@@ -68,6 +77,7 @@ MAX_C = 8         # dx, forward: blocks of a cluster (the portable size)
 STAGES = 4        # ring slots
 FWD_KC = 64       # forward: W rows of a ring slot above HK_MAX (64 x 64 chunks)
 SMEM_MAX = 232448  # a block's shared memory on sm_90 (227 KB)
+KS = 128          # above HK_MAX: the K-slice of a cluster rank in dx and dw
 
 
 def _cluster(tiles: int, v: int, sms: int) -> int:
@@ -104,18 +114,22 @@ def dx_tiling(n: int, k: int, v: int, sms: int) -> dict:
     """K4 dx's route and cluster size C: at K <= 256 the wgmma kernel on
     (C, ceil(N / 128)) blocks in clusters of C, C the largest of 1, 2, 4, 8
     with no more blocks than SMs and no more ranks than V's 64-column tiles;
-    above, the wmma kernel (C 1)."""
+    above, the split kernel on (C, ceil(N / 128)) blocks, C = K / KS ranks
+    each owning a KS-wide slice of dx's columns."""
     if k > HK_MAX:
-        return {"route": "wmma", "C": 1}
+        return {"route": "split", "C": k // KS, "KS": KS}
     return {"route": "wgmma", "C": _cluster(-(-n // DX_BM), v, sms)}
 
 
 def dw_tiling(k: int) -> dict:
     """K4 dw's route and the vocabulary columns BV of a block, to which dW's
-    columns are padded: 128 at K <= 256 (the wgmma kernel: two warpgroups
-    of 64, each keeping its 64 x K dW^T in registers), 64 above (the wmma
-    kernel)."""
-    return {"route": "wgmma", "BV": DW_BV} if k <= HK_MAX else {"route": "wmma", "BV": BV}
+    columns are padded: 128, two warpgroups of 64. At K <= 256 the wgmma
+    kernel, each warpgroup keeping its 64 x K dW^T in registers; above, the
+    split kernel on clusters of C = K / KS ranks, each owning a KS-wide
+    slice of dW's rows."""
+    if k > HK_MAX:
+        return {"route": "split", "BV": DW_BV, "C": k // KS, "KS": KS}
+    return {"route": "wgmma", "BV": DW_BV}
 
 
 def lse_plain(x, w, b) -> torch.Tensor:
@@ -239,10 +253,18 @@ class _StreamingLSE(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w, b, lse, wp = ctx.saved_tensors
+        want_x, want_w, want_b = ctx.needs_input_grad
+        dx = dw = db = None
         if x.device.type == "cpu":
-            return lse_bwd_plain(x, w, b, lse, g)
-        g = g.float().contiguous()
-        return (_launch_dx(x, w, b, lse, g, wp), *_launch_dw(x, w, b, lse, g, wp))
+            if want_x or want_w or want_b:
+                dx, dw, db = lse_bwd_plain(x, w, b, lse, g)
+        else:
+            g = g.float().contiguous()
+            if want_x:
+                dx = _launch_dx(x, w, b, lse, g, wp)
+            if want_w or want_b:
+                dw, db = _launch_dw(x, w, b, lse, g, wp)
+        return (dx if want_x else None, dw if want_w else None, db if want_b else None)
 
 
 def streaming_lse(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

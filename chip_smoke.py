@@ -12,6 +12,8 @@ card.
     python3 chip_smoke.py --mutants    # the kernel checks against mutants
     python3 chip_smoke.py --mutants K6 K3@48   # only the mutants so named
     python3 chip_smoke.py --splits     # K3's instances timed at each split S
+    python3 chip_smoke.py --k4-turns DIR   # K4 at the whisper CTC head's
+                                       # shape, DIR's tree and this one in turns
 
 Run from (or point at) a checkout of the repository on a machine with a
 CUDA card and the CUDA toolkit (nvcc). It imports nothing of JAX. Phases,
@@ -84,14 +86,18 @@ non-zero exit:
      gradient timed beside;
   2v. K4 (csrc/vocab_lse.cu: forward, dx, dw) against its plain version at
      the CTC head's (7488, 256) x (256, 51865) and the ragged (700, 256) x
-     (256, 5000), (300, 128) x (128, 1001), (700, 768) x (768, 5000),
-     (300, 1024) x (1024, 1001) and (60, 128) x (128, 500) (one V tile a
-     rank) (the forward: whole W tiles at K <= 256,
-     64 x 64 chunks above; dx and dw: the wgmma kernels at K <= 256, the
-     wmma ones above), with b, lse and g NaN past their ends and lse, dx
-     and dw bit-identical on a second run; cuBLAS with the logits
-     materialised timed beside, at the training shape and at the whisper
-     CTC head's (12000, 768) x (768, 51865);
+     (256, 5000), (300, 128) x (128, 1001), (300, 384) x (384, 1001),
+     (700, 512) x (512, 5000), (200, 640) x (640, 1001), (700, 768) x
+     (768, 5000), (300, 896) x (896, 2000), (300, 1024) x (1024, 1001) and
+     (60, 128) x (128, 500) (one V tile a rank) (the forward: whole W tiles
+     at K <= 256, 64 x 64 chunks above; dx and dw: the wgmma kernels at K
+     <= 256, the split kernels on clusters of K / 128 above: every cluster
+     size from 3 to 8), with b, lse and g NaN past their ends and lse, dx
+     and dw bit-identical on a second run; then the whisper CTC head's
+     (12000, 768) x (768, 51865), each pass against its plain version;
+     cuBLAS with the logits materialised timed beside, at the training
+     shape and the whisper CTC head's, and the split kernels' two
+     exchanges at the latter in turns;
   3f. K3-f32 (decode_attn.cu, float32 caches) against its plain version at
      the LM's beam shape (80, 112, 512), 8 heads, pos 103, within 1e-4;
   2w. K6 (csrc/w8a16.cu, the W8A16 thin-row matmul) against its plain
@@ -223,7 +229,16 @@ non-zero exit:
   35. the `sidenetwork` training step at 16 x 15 s: ms per step (median of
      3 after a warm-up), peak memory, idle share, K1f 12 and K1b 0 a step,
      the trunk bit-identical; one micro-step card bf16 against CPU float32
-     (loss, grad norm, the side ladders' gradient cosines).
+     (loss, grad norm, the side ladders' gradient cosines);
+  36. the TMECS full fine-tune recipe (train_asr_whisper_small.yaml, no
+     freeze preset) with ctc_weight 0.3: whisper-small at full depth and
+     its CTC head (768 -> 51865; K4 at (12000, 768) x (768, 51865)) on 16
+     x 15 s a step: ms per step (median of 3 after a warm-up), exact
+     launches (K4 1 + dx 1 + dw 1 per step); 37. one more step under
+     torch.profiler: busy, idle share, K4's device ms by pass;
+  38. one micro-step on one utterance, card bf16 against CPU float32:
+     loss_ctc and the CTC head's gradient cosine within phase 31's bounds,
+     beside a bf16 control with K4's plain version.
 
 The last three lines are the card's `name, power.limit` (nvidia-smi), a
 JSON line with each kernel's launches, error and times, and the
@@ -234,7 +249,10 @@ the checkout and runs the checks it names, the unmutated source first (a
 mutant that traps its kernel ends the process's CUDA use: the chosen
 mutants after it run in a new process);
 `--splits` times K3's instances at every S from 1 to 8 (SPLIT_SWEEP), the
-reading `decode_attn.time_splits` was tuned on.
+reading `decode_attn.time_splits` was tuned on; `--k4-turns DIR` times K4's
+three passes at the whisper CTC head's shape (`k4_times`) in the checkout
+at DIR (e.g. a `git archive` of an earlier commit) and in this one, one
+process each, in turns (DIR, this, this, DIR).
 """
 
 from __future__ import annotations
@@ -1507,16 +1525,18 @@ def check_k5_bwd(dev, g, timed=True) -> dict:
 # K4 against its plain version (float32 on the same bf16 x and W): the
 # conformer's training shape (16 x 468 rows, d 256, the Whisper vocabulary)
 # and ragged ones (rows not a multiple of 64, V not a multiple of 64) at K
-# 256, at K 128 (V not a multiple of 8 either: W's rows padded), at K 768
-# (the forward's 64 x 64 chunks on 128-row blocks; the wmma backward, which
-# the wrapper takes above K 256), at K 1024 (the forward's 64-row blocks)
-# and at V 500 (8 V tiles on a cluster of 8: one tile a rank, so the
-# forward's last tile is its first). lse within K4_LSE_RTOL relative per
-# row, |lse| floored at 1 nat (float32 sums of exps in another order); dx
-# and dW within KERNEL_RTOL x max |plain| (bf16 dz, bf16 outputs); db
-# within K4_DB_RTOL x max |plain| (float32 column sums). K4_WIDE: the whisper CTC head's shape (K 768,
-# 12000 rows: 8 x 15 s at 750 frames x 2), timed only.
-K4_SHAPES = ((7488, 256, 51865), (700, 256, 5000), (300, 128, 1001), (700, 768, 5000),
+# 256, at K 128 (V not a multiple of 8 either: W's rows padded), above K 256
+# at every K from 384 to 1024 (the forward's 64 x 64 chunks, on 64-row
+# blocks at K 896 and 1024; dx and dw the split kernels on clusters of 3, 4,
+# 5, 6, 7 and 8) and at V 500 (8 V tiles on a cluster of 8: one tile a rank,
+# so the forward's last tile is its first). lse within K4_LSE_RTOL relative
+# per row, |lse| floored at 1 nat (float32 sums of exps in another order);
+# dx and dW within KERNEL_RTOL x max |plain| (bf16 dz, bf16 outputs); db
+# within K4_DB_RTOL x max |plain| (float32 column sums). K4_WIDE: the
+# whisper CTC head's shape (K 768, 12000 rows: 16 x 15 s at 750 frames),
+# the same bounds.
+K4_SHAPES = ((7488, 256, 51865), (700, 256, 5000), (300, 128, 1001), (300, 384, 1001),
+             (700, 512, 5000), (200, 640, 1001), (700, 768, 5000), (300, 896, 2000),
              (300, 1024, 1001), (60, 128, 500))
 K4_WIDE = (12000, 768, 51865)
 K4_LSE_RTOL, K4_DB_RTOL = 1e-4, 1e-4
@@ -1593,15 +1613,48 @@ def k4_times(g, dev, shape, gr, n_sets: int, iters: dict, line: str) -> tuple[di
     return res, line + f"; W's rows padded (once a step) {pad_ms:.4f} ms"
 
 
+def k4_errors(name_out_ref: tuple, n: int, k: int, v: int, res: dict | None = None) -> dict:
+    """Each (part, name, out, ref, rtol) held against its bound (rtol None:
+    lse, relative per row): finite, the plain version's shape, within the
+    bound; {name: max_abs_err}, the parts' largest also into `res`."""
+    errs = {}
+    for part, name, out, ref, rtol in name_out_ref:
+        diff = (out.float() - ref).abs()
+        err = diff.max().item()
+        if rtol is None:  # relative per row, |lse| floored at 1 nat
+            ok = bool((diff <= K4_LSE_RTOL * ref.abs().clamp(min=1.0)).all())
+            bound = f"{K4_LSE_RTOL} x max(|lse|, 1) per row"
+        else:
+            bound = rtol * ref.abs().max().item()
+            ok = err <= bound
+        check(tuple(out.shape) == tuple(ref.shape) and ok and bool(torch.isfinite(out).all()),
+              f"K4 {name} ({n}, {k}) x ({k}, {v}): finite, max_abs_err {err} <= {bound}")
+        errs[name] = err
+        if res is not None:
+            res[part]["err"] = max(res[part]["err"], err)
+    return errs
+
+
+def k4_backward_tiling(n: int, k: int, v: int, sms: int) -> str:
+    from agacs_tpu_torch.ops import vocab_lse
+
+    tx, tw = vocab_lse.dx_tiling(n, k, v, sms), vocab_lse.dw_tiling(k)
+    if tx["route"] == "split":
+        return (f"backward split (dx and dw on clusters of C {tx['C']}, KS {tx['KS']}; dw block "
+                f"{tw['BV']} columns)")
+    return f"backward {tx['route']} (dx C {tx['C']}; dw block {tw['BV']} columns)"
+
+
 def check_k4(dev, g, timed=True) -> dict:
     """Phase 2v: K4's forward, dx and dw (csrc/vocab_lse.cu) against their
     plain versions at K4_SHAPES; when timed, their times at the training
-    shape and at K4_WIDE (`k4_times`), where the forward is also held
-    against its plain version. Returns {"fwd", "dx", "dw"} results at the
-    training shape."""
+    shape (`k4_times`) and the passes at K4_WIDE (`k4_wide`). Returns
+    {"fwd", "dx", "dw"} results at the training shape, "split": the
+    largest errors above K 256 and, when timed, "wide": K4_WIDE's."""
     from agacs_tpu_torch.ops import vocab_lse
 
     res = {part: {"err": 0.0} for part in ("fwd", "dx", "dw")}
+    split = {part: {"err": 0.0} for part in ("fwd", "dx", "dw")}
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for n, k, v in K4_SHAPES:
         x, w, b, gr = k4_inputs(g, dev, n, k, v)
@@ -1617,36 +1670,21 @@ def check_k4(dev, g, timed=True) -> dict:
         lse_p = vocab_lse.lse_plain(x.float(), w.float(), b)
         dx_p, dw_p, db_p = vocab_lse.lse_bwd_plain(x.float(), w.float(), b, lse_p, gr)
         torch.cuda.synchronize()
-        errs = {}
-        for part, name, out, ref, rtol in (
-                ("fwd", "lse", lse, lse_p, None), ("dx", "dx", dx, dx_p, KERNEL_RTOL),
-                ("dw", "dW", dw, dw_p, KERNEL_RTOL), ("dw", "db", db, db_p, K4_DB_RTOL)):
-            diff = (out.float() - ref).abs()
-            err = diff.max().item()
-            if rtol is None:  # relative per row, |lse| floored at 1 nat
-                ok = bool((diff <= K4_LSE_RTOL * ref.abs().clamp(min=1.0)).all())
-                bound = f"{K4_LSE_RTOL} x max(|lse|, 1) per row"
-            else:
-                bound = rtol * ref.abs().max().item()
-                ok = err <= bound
-            check(tuple(out.shape) == tuple(ref.shape) and ok
-                  and bool(torch.isfinite(out).all()),
-                  f"K4 {name} ({n}, {k}) x ({k}, {v}): finite, max_abs_err {err} <= {bound}")
-            errs[name] = err
-            res[part]["err"] = max(res[part]["err"], err)
+        errs = k4_errors((("fwd", "lse", lse, lse_p, None), ("dx", "dx", dx, dx_p, KERNEL_RTOL),
+                          ("dw", "dW", dw, dw_p, KERNEL_RTOL), ("dw", "db", db, db_p, K4_DB_RTOL)),
+                         n, k, v, split if k > vocab_lse.HK_MAX else res)
         check(torch.equal(lse, lse2) and torch.equal(dx, dx2) and torch.equal(dw, dw2)
               and torch.equal(db, db2),
               f"K4 lse, dx and dw ({n}, {k}) x ({k}, {v}): a second run bit-identical")
         del lse2, dx2, dw2, db2
         tf = vocab_lse.fwd_tiling(n, k, v, sms)
-        tx, tw = vocab_lse.dx_tiling(n, k, v, sms), vocab_lse.dw_tiling(k)
         line = (f"phase 2v K4 vocab_lse ({n}, {k}) x ({k}, {v}): max_abs_err "
                 + ", ".join(f"{nm} {e:.3e}" for nm, e in errs.items())
                 + f" (bounds lse {K4_LSE_RTOL} relative, dx/dW {KERNEL_RTOL} and db "
                 f"{K4_DB_RTOL} x max|plain f32|), all finite; b, lse and g NaN past their "
                 f"ends; lse, dx and dw bit-identical on a second run; forward "
-                f"{tf['route']} (BM {tf['BM']}, C {tf['C']}); backward {tx['route']} (dx "
-                f"C {tx['C']}; dw block {tw['BV']} columns)")
+                f"{tf['route']} (BM {tf['BM']}, C {tf['C']}); "
+                + k4_backward_tiling(n, k, v, sms))
         if timed and (n, k, v) == K4_SHAPES[0]:
             times, line = k4_times(g, dev, (n, k, v), gr, 2, {"fwd": 10, "dx": 20, "dw": 20},
                                    line)
@@ -1654,23 +1692,115 @@ def check_k4(dev, g, timed=True) -> dict:
                 res[part].update(times[part])
         print(line, flush=True)
         torch.cuda.empty_cache()
-    if timed:  # the whisper CTC head: PR 7's wmma backward, a few calls
-        n, k, v = K4_WIDE
-        x, w, b, gr = k4_inputs(g, dev, n, k, v)
-        lse_p = vocab_lse.lse_plain(x, w, b)
-        diff = (vocab_lse._launch_fwd(x, w, poisoned(b)) - lse_p).abs()
-        check(bool((diff <= K4_LSE_RTOL * lse_p.abs().clamp(min=1.0)).all()),
-              f"K4 lse {K4_WIDE}: finite, within {K4_LSE_RTOL} relative per row")
-        tf = vocab_lse.fwd_tiling(n, k, v, sms)
-        _, line = k4_times(g, dev, K4_WIDE, gr, 1, {"fwd": 3, "dx": 2, "dw": 2},
-                           f"phase 2v K4 vocab_lse {K4_WIDE} (the whisper CTC head): lse "
-                           f"max_abs_err {diff.max().item():.3e}; forward {tf['route']} (BM "
-                           f"{tf['BM']}, C {tf['C']}); backward "
-                           f"{vocab_lse.dx_tiling(n, k, v, sms)['route']}")
-        print(line, flush=True)
-        del x, w, b, gr, lse_p, diff
-        torch.cuda.empty_cache()
+    res["split"] = split
+    if timed:
+        res["wide"] = k4_wide(g, dev, sms)
     return res
+
+
+def k4_wide(g, dev, sms: int) -> dict:
+    """Phase 2v at K4_WIDE, the whisper CTC head's shape: the forward, dx and
+    dw (b and g NaN past their ends) against their plain versions, then
+    timed as at the training shape (`k4_times`), the split kernels' two
+    exchanges in turns (`k4_exchange_turns`), and the clusters of the split
+    kernels the card holds at once, with the waves their tiles take.
+    Returns {"fwd", "dx", "dw"} results."""
+    from agacs_tpu_torch.ops import cuda_lib, vocab_lse
+
+    n, k, v = K4_WIDE
+    res = {part: {"err": 0.0} for part in ("fwd", "dx", "dw")}
+    x, w, b, gr = k4_inputs(g, dev, n, k, v)
+    b, gr = poisoned(b), poisoned(gr)
+    lse = vocab_lse._launch_fwd(x, w, b)
+    dx = vocab_lse._launch_dx(x, w, b, lse, gr)
+    dw, db = vocab_lse._launch_dw(x, w, b, lse, gr)
+    lse_p = vocab_lse.lse_plain(x, w, b)
+    dx_p, dw_p, db_p = vocab_lse.lse_bwd_plain(x, w, b, lse_p, gr)
+    torch.cuda.synchronize()
+    errs = k4_errors((("fwd", "lse", lse, lse_p, None), ("dx", "dx", dx, dx_p, KERNEL_RTOL),
+                      ("dw", "dW", dw, dw_p, KERNEL_RTOL), ("dw", "db", db, db_p, K4_DB_RTOL)),
+                     n, k, v, res)
+    del dx_p, dw_p, db_p, lse_p
+    torch.cuda.empty_cache()
+    waves = []
+    for part, dw_flag, tiles in (("dx", 0, -(-n // vocab_lse.DX_BM)),
+                                 ("dw", 1, -(-v // vocab_lse.DW_BV))):
+        held = cuda_lib.load("vocab_lse", "vocab_lse_split_clusters",
+                             [ctypes.c_int, ctypes.c_int])(k, dw_flag)
+        check(held > 0, f"the card holds clusters of the split {part} kernel at K {k}: {held}")
+        waves.append(f"{part} {tiles} tiles x C {k // vocab_lse.KS} on {held} clusters at once: "
+                     f"{-(-tiles // held)} waves ({tiles / (-(-tiles // held) * held):.1%} full)")
+    tf = vocab_lse.fwd_tiling(n, k, v, sms)
+    line = (f"phase 2v K4 vocab_lse {K4_WIDE} (the whisper CTC head): max_abs_err "
+            + ", ".join(f"{nm} {e:.3e}" for nm, e in errs.items())
+            + f" (the bounds above), all finite; forward {tf['route']} (BM {tf['BM']}, C "
+            f"{tf['C']}); " + k4_backward_tiling(n, k, v, sms) + "; " + "; ".join(waves))
+    times, line = k4_times(g, dev, K4_WIDE, gr, 1, {"fwd": 10, "dx": 20, "dw": 20}, line)
+    for part in res:
+        res[part].update(times[part])
+    print(line, flush=True)
+    k4_exchange_turns(x, w, b, lse, gr, dx, dw, db)
+    del x, w, b, gr, lse, dx, dw, db
+    torch.cuda.empty_cache()
+    return res
+
+
+def k4_exchange_turns(x, w, b, lse, g, dx, dw, db) -> None:
+    """The split kernels' two exchanges (csrc/vocab_lse.cu, GATHER and
+    SCATTER) at one shape: each one's dx and dW bit-identical to the
+    default's (`dx`, `dw`: the same rank-order sums and dz), db within
+    K4_DB_RTOL, then dx and dw timed in turns (GATHER, SCATTER, SCATTER,
+    GATHER; 10 calls each)."""
+    from agacs_tpu_torch.ops import cuda_lib, vocab_lse
+
+    set_exchange = cuda_lib.load("vocab_lse", "vocab_lse_set_exchange", [ctypes.c_int])
+    wp = [(x, w, b, lse, g, vocab_lse._rows8(w))]
+    ms = {0: [], 1: []}
+    try:
+        for xch in (0, 1, 1, 0):
+            cuda_lib.check(set_exchange(xch), "vocab_lse_set_exchange")
+            dx2 = vocab_lse._launch_dx(x, w, b, lse, g)
+            dw2, db2 = vocab_lse._launch_dw(x, w, b, lse, g)
+            torch.cuda.synchronize()
+            check(torch.equal(dx, dx2) and torch.equal(dw, dw2)
+                  and (db2 - db).abs().max().item() <= K4_DB_RTOL * db.abs().max().item(),
+                  f"K4 split exchange {xch}: dx and dW bit-identical, db within bound")
+            ms[xch].append((cuda_ms(lambda *a: vocab_lse._launch_dx(*a[:5], wp=a[5]), wp, 10),
+                            cuda_ms(lambda *a: vocab_lse._launch_dw(*a[:5], wp=a[5]), wp, 10)))
+    finally:
+        set_exchange(1)
+    fmt = lambda t: " / ".join(f"dx {a:.4f} dw {b:.4f}" for a, b in t)
+    print(f"phase 2v K4 split exchanges at {tuple(x.shape)} x {tuple(w.shape)} in turns "
+          f"(GATHER, SCATTER, SCATTER, GATHER; ms a call): GATHER {fmt(ms[0])}; SCATTER "
+          f"{fmt(ms[1])}; dx and dW bit-identical across both", flush=True)
+
+
+# `--k4-turns DIR`: one process per turn, in the tree at `root`: K4's three
+# passes at K4_WIDE timed by that tree's `k4_times` (its forward, dx and dw
+# with the padded W handed in, beside their plain versions and cuBLAS).
+K4_TURN = ("import sys, json, torch; sys.path.insert(0, {root!r}); import chip_smoke as c; "
+           "dev = torch.device('cuda'); g = torch.Generator().manual_seed(0); "
+           "gr = torch.randn(c.K4_WIDE[0], generator=g).to(dev); "
+           "res, _ = c.k4_times(g, dev, c.K4_WIDE, gr, 1, {iters!r}, ''); "
+           "print('K4_TURN', json.dumps({{p: r['ms'] for p, r in res.items()}}))")
+
+
+def k4_turns(other: str) -> None:
+    """K4 at K4_WIDE in the tree at `other` and in this one, in turns
+    (other, this, this, other), one process each; each tree builds its
+    own kernels."""
+    other = os.path.abspath(other)
+    check(os.path.isfile(os.path.join(other, "chip_smoke.py")), f"{other} holds chip_smoke.py")
+    for tree in (other, ROOT, ROOT, other):
+        proc = subprocess.run(
+            [sys.executable, "-c", K4_TURN.format(root=tree,
+                                                  iters={"fwd": 10, "dx": 20, "dw": 20})],
+            cwd=tree, capture_output=True, text=True, timeout=1200)
+        found = [ln for ln in proc.stdout.splitlines() if ln.startswith("K4_TURN ")]
+        check(proc.returncode == 0 and len(found) == 1,
+              f"K4 turn in {tree}: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+        print(f"k4-turns {'this tree' if tree == ROOT else tree}: {K4_WIDE} ms a call "
+              + found[0].split(" ", 1)[1], flush=True)
 
 
 def check_k3f32(dev, g, timed=True) -> dict:
@@ -3533,6 +3663,180 @@ def conformer_train_parity(sd, dev, batch) -> dict:
     return {"card": card, "control": control}
 
 
+# Phases 36-38: the TMECS full fine-tune recipe (train_asr_whisper_small.yaml,
+# no freeze preset) with ctc_weight overridden to 0.3, the ESPnet hybrid
+# weight of the conformer recipe: whisper-small at full depth with its CTC
+# head, so K4 runs at (12000, 768) x (768, 51865) once each way a micro-batch
+# of 16 x 15 s. Phase 38 holds loss_ctc and the CTC head's gradients to
+# phase 31's bounds (CONF_TRAIN_REL, CONF_TRAIN_COS) against the CPU in
+# float32.
+WHISPER_CTC_WEIGHT = 0.3
+WHISPER_CTC_LAUNCHES = {"K4": 1, "K4 dx": 1, "K4 dw": 1}
+WHISPER_CTC_STEPS = 3
+
+
+def k4_counts() -> dict:
+    from agacs_tpu_torch.ops import vocab_lse
+
+    return {"K4": vocab_lse.FWD_LAUNCHES, "K4 dx": vocab_lse.DX_LAUNCHES,
+            "K4 dw": vocab_lse.DW_LAUNCHES}
+
+
+def whisper_ctc_model(dev, dtype, sd=None, specaug: bool = True):
+    """The recipe's model as `bin.train` builds it (its config with
+    ctc_weight WHISPER_CTC_WEIGHT, float32 masters, the recipe's freeze
+    preset: none, so every parameter trains) from `sd`, or from random
+    weights with the CTC head (torch seed 7). Returns (model, trainable
+    parameters, config, sd, raw config, task)."""
+    import dataclasses
+
+    from agacs_tpu_torch.models.whisper import Whisper
+    from agacs_tpu_torch.train.freeze import apply_freeze
+    from agacs_tpu_torch.utils.config import load_yaml, task_from_dict
+
+    raw = load_yaml(os.path.join(ROOT, "recipes", "tmecs", "conf",
+                                 "train_asr_whisper_small.yaml"))
+    raw = {**raw, "model_conf": {**raw["model_conf"], "ctc_weight": WHISPER_CTC_WEIGHT}}
+    task = task_from_dict(raw, compute_dtype=dtype)
+    cfg = task.cfg if specaug else dataclasses.replace(task.cfg, use_specaug=False)
+    if sd is None:
+        sd = task.init_fn(torch.Generator().manual_seed(7), cfg)
+    model = Whisper.from_state_dict(cfg.whisper, sd, device=dev, param_dtype=torch.float32)
+    params = apply_freeze(model, raw.get("freeze_param"))
+    model.cast_frozen_(dtype)
+    return model, params, cfg, sd, raw, task
+
+
+def whisper_ctc_phase(dev) -> dict:
+    """Phases 36 and 37: the recipe's training step with the CTC head, 16 x
+    15 s a step: one warm-up, then WHISPER_CTC_STEPS timed steps with
+    exact K4 launches, then one more under torch.profiler."""
+    from agacs_tpu_torch.ops import vocab_lse
+    from agacs_tpu_torch.train.optim import build_optimizer
+    from agacs_tpu_torch.train.trainer import make_train_step
+    from agacs_tpu_torch.utils.config import optim_config_from_dict
+
+    t0 = time.perf_counter()
+    model, params, cfg, sd, raw, task = whisper_ctc_model(dev, torch.bfloat16)
+    ocfg = optim_config_from_dict(raw)
+    n_params = sum(p.numel() for p in model.parameters())
+    check(ocfg.optim == "adamw" and ocfg.grad_clip == 1.0 and cfg.ctc_weight == WHISPER_CTC_WEIGHT
+          and sum(p.numel() for p in params) == n_params and model.ctc.weight.shape == (
+              cfg.whisper.n_vocab, cfg.whisper.n_audio_state),
+          f"the recipe's full fine-tune with a CTC head: {ocfg}")
+    opt, sched = build_optimizer(params, ocfg)
+    step = make_train_step(model, cfg, opt, sched, grad_clip=ocfg.grad_clip,
+                           generator=torch.Generator().manual_seed(1), loss_fn=task.loss_fn)
+    batch = make_train_batch(TRAIN_B, TRAIN_S, dev)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()
+              if n in ("ctc.weight", "ctc.bias")}
+    step([batch])  # warm-up: cuBLAS handles, the kernels' first launches
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    vocab_lse.FWD_LAUNCHES = vocab_lse.DX_LAUNCHES = vocab_lse.DW_LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for _ in range(WHISPER_CTC_STEPS):
+        t0 = time.perf_counter()
+        stats = step([batch])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append((float(stats["loss"]), float(stats["loss_ctc"]), float(stats["loss_att"])))
+    launches = k4_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {k: v * WHISPER_CTC_STEPS for k, v in WHISPER_CTC_LAUNCHES.items()}
+    check(launches == want, f"whisper CTC train launches {launches} == {want}")
+    check(all(np.isfinite(v) for row in losses for v in row)
+          and int(stats["grad_nonfinite_total"]) == 0, f"finite whisper CTC losses {losses}")
+    state = dict(model.named_parameters())
+    check(all(not torch.equal(state[n], p) for n, p in before.items()), "the CTC head changed")
+    ms = statistics.median(times) * 1e3
+    audio_s = TRAIN_B * TRAIN_S
+    print(f"phase 36 whisper CTC train: train_asr_whisper_small.yaml (TMECS full fine-tune, no "
+          f"freeze preset; whisper-small 12 + 12 layers, d 768) with ctc_weight "
+          f"{WHISPER_CTC_WEIGHT} (CTC head 768 -> {cfg.whisper.n_vocab}), AdamW, WarmupLR 500, "
+          f"clip 1, SpecAug, bf16 / f32 masters, {TRAIN_B} x {TRAIN_S} s a step: {ms:.1f} "
+          f"ms/step (median of {[round(t * 1e3, 1) for t in times]}), "
+          f"{audio_s / (ms / 1e3):.1f} audio-s/s; peak {peak_gb:.2f} GB; "
+          f"{n_params / 1e6:.2f}M parameters, all trained; losses (loss, ctc, att) "
+          f"{[tuple(round(v, 3) for v in row) for row in losses]}; launches {launches} "
+          f"({WHISPER_CTC_LAUNCHES} per step); built + warm-up {load_s:.1f} s", flush=True)
+
+    busy, n_events, per_name = device_profile(lambda: step([batch]))
+
+    def dev_ms(*keys):
+        return sum(v for name, v in per_name.items() if any(k in name for k in keys))
+
+    k4_ms = {"fwd": dev_ms("vocab_lse_fwd"), "dx": dev_ms("vocab_lse_split_kernel<false"),
+             "dx_any": dev_ms("vocab_lse_dx", "vocab_lse_split_kernel<false"),
+             "dw": dev_ms("vocab_lse_split_kernel<true")}
+    check(k4_ms["dx"] > 0 and k4_ms["dw"] > 0 and k4_ms["dx"] == k4_ms["dx_any"],
+          f"the profiled step's K4 backward ran the split kernels: {k4_ms}")
+    print(f"phase 37 whisper CTC train profile: device busy {busy:.1f} ms in {n_events} device "
+          f"events; idle {1 - busy / ms:.1%} of phase 36's {ms:.1f} ms/step; K4 fwd "
+          f"{k4_ms['fwd']:.4f} ms, dx {k4_ms['dx']:.4f} ms, dw {k4_ms['dw']:.4f} ms "
+          f"({(k4_ms['fwd'] + k4_ms['dx'] + k4_ms['dw']) / busy:.1%} of busy); top: "
+          + top_kernels(per_name), flush=True)
+    del model, opt, step, before, state, params
+    torch.cuda.empty_cache()
+    return {"launches": launches, "ms": ms, "busy": busy, "k4_ms": k4_ms, "sd": sd,
+            "batch": batch}
+
+
+def whisper_ctc_micro_step(sd, dev, dtype, one) -> tuple[dict, dict]:
+    """One micro-step of phase 36's model on `dev` (SpecAug off; the recipe
+    has no dropout): ({loss, loss_ctc, loss_att}, every gradient in float32
+    on the CPU by name)."""
+    model, _, cfg, _, _, task = whisper_ctc_model(dev, dtype, sd, specaug=False)
+    loss, stats = task.loss_fn(model, cfg, {k: v.to(dev) for k, v in one.items()},
+                               generator=torch.Generator().manual_seed(0))
+    loss.backward()
+    return ({k: float(stats[k].detach()) for k in ("loss", "loss_ctc", "loss_att")},
+            {n: p.grad.float().cpu() for n, p in model.named_parameters()})
+
+
+def whisper_ctc_parity(sd, dev, batch) -> dict:
+    """Phase 38: one micro-step on one 15 s utterance, card bf16 (K4) and a
+    bf16 control (K4's plain version) against the port on the CPU in
+    float32, same weights: loss_ctc and the CTC head's gradient cosine within
+    phase 31's bounds, the card within 2x the control (or a tenth of the
+    bound)."""
+    one = {k: v[:1] for k, v in batch.items()}
+    t0 = time.perf_counter()
+    ref = whisper_ctc_micro_step(sd, torch.device("cpu"), torch.float32, one)
+    cpu_s = time.perf_counter() - t0
+    from agacs_tpu_torch.ops import vocab_lse
+
+    vocab_lse.FWD_LAUNCHES = vocab_lse.DX_LAUNCHES = vocab_lse.DW_LAUNCHES = 0
+    run = whisper_ctc_micro_step(sd, dev, torch.bfloat16, one)
+    check(k4_counts() == WHISPER_CTC_LAUNCHES, f"the card micro-step's launches {k4_counts()}")
+    with plain_k5_k4():
+        control = conformer_parity(whisper_ctc_micro_step(sd, dev, torch.bfloat16, one), ref)
+    check(k4_counts() == WHISPER_CTC_LAUNCHES, "the bf16 control launched no K4")
+    card = conformer_parity(run, ref)
+    check(all(np.isfinite(v) for v in run[0].values())
+          and all(bool(torch.isfinite(g).all()) for n, g in run[1].items()
+                  if n.startswith("ctc.")), "finite card loss and CTC head gradients")
+    bounds = {}
+    for key in ("loss_ctc", "cos_ctc"):
+        bound = {**CONF_TRAIN_REL, **CONF_TRAIN_COS}[key]
+        is_cos = key.startswith("cos")
+        c_err, k_err = (1 - control[key], 1 - card[key]) if is_cos else (control[key], card[key])
+        fixed = 1 - bound if is_cos else bound
+        limit = fixed if c_err <= fixed else 2 * c_err
+        bounds[key] = limit
+        check(k_err <= limit, f"whisper CTC parity {key}: card {k_err} <= {limit}")
+        check(k_err <= max(2 * c_err, fixed / 10),
+              f"whisper CTC parity {key}: card {k_err} <= 2 x control {c_err} (or {fixed / 10})")
+    fmt = lambda r: ", ".join(f"{k} {r[k]:.2e}" if not k.startswith("cos") else f"{k} {r[k]:.6f}"
+                              for k in ("loss", "loss_ctc", "loss_att", "grad_norm", "cos_enc",
+                                        "cos_dec", "cos_ctc"))
+    print(f"phase 38 whisper CTC parity vs cpu f32 (1 x {TRAIN_S} s; rel errors, cosines): "
+          f"card bf16 {fmt(card)}; bf16 control (plain K4) {fmt(control)}; bounds on loss_ctc "
+          f"and cos_ctc (1 - cos) {bounds}; cpu step {cpu_s:.1f} s", flush=True)
+    return {"card": card, "control": control}
+
+
 # `--splits`: K3's instances at their main-path shapes, (name, rows or
 # groups, Tp, d, heads, pos, form).
 SPLIT_SWEEP = (("K3 greedy cross", 8, 752, D, H, 749, "bf16"),
@@ -3708,6 +4012,31 @@ MUTANTS = {
     "K4 dx split: the last rank's partial dropped": (
         "vocab_lse.cu", [("      if (src < C) {\n        a.x += lo[src].x",
                           "      if (src < C - 1) {\n        a.x += lo[src].x")], ("k4",)),
+    # The split kernels above K 256 (dx and dw on clusters of K / 128).
+    "K4 split: one rank's S partial left out of the rank-order sum": (
+        "vocab_lse.cu", [("      if (r < C) z.x += v[r].x, z.y += v[r].y, z.z += v[r].z, z.w += v[r].w;",
+                          "      if (r < C - 1) z.x += v[r].x, z.y += v[r].y, z.z += v[r].z, z.w += v[r].w;")],
+        ("k4",)),
+    "K4 split dx V tail unmasked at K > 256 (b read past V)": (
+        "vocab_lse.cu", [("st0[s * VT + c] = j < V ? bias[j] : -INFINITY;",
+                          "st0[s * VT + c] = bias[j];")], ("k4",)),
+    "K4 split dw row tail unmasked (lse and g read past N)": (
+        "vocab_lse.cu", [("st0[s * VT + c] = j < N ? lse[j] * LOG2E : INFINITY;",
+                          "st0[s * VT + c] = lse[j] * LOG2E;"),
+                         ("st1[s * VT + c] = j < N ? g[j] : 0.f;", "st1[s * VT + c] = g[j];")],
+        ("k4",)),
+    # db's columns belong to one rank each (the quads it reduces); here
+    # every rank writes db from its own sums at the first ranks' columns
+    "K4 split dw: db written by every rank, not by each column's rank": (
+        "vocab_lse.cu", [("        const int quad = rank * 32 / C + (warp & 3) + 4 * m;\n"
+                          "        if (quad >= q1) break;\n#pragma unroll\n        for (int o = 1;",
+                          "        const int quad = (warp & 3) + 4 * m;\n"
+                          "        if (quad >= q1 - rank * 32 / C) break;\n#pragma unroll\n"
+                          "        for (int o = 1;")], ("k4",)),
+    "K4 split: a rank reads the partials one phase early": (
+        "vocab_lse.cu", [("hop::mbar_wait_cluster(&sfull[x * 2 + wg], (it >> 1) & 1);",
+                          "hop::mbar_wait_cluster(&sfull[x * 2 + wg], ((it >> 1) & 1) ^ 1);")],
+        ("k4",)),
     "K5 shift off by one": (
         "relpos_flash.cu", [("return pw[(16 * warp + r) * PL + 15 - r + c];",
                              "return pw[(16 * warp + r) * PL + 16 - r + c];")], ("k5",)),
@@ -3869,6 +4198,10 @@ MUTANTS = {
         "vocab_lse.cu", [("if (more) hop::mbar_wait(&full[q.s], q.ph);",
                           "if (more) hop::mbar_wait(&full[q.s], q.ph ^ 1);")],
         ("k4",)),
+    "K4 ring: the split kernels read a slot one phase early": (
+        "vocab_lse.cu", [("if (more) hop::mbar_wait(&full[nx.s], nx.ph);",
+                          "if (more) hop::mbar_wait(&full[nx.s], nx.ph ^ 1);")],
+        ("k4",)),
     "K2 ring: a slot read one phase early": (
         "int8_mlp.cu", [("hop::mbar_wait(&R.full[cur.s], cur.ph);",
                          "hop::mbar_wait(&R.full[cur.s], cur.ph ^ 1);")], ("k2",)),
@@ -3953,15 +4286,20 @@ def mutants(dev, only=()) -> None:
 
 def demangled_kernel(mangled: str) -> str:
     """The identifier of a mangled `..._kernel(...)` name: the part of it
-    that a length prefix of the mangling (the digits before it) spans."""
+    that a length prefix of the mangling (the digits before it) spans, with
+    its template arguments (bool and int ones) when it has them."""
     m = re.search(r"\w+?_kernel(?=E|I)", mangled)
     s = m.group(0) if m else mangled
+    args = re.match(r"I((?:L[bi]\d+E)+)E", mangled[m.end():]) if m else None
+    tmpl = ("<" + ", ".join(("false", "true")[int(v)] if t == "b" else v
+                            for t, v in re.findall(r"L([bi])(\d+)E", args.group(1))) + ">"
+            if args else "")
     for j in range(1, len(s)):
         if s[j - 1].isdigit() and not s[j].isdigit():
             digits = re.search(r"\d+$", s[:j]).group()
             if any(int(digits[i:]) == len(s) - j for i in range(len(digits))):
-                return s[j:]
-    return s
+                return s[j:] + tmpl
+    return s + tmpl
 
 
 def ptxas_entries(log: str) -> str:
@@ -4126,6 +4464,9 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--splits"]:
         split_sweep(dev)
+        return 0
+    if sys.argv[1:2] == ["--k4-turns"] and len(sys.argv) == 3:
+        k4_turns(sys.argv[2])
         return 0
 
     # 1. device and build
@@ -4297,6 +4638,10 @@ def main() -> int:
     conf_train = conformer_train_phase(dev)
     conformer_train_parity(conf_train.pop("sd"), dev, conf_train.pop("batch"))
 
+    # 36-38. the TMECS full fine-tune with a CTC head: K4 above K 256
+    wctc = whisper_ctc_phase(dev)
+    whisper_ctc_parity(wctc.pop("sd"), dev, wctc.pop("batch"))
+
     check(not any(m.split(".")[0] in ("jax", "jaxlib", "agacs_tpu") for m in sys.modules),
           "no jax, jaxlib or agacs_tpu module was imported")
 
@@ -4367,6 +4712,15 @@ def main() -> int:
         entry("vocab_lse_dw (K4 dw, its gradient in the head's weight and bias)",
               "vocab_lse.cu", "agacs_tpu/ops/vocab_lse.py:224", conf_train["launches"]["K4 dw"],
               k4["dw"]),
+        entry("vocab_lse_fwd at K > 256 (K4, the whisper CTC head: 64 x 64 W chunks)",
+              "vocab_lse.cu", "agacs_tpu/ops/vocab_lse.py:169", wctc["launches"]["K4"],
+              k4["wide"]["fwd"]),
+        entry("vocab_lse_dx at K > 256 (K4 dx, the whisper CTC head: the K-wide accumulator "
+              "split over a cluster)", "vocab_lse.cu", "agacs_tpu/ops/vocab_lse.py:207",
+              wctc["launches"]["K4 dx"], k4["wide"]["dx"]),
+        entry("vocab_lse_dw at K > 256 (K4 dw, the whisper CTC head: the K-wide accumulator "
+              "split over a cluster)", "vocab_lse.cu", "agacs_tpu/ops/vocab_lse.py:224",
+              wctc["launches"]["K4 dw"], k4["wide"]["dw"]),
     ]
     kernels += [
         entry("w8a16_matmul (K6, the W8A16 thin-row matmul: 8-row decode products under "

@@ -1,16 +1,19 @@
-"""K4's Hopper backward on the CPU (`csrc/vocab_lse.cu`, K <= 256): dx and
-dw compute z once per (row tile, V tile) on wgmma, with exp2 and log2 e
-folded in, rows >= N and columns >= V masked by index and dz rounded to
-bf16 as the register operand of the second product; dx splits each
-128-row tile's V sweep over a cluster of C blocks whose f32 partials are
-added in rank order, and dw builds dW as the transpose of dz^T . X with db
-from the f32 dz. Here: a torch model of that arithmetic order
-(`split_ref`) at ragged shapes (N 700, V 5000; K 128, 256 and 768)
-against JAX's `_bwd_pallas` interpreted and against `lse_bwd_plain`; the
-model without one rank's partial, which must fail; the tiling rules
+"""K4's Hopper backward on the CPU (`csrc/vocab_lse.cu`): dx and dw compute
+z once per (row tile, V tile) on wgmma, with exp2 and log2 e folded in,
+rows >= N and columns >= V masked by index and dz rounded to bf16 as the
+register operand of the second product. At K <= 256 dx splits each 128-row
+tile's V sweep over a cluster of C blocks whose f32 partials are added in
+rank order, and dw builds dW as the transpose of dz^T . X with db from the
+f32 dz; above K 256 the K-wide accumulator is split over a cluster of C =
+K / 128 ranks: each rank's partial S over its K-slice, the C partials added
+in rank order, dX and dW^T by slices, db once. Here: a torch model of that
+arithmetic order (`split_ref`) at ragged shapes (N 700, V 5000; K 128 to
+1024) against JAX's `_bwd_pallas` interpreted and against `lse_bwd_plain`;
+the model without one rank's partial, which must fail; the tiling rules
 (`dx_tiling`, `dw_tiling`) at every K the wrapper admits against the
-card's limits and the source's constants; and, on the card, the kernels
-against their plain versions.
+card's limits and the source's constants; the backward's gradients of a
+frozen head or input (None, the others unchanged); and, on the card, the
+kernels against their plain versions.
 
 Tolerances, those of `test_torch_vocab_lse.py`: dx and dW 1e-2 x max |ref|
 (bf16 dz and bf16 outputs after float32 sums in another order), db 1e-5 x
@@ -49,11 +52,12 @@ def dx_ranges(v: int, c: int) -> list[tuple[int, int]]:
     return [(r * n_vt // c, (r + 1) * n_vt // c) for r in range(c)]
 
 
-def _split_dz(x, w, b, lse, g):
+def _split_dz(x, w, b, lse, g, s=None):
     """The wgmma kernels' f32 dz over tiles padded by index: rows to a
     multiple of 128 (lse log2 e +inf and g 0 there), columns to a multiple
-    of 64 (bias -inf there, W zero), with exp2 and log2 e folded in.
-    Returns (dz (Np, Vp) f32, x and W padded, float32)."""
+    of 64 (bias -inf there, W zero), with exp2 and log2 e folded in; S the
+    padded x . W, or `s`. Returns (dz (Np, Vp) f32, x and W padded,
+    float32)."""
     n, k = x.shape
     v = w.shape[1]
     np_, vp = -(-n // vocab_lse.DX_BM) * vocab_lse.DX_BM, -(-v // vocab_lse.VT) * vocab_lse.VT
@@ -67,7 +71,8 @@ def _split_dz(x, w, b, lse, g):
     l2[:n] = lse.float() * LOG2E
     gp = torch.zeros(np_)
     gp[:n] = g.float()
-    dz = torch.exp2((xf @ wf + bias) * LOG2E - l2[:, None]) * gp[:, None]
+    s = xf @ wf if s is None else s
+    dz = torch.exp2((s + bias) * LOG2E - l2[:, None]) * gp[:, None]
     return dz, xf, wf
 
 
@@ -81,14 +86,45 @@ def dx_partials(x, w, b, lse, g, c: int) -> list[torch.Tensor]:
             for t0, t1 in dx_ranges(w.shape[1], c)]
 
 
-def split_ref(x, w, b, lse, g, c: int = 1):
-    """(dx, dW, db) in the wgmma kernels' arithmetic order: dz with exp2 and
-    log2 e folded in, rows >= N and columns >= V masked by index; dx the C
-    ranks' partials added in rank order, rounded to x's dtype; dW the
-    transpose of dz^T . X (bf16 dz), cast to w's dtype; db the column sums
-    of the f32 dz. The order of the float32 sums inside a product is the
-    tensor cores', which no CPU product reproduces."""
-    n, v = x.shape[0], w.shape[1]
+def k_slices(k: int, c: int) -> list[slice]:
+    """The K-slices [r k / C, (r + 1) k / C) of the C ranks of a split
+    kernel (K / 128 ranks on the card; the model takes any C dividing K)."""
+    assert k % c == 0, (k, c)
+    return [slice(r * k // c, (r + 1) * k // c) for r in range(c)]
+
+
+def s_partials(x, w, c: int) -> list[torch.Tensor]:
+    """Each rank's f32 partial S (Np, Vp) of a split kernel: its K-slice of
+    the padded x times its K-slice of the padded W."""
+    _, xf, wf = _split_dz(x, w, torch.zeros(w.shape[1]), torch.zeros(x.shape[0]),
+                          torch.zeros(x.shape[0]))
+    return [xf[:, ks] @ wf[ks] for ks in k_slices(x.shape[1], c)]
+
+
+def split_ref(x, w, b, lse, g, c: int = 1, parts=None):
+    """(dx, dW, db) in the kernels' arithmetic order: dz with exp2 and log2
+    e folded in, rows >= N and columns >= V masked by index. At K <= 256 dx
+    the C ranks' partials added in rank order, rounded to x's dtype, and dW
+    the transpose of dz^T . X (bf16 dz), cast to w's dtype. Above K 256 the
+    split kernels' order: S the C ranks' partials over their K-slices added
+    in rank order (`parts`: other partials), dX and dW^T by K-slices of
+    bf16(dz) . W_slice^T and bf16(dz)^T . X_slice. db, either way, the
+    column sums of the f32 dz, taken once. The order of the float32 sums
+    inside a product is the tensor cores', which no CPU product
+    reproduces."""
+    n, k = x.shape
+    v = w.shape[1]
+    if k > vocab_lse.HK_MAX:
+        parts = s_partials(x, w, c) if parts is None else parts
+        s = parts[0]
+        for p in parts[1:]:
+            s = s + p
+        dz, xf, wf = _split_dz(x, w, b, lse, g, s)
+        dzr = dz.to(w.dtype).float()
+        ks = k_slices(k, c)
+        dx = torch.cat([dzr @ wf[sl].t() for sl in ks], 1)
+        dwt = torch.cat([dzr.t() @ xf[:, sl] for sl in ks], 1)
+        return dx[:n].to(x.dtype), dwt.t()[:, :v].to(w.dtype), dz.sum(0)[:v]
     parts = dx_partials(x, w, b, lse, g, c)
     dx = parts[0]
     for p in parts[1:]:
@@ -112,11 +148,17 @@ def dw_smem(k: int) -> int:
     return 1024 + 2 * k * 128 + _constant("STAGES") * _constant("DW_BN") * k * 2 + 2 * strips + bars
 
 
-def wmma_smem(k: int, dx: bool) -> int:
-    """The wmma kernels' (the source's `smem_bytes`)."""
-    br, kc, ck = _constant("BR"), _constant("KC"), _constant("CK")
-    zld, wld = _constant("BV") + 4, _constant("BV") + 8
-    return br * (k + 8) * 2 + kc * wld * 2 + br * zld * 4 + br * wld * 2 + (ck * wld * 2 if dx else 0)
+def split_smem() -> int:
+    """The split kernels' shared memory, the same at every K (the source's
+    `split_smem`): alignment slack, the resident slice (128 x KS bf16), the
+    ring (STAGES slots of KS x 64 bf16), two slots of both warpgroups' f32
+    partial S (32 a thread) and packed P (16), the strips (two tables), the
+    block's row or column tables and the barriers."""
+    ks, stages = _constant("KS"), _constant("STAGES")
+    frag = 128 * 32
+    strips, bars = stages * vocab_lse.VT * 4, (1 + 2 * stages + 8) * 8
+    return (1024 + 128 * ks * 2 + stages * ks * 128 + 4 * frag * 4 + 4 * frag * 2 + 2 * strips
+            + 2 * 128 * 4 + bars)
 
 
 def _np(x) -> np.ndarray:
@@ -132,7 +174,7 @@ def _err(out, ref) -> tuple[float, float]:
     return float(np.abs(out - ref).max()), float(np.abs(ref).max())
 
 
-@pytest.fixture(scope="module", params=[128, 256, 768])
+@pytest.fixture(scope="module", params=[128, 256, 384, 512, 768, 1024])
 def case(request):
     """N 700 (ragged against the 128-row tile), V 5000 (against the 64- and
     128-column tiles) at K: torch inputs (bf16 x and W, f32 b, lse and g)
@@ -155,11 +197,13 @@ def case(request):
 
 @pytest.mark.parametrize("part", ["dx", "dw", "db"])
 def test_split_model_matches_pallas(case, part):
-    """The model at C 8, the cluster `dx_tiling` picks at N 700 and K <= 256."""
-    _, args, ref = case
+    """The model at the cluster `dx_tiling` picks at N 700: C 8 at K <= 256
+    (the V sweep's split), K / 128 above (the K split)."""
+    k, args, ref = case
     i = ("dx", "dw", "db").index(part)
-    assert vocab_lse.dx_tiling(N, 256, V, SMS)["C"] == 8
-    out = split_ref(*args, c=8)[i]
+    c = vocab_lse.dx_tiling(N, k, V, SMS)["C"]
+    assert c == (8 if k <= vocab_lse.HK_MAX else k // 128)
+    out = split_ref(*args, c=c)[i]
     assert out.dtype == (torch.float32 if part == "db" else torch.bfloat16)
     err, top = _err(out, ref[i])
     assert err <= RTOL[part] * top, (part, err, top)
@@ -168,6 +212,8 @@ def test_split_model_matches_pallas(case, part):
 @pytest.mark.parametrize("c", [1, 2, 8])
 @pytest.mark.parametrize("part", ["dx", "dw", "db"])
 def test_split_model_matches_plain(case, part, c):
+    """The model at C 1, 2 and 8 (above K 256: 8 ranks of K / 8, beside the
+    card's K / 128) against the plain backward."""
     _, args, _ = case
     i = ("dx", "dw", "db").index(part)
     err, top = _err(split_ref(*args, c=c)[i],
@@ -176,22 +222,30 @@ def test_split_model_matches_plain(case, part, c):
 
 
 def test_split_model_needs_every_rank(case):
-    """The ranks' partials summed without the last one (C 8) miss dx's
-    bound against JAX: every rank's share is needed."""
-    _, args, ref = case
-    parts = dx_partials(*args, 8)
-    assert all(p.abs().max() > 0 for p in parts)
-    dx = parts[0]
-    for p in parts[1:-1]:
-        dx = dx + p
-    err, top = _err(dx[:N].to(torch.bfloat16), ref[0])
+    """The ranks' partials summed without the last one miss dx's bound
+    against JAX: every rank's share is needed (at K <= 256 the V split's
+    partial dX on a cluster of 8; above, the K split's partial S on the
+    card's K / 128 ranks)."""
+    k, args, ref = case
+    if k > vocab_lse.HK_MAX:
+        c = vocab_lse.dx_tiling(N, k, V, SMS)["C"]
+        parts = s_partials(args[0], args[1], c)
+        assert all(p.abs().max() > 0 for p in parts)
+        dx = split_ref(*args, c=c, parts=parts[:-1])[0]
+    else:
+        parts = dx_partials(*args, 8)
+        assert all(p.abs().max() > 0 for p in parts)
+        dx = parts[0]
+        for p in parts[1:-1]:
+            dx = dx + p
+        dx = dx[:N].to(torch.bfloat16)
+    err, top = _err(dx, ref[0])
     assert err > RTOL["dx"] * top, (err, top)
 
 
 def test_tiling_constants_match_the_source():
-    for name in ("HK_MAX", "DX_BM", "VT", "DW_BV", "MAX_C"):
+    for name in ("HK_MAX", "DX_BM", "VT", "DW_BV", "MAX_C", "KS"):
         assert getattr(vocab_lse, name) == _constant(name), name
-    assert vocab_lse.BV == _constant("BV")  # the forward's and the wmma kernels' tile
     for line in ("constexpr int STRIPS = STAGES * VT * 4;",
                  "constexpr int BARS = (1 + 2 * STAGES) * 8;",
                  "  return DX_BM * K * 2 + STAGES * K * 128 > DX_BM * (K + PAD) * 4",
@@ -199,28 +253,55 @@ def test_tiling_constants_match_the_source():
                  "  return 2 * K * 128 + STAGES * DW_BN * K * 2;",
                  "  return 1024 + dw_region(K) + 2 * STRIPS + BARS;",
                  "static_assert(dx_smem(HK_MAX) <= 232448 && dw_smem(HK_MAX) <= 232448,",
-                 "constexpr int ZLD = BV + 4;", "constexpr int WLD = BV + 8;",
+                 "constexpr int SPLIT_STAGE = KS * 128;",
+                 "constexpr int FRAG = 128 * 32;",
+                 "constexpr int SPLIT_BARS = (1 + 2 * STAGES + 8) * 8;",
+                 "  return 1024 + 128 * KS * 2 + STAGES * SPLIT_STAGE + 4 * FRAG * 4 + 4 * FRAG * 2 +",
+                 "         2 * STRIPS + 2 * 128 * 4 + SPLIT_BARS;",
+                 "static_assert(split_smem() <= 232448 && MAX_C * KS >= 1024 && 3 * KS > HK_MAX,",
+                 "  if (K > HK_MAX ? C != K / KS",
                  "  const dim3 grid(C, (N + DX_BM - 1) / DX_BM);",
                  "  const int vt0 = rank * n_vt / C, nt = (rank + 1) * n_vt / C - vt0;",
+                 "  const int b0 = blockIdx.y * 128, k0 = rank * KS;",
+                 "    return launch_split<true>(mp, dim3(K / KS, Vp / DW_BV), K / KS, st, bf, lf, gf, dw,",
                  "  const dim3 grid(Vp / DW_BV);"):
         assert line in SOURCE, line
+    assert "wmma" not in SOURCE.split("#include")[1], "a wmma kernel is left in the source"
+
+
+def _k_split(k: int, c: int, ks: int) -> None:
+    """Above K 256: C ranks of KS columns, a portable cluster, the K-slices
+    [r KS, (r + 1) KS) covering K once, the kernels' shared memory within
+    227 KB and a rank's quads of the exchange (32 / C of a warpgroup's 32)
+    within the three passes of a warp."""
+    assert ks == vocab_lse.KS == 128 and c * ks == k and 3 <= c <= PORTABLE_CLUSTER
+    cols = [j for r in range(c) for j in range(r * ks, (r + 1) * ks)]
+    assert cols == list(range(k))
+    assert split_smem() <= SMEM
+    quads = [(r + 1) * 32 // c - r * 32 // c for r in range(c)]
+    assert sum(quads) == 32 and max(quads) <= 4 * 3
 
 
 @pytest.mark.parametrize("n", [60, 700, 7488])
 @pytest.mark.parametrize("k", range(128, 1025, 128))
 def test_dx_tiling(k, n):
-    """Shared memory within 227 KB, a cluster of 1, 2, 4 or 8 (the portable
-    sizes) no larger than the V tiles, and a grid of (C, ceil(N / 128))
-    that covers every row tile and, across each cluster's ranks, every V
-    tile exactly once."""
+    """Shared memory within 227 KB and a grid that covers every row once: at
+    K <= 256 a cluster of 1, 2, 4 or 8 (the portable sizes) no larger than
+    the V tiles, (C, ceil(N / 128)) blocks whose ranks sweep every V tile
+    exactly once; above, (K / 128, ceil(N / 128)) blocks, every rank
+    sweeping every V tile for its K-slice of the row tile."""
     v = 51865
     t = vocab_lse.dx_tiling(n, k, v, SMS)
+    gy = -(-n // vocab_lse.DX_BM)
+    rows = [r for y in range(gy) for r in range(y * vocab_lse.DX_BM, (y + 1) * vocab_lse.DX_BM)
+            if r < n]
+    assert rows == list(range(n))
     if k > vocab_lse.HK_MAX:
-        assert t == {"route": "wmma", "C": 1}
-        assert wmma_smem(k, True) <= SMEM
+        assert t == {"route": "split", "C": k // 128, "KS": 128}
+        _k_split(k, t["C"], t["KS"])
         return
     assert t["route"] == "wgmma" and dx_smem(k) <= SMEM
-    c, gy = t["C"], -(-n // vocab_lse.DX_BM)
+    c = t["C"]
     assert c == {60: 8, 700: 8, 7488: 2}[n]
     assert c in (1, 2, 4, 8) and c <= PORTABLE_CLUSTER
     assert c * gy <= SMS or c == 1
@@ -233,20 +314,22 @@ def test_dx_tiling(k, n):
 @pytest.mark.parametrize("n", [60, 700, 7488])
 @pytest.mark.parametrize("k", range(128, 1025, 128))
 def test_dw_tiling(k, n):
-    """Shared memory within 227 KB, a grid of Vp / BV blocks that covers
-    every V column once, and each block's sweep of 64-row x tiles every row
-    once."""
+    """Shared memory within 227 KB, a grid of Vp / BV blocks (above K 256
+    each a cluster of K / 128, one rank per K-slice of dW's rows) that
+    covers every V column once, and each block's sweep of 64-row x tiles
+    every row once."""
     v = 51865
     t = vocab_lse.dw_tiling(k)
     vp = -(-v // t["BV"]) * t["BV"]
-    assert v <= vp < v + t["BV"]
-    if k > vocab_lse.HK_MAX:
-        assert t == {"route": "wmma", "BV": vocab_lse.BV} and wmma_smem(k, False) <= SMEM
-        return
-    assert t == {"route": "wgmma", "BV": vocab_lse.DW_BV} and dw_smem(k) <= SMEM
+    assert v <= vp < v + t["BV"] and t["BV"] == vocab_lse.DW_BV
     bn = _constant("DW_BN")
     rows = [r for r0 in range(0, -(-n // bn) * bn, bn) for r in range(r0, r0 + bn) if r < n]
     assert rows == list(range(n))
+    if k > vocab_lse.HK_MAX:
+        assert t == {"route": "split", "BV": vocab_lse.DW_BV, "C": k // 128, "KS": 128}
+        _k_split(k, t["C"], t["KS"])
+        return
+    assert t == {"route": "wgmma", "BV": vocab_lse.DW_BV} and dw_smem(k) <= SMEM
 
 
 def test_conformer_shape_tiling():
@@ -258,10 +341,40 @@ def test_conformer_shape_tiling():
     assert _constant("STAGES") == 4
 
 
+def test_whisper_ctc_shape_tiling():
+    """The whisper CTC head at 16 x 15 s, (12000, 768) x (768, 51865): dx's
+    94 row tiles and dw's 406 column blocks, each on a cluster of 6."""
+    assert vocab_lse.dx_tiling(12000, 768, 51865, SMS) == {"route": "split", "C": 6, "KS": 128}
+    assert vocab_lse.dw_tiling(768) == {"route": "split", "BV": 128, "C": 6, "KS": 128}
+    assert -(-12000 // vocab_lse.DX_BM) == 94 and -(-51865 // vocab_lse.DW_BV) == 406
+
+
+@pytest.mark.parametrize("frozen", ["head", "input"])
+def test_backward_skips_frozen_gradients(frozen):
+    """A frozen head (w and b need no gradient) gets None for both and x the
+    plain backward's dx; a frozen input gets None and w, b theirs."""
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy(rng.randn(40, 128).astype(np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy((rng.randn(128, 300) * 0.3).astype(np.float32)).to(torch.bfloat16)
+    b = torch.from_numpy(rng.randn(300).astype(np.float32))
+    g = torch.from_numpy(rng.randn(40).astype(np.float32))
+    for t, want in ((x, frozen == "input"), (w, frozen == "head"), (b, frozen == "head")):
+        t.requires_grad_(not want)
+    lse = vocab_lse.streaming_lse(x, w, b)
+    grads = lse.grad_fn.apply(g)
+    ref = vocab_lse.lse_bwd_plain(x.detach(), w.detach(), b.detach(), lse.detach(), g)
+    lse.backward(g)
+    for got, t, r in zip(grads, (x, w, b), ref):
+        if t.requires_grad:
+            assert torch.equal(got, r) and torch.equal(t.grad, r)
+        else:
+            assert got is None and t.grad is None
+
+
 @pytest.mark.cuda
 def test_hopper_backward_matches_plain_on_card():
     """K4's forward, dx and dw against their plain versions on the card, at
-    chip_smoke.py's shapes and bounds (K 128, 256 and 768)."""
+    chip_smoke.py's shapes and bounds (K 128 to 1024)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     import chip_smoke
