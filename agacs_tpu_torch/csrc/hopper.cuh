@@ -5,7 +5,9 @@
 // matrices of any row stride) into 128-byte-swizzled shared memory, the
 // mbarriers that report their arrival, the wgmma products that read those
 // tiles (bf16 in, f32 accumulators; s8 in, s32 accumulators; in registers),
-// named and cluster barriers and the special-function unit's exp2.
+// named and cluster barriers, asynchronous stores into another block's
+// shared memory that complete on its mbarrier (st.async) and the
+// special-function unit's exp2.
 //
 // An int8 tile of 128-byte rows is laid out exactly as a bf16 tile of 64
 // columns: a k32 step of s8 is 32 bytes, as a k16 step of bf16 is, so the
@@ -93,20 +95,9 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 
 // ---- mbarriers across a cluster ------------------------------------------
 //
-// A block's barrier that other blocks of its cluster arrive on: the arrival
-// releases, at cluster scope, the arriving thread's earlier writes (and those
-// ordered before them, e.g. its warp's, by a __syncwarp), and the wait
-// acquires them, so that after it the block reads what the others wrote into
-// its shared memory, or into their own, through distributed shared memory.
-
-// One arrival on the barrier at `bar`'s place in the shared memory of the
-// cluster's block `rank` (this block's own when rank is its own).
-__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t rank) {
-  asm volatile(
-      "{\n.reg .b32 ra;\nmapa.shared::cluster.u32 ra, %0, %1;\n"
-      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [ra];\n}\n" ::"r"(smem_u32(bar)),
-      "r"(rank) : "memory");
-}
+// A block's barrier that other blocks of its cluster complete bytes on
+// (st.async below): its wait acquires at cluster scope, so that after it the
+// block reads what the others stored into its shared memory.
 
 __device__ __forceinline__ uint32_t mbar_try_wait_cluster(uint32_t addr, uint32_t parity) {
   uint32_t done;
@@ -118,13 +109,33 @@ __device__ __forceinline__ uint32_t mbar_try_wait_cluster(uint32_t addr, uint32_
   return done;
 }
 
-// As mbar_wait, acquiring at cluster scope what the arrivals released.
+// As mbar_wait, acquiring at cluster scope.
 __device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = smem_u32(bar);
   if (mbar_try_wait_cluster(addr, parity)) return;
   const long long t0 = clock64();
   while (!mbar_try_wait_cluster(addr, parity))
     if (clock64() - t0 > (1LL << 34)) __trap();
+}
+
+// Asynchronous stores into the shared memory of block `rank` of the
+// cluster, at `dst`'s place there: each completes its bytes on that block's
+// barrier at `bar`'s place, whose phase ends once every byte it awaits has
+// landed (and its arrivals are in), with no fence on this side.
+__device__ __forceinline__ void st_async(void* dst, float4 v, uint64_t* bar, uint32_t rank) {
+  asm volatile(
+      "{\n.reg .b32 d, b;\nmapa.shared::cluster.u32 d, %0, %5;\n"
+      "mapa.shared::cluster.u32 b, %6, %5;\n"
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [d], {%1, %2, %3, %4}, [b];\n}\n"
+      ::"r"(smem_u32(dst)), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(rank),
+      "r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void st_async(void* dst, uint2 v, uint64_t* bar, uint32_t rank) {
+  asm volatile(
+      "{\n.reg .b32 d, b;\nmapa.shared::cluster.u32 d, %0, %3;\n"
+      "mapa.shared::cluster.u32 b, %4, %3;\n"
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b32 [d], {%1, %2}, [b];\n}\n"
+      ::"r"(smem_u32(dst)), "r"(v.x), "r"(v.y), "r"(rank), "r"(smem_u32(bar)) : "memory");
 }
 
 // ---- TMA -----------------------------------------------------------------

@@ -99,7 +99,7 @@
 //   into a second buffer, or 240 registers did not help.
 //
 // Backward above K 256 (the whisper family's CTC head: K 384, 512, 768,
-// 1024; `vocab_lse_split_kernel<DW, XCH>`, one template for dx and dw). A
+// 1024; `vocab_lse_split_kernel<DW>`, one template for dx and dw). A
 // warpgroup's 64 x K f32 accumulator does not fit its registers there (384
 // a thread at K 768) and x's 128 rows take 192 KB, so the K-wide
 // accumulator is split over a thread-block cluster: C = K / KS ranks (KS
@@ -108,44 +108,43 @@
 // rank r owns the K-slice [r KS, (r + 1) KS) of the accumulator and of the
 // resident operand (dx: x's slice of the row tile; dw: W's slice of the
 // column block; TMA). Each rank streams its slice of the other operand
-// through its own 4-slot TMA ring (dx: W's KS x 64 tiles with their bias
+// through its own 5-slot TMA ring (dx: W's KS x 64 tiles with their bias
 // strips; dw: x's 64 x KS tiles with their lse and g strips), a producer
 // warpgroup handing its registers to the consumers (setmaxnreg) as at K <=
 // 256: every element is read from L2 by one rank, once per output tile,
 // and no rank rebuilds z. Per tile a warpgroup computes its partial S_r
-// over the slice on wgmma m64n64k16 (`issue_s`, `issue_st`), writes it into
-// its own shared memory (two slots; a thread's 32 values as 8 float4,
-// swizzled by the thread's index so that a warp's stores fill every bank)
-// and arrives on every rank's barrier for that slot (mapa + a remote
-// mbarrier arrival, released at cluster scope; `hopper.cuh`). The exchange
-// (XCH) then gives every rank the same S, the C partials added in rank
-// order, with no atomics, bit-identical from run to run:
-//   GATHER: each thread reads its 32 values from every rank's partial
-//     through distributed shared memory and adds them; every rank then
-//     takes dz of the whole tile in registers ((C - 1) x 32 KB read and C x
-//     the exps a tile);
-//   SCATTER: rank r takes quads [r 32 / C, (r + 1) 32 / C) of the
-//     warpgroup's 32 (a quad: the 4 threads that hold rows a, a + 8), adds
-//     the C partials of those in rank order, takes their dz and stores the
-//     packed bf16 pairs into every rank's P (two slots), then arrives on
-//     every rank's second barrier; each thread loads its own packed P after
-//     that barrier ((C - 1) / C x 48 KB moved a tile). The product of P lags
-//     its exchange by a tile, so the second barrier completes under a
-//     tile's work.
-// A rank arrives for tile t + 2 only after it has seen every rank's
-// arrival for tile t + 1, which each made after reading tile t, so the
-// double-buffered slots need no release barrier. P (dx) or dz^T (dw) then
-// is the register A operand of dX[:, slice] += P W_slice^T or dW^T[:,
-// slice] += dz^T X_slice (wgmma m64n128k16, on the tile still in the
-// ring). dx stores its bf16 slice directly (ranks own distinct columns); dw
-// stores dW^T transposed into dW (K, Vp) rows [r KS, (r + 1) KS), and db,
-// from the f32 dz, comes from one rank per column (GATHER: rank 0;
-// SCATTER: the rank that owns the column's quad). Rows >= N and columns >=
+// over the slice on wgmma m64n64k16 (`issue_s`, `issue_st`). The exchange
+// is a reduce-scatter of the f32 partials and an all-gather of packed bf16
+// P, both by st.async (`hopper.cuh`): stores into another rank's shared
+// memory that complete their bytes on its mbarrier, so no fence orders
+// them. Rank r owns quads [r 32 / C, (r + 1) 32 / C) of the warpgroup's 32
+// (a quad: the 4 threads that hold rows a, a + 8); each thread stores its
+// 32 S values into its quad's owner (two slots, room for C ceil(32 / C)
+// quads), the owner waits for every rank's bytes, adds the C partials of
+// each of its float4 in rank order, takes dz and stores the packed bf16
+// pairs into every rank's P (two slots), and each thread loads its own
+// packed P once every rank's bytes of it have landed. Every rank so holds
+// the same S, the C partials added in rank order, with no atomics,
+// bit-identical from run to run; (C - 1) / C x 48 KB cross the cluster a
+// tile. The product of P lags its exchange by a tile, so its bytes land
+// under a tile's work; a rank's barriers await a tile's bytes from the
+// phase after the last wait on them, and a rank stores tile t + 2's
+// partial or P only after it has seen every rank's P, or partial, of a
+// tile that each produced after reading tile t: the double-buffered slots
+// need no release barrier. P (dx) or dz^T (dw) then is the register A
+// operand of dX[:, slice] += P W_slice^T or dW^T[:, slice] += dz^T X_slice
+// (wgmma m64n128k16, on the tile still in the ring). dx stores its bf16
+// slice directly (ranks own distinct columns); dw stores dW^T transposed
+// into dW (K, Vp) rows [r KS, (r + 1) KS), and db, from the f32 dz, comes
+// from the one rank that owns the column's quad. Rows >= N and columns >=
 // V are masked by index (lse log2 e +inf and g 0; the bias -inf). Shared
-// memory: 200,840 bytes at every K (`split_smem`); registers of a consumer
-// thread: the accumulator KS / 2 = 64, S 32, packed P 16 (GATHER also the
-// summed S, 32). The C entries dispatch by K, and the tiling rules
-// `vocab_lse.dx_tiling` / `dw_tiling` mirror them.
+// memory: 225,944 bytes at every K (`split_smem`); registers of a consumer
+// thread: the accumulator KS / 2 = 64, S 32, packed P 16. The exchange
+// bounds both kernels, its latency a tile with two slots (PERF.md, PR 17:
+// every rank reading every partial, the same exchange by loads of the
+// others' partials with arrivals released at cluster scope, and by the TMA
+// engine's bulk copies were slower). The C entries dispatch by K, and the
+// tiling rules `vocab_lse.dx_tiling` / `dw_tiling` mirror them.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -863,90 +862,91 @@ vocab_lse_fwd_kernel(const __grid_constant__ Maps mp, const float* __restrict__ 
 // The backward above K 256: the K-wide accumulator split over a cluster (see
 // the header note)
 
-constexpr int KS = 128;                   // the K-slice of a cluster rank
-constexpr int SPLIT_STAGE = KS * 128;     // bytes of a ring slot: KS x 64 or 64 x KS bf16
-constexpr int FRAG = 128 * 32;            // floats of a warpgroup's S tile: 32 a thread
-constexpr int GATHER = 0, SCATTER = 1;    // the exchange (XCH)
-constexpr int SPLIT_BARS = (1 + 2 * STAGES + 8) * 8;
+constexpr int KS = 128;                 // the K-slice of a cluster rank
+constexpr int SPLIT_STAGES = 5;         // ring slots of the split kernels
+constexpr int SPLIT_STAGE = KS * 128;   // bytes of a ring slot: KS x 64 or 64 x KS bf16
+constexpr int QBLK = 32 * 16;           // bytes of a quad's S tile: 32 float4
+constexpr int PBLK = 32 * 8;            // bytes of a quad's packed P: 32 pairs of bf16 pairs
+constexpr int RECV_QUADS = 36;          // max over C of C ceil(32 / C): a receive slot
+constexpr int SPLIT_STRIPS = SPLIT_STAGES * VT * 4;
+constexpr int SPLIT_BARS = (1 + 2 * SPLIT_STAGES + 8) * 8;
 
 // The split kernels' shared memory, the same at every K (a rank holds a
-// KS-wide slice): the resident slice (128 x KS bf16), the ring (STAGES
-// slots), the S partials (2 slots x 2 warpgroups, f32), the packed P (2 x
-// 2, bf16 pairs), the per-slot strips (two tables), the block's row or
+// KS-wide slice): the resident slice (128 x KS bf16), the ring
+// (SPLIT_STAGES slots), the partials every rank sends for this rank's
+// quads (2 slots x 2 warpgroups x RECV_QUADS quads, f32), P (2 x 2 x 32
+// quads, bf16 pairs), the per-slot strips (two tables), the block's row or
 // column tables (2 x 128 f32) and the barriers.
 __host__ __device__ constexpr size_t split_smem() {
-  return 1024 + 128 * KS * 2 + STAGES * SPLIT_STAGE + 4 * FRAG * 4 + 4 * FRAG * 2 +
-         2 * STRIPS + 2 * 128 * 4 + SPLIT_BARS;
+  return 1024 + 128 * KS * 2 + SPLIT_STAGES * SPLIT_STAGE + 4 * RECV_QUADS * QBLK +
+         4 * 32 * PBLK + 2 * SPLIT_STRIPS + 2 * 128 * 4 + SPLIT_BARS;
 }
 static_assert(split_smem() <= 232448 && MAX_C * KS >= 1024 && 3 * KS > HK_MAX,
               "K4's split backward does not fit shared memory, or a cluster, at some K");
 
-// A thread's 32 S values into a warpgroup's partial: 8 float4, float4 j at
-// j ^ (tw % 8) of the thread's 128 bytes (tw: the thread of the warpgroup).
-__device__ __forceinline__ void put_part(float* part, const float (&sc)[32], int tw) {
-  float4* q = reinterpret_cast<float4*>(part) + tw * 8;
+// Rank r of C owns quads [r 32 / C, (r + 1) 32 / C) of a warpgroup's 32 (a
+// quad: the 4 threads that hold rows a, a + 8); every rank sends it its
+// partials of them into ceil(32 / C) quads' room.
+__device__ __forceinline__ int quad0(int r, int C) { return r * 32 / C; }
+__device__ __forceinline__ int quad_owner(int q, int C) { return ((q + 1) * C - 1) / 32; }
+__device__ __forceinline__ int quad_room(int C) { return (32 + C - 1) / C; }
+
+// Where float4 j (S values 4j..4j+3) of thread t of quad q lies among the
+// quad's 32 (swizzled so that 8 lanes of two quads storing the same j, and
+// a warp reading the 32 in order, touch every bank once), and where its
+// packed pair j lies among the quad's packed P.
+__device__ __forceinline__ int quad_at(int t, int j, int q) {
+  return t * 8 + (j ^ (t | ((q & 1) << 2)));
+}
+__device__ __forceinline__ int pair_at(int t, int j, int q) { return t * 8 + (j ^ (q & 7)); }
+
+// This thread's 32 S values (its tile's partial over the rank's slice) into
+// its quad's owner's receive slot `recv` (one warpgroup, one slot) at [this
+// rank][the quad among the owner's], each store completing on the owner's
+// barrier `bar`.
+__device__ __forceinline__ void send_part(float* recv, uint64_t* bar, const float (&sc)[32],
+                                          int C, int rank, int tw) {
+  const int q = tw >> 2, t = tw & 3, o = quad_owner(q, C);
+  float4* dst = reinterpret_cast<float4*>(recv) + (rank * quad_room(C) + q - quad0(o, C)) * 32;
 #pragma unroll
   for (int j = 0; j < 8; ++j)
-    q[j ^ (tw & 7)] = make_float4(sc[4 * j], sc[4 * j + 1], sc[4 * j + 2], sc[4 * j + 3]);
+    hop::st_async(dst + quad_at(t, j, q),
+                  make_float4(sc[4 * j], sc[4 * j + 1], sc[4 * j + 2], sc[4 * j + 3]), bar, o);
 }
 
-// One arrival of this warp on `bar` in every block of the cluster, after
-// the warp's writes.
-__device__ __forceinline__ void arrive_all(uint64_t* bar, int C) {
-  __syncwarp();
-  if ((threadIdx.x & 31) < C) hop::mbar_arrive_cluster(bar, threadIdx.x & 31);
-}
-
-// GATHER: this thread's 32 values of S, the C ranks' partials (one slot of
-// its warpgroup) added in rank order.
-__device__ __forceinline__ void gather_s(float (&z)[32], cg::cluster_group& cluster,
-                                         float* part, int C, int tw) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int at = tw * 8 + (j ^ (tw & 7));
-    float4 v[MAX_C];  // every rank's float4 read at once, then added in rank order
-#pragma unroll
-    for (int r = 0; r < MAX_C; ++r)
-      if (r < C) v[r] = reinterpret_cast<const float4*>(cluster.map_shared_rank(part, r))[at];
-    float4 a = v[0];
-#pragma unroll
-    for (int r = 1; r < MAX_C; ++r)
-      if (r < C) a.x += v[r].x, a.y += v[r].y, a.z += v[r].z, a.w += v[r].w;
-    z[4 * j] = a.x, z[4 * j + 1] = a.y, z[4 * j + 2] = a.z, z[4 * j + 3] = a.w;
-  }
-}
-
-// SCATTER: this rank's quads of one tile of a warpgroup (see the header
-// note; warp w of the warpgroup takes quads q0 + w, q0 + w + 4, ...: at C
-// >= 3 a rank has at most 11, 3 a warp): a lane reads one float4 of the
-// quad's 32 from every rank's partial, adds them in rank order, takes dz
-// (dx: the strip's bias by column, lse log2 e and g by row from the block's
-// tables; dw: the table's bias by row, the strips' lse log2 e and g by
-// column, its f32 values added into the lane's db sums sa, sb) and stores
-// the two packed bf16 pairs into every rank's P at the same place.
+// This rank's share of one tile's exchange for a warpgroup, the
+// reduce-scatter of the f32 partials and the all-gather of packed P: warp
+// w takes this rank's quads w, w + 4, ... (at C >= 3 a rank has at most
+// 11, 3 a warp); a lane adds the C ranks' partials of one float4 in rank
+// order from the receive slot, takes dz (dx: the strip's bias by column,
+// lse log2 e and g by row from the block's tables; dw: the table's bias by
+// row, the strips' lse log2 e and g by column, its f32 values added into
+// the lane's db sums sa, sb) and stores the two packed bf16 pairs into
+// every rank's P (`pk`, one warpgroup, one slot), completing on its barrier
+// `bar`.
 template <bool DW>
-__device__ __forceinline__ void scatter_tile(cg::cluster_group& cluster, float* part,
-                                             uint32_t* pk, int C, int rank, int wg,
-                                             const float* st0, const float* st1,
-                                             const float* tb0, const float* tb1,
-                                             float (&sa)[3], float (&sb)[3]) {
-  const int lane = threadIdx.x & 31, q1 = (rank + 1) * 32 / C;
+__device__ __forceinline__ void reduce_quads(const float* recv, uint32_t* pk, uint64_t* bar,
+                                             int C, int rank, int wg, const float* st0,
+                                             const float* st1, const float* tb0,
+                                             const float* tb1, float (&sa)[3], float (&sb)[3]) {
+  const int lane = threadIdx.x & 31, q0 = quad0(rank, C), nq = quad0(rank + 1, C) - q0;
+  const int room = quad_room(C);
+  const float4* in = reinterpret_cast<const float4*>(recv);
 #pragma unroll
   for (int m = 0; m < 3; ++m) {
-    const int quad = rank * 32 / C + ((threadIdx.x >> 5) & 3) + 4 * m;
-    if (quad >= q1) break;
-    const int at = quad * 32 + lane, tq = at >> 3;  // tq: the thread of the warpgroup that owns it
+    const int lq = ((threadIdx.x >> 5) & 3) + 4 * m;
+    if (lq >= nq) break;
     float4 v[MAX_C];
 #pragma unroll
     for (int r = 0; r < MAX_C; ++r)
-      if (r < C) v[r] = reinterpret_cast<const float4*>(cluster.map_shared_rank(part, r))[at];
+      if (r < C) v[r] = in[(r * room + lq) * 32 + lane];
     float4 z = v[0];
 #pragma unroll
     for (int r = 1; r < MAX_C; ++r)
       if (r < C) z.x += v[r].x, z.y += v[r].y, z.z += v[r].z, z.w += v[r].w;
-    // z: rows a, a + 8 of the tile at columns c, c + 1
-    const int a = 64 * wg + 16 * (quad >> 3) + (quad & 7);
-    const int c = 8 * ((lane & 7) ^ (tq & 7)) + 2 * (tq & 3);
+    // z: rows a, a + 8 of the tile at columns c, c + 1 (thread t of quad q, its float4 j)
+    const int q = q0 + lq, t = lane >> 3, j = (lane & 7) ^ (t | ((q & 1) << 2));
+    const int a = 64 * wg + 16 * (q >> 3) + (q & 7), c = 8 * j + 2 * t;
     float d0, d1, d2, d3;
     if constexpr (DW) {
       const float ba = tb0[a], bb = tb0[a + 8];
@@ -967,18 +967,20 @@ __device__ __forceinline__ void scatter_tile(cg::cluster_group& cluster, float* 
       d3 = hop::ex2(fmaf(z.w + bv.y, LOG2E, -lb)) * gb;
     }
     const uint2 pv = make_uint2(hop::pack_bf16(d0, d1), hop::pack_bf16(d2, d3));
+    uint2* dst = reinterpret_cast<uint2*>(pk) + q * 32 + pair_at(t, j, q);
 #pragma unroll
     for (int r = 0; r < MAX_C; ++r)
-      if (r < C) reinterpret_cast<uint2*>(cluster.map_shared_rank(pk, r))[at] = pv;
+      if (r < C) hop::st_async(dst, pv, bar, r);
   }
 }
 
-// SCATTER: this thread's packed P (its 16 register A fragments) from P.
+// This thread's packed P (its 16 register A fragments) from P.
 __device__ __forceinline__ void load_pa(uint32_t (&pa)[16], const uint32_t* pk, int tw) {
-  const uint2* q = reinterpret_cast<const uint2*>(pk) + tw * 8;
+  const int q = tw >> 2, t = tw & 3;
+  const uint2* p = reinterpret_cast<const uint2*>(pk) + q * 32;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
-    const uint2 u = q[j ^ (tw & 7)];
+    const uint2 u = p[pair_at(t, j, q)];
     pa[2 * j] = u.x, pa[2 * j + 1] = u.y;
   }
 }
@@ -999,10 +1001,18 @@ __device__ __forceinline__ void split_pv(float (&acc)[KS / 2], const uint32_t (&
   else issue_pv<KS, 0>(acc, pa, slot, 32, 1024);
 }
 
+// A consumer's place in the split kernels' ring: slot s, phase ph.
+struct Slot {
+  int s = 0, ph = 0;
+  __device__ __forceinline__ Slot next() const {
+    return s + 1 == SPLIT_STAGES ? Slot{0, ph ^ 1} : Slot{s + 1, ph};
+  }
+};
+
 // dx (DW false: out the (N, K) bf16 dx) or dw (out the (K, Vp) f32 dW, db
 // (Vp,)) at K = C KS: grid (C, row tiles or column blocks) in clusters of C
 // along x.
-template <bool DW, int XCH>
+template <bool DW>
 __global__ void __launch_bounds__(HTHREADS, 1)
 vocab_lse_split_kernel(const __grid_constant__ Maps mp, const float* __restrict__ bias,
                        const float* __restrict__ lse, const float* __restrict__ g,
@@ -1014,34 +1024,42 @@ vocab_lse_split_kernel(const __grid_constant__ Maps mp, const float* __restrict_
   unsigned char* base = align1024(raw);
   unsigned char* res = base;  // the resident slice: dx x's 128 rows, dw W's 128 columns
   unsigned char* ring = res + 128 * KS * 2;
-  float* part = reinterpret_cast<float*>(ring + STAGES * SPLIT_STAGE);  // [slot][wg][FRAG]
-  uint32_t* pk = reinterpret_cast<uint32_t*>(part + 4 * FRAG);          // [slot][wg][FRAG / 2]
-  float* st0 = reinterpret_cast<float*>(pk + 2 * FRAG);  // [ring slot][64]: dx b, dw lse log2 e
-  float* st1 = st0 + STAGES * VT;                        // dw: g
-  float* tb0 = st1 + STAGES * VT;  // the block's 128 rows' lse log2 e (dx) or columns' b (dw)
-  float* tb1 = tb0 + 128;          // dx: the rows' g
+  unsigned char* recv = ring + SPLIT_STAGES * SPLIT_STAGE;  // [slot][wg][RECV_QUADS]
+  unsigned char* pk = recv + 4 * RECV_QUADS * QBLK;         // [slot][wg][32 quads]: P
+  float* st0 = reinterpret_cast<float*>(pk + 4 * 32 * PBLK);  // [ring slot][64]: dx b, dw lse log2 e
+  float* st1 = st0 + SPLIT_STAGES * VT;                       // dw: g
+  float* tb0 = st1 + SPLIT_STAGES * VT;  // the block's 128 rows' lse log2 e (dx) or columns' b (dw)
+  float* tb1 = tb0 + 128;                // dx: the rows' g
   uint64_t* bars = reinterpret_cast<uint64_t*>(tb1 + 128);
   uint64_t* rfull = bars;
   uint64_t* full = bars + 1;
-  uint64_t* empty = full + STAGES;
-  uint64_t* sfull = empty + STAGES;  // [slot][wg]: every rank's partial written
-  uint64_t* pfull = sfull + 4;       // [slot][wg]: every rank's share of P written
+  uint64_t* empty = full + SPLIT_STAGES;
+  uint64_t* sfull = empty + SPLIT_STAGES;  // [slot][wg]: every rank's partials of my quads landed
+  uint64_t* pfull = sfull + 4;             // [slot][wg]: every rank's quads of P landed
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int b0 = blockIdx.y * 128, k0 = rank * KS;  // the block's first row (dx) or column (dw)
   const int nt = DW ? (N + DW_BN - 1) / DW_BN : (V + VT - 1) / VT;  // tiles a rank sweeps
+  const int q0 = quad0(rank, C), nq = quad0(rank + 1, C) - q0;
+  // The bytes a phase of sfull and of pfull awaits: every rank's partials
+  // of this rank's quads, and every rank's quads of P.
+  const uint32_t s_bytes = C * nq * QBLK, p_bytes = 32 * PBLK;
   if (tid == 0) {
     hop::mbar_init(rfull, 1);
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < SPLIT_STAGES; ++s) {
       hop::mbar_init(&full[s], 32);  // the producer warp's lanes
       hop::mbar_init(&empty[s], CONSUMERS / 32);
     }
-    for (int i = 0; i < 4; ++i) {
-      hop::mbar_init(&sfull[i], 4 * C);  // the warpgroup's 4 warps in each rank
-      hop::mbar_init(&pfull[i], 4 * C);
+    for (int i = 0; i < 4; ++i) {  // one arrival a phase, the rank's own, with the bytes it awaits
+      hop::mbar_init(&sfull[i], 1);
+      hop::mbar_init(&pfull[i], 1);
     }
     hop::mbar_fence_init();
+    for (int i = 0; i < 4; ++i) {  // tiles 0 and 1
+      hop::mbar_expect_tx(&sfull[i], s_bytes);
+      hop::mbar_expect_tx(&pfull[i], p_bytes);
+    }
   }
-  cluster.sync();  // every rank's barriers initialised before the first remote arrival
+  cluster.sync();  // every rank's barriers initialised before the first remote store
 
   if (warp >= CONSUMERS / 32) {  // the producer: the tables and the slice once, then the tiles
     hop::reg_dealloc<40>();
@@ -1070,9 +1088,10 @@ vocab_lse_split_kernel(const __grid_constant__ Maps mp, const float* __restrict_
           }
         }
       }
-      for (int it = 0; it < nt; ++it) {
-        const int s = it % STAGES, j0 = it * 64;
-        hop::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+      Slot p;
+      for (int it = 0; it < nt; ++it, p = p.next()) {
+        const int s = p.s, j0 = it * 64;
+        hop::mbar_wait(&empty[s], p.ph ^ 1);
         for (int c = lane; c < 64; c += 32) {
           const int j = j0 + c;
           if (DW) {
@@ -1098,21 +1117,25 @@ vocab_lse_split_kernel(const __grid_constant__ Maps mp, const float* __restrict_
       }
     }
     __syncwarp();
-    cluster.sync();  // no block exits while another still reads or writes its shared memory
+    cluster.sync();  // no block exits while another still stores into its shared memory
     return;
   }
   hop::reg_alloc<232>();
 
   const int wg = warp >> 2, tw = tid & 127, t = lane & 3;
   const int ra = 64 * wg + 16 * (warp & 3) + (lane >> 2);  // this thread's rows ra, ra + 8
-  float* mypart = part + wg * FRAG;        // + slot * 2 * FRAG
-  uint32_t* mypk = pk + wg * (FRAG / 2);   // + slot * FRAG
+  const bool lead = tw == 0;  // the warpgroup's thread that posts its barriers' bytes
+  float* myrecv = reinterpret_cast<float*>(recv + wg * RECV_QUADS * QBLK);  // + slot * rslot
+  uint32_t* mypk = reinterpret_cast<uint32_t*>(pk + wg * 32 * PBLK);       // + slot * pslot
+  constexpr int rslot = 2 * RECV_QUADS * QBLK / 4, pslot = 2 * 32 * PBLK / 4;
   const uint64_t rd = hop::desc(res + wg * (DW ? KS * 128 : 64 * 128));
   float acc[KS / 2];
 #pragma unroll
   for (int i = 0; i < KS / 2; ++i) acc[i] = 0.f;
   float sc[32];
   uint32_t pa[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) pa[i] = 0u;
   float sa[3] = {0.f, 0.f, 0.f}, sb[3] = {0.f, 0.f, 0.f};  // dw's db sums
   hop::mbar_wait(rfull, 0);
   hop::mbar_wait(&full[0], 0);
@@ -1121,115 +1144,70 @@ vocab_lse_split_kernel(const __grid_constant__ Maps mp, const float* __restrict_
   split_s<DW>(sc, rd, ring);
   hop::wgmma_wait();
   hop::fence_regs(sc);
-  put_part(mypart, sc, tw);
-  arrive_all(&sfull[wg], C);
-  Pos p;  // tile t's ring slot
-  if constexpr (XCH == GATHER) {
-    const float ta = tb0[ra], tbb = tb0[ra + 8], ga = tb1[ra], gb = tb1[ra + 8];
-    for (int it = 0; it < nt; ++it) {
-      const bool more = it + 1 < nt;
-      const Pos nx = p.next();
-      if (more) hop::mbar_wait(&full[nx.s], nx.ph);
-      __syncwarp();
-      hop::wgmma_fence();
-      // the next tile's S_r (after the last tile a product whose result is dropped)
-      split_s<DW>(sc, rd, ring + (more ? nx.s : p.s) * SPLIT_STAGE);
-      float z[32];
-      hop::mbar_wait_cluster(&sfull[(it & 1) * 2 + wg], (it >> 1) & 1);
-      gather_s(z, cluster, mypart + (it & 1) * 2 * FRAG, C, tw);
-      if constexpr (DW) dz_cols(z, st0 + p.s * VT, st1 + p.s * VT, ta, tbb, sa[0], sb[0]);
-      else dz_rows(z, st0 + p.s * VT, ta, tbb, ga, gb);
-      pack(pa, z);
-      __syncwarp();
-      hop::wgmma_fence();
-      split_pv<DW>(acc, pa, ring + p.s * SPLIT_STAGE);
-      hop::wgmma_wait_n<1>();
-      hop::fence_regs(sc);
-      if (more) {
-        put_part(mypart + ((it + 1) & 1) * 2 * FRAG, sc, tw);
-        arrive_all(&sfull[((it + 1) & 1) * 2 + wg], C);
-      }
-      hop::wgmma_wait();
-      hop::fence_regs(acc);
-      hop::fence_regs(pa);
-      __syncwarp();
-      if (lane == 0) hop::mbar_arrive(&empty[p.s]);
-      p = nx;
+  send_part(myrecv, &sfull[wg], sc, C, rank, tw);
+  // Tile it's exchange beside the product of tile it - 1's P (at tile 0 a
+  // product of zeros on tile 0's slot, so that no wgmma sits under a
+  // condition); the next tile's S_r in flight under both.
+  Slot p, pp;  // tiles it's and it - 1's ring slots
+  for (int it = 0; it < nt; ++it) {
+    const bool more = it + 1 < nt;
+    const Slot nx = p.next();
+    const int x = it & 1;
+    if (more) hop::mbar_wait(&full[nx.s], nx.ph);
+    __syncwarp();
+    hop::wgmma_fence();
+    // the next tile's S_r (after the last tile a product whose result is dropped)
+    split_s<DW>(sc, rd, ring + (more ? nx.s : p.s) * SPLIT_STAGE);
+    hop::mbar_wait_cluster(&sfull[x * 2 + wg], (it >> 1) & 1);
+    if (lead) hop::mbar_expect_tx(&sfull[x * 2 + wg], s_bytes);  // tile it + 2's
+    reduce_quads<DW>(myrecv + x * rslot, mypk + x * pslot, &pfull[x * 2 + wg], C, rank, wg,
+                     st0 + p.s * VT, st1 + p.s * VT, tb0, tb1, sa, sb);
+    if (it > 0) {
+      hop::mbar_wait_cluster(&pfull[(x ^ 1) * 2 + wg], ((it - 1) >> 1) & 1);
+      if (lead) hop::mbar_expect_tx(&pfull[(x ^ 1) * 2 + wg], p_bytes);  // tile it + 1's
+      load_pa(pa, mypk + (x ^ 1) * pslot, tw);
     }
-    if constexpr (DW) {
-      sa[0] += __shfl_xor_sync(0xffffffffu, sa[0], 1);
-      sa[0] += __shfl_xor_sync(0xffffffffu, sa[0], 2);
-      sb[0] += __shfl_xor_sync(0xffffffffu, sb[0], 1);
-      sb[0] += __shfl_xor_sync(0xffffffffu, sb[0], 2);
-      if (rank == 0 && t == 0) db[b0 + ra] = sa[0], db[b0 + ra + 8] = sb[0];
-    }
-  } else {
-    // tile it's exchange beside the product of tile it - 1's P (at tile 0 a
-    // product of zeros on tile 0's slot, so that no wgmma sits under a
-    // condition)
-#pragma unroll
-    for (int i = 0; i < 16; ++i) pa[i] = 0u;
-    Pos pp = p;  // tile it - 1's slot
-    for (int it = 0; it < nt; ++it) {
-      const bool more = it + 1 < nt;
-      const Pos nx = p.next();
-      const int x = it & 1;
-      if (more) hop::mbar_wait(&full[nx.s], nx.ph);
-      __syncwarp();
-      hop::wgmma_fence();
-      split_s<DW>(sc, rd, ring + (more ? nx.s : p.s) * SPLIT_STAGE);  // the next tile's S_r
-      hop::mbar_wait_cluster(&sfull[x * 2 + wg], (it >> 1) & 1);
-      scatter_tile<DW>(cluster, mypart + x * 2 * FRAG, mypk + x * FRAG, C, rank, wg,
-                       st0 + p.s * VT, st1 + p.s * VT, tb0, tb1, sa, sb);
-      arrive_all(&pfull[x * 2 + wg], C);
-      if (it > 0) {
-        hop::mbar_wait_cluster(&pfull[(x ^ 1) * 2 + wg], ((it - 1) >> 1) & 1);
-        load_pa(pa, mypk + (x ^ 1) * FRAG, tw);
-      }
-      __syncwarp();
-      hop::wgmma_fence();
-      split_pv<DW>(acc, pa, ring + pp.s * SPLIT_STAGE);
-      hop::wgmma_wait_n<1>();
-      hop::fence_regs(sc);
-      if (more) {
-        put_part(mypart + (x ^ 1) * 2 * FRAG, sc, tw);
-        arrive_all(&sfull[(x ^ 1) * 2 + wg], C);
-      }
-      hop::wgmma_wait();
-      hop::fence_regs(acc);
-      hop::fence_regs(pa);
-      __syncwarp();
-      if (it > 0 && lane == 0) hop::mbar_arrive(&empty[pp.s]);
-      pp = p;
-      p = nx;
-    }
+    __syncwarp();
+    hop::wgmma_fence();
+    split_pv<DW>(acc, pa, ring + pp.s * SPLIT_STAGE);
+    hop::wgmma_wait_n<1>();
+    hop::fence_regs(sc);
+    if (more) send_part(myrecv + (x ^ 1) * rslot, &sfull[(x ^ 1) * 2 + wg], sc, C, rank, tw);
+    hop::wgmma_wait();
+    hop::fence_regs(acc);
+    hop::fence_regs(pa);
+    __syncwarp();
+    if (it > 0 && lane == 0) hop::mbar_arrive(&empty[pp.s]);
+    pp = p;
+    p = nx;
+  }
+  {
     const int x = (nt - 1) & 1;
     hop::mbar_wait_cluster(&pfull[x * 2 + wg], ((nt - 1) >> 1) & 1);
-    load_pa(pa, mypk + x * FRAG, tw);
+    load_pa(pa, mypk + x * pslot, tw);
     __syncwarp();
     hop::wgmma_fence();
     split_pv<DW>(acc, pa, ring + pp.s * SPLIT_STAGE);  // the last tile's product
     hop::wgmma_wait();
     hop::fence_regs(acc);
     hop::fence_regs(pa);
-    if constexpr (DW) {
-      const int q1 = (rank + 1) * 32 / C;
-#pragma unroll
-      for (int m = 0; m < 3; ++m) {
-        const int quad = rank * 32 / C + (warp & 3) + 4 * m;
-        if (quad >= q1) break;
-#pragma unroll
-        for (int o = 1; o < 32; o <<= 1) {
-          sa[m] += __shfl_xor_sync(0xffffffffu, sa[m], o);
-          sb[m] += __shfl_xor_sync(0xffffffffu, sb[m], o);
-        }
-        const int a = b0 + 64 * wg + 16 * (quad >> 3) + (quad & 7);
-        if (lane == 0) db[a] = sa[m], db[a + 8] = sb[m];
-      }
-    }
   }
 
-  if constexpr (DW) {  // dW[k0 + k, v] = dW^T[v, k]: for each register, a warp fills 4 rows x 32 bytes
+  if constexpr (DW) {
+    // db: each rank's quads' columns, their sums added over the warp
+#pragma unroll
+    for (int m = 0; m < 3; ++m) {
+      const int quad = q0 + (warp & 3) + 4 * m;
+      if (quad >= q0 + nq) break;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        sa[m] += __shfl_xor_sync(0xffffffffu, sa[m], o);
+        sb[m] += __shfl_xor_sync(0xffffffffu, sb[m], o);
+      }
+      const int a = b0 + 64 * wg + 16 * (quad >> 3) + (quad & 7);
+      if (lane == 0) db[a] = sa[m], db[a + 8] = sb[m];
+    }
+    // dW[k0 + k, v] = dW^T[v, k]: for each register, a warp fills 4 rows x 32 bytes
     float* dw = static_cast<float*>(out);
 #pragma unroll
     for (int j = 0; j < KS / 8; ++j)
@@ -1248,7 +1226,7 @@ vocab_lse_split_kernel(const __grid_constant__ Maps mp, const float* __restrict_
               hop::pack_bf16(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
       }
   }
-  cluster.sync();  // no block exits while another still reads or writes its shared memory
+  cluster.sync();  // no block exits while another still stores into its shared memory
 }
 
 template <typename... KArgs, typename... Args>
@@ -1311,31 +1289,6 @@ extern "C" int vocab_lse_fwd(const void* x, const void* W, int ldw, const void* 
                    V);
 }
 
-namespace {
-
-// The exchange the split kernels run (GATHER or SCATTER; see the header
-// note): `vocab_lse_set_exchange` sets it, so that one build times both.
-int split_exchange = SCATTER;
-
-template <bool DW>
-int launch_split(const Maps& mp, dim3 grid, int C, cudaStream_t st, const float* bf,
-                 const float* lf, const float* gf, void* out, float* db, int N, int K, int V,
-                 int Vp) {
-  return split_exchange == GATHER
-             ? launch_hk(vocab_lse_split_kernel<DW, GATHER>, grid, C, HTHREADS, split_smem(), st,
-                         mp, bf, lf, gf, out, db, N, K, V, Vp)
-             : launch_hk(vocab_lse_split_kernel<DW, SCATTER>, grid, C, HTHREADS, split_smem(),
-                         st, mp, bf, lf, gf, out, db, N, K, V, Vp);
-}
-
-}  // namespace
-
-extern "C" int vocab_lse_set_exchange(int xch) {
-  if (xch != GATHER && xch != SCATTER) return (int)cudaErrorInvalidValue;
-  split_exchange = xch;
-  return 0;
-}
-
 // The gradient of the row lse for g = d loss / d lse (N,) f32: dx (N, K)
 // bf16 out. K <= 256 runs the wgmma kernel on clusters of C blocks (1, 2,
 // 4 or 8, no more than V's 64-column tiles), a wider K the split kernel on
@@ -1359,7 +1312,8 @@ extern "C" int vocab_lse_dx(const void* x, const void* W, int ldw, const void* b
   const dim3 grid(C, (N + DX_BM - 1) / DX_BM);
   const float *bf = (const float*)b, *lf = (const float*)lse, *gf = (const float*)g;
   if (K > HK_MAX)
-    return launch_split<false>(mp, grid, C, st, bf, lf, gf, dx, nullptr, N, K, V, 0);
+    return launch_hk(vocab_lse_split_kernel<false>, grid, C, HTHREADS, split_smem(), st, mp,
+                     bf, lf, gf, dx, (float*)nullptr, N, K, V, 0);
   const size_t smem = dx_smem(K);
   if (K == 128)
     return launch_hk(vocab_lse_dx_kernel<128>, grid, C, HTHREADS, smem, st, mp, bf, lf, gf,
@@ -1386,8 +1340,9 @@ extern "C" int vocab_lse_dw(const void* x, const void* W, int ldw, const void* b
     return rc;
   const float *bf = (const float*)b, *lf = (const float*)lse, *gf = (const float*)g;
   if (K > HK_MAX)
-    return launch_split<true>(mp, dim3(K / KS, Vp / DW_BV), K / KS, st, bf, lf, gf, dw,
-                              (float*)db, N, K, V, Vp);
+    return launch_hk(vocab_lse_split_kernel<true>, dim3(K / KS, Vp / DW_BV), K / KS,
+                     HTHREADS, split_smem(), st, mp, bf, lf, gf, dw, (float*)db, N, K, V,
+                     Vp);
   const dim3 grid(Vp / DW_BV);
   const size_t smem = dw_smem(K);
   if (K == 128)
@@ -1401,8 +1356,8 @@ extern "C" int vocab_lse_dw(const void* x, const void* W, int ldw, const void* b
 // holds at once (cudaOccupancyMaxActiveClusters), or a negative error.
 extern "C" int vocab_lse_split_clusters(int K, int dw) {
   if (K <= HK_MAX || K % KS || K > MAX_C * KS) return -(int)cudaErrorInvalidValue;
-  const void* kern = dw ? (const void*)vocab_lse_split_kernel<true, SCATTER>
-                        : (const void*)vocab_lse_split_kernel<false, SCATTER>;
+  const void* kern = dw ? (const void*)vocab_lse_split_kernel<true>
+                        : (const void*)vocab_lse_split_kernel<false>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)split_smem());
   if (e != cudaSuccess) return -(int)e;

@@ -14,6 +14,8 @@ card.
     python3 chip_smoke.py --splits     # K3's instances timed at each split S
     python3 chip_smoke.py --k4-turns DIR   # K4 at the whisper CTC head's
                                        # shape, DIR's tree and this one in turns
+    python3 chip_smoke.py --k4-ablate  # K4's split kernels with parts of
+                                       # their exchange taken out, timed
 
 Run from (or point at) a checkout of the repository on a machine with a
 CUDA card and the CUDA toolkit (nvcc). It imports nothing of JAX. Phases,
@@ -96,8 +98,7 @@ non-zero exit:
      and dw bit-identical on a second run; then the whisper CTC head's
      (12000, 768) x (768, 51865), each pass against its plain version;
      cuBLAS with the logits materialised timed beside, at the training
-     shape and the whisper CTC head's, and the split kernels' two
-     exchanges at the latter in turns;
+     shape and the whisper CTC head's;
   3f. K3-f32 (decode_attn.cu, float32 caches) against its plain version at
      the LM's beam shape (80, 112, 512), 8 heads, pos 103, within 1e-4;
   2w. K6 (csrc/w8a16.cu, the W8A16 thin-row matmul) against its plain
@@ -252,7 +253,9 @@ mutants after it run in a new process);
 reading `decode_attn.time_splits` was tuned on; `--k4-turns DIR` times K4's
 three passes at the whisper CTC head's shape (`k4_times`) in the checkout
 at DIR (e.g. a `git archive` of an earlier commit) and in this one, one
-process each, in turns (DIR, this, this, DIR).
+process each, in turns (DIR, this, this, DIR); `--k4-ablate` times the
+split kernels at that shape with their exchange's waits, or the whole
+exchange, taken out (K4_ABLATIONS).
 """
 
 from __future__ import annotations
@@ -1701,9 +1704,8 @@ def check_k4(dev, g, timed=True) -> dict:
 def k4_wide(g, dev, sms: int) -> dict:
     """Phase 2v at K4_WIDE, the whisper CTC head's shape: the forward, dx and
     dw (b and g NaN past their ends) against their plain versions, then
-    timed as at the training shape (`k4_times`), the split kernels' two
-    exchanges in turns (`k4_exchange_turns`), and the clusters of the split
-    kernels the card holds at once, with the waves their tiles take.
+    timed as at the training shape (`k4_times`), and the clusters of the
+    split kernels the card holds at once, with the waves their tiles take.
     Returns {"fwd", "dx", "dw"} results."""
     from agacs_tpu_torch.ops import cuda_lib, vocab_lse
 
@@ -1739,40 +1741,63 @@ def k4_wide(g, dev, sms: int) -> dict:
     for part in res:
         res[part].update(times[part])
     print(line, flush=True)
-    k4_exchange_turns(x, w, b, lse, gr, dx, dw, db)
     del x, w, b, gr, lse, dx, dw, db
     torch.cuda.empty_cache()
     return res
 
 
-def k4_exchange_turns(x, w, b, lse, g, dx, dw, db) -> None:
-    """The split kernels' two exchanges (csrc/vocab_lse.cu, GATHER and
-    SCATTER) at one shape: each one's dx and dW bit-identical to the
-    default's (`dx`, `dw`: the same rank-order sums and dz), db within
-    K4_DB_RTOL, then dx and dw timed in turns (GATHER, SCATTER, SCATTER,
-    GATHER; 10 calls each)."""
+# `--k4-ablate`: the split kernels at K4_WIDE with parts of their exchange
+# taken out, each an edit of csrc/vocab_lse.cu built outside the checkout as
+# `--mutants` builds: timing only (their outputs are wrong), to show what
+# the exchange costs. Without the waits the stores still go; without the
+# exchange no partial or P crosses the cluster, and P stays zero.
+K4_NO_WAITS = [
+    ("    hop::mbar_wait_cluster(&sfull[x * 2 + wg], (it >> 1) & 1);\n", ""),
+    ("      hop::mbar_wait_cluster(&pfull[(x ^ 1) * 2 + wg], ((it - 1) >> 1) & 1);\n", ""),
+    ("    hop::mbar_wait_cluster(&pfull[x * 2 + wg], ((nt - 1) >> 1) & 1);\n", "")]
+K4_ABLATIONS = {
+    "as built": [],
+    "no waits on the exchange's barriers": K4_NO_WAITS,
+    "no exchange": K4_NO_WAITS + [
+        ("  for (int j = 0; j < 8; ++j)\n    hop::st_async(", "  for (int j = 0; j < 0; ++j)\n    hop::st_async("),
+        ("    if (lq >= nq) break;\n    float4 v[MAX_C];", "    if (true) break;\n    float4 v[MAX_C];")],
+}
+
+
+def k4_ablate(dev) -> None:
+    """Each K4_ABLATIONS edit built in a temp dir and its dx and dw timed at
+    K4_WIDE (10 calls each, `cuda_ms`)."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
     from agacs_tpu_torch.ops import cuda_lib, vocab_lse
 
-    set_exchange = cuda_lib.load("vocab_lse", "vocab_lse_set_exchange", [ctypes.c_int])
-    wp = [(x, w, b, lse, g, vocab_lse._rows8(w))]
-    ms = {0: [], 1: []}
+    n, k, v = K4_WIDE
+    x, w, b, gr = k4_inputs(torch.Generator().manual_seed(0), dev, n, k, v)
+    args = [(x, w, b, vocab_lse.lse_plain(x, w, b), gr, vocab_lse._rows8(w))]
+    src, build = cuda_lib.CSRC, cuda_lib.BUILD_DIR
     try:
-        for xch in (0, 1, 1, 0):
-            cuda_lib.check(set_exchange(xch), "vocab_lse_set_exchange")
-            dx2 = vocab_lse._launch_dx(x, w, b, lse, g)
-            dw2, db2 = vocab_lse._launch_dw(x, w, b, lse, g)
-            torch.cuda.synchronize()
-            check(torch.equal(dx, dx2) and torch.equal(dw, dw2)
-                  and (db2 - db).abs().max().item() <= K4_DB_RTOL * db.abs().max().item(),
-                  f"K4 split exchange {xch}: dx and dW bit-identical, db within bound")
-            ms[xch].append((cuda_ms(lambda *a: vocab_lse._launch_dx(*a[:5], wp=a[5]), wp, 10),
-                            cuda_ms(lambda *a: vocab_lse._launch_dw(*a[:5], wp=a[5]), wp, 10)))
+        for name, edits in K4_ABLATIONS.items():
+            tmp = Path(tempfile.mkdtemp(prefix="agacs_ablate_"))
+            for f in [*src.glob("*.cu"), *src.glob("*.cuh")]:
+                shutil.copy(f, tmp / f.name)
+            text = (tmp / "vocab_lse.cu").read_text()
+            for old, new in edits:
+                check(old in text, f"ablation {name!r}: {old!r} is in vocab_lse.cu")
+                text = text.replace(old, new, 1)
+            (tmp / "vocab_lse.cu").write_text(text)
+            cuda_lib.CSRC, cuda_lib.BUILD_DIR = tmp, tmp / "build"
+            cuda_lib._LIBS.clear()
+            cuda_lib._FNS.clear()
+            dx = cuda_ms(lambda *a: vocab_lse._launch_dx(*a[:5], wp=a[5]), args, 10)
+            dw = cuda_ms(lambda *a: vocab_lse._launch_dw(*a[:5], wp=a[5]), args, 10)
+            print(f"k4-ablate {K4_WIDE} {name}: dx {dx:.4f} ms, dw {dw:.4f} ms a call", flush=True)
+            shutil.rmtree(tmp, ignore_errors=True)
     finally:
-        set_exchange(1)
-    fmt = lambda t: " / ".join(f"dx {a:.4f} dw {b:.4f}" for a, b in t)
-    print(f"phase 2v K4 split exchanges at {tuple(x.shape)} x {tuple(w.shape)} in turns "
-          f"(GATHER, SCATTER, SCATTER, GATHER; ms a call): GATHER {fmt(ms[0])}; SCATTER "
-          f"{fmt(ms[1])}; dx and dW bit-identical across both", flush=True)
+        cuda_lib.CSRC, cuda_lib.BUILD_DIR = src, build
+        cuda_lib._LIBS.clear()
+        cuda_lib._FNS.clear()
 
 
 # `--k4-turns DIR`: one process per turn, in the tree at `root`: K4's three
@@ -4025,14 +4050,12 @@ MUTANTS = {
                           "st0[s * VT + c] = lse[j] * LOG2E;"),
                          ("st1[s * VT + c] = j < N ? g[j] : 0.f;", "st1[s * VT + c] = g[j];")],
         ("k4",)),
-    # db's columns belong to one rank each (the quads it reduces); here
-    # every rank writes db from its own sums at the first ranks' columns
-    "K4 split dw: db written by every rank, not by each column's rank": (
-        "vocab_lse.cu", [("        const int quad = rank * 32 / C + (warp & 3) + 4 * m;\n"
-                          "        if (quad >= q1) break;\n#pragma unroll\n        for (int o = 1;",
-                          "        const int quad = (warp & 3) + 4 * m;\n"
-                          "        if (quad >= q1 - rank * 32 / C) break;\n#pragma unroll\n"
-                          "        for (int o = 1;")], ("k4",)),
+    # each column's db is summed by the one rank that owns its quad: here
+    # every rank writes its sums over rank 0's columns
+    "K4 split dw: db written by every rank at rank 0's columns": (
+        "vocab_lse.cu", [("      const int quad = q0 + (warp & 3) + 4 * m;\n      if (quad >= q0 + nq) break;",
+                          "      const int quad = (warp & 3) + 4 * m;\n      if (quad >= nq) break;")],
+        ("k4",)),
     "K4 split: a rank reads the partials one phase early": (
         "vocab_lse.cu", [("hop::mbar_wait_cluster(&sfull[x * 2 + wg], (it >> 1) & 1);",
                           "hop::mbar_wait_cluster(&sfull[x * 2 + wg], ((it >> 1) & 1) ^ 1);")],
@@ -4467,6 +4490,9 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--k4-turns"] and len(sys.argv) == 3:
         k4_turns(sys.argv[2])
+        return 0
+    if sys.argv[1:2] == ["--k4-ablate"]:
+        k4_ablate(dev)
         return 0
 
     # 1. device and build

@@ -27,6 +27,7 @@ import pytest
 import jax.numpy as jnp
 import torch
 
+import chip_smoke
 from agacs_tpu.ops import vocab_lse as jvl
 from agacs_tpu_torch.ops import cuda_lib, vocab_lse
 
@@ -151,14 +152,16 @@ def dw_smem(k: int) -> int:
 def split_smem() -> int:
     """The split kernels' shared memory, the same at every K (the source's
     `split_smem`): alignment slack, the resident slice (128 x KS bf16), the
-    ring (STAGES slots of KS x 64 bf16), two slots of both warpgroups' f32
-    partial S (32 a thread) and packed P (16), the strips (two tables), the
-    block's row or column tables and the barriers."""
-    ks, stages = _constant("KS"), _constant("STAGES")
-    frag = 128 * 32
+    ring (SPLIT_STAGES slots of KS x 64 bf16), two slots of both
+    warpgroups' receive room (RECV_QUADS quads of 32 float4: the most C
+    ceil(32 / C) takes) and packed P (32 quads of 32 pairs of bf16 pairs),
+    the strips (two tables), the block's row or column tables and the
+    barriers."""
+    ks, stages, recv = _constant("KS"), _constant("SPLIT_STAGES"), _constant("RECV_QUADS")
+    assert recv == max(c * -(-32 // c) for c in range(3, 9))
     strips, bars = stages * vocab_lse.VT * 4, (1 + 2 * stages + 8) * 8
-    return (1024 + 128 * ks * 2 + stages * ks * 128 + 4 * frag * 4 + 4 * frag * 2 + 2 * strips
-            + 2 * 128 * 4 + bars)
+    return (1024 + 128 * ks * 2 + stages * ks * 128 + 4 * recv * 32 * 16 + 4 * 32 * 32 * 8
+            + 2 * strips + 2 * 128 * 4 + bars)
 
 
 def _np(x) -> np.ndarray:
@@ -254,16 +257,21 @@ def test_tiling_constants_match_the_source():
                  "  return 1024 + dw_region(K) + 2 * STRIPS + BARS;",
                  "static_assert(dx_smem(HK_MAX) <= 232448 && dw_smem(HK_MAX) <= 232448,",
                  "constexpr int SPLIT_STAGE = KS * 128;",
-                 "constexpr int FRAG = 128 * 32;",
-                 "constexpr int SPLIT_BARS = (1 + 2 * STAGES + 8) * 8;",
-                 "  return 1024 + 128 * KS * 2 + STAGES * SPLIT_STAGE + 4 * FRAG * 4 + 4 * FRAG * 2 +",
-                 "         2 * STRIPS + 2 * 128 * 4 + SPLIT_BARS;",
+                 "constexpr int QBLK = 32 * 16;",
+                 "constexpr int PBLK = 32 * 8;",
+                 "constexpr int SPLIT_STRIPS = SPLIT_STAGES * VT * 4;",
+                 "constexpr int SPLIT_BARS = (1 + 2 * SPLIT_STAGES + 8) * 8;",
+                 "  return 1024 + 128 * KS * 2 + SPLIT_STAGES * SPLIT_STAGE + 4 * RECV_QUADS * QBLK +",
+                 "         4 * 32 * PBLK + 2 * SPLIT_STRIPS + 2 * 128 * 4 + SPLIT_BARS;",
+                 "__device__ __forceinline__ int quad0(int r, int C) { return r * 32 / C; }",
+                 "__device__ __forceinline__ int quad_owner(int q, int C) { return ((q + 1) * C - 1) / 32; }",
+                 "__device__ __forceinline__ int quad_room(int C) { return (32 + C - 1) / C; }",
                  "static_assert(split_smem() <= 232448 && MAX_C * KS >= 1024 && 3 * KS > HK_MAX,",
                  "  if (K > HK_MAX ? C != K / KS",
                  "  const dim3 grid(C, (N + DX_BM - 1) / DX_BM);",
                  "  const int vt0 = rank * n_vt / C, nt = (rank + 1) * n_vt / C - vt0;",
                  "  const int b0 = blockIdx.y * 128, k0 = rank * KS;",
-                 "    return launch_split<true>(mp, dim3(K / KS, Vp / DW_BV), K / KS, st, bf, lf, gf, dw,",
+                 "    return launch_hk(vocab_lse_split_kernel<true>, dim3(K / KS, Vp / DW_BV), K / KS,",
                  "  const dim3 grid(Vp / DW_BV);"):
         assert line in SOURCE, line
     assert "wmma" not in SOURCE.split("#include")[1], "a wmma kernel is left in the source"
@@ -272,14 +280,19 @@ def test_tiling_constants_match_the_source():
 def _k_split(k: int, c: int, ks: int) -> None:
     """Above K 256: C ranks of KS columns, a portable cluster, the K-slices
     [r KS, (r + 1) KS) covering K once, the kernels' shared memory within
-    227 KB and a rank's quads of the exchange (32 / C of a warpgroup's 32)
-    within the three passes of a warp."""
+    227 KB, and the exchange's quads: rank r owns [r 32 / C, (r + 1) 32 /
+    C) of a warpgroup's 32 (the source's `quad_owner` maps each quad to
+    it), within the three passes of a warp and the room every rank's
+    partials of them take."""
     assert ks == vocab_lse.KS == 128 and c * ks == k and 3 <= c <= PORTABLE_CLUSTER
     cols = [j for r in range(c) for j in range(r * ks, (r + 1) * ks)]
     assert cols == list(range(k))
     assert split_smem() <= SMEM
-    quads = [(r + 1) * 32 // c - r * 32 // c for r in range(c)]
-    assert sum(quads) == 32 and max(quads) <= 4 * 3
+    owned = [list(range(r * 32 // c, (r + 1) * 32 // c)) for r in range(c)]
+    assert [q for qs in owned for q in qs] == list(range(32))
+    assert all(((q + 1) * c - 1) // 32 == r for r, qs in enumerate(owned) for q in qs)
+    assert max(map(len, owned)) <= min(4 * 3, -(-32 // c))
+    assert c * -(-32 // c) <= _constant("RECV_QUADS")
 
 
 @pytest.mark.parametrize("n", [60, 700, 7488])
@@ -338,7 +351,7 @@ def test_conformer_shape_tiling():
     rings."""
     assert vocab_lse.dx_tiling(7488, 256, 51865, SMS) == {"route": "wgmma", "C": 2}
     assert -(-51865 // vocab_lse.dw_tiling(256)["BV"]) == 406
-    assert _constant("STAGES") == 4
+    assert _constant("STAGES") == 4 and _constant("SPLIT_STAGES") == 5
 
 
 def test_whisper_ctc_shape_tiling():
@@ -371,12 +384,20 @@ def test_backward_skips_frozen_gradients(frozen):
             assert got is None and t.grad is None
 
 
+@pytest.mark.parametrize("name", sorted(chip_smoke.K4_ABLATIONS))
+def test_k4_ablations_match_the_source(name):
+    """Every edit of `chip_smoke.py --k4-ablate` is in the split kernels'
+    source, applied in order as the run applies them."""
+    text = SOURCE
+    for old, new in chip_smoke.K4_ABLATIONS[name]:
+        assert old in text, (name, old)
+        text = text.replace(old, new, 1)
+
+
 @pytest.mark.cuda
 def test_hopper_backward_matches_plain_on_card():
     """K4's forward, dx and dw against their plain versions on the card, at
     chip_smoke.py's shapes and bounds (K 128 to 1024)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    import chip_smoke
-
     chip_smoke.check_k4(torch.device("cuda"), torch.Generator().manual_seed(0), timed=False)
