@@ -108,7 +108,7 @@
 // rank r owns the K-slice [r KS, (r + 1) KS) of the accumulator and of the
 // resident operand (dx: x's slice of the row tile; dw: W's slice of the
 // column block; TMA). Each rank streams its slice of the other operand
-// through its own 5-slot TMA ring (dx: W's KS x 64 tiles with their bias
+// through its own 4-slot TMA ring (dx: W's KS x 64 tiles with their bias
 // strips; dw: x's 64 x KS tiles with their lse and g strips), a producer
 // warpgroup handing its registers to the consumers (setmaxnreg) as at K <=
 // 256: every element is read from L2 by one rank, once per output tile,
@@ -138,11 +138,11 @@
 // into dW (K, Vp) rows [r KS, (r + 1) KS), and db, from the f32 dz, comes
 // from the one rank that owns the column's quad. Rows >= N and columns >=
 // V are masked by index (lse log2 e +inf and g 0; the bias -inf). Shared
-// memory: 225,944 bytes at every K (`split_smem`); registers of a consumer
+// memory: 209,032 bytes at every K (`split_smem`); registers of a consumer
 // thread: the accumulator KS / 2 = 64, S 32, packed P 16. The exchange
-// bounds both kernels, its latency a tile with two slots (PERF.md, PR 17:
-// every rank reading every partial, the same exchange by loads of the
-// others' partials with arrivals released at cluster scope, and by the TMA
+// bounds both kernels, its latency a tile with two slots (PERF.md: every
+// rank reading every partial, the same exchange by loads of the others'
+// partials with arrivals released at cluster scope, and by the TMA
 // engine's bulk copies were slower). The C entries dispatch by K, and the
 // tiling rules `vocab_lse.dx_tiling` / `dw_tiling` mirror them.
 
@@ -863,23 +863,21 @@ vocab_lse_fwd_kernel(const __grid_constant__ Maps mp, const float* __restrict__ 
 // the header note)
 
 constexpr int KS = 128;                 // the K-slice of a cluster rank
-constexpr int SPLIT_STAGES = 5;         // ring slots of the split kernels
 constexpr int SPLIT_STAGE = KS * 128;   // bytes of a ring slot: KS x 64 or 64 x KS bf16
 constexpr int QBLK = 32 * 16;           // bytes of a quad's S tile: 32 float4
 constexpr int PBLK = 32 * 8;            // bytes of a quad's packed P: 32 pairs of bf16 pairs
 constexpr int RECV_QUADS = 36;          // max over C of C ceil(32 / C): a receive slot
-constexpr int SPLIT_STRIPS = SPLIT_STAGES * VT * 4;
-constexpr int SPLIT_BARS = (1 + 2 * SPLIT_STAGES + 8) * 8;
+constexpr int SPLIT_BARS = (1 + 2 * STAGES + 8) * 8;
 
 // The split kernels' shared memory, the same at every K (a rank holds a
-// KS-wide slice): the resident slice (128 x KS bf16), the ring
-// (SPLIT_STAGES slots), the partials every rank sends for this rank's
+// KS-wide slice): the resident slice (128 x KS bf16), the ring (STAGES
+// slots), the partials every rank sends for this rank's
 // quads (2 slots x 2 warpgroups x RECV_QUADS quads, f32), P (2 x 2 x 32
 // quads, bf16 pairs), the per-slot strips (two tables), the block's row or
 // column tables (2 x 128 f32) and the barriers.
 __host__ __device__ constexpr size_t split_smem() {
-  return 1024 + 128 * KS * 2 + SPLIT_STAGES * SPLIT_STAGE + 4 * RECV_QUADS * QBLK +
-         4 * 32 * PBLK + 2 * SPLIT_STRIPS + 2 * 128 * 4 + SPLIT_BARS;
+  return 1024 + 128 * KS * 2 + STAGES * SPLIT_STAGE + 4 * RECV_QUADS * QBLK + 4 * 32 * PBLK +
+         2 * STRIPS + 2 * 128 * 4 + SPLIT_BARS;
 }
 static_assert(split_smem() <= 232448 && MAX_C * KS >= 1024 && 3 * KS > HK_MAX,
               "K4's split backward does not fit shared memory, or a cluster, at some K");
@@ -1001,14 +999,6 @@ __device__ __forceinline__ void split_pv(float (&acc)[KS / 2], const uint32_t (&
   else issue_pv<KS, 0>(acc, pa, slot, 32, 1024);
 }
 
-// A consumer's place in the split kernels' ring: slot s, phase ph.
-struct Slot {
-  int s = 0, ph = 0;
-  __device__ __forceinline__ Slot next() const {
-    return s + 1 == SPLIT_STAGES ? Slot{0, ph ^ 1} : Slot{s + 1, ph};
-  }
-};
-
 // dx (DW false: out the (N, K) bf16 dx) or dw (out the (K, Vp) f32 dW, db
 // (Vp,)) at K = C KS: grid (C, row tiles or column blocks) in clusters of C
 // along x.
@@ -1024,17 +1014,17 @@ vocab_lse_split_kernel(const __grid_constant__ Maps mp, const float* __restrict_
   unsigned char* base = align1024(raw);
   unsigned char* res = base;  // the resident slice: dx x's 128 rows, dw W's 128 columns
   unsigned char* ring = res + 128 * KS * 2;
-  unsigned char* recv = ring + SPLIT_STAGES * SPLIT_STAGE;  // [slot][wg][RECV_QUADS]
+  unsigned char* recv = ring + STAGES * SPLIT_STAGE;  // [slot][wg][RECV_QUADS]
   unsigned char* pk = recv + 4 * RECV_QUADS * QBLK;         // [slot][wg][32 quads]: P
   float* st0 = reinterpret_cast<float*>(pk + 4 * 32 * PBLK);  // [ring slot][64]: dx b, dw lse log2 e
-  float* st1 = st0 + SPLIT_STAGES * VT;                       // dw: g
-  float* tb0 = st1 + SPLIT_STAGES * VT;  // the block's 128 rows' lse log2 e (dx) or columns' b (dw)
+  float* st1 = st0 + STAGES * VT;                       // dw: g
+  float* tb0 = st1 + STAGES * VT;  // the block's 128 rows' lse log2 e (dx) or columns' b (dw)
   float* tb1 = tb0 + 128;                // dx: the rows' g
   uint64_t* bars = reinterpret_cast<uint64_t*>(tb1 + 128);
   uint64_t* rfull = bars;
   uint64_t* full = bars + 1;
-  uint64_t* empty = full + SPLIT_STAGES;
-  uint64_t* sfull = empty + SPLIT_STAGES;  // [slot][wg]: every rank's partials of my quads landed
+  uint64_t* empty = full + STAGES;
+  uint64_t* sfull = empty + STAGES;  // [slot][wg]: every rank's partials of my quads landed
   uint64_t* pfull = sfull + 4;             // [slot][wg]: every rank's quads of P landed
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int b0 = blockIdx.y * 128, k0 = rank * KS;  // the block's first row (dx) or column (dw)
@@ -1045,7 +1035,7 @@ vocab_lse_split_kernel(const __grid_constant__ Maps mp, const float* __restrict_
   const uint32_t s_bytes = C * nq * QBLK, p_bytes = 32 * PBLK;
   if (tid == 0) {
     hop::mbar_init(rfull, 1);
-    for (int s = 0; s < SPLIT_STAGES; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       hop::mbar_init(&full[s], 32);  // the producer warp's lanes
       hop::mbar_init(&empty[s], CONSUMERS / 32);
     }
@@ -1088,7 +1078,7 @@ vocab_lse_split_kernel(const __grid_constant__ Maps mp, const float* __restrict_
           }
         }
       }
-      Slot p;
+      Pos p;
       for (int it = 0; it < nt; ++it, p = p.next()) {
         const int s = p.s, j0 = it * 64;
         hop::mbar_wait(&empty[s], p.ph ^ 1);
@@ -1148,10 +1138,10 @@ vocab_lse_split_kernel(const __grid_constant__ Maps mp, const float* __restrict_
   // Tile it's exchange beside the product of tile it - 1's P (at tile 0 a
   // product of zeros on tile 0's slot, so that no wgmma sits under a
   // condition); the next tile's S_r in flight under both.
-  Slot p, pp;  // tiles it's and it - 1's ring slots
+  Pos p, pp;  // tiles it's and it - 1's ring slots
   for (int it = 0; it < nt; ++it) {
     const bool more = it + 1 < nt;
-    const Slot nx = p.next();
+    const Pos nx = p.next();
     const int x = it & 1;
     if (more) hop::mbar_wait(&full[nx.s], nx.ph);
     __syncwarp();

@@ -254,7 +254,7 @@ reading `decode_attn.time_splits` was tuned on; `--k4-turns DIR` times K4's
 three passes at the whisper CTC head's shape (`k4_times`) in the checkout
 at DIR (e.g. a `git archive` of an earlier commit) and in this one, one
 process each, in turns (DIR, this, this, DIR); `--k4-ablate` times the
-split kernels at that shape with their exchange's waits, or the whole
+split kernels at that shape with parts of their exchange, or the whole
 exchange, taken out (K4_ABLATIONS).
 """
 
@@ -1652,8 +1652,9 @@ def check_k4(dev, g, timed=True) -> dict:
     """Phase 2v: K4's forward, dx and dw (csrc/vocab_lse.cu) against their
     plain versions at K4_SHAPES; when timed, their times at the training
     shape (`k4_times`) and the passes at K4_WIDE (`k4_wide`). Returns
-    {"fwd", "dx", "dw"} results at the training shape, "split": the
-    largest errors above K 256 and, when timed, "wide": K4_WIDE's."""
+    {"fwd", "dx", "dw"} results at the training shape (errors at K <= 256)
+    and, when timed, "wide": K4_WIDE's times with the largest errors above
+    K 256."""
     from agacs_tpu_torch.ops import vocab_lse
 
     res = {part: {"err": 0.0} for part in ("fwd", "dx", "dw")}
@@ -1695,9 +1696,10 @@ def check_k4(dev, g, timed=True) -> dict:
                 res[part].update(times[part])
         print(line, flush=True)
         torch.cuda.empty_cache()
-    res["split"] = split
-    if timed:
+    if timed:  # the K > 256 rows: K4_WIDE's times, the largest error above K 256
         res["wide"] = k4_wide(g, dev, sms)
+        for part, r in split.items():
+            res["wide"][part]["err"] = max(res["wide"][part]["err"], r["err"])
     return res
 
 
@@ -1749,16 +1751,27 @@ def k4_wide(g, dev, sms: int) -> dict:
 # `--k4-ablate`: the split kernels at K4_WIDE with parts of their exchange
 # taken out, each an edit of csrc/vocab_lse.cu built outside the checkout as
 # `--mutants` builds: timing only (their outputs are wrong), to show what
-# the exchange costs. Without the waits the stores still go; without the
-# exchange no partial or P crosses the cluster, and P stays zero.
-K4_NO_WAITS = [
-    ("    hop::mbar_wait_cluster(&sfull[x * 2 + wg], (it >> 1) & 1);\n", ""),
-    ("      hop::mbar_wait_cluster(&pfull[(x ^ 1) * 2 + wg], ((it - 1) >> 1) & 1);\n", ""),
-    ("    hop::mbar_wait_cluster(&pfull[x * 2 + wg], ((nt - 1) >> 1) & 1);\n", "")]
+# the exchange costs. Each keeps the barriers' byte counts whole: without
+# the all-gather a rank's P reaches only itself, without the reduce-scatter
+# a partial reaches only its own rank, and without the exchange nothing
+# crosses the cluster and no exchange barrier is waited on.
+K4_NO_GATHER = [("      if (r < C) hop::st_async(dst, pv, bar, r);",
+                 "      if (r == rank) hop::st_async(dst, pv, bar, r);"),
+                ("p_bytes = 32 * PBLK;", "p_bytes = nq * PBLK;")]
+K4_NO_SCATTER = [("  const int q = tw >> 2, t = tw & 3, o = quad_owner(q, C);\n",
+                  "  const int q = tw >> 2, t = tw & 3, o = quad_owner(q, C);\n  if (o != rank) return;\n"),
+                 ("s_bytes = C * nq * QBLK,", "s_bytes = nq * QBLK,")]
 K4_ABLATIONS = {
     "as built": [],
-    "no waits on the exchange's barriers": K4_NO_WAITS,
-    "no exchange": K4_NO_WAITS + [
+    "no all-gather of P": K4_NO_GATHER,
+    "no reduce-scatter of the partials": K4_NO_SCATTER,
+    "no exchange": [
+        ("    hop::mbar_wait_cluster(&sfull[x * 2 + wg], (it >> 1) & 1);\n", ""),
+        ("    if (lead) hop::mbar_expect_tx(&sfull[x * 2 + wg], s_bytes);  // tile it + 2's\n", ""),
+        ("      hop::mbar_wait_cluster(&pfull[(x ^ 1) * 2 + wg], ((it - 1) >> 1) & 1);\n", ""),
+        ("      if (lead) hop::mbar_expect_tx(&pfull[(x ^ 1) * 2 + wg], p_bytes);  // tile it + 1's\n",
+         ""),
+        ("    hop::mbar_wait_cluster(&pfull[x * 2 + wg], ((nt - 1) >> 1) & 1);\n", ""),
         ("  for (int j = 0; j < 8; ++j)\n    hop::st_async(", "  for (int j = 0; j < 0; ++j)\n    hop::st_async("),
         ("    if (lq >= nq) break;\n    float4 v[MAX_C];", "    if (true) break;\n    float4 v[MAX_C];")],
 }
@@ -1801,19 +1814,24 @@ def k4_ablate(dev) -> None:
 
 
 # `--k4-turns DIR`: one process per turn, in the tree at `root`: K4's three
-# passes at K4_WIDE timed by that tree's `k4_times` (its forward, dx and dw
-# with the padded W handed in, beside their plain versions and cuBLAS).
+# passes at the conformer's training shape (K4_SHAPES[0]) and at K4_WIDE,
+# timed by that tree's `k4_times` (its forward, dx and dw with the padded W
+# handed in, beside their plain versions and cuBLAS).
 K4_TURN = ("import sys, json, torch; sys.path.insert(0, {root!r}); import chip_smoke as c; "
            "dev = torch.device('cuda'); g = torch.Generator().manual_seed(0); "
-           "gr = torch.randn(c.K4_WIDE[0], generator=g).to(dev); "
-           "res, _ = c.k4_times(g, dev, c.K4_WIDE, gr, 1, {iters!r}, ''); "
-           "print('K4_TURN', json.dumps({{p: r['ms'] for p, r in res.items()}}))")
+           "out = {{}}\n"
+           "for shape in (c.K4_SHAPES[0], c.K4_WIDE):\n"
+           "    gr = torch.randn(shape[0], generator=g).to(dev)\n"
+           "    res, _ = c.k4_times(g, dev, shape, gr, 1, {iters!r}, '')\n"
+           "    out[str(shape)] = {{p: r['ms'] for p, r in res.items()}}\n"
+           "    torch.cuda.empty_cache()\n"
+           "print('K4_TURN', json.dumps(out))")
 
 
 def k4_turns(other: str) -> None:
-    """K4 at K4_WIDE in the tree at `other` and in this one, in turns
-    (other, this, this, other), one process each; each tree builds its
-    own kernels."""
+    """K4 at the training shape and K4_WIDE in the tree at `other` and in
+    this one, in turns (other, this, this, other), one process each; each
+    tree builds its own kernels."""
     other = os.path.abspath(other)
     check(os.path.isfile(os.path.join(other, "chip_smoke.py")), f"{other} holds chip_smoke.py")
     for tree in (other, ROOT, ROOT, other):
@@ -1824,7 +1842,7 @@ def k4_turns(other: str) -> None:
         found = [ln for ln in proc.stdout.splitlines() if ln.startswith("K4_TURN ")]
         check(proc.returncode == 0 and len(found) == 1,
               f"K4 turn in {tree}: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
-        print(f"k4-turns {'this tree' if tree == ROOT else tree}: {K4_WIDE} ms a call "
+        print(f"k4-turns {'this tree' if tree == ROOT else tree}: ms a call "
               + found[0].split(" ", 1)[1], flush=True)
 
 
@@ -3650,6 +3668,24 @@ def plain_k5_k4():
         relpos_flash.relpos_mha, vocab_lse.streaming_lse = k5, k4
 
 
+def hold_parity(card: dict, control: dict, fixed_bounds: dict, what: str) -> dict:
+    """Phase 31's rule for each key of `fixed_bounds` (a relative error, or
+    a cosine whose bound is on 1 - cos): the card within the fixed bound, or
+    2x the control where the control itself misses it, and within 2x the
+    control or a tenth of the fixed bound. Returns the limit applied by key."""
+    bounds = {}
+    for key, bound in fixed_bounds.items():
+        is_cos = key.startswith("cos")
+        c_err, k_err = (1 - control[key], 1 - card[key]) if is_cos else (control[key], card[key])
+        fixed = 1 - bound if is_cos else bound
+        limit = fixed if c_err <= fixed else 2 * c_err
+        bounds[key] = limit
+        check(k_err <= limit, f"{what} {key}: card {k_err} <= {limit}")
+        check(k_err <= max(2 * c_err, fixed / 10),
+              f"{what} {key}: card {k_err} <= 2 x control {c_err} (or {fixed / 10})")
+    return bounds
+
+
 def conformer_train_parity(sd, dev, batch) -> dict:
     """Phase 31: one micro-step on one 15 s utterance, card bf16 (K5, K4)
     and the bf16 control (their plain versions) against the port on the CPU
@@ -3669,17 +3705,8 @@ def conformer_train_parity(sd, dev, batch) -> dict:
     check(all(np.isfinite(v) for v in run[0].values())
           and all(bool(torch.isfinite(g).all()) for g in run[1].values()),
           "finite card loss and gradients")
-    bounds = {}
-    for key, bound in {**CONF_TRAIN_REL, **CONF_TRAIN_COS}.items():
-        is_cos = key.startswith("cos")
-        c_err, k_err = (1 - control[key], 1 - card[key]) if is_cos else (control[key], card[key])
-        fixed = 1 - bound if is_cos else bound
-        limit = fixed if c_err <= fixed else 2 * c_err
-        bounds[key] = limit
-        check(k_err <= limit, f"conformer train parity {key}: card {k_err} <= {limit}")
-        check(k_err <= max(2 * c_err, fixed / 10),
-              f"conformer train parity {key}: card {k_err} <= 2 x control {c_err} "
-              f"(or {fixed / 10})")
+    bounds = hold_parity(card, control, {**CONF_TRAIN_REL, **CONF_TRAIN_COS},
+                         "conformer train parity")
     fmt = lambda r: ", ".join(f"{k} {v:.2e}" if not k.startswith("cos") else f"{k} {v:.6f}"
                               for k, v in r.items())
     print(f"phase 31 conformer train parity vs cpu f32 (1 x {TRAIN_S} s; rel errors, "
@@ -3842,17 +3869,9 @@ def whisper_ctc_parity(sd, dev, batch) -> dict:
     check(all(np.isfinite(v) for v in run[0].values())
           and all(bool(torch.isfinite(g).all()) for n, g in run[1].items()
                   if n.startswith("ctc.")), "finite card loss and CTC head gradients")
-    bounds = {}
-    for key in ("loss_ctc", "cos_ctc"):
-        bound = {**CONF_TRAIN_REL, **CONF_TRAIN_COS}[key]
-        is_cos = key.startswith("cos")
-        c_err, k_err = (1 - control[key], 1 - card[key]) if is_cos else (control[key], card[key])
-        fixed = 1 - bound if is_cos else bound
-        limit = fixed if c_err <= fixed else 2 * c_err
-        bounds[key] = limit
-        check(k_err <= limit, f"whisper CTC parity {key}: card {k_err} <= {limit}")
-        check(k_err <= max(2 * c_err, fixed / 10),
-              f"whisper CTC parity {key}: card {k_err} <= 2 x control {c_err} (or {fixed / 10})")
+    bounds = hold_parity(card, control, {"loss_ctc": CONF_TRAIN_REL["loss_ctc"],
+                                         "cos_ctc": CONF_TRAIN_COS["cos_ctc"]},
+                         "whisper CTC parity")
     fmt = lambda r: ", ".join(f"{k} {r[k]:.2e}" if not k.startswith("cos") else f"{k} {r[k]:.6f}"
                               for k in ("loss", "loss_ctc", "loss_att", "grad_norm", "cos_enc",
                                         "cos_dec", "cos_ctc"))

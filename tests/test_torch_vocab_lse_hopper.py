@@ -152,12 +152,12 @@ def dw_smem(k: int) -> int:
 def split_smem() -> int:
     """The split kernels' shared memory, the same at every K (the source's
     `split_smem`): alignment slack, the resident slice (128 x KS bf16), the
-    ring (SPLIT_STAGES slots of KS x 64 bf16), two slots of both
+    ring (STAGES slots of KS x 64 bf16), two slots of both
     warpgroups' receive room (RECV_QUADS quads of 32 float4: the most C
     ceil(32 / C) takes) and packed P (32 quads of 32 pairs of bf16 pairs),
     the strips (two tables), the block's row or column tables and the
     barriers."""
-    ks, stages, recv = _constant("KS"), _constant("SPLIT_STAGES"), _constant("RECV_QUADS")
+    ks, stages, recv = _constant("KS"), _constant("STAGES"), _constant("RECV_QUADS")
     assert recv == max(c * -(-32 // c) for c in range(3, 9))
     strips, bars = stages * vocab_lse.VT * 4, (1 + 2 * stages + 8) * 8
     return (1024 + 128 * ks * 2 + stages * ks * 128 + 4 * recv * 32 * 16 + 4 * 32 * 32 * 8
@@ -259,10 +259,9 @@ def test_tiling_constants_match_the_source():
                  "constexpr int SPLIT_STAGE = KS * 128;",
                  "constexpr int QBLK = 32 * 16;",
                  "constexpr int PBLK = 32 * 8;",
-                 "constexpr int SPLIT_STRIPS = SPLIT_STAGES * VT * 4;",
-                 "constexpr int SPLIT_BARS = (1 + 2 * SPLIT_STAGES + 8) * 8;",
-                 "  return 1024 + 128 * KS * 2 + SPLIT_STAGES * SPLIT_STAGE + 4 * RECV_QUADS * QBLK +",
-                 "         4 * 32 * PBLK + 2 * SPLIT_STRIPS + 2 * 128 * 4 + SPLIT_BARS;",
+                 "constexpr int SPLIT_BARS = (1 + 2 * STAGES + 8) * 8;",
+                 "  return 1024 + 128 * KS * 2 + STAGES * SPLIT_STAGE + 4 * RECV_QUADS * QBLK + 4 * 32 * PBLK +",
+                 "         2 * STRIPS + 2 * 128 * 4 + SPLIT_BARS;",
                  "__device__ __forceinline__ int quad0(int r, int C) { return r * 32 / C; }",
                  "__device__ __forceinline__ int quad_owner(int q, int C) { return ((q + 1) * C - 1) / 32; }",
                  "__device__ __forceinline__ int quad_room(int C) { return (32 + C - 1) / C; }",
@@ -351,7 +350,7 @@ def test_conformer_shape_tiling():
     rings."""
     assert vocab_lse.dx_tiling(7488, 256, 51865, SMS) == {"route": "wgmma", "C": 2}
     assert -(-51865 // vocab_lse.dw_tiling(256)["BV"]) == 406
-    assert _constant("STAGES") == 4 and _constant("SPLIT_STAGES") == 5
+    assert _constant("STAGES") == 4
 
 
 def test_whisper_ctc_shape_tiling():
