@@ -255,7 +255,7 @@ three passes at the whisper CTC head's shape (`k4_times`) in the checkout
 at DIR (e.g. a `git archive` of an earlier commit) and in this one, one
 process each, in turns (DIR, this, this, DIR); `--k4-ablate` times the
 split kernels at that shape with parts of their exchange, or the whole
-exchange, taken out (K4_ABLATIONS).
+exchange, taken out, or with a part's bytes cut (K4_ABLATIONS).
 """
 
 from __future__ import annotations
@@ -330,6 +330,7 @@ TRAIN_REL = {"loss": 5e-4, "loss_cs": 2e-3, "grad_norm": 5e-3}
 TRAIN_COS = {"cos_enc": 0.9995, "cos_dec": 0.9995}
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 16, 15, 5
 BEAM = 5
+PROFILE_TRIES = 3  # profiles of a run whose device events must match its launches
 # Phase 12: a beam hypothesis's reported score against its teacher-forced
 # rescoring (sum of the searched tokens' log-softmax values plus the length
 # bonus), relative to |score|, max over the 8 utterances (card, bf16) and
@@ -1761,10 +1762,23 @@ K4_NO_GATHER = [("      if (r < C) hop::st_async(dst, pv, bar, r);",
 K4_NO_SCATTER = [("  const int q = tw >> 2, t = tw & 3, o = quad_owner(q, C);\n",
                   "  const int q = tw >> 2, t = tw & 3, o = quad_owner(q, C);\n  if (o != rank) return;\n"),
                  ("s_bytes = C * nq * QBLK,", "s_bytes = nq * QBLK,")]
+# The same exchange with fewer of its bytes: a thread sends 4 or 1 of its 8
+# float4 of partials, or 1 lane in 8 stores P, and the barriers await that
+# many bytes (does a part's cost follow its bytes?).
+K4_SCATTER_PART = [("  for (int j = 0; j < 8; ++j)\n    hop::st_async(dst + quad_at(t, j, q),",
+                    "  for (int j = 0; j < {j}; ++j)\n    hop::st_async(dst + quad_at(t, j, q),"),
+                   ("s_bytes = C * nq * QBLK,", "s_bytes = C * nq * QBLK / {d},")]
 K4_ABLATIONS = {
     "as built": [],
     "no all-gather of P": K4_NO_GATHER,
     "no reduce-scatter of the partials": K4_NO_SCATTER,
+    "the reduce-scatter at half its bytes": [(o, n.format(j=4, d=2)) for o, n in K4_SCATTER_PART],
+    "the reduce-scatter at an eighth of its bytes": [(o, n.format(j=1, d=8))
+                                                     for o, n in K4_SCATTER_PART],
+    "the all-gather at an eighth of its bytes": [
+        ("      if (r < C) hop::st_async(dst, pv, bar, r);",
+         "      if (r < C && (lane & 7) == 0) hop::st_async(dst, pv, bar, r);"),
+        ("p_bytes = 32 * PBLK;", "p_bytes = 32 * PBLK / 8;")],
     "no exchange": [
         ("    hop::mbar_wait_cluster(&sfull[x * 2 + wg], (it >> 1) & 1);\n", ""),
         ("    if (lead) hop::mbar_expect_tx(&sfull[x * 2 + wg], s_bytes);  // tile it + 2's\n", ""),
@@ -2034,14 +2048,43 @@ def events_of(counts: dict, word: str) -> int:
     return sum(c for name, c in counts.items() if word in name)
 
 
+def exact_profile(what: str, fn, want, reset=None) -> tuple[float, int, dict]:
+    """device_profile(fn) in which each kernel's device events match the
+    launches its wrapper counted: `want()`, read after the run, maps a word
+    of kernel names to their launches (the word "" to every device event);
+    `reset()`, when given, zeroes the wrappers' counts before the run. The
+    profiler now and then loses device records (H100: one request's
+    profile of ~62,000 events missed 1-3% of each kernel's, in one run of
+    this script of several), and a lost record only lowers a tally: a
+    profile whose tallies all lie at or below the launches, one at least
+    below, is taken again, PROFILE_TRIES times at most, and says so. A
+    tally above its launches (a second pass) fails at once; a kernel that
+    is counted but not launched falls short in every try."""
+    seen = []
+    for i in range(PROFILE_TRIES):
+        if reset is not None:
+            reset()
+        counts: dict = {}
+        busy, n_events, per_name = device_profile(fn, counts)
+        expect = want()
+        got = {word: events_of(counts, word) for word in expect}
+        if got == expect:
+            return busy, n_events, per_name
+        seen.append(got)
+        if i + 1 == PROFILE_TRIES or any(got[word] > n for word, n in expect.items()):
+            break
+        print(f"{what}: the profile lost device records ({got} of {expect}); taken again",
+              flush=True)
+    check(False, f"{what}: device events by kernel {seen} against launches {expect}: "
+          f"{counts}")
+
+
 def one_launch(what: str, fn, word: str, calls: int) -> None:
     """fn(), which makes `calls` calls of a kernel wrapper, under the
     profiler: exactly `calls` device events, every one a kernel whose name
     holds `word` (one launch a call, nothing else on the device)."""
-    counts: dict = {}
-    device_profile(fn, counts)
-    check(sum(counts.values()) == calls == events_of(counts, word),
-          f"{what}: {calls} calls made one {word} launch each: {counts}")
+    exact_profile(f"{what}: {calls} calls made one {word} launch each", fn,
+                  lambda: {"": calls, word: calls})
 
 
 def top_kernels(per_name: dict, n: int = 8) -> str:
@@ -2586,17 +2629,18 @@ def int8_serve_phase(sd8, dev, audio) -> dict:
           f"{int(logits[1].argmax())}", flush=True)
     check(bool(torch.isfinite(logits[0]).all()) and e_log < INT8_LOGITS_REL_L2,
           f"int8 first-step logits rel L2 {e_log} < {INT8_LOGITS_REL_L2}")
-    reset_int8_counts()
-    counts: dict = {}
-    busy, n_events, per_name = device_profile(lambda: s2t(audio), counts)
     # one device kernel a K8g call (the thin one with its K8q folded in), one
     # K8q kernel a wide call
-    check(events_of(counts, "thin_gemm_kernel") == int8_linear.THIN_LAUNCHES == thin
-          and events_of(counts, "gemm_kernel") == int8_linear.LAUNCHES == want["K8g"]
-          and events_of(counts, "rowquant_kernel") == int8_linear.QUANT_LAUNCHES
-          == want["K8q"],
-          f"int8 serving profile: one launch a K8g call ({int8_linear.THIN_LAUNCHES} thin, "
-          f"{int8_linear.LAUNCHES} in all) and a K8q call: {counts}")
+    busy, n_events, per_name = exact_profile(
+        "int8 serving profile: one launch a K8g and a K8q call", lambda: s2t(audio),
+        lambda: {"thin_gemm_kernel": int8_linear.THIN_LAUNCHES,
+                 "gemm_kernel": int8_linear.LAUNCHES,
+                 "rowquant_kernel": int8_linear.QUANT_LAUNCHES}, reset_int8_counts)
+    check(int8_linear.THIN_LAUNCHES == thin and int8_linear.LAUNCHES == want["K8g"]
+          and int8_linear.QUANT_LAUNCHES == want["K8q"],
+          f"int8 serving profile: {int8_linear.THIN_LAUNCHES} thin K8g launches of "
+          f"{int8_linear.LAUNCHES} (want {thin} of {want['K8g']}), K8q "
+          f"{int8_linear.QUANT_LAUNCHES} (want {want['K8q']})")
 
     def share(*keys):
         t = sum(v for name, v in per_name.items() if any(k in name for k in keys))
@@ -2605,7 +2649,7 @@ def int8_serve_phase(sd8, dev, audio) -> dict:
     print(f"phase 16 int8 serving profile: device busy {busy:.1f} ms in {n_events} device "
           f"events ({n_events / n_steps:.0f} per decode step); idle {1 - busy / ms_batch:.1%} "
           f"of {ms_batch:.1f} ms/batch; K8g {share('gemm_kernel')} (of it the thin kernel "
-          f"{share('thin_gemm_kernel')} in {events_of(counts, 'thin_gemm_kernel')} launches), "
+          f"{share('thin_gemm_kernel')} in {int8_linear.THIN_LAUNCHES} launches), "
           f"K8q {share('rowquant_kernel')}, K2f {share('mlp_fwd_kernel')}, K3 "
           f"{share('decode_attn_kernel')}; top: " + top_kernels(per_name), flush=True)
     del s2t, out, model
@@ -2714,15 +2758,14 @@ def w8a16_serve_phase(sd8, dev, audio, int8_greedy: dict) -> dict:
     want = {"K1f": cfg.n_audio_layer, "K3": 2 * L * n_steps, "K2f": cfg.n_audio_layer,
             "K6": 8 * L * n_steps, "K8g": 2 * cfg.n_audio_layer + 2 * L,
             "K8q": 2 * cfg.n_audio_layer + 2 * L}
-    counts: dict = {}
     with w8a16_env("1"):
         run = serve("phase 32 W8A16 greedy", model, asr_cfg, audio, 1, want, timed=2)
-        reset_decode_counts()
-        busy, n_events, per_name = device_profile(lambda: run["s2t"](audio), counts)
+        # one device kernel a K6 call (no second pass)
+        busy, n_events, per_name = exact_profile(
+            "W8A16 profile: one launch a K6 call", lambda: run["s2t"](audio),
+            lambda: {"w8a16_kernel": decode_counts()["K6"]}, reset_decode_counts)
         k6_calls = decode_counts()["K6"]
-    # one device kernel a K6 call (no second pass)
-    check(events_of(counts, "w8a16_kernel") == k6_calls == want["K6"],
-          f"W8A16 profile: one launch a K6 call ({k6_calls} calls): {counts}")
+    check(k6_calls == want["K6"], f"W8A16 profile: {k6_calls} K6 calls (want {want['K6']})")
     with w8a16_env("interpret"):
         (lg_c, _), (lg_g, _) = (first_step(m, c, audio[:1]) for m, c in
                                 (models["cpu"], models["card"]))
@@ -2735,7 +2778,7 @@ def w8a16_serve_phase(sd8, dev, audio, int8_greedy: dict) -> dict:
           f"{agreement(run['results'], int8_greedy['results'])}; first-step logits card vs "
           f"cpu f32 rel L2 {e_log:.3e} (bound {INT8_LOGITS_REL_L2}); profile: busy "
           f"{busy:.1f} ms in {n_events} events, idle {1 - busy / run['ms']:.1%}, K6 {k6:.2f} "
-          f"ms ({k6 / busy:.1%}) in {events_of(counts, 'w8a16_kernel')} launches [phase 16: "
+          f"ms ({k6 / busy:.1%}) in {k6_calls} launches [phase 16: "
           f"K8g {int8_greedy['k8g']} of "
           f"{int8_greedy['busy']:.1f} ms busy]; top: " + top_kernels(per_name), flush=True)
     check(bool(torch.isfinite(lg_g).all()) and e_log < INT8_LOGITS_REL_L2,
@@ -2751,15 +2794,12 @@ def quant_profile(s2t, audio, ms_batch: float) -> str:
     K6's and thin K8g's device ms."""
     from agacs_tpu_torch.ops import int8_linear
 
-    reset_decode_counts()
-    counts: dict = {}
-    busy, n_events, per_name = device_profile(lambda: s2t(audio), counts)
+    busy, n_events, per_name = exact_profile(
+        "phase 33 profile: one launch a K6 and a K8g call", lambda: s2t(audio),
+        lambda: {"w8a16_kernel": decode_counts()["K6"],
+                 "thin_gemm_kernel": int8_linear.THIN_LAUNCHES,
+                 "gemm_kernel": decode_counts()["K8g"]}, reset_decode_counts)
     calls = decode_counts()
-    check(events_of(counts, "w8a16_kernel") == calls["K6"]
-          and events_of(counts, "thin_gemm_kernel") == int8_linear.THIN_LAUNCHES
-          and events_of(counts, "gemm_kernel") == calls["K8g"],
-          f"phase 33 profile: one launch a K6 and a K8g call ({calls}, thin "
-          f"{int8_linear.THIN_LAUNCHES}): {counts}")
 
     def ms(word):
         t = sum(v for name, v in per_name.items() if word in name)
