@@ -37,10 +37,17 @@ recalibrated after each epoch's training from the first <= 8 train batches
 (JAX :520-578). Checkpoints hold the JAX conformer layout, which both
 packages' decode CLIs load.
 
+`--init_param` takes JAX's spec `path[:src[:dst[:exclude,...]]]` over a
+`.params.npz` or, for the whisper family, an OpenAI `.pt`
+(`models/checkpoint.read_torch_whisper`, its leaves put in the npz layout
+first): the keys under `src` load into `dst`, the leaves under an
+`exclude` prefix are skipped, and what is missing or mismatched keeps its
+init. Raw-bf16 (`V2`) leaves are read as bf16, a `token_emb` with another
+row count is cut or zero-padded to the model's.
+
 Not ported, and raising NotImplementedError: --resume, --tensor_parallel > 1,
 --optim_state_shard, --ckpt_backend orbax, batch types other than numel,
-an OpenAI .pt --init_param, a freeze preset on the conformer family, and the
-transducer family.
+a freeze preset on the conformer family, and the transducer family.
 """
 
 from __future__ import annotations
@@ -65,6 +72,7 @@ from agacs_tpu_torch.models.checkpoint import (
     numpy_from_conformer_params,
     numpy_from_params,
     params_from_numpy,
+    read_torch_whisper,
 )
 from agacs_tpu_torch.models.conformer import apply_bn_stats
 from agacs_tpu_torch.models.conformer_asr import ConformerASR, bn_calibration_stats
@@ -93,7 +101,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--override", nargs="*", default=[])
     p.add_argument("--freeze_param", default=None)
     p.add_argument("--init_param", default=None,
-                   help=".params.npz checkpoint (JAX layout)")
+                   help=".params.npz checkpoint (JAX layout) or OpenAI .pt file, "
+                        "as path[:src[:dst[:exclude,...]]]")
     p.add_argument("--resume", action="store_true", help="not ported: raises")
     p.add_argument("--max_epoch", type=int, default=None)
     p.add_argument("--batch_bins", type=int, default=None)
@@ -117,29 +126,53 @@ def check_supported(args, tcfg) -> None:
         f"batch_type {args.batch_type or tcfg.batch_type!r}":
             (args.batch_type or tcfg.batch_type) != "numel",
     }
-    init = args.init_param or tcfg.init_param
-    unported["an OpenAI .pt --init_param"] = bool(init) and init.endswith((".pt", ".pth"))
     for what, bad in unported.items():
         if bad:
             raise NotImplementedError(f"{what} is not ported yet")
 
 
-def load_init_params(path: str, sd: dict, cfg, kind: str = "whisper") -> tuple[dict, int]:
-    """--init_param with ignore-mismatch semantics: each parameter present
-    in the npz with the same shape is loaded, the rest keep their init."""
-    with np.load(path) as data:
-        tree = {k: data[k] for k in data.files}
-    if kind == "conformer":
-        loaded = conformer_params_from_numpy(tree, cfg, strict=False)
+def _bf16_as_f32(arr: np.ndarray) -> np.ndarray:
+    """A legacy raw-saved bf16 leaf (numpy dtype V2) -> its float32 values."""
+    return (arr.view(np.uint16).astype(np.uint32) << 16).view(np.float32)
+
+
+def load_init_params(spec: str, sd: dict, cfg, kind: str = "whisper"
+                     ) -> tuple[dict, list[str]]:
+    """--init_param with --ignore_init_mismatch semantics (JAX
+    `load_init_params`, abs_task.py:1317-1325): (the state dict with what
+    the checkpoint holds loaded, the names loaded). The spec is
+    `path[:src_prefix[:dst_prefix[:exclude1,exclude2]]]` (espnet2
+    load_pretrained_model) over the JAX layout's flat keys."""
+    path, src, dst, exclude = (spec.split(":") + ["", "", ""])[:4]
+    exclude = tuple(e for e in exclude.split(",") if e)
+    if path.endswith((".pt", ".pth")):
+        if kind != "whisper":
+            raise ValueError(f"{path}: an OpenAI .pt initialises the whisper family only")
+        data = numpy_from_params(read_torch_whisper(path, cfg.whisper)[0])
     else:
-        loaded = params_from_numpy(tree, cfg.whisper, strict=False)
+        with np.load(path) as npz:
+            data = {k: npz[k] for k in npz.files}
+    if src or dst:
+        src_p, dst_p = src + "/" if src else "", dst + "/" if dst else ""
+        data = {dst_p + k[len(src_p):]: v for k, v in data.items()
+                if not src_p or k == src or k.startswith(src_p)}
+    data = {k: _bf16_as_f32(v) if v.dtype.kind == "V" and v.dtype.itemsize == 2 else v
+            for k, v in data.items()
+            if not any(k == e or k.startswith(e + "/") for e in exclude)}
+    if kind == "conformer":
+        loaded = conformer_params_from_numpy(data, cfg, strict=False)
+    else:
+        emb, rows = data.get("decoder/token_emb"), cfg.whisper.n_vocab
+        if emb is not None and emb.shape[1:] == (cfg.whisper.n_text_state,) \
+                and emb.shape[0] < rows:  # params_from_numpy cuts the longer
+            data["decoder/token_emb"] = np.pad(emb, [(0, rows - emb.shape[0]), (0, 0)])
+        loaded = params_from_numpy(data, cfg.whisper, strict=False)
     out = dict(sd)
-    n = 0
-    for name, t in loaded.items():
-        if name in out and out[name].shape == t.shape:
-            out[name] = t
-            n += 1
-    return out, n
+    names = [name for name, t in loaded.items()
+             if name in out and out[name].shape == t.shape]
+    out.update({name: loaded[name] for name in names})
+    logging.info("init_param: loaded %d/%d parameters from %s", len(names), len(sd), path)
+    return out, names
 
 
 @torch.no_grad()
@@ -189,10 +222,9 @@ def main(argv: list[str] | None = None) -> dict:
 
     sd = task.init_fn(torch.Generator().manual_seed(tcfg.seed), cfg)
     init_param = args.init_param or tcfg.init_param
+    init_loaded: list[str] = []
     if init_param:
-        sd, n = load_init_params(init_param, sd, cfg, task.kind)
-        logging.info("init_param: loaded %d/%d parameters from %s", n, len(sd),
-                     init_param)
+        sd, init_loaded = load_init_params(init_param, sd, cfg, task.kind)
     if task.kind == "conformer":
         model = ConformerASR.from_state_dict(cfg, sd, device=device,
                                              param_dtype=torch.float32)
@@ -270,7 +302,8 @@ def main(argv: list[str] | None = None) -> dict:
     with open(os.path.join(args.exp_dir, "train_history.json"), "w") as f:
         json.dump({str(k): v for k, v in history.items()}, f, indent=1)
     logging.info("done; n-best average written to %s", ave)
-    return {"history": history, "exp_dir": args.exp_dir, "ave": ave}
+    return {"history": history, "exp_dir": args.exp_dir, "ave": ave,
+            "init_loaded": init_loaded}
 
 
 if __name__ == "__main__":

@@ -2,8 +2,10 @@
 `agacs_tpu/data/dataset.py`): per-utterance waveform, text cleaned and
 tokenized through the Whisper converter (dual-language prompt + eot), and
 the CS loss's per-token language labels, computed on the host once per
-utterance. Plain WAV entries only (`data/io.DataDir`); the RIR/noise
-augmentation and `segments` are not ported."""
+utterance. The utterances, their lengths and their audio come from
+`data/io.DataDir` (every wav.scp form JAX reads, `segments`,
+`utt2num_samples`, the min/max length filter); the RIR/noise augmentation
+is not ported."""
 
 from __future__ import annotations
 
@@ -18,8 +20,9 @@ SOT = 50258
 
 class ASRDataset:
     def __init__(self, data_dir: str, tokenizer: WhisperTokenizer | None = None,
-                 cleaner: str | None = "whisper_basic", with_cs_labels: bool = True):
-        self.data = DataDir(data_dir)
+                 cleaner: str | None = "whisper_basic", min_samples: int = 0,
+                 max_samples: int = 30 * 16000, with_cs_labels: bool = True):
+        self.data = DataDir(data_dir, min_samples, max_samples)
         self.utt_ids = self.data.utt_ids
         self.tokenizer = tokenizer or WhisperTokenizer()
         self.converter = WhisperTokenIdConverter(self.tokenizer)

@@ -27,6 +27,13 @@ are the `encoder_side` / `decoder_side` modules, their stacked `blocks`
 and `downsample_layers` leaves split per ladder block, `gates` and
 `gate_output` plain leaves.
 
+`load_torch_whisper` reads an OpenAI `.pt` (`{"dims", "model_state_dict"}`,
+or a bare state dict and a config) into a state dict: the port keeps
+OpenAI's names, so this is mostly a key check, plus the reference's side
+network names (`encoder_sidenetwork.downsample_intermediate_layers.{i}`,
+`sigmoid_gate_intermediate_layers.{i}`, `sigmoid_gate_output`) and ESPnet's
+wrapper prefixes (`encoder.encoders.`, `decoder.decoders.`).
+
 The conformer ASR model and the transformer LM have their own pair each
 (`conformer_params_from_numpy` / `numpy_from_conformer_params`,
 `lm_params_from_numpy` / `numpy_from_lm_params`): JAX's stacked `blocks`
@@ -37,6 +44,8 @@ depthwise kernel (k, 1, d) <-> (d, 1, k), `mvn/mean` <-> `mvn_mean`.
 
 from __future__ import annotations
 
+import dataclasses
+import re
 from typing import Any, Mapping
 
 import numpy as np
@@ -48,6 +57,7 @@ from agacs_tpu_torch.models.whisper import (
     Whisper,
     WhisperConfig,
     init_whisper_params,
+    side_config,
 )
 
 _RENAME = {".mlp.0.": ".mlp.fc1.", ".mlp.2.": ".mlp.fc2.",
@@ -100,8 +110,9 @@ def _flat(tree: Mapping[str, Any]) -> dict[str, Any]:
 def params_from_numpy(tree: Mapping[str, Any], cfg: WhisperConfig,
                       strict: bool = True) -> dict:
     """JAX params (nested tree or flat save_pytree mapping) -> state dict.
-    With strict=False, names whose leaf is missing are left out (for
-    init_param's keep-the-init semantics)."""
+    With strict=False, names whose leaf is missing (or whose stacked leaf
+    has no such layer) are left out (for init_param's keep-the-init
+    semantics)."""
     flat = _flat(tree)
     meta = Whisper(cfg, device="meta", ctc="ctc/w" in flat)
     int8 = {name[: -len(".weight")] for name in meta.state_dict()
@@ -114,7 +125,8 @@ def params_from_numpy(tree: Mapping[str, Any], cfg: WhisperConfig,
     sd = {}
     for name in meta.state_dict():
         key, layer, layout = jax_leaf(name)
-        if key not in flat and not strict:
+        if not strict and (key not in flat or layer is not None
+                           and layer >= np.shape(flat[key])[0]):
             continue
         a = np.asarray(flat[key] if layer is None else flat[key][layer])
         a = a.astype(np.int8 if key.endswith("_q") else np.float32)
@@ -149,6 +161,90 @@ def numpy_from_params(state_dict: Mapping[str, torch.Tensor]) -> dict[str, np.nd
     for key, per in layers.items():
         out[key] = np.stack([per[i] for i in range(len(per))])
     return out
+
+
+_TORCH_PREFIXES = (("encoder.encoders.", "encoder."), ("decoder.decoders.", "decoder."),
+                   ("encoder.encoders_sidenetwork.", "encoder_side."),
+                   ("decoder.decoders_sidenetwork.", "decoder_side."),
+                   ("encoder_sidenetwork.", "encoder_side."),
+                   ("decoder_sidenetwork.", "decoder_side."))
+_SIDE_GATE = re.compile(r"(encoder|decoder)_side\.sigmoid_gate_intermediate_layers\.(\d+)$")
+
+
+def state_dict_from_torch(state_dict: Mapping[str, Any], cfg: WhisperConfig) -> dict:
+    """The leaves of an OpenAI / reference-layout state dict that `cfg`'s
+    model has, as float32 CPU tensors under the port's names (JAX
+    `params_from_state_dict` without `_merge_missing`'s template: the
+    caller decides what the missing leaves are). Every trunk weight must be
+    there (KeyError otherwise); adapters, PE projections and side networks
+    are taken when present. A PE stack whose `query_cs` the file lacks gets
+    `query_cs` := `query` and `key_cs` := `key` (JAX `init_pe_from_base`,
+    reference whisper/__init__.py:238-247); its gates are not set."""
+    sd, gates = {}, {}
+    for name, val in state_dict.items():
+        for old, new in _TORCH_PREFIXES:
+            if name.startswith(old):
+                name = new + name[len(old):]
+                break
+        name = name.replace("_side.downsample_intermediate_layers.", "_side.downsample_layers.")
+        t = torch.as_tensor(np.asarray(val)) if not torch.is_tensor(val) else val
+        t = t.detach().to("cpu", torch.float32)
+        if m := _SIDE_GATE.match(name):
+            gates.setdefault(m.group(1), {})[int(m.group(2))] = t.reshape(())
+        elif name == "encoder_side.sigmoid_gate_output":
+            sd["encoder_side.gate_output"] = t.reshape(1)
+        else:
+            sd[name] = t
+    for part, per in gates.items():
+        sd[f"{part}_side.gates"] = torch.stack([per[i] for i in range(len(per))])
+    meta = Whisper(cfg, device="meta").state_dict()
+    trunk = Whisper(dataclasses.replace(side_config(cfg), side_network=None),
+                    device="meta").state_dict()
+    missing = [n for n in trunk if n not in sd and not n.endswith(".bias")]
+    if missing:
+        raise KeyError(f"the checkpoint lacks {len(missing)} trunk weights, e.g. {missing[:3]}")
+    for part in ("encoder", "decoder"):
+        if cfg.part(part).pe_attention and f"{part}.blocks.0.attn.query_cs.weight" not in sd:
+            for name in [n for n in meta if n.startswith(f"{part}.blocks.")]:
+                base = name.replace(".query_cs.", ".query.").replace(".key_cs.", ".key.")
+                if base != name and base in sd:
+                    sd[name] = sd[base]
+    out = {}
+    for name, t in sd.items():
+        if name in meta:
+            if t.shape != meta[name].shape:
+                raise ValueError(f"{name}: shape {tuple(t.shape)} in the checkpoint, "
+                                 f"{tuple(meta[name].shape)} in the model")
+            out[name] = t
+    return out
+
+
+def read_torch_whisper(path: str, cfg: WhisperConfig | None = None
+                       ) -> tuple[dict, WhisperConfig]:
+    """An OpenAI-format `.pt` file -> (`state_dict_from_torch` of it, the
+    config: `cfg`, or else the file's `dims`). Read with weights_only."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(ckpt, Mapping) and "model_state_dict" in ckpt:
+        if cfg is None:
+            d = ckpt["dims"]
+            cfg = WhisperConfig(**{k: d[k] for k in WhisperConfig.__dataclass_fields__
+                                   if k in d})
+        ckpt = ckpt["model_state_dict"]
+    elif cfg is None:
+        raise ValueError(f"{path}: a bare state dict needs a config")
+    return state_dict_from_torch(ckpt, cfg), cfg
+
+
+def load_torch_whisper(path: str, cfg: WhisperConfig | None = None
+                       ) -> tuple[dict, WhisperConfig]:
+    """JAX `load_torch_whisper`: an OpenAI-format `.pt` -> (a whole state
+    dict, its config). What the file lacks (adapters, a side network, PE
+    gates) keeps the init from torch seed 0, as JAX's `_merge_missing`
+    keeps its PRNGKey(0) template's."""
+    held, cfg = read_torch_whisper(path, cfg)
+    sd = init_whisper_params(torch.Generator().manual_seed(0), cfg)
+    sd.update(held)
+    return sd, cfg
 
 
 def load_model(cfg: WhisperConfig, params_path: str | None, device) -> Whisper:

@@ -4,9 +4,9 @@ path, its stage-2 training path and both again on the int8 frozen trunk,
 serving with int8 cross-KV, the TMECS PE recipes' serving and training,
 the SEAME conformer recipe's serving (joint CTC/attention beam search
 with transformer-LM fusion) and training (run_conformer.sh stages 1-5),
-the W8A16 thin-row path (AGACS_W8A16 and serving-quantised checkpoints)
-and the ladder side network's serving and training, once on one CUDA
-card.
+the W8A16 thin-row path (AGACS_W8A16 and serving-quantised checkpoints),
+the ladder side network's serving and training, and the SEAME recipe's
+run.sh stages 0-6 through the port's CLIs, once on one CUDA card.
 
     python3 chip_smoke.py              # every phase below
     python3 chip_smoke.py --mutants    # the kernel checks against mutants
@@ -239,7 +239,20 @@ non-zero exit:
      torch.profiler: busy, idle share, K4's device ms by pass;
   38. one micro-step on one utterance, card bf16 against CPU float32:
      loss_ctc and the CTC head's gradient cosine within phase 31's bounds,
-     beside a bf16 control with K4's plain version.
+     beside a bf16 control with K4's plain version;
+  39. recipes/seame/run.sh stages 0-6 through the port's CLIs at
+     whisper-small's full width, on a SEAME-layout corpus generated from a
+     seed (`seame_corpus`: three 8 s FLAC recordings, phaseII transcripts,
+     a dev-set repo) and a random-weight whisper-small `.pt` in OpenAI's
+     layout (the port's init at seed 0, float16): `prepare_seame`,
+     `format_data --audio_format flac.ark` per split, `perturb_data_dir`,
+     `bin.train` stage 1 (adapter_encoder, `--init_param` the .pt) and
+     stage 2 (csloss_2stage, from stage 1's average), `bin.decode` greedy
+     and `bin.score` on devman and devsge, `bin.pack pack` and `unpack`:
+     every leaf of the .pt loaded, the ark waveforms bit-identical to the
+     plain Python FLAC decoder's, K1f and K1b launched in both trainings and
+     K3 in decoding, a hypothesis for every dev utterance, finite losses,
+     and the unpacked archive naming the config and model decode read.
 
 The last three lines are the card's `name, power.limit` (nvidia-smi), a
 JSON line with each kernel's launches, error and times, and the
@@ -4526,6 +4539,158 @@ def pe_cli_phase() -> dict:
     return {"train": train_launches, "decode": {k: c for k, (_, c) in decodes.items()}}
 
 
+SEAME_ROWS = {  # (audio type, recording): phaseII rows (start ms, end ms, text)
+    ("conversation", "NC01FBX_0101"): [(500, 2500, "我们 go to school 了"),
+                                       (3000, 5200, "okay 那个 project 很难"),
+                                       (5500, 7500, "(ppl) 好 的 thanks")],
+    ("conversation", "NC02MAY_0101"): [(200, 2000, "today 我 很 busy"),
+                                       (2500, 4400, "没有 problem lah"),
+                                       (5000, 7000, "he 说 tomorrow 再 来")],
+    ("interview", "NI01MAX_0101"): [(100, 2100, "interview 开始 了"),
+                                    (2600, 4600, "my name is 小明"),
+                                    (5100, 7100, "谢谢 everyone")],
+}
+SEAME_DEV = {"train/wav_file.txt": ["data/conversation/NC01FBX_0101/audio.wav",
+                                    "data/conversation/NC02MAY_0101/audio.wav"],
+             "dev_man/text": ["ni01m-ni01max_0101-00010-00210 interview text",
+                              "ni01m-ni01max_0101-00260-00460 more text"],
+             "dev_sge/text": ["ni01m-ni01max_0101-00510-00710 third utt"]}
+SEAME_SPLITS = ("train", "valid", "devman", "devsge")
+
+
+def seame_corpus(root: str) -> tuple[str, str]:
+    """A SEAME-layout corpus under `root` (three 8 s FLAC recordings of a
+    tone and seeded noise, phaseII transcripts with ms timestamps) and a
+    SEAME-dev-set repo (the train recordings, dev_man and dev_sge ids):
+    (corpus dir, repo dir). prepare_seame --num_val 1 splits it 5 train, 1
+    valid, 2 devman, 1 devsge."""
+    from agacs_tpu_torch.data.flac import write_flac
+
+    corpus, repo = os.path.join(root, "SEAME"), os.path.join(root, "SEAME-dev-set")
+    t = np.arange(8 * 16000) / 16000
+    for i, ((atp, rec), rows) in enumerate(SEAME_ROWS.items()):
+        noise = np.random.RandomState(i).randn(len(t))
+        write_flac(os.path.join(corpus, atp, "audio", f"{rec}.flac"),
+                   (0.2 * np.sin(2 * np.pi * (220 + 40 * i) * t) + 0.01 * noise)
+                   .astype(np.float32))
+        tdir = os.path.join(corpus, atp, "transcript", "phaseII")
+        os.makedirs(tdir, exist_ok=True)
+        with open(os.path.join(tdir, f"{rec}.txt"), "w", encoding="utf-8") as f:
+            f.writelines(f"{rec}\t{a}\t{b}\tCS\t{text}\n" for a, b, text in rows)
+    for sub, lines in SEAME_DEV.items():
+        os.makedirs(os.path.dirname(os.path.join(repo, sub)), exist_ok=True)
+        with open(os.path.join(repo, sub), "w") as f:
+            f.writelines(line + "\n" for line in lines)
+    return corpus, repo
+
+
+def seame_recipe_phase(smi: str) -> dict:
+    """Phase 39: recipes/seame/run.sh stages 0-6 through the port's CLIs on
+    the card (`smi`: its nvidia-smi name and power limit), under
+    build/chip_smoke_seame/ (removed afterwards)."""
+    import shutil
+
+    from agacs_tpu_torch.bin import decode, format_data, pack, prepare_seame, score, train
+    from agacs_tpu_torch.data.io import read_scp
+    from agacs_tpu_torch.data.kaldi_ark import read_ark_audio
+    from agacs_tpu_torch.data.perturb import perturb_data_dir
+    from agacs_tpu_torch.models import whisper as tw
+    from agacs_tpu_torch.ops import decode_attn, flash_train
+
+    root = os.path.join(ROOT, "build", "chip_smoke_seame")
+    shutil.rmtree(root, ignore_errors=True)
+    data, exp = os.path.join(root, "data"), os.path.join(root, "exp")
+    conf = os.path.join(ROOT, "recipes", "seame", "conf")
+    secs, counts = {}, {}
+
+    def stage(name, fn):
+        flash_train.LAUNCHES = flash_train.BWD_LAUNCHES = decode_attn.LAUNCHES = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        counts[name] = {k: v for k, v in (("K1f", flash_train.LAUNCHES),
+                                          ("K1b", flash_train.BWD_LAUNCHES),
+                                          ("K3", decode_attn.LAUNCHES)) if v}
+        return out
+
+    def prep():
+        corpus, repo = seame_corpus(root)
+        prepare_seame.main(["--data", corpus, "--repo", repo, "--out", f"{data}/prep",
+                            "--num_val", "1"])
+        for split in SEAME_SPLITS:
+            format_data.main(["--data_dir", f"{data}/prep/{split}", "--outdir",
+                              f"{data}/{split}", "--audio_format", "flac.ark"])
+        cfg = tw.make_config("small")  # OpenAI's layout: no adapters, float16
+        sd = tw.init_whisper_params(torch.Generator().manual_seed(0), cfg)
+        torch.save({"dims": {k: getattr(cfg, k) for k in (
+            "n_mels", "n_audio_ctx", "n_audio_state", "n_audio_head", "n_audio_layer",
+            "n_vocab", "n_text_ctx", "n_text_state", "n_text_head", "n_text_layer")},
+            "model_state_dict": {k: v.half() for k, v in sd.items()}}, f"{root}/small.pt")
+        return len(sd)
+
+    n_pt = stage("stage 0 prep + format flac.ark + .pt", prep)
+    entries = {split: read_scp(f"{data}/{split}/wav.scp") for split in SEAME_SPLITS}
+    check(all(":" in v for e in entries.values() for v in e.values())
+          and [len(entries[s]) for s in SEAME_SPLITS] == [5, 1, 2, 1],
+          f"stage 0 wrote flac.ark dirs of 5/1/2/1 utterances: {entries}")
+    same = all(np.array_equal(read_ark_audio(v)[0], read_ark_audio(v, native=False)[0])
+               for e in entries.values() for v in e.values())
+    check(same, "the ark waveforms read by the native codec are bit-identical to the plain "
+          "Python FLAC decoder's")
+    stage("stage 1 perturb", lambda: perturb_data_dir(f"{data}/train", f"{data}/train_sp"))
+    check(len(read_scp(f"{data}/train_sp/wav.scp")) == 15, "train_sp holds 3 x 5 utterances")
+    common = ["--train_dir", f"{data}/train_sp", "--valid_dir", f"{data}/valid",
+              "--max_epoch", "1", "--override", "accum_grad=1", "keep_nbest_models=1"]
+    st1 = stage("stage 2 train (adapter_encoder, --init_param .pt)", lambda: train.main([
+        "--config", f"{conf}/train_asr_whisper_small_adapter_encoder.yaml",
+        "--exp_dir", f"{exp}/stage1", "--init_param", f"{root}/small.pt", *common]))
+    check(len(st1["init_loaded"]) == n_pt, f"the .pt loaded all {n_pt} of its leaves "
+          f"({len(st1['init_loaded'])})")
+    st2 = stage("stage 4 train (csloss_2stage)", lambda: train.main([
+        "--config", f"{conf}/train_asr_whisper_small_adapter_csloss_2stage.yaml",
+        "--exp_dir", f"{exp}/stage2", "--init_param", st1["ave"], *common]))
+    losses = [st["history"][1]["train"]["loss"] for st in (st1, st2)]
+    check(all(np.isfinite(losses)) and st2["history"][1]["train"]["loss_cs"] > 0,
+          f"finite losses of both trainings {losses}")
+    for name in list(counts):
+        if "train" in name:
+            check(counts[name].get("K1f", 0) > 0 and counts[name].get("K1b", 0) > 0,
+                  f"{name} launched K1f and K1b: {counts[name]}")
+    model_file = os.path.join(exp, "stage2", "valid.acc.ave.params.npz")
+    config_file = os.path.join(exp, "stage2", "config.yaml")
+    for split in ("devman", "devsge"):
+        out = os.path.join(exp, "stage2", f"decode_{split}")
+        res = stage(f"stage 5 decode {split}", lambda: decode.main([
+            "--config", config_file, "--decode_config", f"{conf}/decode_asr_whisper.yaml",
+            "--params", model_file, "--data_dir", f"{data}/{split}", "--output_dir", out,
+            "--max_steps", "8"]))
+        check(set(res["hyps"]) == set(entries[split]) and counts[f"stage 5 decode {split}"]
+              .get("K3", 0) > 0, f"{split}: a hypothesis for every utterance, K3 launched: "
+              f"{res['hyps']} {counts[f'stage 5 decode {split}']}")
+        score.main(["--ref", f"{out}/ref.trn", "--hyp", f"{out}/hyp.trn", "--output_dir",
+                    f"{out}/score"])
+
+    def pack_unpack():
+        archive = os.path.join(exp, "stage2", "packed_model.tgz")
+        pack.main(["pack", "--train_config", config_file, "--model_file", model_file,
+                   "--option", os.path.join(exp, "stage2", "train_history.json"),
+                   "--outpath", archive])
+        return pack.main(["unpack", "--archive", archive, "--outdir", f"{root}/unpacked"])
+
+    unpacked = stage("stage 6 pack + unpack", pack_unpack)
+    check(open(unpacked["asr_train_config"], "rb").read() == open(config_file, "rb").read()
+          and open(unpacked["asr_model_file"], "rb").read() == open(model_file, "rb").read(),
+          f"the unpacked archive names the config and model decode read: {unpacked}")
+    print(f"phase 39 SEAME run.sh stages 0-6 through the port's CLIs on {smi} (whisper-small, "
+          f"{sum(len(e) for e in entries.values())} flac.ark utterances): "
+          + "; ".join(f"{k} {secs[k]:.1f} s {counts[k]}" for k in secs)
+          + f"; losses {[round(x, 3) for x in losses]}; .pt leaves loaded "
+          f"{len(st1['init_loaded'])}/{n_pt}", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return {"seconds": secs, "launches": counts}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "agacs_tpu_torch")):
         sys.exit("chip_smoke: agacs_tpu_torch/ is not beside this script; "
@@ -4726,6 +4891,9 @@ def main() -> int:
     # 36-38. the TMECS full fine-tune with a CTC head: K4 above K 256
     wctc = whisper_ctc_phase(dev)
     whisper_ctc_parity(wctc.pop("sd"), dev, wctc.pop("batch"))
+
+    # 39. recipes/seame/run.sh stages 0-6 through the port's CLIs
+    seame_recipe_phase(smi)
 
     check(not any(m.split(".")[0] in ("jax", "jaxlib", "agacs_tpu") for m in sys.modules),
           "no jax, jaxlib or agacs_tpu module was imported")

@@ -248,6 +248,35 @@ stats = make_train_step(tmodel, ccfg, opt, sched, grad_clip=5.0,
 assert torch.isfinite(stats["loss"]) and float(stats["loss_ctc"]) > 0
 assert relpos_flash.LAUNCHES == relpos_flash.BWD_LAUNCHES == 0
 assert vocab_lse.FWD_LAUNCHES == vocab_lse.DX_LAUNCHES == vocab_lse.DW_LAUNCHES == 0
+
+# the recipe's data path: a segments dir of FLAC recordings -> format_data
+# flac.ark -> perturb -> ASRDataset, and an OpenAI-layout .pt as init_param
+from agacs_tpu_torch.bin import format_data
+from agacs_tpu_torch.bin.train import load_init_params
+from agacs_tpu_torch.data.dataset import ASRDataset
+from agacs_tpu_torch.data.flac import read_flac, write_flac
+from agacs_tpu_torch.data.io import write_scp
+from agacs_tpu_torch.data.perturb import perturb_data_dir
+
+seg = os.path.join(tmp, "seg")
+write_flac(os.path.join(seg, "rec.flac"), rng.randn(40000).astype(np.float32) * 0.1)
+assert np.array_equal(read_flac(os.path.join(seg, "rec.flac"))[0],
+                      read_flac(os.path.join(seg, "rec.flac"), native=False)[0])
+write_scp(os.path.join(seg, "wav.scp"), {"rec": os.path.join(seg, "rec.flac")})
+write_scp(os.path.join(seg, "segments"), {"x-rec-1": "rec 0.0 1.0", "x-rec-2": "rec 1.0 2.4"})
+write_scp(os.path.join(seg, "text"), {"x-rec-1": "我们 go", "x-rec-2": "hello"})
+format_data.main(["--data_dir", seg, "--outdir", os.path.join(tmp, "ark")])
+perturb_data_dir(os.path.join(tmp, "ark"), os.path.join(tmp, "sp"))
+ds = ASRDataset(os.path.join(tmp, "sp"))
+assert len(ds) == 6 and len(ds["x-rec-2"]["speech"]) == 22400
+wcfg = tw.make_config("test", adapter=True)
+wsd = tw.init_whisper_params(torch.Generator().manual_seed(0), wcfg)
+torch.save({"dims": {"n_audio_state": 64, "n_audio_head": 2, "n_audio_layer": 2,
+                     "n_text_state": 64, "n_text_head": 2, "n_text_layer": 2},
+            "model_state_dict": {k: v for k, v in wsd.items() if "adapter" not in k}},
+           os.path.join(tmp, "w.pt"))
+_, names = load_init_params(os.path.join(tmp, "w.pt"), wsd, ASRModelConfig(whisper=wcfg))
+assert len(names) == sum("adapter" not in k for k in wsd)
 tmp_dir.cleanup()
 assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
 print("OK", len(mods))
@@ -569,8 +598,7 @@ def test_unported_training_options_raise(kw):
 @pytest.mark.parametrize("flags", [
     ["--resume"], ["--tensor_parallel", "2"], ["--optim_state_shard"],
     ["--ckpt_backend", "orbax"], ["--batch_type", "fixed_shapes"],
-    ["--override", "freeze_quant=int8", "freeze_param=null"], ["--init_param", "small.pt"],
-    ["--override", "freeze_quant=int4"],
+    ["--override", "freeze_quant=int8", "freeze_param=null"], ["--override", "freeze_quant=int4"],
 ], ids=str)
 def test_unported_train_cli_options_raise(flags, tmp_path):
     from agacs_tpu_torch.bin import train
@@ -581,3 +609,22 @@ def test_unported_train_cli_options_raise(flags, tmp_path):
         train.main(["--config", conf, "--train_dir", str(tmp_path), "--valid_dir",
                     str(tmp_path), "--exp_dir", str(tmp_path / "exp"), "--device", "cpu",
                     *flags])
+
+
+def test_failed_flac_build_raises(tmp_path, monkeypatch):
+    """A codec that does not build raises, in every reader that needs it;
+    nothing falls back to the Python decoder."""
+    from agacs_tpu_torch.data import flac, io
+
+    good = flac.encode_flac(np.zeros(100, np.int16), 16000)
+    path = tmp_path / "a.flac"
+    path.write_bytes(good)
+    monkeypatch.setattr(flac, "CXX", str(tmp_path / "no-such-compiler"))
+    monkeypatch.setattr(flac, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(flac, "_LIB", None)
+    for call in (lambda: flac.decode_flac(good), lambda: io.read_wav(str(path)),
+                 lambda: flac.encode_flac(np.zeros(10, np.int16), 16000)):
+        with pytest.raises(RuntimeError, match="no-such-compiler"):
+            call()
+    assert not list((tmp_path / "build").glob("*.so"))
+    assert flac.decode_flac(good, native=False)[0].shape == (100, 1)
