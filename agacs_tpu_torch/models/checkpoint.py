@@ -16,7 +16,8 @@ linear (in, out) <-> nn.Linear (out, in); conv (3, in, out) <-> nn.Conv1d
 (`train/trainer.py quantize_frozen_linears` in JAX) maps `.../w_q` (int8,
 JAX's (in, out) layout kept) and `.../w_s` (float32) to an `Int8Linear`'s
 `weight_q` / `weight_s` buffers, both ways, in their own dtypes. A CTC
-head's `ctc/w` (d, V) and `ctc/b` are the `ctc` linear, both ways. PE
+head's `ctc/w` (d, V) and `ctc/b` are the `ctc` linear, both ways, and
+`estimated_c_val` (estimate_c) the parameter of that name. PE
 attention's `query_cs` / `key_cs` are linears like the others and its
 per-head `gate` a plain (n_head,) leaf. A serving-quantised tree (JAX
 `int8_serve.quantize_for_serving`: every trunk linear's `w_q`/`w_s` and
@@ -64,6 +65,7 @@ _RENAME = {".mlp.0.": ".mlp.fc1.", ".mlp.2.": ".mlp.fc2.",
            ".model.0.": ".down.", ".model.2.": ".up."}
 _SPECIAL = {"decoder.token_embedding.weight": "decoder/token_emb",
             "decoder.positional_embedding": "decoder/pos_emb",
+            "estimated_c_val": "estimated_c_val",
             **{f"decoder.{n}": f"decoder/{n}" for n in INT8_HEAD}}
 _STACKED = ("blocks", "downsample_layers")  # leaves with a leading layer axis in JAX
 
@@ -114,7 +116,8 @@ def params_from_numpy(tree: Mapping[str, Any], cfg: WhisperConfig,
     has no such layer) are left out (for init_param's keep-the-init
     semantics)."""
     flat = _flat(tree)
-    meta = Whisper(cfg, device="meta", ctc="ctc/w" in flat)
+    meta = Whisper(cfg, device="meta", ctc="ctc/w" in flat,
+                   estimate_c="estimated_c_val" in flat)
     int8 = {name[: -len(".weight")] for name in meta.state_dict()
             if name.endswith(".weight") and jax_leaf(name)[0][:-1] + "w_q" in flat}
     if int8:
@@ -326,6 +329,8 @@ def _to_numpy(state_dict: Mapping[str, torch.Tensor], meta: nn.Module) -> dict[s
     out: dict[str, np.ndarray] = {}
     layers: dict[str, dict[int, np.ndarray]] = {}
     for name, (keys, layer, layout) in _module_leaves(meta).items():
+        if name not in state_dict:  # a subset (the optimizer's moments)
+            continue
         a = state_dict[name].detach().float().cpu().numpy()
         if layout == "linear":
             arrs = [a.T]
@@ -361,7 +366,8 @@ def conformer_params_from_numpy(tree: Mapping[str, Any], cfg, strict: bool = Tru
 
 def numpy_from_conformer_params(state_dict: Mapping[str, torch.Tensor], cfg) -> dict:
     """The inverse: the flat "/"-joined float32 mapping `save_pytree` writes
-    (per-layer leaves stacked), which JAX's `load_pytree_like` reads."""
+    (per-layer leaves stacked), which JAX's `load_pytree_like` reads. Names
+    missing from `state_dict` are left out."""
     from agacs_tpu_torch.models.conformer_asr import ConformerASR
 
     return _to_numpy(state_dict, ConformerASR(cfg, device="meta"))

@@ -819,10 +819,13 @@ class DecoderSide(_Side):
 
 class Whisper(nn.Module):
     """With `ctc`, also the CTC head `ctc` (n_audio_state -> n_vocab; JAX's
-    (d, V) `ctc/w` transposed) that a nonzero ctc_weight trains."""
+    (d, V) `ctc/w` transposed) that a nonzero ctc_weight trains. With
+    `estimate_c`, also `estimated_c_val` (1,) float32, the CS loss's
+    learnable target (JAX `init_asr_params` :131-132); decoding ignores it."""
 
     def __init__(self, cfg: WhisperConfig, device=None,
-                 param_dtype: torch.dtype | None = None, ctc: bool = False):
+                 param_dtype: torch.dtype | None = None, ctc: bool = False,
+                 estimate_c: bool = False):
         super().__init__()
         self.cfg = cfg
         self.encoder = WhisperEncoder(cfg, device, param_dtype)
@@ -833,6 +836,8 @@ class Whisper(nn.Module):
         if ctc:
             self.ctc = nn.Linear(cfg.n_audio_state, cfg.n_vocab, device=device,
                                  dtype=param_dtype or cfg.compute_dtype)
+        if estimate_c:
+            self.estimated_c_val = nn.Parameter(torch.zeros(1, device=device))
 
     @classmethod
     def from_state_dict(cls, cfg: WhisperConfig, state_dict: dict,
@@ -840,7 +845,8 @@ class Whisper(nn.Module):
                         ) -> "Whisper":
         """Build on `device` and load (casting to `param_dtype`, by default
         the compute dtype, once)."""
-        model = cls(cfg, device, param_dtype, ctc="ctc.weight" in state_dict)
+        model = cls(cfg, device, param_dtype, ctc="ctc.weight" in state_dict,
+                    estimate_c="estimated_c_val" in state_dict)
         int8 = {k[: -len(".weight_q")] for k in state_dict if k.endswith(".weight_q")}
         if int8:
             model.int8_structure_(int8)

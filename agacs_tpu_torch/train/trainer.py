@@ -53,15 +53,17 @@ def make_train_step(
     grad_clip: float = 1.0,
     generator: torch.Generator | None = None,
     loss_fn: Callable | None = None,
+    nonfinite: int = 0,
 ) -> Callable[[list[dict]], dict]:
     """step(micro_batches) -> stats (0-dim tensors on the model's device:
     the means over micro-batches of the loss function's stats, plus
-    grad_norm and grad_nonfinite_total). `generator` draws SpecAug (and
+    grad_norm and grad_nonfinite_total, the skipped steps so far counted
+    from `nonfinite` (a resumed run's)). `generator` draws SpecAug (and
     seeds dropout); `loss_fn` is the task's (JAX `loss_fn`; default the
     whisper `asr_model.forward`)."""
     fwd = loss_fn or asr_model.forward
     params = [p for group in optimizer.param_groups for p in group["params"]]
-    nonfinite = [0]
+    nonfinite = [nonfinite]
 
     def step(micro_batches: list[dict]) -> dict:
         for p in params:
@@ -114,7 +116,8 @@ def make_eval_step(model: Whisper, cfg: ASRModelConfig, loss_fn: Callable | None
 
 class EpochMean:
     """Per-epoch weighted means of step stats (weights: utterances), as
-    JAX's Reporter keeps them."""
+    JAX's Reporter keeps them (the LM trainer's; `bin.train` keeps
+    `train/reporter.Reporter`)."""
 
     def __init__(self):
         self.sums: dict[str, float] = {}

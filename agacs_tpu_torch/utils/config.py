@@ -27,6 +27,11 @@ class TrainerConfig:
     accum_grad: int = 1
     batch_bins: int = 8_000_000
     batch_type: str = "numel"
+    # sorted / unsorted / folded batches hold batch_size utterances, folded
+    # shrinks it by the length folds; fixed_shapes' bucket-grid ratio
+    batch_size: int = 20
+    fold_length: tuple[int, ...] = (80000, 150)
+    shape_ratio: float = 1.3
     keep_nbest_models: int = 3
     best_model_criterion: tuple[str, str, str] = ("valid", "acc", "max")
     seed: int = 2022
@@ -104,15 +109,15 @@ def model_config_from_dict(d: dict, compute_dtype: Any = torch.bfloat16) -> ASRM
         side_network=side,
         compute_dtype=compute_dtype,
     )
-    if float(model_conf.get("interctc_weight", 0.0)) != 0.0:
-        raise ValueError("interctc_weight != 0 is not supported on the whisper path")
     head_mask = model_conf.get("head_mask")
     return ASRModelConfig(
         whisper=whisper,
         ctc_weight=float(model_conf.get("ctc_weight", 0.0)),
+        interctc_weight=float(model_conf.get("interctc_weight", 0.0)),
         cs_weight=float(model_conf.get("cs_weight", 0.0)),
         cs_loss_type=str(model_conf.get("cs_loss_type", "attention")),
         c_val_attention=float(model_conf.get("c_val_attention", 0.6)),
+        head_percentage=float(model_conf.get("head_percentage", 100.0)),
         lsm_weight=float(model_conf.get("lsm_weight", 0.1)),
         length_normalized_loss=bool(model_conf.get("length_normalized_loss", False)),
         src_layer=int(dec_conf.get("src_layer", 1)),
@@ -147,6 +152,9 @@ def trainer_config_from_dict(d: dict) -> TrainerConfig:
         accum_grad=int(d.get("accum_grad", 1)),
         batch_bins=int(d.get("batch_bins", 8_000_000)),
         batch_type=d.get("batch_type", "numel"),
+        batch_size=int(d.get("batch_size", 20)),
+        fold_length=tuple(d.get("fold_length", (80000, 150))),
+        shape_ratio=float(d.get("shape_ratio", 1.3)),
         keep_nbest_models=int(d.get("keep_nbest_models", 3)),
         best_model_criterion=tuple(crit),
         seed=int(d.get("seed", 2022)),

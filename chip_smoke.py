@@ -5,8 +5,10 @@ serving with int8 cross-KV, the TMECS PE recipes' serving and training,
 the SEAME conformer recipe's serving (joint CTC/attention beam search
 with transformer-LM fusion) and training (run_conformer.sh stages 1-5),
 the W8A16 thin-row path (AGACS_W8A16 and serving-quantised checkpoints),
-the ladder side network's serving and training, and the SEAME recipe's
-run.sh stages 0-6 through the port's CLIs, once on one CUDA card.
+the ladder side network's serving and training, the SEAME recipe's
+run.sh stages 0-6 through the port's CLIs and the train CLI's options
+(resume, batch types, augmentation, prefetch, estimate_c, lid_ce), once
+on one CUDA card.
 
     python3 chip_smoke.py              # every phase below
     python3 chip_smoke.py --mutants    # the kernel checks against mutants
@@ -252,7 +254,20 @@ non-zero exit:
      every leaf of the .pt loaded, the ark waveforms bit-identical to the
      plain Python FLAC decoder's, K1f and K1b launched in both trainings and
      K3 in decoding, a hypothesis for every dev utterance, finite losses,
-     and the unpacked archive naming the config and model decode read.
+     and the unpacked archive naming the config and model decode read;
+  40. the train CLI's options at whisper-small's full width on the stage-2
+     recipe, over the same generated corpus (flac.ark train and valid
+     dirs): (a) on the int8 trunk, a 2-epoch run against a 1-epoch run
+     resumed (`--resume`) to epoch 2: checkpoint.params.npz,
+     checkpoint.opt.npz, the meta's step and generator, and the history
+     (times apart) bit-identical, and the same K1f / K1b / K2f / K2b / K8
+     launches in each; (b) one bf16 epoch with every option on
+     (`--batch_type folded`, RIR and noise augmentation from seeded WAVs,
+     `estimate_c`, `--num_att_plot 1`, the batch prefetch): finite losses,
+     the TensorBoard event file reading back the history's scalars,
+     `estimated_c_val` moved from 0.6; then one `lid_ce` epoch; (c) the
+     bf16 step over the corpus's batches with the prefetch on and off, in
+     turns: wall ms a step, device busy ms a step and the idle share.
 
 The last three lines are the card's `name, power.limit` (nvidia-smi), a
 JSON line with each kernel's launches, error and times, and the
@@ -4556,6 +4571,8 @@ SEAME_DEV = {"train/wav_file.txt": ["data/conversation/NC01FBX_0101/audio.wav",
                               "ni01m-ni01max_0101-00260-00460 more text"],
              "dev_sge/text": ["ni01m-ni01max_0101-00510-00710 third utt"]}
 SEAME_SPLITS = ("train", "valid", "devman", "devsge")
+PREFETCH_BINS = 100000  # phase 40's batch_bins: batches of 2, 2 and 1 utterances
+PREFETCH_PASSES = 6  # passes over those batches a prefetch turn
 
 
 def seame_corpus(root: str) -> tuple[str, str]:
@@ -4689,6 +4706,216 @@ def seame_recipe_phase(smi: str) -> dict:
           f"{len(st1['init_loaded'])}/{n_pt}", flush=True)
     shutil.rmtree(root, ignore_errors=True)
     return {"seconds": secs, "launches": counts}
+
+
+def options_data(root: str) -> str:
+    """`seame_corpus`'s train and valid splits as flac.ark data dirs under
+    root/data (5 and 1 utterances of 1.8-2.2 s), and one RIR and one noise
+    WAV from a seed with their scp files: the data dir's parent."""
+    from agacs_tpu_torch.bin import format_data, prepare_seame
+    from agacs_tpu_torch.data.io import write_wav
+
+    corpus, repo = seame_corpus(root)
+    data = os.path.join(root, "data")
+    prepare_seame.main(["--data", corpus, "--repo", repo, "--out", f"{data}/prep",
+                        "--num_val", "1"])
+    for split in ("train", "valid"):
+        format_data.main(["--data_dir", f"{data}/prep/{split}", "--outdir",
+                          f"{data}/{split}", "--audio_format", "flac.ark"])
+    rng = np.random.RandomState(40)
+    write_wav(f"{root}/rir.wav", (np.exp(-np.arange(4000) / 600.0) * rng.randn(4000) * 0.5)
+              .astype(np.float32))
+    write_wav(f"{root}/noise.wav", (rng.randn(64000) * 0.05).astype(np.float32))
+    for kind in ("rir", "noise"):
+        with open(f"{root}/{kind}.scp", "w") as f:
+            f.write(f"{kind}0 {root}/{kind}.wav\n")
+    return data
+
+
+def train_counts() -> dict:
+    from agacs_tpu_torch.ops import flash_train, int8_linear
+
+    return {"K1f": flash_train.LAUNCHES, "K1b": flash_train.BWD_LAUNCHES,
+            **int8_counts(), "K8 thin": int8_linear.THIN_LAUNCHES}
+
+
+def reset_train_counts() -> None:
+    from agacs_tpu_torch.ops import flash_train
+
+    flash_train.LAUNCHES = flash_train.BWD_LAUNCHES = 0
+    reset_int8_counts()
+
+
+def prefetch_turns(sd, dev, train_dir: str) -> dict:
+    """Phase 40c: the bf16 adapter step over `train_dir`'s batches, built as
+    the train CLI builds them, with the prefetch threads on and inline, in
+    turns (on, off, on, off), PREFETCH_PASSES passes over the batches a
+    turn: wall ms a step (median of the two turns); then one profiled pass
+    of each for device busy ms a step and the idle share."""
+    from agacs_tpu_torch.bin import train as train_cli
+    from agacs_tpu_torch.data.dataset import ASRDataset
+    from agacs_tpu_torch.data.prefetch import HostToDevice, prefetch_batches
+    from agacs_tpu_torch.train.optim import OptimConfig, build_optimizer
+    from agacs_tpu_torch.train.trainer import make_train_step
+    from agacs_tpu_torch.utils.config import trainer_config_from_dict
+
+    ds = ASRDataset(train_dir)
+    sample_epoch, s_pad_of = train_cli.batch_sampler("numel", trainer_config_from_dict({}),
+                                                     PREFETCH_BINS)
+    ids = sample_epoch(ds, {u: ds.num_samples(u) for u in ds.utt_ids}) * PREFETCH_PASSES
+    model, params, asr_cfg = train_model(sd, dev, torch.bfloat16, specaug=True)
+    opt, sched = build_optimizer(params, OptimConfig())
+    step = make_train_step(model, asr_cfg, opt, sched,
+                           generator=torch.Generator().manual_seed(0))
+    feeder = HostToDevice(dev)
+
+    def epoch(prefetch: bool) -> None:
+        def make(utts):
+            return train_cli.make_batch(ds, utts, s_pad_of, feeder)
+
+        made = (prefetch_batches(make, ids, lookahead=train_cli.LOOKAHEAD) if prefetch
+                else (make(utts) for utts in ids))
+        for m in made:
+            stats = step([feeder.ready(m)])
+            [float(v) for v in stats.values()]  # the CLI's read of the stats
+        torch.cuda.synchronize()
+
+    epoch(True)  # warm-up
+    wall = {True: [], False: []}
+    for prefetch in (True, False, True, False):
+        t0 = time.perf_counter()
+        epoch(prefetch)
+        wall[prefetch].append((time.perf_counter() - t0) * 1e3 / len(ids))
+    out = {}
+    for prefetch in (True, False):
+        busy = device_profile(lambda: epoch(prefetch))[0] / len(ids)
+        ms = statistics.median(wall[prefetch])
+        out["on" if prefetch else "off"] = {"wall_ms": ms, "turns": wall[prefetch],
+                                            "busy_ms": busy, "idle": 1 - busy / ms}
+    del model, opt
+    torch.cuda.empty_cache()
+    return {"steps": len(ids), "batch_sizes": sorted({len(u) for u in ids}), **out}
+
+
+def trainer_options_phase(sd, dev, smi: str) -> dict:
+    """Phase 40: the train CLI's options on the card at whisper-small's full
+    width (stage-2 recipe), under build/chip_smoke_options/ (removed
+    afterwards). `sd` is phase 4's whisper-small + adapters state dict (40c)."""
+    import shutil
+
+    from agacs_tpu_torch.bin import train
+    from agacs_tpu_torch.train.observability import read_event_file
+
+    t_phase = time.perf_counter()
+    root = os.path.join(ROOT, "build", "chip_smoke_options")
+    shutil.rmtree(root, ignore_errors=True)
+    data = options_data(root)
+    conf = os.path.join(ROOT, "recipes", "seame", "conf",
+                        "train_asr_whisper_small_adapter_csloss_2stage.yaml")
+    secs, counts = {}, {}
+
+    def run(name, exp, epochs, flags=(), overrides=()):
+        reset_train_counts()
+        t0 = time.perf_counter()
+        out = train.main(["--config", conf, "--train_dir", f"{data}/train", "--valid_dir",
+                          f"{data}/valid", "--exp_dir", f"{root}/{exp}", "--max_epoch",
+                          str(epochs), "--batch_bins", str(PREFETCH_BINS), *flags,
+                          "--override", "accum_grad=1", "keep_nbest_models=1", *overrides])
+        torch.cuda.synchronize()
+        secs[name], counts[name] = time.perf_counter() - t0, train_counts()
+        return out
+
+    # (a) resume on the int8 trunk
+    print("phase 40a: --resume on the int8 trunk (freeze_quant=int8): 2 epochs against 1 "
+          "epoch resumed to 2", flush=True)
+    int8 = ["freeze_quant=int8"]
+    whole = run("int8 2 epochs", "whole", 2, ["--num_att_plot", "0"], int8)
+    run("int8 1 epoch", "cut", 1, ["--num_att_plot", "0"], int8)
+    resumed = run("int8 --resume to 2", "cut", 2, ["--resume", "--num_att_plot", "0"], int8)
+    for name in ("checkpoint.params.npz", "checkpoint.opt.npz"):
+        with np.load(f"{root}/whole/{name}") as a, np.load(f"{root}/cut/{name}") as b:
+            diff = [k for k in a.files if a[k].dtype != b[k].dtype
+                    or a[k].tobytes() != b[k].tobytes()]
+            check(a.files == b.files and not diff,
+                  f"40a: {name} of the resumed run bit-identical to the uninterrupted "
+                  f"run's ({len(a.files)} leaves; differing {diff[:4]})")
+    metas = [json.load(open(f"{root}/{d}/checkpoint_meta.json")) for d in ("whole", "cut")]
+    check(metas[0]["step"] == metas[1]["step"] > 0
+          and metas[0]["torch_generator"] == metas[1]["torch_generator"],
+          f"40a: the meta's step ({metas[0]['step']}, {metas[1]['step']}) and train "
+          "generator equal")
+
+    def untimed(h):
+        return {e: {ph: {k: v for k, v in d.items() if not k.endswith("_time")}
+                    for ph, d in phases.items()} for e, phases in h.items()}
+
+    check(untimed(whole["history"]) == untimed(resumed["history"]),
+          f"40a: the history (times apart) equal: {whole['history']} "
+          f"{resumed['history']}")
+    kernels = ("K1f", "K1b", "K2f", "K2b", "K8g", "K8g dgrad", "K8q")
+    halves = counts["int8 1 epoch"], counts["int8 --resume to 2"]
+    check(all(counts["int8 2 epochs"][k] == halves[0][k] + halves[1][k] and halves[0][k] ==
+              halves[1][k] > 0 for k in kernels),
+          f"40a: K1f, K1b, K2f, K2b and K8 launched, the same counts in each epoch and in "
+          f"both runs: {counts}")
+    steps_per_epoch = metas[0]["step"] // 2
+
+    # (b) one bf16 epoch with every option on, then lid_ce
+    print("phase 40b: bf16, --batch_type folded (batch_size 2), RIR + noise augmentation "
+          "(one batch thread), decoder_conf.estimate_c, --num_att_plot 1, prefetch", flush=True)
+    aug = [f"rir_scp={root}/rir.scp", f"noise_scp={root}/noise.scp", "noise_db_range=5_15",
+           "batch_size=2", "decoder_conf.estimate_c=true"]
+    every = run("bf16 every option", "every", 1, ["--batch_type", "folded",
+                                                   "--num_att_plot", "1"], aug)
+    h = every["history"][1]
+    check(all(np.isfinite(h["train"].get(k, np.nan)) for k in ("loss", "loss_att", "loss_cs"))
+          and np.isfinite(h["valid"].get("loss", np.nan)) and h["train"]["loss_cs"] > 0,
+          f"40b: finite losses (the reporter drops a non-finite one) {h}")
+    (events,) = [os.path.join(f"{root}/every/tensorboard", f)
+                 for f in os.listdir(f"{root}/every/tensorboard")]
+    read = read_event_file(events)
+    want = {f"{ph}/{k}": float(np.float32(v)) for ph, d in h.items() for k, v in d.items()}
+    check(len(read) == 2 and read[1]["step"] == 1 and read[1]["values"] == want,
+          f"40b: the event file reads back the history's {len(want)} scalars")
+    with np.load(f"{root}/every/checkpoint.params.npz") as p:
+        c_val = float(p["estimated_c_val"][0])
+    check(np.isfinite(c_val) and np.float32(c_val) != np.float32(0.6),
+          f"40b: estimated_c_val moved from 0.6 to {c_val!r}")
+    try:
+        import matplotlib  # noqa: F401
+
+        plots = os.listdir(f"{root}/every/att_ws")
+        check(len(plots) == 1, f"40b: one attention plot {plots}")
+    except ImportError:
+        plots = "skipped: no matplotlib"
+    print("phase 40b: cs_loss_type lid_ce (full decoder maps, lid labels), one bf16 epoch",
+          flush=True)
+    lid = run("bf16 lid_ce", "lid", 1, ["--num_att_plot", "0"], ["model_conf.cs_loss_type=lid_ce"])
+    h_lid = lid["history"][1]
+    check(all(np.isfinite(h_lid["train"].get(k, np.nan)) for k in ("loss", "loss_cs"))
+          and h_lid["train"]["loss_cs"] > 0, f"40b: lid_ce finite losses {h_lid}")
+    for name in ("bf16 every option", "bf16 lid_ce"):
+        check(counts[name]["K1f"] > 0 and counts[name]["K1b"] > 0,
+              f"40b: {name} launched K1f and K1b: {counts[name]}")
+
+    # (c) the prefetch on and off
+    turns = prefetch_turns(sd, dev, f"{data}/train")
+    print(f"phase 40 train CLI options on {smi} (whisper-small, stage-2 recipe, "
+          f"{PREFETCH_BINS} batch_bins): " + "; ".join(f"{k} {secs[k]:.1f} s {counts[k]}"
+                                                    for k in secs)
+          + f"; int8 resume bit-identical over {steps_per_epoch} steps an epoch; losses "
+          f"every-option {h['train']['loss']:.4f} (loss_cs {h['train']['loss_cs']:.4f}), "
+          f"lid_ce {h_lid['train']['loss']:.4f} (loss_cs {h_lid['train']['loss_cs']:.4f}); "
+          f"estimated_c_val {c_val!r}; attention plots {plots}; event scalars {len(want)}",
+          flush=True)
+    print(f"phase 40c prefetch on {smi}: bf16 adapter step, {turns['steps']} steps a turn "
+          f"(batch sizes {turns['batch_sizes']}): " + "; ".join(
+              f"{k}: {v['wall_ms']:.2f} ms a step (turns {[round(t, 2) for t in v['turns']]}),"
+              f" device busy {v['busy_ms']:.2f} ms, idle {v['idle']:.1%}"
+              for k, v in turns.items() if k in ("on", "off"))
+          + f"; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return {"seconds": secs, "launches": counts, "prefetch": turns}
 
 
 def main() -> int:
@@ -4894,6 +5121,9 @@ def main() -> int:
 
     # 39. recipes/seame/run.sh stages 0-6 through the port's CLIs
     seame_recipe_phase(smi)
+
+    # 40. the train CLI's options: resume, batch types, augmentation, prefetch
+    trainer_options_phase(sd, dev, smi)
 
     check(not any(m.split(".")[0] in ("jax", "jaxlib", "agacs_tpu") for m in sys.modules),
           "no jax, jaxlib or agacs_tpu module was imported")

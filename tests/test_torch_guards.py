@@ -1,7 +1,7 @@
 """Guards of the port: it never imports JAX or the JAX package, never
 falls back from the card to the CPU or a plain version, and refuses what
-it cannot run yet (`lid_ce`, CTC and LM fusion in whisper decoding, the
-transducer, n-gram fusion)."""
+it cannot run yet (CTC and LM fusion in whisper decoding, the transducer,
+n-gram fusion, the train CLI's multi-device options)."""
 
 import os
 import subprocess
@@ -14,7 +14,6 @@ import torch
 
 from agacs_tpu_torch.decode.composed_beam import composed_beam_decode
 from agacs_tpu_torch.decode.speech2text import Speech2Text
-from agacs_tpu_torch.models import asr_model
 from agacs_tpu_torch.models import whisper as tw
 from agacs_tpu_torch.models.asr_model import ASRModelConfig
 from agacs_tpu_torch.ops import (
@@ -277,6 +276,21 @@ torch.save({"dims": {"n_audio_state": 64, "n_audio_head": 2, "n_audio_layer": 2,
            os.path.join(tmp, "w.pt"))
 _, names = load_init_params(os.path.join(tmp, "w.pt"), wsd, ASRModelConfig(whisper=wcfg))
 assert len(names) == sum("adapter" not in k for k in wsd)
+
+# the train CLI: one folded epoch with estimate_c, then --resume to a second
+from agacs_tpu_torch.bin import train
+
+recipe = "recipes/seame/conf/train_asr_whisper_small_adapter_csloss_2stage.yaml"
+argv = ["--config", recipe, "--train_dir", tmp, "--valid_dir", tmp, "--exp_dir",
+        os.path.join(tmp, "exp"), "--batch_type", "folded", "--device", "cpu",
+        "--compute_dtype", "float32", "--num_att_plot", "0", "--override",
+        "encoder_conf.whisper_model=test", "decoder_conf.whisper_model=test",
+        "decoder_conf.estimate_c=true", "batch_size=1"]
+out = train.main(argv + ["max_epoch=1"])
+assert np.isfinite(out["history"][1]["train"]["loss"])
+out = train.main(["--resume"] + argv + ["max_epoch=2"])
+assert sorted(out["history"]) == [1, 2]  # 2 batches, accum_grad 4: one step an epoch
+assert json.load(open(os.path.join(tmp, "exp", "checkpoint_meta.json")))["step"] == 2
 tmp_dir.cleanup()
 assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
 print("OK", len(mods))
@@ -584,20 +598,8 @@ def test_unported_conformer_family_parts_raise(what, tmp_path):
                          str(tmp_path / "out"), "--ngram_file", "lm.npz", "--device", "cpu"])
 
 
-@pytest.mark.parametrize("kw", [dict(cs_weight=0.1, cs_loss_type="lid_ce"),
-                                dict(estimate_c=True)], ids=str)
-def test_unported_training_options_raise(kw):
-    cfg = tw.make_config("test")
-    acfg = ASRModelConfig(whisper=cfg, **kw)
-    batch = {"speech": torch.zeros(1, 1600), "speech_lengths": torch.tensor([1600]),
-             "text": torch.tensor([[50257]]), "cs_labels": torch.zeros(1, 2, dtype=torch.int8)}
-    with pytest.raises(NotImplementedError):
-        asr_model.forward(tw.Whisper(cfg), acfg, batch)
-
-
 @pytest.mark.parametrize("flags", [
-    ["--resume"], ["--tensor_parallel", "2"], ["--optim_state_shard"],
-    ["--ckpt_backend", "orbax"], ["--batch_type", "fixed_shapes"],
+    ["--tensor_parallel", "2"], ["--optim_state_shard"], ["--ckpt_backend", "orbax"],
     ["--override", "freeze_quant=int8", "freeze_param=null"], ["--override", "freeze_quant=int4"],
 ], ids=str)
 def test_unported_train_cli_options_raise(flags, tmp_path):
