@@ -34,6 +34,16 @@ transformer LM of `--lm_exp` (its `config.yaml` lm_conf and
 `--max_steps 0` means the number of encoder frames. `--ngram_file` is not
 ported yet and raises.
 
+Transducer family (`decoder: transducer`): the conformer encoder, then
+with `--beam_size 1` the batched greedy search (`greedy_search_scan`, no
+host read inside it); above, `--transducer_search` picks the beam:
+`default` (the reference's default_beam_search per utterance, with
+`--lm_exp` shallow fusion), `tsd` / `alsd` (batched time-synchronous and
+alignment-length-synchronous beams, `decode/transducer_tsd.py`; ALSD's
+label cap `--transducer_u_max`) or `nsc` / `maes` (per utterance,
+`decode/transducer_nsc.py`). `--lm_exp` is ignored, with a warning, by
+greedy decoding and by every search but `default`, as in JAX.
+
 The decode YAML's keys apply as in JAX (`penalty` is the length bonus,
 explicit flags win, a YAML with maxlenratio sets --max_steps 0). The .trn
 files have the format `agacs_tpu.bin.score` and `agacs_tpu_torch.bin.score`
@@ -94,6 +104,13 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="store the precomputed cross-attention K/V int8 with "
                         "per-channel scales (halves the bytes the decode "
                         "step's cross-attention reads; whisper family)")
+    p.add_argument("--transducer_search", default="default",
+                   choices=("default", "tsd", "alsd", "nsc", "maes"),
+                   help="transducer beam (beam_size > 1): default (per utterance, with "
+                        "--lm_exp fusion), tsd / alsd (batched time-sync / "
+                        "align-length-sync), nsc / maes (per utterance)")
+    p.add_argument("--transducer_u_max", type=int, default=50,
+                   help="ALSD label-length cap (BeamSearchTransducer u_max)")
     p.add_argument("--device", default="cuda")
     return p
 
@@ -194,29 +211,18 @@ def _decode_whisper(args, raw: dict, cfg, ds: DataDir):
     }
 
 
-def _decode_conformer(args, cfg, ds: DataDir):
-    """JAX `_decode_conformer` + `_chunked_decode`: per chunk, encode, CTC
-    log-probs, joint beam with the LM; the RTF over all chunks and over the
-    chunks after the first (the first pays the kernel builds)."""
-    from agacs_tpu_torch.decode.joint_beam import decode_conformer_batch
-    from agacs_tpu_torch.models.checkpoint import conformer_params_from_numpy
-    from agacs_tpu_torch.models.conformer_asr import ConformerASR
+def _chunked_decode(args, ds: DataDir, decode_chunk):
+    """JAX `_chunked_decode`: per chunk, `decode_chunk(audio, lens)` (device
+    tensors) -> token id lists; the RTF over all chunks and over the chunks
+    after the first (the first pays the kernel builds)."""
     from agacs_tpu_torch.text import WhisperTokenizer
 
-    with np.load(args.params) as tree:
-        sd = conformer_params_from_numpy({k: tree[k] for k in tree.files}, cfg)
-    model = ConformerASR.from_state_dict(cfg, sd, device=args.device)
-    lm = _load_lm(args)
     tokenizer = WhisperTokenizer()
     hyps, refs, secs = {}, {}, []
     for chunk, audio, lens in _chunks(args, ds):
         t0 = time.perf_counter()
-        rows, _ = decode_conformer_batch(
-            model, lm, torch.from_numpy(audio).to(args.device),
-            torch.from_numpy(lens).to(args.device), beam_size=args.beam_size,
-            ctc_weight=args.ctc_weight, lm_weight=args.lm_weight,
-            max_steps=args.max_steps, length_bonus=args.length_bonus,
-            loop=args.decode_loop)
+        rows = decode_chunk(torch.from_numpy(audio).to(args.device),
+                            torch.from_numpy(lens).to(args.device))
         secs.append((time.perf_counter() - t0, float(lens.sum()) / 16000.0))
         for u, ids in zip(chunk, rows):
             hyps[u] = tokenizer.decode(ids)
@@ -226,11 +232,93 @@ def _decode_conformer(args, cfg, ds: DataDir):
     rtf = decode_s / max(audio_s, 1e-9)
     report = {"rtf": rtf, "inverse_rtf": 1.0 / max(rtf, 1e-9), "audio_seconds": audio_s,
               "decode_seconds": decode_s, "n_utts": len(hyps),
-              "device": str(model.ctc.weight.device)}
+              "device": str(torch.device(args.device))}
     if len(secs) > 1:
         warm = sum(d for d, _ in secs[1:]) / max(sum(a for _, a in secs[1:]), 1e-9)
         report.update(rtf_warm=warm, inverse_rtf_warm=1.0 / max(warm, 1e-9))
     return hyps, refs, report
+
+
+def _decode_conformer(args, cfg, ds: DataDir):
+    """JAX `_decode_conformer`: per chunk, encode, CTC log-probs, joint beam
+    with the LM."""
+    from agacs_tpu_torch.decode.joint_beam import decode_conformer_batch
+    from agacs_tpu_torch.models.checkpoint import conformer_params_from_numpy
+    from agacs_tpu_torch.models.conformer_asr import ConformerASR
+
+    with np.load(args.params) as tree:
+        sd = conformer_params_from_numpy({k: tree[k] for k in tree.files}, cfg)
+    model = ConformerASR.from_state_dict(cfg, sd, device=args.device)
+    lm = _load_lm(args)
+
+    def decode_chunk(audio, lens):
+        return decode_conformer_batch(
+            model, lm, audio, lens, beam_size=args.beam_size, ctc_weight=args.ctc_weight,
+            lm_weight=args.lm_weight, max_steps=args.max_steps,
+            length_bonus=args.length_bonus, loop=args.decode_loop)[0]
+
+    return _chunked_decode(args, ds, decode_chunk)
+
+
+def _decode_transducer(args, cfg, ds: DataDir):
+    """JAX `_decode_transducer` (:223-312): batched greedy (beam_size 1),
+    the batched TSD / ALSD beams, or a per-utterance beam (default, with the
+    LM of --lm_exp; NSC; mAES), each hypothesis its best's tokens without
+    blanks."""
+    from agacs_tpu_torch.decode import transducer_nsc, transducer_tsd
+    from agacs_tpu_torch.models import transducer_asr
+    from agacs_tpu_torch.models.checkpoint import transducer_params_from_numpy
+    from agacs_tpu_torch.models.transducer import default_beam_search, greedy_search_scan
+
+    search = args.transducer_search
+    lm = None
+    if args.lm_exp and args.beam_size <= 1:
+        logging.warning("--lm_exp has no effect with greedy decoding (beam_size<=1); LM "
+                        "fusion requires --beam_size > 1 with --transducer_search default")
+    elif search != "default" and args.beam_size > 1 and args.lm_exp:
+        logging.warning("--lm_exp is not supported by the %s search; LM fusion is available "
+                        "with --transducer_search default", search)
+    else:
+        lm = _load_lm(args)
+    with np.load(args.params) as tree:
+        sd = transducer_params_from_numpy({k: tree[k] for k in tree.files}, cfg)
+    model = transducer_asr.TransducerASR.from_state_dict(cfg, sd, device=args.device)
+    tmodel, blank = model.transducer, cfg.decoder.blank_id
+
+    def strip(row, n):
+        return [t for t in row[:n].tolist() if t != blank]
+
+    @torch.inference_mode()
+    def decode_chunk(audio, lens):
+        enc, enc_lens = transducer_asr.encode(model, audio, lens)
+        if args.beam_size <= 1:
+            tokens, n_emit = (t.cpu().numpy() for t in greedy_search_scan(tmodel, enc, enc_lens))
+            return [strip(row, n) for row, n in zip(tokens, n_emit)]
+        if search in ("tsd", "alsd"):
+            if search == "tsd":
+                out = transducer_tsd.tsd_beam_search(tmodel, enc, enc_lens, beam=args.beam_size)
+            else:
+                out = transducer_tsd.alsd_beam_search(tmodel, enc, enc_lens,
+                                                      beam=args.beam_size,
+                                                      u_max=args.transducer_u_max)
+            tokens, n = (t.cpu().numpy() for t in out[:2])
+            return [strip(row[0], k[0]) for row, k in zip(tokens, n)]
+        rows = []
+        for k in range(enc.shape[0]):
+            e = enc[k, :int(enc_lens[k])]
+            if search == "nsc":
+                nbest = transducer_nsc.nsc_beam_search(tmodel, e, beam_size=args.beam_size)
+            elif search == "maes":
+                nbest = transducer_nsc.maes_beam_search(tmodel, e, beam_size=args.beam_size)
+            else:
+                nbest = default_beam_search(
+                    tmodel, e, beam_size=args.beam_size, lm=lm,
+                    lm_weight=args.lm_weight if lm is not None else 0.0,
+                    lm_sos=lm.cfg.sos if lm is not None else 50258)
+            rows.append(nbest[0][1])
+        return rows
+
+    return _chunked_decode(args, ds, decode_chunk)
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -246,6 +334,8 @@ def main(argv: list[str] | None = None) -> dict:
     ds = DataDir(args.data_dir)
     if task.kind == "conformer":
         hyps, refs, rtf_report = _decode_conformer(args, task.cfg, ds)
+    elif task.kind == "transducer":
+        hyps, refs, rtf_report = _decode_transducer(args, task.cfg, ds)
     else:
         hyps, refs, rtf_report = _decode_whisper(args, raw, task.cfg, ds)
     os.makedirs(args.output_dir, exist_ok=True)

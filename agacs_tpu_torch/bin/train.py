@@ -1,6 +1,7 @@
 """Training CLI (counterpart of `agacs_tpu/bin/train.py`): the whisper
-family and the conformer recipe's hybrid CTC/attention model
-(`recipes/seame/run_conformer.sh` stage 3).
+family, the conformer recipe's hybrid CTC/attention model
+(`recipes/seame/run_conformer.sh` stage 3) and the conformer transducer
+(`recipes/seame/conf/train_asr_transducer.yaml`).
 
   python -m agacs_tpu_torch.bin.train \\
       --config recipes/seame/conf/train_asr_whisper_small_adapter_csloss_2stage.yaml \\
@@ -17,9 +18,11 @@ augmented and collated up to 2 batches ahead by `data/prefetch.py` (on the
 card into pinned memory, copied on a side stream); one optimizer step per
 `accum_grad` consecutive batches (a shorter group at the epoch's end steps
 with what it has); then a valid pass with CER/WER from the teacher-forced
-argmax. `train/reporter.Reporter` keeps each phase's weighted means and
-its `iter_time` / `step_time` (`step_time` closes once the step's stats
-are host floats). After each epoch: `{n}epoch.params.npz` kept for the n
+argmax (the transducer: one encoder pass feeds the losses and the batched
+greedy search, `greedy_search_scan` with U + 8 symbols, whose ragged
+hypotheses are scored, JAX :423-435, :496-499). `train/reporter.Reporter`
+keeps each phase's weighted means and its `iter_time` / `step_time`
+(`step_time` closes once the step's stats are host floats). After each epoch: `{n}epoch.params.npz` kept for the n
 best `valid.acc`, the resume point (`checkpoint.params.npz`,
 `checkpoint.opt.npz`, `checkpoint_meta.json`, JAX's layout), TensorBoard
 scalars (`tensorboard/`), `metrics.jsonl`, history curves (`images/`) and
@@ -45,9 +48,13 @@ first): the keys under `src` load into `dst`, the leaves under an
 init. Raw-bf16 (`V2`) leaves are read as bf16, a `token_emb` with another
 row count is cut or zero-padded to the model's.
 
+A freeze preset applies to every family, by the JAX paths of the
+parameters (`train/freeze.py`); the conformer families keep their frozen
+parameters as float32 masters (the whisper family casts them to the
+compute dtype, as JAX does for every family).
+
 Not ported, and raising NotImplementedError: the multi-device options
---tensor_parallel > 1, --optim_state_shard and --ckpt_backend orbax; a
-freeze preset on the conformer family, and the transducer family.
+--tensor_parallel > 1, --optim_state_shard and --ckpt_backend orbax.
 """
 
 from __future__ import annotations
@@ -76,12 +83,15 @@ from agacs_tpu_torch.data.sampler import (
     sorted_batches,
     unsorted_batches,
 )
+from agacs_tpu_torch.models import transducer_asr
 from agacs_tpu_torch.models.checkpoint import (
     conformer_params_from_numpy,
     numpy_from_conformer_params,
     numpy_from_params,
+    numpy_from_transducer_params,
     params_from_numpy,
     read_torch_whisper,
+    transducer_params_from_numpy,
 )
 from agacs_tpu_torch.models.conformer import apply_bn_stats
 from agacs_tpu_torch.models.conformer_asr import ConformerASR, bn_calibration_stats
@@ -269,6 +279,8 @@ def load_init_params(spec: str, sd: dict, cfg, kind: str = "whisper"
             if not any(k == e or k.startswith(e + "/") for e in exclude)}
     if kind == "conformer":
         loaded = conformer_params_from_numpy(data, cfg, strict=False)
+    elif kind == "transducer":
+        loaded = transducer_params_from_numpy(data, cfg, strict=False)
     else:
         emb, rows = data.get("decoder/token_emb"), cfg.whisper.n_vocab
         if emb is not None and emb.shape[1:] == (cfg.whisper.n_text_state,) \
@@ -281,6 +293,25 @@ def load_init_params(spec: str, sd: dict, cfg, kind: str = "whisper"
     out.update({name: loaded[name] for name in names})
     logging.info("init_param: loaded %d/%d parameters from %s", len(names), len(sd), path)
     return out, names
+
+
+# the conformer families: (model class, state dict -> npz, npz -> state dict)
+CONFORMER_KINDS = {
+    "conformer": (ConformerASR, numpy_from_conformer_params, conformer_params_from_numpy),
+    "transducer": (transducer_asr.TransducerASR, numpy_from_transducer_params,
+                   transducer_params_from_numpy),
+}
+
+
+def make_transducer_eval_step(model, cfg):
+    """The transducer's eval step: batch -> (stats, (tokens, n_emitted)),
+    one encoder pass for the losses and greedy search of up to U + 8
+    symbols (JAX :423-435)."""
+    def step(batch):
+        return transducer_asr.eval_step_with_greedy(
+            model, cfg, batch, max_symbols=batch["text"].shape[1] + 8)
+
+    return step
 
 
 @torch.no_grad()
@@ -316,8 +347,6 @@ def main(argv: list[str] | None = None) -> dict:
     batch_bins = args.batch_bins if args.batch_bins is not None else tcfg.batch_bins
     batch_type = args.batch_type or tcfg.batch_type
     freeze = args.freeze_param or tcfg.freeze_param
-    if task.kind == "conformer" and freeze:
-        raise NotImplementedError("a freeze preset on the conformer family is not ported")
     if tcfg.freeze_quant not in (None, "none") and not (
             freeze and tcfg.freeze_quant == "int8"):
         raise ValueError(f"unknown freeze_quant {tcfg.freeze_quant!r}"
@@ -345,12 +374,12 @@ def main(argv: list[str] | None = None) -> dict:
     init_loaded: list[str] = []
     if init_param:
         sd, init_loaded = load_init_params(init_param, sd, cfg, task.kind)
-    if task.kind == "conformer":
-        model = ConformerASR.from_state_dict(cfg, sd, device=device,
-                                             param_dtype=torch.float32)
-        params = list(model.parameters())
-        to_numpy = functools.partial(numpy_from_conformer_params, cfg=cfg)
-        from_numpy = functools.partial(conformer_params_from_numpy, cfg=cfg)
+    if task.kind in CONFORMER_KINDS:
+        model_cls, to_np, from_np = CONFORMER_KINDS[task.kind]
+        model = model_cls.from_state_dict(cfg, sd, device=device, param_dtype=torch.float32)
+        params = apply_freeze(model, freeze)
+        to_numpy = functools.partial(to_np, cfg=cfg)
+        from_numpy = functools.partial(from_np, cfg=cfg)
     else:
         model = Whisper.from_state_dict(cfg.whisper, sd, device=device,
                                         param_dtype=torch.float32)
@@ -378,9 +407,11 @@ def main(argv: list[str] | None = None) -> dict:
     train_step = make_train_step(
         model, cfg, optimizer, scheduler, grad_clip=optim_cfg.grad_clip,
         generator=state.generator, loss_fn=task.loss_fn, nonfinite=state.nonfinite)
-    eval_step = make_eval_step(model, cfg, loss_fn=task.loss_fn)
+    is_transducer = task.kind == "transducer"
+    eval_step = (make_transducer_eval_step(model, cfg) if is_transducer
+                 else make_eval_step(model, cfg, loss_fn=task.loss_fn))
     err_calc = ErrorCalculator(train_ds.tokenizer.id_to_token)
-    recalibrate_bn = task.kind == "conformer" and cfg.encoder.conv_norm == "batch"
+    recalibrate_bn = task.kind in CONFORMER_KINDS and cfg.encoder.conv_norm == "batch"
 
     tb = TensorboardWriter(os.path.join(args.exp_dir, "tensorboard"))
     wandb_sink = WandbSink(args.exp_dir)
@@ -407,14 +438,21 @@ def main(argv: list[str] | None = None) -> dict:
                         stats = train_step([feeder.ready(m) for m in made])
                         preds = None
                     else:
-                        stats, preds = eval_step(feeder.ready(made[0]))
+                        batch = feeder.ready(made[0])
+                        stats, preds = eval_step(batch)
                     stats = {k: float(v) for k, v in stats.items()}
             if train:
                 state.step += 1
                 state.nonfinite = int(stats["grad_nonfinite_total"])
             else:
-                ys_hat, ys_out = preds
-                cer, wer = err_calc(ys_hat.cpu().numpy(), ys_out.cpu().numpy())
+                if is_transducer:  # greedy (tokens, n_emitted): ragged hypotheses
+                    toks, n_emit = (t.cpu().numpy() for t in preds)
+                    refs = batch["text"].cpu().numpy()
+                    cer, wer = err_calc.ragged([row[:k].tolist() for row, k in zip(toks, n_emit)],
+                                               list(refs))
+                else:
+                    ys_hat, ys_out = preds
+                    cer, wer = err_calc(ys_hat.cpu().numpy(), ys_out.cpu().numpy())
                 if cer is not None:
                     stats["cer"] = cer
                 if wer is not None:

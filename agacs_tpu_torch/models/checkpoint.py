@@ -35,12 +35,19 @@ network names (`encoder_sidenetwork.downsample_intermediate_layers.{i}`,
 `sigmoid_gate_intermediate_layers.{i}`, `sigmoid_gate_output`) and ESPnet's
 wrapper prefixes (`encoder.encoders.`, `decoder.decoders.`).
 
-The conformer ASR model and the transformer LM have their own pair each
-(`conformer_params_from_numpy` / `numpy_from_conformer_params`,
-`lm_params_from_numpy` / `numpy_from_lm_params`): JAX's stacked `blocks`
-leaves split per layer, linears transposed, the encoder's q, k, v
-concatenated into one `qkv` linear, the conv stem HWIO <-> OIHW, the
-depthwise kernel (k, 1, d) <-> (d, 1, k), `mvn/mean` <-> `mvn_mean`.
+The conformer ASR model, the transducer ASR model and the transformer LM
+have their own pair each (`conformer_params_from_numpy` /
+`numpy_from_conformer_params`, `transducer_params_from_numpy` /
+`numpy_from_transducer_params`, `lm_params_from_numpy` /
+`numpy_from_lm_params`): JAX's stacked `blocks` (and the prediction
+network's `layers`) leaves split per layer, linears transposed, the
+encoder's q, k, v concatenated into one `qkv` linear, the conv stem HWIO <-> OIHW, the
+depthwise kernel (k, 1, d) <-> (d, 1, k), `mvn/mean` <-> `mvn_mean`. The
+transducer's tree is `encoder`, `mvn`, `ctc` and `transducer/{embed,
+layers/{w_ih, b_ih, w_hh, b_hh}, joint/{lin_enc, lin_dec, lin_out}}`, its
+layers' leaves in JAX's layout on both sides. `jax_paths` gives any port
+model's parameter names their JAX paths (the freeze presets judge by
+them).
 """
 
 from __future__ import annotations
@@ -280,9 +287,9 @@ def _module_leaves(model: nn.Module) -> dict[str, tuple[tuple[str, ...], int | N
         mod = owners[path]
         parts = path.split(".") if path else []
         layer = None
-        if "blocks" in parts:
-            i = parts.index("blocks")
-            layer = int(parts.pop(i + 1))
+        for stacked in ("blocks", "layers"):
+            if stacked in parts:
+                layer = int(parts.pop(parts.index(stacked) + 1))
         short = {"weight": "w", "bias": "b"}.get(leaf, leaf)
         layout = "plain"
         if isinstance(mod, nn.Linear):
@@ -371,6 +378,33 @@ def numpy_from_conformer_params(state_dict: Mapping[str, torch.Tensor], cfg) -> 
     from agacs_tpu_torch.models.conformer_asr import ConformerASR
 
     return _to_numpy(state_dict, ConformerASR(cfg, device="meta"))
+
+
+def transducer_params_from_numpy(tree: Mapping[str, Any], cfg, strict: bool = True) -> dict:
+    """JAX transducer-ASR params (`init_transducer_asr_params`'s tree as
+    numpy arrays, or the flat mapping `save_pytree` writes) -> float32 state
+    dict of `models.transducer_asr.TransducerASR`. With strict=False, names
+    whose leaves are missing are left out."""
+    from agacs_tpu_torch.models.transducer_asr import TransducerASR
+
+    return _from_numpy(tree, TransducerASR(cfg, device="meta"), strict)
+
+
+def numpy_from_transducer_params(state_dict: Mapping[str, torch.Tensor], cfg) -> dict:
+    """The inverse: the flat "/"-joined float32 mapping JAX's
+    `load_pytree_like` reads. Names missing from `state_dict` are left out."""
+    from agacs_tpu_torch.models.transducer_asr import TransducerASR
+
+    return _to_numpy(state_dict, TransducerASR(cfg, device="meta"))
+
+
+def jax_paths(model: nn.Module) -> dict[str, tuple[str, ...]]:
+    """Parameter name (and, outside the whisper family, buffer name) -> the
+    "/"-joined JAX keys it holds (three for the conformer's fused `qkv`, one
+    otherwise), for a `Whisper` or a conformer-family model."""
+    if isinstance(model, Whisper):
+        return {name: (jax_leaf(name)[0],) for name, _ in model.named_parameters()}
+    return {name: keys for name, (keys, _, _) in _module_leaves(model).items()}
 
 
 def lm_params_from_numpy(tree: Mapping[str, Any], cfg) -> dict:

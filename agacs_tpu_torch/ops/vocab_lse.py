@@ -15,11 +15,16 @@ dw passes over z recomputed from the saved lse:
 float32, as JAX's `_bwd_pallas` returns them). On a CPU tensor it runs the
 plain versions `lse_plain` (JAX `_einsum_ref`) and `lse_bwd_plain` (the
 kernels' arithmetic), on a CUDA tensor it launches K4 or raises: the card
-has no dense-logits fallback. K4 takes bf16 x and w, float32 b, and K a
-multiple of 128 up to 1024; a w whose V is not a multiple of 8 (the
-Whisper vocabulary's 51865) is handed over as a copy with its rows padded,
-for the kernels' 16-byte row stride, made once a step: the forward saves
-it for both backward passes.
+has no dense-logits fallback. K4 takes bf16 x and w, float32 b, and any K
+up to 1024. The kernels take K a multiple of 128, so the wrapper pads a K
+that is not (the transducer joint's 320 goes to 384): zero columns of x
+and zero rows of w, which add nothing to any product, so lse is exact;
+dx's padded columns and dW's padded rows are dropped. The padding is work
+the kernels do for nothing (20% at K 320). A w whose V is not a multiple
+of 8 (the Whisper vocabulary's 51865) is handed over with its rows padded
+too, for the kernels' 16-byte row stride. Both copies (`_pad_x`,
+`_rows8`) are made once a step: the forward saves them for both backward
+passes.
 
 The forward is one launch of a wgmma kernel fed by TMA at every K: x's
 rows resident (at K <= 256 in registers, as the product's A operand), W
@@ -148,6 +153,14 @@ def lse_bwd_plain(x, w, b, lse, g):
             dz.sum(0))
 
 
+KP = 128  # the kernels' K granule: the wrapper pads K up to a multiple of it
+
+
+def padded_k(k: int) -> int:
+    """K as the kernels take it: up to the next multiple of KP."""
+    return -(-k // KP) * KP
+
+
 def _check(x, w, b) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"vocab_lse: K4 runs on a CUDA tensor, not on {x.device}")
@@ -160,8 +173,9 @@ def _check(x, w, b) -> None:
     if w.shape[0] != k or b.shape != (w.shape[1],):
         raise ValueError(f"vocab_lse: x {tuple(x.shape)}, w {tuple(w.shape)}, "
                          f"b {tuple(b.shape)}")
-    if k % 128 or k > 1024:
-        raise ValueError(f"vocab_lse: K {k}; K4 takes a multiple of 128 up to 1024")
+    if not 0 < k <= 1024:
+        raise ValueError(f"vocab_lse: K {k}; K4 takes K up to 1024 (padded to a multiple "
+                         f"of {KP} inside)")
 
 
 def _stream(x):
@@ -173,24 +187,38 @@ def _sms(x) -> int:
 
 
 def _rows8(w: torch.Tensor) -> torch.Tensor:
-    """w with its rows padded to a multiple of 8 columns (zeros), so that
-    the kernels read them with 16-byte loads: a copy when V % 8 != 0."""
-    v = w.shape[1]
-    return w if v % 8 == 0 else torch.nn.functional.pad(w, (0, 8 - v % 8))
+    """w as the kernels read it: its rows padded to a multiple of 8 columns
+    (zeros), for 16-byte loads, and zero rows added up to `padded_k` rows.
+    One copy when V % 8 or K % KP is not 0, else w itself."""
+    k, v = w.shape
+    pad_v, pad_k = -v % 8, padded_k(k) - k
+    return w if not (pad_v or pad_k) else torch.nn.functional.pad(w, (0, pad_v, 0, pad_k))
 
 
-def _launch_fwd(x, w, b, wp=None) -> torch.Tensor:
-    """K4's forward: lse (N,) float32. wp as for `_launch_dx`."""
+def _pad_x(x: torch.Tensor) -> torch.Tensor:
+    """x with zero columns up to `padded_k` columns: a copy when K % KP is
+    not 0, else x itself."""
+    pad_k = padded_k(x.shape[1]) - x.shape[1]
+    return x if not pad_k else torch.nn.functional.pad(x, (0, pad_k))
+
+
+def _padded(x, w, b, wp, xp):
+    """Check x, w and b; (N, K padded, V, wp, xp) with the padded copies
+    made where the caller has none."""
     _check(x, w, b)
-    n, k = x.shape
-    v = w.shape[1]
+    return (x.shape[0], padded_k(x.shape[1]), w.shape[1], _rows8(w) if wp is None else wp,
+            _pad_x(x) if xp is None else xp)
+
+
+def _launch_fwd(x, w, b, wp=None, xp=None) -> torch.Tensor:
+    """K4's forward: lse (N,) float32. wp, xp as for `_launch_dx`."""
+    n, k, v, wp, xp = _padded(x, w, b, wp, xp)
     tiling = fwd_tiling(n, k, v, _sms(x))
     lse = torch.empty(n, device=x.device)
-    wp = _rows8(w) if wp is None else wp
     fn = cuda_lib.load("vocab_lse", "vocab_lse_fwd",
                        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2
                        + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    rc = fn(x.data_ptr(), wp.data_ptr(), wp.shape[1], b.data_ptr(), lse.data_ptr(), n, k, v,
+    rc = fn(xp.data_ptr(), wp.data_ptr(), wp.shape[1], b.data_ptr(), lse.data_ptr(), n, k, v,
             tiling["BM"], tiling["C"], _stream(x))
     cuda_lib.check(rc, "vocab_lse_fwd")
     global FWD_LAUNCHES
@@ -198,61 +226,56 @@ def _launch_fwd(x, w, b, wp=None) -> torch.Tensor:
     return lse
 
 
-def _launch_dx(x, w, b, lse, g, wp=None) -> torch.Tensor:
-    """K4's dx pass: (N, K) in x's dtype. wp: w with its rows padded
-    (`_rows8`), when the caller has it."""
-    _check(x, w, b)
-    n, k = x.shape
-    v = w.shape[1]
-    dx = torch.empty_like(x)
-    wp = _rows8(w) if wp is None else wp
+def _launch_dx(x, w, b, lse, g, wp=None, xp=None) -> torch.Tensor:
+    """K4's dx pass: (N, K) in x's dtype (the padded columns dropped). wp:
+    w padded (`_rows8`), xp: x padded (`_pad_x`), when the caller has them."""
+    n, k, v, wp, xp = _padded(x, w, b, wp, xp)
+    dx = torch.empty_like(xp)
     fn = cuda_lib.load("vocab_lse", "vocab_lse_dx",
                        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
                        + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    rc = fn(x.data_ptr(), wp.data_ptr(), wp.shape[1], b.data_ptr(), lse.data_ptr(),
+    rc = fn(xp.data_ptr(), wp.data_ptr(), wp.shape[1], b.data_ptr(), lse.data_ptr(),
             g.data_ptr(), dx.data_ptr(), n, k, v, dx_tiling(n, k, v, _sms(x))["C"], _stream(x))
     cuda_lib.check(rc, "vocab_lse_dx")
     global DX_LAUNCHES
     DX_LAUNCHES += 1
-    return dx
+    return dx[:, :x.shape[1]]
 
 
-def _launch_dw(x, w, b, lse, g, wp=None) -> tuple[torch.Tensor, torch.Tensor]:
-    """K4's dw pass: dW (K, V) accumulated in float32, cast to w's dtype,
-    and db (V,) float32. wp as for `_launch_dx`."""
-    _check(x, w, b)
-    n, k = x.shape
-    v = w.shape[1]
+def _launch_dw(x, w, b, lse, g, wp=None, xp=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """K4's dw pass: dW (K, V) accumulated in float32, cast to w's dtype (the
+    padded rows dropped), and db (V,) float32. wp, xp as for `_launch_dx`."""
+    n, k, v, wp, xp = _padded(x, w, b, wp, xp)
     bv = dw_tiling(k)["BV"]
     vp = -(-v // bv) * bv
     dw = torch.empty(k, vp, device=x.device)
     db = torch.empty(vp, device=x.device)
-    wp = _rows8(w) if wp is None else wp
     fn = cuda_lib.load("vocab_lse", "vocab_lse_dw",
                        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
                        + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    rc = fn(x.data_ptr(), wp.data_ptr(), wp.shape[1], b.data_ptr(), lse.data_ptr(),
+    rc = fn(xp.data_ptr(), wp.data_ptr(), wp.shape[1], b.data_ptr(), lse.data_ptr(),
             g.data_ptr(), dw.data_ptr(), db.data_ptr(), n, k, v, vp, _stream(x))
     cuda_lib.check(rc, "vocab_lse_dw")
     global DW_LAUNCHES
     DW_LAUNCHES += 1
-    return dw[:, :v].to(w.dtype), db[:v]
+    return dw[:w.shape[0], :v].to(w.dtype), db[:v]
 
 
 class _StreamingLSE(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, b):
         if x.device.type == "cpu":
-            lse, wp = lse_plain(x, w, b), w
+            lse, wp, xp = lse_plain(x, w, b), w, x
         else:
-            wp = _rows8(w)  # one padded copy a step, for the forward and both backward passes
-            lse = _launch_fwd(x, w, b, wp)
-        ctx.save_for_backward(x, w, b, lse, wp)
+            # the padded copies, made once a step for the forward and both backward passes
+            wp, xp = _rows8(w), _pad_x(x)
+            lse = _launch_fwd(x, w, b, wp, xp)
+        ctx.save_for_backward(x, w, b, lse, wp, xp)
         return lse
 
     @staticmethod
     def backward(ctx, g):
-        x, w, b, lse, wp = ctx.saved_tensors
+        x, w, b, lse, wp, xp = ctx.saved_tensors
         want_x, want_w, want_b = ctx.needs_input_grad
         dx = dw = db = None
         if x.device.type == "cpu":
@@ -261,9 +284,9 @@ class _StreamingLSE(torch.autograd.Function):
         else:
             g = g.float().contiguous()
             if want_x:
-                dx = _launch_dx(x, w, b, lse, g, wp)
+                dx = _launch_dx(x, w, b, lse, g, wp, xp)
             if want_w or want_b:
-                dw, db = _launch_dw(x, w, b, lse, g, wp)
+                dw, db = _launch_dw(x, w, b, lse, g, wp, xp)
         return (dx if want_x else None, dw if want_w else None, db if want_b else None)
 
 

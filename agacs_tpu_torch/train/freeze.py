@@ -2,9 +2,12 @@
 the reference's `abs_task.py:1163-1222`).
 
 Each preset is the JAX package's predicate over a parameter's '.'-joined
-JAX pytree path; a port parameter is judged by the path its name converts
-to (`models/checkpoint.jax_leaf`), so a preset or a prefix list selects
-exactly the leaves JAX selects. Frozen parameters get requires_grad=False,
+JAX pytree path, for any model family (JAX `freeze.py:42-73`); a port
+parameter is judged by the path its name converts to
+(`models/checkpoint.jax_paths`: the whisper family's names, the conformer
+and transducer families' module layouts), so a preset or a prefix list
+selects exactly the leaves JAX selects. The conformer's fused `qkv` holds
+JAX's q, k and v: a preset that splits them raises. Frozen parameters get requires_grad=False,
 so autograd computes no gradient for them at all. Under `whisper_pe` the
 PE gate (path `.../attn/gate`, no "cs") stays frozen, as in the reference
 (`abs_task.py:1165-1168`).
@@ -16,7 +19,7 @@ from typing import Callable
 
 from torch import nn
 
-from agacs_tpu_torch.models.checkpoint import jax_leaf
+from agacs_tpu_torch.models.checkpoint import jax_paths
 
 PRESETS: dict[str, Callable[[str], bool]] = {
     "none": lambda n: True,
@@ -52,8 +55,16 @@ def preset_predicate(preset: str | list[str] | None) -> Callable[[str], bool]:
 
 def trainable_names(model: nn.Module, preset: str | list[str] | None) -> list[str]:
     pred = preset_predicate(preset)
-    return [name for name, _ in model.named_parameters()
-            if pred(jax_leaf(name)[0].replace("/", "."))]
+    paths = jax_paths(model)
+    out = []
+    for name, _ in model.named_parameters():
+        keep = {pred(key.replace("/", ".")) for key in paths[name]}
+        if len(keep) > 1:
+            raise ValueError(f"freeze preset {preset!r} splits {name}, which holds "
+                             f"{paths[name]}")
+        if keep.pop():
+            out.append(name)
+    return out
 
 
 def apply_freeze(model: nn.Module, preset: str | list[str] | None) -> list[nn.Parameter]:

@@ -1,9 +1,9 @@
 """Recipe YAML -> configs (counterpart of `agacs_tpu/utils/config.py`): the
 whisper model config with its training fields (model_conf, specaug_conf,
 src_layer, head_mask), the optimizer/scheduler, the trainer fields, and
-`task_from_dict`, the model family the `encoder:` key selects (whisper or
-the conformer recipe's hybrid CTC/attention model; the transducer is not
-ported yet). The same reference-schema YAML resolves to the same values as
+`task_from_dict`, the model family the `encoder:` and `decoder:` keys
+select (whisper, the conformer recipe's hybrid CTC/attention model, or the
+conformer transducer). The same reference-schema YAML resolves to the same values as
 in the JAX package. `yaml` is imported only when a file is read or
 written."""
 
@@ -170,8 +170,9 @@ def trainer_config_from_dict(d: dict) -> TrainerConfig:
 @dataclasses.dataclass(frozen=True)
 class Task:
     """Model family selected by the config's `encoder:` key (JAX `Task`):
-    kind "whisper" (cfg an ASRModelConfig) or "conformer" (a
-    ConformerASRConfig), with the family's `init_fn(generator, cfg)` (a
+    kind "whisper" (cfg an ASRModelConfig), "conformer" (a
+    ConformerASRConfig) or, with `decoder: transducer`, "transducer" (a
+    TransducerASRConfig), with the family's `init_fn(generator, cfg)` (a
     float32 state dict) and `loss_fn(model, cfg, batch, train, generator,
     return_preds)` (the training forward)."""
 
@@ -181,17 +182,14 @@ class Task:
     loss_fn: Any
 
 
-def conformer_config_from_dict(d: dict, compute_dtype: Any = torch.bfloat16):
-    """ConformerASRConfig from a reference-schema dict (the conformer branch
-    of JAX `task_from_dict`, :206-297, with its key defaults;
-    encoder_conf.unroll_layers is accepted and has no counterpart)."""
-    from agacs_tpu_torch.models.conformer import ConformerConfig, TransformerDecoderConfig
-    from agacs_tpu_torch.models.conformer_asr import ConformerASRConfig
+def _conformer_encoder(d: dict, compute_dtype: Any):
+    """(ConformerConfig, DefaultFrontendConfig) of a conformer-encoder
+    config dict, shared by the conformer and transducer families
+    (encoder_conf.unroll_layers is accepted and has no counterpart)."""
+    from agacs_tpu_torch.models.conformer import ConformerConfig
     from agacs_tpu_torch.ops.frontend_default import DefaultFrontendConfig
 
     enc_conf = d.get("encoder_conf", {}) or {}
-    dec_conf = d.get("decoder_conf", {}) or {}
-    model_conf = d.get("model_conf", {}) or {}
     frontend_conf = d.get("frontend_conf", {}) or {}
     enc = ConformerConfig(
         input_size=int(frontend_conf.get("n_mels", 80)),
@@ -205,6 +203,26 @@ def conformer_config_from_dict(d: dict, compute_dtype: Any = torch.bfloat16):
         conv_norm=str(enc_conf.get("conv_norm", "layer")),
         compute_dtype=compute_dtype,
     )
+    normalize = d.get("normalize", "utterance_mvn")
+    frontend = DefaultFrontendConfig(
+        n_fft=int(frontend_conf.get("n_fft", 512)),
+        hop_length=int(frontend_conf.get("hop_length", 128)),
+        n_mels=int(frontend_conf.get("n_mels", 80)),
+        normalize=normalize if normalize not in ("none",) else None,
+    )
+    return enc, frontend
+
+
+def conformer_config_from_dict(d: dict, compute_dtype: Any = torch.bfloat16):
+    """ConformerASRConfig from a reference-schema dict (the conformer branch
+    of JAX `task_from_dict`, :206-297, with its key defaults)."""
+    from agacs_tpu_torch.models.conformer import TransformerDecoderConfig
+    from agacs_tpu_torch.models.conformer_asr import ConformerASRConfig
+
+    enc_conf = d.get("encoder_conf", {}) or {}
+    dec_conf = d.get("decoder_conf", {}) or {}
+    model_conf = d.get("model_conf", {}) or {}
+    enc, frontend = _conformer_encoder(d, compute_dtype)
     dec = TransformerDecoderConfig(
         vocab_size=int(d.get("vocab_size", 51865)),
         attention_heads=int(dec_conf.get("attention_heads", 4)),
@@ -213,14 +231,7 @@ def conformer_config_from_dict(d: dict, compute_dtype: Any = torch.bfloat16):
         d_model=enc.output_size,
         compute_dtype=compute_dtype,
     )
-    normalize = d.get("normalize", "utterance_mvn")
     norm_conf = d.get("normalize_conf", {}) or {}
-    frontend = DefaultFrontendConfig(
-        n_fft=int(frontend_conf.get("n_fft", 512)),
-        hop_length=int(frontend_conf.get("hop_length", 128)),
-        n_mels=int(frontend_conf.get("n_mels", 80)),
-        normalize=normalize if normalize not in ("none",) else None,
-    )
     return ConformerASRConfig(
         encoder=enc,
         decoder=dec,
@@ -236,6 +247,42 @@ def conformer_config_from_dict(d: dict, compute_dtype: Any = torch.bfloat16):
     )
 
 
+def transducer_config_from_dict(d: dict, compute_dtype: Any = torch.bfloat16):
+    """TransducerASRConfig from a reference-schema dict (the transducer
+    branch of JAX `task_from_dict`, :244-280, with its key defaults): the
+    conformer branch's encoder and frontend, `decoder_conf` the prediction
+    network, `joint_net_conf` the joint."""
+    from agacs_tpu_torch.models.transducer import TransducerConfig
+    from agacs_tpu_torch.models.transducer_asr import TransducerASRConfig
+
+    enc, frontend = _conformer_encoder(d, compute_dtype)
+    dec_conf = d.get("decoder_conf", {}) or {}
+    model_conf = d.get("model_conf", {}) or {}
+    joint_conf = d.get("joint_net_conf", {}) or {}
+    norm_conf = d.get("normalize_conf", {}) or {}
+    return TransducerASRConfig(
+        encoder=enc,
+        decoder=TransducerConfig(
+            vocab_size=int(d.get("vocab_size", 51865)),
+            rnn_type=dec_conf.get("rnn_type", "lstm"),
+            num_layers=int(dec_conf.get("num_layers", 1)),
+            hidden_size=int(dec_conf.get("hidden_size", 320)),
+            dropout=float(dec_conf.get("dropout", 0.0)),
+            dropout_embed=float(dec_conf.get("dropout_embed", 0.0)),
+            joint_space_size=int(joint_conf.get("joint_space_size", 256)),
+            joint_activation=joint_conf.get("joint_activation_type", "tanh"),
+        ),
+        frontend=frontend,
+        mvn_stats_path=norm_conf.get("stats_file"),
+        ctc_weight=float(model_conf.get("ctc_weight", 0.0)),
+        fastemit_lambda=float(model_conf.get("fastemit_lambda", 0.0)),
+        use_specaug=d.get("specaug") == "specaug",
+        specaug=SpecAugConfig.from_dict(d.get("specaug_conf")),
+        joint_chunk_t=(int(model_conf["joint_chunk_t"]) if model_conf.get("joint_chunk_t")
+                       else None),
+    )
+
+
 def task_from_dict(d: dict, compute_dtype: Any = torch.bfloat16) -> Task:
     encoder = d.get("encoder", "whisper")
     if encoder == "whisper":
@@ -245,8 +292,10 @@ def task_from_dict(d: dict, compute_dtype: Any = torch.bfloat16) -> Task:
                     asr_model.init_asr_params, asr_model.forward)
     if encoder == "conformer":
         if d.get("decoder") == "transducer":
-            raise NotImplementedError("the transducer family (decoder: transducer) is not "
-                                      "ported yet")
+            from agacs_tpu_torch.models import transducer_asr
+
+            return Task("transducer", transducer_config_from_dict(d, compute_dtype),
+                        transducer_asr.init_transducer_asr_params, transducer_asr.forward)
         from agacs_tpu_torch.models import conformer_asr
 
         return Task("conformer", conformer_config_from_dict(d, compute_dtype),

@@ -267,7 +267,24 @@ non-zero exit:
      the TensorBoard event file reading back the history's scalars,
      `estimated_c_val` moved from 0.6; then one `lid_ce` epoch; (c) the
      bf16 step over the corpus's batches with the prefetch on and off, in
-     turns: wall ms a step, device busy ms a step and the idle share.
+     turns: wall ms a step, device busy ms a step and the idle share;
+  41-45. the transducer family (train_asr_transducer.yaml at full width:
+     conformer 12 x 256, LSTM 1 x 320, joint 320, vocabulary 51865,
+     ctc_weight 0.3; random weights from torch seed 0): (41) K4 at the
+     joint's K 320, padded to 384 in the wrapper, against its plain
+     versions at (4096, 320) x (320, 51865) with b and g NaN past their
+     ends, timed on a 32,768-row slice beside the plain version and cuBLAS +
+     logsumexp, and alone at the step's N = 16 x 468 x 41; (42) the step at
+     16 x 15 s with 40 labels a row, exact launches (K5 12 + 12, K4 2 + 2 +
+     2: the joint's and the CTC head's), the profiled step's device events by
+     kernel, peak memory well under the 63.7 GB dense lattice's; (43) a
+     micro-step card bf16 vs CPU f32 (loss_transducer, loss_ctc, the
+     encoder's, LSTM's and joint's gradient cosines, phase 31's rule); (44)
+     decoding 8 x 15 s: greedy, TSD and ALSD at beam 4 batched, default /
+     NSC / mAES at beam 4 on one utterance's first 60 frames, with the CPU's
+     tokens beside; (45) `bin.train` on the recipe for one epoch over the
+     corpus's flac.ark dirs, then `bin.decode` greedy and with every
+     `--transducer_search`.
 
 The last three lines are the card's `name, power.limit` (nvidia-smi), a
 JSON line with each kernel's launches, error and times, and the
@@ -1620,17 +1637,18 @@ def k4_times(g, dev, shape, gr, n_sets: int, iters: dict, line: str) -> tuple[di
     n, k, v = shape
     res = {}
     sets = [k4_inputs(g, dev, n, k, v)[:3] for _ in range(n_sets)]
-    bw = [(*s, vocab_lse.lse_plain(*s), gr, vocab_lse._rows8(s[1])) for s in sets]
+    bw = [(*s, vocab_lse.lse_plain(*s), gr, vocab_lse._rows8(s[1]), vocab_lse._pad_x(s[0]))
+          for s in sets]
     pad_ms = cuda_ms(lambda *a: vocab_lse._rows8(a[1]), bw, 20)
     io = n * k * 2 + k * v * 2 + v * 4
     ops = 2 * n * k * v
     for part, kern, plain, lib_fn, nbytes, nops in (
-            ("fwd", lambda *a: vocab_lse._launch_fwd(*a[:3], wp=a[5]),
+            ("fwd", lambda *a: vocab_lse._launch_fwd(*a[:3], wp=a[5], xp=a[6]),
              lambda *a: vocab_lse.lse_plain(*a[:3]), lambda *a: k4_lib(*a[:3]), io + n * 4, ops),
-            ("dx", lambda *a: vocab_lse._launch_dx(*a[:5], wp=a[5]),
+            ("dx", lambda *a: vocab_lse._launch_dx(*a[:5], wp=a[5], xp=a[6]),
              lambda *a: vocab_lse.lse_bwd_plain(*a[:5])[0],
              lambda *a: k4_lib(*a[:5], part="dx"), io + 8 * n + n * k * 2, 2 * ops),
-            ("dw", lambda *a: vocab_lse._launch_dw(*a[:5], wp=a[5]),
+            ("dw", lambda *a: vocab_lse._launch_dw(*a[:5], wp=a[5], xp=a[6]),
              lambda *a: vocab_lse.lse_bwd_plain(*a[:5])[1:],
              lambda *a: k4_lib(*a[:5], part="dw"), io + 8 * n + k * v * 2 + v * 4, 2 * ops)):
         ms = cuda_ms(kern, bw, iters[part])
@@ -3949,6 +3967,444 @@ def whisper_ctc_parity(sd, dev, batch) -> dict:
     return {"card": card, "control": control}
 
 
+# Phases 41-45: the transducer family at the recipe's full width
+# (train_asr_transducer.yaml: conformer 12 x 256, LSTM 1 x 320, joint 320,
+# vocabulary 51865, ctc_weight 0.3), random weights from torch seed 0, noise
+# audio. K4 runs twice each way a step: the joint's V reduction at K 320
+# (padded to 384 in the wrapper: the chunked forward and the split dx / dw
+# on clusters of 3) and the aux CTC head at K 256.
+TRANS_B, TRANS_S, TRANS_U, TRANS_T = 16, 15, 40, 468  # the step; T: encoder frames of 15 s
+TRANS_STEPS = 3
+TRANS_LAUNCHES = {"K5": 12, "K5 bwd": 12, "K4": 2, "K4 dx": 2, "K4 dw": 2}
+# the profiled step's device events by kernel name: the joint's dx and dw
+# on the split kernel (K 384), the CTC head's on the K <= 256 kernels
+TRANS_EVENTS = {"relpos_flash_fwd": 12, "relpos_dkdv": 12, "vocab_lse_fwd": 2,
+                "vocab_lse_split_kernel<false": 1, "vocab_lse_split_kernel<true": 1,
+                "vocab_lse_dx_kernel": 1, "vocab_lse_dw_kernel": 1}
+K4_JOINT = (4096, 320, 51865)  # held against the plain version
+K4_JOINT_SLICE = 32768  # rows timed beside the plain version and cuBLAS + logsumexp
+LATTICE_GB = TRANS_B * TRANS_T * (TRANS_U + 1) * 51865 * 4 / 1e9  # the dense f32 lattice
+# Phase 43: one micro-step (1 x 6 s, 20 labels; SpecAug and dropout off),
+# card bf16 against the port on the CPU in float32, with phase 31's rule
+# (`hold_parity`) and a bf16 control on K5's and K4's plain versions.
+TRANS_PARITY_S, TRANS_PARITY_U = 6, 20
+TRANS_REL = {"loss": 5e-3, "loss_transducer": 5e-3, "loss_ctc": 5e-3}
+TRANS_COS = {"cos_enc": 0.995, "cos_lstm": 0.995, "cos_joint": 0.995}
+# Phase 44: 8 x 15 s; the per-utterance beams (default, NSC, mAES) on the
+# first TRANS_HOST_FRAMES frames of one utterance: their hypotheses are
+# ragged on the host, one joint and a host read an expansion.
+TRANS_DEC_B, TRANS_BEAM, TRANS_HOST_FRAMES, TRANS_CPU_ROWS = 8, 4, 60, 2
+
+
+def check_k4_joint(dev, g) -> dict:
+    """Phase 41: K4 at the transducer joint's K 320, which the wrapper pads
+    to 384 (zero columns of x, zero rows of W): forward, dx and dw at
+    K4_JOINT (b and g NaN past their ends) against their plain versions
+    with phase 2v's bounds, bit-identical on a second run; then timed on a
+    K4_JOINT_SLICE-row slice beside the plain version and cuBLAS +
+    logsumexp over the logits (`k4_times`), and alone at the full step's
+    N = 16 x 468 x 41 (the logits of which would take 63.7 GB). Bounds come
+    from the real K 320. Returns {"fwd", "dx", "dw"}: the slice's results
+    with the errors, and "full": each pass at the step's N."""
+    from agacs_tpu_torch.ops import vocab_lse
+
+    n, k, v = K4_JOINT
+    res = {part: {"err": 0.0} for part in ("fwd", "dx", "dw")}
+    x, w, b, gr = k4_inputs(g, dev, n, k, v)
+    b, gr = poisoned(b), poisoned(gr)
+    lse = poisoned(vocab_lse._launch_fwd(x, w, b))
+    dx = vocab_lse._launch_dx(x, w, b, lse, gr)
+    dw, db = vocab_lse._launch_dw(x, w, b, lse, gr)
+    lse2 = vocab_lse._launch_fwd(x, w, b)
+    dx2 = vocab_lse._launch_dx(x, w, b, lse, gr)
+    dw2, db2 = vocab_lse._launch_dw(x, w, b, lse, gr)
+    lse_p = vocab_lse.lse_plain(x, w, b)
+    dx_p, dw_p, db_p = vocab_lse.lse_bwd_plain(x, w, b, lse_p, gr)
+    torch.cuda.synchronize()
+    errs = k4_errors((("fwd", "lse", lse, lse_p, None), ("dx", "dx", dx, dx_p, KERNEL_RTOL),
+                      ("dw", "dW", dw, dw_p, KERNEL_RTOL), ("dw", "db", db, db_p, K4_DB_RTOL)),
+                     n, k, v, res)
+    check(torch.equal(lse, lse2) and torch.equal(dx, dx2) and torch.equal(dw, dw2)
+          and torch.equal(db, db2), f"K4 at the joint's {K4_JOINT}: a second run bit-identical")
+    kp = vocab_lse.padded_k(k)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tf = vocab_lse.fwd_tiling(n, kp, v, sms)
+    line = (f"phase 41 K4 at the transducer joint ({n}, {k}) x ({k}, {v}), K padded to {kp} "
+            f"({(kp - k) / k:.0%} more work than K {k}): max_abs_err "
+            + ", ".join(f"{nm} {e:.3e}" for nm, e in errs.items())
+            + f" (phase 2v's bounds), all finite, b and g NaN past their ends, bit-identical "
+            f"on a second run; forward {tf['route']} (BM {tf['BM']}, C {tf['C']}); "
+            + k4_backward_tiling(n, kp, v, sms))
+    del x, dx, dw, db, lse2, dx2, dw2, db2, lse_p, dx_p, dw_p, db_p
+    torch.cuda.empty_cache()
+    times, line = k4_times(g, dev, (K4_JOINT_SLICE, k, v),
+                           torch.randn(K4_JOINT_SLICE, generator=g).to(dev), 1,
+                           {"fwd": 10, "dx": 5, "dw": 5}, line + f"; at N {K4_JOINT_SLICE}")
+    for part in res:
+        res[part].update(times[part])
+    torch.cuda.empty_cache()
+    nf = TRANS_B * TRANS_T * (TRANS_U + 1)
+    xf = torch.randn(nf, k, device=dev).to(torch.bfloat16)
+    gf = torch.randn(nf, device=dev)
+    wp, xp = vocab_lse._rows8(w), vocab_lse._pad_x(xf)
+    lsef = vocab_lse._launch_fwd(xf, w, b, wp, xp)
+    pad_ms = cuda_ms(lambda: vocab_lse._pad_x(xf), [()], 3)
+    io = nf * k * 2 + k * v * 2 + v * 4
+    ops = 2 * nf * k * v
+    full = {}
+    for part, fn, nbytes, nops in (
+            ("fwd", lambda: vocab_lse._launch_fwd(xf, w, b, wp, xp), io + nf * 4, ops),
+            ("dx", lambda: vocab_lse._launch_dx(xf, w, b, lsef, gf, wp, xp),
+             io + 8 * nf + nf * k * 2, 2 * ops),
+            ("dw", lambda: vocab_lse._launch_dw(xf, w, b, lsef, gf, wp, xp),
+             io + 8 * nf + k * v * 2 + v * 4, 2 * ops)):
+        full[part] = {"ms": cuda_ms(fn, [()], 3), **roofline(nbytes, nops, "bf16")}
+    res["full"] = full
+    print(line + f"; at the step's N {nf}: " + "; ".join(
+        f"{p} {r['ms']:.4f} ms bound {r['bound_ms']:.4f} ms ({r['ms'] / r['bound_ms']:.1f}x)"
+        for p, r in full.items()) + f"; x's padded copy {pad_ms:.4f} ms (once a step)",
+        flush=True)
+    del xf, gf, wp, xp, lsef, w, b
+    torch.cuda.empty_cache()
+    return res
+
+
+def trans_counts() -> dict:
+    from agacs_tpu_torch.ops import relpos_flash
+
+    return {"K5": relpos_flash.LAUNCHES, "K5 bwd": relpos_flash.BWD_LAUNCHES, **k4_counts()}
+
+
+def trans_batch(b: int, seconds: int, u: int, dev, seed: int = 0) -> dict:
+    """Noise speech at 0.05 and `u` random Whisper ids a row."""
+    rng = np.random.RandomState(seed)
+    s = seconds * 16000
+    return {"speech": torch.from_numpy((rng.randn(b, s) * 0.05).astype(np.float32)).to(dev),
+            "speech_lengths": torch.full((b,), s, device=dev),
+            "text": torch.from_numpy(rng.randint(100, 50000, (b, u))).to(dev)}
+
+
+def trans_model(dev, dtype, sd=None, aug: bool = True, param_dtype=torch.float32):
+    """The recipe's transducer (identity MVN statistics) on `dev`, compute
+    `dtype`, random weights from torch seed 0 unless `sd` is given; `aug`
+    False turns SpecAug and dropout off. Returns (model, cfg, sd, raw)."""
+    import dataclasses
+
+    from agacs_tpu_torch.models import transducer_asr
+    from agacs_tpu_torch.utils.config import load_yaml, task_from_dict
+
+    raw = load_yaml(os.path.join(ROOT, "recipes", "seame", "conf",
+                                 "train_asr_transducer.yaml"))
+    cfg = task_from_dict(raw, compute_dtype=dtype).cfg
+    check(cfg.decoder.joint_space_size == 320 and cfg.decoder.hidden_size == 320
+          and cfg.decoder.vocab_size == 51865 and cfg.ctc_weight == 0.3
+          and cfg.encoder.num_blocks == 12 and cfg.encoder.output_size == 256,
+          f"the recipe's transducer: {cfg.decoder}, ctc {cfg.ctc_weight}")
+    if not aug:
+        cfg = dataclasses.replace(
+            cfg, use_specaug=False,
+            encoder=dataclasses.replace(cfg.encoder, dropout_rate=0.0),
+            decoder=dataclasses.replace(cfg.decoder, dropout=0.0, dropout_embed=0.0))
+    if sd is None:
+        sd = transducer_asr.init_transducer_asr_params(torch.Generator().manual_seed(0), cfg)
+    model = transducer_asr.TransducerASR.from_state_dict(cfg, sd, device=dev,
+                                                         param_dtype=param_dtype)
+    return model, cfg, sd, raw
+
+
+def trans_train_phase(dev) -> dict:
+    """Phase 42: the recipe's step at full width (Adam lr 1.5e-3, WarmupLR
+    25000, clip 5, SpecAug, dropout 0.1), one 16 x 15 s micro-batch of 40
+    labels a row a step: a warm-up, TRANS_STEPS timed steps with exact
+    launches, peak memory well under the dense lattice's; then one step
+    under the profiler with its device events by kernel checked
+    (TRANS_EVENTS) and its busy time, idle share and K4's."""
+    from agacs_tpu_torch.models import transducer_asr
+    from agacs_tpu_torch.train.optim import build_optimizer
+    from agacs_tpu_torch.train.trainer import make_train_step
+    from agacs_tpu_torch.utils.config import optim_config_from_dict
+
+    t0 = time.perf_counter()
+    model, cfg, sd, raw = trans_model(dev, torch.bfloat16)
+    ocfg = optim_config_from_dict(raw)
+    check(ocfg.optim == "adam" and ocfg.grad_clip == 5, f"the recipe's optimizer {ocfg}")
+    opt, sched = build_optimizer(model.parameters(), ocfg)
+    step = make_train_step(model, cfg, opt, sched, grad_clip=ocfg.grad_clip,
+                           generator=torch.Generator().manual_seed(1),
+                           loss_fn=transducer_asr.forward)
+    batch = trans_batch(TRANS_B, TRANS_S, TRANS_U, dev)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()
+              if n.startswith(("transducer.joint.lin_out", "transducer.layers.0.w_hh"))}
+    step([batch])
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    reset_conformer_counts()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for _ in range(TRANS_STEPS):
+        t0 = time.perf_counter()
+        stats = step([batch])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(tuple(float(stats[k]) for k in ("loss", "loss_transducer", "loss_ctc")))
+    launches = trans_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {k: v * TRANS_STEPS for k, v in TRANS_LAUNCHES.items()}
+    check(launches == want, f"transducer train launches {launches} == {want}")
+    check(all(np.isfinite(v) for row in losses for v in row)
+          and int(stats["grad_nonfinite_total"]) == 0, f"finite transducer losses {losses}")
+    check(peak_gb < LATTICE_GB / 4, f"peak {peak_gb:.2f} GB, well under the dense lattice's "
+          f"{LATTICE_GB:.1f} GB: no (B, T, U+1, V) tensor")
+    params = dict(model.named_parameters())
+    check(all(not torch.equal(params[n], p) for n, p in before.items()),
+          "the joint's output layer and the LSTM changed")
+    ms = statistics.median(times) * 1e3
+    print(f"phase 42 transducer train: train_asr_transducer.yaml (conformer 12 x 256, LSTM 1 x "
+          f"320, joint 320, vocabulary 51865, ctc 0.3, Adam, WarmupLR 25000, clip 5, SpecAug, "
+          f"dropout 0.1), bf16 / f32 masters, {TRANS_B} x {TRANS_S} s, {TRANS_U} labels a row "
+          f"(joint rows {TRANS_B * TRANS_T * (TRANS_U + 1)}) a step: {ms:.1f} ms/step (median "
+          f"of {[round(t * 1e3, 1) for t in times]}), "
+          f"{TRANS_B * TRANS_S / (ms / 1e3):.1f} audio-s/s; peak {peak_gb:.2f} GB (the dense "
+          f"f32 lattice alone: {LATTICE_GB:.1f} GB); "
+          f"{sum(p.numel() for p in model.parameters()) / 1e6:.2f}M parameters; losses (loss, "
+          f"transducer, ctc) {[tuple(round(v, 3) for v in row) for row in losses]}; launches "
+          f"{launches} ({TRANS_LAUNCHES} per step); built + warm-up {load_s:.1f} s", flush=True)
+
+    busy, n_events, per_name = exact_profile(
+        "phase 42's profiled step", lambda: step([batch]), lambda: dict(TRANS_EVENTS))
+
+    def dev_ms(*keys):
+        return sum(t for name, t in per_name.items() if any(k in name for k in keys))
+
+    k4_ms = {"joint fwd": dev_ms("vocab_lse_fwd_kernel<64"),
+             "joint dx": dev_ms("vocab_lse_split_kernel<false"),
+             "joint dw": dev_ms("vocab_lse_split_kernel<true"),
+             "ctc": dev_ms("vocab_lse_dx_kernel", "vocab_lse_dw_kernel"),
+             "all": dev_ms("vocab_lse")}
+    print(f"phase 42 transducer train profile: device busy {busy:.1f} ms in {n_events} device "
+          f"events; idle {1 - busy / ms:.1%} of {ms:.1f} ms/step; device events by kernel "
+          f"{TRANS_EVENTS} as launched; K4 {k4_ms['all']:.2f} ms ({k4_ms['all'] / busy:.1%} of "
+          f"busy): " + ", ".join(f"{k} {t:.2f} ms" for k, t in k4_ms.items() if k != "all")
+          + f"; K5 {dev_ms('relpos'):.2f} ms; top: " + top_kernels(per_name), flush=True)
+    del model, opt, step, before, params
+    torch.cuda.empty_cache()
+    return {"launches": launches, "ms": ms, "busy": busy, "peak_gb": peak_gb, "k4_ms": k4_ms,
+            "sd": sd}
+
+
+def trans_micro_step(sd, dev, dtype, one) -> tuple[dict, dict]:
+    """One micro-step of the recipe's transducer on `dev` (SpecAug and
+    dropout off): ({loss, loss_transducer, loss_ctc}, every gradient in
+    float32 on the CPU by name)."""
+    from agacs_tpu_torch.models import transducer_asr
+
+    model, cfg, _, _ = trans_model(dev, dtype, sd, aug=False)
+    loss, stats = transducer_asr.forward(model, cfg, {k: v.to(dev) for k, v in one.items()},
+                                         generator=torch.Generator().manual_seed(0))
+    loss.backward()
+    return ({k: float(stats[k].detach()) for k in ("loss", "loss_transducer", "loss_ctc")},
+            {n: p.grad.float().cpu() for n, p in model.named_parameters()})
+
+
+def trans_parity(run, ref) -> dict:
+    (vals, grads), (vals_r, grads_r) = run, ref
+
+    def cos(*prefixes):
+        a, b = (torch.cat([x.double().ravel() for n, x in sorted(g.items())
+                           if n.startswith(prefixes)]) for g in (grads, grads_r))
+        return float(torch.nn.functional.cosine_similarity(a, b, dim=0))
+
+    out = {k: abs(vals[k] / vals_r[k] - 1) for k in vals}
+    out.update(cos_enc=cos("encoder."), cos_lstm=cos("transducer.layers.", "transducer.embed"),
+               cos_joint=cos("transducer.joint."))
+    return out
+
+
+def trans_train_parity(sd, dev) -> dict:
+    """Phase 43: one micro-step, card bf16 (K5, K4 at K 320 and 256) and the
+    bf16 control (their plain versions) against the port on the CPU in
+    float32, same weights."""
+    one = {k: v.cpu() for k, v in trans_batch(1, TRANS_PARITY_S, TRANS_PARITY_U, "cpu",
+                                               seed=3).items()}
+    t0 = time.perf_counter()
+    ref = trans_micro_step(sd, torch.device("cpu"), torch.float32, one)
+    cpu_s = time.perf_counter() - t0
+    reset_conformer_counts()
+    run = trans_micro_step(sd, dev, torch.bfloat16, one)
+    check(trans_counts() == TRANS_LAUNCHES, f"the card micro-step's launches {trans_counts()}")
+    with plain_k5_k4():
+        control = trans_parity(trans_micro_step(sd, dev, torch.bfloat16, one), ref)
+    check(trans_counts() == TRANS_LAUNCHES, "the bf16 control launched no K5 or K4")
+    card = trans_parity(run, ref)
+    check(all(np.isfinite(v) for v in run[0].values())
+          and all(bool(torch.isfinite(g).all()) for g in run[1].values()),
+          "finite card losses and gradients")
+    bounds = hold_parity(card, control, {**TRANS_REL, **TRANS_COS}, "transducer train parity")
+    fmt = lambda r: ", ".join(f"{k} {v:.2e}" if not k.startswith("cos") else f"{k} {v:.6f}"
+                              for k, v in r.items())
+    print(f"phase 43 transducer train parity vs cpu f32 (1 x {TRANS_PARITY_S} s, "
+          f"{TRANS_PARITY_U} labels; rel errors, gradient cosines): card bf16 {fmt(card)}; bf16 "
+          f"control (plain K5 and K4) {fmt(control)}; bounds (1 - cos for cosines) {bounds}; "
+          f"cpu step {cpu_s:.1f} s", flush=True)
+    return {"card": card, "control": control}
+
+
+def token_agreement(a: list[list[int]], b: list[list[int]]) -> str:
+    """Rows equal, and the tokens of the common prefixes over all tokens."""
+    same = sum(x == y for x, y in zip(a, b))
+    prefix = sum(next((i for i, (p, q) in enumerate(zip(x, y)) if p != q), min(len(x), len(y)))
+                 for x, y in zip(a, b))
+    return (f"{same}/{len(a)} rows equal, common prefixes {prefix} of "
+            f"{max(sum(map(len, a)), 1)} tokens")
+
+
+def trans_decode_phase(sd, dev) -> dict:
+    """Phase 44: decoding 8 x 15 s on the card (encoder bf16, transducer
+    float32, as `bin.decode` builds it): the batched greedy (K5 12 an
+    encode) and TSD / ALSD at beam 4 on the batch, default / NSC / mAES at
+    beam 4 on one utterance's first TRANS_HOST_FRAMES frames; ms a batch (or
+    an utterance), the greedy request's profile (busy, idle share) and
+    agreement with the port on the CPU in float32 on TRANS_CPU_ROWS
+    utterances (greedy) and on the capped utterance (default beam)."""
+    from agacs_tpu_torch.decode import transducer_nsc, transducer_tsd
+    from agacs_tpu_torch.models import transducer as ttr
+    from agacs_tpu_torch.models import transducer_asr
+    from agacs_tpu_torch.ops import relpos_flash
+
+    model, cfg, _, _ = trans_model(dev, torch.bfloat16, sd, param_dtype=None)
+    model.eval()
+    batch = trans_batch(TRANS_DEC_B, TRANS_S, 1, dev, seed=5)
+    tm = model.transducer
+    out, secs = {}, {}
+
+    def timed(name, fn, warm=True):
+        if warm:  # the batched searches' first call; the host searches run warm after them
+            fn()
+        torch.cuda.synchronize()
+        relpos_flash.LAUNCHES = 0
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            r = fn()
+        torch.cuda.synchronize()
+        secs[name] = (time.perf_counter() - t0) * 1e3
+        return r
+
+    def encode():
+        return transducer_asr.encode(model, batch["speech"], batch["speech_lengths"])
+
+    def greedy():
+        enc, lens = encode()
+        return ttr.greedy_search_scan(tm, enc, lens)
+
+    with torch.inference_mode():
+        enc, lens = encode()
+    toks, n = timed("greedy", greedy)
+    check(relpos_flash.LAUNCHES == 12, f"greedy: K5 12 launches an encode ({relpos_flash.LAUNCHES})")
+    out["greedy"] = [r[:k].tolist() for r, k in zip(toks.cpu(), n.cpu())]
+    tsd = timed("tsd", lambda: transducer_tsd.tsd_beam_search(tm, enc, lens, beam=TRANS_BEAM))
+    alsd = timed("alsd", lambda: transducer_tsd.alsd_beam_search(tm, enc, lens,
+                                                                  beam=TRANS_BEAM))
+    for name, (t, k, s) in (("tsd", tsd), ("alsd", alsd)):
+        check(bool(torch.isfinite(s[:, 0]).all()) and t.shape[:2] == (TRANS_DEC_B, TRANS_BEAM),
+              f"{name}: a finite best hypothesis for every utterance")
+        out[name] = [r[0, :kk[0]].tolist() for r, kk in zip(t.cpu(), k.cpu())]
+    e0 = enc[0, :TRANS_HOST_FRAMES]
+    for name, fn in (("default", ttr.default_beam_search),
+                     ("nsc", transducer_nsc.nsc_beam_search),
+                     ("maes", transducer_nsc.maes_beam_search)):
+        nbest = timed(name, lambda fn=fn: fn(tm, e0, beam_size=TRANS_BEAM), warm=False)
+        check(len(nbest) >= 1 and all(np.isfinite(s) for s, _ in nbest),
+              f"{name}: finite n-best {[s for s, _ in nbest]}")
+        out[name] = nbest[0][1]
+    ms_greedy = secs["greedy"]
+    busy, n_events, per_name = device_profile(greedy)
+    # the CPU in float32, same weights: greedy on TRANS_CPU_ROWS utterances,
+    # the default beam on the capped utterance
+    cpu, _, _, _ = trans_model("cpu", torch.float32, sd)
+    cpu.eval()
+    with torch.inference_mode():
+        c_enc, c_lens = transducer_asr.encode(cpu, batch["speech"][:TRANS_CPU_ROWS].cpu(),
+                                              batch["speech_lengths"][:TRANS_CPU_ROWS].cpu())
+        c_toks, c_n = ttr.greedy_search_scan(cpu.transducer, c_enc, c_lens)
+        c_def = ttr.default_beam_search(cpu.transducer, c_enc[0, :TRANS_HOST_FRAMES],
+                                        beam_size=TRANS_BEAM)
+    c_greedy = [r[:k].tolist() for r, k in zip(c_toks, c_n)]
+    print(f"phase 44 transducer decoding, {TRANS_DEC_B} x {TRANS_S} s (T {enc.shape[1]}), "
+          f"encoder bf16, transducer f32: greedy (batched, K5 12 an encode) {ms_greedy:.1f} "
+          f"ms/batch, {sum(map(len, out['greedy']))} tokens, device busy {busy:.1f} ms in "
+          f"{n_events} events, idle {1 - busy / ms_greedy:.1%}; TSD beam {TRANS_BEAM} "
+          f"{secs['tsd']:.1f} ms/batch; ALSD beam {TRANS_BEAM} {secs['alsd']:.1f} ms/batch; on "
+          f"one utterance's first {TRANS_HOST_FRAMES} frames at beam {TRANS_BEAM}: default "
+          f"{secs['default']:.1f} ms, NSC {secs['nsc']:.1f} ms, mAES {secs['maes']:.1f} ms; "
+          f"card bf16 vs cpu f32: greedy ({TRANS_CPU_ROWS} utterances) "
+          f"{token_agreement(out['greedy'][:TRANS_CPU_ROWS], c_greedy)}, default beam "
+          f"{token_agreement([out['default']], [c_def[0][1]])}; top: " + top_kernels(per_name),
+          flush=True)
+    del model, cpu
+    torch.cuda.empty_cache()
+    return {"ms": secs, "busy": busy}
+
+
+def trans_cli_phase(smi: str) -> dict:
+    """Phase 45: the transducer recipe through the port's CLIs on the card,
+    on `seame_corpus`'s train and valid splits (flac.ark, under
+    build/chip_smoke_transducer/, removed afterwards): `bin.train` for one
+    epoch at full width, then `bin.decode --beam_size 1` and
+    `--transducer_search tsd --beam_size 4` of the train split (one chunk
+    of 5 utterances padded to 3 s: T 93, inside K5's envelope; the 2 s
+    valid utterance's 62 frames are below it) on its average, with K5 and
+    K4 launches per stage; then the other searches (alsd, default, nsc,
+    maes) at beam 4 on the valid utterance."""
+    import shutil
+
+    from agacs_tpu_torch.bin import decode, train
+
+    root = os.path.join(ROOT, "build", "chip_smoke_transducer")
+    shutil.rmtree(root, ignore_errors=True)
+    data = options_data(root)
+    exp = os.path.join(root, "exp")
+    secs, counts = {}, {}
+
+    def stage(name, fn):
+        reset_conformer_counts()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        counts[name] = {k: v for k, v in trans_counts().items() if v}
+        return r
+
+    conf = os.path.join(ROOT, "recipes", "seame", "conf", "train_asr_transducer.yaml")
+    out = stage("train", lambda: train.main([
+        "--config", conf, "--train_dir", f"{data}/train", "--valid_dir", f"{data}/valid",
+        "--exp_dir", exp, "--max_epoch", "1", "--override", "keep_nbest_models=1"]))
+    hist = out["history"][1]
+    check(np.isfinite(hist["train"]["loss"]) and {"cer", "loss_transducer"} <= set(hist["valid"])
+          and all(counts["train"].get(k, 0) > 0 for k in TRANS_LAUNCHES),
+          f"the train CLI's epoch: {hist}, launches {counts['train']}")
+    common = ["--config", os.path.join(exp, "config.yaml"), "--params", out["ave"],
+              "--data_dir", f"{data}/train"]
+    for name, flags in (("greedy", ["--beam_size", "1"]),
+                        ("tsd", ["--beam_size", str(TRANS_BEAM), "--transducer_search", "tsd"])):
+        res = stage(f"decode {name}", lambda flags=flags, name=name: decode.main(
+            common + flags + ["--output_dir", os.path.join(exp, f"decode_{name}")]))
+        check(len(res["hyps"]) == 5 and counts[f"decode {name}"].get("K5", 0) == 12,
+              f"decode {name}: a hypothesis, K5 12: {res['hyps']} {counts[f'decode {name}']}")
+    for name in ("alsd", "default", "nsc", "maes"):
+        res = stage(f"decode {name}", lambda name=name: decode.main(
+            common[:-1] + [f"{data}/valid", "--beam_size", str(TRANS_BEAM),
+                           "--transducer_search", name, "--output_dir",
+                           os.path.join(exp, f"decode_{name}")]))
+        check(len(res["hyps"]) == 1, f"decode {name}: a hypothesis: {res['hyps']}")
+    print(f"phase 45 transducer CLIs on {smi}: bin.train (train_asr_transducer.yaml, full width, "
+          f"1 epoch over seame_corpus's flac.ark train split), bin.decode greedy and TSD beam "
+          f"{TRANS_BEAM} (train split), ALSD, default, NSC, mAES beam {TRANS_BEAM} (valid): " + "; ".join(f"{k} {secs[k]:.1f} s {counts[k]}" for k in secs)
+          + f"; train loss {hist['train']['loss']:.3f}, valid cer {hist['valid']['cer']:.3f}",
+          flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return {"seconds": secs, "launches": counts}
+
+
 # `--splits`: K3's instances at their main-path shapes, (name, rows or
 # groups, Tp, d, heads, pos, form).
 SPLIT_SWEEP = (("K3 greedy cross", 8, 752, D, H, 749, "bf16"),
@@ -5125,6 +5581,14 @@ def main() -> int:
     # 40. the train CLI's options: resume, batch types, augmentation, prefetch
     trainer_options_phase(sd, dev, smi)
 
+    # 41-45. the transducer family: K4 at the joint's K 320, the recipe's
+    # step, its parity with the CPU, decoding, and the CLIs
+    k4j = check_k4_joint(dev, g)
+    trans_train = trans_train_phase(dev)
+    trans_train_parity(trans_train["sd"], dev)
+    trans_decode_phase(trans_train.pop("sd"), dev)
+    trans_cli_phase(smi)
+
     check(not any(m.split(".")[0] in ("jax", "jaxlib", "agacs_tpu") for m in sys.modules),
           "no jax, jaxlib or agacs_tpu module was imported")
 
@@ -5205,6 +5669,18 @@ def main() -> int:
               "split over a cluster)", "vocab_lse.cu", "agacs_tpu/ops/vocab_lse.py:224",
               wctc["launches"]["K4 dw"], k4["wide"]["dw"]),
     ]
+    # the joint's launches: half of the step's K4 launches, the other half the
+    # CTC head's (phase 42's profile tells them apart by kernel)
+    joint = [entry(f"vocab_lse_{part} at the transducer joint's K 320 (K4 {part}, K padded to "
+                   f"384 in the wrapper; timed at N {K4_JOINT_SLICE}, step_* at the step's N)",
+                   "vocab_lse.cu", f"agacs_tpu/ops/vocab_lse.py:{line}",
+                   trans_train["launches"][key] // 2, k4j[part])
+             for part, line, key in (("fwd", 169, "K4"), ("dx", 207, "K4 dx"),
+                                     ("dw", 224, "K4 dw"))]
+    for row, part in zip(joint, ("fwd", "dx", "dw")):
+        row.update(step_n=TRANS_B * TRANS_T * (TRANS_U + 1), step_ms=k4j["full"][part]["ms"],
+                   step_bound_ms=k4j["full"][part]["bound_ms"])
+    kernels += joint
     kernels += [
         entry("w8a16_matmul (K6, the W8A16 thin-row matmul: 8-row decode products under "
               "AGACS_W8A16 and the int8 logits head)", "w8a16.cu",

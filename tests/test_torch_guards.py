@@ -1,7 +1,7 @@
 """Guards of the port: it never imports JAX or the JAX package, never
 falls back from the card to the CPU or a plain version, and refuses what
-it cannot run yet (CTC and LM fusion in whisper decoding, the transducer,
-n-gram fusion, the train CLI's multi-device options)."""
+it cannot run yet (CTC and LM fusion in whisper decoding, n-gram fusion,
+the train CLI's multi-device options)."""
 
 import os
 import subprocess
@@ -246,6 +246,35 @@ stats = make_train_step(tmodel, ccfg, opt, sched, grad_clip=5.0,
      "text": torch.tensor([[1000, 1001, 1001, -1], [2000, 2001, -1, -1]])}])
 assert torch.isfinite(stats["loss"]) and float(stats["loss_ctc"]) > 0
 assert relpos_flash.LAUNCHES == relpos_flash.BWD_LAUNCHES == 0
+assert vocab_lse.FWD_LAUNCHES == vocab_lse.DX_LAUNCHES == vocab_lse.DW_LAUNCHES == 0
+
+# the transducer recipe scaled down: a train step (the joint's lse streamed
+# at V 51865, K4's plain version) and a batched greedy decode
+from agacs_tpu_torch.models import transducer_asr
+from agacs_tpu_torch.models.transducer import greedy_search_scan
+from agacs_tpu_torch.utils.config import apply_overrides, load_yaml
+
+traw = apply_overrides(load_yaml("recipes/seame/conf/train_asr_transducer.yaml"), [
+    "encoder_conf.output_size=64", "encoder_conf.attention_heads=2",
+    "encoder_conf.linear_units=128", "encoder_conf.num_blocks=1",
+    "decoder_conf.hidden_size=32", "joint_net_conf.joint_space_size=48"])
+ttask = task_from_dict(traw, compute_dtype=torch.float32)
+assert ttask.kind == "transducer"
+trm = transducer_asr.TransducerASR.from_state_dict(
+    ttask.cfg, ttask.init_fn(torch.Generator().manual_seed(0), ttask.cfg),
+    param_dtype=torch.float32)
+opt, sched = build_optimizer(trm.parameters(), OptimConfig(optim="adam"))
+stats = make_train_step(trm, ttask.cfg, opt, sched, grad_clip=5.0,
+                        generator=torch.Generator().manual_seed(0),
+                        loss_fn=transducer_asr.forward)([
+    {"speech": torch.randn(2, 24000) * 0.1, "speech_lengths": torch.tensor([24000, 20000]),
+     "text": torch.tensor([[1000, 1001, 1001, -1], [2000, 2001, -1, -1]])}])
+assert torch.isfinite(stats["loss"]) and float(stats["loss_transducer"]) > 0
+with torch.no_grad():
+    tenc, tlens = transducer_asr.encode(trm.eval(), torch.randn(2, 24000) * 0.1,
+                                        torch.tensor([24000, 20000]))
+    toks, nemit = greedy_search_scan(trm.transducer, tenc, tlens)
+assert toks.shape == (2, tenc.shape[1]) and int(nemit.max()) <= tenc.shape[1]
 assert vocab_lse.FWD_LAUNCHES == vocab_lse.DX_LAUNCHES == vocab_lse.DW_LAUNCHES == 0
 
 # the recipe's data path: a segments dir of FLAC recordings -> format_data
@@ -582,17 +611,14 @@ def test_composed_beam_with_ngram_raises():
                              ngram_weight=0.3)
 
 
-@pytest.mark.parametrize("what", ["transducer", "ngram_cli"])
+@pytest.mark.parametrize("what", ["ngram_cli"])
 def test_unported_conformer_family_parts_raise(what, tmp_path):
-    """The transducer family and `bin.decode --ngram_file` raise."""
+    """`bin.decode --ngram_file` raises."""
     from agacs_tpu_torch.bin import decode
-    from agacs_tpu_torch.utils.config import task_from_dict
 
     conf_dir = os.path.join(REPO, "recipes", "seame", "conf")
     with pytest.raises(NotImplementedError):
-        if what == "transducer":
-            task_from_dict({"encoder": "conformer", "decoder": "transducer"})
-        else:
+        if what == "ngram_cli":
             decode.main(["--config", os.path.join(conf_dir, "train_asr_conformer.yaml"),
                          "--params", "p.npz", "--data_dir", str(tmp_path), "--output_dir",
                          str(tmp_path / "out"), "--ngram_file", "lm.npz", "--device", "cpu"])
