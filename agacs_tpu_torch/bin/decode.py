@@ -6,6 +6,7 @@ hyp.trn + ref.trn + rtf.json.
       --data_dir data/dev --output_dir exp/x/decode_dev \\
       [--decode_config conf/decode_asr.yaml] [--beam_size 10] \\
       [--ctc_weight 0.4] [--lm_exp exp/lm] [--lm_weight 0.2] \\
+      [--ngram_file exp/ngram/ngram.npz] [--ngram_weight 0.3] \\
       [--length_bonus 0.0] [--decode_loop scan] [--max_steps 200] \\
       [--batch_size 8] [--compute_dtype bfloat16] [--device cuda]
   python -m agacs_tpu_torch.bin.score --ref exp/x/decode_dev/ref.trn \\
@@ -20,8 +21,12 @@ leaves) builds the quantised model and decodes on kernels K8 and K2; the
 config's `freeze_quant: int8` + `freeze_param` and the npz must agree.
 `--cross_kv_int8` stores the precomputed cross-attention K/V int8 (kernels
 K3-int8 / K3s-int8). A PE checkpoint (`pe_whisper`) builds the PE model.
-CTC and LM fusion on the whisper family are not ported yet and raise (a
-checkpoint with a CTC head, or `--lm_exp`).
+Fusion, as in JAX (:332-346): a checkpoint with a CTC head (`ctc/` leaves)
+decodes with CTC prefix scoring at `--ctc_weight` (default 0.3;
+`decode_asr_whisper.yaml` sets 0.0), one without it at 0; `--lm_exp`
+fuses the transformer LM at `--lm_weight` (K3-f32 on its caches);
+`--ngram_file` (from `bin.ngram_train`) the n-gram at `--ngram_weight`.
+Any fusion weight above 0 takes the beam search, at `--beam_size 1` too.
 
 Conformer family (`recipes/seame/run_conformer.sh` stage 4, with
 `decode_asr.yaml`: beam 10, ctc_weight 0.4, lm_weight 0.2): the
@@ -31,8 +36,8 @@ float32 log-softmax, and the joint CTC/attention beam search with the
 transformer LM of `--lm_exp` (its `config.yaml` lm_conf and
 `valid.loss.ave.params.npz`, built in float32) fused at `--lm_weight`
 (`decode/joint_beam.py`: K3 on the decoder's caches, K3-f32 on the LM's).
-`--max_steps 0` means the number of encoder frames. `--ngram_file` is not
-ported yet and raises.
+`--max_steps 0` means the number of encoder frames. The conformer and
+transducer families ignore `--ngram_file`, as in JAX.
 
 Transducer family (`decoder: transducer`): the conformer encoder, then
 with `--beam_size 1` the batched greedy search (`greedy_search_scan`, no
@@ -93,11 +98,14 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--length_bonus", type=float, default=0.0)
     p.add_argument("--ctc_weight", type=float, default=0.3,
-                   help="CTC weight in the joint beam (conformer family)")
+                   help="CTC weight in the joint beam (conformer family; whisper "
+                        "checkpoints with a CTC head)")
     p.add_argument("--lm_exp", default=None,
-                   help="LM experiment dir for shallow fusion (conformer family)")
+                   help="LM experiment dir for shallow fusion")
     p.add_argument("--lm_weight", type=float, default=0.3)
-    p.add_argument("--ngram_file", default=None, help="not ported: raises")
+    p.add_argument("--ngram_file", default=None,
+                   help="n-gram npz from bin.ngram_train (whisper family)")
+    p.add_argument("--ngram_weight", type=float, default=0.3)
     p.add_argument("--compute_dtype", default="bfloat16",
                    choices=["bfloat16", "float32"])
     p.add_argument("--cross_kv_int8", action="store_true",
@@ -174,27 +182,40 @@ def _chunks(args, ds: DataDir):
         yield chunk, audio, lens
 
 
+def load_whisper_model(params: str, raw: dict, cfg, device) -> Whisper:
+    """The whisper-family model of a `.params.npz` on `device` (a CTC head
+    when the npz has `ctc/` leaves; the int8 trunk when it has `w_q`
+    leaves, which the config's `freeze_quant: int8` + `freeze_param` must
+    agree with)."""
+    with np.load(params) as tree:
+        int8_conf = raw.get("freeze_quant") == "int8" and bool(raw.get("freeze_param"))
+        if int8_conf != any(k.endswith("/w_q") for k in tree.files):
+            raise ValueError(f"{params}: the config says freeze_quant int8 is "
+                             f"{'on' if int8_conf else 'off'}, the checkpoint's trunk "
+                             f"{'is not' if int8_conf else 'is'} int8")
+        sd = params_from_numpy(tree, cfg.whisper)
+    return Whisper.from_state_dict(cfg.whisper, sd, device=device)
+
+
 def _decode_whisper(args, raw: dict, cfg, ds: DataDir):
     if args.cross_kv_int8:
         cfg = dataclasses.replace(
             cfg, whisper=dataclasses.replace(cfg.whisper, cross_kv_int8=True))
-    tree = np.load(args.params)
-    int8_conf = raw.get("freeze_quant") == "int8" and bool(raw.get("freeze_param"))
-    if int8_conf != any(k.endswith("/w_q") for k in tree.files):
-        raise ValueError(f"{args.params}: the config says freeze_quant int8 is "
-                         f"{'on' if int8_conf else 'off'}, the checkpoint's trunk "
-                         f"{'is not' if int8_conf else 'is'} int8")
-    if any(k.startswith("ctc/") for k in tree.files):
-        raise NotImplementedError(
-            "checkpoint has a CTC head: joint CTC/attention decoding of the whisper "
-            "family is not ported yet")
-    model = Whisper.from_state_dict(
-        cfg.whisper, params_from_numpy(tree, cfg.whisper), device=args.device)
+    model = load_whisper_model(args.params, raw, cfg, args.device)
+    lm = _load_lm(args)
+    ngram_lm = None
+    if args.ngram_file:
+        from agacs_tpu_torch.models.ngram import load_ngram
+
+        ngram_lm = load_ngram(args.ngram_file, device=args.device)
     s2t = Speech2Text(
         model, cfg, beam_size=args.beam_size,
         max_steps=args.max_steps if args.max_steps > 0 else None,
         maxlenratio=args.maxlenratio, length_bonus=args.length_bonus,
-        loop=args.decode_loop, lm_weight=args.lm_weight if args.lm_exp else 0.0,
+        ctc_weight=args.ctc_weight if getattr(model, "ctc", None) is not None else 0.0,
+        lm=lm, lm_weight=args.lm_weight if lm is not None else 0.0,
+        ngram_lm=ngram_lm, ngram_weight=args.ngram_weight if ngram_lm is not None else 0.0,
+        loop=args.decode_loop,
     )
     hyps, refs = {}, {}
     for chunk, audio, lens in _chunks(args, ds):
@@ -327,8 +348,6 @@ def main(argv: list[str] | None = None) -> dict:
     if args.decode_config:
         _apply_decode_config(args, args.decode_config,
                              argv if argv is not None else sys.argv[1:])
-    if args.ngram_file:
-        raise NotImplementedError("--ngram_file: n-gram fusion is not ported yet")
     raw = load_yaml(args.config)
     task = task_from_dict(raw, compute_dtype=getattr(torch, args.compute_dtype))
     ds = DataDir(args.data_dir)

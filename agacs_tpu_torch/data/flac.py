@@ -16,17 +16,16 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
-import subprocess
-import tempfile
 import threading
 from pathlib import Path
 
 import numpy as np
 
-SRC = Path(__file__).resolve().parents[1] / "native" / "flac.cpp"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "agacs_tpu_torch"
+from agacs_tpu_torch.utils import native
+
+SRC = native.SRC_DIR / "flac.cpp"
+BUILD_DIR = native.BUILD_DIR
 CXX = os.environ.get("CXX", "g++")
-CXX_FLAGS = ("-O3", "-shared", "-fPIC")
 
 _LIB: ctypes.CDLL | None = None
 _LOCK = threading.Lock()
@@ -38,26 +37,7 @@ class FlacError(ValueError):
 
 def build() -> Path:
     """Compile native/flac.cpp (if its hashed .so is missing); return the .so."""
-    digest = hashlib.sha256(SRC.read_bytes() + " ".join(CXX_FLAGS).encode())
-    out = BUILD_DIR / f"flac-{digest.hexdigest()[:16]}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        try:
-            proc = subprocess.run([CXX, *CXX_FLAGS, "-o", tmp, str(SRC)],
-                                  capture_output=True, text=True)
-        except OSError as e:
-            raise RuntimeError(f"building {SRC} with {CXX!r} failed: {e}") from e
-        if proc.returncode != 0:
-            raise RuntimeError(f"{CXX} failed for {SRC}:\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
+    return native.build_shared(SRC, BUILD_DIR, CXX)
 
 
 def native_lib() -> ctypes.CDLL:

@@ -17,6 +17,8 @@ cross-attention runs plain-row K3, not K3s), there is no ancestry map, and
 `_reorder_caches` gathers the side caches with the trunk's.
 The hypothesis primer is the dual-language prompt
 `[50258, 50260, 50259, 50359, 50363]` (asr_inference.py:319-331).
+The CTC prefix scorer, the transformer LM and the n-gram fuse through the
+same loop (`composed_beam.py`'s score).
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ import torch
 
 from agacs_tpu_torch.decode.composed_beam import composed_beam_decode
 from agacs_tpu_torch.decode.greedy import WHISPER_CS_PRIMER
+from agacs_tpu_torch.models.lm import TransformerLM, init_lm_kv_cache, lm_score_step_cached
+from agacs_tpu_torch.models.ngram import NgramLM, ngram_score_step
 from agacs_tpu_torch.models.whisper import (
     Whisper,
     init_self_kv_cache,
@@ -52,7 +56,10 @@ def beam_decode(
     length_bonus: float = 0.0,
     ctc_weight: float = 0.0,
     ctc_logp: torch.Tensor | None = None,
+    ctc_frame_lens: torch.Tensor | None = None,
+    lm: TransformerLM | None = None,
     lm_weight: float = 0.0,
+    ngram_lm: NgramLM | None = None,
     ngram_weight: float = 0.0,
     pre_beam: int = 0,
     use_end_detect: bool = True,
@@ -61,7 +68,14 @@ def beam_decode(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Beam-search a batch of encoded utterances (B, T_enc, d). Returns
     (tokens (B, n_primer+max_steps+1), lengths (B,), scores (B,)) of each
-    utterance's best ended hypothesis. CTC, LM and n-gram fusion raise."""
+    utterance's best ended hypothesis.
+
+    ctc_logp (B, T_enc, V) float32 CTC frame log-probs with ctc_weight > 0
+    add the CTC prefix scorer (`ctc_frame_lens` (B,) valid frames); `lm`
+    with lm_weight > 0 the transformer LM's shallow fusion (its float32
+    caches for B*beam rows, reordered physically: K3-f32 on the card);
+    `ngram_lm` with ngram_weight > 0 the n-gram over the token buffer
+    (JAX :120-135). Each scorer sees the primer as context."""
     b, dev = enc_out.shape[0], enc_out.device
     k = beam_size
     max_ctx = min(model.cfg.n_text_ctx, len(primer) + max_steps)
@@ -76,12 +90,25 @@ def beam_decode(
     def step(cur, pos, kv):
         return whisper_decode_step(model, cur, pos, kv, cross_kv, beam_groups=groups)
 
+    lm_step = lm_state0 = None
+    if lm is not None and lm_weight > 0.0:
+        lm_state0 = init_lm_kv_cache(lm.cfg, b * k, max_ctx, device=dev)
+
+        def lm_step(cur, pos, kv):
+            return lm_score_step_cached(lm, cur, pos, kv)
+
+    ngram_step = None
+    if ngram_lm is not None and ngram_weight > 0.0:
+        def ngram_step(tokens, pos):
+            return ngram_score_step(ngram_lm, tokens, pos)
+
     return composed_beam_decode(
         step, self_kv, batch=b, vocab=model.cfg.n_vocab, beam_size=k,
         primer=tuple(primer), max_steps=max_steps, eot=eot, max_pos=max_ctx - 1,
         length_bonus=length_bonus, ctc_weight=ctc_weight, ctc_logp=ctc_logp,
-        pre_beam=pre_beam, lm_weight=lm_weight, ngram_weight=ngram_weight,
-        use_end_detect=use_end_detect, loop=loop,
+        ctc_frame_lens=ctc_frame_lens, pre_beam=pre_beam, lm_step_fn=lm_step,
+        lm_state0=lm_state0, lm_weight=lm_weight, ngram_step_fn=ngram_step,
+        ngram_weight=ngram_weight, use_end_detect=use_end_detect, loop=loop,
         reorder_state_fn=_reorder_ancestry if use_anc else _reorder_caches,
         device=dev,
     )

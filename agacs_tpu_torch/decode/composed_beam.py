@@ -5,8 +5,8 @@ Score of extending hypothesis g with token c (espnet's BeamSearch with the
 decoder and the LM as full scorers and CTC as a partial one):
 
   s(g.c) = s(g) + (1-l)·log p_att(c | g, X) + l·[psi_ctc(g.c) - psi_ctc(g)]
-           + m·log p_lm(c | g) + length_bonus      (l = ctc_weight,
-                                                     m = lm_weight)
+           + m·log p_lm(c | g) + n·S_ngram(c | g) + length_bonus
+                     (l = ctc_weight, m = lm_weight, n = ngram_weight)
 
 Semantics, as in JAX (:1-41):
   * the primer is forced token by token through the decoder and the LM at
@@ -30,8 +30,10 @@ The decoder is a `step_fn(cur (N,), pos, state) -> (logits (N, V), state)`
 over flat N = B*beam rows, so tests can drive the loop with a synthetic
 step; the LM an `lm_step_fn(cur, pos, state) -> (log-probs (N, V),
 state)` whose state (per-layer lists of (N, ...) caches) is reordered
-along axis 0. The CTC frames (B, T, V) are read per utterance, not
-repeated per beam row. n-gram fusion is not ported yet and raises.
+along axis 0; the n-gram an `ngram_step_fn(tokens (N, total), pos) ->
+(N, V)` scorer over the hypotheses' token buffer, added at `ngram_weight`
+to the full score before the pre-beam (JAX :174-178). The CTC frames
+(B, T, V) are read per utterance, not repeated per beam row.
 
 Ties: `jax.lax.top_k` ranks equal values by the lower index, and
 `torch.topk` promises no order among them. Ties are common here: dead
@@ -115,7 +117,8 @@ def composed_beam_decode(
     ctc_logp (B, T, V) float32 frame log-probs with ctc_weight > 0 enables
     the CTC scorer (ctc_frame_lens (B,): valid frames, default T); pre_beam
     candidates per row (0: int(1.5 * beam) + 1, espnet's ratio). lm_step_fn
-    with lm_weight > 0 enables LM fusion. loop "scan" runs to the step cap
+    with lm_weight > 0 enables LM fusion, ngram_step_fn with ngram_weight >
+    0 the n-gram (a weight without its scorer raises). loop "scan" runs to the step cap
     with stopped rows frozen; "while" reads `stopped.all()` once per step
     and exits when every row has stopped. Both give identical results."""
     from agacs_tpu_torch.decode.ctc_prefix import (
@@ -125,8 +128,8 @@ def composed_beam_decode(
         ctc_prefix_score,
     )
 
-    if ngram_step_fn is not None or ngram_weight > 0.0:
-        raise NotImplementedError("composed_beam_decode: n-gram fusion is not ported yet")
+    if ngram_weight > 0.0 and ngram_step_fn is None:
+        raise ValueError("composed_beam_decode: ngram_weight > 0 without an ngram_step_fn")
     if loop not in ("scan", "while"):
         raise ValueError(f"composed_beam_decode: loop {loop!r}")
     b, k, v = batch, beam_size, vocab
@@ -139,6 +142,7 @@ def composed_beam_decode(
         reorder_state_fn = _gather_axis1
     use_ctc = ctc_logp is not None and ctc_weight > 0.0
     use_lm = lm_step_fn is not None and lm_weight > 0.0
+    use_ngram = ngram_step_fn is not None and ngram_weight > 0.0
     w_att = (1.0 - ctc_weight) if use_ctc else 1.0
     n_pre = pre_beam if pre_beam > 0 else int(1.5 * k) + 1
     ctc = None
@@ -190,6 +194,8 @@ def composed_beam_decode(
         if use_lm:
             lm_lp, lm_state = lm_step_fn(cur, pos, lm)
             full_sc = full_sc + lm_weight * lm_lp
+        if use_ngram:  # stateless: reads the hypotheses' token buffer
+            full_sc = full_sc + ngram_weight * ngram_step_fn(tokens.reshape(b * k, total), pos)
         cands = cand_state = None
         n_cand = v
         if use_ctc:

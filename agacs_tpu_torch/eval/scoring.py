@@ -5,17 +5,42 @@ WER and Mandarin CER (`score_report`) and the per-bucket MER of
 code-switched / English / Mandarin reference sentences (`score_by_bucket`).
 
 Alignment is the weighted Levenshtein of sclite (substitution 4,
-insertion and deletion 3) in pure Python (`_align_py`, JAX's fallback);
-JAX's native C++ aligner (`agacs_tpu/native/align.cpp`) is not copied, and
-gives the same counts.
+insertion and deletion 3) in the native C++ aligner `native/align.cpp`
+(JAX's, copied), built with g++ on first use (`utils/native.py`; a failed
+build raises). `_align_py` is its plain version, which the tests hold it
+against.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import os
 
 import numpy as np
+
+from agacs_tpu_torch.utils.native import NativeLibrary
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    lib.align_counts.restype = ctypes.c_int32
+    lib.align_counts.argtypes = [
+        ctypes.POINTER(ctypes.c_int32), ctypes.c_int32,
+        ctypes.POINTER(ctypes.c_int32), ctypes.c_int32, ctypes.POINTER(ctypes.c_int32),
+    ]
+
+
+ALIGN = NativeLibrary("align", _declare)
+
+
+def _align_native(ref: list[int], hyp: list[int]) -> tuple[int, int, int, int]:
+    r = np.ascontiguousarray(ref, np.int32)
+    h = np.ascontiguousarray(hyp, np.int32)
+    out = np.zeros(4, np.int32)
+    ptr = ctypes.POINTER(ctypes.c_int32)
+    ALIGN().align_counts(r.ctypes.data_as(ptr), len(r), h.ctypes.data_as(ptr), len(h),
+                         out.ctypes.data_as(ptr))
+    return tuple(int(x) for x in out)
 
 
 def _align_py(ref: list[int], hyp: list[int]) -> tuple[int, int, int, int]:
@@ -57,7 +82,7 @@ def align_counts(ref_tokens: list[str], hyp_tokens: list[str]) -> tuple[int, int
     vocab: dict[str, int] = {}
     ref = [vocab.setdefault(t, len(vocab)) for t in ref_tokens]
     hyp = [vocab.setdefault(t, len(vocab)) for t in hyp_tokens]
-    return _align_py(ref, hyp)
+    return _align_native(ref, hyp)
 
 
 @dataclasses.dataclass

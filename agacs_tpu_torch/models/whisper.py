@@ -428,6 +428,20 @@ class MultiHeadAttention(nn.Module):
         vh = split_heads(v, self.n_head)
         return merge_heads(torch.einsum("bhqk,bhkd->bhqd", w.to(vh.dtype), vh)), qk, w
 
+    def cross_with_scores(self, x: torch.Tensor, xa: torch.Tensor
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Cross-attention of x over xa with its pre-softmax scores (B, h,
+        T, T_audio) float32 (JAX `mha(..., full_scores=True)`, what word
+        timing reads): the (T, T_audio) map is formed, softmax in float32."""
+        sc = (x.shape[-1] // self.n_head) ** -0.25
+        q, k, v = self._project(x, xa)
+        qk = torch.einsum("bhqd,bhkd->bhqk", split_heads(q, self.n_head) * sc,
+                          split_heads(k, self.n_head) * sc).float()
+        w = torch.softmax(qk, dim=-1)
+        vh = split_heads(v, self.n_head)
+        o = torch.einsum("bhqk,bhkd->bhqd", w.to(vh.dtype), vh)
+        return self.out(merge_heads(o)), qk
+
     def forward(self, x: torch.Tensor, xa: torch.Tensor | None = None) -> torch.Tensor:
         if self.pe:
             return self.out(self._pe_attention(x, causal=False)[0])
@@ -525,11 +539,14 @@ class ResidualAttentionBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, xa: torch.Tensor | None = None,
                 lang_cols: bool = False, need_probs: bool = False,
-                full_scores: bool = False) -> tuple[torch.Tensor, dict]:
+                full_scores: bool = False, cross_scores: bool = False
+                ) -> tuple[torch.Tensor, dict]:
         """x (B, T, d) -> (x, aux). Encoder blocks: non-causal
         self-attention, aux empty. Decoder blocks: causal self-attention
         over x, cross-attention over xa (B, T_audio, d), and the
-        self-attention aux of `MultiHeadAttention.causal_self`."""
+        self-attention aux of `MultiHeadAttention.causal_self`; with
+        `cross_scores` also aux["cross_qk"], the cross-attention's
+        pre-softmax scores (B, h, T, T_audio)."""
         aux = {}
         if self.cross_attn is None:
             x = x + self.attn(self.attn_ln(x))
@@ -539,7 +556,10 @@ class ResidualAttentionBlock(nn.Module):
             x = x + a
         if self.adapter:
             x = self.adapter_attn_ln(self.adapter_attn(x))
-        if self.cross_attn is not None:
+        if self.cross_attn is not None and cross_scores:
+            c, aux["cross_qk"] = self.cross_attn.cross_with_scores(self.cross_attn_ln(x), xa)
+            x = x + c
+        elif self.cross_attn is not None:
             x = x + self.cross_attn(self.cross_attn_ln(x), xa)
         x = x + self.mlp(self.mlp_ln(x))
         if self.adapter:
@@ -915,6 +935,7 @@ def whisper_decode(
     collect_lang_cols: bool = False,
     collect_full_maps: bool = False,
     need_probs: bool = False,
+    collect_cross_maps: bool = False,
 ) -> tuple[torch.Tensor, dict]:
     """Teacher-forced decoder forward (`whisper_decode` :785-872).
 
@@ -929,6 +950,9 @@ def whisper_decode(
     (L', B, h, T, T), the pre-softmax scores, -inf where masked. A PE
     decoder always returns "p_cols" with its columns (the CS loss reads
     them), and its "maps" are post-softmax (JAX :479-481, :863-864). With
+    `collect_cross_maps`, aux["cross_maps"] (L, B, h, T, T_audio), every
+    layer's pre-softmax cross-attention scores (JAX :869-871; word timing
+    reads them); that cross-attention is the plain one. With
     a side network the decoder's side ladder, fed by every trunk layer's
     output, replaces the trunk's `ln` (JAX :845-848); the aux stays the
     trunk's."""
@@ -939,7 +963,7 @@ def whisper_decode(
     x_embed, layer_outs, auxs = x, [], []
     for block in dec.blocks:
         x, a = block(x, xa, lang_cols=collect_lang_cols, need_probs=need_probs,
-                     full_scores=collect_full_maps)
+                     full_scores=collect_full_maps, cross_scores=collect_cross_maps)
         if side is not None:
             layer_outs.append(x)
         auxs.append(a)
@@ -956,6 +980,8 @@ def whisper_decode(
             aux["p_cols"] = stacked("p_cols")
     if collect_full_maps:
         aux["maps"] = stacked("qk_full")
+    if collect_cross_maps:
+        aux["cross_maps"] = torch.stack([a["cross_qk"] for a in auxs])
     return logits, aux
 
 

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's greedy serving path, its beam-search serving
-path, its stage-2 training path and both again on the int8 frozen trunk,
+path (with CTC, LM and n-gram fusion), long-form transcription with word
+timestamps, its stage-2 training path and both again on the int8 frozen trunk,
 serving with int8 cross-KV, the TMECS PE recipes' serving and training,
 the SEAME conformer recipe's serving (joint CTC/attention beam search
 with transformer-LM fusion) and training (run_conformer.sh stages 1-5),
@@ -25,8 +26,9 @@ one line each, in the order they run; any failure ends the script with a
 non-zero exit:
 
   1. device and build: the card, the nvcc builds of the eight kernel
-     sources, started together, and K1's, K5's, K2's and K4's registers
-     and spills;
+     sources and the g++ builds of the three host libraries (native/:
+     FLAC, DTW, the sclite aligner), started together, and K1's, K5's,
+     K2's and K4's registers and spills;
   2. K1f (csrc/packed_flash_fwd.cu) against its plain PyTorch version at
      the encoder shapes (8, 750, 768) and (2, 1500, 768), 12 heads;
   2b. at the training shapes (16, 750, 768) and (2, 1500, 768): K1f as
@@ -284,7 +286,22 @@ non-zero exit:
      NSC / mAES at beam 4 on one utterance's first 60 frames, with the CPU's
      tokens beside; (45) `bin.train` on the recipe for one epoch over the
      corpus's flac.ark dirs, then `bin.decode` greedy and with every
-     `--transducer_search`.
+     `--transducer_search`;
+  46. the whisper family's fused beam at full width: whisper-small bf16
+     with a CTC head, Speech2Text at beam 5, 24 steps, ctc 0.3, a float32
+     LM (2 x 512) at 0.3 and an n-gram trained by `bin.ngram_train` on a
+     generated text at 0.3, on phase 4's 8 x 15 s: ms per batch, launches
+     (K1f, K3a, K3s, K3-f32 above zero), two requests with the same tokens,
+     the CTC prefix scoring's share, busy and idle share under the
+     profiler, one step's n-gram scores over 40 x 51865 candidates equal to
+     the CPU's element for element, and two CTC prefix steps' increments
+     against CPU float32 on the same log-probs;
+  47. `bin.transcribe --long_form --word_timestamps` on a generated 75 s
+     wav (whisper-small bf16, a .params.npz under build/): at least three
+     windows, every window's tokens under the timestamp rules (1-4 by
+     token, all five on a replay through the cached step), segment and
+     word times never decreasing, the DTW library built, K1f and K3
+     launched; ms per window.
 
 The last three lines are the card's `name, power.limit` (nvidia-smi), a
 JSON line with each kernel's launches, error and times, and the
@@ -310,6 +327,7 @@ import concurrent.futures
 import contextlib
 import ctypes
 import functools
+import io
 import json
 import os
 import re
@@ -5374,6 +5392,303 @@ def trainer_options_phase(sd, dev, smi: str) -> dict:
     return {"seconds": secs, "launches": counts, "prefetch": turns}
 
 
+FUSION_SEED = 4
+FUSION_BEAM = 5
+FUSION_STEPS = 24  # the CTC prefix loop is a host loop over 750 frames a step
+FUSION_WEIGHTS = {"ctc_weight": 0.3, "lm_weight": 0.3, "ngram_weight": 0.3}
+FUSION_LM_BLOCKS = 2
+CTC_INC_RTOL = 1e-4  # the CTC prefix increments, card vs CPU float32, x max |cpu|
+FUSION_WORDS = ("我们", "去", "market", "hello", "你好", "the", "shop", "是", "ok", "了",
+                "that", "好", "lah", "then", "吃饭", "can", "走", "right", "today", "明天")
+
+
+def fusion_text(path: str, lines: int = 400) -> None:
+    """A Kaldi text file of `lines` code-switched sentences drawn from
+    FUSION_WORDS with a seed, the n-gram's training text."""
+    rng = np.random.RandomState(FUSION_SEED)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w", encoding="utf-8") as f:
+        for i in range(lines):
+            words = rng.choice(FUSION_WORDS, rng.randint(3, 12))
+            f.write(f"u{i:04d} {' '.join(words)}\n")
+
+
+def fusion_models(dev):
+    """Whisper-small (bf16) with a CTC head (normal / sqrt(d), zero bias,
+    as `init_asr_params`), random weights from torch seed FUSION_SEED, and
+    a float32 transformer LM (d 512, 8 heads, FUSION_LM_BLOCKS blocks) from
+    seed FUSION_SEED + 1. Returns (model, lm, sd)."""
+    from agacs_tpu_torch.models import lm as tlm
+    from agacs_tpu_torch.models import whisper as tw
+
+    cfg = tw.make_config("small", compute_dtype=torch.bfloat16)
+    g = torch.Generator().manual_seed(FUSION_SEED)
+    sd = tw.init_whisper_params(g, cfg)
+    sd["ctc.weight"] = torch.randn(cfg.n_vocab, cfg.n_audio_state, generator=g) \
+        / np.sqrt(cfg.n_audio_state)
+    sd["ctc.bias"] = torch.zeros(cfg.n_vocab)
+    lcfg = tlm.TransformerLMConfig(num_blocks=FUSION_LM_BLOCKS)
+    lm = tlm.TransformerLM.from_state_dict(
+        lcfg, tlm.init_lm_params(torch.Generator().manual_seed(FUSION_SEED + 1), lcfg),
+        device=dev)
+    return tw.Whisper.from_state_dict(cfg, sd, device=dev), lm, sd
+
+
+def ctc_increments(logp, lens, rows, cands1, cands2):
+    """Two CTC prefix steps from the empty prefix over B*beam rows (`rows`
+    maps a row to its utterance): every row keeps its first candidate after
+    step 1; returns step 2's increments psi - score (N, C) and its eos
+    increments (N,)."""
+    from agacs_tpu_torch.decode import ctc_prefix as cp
+
+    s0 = cp.ctc_prefix_init(logp)
+    state = cp.CTCPrefixState(r_nb=s0.r_nb[rows], r_b=s0.r_b[rows], last=s0.last[rows],
+                              score=s0.score[rows])
+    lens_r = lens[rows]
+    _, st = cp.ctc_prefix_score(logp, state, cands1, frame_lens=lens_r, rows=rows)
+    state = cp.ctc_prefix_select(st, torch.zeros_like(rows))
+    psi, _ = cp.ctc_prefix_score(logp, state, cands2, frame_lens=lens_r, rows=rows)
+    return psi - state.score[:, None], cp.ctc_eos_score(state, lens_r) - state.score
+
+
+def whisper_fusion_phase(dev, audio) -> dict:
+    """Phase 46: the whisper family's fused beam at full width:
+    whisper-small bf16 with a CTC head (`fusion_models`), Speech2Text at
+    beam FUSION_BEAM, FUSION_STEPS steps, ctc 0.3, a float32 LM at 0.3 and
+    an n-gram trained by `bin.ngram_train` on `fusion_text` at 0.3, on
+    phase 4's 8 x 15 s. A warm-up request, two timed ones with launch
+    counts (K1f, K3a, K3s, K3-f32 each above zero) and the same tokens; one
+    with the CTC prefix scoring timed apart for its share; one under the
+    profiler (busy, idle share); one step's n-gram scores over the 40 x
+    51865 candidates equal to the CPU's element for element; two CTC
+    prefix steps' increments against CPU float32 on the same log-probs
+    (CTC_INC_RTOL)."""
+    import shutil
+
+    from agacs_tpu_torch.bin import ngram_train
+    from agacs_tpu_torch.decode import ctc_prefix
+    from agacs_tpu_torch.decode.speech2text import Speech2Text
+    from agacs_tpu_torch.models.asr_model import ASRModelConfig, encode
+    from agacs_tpu_torch.models.ngram import load_ngram, ngram_score_step
+
+    t_phase = time.perf_counter()
+    root = os.path.join(ROOT, "build", "chip_smoke_fusion")
+    shutil.rmtree(root, ignore_errors=True)
+    fusion_text(os.path.join(root, "text"))
+    npz = os.path.join(root, "ngram.npz")
+    n_seqs = ngram_train.main(["--train_text", os.path.join(root, "text"), "--output", npz])
+    ng, ng_cpu = load_ngram(npz, device=dev), load_ngram(npz)
+    model, lm, _ = fusion_models(dev)
+    asr_cfg = ASRModelConfig(whisper=model.cfg)
+    s2t = Speech2Text(model, asr_cfg, beam_size=FUSION_BEAM, max_steps=FUSION_STEPS, lm=lm,
+                      ngram_lm=ng, **FUSION_WEIGHTS)
+    s2t(audio)  # warm-up
+    torch.cuda.synchronize()
+    reset_decode_counts()
+    times, runs = [], []
+    for i in range(2):
+        t0 = time.perf_counter()
+        runs.append(s2t(audio))
+        times.append(time.perf_counter() - t0)
+        if i == 0:
+            launches = {k: v for k, v in decode_counts().items() if v}
+    ms = statistics.median(times) * 1e3
+    check(all(launches.get(k, 0) > 0 for k in ("K1f", "K3a", "K3s", "K3-f32")),
+          f"fused beam launched K1f, K3a, K3s and K3-f32: {launches}")
+    check([r.tokens for r in runs[0]] == [r.tokens for r in runs[1]],
+          "two fused beam requests gave the same tokens")
+    check(len(runs[0]) == 8 and all(r.tokens[:5] == PRIMER and np.isfinite(r.score)
+                                    and r.score != 0.0 for r in runs[0]),
+          "fused beam: 8 finite hypotheses")
+
+    real, ctc_s = ctc_prefix.ctc_prefix_score, []
+
+    def timed_ctc(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real(*a, **k)
+        torch.cuda.synchronize()
+        ctc_s.append(time.perf_counter() - t)
+        return out
+
+    ctc_prefix.ctc_prefix_score = timed_ctc
+    try:
+        t0 = time.perf_counter()
+        s2t(audio)
+        ctc_req = time.perf_counter() - t0
+    finally:
+        ctc_prefix.ctc_prefix_score = real
+    busy, n_events, per_name = device_profile(lambda: s2t(audio))
+
+    # one step's n-gram scores: the returned hypotheses as a (40, total)
+    # buffer, half the rows' tokens replaced by the training text's ids
+    total = len(PRIMER) + FUSION_STEPS + 1
+    rng = np.random.RandomState(FUSION_SEED)
+    buf = np.full((8 * FUSION_BEAM, total), 50257, np.int64)
+    for i, r in enumerate(runs[0]):
+        buf[i * FUSION_BEAM : (i + 1) * FUSION_BEAM, : len(r.tokens)] = r.tokens[:total]
+    seen = np.unique(np.asarray(ng_cpu.unigram).argsort()[-200:])
+    swap = rng.rand(*buf.shape) < 0.5
+    swap[:, : len(PRIMER)] = False
+    buf[swap] = rng.choice(seen, int(swap.sum()))
+    pos = len(PRIMER) + 8
+    ng_card = ngram_score_step(ng, torch.from_numpy(buf).to(dev), pos).cpu()
+    ng_ref = ngram_score_step(ng_cpu, torch.from_numpy(buf), pos)
+    backed = ng_ref == ng_cpu.unigram[None] + float(np.float32(np.log(ng_cpu.alpha)) * 2)
+    check(ng_card.shape == (40, 51865) and torch.equal(ng_card, ng_ref),
+          "the card's n-gram scores equal the CPU's element for element")
+
+    # the CTC prefix increments, card vs CPU float32, on the card's log-probs
+    speech = torch.from_numpy(audio).to(dev)
+    with torch.inference_mode():
+        enc, enc_lens = encode(model, asr_cfg, speech,
+                               torch.full((8,), audio.shape[1], device=dev))
+        logp = s2t.ctc_log_probs(enc)
+        rows = torch.arange(8, device=dev).repeat_interleave(FUSION_BEAM)
+        cands1 = torch.from_numpy(rng.randint(1, 51865, (40, 8))).to(dev)
+        cands1[:, 0] = logp[rows, 5].argmax(-1)
+        cands2 = torch.from_numpy(rng.randint(1, 51865, (40, 8))).to(dev)
+        cands2[:, 0] = cands1[:, 0]  # a repeat of the last token
+        card = ctc_increments(logp, enc_lens, rows, cands1, cands2)
+        cpu = ctc_increments(logp.cpu(), enc_lens.cpu(), rows.cpu(), cands1.cpu(),
+                             cands2.cpu())
+    errs = [float((a.cpu() - b).abs().max() / b.abs().max()) for a, b in zip(card, cpu)]
+    check(all(e <= CTC_INC_RTOL for e in errs) and all(bool(torch.isfinite(x).all())
+                                                      for x in card),
+          f"CTC prefix increments card vs CPU f32 {errs} <= {CTC_INC_RTOL} x max")
+    print(f"phase 46 fused whisper beam: whisper-small bf16 + CTC head, LM "
+          f"{FUSION_LM_BLOCKS} x 512 f32, n-gram (order 3, {n_seqs['n_seqs']} sentences), "
+          f"vocabulary 51865, 8 x 15 s, beam {FUSION_BEAM}, {FUSION_STEPS} steps, "
+          f"{FUSION_WEIGHTS}: {ms:.1f} ms/batch (median of "
+          f"{[round(t * 1e3, 1) for t in times]}), {120.0 / (ms / 1e3):.1f} x realtime; "
+          f"launches {launches}; CTC prefix scoring {sum(ctc_s) * 1e3:.1f} ms of a "
+          f"{ctc_req * 1e3:.1f} ms request ({sum(ctc_s) / ctc_req:.1%}, {len(ctc_s)} calls, "
+          f"synchronised around each); profile: device busy {busy:.1f} ms in {n_events} "
+          f"events, idle {1 - busy / ms:.1%} of {ms:.1f} ms; n-gram scores card == cpu over "
+          f"40 x 51865 ({int((~backed).sum())} not the full-backoff unigram); CTC increments "
+          f"rel err {errs[0]:.2e}, eos {errs[1]:.2e} (bound {CTC_INC_RTOL}); lengths "
+          f"{[len(r.tokens) for r in runs[0]]}; phase {time.perf_counter() - t_phase:.1f} s; "
+          f"top: " + top_kernels(per_name, 6), flush=True)
+    del model, lm, s2t, logp, enc
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"launches": launches, "ms": ms, "ctc_share": sum(ctc_s) / ctc_req,
+            "busy": busy}
+
+
+LONG_FORM_SECONDS = 75
+LONG_FORM_SEED = 6
+
+
+def long_form_audio(seconds: int) -> np.ndarray:
+    """A 16 kHz signal of `seconds`: seeded noise under gliding tones that
+    change every few seconds."""
+    rng = np.random.RandomState(LONG_FORM_SEED)
+    t = np.arange(seconds * 16000) / 16000.0
+    f = 200.0 + 150.0 * np.sin(2 * np.pi * t / 7.0) + 100.0 * (np.floor(t / 3.0) % 4)
+    tone = 0.2 * np.sin(2 * np.pi * np.cumsum(f) / 16000.0) * (np.sin(np.pi * t / 1.5) ** 2)
+    return (tone + 0.05 * rng.randn(t.size)).astype(np.float32)
+
+
+def long_form_phase(dev) -> dict:
+    """Phase 47: `bin.transcribe --long_form --word_timestamps` on a
+    generated LONG_FORM_SECONDS s wav, whisper-small bf16 (random weights,
+    seed LONG_FORM_SEED, written as a .params.npz with a config.yaml under
+    build/): at least three 30 s windows; every window's tokens obey the
+    timestamp rules 1-4 (`timestamp_rule_violations`) and, replayed through
+    the cached step on its encoder output, all five
+    (`replay_timestamp_rules`: each token allowed, the argmax at
+    temperature 0); segment times and each segment's word times never
+    decrease; the DTW library built; K1f and K3 launched. Prints ms per
+    window and the temperatures taken."""
+    import shutil
+
+    import yaml
+
+    from agacs_tpu_torch.bin import transcribe as cli
+    from agacs_tpu_torch.data.io import write_wav
+    from agacs_tpu_torch.decode import timing
+    from agacs_tpu_torch.decode import transcribe as tr
+    from agacs_tpu_torch.models import whisper as tw
+    from agacs_tpu_torch.models.checkpoint import numpy_from_params
+    from agacs_tpu_torch.ops.logmel import log_mel_spectrogram
+
+    t_phase = time.perf_counter()
+    root = os.path.join(ROOT, "build", "chip_smoke_longform")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    cfg = tw.make_config("small", compute_dtype=torch.bfloat16)
+    sd = tw.init_whisper_params(torch.Generator().manual_seed(LONG_FORM_SEED), cfg)
+    with open(os.path.join(root, "config.yaml"), "w") as f:
+        yaml.safe_dump({"encoder": "whisper", "encoder_conf": {"whisper_model": "small"},
+                        "decoder_conf": {"whisper_model": "small"}}, f)
+    np.savez(os.path.join(root, "p.params.npz"), **numpy_from_params(sd))
+    audio = long_form_audio(LONG_FORM_SECONDS)
+    write_wav(os.path.join(root, "a.wav"), audio)
+    setup_s = time.perf_counter() - t_phase
+
+    reset_decode_counts()
+    t0 = time.perf_counter()
+    printed = io.StringIO()  # a line a segment and a word: kept off this log
+    with contextlib.redirect_stdout(printed):
+        out = cli.main([os.path.join(root, "config.yaml"), os.path.join(root, "p.params.npz"),
+                        os.path.join(root, "a.wav"), "--long_form", "--word_timestamps",
+                        "--device", str(dev)])
+    run_s = time.perf_counter() - t0
+    check(printed.getvalue().rstrip().endswith(f"# language: {out['language']}"),
+          "bin.transcribe printed its segments and the language")
+    launches = {k: v for k, v in decode_counts().items() if v}
+    windows, segs = out["windows"], out["segments"]
+    check(launches.get("K1f", 0) > 0 and launches.get("K3", 0) > 0,
+          f"long-form transcription launched K1f and K3: {launches}")
+    check(len(windows) >= 3 and not any(w["beam"] for w in windows),
+          f"{len(windows)} windows over {LONG_FORM_SECONDS} s")
+    bad = [(i, tr.timestamp_rule_violations(w["sampled"])) for i, w in enumerate(windows)]
+    check(not any(b for _, b in bad), f"timestamp rules 1-4 hold in every window: {bad}")
+
+    # replay each window on its encoder output (the same weights, the same
+    # kernels) for rule 5 and the argmax at temperature 0
+    model = tw.Whisper.from_state_dict(cfg, sd, device=dev)
+    t0 = time.perf_counter()
+    replayed = []
+    with torch.inference_mode():
+        for w in windows:
+            seek = int(round(w["seek"] * tr.SAMPLE_RATE))
+            win = np.pad(audio[seek : seek + tr.CHUNK_SAMPLES],
+                         (0, max(0, seek + tr.CHUNK_SAMPLES - len(audio))))
+            mel, _ = log_mel_spectrogram(torch.from_numpy(win[None]).to(dev),
+                                         torch.tensor([tr.CHUNK_SAMPLES], device=dev))
+            enc = tw.whisper_encode(model, mel)
+            replayed.append(tr.replay_timestamp_rules(model, enc, w["primer"], w["sampled"],
+                                                      w["temperature"]))
+    replay_s = time.perf_counter() - t0
+    check(not any(replayed), f"every window's tokens obey the five rules on replay: "
+          f"{[r[:2] for r in replayed]}")
+    starts = [s.start for s in segs]
+    check(bool(segs) and starts == sorted(starts) and all(s.start <= s.end for s in segs),
+          f"{len(segs)} segments, times never decreasing")
+    words = [w for s in segs for w in s.words]
+    check(bool(words) and all([w.start for w in s.words] == sorted(w.start for w in s.words)
+                              and all(w.start <= w.end for w in s.words) for s in segs),
+          f"{len(words)} words, times never decreasing within a segment")
+    lib = timing.DTW.lib
+    check(lib is not None and os.path.exists(lib._name), "the DTW library was built")
+    n_tok = sum(len(w["sampled"]) for w in windows)
+    print(f"phase 47 long-form transcription: whisper-small bf16, {LONG_FORM_SECONDS} s wav, "
+          f"bin.transcribe --long_form --word_timestamps: {run_s:.1f} s, "
+          f"{len(windows)} windows ({run_s / len(windows) * 1e3:.0f} ms per window; "
+          f"temperatures taken {[w['temperature'] for w in windows]}; {n_tok} tokens kept), "
+          f"language {out['language']}, {len(segs)} segments, {len(words)} words "
+          f"({', '.join(f'{w.word!r}@{w.start:.2f}' for w in words[:4])} ...); launches "
+          f"{launches}; rules 1-4 and the replay (rule 5, argmax at 0) hold, replay "
+          f"{replay_s:.1f} s; DTW {os.path.basename(lib._name)}; setup {setup_s:.1f} s, phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    del model
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"launches": launches, "windows": len(windows), "s": run_s}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "agacs_tpu_torch")):
         sys.exit("chip_smoke: agacs_tpu_torch/ is not beside this script; "
@@ -5386,6 +5701,7 @@ def main() -> int:
     from agacs_tpu_torch.models import whisper as tw
     from agacs_tpu_torch.models.asr_model import ASRModelConfig, encode
     from agacs_tpu_torch.ops import cuda_lib, decode_attn, flash_train
+    from agacs_tpu_torch.utils import native
 
     dev = torch.device("cuda:0")
     t_start = time.perf_counter()
@@ -5409,17 +5725,22 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor() as pool:  # one nvcc per source
+        libs = [pool.submit(native.build_shared, native.SRC_DIR / f"{name}.cpp",
+                            native.BUILD_DIR, os.environ.get("CXX", "g++"))
+                for name in ("flac", "dtw", "align")]  # and g++ per host library
         list(pool.map(cuda_lib.build, ("packed_flash_fwd", "packed_flash_bwd",
                                        "decode_attn", "int8_gemm", "int8_mlp",
                                        "relpos_flash", "vocab_lse", "w8a16")))
+        libs = [f.result().name for f in libs]
     build_s = time.perf_counter() - t0
     ptxas = "; ".join(
         f"{name}: {line.split(':', 1)[1].strip()}"
         for name, log in cuda_lib.BUILD_LOG.items()
         for line in log.splitlines() if "Used" in line and "registers" in line)
     print(f"phase 1 device: {torch.cuda.get_device_name(0)} | {smi} | torch "
-          f"{torch.__version__} cuda {torch.version.cuda} | kernels built in "
-          f"{build_s:.2f} s | ptxas {ptxas or 'cached build'}", flush=True)
+          f"{torch.__version__} cuda {torch.version.cuda} | kernels and host libraries "
+          f"({', '.join(libs)}) built in {build_s:.2f} s | ptxas {ptxas or 'cached build'}",
+          flush=True)
     print("phase 1 K1, K5, K2 and K4 ptxas: " + "; ".join(
         ptxas_entries(cuda_lib.BUILD_LOG.get(name, ""))
         for name in ("packed_flash_fwd", "packed_flash_bwd", "relpos_flash", "int8_mlp",
@@ -5588,6 +5909,11 @@ def main() -> int:
     trans_train_parity(trans_train["sd"], dev)
     trans_decode_phase(trans_train.pop("sd"), dev)
     trans_cli_phase(smi)
+
+    # 46-47. the whisper family's fused beam (CTC, LM, n-gram) and long-form
+    # transcription with word timestamps
+    fusion = whisper_fusion_phase(dev, audio)
+    long_form = long_form_phase(dev)
 
     check(not any(m.split(".")[0] in ("jax", "jaxlib", "agacs_tpu") for m in sys.modules),
           "no jax, jaxlib or agacs_tpu module was imported")

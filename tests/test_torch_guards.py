@@ -1,7 +1,7 @@
 """Guards of the port: it never imports JAX or the JAX package, never
 falls back from the card to the CPU or a plain version, and refuses what
-it cannot run yet (CTC and LM fusion in whisper decoding, n-gram fusion,
-the train CLI's multi-device options)."""
+it cannot run (a fusion weight without its scorer, the train CLI's
+multi-device options)."""
 
 import os
 import subprocess
@@ -320,6 +320,22 @@ assert np.isfinite(out["history"][1]["train"]["loss"])
 out = train.main(["--resume"] + argv + ["max_epoch=2"])
 assert sorted(out["history"]) == [1, 2]  # 2 batches, accum_grad 4: one step an epoch
 assert json.load(open(os.path.join(tmp, "exp", "checkpoint_meta.json")))["step"] == 2
+
+# whisper fusion (a CTC head, the n-gram) and long-form transcription with
+# word timestamps (the native DTW)
+from agacs_tpu_torch.decode.transcribe import transcribe
+from agacs_tpu_torch.models.ngram import train_ngram
+
+csd = dict(wsd, **{"ctc.weight": torch.randn(51865, 64) * 0.1, "ctc.bias": torch.zeros(51865)})
+cmodel = tw.Whisper.from_state_dict(wcfg, csd)
+ng = train_ngram([[1000, 1001, 1002]] * 3, 51865, sos=50258)
+out = Speech2Text(cmodel, ASRModelConfig(whisper=wcfg), max_steps=3, ctc_weight=0.3,
+                  ngram_lm=ng, ngram_weight=0.3)(np.random.RandomState(1).randn(1, 16000)
+                                                   .astype(np.float32) * 0.1)
+assert out[0].score != 0.0
+res = transcribe(cmodel, np.random.RandomState(2).randn(16000 * 3).astype(np.float32) * 0.1,
+                 language="zh", temperature=(0.0,), max_steps=6, word_timestamps=True)
+assert res["windows"] and res["language"] == "zh"
 tmp_dir.cleanup()
 assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
 print("OK", len(mods))
@@ -594,34 +610,79 @@ def test_cuda_request_to_a_beam_kernel_without_a_card_raises(kernel):
                                 dict(lm_weight=0.5), dict(ngram_weight=0.1),
                                 dict(beam_size=4, lm_weight=0.3)])
 def test_unported_decoding_raises(kw):
+    """A fusion weight without its scorer raises: CTC on a model without
+    the CTC head (as JAX), an LM or n-gram weight without the LM or the
+    n-gram (JAX would decode without them). With the scorer the same
+    request is served: fusion is ported."""
+    from agacs_tpu_torch.models.lm import TransformerLM, TransformerLMConfig
+    from agacs_tpu_torch.models.ngram import train_ngram
+
     cfg = tw.make_config("test")
-    model = tw.Whisper(cfg)
-    with pytest.raises(NotImplementedError):
-        Speech2Text(model, ASRModelConfig(whisper=cfg), **kw)
+    sd = tw.init_whisper_params(torch.Generator().manual_seed(0), cfg)
+    with pytest.raises(ValueError):
+        Speech2Text(tw.Whisper.from_state_dict(cfg, sd), ASRModelConfig(whisper=cfg), **kw)
+    sd.update({"ctc.weight": torch.zeros(cfg.n_vocab, cfg.n_audio_state),
+               "ctc.bias": torch.zeros(cfg.n_vocab)})
+    lm = TransformerLM(TransformerLMConfig(d_model=32, attention_heads=2, linear_units=64,
+                                           num_blocks=1, compute_dtype=torch.float32))
+    s2t = Speech2Text(tw.Whisper.from_state_dict(cfg, sd), ASRModelConfig(whisper=cfg),
+                      max_steps=2, lm=lm, ngram_lm=train_ngram([[5, 6]], cfg.n_vocab), **kw)
+    out = s2t(np.zeros((1, 8000), np.float32))
+    assert out[0].tokens[:5] == [50258, 50260, 50259, 50359, 50363] and out[0].score != 0.0
 
 
 def test_composed_beam_with_ngram_raises():
+    """An n-gram weight without its scorer raises; with it, the scorer's
+    (N, V) scores are added at ngram_weight before the top-k: a scorer
+    that favours token 5 at every step makes the search pick it."""
     def step(cur, pos, state):
         return torch.zeros(cur.shape[0], 8), state
 
-    with pytest.raises(NotImplementedError):
+    def favour_5(toks, pos):
+        assert toks.shape == (2, 1 + 3 + 1)
+        return torch.nn.functional.one_hot(torch.full((2,), 5), 8).float() * 10.0
+
+    with pytest.raises(ValueError):
         composed_beam_decode(step, torch.zeros(1, 2), batch=1, vocab=8, beam_size=2,
-                             primer=(1,), max_steps=3, eot=0, max_pos=8,
-                             ngram_step_fn=lambda toks, pos: torch.zeros(2, 8),
-                             ngram_weight=0.3)
+                             primer=(1,), max_steps=3, eot=0, max_pos=8, ngram_weight=0.3)
+    tokens, lens, scores = composed_beam_decode(
+        step, torch.zeros(1, 2), batch=1, vocab=8, beam_size=2, primer=(1,), max_steps=3,
+        eot=0, max_pos=8, ngram_step_fn=favour_5, ngram_weight=0.3, use_end_detect=False)
+    assert tokens[0, 1:4].tolist() == [5, 5, 5] and int(lens[0]) == 5
+    assert abs(float(scores[0]) - 3 * (3.0 - float(np.log(8)))) < 0.5
 
 
 @pytest.mark.parametrize("what", ["ngram_cli"])
-def test_unported_conformer_family_parts_raise(what, tmp_path):
-    """`bin.decode --ngram_file` raises."""
+def test_unported_conformer_family_parts_raise(what, tmp_path, monkeypatch):
+    """`bin.decode --ngram_file`: the conformer family ignores it, as JAX
+    (the decode runs without reading the file); the whisper family loads
+    it, so a missing file raises there."""
     from agacs_tpu_torch.bin import decode
 
     conf_dir = os.path.join(REPO, "recipes", "seame", "conf")
-    with pytest.raises(NotImplementedError):
-        if what == "ngram_cli":
-            decode.main(["--config", os.path.join(conf_dir, "train_asr_conformer.yaml"),
-                         "--params", "p.npz", "--data_dir", str(tmp_path), "--output_dir",
-                         str(tmp_path / "out"), "--ngram_file", "lm.npz", "--device", "cpu"])
+    ran = []
+    monkeypatch.setattr(decode, "_decode_conformer", lambda args, cfg, ds: ran.append(
+        args.ngram_file) or ({}, {}, {"rtf": 0.0, "decode_seconds": 0.0,
+                                      "audio_seconds": 0.0}))
+    (tmp_path / "wav.scp").write_text("")
+    (tmp_path / "text").write_text("")
+    argv = ["--data_dir", str(tmp_path), "--output_dir", str(tmp_path / "out"),
+            "--ngram_file", str(tmp_path / "missing.npz"), "--device", "cpu"]
+    decode.main(["--config", os.path.join(conf_dir, "train_asr_conformer.yaml"),
+                 "--params", "p.npz"] + argv)
+    assert ran == [str(tmp_path / "missing.npz")]
+    import yaml
+
+    from agacs_tpu_torch.models.checkpoint import numpy_from_params
+
+    (tmp_path / "w.yaml").write_text(yaml.safe_dump({
+        "encoder": "whisper", "encoder_conf": {"whisper_model": "test"},
+        "decoder_conf": {"whisper_model": "test"}}))
+    np.savez(tmp_path / "w.npz", **numpy_from_params(
+        tw.init_whisper_params(torch.Generator(), tw.make_config("test"))))
+    with pytest.raises(FileNotFoundError):
+        decode.main(["--config", str(tmp_path / "w.yaml"), "--params",
+                     str(tmp_path / "w.npz")] + argv)
 
 
 @pytest.mark.parametrize("flags", [
