@@ -228,7 +228,7 @@ def _decode_whisper(args, raw: dict, cfg, ds: DataDir):
         "rtf": s2t.rtf, "inverse_rtf": s2t.inverse_rtf,
         "audio_seconds": s2t._audio_seconds,
         "decode_seconds": s2t._decode_seconds, "n_utts": len(hyps),
-        "device": str(model.decoder.logits_weight.device),
+        "device": str(model.decoder.token_embedding.weight.device),
     }
 
 

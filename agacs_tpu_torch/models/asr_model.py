@@ -20,7 +20,14 @@ preset), as in JAX (asr_model.py:227-229).
 
 Batch layout (tensors on the model's device):
   speech (B, S) float32, speech_lengths (B,), text (B, T) ids -1 padded,
-  cs_labels (B, T+1) int8 (needed when cs_weight != 0).
+  cs_labels (B, T+1) int8 (needed when cs_weight != 0); on a mesh
+  optionally rows (start, stop, global B), the global rows a data rank's
+  block holds (SpecAug draws at the global batch).
+
+On a mesh (`par`) the token accuracy is global and, under tensor
+parallelism, the CS loss's head-masked sum over (layer, head) runs over
+this rank's heads and is all-reduced over "model" (`estimated_c_val`
+enters through `copy_in`, so its gradient sums every rank's heads).
 """
 
 from __future__ import annotations
@@ -125,13 +132,14 @@ def encode(
     speech_lengths: torch.Tensor,
     train: bool = False,
     generator: torch.Generator | None = None,
+    rows: tuple[int, int, int] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(B, S) waveform -> (encoder_out (B, T_enc, d), encoder_out_lens (B,)).
     SpecAug runs when `train`, `cfg.use_specaug` and a generator is given
-    (its draws come from `generator`)."""
+    (its draws come from `generator`; `rows` as `ops/specaug.specaug`)."""
     feats, feat_lens = log_mel_spectrogram(speech, speech_lengths, cfg.audio)
     if train and cfg.use_specaug and generator is not None:
-        feats = specaug(generator, feats, cfg.specaug)
+        feats = specaug(generator, feats, cfg.specaug, rows)
     return whisper_encode(model, feats), encoder_olens(feat_lens, cfg.whisper)
 
 
@@ -142,13 +150,14 @@ def forward(
     train: bool = True,
     generator: torch.Generator | None = None,
     return_preds: bool = False,
+    par=None,
 ):
     """Training forward: (loss, stats) with stats loss_att, acc, loss_cs
     (when cs_weight != 0) and loss, all 0-dim tensors; with
     `return_preds` also (argmax ids, ys_out) for the eval epoch."""
     text = batch["text"]
     enc_out, enc_lens = encode(model, cfg, batch["speech"], batch["speech_lengths"],
-                               train=train, generator=generator)
+                               train=train, generator=generator, rows=batch.get("rows"))
     ys_in, ys_out = add_sos_eos(text, cfg.sos, cfg.eos, cfg.ignore_id)
     collect = cfg.cs_weight != 0.0
     lid_ce = collect and cfg.cs_loss_type == "lid_ce"
@@ -156,8 +165,8 @@ def forward(
                                  collect_lang_cols=collect and not lid_ce,
                                  collect_full_maps=lid_ce)
     loss_att = label_smoothing_loss(logits, ys_out, cfg.lsm_weight, cfg.ignore_id,
-                                    cfg.length_normalized_loss)
-    stats = {"loss_att": loss_att, "acc": th_accuracy(logits, ys_out, cfg.ignore_id)}
+                                    cfg.length_normalized_loss, par)
+    stats = {"loss_att": loss_att, "acc": th_accuracy(logits, ys_out, cfg.ignore_id, par)}
     loss = loss_att
     if cfg.ctc_weight != 0.0:
         loss_ctc = ctc_loss_streaming(enc_out, model.ctc.weight.t(), model.ctc.bias, enc_lens,
@@ -167,6 +176,9 @@ def forward(
     if collect:
         head_mask = torch.from_numpy(cfg.head_mask_array()[cfg.src_layer - 1:]).to(
             logits.device)
+        tp = model.decoder.blocks[0].attn.tp  # this rank's heads of the maps
+        if tp is not None:
+            head_mask = head_mask[:, model.decoder.blocks[0].attn.head_slice]
         if lid_ce:
             loss_cs = cs_lid_ce_loss(aux["maps"], batch["cs_labels"],
                                      (text != cfg.ignore_id).sum(-1) + 1, head_mask,
@@ -175,9 +187,14 @@ def forward(
             # a PE decoder's CS loss reads the post-softmax mixed columns
             # (JAX asr_model.py:238-242)
             cols = aux["p_cols" if cfg.whisper.part("decoder").pe_attention else "qk_cols"]
-            c_val = model.estimated_c_val[0] if cfg.estimate_c else cfg.c_val_attention
+            c_val = cfg.c_val_attention
+            if cfg.estimate_c:
+                c_val = (model.estimated_c_val if tp is None
+                         else tp.copy_in(model.estimated_c_val))[0]
             loss_cs = cs_attention_loss(cols, batch["cs_labels"], head_mask, c_val,
                                         layer_offset=cfg.src_layer - 1)
+        if tp is not None:
+            loss_cs = tp.reduce_out(loss_cs)
         loss = cfg.cs_weight * loss_cs + loss_att
         stats["loss_cs"] = loss_cs
     stats["loss"] = loss

@@ -56,6 +56,7 @@ from agacs_tpu_torch.models.whisper import LayerNorm, Linear
 from agacs_tpu_torch.ops import relpos_flash
 from agacs_tpu_torch.ops.decode_attn import decode_cache_attention, pad_time
 from agacs_tpu_torch.ops.logmel import full_fp32
+from agacs_tpu_torch.parallel.mesh import sum_over
 
 BN_EPS = 1e-5  # torch.nn.BatchNorm1d's default
 
@@ -255,7 +256,12 @@ class ConvModule(nn.Module):
     pointwise, padded positions zeroed so the depthwise conv cannot read
     across them. `dw` holds JAX's (k, 1, d) `dw` as a grouped Conv1d (d, 1, k)
     and its `dw_b`. conv_norm "batch" normalises with the running
-    statistics (eval mode) and `norm` as the affine."""
+    statistics (eval mode) and `norm` as the affine. `sync` (a
+    `parallel/mesh.Parallel`, set by `sync_batch_norm_`): the batch
+    statistics are over every data rank's rows, as JAX's global program
+    computes them."""
+
+    sync = None
 
     def __init__(self, d: int, kernel: int, conv_norm: str, dtype, device=None):
         super().__init__()
@@ -285,13 +291,34 @@ class ConvModule(nn.Module):
         if self.conv_norm == "batch":
             hf = h.float()
             if train:
-                stats = (hf.mean((0, 1)), hf.var((0, 1), unbiased=False))
+                stats = batch_moments(hf, self.sync)
             mean, var = stats or (self.running_mean, self.running_var)
             hf = (hf - mean) * torch.rsqrt(var + BN_EPS)
             h = (hf * self.norm.weight.float() + self.norm.bias.float()).to(h.dtype)
         else:
             h = self.norm(h)
         return self.pw2(swish(h)), stats
+
+
+def batch_moments(h: torch.Tensor, par=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The (mean, biased variance) over (B, T) of h (B, T, d) float32; on a
+    mesh (`par`) over every data rank's rows, in two passes (the global
+    mean, then the global mean squared deviation), differentiably."""
+    if par is None or par.mesh is None:
+        return h.mean((0, 1)), h.var((0, 1), unbiased=False)
+    n = sum_over(h.new_tensor([float(h.shape[0] * h.shape[1])]), par)
+    mean = sum_over(h.sum((0, 1)), par) / n
+    var = sum_over(((h - mean) ** 2).sum((0, 1)), par) / n
+    return mean, var
+
+
+def sync_batch_norm_(model: nn.Module, par) -> nn.Module:
+    """Every conv module of `model` takes its batch statistics over the
+    mesh's data ranks (`ConvModule.sync`)."""
+    for m in model.modules():
+        if isinstance(m, ConvModule) and m.conv_norm == "batch":
+            m.sync = par
+    return model
 
 
 class ConformerBlock(nn.Module):

@@ -164,18 +164,23 @@ def bn_calibration_stats(model: ConformerASR, speech: torch.Tensor,
 
 
 def forward(model: ConformerASR, cfg: ConformerASRConfig, batch: dict, train: bool = True,
-            generator: torch.Generator | None = None, return_preds: bool = False):
+            generator: torch.Generator | None = None, return_preds: bool = False,
+            par=None):
     """The training loss (JAX `forward`, :145-231) -> (loss, stats), stats
     loss_att, acc, loss_ctc (ctc_weight > 0), loss_interctc_layer{i} and
     loss, all 0-dim tensors; with `return_preds` also (argmax ids, ys_out).
     With `train` and a generator (JAX: an rng): SpecAug drawn from it,
-    dropout from a device generator it seeds, batch-statistics batch norm."""
+    dropout from a device generator it seeds, batch-statistics batch norm.
+    On a mesh (`par`, this rank's rows; batch["rows"] as in `asr_model`)
+    SpecAug draws at the global batch and the accuracy is global; the
+    batch statistics are global when the encoder's conv modules carry the
+    mesh (`sync_batch_norm_`); dropout is drawn per rank, as DDP draws it."""
     feats, flens = _featurize(model, batch["speech"], batch["speech_lengths"])
     enc_train = train and generator is not None
     drop_gen = None
     if enc_train:
         if cfg.use_specaug:
-            feats = specaug(generator, feats, cfg.specaug)
+            feats = specaug(generator, feats, cfg.specaug, batch.get("rows"))
         drop_gen = device_generator(generator, feats.device)
     taps = tuple(cfg.interctc_layers) if cfg.interctc_weight > 0.0 else ()
     enc_out, enc_lens, *rest = model.encoder(feats, flens, generator=drop_gen,
@@ -186,8 +191,8 @@ def forward(model: ConformerASR, cfg: ConformerASRConfig, batch: dict, train: bo
     ys_in_lens = (text != cfg.ignore_id).sum(-1) + 1
     logits = transformer_decode(model.decoder, ys_in, enc_out, enc_lens, ys_in_lens)
     loss_att = label_smoothing_loss(logits, ys_out, cfg.lsm_weight, cfg.ignore_id,
-                                    cfg.length_normalized_loss)
-    stats = {"loss_att": loss_att, "acc": th_accuracy(logits, ys_out, cfg.ignore_id)}
+                                    cfg.length_normalized_loss, par)
+    stats = {"loss_att": loss_att, "acc": th_accuracy(logits, ys_out, cfg.ignore_id, par)}
     loss = loss_att
     if cfg.ctc_weight > 0.0:
         text_lens = (text != cfg.ignore_id).sum(-1)

@@ -117,28 +117,33 @@ def init_transducer_asr_params(generator: torch.Generator, cfg: TransducerASRCon
 
 
 def encode(model: TransducerASR, speech: torch.Tensor, speech_lengths: torch.Tensor,
-           train: bool = False, generator: torch.Generator | None = None):
+           train: bool = False, generator: torch.Generator | None = None,
+           rows: tuple[int, int, int] | None = None):
     """(B, S) waveform -> (encoder output (B, T, d) in the compute dtype,
-    olens (B,)). With `train` and a generator: SpecAug drawn from it,
-    dropout and batch statistics as in `conformer_asr.forward`."""
+    olens (B,)). With `train` and a generator: SpecAug drawn from it (at
+    the global batch with `rows`), dropout and batch statistics as in
+    `conformer_asr.forward`."""
     cfg = model.cfg
     feats, flens = _featurize(model, speech, speech_lengths)
     enc_train = train and generator is not None
     drop_gen = None
     if enc_train:
         if cfg.use_specaug:
-            feats = specaug(generator, feats, cfg.specaug)
+            feats = specaug(generator, feats, cfg.specaug, rows)
         drop_gen = device_generator(generator, feats.device)
     return model.encoder(feats, flens, generator=drop_gen, train=enc_train)
 
 
 def forward(model: TransducerASR, cfg: TransducerASRConfig, batch: dict, train: bool = True,
-            generator: torch.Generator | None = None, return_preds: bool = False):
+            generator: torch.Generator | None = None, return_preds: bool = False,
+            par=None):
     """The training loss -> (loss, stats): loss_transducer, loss_ctc
     (ctc_weight > 0) and loss, 0-dim tensors; with `return_preds` a third
-    item None (a transducer's predictions come from a search)."""
+    item None (a transducer's predictions come from a search). Its losses
+    are batch means, so on a mesh (`par`) the trainer's mean over the data
+    ranks is the global loss."""
     enc_out, enc_lens = encode(model, batch["speech"], batch["speech_lengths"], train,
-                               generator)
+                               generator, batch.get("rows"))
     dec_gen = (device_generator(generator, enc_out.device)
                if train and generator is not None else None)
     loss, stats = losses_from_encoder(model, cfg, batch, enc_out, enc_lens, train, dec_gen)

@@ -97,7 +97,7 @@ from agacs_tpu_torch.ops.decode_attn import (
 from agacs_tpu_torch.ops import int8_mlp, int8_serve
 from agacs_tpu_torch.ops.flash_train import D_HEAD as FLASH_D_HEAD
 from agacs_tpu_torch.ops.flash_train import packed_flash_mha
-from agacs_tpu_torch.ops.int8_linear import (int8_linear, int8_matmul, quantize_weight,
+from agacs_tpu_torch.ops.int8_linear import (derived, int8_linear, int8_matmul, quantize_weight,
                                              transposed)
 from agacs_tpu_torch.ops.logmel import full_fp32
 
@@ -293,8 +293,12 @@ class MLP(nn.Sequential):
         kept until a buffer moves or is written (`int8_linear.transposed`)."""
         return transposed(self[0].weight_q, self[2].weight_q, cache=self._k2_cache)
 
+    tp = None  # `parallel/tensor_parallel.TensorParallel` when fc1 / fc2 are sharded
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         fc1, fc2 = self[0], self[2]
+        if self.tp is not None:  # unfused under tensor parallelism (K8 each)
+            return self.tp.row(fc2, self[1](self.tp.col(fc1, self.tp.copy_in(x))))
         if (isinstance(fc1, Int8Linear) and isinstance(fc2, Int8Linear)
                 and x.numel() // x.shape[-1] >= int8_mlp.TR
                 and int8_mlp.supports(fc1.in_features, fc1.out_features)):
@@ -304,39 +308,36 @@ class MLP(nn.Sequential):
         return fc2(self[1](fc1(x)))
 
 
-def _transposed_cat(cat: tuple) -> torch.Tensor:
-    """The concatenation cat[0] transposed, made once and kept in its entry
-    (cat[2]), which lives exactly as long as the concatenation does."""
-    if "t" not in cat[2]:
-        cat[2]["t"] = cat[0].t().contiguous()
-    return cat[2]["t"]
-
-
-def fused_linears(x: torch.Tensor, mods: list[nn.Module], cache: dict) -> list[torch.Tensor]:
+def fused_linears(x: torch.Tensor, mods: list[nn.Module], cache: dict,
+                  tp=None) -> list[torch.Tensor]:
     """JAX `fused_linears` (:190): int8 projections of one input as ONE
-    product over their concatenated weights (kept in `cache` until a
-    buffer moves or is written, with the concatenation transposed once a
-    wide K8g forward on the card has read it), each output plus its bias;
-    dense ones each on its own. Thin rows under `AGACS_W8A16` take K6 on
-    the concatenation, as JAX's int8 branch does. The
+    product over their concatenated weights (kept in `cache` by `derived`,
+    with the concatenation transposed once a wide K8g forward on the card
+    has read it), each output plus its bias; dense ones each on its own.
+    Thin rows under `AGACS_W8A16` take K6 on the concatenation, as JAX's
+    int8 branch does. The
     forward gives the numbers of separate products (the row scale depends
     on x alone), but the backward does not: its dgrad row-quantises the
     concatenated output gradient [dq | dk | dv] with one scale per row, so
-    the fusion is kept for parity with JAX's gradients."""
+    the fusion is kept for parity with JAX's gradients. Under tensor
+    parallelism (`tp`) the concatenation is of this rank's column shards
+    and the dgrad's row scale the maximum over every rank's."""
     if not all(isinstance(m, Int8Linear) for m in mods):
         return [m(x) for m in mods]
-    key = tuple((t.data_ptr(), t._version) for m in mods for t in (m.weight_q, m.weight_s))
-    cat = cache.get(key)
-    if cat is None:
-        cat = (torch.cat([m.weight_q for m in mods], 1),
-               torch.cat([m.weight_s for m in mods]), {})
-        cache.clear()
-        cache[key] = cat
-    if int8_serve.thin_rows(x) and int8_serve.fits(cat[0]):  # JAX :203-210
+    weights = tuple(t for m in mods for t in (m.weight_q, m.weight_s))
+    cat = derived(cache, weights, lambda: (torch.cat([m.weight_q for m in mods], 1),
+                                           torch.cat([m.weight_s for m in mods]), {}))
+
+    def cat_t():
+        return derived(cat[2], (cat[0],), lambda: cat[0].t().contiguous())
+
+    if tp is not None:
+        y = tp.int8_col(x, cat[0], cat[1], cat_t)
+    elif int8_serve.thin_rows(x) and int8_serve.fits(cat[0]):  # JAX :203-210
         y = int8_serve.w8a16_matmul(x, cat[0], cat[1])
     else:
-        y = int8_matmul(x, cat[0], cat[1], lambda: _transposed_cat(cat))
-    outs = y.split([m.out_features for m in mods], -1)
+        y = int8_matmul(x, cat[0], cat[1], cat_t)
+    outs = y.split([m.weight_q.shape[1] for m in mods], -1)
     return [o.contiguous() if m.bias is None else o + m.bias.to(o.dtype)
             for o, m in zip(outs, mods)]
 
@@ -374,12 +375,21 @@ class MultiHeadAttention(nn.Module):
     With `pe` (JAX `_init_attn(pe=True)`): `query_cs` (with bias),
     `key_cs` (without) and `gate` (n_head,) float32; the scores become
     (1 - g)·q.k + g·q_cs.k_cs with g = sigmoid(gate) in float32 per head
-    (JAX `mha` :454-482), in the plain attention, for the encoder too."""
+    (JAX `mha` :454-482), in the plain attention, for the encoder too.
+
+    Under tensor parallelism (`tp`, `parallel/tensor_parallel.py`) the
+    projections hold this rank's heads (`n_head` of them, `head_slice` of
+    the whole), `out` its rows; the input goes through `tp.copy_in` and the
+    output is all-reduced."""
+
+    tp = None
 
     def __init__(self, d: int, n_head: int, dtype: torch.dtype, device=None,
                  pe: bool = False):
         super().__init__()
         self.n_head = n_head
+        self.d_head = d // n_head
+        self.head_slice = slice(0, n_head)
         self.pe = pe
         kw = dict(dtype=dtype, device=device)
         self.query = Linear(d, d, **kw)
@@ -396,29 +406,41 @@ class MultiHeadAttention(nn.Module):
         self._fused.clear()  # moved buffers drop their concatenations at once
         return super()._apply(fn, *args, **kwargs)
 
+    def _in(self, x: torch.Tensor | None) -> torch.Tensor | None:
+        return x if self.tp is None or x is None else self.tp.copy_in(x)
+
+    def _out(self, o: torch.Tensor) -> torch.Tensor:
+        return self.out(o) if self.tp is None else self.tp.row(self.out, o)
+
     def _project(self, x: torch.Tensor, xa: torch.Tensor | None = None):
         """q, k, v as JAX `mha` (:389-396) forms them: self-attention fuses
-        the three projections, cross-attention the key and value of xa."""
+        the three projections, cross-attention the key and value of xa.
+        Under tensor parallelism x (and xa) must have gone through `_in`."""
         if xa is None:
-            return fused_linears(x, [self.query, self.key, self.value], self._fused)
-        return (self.query(x),
-                *fused_linears(xa, [self.key, self.value], self._fused))
+            return fused_linears(x, [self.query, self.key, self.value], self._fused, self.tp)
+        q = self.query(x) if self.tp is None else self.tp.col(self.query, x)
+        return (q, *fused_linears(xa, [self.key, self.value], self._fused, self.tp))
 
     def gate_probs(self) -> torch.Tensor:
-        """sigmoid(gate) in float32 (n_head,), the PE mix weight per head."""
-        return torch.sigmoid(self.gate.float())
+        """sigmoid(gate) in float32 (n_head,), the PE mix weight per head
+        (this rank's heads under tensor parallelism)."""
+        g = self.gate.float()
+        return torch.sigmoid(g if self.tp is None else self.tp.copy_in(g)[self.head_slice])
 
     def _pe_attention(self, x: torch.Tensor, causal: bool):
         """PE self-attention over x (B, T, d): (merged output before `out`,
         mixed pre-softmax scores (B, h, T, T) float32, -inf where causally
         masked, and their softmax)."""
-        sc = (x.shape[-1] // self.n_head) ** -0.25
+        sc = self.d_head ** -0.25
+        x = self._in(x)
         q, k, v = self._project(x)
+        cs = [m(x) if self.tp is None else self.tp.col(m, x)
+              for m in (self.query_cs, self.key_cs)]
         qk = torch.einsum("bhqd,bhkd->bhqk", split_heads(q, self.n_head) * sc,
                           split_heads(k, self.n_head) * sc).float()
         qk_cs = torch.einsum("bhqd,bhkd->bhqk",
-                             split_heads(self.query_cs(x), self.n_head) * sc,
-                             split_heads(self.key_cs(x), self.n_head) * sc).float()
+                             split_heads(cs[0], self.n_head) * sc,
+                             split_heads(cs[1], self.n_head) * sc).float()
         g = self.gate_probs().view(1, -1, 1, 1)
         qk = (1.0 - g) * qk + g * qk_cs
         if causal:
@@ -433,25 +455,25 @@ class MultiHeadAttention(nn.Module):
         """Cross-attention of x over xa with its pre-softmax scores (B, h,
         T, T_audio) float32 (JAX `mha(..., full_scores=True)`, what word
         timing reads): the (T, T_audio) map is formed, softmax in float32."""
-        sc = (x.shape[-1] // self.n_head) ** -0.25
-        q, k, v = self._project(x, xa)
+        sc = self.d_head ** -0.25
+        q, k, v = self._project(self._in(x), self._in(xa))
         qk = torch.einsum("bhqd,bhkd->bhqk", split_heads(q, self.n_head) * sc,
                           split_heads(k, self.n_head) * sc).float()
         w = torch.softmax(qk, dim=-1)
         vh = split_heads(v, self.n_head)
         o = torch.einsum("bhqk,bhkd->bhqd", w.to(vh.dtype), vh)
-        return self.out(merge_heads(o)), qk
+        return self._out(merge_heads(o)), qk
 
     def forward(self, x: torch.Tensor, xa: torch.Tensor | None = None) -> torch.Tensor:
         if self.pe:
-            return self.out(self._pe_attention(x, causal=False)[0])
-        q, k, v = self._project(x, xa)
+            return self._out(self._pe_attention(x, causal=False)[0])
+        q, k, v = self._project(self._in(x), self._in(xa))
         # K1 takes d_head 64 (JAX `flash_train.supports`); the side
         # ladder's narrower heads take the plain attention, as JAX's
         # `fused_mha` does off the TPU's flash shapes
         flash = xa is None and q.shape[-1] == self.n_head * FLASH_D_HEAD
         attend = packed_flash_mha if flash else packed_mha
-        return self.out(attend(q, k, v, self.n_head))
+        return self._out(attend(q, k, v, self.n_head))
 
     def causal_self(self, x: torch.Tensor, lang_cols: bool = False,
                     need_probs: bool = False, full_scores: bool = False
@@ -474,9 +496,9 @@ class MultiHeadAttention(nn.Module):
                 aux["qk_cols"], aux["p_cols"] = qk[..., 1:3], w[..., 1:3]
             if full_scores:
                 aux["qk_full"] = w
-            return self.out(o), aux
-        sc = (x.shape[-1] // self.n_head) ** -0.25
-        q, k, v = self._project(x)
+            return self._out(o), aux
+        sc = self.d_head ** -0.25
+        q, k, v = self._project(self._in(x))
         qh = split_heads(q, self.n_head) * sc
         kh = split_heads(k, self.n_head) * sc
         vh = split_heads(v, self.n_head)
@@ -487,7 +509,7 @@ class MultiHeadAttention(nn.Module):
                 if need_probs:
                     lse = streaming_lse(qh, kh, causal=True)
                     aux["p_cols"] = torch.exp(aux["qk_cols"] - lse[..., None])
-            return self.out(merge_heads(o)), aux
+            return self._out(merge_heads(o)), aux
         qk = torch.einsum("bhqd,bhkd->bhqk", qh, kh).float()
         t = qk.shape[-1]
         qk = qk + torch.full((t, t), float("-inf"), device=qk.device).triu(1)
@@ -496,11 +518,14 @@ class MultiHeadAttention(nn.Module):
         aux["qk_full"] = qk
         if lang_cols:
             aux["qk_cols"], aux["p_cols"] = qk[..., 1:3], w[..., 1:3]
-        return self.out(merge_heads(o)), aux
+        return self._out(merge_heads(o)), aux
 
 
 class Adapter(nn.Module):
-    """Bottleneck adapter with residual (model.py:181-194)."""
+    """Bottleneck adapter with residual (model.py:181-194); under tensor
+    parallelism (`tp`) the down projection column-, the up row-parallel."""
+
+    tp = None
 
     def __init__(self, d: int, dtype: torch.dtype, device=None):
         super().__init__()
@@ -509,6 +534,9 @@ class Adapter(nn.Module):
             Linear(d, d // 4, **kw), nn.GELU(), Linear(d // 4, d, **kw))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            down, act, up = self.model
+            return x + self.tp.row(up, act(down(self.tp.copy_in(x))))
         return x + self.model(x)
 
 
@@ -628,7 +656,11 @@ class ResidualAttentionBlock(nn.Module):
 
 
 class WhisperEncoder(nn.Module):
-    """`whisper_encode` (:709): conv stem, sinusoid positions, blocks, ln_post."""
+    """`whisper_encode` (:709): conv stem, sinusoid positions, blocks, ln_post.
+    Under tensor parallelism (`tp`) conv1 holds this rank's output
+    channels and conv2 its input channels."""
+
+    tp = None
 
     def __init__(self, cfg: WhisperConfig, device=None,
                  dtype: torch.dtype | None = None):
@@ -658,8 +690,10 @@ class WhisperEncoder(nn.Module):
         `side` the output is blended with the side ladder's (JAX :749-771)."""
         x = mel.to(self.cfg.compute_dtype).transpose(1, 2)  # (B, n_mels, T)
         with full_fp32():
-            x = F.gelu(self.conv1(x))
-            x = F.gelu(self.conv2(x))
+            if self.tp is None:
+                x = F.gelu(self.conv2(F.gelu(self.conv1(x))))
+            else:
+                x = F.gelu(self.tp.row_conv(self.conv2, F.gelu(self.conv1(self.tp.copy_in(x)))))
         x = x.transpose(1, 2)[:, : self.cfg.n_audio_ctx].contiguous()
         x = x + self.positional_embedding[: x.shape[1]]
         x_embed, layer_outs = x, []  # the ladder's taps, kept only for a side
@@ -677,9 +711,13 @@ class WhisperDecoder(nn.Module):
     The embeddings are stored float32 (bf16 once `Whisper.cast_frozen_`
     casts them frozen); emb + pos are added in their stored dtype before
     the cast to the compute dtype, as in JAX (`embed`). The logits use the
-    table in the compute dtype (`logits_w`): a copy made once when weights
-    are loaded while the table is frozen, a cast in the forward when it
-    trains, so the copy is never stale."""
+    table in the compute dtype (`logits_w`): a copy kept while the table is
+    frozen (`derived`), a cast in the forward when it trains, so the copy
+    is never stale. Under tensor parallelism (`tp`) the table holds this
+    rank's rows of the padded vocabulary: the lookup sums the ranks' rows
+    and the logits are gathered and cut back to n_vocab (JAX :853-856)."""
+
+    tp = None
 
     def __init__(self, cfg: WhisperConfig, device=None,
                  dtype: torch.dtype | None = None):
@@ -698,10 +736,11 @@ class WhisperDecoder(nn.Module):
         self.ln = LayerNorm(d, device=device)
         for name in INT8_HEAD:  # set by `set_int8_head`
             self.register_buffer(name, None)
-        self.register_buffer("logits_weight", None, persistent=False)
-        self.cast_logits_weight()
-        self.register_load_state_dict_post_hook(
-            lambda module, _keys: module.cast_logits_weight())
+        self._logits_cache: dict = {}
+
+    def _apply(self, fn, *args, **kwargs):
+        self._logits_cache.clear()  # a moved table drops its copy at once
+        return super()._apply(fn, *args, **kwargs)
 
     def embed(self, tokens: torch.Tensor, pos, int8_head: bool = False) -> torch.Tensor:
         """token_emb[tokens] + pos_emb[pos] in the stored dtypes (two bf16
@@ -711,6 +750,8 @@ class WhisperDecoder(nn.Module):
         :1113-1117) the looked-up rows are f32(q[tokens]) * s[tokens]."""
         if int8_head and self.token_emb_q is not None:
             emb = self.token_emb_q[tokens].float() * self.token_emb_s[tokens][..., None]
+        elif self.tp is not None:
+            emb = self.tp.vocab_embed(self.token_embedding.weight, tokens)
         else:
             emb = self.token_embedding(tokens)
         return (emb + self.positional_embedding[pos]).to(self.cfg.compute_dtype)
@@ -731,23 +772,20 @@ class WhisperDecoder(nn.Module):
         if int8_head and self.logits_w_q is not None:
             y = int8_serve.w8a16_matmul(h, self.logits_w_q, self.logits_w_s)
             return y.float()[..., : self.cfg.n_vocab]
+        if self.tp is not None:
+            y = self.tp.gather_last(F.linear(self.tp.copy_in(h), self.logits_w()))
+            return y.float()[..., : self.cfg.n_vocab]
         return F.linear(h, self.logits_w()).float()
-
-    def cast_logits_weight(self) -> None:
-        w = self.token_embedding.weight
-        self._logits_version = w._version
-        self.logits_weight = w.detach().to(self.cfg.compute_dtype)
 
     def logits_w(self) -> torch.Tensor:
         """The output head's weight in the compute dtype: cast in the
-        forward when the table takes a gradient, else the cached copy,
-        made anew when the table has changed since (an optimizer step)."""
+        forward when the table takes a gradient, else the kept copy, made
+        anew when the table has changed since (an optimizer step)."""
         w = self.token_embedding.weight
+        dtype = self.cfg.compute_dtype
         if w.requires_grad and torch.is_grad_enabled():
-            return w.to(self.cfg.compute_dtype)
-        if w._version != self._logits_version:
-            self.cast_logits_weight()
-        return self.logits_weight
+            return w.to(dtype)
+        return derived(self._logits_cache, (w,), lambda: w.detach().to(dtype))
 
 
 INT8_HEAD = ("token_emb_q", "token_emb_s", "logits_w_q", "logits_w_s")
@@ -765,7 +803,10 @@ class _Side(nn.Module):
     `_init_decoder_side` :679): `downsample_input` (d -> n_dim), one
     `downsample_layers` tap per ladder block, the per-block `gates`
     (float32, sigmoid at use), the narrow `blocks` and `upsample_output`
-    (n_dim -> d)."""
+    (n_dim -> d). Under tensor parallelism (`tp`) the downsamples are
+    column-parallel and gathered, the upsample row-parallel."""
+
+    tp = None
 
     def __init__(self, cfg: WhisperConfig, d: int, cross: bool, device, dtype):
         super().__init__()
@@ -784,7 +825,15 @@ class _Side(nn.Module):
     def tap(self, i: int, trunk_h: torch.Tensor, h_side: torch.Tensor) -> torch.Tensor:
         """Ladder block i's input: the gated mix of the trunk's tapped layer
         output (downsampled) and the ladder so far."""
-        return _blend(self.gates[i], self.downsample_layers[i](trunk_h), h_side)
+        return _blend(self.gates[i], self.down(self.downsample_layers[i], trunk_h), h_side)
+
+    def down(self, lin: nn.Module, x: torch.Tensor) -> torch.Tensor:
+        return lin(x) if self.tp is None else self.tp.col_gather(lin, x)
+
+    def up(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is None:
+            return self.upsample_output(x)
+        return self.tp.row_scatter(self.upsample_output, x)
 
 
 class EncoderSide(_Side):
@@ -799,10 +848,10 @@ class EncoderSide(_Side):
         self.gate_output = nn.Parameter(torch.zeros(1, device=device))
 
     def forward(self, x_embed, layer_outs, out):
-        h = self.downsample_input(x_embed)
+        h = self.down(self.downsample_input, x_embed)
         for i, layer in enumerate(self.layers):
             h, _ = self.blocks[i](self.tap(i, layer_outs[layer], h))
-        h = self.ln_post(self.upsample_output(h))
+        h = self.ln_post(self.up(h))
         return _blend(self.gate_output[0], out, h)
 
 
@@ -819,11 +868,11 @@ class DecoderSide(_Side):
         self.ln = LayerNorm(cfg.n_text_state, device=device)
 
     def forward(self, x_embed, layer_outs, xa):
-        h = self.downsample_input(x_embed)
-        xa_side = self.downsample_encoder_input(xa)
+        h = self.down(self.downsample_input, x_embed)
+        xa_side = self.down(self.downsample_encoder_input, xa)
         for i, layer in enumerate(self.layers):
             h, _ = self.blocks[i](self.tap(i, layer_outs[layer], h), xa_side)
-        return self.ln(self.upsample_output(h))
+        return self.ln(self.up(h))
 
     def step(self, x_embed, trunk_outs, pos: int, self_kv: dict, cross_kv: dict):
         """One cached token through the ladder (JAX `_side_decode_step`
@@ -841,7 +890,11 @@ class Whisper(nn.Module):
     """With `ctc`, also the CTC head `ctc` (n_audio_state -> n_vocab; JAX's
     (d, V) `ctc/w` transposed) that a nonzero ctc_weight trains. With
     `estimate_c`, also `estimated_c_val` (1,) float32, the CS loss's
-    learnable target (JAX `init_asr_params` :131-132); decoding ignores it."""
+    learnable target (JAX `init_asr_params` :131-132); decoding ignores it.
+    `parallel/tensor_parallel.shard_whisper` sets `tp` and `tp_dims` (the
+    sharded tensors' dims) on a model it cuts."""
+
+    tp = None
 
     def __init__(self, cfg: WhisperConfig, device=None,
                  param_dtype: torch.dtype | None = None, ctc: bool = False,

@@ -274,22 +274,37 @@ def thin_matmul(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor) -> torch.
     return out
 
 
-def transposed(*weights: torch.Tensor, cache: dict | None = None) -> tuple[torch.Tensor, ...]:
-    """Each weight transposed, contiguous: the K-major B operands of the s8
-    wgmma kernels (the wide K8g forward reads w_q^T; K2 w1q^T and w2q^T).
-    Kept in `cache` (when given) until a weight moves or is written in
-    place, keyed as `models/whisper.py` `fused_linears` keys its
-    concatenation; the entry holds the weights too, so no new tensor can
-    take their addresses while it lives."""
-    key = tuple((t.data_ptr(), t._version) for t in weights)
-    hit = cache.get(key) if cache is not None else None
+def derived(cache: dict, weights: tuple[torch.Tensor, ...], make: Callable[[], object]):
+    """make() for `weights`, kept in `cache` until one of them moves, is
+    written in place or is cut to another shard (keyed by each weight's
+    address, `_version` and shape): the derived weights the kernels read
+    (the transposes, the fused projections' concatenation, the logits
+    head's compute-dtype copy). The entry holds the weights too, so no new
+    tensor can take their addresses while it lives; a new key drops the
+    old entry. The value is made outside inference mode, so a copy first
+    made for a decode request can be saved for a later training step's
+    backward; a weight that is itself an inference tensor has no version
+    counter and counts as version 0."""
+    key = tuple((t.data_ptr(), 0 if t.is_inference() else t._version, tuple(t.shape))
+                for t in weights)
+    hit = cache.get(key)
     if hit is not None:
         return hit[0]
-    wt = tuple(t.t().contiguous() for t in weights)
-    if cache is not None:
-        cache.clear()
-        cache[key] = (wt, weights)
-    return wt
+    with torch.inference_mode(False):
+        value = make()
+    cache.clear()
+    cache[key] = (value, weights)
+    return value
+
+
+def transposed(*weights: torch.Tensor, cache: dict | None = None) -> tuple[torch.Tensor, ...]:
+    """Each weight transposed, contiguous: the K-major B operands of the s8
+    wgmma kernels (the wide K8g forward reads w_q^T; K2 w1q^T and w2q^T),
+    kept in `cache` (when given) by `derived`."""
+    def make():
+        return tuple(t.t().contiguous() for t in weights)
+
+    return make() if cache is None else derived(cache, weights, make)
 
 
 def _matmul(x2: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,

@@ -128,6 +128,20 @@ def apply_specaug(spec: torch.Tensor, draws: SpecAugDraws) -> torch.Tensor:
 
 
 def specaug(generator: torch.Generator, spec: torch.Tensor,
-            cfg: SpecAugConfig = SpecAugConfig()) -> torch.Tensor:
+            cfg: SpecAugConfig = SpecAugConfig(),
+            rows: tuple[int, int, int] | None = None) -> torch.Tensor:
+    """SpecAug of `spec` (B, T, n_mels). `rows` (start, stop, global B):
+    `spec` holds rows start:stop of a global batch (one data rank's block),
+    so the draws are made for the global batch, as JAX draws them, and
+    this block's are applied; the generator then advances as one
+    process's would."""
     b, t, f = spec.shape
-    return apply_specaug(spec, draw_specaug(generator, b, t, f, cfg))
+    if rows is None:
+        return apply_specaug(spec, draw_specaug(generator, b, t, f, cfg))
+    start, stop, global_b = rows
+    draws = draw_specaug(generator, global_b, t, f, cfg)
+    for field in dataclasses.fields(draws):
+        v = getattr(draws, field.name)
+        if v is not None:
+            setattr(draws, field.name, v[start:stop])
+    return apply_specaug(spec, draws)

@@ -43,12 +43,17 @@ def add_sos_eos(ys_pad: torch.Tensor, sos: int, eos: int,
 
 def label_smoothing_loss(logits: torch.Tensor, targets: torch.Tensor,
                          smoothing: float = 0.1, ignore_id: int = IGNORE_ID,
-                         normalize_length: bool = False) -> torch.Tensor:
+                         normalize_length: bool = False, par=None) -> torch.Tensor:
     """KL(true_dist || softmax(logits)) summed over classes and tokens,
     true_dist = smoothing/(V-1) off-target and 1-smoothing on it, divided
     by the batch size (or the valid token count). Expanded with the lse
     (JAX :49-88), so no (N, V) log-softmax is kept for the backward:
-    sum_c log_softmax(x)_c = sum_c x_c - V lse(x)."""
+    sum_c log_softmax(x)_c = sum_c x_c - V lse(x).
+
+    On a mesh (`par`, this rank's rows) the mean over ranks must be the
+    global loss: dividing by the rank's B is (equal row blocks), dividing
+    by the token count is not, so with `normalize_length` the divisor is
+    the global count over the number of data ranks."""
     b, t, v = logits.shape
     x = logits.reshape(-1, v)
     tgt = targets.reshape(-1)
@@ -62,16 +67,26 @@ def label_smoothing_loss(logits: torch.Tensor, targets: torch.Tensor,
     x_t = x.gather(-1, tgt_safe[:, None]).squeeze(-1)
     cross = off * (row_sum - v * lse) + (conf - off) * (x_t - lse)
     kl = torch.where(ignore, 0.0, entropy - cross)
-    denom = max(int((~ignore).sum()), 1) if normalize_length else b
-    return kl.sum() / denom
+    if not normalize_length:
+        return kl.sum() / b
+    if par is None or par.mesh is None:
+        return kl.sum() / max(int((~ignore).sum()), 1)
+    count = par.all_reduce((~ignore).sum().float().reshape(1), "data")[0]
+    return kl.sum() / (count.clamp(min=1.0) / par.n_data)
 
 
 def th_accuracy(logits: torch.Tensor, targets: torch.Tensor,
-                ignore_id: int = IGNORE_ID) -> torch.Tensor:
-    """Argmax accuracy over the non-ignored positions."""
+                ignore_id: int = IGNORE_ID, par=None) -> torch.Tensor:
+    """Argmax accuracy over the non-ignored positions; on a mesh (`par`)
+    over the global batch: the correct and valid counts summed over the
+    data ranks, one ratio (every rank's)."""
     mask = targets != ignore_id
     correct = ((logits.argmax(-1) == targets) & mask).sum()
-    return correct / mask.sum().clamp(min=1)
+    total = mask.sum()
+    if par is not None and par.mesh is not None:
+        counts = par.all_reduce(torch.stack([correct, total]).float(), "data")
+        correct, total = counts[0], counts[1]
+    return correct / total.clamp(min=1)
 
 
 def ctc_loss(logits: torch.Tensor, logit_lens: torch.Tensor, labels: torch.Tensor,

@@ -7,9 +7,10 @@ the SEAME conformer recipe's serving (joint CTC/attention beam search
 with transformer-LM fusion) and training (run_conformer.sh stages 1-5),
 the W8A16 thin-row path (AGACS_W8A16 and serving-quantised checkpoints),
 the ladder side network's serving and training, the SEAME recipe's
-run.sh stages 0-6 through the port's CLIs and the train CLI's options
-(resume, batch types, augmentation, prefetch, estimate_c, lid_ce), once
-on one CUDA card.
+run.sh stages 0-6 through the port's CLIs, the train CLI's options
+(resume, batch types, augmentation, prefetch, estimate_c, lid_ce) and its
+multi-GPU training through torchrun (NCCL at one rank with ZeRO-1 and the
+sharded checkpoint, 2 gloo ranks on the one card), once on one CUDA card.
 
     python3 chip_smoke.py              # every phase below
     python3 chip_smoke.py --mutants    # the kernel checks against mutants
@@ -19,6 +20,10 @@ on one CUDA card.
                                        # shape, DIR's tree and this one in turns
     python3 chip_smoke.py --k4-ablate  # K4's split kernels with parts of
                                        # their exchange taken out, timed
+    python3 chip_smoke.py --dist-worker OUT [--after FILE] ARGS  # one
+                                       # torchrun rank of phase 48: the
+                                       # train CLI on ARGS (once FILE
+                                       # exists), its counts written to OUT
 
 Run from (or point at) a checkout of the repository on a machine with a
 CUDA card and the CUDA toolkit (nvcc). It imports nothing of JAX. Phases,
@@ -302,6 +307,17 @@ non-zero exit:
      token, all five on a replay through the cached step), segment and
      word times never decreasing, the DTW library built, K1f and K3
      launched; ms per window.
+  48. multi-GPU training through torchrun (`python -m
+     torch.distributed.run --standalone`) at whisper-small's full width,
+     stage-2 recipe, bf16, on phase 40's kind of data, beside the plain
+     CLI's 2 epochs on the same data in this process: (a) one rank over
+     NCCL with --optim_state_shard --ckpt_backend orbax, 1 epoch then
+     --resume to 2, its history against the plain run's (bound
+     DIST_SAME_RTOL); (b) 2 ranks on the one card over gloo, data
+     parallel, 1 epoch, loss and acc against (a)'s (DIST_BOUNDS); (c) the
+     int8 trunk at one rank, 1 epoch; (d) rank 0's profiled step in (a)
+     and (c): K1f/K1b (and K2f/K2b/K8) device events against its launches;
+     (e) each rank's peak memory and step time.
 
 The last three lines are the card's `name, power.limit` (nvidia-smi), a
 JSON line with each kernel's launches, error and times, and the
@@ -2380,7 +2396,8 @@ def kept_transposes(model) -> dict:
         if isinstance(m, tw.Int8Linear):
             k8 += sum(t.numel() for wt, _ in m._t_cache.values() for t in wt)
         elif isinstance(m, tw.MultiHeadAttention):
-            k8 += sum(t.numel() for c in m._fused.values() for t in c[2].values())
+            k8 += sum(t.numel() for c, _ in m._fused.values()
+                      for wt, _ in c[2].values() for t in [wt])
         elif isinstance(m, tw.MLP):
             k2 += sum(t.numel() for wt, _ in m._k2_cache.values() for t in wt)
     return {"K8g": k8, "K2": k2}
@@ -5392,6 +5409,216 @@ def trainer_options_phase(sd, dev, smi: str) -> dict:
     return {"seconds": secs, "launches": counts, "prefetch": turns}
 
 
+# phase 48: (a) one NCCL rank with ZeRO-1, DCP and a resume against the
+# plain CLI (relative, every history value but the wall clocks); (b) 2 gloo
+# ranks against (a): bf16 row blocks of 1 against batches of 2 (loss
+# relative; acc absolute, over the one valid utterance's ~20 tokens)
+DIST_SAME_RTOL = 1e-5
+DIST_BOUNDS = {"loss": 2e-2, "acc": 0.1}
+DIST_PROFILE_ROWS = 2  # rank 0 profiles its first step after the first with 2 rows
+DIST_THREADS = 2  # OMP_NUM_THREADS of each torchrun rank (torchrun's own default: 1)
+# device events of one K1f / K1b / K2f / K2b / K8g / K8q launch (K1b's first
+# kernel; the wide and the thin K8g)
+DIST_KERNELS = {"K1f": "packed_flash_fwd", "K1b": "dkdv_kernel", "K2f": "mlp_fwd_kernel",
+                "K2b": "mlp_bwd_kernel", "K8g": "gemm_kernel", "K8q": "rowquant_kernel"}
+
+
+def dist_worker(out: str, argv: list[str], timeout_s: float = 600.0) -> int:
+    """One torchrun rank of phase 48: `agacs_tpu_torch.bin.train.main(argv)`
+    with each train step's kernel launches counted and one step of rank 0
+    profiled (device events by kernel): the first after the first with
+    DIST_PROFILE_ROWS rows (at 2 rows of ~2 s the encoder's 300 rows take
+    K2, at 1 row not); writes {rank, history, launches a step, the profiled
+    step and its events, each step's wall ms, peak GB} to `out` ({rank} in
+    it is the rank). `--after FILE` first in `argv`: start the CLI once FILE
+    exists (a resume waiting for the run it continues, its process already
+    up)."""
+    from agacs_tpu_torch.bin import train as train_cli
+
+    if argv[:1] == ["--after"]:
+        after, argv = argv[1], argv[2:]
+        t0 = time.perf_counter()
+        while not os.path.exists(after):
+            check(time.perf_counter() - t0 < timeout_s, f"48: {after} never appeared")
+            time.sleep(0.2)
+
+    rank = int(os.environ["RANK"])
+    steps, events, profiled, wall = [], {}, [], []
+    make = train_cli.make_train_step
+
+    def counted_step(*a, **kw):
+        step = make(*a, **kw)
+
+        def run(micro_batches):
+            reset_train_counts()
+            t0 = time.perf_counter()
+            if (rank == 0 and steps and not profiled
+                    and micro_batches[0]["speech"].shape[0] >= DIST_PROFILE_ROWS):
+                profiled.append(len(steps))
+                held = {}
+                device_profile(lambda: held.update(stats=step(micro_batches)), events)
+                stats = held["stats"]
+            else:
+                stats = step(micro_batches)
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+            steps.append(train_counts())
+            return stats
+
+        return run
+
+    train_cli.make_train_step = counted_step
+    torch.cuda.reset_peak_memory_stats()
+    res = train_cli.main(argv)
+    with open(out.format(rank=rank), "w") as f:
+        json.dump({"rank": rank, "history": {str(k): v for k, v in res["history"].items()},
+                   "steps": steps, "profiled": profiled, "wall_ms": wall,
+                   "events": {k: events_of(events, w) for k, w in DIST_KERNELS.items()},
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9}, f)
+    return 0
+
+
+def dist_train_phase(smi: str) -> dict:
+    """Phase 48: the train CLI under torchrun at whisper-small's full width
+    (stage-2 recipe, bf16) on phase 40's kind of data, under
+    build/chip_smoke_dist/ (removed afterwards); see the module docstring."""
+    import shutil
+
+    from agacs_tpu_torch.bin import train
+
+    t_phase = time.perf_counter()
+    root = os.path.join(ROOT, "build", "chip_smoke_dist")
+    shutil.rmtree(root, ignore_errors=True)
+    data = options_data(root)
+    conf = os.path.join(ROOT, "recipes", "seame", "conf",
+                        "train_asr_whisper_small_adapter_csloss_2stage.yaml")
+
+    def args(exp, epochs, flags=(), overrides=()):
+        return ["--config", conf, "--train_dir", f"{data}/train", "--valid_dir",
+                f"{data}/valid", "--exp_dir", f"{root}/{exp}", "--max_epoch", str(epochs),
+                "--batch_bins", str(PREFETCH_BINS), "--num_att_plot", "0", *flags,
+                "--override", "accum_grad=1", "keep_nbest_models=1", *overrides]
+
+    secs, procs = {}, {}
+
+    def start(tag, nproc, cli_args):
+        """torchrun of the train CLI (through `dist_worker`), in the
+        background; its log under root."""
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", str(nproc), os.path.join(ROOT, "chip_smoke.py"),
+               "--dist-worker", f"{root}/{tag}_{{rank}}.json", *cli_args]
+        log = open(f"{root}/{tag}.log", "w")
+        # five processes start together on the host's 8 cores: 2 threads each
+        env = dict(os.environ, OMP_NUM_THREADS=str(DIST_THREADS))
+        procs[tag] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, cwd=ROOT,
+                                       env=env), log, nproc, time.perf_counter())
+
+    def finish(tag):
+        p, log, nproc, t0 = procs.pop(tag)
+        try:
+            rc = p.wait(timeout=600)
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+        secs[tag] = time.perf_counter() - t0
+        with open(f"{root}/{tag}.log") as f:
+            check(rc == 0, f"48 {tag}: torchrun exited {rc}: {f.read()[-6000:]}")
+        return [json.load(open(f"{root}/{tag}_{i}.json")) for i in range(nproc)]
+
+    def untimed(h):
+        return {e: {ph: {k: v for k, v in d.items() if not k.endswith("_time")}
+                    for ph, d in phases.items()} for e, phases in h.items()}
+
+    def worst(h, ref, keys=None):
+        """max over the values of ref's history (or `keys`) of |h - ref| / max(1, |ref|)."""
+        return max(abs(h[e][ph][k] - v) / max(1.0, abs(v))
+                   for e, phases in untimed(ref).items() for ph, d in phases.items()
+                   for k, v in d.items() if keys is None or k in keys)
+
+    zero_dcp = ["--optim_state_shard", "--ckpt_backend", "orbax"]
+    print("phase 48: (a) torchrun, 1 rank over NCCL, --optim_state_shard --ckpt_backend orbax: "
+          "1 epoch, then --resume to 2; (b) torchrun, 2 ranks on the one card over gloo, data "
+          "parallel (no --optim_state_shard, no --tensor_parallel: gloo's all_gather takes no "
+          "CUDA tensor), --ckpt_backend orbax, 1 epoch; (c) torchrun, 1 rank over NCCL, "
+          "freeze_quant=int8, 1 epoch; the plain CLI's 2 epochs in this process; the runs "
+          "overlap on the card (a2's CLI after a1's)", flush=True)
+    try:
+        start("a1", 1, args("a", 1, zero_dcp))
+        start("b", 2, args("b", 1, ["--device", "cuda:0", "--dist_backend", "gloo",
+                                    "--ckpt_backend", "orbax"]))
+        start("c", 1, args("c", 1, (), ["freeze_quant=int8"]))
+        # a2 starts its process now and its CLI once a1 has written its result
+        start("a2", 1, ["--after", f"{root}/a1_0.json",
+                        *args("a", 2, zero_dcp + ["--resume"])])
+        t0 = time.perf_counter()
+        plain = train.main(args("plain", 2))["history"]
+        secs["plain 2 epochs"] = time.perf_counter() - t0
+        (a1,), b, (c,), (a2,) = finish("a1"), finish("b"), finish("c"), finish("a2")
+    finally:
+        for p, log, _, _ in procs.values():
+            p.kill()
+            p.wait()
+            log.close()
+    plain = {str(k): v for k, v in plain.items()}
+    same = untimed(a2["history"]) == untimed(plain)
+    d_a = worst(a2["history"], plain)
+    check(set(a2["history"]) == {"1", "2"} and d_a <= DIST_SAME_RTOL,
+          f"48a: the history against the plain CLI's, max relative {d_a:.3e} (bound "
+          f"{DIST_SAME_RTOL}): {a2['history']} {plain}")
+    best = [d for d in os.listdir(f"{root}/a") if d.endswith("epoch.params.dcp")]
+    for d in ("checkpoint.params.dcp", "checkpoint.opt.dcp", *best):
+        check(os.path.exists(f"{root}/a/{d}/.metadata"), f"48a: {d} written")
+    check(len(best) == 1, f"48a: the n-best epoch's DCP directory kept alone {best}")
+    check(untimed(b[0]["history"]) == untimed(b[1]["history"]),
+          f"48b: both ranks' histories equal {b[0]['history']} {b[1]['history']}")
+    d_b = {k: max(abs(b[0]["history"]["1"][ph][k] - a1["history"]["1"][ph][k])
+                  / (max(1.0, abs(a1["history"]["1"][ph][k])) if k == "loss" else 1.0)
+                  for ph in ("train", "valid")) for k in DIST_BOUNDS}
+    check(all(d_b[k] <= DIST_BOUNDS[k] for k in DIST_BOUNDS),
+          f"48b: loss and acc against (a)'s epoch 1 {d_b} (bounds {DIST_BOUNDS}): "
+          f"{b[0]['history']} {a1['history']}")
+    h_c = c["history"]["1"]
+    check(all(np.isfinite(h_c[ph]["loss"]) for ph in ("train", "valid")),
+          f"48c: finite losses {h_c}")
+
+    def per_step(run, keys):
+        """The profiled step's launches (K8g: forward and dgrad, one kernel
+        name)."""
+        check(run["profiled"], f"48d: rank 0 profiled a step of {DIST_PROFILE_ROWS} rows")
+        st = run["steps"][run["profiled"][0]]
+        return {k: st[k] + (st["K8g dgrad"] if k == "K8g" else 0) for k in keys}
+
+    kinds = {"a": ("K1f", "K1b"), "c": ("K1f", "K1b", "K2f", "K2b", "K8g", "K8q")}
+    launches, events = {}, {}
+    for tag, run in (("a", a1), ("c", c)):
+        launches[tag], events[tag] = per_step(run, kinds[tag]), {
+            k: run["events"][k] for k in kinds[tag]}
+        check(all(0 < events[tag][k] <= launches[tag][k] for k in kinds[tag]),
+              f"48d {tag}: rank 0's profiled step ran the kernels, device events {events[tag]} "
+              f"against launches {launches[tag]}")
+    for tag, run in (("b", b[0]), ("b rank 1", b[1])):
+        check(run["steps"] and all(s["K1f"] > 0 and s["K1b"] > 0 for s in run["steps"]),
+              f"48 {tag}: K1f and K1b in every step {run['steps']}")
+    ranks = [("a (NCCL, 1 rank)", a1), ("a resumed", a2), ("b rank 0 (gloo)", b[0]),
+             ("b rank 1 (gloo)", b[1]), ("c int8 (NCCL)", c)]
+    print(f"phase 48 torchrun training on {smi} (whisper-small, stage-2 recipe, bf16, "
+          f"{PREFETCH_BINS} batch_bins): (a) history vs the plain CLI "
+          f"{'bit-identical' if same else 'not bit-identical'}, max relative {d_a:.3e} "
+          f"(bound {DIST_SAME_RTOL}); (b) 2 gloo ranks vs (a) epoch 1 {d_b} (bounds "
+          f"{DIST_BOUNDS}); (c) int8 losses train {h_c['train']['loss']:.4f} valid "
+          f"{h_c['valid']['loss']:.4f}; (d) rank 0's profiled step (a 2-row batch) device "
+          f"events " + "; ".join(f"{t}: {events[t]} (launches {launches[t]})" for t in events)
+          + "; (e) the runs overlapping on the card: " + "; ".join(
+              f"{name}: peak {r['peak_gb']:.2f} GB, a step "
+              f"{[round(t, 1) for t in r['wall_ms']]} ms" for name, r in ranks)
+          + "; seconds " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items())
+          + f"; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return {"seconds": secs, "launches": launches, "events": events}
+
+
 FUSION_SEED = 4
 FUSION_BEAM = 5
 FUSION_STEPS = 24  # the CTC prefix loop is a host loop over 750 frames a step
@@ -5703,6 +5930,8 @@ def main() -> int:
     from agacs_tpu_torch.ops import cuda_lib, decode_attn, flash_train
     from agacs_tpu_torch.utils import native
 
+    if sys.argv[1:2] == ["--dist-worker"]:
+        return dist_worker(sys.argv[2], sys.argv[3:])
     dev = torch.device("cuda:0")
     t_start = time.perf_counter()
     if sys.argv[1:2] == ["--mutants"]:
@@ -5914,6 +6143,10 @@ def main() -> int:
     # transcription with word timestamps
     fusion = whisper_fusion_phase(dev, audio)
     long_form = long_form_phase(dev)
+
+    # 48. multi-GPU training through torchrun: NCCL at one rank (ZeRO-1, DCP,
+    # resume), 2 gloo ranks on the one card, the int8 trunk
+    dist_train_phase(smi)
 
     check(not any(m.split(".")[0] in ("jax", "jaxlib", "agacs_tpu") for m in sys.modules),
           "no jax, jaxlib or agacs_tpu module was imported")

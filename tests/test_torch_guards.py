@@ -686,10 +686,14 @@ def test_unported_conformer_family_parts_raise(what, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--tensor_parallel", "2"], ["--optim_state_shard"], ["--ckpt_backend", "orbax"],
+    ["--tensor_parallel", "2"],
     ["--override", "freeze_quant=int8", "freeze_param=null"], ["--override", "freeze_quant=int4"],
 ], ids=str)
 def test_unported_train_cli_options_raise(flags, tmp_path):
+    """Options the CLI cannot run raise before any data is read: tensor
+    parallelism outside a torchrun world, an int8 trunk without a freeze
+    preset, an unknown quantisation. (`--optim_state_shard` and
+    `--ckpt_backend orbax` run: tests/test_torch_multiprocess.py.)"""
     from agacs_tpu_torch.bin import train
 
     conf = os.path.join(REPO, "recipes", "seame", "conf",

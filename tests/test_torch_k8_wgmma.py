@@ -220,7 +220,7 @@ def test_wide_forward_is_handed_the_kept_transposes(monkeypatch):
                         seen.append((w_q, w_t)) or real(x2, w_q, w_s, w_t))
     with torch.no_grad():
         attn(x)
-    assert attn.out._t_cache == {} and all(c[2] == {} for c in attn._fused.values())
+    assert attn.out._t_cache == {} and all(c[2] == {} for c, _ in attn._fused.values())
     assert len(seen) == 2 and all(w_t is not None for _, w_t in seen)
     attn._fused.clear()
     seen.clear()
@@ -231,7 +231,7 @@ def test_wide_forward_is_handed_the_kept_transposes(monkeypatch):
     assert len(seen) == 2
     for w_q, w_t, made in seen:
         assert torch.equal(made, w_q.t()) and made.is_contiguous() and w_t() is made
-    (cat,) = attn._fused.values()
+    ((cat, _),) = attn._fused.values()
     assert len(cat[2]) == 1 and attn.out._t_cache
     attn.to("cpu")
     assert attn._fused == {} and attn.out._t_cache == {}
