@@ -99,11 +99,13 @@
 //   into a second buffer, or 240 registers did not help.
 //
 // Backward above K 256 (the whisper family's CTC head: K 384, 512, 768,
-// 1024; `vocab_lse_split_kernel<DW>`, one template for dx and dw). A
-// warpgroup's 64 x K f32 accumulator does not fit its registers there (384
-// a thread at K 768) and x's 128 rows take 192 KB, so the K-wide
+// 1024, 1280; `vocab_lse_split_kernel<DW, CM>`, one template for dx and
+// dw). A warpgroup's 64 x K f32 accumulator does not fit its registers
+// there (384 a thread at K 768) and x's 128 rows take 192 KB, so the K-wide
 // accumulator is split over a thread-block cluster: C = K / KS ranks (KS
-// 128: C 3 to 8, the portable size at K 1024) work on one output tile (dx:
+// 128: C 3 to 8, the portable size at K 1024; 9 and 10 above, up to K_MAX
+// 1280, whisper-large's width, on a non-portable cluster, `CM` WIDE_C)
+// work on one output tile (dx:
 // 128 rows, dw: 128 vocabulary columns; two consumer warpgroups of 64), and
 // rank r owns the K-slice [r KS, (r + 1) KS) of the accumulator and of the
 // resident operand (dx: x's slice of the row tile; dw: W's slice of the
@@ -138,13 +140,20 @@
 // into dW (K, Vp) rows [r KS, (r + 1) KS), and db, from the f32 dz, comes
 // from the one rank that owns the column's quad. Rows >= N and columns >=
 // V are masked by index (lse log2 e +inf and g 0; the bias -inf). Shared
-// memory: 209,032 bytes at every K (`split_smem`); registers of a consumer
+// memory: 209,032 bytes at every K up to 1024 (`split_smem`), 217,224 above
+// (`split_smem_wide`: a receive slot of RECV_WIDE quads); registers of a consumer
 // thread: the accumulator KS / 2 = 64, S 32, packed P 16. The exchange
 // bounds both kernels, its latency a tile with two slots (PERF.md: every
 // rank reading every partial, the same exchange by loads of the others'
 // partials with arrivals released at cluster scope, and by the TMA
 // engine's bulk copies were slower). The C entries dispatch by K, and the
-// tiling rules `vocab_lse.dx_tiling` / `dw_tiling` mirror them.
+// tiling rules `vocab_lse.dx_tiling` / `dw_tiling` mirror them. Above K
+// 1024 the same kernel runs on a cluster of 9 or 10 (the instance CM
+// WIDE_C, launched with cudaFuncAttributeNonPortableClusterSizeAllowed):
+// the quads no longer divide evenly over the ranks (3 or 4 a rank), and a
+// GPC holds one such cluster, so ~80 of the 132 SMs work at once; the C
+// entries ask cudaOccupancyMaxActiveClusters first and refuse a launch the
+// card cannot hold.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -169,6 +178,7 @@ constexpr int VT = 64;          // columns of a streamed W tile (dx), of a warpg
 constexpr int DW_BV = 128;      // dw: vocabulary columns a block owns
 constexpr int DW_BN = 64;       // dw: rows of a streamed x tile
 constexpr int MAX_C = 8;        // dx: blocks of a cluster (the portable size)
+constexpr int K_MAX = 1280;     // the widest K the C entries take (whisper-large's d)
 constexpr int STAGES = 4;       // ring slots
 constexpr int CONSUMERS = 256;  // two consumer warpgroups
 constexpr int HTHREADS = CONSUMERS + 128;  // and a producer warpgroup (one warp loads)
@@ -583,6 +593,8 @@ __host__ __device__ constexpr int fwd_bm(int K) { return fwd_smem(K, 128) <= SME
 static_assert(fwd_bm(HK_MAX) == 128 && fwd_bm(768) == 128 && fwd_bm(896) == 64 &&
                   fwd_smem(1024, 64) <= SMEM_MAX,
               "K4's forward does not fit shared memory at some K up to 1024");
+static_assert(fwd_bm(K_MAX) == 64 && fwd_smem(K_MAX, 64) <= SMEM_MAX,
+              "K4's forward does not fit shared memory at K_MAX");
 
 // A V tile's bias strip (b log2 e, -inf from column V on): the 16 values
 // of this thread's columns 8j + 2t, 8j + 2t + 1.
@@ -867,6 +879,8 @@ constexpr int SPLIT_STAGE = KS * 128;   // bytes of a ring slot: KS x 64 or 64 x
 constexpr int QBLK = 32 * 16;           // bytes of a quad's S tile: 32 float4
 constexpr int PBLK = 32 * 8;            // bytes of a quad's packed P: 32 pairs of bf16 pairs
 constexpr int RECV_QUADS = 36;          // max over C of C ceil(32 / C): a receive slot
+constexpr int RECV_WIDE = 40;           // the same over C 9 and 10 (above K 1024)
+constexpr int WIDE_C = K_MAX / KS;      // the widest cluster, 10: non-portable
 constexpr int SPLIT_BARS = (1 + 2 * STAGES + 8) * 8;
 
 // The split kernels' shared memory, the same at every K (a rank holds a
@@ -881,6 +895,19 @@ __host__ __device__ constexpr size_t split_smem() {
 }
 static_assert(split_smem() <= 232448 && MAX_C * KS >= 1024 && 3 * KS > HK_MAX,
               "K4's split backward does not fit shared memory, or a cluster, at some K");
+// The most quads of the receive slot over clusters of c0 to c1 ranks.
+__host__ __device__ constexpr int recv_need(int c0, int c1) {
+  return c0 > c1 ? 0
+                 : (c0 * ((32 + c0 - 1) / c0) > recv_need(c0 + 1, c1) ? c0 * ((32 + c0 - 1) / c0)
+                                                                     : recv_need(c0 + 1, c1));
+}
+// Above K 1024: the same layout with a receive slot of RECV_WIDE quads.
+__host__ __device__ constexpr size_t split_smem_wide() {
+  return split_smem() + 4 * (RECV_WIDE - RECV_QUADS) * QBLK;
+}
+static_assert(recv_need(3, MAX_C) == RECV_QUADS && recv_need(MAX_C + 1, WIDE_C) == RECV_WIDE &&
+                  split_smem_wide() <= 232448 && WIDE_C * KS == K_MAX && WIDE_C <= 16,
+              "K4's split backward does not fit shared memory, or a cluster, above K 1024");
 
 // Rank r of C owns quads [r 32 / C, (r + 1) 32 / C) of a warpgroup's 32 (a
 // quad: the 4 threads that hold rows a, a + 8); every rank sends it its
@@ -922,7 +949,7 @@ __device__ __forceinline__ void send_part(float* recv, uint64_t* bar, const floa
 // the lane's db sums sa, sb) and stores the two packed bf16 pairs into
 // every rank's P (`pk`, one warpgroup, one slot), completing on its barrier
 // `bar`.
-template <bool DW>
+template <bool DW, int CM>
 __device__ __forceinline__ void reduce_quads(const float* recv, uint32_t* pk, uint64_t* bar,
                                              int C, int rank, int wg, const float* st0,
                                              const float* st1, const float* tb0,
@@ -934,14 +961,25 @@ __device__ __forceinline__ void reduce_quads(const float* recv, uint32_t* pk, ui
   for (int m = 0; m < 3; ++m) {
     const int lq = ((threadIdx.x >> 5) & 3) + 4 * m;
     if (lq >= nq) break;
-    float4 v[MAX_C];
+    float4 z;
+    if constexpr (CM > MAX_C) {  // a partial at a time: fewer registers live (above K 1024)
+      z = in[lq * 32 + lane];
 #pragma unroll
-    for (int r = 0; r < MAX_C; ++r)
-      if (r < C) v[r] = in[(r * room + lq) * 32 + lane];
-    float4 z = v[0];
+      for (int r = 1; r < CM; ++r)
+        if (r < C) {
+          const float4 u = in[(r * room + lq) * 32 + lane];
+          z.x += u.x, z.y += u.y, z.z += u.z, z.w += u.w;
+        }
+    } else {
+      float4 v[CM];
 #pragma unroll
-    for (int r = 1; r < MAX_C; ++r)
-      if (r < C) z.x += v[r].x, z.y += v[r].y, z.z += v[r].z, z.w += v[r].w;
+      for (int r = 0; r < CM; ++r)
+        if (r < C) v[r] = in[(r * room + lq) * 32 + lane];
+      z = v[0];
+#pragma unroll
+      for (int r = 1; r < CM; ++r)
+        if (r < C) z.x += v[r].x, z.y += v[r].y, z.z += v[r].z, z.w += v[r].w;
+    }
     // z: rows a, a + 8 of the tile at columns c, c + 1 (thread t of quad q, its float4 j)
     const int q = q0 + lq, t = lane >> 3, j = (lane & 7) ^ (t | ((q & 1) << 2));
     const int a = 64 * wg + 16 * (q >> 3) + (q & 7), c = 8 * j + 2 * t;
@@ -967,7 +1005,7 @@ __device__ __forceinline__ void reduce_quads(const float* recv, uint32_t* pk, ui
     const uint2 pv = make_uint2(hop::pack_bf16(d0, d1), hop::pack_bf16(d2, d3));
     uint2* dst = reinterpret_cast<uint2*>(pk) + q * 32 + pair_at(t, j, q);
 #pragma unroll
-    for (int r = 0; r < MAX_C; ++r)
+    for (int r = 0; r < CM; ++r)
       if (r < C) hop::st_async(dst, pv, bar, r);
   }
 }
@@ -1001,21 +1039,23 @@ __device__ __forceinline__ void split_pv(float (&acc)[KS / 2], const uint32_t (&
 
 // dx (DW false: out the (N, K) bf16 dx) or dw (out the (K, Vp) f32 dW, db
 // (Vp,)) at K = C KS: grid (C, row tiles or column blocks) in clusters of C
-// along x.
-template <bool DW>
+// along x, C at most CM (MAX_C, or WIDE_C with a receive slot of RECV_WIDE
+// quads).
+template <bool DW, int CM = MAX_C>
 __global__ void __launch_bounds__(HTHREADS, 1)
 vocab_lse_split_kernel(const __grid_constant__ Maps mp, const float* __restrict__ bias,
                        const float* __restrict__ lse, const float* __restrict__ g,
                        void* __restrict__ out, float* __restrict__ db, int N, int K, int V,
                        int Vp) {
+  constexpr int RQ = CM > MAX_C ? RECV_WIDE : RECV_QUADS;  // quads of a receive slot
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
   extern __shared__ unsigned char raw[];
   unsigned char* base = align1024(raw);
   unsigned char* res = base;  // the resident slice: dx x's 128 rows, dw W's 128 columns
   unsigned char* ring = res + 128 * KS * 2;
-  unsigned char* recv = ring + STAGES * SPLIT_STAGE;  // [slot][wg][RECV_QUADS]
-  unsigned char* pk = recv + 4 * RECV_QUADS * QBLK;         // [slot][wg][32 quads]: P
+  unsigned char* recv = ring + STAGES * SPLIT_STAGE;  // [slot][wg][RQ]
+  unsigned char* pk = recv + 4 * RQ * QBLK;                 // [slot][wg][32 quads]: P
   float* st0 = reinterpret_cast<float*>(pk + 4 * 32 * PBLK);  // [ring slot][64]: dx b, dw lse log2 e
   float* st1 = st0 + STAGES * VT;                       // dw: g
   float* tb0 = st1 + STAGES * VT;  // the block's 128 rows' lse log2 e (dx) or columns' b (dw)
@@ -1115,9 +1155,9 @@ vocab_lse_split_kernel(const __grid_constant__ Maps mp, const float* __restrict_
   const int wg = warp >> 2, tw = tid & 127, t = lane & 3;
   const int ra = 64 * wg + 16 * (warp & 3) + (lane >> 2);  // this thread's rows ra, ra + 8
   const bool lead = tw == 0;  // the warpgroup's thread that posts its barriers' bytes
-  float* myrecv = reinterpret_cast<float*>(recv + wg * RECV_QUADS * QBLK);  // + slot * rslot
+  float* myrecv = reinterpret_cast<float*>(recv + wg * RQ * QBLK);  // + slot * rslot
   uint32_t* mypk = reinterpret_cast<uint32_t*>(pk + wg * 32 * PBLK);       // + slot * pslot
-  constexpr int rslot = 2 * RECV_QUADS * QBLK / 4, pslot = 2 * 32 * PBLK / 4;
+  constexpr int rslot = 2 * RQ * QBLK / 4, pslot = 2 * 32 * PBLK / 4;
   const uint64_t rd = hop::desc(res + wg * (DW ? KS * 128 : 64 * 128));
   float acc[KS / 2];
 #pragma unroll
@@ -1150,7 +1190,7 @@ vocab_lse_split_kernel(const __grid_constant__ Maps mp, const float* __restrict_
     split_s<DW>(sc, rd, ring + (more ? nx.s : p.s) * SPLIT_STAGE);
     hop::mbar_wait_cluster(&sfull[x * 2 + wg], (it >> 1) & 1);
     if (lead) hop::mbar_expect_tx(&sfull[x * 2 + wg], s_bytes);  // tile it + 2's
-    reduce_quads<DW>(myrecv + x * rslot, mypk + x * pslot, &pfull[x * 2 + wg], C, rank, wg,
+    reduce_quads<DW, CM>(myrecv + x * rslot, mypk + x * pslot, &pfull[x * 2 + wg], C, rank, wg,
                      st0 + p.s * VT, st1 + p.s * VT, tb0, tb1, sa, sb);
     if (it > 0) {
       hop::mbar_wait_cluster(&pfull[(x ^ 1) * 2 + wg], ((it - 1) >> 1) & 1);
@@ -1224,6 +1264,9 @@ int launch_hk(void (*kern)(KArgs...), dim3 grid, int cluster_x, int threads, siz
               cudaStream_t stream, Args... args) {
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
+  // above the portable 8: the split kernels past K 1024
+  if (e == cudaSuccess && cluster_x > MAX_C)
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
@@ -1242,9 +1285,44 @@ int launch_hk(void (*kern)(KArgs...), dim3 grid, int cluster_x, int threads, siz
   return (int)cudaGetLastError();
 }
 
+// The clusters of C blocks of `kern` (`smem` bytes of shared memory each)
+// that the card holds at once (cudaOccupancyMaxActiveClusters), or a
+// negative error.
+int held_clusters(const void* kern, int C, size_t smem) {
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e == cudaSuccess && C > MAX_C)
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return -(int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, 1024);
+  cfg.blockDim = dim3(HTHREADS);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, kern, &cfg);
+  return e == cudaSuccess ? n : -(int)e;
+}
+
+// The split kernel `kern` above K 1024 on clusters of C (9 or 10, beyond
+// the portable size): launched only where the card holds such a cluster,
+// else cudaErrorInvalidConfiguration (or the query's error).
+template <typename... KArgs, typename... Args>
+int launch_wide(void (*kern)(KArgs...), dim3 grid, int C, cudaStream_t stream, Args... args) {
+  const int held = held_clusters((const void*)kern, C, split_smem_wide());
+  if (held <= 0) return held < 0 ? -held : (int)cudaErrorInvalidConfiguration;
+  return launch_hk(kern, grid, C, HTHREADS, split_smem_wide(), stream, args...);
+}
+
 }  // namespace
 
-// The row lse of x W + b: x (N, K) bf16, K a multiple of 128 up to 1024,
+// The row lse of x W + b: x (N, K) bf16, K a multiple of 128 up to K_MAX 1280,
 // rows 16-byte aligned; W (K, V) bf16 in rows of stride ldw (a multiple of
 // 8, >= V; 16-byte aligned); b (V,) f32; lse (N,) f32 out. One launch:
 // blocks of BM rows (`vocab_lse.fwd_tiling`: fwd_bm(K)), each row tile's
@@ -1254,7 +1332,7 @@ int launch_hk(void (*kern)(KArgs...), dim3 grid, int cluster_x, int threads, siz
 extern "C" int vocab_lse_fwd(const void* x, const void* W, int ldw, const void* b, void* lse,
                              int N, int K, int V, int BM, int C, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  if (N <= 0 || V <= 0 || K <= 0 || K % 128 || K > 1024 || ldw < V || ldw % 8 ||
+  if (N <= 0 || V <= 0 || K <= 0 || K % 128 || K > K_MAX || ldw < V || ldw % 8 ||
       BM != fwd_bm(K) || C < 1 || C > MAX_C || (C & (C - 1)) || C > (V + VT - 1) / VT)
     return (int)cudaErrorInvalidValue;
   Maps mp = {};
@@ -1282,14 +1360,15 @@ extern "C" int vocab_lse_fwd(const void* x, const void* W, int ldw, const void* 
 // The gradient of the row lse for g = d loss / d lse (N,) f32: dx (N, K)
 // bf16 out. K <= 256 runs the wgmma kernel on clusters of C blocks (1, 2,
 // 4 or 8, no more than V's 64-column tiles), a wider K the split kernel on
-// clusters of C = K / 128 (`vocab_lse.dx_tiling`). x, W, b, lse and g as
-// for vocab_lse_fwd (lse and g (N,) f32). Returns cudaErrorInvalidValue for
-// a shape or cluster the kernels do not take.
+// clusters of C = K / 128 (`vocab_lse.dx_tiling`; 9 and 10 non-portable).
+// x, W, b, lse and g as for vocab_lse_fwd (lse and g (N,) f32). Returns
+// cudaErrorInvalidValue for a shape or cluster the kernels do not take,
+// cudaErrorInvalidConfiguration where the card holds no cluster of C.
 extern "C" int vocab_lse_dx(const void* x, const void* W, int ldw, const void* b,
                             const void* lse, const void* g, void* dx, int N, int K, int V,
                             int C, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  if (N <= 0 || V <= 0 || K <= 0 || K % 128 || K > 1024 || ldw < V || ldw % 8)
+  if (N <= 0 || V <= 0 || K <= 0 || K % 128 || K > K_MAX || ldw < V || ldw % 8)
     return (int)cudaErrorInvalidValue;
   if (K > HK_MAX ? C != K / KS
                  : C < 1 || C > MAX_C || (C & (C - 1)) || C > (V + VT - 1) / VT)
@@ -1301,6 +1380,9 @@ extern "C" int vocab_lse_dx(const void* x, const void* W, int ldw, const void* b
     return rc;
   const dim3 grid(C, (N + DX_BM - 1) / DX_BM);
   const float *bf = (const float*)b, *lf = (const float*)lse, *gf = (const float*)g;
+  if (C > MAX_C)
+    return launch_wide(vocab_lse_split_kernel<false, WIDE_C>, grid, C, st, mp, bf, lf, gf, dx,
+                       (float*)nullptr, N, K, V, 0);
   if (K > HK_MAX)
     return launch_hk(vocab_lse_split_kernel<false>, grid, C, HTHREADS, split_smem(), st, mp,
                      bf, lf, gf, dx, (float*)nullptr, N, K, V, 0);
@@ -1314,13 +1396,14 @@ extern "C" int vocab_lse_dx(const void* x, const void* W, int ldw, const void* b
 
 // dW (K, Vp) f32 and db (Vp,) f32 out, Vp = V rounded up to the 128
 // vocabulary columns of a block (`vocab_lse.dw_tiling`). K <= 256 runs the
-// wgmma kernel, a wider K the split kernel on clusters of K / 128. The
-// columns from V on are written as zeros; the caller slices them off.
+// wgmma kernel, a wider K the split kernel on clusters of K / 128 (9 and 10
+// non-portable, as for vocab_lse_dx). The columns from V on are written as
+// zeros; the caller slices them off.
 extern "C" int vocab_lse_dw(const void* x, const void* W, int ldw, const void* b,
                             const void* lse, const void* g, void* dw, void* db, int N, int K,
                             int V, int Vp, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  if (N <= 0 || V <= 0 || K <= 0 || K % 128 || K > 1024 || ldw < V || ldw % 8 || Vp < V ||
+  if (N <= 0 || V <= 0 || K <= 0 || K % 128 || K > K_MAX || ldw < V || ldw % 8 || Vp < V ||
       Vp % DW_BV)
     return (int)cudaErrorInvalidValue;
   Maps mp = {};
@@ -1329,6 +1412,9 @@ extern "C" int vocab_lse_dw(const void* x, const void* W, int ldw, const void* b
       (rc = hop_host::encode_bf16(&mp.w, W, K, V, ldw, 64)))
     return rc;
   const float *bf = (const float*)b, *lf = (const float*)lse, *gf = (const float*)g;
+  if (K / KS > MAX_C)
+    return launch_wide(vocab_lse_split_kernel<true, WIDE_C>, dim3(K / KS, Vp / DW_BV), K / KS, st,
+                       mp, bf, lf, gf, dw, (float*)db, N, K, V, Vp);
   if (K > HK_MAX)
     return launch_hk(vocab_lse_split_kernel<true>, dim3(K / KS, Vp / DW_BV), K / KS,
                      HTHREADS, split_smem(), st, mp, bf, lf, gf, dw, (float*)db, N, K, V,
@@ -1345,24 +1431,13 @@ extern "C" int vocab_lse_dw(const void* x, const void* W, int ldw, const void* b
 // The clusters of the split kernel at K (dx, or dw when `dw`) that the card
 // holds at once (cudaOccupancyMaxActiveClusters), or a negative error.
 extern "C" int vocab_lse_split_clusters(int K, int dw) {
-  if (K <= HK_MAX || K % KS || K > MAX_C * KS) return -(int)cudaErrorInvalidValue;
-  const void* kern = dw ? (const void*)vocab_lse_split_kernel<true>
-                        : (const void*)vocab_lse_split_kernel<false>;
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)split_smem());
-  if (e != cudaSuccess) return -(int)e;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(K / KS, 1024);
-  cfg.blockDim = dim3(HTHREADS);
-  cfg.dynamicSmemBytes = split_smem();
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = K / KS;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int n = 0;
-  e = cudaOccupancyMaxActiveClusters(&n, kern, &cfg);
-  return e == cudaSuccess ? n : -(int)e;
+  if (K <= HK_MAX || K % KS || K > K_MAX) return -(int)cudaErrorInvalidValue;
+  const int C = K / KS;
+  if (C > MAX_C)
+    return held_clusters(dw ? (const void*)vocab_lse_split_kernel<true, WIDE_C>
+                            : (const void*)vocab_lse_split_kernel<false, WIDE_C>,
+                         C, split_smem_wide());
+  return held_clusters(dw ? (const void*)vocab_lse_split_kernel<true>
+                          : (const void*)vocab_lse_split_kernel<false>,
+                       C, split_smem());
 }

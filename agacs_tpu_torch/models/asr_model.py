@@ -111,17 +111,19 @@ class ASRModelConfig:
 
 
 def init_asr_params(generator: torch.Generator, cfg: ASRModelConfig) -> dict:
-    """Random float32 state dict (CPU): the whisper parameters, with
-    `estimate_c` the learnable `estimated_c_val` [c_val_attention], and,
-    with a nonzero ctc_weight, the CTC head (normal / sqrt(d), zero bias;
-    JAX `init_asr_params`)."""
+    """Random float32 state dict on the generator's device: the whisper
+    parameters, with `estimate_c` the learnable `estimated_c_val`
+    [c_val_attention], and, with a nonzero ctc_weight, the CTC head (normal
+    / sqrt(d), zero bias; JAX `init_asr_params`)."""
     sd = init_whisper_params(generator, cfg.whisper)
+    dev = generator.device
     if cfg.estimate_c:
-        sd["estimated_c_val"] = torch.tensor([cfg.c_val_attention], dtype=torch.float32)
+        sd["estimated_c_val"] = torch.tensor([cfg.c_val_attention], dtype=torch.float32,
+                                             device=dev)
     if cfg.ctc_weight != 0.0:
         d, v = cfg.whisper.n_audio_state, cfg.whisper.n_vocab
-        sd["ctc.weight"] = torch.randn(v, d, generator=generator) / np.sqrt(d)
-        sd["ctc.bias"] = torch.zeros(v)
+        sd["ctc.weight"] = torch.randn(v, d, generator=generator, device=dev) / np.sqrt(d)
+        sd["ctc.bias"] = torch.zeros(v, device=dev)
     return sd
 
 

@@ -1044,41 +1044,45 @@ def encoder_olens(ilens_frames: torch.Tensor, cfg: WhisperConfig) -> torch.Tenso
 
 
 def init_whisper_params(generator: torch.Generator, cfg: WhisperConfig) -> dict:
-    """Random float32 state dict (CPU) with the JAX init's distributions:
-    linears uniform(±1/sqrt(d_in)), layer norms 1/0, conv stem
-    normal/sqrt(3·d_in) with zero bias, PE gates uniform(0, 1), the side
-    ladders' gates and gate_output uniform(-1, 1), token_emb normal·0.02,
-    pos_emb normal·0.01. Numbers differ from the JAX init (another
-    generator)."""
+    """Random float32 state dict, on the generator's device (a CUDA
+    generator makes whisper-large's 1.55B values on the card), with the JAX
+    init's distributions: linears uniform(±1/sqrt(d_in)), layer norms 1/0,
+    conv stem normal/sqrt(3·d_in) with zero bias, PE gates uniform(0, 1),
+    the side ladders' gates and gate_output uniform(-1, 1), token_emb
+    normal·0.02, pos_emb normal·0.01. Numbers differ from the JAX init
+    (another generator)."""
     sd = {}
+    dev = generator.device
     meta = Whisper(cfg, device="meta")
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=generator, device=dev)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=generator, device=dev)
+
     for name, mod in meta.named_modules():
         pre = name + "."
         if isinstance(mod, nn.Linear):
             bound = 1.0 / math.sqrt(mod.in_features)
-            sd[pre + "weight"] = (torch.rand(mod.weight.shape, generator=generator)
-                                  * 2 - 1) * bound
+            sd[pre + "weight"] = (rand(mod.weight.shape) * 2 - 1) * bound
             if mod.bias is not None:
-                sd[pre + "bias"] = (torch.rand(mod.bias.shape, generator=generator)
-                                    * 2 - 1) * bound
+                sd[pre + "bias"] = (rand(mod.bias.shape) * 2 - 1) * bound
         elif isinstance(mod, nn.LayerNorm):
-            sd[pre + "weight"] = torch.ones(mod.weight.shape)
-            sd[pre + "bias"] = torch.zeros(mod.bias.shape)
+            sd[pre + "weight"] = torch.ones(mod.weight.shape, device=dev)
+            sd[pre + "bias"] = torch.zeros(mod.bias.shape, device=dev)
         elif isinstance(mod, nn.Conv1d):
             c_out, c_in, w = mod.weight.shape
-            sd[pre + "weight"] = torch.randn(mod.weight.shape, generator=generator) \
-                / math.sqrt(w * c_in)
-            sd[pre + "bias"] = torch.zeros(c_out)
+            sd[pre + "weight"] = randn(mod.weight.shape) / math.sqrt(w * c_in)
+            sd[pre + "bias"] = torch.zeros(c_out, device=dev)
         elif isinstance(mod, MultiHeadAttention) and mod.pe:
-            sd[pre + "gate"] = torch.rand(mod.n_head, generator=generator)
+            sd[pre + "gate"] = rand(mod.n_head)
         elif isinstance(mod, _Side):
-            sd[pre + "gates"] = torch.rand(len(mod.layers), generator=generator) * 2 - 1
+            sd[pre + "gates"] = rand(len(mod.layers)) * 2 - 1
             if isinstance(mod, EncoderSide):
-                sd[pre + "gate_output"] = torch.rand(1, generator=generator) * 2 - 1
-    sd["decoder.token_embedding.weight"] = torch.randn(
-        cfg.n_vocab, cfg.n_text_state, generator=generator) * 0.02
-    sd["decoder.positional_embedding"] = torch.randn(
-        cfg.n_text_ctx, cfg.n_text_state, generator=generator) * 0.01
+                sd[pre + "gate_output"] = rand(1) * 2 - 1
+    sd["decoder.token_embedding.weight"] = randn(cfg.n_vocab, cfg.n_text_state) * 0.02
+    sd["decoder.positional_embedding"] = randn(cfg.n_text_ctx, cfg.n_text_state) * 0.01
     return sd
 
 

@@ -16,7 +16,9 @@ float32, as JAX's `_bwd_pallas` returns them). On a CPU tensor it runs the
 plain versions `lse_plain` (JAX `_einsum_ref`) and `lse_bwd_plain` (the
 kernels' arithmetic), on a CUDA tensor it launches K4 or raises: the card
 has no dense-logits fallback. K4 takes bf16 x and w, float32 b, and any K
-up to 1024. The kernels take K a multiple of 128, so the wrapper pads a K
+up to K_MAX, 1280 (whisper-large's width; above it `streaming_lse` raises
+on a CUDA tensor, while JAX's takes any K). The kernels take K a multiple
+of 128, so the wrapper pads a K
 that is not (the transducer joint's 320 goes to 384): zero columns of x
 and zero rows of w, which add nothing to any product, so lse is exact;
 dx's padded columns and dW's padded rows are dropped. The padding is work
@@ -46,9 +48,11 @@ and 9.12 ms on an H100 against a bound of 0.40 ms each). `dx_tiling`
 splits each 128-row tile's V sweep over a cluster of C blocks whose f32
 partials are summed in rank order; `dw_tiling` gives each block 128
 vocabulary columns; the ring depth, 4 slots, is fixed in the source.
-Above K 256 (the whisper family's CTC head: K 384 to 1024) one output tile
+Above K 256 (the whisper family's CTC head: K 384 to 1280) one output tile
 (dx: 128 rows; dw: 128 vocabulary columns) is split over a cluster of C =
-K / 128 blocks, rank r owning the K-slice [128 r, 128 (r + 1)) of the
+K / 128 blocks (above K 1024, C 9 or 10, a non-portable cluster that the
+C entries launch only where `cudaOccupancyMaxActiveClusters` says the card
+holds one), rank r owning the K-slice [128 r, 128 (r + 1)) of the
 accumulator and of the resident operand: each rank computes its partial S
 over its slice, the ranks add their partials in rank order through
 distributed shared memory, and each then adds P (or dz^T) times its slice
@@ -79,6 +83,7 @@ DX_BM = 128       # dx: rows a block owns
 VT = 64           # columns of a streamed W tile
 DW_BV = 128       # dw: vocabulary columns a block owns
 MAX_C = 8         # dx, forward: blocks of a cluster (the portable size)
+K_MAX = 1280      # the widest K the kernels take (whisper-large's d; a cluster of 10 above)
 STAGES = 4        # ring slots
 FWD_KC = 64       # forward: W rows of a ring slot above HK_MAX (64 x 64 chunks)
 SMEM_MAX = 232448  # a block's shared memory on sm_90 (227 KB)
@@ -120,7 +125,8 @@ def dx_tiling(n: int, k: int, v: int, sms: int) -> dict:
     (C, ceil(N / 128)) blocks in clusters of C, C the largest of 1, 2, 4, 8
     with no more blocks than SMs and no more ranks than V's 64-column tiles;
     above, the split kernel on (C, ceil(N / 128)) blocks, C = K / KS ranks
-    each owning a KS-wide slice of dx's columns."""
+    each owning a KS-wide slice of dx's columns (C 9 and 10, above K
+    1024, beyond the portable MAX_C)."""
     if k > HK_MAX:
         return {"route": "split", "C": k // KS, "KS": KS}
     return {"route": "wgmma", "C": _cluster(-(-n // DX_BM), v, sms)}
@@ -131,7 +137,7 @@ def dw_tiling(k: int) -> dict:
     columns are padded: 128, two warpgroups of 64. At K <= 256 the wgmma
     kernel, each warpgroup keeping its 64 x K dW^T in registers; above, the
     split kernel on clusters of C = K / KS ranks, each owning a KS-wide
-    slice of dW's rows."""
+    slice of dW's rows (C 9 and 10 above K 1024, as dx's)."""
     if k > HK_MAX:
         return {"route": "split", "BV": DW_BV, "C": k // KS, "KS": KS}
     return {"route": "wgmma", "BV": DW_BV}
@@ -162,6 +168,13 @@ def padded_k(k: int) -> int:
 
 
 def _check(x, w, b) -> None:
+    n, k = x.shape
+    if w.shape[0] != k or b.shape != (w.shape[1],):
+        raise ValueError(f"vocab_lse: x {tuple(x.shape)}, w {tuple(w.shape)}, "
+                         f"b {tuple(b.shape)}")
+    if not 0 < k <= K_MAX:
+        raise ValueError(f"vocab_lse: K {k}; K4 takes K up to K_MAX {K_MAX} (padded to a "
+                         f"multiple of {KP} inside)")
     if x.device.type != "cuda":
         raise ValueError(f"vocab_lse: K4 runs on a CUDA tensor, not on {x.device}")
     for name, t, want in (("x", x, torch.bfloat16), ("w", w, torch.bfloat16),
@@ -169,13 +182,6 @@ def _check(x, w, b) -> None:
         if t.dtype != want or t.device != x.device or not t.is_contiguous():
             raise ValueError(f"vocab_lse: {name} is {t.dtype} on {t.device}; K4 takes a "
                              f"contiguous {want} on {x.device}")
-    n, k = x.shape
-    if w.shape[0] != k or b.shape != (w.shape[1],):
-        raise ValueError(f"vocab_lse: x {tuple(x.shape)}, w {tuple(w.shape)}, "
-                         f"b {tuple(b.shape)}")
-    if not 0 < k <= 1024:
-        raise ValueError(f"vocab_lse: K {k}; K4 takes K up to 1024 (padded to a multiple "
-                         f"of {KP} inside)")
 
 
 def _stream(x):

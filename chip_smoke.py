@@ -10,7 +10,9 @@ the ladder side network's serving and training, the SEAME recipe's
 run.sh stages 0-6 through the port's CLIs, the train CLI's options
 (resume, batch types, augmentation, prefetch, estimate_c, lid_ce) and its
 multi-GPU training through torchrun (NCCL at one rank with ZeRO-1 and the
-sharded checkpoint, 2 gloo ranks on the one card), once on one CUDA card.
+sharded checkpoint, 2 gloo ranks on the one card), and whisper-large at
+full width (K4 above K 1024, its training and greedy serving), once on one
+CUDA card.
 
     python3 chip_smoke.py              # every phase below
     python3 chip_smoke.py --mutants    # the kernel checks against mutants
@@ -161,7 +163,7 @@ non-zero exit:
      cast (`freeze_quant: int8`): ms per step, audio-s/s and peak memory
      beside phase 7's (and the bytes of the int8 weights kept transposed
      for K8g and K2), exact K2f/K2b/K8 launch counts per micro-step
-     (INT8_TRAIN_LAUNCHES), the int8 buffers bit-identical, adapters changed;
+     (`int8_train_launches`), the int8 buffers bit-identical, adapters changed;
   14. torch.profiler over one more int8 step: busy, idle share, the K2 and
      K8 shares, the top kernels;
   15. one int8 micro-step on one utterance, card (bf16, kernels) against
@@ -301,13 +303,14 @@ non-zero exit:
      profiler, one step's n-gram scores over 40 x 51865 candidates equal to
      the CPU's element for element, and two CTC prefix steps' increments
      against CPU float32 on the same log-probs;
-  47. `bin.transcribe --long_form --word_timestamps` on a generated 75 s
-     wav (whisper-small bf16, a .params.npz under build/): at least three
+  47. `bin.transcribe --long_form --word_timestamps` on a generated 45 s
+     wav (whisper-small bf16, a .params.npz under build/): at least two
      windows, every window's tokens under the timestamp rules (1-4 by
      token, all five on a replay through the cached step), segment and
      word times never decreasing, the DTW library built, K1f and K3
      launched; ms per window.
-  48. multi-GPU training through torchrun (`python -m
+  48. (its launches start before phase 46 and run beside 46-47)
+     multi-GPU training through torchrun (`python -m
      torch.distributed.run --standalone`) at whisper-small's full width,
      stage-2 recipe, bf16, on phase 40's kind of data, beside the plain
      CLI's 2 epochs on the same data in this process: (a) one rank over
@@ -318,6 +321,21 @@ non-zero exit:
      int8 trunk at one rank, 1 epoch; (d) rank 0's profiled step in (a)
      and (c): K1f/K1b (and K2f/K2b/K8) device events against its launches;
      (e) each rank's peak memory and step time.
+  49. whisper-large (d 1280, 20 heads, 32 + 32 layers, vocabulary 51865) at
+     full width on random weights made on the card from a torch seed:
+     (a) K4 above K 1024 (the split dx and dw on a non-portable cluster of
+     9 or 10) at the CTC head's (12000, 1280) x (1280, 51865), a ragged K
+     1200 and K 1152 against the plain versions (phase 2v's bounds, NaN
+     past the ends, bit-identical twice, one launch a call), the clusters
+     the card holds, timed beside plain, cuBLAS with the logits and the
+     bound; K1f / K1b, K3 and K8 (wide and `thin_matmul`) at its shapes;
+     (b) the stage-2 step at 16 x 15 s, bf16 then int8 trunk (its MLPs
+     unfused, as JAX's budget rules); (c) the TMECS CTC full fine-tune
+     (K4 at K 1280, AdamW over 1.55B parameters); (d) greedy serving
+     (decode_asr_whisper.yaml) at 8 x 15 s, 100 steps, bf16 then int8
+     trunk; each with ms, busy, idle share, peak memory and exact launch
+     counts; (e) the card in bf16 against the CPU in float32 at full width
+     on 4 + 4 layers: encoder, first-step logits, and a CTC micro-step.
 
 The last three lines are the card's `name, power.limit` (nvidia-smi), a
 JSON line with each kernel's launches, error and times, and the
@@ -427,17 +445,34 @@ RESCORE_REL = {"card": 2e-3, "cpu": 2e-3}
 # output (2^-9 relative) and, in K2, a hidden value that an ulp of exp
 # moves across a rounding boundary (one int8 step of one hidden value, a
 # few 1e-4 of the largest output): KERNEL_RTOL of max |plain|.
-# Phase 13's launches per micro-step, derived from which inputs need a
-# gradient. Forward: the encoder's fused q/k/v and out per layer (24) and
-# the decoder's fused self q/k/v, self out, cross q, fused cross k/v and
-# cross out per layer (60), as JAX's `mha` fuses them (`fused_linears`);
-# the MLPs run K2f (12000 and 16 x 33 = 528 rows, both >= 256). Dgrad:
-# nothing upstream of encoder layer 0's and decoder layer 0's
-# self-attention trains, so those take none: encoder layers 1-11 x 2,
-# decoder layer 0's cross q, k/v and out (3; the encoder output takes a
-# gradient through its adapters), decoder layers 1-11 x 5; every MLP's
-# input trains (K2b 24).
-INT8_TRAIN_LAUNCHES = {"K2f": 24, "K2b": 24, "K8g": 84, "K8g dgrad": 80, "K8q": 164}
+
+
+def int8_train_launches(cfg) -> dict:
+    """The int8 step's launches per micro-step (phases 13 and 49), derived
+    from which inputs need a gradient; whisper-small: K2f 24, K2b 24, K8g
+    84, K8g dgrad 80, K8q 164. Forward: the encoder's fused q/k/v and out
+    per layer and the decoder's fused self q/k/v, self out, cross q, fused
+    cross k/v and cross out per layer, as JAX's `mha` fuses them
+    (`fused_linears`); the MLPs run K2f (12000 and 16 x 33 = 528 rows, both
+    >= 256), or, where JAX's budget (`int8_mlp.supports`) excludes them
+    (whisper-medium and -large), fc1 and fc2 as two int8 linears. Dgrad:
+    nothing upstream of encoder layer 0's and decoder layer 0's
+    self-attention trains, so those take none: encoder layers 1-11 x 2,
+    decoder layer 0's cross q, k/v and out (3; the encoder output takes a
+    gradient through its adapters), decoder layers 1-11 x 5; every MLP's
+    input trains (K2b, or fc2's and fc1's dgrad). Each K8g call quantises
+    its input first (K8q)."""
+    from agacs_tpu_torch.ops import int8_mlp
+
+    la, lt = cfg.n_audio_layer, cfg.n_text_layer
+    fused = int8_mlp.supports(cfg.n_audio_state, 4 * cfg.n_audio_state)
+    mlp = 0 if fused else 2
+    fwd = (2 + mlp) * la + (5 + mlp) * lt
+    dgrad = 2 * (la - 1) + 3 + 5 * (lt - 1) + mlp * (la + lt)
+    k2 = (la + lt) if fused else 0
+    return {"K2f": k2, "K2b": k2, "K8g": fwd, "K8g dgrad": dgrad, "K8q": fwd + dgrad}
+
+
 # Phase 15 (int8 train parity, card bf16 kernels vs CPU f32 plain
 # versions, same int8 weights) and phase 16 (int8 first-step logits, rel
 # L2): bounds set from the H100 readings (PERF.md, Findings).
@@ -571,9 +606,9 @@ def k1_cases(big) -> list:
     return [(b, t, False) for b, t in (*big, *K1_TAILS)] + [(*K1_DEEP, True)]
 
 
-def k1_qkv(g, dev, b: int, t: int, deep: bool):
-    """sharp_qkv at (b, t, D); `deep`: the K1_DEEP inputs."""
-    return sharp_qkv(g, dev, (b, t, D), (b, t, D), **(K1_DEEP_QK if deep else {}))
+def k1_qkv(g, dev, b: int, t: int, deep: bool, d: int = D):
+    """sharp_qkv at (b, t, d); `deep`: the K1_DEEP inputs."""
+    return sharp_qkv(g, dev, (b, t, d), (b, t, d), **(K1_DEEP_QK if deep else {}))
 
 
 def check_k1(dev, g, timed=True) -> dict:
@@ -617,10 +652,12 @@ def lse_ref(q, k, n_head):
     return torch.logsumexp(s, -1)
 
 
-def check_k1_train(dev, g, timed=True) -> tuple[dict, dict]:
+def check_k1_train(dev, g, timed=True, d: int = D, h: int = H,
+                   big=((16, 750), (2, 1500)), phase: str = "2b") -> tuple[dict, dict]:
     """Phase 2b: K1f as the training path launches it (with the lse rows)
     and K1b, at the training shapes (16, 750, 768) and (2, 1500, 768)
-    (timed), the tail shapes and the deep case. K1f's o is held within
+    (timed), the tail shapes and the deep case (phase 49: at whisper-large's
+    width `d`, `h` heads, and its `big` shapes). K1f's o is held within
     KERNEL_RTOL of its plain version and its lse within LSE_ATOL of the
     plain f32 log-sum-exp; K1b's dq, dk and dv each within K1B_RTOL x its
     own max |plain|, the kernel and the plain version reading the same bf16
@@ -629,34 +666,33 @@ def check_k1_train(dev, g, timed=True) -> tuple[dict, dict]:
     Returns (K1f's, K1b's) errors and times at (16, 750, 768)."""
     from agacs_tpu_torch.ops import flash_train
 
-    big = ((16, 750), (2, 1500))
     fwd, res = {"err": 0.0, "lse_err": 0.0}, {"err": 0.0}
     for b, t, deep in k1_cases(big):
         clock = timed and (b, t) in big
-        shape = f"({b}, {t}, {D}) H={H}{' deep' if deep else ''}"
-        qkv = [k1_qkv(g, dev, b, t, deep) for _ in range(4 if clock else 1)]
+        shape = f"({b}, {t}, {d}) H={h}{' deep' if deep else ''}"
+        qkv = [k1_qkv(g, dev, b, t, deep, d) for _ in range(4 if clock else 1)]
         q, k, v = qkv[0]
-        o, lse = flash_train._fwd_kernel(q, k, v, H, with_lse=True)
+        o, lse = flash_train._fwd_kernel(q, k, v, h, with_lse=True)
         err = hold("K1f", o, flash_train.packed_flash_mha_ref(
-            q.float(), k.float(), v.float(), H), (b, t, D))
-        lse_err = (lse - lse_ref(q, k, H)).abs().max().item()
-        check(tuple(lse.shape) == (b, H, t) and lse_err <= LSE_ATOL,
-              f"K1f lse ({b}, {H}, {t}): max_abs_err {lse_err} <= {LSE_ATOL}")
+            q.float(), k.float(), v.float(), h), (b, t, d))
+        lse_err = (lse - lse_ref(q, k, h)).abs().max().item()
+        check(tuple(lse.shape) == (b, h, t) and lse_err <= LSE_ATOL,
+              f"K1f lse ({b}, {h}, {t}): max_abs_err {lse_err} <= {LSE_ATOL}")
         fwd["err"], fwd["lse_err"] = max(fwd["err"], err), max(fwd["lse_err"], lse_err)
-        line = (f"phase 2b K1f packed_flash_fwd with lse {shape}: o "
+        line = (f"phase {phase} K1f packed_flash_fwd with lse {shape}: o "
                 f"max_abs_err {err:.3e} (bound {KERNEL_RTOL} x max|plain f32|), lse "
                 f"max_abs_err {lse_err:.3e} (bound {LSE_ATOL})")
         if clock:
-            ms = cuda_ms(lambda q, k, v: flash_train._fwd_kernel(q, k, v, H, True),
+            ms = cuda_ms(lambda q, k, v: flash_train._fwd_kernel(q, k, v, h, True),
                          qkv, 20)
             plain_ms = cuda_ms(
-                lambda q, k, v: (flash_train.packed_flash_mha_ref(q, k, v, H),
-                                 lse_ref(q, k, H)), qkv, 10)
+                lambda q, k, v: (flash_train.packed_flash_mha_ref(q, k, v, h),
+                                 lse_ref(q, k, h)), qkv, 10)
             if t == 750:
-                sd_sets = [tuple(sdpa_heads(x, H) for x in s) for s in qkv]
+                sd_sets = [tuple(sdpa_heads(x, h) for x in s) for s in qkv]
                 lib = cuda_ms(torch.nn.functional.scaled_dot_product_attention, sd_sets, 20)
                 fwd.update(ms=ms, plain_ms=plain_ms, library_ms=lib,
-                           **roofline(4 * b * t * D * 2 + b * H * t * 4, 4 * b * H * t * t * 64,
+                           **roofline(4 * b * t * d * 2 + b * h * t * 4, 4 * b * h * t * t * 64,
                                    "bf16"))
                 line += f" sdpa {lib:.4f} ms"
             line += (f" kernel {ms:.4f} ms plain (bf16 o, f32 lse) "
@@ -666,14 +702,14 @@ def check_k1_train(dev, g, timed=True) -> tuple[dict, dict]:
 
         sets = []
         for q, k, v in qkv:
-            o, lse = flash_train._fwd_kernel(q, k, v, H, with_lse=True)
-            do = torch.randn(b, t, D, generator=g).to(dev, torch.bfloat16)
-            sets.append((q, k, v, o, lse, do, H))
+            o, lse = flash_train._fwd_kernel(q, k, v, h, with_lse=True)
+            do = torch.randn(b, t, d, generator=g).to(dev, torch.bfloat16)
+            sets.append((q, k, v, o, lse, do, h))
         q, k, v, o, lse, do, _ = sets[0]
-        grads = flash_train.packed_flash_mha_bwd(q, k, v, o, lse, do, H)
-        again = flash_train.packed_flash_mha_bwd(q, k, v, o, lse, do, H)
+        grads = flash_train.packed_flash_mha_bwd(q, k, v, o, lse, do, h)
+        again = flash_train.packed_flash_mha_bwd(q, k, v, o, lse, do, h)
         plain = flash_train.packed_flash_mha_bwd_ref(
-            q.float(), k.float(), v.float(), o.float(), do.float(), H)
+            q.float(), k.float(), v.float(), o.float(), do.float(), h)
         torch.cuda.synchronize()
         errs = []
         for name, out, ref in zip(("dq", "dk", "dv"), grads, plain):
@@ -686,7 +722,7 @@ def check_k1_train(dev, g, timed=True) -> tuple[dict, dict]:
             res["err"] = max(res["err"], err)
         check(all(torch.equal(x, y) for x, y in zip(grads, again)),
               f"K1b {shape}: two runs on the same inputs give bit-identical dq, dk, dv")
-        line = (f"phase 2b K1b packed_flash_bwd {shape}: " + ", ".join(errs)
+        line = (f"phase {phase} K1b packed_flash_bwd {shape}: " + ", ".join(errs)
                 + f" (bound {K1B_RTOL} x max|plain f32|), two runs bit-identical")
         if clock:
             ms = cuda_ms(flash_train.packed_flash_mha_bwd, sets, 10)
@@ -696,16 +732,16 @@ def check_k1_train(dev, g, timed=True) -> tuple[dict, dict]:
             if t == 750:
                 lib_sets = []
                 for q, k, v, _, _, do, _ in sets:
-                    qs, ks, vs = (sdpa_heads(x, H).detach().requires_grad_() for x in (q, k, v))
+                    qs, ks, vs = (sdpa_heads(x, h).detach().requires_grad_() for x in (q, k, v))
                     o_s = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs)
-                    lib_sets.append((o_s, (qs, ks, vs), sdpa_heads(do, H)))
+                    lib_sets.append((o_s, (qs, ks, vs), sdpa_heads(do, h)))
                 lib = cuda_ms(lambda o_s, ins, do_s: torch.autograd.grad(
                     o_s, ins, do_s, retain_graph=True), lib_sets, 10)
                 del lib_sets
                 # the least backward: S, dP, dV, dQ, dK, 2 T^2 d_head each
                 res.update(ms=ms, plain_ms=plain_ms, library_ms=lib,
-                           **roofline(8 * b * t * D * 2 + b * H * t * 4,
-                                   10 * b * H * t * t * 64, "bf16"))
+                           **roofline(8 * b * t * d * 2 + b * h * t * 4,
+                                   10 * b * h * t * t * 64, "bf16"))
                 line += f" sdpa backward {lib:.4f} ms"
             line += f" kernel {ms:.4f} ms plain bf16 {plain_ms:.4f} ms"
         if timed:
@@ -745,15 +781,16 @@ K3_CASES = ((8, 112, D, H, 0, True), (8, 112, D, H, 4, True), (8, 112, D, H, 57,
             (2, 752, D, H, 749, False))
 
 
-def check_k3(dev, g, timed=True) -> dict:
-    """Phase 3: K3 against its plain version at K3_CASES. Keys past pos are
-    poisoned in the kernel's input (score 0, far above the others, and
-    value 1e4), so a kernel that reads one fails; every call is made twice
-    and must repeat bit for bit."""
+def check_k3(dev, g, timed=True, cases=K3_CASES, phase: str = "3") -> dict:
+    """Phase 3: K3 against its plain version at `cases` (K3_CASES; phase 49
+    passes whisper-large's and its label). Keys past pos are poisoned in
+    the kernel's input (score 0, far above the others, and value 1e4), so a
+    kernel that reads one fails; every call is made twice and must repeat
+    bit for bit."""
     from agacs_tpu_torch.ops import decode_attn
 
     res = {"err": 0.0}
-    for n, tp, d, h, pos, timed_case in K3_CASES:
+    for n, tp, d, h, pos, timed_case in cases:
         sets = [(*sharp_qkv(g, dev, (n, d), (n, tp, d), q_scale=0.125), pos, h)
                 for _ in range(8 if timed and timed_case else 1)]
         q, k, v, _, _ = sets[0]
@@ -764,7 +801,7 @@ def check_k3(dev, g, timed=True) -> dict:
                    decode_attn.decode_cache_attention_ref(
                        q.float(), k.float(), v.float(), pos, h), (n, tp, d))
         res["err"] = max(res["err"], err)
-        line = (f"phase 3 K3 decode_attn ({n}, {tp}, {d}) H={h} pos={pos} S={s}: "
+        line = (f"phase {phase} K3 decode_attn ({n}, {tp}, {d}) H={h} pos={pos} S={s}: "
                 f"max_abs_err {err:.3e} (bound {KERNEL_RTOL} x max|plain f32|), bit-identical "
                 f"twice")
         if timed and timed_case:
@@ -1187,9 +1224,13 @@ def wide_into(buf, q, s, w_q, w_s=None, w_t=None) -> None:
                       torch.cuda.current_stream(q.device).cuda_stream), "int8_gemm")
 
 
-def check_k8(dev, g, timed=True) -> dict:
+def check_k8(dev, g, timed=True, shapes=K8_SHAPES, entries=(K8_SHAPES[0], K8_THIN_ENTRY),
+             phase: str = "2i", profiled: bool = True) -> dict:
     """Phase 2i: K8q (rowquant) and K8g (int8_gemm, forward and dgrad)
-    against their plain versions at K8_SHAPES. Above 64 rows the forward
+    against their plain versions at `shapes` (K8_SHAPES; phase 49 passes
+    whisper-large's, with its wide and thin `entries` and its label, and
+    `profiled` False: the one-event-a-call profiles are phase 2i's, the
+    launch counts hold at every shape). Above 64 rows the forward
     and every dgrad run the wide kernel (`int8_linear.gemm_tiling`), the
     forward on the kept w_q^T; at 64 rows or fewer the forward is one
     launch, `thin_matmul` (K8q folded into the thin K8g). Each product is
@@ -1211,7 +1252,7 @@ def check_k8(dev, g, timed=True) -> dict:
     bf16 = torch.bfloat16
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     profiles = []  # one-launch checks, after every value check (a mutant fails on its fault)
-    for m, k, n in K8_SHAPES:
+    for m, k, n in shapes:
         thin = i8.thin_gemm(m, False)
         # > 50 MB of distinct buffers per cycle: the weights at decode shapes
         n_sets = (max(4, -(-(64 << 20) // (k * n))) if thin else 4) if timed else 1
@@ -1266,7 +1307,7 @@ def check_k8(dev, g, timed=True) -> dict:
                   f"K8g wide {what} {shape}: the output's rows, and none past M, written")
         res["thin" if thin else "fwd"]["err"] = max(res["thin" if thin else "fwd"]["err"], err)
         res["dgrad"]["err"] = max(res["dgrad"]["err"], d_err)
-        line = (f"phase 2i K8 {shape}: K8q q/s identical to plain; "
+        line = (f"phase {phase} K8 {shape}: K8q q/s identical to plain; "
                 + (f"thin_matmul (BN, S) {int8_serve.thin_tiling(m, n, k, int8_serve.K8_KR)}"
                    if thin else f"wide (BM, BN) {i8.gemm_tiling(m, n, sms)}")
                 + f", dgrad wide (BM, BN) {i8.gemm_tiling(m, k, sms)}: bit-identical twice "
@@ -1310,21 +1351,22 @@ def check_k8(dev, g, timed=True) -> dict:
             line += (" | " + ", ".join(f"{key} {v:.4f} ms" for key, v in t.items())
                      + f", bound fwd {bound['bound_ms']:.4f} ms ({bound['bound_by']}), dgrad "
                      f"{d_bound['bound_ms']:.4f} ms")
-            if (m, k, n) == K8_SHAPES[0]:
+            if (m, k, n) == entries[0]:
                 res["q"].update(ms=t["q"], plain_ms=t["q_plain"], library_ms=None,
                                 **roofline(m * k * 2 + m * k + m * 4, 4 * m * k, "f32"))
                 res["fwd"].update(ms=t["fwd"], plain_ms=t["fwd_plain"],
                                   library_ms=t["fwd_lib"], **bound)
                 res["dgrad"].update(ms=t["dgrad"], plain_ms=t["dgrad_plain"],
                                     library_ms=t["dgrad_lib"], **d_bound)
-            if (m, k, n) == K8_THIN_ENTRY:
+            if (m, k, n) == entries[1]:
                 res["thin"].update(ms=t["fwd"], plain_ms=t["fwd_plain"],
                                    library_ms=t["fwd_cublas_bf16"], **bound)
         print(line, flush=True)
-    for what, fn, word in profiles:
-        one_launch(what, fn, word, 1)
-    print(f"phase 2i K8: one device event a call in each of the {len(profiles)} products",
-          flush=True)
+    if profiled:
+        for what, fn, word in profiles:
+            one_launch(what, fn, word, 1)
+        print(f"phase {phase} K8: one device event a call in each of the {len(profiles)} "
+              "products", flush=True)
     return res
 
 
@@ -1784,13 +1826,30 @@ def check_k4(dev, g, timed=True) -> dict:
     return res
 
 
+def k4_waves(n: int, k: int, v: int) -> str:
+    """The clusters of the split dx and dw kernels at K that the card holds
+    at once (`vocab_lse_split_clusters`, which must be > 0), and the waves
+    their tiles take at (N, V)."""
+    from agacs_tpu_torch.ops import cuda_lib, vocab_lse
+
+    waves = []
+    for part, dw_flag, tiles in (("dx", 0, -(-n // vocab_lse.DX_BM)),
+                                 ("dw", 1, -(-v // vocab_lse.DW_BV))):
+        held = cuda_lib.load("vocab_lse", "vocab_lse_split_clusters",
+                             [ctypes.c_int, ctypes.c_int])(k, dw_flag)
+        check(held > 0, f"the card holds clusters of the split {part} kernel at K {k}: {held}")
+        waves.append(f"{part} {tiles} tiles x C {k // vocab_lse.KS} on {held} clusters at once: "
+                     f"{-(-tiles // held)} waves ({tiles / (-(-tiles // held) * held):.1%} full)")
+    return "; ".join(waves)
+
+
 def k4_wide(g, dev, sms: int) -> dict:
     """Phase 2v at K4_WIDE, the whisper CTC head's shape: the forward, dx and
     dw (b and g NaN past their ends) against their plain versions, then
     timed as at the training shape (`k4_times`), and the clusters of the
     split kernels the card holds at once, with the waves their tiles take.
     Returns {"fwd", "dx", "dw"} results."""
-    from agacs_tpu_torch.ops import cuda_lib, vocab_lse
+    from agacs_tpu_torch.ops import vocab_lse
 
     n, k, v = K4_WIDE
     res = {part: {"err": 0.0} for part in ("fwd", "dx", "dw")}
@@ -1807,19 +1866,11 @@ def k4_wide(g, dev, sms: int) -> dict:
                      n, k, v, res)
     del dx_p, dw_p, db_p, lse_p
     torch.cuda.empty_cache()
-    waves = []
-    for part, dw_flag, tiles in (("dx", 0, -(-n // vocab_lse.DX_BM)),
-                                 ("dw", 1, -(-v // vocab_lse.DW_BV))):
-        held = cuda_lib.load("vocab_lse", "vocab_lse_split_clusters",
-                             [ctypes.c_int, ctypes.c_int])(k, dw_flag)
-        check(held > 0, f"the card holds clusters of the split {part} kernel at K {k}: {held}")
-        waves.append(f"{part} {tiles} tiles x C {k // vocab_lse.KS} on {held} clusters at once: "
-                     f"{-(-tiles // held)} waves ({tiles / (-(-tiles // held) * held):.1%} full)")
     tf = vocab_lse.fwd_tiling(n, k, v, sms)
     line = (f"phase 2v K4 vocab_lse {K4_WIDE} (the whisper CTC head): max_abs_err "
             + ", ".join(f"{nm} {e:.3e}" for nm, e in errs.items())
             + f" (the bounds above), all finite; forward {tf['route']} (BM {tf['BM']}, C "
-            f"{tf['C']}); " + k4_backward_tiling(n, k, v, sms) + "; " + "; ".join(waves))
+            f"{tf['C']}); " + k4_backward_tiling(n, k, v, sms) + "; " + k4_waves(n, k, v))
     times, line = k4_times(g, dev, K4_WIDE, gr, 1, {"fwd": 10, "dx": 20, "dw": 20}, line)
     for part in res:
         res[part].update(times[part])
@@ -1867,7 +1918,7 @@ K4_ABLATIONS = {
          ""),
         ("    hop::mbar_wait_cluster(&pfull[x * 2 + wg], ((nt - 1) >> 1) & 1);\n", ""),
         ("  for (int j = 0; j < 8; ++j)\n    hop::st_async(", "  for (int j = 0; j < 0; ++j)\n    hop::st_async("),
-        ("    if (lq >= nq) break;\n    float4 v[MAX_C];", "    if (true) break;\n    float4 v[MAX_C];")],
+        ("    if (lq >= nq) break;\n    float4 z;", "    if (true) break;\n    float4 z;")],
 }
 
 
@@ -2097,29 +2148,44 @@ def device_profile(fn, counts: dict | None = None) -> tuple[float, int, dict]:
     kernel and 50 ms on the host lead in, outside the tallies, and 50 ms
     lead out: without them a kernel at an end of the trace was missing
     from it (H100: one of four K6 calls, or a lone K8g call, in a profile
-    of those calls alone)."""
+    of those calls alone). A profile that holds no device event at all
+    (H100: once, a lone K8g call's after several profiles of other calls)
+    is taken again, PROFILE_TRIES times at most, and says so. The device
+    records are read as the profiler keeps them (`kineto_results`), under
+    the names its events would carry: building its event tree
+    (`prof.events()`) for the ~160,000 records of a whisper-large greedy
+    request took longer than the request."""
     from torch.autograd import DeviceType
+    from torch.autograd.profiler_util import _rewrite_name
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(1000)
-        torch.cuda.synchronize()
-        time.sleep(0.05)
-        fn()
-        torch.cuda.synchronize()
-        time.sleep(0.05)
-    per_name: dict[str, float] = collections.defaultdict(float)
-    n_events = 0
-    for e in prof.events():
-        # record_function ranges (e.g. Optimizer.step) also show on the
-        # device timeline; they overlap the kernels, so they are skipped
-        if (e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
-                and "spin_kernel" not in e.name):
-            per_name[e.name] += e.time_range.elapsed_us() / 1e3
-            n_events += 1
-            if counts is not None:
-                counts[e.name] = counts.get(e.name, 0) + 1
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+        per_name: dict[str, float] = collections.defaultdict(float)
+        n_events, seen = 0, {}
+        for e in prof.profiler.kineto_results.events():
+            # record_function ranges (e.g. Optimizer.step) also show on the
+            # device timeline; they overlap the kernels, so they are skipped
+            if e.device_type() != DeviceType.CUDA or e.is_user_annotation():
+                continue
+            name = _rewrite_name(e.name(), with_wildcard=True)
+            if "spin_kernel" not in name:
+                per_name[name] += e.duration_ns() / 1e6
+                n_events += 1
+                seen[name] = seen.get(name, 0) + 1
+        if n_events:
+            break
+        print("device_profile: the profiler recorded no device event; taken again", flush=True)
     check(n_events > 0, "the profiler recorded device events")
+    if counts is not None:
+        for name, c in seen.items():
+            counts[name] = counts.get(name, 0) + c
     return sum(per_name.values()), n_events, per_name
 
 
@@ -2347,8 +2413,8 @@ def make_train_batch(b: int, seconds: int, dev) -> dict:
 
 
 def train_model(sd, dev, dtype, specaug: bool, int8: bool = False, pe: bool = False,
-                side: bool = False):
-    """The stage-2 recipe's trainable model: built in float32 from `sd`,
+                side: bool = False, size: str = "small"):
+    """The stage-2 recipe's trainable model (whisper `size`): built in float32 from `sd`,
     preset `adapter`, frozen parameters stored in `dtype` (then, with
     `int8`, quantised: `freeze_quant: int8`); with its config. A state dict
     that already holds int8 buffers builds the int8 trunk from them. With
@@ -2366,7 +2432,7 @@ def train_model(sd, dev, dtype, specaug: bool, int8: bool = False, pe: bool = Fa
         cfg = tw.make_config("small", side_network=tw.SideNetworkConfig(),
                              compute_dtype=dtype)
     else:
-        cfg = tw.make_config("small", adapter=True, adapter_encoder=True,
+        cfg = tw.make_config(size, adapter=True, adapter_encoder=True,
                              adapter_decoder=True, compute_dtype=dtype)
     model = tw.Whisper.from_state_dict(cfg, sd, device=dev, param_dtype=torch.float32)
     params = apply_freeze(model, "whisper_pe" if pe else "sidenetwork" if side else "adapter")
@@ -2411,15 +2477,21 @@ def reset_int8_counts() -> None:
     int8_linear.THIN_LAUNCHES = 0
 
 
-def train_phase(sd, dev, int8: bool = False, bf16: dict | None = None) -> dict:
+def train_phase(sd, dev, int8: bool = False, bf16: dict | None = None, size: str = "small",
+                steps: int = TRAIN_STEPS, phase: tuple | None = None,
+                keep_state: bool = False) -> dict:
     """Phases 7 and 8 (bf16 trunk), or 13 and 14 (`int8`: the trunk
     quantised; `bf16` is phase 7's result, printed beside it): timed
-    adapter + CS-loss optimizer steps, then one more under the profiler."""
+    adapter + CS-loss optimizer steps, then one more under the profiler;
+    `size`, `steps` and `phase` (the two lines' labels) for phase 49's
+    whisper-large, whose int8 serving loads the trained model's state
+    (`keep_state`: returned as "state", on the card)."""
     from agacs_tpu_torch.ops import flash_train
     from agacs_tpu_torch.train.optim import OptimConfig, build_optimizer
     from agacs_tpu_torch.train.trainer import make_train_step
 
-    model, params, acfg = train_model(sd, dev, torch.bfloat16, specaug=True, int8=int8)
+    model, params, acfg = train_model(sd, dev, torch.bfloat16, specaug=True, int8=int8,
+                                      size=size)
     n_layer = acfg.whisper.n_audio_layer
     opt, sched = build_optimizer(params, OptimConfig(warmup_steps=500))
     step = make_train_step(model, acfg, opt, sched, grad_clip=1.0,
@@ -2436,7 +2508,7 @@ def train_phase(sd, dev, int8: bool = False, bf16: dict | None = None) -> dict:
     reset_int8_counts()
     torch.cuda.reset_peak_memory_stats()
     times, losses = [], []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         t0 = time.perf_counter()
         stats = step([batch])
         torch.cuda.synchronize()
@@ -2451,14 +2523,15 @@ def train_phase(sd, dev, int8: bool = False, bf16: dict | None = None) -> dict:
           and int(stats["grad_nonfinite_total"]) == 0, f"finite losses {losses}")
     # layer 0's q/k/v need no gradient (nothing upstream of it trains), so
     # its attention takes no backward: 12 K1f and 11 K1b per micro-step
-    check(launches["K1f"] == n_layer * TRAIN_STEPS,
-          f"K1f launches {launches['K1f']} == {n_layer} x {TRAIN_STEPS}")
-    check(launches["K1b"] == (n_layer - 1) * TRAIN_STEPS,
-          f"K1b launches {launches['K1b']} == {n_layer - 1} x {TRAIN_STEPS}")
+    check(launches["K1f"] == n_layer * steps,
+          f"K1f launches {launches['K1f']} == {n_layer} x {steps}")
+    check(launches["K1b"] == (n_layer - 1) * steps,
+          f"K1b launches {launches['K1b']} == {n_layer - 1} x {steps}")
+    per_step = int8_train_launches(acfg.whisper)
     if int8:
-        want = {k: v * TRAIN_STEPS for k, v in INT8_TRAIN_LAUNCHES.items()}
+        want = {k: v * steps for k, v in per_step.items()}
         check({k: launches[k] for k in want} == want,
-              f"int8 launches {launches} == {INT8_TRAIN_LAUNCHES} x {TRAIN_STEPS}")
+              f"int8 launches {launches} == {per_step} x {steps}")
     state = dict(model.named_parameters(), **dict(model.named_buffers()))
     check(len(frozen) > 0 and all(torch.equal(state[n], t) for n, t in frozen.items()),
           "every frozen parameter and int8 buffer bit-identical after the steps")
@@ -2466,10 +2539,10 @@ def train_phase(sd, dev, int8: bool = False, bf16: dict | None = None) -> dict:
           "every adapter parameter changed")
     ms = statistics.median(times) * 1e3
     audio_s = TRAIN_B * TRAIN_S
-    phase = (13, 14) if int8 else (7, 8)
-    vs = (f" [phase 7 bf16: {bf16['ms']:.1f} ms/step, {audio_s / (bf16['ms'] / 1e3):.1f} "
+    phase = phase or ((13, 14) if int8 else (7, 8))
+    vs = (f" [the bf16 trunk's: {bf16['ms']:.1f} ms/step, {audio_s / (bf16['ms'] / 1e3):.1f} "
           f"audio-s/s, peak {bf16['peak_gb']:.2f} GB, loss {bf16['loss']:.3f}]") if bf16 else ""
-    print(f"phase {phase[0]} train: whisper-small+adapters, "
+    print(f"phase {phase[0]} train: whisper-{size}+adapters, "
           f"{'int8' if int8 else 'bf16'} trunk / f32 adapters, "
           f"{TRAIN_B} x {TRAIN_S} s, cs_weight 0.01, SpecAug on: {ms:.1f} ms/step "
           f"(median of {[round(t * 1e3, 1) for t in times]}), "
@@ -2479,7 +2552,7 @@ def train_phase(sd, dev, int8: bool = False, bf16: dict | None = None) -> dict:
           f"{sum(p.numel() for p in params) / 1e6:.2f}M trainable; losses (loss, "
           f"loss_cs) {[(round(a, 3), round(c, 3)) for a, c in losses]}; "
           f"launches {launches} (K1f {n_layer} and K1b {n_layer - 1} per step"
-          + (f", int8 {INT8_TRAIN_LAUNCHES} per step" if int8 else "") + ")" + vs,
+          + (f", int8 {per_step} per step" if int8 else "") + ")" + vs,
           flush=True)
 
     busy, n_events, per_name = device_profile(lambda: step([batch]))
@@ -2495,10 +2568,12 @@ def train_phase(sd, dev, int8: bool = False, bf16: dict | None = None) -> dict:
           + (f"; K2f {share('mlp_fwd_kernel')}, K2b {share('mlp_bwd_kernel')}, K8g "
              f"{share('gemm_kernel')}, K8q {share('rowquant_kernel')}" if int8 else "")
           + "; top: " + top_kernels(per_name), flush=True)
+    state = dict(model.state_dict()) if keep_state else None
     del model, opt, frozen, before
     torch.cuda.empty_cache()
     return {"launches": launches, "ms": ms, "peak_gb": peak_gb, "batch": batch,
-            "loss": float(np.mean([a for a, _ in losses]))}
+            "loss": float(np.mean([a for a, _ in losses])), "busy": busy,
+            "per_name": per_name, "state": state}
 
 
 def micro_step(sd, dev, dtype, one, int8: bool = False, pe: bool = False,
@@ -3116,10 +3191,11 @@ def int8_cross_phase(model, sd, asr_cfg, audio, bf16_greedy: dict, bf16_beam: di
     acfg8 = ASRModelConfig(whisper=cfg8)
     per = model.cfg.n_text_layer * (min(len(PRIMER) + 100, model.cfg.n_text_ctx) - 1)
     enc_layers = model.cfg.n_audio_layer
+    # one timed request each: the loop below times both cross-KV forms in turns
     greedy = serve("int8 cross-KV greedy", model8, acfg8, audio, 1,
-                   {"K1f": enc_layers, "K3": per, "K3-int8": per})
+                   {"K1f": enc_layers, "K3": per, "K3-int8": per}, timed=1)
     beam = serve("int8 cross-KV beam", model8, acfg8, audio, BEAM,
-                 {"K1f": enc_layers, "K3a": per, "K3s-int8": per})
+                 {"K1f": enc_layers, "K3a": per, "K3s-int8": per}, timed=1)
     with torch.inference_mode():
         enc, _ = encode(model, asr_cfg, torch.from_numpy(audio).to(dev),
                         torch.full((audio.shape[0],), audio.shape[1], device=dev))
@@ -3149,7 +3225,7 @@ def int8_cross_phase(model, sd, asr_cfg, audio, bf16_greedy: dict, bf16_beam: di
     k3i8 = sum(t for name, t in per_name.items() if "signed char>" in name)
     print(f"phase 18 int8 cross-KV serving (stage-2 model, bf16, 8 x 15 s, 100 steps): "
           f"greedy {greedy['ms']:.1f} ms/batch, beam {BEAM} {beam['ms']:.1f} ms/batch "
-          f"(medians of 3); alternating with the bf16 cross-KV, median of 2 each: greedy "
+          f"(one request each); alternating with the bf16 cross-KV, median of 2 each: greedy "
           f"bf16 {ms[('bf16', 1)]:.1f} / int8 {ms[('int8', 1)]:.1f} ms, beam bf16 "
           f"{ms[('bf16', BEAM)]:.1f} / int8 {ms[('int8', BEAM)]:.1f} ms; launches greedy "
           f"{greedy['launches']} beam {beam['launches']}; Tp {tp}, int8 buffers and "
@@ -3180,9 +3256,9 @@ def pe_serve_phase(dev, audio) -> dict:
     asr_cfg = ASRModelConfig(whisper=cfg)
     per = cfg.n_text_layer * (min(len(PRIMER) + 100, cfg.n_text_ctx) - 1)
     greedy = serve("PE greedy", model, asr_cfg, audio, 1,
-                   {"K1f": cfg.n_audio_layer, "K3-PE": per, "K3": per})
+                   {"K1f": cfg.n_audio_layer, "K3-PE": per, "K3": per}, timed=2)
     beam = serve("PE beam", model, asr_cfg, audio, BEAM,
-                 {"K1f": cfg.n_audio_layer, "K3a-PE": per, "K3s": per})
+                 {"K1f": cfg.n_audio_layer, "K3a-PE": per, "K3s": per}, timed=2)
     cpu_cfg = tw.make_config("small", pe_decoder=True, compute_dtype=torch.float32)
     cpu_model = tw.Whisper.from_state_dict(cpu_cfg, sd, device="cpu")
     lg_card, _ = first_step(model, asr_cfg, audio[:1])
@@ -3855,11 +3931,14 @@ def k4_counts() -> dict:
             "K4 dw": vocab_lse.DW_LAUNCHES}
 
 
-def whisper_ctc_model(dev, dtype, sd=None, specaug: bool = True):
+def whisper_ctc_model(dev, dtype, sd=None, specaug: bool = True, size: str = "small",
+                      layers: int | None = None):
     """The recipe's model as `bin.train` builds it (its config with
-    ctc_weight WHISPER_CTC_WEIGHT, float32 masters, the recipe's freeze
-    preset: none, so every parameter trains) from `sd`, or from random
-    weights with the CTC head (torch seed 7). Returns (model, trainable
+    ctc_weight WHISPER_CTC_WEIGHT and `whisper_model: size` in both parts,
+    float32 masters, the recipe's freeze preset: none, so every parameter
+    trains) from `sd`, or from random weights with the CTC head (torch seed
+    7; made on `dev` for a size other than the recipe's small); `layers`
+    cuts both stacks to that many blocks. Returns (model, trainable
     parameters, config, sd, raw config, task)."""
     import dataclasses
 
@@ -3869,28 +3948,37 @@ def whisper_ctc_model(dev, dtype, sd=None, specaug: bool = True):
 
     raw = load_yaml(os.path.join(ROOT, "recipes", "tmecs", "conf",
                                  "train_asr_whisper_small.yaml"))
-    raw = {**raw, "model_conf": {**raw["model_conf"], "ctc_weight": WHISPER_CTC_WEIGHT}}
+    raw = {**raw, "model_conf": {**raw["model_conf"], "ctc_weight": WHISPER_CTC_WEIGHT},
+           **{part: {**raw[part], "whisper_model": size}
+              for part in ("encoder_conf", "decoder_conf")}}
     task = task_from_dict(raw, compute_dtype=dtype)
     cfg = task.cfg if specaug else dataclasses.replace(task.cfg, use_specaug=False)
+    if layers:
+        cfg = dataclasses.replace(cfg, whisper=dataclasses.replace(
+            cfg.whisper, n_audio_layer=layers, n_text_layer=layers))
     if sd is None:
-        sd = task.init_fn(torch.Generator().manual_seed(7), cfg)
+        gen = torch.Generator(device="cpu" if size == "small" else dev)
+        sd = task.init_fn(gen.manual_seed(7), cfg)
     model = Whisper.from_state_dict(cfg.whisper, sd, device=dev, param_dtype=torch.float32)
     params = apply_freeze(model, raw.get("freeze_param"))
     model.cast_frozen_(dtype)
     return model, params, cfg, sd, raw, task
 
 
-def whisper_ctc_phase(dev) -> dict:
+def whisper_ctc_phase(dev, size: str = "small", b: int = TRAIN_B,
+                      steps: int = WHISPER_CTC_STEPS, phase: tuple = (36, 37)) -> dict:
     """Phases 36 and 37: the recipe's training step with the CTC head, 16 x
     15 s a step: one warm-up, then WHISPER_CTC_STEPS timed steps with
-    exact K4 launches, then one more under torch.profiler."""
-    from agacs_tpu_torch.ops import vocab_lse
+    exact K4 and K1 launches, then one more under torch.profiler; `size`,
+    `b` (rows a step), `steps` and `phase` (the lines' labels) for phase
+    49's whisper-large."""
+    from agacs_tpu_torch.ops import flash_train, vocab_lse
     from agacs_tpu_torch.train.optim import build_optimizer
     from agacs_tpu_torch.train.trainer import make_train_step
     from agacs_tpu_torch.utils.config import optim_config_from_dict
 
     t0 = time.perf_counter()
-    model, params, cfg, sd, raw, task = whisper_ctc_model(dev, torch.bfloat16)
+    model, params, cfg, sd, raw, task = whisper_ctc_model(dev, torch.bfloat16, size=size)
     ocfg = optim_config_from_dict(raw)
     n_params = sum(p.numel() for p in model.parameters())
     check(ocfg.optim == "adamw" and ocfg.grad_clip == 1.0 and cfg.ctc_weight == WHISPER_CTC_WEIGHT
@@ -3900,40 +3988,46 @@ def whisper_ctc_phase(dev) -> dict:
     opt, sched = build_optimizer(params, ocfg)
     step = make_train_step(model, cfg, opt, sched, grad_clip=ocfg.grad_clip,
                            generator=torch.Generator().manual_seed(1), loss_fn=task.loss_fn)
-    batch = make_train_batch(TRAIN_B, TRAIN_S, dev)
+    batch = make_train_batch(b, TRAIN_S, dev)
     before = {n: p.detach().clone() for n, p in model.named_parameters()
               if n in ("ctc.weight", "ctc.bias")}
     step([batch])  # warm-up: cuBLAS handles, the kernels' first launches
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
     vocab_lse.FWD_LAUNCHES = vocab_lse.DX_LAUNCHES = vocab_lse.DW_LAUNCHES = 0
+    flash_train.LAUNCHES = flash_train.BWD_LAUNCHES = 0
     torch.cuda.reset_peak_memory_stats()
     times, losses = [], []
-    for _ in range(WHISPER_CTC_STEPS):
+    for _ in range(steps):
         t0 = time.perf_counter()
         stats = step([batch])
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         losses.append((float(stats["loss"]), float(stats["loss_ctc"]), float(stats["loss_att"])))
-    launches = k4_counts()
+    # every encoder layer trains (the conv stem too), so each takes K1b
+    launches = {**k4_counts(), "K1f": flash_train.LAUNCHES, "K1b": flash_train.BWD_LAUNCHES}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    want = {k: v * WHISPER_CTC_STEPS for k, v in WHISPER_CTC_LAUNCHES.items()}
+    per_step = {**WHISPER_CTC_LAUNCHES, "K1f": cfg.whisper.n_audio_layer,
+                "K1b": cfg.whisper.n_audio_layer}
+    want = {k: v * steps for k, v in per_step.items()}
     check(launches == want, f"whisper CTC train launches {launches} == {want}")
     check(all(np.isfinite(v) for row in losses for v in row)
           and int(stats["grad_nonfinite_total"]) == 0, f"finite whisper CTC losses {losses}")
     state = dict(model.named_parameters())
     check(all(not torch.equal(state[n], p) for n, p in before.items()), "the CTC head changed")
     ms = statistics.median(times) * 1e3
-    audio_s = TRAIN_B * TRAIN_S
-    print(f"phase 36 whisper CTC train: train_asr_whisper_small.yaml (TMECS full fine-tune, no "
-          f"freeze preset; whisper-small 12 + 12 layers, d 768) with ctc_weight "
-          f"{WHISPER_CTC_WEIGHT} (CTC head 768 -> {cfg.whisper.n_vocab}), AdamW, WarmupLR 500, "
-          f"clip 1, SpecAug, bf16 / f32 masters, {TRAIN_B} x {TRAIN_S} s a step: {ms:.1f} "
+    audio_s = b * TRAIN_S
+    w = cfg.whisper
+    print(f"phase {phase[0]} whisper CTC train: train_asr_whisper_small.yaml (TMECS full "
+          f"fine-tune, no freeze preset; whisper-{size} {w.n_audio_layer} + {w.n_text_layer} "
+          f"layers, d {w.n_audio_state}) with ctc_weight {WHISPER_CTC_WEIGHT} (CTC head "
+          f"{w.n_audio_state} -> {w.n_vocab}), AdamW, WarmupLR 500, "
+          f"clip 1, SpecAug, bf16 / f32 masters, {b} x {TRAIN_S} s a step: {ms:.1f} "
           f"ms/step (median of {[round(t * 1e3, 1) for t in times]}), "
           f"{audio_s / (ms / 1e3):.1f} audio-s/s; peak {peak_gb:.2f} GB; "
           f"{n_params / 1e6:.2f}M parameters, all trained; losses (loss, ctc, att) "
           f"{[tuple(round(v, 3) for v in row) for row in losses]}; launches {launches} "
-          f"({WHISPER_CTC_LAUNCHES} per step); built + warm-up {load_s:.1f} s", flush=True)
+          f"({per_step} per step); built + warm-up {load_s:.1f} s", flush=True)
 
     busy, n_events, per_name = device_profile(lambda: step([batch]))
 
@@ -3945,22 +4039,24 @@ def whisper_ctc_phase(dev) -> dict:
              "dw": dev_ms("vocab_lse_split_kernel<true")}
     check(k4_ms["dx"] > 0 and k4_ms["dw"] > 0 and k4_ms["dx"] == k4_ms["dx_any"],
           f"the profiled step's K4 backward ran the split kernels: {k4_ms}")
-    print(f"phase 37 whisper CTC train profile: device busy {busy:.1f} ms in {n_events} device "
-          f"events; idle {1 - busy / ms:.1%} of phase 36's {ms:.1f} ms/step; K4 fwd "
+    print(f"phase {phase[1]} whisper CTC train profile: device busy {busy:.1f} ms in "
+          f"{n_events} device events; idle {1 - busy / ms:.1%} of {ms:.1f} ms/step; K4 fwd "
           f"{k4_ms['fwd']:.4f} ms, dx {k4_ms['dx']:.4f} ms, dw {k4_ms['dw']:.4f} ms "
           f"({(k4_ms['fwd'] + k4_ms['dx'] + k4_ms['dw']) / busy:.1%} of busy); top: "
           + top_kernels(per_name), flush=True)
     del model, opt, step, before, state, params
     torch.cuda.empty_cache()
     return {"launches": launches, "ms": ms, "busy": busy, "k4_ms": k4_ms, "sd": sd,
-            "batch": batch}
+            "batch": batch, "peak_gb": peak_gb, "per_name": per_name}
 
 
-def whisper_ctc_micro_step(sd, dev, dtype, one) -> tuple[dict, dict]:
+def whisper_ctc_micro_step(sd, dev, dtype, one, size: str = "small",
+                           layers: int | None = None) -> tuple[dict, dict]:
     """One micro-step of phase 36's model on `dev` (SpecAug off; the recipe
     has no dropout): ({loss, loss_ctc, loss_att}, every gradient in float32
     on the CPU by name)."""
-    model, _, cfg, _, _, task = whisper_ctc_model(dev, dtype, sd, specaug=False)
+    model, _, cfg, _, _, task = whisper_ctc_model(dev, dtype, sd, specaug=False, size=size,
+                                                  layers=layers)
     loss, stats = task.loss_fn(model, cfg, {k: v.to(dev) for k, v in one.items()},
                                generator=torch.Generator().manual_seed(0))
     loss.backward()
@@ -3968,23 +4064,26 @@ def whisper_ctc_micro_step(sd, dev, dtype, one) -> tuple[dict, dict]:
             {n: p.grad.float().cpu() for n, p in model.named_parameters()})
 
 
-def whisper_ctc_parity(sd, dev, batch) -> dict:
+def whisper_ctc_parity(sd, dev, batch, size: str = "small", layers: int | None = None,
+                       phase: int = 38) -> dict:
     """Phase 38: one micro-step on one 15 s utterance, card bf16 (K4) and a
     bf16 control (K4's plain version) against the port on the CPU in
     float32, same weights: loss_ctc and the CTC head's gradient cosine within
     phase 31's bounds, the card within 2x the control (or a tenth of the
-    bound)."""
+    bound); `size` and `layers` as for `whisper_ctc_model` (phase 49)."""
     one = {k: v[:1] for k, v in batch.items()}
+    arch = {"size": size, "layers": layers}
     t0 = time.perf_counter()
-    ref = whisper_ctc_micro_step(sd, torch.device("cpu"), torch.float32, one)
+    ref = whisper_ctc_micro_step(sd, torch.device("cpu"), torch.float32, one, **arch)
     cpu_s = time.perf_counter() - t0
     from agacs_tpu_torch.ops import vocab_lse
 
     vocab_lse.FWD_LAUNCHES = vocab_lse.DX_LAUNCHES = vocab_lse.DW_LAUNCHES = 0
-    run = whisper_ctc_micro_step(sd, dev, torch.bfloat16, one)
+    run = whisper_ctc_micro_step(sd, dev, torch.bfloat16, one, **arch)
     check(k4_counts() == WHISPER_CTC_LAUNCHES, f"the card micro-step's launches {k4_counts()}")
     with plain_k5_k4():
-        control = conformer_parity(whisper_ctc_micro_step(sd, dev, torch.bfloat16, one), ref)
+        control = conformer_parity(whisper_ctc_micro_step(sd, dev, torch.bfloat16, one, **arch),
+                                   ref)
     check(k4_counts() == WHISPER_CTC_LAUNCHES, "the bf16 control launched no K4")
     card = conformer_parity(run, ref)
     check(all(np.isfinite(v) for v in run[0].values())
@@ -3996,7 +4095,9 @@ def whisper_ctc_parity(sd, dev, batch) -> dict:
     fmt = lambda r: ", ".join(f"{k} {r[k]:.2e}" if not k.startswith("cos") else f"{k} {r[k]:.6f}"
                               for k in ("loss", "loss_ctc", "loss_att", "grad_norm", "cos_enc",
                                         "cos_dec", "cos_ctc"))
-    print(f"phase 38 whisper CTC parity vs cpu f32 (1 x {TRAIN_S} s; rel errors, cosines): "
+    print(f"phase {phase} whisper CTC parity vs cpu f32 (whisper-{size}"
+          + (f", {layers} + {layers} layers" if layers else "") + f", 1 x {TRAIN_S} s; rel "
+          f"errors, cosines): "
           f"card bf16 {fmt(card)}; bf16 control (plain K4) {fmt(control)}; bounds on loss_ctc "
           f"and cos_ctc (1 - cos) {bounds}; cpu step {cpu_s:.1f} s", flush=True)
     return {"card": card, "control": control}
@@ -5478,10 +5579,13 @@ def dist_worker(out: str, argv: list[str], timeout_s: float = 600.0) -> int:
     return 0
 
 
-def dist_train_phase(smi: str) -> dict:
+def dist_train_phase(smi: str, between=None) -> tuple[dict, object]:
     """Phase 48: the train CLI under torchrun at whisper-small's full width
     (stage-2 recipe, bf16) on phase 40's kind of data, under
-    build/chip_smoke_dist/ (removed afterwards); see the module docstring."""
+    build/chip_smoke_dist/ (removed afterwards); see the module docstring.
+    `between()`, when given, runs once the torchrun launches have started
+    (phases 46-47, host-bound serving, overlap their process starts); its
+    result is returned beside the phase's."""
     import shutil
 
     from agacs_tpu_torch.bin import train
@@ -5543,7 +5647,7 @@ def dist_train_phase(smi: str) -> dict:
           "parallel (no --optim_state_shard, no --tensor_parallel: gloo's all_gather takes no "
           "CUDA tensor), --ckpt_backend orbax, 1 epoch; (c) torchrun, 1 rank over NCCL, "
           "freeze_quant=int8, 1 epoch; the plain CLI's 2 epochs in this process; the runs "
-          "overlap on the card (a2's CLI after a1's)", flush=True)
+          "overlap on the card (a2's CLI after a1's) and with phases 46-47", flush=True)
     try:
         start("a1", 1, args("a", 1, zero_dcp))
         start("b", 2, args("b", 1, ["--device", "cuda:0", "--dist_backend", "gloo",
@@ -5552,6 +5656,9 @@ def dist_train_phase(smi: str) -> dict:
         # a2 starts its process now and its CLI once a1 has written its result
         start("a2", 1, ["--after", f"{root}/a1_0.json",
                         *args("a", 2, zero_dcp + ["--resume"])])
+        t0 = time.perf_counter()
+        between_out = between() if between is not None else None
+        secs["phases between"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         plain = train.main(args("plain", 2))["history"]
         secs["plain 2 epochs"] = time.perf_counter() - t0
@@ -5616,7 +5723,7 @@ def dist_train_phase(smi: str) -> dict:
           + "; seconds " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items())
           + f"; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
     shutil.rmtree(root, ignore_errors=True)
-    return {"seconds": secs, "launches": launches, "events": events}
+    return {"seconds": secs, "launches": launches, "events": events}, between_out
 
 
 FUSION_SEED = 4
@@ -5803,7 +5910,7 @@ def whisper_fusion_phase(dev, audio) -> dict:
             "busy": busy}
 
 
-LONG_FORM_SECONDS = 75
+LONG_FORM_SECONDS = 45  # two 30 s windows
 LONG_FORM_SEED = 6
 
 
@@ -5821,7 +5928,7 @@ def long_form_phase(dev) -> dict:
     """Phase 47: `bin.transcribe --long_form --word_timestamps` on a
     generated LONG_FORM_SECONDS s wav, whisper-small bf16 (random weights,
     seed LONG_FORM_SEED, written as a .params.npz with a config.yaml under
-    build/): at least three 30 s windows; every window's tokens obey the
+    build/): at least two 30 s windows; every window's tokens obey the
     timestamp rules 1-4 (`timestamp_rule_violations`) and, replayed through
     the cached step on its encoder output, all five
     (`replay_timestamp_rules`: each token allowed, the argmax at
@@ -5868,7 +5975,7 @@ def long_form_phase(dev) -> dict:
     windows, segs = out["windows"], out["segments"]
     check(launches.get("K1f", 0) > 0 and launches.get("K3", 0) > 0,
           f"long-form transcription launched K1f and K3: {launches}")
-    check(len(windows) >= 3 and not any(w["beam"] for w in windows),
+    check(len(windows) >= 2 and not any(w["beam"] for w in windows),
           f"{len(windows)} windows over {LONG_FORM_SECONDS} s")
     bad = [(i, tr.timestamp_rule_violations(w["sampled"])) for i, w in enumerate(windows)]
     check(not any(b for _, b in bad), f"timestamp rules 1-4 hold in every window: {bad}")
@@ -5914,6 +6021,241 @@ def long_form_phase(dev) -> dict:
     shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
     return {"launches": launches, "windows": len(windows), "s": run_s}
+
+
+# Phase 49: whisper-large (OpenAI large-v2's dims, `make_config("large")`:
+# d 1280, 20 heads of 64, 32 + 32 layers, h 5120, vocabulary 51865) at full
+# width, on random weights made on the card from a torch seed (the host's
+# init of whisper-small alone takes ~10 s; large has 6x its parameters).
+# (a) K4 above K 1024 (the split backward on a non-portable cluster of K /
+# 128): the whisper-large CTC head's (16 x 750, 1280) x (1280, 51865) (a
+# cluster of 10, timed), a ragged K 1200 (padded to 1280 by the wrapper)
+# and K 1152 (a cluster of 9: 32 quads over 9 ranks) at a small N and V,
+# under phase 2v's bounds; K1f / K1b, K3 and K8 at whisper-large's shapes
+# under phases 2b's, 3's and 2i's checks: the encoder's (16, 750, 1280) at
+# 20 heads; greedy's cross (8, 752) at pos 749 and self (8, 112) at pos
+# 103; the int8 step's encoder out (12000, 1280) -> 1280, fused q/k/v ->
+# 3840, fc1 -> 5120 and fc2 (12000, 5120) -> 1280, and a greedy step's 8
+# rows (`thin_matmul`) -> 1280, -> 5120 and (8, 5120) -> 1280. (b) the
+# stage-2 step at 16 x 15 s, bf16 then int8 trunk (the MLP unfused, as in
+# JAX); (c) the CTC full fine-tune (AdamW's float32 state on all 1.61B
+# parameters, the CTC head's included); (d) greedy serving (decode_asr_whisper.yaml), 8 x 15 s, 100
+# steps, bf16 then int8 trunk; (e) the card in bf16 against the CPU in
+# float32 on (c)'s weights cut to LARGE_PARITY_LAYERS blocks a stack.
+LARGE_SEED = 9
+LARGE_D, LARGE_H = 1280, 20
+K4_LARGE = (12000, 1280, 51865)
+K4_LARGE_SHAPES = (K4_LARGE, (3000, 1200, 51865), (300, 1152, 1001))
+K3_LARGE_CASES = ((8, 752, LARGE_D, LARGE_H, 749, True), (8, 112, LARGE_D, LARGE_H, 103, True))
+K8_LARGE_SHAPES = ((12000, 1280, 1280), (12000, 1280, 3840), (12000, 1280, 5120),
+                   (12000, 5120, 1280), (8, 1280, 1280), (8, 1280, 5120), (8, 5120, 1280))
+LARGE_TRAIN_STEPS = 3
+LARGE_CTC_B, LARGE_CTC_STEPS = 16, 2
+LARGE_PARITY_LAYERS = 4
+
+
+def check_k4_large(dev, g) -> dict:
+    """Phase 49a: K4's forward, dx and dw at K4_LARGE_SHAPES against their
+    plain versions (phase 2v's bounds; b, lse and g NaN past their ends),
+    each wrapper call one launch (its count, and at K4_LARGE one device
+    event under the profiler), bit-identical on a second run; the clusters
+    the card holds at K 1280 and 1152 with the waves their tiles take; then
+    K4_LARGE timed (`k4_times`). Returns {"fwd", "dx", "dw"} results, the
+    largest errors over the shapes."""
+    from agacs_tpu_torch.ops import vocab_lse
+
+    res = {part: {"err": 0.0} for part in ("fwd", "dx", "dw")}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for n, k, v in K4_LARGE_SHAPES:
+        x, w, b, gr = k4_inputs(g, dev, n, k, v)
+        b, gr = poisoned(b), poisoned(gr)
+        wp, xp = vocab_lse._rows8(w), vocab_lse._pad_x(x)
+        before = k4_counts()
+        lse = poisoned(vocab_lse._launch_fwd(x, w, b, wp, xp))
+        dx = vocab_lse._launch_dx(x, w, b, lse, gr, wp, xp)
+        dw, db = vocab_lse._launch_dw(x, w, b, lse, gr, wp, xp)
+        lse2 = vocab_lse._launch_fwd(x, w, b, wp, xp)
+        dx2 = vocab_lse._launch_dx(x, w, b, lse, gr, wp, xp)
+        dw2, db2 = vocab_lse._launch_dw(x, w, b, lse, gr, wp, xp)
+        calls = {key: c - before[key] for key, c in k4_counts().items()}
+        check(calls == {"K4": 2, "K4 dx": 2, "K4 dw": 2},
+              f"K4 ({n}, {k}): one launch of each pass a call, {calls}")
+        lse_p = vocab_lse.lse_plain(x.float(), w.float(), b)
+        dx_p, dw_p, db_p = vocab_lse.lse_bwd_plain(x.float(), w.float(), b, lse_p, gr)
+        torch.cuda.synchronize()
+        errs = k4_errors((("fwd", "lse", lse, lse_p, None), ("dx", "dx", dx, dx_p, KERNEL_RTOL),
+                          ("dw", "dW", dw, dw_p, KERNEL_RTOL), ("dw", "db", db, db_p, K4_DB_RTOL)),
+                         n, k, v, res)
+        check(torch.equal(lse, lse2) and torch.equal(dx, dx2) and torch.equal(dw, dw2)
+              and torch.equal(db, db2),
+              f"K4 lse, dx and dw ({n}, {k}) x ({k}, {v}): a second run bit-identical")
+        del lse2, dx2, dw2, db2, lse_p, dx_p, dw_p, db_p
+        torch.cuda.empty_cache()
+        kp = vocab_lse.padded_k(k)
+        tf = vocab_lse.fwd_tiling(n, kp, v, sms)
+        line = (f"phase 49a K4 vocab_lse ({n}, {k}) x ({k}, {v})"
+                + (f", K padded to {kp}" if kp != k else "") + ": max_abs_err "
+                + ", ".join(f"{nm} {e:.3e}" for nm, e in errs.items())
+                + f" (phase 2v's bounds), all finite; b, lse and g NaN past their ends; "
+                f"bit-identical on a second run; one launch of each pass a call; forward "
+                f"{tf['route']} (BM {tf['BM']}, C {tf['C']}); "
+                + k4_backward_tiling(n, kp, v, sms) + "; " + k4_waves(n, kp, v))
+        if (n, k, v) == K4_LARGE:
+            for part, fn, word in (
+                    ("fwd", lambda: vocab_lse._launch_fwd(x, w, b, wp, xp), "vocab_lse_fwd"),
+                    ("dx", lambda: vocab_lse._launch_dx(x, w, b, lse, gr, wp, xp),
+                     "vocab_lse_split_kernel<false"),
+                    ("dw", lambda: vocab_lse._launch_dw(x, w, b, lse, gr, wp, xp),
+                     "vocab_lse_split_kernel<true")):
+                # the wrapper's own copies (dw's cast to w's dtype) aside
+                exact_profile(f"K4 {part} at K {k}: one {word} device event a call", fn,
+                              lambda word=word: {word: 1})
+            line += "; one kernel event a call (profiled)"
+            times, line = k4_times(g, dev, K4_LARGE, gr, 1, {"fwd": 5, "dx": 5, "dw": 5}, line)
+            for part in res:
+                res[part].update(times[part])
+        print(line, flush=True)
+        del x, w, b, gr, wp, xp, lse, dx, dw, db
+        torch.cuda.empty_cache()
+    return res
+
+
+def large_serve_phase(dev, cfg, sd, audio, int8: bool) -> dict:
+    """Phase 49d: greedy serving (decode_asr_whisper.yaml: beam 1) of
+    whisper-large + adapters on phase 4's 8 x 15 s, 100 steps, from `sd`
+    (`int8`: the int8-trunk step's state, its w_q buffers), in bf16:
+    `serve` with exact launches (the int8 trunk's encoder MLPs unfused: fc1
+    and fc2 on the wide K8g), then one request under the profiler."""
+    from agacs_tpu_torch.models import whisper as tw
+    from agacs_tpu_torch.models.asr_model import ASRModelConfig
+    from agacs_tpu_torch.ops import int8_linear, int8_mlp
+    from agacs_tpu_torch.utils.config import load_yaml
+
+    dec = load_yaml(os.path.join(ROOT, "recipes", "seame", "conf", "decode_asr_whisper.yaml"))
+    check(dec["beam_size"] == 1 and dec["ctc_weight"] == 0.0 and dec["lm_weight"] == 0.0,
+          f"decode_asr_whisper.yaml decodes greedily: {dec}")
+    t0 = time.perf_counter()
+    model = tw.Whisper.from_state_dict(cfg, sd, device=dev)
+    load_s = time.perf_counter() - t0
+    n_steps = min(len(PRIMER) + 100, cfg.n_text_ctx) - 1
+    la, lt = cfg.n_audio_layer, cfg.n_text_layer
+    want = {"K1f": la, "K3": 2 * lt * n_steps}
+    if int8:
+        fused = int8_mlp.supports(cfg.n_audio_state, 4 * cfg.n_audio_state)
+        enc = 2 if fused else 4  # fused q/k/v and out, and fc1 and fc2 unless K2 takes them
+        want.update(K2f=la if fused else 0, K8g=enc * la + 2 * lt + 8 * lt * n_steps,
+                    K8q=enc * la + 2 * lt)
+    label = f"phase 49d whisper-large+adapters {'int8 trunk' if int8 else 'bf16'} greedy"
+    run = serve(label, model, ASRModelConfig(whisper=cfg), audio, dec["beam_size"], want,
+                timed=1)
+    thin = int8_linear.THIN_LAUNCHES  # of the one timed request
+    check(not int8 or thin == 8 * lt * n_steps,
+          f"{label}: {thin} thin_matmul launches == 8 x {lt} x {n_steps}")
+    # busy and idle from one more request; its ~150,000 device records are
+    # not held to the launches (the counters are): the profiler loses ~1% of
+    # them now and then (phase 6's `exact_profile` retakes such profiles)
+    busy, n_events, per_name = device_profile(lambda: run["s2t"](audio))
+
+    def share(*keys):
+        t = sum(val for name, val in per_name.items() if any(k in name for k in keys))
+        return f"{t:.2f} ms ({t / busy:.1%})"
+
+    ms = run["ms"]
+    print(f"{label}: 8 x 15 s, {n_steps} steps: {ms:.1f} ms/batch (one request after a "
+          f"warm-up), {120.0 / (ms / 1e3):.1f} x realtime; "
+          f"peak {run['peak_gb']:.2f} GB; launches {run['launches']}"
+          + (f", of K8g thin_matmul {thin}" if int8 else "") + f"; profile: device busy "
+          f"{busy:.1f} ms in {n_events} device events, idle {1 - busy / ms:.1%}; K1f "
+          f"{share('packed_flash_fwd')}, K3 {share('decode_attn_kernel')}"
+          + (f", K8g {share('gemm_kernel')} (of it thin_matmul {share('thin_gemm_kernel')}), "
+             f"K8q {share('rowquant_kernel')}" if int8 else "")
+          + f"; built in {load_s:.1f} s; top: " + top_kernels(per_name, 6), flush=True)
+    out = {"ms": ms, "busy": busy, "launches": run["launches"], "thin": thin,
+           "peak_gb": run["peak_gb"], "per_name": per_name}
+    del run, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def large_parity(dev, sd4: dict, batch: dict) -> dict:
+    """Phase 49e: whisper-large's width cut to LARGE_PARITY_LAYERS blocks a
+    stack ((c)'s weights, CTC head at K 1280 included) on one 15 s
+    utterance, the card in bf16 against the port on the CPU in float32:
+    the encoder output and the first decode step's logits (phase 5's
+    bounds), then phase 38's micro-step parity (loss_ctc and the CTC head's
+    gradient cosine, beside a control with K4's plain version)."""
+    from agacs_tpu_torch.models import whisper as tw
+    from agacs_tpu_torch.models.asr_model import ASRModelConfig, encode
+
+    layers = LARGE_PARITY_LAYERS
+    one = {k: v[:1] for k, v in batch.items()}
+    outs = []
+    with torch.inference_mode():
+        for d, dtype in ((dev, torch.bfloat16), (torch.device("cpu"), torch.float32)):
+            cfg = tw.make_config("large", n_audio_layer=layers, n_text_layer=layers,
+                                 compute_dtype=dtype)
+            m = tw.Whisper.from_state_dict(cfg, sd4, device=d)
+            enc, _ = encode(m, ASRModelConfig(whisper=cfg), one["speech"].to(d),
+                            one["speech_lengths"].to(d))
+            kv = tw.init_self_kv_cache(cfg, 1, 16, device=d)
+            logits, _ = tw.whisper_decode_step(m, torch.tensor([PRIMER[0]], device=d), 0, kv,
+                                               tw.precompute_cross_kv(m, enc))
+            outs.append((enc.float().cpu(), logits.float().cpu()))
+            del m
+    (enc_g, log_g), (enc_c, log_c) = outs
+    e_enc, e_log = rel_l2(enc_g, enc_c), rel_l2(log_g, log_c)
+    check(enc_g.shape == (1, 750, LARGE_D) and bool(torch.isfinite(enc_g).all())
+          and bool(torch.isfinite(log_g).all()) and e_enc < ENC_REL_L2 and e_log < LOGITS_REL_L2,
+          f"whisper-large {layers} + {layers} layers: encoder rel L2 {e_enc} < {ENC_REL_L2}, "
+          f"first-step logits {e_log} < {LOGITS_REL_L2}")
+    print(f"phase 49e whisper-large width, {layers} + {layers} layers, card bf16 vs cpu f32 on "
+          f"1 x {TRAIN_S} s: encoder rel L2 {e_enc:.3e} (bound {ENC_REL_L2}), first-step "
+          f"logits rel L2 {e_log:.3e} (bound {LOGITS_REL_L2}); argmax card "
+          f"{int(log_g.argmax())} cpu {int(log_c.argmax())}", flush=True)
+    res = whisper_ctc_parity(sd4, dev, batch, size="large", layers=layers, phase="49e")
+    return {"enc": e_enc, "logits": e_log, **res}
+
+
+def whisper_large_phase(dev, g, audio) -> dict:
+    """Phase 49 (see the module docstring and the constants above)."""
+    from agacs_tpu_torch.models import whisper as tw
+
+    t_phase = time.perf_counter()
+    k4 = check_k4_large(dev, g)
+    k1f, k1b = check_k1_train(dev, g, d=LARGE_D, h=LARGE_H, big=((16, 750),), phase="49a")
+    k3 = check_k3(dev, g, cases=K3_LARGE_CASES, phase="49a")
+    k8 = check_k8(dev, g, shapes=K8_LARGE_SHAPES, entries=(K8_LARGE_SHAPES[0], K8_LARGE_SHAPES[4]),
+                  phase="49a", profiled=False)
+    kernels_s = time.perf_counter() - t_phase
+
+    cfg = tw.make_config("large", adapter=True, adapter_encoder=True, adapter_decoder=True,
+                         compute_dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    sd = tw.init_whisper_params(torch.Generator(device=dev).manual_seed(LARGE_SEED), cfg)
+    torch.cuda.synchronize()
+    print(f"phase 49b whisper-large + adapters: {sum(v.numel() for v in sd.values()) / 1e9:.3f}B "
+          f"float32 values made on the card from torch seed {LARGE_SEED} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    train = train_phase(sd, dev, size="large", steps=LARGE_TRAIN_STEPS, phase=("49b", "49b"))
+    train8 = train_phase(sd, dev, int8=True, bf16=train, size="large", steps=LARGE_TRAIN_STEPS,
+                         phase=("49b int8", "49b int8"), keep_state=True)
+    del train["batch"], train8["batch"]
+    serve16 = large_serve_phase(dev, cfg, sd, audio, int8=False)
+    serve8 = large_serve_phase(dev, cfg, train8.pop("state"), audio, int8=True)
+    del sd
+    torch.cuda.empty_cache()
+    ctc = whisper_ctc_phase(dev, size="large", b=LARGE_CTC_B, steps=LARGE_CTC_STEPS,
+                            phase=("49c", "49c"))
+    blocks = re.compile(r"(encoder|decoder)\.blocks\.(\d+)\.")
+    sd4 = {k: v.cpu() for k, v in ctc.pop("sd").items()
+           if not (m := blocks.match(k)) or int(m.group(2)) < LARGE_PARITY_LAYERS}
+    torch.cuda.empty_cache()
+    parity = large_parity(dev, sd4, ctc.pop("batch"))
+    print(f"phase 49 whisper-large: kernels {kernels_s:.1f} s, phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"k4": k4, "k1f": k1f, "k1b": k1b, "k3": k3, "k8": k8, "train": train,
+            "train8": train8, "serve16": serve16, "serve8": serve8, "ctc": ctc,
+            "parity": parity}
 
 
 def main() -> int:
@@ -6139,14 +6481,16 @@ def main() -> int:
     trans_decode_phase(trans_train.pop("sd"), dev)
     trans_cli_phase(smi)
 
-    # 46-47. the whisper family's fused beam (CTC, LM, n-gram) and long-form
-    # transcription with word timestamps
-    fusion = whisper_fusion_phase(dev, audio)
-    long_form = long_form_phase(dev)
-
     # 48. multi-GPU training through torchrun: NCCL at one rank (ZeRO-1, DCP,
-    # resume), 2 gloo ranks on the one card, the int8 trunk
-    dist_train_phase(smi)
+    # resume), 2 gloo ranks on the one card, the int8 trunk; while its
+    # processes start and train, 46-47: the whisper family's fused beam (CTC,
+    # LM, n-gram) and long-form transcription with word timestamps
+    dist_train_phase(smi, lambda: (whisper_fusion_phase(dev, audio), long_form_phase(dev)))
+
+    # 49. whisper-large at full width: K4 above K 1024, the kernels at its
+    # shapes, the stage-2 step (bf16, int8 trunk), the CTC full fine-tune,
+    # greedy serving (bf16, int8 trunk), card against CPU
+    large = whisper_large_phase(dev, g, audio)
 
     check(not any(m.split(".")[0] in ("jax", "jaxlib", "agacs_tpu") for m in sys.modules),
           "no jax, jaxlib or agacs_tpu module was imported")
@@ -6240,6 +6584,36 @@ def main() -> int:
         row.update(step_n=TRANS_B * TRANS_T * (TRANS_U + 1), step_ms=k4j["full"][part]["ms"],
                    step_bound_ms=k4j["full"][part]["bound_ms"])
     kernels += joint
+    # whisper-large (phase 49): K4 above K 1024 on its CTC head, and the
+    # other kernels of its paths timed at its shapes
+    lg = large
+    kernels += [
+        entry(f"vocab_lse_{part} at K {K4_LARGE[1]} (K4 {part}, the whisper-large CTC head"
+              + ("" if part == "fwd" else ": the split kernel on a non-portable cluster of 10")
+              + ")", "vocab_lse.cu", f"agacs_tpu/ops/vocab_lse.py:{line}",
+              lg["ctc"]["launches"][key], lg["k4"][part])
+        for part, line, key in (("fwd", 169, "K4"), ("dx", 207, "K4 dx"), ("dw", 224, "K4 dw"))]
+    kernels += [
+        entry("packed_flash_fwd at whisper-large (K1f, (16, 750, 1280), 20 heads)",
+              "packed_flash_fwd.cu", "agacs_tpu/ops/flash_train.py:155",
+              lg["train"]["launches"]["K1f"], lg["k1f"]),
+        entry("packed_flash_bwd at whisper-large (K1b, (16, 750, 1280), 20 heads)",
+              "packed_flash_bwd.cu", "agacs_tpu/ops/flash_train.py:177",
+              lg["train"]["launches"]["K1b"], lg["k1b"]),
+        entry("decode_attn_fwd at whisper-large (K3, greedy cross (8, 752, 1280), 20 heads)",
+              "decode_attn.cu", "agacs_tpu/ops/decode_attn.py:140",
+              lg["serve16"]["launches"]["K3"], lg["k3"]),
+        entry("int8_rowquant at whisper-large (K8q, (12000, 1280))", "int8_gemm.cu",
+              "agacs_tpu/ops/int8_linear.py:65", lg["train8"]["launches"]["K8q"], lg["k8"]["q"]),
+        entry("int8_gemm at whisper-large (K8g wide, (12000, 1280) -> 1280)", "int8_gemm.cu",
+              "agacs_tpu/ops/int8_linear.py:83", lg["train8"]["launches"]["K8g"], lg["k8"]["fwd"]),
+        entry("int8_gemm dgrad at whisper-large (K8g wide, (12000, 1280) -> 1280)",
+              "int8_gemm.cu", "agacs_tpu/ops/int8_linear.py:108",
+              lg["train8"]["launches"]["K8g dgrad"], lg["k8"]["dgrad"]),
+        entry("int8_thin_matmul at whisper-large (K8q folded into the thin K8g, (8, 1280) -> "
+              "1280)", "int8_gemm.cu", "agacs_tpu/ops/int8_linear.py:83", lg["serve8"]["thin"],
+              lg["k8"]["thin"]),
+    ]
     kernels += [
         entry("w8a16_matmul (K6, the W8A16 thin-row matmul: 8-row decode products under "
               "AGACS_W8A16 and the int8 logits head)", "w8a16.cu",
