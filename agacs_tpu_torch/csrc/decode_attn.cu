@@ -99,15 +99,20 @@ typedef __nv_bfloat16 bf16;
 
 namespace {
 
-// Head width of every kernel but K3's plain bf16 rows, which also run at
-// d_head 48 (the ladder side network's 192 / 4 heads): the rows kernel
-// takes the width as a template parameter (`DW`).
+// Head width of every kernel but K3's plain rows: bf16 rows also run at
+// d_head 48 (the ladder side network's 192 / 4 heads), and bf16 and
+// float32 rows at any d_head up to 256 that is a multiple of 4 (the
+// conformer decoder's and the LM's self-attention): the rows kernel takes
+// the width as a template parameter (`DW`), or its greatest width with the
+// width itself given at launch (`FIXED` false).
 constexpr int DH = 64;
+constexpr int DH_MAX = 256;
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
 constexpr int MAX_SLOTS = 8;   // ring slots, each one cp.async group
 constexpr int MAX_SPLITS = 8;  // blocks of a cluster: the portable size
-// Dynamic shared memory a block may take (227 KB less the static arrays).
+// Dynamic shared memory a block may take (227 KB less the static arrays:
+// the rows kernel's grow with its width, `rows_dyn_smem`).
 constexpr int MAX_DYN_SMEM = 220 * 1024;
 constexpr int MAX_DEVICES = 64;  // per-device records of the launchers
 
@@ -115,6 +120,17 @@ constexpr int MAX_DEVICES = 64;  // per-device records of the launchers
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+// One copy of PB (16 or 8) bytes (the 8-byte form goes through L1).
+template <int PB>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  if constexpr (PB == 16) {
+    cp_async16(dst, src);
+  } else {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src) : "memory");
+  }
 }
 
 __device__ __forceinline__ void cp_commit() {
@@ -136,18 +152,34 @@ __device__ __forceinline__ void cp_wait(int n) {
   }
 }
 
-// A head slice of a cache row as the kernels read it: 16-byte pieces of
-// CPL channels; LPK lanes score a key (PIECES rounded up to a power of 2,
-// the lanes past PIECES idle: d_head 48), KPP keys a warp at once.
-template <typename KT, int DW>
+// A head slice of a cache row as the kernels read it: PB-byte pieces (16,
+// or 8 where 16 do not divide the row: bf16 d_head 36, 44, ...) of CPL
+// channels; LPK lanes score a key (PIECES rounded up to a power of 2 up to
+// a warp, the lanes past PIECES idle: d_head 48), PPL pieces a lane (2 past
+// 32 pieces), KPP keys a warp at once. DW is the slice's (greatest) width.
+template <typename KT, int DW, int PB = 16>
 struct Slice {
-  static constexpr int CPL = 16 / (int)sizeof(KT);
+  static constexpr int CPL = PB / (int)sizeof(KT);
   static constexpr int PIECES = DW / CPL;
-  static constexpr int LPK = PIECES <= 4 ? 4 : PIECES <= 8 ? 8 : 16;
+  static constexpr int LPK = PIECES <= 4 ? 4 : PIECES <= 8 ? 8 : PIECES <= 16 ? 16 : 32;
+  static constexpr int PPL = (PIECES + 31) / 32;
   static constexpr int KPP = 32 / LPK;
   static constexpr int BYTES = DW * (int)sizeof(KT);
-  static_assert(DW % CPL == 0 && PIECES <= 16, "a head slice is whole 16-byte pieces");
+  static_assert(DW % CPL == 0 && PIECES <= 64, "a head slice is whole pieces, 2 a lane");
 };
+
+// A count given at run time, or at compile time as an integral_constant.
+__device__ __forceinline__ int count_of(int n) { return n; }
+template <int N>
+__device__ __forceinline__ int count_of(std::integral_constant<int, N>) { return N; }
+
+// The rows kernel's dynamic shared memory limit: 227 KB less its static
+// arrays (the query, the warps' and the ranks' partial outputs at DW
+// floats each, the tables), and a margin.
+constexpr int rows_dyn_smem(int dw) {
+  const int stat = 4 * dw * (2 + WARPS + MAX_SPLITS) + 4 * (2 * WARPS + 2 * MAX_SPLITS);
+  return 227 * 1024 - stat - 1024 < MAX_DYN_SMEM ? 227 * 1024 - stat - 1024 : MAX_DYN_SMEM;
+}
 
 // Ring slots of a block whose chunk holds up to `cap` keys in tiles of
 // `tk`: its K and V tiles, at most MAX_SLOTS.
@@ -238,9 +270,22 @@ __device__ __forceinline__ float block_sum(float x, float* red) {
   return x;
 }
 
-// A 16-byte piece of a cache row as floats (exact conversions).
-template <typename KT>
+// A piece of a cache row as floats (exact conversions): 16 bytes, or 8 of
+// bf16.
+template <typename KT, int PB = 16>
 __device__ __forceinline__ void unpack(const unsigned char* p, float* f) {
+  if constexpr (PB == 8) {
+    static_assert(std::is_same<KT, bf16>::value, "8-byte pieces are bf16");
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const float2 x = __bfloat1622float2(b[c]);
+      f[2 * c] = x.x;
+      f[2 * c + 1] = x.y;
+    }
+    return;
+  }
   const uint4 u = *reinterpret_cast<const uint4*>(p);
   if constexpr (std::is_same<KT, bf16>::value) {
     const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&u);
@@ -268,11 +313,11 @@ __device__ __forceinline__ void unpack(const unsigned char* p, float* f) {
 }
 
 // q . k over one piece's channels, in channel order.
-template <typename KT>
+template <typename KT, int PB = 16>
 __device__ __forceinline__ float dot_piece(const unsigned char* p, const float* q) {
-  constexpr int CPL = 16 / (int)sizeof(KT);
+  constexpr int CPL = PB / (int)sizeof(KT);
   float kf[CPL];
-  unpack<KT>(p, kf);
+  unpack<KT, PB>(p, kf);
   float s = 0.f;
 #pragma unroll
   for (int c = 0; c < CPL; ++c) s = fmaf(q[c], kf[c], s);
@@ -334,22 +379,29 @@ __device__ __forceinline__ float query_channel(QT q, const float* __restrict__ k
 // query, caches and output, p not rounded. anc: (N, Tp) int32 local rows
 // in [0, J) (clamped into it); row n of group n / J reads position t from
 // row (n / J) * J + anc[n, t], for k, k_cs and v alike. DW: the head
-// width, 64, or 48 for the plain bf16 rows. Grid (H, N, S) in clusters of
-// (1, 1, S); chunk = ceil(Tp / S) keys a block, tiles of tk keys.
-// Dynamic shared memory: the ring (slots x tk x ROW bytes), cap = min(chunk,
-// pos + 1) float scores, then (K3a) cap int rows.
-template <bool ANC, bool PE, typename KT, int DW = DH>
+// width, 64, or 48 for the plain bf16 rows; with FIXED false the plain
+// rows' greatest width, the width itself `dw_rt` (a multiple of PB's
+// channels). Grid (H, N, S) in clusters of (1, 1, S); chunk = ceil(Tp / S)
+// keys a block, tiles of tk keys. Dynamic shared memory: the ring (slots x
+// tk x ROW bytes), cap = min(chunk, pos + 1) float scores, then (K3a) cap
+// int rows.
+template <bool ANC, bool PE, typename KT, int DW = DH, int PB = 16, bool FIXED = true>
 __global__ void __launch_bounds__(THREADS)
 decode_attn_kernel(const typename Query<KT>::T* __restrict__ q, const KT* __restrict__ k,
                    const KT* __restrict__ v, const int* __restrict__ anc,
                    const bf16* __restrict__ q_cs, const bf16* __restrict__ k_cs,
                    const float* __restrict__ gate, const float* __restrict__ k_scale,
                    const float* __restrict__ v_scale, typename Query<KT>::T* __restrict__ o,
-                   int Tp, int H, int pos, int J, int chunk, int tk) {
-  typedef Slice<KT, DW> SL;
+                   int Tp, int H, int pos, int J, int chunk, int tk, int dw_rt) {
+  typedef Slice<KT, DW, PB> SL;
   constexpr bool QUANT = std::is_same<KT, int8_t>::value;
   constexpr bool F32 = std::is_same<KT, float>::value;
-  constexpr int ROW = (PE ? 2 : 1) * SL::BYTES;  // a key in a K tile: k, then k_cs
+  constexpr int VP = (DW + 63) / 64;              // value channel pairs a lane
+  constexpr int CPT = (DW + THREADS - 1) / THREADS;  // output channels a thread
+  const int dw = FIXED ? DW : dw_rt;
+  const int pieces = FIXED ? SL::PIECES : dw / SL::CPL;  // a head slice's
+  const int bytes = dw * (int)sizeof(KT);
+  const int ROW = (PE ? 2 : 1) * bytes;  // a key in a K tile: k, then k_cs
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ float qs[DW];
   __shared__ float qcs[PE ? DW : 1];
@@ -364,7 +416,7 @@ decode_attn_kernel(const typename Query<KT>::T* __restrict__ q, const KT* __rest
   const bool multi = S > 1;
   const int h = blockIdx.x, n = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int D = H * DW;
+  const int D = H * dw;
   const int nk = pos + 1;
   const int cap = min(chunk, nk);
   const int c0 = rank * chunk;                  // this block's first key
@@ -378,17 +430,18 @@ decode_attn_kernel(const typename Query<KT>::T* __restrict__ q, const KT* __rest
   const int base = ANC ? (n / J) * J : n;
   if (multi) cluster_arrive_relaxed();
 
-  // A tile's copies: PER 16-byte pieces a key, from k (then k_cs) or v.
+  // A tile's copies: `per_c` PB-byte pieces a key, from k (then k_cs) or v
+  // (a compile-time constant at a FIXED width, so the divisions fold).
   auto copy = [&](auto per_c, unsigned char* dst, int t0, int cnt, bool val) {
-    constexpr int PER = decltype(per_c)::value;
-    for (int i = tid; i < cnt * PER; i += THREADS) {
-      const int kk = i / PER, pc = i - kk * PER;
+    const int per = count_of(per_c);
+    for (int i = tid; i < cnt * per; i += THREADS) {
+      const int kk = i / per, pc = i - kk * per;
       const int r = ANC ? rows[t0 + kk] : n;
-      const size_t off = ((size_t)r * Tp + c0 + t0 + kk) * D + h * DW;
+      const size_t off = ((size_t)r * Tp + c0 + t0 + kk) * D + h * dw;
       const KT* src =
-          val ? v : (PE && pc >= SL::PIECES ? reinterpret_cast<const KT*>(k_cs) : k);
-      cp_async16(dst + kk * PER * 16 + pc * 16,
-                 reinterpret_cast<const unsigned char*>(src + off) + (pc % SL::PIECES) * 16);
+          val ? v : (PE && pc >= pieces ? reinterpret_cast<const KT*>(k_cs) : k);
+      cp_async<PB>(dst + kk * per * PB + pc * PB,
+                   reinterpret_cast<const unsigned char*>(src + off) + (pc % pieces) * PB);
     }
   };
   // Load j of the sequence (K tiles 0..nt-1, then V tiles 0..nt-1) into
@@ -399,10 +452,15 @@ decode_attn_kernel(const typename Query<KT>::T* __restrict__ q, const KT* __rest
       const bool val = j >= nt;
       const int t0 = (val ? j - nt : j) * tk, cnt = min(tk, nkb - t0);
       unsigned char* dst = ring + (size_t)(j % slots) * tk * ROW;
-      if (val)
-        copy(std::integral_constant<int, SL::PIECES>(), dst, t0, cnt, true);
-      else
-        copy(std::integral_constant<int, ROW / 16>(), dst, t0, cnt, false);
+      if constexpr (FIXED) {
+        if (val)
+          copy(std::integral_constant<int, SL::PIECES>(), dst, t0, cnt, true);
+        else
+          copy(std::integral_constant<int, (PE ? 2 : 1) * SL::BYTES / PB>(), dst, t0, cnt,
+               false);
+      } else {
+        copy(val ? pieces : ROW / PB, dst, t0, cnt, val);
+      }
     }
     cp_commit();
   };
@@ -414,17 +472,17 @@ decode_attn_kernel(const typename Query<KT>::T* __restrict__ q, const KT* __rest
     __syncthreads();
   }
   for (int j = 0; j < slots; ++j) fetch(j);
-  if (tid < DW) {
-    const size_t qi = (size_t)n * D + h * DW + tid;
-    qs[tid] = query_channel<KT>(q[qi], k_scale, h * DW + tid);
-    if constexpr (PE) qcs[tid] = __bfloat162float(q_cs[qi]);
+  for (int c = tid; c < dw; c += THREADS) {
+    const size_t qi = (size_t)n * D + h * dw + c;
+    qs[c] = query_channel<KT>(q[qi], k_scale, h * dw + c);
+    if constexpr (PE) qcs[c] = __bfloat162float(q_cs[qi]);
   }
 
-  // Scores: lane `sub` of a key holds q's channels of piece `sub` (read
-  // after the first tile's barrier, which also publishes qs).
+  // Scores: lane `sub` of a key holds q's channels of its pieces sub, sub +
+  // 32 (read after the first tile's barrier, which also publishes qs).
   const int sub = lane % SL::LPK, kq = lane / SL::LPK;
-  const bool act = sub < SL::PIECES;
-  float qr[SL::CPL], qcr[PE ? SL::CPL : 1];
+  const bool act = sub < pieces;
+  float qr[SL::PPL][SL::CPL], qcr[PE ? SL::PPL : 1][PE ? SL::CPL : 1];
   const float g = PE ? gate[h] : 0.f;
   float mx = -INFINITY;
   for (int j = 0; j < nt; ++j) {
@@ -432,22 +490,31 @@ decode_attn_kernel(const typename Query<KT>::T* __restrict__ q, const KT* __rest
     __syncthreads();
     if (j == 0) {
 #pragma unroll
-      for (int c = 0; c < SL::CPL; ++c) {
-        qr[c] = act ? qs[sub * SL::CPL + c] : 0.f;
-        if constexpr (PE) qcr[c] = act ? qcs[sub * SL::CPL + c] : 0.f;
+      for (int pp = 0; pp < SL::PPL; ++pp) {
+        const int pc = sub + pp * SL::LPK;
+        const bool on = pp ? pc < pieces : act;
+#pragma unroll
+        for (int c = 0; c < SL::CPL; ++c) {
+          qr[pp][c] = on ? qs[pc * SL::CPL + c] : 0.f;
+          if constexpr (PE) qcr[pp][c] = on ? qcs[pc * SL::CPL + c] : 0.f;
+        }
       }
     }
     const unsigned char* kt = ring + (size_t)(j % slots) * tk * ROW;
     const int t0 = j * tk, cnt = min(tk, nkb - t0);
     for (int kk0 = warp * SL::KPP; kk0 < cnt; kk0 += WARPS * SL::KPP) {
       const int kk = kk0 + kq;
-      const bool on = act && kk < cnt;
-      float s = lanes_sum<SL::LPK>(on ? dot_piece<KT>(kt + kk * ROW + sub * 16, qr) : 0.f);
-      if constexpr (PE) {
-        const float s_cs = lanes_sum<SL::LPK>(
-            on ? dot_piece<KT>(kt + kk * ROW + SL::BYTES + sub * 16, qcr) : 0.f);
-        s = (1.f - g) * s + g * s_cs;
+      float s = 0.f, s_cs = 0.f;
+#pragma unroll
+      for (int pp = 0; pp < SL::PPL; ++pp) {
+        const int pc = sub + pp * SL::LPK;
+        if ((pp ? pc < pieces : act) && kk < cnt) {
+          s += dot_piece<KT, PB>(kt + kk * ROW + pc * PB, qr[pp]);
+          if constexpr (PE) s_cs += dot_piece<KT, PB>(kt + kk * ROW + bytes + pc * PB, qcr[pp]);
+        }
       }
+      s = lanes_sum<SL::LPK>(s);
+      if constexpr (PE) s = (1.f - g) * s + g * lanes_sum<SL::LPK>(s_cs);
       if (sub == 0 && kk < cnt) {
         sc[t0 + kk] = s;
         mx = fmaxf(mx, s);
@@ -489,67 +556,93 @@ decode_attn_kernel(const typename Query<KT>::T* __restrict__ q, const KT* __rest
   }
 
   // Values: warp w takes keys w, w+4, ... of each tile, lane l the channel
-  // pair (2l, 2l+1).
-  float2 acc = make_float2(0.f, 0.f);
-  const bool pair = 2 * lane < DW;
+  // pairs (2l, 2l+1) + 64i.
+  float2 acc[VP];
+#pragma unroll
+  for (int i = 0; i < VP; ++i) acc[i] = make_float2(0.f, 0.f);
   for (int j = 0; j < nt; ++j) {
     cp_wait(slots - 1);
     __syncthreads();
     const unsigned char* vt = ring + (size_t)((nt + j) % slots) * tk * ROW;
     const int t0 = j * tk, cnt = min(tk, nkb - t0);
-    if (pair) {
-      for (int kk = warp; kk < cnt; kk += WARPS) {
-        const float w = sc[t0 + kk];
-        const float2 f = load_pair(reinterpret_cast<const KT*>(vt + kk * SL::BYTES) + 2 * lane);
-        acc.x = fmaf(w, f.x, acc.x);
-        acc.y = fmaf(w, f.y, acc.y);
+    for (int kk = warp; kk < cnt; kk += WARPS) {
+      const float w = sc[t0 + kk];
+#pragma unroll
+      for (int i = 0; i < VP; ++i) {
+        const int c = 2 * lane + 64 * i;
+        if (c < dw) {
+          const float2 f = load_pair(reinterpret_cast<const KT*>(vt + kk * bytes) + c);
+          acc[i].x = fmaf(w, f.x, acc[i].x);
+          acc[i].y = fmaf(w, f.y, acc[i].y);
+        }
       }
     }
     if (nt + j + slots < 2 * nt) __syncthreads();  // the slot is refilled
     fetch(nt + j + slots);
   }
-  if (pair) {
-    wpart[warp][2 * lane] = acc.x;
-    wpart[warp][2 * lane + 1] = acc.y;
+#pragma unroll
+  for (int i = 0; i < VP; ++i) {
+    const int c = 2 * lane + 64 * i;
+    if (c < dw) {
+      wpart[warp][c] = acc[i].x;
+      wpart[warp][c + 1] = acc[i].y;
+    }
   }
   __syncthreads();
   // The warps' sums in warp order, pushed to rank 0, which adds the
   // ranks' partials in rank order; no block's memory is read after the
   // barrier but rank 0's own. One block writes its sum.
-  float s = 0.f;
-  if (tid < DW) {
-    s = wpart[0][tid];
-    for (int w = 1; w < WARPS; ++w) s += wpart[w][tid];
-  }
-  if (multi) {
-    if (tid < DW) cluster.map_shared_rank(&parts[rank][0], 0)[tid] = s;
-    cluster.sync();
-    if (rank == 0 && tid < DW) {
-      s = 0.f;
-      for (int r = 0; r < S; ++r) s += parts[r][tid];
+  float s[CPT];
+#pragma unroll
+  for (int i = 0; i < CPT; ++i) {
+    const int c = tid + i * THREADS;
+    s[i] = 0.f;
+    if (c < dw) {
+      s[i] = wpart[0][c];
+      for (int w = 1; w < WARPS; ++w) s[i] += wpart[w][c];
     }
   }
-  if (rank == 0 && tid < DW) {
-    if (QUANT) s *= v_scale[h * DW + tid];  // v's scale, after the sum
-    put(o + (size_t)n * D + h * DW + tid, s);
+  if (multi) {
+#pragma unroll
+    for (int i = 0; i < CPT; ++i) {
+      const int c = tid + i * THREADS;
+      if (c < dw) cluster.map_shared_rank(&parts[rank][0], 0)[c] = s[i];
+    }
+    cluster.sync();
+#pragma unroll
+    for (int i = 0; i < CPT; ++i) {
+      const int c = tid + i * THREADS;
+      if (rank == 0 && c < dw) {
+        s[i] = 0.f;
+        for (int r = 0; r < S; ++r) s[i] += parts[r][c];
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < CPT; ++i) {
+    const int c = tid + i * THREADS;
+    if (rank == 0 && c < dw) {
+      if (QUANT) s[i] *= v_scale[h * dw + c];  // v's scale, after the sum
+      put(o + (size_t)n * D + h * dw + c, s[i]);
+    }
   }
 }
 
 // cudaLaunchKernelEx with the S blocks along z as one cluster (S = 1: a
 // cluster of one block, which skips the cluster's exchanges). The kernel
 // is opted into
-// MAX_DYN_SMEM of dynamic shared memory once per device (`opted`, the
+// `max_smem` of dynamic shared memory once per device (`opted`, the
 // kernel's record): the default allows 48 KB less its static arrays, which
 // a launch near 48 KB would exceed. The opt-in is a ceiling; a launch still
 // takes only what it asks for.
 template <typename... KArgs, typename... Args>
 int launch_cluster(void (*kern)(KArgs...), bool* opted, dim3 grid, int S, size_t smem,
-                   cudaStream_t stream, Args... args) {
+                   int max_smem, cudaStream_t stream, Args... args) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
   if (dev >= MAX_DEVICES || !opted[dev]) {
-    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_DYN_SMEM);
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
     if (e != cudaSuccess) return (int)e;
     if (dev < MAX_DEVICES) opted[dev] = true;
   }
@@ -570,24 +663,45 @@ int launch_cluster(void (*kern)(KArgs...), bool* opted, dim3 grid, int S, size_t
   return (int)cudaGetLastError();
 }
 
-template <bool ANC, bool PE, typename KT, int DW = DH>
+template <bool ANC, bool PE, typename KT, int DW = DH, int PB = 16, bool FIXED = true>
 int launch_rows(const void* q, const void* k, const void* v, const void* anc,
                 const void* q_cs, const void* k_cs, const void* gate, const void* ks,
                 const void* vs, void* o, int N, int Tp, int H, int pos, int J, int S,
-                cudaStream_t stream) {
+                cudaStream_t stream, int dw = DW) {
   if (S < 1 || S > MAX_SPLITS) return (int)cudaErrorInvalidValue;
-  constexpr int ROW = (PE ? 2 : 1) * Slice<KT, DW>::BYTES;
+  if (FIXED ? dw != DW : (dw <= 0 || dw > DW || dw % Slice<KT, DW, PB>::CPL))
+    return (int)cudaErrorInvalidValue;
+  const int ROW = (PE ? 2 : 1) * dw * (int)sizeof(KT);
   const int chunk = (Tp + S - 1) / S, cap = chunk < pos + 1 ? chunk : pos + 1;
   const int tk = tile_keys(cap, ROW, whole_chunk_budget(H * N * S));
   const size_t smem = (size_t)ring_slots(cap, tk) * tk * ROW +
                       (size_t)cap * (sizeof(float) + (ANC ? sizeof(int) : 0));
-  if (smem > (size_t)MAX_DYN_SMEM) return (int)cudaErrorInvalidValue;
+  if (smem > (size_t)rows_dyn_smem(DW)) return (int)cudaErrorInvalidValue;
   typedef typename Query<KT>::T QT;
   static bool opted[MAX_DEVICES] = {};
-  return launch_cluster(decode_attn_kernel<ANC, PE, KT, DW>, opted, dim3(H, N, S), S, smem,
-                        stream, (const QT*)q, (const KT*)k, (const KT*)v, (const int*)anc,
-                        (const bf16*)q_cs, (const bf16*)k_cs, (const float*)gate,
-                        (const float*)ks, (const float*)vs, (QT*)o, Tp, H, pos, J, chunk, tk);
+  return launch_cluster(decode_attn_kernel<ANC, PE, KT, DW, PB, FIXED>, opted, dim3(H, N, S),
+                        S, smem, rows_dyn_smem(DW), stream, (const QT*)q, (const KT*)k,
+                        (const KT*)v, (const int*)anc, (const bf16*)q_cs, (const bf16*)k_cs,
+                        (const float*)gate, (const float*)ks, (const float*)vs, (QT*)o, Tp, H,
+                        pos, J, chunk, tk, dw);
+}
+
+// The plain rows at a width given at launch (d_head <= 256, a multiple of
+// 4): bf16 (16-byte pieces where 8 channels divide the width, else 8-byte)
+// or float32 caches, on the instance of the least greatest width of 32, 64,
+// 128 and 256 that holds it.
+template <typename KT, int PB>
+int launch_rows_at(const void* q, const void* k, const void* v, void* o, int N, int Tp,
+                   int H, int dw, int pos, int S, cudaStream_t stream) {
+#define AT(W)                                                                           \
+  launch_rows<false, false, KT, W, PB, false>(q, k, v, nullptr, nullptr, nullptr, nullptr, \
+                                              nullptr, nullptr, o, N, Tp, H, pos, 1, S,    \
+                                              stream, dw)
+  if (dw <= 32) return AT(32);
+  if (dw <= 64) return AT(64);
+  if (dw <= 128) return AT(128);
+  return AT(DH_MAX);
+#undef AT
 }
 
 // K3s's products run on the tensor cores (mma.sync m16n8k16, bf16 in,
@@ -921,7 +1035,8 @@ int launch_shared(const void* q, const void* k, const void* v, const void* ks,
   const size_t smem = shared_smem(cap, tk, ROW, J, S);
   if (smem > (size_t)MAX_DYN_SMEM) return (int)cudaErrorInvalidValue;
   static bool opted[MAX_DEVICES] = {};
-  return launch_cluster(decode_attn_shared_kernel<KT>, opted, dim3(H, G, S), S, smem, stream,
+  return launch_cluster(decode_attn_shared_kernel<KT>, opted, dim3(H, G, S), S, smem,
+                        MAX_DYN_SMEM, stream,
                         (const bf16*)q, (const KT*)k, (const KT*)v, (const float*)ks,
                         (const float*)vs, (bf16*)o, Tp, H, pos, J, chunk, tk);
 }
@@ -975,6 +1090,21 @@ extern "C" int decode_attn_d48_fwd(const void* q, const void* k, const void* v, 
   return launch_rows<false, false, bf16, 48>(q, k, v, nullptr, nullptr, nullptr, nullptr,
                                              nullptr, nullptr, o, N, Tp, H, pos, 1, S,
                                              (cudaStream_t)stream);
+}
+
+// K3 and K3-f32 at any other width: plain rows, q, o (N, H*dw), k, v (N,
+// Tp, H*dw), bf16 (f32 0) or float32 (f32 1); dw <= 256 a multiple of 4;
+// all contiguous and 16-byte aligned; 0 <= pos < Tp; 1 <= S <= 8. Returns
+// cudaGetLastError() after the launch, cudaErrorInvalidValue for a width
+// it does not take.
+extern "C" int decode_attn_rows_fwd(const void* q, const void* k, const void* v, void* o,
+                                    int f32, int N, int Tp, int H, int dw, int pos, int S,
+                                    void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (dw <= 0 || dw > DH_MAX || dw % 4) return (int)cudaErrorInvalidValue;
+  if (f32) return launch_rows_at<float, 16>(q, k, v, o, N, Tp, H, dw, pos, S, st);
+  if (dw % 8 == 0) return launch_rows_at<bf16, 16>(q, k, v, o, N, Tp, H, dw, pos, S, st);
+  return launch_rows_at<bf16, 8>(q, k, v, o, N, Tp, H, dw, pos, S, st);
 }
 
 // K3s (k_scale null: bf16 caches) and K3s-int8. q, o: (G*J, H*64) bf16

@@ -200,6 +200,16 @@ __device__ __forceinline__ uint64_t desc(const void* tile, uint32_t offset = 0) 
          (uint64_t(1) << 62);  // 128-byte swizzle
 }
 
+// As desc, for a tile of 64-byte rows (32 bf16) loaded with
+// CU_TENSOR_MAP_SWIZZLE_64B into a 512-byte aligned buffer: 8-row groups of
+// 512 bytes, the 16-byte chunks of row r at chunk ^ ((r / 2) % 4). The k16
+// steps advance as desc's: 32 bytes K-major, 16 rows (1024 bytes) MN-major.
+__device__ __forceinline__ uint64_t desc64(const void* tile, uint32_t offset = 0) {
+  const uint64_t addr = (smem_u32(tile) + offset) & 0x3FFFF;
+  return (addr >> 4) | (uint64_t(512 >> 4) << 16) | (uint64_t(512 >> 4) << 32) |
+         (uint64_t(2) << 62);  // 64-byte swizzle
+}
+
 // As desc, for an MN-major tile wider than 64: its 64-column blocks (each R
 // rows x 128 bytes, swizzled) lie `lbo` bytes apart.
 __device__ __forceinline__ uint64_t desc_lbo(const void* tile, uint32_t offset, uint32_t lbo) {
@@ -311,6 +321,35 @@ __device__ __forceinline__ void wgmma_ss_n64_tab(float (&d)[32], uint64_t da, ui
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 32, f32) += a (64 x 16, shared memory) . b (16 x 32, shared
+// memory); scale_d = 0 overwrites d. a MN-major with TA 1, b with TB 1.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// d (64 x 32, f32) += a (64 x 16 bf16, registers) . b (16 x 32, shared
+// memory, MN-major), as wgmma_rs_n64_t.
+__device__ __forceinline__ void wgmma_rs_n32_t(float (&d)[16], const uint32_t* a,
+                                               uint64_t db, int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
 // d (64 x 128, f32) += a (64 x 16, shared memory) . b (16 x 128, shared
@@ -520,20 +559,26 @@ static EncodeTiled encode_fn() {
   return fn;
 }
 
+// The swizzle of a box `box_cols` bf16 wide: 128 bytes at 64 columns, 64
+// at 32 (`desc64`).
+static CUtensorMapSwizzle swizzle_of(int box_cols) {
+  return box_cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
+}
+
 // The map of a (rows, cols) bf16 matrix in rows of `ld` elements (a multiple
-// of 8, >= cols), read in (64, box_rows) boxes: columns from `cols` on and
-// rows from `rows` on read as zeros. Returns as `encode`.
+// of 8, >= cols), read in (box_cols (64 or 32), box_rows) boxes: columns
+// from `cols` on and rows from `rows` on read as zeros. Returns as `encode`.
 static int encode_bf16(CUtensorMap* map, const void* ptr, int rows, int cols, int ld,
-                       int box_rows) {
+                       int box_rows, int box_cols = 64) {
   const EncodeTiled fn = encode_fn();
   if (fn == nullptr) return -1;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t unit[2] = {1, 1};
   const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
                           dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                          swizzle_of(box_cols), CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : -(int)res;
 }
@@ -563,21 +608,28 @@ static int encode_i8(CUtensorMap* map, const void* ptr, int rows, int cols,
   return res == CUDA_SUCCESS ? 0 : -(int)res;
 }
 
-// The map of a packed (B, T, H*64) bf16 tensor with (64, rows, 1) boxes.
-// Returns 0, or a negative code: -1 without the driver function, else
-// -CUresult.
-static int encode(CUtensorMap* map, const void* ptr, int B, int T, int H, int rows) {
+// The map of a packed (B, T, cols) bf16 tensor with (box_cols, rows, 1)
+// boxes, box_cols 64 or 32 (`swizzle_of`). Returns 0, or a negative code:
+// -1 without the driver function, else -CUresult.
+static int encode_cols(CUtensorMap* map, const void* ptr, int B, int T, int cols, int rows,
+                       int box_cols) {
   const EncodeTiled fn = encode_fn();
   if (fn == nullptr) return -1;
-  const cuuint64_t dims[3] = {(cuuint64_t)H * 64, (cuuint64_t)T, (cuuint64_t)B};
-  const cuuint64_t strides[2] = {(cuuint64_t)H * 64 * 2, (cuuint64_t)T * H * 64 * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2, (cuuint64_t)T * cols * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)rows, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
                           dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                          swizzle_of(box_cols), CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : -(int)res;
+}
+
+// The map of a packed (B, T, H*64) bf16 tensor with (64, rows, 1) boxes.
+// Returns as encode_cols.
+static int encode(CUtensorMap* map, const void* ptr, int B, int T, int H, int rows) {
+  return encode_cols(map, ptr, B, T, H * 64, rows, 64);
 }
 
 }  // namespace hop_host

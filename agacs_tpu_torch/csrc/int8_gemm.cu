@@ -7,8 +7,20 @@
 //
 //   K8q int8_rowquant: per row of x (M, K), float32 v = x (* colscale), s =
 //       max(max|v|, 1e-12) / 127, q = round(v / s) -> int8 q (M, K), f32 s
-//       (M,). The colscale is the dgrad's `dy * w_s` (:111). One warp per
-//       row, two passes over it (the second from L1/L2).
+//       (M,). The colscale is the dgrad's `dy * w_s` (:111). HBM-bound: it
+//       reads the row once and writes a byte an element. A group of TPR
+//       threads (one warp, or 2-8 warps for rows above 4 KB) owns a row:
+//       each thread issues all its 16-byte loads of the row at once and keeps
+//       them in registers (6 a thread, so one read of up to 96 x TPR bytes), the group takes the row maximum (on bf16 pairs where there
+//       is no column scale; shuffles, then shared memory across its warps),
+//       and each thread quantises its registers with a correctly rounded
+//       reciprocal (the IEEE quotient, as i8::quant_by) rounded onto an
+//       integer by a magic-number add, into 8-byte (bf16) or 4-byte (f32)
+//       stores: few instructions an element, so the issue rate stays below
+//       HBM's. 256-thread blocks, four an SM, hold 8 to 1 rows each; parts
+//       of a row past the registers are read again (none at K <= 768 x TPR
+//       / 16 for bf16). A K whose rows are not 16-byte aligned takes the
+//       same kernel one element a load.
 //   K8g: out = (acc * s_row) [* w_s[col]] cast to bf16 or f32, acc = q (M,
 //       K) . B, int32; B = w_q (d_in, d_out) in the forward (K = d_in, N =
 //       d_out), w_q^T in the dgrad (K = d_out, N = d_in). Bias is added
@@ -45,7 +57,7 @@
 //       partials, so all hold the same scales, and each stage's slice of x
 //       is quantised in registers into the ring beside the weight
 //       (i8::quant_by: a correctly rounded reciprocal a row and two FMA
-//       corrections give i8::quant's IEEE quotient; each column block
+//       corrections give the IEEE quotient, i8::quotient; each column block
 //       quantises its rank's slice of every row), its loads issued before
 //       the mma of the stage three earlier. x is read twice from L2 (12 KB
 //       at a decode step's 8 x 768), never staged whole.
@@ -58,30 +70,172 @@
 #include "int8_mma.cuh"
 #include "thin_rows.cuh"
 
+#include <type_traits>
+
 namespace {
 
-template <bool BF16>
-__global__ void __launch_bounds__(256) rowquant_kernel(const void* __restrict__ x,
-                                                       const float* __restrict__ cs,
-                                                       int8_t* __restrict__ q,
-                                                       float* __restrict__ s, int M,
-                                                       int K) {
-  const int row = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
-  if (row >= M) return;
-  const size_t base = (size_t)row * K;
+constexpr int RQ_THREADS = 256;  // a K8q block
+constexpr int RQ_V = 6;          // loads a thread keeps in registers (at most)
+
+// The low bytes of four i8::quant_bits words, in order, as one word.
+__device__ __forceinline__ uint32_t pack4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040), 0x5410);
+}
+
+// One load of K8q: 16 bytes (VEC: 8 bf16 or 4 f32) or one element.
+template <bool BF16, bool VEC>
+struct RqUnit {
+  static constexpr int E = VEC ? 16 / (BF16 ? 2 : 4) : 1;  // elements
+  typedef typename std::conditional<VEC, uint4,
+                                    typename std::conditional<BF16, __nv_bfloat16,
+                                                              float>::type>::type Raw;
+  // element e of a raw load as float32
+  static __device__ __forceinline__ float val(const Raw& r, int e) {
+    if constexpr (VEC && BF16)
+      return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(&r)[e]);
+    else if constexpr (VEC)
+      return reinterpret_cast<const float*>(&r)[e];
+    else if constexpr (BF16)
+      return __bfloat162float(r);
+    else
+      return r;
+  }
+  // a load's elements as float32, times the column scale (if any; VEC: read
+  // with 16-byte loads)
+  static __device__ __forceinline__ void vals(const Raw& r, const float* cs, int c,
+                                              float (&v)[E]) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) v[e] = val(r, e);
+    if (cs) {
+      float sv[E];
+      if constexpr (VEC) {
+#pragma unroll
+        for (int i = 0; i < E / 4; ++i) {
+          const float4 f = __ldg(reinterpret_cast<const float4*>(cs + c) + i);
+          sv[4 * i] = f.x, sv[4 * i + 1] = f.y, sv[4 * i + 2] = f.z, sv[4 * i + 3] = f.w;
+        }
+      } else {
+        sv[0] = cs[c];
+      }
+#pragma unroll
+      for (int e = 0; e < E; ++e) v[e] = __fmul_rn(v[e], sv[e]);
+    }
+  }
+  // max(m, |v|) over a load's elements (bf16 without a column scale: on
+  // bf16 pairs, exact)
+  static __device__ __forceinline__ float amax(float m, const Raw& r, const float* cs, int c) {
+    if constexpr (VEC && BF16) {
+      if (!cs) {
+        const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&r);
+        __nv_bfloat162 m2 = __habs2(p[0]);
+#pragma unroll
+        for (int e = 1; e < 4; ++e) m2 = __hmax2(m2, __habs2(p[e]));
+        return fmaxf(m, fmaxf(__low2float(m2), __high2float(m2)));
+      }
+    }
+    float v[E];
+    vals(r, cs, c, v);
+#pragma unroll
+    for (int e = 0; e < E; ++e) m = fmaxf(m, fabsf(v[e]));
+    return m;
+  }
+  // quantise a load and store its E bytes at q[c]
+  static __device__ __forceinline__ void put(int8_t* q, size_t c, const Raw& r,
+                                             const float* cs, int col, float s, float y) {
+    float v[E];
+    vals(r, cs, col, v);
+    if constexpr (E == 1) {
+      q[c] = (int8_t)(uint8_t)i8::quant_bits(v[0], s, y);
+    } else {
+      uint32_t w[E / 4];
+#pragma unroll
+      for (int i = 0; i < E / 4; ++i)
+        w[i] = pack4(i8::quant_bits(v[4 * i], s, y), i8::quant_bits(v[4 * i + 1], s, y),
+                     i8::quant_bits(v[4 * i + 2], s, y), i8::quant_bits(v[4 * i + 3], s, y));
+      if constexpr (E == 8)
+        *reinterpret_cast<uint2*>(q + c) = make_uint2(w[0], w[1]);
+      else
+        *reinterpret_cast<uint32_t*>(q + c) = w[0];
+    }
+  }
+};
+
+// K8q: rows of TPR threads, RQ_THREADS / TPR rows a block, V loads a
+// thread in registers (fewer registers where a row needs only 3: more
+// blocks an SM).
+template <bool BF16, bool VEC, int TPR, int V>
+__global__ void __launch_bounds__(RQ_THREADS, 4)
+rowquant_kernel(const void* __restrict__ x, const float* __restrict__ cs,
+                int8_t* __restrict__ q, float* __restrict__ s, int M, int K) {
+  typedef RqUnit<BF16, VEC> U;
+  typedef typename U::Raw Raw;
+  constexpr int WPR = TPR / 32;  // warps a row
+  __shared__ float red[RQ_THREADS / 32];
+  const int tid = threadIdx.x, li = tid % TPR;
+  const int row = blockIdx.x * (RQ_THREADS / TPR) + tid / TPR;
+  const bool live = row < M;
+  const int nu = K / U::E;  // loads a row (VEC: K % E == 0)
+  const Raw* xr = reinterpret_cast<const Raw*>(x) + (size_t)(live ? row : 0) * nu;
+  Raw r[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j)
+    if (live && li + j * TPR < nu) r[j] = __ldcs(xr + li + j * TPR);
   float m = 0.f;
-  for (int c = lane; c < K; c += 32) {
-    float v = i8::ldf<BF16>(x, base + c);
-    if (cs) v = __fmul_rn(v, cs[c]);
-    m = fmaxf(m, fabsf(v));
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const int u = li + j * TPR;
+    if (live && u < nu) m = U::amax(m, r[j], cs, u * U::E);
   }
-  const float sc = i8::quant_scale(i8::warp_max(m));
-  for (int c = lane; c < K; c += 32) {
-    float v = i8::ldf<BF16>(x, base + c);
-    if (cs) v = __fmul_rn(v, cs[c]);
-    q[base + c] = i8::quant(v, sc);
+  for (int u = li + V * TPR; live && u < nu; u += TPR)  // past the registers
+    m = U::amax(m, xr[u], cs, u * U::E);
+  m = i8::warp_max(m);
+  if constexpr (WPR > 1) {
+    if ((tid & 31) == 0) red[tid >> 5] = m;
+    __syncthreads();
+    const int w0 = (tid / TPR) * WPR;
+#pragma unroll
+    for (int w = 0; w < WPR; ++w) m = fmaxf(m, red[w0 + w]);
   }
-  if (lane == 0) s[row] = sc;
+  if (!live) return;
+  const float sc = i8::quant_scale(m), y = __frcp_rn(sc);
+  int8_t* qr = q + (size_t)row * K;
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const int u = li + j * TPR;
+    if (u < nu) U::put(qr, (size_t)u * U::E, r[j], cs, u * U::E, sc, y);
+  }
+  for (int u = li + V * TPR; u < nu; u += TPR) U::put(qr, (size_t)u * U::E, xr[u], cs, u * U::E, sc, y);
+  if (li == 0) s[row] = sc;
+}
+
+// The threads a row of `nu` loads takes: one warp while its loads fit the
+// registers, else up to 8 warps.
+inline int rowquant_tpr(int nu) {
+  int tpr = 32;
+  while (tpr < RQ_THREADS && nu > tpr * RQ_V) tpr *= 2;
+  return tpr;
+}
+
+template <bool BF16, bool VEC>
+int launch_rowquant(const void* x, const float* cs, int8_t* q, float* s, int M, int K,
+                    cudaStream_t stream) {
+  const int nu = K / RqUnit<BF16, VEC>::E;
+  const int tpr = rowquant_tpr(nu), rows = RQ_THREADS / tpr;
+  const bool v3 = nu <= 3 * tpr;
+  const dim3 grid((M + rows - 1) / rows);
+#define RQ(T)                                                                          \
+  if (v3)                                                                              \
+    rowquant_kernel<BF16, VEC, T, 3><<<grid, RQ_THREADS, 0, stream>>>(x, cs, q, s, M, K); \
+  else                                                                                 \
+    rowquant_kernel<BF16, VEC, T, RQ_V><<<grid, RQ_THREADS, 0, stream>>>(x, cs, q, s, M, K)
+  switch (tpr) {
+    case 32: RQ(32); break;
+    case 64: RQ(64); break;
+    case 128: RQ(128); break;
+    default: RQ(256); break;
+  }
+#undef RQ
+  return (int)cudaGetLastError();
 }
 
 // ---- the wide kernel --------------------------------------------------------
@@ -557,15 +711,18 @@ int launch_thin(const XT* x, const int8_t* w, const float* w_s, void* out, int M
 
 }  // namespace
 
+// K8q: x (M, K) bf16 (x_bf16) or f32, contiguous and 16-byte aligned;
+// colscale (K,) f32 or null; q (M, K) int8, s (M,) f32 out.
 extern "C" int int8_rowquant(const void* x, int x_bf16, const float* colscale,
                              int8_t* q, float* s, int M, int K, cudaStream_t stream) {
   if (M <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid((M + 7) / 8);
+  // 16-byte loads when every row starts on 16 bytes
+  const bool vec = (size_t)K * (x_bf16 ? 2 : 4) % 16 == 0;
   if (x_bf16)
-    rowquant_kernel<true><<<grid, 256, 0, stream>>>(x, colscale, q, s, M, K);
-  else
-    rowquant_kernel<false><<<grid, 256, 0, stream>>>(x, colscale, q, s, M, K);
-  return (int)cudaGetLastError();
+    return vec ? launch_rowquant<true, true>(x, colscale, q, s, M, K, stream)
+               : launch_rowquant<true, false>(x, colscale, q, s, M, K, stream);
+  return vec ? launch_rowquant<false, true>(x, colscale, q, s, M, K, stream)
+             : launch_rowquant<false, false>(x, colscale, q, s, M, K, stream);
 }
 
 // out (M, N) = (a (M, K) . B) * s_row [* w_s]; B = w (K, N) if !dgrad, else

@@ -9,7 +9,8 @@
 //
 //   s[q, j] = (qu[q] . k[j] + qv[q] . pe[T-1-q+j]) * d_head^-0.5 + mask[j]
 //
-// with bf16 inputs and float32 accumulation, the additive mask (0 or -1e30
+// with bf16 inputs and float32 accumulation, d_head^-0.5 the head's real
+// width's, the additive mask (0 or -1e30
 // per key), a float32 softmax, the UN-normalized p cast to bf16 for the
 // value product with float32 accumulation, and the division by the row sum
 // at the end. pe holds the projected positions T-1 .. -(T-1) in rows
@@ -22,6 +23,19 @@
 // ~10 MB of qu/qv/k/v/pe/mask/o, and the backward at the training shape
 // (B=16) 8 such products (14.4 GFLOP) against ~40 MB: the tensor cores
 // bound both, not HBM.
+//
+// Head widths. Every kernel is a template over the instance's head width
+// DH (32, 64 or 128; the wrapper zero-pads a head of another width up to
+// the next instance, and the zero columns add exact zeros to both score
+// products) and over its consumer warpgroups NWG and ring depth, picked per
+// instance (`Inst`) to fit 227 KB. A tile of R rows is stored as DH / CW
+// column blocks of R rows x CW columns, each one TMA box and one swizzle
+// row: CW 64 (128-byte swizzle) at DH 64 and 128, CW 32 (64-byte swizzle,
+// hop::desc64) at DH 32. A product over the head's channels takes DH / 16
+// k16 steps across the blocks; a product with the head's channels as N runs
+// one m64nCW wgmma per block into its own accumulators. The scale d_head^-0.5
+// (the real width, not the instance's) is an argument, applied where JAX's
+// `_fwd_kernel` applies it: (ac + shift) * isd + mask in float32.
 //
 // The TPU kernel held a head's whole (T, T) content scores and (T, Wp)
 // position scores in VMEM and realigned the position scores with a strided
@@ -59,8 +73,9 @@
 //
 // Registers: three warpgroups leave 168 a thread; the producer warpgroup
 // hands registers to the consumers at the start (setmaxnreg: 56 a producer
-// thread, 224 a consumer thread). ptxas still reports 168 for every kernel
-// here, and the dq pass spills (chip_smoke.py's phase 1 prints both).
+// thread, 224 a consumer thread). ptxas still reports 168 for every such
+// kernel, and the dq pass spills (chip_smoke.py's phase 1 prints both). The
+// one-consumer instances (DH 128) have 255 a thread and no handover.
 
 #include "hopper.cuh"
 
@@ -68,17 +83,100 @@ typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int DH = 64;                 // head width
-constexpr int BR = 128;                // rows a block owns (queries, or keys in dkdv)
 constexpr int BS = 64;                 // rows per streamed tile (keys, or queries in dkdv)
-constexpr int PR = 192;                // pe rows a tile reads: both warpgroups' windows
-constexpr int THREADS = 3 * 128;       // two consumer warpgroups, a producer warpgroup
 constexpr int PL = 88;                 // f32 row stride of a staged position block
-constexpr int OWN = BR * DH * 2;       // bytes of a 128-row tile
-constexpr int STR = BS * DH * 2;       // bytes of a 64-row tile
-constexpr int PEB = PR * DH * 2;       // bytes of a pe tile
-constexpr float SCALE = 0.125f;        // 64^-0.5
 constexpr float LOG2E = 1.4426950408889634f;
+
+// An instance's geometry: head width DH, NWG consumer warpgroups of 64 rows
+// (the block owns BR = 64 NWG queries, or keys in dkdv), and the tiles'
+// column blocks (see the header).
+template <int DH_, int NWG_>
+struct K {
+  static constexpr int DH = DH_;
+  static constexpr int NWG = NWG_;
+  static constexpr int CW = DH < 64 ? DH : 64;  // columns of a column block
+  static constexpr int CB = DH / CW;            // column blocks of a tile
+  static constexpr int RB = 2 * CW;             // bytes of a column block's row
+  static constexpr int KC = DH / 16;            // k16 steps over the head's channels
+  static constexpr int NACC = CW / 2;           // accumulators of a 64 x CW product
+  static constexpr int BR = 64 * NWG;           // rows a block owns
+  static constexpr int PR = BR + BS;            // pe rows a tile reads: every window
+  static constexpr int CONSUMERS = 128 * NWG;
+  static constexpr int THREADS = CONSUMERS + 128;  // and a producer warpgroup
+  static_assert(DH % CW == 0 && (CW == 64 || CW == 32), "DH 32, 64 or 128");
+
+  // The descriptor at byte `off` of a tile of this instance's swizzle.
+  static __device__ __forceinline__ uint64_t desc(const void* tile, uint32_t off) {
+    if constexpr (CW == 64)
+      return hop::desc(tile, off);
+    else
+      return hop::desc64(tile, off);
+  }
+  // K-major: rows from r0 of an R-row tile, the head's channels 16 kc ..
+  template <int R>
+  static __device__ __forceinline__ uint64_t kmaj(const void* tile, int r0, int kc) {
+    return desc(tile, (kc * 16 / CW) * R * RB + r0 * RB + (kc * 16 % CW) * 2);
+  }
+  // MN-major: rows r0 + 16 kk .. (the k) of column block cb of an R-row tile
+  template <int R>
+  static __device__ __forceinline__ uint64_t mn(const void* tile, int r0, int kk, int cb) {
+    return desc(tile, cb * R * RB + (r0 + 16 * kk) * RB);
+  }
+  // d (64 x CW) += a (registers) . b (MN-major)
+  static __device__ __forceinline__ void rs(float (&d)[NACC], const uint32_t* a, uint64_t b) {
+    if constexpr (CW == 64)
+      hop::wgmma_rs_n64_t(d, a, b);
+    else
+      hop::wgmma_rs_n32_t(d, a, b);
+  }
+  // d (64 x CW) += a (K-major) . b (MN-major)
+  static __device__ __forceinline__ void ss_tb(float (&d)[NACC], uint64_t a, uint64_t b,
+                                               int scale_d) {
+    if constexpr (CW == 64)
+      hop::wgmma_ss_n64_tb(d, a, b, scale_d);
+    else
+      hop::wgmma_ss_n32<0, 1>(d, a, b, scale_d);
+  }
+  // d (64 x CW) += a (MN-major) . b (MN-major)
+  static __device__ __forceinline__ void ss_tab(float (&d)[NACC], uint64_t a, uint64_t b,
+                                                int scale_d) {
+    if constexpr (CW == 64)
+      hop::wgmma_ss_n64_tab(d, a, b, scale_d);
+    else
+      hop::wgmma_ss_n32<1, 1>(d, a, b, scale_d);
+  }
+  // TMA loads of an R-row tile at (column c, row, batch b) / (column c, row)
+  template <int R>
+  static __device__ __forceinline__ void load(bf16* dst, const CUtensorMap* map, uint64_t* bar,
+                                              int c, int row, int b) {
+#pragma unroll
+    for (int cb = 0; cb < CB; ++cb) hop::tma_load(dst + cb * R * CW, map, bar, c + cb * CW, row, b);
+  }
+  template <int R>
+  static __device__ __forceinline__ void load_2d(bf16* dst, const CUtensorMap* map,
+                                                 uint64_t* bar, int c, int row) {
+#pragma unroll
+    for (int cb = 0; cb < CB; ++cb) hop::tma_load_2d(dst + cb * R * CW, map, bar, c + cb * CW, row);
+  }
+};
+
+// The kernels' instances: the forward's, dkdv's and dq's geometry and ring
+// depth at each head width (DH 128: one consumer warpgroup, and dkdv one
+// stage, to fit the tiles in 227 KB).
+template <int DH>
+struct Inst {
+  typedef K<DH, 2> F;
+  typedef K<DH, 2> KV;
+  typedef K<DH, 2> Q;
+  static constexpr int FST = 2, KVST = 2, QST = 2;
+};
+template <>
+struct Inst<128> {
+  typedef K<128, 1> F;
+  typedef K<128, 1> KV;
+  typedef K<128, 1> Q;
+  static constexpr int FST = 2, KVST = 1, QST = 2;
+};
 
 // Stage the columns [48-16w, 128-16w) of one 64 x 64 half (columns c0 ..
 // c0+63) of a warpgroup's position block: row r of warp w at
@@ -98,16 +196,20 @@ __device__ __forceinline__ void stage_half(float* pw, const float (&a)[32], int 
 }
 
 // Both halves of the position block Pw = Qv . window^T (qv: the
-// warpgroup's 64 rows, K-major; window: 128 pe rows, K-major) into the
-// staging buffer. Issued and waited here, so only 32 accumulators live.
-__device__ __forceinline__ void position_block(float* pw, uint64_t qvd, uint64_t wd) {
+// warpgroup's 64 rows from qr0 of an RQ-row tile; window: 128 pe rows from
+// w0 of the pe tile, both K-major) into the staging buffer. Issued and
+// waited here, so only 32 accumulators live.
+template <class KK, int RQ>
+__device__ __forceinline__ void position_block(float* pw, const bf16* qv, int qr0,
+                                               const bf16* pe, int w0) {
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     float a[32];
     hop::wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc)
-      hop::wgmma_ss_n64(a, qvd + 2 * kc, wd + half * (64 * 128 >> 4) + 2 * kc, kc);
+    for (int kc = 0; kc < KK::KC; ++kc)
+      hop::wgmma_ss_n64(a, KK::template kmaj<RQ>(qv, qr0, kc),
+                        KK::template kmaj<KK::PR>(pe, w0 + 64 * half, kc), kc);
     hop::wgmma_commit();
     hop::wgmma_wait();
     hop::fence_regs(a);
@@ -125,36 +227,38 @@ __device__ __forceinline__ float shifted(const float* pw, int i) {
 }
 
 // The 3D tile maps and the pe map of the forward and the dq pass: the
-// block's own 128 query rows, the streamed 64-key tiles and the pe tile.
+// block's own BR query rows, the streamed 64-key tiles and the pe tile.
 struct QMaps {
   CUtensorMap own[3];  // fwd: qu, qv; dq: qu, qv, do
   CUtensorMap k, v, pe;
 };
 
+template <class KK, int ST>
 struct SmemF {
-  alignas(1024) bf16 qu[BR * DH];
-  alignas(1024) bf16 qv[BR * DH];
-  alignas(1024) bf16 k[3][BS * DH];
-  alignas(1024) bf16 v[3][BS * DH];
-  alignas(1024) bf16 pe[3][PR * DH];
-  float pw[2][64 * PL];  // each warpgroup's staged position block
-  float mask[3][BS];     // the key tile's mask strip
-  uint64_t own_full, full[3], empty[3];
+  alignas(1024) bf16 qu[KK::BR * KK::DH];
+  alignas(1024) bf16 qv[KK::BR * KK::DH];
+  alignas(1024) bf16 k[ST][BS * KK::DH];
+  alignas(1024) bf16 v[ST][BS * KK::DH];
+  alignas(1024) bf16 pe[ST][KK::PR * KK::DH];
+  float pw[KK::NWG][64 * PL];  // each warpgroup's staged position block
+  float mask[ST][BS];          // the key tile's mask strip
+  uint64_t own_full, full[ST], empty[ST];
   static constexpr bool kTma = false;
 };
 
 // The producer of the forward and the dq pass (one warp): the block's own
 // tiles, then for every 64-key tile its k, v, pe tile (from row
-// T-1-(q0+127)+k0) and mask strip (lane 0 issues the copies, every lane
+// T-1-(q0+BR-1)+k0) and mask strip (lane 0 issues the copies, every lane
 // stores two mask values and arrives).
-template <int ST, class S>
+template <class KK, int ST, class S>
 __device__ __forceinline__ void produce_keys(S& sm, const QMaps& mp, bf16* const* own,
                                              int n_own, const float* mask, int T) {
-  const int lane = threadIdx.x & 31, c = blockIdx.y * DH, b = blockIdx.z;
-  const int q0 = blockIdx.x * BR, n_tiles = (T + BS - 1) / BS;
+  const int lane = threadIdx.x & 31, c = blockIdx.y * KK::DH, b = blockIdx.z;
+  const int q0 = blockIdx.x * KK::BR, n_tiles = (T + BS - 1) / BS;
   if (lane == 0) {
-    hop::mbar_expect_tx(&sm.own_full, n_own * OWN);
-    for (int i = 0; i < n_own; ++i) hop::tma_load(own[i], &mp.own[i], &sm.own_full, c, q0, b);
+    hop::mbar_expect_tx(&sm.own_full, n_own * KK::BR * KK::DH * 2);
+    for (int i = 0; i < n_own; ++i)
+      KK::template load<KK::BR>(own[i], &mp.own[i], &sm.own_full, c, q0, b);
   }
   for (int it = 0; it < n_tiles; ++it) {
     const int s = it % ST, k0 = it * BS;
@@ -162,10 +266,10 @@ __device__ __forceinline__ void produce_keys(S& sm, const QMaps& mp, bf16* const
     for (int i = lane; i < BS; i += 32)
       sm.mask[s][i] = k0 + i < T ? mask[(size_t)b * T + k0 + i] : 0.f;
     if (lane == 0) {
-      hop::mbar_expect_tx(&sm.full[s], 2 * STR + PEB);
-      hop::tma_load(sm.k[s], &mp.k, &sm.full[s], c, k0, b);
-      hop::tma_load(sm.v[s], &mp.v, &sm.full[s], c, k0, b);
-      hop::tma_load_2d(sm.pe[s], &mp.pe, &sm.full[s], c, T - 1 - (q0 + BR - 1) + k0);
+      hop::mbar_expect_tx(&sm.full[s], (2 * BS + KK::PR) * KK::DH * 2);
+      KK::template load<BS>(sm.k[s], &mp.k, &sm.full[s], c, k0, b);
+      KK::template load<BS>(sm.v[s], &mp.v, &sm.full[s], c, k0, b);
+      KK::template load_2d<KK::PR>(sm.pe[s], &mp.pe, &sm.full[s], c, T - 1 - (q0 + KK::BR - 1) + k0);
     } else {
       hop::mbar_arrive(&sm.full[s]);
     }
@@ -174,14 +278,14 @@ __device__ __forceinline__ void produce_keys(S& sm, const QMaps& mp, bf16* const
 
 // The 1024-byte aligned shared storage, its barriers initialised (`tma`,
 // where a kernel has it: the streamed copies, which its producer waits for).
-template <class S, int ST>
+template <class S, int ST, int NWG>
 __device__ __forceinline__ S& setup(unsigned char* raw) {
   S& sm = *reinterpret_cast<S*>((reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
   if (threadIdx.x == 0) {
     hop::mbar_init(&sm.own_full, 1);
     for (int s = 0; s < ST; ++s) {
-      hop::mbar_init(&sm.full[s], 32);  // the producer warp's lanes
-      hop::mbar_init(&sm.empty[s], 8);  // one arrival per consumer warp
+      hop::mbar_init(&sm.full[s], 32);        // the producer warp's lanes
+      hop::mbar_init(&sm.empty[s], 4 * NWG);  // one arrival per consumer warp
       if constexpr (S::kTma) hop::mbar_init(&sm.tma[s], 1);
     }
     hop::mbar_fence_init();
@@ -190,10 +294,23 @@ __device__ __forceinline__ S& setup(unsigned char* raw) {
   return sm;
 }
 
-// Store rows row0 and row0 + 8 (if < T) of a warp's accumulator, each
-// divided by its own value of `div` (1 for none).
-__device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[32], int row0,
-                                           int T, int D, float div0, float div1) {
+// The consumers take their registers (three warpgroups: 224 a consumer
+// thread from the producer's 56; two have 255 a thread already).
+template <int NWG>
+__device__ __forceinline__ void consumer_regs() {
+  if constexpr (NWG == 2) hop::reg_alloc<224>();
+}
+template <int NWG>
+__device__ __forceinline__ void producer_regs() {
+  if constexpr (NWG == 2) hop::reg_dealloc<56>();
+}
+
+// Store rows row0 and row0 + 8 (if < T) of a warp's accumulators (the
+// head's DH columns in CB blocks), each divided by its own value of `div`
+// (1 for none).
+template <class KK>
+__device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[KK::CB][KK::NACC],
+                                           int row0, int T, int D, float div0, float div1) {
   const int t = threadIdx.x & 3;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
@@ -202,65 +319,94 @@ __device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[32], in
     if (row < T) {
       bf16* out = dst + (size_t)row * D + 2 * t;
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) = __floats2bfloat162_rn(
-            acc[4 * j + 2 * half] / dv, acc[4 * j + 2 * half + 1] / dv);
+      for (int cb = 0; cb < KK::CB; ++cb)
+#pragma unroll
+        for (int j = 0; j < KK::NACC / 4; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(out + cb * KK::CW + 8 * j) = __floats2bfloat162_rn(
+              acc[cb][4 * j + 2 * half] / dv, acc[cb][4 * j + 2 * half + 1] / dv);
     }
   }
 }
 
-constexpr int FST = 2;  // the forward's ring depth
+// acc += a (the 64 x 64 bf16 A fragments) b, b a 64-row tile read MN-major
+// (every column block): issued, not committed.
+template <class KK>
+__device__ __forceinline__ void issue_ab(float (&acc)[KK::CB][KK::NACC],
+                                         const uint32_t (&a)[16], const bf16* b) {
+#pragma unroll
+  for (int cb = 0; cb < KK::CB; ++cb)
+#pragma unroll
+    for (int kc = 0; kc < BS / 16; ++kc) KK::rs(acc[cb], &a[4 * kc], KK::template mn<BS>(b, 0, kc, cb));
+}
 
-__global__ void __launch_bounds__(THREADS, 1)
+template <class KK>
+__device__ __forceinline__ void zero(float (&acc)[KK::CB][KK::NACC]) {
+#pragma unroll
+  for (int cb = 0; cb < KK::CB; ++cb)
+#pragma unroll
+    for (int i = 0; i < KK::NACC; ++i) acc[cb][i] = 0.f;
+}
+
+template <class KK>
+__device__ __forceinline__ void fence_all(float (&acc)[KK::CB][KK::NACC]) {
+#pragma unroll
+  for (int cb = 0; cb < KK::CB; ++cb) hop::fence_regs(acc[cb]);
+}
+
+template <class KK, int ST>
+__global__ void __launch_bounds__(KK::THREADS, 1)
 relpos_flash_fwd_kernel(const __grid_constant__ QMaps mp, const float* __restrict__ mask,
                         bf16* __restrict__ o, float* __restrict__ row_m,
-                        float* __restrict__ row_l, int T, int H) {
+                        float* __restrict__ row_l, int T, int H, float scale) {
   extern __shared__ unsigned char smem_raw[];
-  SmemF& sm = setup<SmemF, FST>(smem_raw);
+  typedef SmemF<KK, ST> Sm;
+  Sm& sm = setup<Sm, ST, KK::NWG>(smem_raw);
   const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * BR, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * KK::BR, h = blockIdx.y, b = blockIdx.z;
   const int n_tiles = (T + BS - 1) / BS;
-  if (tid >= 256) {
-    hop::reg_dealloc<56>();
-    if (tid < 256 + 32) {
+  if (tid >= KK::CONSUMERS) {
+    producer_regs<KK::NWG>();
+    if (tid < KK::CONSUMERS + 32) {
       bf16* own[2] = {sm.qu, sm.qv};
-      produce_keys<FST>(sm, mp, own, 2, mask, T);
+      produce_keys<KK, ST>(sm, mp, own, 2, mask, T);
     }
     return;
   }
-  hop::reg_alloc<224>();
+  consumer_regs<KK::NWG>();
 
   const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31, t = lane & 3;
-  const uint64_t qud = hop::desc(sm.qu, wg * 64 * 128), qvd = hop::desc(sm.qv, wg * 64 * 128);
+  const int w0 = (KK::NWG - 1 - wg) * 64;  // the warpgroup's window in the pe tile
   float* pw = sm.pw[wg];
-  float acc[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  float acc[KK::CB][KK::NACC];
+  zero<KK>(acc);
   // rows g and g + 8 of the warp's 16: running max of s, this lane's share of the sum
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
   hop::mbar_wait(&sm.own_full, 0);
 
   for (int it = 0; it < n_tiles; ++it) {
-    const int s = it % FST, k0 = it * BS;
-    hop::mbar_wait(&sm.full[s], (it / FST) & 1);
+    const int s = it % ST, k0 = it * BS;
+    hop::mbar_wait(&sm.full[s], (it / ST) & 1);
 
-    // The position block's halves (against the warpgroup's pe window, the
-    // tile's rows from 64 (1 - wg)) and S = qu k^T, issued together; each
-    // half is staged while the later products are in flight.
-    const uint64_t wd = hop::desc(sm.pe[s], (1 - wg) * 64 * 128);
+    // The position block's halves (against the warpgroup's pe window) and
+    // S = qu k^T, issued together; each half is staged while the later
+    // products are in flight.
     float plo[32], phi[32], sc[32];
     __syncwarp();
     hop::wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc) hop::wgmma_ss_n64(plo, qvd + 2 * kc, wd + 2 * kc, kc);
+    for (int kc = 0; kc < KK::KC; ++kc)
+      hop::wgmma_ss_n64(plo, KK::template kmaj<KK::BR>(sm.qv, wg * 64, kc),
+                        KK::template kmaj<KK::PR>(sm.pe[s], w0, kc), kc);
     hop::wgmma_commit();
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc)
-      hop::wgmma_ss_n64(phi, qvd + 2 * kc, wd + (64 * 128 >> 4) + 2 * kc, kc);
+    for (int kc = 0; kc < KK::KC; ++kc)
+      hop::wgmma_ss_n64(phi, KK::template kmaj<KK::BR>(sm.qv, wg * 64, kc),
+                        KK::template kmaj<KK::PR>(sm.pe[s], w0 + 64, kc), kc);
     hop::wgmma_commit();
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc)
-      hop::wgmma_ss_n64(sc, qud + 2 * kc, hop::desc(sm.k[s]) + 2 * kc, kc);
+    for (int kc = 0; kc < KK::KC; ++kc)
+      hop::wgmma_ss_n64(sc, KK::template kmaj<KK::BR>(sm.qu, wg * 64, kc),
+                        KK::template kmaj<BS>(sm.k[s], 0, kc), kc);
     hop::wgmma_commit();
     hop::wgmma_wait_n<2>();
     hop::fence_regs(plo);
@@ -274,8 +420,8 @@ relpos_flash_fwd_kernel(const __grid_constant__ QMaps mp, const float* __restric
 
 #pragma unroll
     for (int i = 0; i < 32; ++i)
-      sc[i] = (sc[i] + shifted(pw, i)) * SCALE + sm.mask[s][8 * (i >> 2) + 2 * t + (i & 1)];
-    if (k0 + BS > T) {  // the key tail: zero-filled keys must not score bd * 0.125
+      sc[i] = (sc[i] + shifted(pw, i)) * scale + sm.mask[s][8 * (i >> 2) + 2 * t + (i & 1)];
+    if (k0 + BS > T) {  // the key tail: zero-filled keys must not score bd * scale
 #pragma unroll
       for (int i = 0; i < 32; ++i)
         if (k0 + 8 * (i >> 2) + 2 * t + (i & 1) >= T) sc[i] = -INFINITY;
@@ -298,7 +444,9 @@ relpos_flash_fwd_kernel(const __grid_constant__ QMaps mp, const float* __restric
     l0 *= a0;
     l1 *= a1;
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] *= (i & 2) ? a1 : a0;
+    for (int cb = 0; cb < KK::CB; ++cb)
+#pragma unroll
+      for (int i = 0; i < KK::NACC; ++i) acc[cb][i] *= (i & 2) ? a1 : a0;
 
     // p = exp(s - m) into the bf16 A fragments of P.V
     const float mc0 = m0 * LOG2E, mc1 = m1 * LOG2E;
@@ -313,14 +461,12 @@ relpos_flash_fwd_kernel(const __grid_constant__ QMaps mp, const float* __restric
       pa[i >> 1] = hop::pack_bf16(p0, p1);
     }
 
-    // acc (64 x 64) += p (bf16) v
+    // acc (64 x DH) += p (bf16) v
     hop::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < BS / 16; ++kk)
-      hop::wgmma_rs_n64_t(acc, &pa[4 * kk], hop::desc(sm.v[s], kk * 16 * 128));
+    issue_ab<KK>(acc, pa, sm.v[s]);
     hop::wgmma_commit();
     hop::wgmma_wait();
-    hop::fence_regs(acc);
+    fence_all<KK>(acc);
     __syncwarp();
     if (lane == 0) hop::mbar_arrive(&sm.empty[s]);
   }
@@ -330,8 +476,8 @@ relpos_flash_fwd_kernel(const __grid_constant__ QMaps mp, const float* __restric
     l0 += __shfl_xor_sync(0xffffffffu, l0, x);
     l1 += __shfl_xor_sync(0xffffffffu, l1, x);
   }
-  const int D = H * DH, row0 = q0 + wg * 64 + warp * 16 + (lane >> 2);
-  store_rows(o + (size_t)b * T * D + (size_t)h * DH, acc, row0, T, D, l0, l1);
+  const int D = H * KK::DH, row0 = q0 + wg * 64 + warp * 16 + (lane >> 2);
+  store_rows<KK>(o + (size_t)b * T * D + (size_t)h * KK::DH, acc, row0, T, D, l0, l1);
   if (row_m != nullptr && t == 0) {
     const size_t at = ((size_t)b * H + h) * T + row0;
     if (row0 < T) {
@@ -356,7 +502,7 @@ relpos_flash_fwd_kernel(const __grid_constant__ QMaps mp, const float* __restric
 //   dd  = rowsum(do * o)                 f32
 //   dv  = bf16(p)^T . bf16(do / l)
 //   dp  = do . v^T
-//   ds  = bf16(p (dp - dd) / l * d_head^-0.5)
+//   ds  = bf16(p (dp - dd) / l * d_head^-0.5)   (the real width's)
 //   dqu = ds . k          dk = ds^T . qu
 //   dqv[q] = sum_j ds[q, j] pe[T-1-q+j]
 //   dpe[p] = sum_(b, q) ds[q, p-(T-1-q)] qv[q]    (float32 over the batch)
@@ -365,8 +511,9 @@ relpos_flash_fwd_kernel(const __grid_constant__ QMaps mp, const float* __restric
 // the position-score gradient with a row reversal and a strided lane
 // rotate. Here the un-shift is an index, as the forward's shift is, and
 // the work splits into three passes with nothing carried between blocks:
-//   (a) rowdot: dd (B, H, T), eight threads a (row, head), 16-byte loads;
-//   (b) dkdv: one block per (128 keys, head, batch row), two consumer
+//   (a) rowdot: dd (B, H, T), eight threads a 64-column slice of a (row,
+//       head), 16-byte loads, the head's slices summed in order;
+//   (b) dkdv: one block per (BR keys, head, batch row), NWG consumer
 //       warpgroups of 64 keys each, looping over 64-row query tiles with
 //       keys as wgmma's M: S^T = K Qu^T and dP^T = V dO^T. The position
 //       scores are the forward's block Pw for the query tile and the
@@ -378,7 +525,7 @@ relpos_flash_fwd_kernel(const __grid_constant__ QMaps mp, const float* __restric
 //       version rounds it per element), in the swizzled layout wgmma
 //       reads. dV += P^T don and dK += dS^T Qu take P^T and dS^T as
 //       register A operands, don and Qu MN-major.
-//   (c) dq: one block per (128 query rows, head, batch row), looping over
+//   (c) dq: one block per (BR query rows, head, batch row), looping over
 //       64-key tiles: Pw, S and dP, then dS; dQu += dS K (register A);
 //       dS is also written shifted, dSh[r, 63-r+c] = dS[r, c], into a
 //       64 x 128 bf16 tile (two swizzled 64-column halves, zeroed once:
@@ -390,27 +537,25 @@ relpos_flash_fwd_kernel(const __grid_constant__ QMaps mp, const float* __restric
 //       in the accumulator registers and then added into the (Wp, D)
 //       float32 dpe with global float32 atomics (every batch row and query
 //       tile adds into the same rows); the caller zeroes dpe and casts it.
+//       With more than one column block (DH 128) the upper half is not
+//       carried: each tile adds both halves (twice the atomics), which keeps
+//       a third DH-wide accumulator out of the registers across tiles.
 // Both passes recompute s, the position block and dp: 15 products of
-// T^2 * 64 a head where the bound counts 8. dqu, dqv, dk and dv are
+// T^2 * DH a head where the bound counts 8. dqu, dqv, dk and dv are
 // bit-identical from run to run; dpe's atomics sum in a varying order.
 // Keys past T get p = 0 in (c) by index; query rows past T get p = 0 in
 // (b) through m = +inf; rows past T are never stored.
 
-// acc += a (the 64 x 64 bf16 A fragments) b, b a 64-row tile read MN-major:
-// issued, not committed.
-__device__ __forceinline__ void issue_ab(float (&acc)[32], const uint32_t (&a)[16],
-                                         const bf16* b) {
-#pragma unroll
-  for (int kc = 0; kc < BS / 16; ++kc)
-    hop::wgmma_rs_n64_t(acc, &a[4 * kc], hop::desc(b, kc * 16 * 128));
-}
-
-// (a) dd[b, h, t] = sum over the head's 64 columns of do * o, in f32.
+// (a) dd[b, h, t] = sum over the head's DH columns of do * o, in f32: eight
+// threads (16-byte loads) a 64-column slice, the DH / 64 slices (or one
+// 32-column slice, four threads) added in order.
+template <int DH>
 __global__ void relpos_rowdot_kernel(const bf16* __restrict__ dout,
                                      const bf16* __restrict__ o, float* __restrict__ dd,
                                      int B, int T, int H) {
+  constexpr int TPH = DH / 8;  // threads a (row, head)
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t w = i >> 3;  // the (row, head): b * T * H + t * H + h
+  const size_t w = i / TPH;  // the (row, head): b * T * H + t * H + h
   const bool live = w < (size_t)B * T * H;
   float sum = 0.f;
   if (live) {
@@ -424,62 +569,68 @@ __global__ void relpos_rowdot_kernel(const bf16* __restrict__ dout,
       sum += a.x * c.x + a.y * c.y;
     }
   }
+  constexpr int LANES = TPH < 8 ? TPH : 8;  // a slice's threads (the shuffle's width)
 #pragma unroll
-  for (int m = 4; m > 0; m >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, m);
-  if (live && (i & 7) == 0) {
+  for (int m = LANES / 2; m > 0; m >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, m);
+  if constexpr (TPH > 8) {  // the slices of a 128-wide head: lanes 0 and 8 of 16
+    const float hi = __shfl_down_sync(0xffffffffu, sum, 8);
+    if ((i & 15) == 0) sum += hi;
+  }
+  if (live && (i % TPH) == 0) {
     const int h = (int)(w % H);
     const size_t bt = w / H;  // b * T + t
     dd[((bt / T) * H + h) * T + bt % T] = sum;
   }
 }
 
-constexpr int BST = 2;  // the backward passes' ring depth
-
 struct KVMaps {
-  CUtensorMap k, v;            // the block's own 128 keys
+  CUtensorMap k, v;            // the block's own BR keys
   CUtensorMap qu, qv, dout;    // 64-row query tiles
   CUtensorMap pe;
 };
 
+template <class KK, int ST>
 struct SmemKV {
-  alignas(1024) bf16 k[BR * DH];
-  alignas(1024) bf16 v[BR * DH];
-  alignas(1024) bf16 qu[BST][BS * DH];
-  alignas(1024) bf16 qv[BST][BS * DH];
-  alignas(1024) bf16 dout[BST][BS * DH];
-  alignas(1024) bf16 don[BST][BS * DH];  // bf16(do / l), built by the producer
-  alignas(1024) bf16 pe[BST][PR * DH];
-  float pw[2][64 * PL];
-  float ml[BST][BS], linv[BST][BS], dd[BST][BS];  // the query tile's rows
-  uint64_t own_full, full[BST], empty[BST], tma[BST];
+  alignas(1024) bf16 k[KK::BR * KK::DH];
+  alignas(1024) bf16 v[KK::BR * KK::DH];
+  alignas(1024) bf16 qu[ST][BS * KK::DH];
+  alignas(1024) bf16 qv[ST][BS * KK::DH];
+  alignas(1024) bf16 dout[ST][BS * KK::DH];
+  alignas(1024) bf16 don[ST][BS * KK::DH];  // bf16(do / l), built by the producer
+  alignas(1024) bf16 pe[ST][KK::PR * KK::DH];
+  float pw[KK::NWG][64 * PL];
+  float ml[ST][BS], linv[ST][BS], dd[ST][BS];  // the query tile's rows
+  uint64_t own_full, full[ST], empty[ST], tma[ST];
   static constexpr bool kTma = true;
 };
 
-// (b) dk, dv of one (128 keys, head, batch row).
-__global__ void __launch_bounds__(THREADS, 1)
+// (b) dk, dv of one (BR keys, head, batch row).
+template <class KK, int ST>
+__global__ void __launch_bounds__(KK::THREADS, 1)
 relpos_dkdv_kernel(const __grid_constant__ KVMaps mp, const float* __restrict__ mask,
                    const float* __restrict__ row_m, const float* __restrict__ row_l,
                    const float* __restrict__ dd, bf16* __restrict__ dk, bf16* __restrict__ dv,
-                   int T, int H) {
+                   int T, int H, float scale) {
   extern __shared__ unsigned char smem_raw[];
-  SmemKV& sm = setup<SmemKV, BST>(smem_raw);
+  typedef SmemKV<KK, ST> Sm;
+  Sm& sm = setup<Sm, ST, KK::NWG>(smem_raw);
   const int tid = threadIdx.x, lane = tid & 31;
-  const int k0 = blockIdx.x * BR, h = blockIdx.y, b = blockIdx.z, c = h * DH;
+  const int k0 = blockIdx.x * KK::BR, h = blockIdx.y, b = blockIdx.z, c = h * KK::DH;
   const int n_q_tiles = (T + BS - 1) / BS;
   const size_t bh = ((size_t)b * H + h) * T;
-  if (tid >= 256) {
-    hop::reg_dealloc<56>();
-    if (tid >= 256 + 32) return;
+  if (tid >= KK::CONSUMERS) {
+    producer_regs<KK::NWG>();
+    if (tid >= KK::CONSUMERS + 32) return;
     // The producer warp: the block's keys, then each query tile's rows,
     // statistics and don.
     if (lane == 0) {
-      hop::mbar_expect_tx(&sm.own_full, 2 * OWN);
-      hop::tma_load(sm.k, &mp.k, &sm.own_full, c, k0, b);
-      hop::tma_load(sm.v, &mp.v, &sm.own_full, c, k0, b);
+      hop::mbar_expect_tx(&sm.own_full, 2 * KK::BR * KK::DH * 2);
+      KK::template load<KK::BR>(sm.k, &mp.k, &sm.own_full, c, k0, b);
+      KK::template load<KK::BR>(sm.v, &mp.v, &sm.own_full, c, k0, b);
     }
     for (int it = 0; it < n_q_tiles; ++it) {
-      const int s = it % BST, q0 = it * BS;
-      hop::mbar_wait(&sm.empty[s], ((it / BST) & 1) ^ 1);
+      const int s = it % ST, q0 = it * BS;
+      hop::mbar_wait(&sm.empty[s], ((it / ST) & 1) ^ 1);
       for (int i = lane; i < BS; i += 32) {
         const int q = q0 + i;
         sm.ml[s][i] = q < T ? row_m[bh + q] * LOG2E : INFINITY;
@@ -487,20 +638,20 @@ relpos_dkdv_kernel(const __grid_constant__ KVMaps mp, const float* __restrict__ 
         sm.dd[s][i] = q < T ? dd[bh + q] : 0.f;
       }
       if (lane == 0) {
-        hop::mbar_expect_tx(&sm.tma[s], 3 * STR + PEB);
-        hop::tma_load(sm.qu[s], &mp.qu, &sm.tma[s], c, q0, b);
-        hop::tma_load(sm.qv[s], &mp.qv, &sm.tma[s], c, q0, b);
-        hop::tma_load(sm.dout[s], &mp.dout, &sm.tma[s], c, q0, b);
-        hop::tma_load_2d(sm.pe[s], &mp.pe, &sm.tma[s], c, T - 1 - (q0 + BS - 1) + k0);
+        hop::mbar_expect_tx(&sm.tma[s], (3 * BS + KK::PR) * KK::DH * 2);
+        KK::template load<BS>(sm.qu[s], &mp.qu, &sm.tma[s], c, q0, b);
+        KK::template load<BS>(sm.qv[s], &mp.qv, &sm.tma[s], c, q0, b);
+        KK::template load<BS>(sm.dout[s], &mp.dout, &sm.tma[s], c, q0, b);
+        KK::template load_2d<KK::PR>(sm.pe[s], &mp.pe, &sm.tma[s], c, T - 1 - (q0 + BS - 1) + k0);
       }
-      hop::mbar_wait(&sm.tma[s], (it / BST) & 1);
+      hop::mbar_wait(&sm.tma[s], (it / ST) & 1);
       __syncwarp();
-      // don: a 16-byte chunk lies in one row (the swizzle moves chunks
-      // within their row), row = chunk / 8
+      // don: a 16-byte chunk lies in one row of its column block (the
+      // swizzle moves chunks within their row)
       const uint4* src = reinterpret_cast<const uint4*>(sm.dout[s]);
       uint4* dst = reinterpret_cast<uint4*>(sm.don[s]);
-      for (int i = lane; i < BS * DH / 8; i += 32) {
-        const float li = sm.linv[s][i >> 3];
+      for (int i = lane; i < BS * KK::DH / 8; i += 32) {
+        const float li = sm.linv[s][(i % (BS * KK::CW / 8)) / (KK::CW / 8)];
         uint4 xv = src[i], yv;
         const bf16* x = reinterpret_cast<const bf16*>(&xv);
         bf16* y = reinterpret_cast<bf16*>(&yv);
@@ -513,43 +664,45 @@ relpos_dkdv_kernel(const __grid_constant__ KVMaps mp, const float* __restrict__ 
     }
     return;
   }
-  hop::reg_alloc<224>();
+  consumer_regs<KK::NWG>();
 
   const int wg = tid >> 7, warp = (tid >> 5) & 3, t = lane & 3;
   const int row0 = k0 + wg * 64 + warp * 16 + (lane >> 2);  // this thread's keys: row0, row0 + 8
   const float km0 = row0 < T ? mask[(size_t)b * T + row0] : 0.f;
   const float km1 = row0 + 8 < T ? mask[(size_t)b * T + row0 + 8] : 0.f;
-  const uint64_t kd = hop::desc(sm.k, wg * 64 * 128), vd = hop::desc(sm.v, wg * 64 * 128);
   float* pw = sm.pw[wg];
-  float dk_acc[32], dv_acc[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  float dk_acc[KK::CB][KK::NACC], dv_acc[KK::CB][KK::NACC];
+  zero<KK>(dk_acc);
+  zero<KK>(dv_acc);
   hop::mbar_wait(&sm.own_full, 0);
 
   for (int it = 0; it < n_q_tiles; ++it) {
-    const int s = it % BST;
-    hop::mbar_wait(&sm.full[s], (it / BST) & 1);
+    const int s = it % ST;
+    hop::mbar_wait(&sm.full[s], (it / ST) & 1);
 
     // the query tile's position block against the warpgroup's window (the
     // pe tile's rows from 64 wg), staged whole: a warp reads every row
     hop::bar_sync(1 + wg, 128);
-    position_block(pw, hop::desc(sm.qv[s]), hop::desc(sm.pe[s], wg * 64 * 128));
+    position_block<KK, BS>(pw, sm.qv[s], 0, sm.pe[s], wg * 64);
     hop::bar_sync(1 + wg, 128);
 
     // S^T (64 keys x 64 q) = K Qu^T and dP^T = V dO^T
     float st[32], dpt[32];
     hop::wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc) hop::wgmma_ss_n64(st, kd + 2 * kc, hop::desc(sm.qu[s]) + 2 * kc, kc);
+    for (int kc = 0; kc < KK::KC; ++kc)
+      hop::wgmma_ss_n64(st, KK::template kmaj<KK::BR>(sm.k, wg * 64, kc),
+                        KK::template kmaj<BS>(sm.qu[s], 0, kc), kc);
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc)
-      hop::wgmma_ss_n64(dpt, vd + 2 * kc, hop::desc(sm.dout[s]) + 2 * kc, kc);
+    for (int kc = 0; kc < KK::KC; ++kc)
+      hop::wgmma_ss_n64(dpt, KK::template kmaj<KK::BR>(sm.v, wg * 64, kc),
+                        KK::template kmaj<BS>(sm.dout[s], 0, kc), kc);
     hop::wgmma_commit();
     hop::wgmma_wait();
     hop::fence_regs(st);
     hop::fence_regs(dpt);
 
-    // P^T = exp(s - m), dS^T = P^T (dP^T - dd) / l * 0.125: bf16 A fragments.
+    // P^T = exp(s - m), dS^T = P^T (dP^T - dd) / l * scale: bf16 A fragments.
     // Key row j, query column q reads Pw[q, 63-q+j] at column 15-(q%16)+j.
     uint32_t pa[16], dsa[16];
 #pragma unroll
@@ -557,135 +710,157 @@ relpos_dkdv_kernel(const __grid_constant__ KVMaps mp, const float* __restrict__ 
       const int qc = 8 * (i >> 2) + 2 * t, jr = warp * 16 + (lane >> 2) + 8 * ((i >> 1) & 1);
       const float km = (i & 2) ? km1 : km0;
       const float* pr = pw + qc * PL + 15 - (qc & 15) + jr;
-      const float x0 = (st[i] + pr[0]) * SCALE + km;
-      const float x1 = (st[i + 1] + pr[PL - 1]) * SCALE + km;
+      const float x0 = (st[i] + pr[0]) * scale + km;
+      const float x1 = (st[i + 1] + pr[PL - 1]) * scale + km;
       const float p0 = hop::ex2(fmaf(x0, LOG2E, -sm.ml[s][qc]));
       const float p1 = hop::ex2(fmaf(x1, LOG2E, -sm.ml[s][qc + 1]));
       pa[i >> 1] = hop::pack_bf16(p0, p1);
-      dsa[i >> 1] = hop::pack_bf16(p0 * (dpt[i] - sm.dd[s][qc]) * (sm.linv[s][qc] * SCALE),
+      dsa[i >> 1] = hop::pack_bf16(p0 * (dpt[i] - sm.dd[s][qc]) * (sm.linv[s][qc] * scale),
                                    p1 * (dpt[i + 1] - sm.dd[s][qc + 1]) *
-                                       (sm.linv[s][qc + 1] * SCALE));
+                                       (sm.linv[s][qc + 1] * scale));
     }
 
     // dV += P^T don, dK += dS^T Qu (don and Qu read MN-major)
     hop::wgmma_fence();
-    issue_ab(dv_acc, pa, sm.don[s]);
-    issue_ab(dk_acc, dsa, sm.qu[s]);
+    issue_ab<KK>(dv_acc, pa, sm.don[s]);
+    issue_ab<KK>(dk_acc, dsa, sm.qu[s]);
     hop::wgmma_commit();
     hop::wgmma_wait();
-    hop::fence_regs(dv_acc);
-    hop::fence_regs(dk_acc);
+    fence_all<KK>(dv_acc);
+    fence_all<KK>(dk_acc);
     __syncwarp();
     if (lane == 0) hop::mbar_arrive(&sm.empty[s]);
   }
 
-  const int D = H * DH;
-  const size_t base = (size_t)b * T * D + (size_t)h * DH;
-  store_rows(dk + base, dk_acc, row0, T, D, 1.f, 1.f);
-  store_rows(dv + base, dv_acc, row0, T, D, 1.f, 1.f);
+  const int D = H * KK::DH;
+  const size_t base = (size_t)b * T * D + (size_t)h * KK::DH;
+  store_rows<KK>(dk + base, dk_acc, row0, T, D, 1.f, 1.f);
+  store_rows<KK>(dv + base, dv_acc, row0, T, D, 1.f, 1.f);
 }
 
+template <class KK, int ST>
 struct SmemQ {
-  alignas(1024) bf16 qu[BR * DH];
-  alignas(1024) bf16 qv[BR * DH];
-  alignas(1024) bf16 dout[BR * DH];
-  alignas(1024) bf16 k[BST][BS * DH];
-  alignas(1024) bf16 v[BST][BS * DH];
-  alignas(1024) bf16 pe[BST][PR * DH];
-  alignas(1024) bf16 dsh[2][2][64 * DH];  // each warpgroup's shifted dS, two 64-column halves
-  float pw[2][64 * PL];
-  float mask[BST][BS];
-  uint64_t own_full, full[BST], empty[BST];
+  alignas(1024) bf16 qu[KK::BR * KK::DH];
+  alignas(1024) bf16 qv[KK::BR * KK::DH];
+  alignas(1024) bf16 dout[KK::BR * KK::DH];
+  alignas(1024) bf16 k[ST][BS * KK::DH];
+  alignas(1024) bf16 v[ST][BS * KK::DH];
+  alignas(1024) bf16 pe[ST][KK::PR * KK::DH];
+  alignas(1024) bf16 dsh[KK::NWG][2][64 * 64];  // each warpgroup's shifted dS, two 64-column halves
+  float pw[KK::NWG][64 * PL];
+  float mask[ST][BS];
+  uint64_t own_full, full[ST], empty[ST];
   static constexpr bool kTma = false;
 };
 
-// Add a warpgroup's 64 x 64 share of dpe (rows p0 .. p0+63 of pe) into
+// Add a warpgroup's 64 x DH share of dpe (rows p0 .. p0+63 of pe) into
 // dpe; rows outside 0 .. 2T-2 get nothing.
-__device__ __forceinline__ void flush_dpe(float* dpe, const float (&a)[32], int p0, int n_real,
-                                          int D, int h) {
+template <class KK>
+__device__ __forceinline__ void flush_dpe(float* dpe, const float (&a)[KK::CB][KK::NACC], int p0,
+                                          int n_real, int D, int h) {
   const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
 #pragma unroll
-  for (int i = 0; i < 32; i += 2) {
-    const int p = p0 + 16 * warp + (lane >> 2) + 8 * ((i >> 1) & 1);
-    if (p >= 0 && p < n_real) {
-      float* at = dpe + (size_t)p * D + h * DH + 8 * (i >> 2) + 2 * (lane & 3);
-      atomicAdd(at, a[i]);
-      atomicAdd(at + 1, a[i + 1]);
+  for (int cb = 0; cb < KK::CB; ++cb)
+#pragma unroll
+    for (int i = 0; i < KK::NACC; i += 2) {
+      const int p = p0 + 16 * warp + (lane >> 2) + 8 * ((i >> 1) & 1);
+      if (p >= 0 && p < n_real) {
+        float* at = dpe + (size_t)p * D + h * KK::DH + cb * KK::CW + 8 * (i >> 2) + 2 * (lane & 3);
+        atomicAdd(at, a[cb][i]);
+        atomicAdd(at + 1, a[cb][i + 1]);
+      }
     }
-  }
 }
 
-// (c) dqu, dqv of one (128 query rows, head, batch row), and its share of dpe.
-__global__ void __launch_bounds__(THREADS, 1)
+// dpe's share of rows [r0, r0 + 64) of the shifted dS (its half `hf`):
+// acc (64 pe rows x DH) = dSh[:, half]^T . Qv (both MN-major), or += with
+// `add`.
+template <class KK>
+__device__ __forceinline__ void issue_dpe(float (&acc)[KK::CB][KK::NACC], const bf16* dsh_half,
+                                          const bf16* qv, int qr0, bool add) {
+#pragma unroll
+  for (int cb = 0; cb < KK::CB; ++cb)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      KK::ss_tab(acc[cb], hop::desc(dsh_half, kk * 16 * 128),
+                 KK::template mn<KK::BR>(qv, qr0, kk, cb), kk > 0 || add);
+}
+
+// (c) dqu, dqv of one (BR query rows, head, batch row), and its share of dpe.
+template <class KK, int ST>
+__global__ void __launch_bounds__(KK::THREADS, 1)
 relpos_dq_kernel(const __grid_constant__ QMaps mp, const float* __restrict__ mask,
                  const float* __restrict__ row_m, const float* __restrict__ row_l,
                  const float* __restrict__ dd, bf16* __restrict__ dqu, bf16* __restrict__ dqv,
-                 float* __restrict__ dpe, int T, int H) {
+                 float* __restrict__ dpe, int T, int H, float scale) {
+  constexpr bool CARRY = KK::CB == 1;  // the upper half's dpe carried to the next tile
   extern __shared__ unsigned char smem_raw[];
-  SmemQ& sm = setup<SmemQ, BST>(smem_raw);
+  typedef SmemQ<KK, ST> Sm;
+  Sm& sm = setup<Sm, ST, KK::NWG>(smem_raw);
   const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * BR, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * KK::BR, h = blockIdx.y, b = blockIdx.z;
   const int n_k_tiles = (T + BS - 1) / BS;
-  if (tid >= 256) {
-    hop::reg_dealloc<56>();
-    if (tid < 256 + 32) {
+  if (tid >= KK::CONSUMERS) {
+    producer_regs<KK::NWG>();
+    if (tid < KK::CONSUMERS + 32) {
       bf16* own[3] = {sm.qu, sm.qv, sm.dout};
-      produce_keys<BST>(sm, mp, own, 3, mask, T);
+      produce_keys<KK, ST>(sm, mp, own, 3, mask, T);
     }
     return;
   }
-  hop::reg_alloc<224>();
+  consumer_regs<KK::NWG>();
 
   const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31, t = lane & 3;
   const int row0 = q0 + wg * 64 + warp * 16 + (lane >> 2);  // and row0 + 8
   const size_t bh = ((size_t)b * H + h) * T;
-  // the rows' m in log2 units (+inf past T: p = 0), 1/l * 0.125 and dd
+  // the rows' m in log2 units (+inf past T: p = 0), 1/l * scale and dd
   const float ml0 = row0 < T ? row_m[bh + row0] * LOG2E : INFINITY;
   const float ml1 = row0 + 8 < T ? row_m[bh + row0 + 8] * LOG2E : INFINITY;
-  const float li0 = row0 < T ? SCALE / row_l[bh + row0] : 0.f;
-  const float li1 = row0 + 8 < T ? SCALE / row_l[bh + row0 + 8] : 0.f;
+  const float li0 = row0 < T ? scale / row_l[bh + row0] : 0.f;
+  const float li1 = row0 + 8 < T ? scale / row_l[bh + row0 + 8] : 0.f;
   const float dr0 = row0 < T ? dd[bh + row0] : 0.f;
   const float dr1 = row0 + 8 < T ? dd[bh + row0 + 8] : 0.f;
-  const uint64_t qud = hop::desc(sm.qu, wg * 64 * 128), qvd = hop::desc(sm.qv, wg * 64 * 128);
-  const uint64_t dod = hop::desc(sm.dout, wg * 64 * 128);
   float* pw = sm.pw[wg];
   bf16* dsh = sm.dsh[wg][0];
   {  // zero dSh once: the band a row writes is the same on every key tile
     uint4* z = reinterpret_cast<uint4*>(dsh);
-    for (int i = tid & 127; i < 2 * 64 * DH / 8; i += 128) z[i] = make_uint4(0u, 0u, 0u, 0u);
+    for (int i = tid & 127; i < 2 * 64 * 64 / 8; i += 128) z[i] = make_uint4(0u, 0u, 0u, 0u);
     hop::fence_proxy_async();
     hop::bar_sync(1 + wg, 128);
   }
-  float dqu_acc[32], dqv_acc[32], dpe_acc[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) dqu_acc[i] = dqv_acc[i] = dpe_acc[i] = 0.f;
-  const int D = H * DH, n_real = 2 * T - 1;
+  float dqu_acc[KK::CB][KK::NACC], dqv_acc[KK::CB][KK::NACC], dpe_acc[KK::CB][KK::NACC];
+  zero<KK>(dqu_acc);
+  zero<KK>(dqv_acc);
+  zero<KK>(dpe_acc);
+  const int D = H * KK::DH, n_real = 2 * T - 1;
   // the warpgroup's pe window on key tile 0: rows from T-1-(qa+63)
   const int pw0 = T - 1 - (q0 + wg * 64 + 63);
+  const int w0 = (KK::NWG - 1 - wg) * 64;  // the window's first row in the pe tile
   hop::mbar_wait(&sm.own_full, 0);
 
   for (int it = 0; it < n_k_tiles; ++it) {
-    const int s = it % BST, k0 = it * BS;
-    hop::mbar_wait(&sm.full[s], (it / BST) & 1);
-    const int win = (1 - wg) * 64 * 128;  // the window's byte offset in the pe tile
+    const int s = it % ST, k0 = it * BS;
+    hop::mbar_wait(&sm.full[s], (it / ST) & 1);
 
     __syncwarp();
-    position_block(pw, qvd, hop::desc(sm.pe[s], win));
+    position_block<KK, KK::BR>(pw, sm.qv, wg * 64, sm.pe[s], w0);
     float sc[32], dp[32];  // S = Qu K^T, dP = dO V^T
     hop::wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc)
-      hop::wgmma_ss_n64(sc, qud + 2 * kc, hop::desc(sm.k[s]) + 2 * kc, kc);
+    for (int kc = 0; kc < KK::KC; ++kc)
+      hop::wgmma_ss_n64(sc, KK::template kmaj<KK::BR>(sm.qu, wg * 64, kc),
+                        KK::template kmaj<BS>(sm.k[s], 0, kc), kc);
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc)
-      hop::wgmma_ss_n64(dp, dod + 2 * kc, hop::desc(sm.v[s]) + 2 * kc, kc);
+    for (int kc = 0; kc < KK::KC; ++kc)
+      hop::wgmma_ss_n64(dp, KK::template kmaj<KK::BR>(sm.dout, wg * 64, kc),
+                        KK::template kmaj<BS>(sm.v[s], 0, kc), kc);
     hop::wgmma_commit();
     hop::wgmma_wait();
     hop::fence_regs(sc);
     hop::fence_regs(dp);
     __syncwarp();
 
-    // dS = P (dP - dd) / l * 0.125, P = exp(s - m): bf16 A fragments, and
+    // dS = P (dP - dd) / l * scale, P = exp(s - m): bf16 A fragments, and
     // written shifted into dSh (row r, column 63 - r + c)
     uint32_t dsa[16];
 #pragma unroll
@@ -695,7 +870,7 @@ relpos_dq_kernel(const __grid_constant__ QMaps mp, const float* __restrict__ mas
       float x[2];
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        x[e] = (sc[i + e] + shifted(pw, i + e)) * SCALE + sm.mask[s][c + e];
+        x[e] = (sc[i + e] + shifted(pw, i + e)) * scale + sm.mask[s][c + e];
         if (k0 + c + e >= T) x[e] = -INFINITY;  // the key tail: p = 0 past T
         x[e] = hop::ex2(fmaf(x[e], LOG2E, -ml)) * (dp[i + e] - dr) * li;
       }
@@ -705,7 +880,7 @@ relpos_dq_kernel(const __grid_constant__ QMaps mp, const float* __restrict__ mas
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int col = 63 - r + c + e, cc = col & 63;
-        dsh[(col >> 6) * 64 * DH + r * DH + (((cc >> 3) ^ (r & 7)) << 3) + (cc & 7)] =
+        dsh[(col >> 6) * 64 * 64 + r * 64 + (((cc >> 3) ^ (r & 7)) << 3) + (cc & 7)] =
             e ? pair.y : pair.x;
       }
     }
@@ -715,121 +890,169 @@ relpos_dq_kernel(const __grid_constant__ QMaps mp, const float* __restrict__ mas
     // dQu += dS K (K MN-major); dQv += dSh . window (dSh K-major, two
     // 64-column halves; the window MN-major)
     hop::wgmma_fence();
-    issue_ab(dqu_acc, dsa, sm.k[s]);
+    issue_ab<KK>(dqu_acc, dsa, sm.k[s]);
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
-      hop::wgmma_ss_n64_tb(dqv_acc, hop::desc(dsh + (kk >> 2) * 64 * DH) + 2 * (kk & 3),
-                           hop::desc(sm.pe[s], win + kk * 16 * 128), 1);
-    // dpe of the window's lower 64 rows, onto the previous tile's upper 64
+    for (int cb = 0; cb < KK::CB; ++cb)
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      hop::wgmma_ss_n64_tab(dpe_acc, hop::desc(dsh, kk * 16 * 128),
-                            hop::desc(sm.qv, wg * 64 * 128 + kk * 16 * 128), kk > 0 || it > 0);
+      for (int kk = 0; kk < 8; ++kk)
+        KK::ss_tb(dqv_acc[cb], hop::desc(dsh + (kk >> 2) * 64 * 64) + 2 * (kk & 3),
+                  KK::template mn<KK::PR>(sm.pe[s], w0, kk, cb), 1);
+    // dpe of the window's lower 64 rows (carried: onto the previous tile's upper 64)
+    issue_dpe<KK>(dpe_acc, dsh, sm.qv, wg * 64, CARRY && it > 0);
     hop::wgmma_commit();
     hop::wgmma_wait();
-    hop::fence_regs(dqu_acc);
-    hop::fence_regs(dqv_acc);
-    hop::fence_regs(dpe_acc);
-    flush_dpe(dpe, dpe_acc, pw0 + k0, n_real, D, h);
-    // the upper 64 rows start the next tile's lower half
+    fence_all<KK>(dqu_acc);
+    fence_all<KK>(dqv_acc);
+    fence_all<KK>(dpe_acc);
+    flush_dpe<KK>(dpe, dpe_acc, pw0 + k0, n_real, D, h);
+    // the upper 64 rows (carried: they start the next tile's lower half)
     hop::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      hop::wgmma_ss_n64_tab(dpe_acc, hop::desc(dsh + 64 * DH, kk * 16 * 128),
-                            hop::desc(sm.qv, wg * 64 * 128 + kk * 16 * 128), kk > 0);
+    issue_dpe<KK>(dpe_acc, dsh + 64 * 64, sm.qv, wg * 64, false);
     hop::wgmma_commit();
     hop::wgmma_wait();
-    hop::fence_regs(dpe_acc);
+    fence_all<KK>(dpe_acc);
+    if (!CARRY) flush_dpe<KK>(dpe, dpe_acc, pw0 + k0 + 64, n_real, D, h);
     __syncwarp();
     if (lane == 0) hop::mbar_arrive(&sm.empty[s]);
   }
-  flush_dpe(dpe, dpe_acc, pw0 + n_k_tiles * BS, n_real, D, h);
+  if (CARRY) flush_dpe<KK>(dpe, dpe_acc, pw0 + n_k_tiles * BS, n_real, D, h);
 
-  const size_t base = (size_t)b * T * D + (size_t)h * DH;
-  store_rows(dqu + base, dqu_acc, row0, T, D, 1.f, 1.f);
-  store_rows(dqv + base, dqv_acc, row0, T, D, 1.f, 1.f);
+  const size_t base = (size_t)b * T * D + (size_t)h * KK::DH;
+  store_rows<KK>(dqu + base, dqu_acc, row0, T, D, 1.f, 1.f);
+  store_rows<KK>(dqv + base, dqv_acc, row0, T, D, 1.f, 1.f);
+}
+
+// The maps of a kernel of geometry KK: a packed (B, T, H*DH) tensor in R-row
+// boxes of CW columns, and pe's 2D map over (H*DH columns, 2T-1 rows).
+template <class KK, int R>
+int encode_tile(CUtensorMap* map, const void* ptr, int B, int T, int H) {
+  return hop_host::encode_cols(map, ptr, B, T, H * KK::DH, R, KK::CW);
+}
+template <class KK>
+int encode_pe(CUtensorMap* map, const void* pe, int T, int H) {
+  return hop_host::encode_bf16(map, pe, 2 * T - 1, H * KK::DH, H * KK::DH, KK::PR, KK::CW);
+}
+
+// The dynamic shared memory of a kernel with storage S (+ the 1024-byte
+// alignment), set on every launch (the attribute is per device, and cheap).
+template <class S, class Kern>
+int smem_for(Kern kern, int* bytes) {
+  *bytes = (int)sizeof(S) + 1024;
+  return (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, *bytes);
+}
+
+template <int DH>
+int launch_fwd(const void* qu, const void* qv, const void* k, const void* v, const void* pe,
+               const void* mask, void* o, void* row_m, void* row_l, int B, int T, int H,
+               float scale, cudaStream_t stream) {
+  typedef typename Inst<DH>::F KK;
+  constexpr int ST = Inst<DH>::FST;
+  QMaps mp = {};
+  int rc;
+  if ((rc = encode_tile<KK, KK::BR>(&mp.own[0], qu, B, T, H)) ||
+      (rc = encode_tile<KK, KK::BR>(&mp.own[1], qv, B, T, H)) ||
+      (rc = encode_tile<KK, BS>(&mp.k, k, B, T, H)) ||
+      (rc = encode_tile<KK, BS>(&mp.v, v, B, T, H)) ||
+      (rc = encode_pe<KK>(&mp.pe, pe, T, H)))
+    return rc;
+  int smem;
+  if ((rc = smem_for<SmemF<KK, ST>>(relpos_flash_fwd_kernel<KK, ST>, &smem))) return rc;
+  dim3 grid((T + KK::BR - 1) / KK::BR, H, B);
+  relpos_flash_fwd_kernel<KK, ST><<<grid, KK::THREADS, smem, stream>>>(
+      mp, (const float*)mask, (bf16*)o, (float*)row_m, (float*)row_l, T, H, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int DH>
+int launch_bwd(const void* qu, const void* qv, const void* k, const void* v, const void* pe,
+               const void* mask, const void* o, const void* dout, const void* row_m,
+               const void* row_l, void* dd, void* dqu, void* dqv, void* dk, void* dv,
+               void* dpe, int B, int T, int H, float scale, cudaStream_t st) {
+  typedef typename Inst<DH>::KV KV;
+  typedef typename Inst<DH>::Q KQ;
+  constexpr int KVST = Inst<DH>::KVST, QST = Inst<DH>::QST;
+  KVMaps kv = {};
+  QMaps qm = {};
+  int rc;
+  if ((rc = encode_tile<KV, KV::BR>(&kv.k, k, B, T, H)) ||
+      (rc = encode_tile<KV, KV::BR>(&kv.v, v, B, T, H)) ||
+      (rc = encode_tile<KV, BS>(&kv.qu, qu, B, T, H)) ||
+      (rc = encode_tile<KV, BS>(&kv.qv, qv, B, T, H)) ||
+      (rc = encode_tile<KV, BS>(&kv.dout, dout, B, T, H)) ||
+      (rc = encode_pe<KV>(&kv.pe, pe, T, H)) ||
+      (rc = encode_tile<KQ, KQ::BR>(&qm.own[0], qu, B, T, H)) ||
+      (rc = encode_tile<KQ, KQ::BR>(&qm.own[1], qv, B, T, H)) ||
+      (rc = encode_tile<KQ, KQ::BR>(&qm.own[2], dout, B, T, H)) ||
+      (rc = encode_tile<KQ, BS>(&qm.k, k, B, T, H)) ||
+      (rc = encode_tile<KQ, BS>(&qm.v, v, B, T, H)) ||
+      (rc = encode_pe<KQ>(&qm.pe, pe, T, H)))
+    return rc;
+  int smem_kv, smem_q;
+  if ((rc = smem_for<SmemKV<KV, KVST>>(relpos_dkdv_kernel<KV, KVST>, &smem_kv)) ||
+      (rc = smem_for<SmemQ<KQ, QST>>(relpos_dq_kernel<KQ, QST>, &smem_q)))
+    return rc;
+
+  cudaError_t err;
+  const size_t threads = (size_t)B * T * H * (DH / 8);
+  relpos_rowdot_kernel<DH><<<(unsigned)((threads + 255) / 256), 256, 0, st>>>(
+      (const bf16*)dout, (const bf16*)o, (float*)dd, B, T, H);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  relpos_dkdv_kernel<KV, KVST><<<dim3((T + KV::BR - 1) / KV::BR, H, B), KV::THREADS, smem_kv,
+                                 st>>>(kv, (const float*)mask, (const float*)row_m,
+                                       (const float*)row_l, (const float*)dd, (bf16*)dk,
+                                       (bf16*)dv, T, H, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  relpos_dq_kernel<KQ, QST><<<dim3((T + KQ::BR - 1) / KQ::BR, H, B), KQ::THREADS, smem_q,
+                              st>>>(qm, (const float*)mask, (const float*)row_m,
+                                    (const float*)row_l, (const float*)dd, (bf16*)dqu,
+                                    (bf16*)dqv, (float*)dpe, T, H, scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// qu, qv, k, v, o: (B, T, H*64) bf16; pe: (n_pe >= 2T-1, H*64) bf16 (rows
-// 0 .. 2T-2 read); mask: (B, T) f32 additive; all contiguous and 16-byte
-// aligned. row_m, row_l: (B, H, T) f32 outputs (the row max and sum the
-// backward reads), or both null. Returns cudaGetLastError() after the
-// launch, or a negative code if a tensor map could not be encoded.
+// qu, qv, k, v, o: (B, T, H*DH) bf16, DH 32, 64 or 128 (the wrapper pads
+// other widths); pe: (n_pe >= 2T-1, H*DH) bf16 (rows 0 .. 2T-2 read); mask:
+// (B, T) f32 additive; all contiguous and 16-byte aligned. scale: the
+// score's d_head^-0.5. row_m, row_l: (B, H, T) f32 outputs (the row max and
+// sum the backward reads), or both null. Returns cudaGetLastError() after
+// the launch, cudaErrorInvalidValue for another DH, or a negative code if a
+// tensor map could not be encoded.
 extern "C" int relpos_flash_fwd(const void* qu, const void* qv, const void* k,
                                 const void* v, const void* pe, const void* mask, void* o,
-                                void* row_m, void* row_l, int B, int T, int H,
-                                void* stream) {
-  QMaps mp = {};
-  int rc;
-  if ((rc = hop_host::encode(&mp.own[0], qu, B, T, H, BR)) ||
-      (rc = hop_host::encode(&mp.own[1], qv, B, T, H, BR)) ||
-      (rc = hop_host::encode(&mp.k, k, B, T, H, BS)) ||
-      (rc = hop_host::encode(&mp.v, v, B, T, H, BS)) ||
-      (rc = hop_host::encode_2d(&mp.pe, pe, 2 * T - 1, H, PR)))
-    return rc;
-  const int smem = (int)sizeof(SmemF) + 1024;  // + the 1024-byte alignment
-  // Set on every launch: the attribute is per device, and it is cheap.
-  const cudaError_t attr = cudaFuncSetAttribute(
-      relpos_flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (attr != cudaSuccess) return (int)attr;
-  dim3 grid((T + BR - 1) / BR, H, B);
-  relpos_flash_fwd_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      mp, (const float*)mask, (bf16*)o, (float*)row_m, (float*)row_l, T, H);
-  return (int)cudaGetLastError();
+                                void* row_m, void* row_l, int B, int T, int H, int DH,
+                                float scale, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+#define FWD(W) launch_fwd<W>(qu, qv, k, v, pe, mask, o, row_m, row_l, B, T, H, scale, st)
+  if (DH == 32) return FWD(32);
+  if (DH == 64) return FWD(64);
+  if (DH == 128) return FWD(128);
+#undef FWD
+  return (int)cudaErrorInvalidValue;
 }
 
 // The backward of relpos_flash_fwd. Inputs as there, plus o and dout
-// (B, T, H*64) bf16 and the forward's row_m, row_l (B, H, T) f32; dd:
-// (B, H, T) f32 scratch; outputs dqu, dqv, dk, dv (B, T, H*64) bf16 and dpe
-// (n_pe, H*64) f32, which the caller zeroes (rows from 2T-1 on stay 0).
+// (B, T, H*DH) bf16 and the forward's row_m, row_l (B, H, T) f32; dd:
+// (B, H, T) f32 scratch; outputs dqu, dqv, dk, dv (B, T, H*DH) bf16 and dpe
+// (n_pe, H*DH) f32, which the caller zeroes (rows from 2T-1 on stay 0).
 // Launches (a), (b), (c) on `stream`; returns the first cudaGetLastError()
-// that is not cudaSuccess, a negative code if a tensor map could not be
-// encoded, or cudaSuccess.
+// that is not cudaSuccess, cudaErrorInvalidValue for another DH, a negative
+// code if a tensor map could not be encoded, or cudaSuccess.
 extern "C" int relpos_flash_bwd(const void* qu, const void* qv, const void* k,
                                 const void* v, const void* pe, const void* mask,
                                 const void* o, const void* dout, const void* row_m,
                                 const void* row_l, void* dd, void* dqu, void* dqv, void* dk,
-                                void* dv, void* dpe, int B, int T, int H, void* stream) {
+                                void* dv, void* dpe, int B, int T, int H, int DH, float scale,
+                                void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  KVMaps kv = {};
-  QMaps qm = {};
-  int rc;
-  if ((rc = hop_host::encode(&kv.k, k, B, T, H, BR)) ||
-      (rc = hop_host::encode(&kv.v, v, B, T, H, BR)) ||
-      (rc = hop_host::encode(&kv.qu, qu, B, T, H, BS)) ||
-      (rc = hop_host::encode(&kv.qv, qv, B, T, H, BS)) ||
-      (rc = hop_host::encode(&kv.dout, dout, B, T, H, BS)) ||
-      (rc = hop_host::encode_2d(&kv.pe, pe, 2 * T - 1, H, PR)) ||
-      (rc = hop_host::encode(&qm.own[0], qu, B, T, H, BR)) ||
-      (rc = hop_host::encode(&qm.own[1], qv, B, T, H, BR)) ||
-      (rc = hop_host::encode(&qm.own[2], dout, B, T, H, BR)) ||
-      (rc = hop_host::encode(&qm.k, k, B, T, H, BS)) ||
-      (rc = hop_host::encode(&qm.v, v, B, T, H, BS)))
-    return rc;
-  qm.pe = kv.pe;
-  const int smem_kv = (int)sizeof(SmemKV) + 1024, smem_q = (int)sizeof(SmemQ) + 1024;
-  cudaError_t err = cudaFuncSetAttribute(
-      relpos_dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(relpos_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_q);
-  if (err != cudaSuccess) return (int)err;
-
-  const size_t threads = (size_t)B * T * H * 8;
-  relpos_rowdot_kernel<<<(unsigned)((threads + 255) / 256), 256, 0, st>>>(
-      (const bf16*)dout, (const bf16*)o, (float*)dd, B, T, H);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  dim3 grid((T + BR - 1) / BR, H, B);
-  relpos_dkdv_kernel<<<grid, THREADS, smem_kv, st>>>(
-      kv, (const float*)mask, (const float*)row_m, (const float*)row_l, (const float*)dd,
-      (bf16*)dk, (bf16*)dv, T, H);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  relpos_dq_kernel<<<grid, THREADS, smem_q, st>>>(
-      qm, (const float*)mask, (const float*)row_m, (const float*)row_l, (const float*)dd,
-      (bf16*)dqu, (bf16*)dqv, (float*)dpe, T, H);
-  return (int)cudaGetLastError();
+#define BWD(W)                                                                             \
+  launch_bwd<W>(qu, qv, k, v, pe, mask, o, dout, row_m, row_l, dd, dqu, dqv, dk, dv, dpe, B, \
+                T, H, scale, st)
+  if (DH == 32) return BWD(32);
+  if (DH == 64) return BWD(64);
+  if (DH == 128) return BWD(128);
+#undef BWD
+  return (int)cudaErrorInvalidValue;
 }

@@ -21,7 +21,10 @@ nothing but the bytes read.
                                   float32 q and caches: K3-f32 (plain rows
                                   only; the transformer LM's self-attention);
                                   d_head 48: K3 at the side ladder's head
-                                  width (plain bf16 rows only)
+                                  width (plain bf16 rows only); plain bf16
+                                  and float32 rows at any d_head <= 256
+                                  that is a multiple of 4 (the conformer
+                                  decoder's and the LM's, `ROWS_D_HEAD_MAX`)
   decode_shared_cache_attention   K3s: the j beam queries of group g over
                                   ONE shared (Tp, d) cache (cross-KV);
                                   int8 caches with scales (K3s-int8)
@@ -59,6 +62,15 @@ D_HEAD = 64
 # the ladder side network's head width (n_dim 192 / 4 heads): K3's plain
 # bf16 rows are also built at it; every other form stays at D_HEAD
 D_HEAD_SIDE = 48
+# plain rows (bf16 K3, float32 K3-f32) at any other head width up to this,
+# a multiple of ROWS_D_HEAD_ALIGN (the conformer decoder's and the LM's
+# widths: 36 and 44 in the public small conformers, 128 in the XLarge), on
+# the runtime-width entry (`_rows_at`); the whisper-only forms (ancestry,
+# PE, int8, K3s) stay at D_HEAD. float32 at D_HEAD and bf16 at D_HEAD_SIDE
+# keep their fixed instances: the runtime entry trails them by ~15% at the
+# LM's float32 shape and ~4% at the ladder's self-attention (PERF.md §6)
+ROWS_D_HEAD_MAX = 256
+ROWS_D_HEAD_ALIGN = 4
 MAX_KEYS = 8192  # K3 keeps a block's f32 scores in shared memory
 MAX_ANC_KEYS = 4096  # K3a also keeps each key's physical row there
 MAX_BEAM = 16  # K3s: a lane keeps one accumulator per query of the group
@@ -401,8 +413,11 @@ def decode_cache_attention(
     float32 q, k and v (K3-f32) take plain rows only: with a map, PE or
     scales they raise; any other cache dtype raises too. d_head 48 (d ==
     48 x n_head) takes plain bf16 rows only, as the side ladder launches
-    it; anything else at that width raises. `splits` (card only): the
-    blocks a (head, row) is split over, instead of `time_splits`'s."""
+    it; anything else at that width raises. Plain bf16 and float32 rows
+    take any d_head up to ROWS_D_HEAD_MAX that is a multiple of
+    ROWS_D_HEAD_ALIGN; the other forms take D_HEAD only. `splits` (card
+    only): the blocks a (head, row) is split over, instead of
+    `time_splits`'s."""
     pe, quant = q_cs is not None, k_scale is not None
     if pe and quant:
         raise ValueError("decode_cache_attention: int8 caches are unsupported "
@@ -432,7 +447,11 @@ def decode_cache_attention(
         if anc or pe or quant:
             raise ValueError("decode_cache_attention: float32 caches take plain rows "
                              "only (no ancestry map, PE or scales)")
-        return _f32_rows(q, k, v, pos, n_head, s)
+        if d == n_head * D_HEAD:
+            return _f32_rows(q, k, v, pos, n_head, s)
+        return _rows_at(q, k, v, pos, n_head, s)
+    if d != n_head * D_HEAD and not (anc or pe or quant):
+        return _rows_at(q, k, v, pos, n_head, s)
     if pe:
         if q_cs.shape != q.shape or k_cs.shape != k.shape or gate.shape != (n_head,):
             raise ValueError(f"decode_cache_attention: q_cs {tuple(q_cs.shape)}, k_cs "
@@ -483,6 +502,41 @@ def _f32_rows(q, k, v, pos: int, n_head: int, splits: int) -> torch.Tensor:
     cuda_lib.check(rc, "decode_attn_f32_fwd")
     global F32_LAUNCHES
     F32_LAUNCHES += 1
+    return o
+
+
+def rows_width_ok(d: int, n_head: int) -> bool:
+    """Do the plain rows take this width (d = n_head x d_head, d_head <=
+    ROWS_D_HEAD_MAX a multiple of ROWS_D_HEAD_ALIGN)?"""
+    dh = d // n_head
+    return d % n_head == 0 and 0 < dh <= ROWS_D_HEAD_MAX and dh % ROWS_D_HEAD_ALIGN == 0
+
+
+def _rows_at(q, k, v, pos: int, n_head: int, splits: int) -> torch.Tensor:
+    """Launch K3's or K3-f32's plain rows at a head width other than D_HEAD
+    (checked by the caller's shape tests)."""
+    n, tp, d = k.shape
+    if not rows_width_ok(d, n_head):
+        raise ValueError(f"decode_cache_attention: d {d} in {n_head} heads; plain rows "
+                         f"take d_head <= {ROWS_D_HEAD_MAX}, a multiple of "
+                         f"{ROWS_D_HEAD_ALIGN}, and every other form d_head {D_HEAD}")
+    f32 = k.dtype == torch.float32
+    _check_kernel_inputs("decode_cache_attention", n_head, d, [("q", q), ("k", k), ("v", v)],
+                         k.dtype, k.dtype, d_head=d // n_head)
+    if pos + 1 > MAX_KEYS:
+        raise ValueError(f"decode_cache_attention: pos + 1 = {pos + 1} keys exceed the "
+                         f"kernel's {MAX_KEYS}")
+    o = torch.empty_like(q)
+    fn = cuda_lib.load("decode_attn", "decode_attn_rows_fwd",
+                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), int(f32), n, tp, n_head,
+            d // n_head, pos, splits, torch.cuda.current_stream(q.device).cuda_stream)
+    cuda_lib.check(rc, "decode_attn_rows_fwd")
+    global LAUNCHES, F32_LAUNCHES
+    if f32:
+        F32_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return o
 
 

@@ -19,8 +19,13 @@ conformer (`models/conformer.py`) calls `relpos_mha`; outside it takes the
 einsum path, as JAX's `_rel_attn` does. The two paths round differently
 (float32 scores here, bf16 einsums there), so the envelope decides the
 numbers and is not a fallback. `relpos_mha` runs the plain version
-`relpos_mha_plain` for a CPU tensor and launches K5 for a CUDA tensor (the
-kernel takes d_head 64) or raises. Under autograd it is a
+`relpos_mha_plain` for a CPU tensor and launches K5 for a CUDA tensor or
+raises. K5 is built at head widths `INSTANCES` (32, 64, 128); a head of
+another width inside the envelope up to D_HEAD_MAX is zero-padded to the
+next instance (`instance`, `pad_heads`): the zero columns add exact zeros
+to both score products, the padded output and gradient columns are
+dropped, and the scale stays the real width's d_head^-0.5. Above
+D_HEAD_MAX `check_envelope` raises, naming the envelope. Under autograd it is a
 `torch.autograd.Function` (JAX's custom VJP): on the card the forward also
 keeps each row's max and sum and the backward is K5's backward kernel; on
 the CPU the backward is `relpos_mha_bwd_plain`, `_bwd_kernel`'s
@@ -39,7 +44,8 @@ from agacs_tpu_torch.ops import cuda_lib
 
 MIN_T, MAX_T = 64, 640
 NEG_MASK = -1e30
-D_HEAD = 64  # what K5 takes
+INSTANCES = (32, 64, 128)  # the head widths K5 is built at
+D_HEAD_MAX = INSTANCES[-1]  # K5 takes d_head up to this on the card
 LAUNCHES = 0  # K5 forward launches since the last reset (chip_smoke.py reads it)
 BWD_LAUNCHES = 0  # K5 backward launches
 
@@ -63,14 +69,57 @@ def supports(t: int, d_model: int, n_head: int, dtype: torch.dtype) -> bool:
     return dtype == torch.bfloat16
 
 
-def relpos_mha_plain(qu, qv, k, v, pe, mask, n_head: int) -> torch.Tensor:
+def instance(d_head: int) -> int:
+    """The K5 instance a head of `d_head` runs at: the least of INSTANCES
+    that holds it (the wrapper zero-pads up to it)."""
+    for w in INSTANCES:
+        if d_head <= w:
+            return w
+    raise ValueError(f"relpos_flash: d_head {d_head} is above the kernel's {D_HEAD_MAX}")
+
+
+def check_envelope(t: int, d_model: int, n_head: int) -> int:
+    """The instance K5 runs (T, d, h) at on the card, or a ValueError that
+    names the envelope: JAX's (`supports`: 64 <= T <= 640, d % 128 == 0,
+    d_head % 8 == 0) with d_head <= D_HEAD_MAX."""
+    ok = (MIN_T <= t <= MAX_T and d_model % 128 == 0 and d_model % n_head == 0
+          and (d_model // n_head) % 8 == 0 and d_model // n_head <= D_HEAD_MAX)
+    if not ok:
+        raise ValueError(f"relpos_flash: T {t}, d {d_model}, {n_head} heads: K5 takes "
+                         f"{MIN_T} <= T <= {MAX_T}, d % 128 == 0 and d_head % 8 == 0 "
+                         f"(JAX's envelope) with d_head <= {D_HEAD_MAX}")
+    return instance(d_model // n_head)
+
+
+def pad_heads(x: torch.Tensor, n_head: int, width: int) -> torch.Tensor:
+    """(..., h * d_head) -> (..., h * width): each head zero-padded at its end."""
+    dh = x.shape[-1] // n_head
+    if dh == width:
+        return x
+    y = x.reshape(*x.shape[:-1], n_head, dh)
+    return F.pad(y, (0, width - dh)).reshape(*x.shape[:-1], n_head * width).contiguous()
+
+
+def unpad_heads(x: torch.Tensor, n_head: int, d_head: int) -> torch.Tensor:
+    """The inverse of `pad_heads`: each head's first d_head columns."""
+    width = x.shape[-1] // n_head
+    if width == d_head:
+        return x
+    return x.reshape(*x.shape[:-1], n_head, width)[..., :d_head].reshape(
+        *x.shape[:-1], n_head * d_head)
+
+
+def relpos_mha_plain(qu, qv, k, v, pe, mask, n_head: int,
+                     scale: float | None = None) -> torch.Tensor:
     """The plain version: JAX `_fwd_kernel`'s arithmetic (:148-175). Scores
     from products of the input dtype's values accumulated in float32, the
     shift as a gather of columns T-1-q+j, the additive mask, a float32
     softmax with the UN-normalized p rounded to v's dtype for the value
-    product, the division by the row sum after it."""
+    product, the division by the row sum after it. `scale`: d_head^-0.5
+    unless given (a padded head keeps its real width's)."""
     b, t, d = qu.shape
     dh = d // n_head
+    scale = dh ** -0.5 if scale is None else scale
 
     def heads(x):
         return x.reshape(b, t, n_head, dh).transpose(1, 2).float()
@@ -81,13 +130,15 @@ def relpos_mha_plain(qu, qv, k, v, pe, mask, n_head: int) -> torch.Tensor:
     cols = (t - 1) - torch.arange(t, device=qu.device)[:, None] \
         + torch.arange(t, device=qu.device)[None, :]
     bd = bdf.gather(3, cols.expand(b, n_head, t, t))
-    s = (ac + bd) * dh ** -0.5 + mask.float()[:, None, None, :]
+    s = (ac + bd) * scale + mask.float()[:, None, None, :]
     p = torch.exp(s - s.amax(-1, keepdim=True))
     o = (p.to(v.dtype).float() @ heads(v)) / p.sum(-1, keepdim=True)
     return o.transpose(1, 2).reshape(b, t, d).to(qu.dtype)
 
 
-def _check(qu, qv, k, v, pe, mask, n_head: int) -> None:
+def _check(qu, qv, k, v, pe, mask, n_head: int) -> int:
+    """The checks of both launches; returns the instance (head width) the
+    kernel runs at."""
     b, t, d = qu.shape
     if qu.device.type != "cuda":
         raise ValueError(f"relpos_flash: K5 runs on a CUDA tensor, not on {qu.device}")
@@ -104,23 +155,23 @@ def _check(qu, qv, k, v, pe, mask, n_head: int) -> None:
         raise ValueError(f"relpos_flash_fwd: qu {tuple(qu.shape)}, qv {tuple(qv.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}, pe {tuple(pe.shape)}, "
                          f"mask {tuple(mask.shape)}")
-    if d != n_head * D_HEAD or not supports(t, d, n_head, qu.dtype):
-        raise ValueError(f"relpos_flash_fwd: T {t}, d {d}, {n_head} heads: the kernel "
-                         f"takes {MIN_T} <= T <= {MAX_T} and d_head {D_HEAD}")
+    return check_envelope(t, d, n_head)
 
 
-def relpos_mha_bwd_plain(qu, qv, k, v, pe, mask, o, do, n_head: int):
+def relpos_mha_bwd_plain(qu, qv, k, v, pe, mask, o, do, n_head: int,
+                         scale: float | None = None):
     """The plain backward: JAX `_bwd_kernel`'s arithmetic (:178-246) ->
     (dqu, dqv, dk, dv, dpe). p = exp(s - m) unnormalised, rounded to do's
     dtype for dv against bf16(do / l); dd = rowsum(do * o) in float32;
     ds = (p (dp - dd) / l * d_head^-0.5) rounded to the input dtype before
     its products; dqv and dpe through the un-shifted ds (a scatter onto
     columns T-1-q+j); dpe summed over the batch in float32, then cast to
-    pe's dtype (its rows from 2T-1 on are zero)."""
+    pe's dtype (its rows from 2T-1 on are zero). `scale` as in
+    `relpos_mha_plain`."""
     b, t, d = qu.shape
     dh = d // n_head
     dt = do.dtype
-    isd = dh ** -0.5
+    isd = dh ** -0.5 if scale is None else scale
 
     def heads(x):
         return x.reshape(b, t, n_head, dh).transpose(1, 2).float()
@@ -152,45 +203,54 @@ def relpos_mha_bwd_plain(qu, qv, k, v, pe, mask, o, do, n_head: int):
 def _launch_fwd(qu, qv, k, v, pe, mask, n_head: int, stats: bool):
     """K5's forward on the card -> o, and with `stats` the (B, H, T) float32
     row max and row sum the backward reads."""
-    _check(qu, qv, k, v, pe, mask, n_head)
-    b, t, _ = qu.shape
-    o = torch.empty_like(qu)
+    w = _check(qu, qv, k, v, pe, mask, n_head)
+    b, t, d = qu.shape
+    dh = d // n_head
+    qu_, qv_, k_, v_, pe_ = (pad_heads(x, n_head, w) for x in (qu, qv, k, v, pe))
+    o = torch.empty_like(qu_)
     m = l = None
     if stats:
         m = torch.empty(b, n_head, t, device=qu.device)
         l = torch.empty_like(m)
     fn = cuda_lib.load("relpos_flash", "relpos_flash_fwd",
-                       [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    rc = fn(qu.data_ptr(), qv.data_ptr(), k.data_ptr(), v.data_ptr(), pe.data_ptr(),
+                       [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+                       + [ctypes.c_float, ctypes.c_void_p])
+    rc = fn(qu_.data_ptr(), qv_.data_ptr(), k_.data_ptr(), v_.data_ptr(), pe_.data_ptr(),
             mask.data_ptr(), o.data_ptr(), m.data_ptr() if stats else None,
-            l.data_ptr() if stats else None, b, t, n_head,
+            l.data_ptr() if stats else None, b, t, n_head, w, dh ** -0.5,
             torch.cuda.current_stream(qu.device).cuda_stream)
     cuda_lib.check(rc, "relpos_flash_fwd")
     global LAUNCHES
     LAUNCHES += 1
-    return o, m, l
+    return unpad_heads(o, n_head, dh), m, l
 
 
 def _launch_bwd(qu, qv, k, v, pe, mask, o, do, m, l, n_head: int):
     """K5's backward on the card -> (dqu, dqv, dk, dv, dpe in pe's dtype)."""
-    _check(qu, qv, k, v, pe, mask, n_head)
+    w = _check(qu, qv, k, v, pe, mask, n_head)
     do = do.contiguous()
     if do.shape != qu.shape or do.dtype != qu.dtype:
         raise ValueError(f"relpos_flash_bwd: do {tuple(do.shape)} {do.dtype}")
-    b, t, _ = qu.shape
+    b, t, d = qu.shape
+    dh = d // n_head
+    qu_, qv_, k_, v_, pe_, o_, do_ = (pad_heads(x, n_head, w)
+                                      for x in (qu, qv, k, v, pe, o, do))
     dd = torch.empty_like(m)
-    dqu, dqv, dk, dv = (torch.empty_like(qu) for _ in range(4))
-    dpe = torch.zeros(pe.shape, device=pe.device)
+    dqu, dqv, dk, dv = (torch.empty_like(qu_) for _ in range(4))
+    dpe = torch.zeros(pe_.shape, device=pe.device)
     fn = cuda_lib.load("relpos_flash", "relpos_flash_bwd",
-                       [ctypes.c_void_p] * 16 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    rc = fn(qu.data_ptr(), qv.data_ptr(), k.data_ptr(), v.data_ptr(), pe.data_ptr(),
-            mask.data_ptr(), o.data_ptr(), do.data_ptr(), m.data_ptr(), l.data_ptr(),
+                       [ctypes.c_void_p] * 16 + [ctypes.c_int] * 4
+                       + [ctypes.c_float, ctypes.c_void_p])
+    rc = fn(qu_.data_ptr(), qv_.data_ptr(), k_.data_ptr(), v_.data_ptr(), pe_.data_ptr(),
+            mask.data_ptr(), o_.data_ptr(), do_.data_ptr(), m.data_ptr(), l.data_ptr(),
             dd.data_ptr(), dqu.data_ptr(), dqv.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            dpe.data_ptr(), b, t, n_head, torch.cuda.current_stream(qu.device).cuda_stream)
+            dpe.data_ptr(), b, t, n_head, w, dh ** -0.5,
+            torch.cuda.current_stream(qu.device).cuda_stream)
     cuda_lib.check(rc, "relpos_flash_bwd")
     global BWD_LAUNCHES
     BWD_LAUNCHES += 1
-    return dqu, dqv, dk, dv, dpe.to(pe.dtype)
+    return (*(unpad_heads(x, n_head, dh) for x in (dqu, dqv, dk, dv)),
+            unpad_heads(dpe, n_head, dh).to(pe.dtype))
 
 
 class _RelposMHA(torch.autograd.Function):

@@ -10,9 +10,10 @@ the ladder side network's serving and training, the SEAME recipe's
 run.sh stages 0-6 through the port's CLIs, the train CLI's options
 (resume, batch types, augmentation, prefetch, estimate_c, lid_ce) and its
 multi-GPU training through torchrun (NCCL at one rank with ZeRO-1 and the
-sharded checkpoint, 2 gloo ranks on the one card), and whisper-large at
-full width (K4 above K 1024, its training and greedy serving), once on one
-CUDA card.
+sharded checkpoint, 2 gloo ranks on the one card), whisper-large at
+full width (K4 above K 1024, its training and greedy serving), and the
+conformer at XLarge widths (heads of 128: its training and beam serving),
+once on one CUDA card.
 
     python3 chip_smoke.py              # every phase below
     python3 chip_smoke.py --mutants    # the kernel checks against mutants
@@ -20,6 +21,10 @@ CUDA card.
     python3 chip_smoke.py --splits     # K3's instances timed at each split S
     python3 chip_smoke.py --k4-turns DIR   # K4 at the whisper CTC head's
                                        # shape, DIR's tree and this one in turns
+    python3 chip_smoke.py --k8q-turns DIR  # K8q at its three timed shapes,
+                                       # DIR's tree and this one in turns
+    python3 chip_smoke.py --k3k5-turns DIR  # K3's forms and K5 at d_head 64,
+                                       # DIR's tree and this one in turns
     python3 chip_smoke.py --k4-ablate  # K4's split kernels with parts of
                                        # their exchange taken out, timed
     python3 chip_smoke.py --dist-worker OUT [--after FILE] ARGS  # one
@@ -34,8 +39,8 @@ non-zero exit:
 
   1. device and build: the card, the nvcc builds of the eight kernel
      sources and the g++ builds of the three host libraries (native/:
-     FLAC, DTW, the sclite aligner), started together, and K1's, K5's,
-     K2's and K4's registers and spills;
+     FLAC, DTW, the sclite aligner), started together, and K1's, K5's
+     (every instance), K2's, K4's, K8's and K3's registers and spills;
   2. K1f (csrc/packed_flash_fwd.cu) against its plain PyTorch version at
      the encoder shapes (8, 750, 768) and (2, 1500, 768), 12 heads;
   2b. at the training shapes (16, 750, 768) and (2, 1500, 768): K1f as
@@ -47,7 +52,9 @@ non-zero exit:
      greedy decode shapes: self (8, 112, 768) at pos 0/4/57/103, cross
      (8, 752, 768) at pos 749, the conformer decoder's (80, 112, 256), and
      the split's edges (K3_CASES: empty blocks, either side of a chunk
-     edge, S at its largest); every K3 phase calls each kernel twice and
+     edge, S at its largest); then the plain rows at d_head 32, 36, 44, 128
+     and 256 (K3W_CASES, the XLarge decoder's (80, 112, 1024) timed); every
+     K3 phase calls each kernel twice and
      requires bit-identical outputs, and times SDPA beside K3, K3@48,
      K3-int8 and K3s both masked over the whole cache and on the key slice
      k[:, :pos+1] unmasked (the flash backend), library_ms the faster;
@@ -78,7 +85,11 @@ non-zero exit:
      launch a call, the wide
      kernel's rows past M untouched; timed beside them: torch._int_mm +
      the dequant (M > 16), and at the thin shapes cuBLAS on the
-     dequantised bf16 weight;
+     dequantised bf16 weight; then K8q alone at K8Q_SHAPES ((12000, 768 /
+     1280 / 5120), (12000, 5120) with the dgrad's column scale, a ragged, an
+     unaligned and a past-the-registers shape, float32 with the column
+     scale): identical to plain, bit-identical twice, one launch a call,
+     the first four timed against the bound;
   2j. K2f and K2b (csrc/int8_mlp.cu) against their plain versions at
      (12000, 768, 3072), (6000, 768, 3072) (int8 serving's encode),
      (528, 768, 3072), 1000 rows (a partial tile), whisper-base's
@@ -89,14 +100,17 @@ non-zero exit:
      three) timed beside;
   2r. K5 (csrc/relpos_flash.cu) against its plain version at the conformer
      encoder's (8, 468, 256), 4 heads, and at T 64, 67, 128, 129, 257 and
-     640, keys and values poisoned past each row's length; SDPA with the
-     shifted position scores as its materialised (B, h, T, T) bias timed
-     beside, and the whole PyTorch route (that bias built, then SDPA);
+     640, keys and values poisoned past each row's length, and at d_head
+     32, 128 and the padded 48 and 96 (K5_WIDTHS) at (8, 468), T 67 and
+     257; bit-identical twice, one launch a call; SDPA with the shifted
+     position scores as its materialised (B, h, T, T) bias timed beside,
+     and the whole PyTorch route (that bias built, then SDPA), at d 256
+     with 4 and 8 heads and d 1024 with 8;
   2s. K5's backward (relpos_flash.cu) against its plain version at the
-     training shape (16, 468, 256), 4 heads, and the same T, keys and
-     values poisoned: dqu, dqv, dk, dv, dpe, and a second run bit-identical
-     in dqu, dqv, dk, dv; SDPA's backward with the bias requiring a
-     gradient timed beside;
+     training shape (16, 468, 256), 4 heads, the same T and K5_WIDTHS,
+     keys and values poisoned: dqu, dqv, dk, dv, dpe, and a second run
+     bit-identical in dqu, dqv, dk, dv; SDPA's backward with the bias
+     requiring a gradient timed beside;
   2v. K4 (csrc/vocab_lse.cu: forward, dx, dw) against its plain version at
      the CTC head's (7488, 256) x (256, 51865) and the ragged (700, 256) x
      (256, 5000), (300, 128) x (128, 1001), (300, 384) x (384, 1001),
@@ -111,7 +125,8 @@ non-zero exit:
      cuBLAS with the logits materialised timed beside, at the training
      shape and the whisper CTC head's;
   3f. K3-f32 (decode_attn.cu, float32 caches) against its plain version at
-     the LM's beam shape (80, 112, 512), 8 heads, pos 103, within 1e-4;
+     the LM's beam shape (80, 112, 512), 8 heads, pos 103, within 1e-4, and
+     its rows at phase 3's other widths;
   2w. K6 (csrc/w8a16.cu, the W8A16 thin-row matmul) against its plain
      version at (768 -> 768), (768 -> 3072), (3072 -> 768) and the padded
      logits head (768 -> 52224), rows 1, 5, 8 and 32 (the head also 40):
@@ -333,9 +348,16 @@ non-zero exit:
      unfused, as JAX's budget rules); (c) the TMECS CTC full fine-tune
      (K4 at K 1280, AdamW over 1.55B parameters); (d) greedy serving
      (decode_asr_whisper.yaml) at 8 x 15 s, 100 steps, bf16 then int8
-     trunk; each with ms, busy, idle share, peak memory and exact launch
-     counts; (e) the card in bf16 against the CPU in float32 at full width
+     trunk; each with ms, peak memory and exact launch counts (busy and
+     idle share for (b) and (c); (d)'s profiles are cut for the script's
+     time); (e) the card in bf16 against the CPU in float32 at full width
      on 4 + 4 layers: encoder, first-step logits, and a CTC micro-step.
+  50. the conformer at NeMo's XLarge widths (d 1024, 8 heads of 128, units
+     4096, 24 + 6 blocks) on the recipe's config: (a) the train step at 16
+     x 15 s (K5 24 + 24 launches a step at its 128 instance, K4 at K
+     1024), ms, busy, idle share, peak memory; (b) a beam-10 request with
+     the recipe's LM (K3's rows at d_head 128); (c) card bf16 against CPU
+     f32 at 2 + 2 blocks with phases 27's and 31's bounds.
 
 The last three lines are the card's `name, power.limit` (nvidia-smi), a
 JSON line with each kernel's launches, error and times, and the
@@ -345,6 +367,9 @@ JSON line with each kernel's launches, error and times, and the
 the checkout and runs the checks it names, the unmutated source first (a
 mutant that traps its kernel ends the process's CUDA use: the chosen
 mutants after it run in a new process);
+`--k8q-turns DIR` times K8q the same way at its three timed shapes, and
+`--k3k5-turns DIR` K3's forms and K5 at d_head 64 (K3K5_TURN_CASES), with
+the runtime-width rows entry beside the fixed entries in this tree;
 `--splits` times K3's instances at every S from 1 to 8 (SPLIT_SWEEP), the
 reading `decode_attn.time_splits` was tuned on; `--k4-turns DIR` times K4's
 three passes at the whisper CTC head's shape (`k4_times`) in the checkout
@@ -428,6 +453,10 @@ TRAIN_COS = {"cos_enc": 0.9995, "cos_dec": 0.9995}
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 16, 15, 5
 BEAM = 5
 PROFILE_TRIES = 3  # profiles of a run whose device events must match its launches
+# short sleep kernels that open every profile (not tallied): on some hosts
+# the first device records of a profile went missing (a lone K6 call's, or
+# the lead-in's own)
+LEAD_IN_SPINS = 4
 # Phase 12: a beam hypothesis's reported score against its teacher-forced
 # rescoring (sum of the searched tokens' log-softmax values plus the length
 # bonus), relative to |score|, max over the 8 utterances (card, bf16) and
@@ -1224,6 +1253,211 @@ def wide_into(buf, q, s, w_q, w_s=None, w_t=None) -> None:
                       torch.cuda.current_stream(q.device).cuda_stream), "int8_gemm")
 
 
+# K8q's shapes in phase 2i (rows, K, x dtype, column scale): the int8
+# step's inputs at whisper-small (12000, 768) and whisper-large (12000,
+# 1280), whisper-large's fc2 input (12000, 5120) and the dgrad's input of
+# its fc1 (the column scale w_s), a ragged row count and K (1001, 1000: 125
+# loads a row), a K whose rows are not 16-byte aligned (37, 1003: one element
+# a load), float32 with the column scale, and a row past the registers (4 x
+# 20000 float32: 5000 loads a row, 1536 in registers). The first K8Q_TIMED
+# are timed against the bound, the first K8Q_TURNS in `--k8q-turns`.
+K8Q_SHAPES = ((12000, 768, "bf16", False), (12000, 1280, "bf16", False),
+              (12000, 5120, "bf16", False), (12000, 5120, "bf16", True),
+              (1001, 1000, "bf16", True), (37, 1003, "bf16", False), (3000, 768, "f32", True),
+              (4, 20000, "f32", True))
+K8Q_TIMED, K8Q_TURNS = 4, 3
+
+
+def k8q_bound(m: int, k: int, x_bytes: int = 2) -> dict:
+    """K8q's bound: x read once, q written once (a byte an element), the
+    row scales written; 4 operations an element (|v|, max, v / s, round)."""
+    return roofline(m * k * x_bytes + m * k + m * 4, 4 * m * k, "f32")
+
+
+def check_k8q(dev, g, timed=True) -> dict:
+    """Phase 2i (K8q): int8_rowquant against `row_quant_ref` at K8Q_SHAPES:
+    q and s identical, twice bit-identical, one launch a call; timed at the
+    first K8Q_TIMED shapes beside the plain version and the bound. Returns
+    a list, K8Q_SHAPES' order, of {err, ms, plain_ms, bound_ms, bound_by,
+    library_ms} (the timed ones)."""
+    from agacs_tpu_torch.ops import int8_linear as i8
+
+    out = []
+    for i, (m, k, dt, cs) in enumerate(K8Q_SHAPES):
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        n_sets = 4 if timed and i < K8Q_TIMED else 1
+        sets = [(torch.randn(m, k, generator=g) * 3).to(dev, dtype) for _ in range(n_sets)]
+        col = (torch.rand(k, generator=g) + 0.5).to(dev) if cs else None
+        x = sets[0]
+        before = i8.QUANT_LAUNCHES
+        q, s = i8.rowquant(x, col)
+        q2, s2 = i8.rowquant(x, col)
+        q_ref, s_ref = i8.row_quant_ref(x.float(), col)
+        torch.cuda.synchronize()
+        check(i8.QUANT_LAUNCHES == before + 2, f"K8q ({m}, {k}): one launch a call")
+        check(torch.equal(q, q2) and torch.equal(s, s2), f"K8q ({m}, {k}): bit-identical twice")
+        q_err = (q.int() - q_ref.int()).abs().max().item()
+        check(q_err == 0 and torch.equal(s, s_ref), f"K8q ({m}, {k}) {dt}: q off by {q_err} "
+                                                    "steps or s differs from plain")
+        res = {"err": 0.0}
+        line = (f"phase 2i K8q ({m}, {k}) {dt}{' with the column scale' if cs else ''}: q and s "
+                f"identical to plain, bit-identical twice, one launch a call")
+        if timed and i < K8Q_TIMED:
+            res.update(ms=cuda_ms(lambda x: i8.rowquant(x, col), [(x,) for x in sets], 50),
+                       plain_ms=cuda_ms(lambda x: i8.row_quant_ref(x, col),
+                                        [(x,) for x in sets], 10),
+                       library_ms=None, **k8q_bound(m, k))
+            line += (f" | kernel {res['ms']:.4f} ms plain {res['plain_ms']:.4f} ms bound "
+                     f"{res['bound_ms']:.4f} ms ({res['bound_by']}): "
+                     f"{res['bound_ms'] / res['ms']:.1%} of the bound")
+        out.append(res)
+        print(line, flush=True)
+    return out
+
+
+# `--k8q-turns DIR`: one process per turn in the tree at `root`: K8q at the
+# first K8Q_TURNS shapes (bf16, 4 distinct inputs, 50 calls after a warm-up),
+# timed with CUDA events around the tree's own `int8_linear.rowquant`.
+K8Q_TURN = ("import sys, json, torch; sys.path.insert(0, {root!r}); "
+            "from agacs_tpu_torch.ops import int8_linear as i8\n"
+            "dev = torch.device('cuda'); g = torch.Generator().manual_seed(0); out = {{}}\n"
+            "for m, k in {shapes!r}:\n"
+            "    xs = [(torch.randn(m, k, generator=g) * 3).to(dev, torch.bfloat16) "
+            "for _ in range(4)]\n"
+            "    for x in xs: i8.rowquant(x)\n"
+            "    torch.cuda.synchronize(); torch.cuda._sleep(200_000_000)\n"
+            "    a = torch.cuda.Event(enable_timing=True); b = torch.cuda.Event(enable_timing=True)\n"
+            "    a.record()\n"
+            "    for i in range(50): i8.rowquant(xs[i % 4])\n"
+            "    b.record(); torch.cuda.synchronize()\n"
+            "    out[str((m, k))] = a.elapsed_time(b) / 50\n"
+            "print('K8Q_TURN', json.dumps(out))")
+
+
+def k8q_turns(other: str) -> None:
+    """K8q at the first K8Q_TURNS shapes in the tree at `other` and in this
+    one, in turns (other, this, this, other), one process each; each tree
+    builds its own int8_gemm library."""
+    other = os.path.abspath(other)
+    check(os.path.isdir(os.path.join(other, "agacs_tpu_torch")), f"{other} holds the port")
+    shapes = [(m, k) for m, k, _, _ in K8Q_SHAPES[:K8Q_TURNS]]
+    for tree in (other, ROOT, ROOT, other):
+        proc = subprocess.run([sys.executable, "-c", K8Q_TURN.format(root=tree, shapes=shapes)],
+                              cwd=tree, capture_output=True, text=True, timeout=600)
+        found = [ln for ln in proc.stdout.splitlines() if ln.startswith("K8Q_TURN ")]
+        check(proc.returncode == 0 and len(found) == 1,
+              f"K8q turn in {tree}: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+        print(f"k8q-turns {'this tree' if tree == ROOT else tree}: ms a call "
+              + found[0].split(" ", 1)[1] + " | bound ms " + json.dumps(
+                  {str(sh): round(k8q_bound(*sh)["bound_ms"], 5) for sh in shapes}), flush=True)
+
+
+# `--k3k5-turns DIR`: K3's forms and K5 at d_head 64, the shapes the main
+# paths give them (whisper-small's greedy self- and cross-attention, its
+# beam rows with the ancestry map, PE and int8 caches; the conformer
+# decoder's and the LM's rows; the ladder's d_head 48; K5 at the conformer
+# recipe's serving and training shapes), in the tree at DIR and in this
+# one, one process a turn (`k3k5_turn`); in this tree also the runtime-width
+# rows entry at the fixed entries' shapes (d_head 48, float32 at 64), fixed
+# and runtime in turns within the process.
+K3K5_TURN_CASES = (("K3", 8, 112, 768, 12, 103), ("K3", 8, 752, 768, 12, 749),
+                   ("K3", 80, 112, 256, 4, 99), ("K3a", 40, 112, 768, 12, 103),
+                   ("K3-PE", 8, 112, 768, 12, 103), ("K3-int8", 8, 768, 768, 12, 749),
+                   ("K3-f32", 80, 112, 512, 8, 103), ("K3@48", 8, 752, 192, 4, 749),
+                   ("K3@48", 8, 112, 192, 4, 103))
+K3K5_TURN_K5 = (("K5 fwd", 8, 468, 256, 4), ("K5 bwd", 16, 468, 256, 4))
+
+
+def k3k5_turn(root: str) -> int:
+    """One turn of `--k3k5-turns`: the tree at `root`'s own decode_attn and
+    relpos_flash, each case of K3K5_TURN_CASES and K3K5_TURN_K5 timed by
+    CUDA events over distinct inputs (cuda_ms); printed as one JSON line,
+    `K3K5_TURN {...}` (ms a call). Where the tree has the runtime-width
+    rows entry, the d_head-48 and float32 cases are timed on it too, the
+    fixed entry and it in turns (fixed, rows, rows, fixed)."""
+    sys.path.insert(0, root)
+    from agacs_tpu_torch.ops import decode_attn as da
+    from agacs_tpu_torch.ops import relpos_flash as rf
+
+    dev = torch.device("cuda:0")
+    g = torch.Generator().manual_seed(0)
+    out = {}
+    rows_at = getattr(da, "_rows_at", None)
+    for kind, n, tp, d, h, pos in K3K5_TURN_CASES:
+        sets = []
+        for _ in range(8):
+            dt = torch.float32 if kind == "K3-f32" else torch.bfloat16
+            q, k, v = ((torch.randn(*sh, generator=g) * 0.5).to(dev, dt)
+                       for sh in ((n, d), (n, tp, d), (n, tp, d)))
+            kw = {}
+            if kind == "K3a":
+                kw = {"anc_local": torch.randint(0, BEAM, (n, tp), generator=g).to(
+                    dev, torch.int32), "beam": BEAM}
+            elif kind == "K3-PE":
+                kw = {"q_cs": torch.randn(n, d, generator=g).to(dev, dt),
+                      "k_cs": torch.randn(n, tp, d, generator=g).to(dev, dt),
+                      "gate": torch.rand(h, generator=g).to(dev)}
+            elif kind == "K3-int8":
+                k, v = (torch.randint(-127, 128, (n, tp, d), generator=g).to(dev, torch.int8)
+                        for _ in range(2))
+                kw = {"k_scale": (torch.rand(d, generator=g) * 0.02).to(dev),
+                      "v_scale": (torch.rand(d, generator=g) * 0.02).to(dev)}
+            sets.append((q, k, v, kw))
+        key = f"{kind} ({n}, {tp}, {d}) H={h} pos={pos}"
+        fixed = lambda q, k, v, kw: da.decode_cache_attention(q, k, v, pos, h, **kw)
+        if rows_at is not None and kind in ("K3-f32", "K3@48"):
+            s = da.time_splits(n, h, tp)
+            rows = lambda q, k, v, kw: rows_at(q, k, v, pos, h, s)
+            a, b1 = cuda_ms(fixed, sets, 50), cuda_ms(rows, sets, 50)
+            b2, a2 = cuda_ms(rows, sets, 50), cuda_ms(fixed, sets, 50)
+            out[key] = (a + a2) / 2
+            out[key + " fixed entry"] = [a, a2]
+            out[key + " runtime-width rows entry"] = [b1, b2]
+        else:
+            out[key] = cuda_ms(fixed, sets, 50)
+    for kind, b, t, d, h in K3K5_TURN_K5:
+        sets = []
+        for _ in range(3):
+            qu, qv, k, v = (torch.randn(b, t, d, generator=g).to(dev, torch.bfloat16)
+                            for _ in range(4))
+            pe = rf.pad_pe(torch.randn(2 * t - 1, d, generator=g).to(dev, torch.bfloat16), t)
+            mask = torch.zeros(b, t, device=dev)
+            x = (qu, qv, k, v, pe, mask)
+            if kind == "K5 bwd":
+                o, m, l = rf._launch_fwd(*x, h, stats=True)
+                x += (o, torch.randn(b, t, d, generator=g).to(dev, torch.bfloat16), m, l)
+            sets.append(x)
+        if kind == "K5 bwd":
+            ms = cuda_ms(lambda *a: rf._launch_bwd(*a, h), sets, 10)
+        else:
+            ms = cuda_ms(lambda *a: rf._launch_fwd(*a, h, stats=False), sets, 20)
+        out[f"{kind} ({b}, {t}, {d}) H={h}"] = ms
+    print("K3K5_TURN", json.dumps(out), flush=True)
+    return 0
+
+
+def k3k5_turns(other: str) -> None:
+    """K3K5_TURN_CASES and K3K5_TURN_K5 in the tree at `other` and in this
+    one, in turns (other, this, this, other), one process each
+    (`--k3k5-turn`); each tree builds its own libraries."""
+    other = os.path.abspath(other)
+    check(os.path.isdir(os.path.join(other, "agacs_tpu_torch")), f"{other} holds the port")
+    builds = [subprocess.Popen([sys.executable, "-c", "import sys; sys.path.insert(0, "
+                                f"{tree!r}); from agacs_tpu_torch.ops import cuda_lib; "
+                                f"cuda_lib.build({name!r})"], cwd=tree)
+              for tree in (other, ROOT) for name in ("decode_attn", "relpos_flash")]
+    check(all(p.wait(timeout=900) == 0 for p in builds), "K3 and K5 built in both trees")
+    for tree in (other, ROOT, ROOT, other):
+        proc = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                               "--k3k5-turn", tree], cwd=tree, capture_output=True, text=True,
+                              timeout=900)
+        found = [ln for ln in proc.stdout.splitlines() if ln.startswith("K3K5_TURN ")]
+        check(proc.returncode == 0 and len(found) == 1,
+              f"K3/K5 turn in {tree}: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+        print(f"k3k5-turns {'this tree' if tree == ROOT else tree}: ms a call "
+              + found[0].split(" ", 1)[1], flush=True)
+
+
 def check_k8(dev, g, timed=True, shapes=K8_SHAPES, entries=(K8_SHAPES[0], K8_THIN_ENTRY),
              phase: str = "2i", profiled: bool = True) -> dict:
     """Phase 2i: K8q (rowquant) and K8g (int8_gemm, forward and dgrad)
@@ -1242,12 +1476,13 @@ def check_k8(dev, g, timed=True, shapes=K8_SHAPES, entries=(K8_SHAPES[0], K8_THI
     them: the plain versions; at the thin shapes cuBLAS on the dequantised
     bf16 weight; above 16 rows `torch._int_mm` + dequant. (The two-launch
     design this replaced, K8q + a thin K8g on the int8 rows, is timed by
-    its own tree's phase 2i.) Returns errors and times at (12000, 768) ->
-    768 and the thin product's at (8, 768) -> 768."""
+    its own tree's phase 2i.) Returns K8g's errors and times at (12000,
+    768) -> 768 and the thin product's at (8, 768) -> 768 (K8q's times are
+    `check_k8q`'s)."""
     from agacs_tpu_torch.ops import int8_linear as i8
     from agacs_tpu_torch.ops import int8_serve
 
-    res = {"q": {"err": 0.0}, "fwd": {"err": 0.0}, "dgrad": {"err": 0.0},
+    res = {"fwd": {"err": 0.0}, "dgrad": {"err": 0.0},
            "thin": {"err": 0.0}}
     bf16 = torch.bfloat16
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -1318,8 +1553,7 @@ def check_k8(dev, g, timed=True, shapes=K8_SHAPES, entries=(K8_SHAPES[0], K8_THI
             qs = [(*i8.rowquant(x), w_q, w_s, w_t) for x, w_q, w_s, _, w_t in sets]
             qds = [(*i8.rowquant(dy, w_s), w_q) for _, w_q, w_s, dy, _ in sets]
             xs = [(x, w_q, w_s) for x, w_q, w_s, _, _ in sets]
-            t = {"q": cuda_ms(lambda x, *_: i8.rowquant(x), xs, iters),
-                 "q_plain": cuda_ms(lambda x, *_: i8.row_quant_ref(x), xs, 20)}
+            t = {}
             if thin:
                 t["fwd"] = cuda_ms(i8.thin_matmul, xs, iters)
                 t["fwd_plain"] = cuda_ms(i8.int8_matmul_ref, xs, 10)
@@ -1352,8 +1586,6 @@ def check_k8(dev, g, timed=True, shapes=K8_SHAPES, entries=(K8_SHAPES[0], K8_THI
                      + f", bound fwd {bound['bound_ms']:.4f} ms ({bound['bound_by']}), dgrad "
                      f"{d_bound['bound_ms']:.4f} ms")
             if (m, k, n) == entries[0]:
-                res["q"].update(ms=t["q"], plain_ms=t["q_plain"], library_ms=None,
-                                **roofline(m * k * 2 + m * k + m * 4, 4 * m * k, "f32"))
                 res["fwd"].update(ms=t["fwd"], plain_ms=t["fwd_plain"],
                                   library_ms=t["fwd_lib"], **bound)
                 res["dgrad"].update(ms=t["dgrad"], plain_ms=t["dgrad_plain"],
@@ -1473,14 +1705,22 @@ CD, CH = 256, 4
 # kernels' 128-row tiles) and 640 (the envelope's top).
 K5_TAILS = ((2, 64), (2, 67), (2, 128), (2, 129), (2, 257), (2, 640))
 K5_SHAPES = ((8, 468), *K5_TAILS)
+# K5 at the other head widths (d, heads): d_head 32 (d 256, 8 heads), 128
+# (the XLarge conformer's 1024 / 8) and two padded widths, 48 (384 / 8, run
+# at the 64 instance) and 96 (768 / 8, at the 128 instance), each at the
+# serving shape (8, 468) and the ragged T 67 and 257; timed at d_head 128
+# and 32.
+K5_WIDTHS = ((256, 8), (1024, 8), (384, 8), (768, 8))
+K5_WIDTH_SHAPES = ((8, 468), (2, 67), (2, 257))
+K5_WIDTH_TIMED = ((1024, 8), (256, 8))
 # K3-f32 against its plain version (both float32; they differ by summation
 # order, ~1e-6 of the largest output): 1e-4 x max |plain|.
 K3F32_RTOL = 1e-4
 
 
-def k5_inputs(g, dev, b: int, t: int):
-    """bf16 (qu, qv, k, v, pe, mask) for K5 at (b, t, 256): qu and k as
-    sharp_qkv's (content scores ~-8 +- 2.7), qv and pe with a std of 1.5
+def k5_inputs(g, dev, b: int, t: int, d: int = CD):
+    """bf16 (qu, qv, k, v, pe, mask) for K5 at (b, t, d): qu and k as
+    sharp_qkv's (content scores ~-8 +- 2.7 at d_head 64), qv and pe with a std of 1.5
     (position scores +- 2.3, as large as the content scores' spread, so a
     wrong pe row or shift moves the output), the projected pe padded to
     128 rows, row i's keys valid up to t - i*t/(2b); and a copy of k and v
@@ -1488,10 +1728,10 @@ def k5_inputs(g, dev, b: int, t: int):
     ones; v = 1e4)."""
     from agacs_tpu_torch.ops import relpos_flash
 
-    qu, k, v = sharp_qkv(g, dev, (b, t, CD), (b, t, CD))
-    qv = (torch.randn(b, t, CD, generator=g) * 1.5).to(dev, torch.bfloat16)
+    qu, k, v = sharp_qkv(g, dev, (b, t, d), (b, t, d))
+    qv = (torch.randn(b, t, d, generator=g) * 1.5).to(dev, torch.bfloat16)
     pe = relpos_flash.pad_pe(
-        (torch.randn(2 * t - 1, CD, generator=g) * 1.5).to(dev, torch.bfloat16), t)
+        (torch.randn(2 * t - 1, d, generator=g) * 1.5).to(dev, torch.bfloat16), t)
     lens = [t - i * t // (2 * b) for i in range(b)]
     mask = torch.where(torch.arange(t)[None, :] < torch.tensor(lens)[:, None], 0.0,
                        relpos_flash.NEG_MASK).float().to(dev)
@@ -1507,53 +1747,79 @@ def relpos_sdpa_bias(qu, qv, pe, mask, h: int) -> torch.Tensor:
     from agacs_tpu_torch.models.conformer import rel_shift
 
     t = qu.shape[1]
-    peh = sdpa_heads(pe[None, : 2 * t - 1], h)[0]  # (h, 2T-1, 64)
+    peh = sdpa_heads(pe[None, : 2 * t - 1], h)[0]  # (h, 2T-1, d_head)
     bd = rel_shift(sdpa_heads(qv, h).float() @ peh.float().transpose(-1, -2))
-    return (bd * 0.125 + mask[:, None, None, :]).to(torch.bfloat16)
+    return (bd * k5_scale(qu, h) + mask[:, None, None, :]).to(torch.bfloat16)
+
+
+def k5_scale(x, h: int) -> float:
+    """d_head^-0.5 of a packed (..., h * d_head) tensor."""
+    return (x.shape[-1] // h) ** -0.5
+
+
+def k5_cases() -> list:
+    """(b, t, d, heads, timed) of phases 2r and 2s's forward: the recipe's
+    d 256 / 4 heads at K5_SHAPES (timed at the first), then K5_WIDTHS at
+    K5_WIDTH_SHAPES (timed at K5_WIDTH_TIMED's widths' first shape)."""
+    return ([(b, t, CD, CH, (b, t) == K5_SHAPES[0]) for b, t in K5_SHAPES]
+            + [(b, t, d, h, (d, h) in K5_WIDTH_TIMED and (b, t) == K5_WIDTH_SHAPES[0])
+               for d, h in K5_WIDTHS for b, t in K5_WIDTH_SHAPES])
 
 
 def check_k5(dev, g, timed=True) -> dict:
     """Phase 2r: K5 (csrc/relpos_flash.cu) against its plain version in
     float32 on the same bf16 inputs, keys and values poisoned past each
-    row's length in the kernel's input, at K5_SHAPES; bound KERNEL_RTOL x
-    max |plain|. Times at (8, 468, 256): the kernel, the plain version (on
-    the bf16 inputs), SDPA given the shifted position scores and the mask
-    as its materialised (B, h, T, T) additive bias (the bias is built
-    outside the timing: `library_ms`, the redesign order's yardstick), and
-    the whole PyTorch route, the bias built inside the timed call
-    (`route_ms`)."""
+    row's length in the kernel's input, at `k5_cases` (every head width:
+    the instances 32, 64 and 128 and the padded 48 and 96); bound
+    KERNEL_RTOL x max |plain|; each call made twice, bit-identical, one
+    launch a call. Times at (8, 468, 256) with 4 and 8 heads and (8, 468,
+    1024): the kernel,
+    the plain version (on the bf16 inputs), SDPA given the shifted position
+    scores and the mask as its materialised (B, h, T, T) additive bias (the
+    bias is built outside the timing: `library_ms`, the redesign order's
+    yardstick), and the whole PyTorch route, the bias built inside the
+    timed call (`route_ms`). Returns d 256's readings, with d_head 128's
+    and 32's under "w128" and "w32"."""
     from agacs_tpu_torch.ops import relpos_flash
 
-    res = {"err": 0.0}
-    for b, t in K5_SHAPES:
-        clean, bad = k5_inputs(g, dev, b, t)
-        err = hold(f"K5 T={t}", relpos_flash.relpos_mha(*bad, CH),
-                   relpos_flash.relpos_mha_plain(*(x.float() for x in clean), CH), (b, t, CD))
-        res["err"] = max(res["err"], err)
-        line = (f"phase 2r K5 relpos_flash_fwd ({b}, {t}, {CD}) H={CH}: max_abs_err {err:.3e} "
-                f"(bound {KERNEL_RTOL} x max|plain f32|; keys past each length poisoned)")
-        if timed and (b, t) == K5_SHAPES[0]:
-            sets = [k5_inputs(g, dev, b, t)[0] + (CH,) for _ in range(4)]
+    res = {"err": 0.0, "w128": {"err": 0.0}, "w32": {"err": 0.0}}
+    for b, t, d, h, timed_case in k5_cases():
+        dh = d // h
+        into = (res if (d, h) == (CD, CH) else res["w128"] if dh == 128
+                else res["w32"] if dh == 32 else {})
+        clean, bad = k5_inputs(g, dev, b, t, d)
+        before = relpos_flash.LAUNCHES
+        out = twice(f"K5 ({b}, {t}, {d})", relpos_flash.relpos_mha, *bad, h)
+        check(relpos_flash.LAUNCHES == before + 2, f"K5 ({b}, {t}, {d}): one launch a call")
+        err = hold(f"K5 T={t} d_head={dh}", out,
+                   relpos_flash.relpos_mha_plain(*(x.float() for x in clean), h), (b, t, d))
+        into["err"] = max(into.get("err", 0.0), err)
+        line = (f"phase 2r K5 relpos_flash_fwd ({b}, {t}, {d}) H={h} d_head {dh} (instance "
+                f"{relpos_flash.instance(dh)}): max_abs_err {err:.3e} (bound {KERNEL_RTOL} x "
+                "max|plain f32|; keys past each length poisoned), bit-identical twice")
+        if timed and timed_case:
+            sets = [k5_inputs(g, dev, b, t, d)[0] + (h,) for _ in range(4)]
             ms = cuda_ms(relpos_flash.relpos_mha, sets, 20)
             plain_ms = cuda_ms(relpos_flash.relpos_mha_plain, sets, 5)
-            lib_sets = [(sdpa_heads(qu, CH), sdpa_heads(k, CH), sdpa_heads(v, CH),
-                         relpos_sdpa_bias(qu, qv, pe, mask, CH))
+            sc = dh ** -0.5
+            lib_sets = [(sdpa_heads(qu, h), sdpa_heads(k, h), sdpa_heads(v, h),
+                         relpos_sdpa_bias(qu, qv, pe, mask, h))
                         for qu, qv, k, v, pe, mask, _ in sets]
             lib = cuda_ms(lambda q, k, v, bias: torch.nn.functional.scaled_dot_product_attention(
-                q, k, v, attn_mask=bias, scale=0.125), lib_sets, 20)
+                q, k, v, attn_mask=bias, scale=sc), lib_sets, 20)
             del lib_sets
             route = cuda_ms(lambda qu, qv, k, v, pe, mask, h:
                             torch.nn.functional.scaled_dot_product_attention(
                                 sdpa_heads(qu, h), sdpa_heads(k, h), sdpa_heads(v, h),
-                                attn_mask=relpos_sdpa_bias(qu, qv, pe, mask, h), scale=0.125),
+                                attn_mask=relpos_sdpa_bias(qu, qv, pe, mask, h), scale=sc),
                             sets, 10)
             wp = sets[0][4].shape[0]
-            res.update(ms=ms, plain_ms=plain_ms, library_ms=lib, route_ms=route,
-                       **roofline(5 * b * t * CD * 2 + wp * CD * 2 + b * t * 4,
-                                  6 * b * CH * t * t * 64, "bf16"))
+            into.update(ms=ms, plain_ms=plain_ms, library_ms=lib, route_ms=route,
+                        **roofline(5 * b * t * d * 2 + wp * d * 2 + b * t * 4,
+                                   6 * b * h * t * t * dh, "bf16"))
             line += (f" kernel {ms:.4f} ms plain bf16 {plain_ms:.4f} ms sdpa with the "
                      f"materialised bias {lib:.4f} ms, the whole route (bias built, then "
-                     f"sdpa) {route:.4f} ms bound {res['bound_ms']:.4f} ms")
+                     f"sdpa) {route:.4f} ms bound {into['bound_ms']:.4f} ms")
         print(line, flush=True)
     return res
 
@@ -1566,67 +1832,81 @@ def check_k5(dev, g, timed=True) -> dict:
 K5B_SHAPES = ((16, 468), *K5_TAILS)
 
 
-def k5_bwd_lib(qu, qv, k, v, pe, mask, do):
+def k5_bwd_lib(qu, qv, k, v, pe, mask, do, h: int = CH):
     """The library yardstick of K5's backward: SDPA on the split heads with
     the shifted position scores as a materialised (B, h, T, T) bias that
     requires a gradient, run forward once; returns (its output, inputs, do)
     for torch.autograd.grad."""
-    ins = [sdpa_heads(x, CH).detach().requires_grad_() for x in (qu, k, v)]
-    bias = relpos_sdpa_bias(qu, qv, pe, mask, CH).detach().requires_grad_()
-    o_s = torch.nn.functional.scaled_dot_product_attention(*ins, attn_mask=bias, scale=0.125)
-    return o_s, (*ins, bias), sdpa_heads(do, CH)
+    ins = [sdpa_heads(x, h).detach().requires_grad_() for x in (qu, k, v)]
+    bias = relpos_sdpa_bias(qu, qv, pe, mask, h).detach().requires_grad_()
+    o_s = torch.nn.functional.scaled_dot_product_attention(*ins, attn_mask=bias,
+                                                           scale=k5_scale(qu, h))
+    return o_s, (*ins, bias), sdpa_heads(do, h)
 
 
 def check_k5_bwd(dev, g, timed=True) -> dict:
     """Phase 2s: K5's backward (relpos_flash.cu: rowdot, dkdv, dq with the
     dpe band) against its plain version evaluated in float32 on the same
-    bf16 inputs and do, at K5B_SHAPES, keys and values poisoned past each
-    row's length in the kernel's input (K5's forward, with its row
-    statistics, runs first on the same inputs); a second backward on the
-    same inputs must give bit-identical dqu, dqv, dk and dv (dpe sums with
-    float32 atomics, in a varying order). Times at (16, 468, 256):
-    the kernel, the plain backward on the bf16 inputs, and SDPA's backward
-    with the bias requiring a gradient (its forward run outside the
-    timing)."""
+    bf16 inputs and do, at K5B_SHAPES (d 256, 4 heads) and K5_WIDTHS at
+    K5_WIDTH_SHAPES, keys and values poisoned past each row's length in the
+    kernel's input (K5's forward, with its row statistics, runs first on the
+    same inputs); a second backward on the same inputs must give
+    bit-identical dqu, dqv, dk and dv (dpe sums with float32 atomics, in a
+    varying order), one launch a call. Times at (16, 468, 256) and (8, 468)
+    at d_head 128 and 32: the kernel, the plain backward on the bf16 inputs,
+    and SDPA's backward with the bias requiring a gradient (its forward run
+    outside the timing). Returns d 256's readings, d_head 128's and 32's
+    under "w128" and "w32"."""
     from agacs_tpu_torch.ops import relpos_flash
 
-    res = {"err": 0.0}
-    for b, t in K5B_SHAPES:
-        clean, bad = k5_inputs(g, dev, b, t)
-        do = torch.randn(b, t, CD, generator=g).to(dev, torch.bfloat16)
-        o, m, l = relpos_flash._launch_fwd(*bad, CH, stats=True)
-        got = relpos_flash._launch_bwd(*bad, o, do, m, l, CH)
-        again = relpos_flash._launch_bwd(*bad, o, do, m, l, CH)
+    res = {"err": 0.0, "w128": {"err": 0.0}, "w32": {"err": 0.0}}
+    cases = ([(b, t, CD, CH, (b, t) == K5B_SHAPES[0]) for b, t in K5B_SHAPES]
+             + [(b, t, d, h, (d, h) in K5_WIDTH_TIMED and (b, t) == K5_WIDTH_SHAPES[0])
+                for d, h in K5_WIDTHS for b, t in K5_WIDTH_SHAPES])
+    for b, t, d, h, timed_case in cases:
+        dh = d // h
+        into = (res if (d, h) == (CD, CH) else res["w128"] if dh == 128
+                else res["w32"] if dh == 32 else {})
+        clean, bad = k5_inputs(g, dev, b, t, d)
+        do = torch.randn(b, t, d, generator=g).to(dev, torch.bfloat16)
+        o, m, l = relpos_flash._launch_fwd(*bad, h, stats=True)
+        before = relpos_flash.BWD_LAUNCHES
+        got = relpos_flash._launch_bwd(*bad, o, do, m, l, h)
+        again = relpos_flash._launch_bwd(*bad, o, do, m, l, h)
         torch.cuda.synchronize()
+        check(relpos_flash.BWD_LAUNCHES == before + 2, f"K5 backward ({b}, {t}, {d}): one "
+                                                       "launch a call")
         check(all(torch.equal(x, y) for x, y in zip(got[:4], again[:4])),
-              f"K5 backward ({b}, {t}, {CD}): a second run gives bit-identical dqu, dqv, dk, dv")
+              f"K5 backward ({b}, {t}, {d}): a second run gives bit-identical dqu, dqv, dk, dv")
         del again
         f32 = [x.float() for x in clean]
         want = relpos_flash.relpos_mha_bwd_plain(
-            *f32, relpos_flash.relpos_mha_plain(*f32, CH), do.float(), CH)
+            *f32, relpos_flash.relpos_mha_plain(*f32, h), do.float(), h)
         torch.cuda.synchronize()
         errs = []
         for name, out, ref in zip(("dqu", "dqv", "dk", "dv", "dpe"), got, want):
             err = (out.float() - ref).abs().max().item()
             bound = K1B_RTOL * ref.abs().max().item()
             check(tuple(out.shape) == tuple(ref.shape) and err <= bound,
-                  f"K5 backward {name} ({b}, {t}, {CD}): max_abs_err {err} <= {bound}")
+                  f"K5 backward {name} ({b}, {t}, {d}) H={h}: max_abs_err {err} <= {bound}")
             errs.append(f"{name} {err:.3e} ({err / (bound / K1B_RTOL):.2e} of max|plain|)")
-            res["err"] = max(res["err"], err)
-        line = (f"phase 2s K5 relpos_flash_bwd ({b}, {t}, {CD}) H={CH}: " + ", ".join(errs)
+            into["err"] = max(into.get("err", 0.0), err)
+        del got, want, f32
+        line = (f"phase 2s K5 relpos_flash_bwd ({b}, {t}, {d}) H={h} d_head {dh} (instance "
+                f"{relpos_flash.instance(dh)}): " + ", ".join(errs)
                 + f" (bound {K1B_RTOL} x max|plain f32|; keys past each length poisoned; "
                 "a second run bit-identical in dqu, dqv, dk, dv)")
-        if timed and (b, t) == K5B_SHAPES[0]:
+        if timed and timed_case:
             sets = []
             for _ in range(3):
-                x = k5_inputs(g, dev, b, t)[0]
-                o, m, l = relpos_flash._launch_fwd(*x, CH, stats=True)
-                sets.append((*x, o, torch.randn(b, t, CD, generator=g).to(dev, torch.bfloat16),
+                x = k5_inputs(g, dev, b, t, d)[0]
+                o, m, l = relpos_flash._launch_fwd(*x, h, stats=True)
+                sets.append((*x, o, torch.randn(b, t, d, generator=g).to(dev, torch.bfloat16),
                              m, l))
-            ms = cuda_ms(lambda *a: relpos_flash._launch_bwd(*a, CH), sets, 10)
-            plain_ms = cuda_ms(lambda *a: relpos_flash.relpos_mha_bwd_plain(*a[:8], CH), sets, 3)
+            ms = cuda_ms(lambda *a: relpos_flash._launch_bwd(*a, h), sets, 10)
+            plain_ms = cuda_ms(lambda *a: relpos_flash.relpos_mha_bwd_plain(*a[:8], h), sets, 3)
             try:
-                lib_sets = [k5_bwd_lib(*a[:6], a[7]) for a in sets]
+                lib_sets = [k5_bwd_lib(*a[:6], a[7], h) for a in sets]
                 lib = cuda_ms(lambda o_s, ins, do_s: torch.autograd.grad(
                     o_s, ins, do_s, retain_graph=True), lib_sets, 10)
                 lib_line = f"sdpa backward with the bias's gradient {lib:.4f} ms"
@@ -1638,11 +1918,12 @@ def check_k5_bwd(dev, g, timed=True) -> dict:
             # pe read and dpe written, the mask and the row statistics read;
             # operations: the recomputed scores (content and position) and
             # dp, dv, dqu, dk, dqv, dpe: 8 products of 2 T^2 d_head a head
-            res.update(ms=ms, plain_ms=plain_ms, library_ms=lib,
-                       **roofline(10 * b * t * CD * 2 + 2 * wp * CD * 2 + b * t * 4
-                                  + 2 * b * CH * t * 4, 16 * b * CH * t * t * 64, "bf16"))
+            into.update(ms=ms, plain_ms=plain_ms, library_ms=lib,
+                        **roofline(10 * b * t * d * 2 + 2 * wp * d * 2 + b * t * 4
+                                   + 2 * b * h * t * 4, 16 * b * h * t * t * dh, "bf16"))
             line += (f" kernel {ms:.4f} ms plain bf16 {plain_ms:.4f} ms {lib_line} bound "
-                     f"{res['bound_ms']:.4f} ms")
+                     f"{into['bound_ms']:.4f} ms")
+            del sets
         print(line, flush=True)
     return res
 
@@ -1991,6 +2272,71 @@ def k4_turns(other: str) -> None:
               + found[0].split(" ", 1)[1], flush=True)
 
 
+# K3's and K3-f32's plain rows at other head widths (rows, Tp, d, heads,
+# pos): d_head 32 (256 / 8), 36 (144 / 4, Conformer(S)), 44 (176 / 4, NeMo
+# Small), 128 (1024 / 8, the XLarge decoder's beam-10 self-attention: timed)
+# and 256 (1024 / 4); each at the beam shape (80, 112) and at 2 rows of a
+# 752-key cache (S 8, the split's cluster exchanges).
+K3W_CASES = ((80, 112, 256, 8, 99), (2, 752, 256, 8, 749), (80, 112, 144, 4, 99),
+             (2, 752, 144, 4, 94), (80, 112, 176, 4, 103), (80, 112, 1024, 8, 99),
+             (80, 112, 1024, 8, 103), (2, 752, 1024, 8, 749), (80, 112, 1024, 4, 103),
+             (2, 752, 1024, 4, 0), (2, 752, 1024, 4, 749))
+K3W_TIMED = (80, 112, 1024, 8, 99)
+
+
+def check_k3_widths(dev, g, timed=True) -> dict:
+    """Phases 3 and 3f at other head widths: the plain rows of K3 (bf16)
+    and K3-f32 (float32; the C entry decode_attn_rows_fwd) against their
+    plain versions at K3W_CASES, keys past pos poisoned, each call made
+    twice and bit-identical, one launch a call; bounds KERNEL_RTOL (bf16)
+    and K3F32_RTOL (float32) x max |plain f32|. Timed at K3W_TIMED beside
+    SDPA and the bound. Returns {"bf16": ..., "f32": ...} at d_head 128."""
+    from agacs_tpu_torch.ops import decode_attn
+
+    out = {"bf16": {"err": 0.0}, "f32": {"err": 0.0}}
+    for kind, dtype, rtol, counter in (("bf16", torch.bfloat16, KERNEL_RTOL, "LAUNCHES"),
+                                        ("f32", torch.float32, K3F32_RTOL, "F32_LAUNCHES")):
+        for case in K3W_CASES:
+            n, tp, d, h, pos = case
+            dh = d // h
+            sets = [tuple(x.to(dtype) for x in sharp_qkv(g, dev, (n, d), (n, tp, d),
+                                                         q_scale=dh ** -0.5)) + (pos, h)
+                    for _ in range(8 if timed and case == K3W_TIMED else 1)]
+            q, k, v, _, _ = sets[0]
+            before = getattr(decode_attn, counter)
+            got = twice(f"K3 {kind} d_head {dh}", decode_attn.decode_cache_attention, q,
+                        *poison_past(k, v, pos), pos, h)
+            check(getattr(decode_attn, counter) == before + 2 and got.dtype == dtype,
+                  f"K3 {kind} ({n}, {tp}, {d}) H={h}: one {counter} launch a call")
+            plain = decode_attn.decode_cache_attention_ref(q.float(), k.float(), v.float(),
+                                                           pos, h)
+            torch.cuda.synchronize()
+            err = (got.float() - plain).abs().max().item()
+            bound = rtol * plain.abs().max().item()
+            check(got.shape == plain.shape and err <= bound,
+                  f"K3 {kind} ({n}, {tp}, {d}) H={h} d_head {dh} pos={pos}: max_abs_err "
+                  f"{err} <= {bound}")
+            if dh == 128:
+                out[kind]["err"] = max(out[kind]["err"], err)
+            s = decode_attn.time_splits(n, h, tp)
+            line = (f"phase {'3' if kind == 'bf16' else '3f'} K3 rows {kind} ({n}, {tp}, {d}) "
+                    f"H={h} d_head {dh} pos={pos} S={s}: max_abs_err {err:.3e} (bound {rtol} x "
+                    "max|plain f32|), bit-identical twice")
+            if timed and case == K3W_TIMED:
+                res = out[kind]
+                res["ms"] = cuda_ms(decode_attn.decode_cache_attention, sets, 50)
+                res["plain_ms"] = cuda_ms(decode_attn.decode_cache_attention_ref, sets, 50)
+                lib = sdpa_yardsticks(sets)
+                res["library_ms"] = lib["library_ms"]
+                esz = 2 if kind == "bf16" else 4
+                res.update(roofline(2 * n * (pos + 1) * d * esz + 2 * n * d * esz,
+                                    4 * n * (pos + 1) * d, kind))
+                line += (f" kernel {res['ms']:.4f} ms plain {res['plain_ms']:.4f} ms "
+                         f"{lib['text']} bound {res['bound_ms']:.4f} ms ({res['bound_by']})")
+            print(line, flush=True)
+    return out
+
+
 def check_k3f32(dev, g, timed=True) -> dict:
     """Phase 3f: K3-f32 (decode_attn.cu, float32 query and caches) against
     its plain version at the LM's beam shape (80 rows = 8 x beam 10, 112,
@@ -2085,10 +2431,15 @@ def check_k6(dev, g, timed=True) -> dict:
                         res.update(ms=t["k6"], plain_ms=t["plain"], library_ms=t["cublas"],
                                    **bound)
             line.append(item)
-        ins = [(torch.randn(rows, k, generator=g).to(dev, torch.bfloat16), *weights[0])
-               for rows in all_rows]
-        one_launch(f"K6 ({k} -> {n})", lambda: [int8_serve.w8a16_matmul(*a) for a in ins],
-                   "w8a16_kernel", len(ins))
+        # one profile a call: with the calls back to back in one profile the
+        # profiler lost one or two of their four device records in every try
+        # on some hosts (H100, 2 of 4 whole-script runs), as phase 2i's
+        # one-call profiles never did
+        for rows in all_rows:
+            x = torch.randn(rows, k, generator=g).to(dev, torch.bfloat16)
+            one_launch(f"K6 ({k} -> {n}) at {rows} rows",
+                       functools.partial(int8_serve.w8a16_matmul, x, *weights[0]),
+                       "w8a16_kernel", 1)
         print(f"phase 2w K6 w8a16 ({k} -> {n}), {n_sets} weight sets, one launch a call, "
               "bit-identical twice: " + "; ".join(line)
               + f" (bounds {KERNEL_RTOL} x max|plain f32|, elementwise {K6_ELEM})",
@@ -2144,11 +2495,13 @@ def device_profile(fn, counts: dict | None = None) -> tuple[float, int, dict]:
     busy ms, device events, ms by kernel name); `counts`, when given, gets
     the events by name. Recording the host's operator events as well gave
     the same busy time and tripled the time the profile takes (H100, the
-    greedy request of phase 6: 24-31 s against 10-11 s). A short sleep
-    kernel and 50 ms on the host lead in, outside the tallies, and 50 ms
-    lead out: without them a kernel at an end of the trace was missing
-    from it (H100: one of four K6 calls, or a lone K8g call, in a profile
-    of those calls alone). A profile that holds no device event at all
+    greedy request of phase 6: 24-31 s against 10-11 s). LEAD_IN_SPINS
+    short sleep kernels, each synchronised, and 50 ms on the host lead in,
+    outside the tallies, and 50 ms lead out: without them a kernel at an
+    end of the trace was missing from it (H100: one of four K6 calls, or a
+    lone K8g call, in a profile of those calls alone; with one sleep kernel,
+    on some hosts, the lone K6 call's record or the sleep kernel's own). A
+    profile that holds no device event at all
     (H100: once, a lone K8g call's after several profiles of other calls)
     is taken again, PROFILE_TRIES times at most, and says so. The device
     records are read as the profiler keeps them (`kineto_results`), under
@@ -2161,8 +2514,9 @@ def device_profile(fn, counts: dict | None = None) -> tuple[float, int, dict]:
 
     for _ in range(PROFILE_TRIES):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            torch.cuda._sleep(1000)
-            torch.cuda.synchronize()
+            for _ in range(LEAD_IN_SPINS):
+                torch.cuda._sleep(1000)
+                torch.cuda.synchronize()
             time.sleep(0.05)
             fn()
             torch.cuda.synchronize()
@@ -2842,7 +3196,7 @@ def reset_decode_counts() -> None:
     reset_int8_counts()
 
 
-def serve(label: str, model, asr_cfg, audio, beam: int, want: dict, timed: int = 3) -> dict:
+def serve(label: str, model, asr_cfg, audio, beam: int, want: dict, timed: int = 2) -> dict:
     """One serving configuration on 8 x 15 s, 100 steps (beam: loop scan):
     a warm-up request, then `timed` ones; the first of them must launch
     exactly `want` (every other counter 0). ms/batch is the median."""
@@ -3381,25 +3735,26 @@ CONF_PROFILE_S = 5
 CONF_REL_L2 = 5e-2
 
 
-def conformer_models(dev, dtype, sd=None, lsd=None, lm_blocks: int = 16):
+def conformer_models(dev, dtype, sd=None, lsd=None, lm_blocks: int = 16, raw=None):
     """The recipe's conformer (train_asr_conformer.yaml: 12 blocks, d 256,
     4 heads, units 2048, kernel 15, decoder 6 blocks, vocabulary 51865,
-    global MVN) in `dtype` and the transformer LM (d 512, 8 heads, units
-    2048, `lm_blocks` blocks) in float32 on `dev`, random weights from torch
-    seeds 3 and 4 unless state dicts are given. Returns (model, lm, sd, lsd)."""
+    global MVN; or the config `raw`) in `dtype` and the transformer LM (d
+    512, 8 heads, units 2048, `lm_blocks` blocks) in float32 on `dev`,
+    random weights from torch seeds 3 and 4 unless state dicts are given.
+    Returns (model, lm, sd, lsd)."""
     import dataclasses
 
     from agacs_tpu_torch.models import conformer_asr, lm as tlm
-    from agacs_tpu_torch.utils.config import load_yaml, task_from_dict
+    from agacs_tpu_torch.utils.config import task_from_dict
 
-    raw = load_yaml(os.path.join(ROOT, "recipes", "seame", "conf",
-                                 "train_asr_conformer.yaml"))
+    raw = raw or conformer_raw()
     # identity MVN statistics: the recipe's stats file is stage 1's output
     cfg = dataclasses.replace(task_from_dict(raw, compute_dtype=dtype).cfg,
                               mvn_stats_path=None)
     lcfg = tlm.TransformerLMConfig(num_blocks=lm_blocks)
     if sd is None:
         sd = conformer_asr.init_conformer_asr_params(torch.Generator().manual_seed(3), cfg)
+    if lsd is None:
         lsd = tlm.init_lm_params(torch.Generator().manual_seed(4), lcfg)
     return (conformer_asr.ConformerASR.from_state_dict(cfg, sd, device=dev),
             tlm.TransformerLM.from_state_dict(lcfg, lsd, device=dev), sd, lsd)
@@ -3694,23 +4049,36 @@ def reset_conformer_counts() -> None:
     vocab_lse.FWD_LAUNCHES = vocab_lse.DX_LAUNCHES = vocab_lse.DW_LAUNCHES = 0
 
 
-def conformer_train_model(dev, dtype, sd=None, aug: bool = True):
+def conformer_raw(**widths) -> dict:
+    """train_asr_conformer.yaml as a dict, its encoder_conf / decoder_conf
+    entries overridden by `widths` (enc_* and dec_* keys, e.g. enc_output_size)."""
+    from agacs_tpu_torch.utils.config import load_yaml
+
+    raw = load_yaml(os.path.join(ROOT, "recipes", "seame", "conf", "train_asr_conformer.yaml"))
+    for key, value in widths.items():
+        part, name = key.split("_", 1)
+        raw[{"enc": "encoder_conf", "dec": "decoder_conf"}[part]][name] = value
+    return raw
+
+
+def conformer_train_model(dev, dtype, sd=None, aug: bool = True, raw=None, seed: int = 6):
     """The conformer recipe's trainable model (train_asr_conformer.yaml,
-    full width, identity MVN statistics) in float32 masters under `dtype`,
-    random weights from torch seed 6 unless `sd` is given; `aug` False turns
-    SpecAug and dropout off. Returns (model, cfg, sd, raw config)."""
+    full width, or the config `raw`; identity MVN statistics) in float32
+    masters under `dtype`, random weights from torch seed `seed` unless `sd`
+    is given; `aug` False turns SpecAug and dropout off.
+    Returns (model, cfg, sd, raw config)."""
     import dataclasses
 
     from agacs_tpu_torch.models import conformer_asr
-    from agacs_tpu_torch.utils.config import load_yaml, task_from_dict
+    from agacs_tpu_torch.utils.config import task_from_dict
 
-    raw = load_yaml(os.path.join(ROOT, "recipes", "seame", "conf", "train_asr_conformer.yaml"))
+    raw = raw or conformer_raw()
     cfg = dataclasses.replace(task_from_dict(raw, compute_dtype=dtype).cfg, mvn_stats_path=None)
     if not aug:
         cfg = dataclasses.replace(cfg, use_specaug=False, encoder=dataclasses.replace(
             cfg.encoder, dropout_rate=0.0))
     if sd is None:
-        sd = conformer_asr.init_conformer_asr_params(torch.Generator().manual_seed(6), cfg)
+        sd = conformer_asr.init_conformer_asr_params(torch.Generator().manual_seed(seed), cfg)
     model = conformer_asr.ConformerASR.from_state_dict(cfg, sd, device=dev,
                                                        param_dtype=torch.float32)
     return model, cfg, sd, raw
@@ -3819,13 +4187,13 @@ def conformer_train_phase(dev) -> dict:
             "busy": busy}
 
 
-def conformer_micro_step(sd, dev, dtype, one) -> tuple[dict, dict]:
-    """One micro-step of the conformer recipe's model on `dev` (SpecAug and
-    dropout off): ({loss, loss_ctc, loss_att}, every gradient in float32 on
-    the CPU by name)."""
+def conformer_micro_step(sd, dev, dtype, one, raw=None) -> tuple[dict, dict]:
+    """One micro-step of the conformer recipe's model (or the config `raw`)
+    on `dev` (SpecAug and dropout off): ({loss, loss_ctc, loss_att}, every
+    gradient in float32 on the CPU by name)."""
     from agacs_tpu_torch.models import conformer_asr
 
-    model, cfg, _, _ = conformer_train_model(dev, dtype, sd, aug=False)
+    model, cfg, _, _ = conformer_train_model(dev, dtype, sd, aug=False, raw=raw)
     loss, stats = conformer_asr.forward(model, cfg, {k: v.to(dev) for k, v in one.items()},
                                         generator=torch.Generator().manual_seed(0))
     loss.backward()
@@ -3883,21 +4251,24 @@ def hold_parity(card: dict, control: dict, fixed_bounds: dict, what: str) -> dic
     return bounds
 
 
-def conformer_train_parity(sd, dev, batch) -> dict:
+def conformer_train_parity(sd, dev, batch, raw=None, phase: str = "31",
+                           launches: dict | None = None) -> dict:
     """Phase 31: one micro-step on one 15 s utterance, card bf16 (K5, K4)
     and the bf16 control (their plain versions) against the port on the CPU
-    in float32, same weights."""
+    in float32, same weights (the recipe's model, or the config `raw` with
+    its micro-step's `launches`; phase 50c)."""
+    launches = launches or CONF_TRAIN_LAUNCHES
     one = {k: v[:1] for k, v in batch.items()}
     t0 = time.perf_counter()
-    ref = conformer_micro_step(sd, torch.device("cpu"), torch.float32, one)
+    ref = conformer_micro_step(sd, torch.device("cpu"), torch.float32, one, raw)
     cpu_s = time.perf_counter() - t0
     reset_conformer_counts()
-    run = conformer_micro_step(sd, dev, torch.bfloat16, one)
-    check(conformer_counts() == CONF_TRAIN_LAUNCHES,
-          f"the card micro-step's launches {conformer_counts()}")
+    run = conformer_micro_step(sd, dev, torch.bfloat16, one, raw)
+    check(conformer_counts() == launches,
+          f"the card micro-step's launches {conformer_counts()} == {launches}")
     with plain_k5_k4():
-        control = conformer_parity(conformer_micro_step(sd, dev, torch.bfloat16, one), ref)
-    check(conformer_counts() == CONF_TRAIN_LAUNCHES, "the bf16 control launched no K5 or K4")
+        control = conformer_parity(conformer_micro_step(sd, dev, torch.bfloat16, one, raw), ref)
+    check(conformer_counts() == launches, "the bf16 control launched no K5 or K4")
     card = conformer_parity(run, ref)
     check(all(np.isfinite(v) for v in run[0].values())
           and all(bool(torch.isfinite(g).all()) for g in run[1].values()),
@@ -3906,7 +4277,7 @@ def conformer_train_parity(sd, dev, batch) -> dict:
                          "conformer train parity")
     fmt = lambda r: ", ".join(f"{k} {v:.2e}" if not k.startswith("cos") else f"{k} {v:.6f}"
                               for k, v in r.items())
-    print(f"phase 31 conformer train parity vs cpu f32 (1 x {TRAIN_S} s; rel errors, "
+    print(f"phase {phase} conformer train parity vs cpu f32 (1 x {TRAIN_S} s; rel errors, "
           f"cosines): card bf16 {fmt(card)}; bf16 control (plain K5 and K4) {fmt(control)}; "
           f"bounds (1 - cos for cosines) {bounds}; cpu step {cpu_s:.1f} s", flush=True)
     return {"card": card, "control": control}
@@ -4603,9 +4974,9 @@ def split_sweep(dev) -> None:
 # [(text, replacement)], checks to run). Built outside the checkout by
 # `mutants()`.
 MUTANTS = {
-    "unmutated source": ("int8_gemm.cu", [], ("k8", "k2", "p15", "k3", "k3a", "k3s", "k3f32",
-                                              "k3pe", "k3i8", "k5", "k5b", "k4", "k6",
-                                              "k3d48", "k1", "k1b")),
+    "unmutated source": ("int8_gemm.cu", [], ("k8", "k8q", "k2", "p15", "k3", "k3a", "k3s",
+                                              "k3f32", "k3w", "k3pe", "k3i8", "k5", "k5b",
+                                              "k4", "k6", "k3d48", "k1", "k1b")),
     "K1f without the online rescale": (
         "packed_flash_fwd.cu", [("const float a0 = hop::ex2((m0 - mx0) * C), a1 = hop::ex2((m1 - mx1) * C);",
                                  "const float a0 = 1.f, a1 = 1.f;")], ("k1", "k1b")),
@@ -4650,8 +5021,8 @@ MUTANTS = {
         "w8a16.cu", [("f[r][c] = __fmul_rn(i8f(wv[r], c), sc[c]);",
                       "f[r][c] = __fmul_rn(i8f(wv[r], c), sc[(c + 1) & 3]);")], ("k6",)),
     "K3@48 reading 64 channels": (
-        "decode_attn.cu", [("const bool act = sub < SL::PIECES;",
-                            "const bool act = sub < (DW == 48 ? 8 : SL::PIECES);")],
+        "decode_attn.cu", [("const bool act = sub < pieces;",
+                            "const bool act = sub < (DW == 48 ? 8 : pieces);")],
         ("k3d48",)),
     "K5 bwd dpe un-shifted one row off": (
         "relpos_flash.cu", [("const int p = p0 + 16 * warp", "const int p = p0 + 1 + 16 * warp")],
@@ -4660,7 +5031,7 @@ MUTANTS = {
         "relpos_flash.cu",
         [("y[e] = __float2bfloat16(__bfloat162float(x[e]) * li);", "y[e] = x[e];")], ("k5b",)),
     "K5 bwd key mask ignored in ds": (
-        "relpos_flash.cu", [("* SCALE + sm.mask[s][c + e];", "* SCALE;")], ("k5b",)),
+        "relpos_flash.cu", [("* scale + sm.mask[s][c + e];", "* scale;")], ("k5b",)),
     "K5 bwd m written in log2 units": (
         "relpos_flash.cu", [("row_m[at] = m0;", "row_m[at] = m0 * LOG2E;"),
                             ("row_m[at + 8] = m1;", "row_m[at + 8] = m1 * LOG2E;")], ("k5b",)),
@@ -4743,10 +5114,10 @@ MUTANTS = {
         "relpos_flash.cu", [("return pw[(16 * warp + r) * PL + 15 - r + c];",
                              "return pw[(16 * warp + r) * PL + 16 - r + c];")], ("k5",)),
     "K5 key mask ignored": (
-        "relpos_flash.cu", [("* SCALE + sm.mask[s][8 * (i >> 2) + 2 * t + (i & 1)];", "* SCALE;")],
+        "relpos_flash.cu", [("* scale + sm.mask[s][8 * (i >> 2) + 2 * t + (i & 1)];", "* scale;")],
         ("k5",)),
     "K5 pe rows read without the offset p0": (
-        "relpos_flash.cu", [("&sm.full[s], c, T - 1 - (q0 + BR - 1) + k0);",
+        "relpos_flash.cu", [("&sm.full[s], c, T - 1 - (q0 + KK::BR - 1) + k0);",
                              "&sm.full[s], c, 0);")], ("k5",)),
     "K5 p left unnormalised": (
         "relpos_flash.cu", [("acc, row0, T, D, l0, l1);", "acc, row0, T, D, 1.f, 1.f);")],
@@ -4761,22 +5132,22 @@ MUTANTS = {
         "decode_attn.cu", [("const float g = PE ? gate[h] : 0.f;",
                             "const float g = PE ? gate[0] : 0.f;")], ("k3pe",)),
     "K3-PE k_cs read from k": (
-        "decode_attn.cu", [("(PE && pc >= SL::PIECES ? reinterpret_cast<const KT*>(k_cs) : k)",
-                            "(PE && pc >= SL::PIECES ? k : k)")], ("k3pe",)),
+        "decode_attn.cu", [("(PE && pc >= pieces ? reinterpret_cast<const KT*>(k_cs) : k)",
+                            "(PE && pc >= pieces ? k : k)")], ("k3pe",)),
     "K3a-PE k_cs read from the query's own row": (
-        "decode_attn.cu", [("const size_t off = ((size_t)r * Tp + c0 + t0 + kk) * D + h * DW;",
-                            "const size_t off = ((size_t)(PE && !val && pc >= SL::PIECES ? n : r)"
-                            " * Tp + c0 + t0 + kk) * D + h * DW;")], ("k3pe",)),
+        "decode_attn.cu", [("const size_t off = ((size_t)r * Tp + c0 + t0 + kk) * D + h * dw;",
+                            "const size_t off = ((size_t)(PE && !val && pc >= pieces ? n : r)"
+                            " * Tp + c0 + t0 + kk) * D + h * dw;")], ("k3pe",)),
     "K3-int8 / K3s-int8 s_v missing": (
-        "decode_attn.cu", [("if (QUANT) s *= v_scale[h * DW + tid];", ""),
+        "decode_attn.cu", [("if (QUANT) s[i] *= v_scale[h * dw + c];", ""),
                            ("if (QUANT) s *= v_scale[h * DH + idx % DH];", "")], ("k3i8",)),
     "K3-int8 / K3s-int8 s_k applied after the softmax": (
         "decode_attn.cu",
         [("return __bfloat162float(__float2bfloat16(x * k_scale[c]));", "return x;"),
          ("return pack_bf16(f.x * k_scale[h * DH + c], f.y * k_scale[h * DH + c + 1]);",
           "return pack_bf16(f.x, f.y);"),
-         ("if (QUANT) s *= v_scale[h * DW + tid];",
-          "if (QUANT) s *= v_scale[h * DW + tid] * k_scale[h * DW + tid];"),
+         ("if (QUANT) s[i] *= v_scale[h * dw + c];",
+          "if (QUANT) s[i] *= v_scale[h * dw + c] * k_scale[h * dw + c];"),
          ("if (QUANT) s *= v_scale[h * DH + idx % DH];",
           "if (QUANT) s *= v_scale[h * DH + idx % DH] * k_scale[h * DH + idx % DH];")],
         ("k3i8",)),
@@ -4785,6 +5156,13 @@ MUTANTS = {
     "K3 one key past pos": (
         "decode_attn.cu", [("const int nk = pos + 1;", "const int nk = min(pos + 2, Tp);")],
         ("k3",)),
+    "K3 rows: a lane's second piece left out of the score (d_head past 32 pieces)": (
+        "decode_attn.cu", [("if ((pp ? pc < pieces : act) && kk < cnt) {",
+                            "if ((pp ? false : act) && kk < cnt) {")], ("k3w",)),
+    "K3 rows: the value channels past 64 dropped": (
+        "decode_attn.cu", [("        if (c < dw) {\n          const float2 f = load_pair(",
+                            "        if (c < dw && i == 0) {\n          const float2 f = load_pair(")],
+        ("k3w",)),
     "K3a reading each row's own cache row": (
         "decode_attn.cu", [("rows[t] = base + min(max(an[c0 + t], 0), J - 1);", "rows[t] = n;")],
         ("k3a",)),
@@ -4793,8 +5171,8 @@ MUTANTS = {
                             "sc[t] = __bfloat162float(__float2bfloat16(w));")], ("k3f32",)),
     "K3 split: rank 0 sums S - 1 partials": (
         "decode_attn.cu",
-        [("for (int r = 0; r < S; ++r) s += parts[r][tid];",
-          "for (int r = 0; r < S - 1; ++r) s += parts[r][tid];"),
+        [("for (int r = 0; r < S; ++r) s[i] += parts[r][c];",
+          "for (int r = 0; r < S - 1; ++r) s[i] += parts[r][c];"),
          ("for (int r = 0; r < S; ++r) s += parts[r * J * DH + idx];",
           "for (int r = 0; r < S - 1; ++r) s += parts[r * J * DH + idx];")],
         ("k3", "k3s")),
@@ -4820,9 +5198,13 @@ MUTANTS = {
         "decode_attn.cu", [("s += parts[r * J * DH + idx];",
                             "s += parts[r * J * DH + (idx + DH < J * DH ? idx + DH : idx)];")],
         ("k3s",)),
+    "K8q: a row's maximum over its first warp only (rows of 2-8 warps)": (
+        "int8_gemm.cu", [("for (int w = 0; w < WPR; ++w) m = fmaxf(m, red[w0 + w]);",
+                          "m = red[w0];")], ("k8q",)),
     "K8q per-tensor scale (one fixed scale for every row)": (
-        "int8_gemm.cu", [("i8::quant_scale(i8::warp_max(m))", "i8::quant_scale(8.0f)")],
-        ("k8",)),
+        "int8_gemm.cu", [("const float sc = i8::quant_scale(m), y = __frcp_rn(sc);",
+                          "const float sc = i8::quant_scale(8.0f), y = __frcp_rn(sc);")],
+        ("k8q", "k8")),
     "K8g wide: dequant with the tile's first row scale": (
         "int8_gemm.cu", [("sr[h] = row < M ? s_row[row] : 0.f;",
                           "sr[h] = row < M ? s_row[m0] : 0.f;")], ("k8",)),
@@ -4915,7 +5297,8 @@ MUTANTS = {
 KERNEL_CHECKS = {"k1": check_k1, "k1b": check_k1_train, "k2": check_k2, "k3": check_k3,
                  "k3a": check_k3a, "k3s": check_k3s, "k3f32": check_k3f32, "k3pe": check_k3pe,
                  "k3i8": check_k3i8, "k3d48": check_k3_d48, "k4": check_k4, "k5": check_k5,
-                 "k5b": check_k5_bwd, "k6": check_k6, "k8": check_k8}
+                 "k5b": check_k5_bwd, "k6": check_k6, "k8": check_k8, "k8q": check_k8q,
+                 "k3w": check_k3_widths}
 
 
 def mutants(dev, only=()) -> None:
@@ -4989,13 +5372,14 @@ def mutants(dev, only=()) -> None:
 def demangled_kernel(mangled: str) -> str:
     """The identifier of a mangled `..._kernel(...)` name: the part of it
     that a length prefix of the mangling (the digits before it) spans, with
-    its template arguments (bool and int ones) when it has them."""
+    the bool and int literals of its template arguments when it has them
+    (those of a class argument too: K5's K<128, 1>, 2 shows as <128, 1, 2>;
+    a kernel's parameter types hold none)."""
     m = re.search(r"\w+?_kernel(?=E|I)", mangled)
     s = m.group(0) if m else mangled
-    args = re.match(r"I((?:L[bi]\d+E)+)E", mangled[m.end():]) if m else None
+    args = re.findall(r"L([bi])(\d+)E", mangled[m.end():]) if m else []
     tmpl = ("<" + ", ".join(("false", "true")[int(v)] if t == "b" else v
-                            for t, v in re.findall(r"L([bi])(\d+)E", args.group(1))) + ">"
-            if args else "")
+                            for t, v in args) + ">" if args else "")
     for j in range(1, len(s)):
         if s[j - 1].isdigit() and not s[j].isdigit():
             digits = re.search(r"\d+$", s[:j]).group()
@@ -5164,7 +5548,7 @@ SEAME_DEV = {"train/wav_file.txt": ["data/conversation/NC01FBX_0101/audio.wav",
              "dev_sge/text": ["ni01m-ni01max_0101-00510-00710 third utt"]}
 SEAME_SPLITS = ("train", "valid", "devman", "devsge")
 PREFETCH_BINS = 100000  # phase 40's batch_bins: batches of 2, 2 and 1 utterances
-PREFETCH_PASSES = 6  # passes over those batches a prefetch turn
+PREFETCH_PASSES = 3  # passes over those batches a prefetch turn
 
 
 def seame_corpus(root: str) -> tuple[str, str]:
@@ -6125,7 +6509,8 @@ def large_serve_phase(dev, cfg, sd, audio, int8: bool) -> dict:
     whisper-large + adapters on phase 4's 8 x 15 s, 100 steps, from `sd`
     (`int8`: the int8-trunk step's state, its w_q buffers), in bf16:
     `serve` with exact launches (the int8 trunk's encoder MLPs unfused: fc1
-    and fc2 on the wide K8g), then one request under the profiler."""
+    and fc2 on the wide K8g). No profile, for the script's time (~150,000
+    device records a request; PERF.md keeps the earlier readings)."""
     from agacs_tpu_torch.models import whisper as tw
     from agacs_tpu_torch.models.asr_model import ASRModelConfig
     from agacs_tpu_torch.ops import int8_linear, int8_mlp
@@ -6151,27 +6536,13 @@ def large_serve_phase(dev, cfg, sd, audio, int8: bool) -> dict:
     thin = int8_linear.THIN_LAUNCHES  # of the one timed request
     check(not int8 or thin == 8 * lt * n_steps,
           f"{label}: {thin} thin_matmul launches == 8 x {lt} x {n_steps}")
-    # busy and idle from one more request; its ~150,000 device records are
-    # not held to the launches (the counters are): the profiler loses ~1% of
-    # them now and then (phase 6's `exact_profile` retakes such profiles)
-    busy, n_events, per_name = device_profile(lambda: run["s2t"](audio))
-
-    def share(*keys):
-        t = sum(val for name, val in per_name.items() if any(k in name for k in keys))
-        return f"{t:.2f} ms ({t / busy:.1%})"
-
     ms = run["ms"]
     print(f"{label}: 8 x 15 s, {n_steps} steps: {ms:.1f} ms/batch (one request after a "
           f"warm-up), {120.0 / (ms / 1e3):.1f} x realtime; "
           f"peak {run['peak_gb']:.2f} GB; launches {run['launches']}"
-          + (f", of K8g thin_matmul {thin}" if int8 else "") + f"; profile: device busy "
-          f"{busy:.1f} ms in {n_events} device events, idle {1 - busy / ms:.1%}; K1f "
-          f"{share('packed_flash_fwd')}, K3 {share('decode_attn_kernel')}"
-          + (f", K8g {share('gemm_kernel')} (of it thin_matmul {share('thin_gemm_kernel')}), "
-             f"K8q {share('rowquant_kernel')}" if int8 else "")
-          + f"; built in {load_s:.1f} s; top: " + top_kernels(per_name, 6), flush=True)
-    out = {"ms": ms, "busy": busy, "launches": run["launches"], "thin": thin,
-           "peak_gb": run["peak_gb"], "per_name": per_name}
+          + (f", of K8g thin_matmul {thin}" if int8 else "")
+          + f"; built in {load_s:.1f} s", flush=True)
+    out = {"ms": ms, "launches": run["launches"], "thin": thin, "peak_gb": run["peak_gb"]}
     del run, model
     torch.cuda.empty_cache()
     return out
@@ -6258,6 +6629,168 @@ def whisper_large_phase(dev, g, audio) -> dict:
             "parity": parity}
 
 
+# Phase 50: the conformer at NVIDIA NeMo's XLarge widths
+# (examples/asr/conf/conformer/conformer_ctc_bpe.yaml: d_model 1024, 8 heads,
+# 24 layers, ff 4096) on the recipe's train_asr_conformer.yaml, everything
+# else as the recipe has it, the decoder at 8 heads too: heads of 128
+# throughout, so K5 runs its 128 instance, the decoder's self-attention K3's
+# rows at d_head 128, and the CTC head K4 at K 1024. Random weights from
+# torch seed XL_SEED; the LM the recipe's (16 x 512).
+XL_WIDTHS = {"enc_output_size": 1024, "enc_attention_heads": 8, "enc_linear_units": 4096,
+             "dec_attention_heads": 8}
+XL_BLOCKS = (24, 6)
+XL_PARITY_BLOCKS = (2, 2)
+XL_SEED = 10
+XL_TRAIN_STEPS = 3
+
+
+def xlarge_raw(enc_blocks: int, dec_blocks: int) -> dict:
+    return conformer_raw(**XL_WIDTHS, enc_num_blocks=enc_blocks, dec_num_blocks=dec_blocks)
+
+
+def xlarge_step_launches(enc_blocks: int) -> dict:
+    """Kernel launches of one XLarge micro-batch: K5 forward and backward
+    once a block, K4's three passes once."""
+    return {"K5": enc_blocks, "K5 bwd": enc_blocks, "K4": 1, "K4 dx": 1, "K4 dw": 1}
+
+
+def xlarge_phase(dev, audio) -> dict:
+    """Phase 50: (a) the XLarge conformer's train step at 16 x 15 s (Adam,
+    WarmupLR, clip 5, SpecAug, dropout 0.1 as the recipe): a warm-up, then
+    XL_TRAIN_STEPS timed steps with exact launches (K5 forward and backward
+    24 a step each, K4 1 + 1 + 1), ms a step, peak memory, one more step
+    under the profiler for the device's busy and idle share; (b) a
+    joint CTC/attention beam-10 request (ctc 0.4, LM 0.2, CONF_S steps, the
+    recipe's LM) on phase 4's 8 x 15 s through `decode_conformer_batch`,
+    one timed after a warm-up, exact launches (K5 24 an encode, K3 at d_head 128 6 a step, K3-f32 16 a
+    step), ms per batch; (c) at XL_PARITY_BLOCKS blocks of the same widths,
+    the card in bf16 against the CPU in float32: a train micro-step within
+    phase 31's rule and bounds, and the encoder output and the first joint
+    step within phase 27's (CONF_REL_L2)."""
+    from agacs_tpu_torch.decode.joint_beam import decode_conformer_batch
+    from agacs_tpu_torch.models import conformer_asr
+    from agacs_tpu_torch.ops import decode_attn
+    from agacs_tpu_torch.train.optim import build_optimizer
+    from agacs_tpu_torch.train.trainer import make_train_step
+    from agacs_tpu_torch.utils.config import optim_config_from_dict
+
+    t_phase = time.perf_counter()
+    enc_blocks, dec_blocks = XL_BLOCKS
+    raw = xlarge_raw(enc_blocks, dec_blocks)
+    model, cfg, sd, raw = conformer_train_model(dev, torch.bfloat16, raw=raw, seed=XL_SEED)
+    check(cfg.encoder.output_size // cfg.encoder.attention_heads == 128
+          and cfg.decoder.d_model // cfg.decoder.attention_heads == 128,
+          "heads of 128 in the encoder and the decoder")
+    n_params = sum(p.numel() for p in model.parameters())
+    ocfg = optim_config_from_dict(raw)
+    opt, sched = build_optimizer(model.parameters(), ocfg)
+    step = make_train_step(model, cfg, opt, sched, grad_clip=ocfg.grad_clip,
+                           generator=torch.Generator().manual_seed(1),
+                           loss_fn=conformer_asr.forward)
+    batch = make_train_batch(TRAIN_B, TRAIN_S, dev)
+    step([batch])  # warm-up
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t_phase
+    reset_conformer_counts()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for _ in range(XL_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        stats = step([batch])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append((float(stats["loss"]), float(stats["loss_ctc"]), float(stats["loss_att"])))
+    train_launches = conformer_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {k: v * XL_TRAIN_STEPS for k, v in xlarge_step_launches(enc_blocks).items()}
+    check(train_launches == want, f"XLarge train launches {train_launches} == {want}")
+    check(all(np.isfinite(v) for row in losses for v in row)
+          and int(stats["grad_nonfinite_total"]) == 0, f"finite XLarge losses {losses}")
+    ms = statistics.median(times) * 1e3
+    busy, n_events, per_name = device_profile(lambda: step([batch]))
+
+    def share(*keys):
+        t = sum(v for name, v in per_name.items() if any(k in name for k in keys))
+        return f"{t:.2f} ms ({t / busy:.1%})"
+
+    t_enc = ((TRAIN_S * 16000 // 128 + 1 - 1) // 2 - 1) // 2
+    print(f"phase 50a XLarge conformer train: train_asr_conformer.yaml at d 1024, 8 heads of "
+          f"128, units 4096, {enc_blocks} blocks, decoder {dec_blocks} x 8 heads, "
+          f"{n_params / 1e9:.3f}B parameters, bf16 / f32 masters, Adam, {TRAIN_B} x {TRAIN_S} s "
+          f"(T {t_enc}) a step: {ms:.1f} ms/step (median of "
+          f"{[round(t * 1e3, 1) for t in times]}), {TRAIN_B * TRAIN_S / (ms / 1e3):.1f} "
+          f"audio-s/s; peak {peak_gb:.2f} GB; launches {train_launches} "
+          f"({xlarge_step_launches(enc_blocks)} a step); losses "
+          f"{[tuple(round(v, 3) for v in row) for row in losses]}; profile: device busy "
+          f"{busy:.1f} ms in {n_events} events, idle {1 - busy / ms:.1%}; K5 fwd "
+          f"{share('relpos_flash_fwd')}, K5 bwd "
+          f"{share('relpos_dkdv', 'relpos_dq', 'relpos_rowdot')}, K4 "
+          f"{share('vocab_lse')}; built + warm-up {load_s:.1f} s; top: "
+          + top_kernels(per_name, 6), flush=True)
+    del model, opt, step
+    torch.cuda.empty_cache()
+
+    t_serve = time.perf_counter()
+    smodel, lm, _, _ = conformer_models(dev, torch.bfloat16, sd=sd, raw=raw)
+    del sd
+    speech = torch.from_numpy(audio).to(dev)
+    lens = torch.full((audio.shape[0],), audio.shape[1], device=dev)
+
+    def request(steps=CONF_S):
+        out = decode_conformer_batch(smodel, lm, speech, lens, beam_size=CONF_BEAM,
+                                     ctc_weight=CONF_CTC, lm_weight=CONF_LM, max_steps=steps,
+                                     loop="scan")
+        torch.cuda.synchronize()
+        return out
+
+    request(10)  # warm-up
+    reset_decode_counts()
+    t0 = time.perf_counter()
+    rows, scores = request()
+    serve_ms = (time.perf_counter() - t0) * 1e3
+    serve_launches = {k: v for k, v in decode_counts().items() if v}
+    want = {"K5": enc_blocks, "K3": dec_blocks * CONF_S, "K3-f32": lm.cfg.num_blocks * CONF_S}
+    check(serve_launches == want, f"XLarge serving launches {serve_launches} == {want}")
+    check(len(rows) == audio.shape[0] and bool(torch.isfinite(scores).all()),
+          "XLarge serving: 8 finite hypotheses")
+    print(f"phase 50b XLarge conformer serving: bf16 encoder {enc_blocks} x 1024 + decoder "
+          f"{dec_blocks} x 1024 (8 heads of 128), LM 16 x 512 f32, 8 x 15 s, beam {CONF_BEAM}, "
+          f"ctc {CONF_CTC}, lm {CONF_LM}, {CONF_S} steps: {serve_ms:.1f} ms/batch (one request "
+          f"after a warm-up), {120.0 / (serve_ms / 1e3):.1f} x "
+          f"realtime; launches {serve_launches} (K3: the rows kernel at d_head 128, "
+          f"{dec_blocks} a step); lengths {[len(r) for r in rows]}; phase "
+          f"{time.perf_counter() - t_serve:.1f} s", flush=True)
+    del smodel, lm
+    torch.cuda.empty_cache()
+
+    t_par = time.perf_counter()
+    raw2 = xlarge_raw(*XL_PARITY_BLOCKS)
+    sd2 = conformer_train_model("cpu", torch.float32, raw=raw2, seed=XL_SEED)[2]
+    train_par = conformer_train_parity(sd2, dev, batch, raw=raw2, phase="50c",
+                                       launches=xlarge_step_launches(XL_PARITY_BLOCKS[0]))
+    card_m, card_lm, _, lsd2 = conformer_models(dev, torch.bfloat16, sd2, lm_blocks=2,
+                                                raw=raw2)
+    cpu_m, cpu_lm, _, _ = conformer_models("cpu", torch.float32, sd2, lsd2, lm_blocks=2,
+                                           raw=raw2)
+    j_cpu, cands, enc_cpu = first_step_joint(cpu_m, cpu_lm, audio[:1])
+    j_card, _, enc_card = first_step_joint(card_m, card_lm, audio[:1], cands)
+    e_enc, e_joint = rel_l2(enc_card, enc_cpu), rel_l2(j_card, j_cpu)
+    check(enc_card.shape == (1, 468, 1024) and bool(torch.isfinite(enc_card).all())
+          and e_enc <= CONF_REL_L2, f"XLarge encoder rel L2 {e_enc} <= {CONF_REL_L2}")
+    check(bool(torch.isfinite(j_card).all()) and e_joint <= CONF_REL_L2,
+          f"XLarge first-step joint scores rel L2 {e_joint} <= {CONF_REL_L2}")
+    print(f"phase 50c XLarge widths at {XL_PARITY_BLOCKS[0]} + {XL_PARITY_BLOCKS[1]} blocks, "
+          f"card bf16 vs cpu f32: serving encoder rel L2 {e_enc:.3e}, first-step joint scores "
+          f"rel L2 {e_joint:.3e} (phase 27's bound {CONF_REL_L2}); the train micro-step above "
+          f"(phase 31's rule); phase {time.perf_counter() - t_par:.1f} s; phase 50 "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    del card_m, card_lm, cpu_m, cpu_lm
+    torch.cuda.empty_cache()
+    return {"train": {"launches": train_launches, "ms": ms, "busy": busy, "peak_gb": peak_gb},
+            "serve": {"launches": serve_launches, "ms": serve_ms},
+            "parity": {"train": train_par, "enc": e_enc, "joint": e_joint}}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "agacs_tpu_torch")):
         sys.exit("chip_smoke: agacs_tpu_torch/ is not beside this script; "
@@ -6265,6 +6798,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; "
                  "this script needs a CUDA card")
+    if sys.argv[1:2] == ["--k3k5-turn"] and len(sys.argv) == 3:
+        return k3k5_turn(os.path.abspath(sys.argv[2]))
     sys.path.insert(0, ROOT)
     from agacs_tpu_torch.decode.speech2text import Speech2Text
     from agacs_tpu_torch.models import whisper as tw
@@ -6284,6 +6819,12 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--k4-turns"] and len(sys.argv) == 3:
         k4_turns(sys.argv[2])
+        return 0
+    if sys.argv[1:2] == ["--k8q-turns"] and len(sys.argv) == 3:
+        k8q_turns(sys.argv[2])
+        return 0
+    if sys.argv[1:2] == ["--k3k5-turns"] and len(sys.argv) == 3:
+        k3k5_turns(sys.argv[2])
         return 0
     if sys.argv[1:2] == ["--k4-ablate"]:
         k4_ablate(dev)
@@ -6312,10 +6853,10 @@ def main() -> int:
           f"{torch.__version__} cuda {torch.version.cuda} | kernels and host libraries "
           f"({', '.join(libs)}) built in {build_s:.2f} s | ptxas {ptxas or 'cached build'}",
           flush=True)
-    print("phase 1 K1, K5, K2 and K4 ptxas: " + "; ".join(
+    print("phase 1 K1, K5, K2, K4, K8 and K3 ptxas: " + "; ".join(
         ptxas_entries(cuda_lib.BUILD_LOG.get(name, ""))
         for name in ("packed_flash_fwd", "packed_flash_bwd", "relpos_flash", "int8_mlp",
-                     "vocab_lse")), flush=True)
+                     "vocab_lse", "int8_gemm", "decode_attn")), flush=True)
 
     # 2-3s. each kernel against its plain version
     g = torch.Generator(device="cpu").manual_seed(0)
@@ -6327,11 +6868,13 @@ def main() -> int:
     k3pe = check_k3pe(dev, g)
     k3i8 = check_k3i8(dev, g)
     k8 = check_k8(dev, g)
+    k8q = check_k8q(dev, g)
     k2 = check_k2(dev, g)
     k5 = check_k5(dev, g)
     k5b = check_k5_bwd(dev, g)
     k4 = check_k4(dev, g)
     k3f32 = check_k3f32(dev, g)
+    k3w = check_k3_widths(dev, g)
     k6 = check_k6(dev, g)
     k3d48 = check_k3_d48(dev, g)
 
@@ -6492,6 +7035,10 @@ def main() -> int:
     # greedy serving (bf16, int8 trunk), card against CPU
     large = whisper_large_phase(dev, g, audio)
 
+    # 50. the conformer at XLarge widths (d 1024, heads of 128): training,
+    # beam serving with the LM, and card against CPU at 2 + 2 blocks
+    xl = xlarge_phase(dev, audio)
+
     check(not any(m.split(".")[0] in ("jax", "jaxlib", "agacs_tpu") for m in sys.modules),
           "no jax, jaxlib or agacs_tpu module was imported")
 
@@ -6534,9 +7081,9 @@ def main() -> int:
               "agacs_tpu/ops/int8_mlp.py:112", train8["launches"]["K2f"], k2["fwd"]),
         entry("int8_mlp_bwd (K2b, fused W8A8 MLP dx)", "int8_mlp.cu",
               "agacs_tpu/ops/int8_mlp.py:126", train8["launches"]["K2b"], k2["bwd"]),
-        entry("int8_rowquant (K8q, per-row int8 quantisation ahead of the wide K8g)",
-              "int8_gemm.cu", "agacs_tpu/ops/int8_linear.py:65", train8["launches"]["K8q"],
-              k8["q"]),
+        entry("int8_rowquant (K8q, per-row int8 quantisation ahead of the wide K8g; "
+              "(12000, 768))", "int8_gemm.cu", "agacs_tpu/ops/int8_linear.py:65",
+              train8["launches"]["K8q"], k8q[0]),
         entry("int8_gemm (K8g, W8A8 linear forward, wide: s8 wgmma fed by TMA)",
               "int8_gemm.cu", "agacs_tpu/ops/int8_linear.py:83", train8["launches"]["K8g"],
               k8["fwd"]),
@@ -6604,7 +7151,16 @@ def main() -> int:
               "decode_attn.cu", "agacs_tpu/ops/decode_attn.py:140",
               lg["serve16"]["launches"]["K3"], lg["k3"]),
         entry("int8_rowquant at whisper-large (K8q, (12000, 1280))", "int8_gemm.cu",
-              "agacs_tpu/ops/int8_linear.py:65", lg["train8"]["launches"]["K8q"], lg["k8"]["q"]),
+              "agacs_tpu/ops/int8_linear.py:65", lg["train8"]["launches"]["K8q"],
+              k8q[1]),
+        entry("int8_rowquant at whisper-large's fc2 input (K8q, (12000, 5120); launches: "
+              "the large int8 step's, every width)", "int8_gemm.cu",
+              "agacs_tpu/ops/int8_linear.py:65", lg["train8"]["launches"]["K8q"],
+              k8q[2]),
+        entry("int8_rowquant with the dgrad's column scale (K8q, (12000, 5120) x w_s, "
+              "whisper-large's fc1 dgrad; launches: the large int8 step's, every width)",
+              "int8_gemm.cu", "agacs_tpu/ops/int8_linear.py:65", lg["train8"]["launches"]["K8q"],
+              k8q[3]),
         entry("int8_gemm at whisper-large (K8g wide, (12000, 1280) -> 1280)", "int8_gemm.cu",
               "agacs_tpu/ops/int8_linear.py:83", lg["train8"]["launches"]["K8g"], lg["k8"]["fwd"]),
         entry("int8_gemm dgrad at whisper-large (K8g wide, (12000, 1280) -> 1280)",
@@ -6622,10 +7178,31 @@ def main() -> int:
               "cross-attention)", "decode_attn.cu", "agacs_tpu/ops/decode_attn.py:140",
               side["greedy"]["K3@48"], k3d48),
     ]
+    kernels += [
+        entry("relpos_flash_fwd at d_head 128 (K5's 128 instance: the XLarge conformer, "
+              "(8, 468, 1024), 8 heads; padded d_head 96 runs it too)", "relpos_flash.cu",
+              "agacs_tpu/ops/relpos_flash.py:298", xl["train"]["launches"]["K5"], k5["w128"]),
+        entry("relpos_flash_bwd at d_head 128 (K5 backward's 128 instance, (8, 468, 1024))",
+              "relpos_flash.cu", "agacs_tpu/ops/relpos_flash.py:320",
+              xl["train"]["launches"]["K5 bwd"], k5b["w128"]),
+        entry("relpos_flash_fwd at d_head 32 (K5's 32 instance, d 256 / 8 heads; no main path "
+              "runs a d_head-32 model: checked in phase 2r)", "relpos_flash.cu",
+              "agacs_tpu/ops/relpos_flash.py:298", 0, k5["w32"]),
+        entry("relpos_flash_bwd at d_head 32 (no main path runs a d_head-32 model: checked "
+              "in phase 2s)", "relpos_flash.cu", "agacs_tpu/ops/relpos_flash.py:320", 0,
+              k5b["w32"]),
+        entry("decode_attn_rows_fwd (K3's plain rows at d_head 128: the XLarge conformer "
+              "decoder's self-attention, (80, 112, 1024), 8 heads)", "decode_attn.cu",
+              "agacs_tpu/ops/decode_attn.py:140", xl["serve"]["launches"]["K3"], k3w["bf16"]),
+        entry("decode_attn_rows_fwd float32 (K3-f32 at d_head 128; no main path runs an LM "
+              "of that width: checked in phase 3f)", "decode_attn.cu",
+              "agacs_tpu/ops/decode_attn.py:140", 0, k3w["f32"]),
+    ]
     check(serve8["launches"]["K2f"] > 0 and serve8["launches"]["K8g"] > 0,
           "int8 serving launched K2f and K8g")
-    check(side_train["launches"]["K1b"] == 0 and all(k["launches"] > 0 for k in kernels
-                                                    if "no decode step" not in k["name"]),
+    check(side_train["launches"]["K1b"] == 0 and all(
+        k["launches"] > 0 for k in kernels
+        if "no decode step" not in k["name"] and "no main path" not in k["name"]),
           "every kernel of the paths launched on its path, K1b none in side training")
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
