@@ -35,7 +35,11 @@
 // k16 steps across the blocks; a product with the head's channels as N runs
 // one m64nCW wgmma per block into its own accumulators. The scale d_head^-0.5
 // (the real width, not the instance's) is an argument, applied where JAX's
-// `_fwd_kernel` applies it: (ac + shift) * isd + mask in float32.
+// `_fwd_kernel` applies it: (ac + shift) * isd + mask in float32. A head
+// wider than 128 is padded to a multiple of 128 and runs the wide route
+// (the section "Heads wider than 128" at the end): the 128 instance's tiles,
+// its channels streamed in 128-wide chunks, a grid axis over the output's
+// chunks.
 //
 // The TPU kernel held a head's whole (T, T) content scores and (T, Wp)
 // position scores in VMEM and realigned the position scores with a strided
@@ -180,8 +184,10 @@ struct Inst<128> {
 
 // Stage the columns [48-16w, 128-16w) of one 64 x 64 half (columns c0 ..
 // c0+63) of a warpgroup's position block: row r of warp w at
-// pw[r * PL + col - (48 - 16w)]. The test on the 8-column block is the
-// same for the whole warp.
+// pw[r * PL + col - (48 - 16w)], or with ADD added to what is staged
+// there (each thread reads and writes only its own elements). The test on
+// the 8-column block is the same for the whole warp.
+template <bool ADD = false>
 __device__ __forceinline__ void stage_half(float* pw, const float (&a)[32], int c0) {
   const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -190,18 +196,25 @@ __device__ __forceinline__ void stage_half(float* pw, const float (&a)[32], int 
     const int x = c0 + 8 * (i >> 2) - 48 + 16 * warp;
     if (x >= 0 && x < 80) {
       const int r = 16 * warp + g + 8 * ((i >> 1) & 1);
-      *reinterpret_cast<float2*>(pw + r * PL + x + 2 * t) = make_float2(a[i], a[i + 1]);
+      float2* at = reinterpret_cast<float2*>(pw + r * PL + x + 2 * t);
+      float2 val = make_float2(a[i], a[i + 1]);
+      if constexpr (ADD) {
+        const float2 was = *at;
+        val.x += was.x;
+        val.y += was.y;
+      }
+      *at = val;
     }
   }
 }
 
 // Both halves of the position block Pw = Qv . window^T (qv: the
 // warpgroup's 64 rows from qr0 of an RQ-row tile; window: 128 pe rows from
-// w0 of the pe tile, both K-major) into the staging buffer. Issued and
-// waited here, so only 32 accumulators live.
+// w0 of the pe tile, both K-major) into the staging buffer, or with `add`
+// added to it. Issued and waited here, so only 32 accumulators live.
 template <class KK, int RQ>
 __device__ __forceinline__ void position_block(float* pw, const bf16* qv, int qr0,
-                                               const bf16* pe, int w0) {
+                                               const bf16* pe, int w0, bool add = false) {
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     float a[32];
@@ -213,7 +226,10 @@ __device__ __forceinline__ void position_block(float* pw, const bf16* qv, int qr
     hop::wgmma_commit();
     hop::wgmma_wait();
     hop::fence_regs(a);
-    stage_half(pw, a, 64 * half);
+    if (add)
+      stage_half<true>(pw, a, 64 * half);
+    else
+      stage_half(pw, a, 64 * half);
   }
 }
 
@@ -589,6 +605,62 @@ struct KVMaps {
   CUtensorMap pe;
 };
 
+// dkdv's producer: a 64-row query tile's rows from q0 (ml: m in log2
+// units, +inf past T, so p = 0 there; linv: 1/l; dd), the statistics given
+// at the (b, h) row.
+__device__ __forceinline__ void row_stats(float* ml, float* linv, float* dd_s,
+                                          const float* row_m, const float* row_l,
+                                          const float* dd, int q0, int T) {
+  for (int i = threadIdx.x & 31; i < BS; i += 32) {
+    const int q = q0 + i;
+    ml[i] = q < T ? row_m[q] * LOG2E : INFINITY;
+    linv[i] = q < T ? 1.f / row_l[q] : 0.f;
+    dd_s[i] = q < T ? dd[q] : 0.f;
+  }
+}
+
+// dkdv's producer warp: don = bf16(do / l) from the 64-row do tile, in the
+// swizzled layout wgmma reads (a 16-byte chunk lies in one row of its
+// column block; the swizzle moves chunks within their row).
+template <class KK>
+__device__ __forceinline__ void build_don(bf16* don, const bf16* dout, const float* linv) {
+  const uint4* src = reinterpret_cast<const uint4*>(dout);
+  uint4* dst = reinterpret_cast<uint4*>(don);
+  for (int i = threadIdx.x & 31; i < BS * KK::DH / 8; i += 32) {
+    const float li = linv[(i % (BS * KK::CW / 8)) / (KK::CW / 8)];
+    uint4 xv = src[i], yv;
+    const bf16* x = reinterpret_cast<const bf16*>(&xv);
+    bf16* y = reinterpret_cast<bf16*>(&yv);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) y[e] = __float2bfloat16(__bfloat162float(x[e]) * li);
+    dst[i] = yv;
+  }
+}
+
+// dkdv's P^T = exp(s - m) and dS^T = P^T (dP^T - dd) / l * scale for the
+// thread's keys (mask km0, km1) against a 64-query tile, as bf16 A
+// fragments: key row j, query column q reads Pw[q, 63-q+j] at column
+// 15-(q%16)+j of the staged block.
+__device__ __forceinline__ void dkdv_p_ds(const float (&st)[32], const float (&dpt)[32],
+                                          const float* pw, const float* ml, const float* linv,
+                                          const float* dd, float km0, float km1, float scale,
+                                          uint32_t (&pa)[16], uint32_t (&dsa)[16]) {
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 32; i += 2) {
+    const int qc = 8 * (i >> 2) + 2 * t, jr = warp * 16 + (lane >> 2) + 8 * ((i >> 1) & 1);
+    const float km = (i & 2) ? km1 : km0;
+    const float* pr = pw + qc * PL + 15 - (qc & 15) + jr;
+    const float x0 = (st[i] + pr[0]) * scale + km;
+    const float x1 = (st[i + 1] + pr[PL - 1]) * scale + km;
+    const float p0 = hop::ex2(fmaf(x0, LOG2E, -ml[qc]));
+    const float p1 = hop::ex2(fmaf(x1, LOG2E, -ml[qc + 1]));
+    pa[i >> 1] = hop::pack_bf16(p0, p1);
+    dsa[i >> 1] = hop::pack_bf16(p0 * (dpt[i] - dd[qc]) * (linv[qc] * scale),
+                                 p1 * (dpt[i + 1] - dd[qc + 1]) * (linv[qc + 1] * scale));
+  }
+}
+
 template <class KK, int ST>
 struct SmemKV {
   alignas(1024) bf16 k[KK::BR * KK::DH];
@@ -631,12 +703,7 @@ relpos_dkdv_kernel(const __grid_constant__ KVMaps mp, const float* __restrict__ 
     for (int it = 0; it < n_q_tiles; ++it) {
       const int s = it % ST, q0 = it * BS;
       hop::mbar_wait(&sm.empty[s], ((it / ST) & 1) ^ 1);
-      for (int i = lane; i < BS; i += 32) {
-        const int q = q0 + i;
-        sm.ml[s][i] = q < T ? row_m[bh + q] * LOG2E : INFINITY;
-        sm.linv[s][i] = q < T ? 1.f / row_l[bh + q] : 0.f;
-        sm.dd[s][i] = q < T ? dd[bh + q] : 0.f;
-      }
+      row_stats(sm.ml[s], sm.linv[s], sm.dd[s], row_m + bh, row_l + bh, dd + bh, q0, T);
       if (lane == 0) {
         hop::mbar_expect_tx(&sm.tma[s], (3 * BS + KK::PR) * KK::DH * 2);
         KK::template load<BS>(sm.qu[s], &mp.qu, &sm.tma[s], c, q0, b);
@@ -646,19 +713,7 @@ relpos_dkdv_kernel(const __grid_constant__ KVMaps mp, const float* __restrict__ 
       }
       hop::mbar_wait(&sm.tma[s], (it / ST) & 1);
       __syncwarp();
-      // don: a 16-byte chunk lies in one row of its column block (the
-      // swizzle moves chunks within their row)
-      const uint4* src = reinterpret_cast<const uint4*>(sm.dout[s]);
-      uint4* dst = reinterpret_cast<uint4*>(sm.don[s]);
-      for (int i = lane; i < BS * KK::DH / 8; i += 32) {
-        const float li = sm.linv[s][(i % (BS * KK::CW / 8)) / (KK::CW / 8)];
-        uint4 xv = src[i], yv;
-        const bf16* x = reinterpret_cast<const bf16*>(&xv);
-        bf16* y = reinterpret_cast<bf16*>(&yv);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) y[e] = __float2bfloat16(__bfloat162float(x[e]) * li);
-        dst[i] = yv;
-      }
+      build_don<KK>(sm.don[s], sm.dout[s], sm.linv[s]);
       hop::fence_proxy_async();
       hop::mbar_arrive(&sm.full[s]);
     }
@@ -666,7 +721,7 @@ relpos_dkdv_kernel(const __grid_constant__ KVMaps mp, const float* __restrict__ 
   }
   consumer_regs<KK::NWG>();
 
-  const int wg = tid >> 7, warp = (tid >> 5) & 3, t = lane & 3;
+  const int wg = tid >> 7, warp = (tid >> 5) & 3;
   const int row0 = k0 + wg * 64 + warp * 16 + (lane >> 2);  // this thread's keys: row0, row0 + 8
   const float km0 = row0 < T ? mask[(size_t)b * T + row0] : 0.f;
   const float km1 = row0 + 8 < T ? mask[(size_t)b * T + row0 + 8] : 0.f;
@@ -702,23 +757,9 @@ relpos_dkdv_kernel(const __grid_constant__ KVMaps mp, const float* __restrict__ 
     hop::fence_regs(st);
     hop::fence_regs(dpt);
 
-    // P^T = exp(s - m), dS^T = P^T (dP^T - dd) / l * scale: bf16 A fragments.
-    // Key row j, query column q reads Pw[q, 63-q+j] at column 15-(q%16)+j.
+    // P^T = exp(s - m), dS^T = P^T (dP^T - dd) / l * scale: bf16 A fragments
     uint32_t pa[16], dsa[16];
-#pragma unroll
-    for (int i = 0; i < 32; i += 2) {
-      const int qc = 8 * (i >> 2) + 2 * t, jr = warp * 16 + (lane >> 2) + 8 * ((i >> 1) & 1);
-      const float km = (i & 2) ? km1 : km0;
-      const float* pr = pw + qc * PL + 15 - (qc & 15) + jr;
-      const float x0 = (st[i] + pr[0]) * scale + km;
-      const float x1 = (st[i + 1] + pr[PL - 1]) * scale + km;
-      const float p0 = hop::ex2(fmaf(x0, LOG2E, -sm.ml[s][qc]));
-      const float p1 = hop::ex2(fmaf(x1, LOG2E, -sm.ml[s][qc + 1]));
-      pa[i >> 1] = hop::pack_bf16(p0, p1);
-      dsa[i >> 1] = hop::pack_bf16(p0 * (dpt[i] - sm.dd[s][qc]) * (sm.linv[s][qc] * scale),
-                                   p1 * (dpt[i + 1] - sm.dd[s][qc + 1]) *
-                                       (sm.linv[s][qc + 1] * scale));
-    }
+    dkdv_p_ds(st, dpt, pw, sm.ml[s], sm.linv[s], sm.dd[s], km0, km1, scale, pa, dsa);
 
     // dV += P^T don, dK += dS^T Qu (don and Qu read MN-major)
     hop::wgmma_fence();
@@ -753,11 +794,11 @@ struct SmemQ {
   static constexpr bool kTma = false;
 };
 
-// Add a warpgroup's 64 x DH share of dpe (rows p0 .. p0+63 of pe) into
-// dpe; rows outside 0 .. 2T-2 get nothing.
+// Add a warpgroup's 64 x DH share of dpe (rows p0 .. p0+63 of pe, columns
+// from col) into dpe; rows outside 0 .. 2T-2 get nothing.
 template <class KK>
 __device__ __forceinline__ void flush_dpe(float* dpe, const float (&a)[KK::CB][KK::NACC], int p0,
-                                          int n_real, int D, int h) {
+                                          int n_real, int D, int col) {
   const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
 #pragma unroll
   for (int cb = 0; cb < KK::CB; ++cb)
@@ -765,7 +806,7 @@ __device__ __forceinline__ void flush_dpe(float* dpe, const float (&a)[KK::CB][K
     for (int i = 0; i < KK::NACC; i += 2) {
       const int p = p0 + 16 * warp + (lane >> 2) + 8 * ((i >> 1) & 1);
       if (p >= 0 && p < n_real) {
-        float* at = dpe + (size_t)p * D + h * KK::DH + cb * KK::CW + 8 * (i >> 2) + 2 * (lane & 3);
+        float* at = dpe + (size_t)p * D + col + cb * KK::CW + 8 * (i >> 2) + 2 * (lane & 3);
         atomicAdd(at, a[cb][i]);
         atomicAdd(at + 1, a[cb][i + 1]);
       }
@@ -784,6 +825,39 @@ __device__ __forceinline__ void issue_dpe(float (&acc)[KK::CB][KK::NACC], const 
     for (int kk = 0; kk < 4; ++kk)
       KK::ss_tab(acc[cb], hop::desc(dsh_half, kk * 16 * 128),
                  KK::template mn<KK::BR>(qv, qr0, kk, cb), kk > 0 || add);
+}
+
+// dq's dS = P (dP - dd) / l * scale, P = exp(s - m), for rows g and g + 8
+// of the warp's 16 (m in log2 units ml, 1/l * scale li, dd dr) against a
+// 64-key tile from k0 (its mask strip mask_s): bf16 A fragments dsa, and
+// written shifted into dSh (row r, column 63 - r + c), the 64 x 128 tile of
+// two swizzled 64-column halves.
+__device__ __forceinline__ void dq_ds(const float (&sc)[32], const float (&dp)[32],
+                                      const float* pw, const float* mask_s, int k0, int T,
+                                      float scale, float ml0, float ml1, float li0, float li1,
+                                      float dr0, float dr1, bf16* dsh, uint32_t (&dsa)[16]) {
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 32; i += 2) {
+    const int c = 8 * (i >> 2) + 2 * t, hi = (i >> 1) & 1;
+    const float ml = hi ? ml1 : ml0, li = hi ? li1 : li0, dr = hi ? dr1 : dr0;
+    float x[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      x[e] = (sc[i + e] + shifted(pw, i + e)) * scale + mask_s[c + e];
+      if (k0 + c + e >= T) x[e] = -INFINITY;  // the key tail: p = 0 past T
+      x[e] = hop::ex2(fmaf(x[e], LOG2E, -ml)) * (dp[i + e] - dr) * li;
+    }
+    dsa[i >> 1] = hop::pack_bf16(x[0], x[1]);
+    const __nv_bfloat162 pair = *reinterpret_cast<const __nv_bfloat162*>(&dsa[i >> 1]);
+    const int r = warp * 16 + (lane >> 2) + 8 * hi;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = 63 - r + c + e, cc = col & 63;
+      dsh[(col >> 6) * 64 * 64 + r * 64 + (((cc >> 3) ^ (r & 7)) << 3) + (cc & 7)] =
+          e ? pair.y : pair.x;
+    }
+  }
 }
 
 // (c) dqu, dqv of one (BR query rows, head, batch row), and its share of dpe.
@@ -810,7 +884,7 @@ relpos_dq_kernel(const __grid_constant__ QMaps mp, const float* __restrict__ mas
   }
   consumer_regs<KK::NWG>();
 
-  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31, t = lane & 3;
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
   const int row0 = q0 + wg * 64 + warp * 16 + (lane >> 2);  // and row0 + 8
   const size_t bh = ((size_t)b * H + h) * T;
   // the rows' m in log2 units (+inf past T: p = 0), 1/l * scale and dd
@@ -861,29 +935,9 @@ relpos_dq_kernel(const __grid_constant__ QMaps mp, const float* __restrict__ mas
     __syncwarp();
 
     // dS = P (dP - dd) / l * scale, P = exp(s - m): bf16 A fragments, and
-    // written shifted into dSh (row r, column 63 - r + c)
+    // written shifted into dSh
     uint32_t dsa[16];
-#pragma unroll
-    for (int i = 0; i < 32; i += 2) {
-      const int c = 8 * (i >> 2) + 2 * t, hi = (i >> 1) & 1;
-      const float ml = hi ? ml1 : ml0, li = hi ? li1 : li0, dr = hi ? dr1 : dr0;
-      float x[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        x[e] = (sc[i + e] + shifted(pw, i + e)) * scale + sm.mask[s][c + e];
-        if (k0 + c + e >= T) x[e] = -INFINITY;  // the key tail: p = 0 past T
-        x[e] = hop::ex2(fmaf(x[e], LOG2E, -ml)) * (dp[i + e] - dr) * li;
-      }
-      dsa[i >> 1] = hop::pack_bf16(x[0], x[1]);
-      const __nv_bfloat162 pair = *reinterpret_cast<const __nv_bfloat162*>(&dsa[i >> 1]);
-      const int r = warp * 16 + (lane >> 2) + 8 * hi;
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = 63 - r + c + e, cc = col & 63;
-        dsh[(col >> 6) * 64 * 64 + r * 64 + (((cc >> 3) ^ (r & 7)) << 3) + (cc & 7)] =
-            e ? pair.y : pair.x;
-      }
-    }
+    dq_ds(sc, dp, pw, sm.mask[s], k0, T, scale, ml0, ml1, li0, li1, dr0, dr1, dsh, dsa);
     hop::fence_proxy_async();
     hop::bar_sync(1 + wg, 128);  // every warp's dSh rows are written
 
@@ -904,18 +958,18 @@ relpos_dq_kernel(const __grid_constant__ QMaps mp, const float* __restrict__ mas
     fence_all<KK>(dqu_acc);
     fence_all<KK>(dqv_acc);
     fence_all<KK>(dpe_acc);
-    flush_dpe<KK>(dpe, dpe_acc, pw0 + k0, n_real, D, h);
+    flush_dpe<KK>(dpe, dpe_acc, pw0 + k0, n_real, D, h * KK::DH);
     // the upper 64 rows (carried: they start the next tile's lower half)
     hop::wgmma_fence();
     issue_dpe<KK>(dpe_acc, dsh + 64 * 64, sm.qv, wg * 64, false);
     hop::wgmma_commit();
     hop::wgmma_wait();
     fence_all<KK>(dpe_acc);
-    if (!CARRY) flush_dpe<KK>(dpe, dpe_acc, pw0 + k0 + 64, n_real, D, h);
+    if (!CARRY) flush_dpe<KK>(dpe, dpe_acc, pw0 + k0 + 64, n_real, D, h * KK::DH);
     __syncwarp();
     if (lane == 0) hop::mbar_arrive(&sm.empty[s]);
   }
-  if (CARRY) flush_dpe<KK>(dpe, dpe_acc, pw0 + n_k_tiles * BS, n_real, D, h);
+  if (CARRY) flush_dpe<KK>(dpe, dpe_acc, pw0 + n_k_tiles * BS, n_real, D, h * KK::DH);
 
   const size_t base = (size_t)b * T * D + (size_t)h * KK::DH;
   store_rows<KK>(dqu + base, dqu_acc, row0, T, D, 1.f, 1.f);
@@ -1011,10 +1065,557 @@ int launch_bwd(const void* qu, const void* qv, const void* k, const void* v, con
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Heads wider than 128
+//
+// The wrapper zero-pads a head of 136 .. d channels to W = NC x 128 (NC >=
+// 2, taken at launch: no instance per width). The 128 instance's block
+// does not stretch: at 256 a 64 x 256 float32 accumulator alone is 128
+// registers a thread on one warpgroup, and the 128 instance's tiles already
+// take 150-215 KB. So each block owns one 128-wide chunk cc of its head's
+// output columns (a grid axis over the chunks: blockIdx.y = h * NC + cc)
+// and streams every chunk of the score products' operands through its
+// ring, one (tile, chunk) step at a time, in the 128 instance's tiles (KW:
+// 64 rows x 128 columns in two 64-column blocks, 128-byte swizzle). Over
+// the NC steps of a tile the content scores (and dP in the backward)
+// accumulate in the wgmma registers and the position block in its float32
+// staging buffer (`position_block` with `add`); the tile's last step, whose
+// slot holds chunk cc's operands, runs the softmax (or dS) and the products
+// that give the block's own 128 columns, with the 128 instance's
+// arithmetic. Every block thus redoes its (rows, head)'s score products:
+// NC x the score work of the 128 instance, with one consumer warpgroup and
+// a producer warp a block as there. The forward streams qu, qv, k, pe (and
+// v of chunk cc on a tile's last step) through a 2-stage ring of 96 KB a
+// stage; dkdv (k, v, qu, qv, do, pe and don: 128 KB) and dq (qu, qv, do,
+// k, v, pe: 112 KB) through one stage. The forward takes the chunks in the
+// order 0 .. NC-1 in every block, so the row statistics agree between a
+// (rows, head)'s blocks and chunk 0's block writes them; the backward's
+// blocks take cc last (chunk (cc + 1 + j) % NC at step j), so the slot of a
+// tile's last step holds the block's own chunk. The backward's arithmetic
+// is the instances' helpers (`row_stats`, `build_don`, `dkdv_p_ds`,
+// `dq_ds`, `flush_dpe`); the forward's is `softmax_tile` and `finish_fwd`
+// below, the same arithmetic as the instances' forward, which keeps its own
+// inline copy (calling these helpers, the 64 instance's forward timed 4%
+// slower in `chip_smoke.py --k3k5-turns`).
+
+typedef K<128, 1> KW;  // the wide route's tiles and consumer geometry
+constexpr int WFST = 2;  // the wide forward's ring depth (dkdv and dq: 1)
+
+// The forward's softmax on one 64-key tile, rows g and g + 8 of each
+// warp's 16: the content scores sc plus the shifted position block, scaled
+// and masked (the key tile's mask strip `mask_s`); the online max and sum,
+// acc rescaled; p = exp(s - m) into the bf16 A fragments pa of P.V.
+template <class KK>
+__device__ __forceinline__ void softmax_tile(float (&sc)[32], const float* pw,
+                                             const float* mask_s, int k0, int T, float scale,
+                                             float& m0, float& m1, float& l0, float& l1,
+                                             float (&acc)[KK::CB][KK::NACC],
+                                             uint32_t (&pa)[16]) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int i = 0; i < 32; ++i)
+    sc[i] = (sc[i] + shifted(pw, i)) * scale + mask_s[8 * (i >> 2) + 2 * t + (i & 1)];
+  if (k0 + BS > T) {  // the key tail: zero-filled keys must not score bd * scale
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      if (k0 + 8 * (i >> 2) + 2 * t + (i & 1) >= T) sc[i] = -INFINITY;
+  }
+  float mx0 = m0, mx1 = m1;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    if (i & 2) mx1 = fmaxf(mx1, sc[i]);
+    else mx0 = fmaxf(mx0, sc[i]);
+  }
+#pragma unroll
+  for (int x = 1; x < 4; x <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
+  }
+  // finite: key 0 is in the first tile. The rescale is 0 on that tile.
+  const float a0 = hop::ex2((m0 - mx0) * LOG2E), a1 = hop::ex2((m1 - mx1) * LOG2E);
+  m0 = mx0;
+  m1 = mx1;
+  l0 *= a0;
+  l1 *= a1;
+#pragma unroll
+  for (int cb = 0; cb < KK::CB; ++cb)
+#pragma unroll
+    for (int i = 0; i < KK::NACC; ++i) acc[cb][i] *= (i & 2) ? a1 : a0;
+
+  // p = exp(s - m) into the bf16 A fragments of P.V
+  const float mc0 = m0 * LOG2E, mc1 = m1 * LOG2E;
+#pragma unroll
+  for (int i = 0; i < 32; i += 2) {
+    const float mc = (i & 2) ? mc1 : mc0;
+    const float p0 = hop::ex2(fmaf(sc[i], LOG2E, -mc));
+    const float p1 = hop::ex2(fmaf(sc[i + 1], LOG2E, -mc));
+    if (i & 2) l1 += p0 + p1;
+    else l0 += p0 + p1;
+    pa[i >> 1] = hop::pack_bf16(p0, p1);
+  }
+}
+
+// The forward's end: the row sums over each quad, o's rows (the head's
+// first column at `o`) divided by them, and unless row_m is null the rows'
+// max and sum (row_m, row_l: the (b, h) row of the statistics).
+template <class KK>
+__device__ __forceinline__ void finish_fwd(bf16* o, const float (&acc)[KK::CB][KK::NACC],
+                                           int row0, int T, int D, float m0, float m1, float l0,
+                                           float l1, float* row_m, float* row_l) {
+#pragma unroll
+  for (int x = 1; x < 4; x <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, x);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, x);
+  }
+  store_rows<KK>(o, acc, row0, T, D, l0, l1);
+  if (row_m != nullptr && (threadIdx.x & 3) == 0) {
+    if (row0 < T) {
+      row_m[row0] = m0;
+      row_l[row0] = l0;
+    }
+    if (row0 + 8 < T) {
+      row_m[row0 + 8] = m1;
+      row_l[row0 + 8] = l1;
+    }
+  }
+}
+
+// Every map of the wide kernels: 64-row boxes of 64 columns of the packed
+// (B, T, H*W) tensors, pe's 2D map over (H*W columns, 2T-1 rows) in
+// 128-row boxes.
+struct WMaps {
+  CUtensorMap qu, qv, dout, k, v, pe;
+};
+
+template <int ST>
+struct SmemWF {
+  alignas(1024) bf16 qu[ST][BS * 128];
+  alignas(1024) bf16 qv[ST][BS * 128];
+  alignas(1024) bf16 k[ST][BS * 128];
+  alignas(1024) bf16 v[ST][BS * 128];  // chunk cc's, on a tile's last step
+  alignas(1024) bf16 pe[ST][KW::PR * 128];
+  float pw[64 * PL];
+  float mask[ST][BS];
+  uint64_t own_full, full[ST], empty[ST];
+  static constexpr bool kTma = false;
+};
+
+// The wide forward: one block per (64 query rows, head x output chunk,
+// batch row).
+__global__ void __launch_bounds__(KW::THREADS, 1)
+relpos_wide_fwd_kernel(const __grid_constant__ WMaps mp, const float* __restrict__ mask,
+                       bf16* __restrict__ o, float* __restrict__ row_m,
+                       float* __restrict__ row_l, int T, int H, int NC, float scale) {
+  constexpr int ST = WFST;
+  extern __shared__ unsigned char smem_raw[];
+  typedef SmemWF<ST> Sm;
+  Sm& sm = setup<Sm, ST, 1>(smem_raw);
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int q0 = blockIdx.x * BS, h = blockIdx.y / NC, cc = blockIdx.y % NC, b = blockIdx.z;
+  const int col = h * NC * 128;  // the head's first column
+  const int steps = (T + BS - 1) / BS * NC;
+  if (tid >= KW::CONSUMERS) {
+    if (tid >= KW::CONSUMERS + 32) return;
+    // the producer warp: step it is chunk it % NC of key tile it / NC
+    for (int it = 0; it < steps; ++it) {
+      const int s = it % ST, c = col + 128 * (it % NC), k0 = it / NC * BS;
+      const bool last = it % NC == NC - 1;
+      hop::mbar_wait(&sm.empty[s], ((it / ST) & 1) ^ 1);
+      if (last)
+        for (int i = lane; i < BS; i += 32)
+          sm.mask[s][i] = k0 + i < T ? mask[(size_t)b * T + k0 + i] : 0.f;
+      if (lane == 0) {
+        hop::mbar_expect_tx(&sm.full[s], ((last ? 4 : 3) * BS + KW::PR) * 128 * 2);
+        KW::template load<BS>(sm.qu[s], &mp.qu, &sm.full[s], c, q0, b);
+        KW::template load<BS>(sm.qv[s], &mp.qv, &sm.full[s], c, q0, b);
+        KW::template load<BS>(sm.k[s], &mp.k, &sm.full[s], c, k0, b);
+        KW::template load_2d<KW::PR>(sm.pe[s], &mp.pe, &sm.full[s], c, T - 1 - (q0 + BS - 1) + k0);
+        if (last) KW::template load<BS>(sm.v[s], &mp.v, &sm.full[s], col + 128 * cc, k0, b);
+      } else {
+        hop::mbar_arrive(&sm.full[s]);
+      }
+    }
+    return;
+  }
+
+  const int warp = (tid >> 5) & 3;
+  float acc[KW::CB][KW::NACC], sc[32];
+  zero<KW>(acc);
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  for (int it = 0; it < steps; ++it) {
+    const int s = it % ST, c = it % NC, k0 = it / NC * BS;
+    hop::mbar_wait(&sm.full[s], (it / ST) & 1);
+    __syncwarp();
+    // this chunk's share of the position block, added to the staged one,
+    // and S += qu k^T over its channels
+    position_block<KW, BS>(sm.pw, sm.qv[s], 0, sm.pe[s], 0, c > 0);
+    hop::wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < KW::KC; ++kc)
+      hop::wgmma_ss_n64(sc, KW::template kmaj<BS>(sm.qu[s], 0, kc),
+                        KW::template kmaj<BS>(sm.k[s], 0, kc), c > 0 || kc > 0);
+    hop::wgmma_commit();
+    hop::wgmma_wait();
+    hop::fence_regs(sc);
+    __syncwarp();
+    if (c == NC - 1) {
+      uint32_t pa[16];
+      softmax_tile<KW>(sc, sm.pw, sm.mask[s], k0, T, scale, m0, m1, l0, l1, acc, pa);
+      hop::wgmma_fence();
+      issue_ab<KW>(acc, pa, sm.v[s]);  // acc (64 x 128) += p v over chunk cc
+      hop::wgmma_commit();
+      hop::wgmma_wait();
+      fence_all<KW>(acc);
+      __syncwarp();
+    }
+    if (lane == 0) hop::mbar_arrive(&sm.empty[s]);
+  }
+  const int D = H * NC * 128, row0 = q0 + warp * 16 + (lane >> 2);
+  const size_t bh = ((size_t)b * H + h) * T;
+  const bool stats = row_m != nullptr && cc == 0;
+  finish_fwd<KW>(o + (size_t)b * T * D + col + 128 * cc, acc, row0, T, D, m0, m1, l0, l1,
+                 stats ? row_m + bh : nullptr, stats ? row_l + bh : nullptr);
+}
+
+// (a) at the wide route: sixteen threads a (row, head), each adding its
+// 16-byte slices of the NC chunks in order, then the sixteen partials.
+__global__ void relpos_rowdot_wide_kernel(const bf16* __restrict__ dout,
+                                          const bf16* __restrict__ o, float* __restrict__ dd,
+                                          int B, int T, int H, int NC) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t w = i / 16;  // the (row, head): b * T * H + t * H + h
+  const bool live = w < (size_t)B * T * H;
+  float sum = 0.f;
+  if (live) {
+    const size_t at = w * NC * 128 + (i & 15) * 8;
+    for (int c = 0; c < NC; ++c) {
+      const uint4 x = *reinterpret_cast<const uint4*>(dout + at + 128 * c);
+      const uint4 y = *reinterpret_cast<const uint4*>(o + at + 128 * c);
+      const __nv_bfloat162* xa = reinterpret_cast<const __nv_bfloat162*>(&x);
+      const __nv_bfloat162* ya = reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 a = __bfloat1622float2(xa[j]), e = __bfloat1622float2(ya[j]);
+        sum += a.x * e.x + a.y * e.y;
+      }
+    }
+  }
+#pragma unroll
+  for (int m = 8; m > 0; m >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, m);
+  if (live && (i & 15) == 0) {
+    const int h = (int)(w % H);
+    const size_t bt = w / H;  // b * T + t
+    dd[((bt / T) * H + h) * T + bt % T] = sum;
+  }
+}
+
+template <int ST>
+struct SmemWKV {
+  alignas(1024) bf16 k[ST][BS * 128];  // the block's own keys, chunk by chunk
+  alignas(1024) bf16 v[ST][BS * 128];
+  alignas(1024) bf16 qu[ST][BS * 128];
+  alignas(1024) bf16 qv[ST][BS * 128];
+  alignas(1024) bf16 dout[ST][BS * 128];
+  alignas(1024) bf16 don[ST][BS * 128];  // chunk cc's bf16(do / l), on a tile's last step
+  alignas(1024) bf16 pe[ST][KW::PR * 128];
+  float pw[64 * PL];
+  float ml[ST][BS], linv[ST][BS], dd[ST][BS];
+  uint64_t own_full, full[ST], empty[ST], tma[ST];
+  static constexpr bool kTma = true;
+};
+
+// (b) at the wide route: dk, dv of one (64 keys, head x output chunk, batch row).
+template <int ST>
+__global__ void __launch_bounds__(KW::THREADS, 1)
+relpos_wide_dkdv_kernel(const __grid_constant__ WMaps mp, const float* __restrict__ mask,
+                        const float* __restrict__ row_m, const float* __restrict__ row_l,
+                        const float* __restrict__ dd, bf16* __restrict__ dk,
+                        bf16* __restrict__ dv, int T, int H, int NC, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  typedef SmemWKV<ST> Sm;
+  Sm& sm = setup<Sm, ST, 1>(smem_raw);
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int k0 = blockIdx.x * BS, h = blockIdx.y / NC, cc = blockIdx.y % NC, b = blockIdx.z;
+  const int col = h * NC * 128;
+  const int steps = (T + BS - 1) / BS * NC;
+  const size_t bh = ((size_t)b * H + h) * T;
+  if (tid >= KW::CONSUMERS) {
+    if (tid >= KW::CONSUMERS + 32) return;
+    // the producer warp: step it is chunk (cc + 1 + it % NC) % NC of query
+    // tile it / NC; on a tile's last step also its rows' statistics and don
+    for (int it = 0; it < steps; ++it) {
+      const int s = it % ST, q0 = it / NC * BS, c = col + 128 * ((cc + 1 + it % NC) % NC);
+      const bool last = it % NC == NC - 1;
+      hop::mbar_wait(&sm.empty[s], ((it / ST) & 1) ^ 1);
+      if (last) row_stats(sm.ml[s], sm.linv[s], sm.dd[s], row_m + bh, row_l + bh, dd + bh, q0, T);
+      if (lane == 0) {
+        hop::mbar_expect_tx(&sm.tma[s], (5 * BS + KW::PR) * 128 * 2);
+        KW::template load<BS>(sm.k[s], &mp.k, &sm.tma[s], c, k0, b);
+        KW::template load<BS>(sm.v[s], &mp.v, &sm.tma[s], c, k0, b);
+        KW::template load<BS>(sm.qu[s], &mp.qu, &sm.tma[s], c, q0, b);
+        KW::template load<BS>(sm.qv[s], &mp.qv, &sm.tma[s], c, q0, b);
+        KW::template load<BS>(sm.dout[s], &mp.dout, &sm.tma[s], c, q0, b);
+        KW::template load_2d<KW::PR>(sm.pe[s], &mp.pe, &sm.tma[s], c, T - 1 - (q0 + BS - 1) + k0);
+      }
+      hop::mbar_wait(&sm.tma[s], (it / ST) & 1);
+      __syncwarp();
+      if (last) build_don<KW>(sm.don[s], sm.dout[s], sm.linv[s]);
+      hop::fence_proxy_async();
+      hop::mbar_arrive(&sm.full[s]);
+    }
+    return;
+  }
+
+  const int warp = (tid >> 5) & 3;
+  const int row0 = k0 + warp * 16 + (lane >> 2);  // this thread's keys: row0, row0 + 8
+  const float km0 = row0 < T ? mask[(size_t)b * T + row0] : 0.f;
+  const float km1 = row0 + 8 < T ? mask[(size_t)b * T + row0 + 8] : 0.f;
+  float dk_acc[KW::CB][KW::NACC], dv_acc[KW::CB][KW::NACC], st[32], dpt[32];
+  zero<KW>(dk_acc);
+  zero<KW>(dv_acc);
+  for (int it = 0; it < steps; ++it) {
+    const int s = it % ST, j = it % NC;
+    hop::mbar_wait(&sm.full[s], (it / ST) & 1);
+
+    // this chunk's share of the query tile's position block, added to the
+    // staged one: a warp reads every staged row, so the warpgroup meets
+    // before a tile's first share and after its last
+    if (j == 0) hop::bar_sync(1, 128);
+    position_block<KW, BS>(sm.pw, sm.qv[s], 0, sm.pe[s], 0, j > 0);
+    if (j == NC - 1) hop::bar_sync(1, 128);
+
+    // S^T += K Qu^T and dP^T += V dO^T over this chunk's channels
+    hop::wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < KW::KC; ++kc)
+      hop::wgmma_ss_n64(st, KW::template kmaj<BS>(sm.k[s], 0, kc),
+                        KW::template kmaj<BS>(sm.qu[s], 0, kc), j > 0 || kc > 0);
+#pragma unroll
+    for (int kc = 0; kc < KW::KC; ++kc)
+      hop::wgmma_ss_n64(dpt, KW::template kmaj<BS>(sm.v[s], 0, kc),
+                        KW::template kmaj<BS>(sm.dout[s], 0, kc), j > 0 || kc > 0);
+    hop::wgmma_commit();
+    hop::wgmma_wait();
+    hop::fence_regs(st);
+    hop::fence_regs(dpt);
+
+    if (j == NC - 1) {  // chunk cc: dV += P^T don, dK += dS^T Qu
+      uint32_t pa[16], dsa[16];
+      dkdv_p_ds(st, dpt, sm.pw, sm.ml[s], sm.linv[s], sm.dd[s], km0, km1, scale, pa, dsa);
+      hop::wgmma_fence();
+      issue_ab<KW>(dv_acc, pa, sm.don[s]);
+      issue_ab<KW>(dk_acc, dsa, sm.qu[s]);
+      hop::wgmma_commit();
+      hop::wgmma_wait();
+      fence_all<KW>(dv_acc);
+      fence_all<KW>(dk_acc);
+    }
+    __syncwarp();
+    if (lane == 0) hop::mbar_arrive(&sm.empty[s]);
+  }
+  const int D = H * NC * 128;
+  const size_t base = (size_t)b * T * D + col + 128 * cc;
+  store_rows<KW>(dk + base, dk_acc, row0, T, D, 1.f, 1.f);
+  store_rows<KW>(dv + base, dv_acc, row0, T, D, 1.f, 1.f);
+}
+
+template <int ST>
+struct SmemWQ {
+  alignas(1024) bf16 qu[ST][BS * 128];  // the block's own rows, chunk by chunk
+  alignas(1024) bf16 qv[ST][BS * 128];
+  alignas(1024) bf16 dout[ST][BS * 128];
+  alignas(1024) bf16 k[ST][BS * 128];
+  alignas(1024) bf16 v[ST][BS * 128];
+  alignas(1024) bf16 pe[ST][KW::PR * 128];
+  alignas(1024) bf16 dsh[2][64 * 64];  // the shifted dS, two 64-column halves
+  float pw[64 * PL];
+  float mask[ST][BS];
+  uint64_t own_full, full[ST], empty[ST];
+  static constexpr bool kTma = false;
+};
+
+// (c) at the wide route: dqu, dqv of one (64 query rows, head x output
+// chunk, batch row), and its share of dpe's columns of chunk cc (both
+// 64-row halves added each tile, as the 128 instance).
+template <int ST>
+__global__ void __launch_bounds__(KW::THREADS, 1)
+relpos_wide_dq_kernel(const __grid_constant__ WMaps mp, const float* __restrict__ mask,
+                      const float* __restrict__ row_m, const float* __restrict__ row_l,
+                      const float* __restrict__ dd, bf16* __restrict__ dqu,
+                      bf16* __restrict__ dqv, float* __restrict__ dpe, int T, int H, int NC,
+                      float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  typedef SmemWQ<ST> Sm;
+  Sm& sm = setup<Sm, ST, 1>(smem_raw);
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int q0 = blockIdx.x * BS, h = blockIdx.y / NC, cc = blockIdx.y % NC, b = blockIdx.z;
+  const int col = h * NC * 128;
+  const int steps = (T + BS - 1) / BS * NC;
+  if (tid >= KW::CONSUMERS) {
+    if (tid >= KW::CONSUMERS + 32) return;
+    // the producer warp: step it is chunk (cc + 1 + it % NC) % NC of key
+    // tile it / NC; on a tile's last step also its mask strip
+    for (int it = 0; it < steps; ++it) {
+      const int s = it % ST, k0 = it / NC * BS, c = col + 128 * ((cc + 1 + it % NC) % NC);
+      const bool last = it % NC == NC - 1;
+      hop::mbar_wait(&sm.empty[s], ((it / ST) & 1) ^ 1);
+      if (last)
+        for (int i = lane; i < BS; i += 32)
+          sm.mask[s][i] = k0 + i < T ? mask[(size_t)b * T + k0 + i] : 0.f;
+      if (lane == 0) {
+        hop::mbar_expect_tx(&sm.full[s], (5 * BS + KW::PR) * 128 * 2);
+        KW::template load<BS>(sm.qu[s], &mp.qu, &sm.full[s], c, q0, b);
+        KW::template load<BS>(sm.qv[s], &mp.qv, &sm.full[s], c, q0, b);
+        KW::template load<BS>(sm.dout[s], &mp.dout, &sm.full[s], c, q0, b);
+        KW::template load<BS>(sm.k[s], &mp.k, &sm.full[s], c, k0, b);
+        KW::template load<BS>(sm.v[s], &mp.v, &sm.full[s], c, k0, b);
+        KW::template load_2d<KW::PR>(sm.pe[s], &mp.pe, &sm.full[s], c, T - 1 - (q0 + BS - 1) + k0);
+      } else {
+        hop::mbar_arrive(&sm.full[s]);
+      }
+    }
+    return;
+  }
+
+  const int warp = (tid >> 5) & 3;
+  const int row0 = q0 + warp * 16 + (lane >> 2);  // and row0 + 8
+  const size_t bh = ((size_t)b * H + h) * T;
+  // the rows' m in log2 units (+inf past T: p = 0), 1/l * scale and dd
+  const float ml0 = row0 < T ? row_m[bh + row0] * LOG2E : INFINITY;
+  const float ml1 = row0 + 8 < T ? row_m[bh + row0 + 8] * LOG2E : INFINITY;
+  const float li0 = row0 < T ? scale / row_l[bh + row0] : 0.f;
+  const float li1 = row0 + 8 < T ? scale / row_l[bh + row0 + 8] : 0.f;
+  const float dr0 = row0 < T ? dd[bh + row0] : 0.f;
+  const float dr1 = row0 + 8 < T ? dd[bh + row0 + 8] : 0.f;
+  bf16* dsh = sm.dsh[0];
+  {  // zero dSh once: the band a row writes is the same on every key tile
+    uint4* z = reinterpret_cast<uint4*>(dsh);
+    for (int i = tid; i < 2 * 64 * 64 / 8; i += 128) z[i] = make_uint4(0u, 0u, 0u, 0u);
+    hop::fence_proxy_async();
+    hop::bar_sync(1, 128);
+  }
+  float dqu_acc[KW::CB][KW::NACC], dqv_acc[KW::CB][KW::NACC], dpe_acc[KW::CB][KW::NACC];
+  float sc[32], dp[32];
+  zero<KW>(dqu_acc);
+  zero<KW>(dqv_acc);
+  const int D = H * NC * 128, n_real = 2 * T - 1, dcol = col + 128 * cc;
+  const int pw0 = T - 1 - (q0 + 63);  // the pe window's first row on key tile 0
+  for (int it = 0; it < steps; ++it) {
+    const int s = it % ST, j = it % NC, k0 = it / NC * BS;
+    hop::mbar_wait(&sm.full[s], (it / ST) & 1);
+
+    // this chunk's share of the position block, S += Qu K^T, dP += dO V^T
+    __syncwarp();
+    position_block<KW, BS>(sm.pw, sm.qv[s], 0, sm.pe[s], 0, j > 0);
+    hop::wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < KW::KC; ++kc)
+      hop::wgmma_ss_n64(sc, KW::template kmaj<BS>(sm.qu[s], 0, kc),
+                        KW::template kmaj<BS>(sm.k[s], 0, kc), j > 0 || kc > 0);
+#pragma unroll
+    for (int kc = 0; kc < KW::KC; ++kc)
+      hop::wgmma_ss_n64(dp, KW::template kmaj<BS>(sm.dout[s], 0, kc),
+                        KW::template kmaj<BS>(sm.v[s], 0, kc), j > 0 || kc > 0);
+    hop::wgmma_commit();
+    hop::wgmma_wait();
+    hop::fence_regs(sc);
+    hop::fence_regs(dp);
+    __syncwarp();
+
+    if (j == NC - 1) {  // chunk cc
+      uint32_t dsa[16];
+      dq_ds(sc, dp, sm.pw, sm.mask[s], k0, T, scale, ml0, ml1, li0, li1, dr0, dr1, dsh, dsa);
+      hop::fence_proxy_async();
+      hop::bar_sync(1, 128);  // every warp's dSh rows are written
+      // dQu += dS K; dQv += dSh . window; dpe of the window's lower 64 rows
+      hop::wgmma_fence();
+      issue_ab<KW>(dqu_acc, dsa, sm.k[s]);
+#pragma unroll
+      for (int cb = 0; cb < KW::CB; ++cb)
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk)
+          KW::ss_tb(dqv_acc[cb], hop::desc(dsh + (kk >> 2) * 64 * 64) + 2 * (kk & 3),
+                    KW::template mn<KW::PR>(sm.pe[s], 0, kk, cb), 1);
+      issue_dpe<KW>(dpe_acc, dsh, sm.qv[s], 0, false);
+      hop::wgmma_commit();
+      hop::wgmma_wait();
+      fence_all<KW>(dqu_acc);
+      fence_all<KW>(dqv_acc);
+      fence_all<KW>(dpe_acc);
+      flush_dpe<KW>(dpe, dpe_acc, pw0 + k0, n_real, D, dcol);
+      // and of its upper 64 rows
+      hop::wgmma_fence();
+      issue_dpe<KW>(dpe_acc, dsh + 64 * 64, sm.qv[s], 0, false);
+      hop::wgmma_commit();
+      hop::wgmma_wait();
+      fence_all<KW>(dpe_acc);
+      flush_dpe<KW>(dpe, dpe_acc, pw0 + k0 + 64, n_real, D, dcol);
+    }
+    __syncwarp();
+    if (lane == 0) hop::mbar_arrive(&sm.empty[s]);
+  }
+  const size_t base = (size_t)b * T * D + dcol;
+  store_rows<KW>(dqu + base, dqu_acc, row0, T, D, 1.f, 1.f);
+  store_rows<KW>(dqv + base, dqv_acc, row0, T, D, 1.f, 1.f);
+}
+
+// The wide kernels' maps over (B, T, H*W) tensors (dout may be null).
+int encode_wide(WMaps* mp, const void* qu, const void* qv, const void* k, const void* v,
+                const void* pe, const void* dout, int B, int T, int HW) {
+  int rc;
+  if ((rc = hop_host::encode_cols(&mp->qu, qu, B, T, HW, BS, 64)) ||
+      (rc = hop_host::encode_cols(&mp->qv, qv, B, T, HW, BS, 64)) ||
+      (rc = hop_host::encode_cols(&mp->k, k, B, T, HW, BS, 64)) ||
+      (rc = hop_host::encode_cols(&mp->v, v, B, T, HW, BS, 64)) ||
+      (rc = hop_host::encode_bf16(&mp->pe, pe, 2 * T - 1, HW, HW, KW::PR, 64)))
+    return rc;
+  return dout == nullptr ? 0 : hop_host::encode_cols(&mp->dout, dout, B, T, HW, BS, 64);
+}
+
+int launch_wide_fwd(const void* qu, const void* qv, const void* k, const void* v, const void* pe,
+                    const void* mask, void* o, void* row_m, void* row_l, int B, int T, int H,
+                    int NC, float scale, cudaStream_t stream) {
+  WMaps mp = {};
+  int rc, smem;
+  if ((rc = encode_wide(&mp, qu, qv, k, v, pe, nullptr, B, T, H * NC * 128)) ||
+      (rc = smem_for<SmemWF<WFST>>(relpos_wide_fwd_kernel, &smem)))
+    return rc;
+  relpos_wide_fwd_kernel<<<dim3((T + BS - 1) / BS, H * NC, B), KW::THREADS, smem, stream>>>(
+      mp, (const float*)mask, (bf16*)o, (float*)row_m, (float*)row_l, T, H, NC, scale);
+  return (int)cudaGetLastError();
+}
+
+int launch_wide_bwd(const void* qu, const void* qv, const void* k, const void* v, const void* pe,
+                    const void* mask, const void* o, const void* dout, const void* row_m,
+                    const void* row_l, void* dd, void* dqu, void* dqv, void* dk, void* dv,
+                    void* dpe, int B, int T, int H, int NC, float scale, cudaStream_t st) {
+  WMaps mp = {};
+  int rc, smem_kv, smem_q;
+  if ((rc = encode_wide(&mp, qu, qv, k, v, pe, dout, B, T, H * NC * 128)) ||
+      (rc = smem_for<SmemWKV<1>>(relpos_wide_dkdv_kernel<1>, &smem_kv)) ||
+      (rc = smem_for<SmemWQ<1>>(relpos_wide_dq_kernel<1>, &smem_q)))
+    return rc;
+  cudaError_t err;
+  const size_t threads = (size_t)B * T * H * 16;
+  relpos_rowdot_wide_kernel<<<(unsigned)((threads + 255) / 256), 256, 0, st>>>(
+      (const bf16*)dout, (const bf16*)o, (float*)dd, B, T, H, NC);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const dim3 grid((T + BS - 1) / BS, H * NC, B);
+  relpos_wide_dkdv_kernel<1><<<grid, KW::THREADS, smem_kv, st>>>(
+      mp, (const float*)mask, (const float*)row_m, (const float*)row_l, (const float*)dd,
+      (bf16*)dk, (bf16*)dv, T, H, NC, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  relpos_wide_dq_kernel<1><<<grid, KW::THREADS, smem_q, st>>>(
+      mp, (const float*)mask, (const float*)row_m, (const float*)row_l, (const float*)dd,
+      (bf16*)dqu, (bf16*)dqv, (float*)dpe, T, H, NC, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// qu, qv, k, v, o: (B, T, H*DH) bf16, DH 32, 64 or 128 (the wrapper pads
-// other widths); pe: (n_pe >= 2T-1, H*DH) bf16 (rows 0 .. 2T-2 read); mask:
+// qu, qv, k, v, o: (B, T, H*DH) bf16, DH 32, 64, 128 or a multiple of 128
+// above (the wide route, in DH / 128 chunks; the wrapper pads other
+// widths); pe: (n_pe >= 2T-1, H*DH) bf16 (rows 0 .. 2T-2 read); mask:
 // (B, T) f32 additive; all contiguous and 16-byte aligned. scale: the
 // score's d_head^-0.5. row_m, row_l: (B, H, T) f32 outputs (the row max and
 // sum the backward reads), or both null. Returns cudaGetLastError() after
@@ -1030,6 +1631,8 @@ extern "C" int relpos_flash_fwd(const void* qu, const void* qv, const void* k,
   if (DH == 64) return FWD(64);
   if (DH == 128) return FWD(128);
 #undef FWD
+  if (DH > 128 && DH % 128 == 0)
+    return launch_wide_fwd(qu, qv, k, v, pe, mask, o, row_m, row_l, B, T, H, DH / 128, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1054,5 +1657,8 @@ extern "C" int relpos_flash_bwd(const void* qu, const void* qv, const void* k,
   if (DH == 64) return BWD(64);
   if (DH == 128) return BWD(128);
 #undef BWD
+  if (DH > 128 && DH % 128 == 0)
+    return launch_wide_bwd(qu, qv, k, v, pe, mask, o, dout, row_m, row_l, dd, dqu, dqv, dk, dv,
+                           dpe, B, T, H, DH / 128, scale, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -16,11 +16,10 @@ Counterparts of the JAX functions:
                             `relpos_flash.supports` (bf16, 64 <= T <= 640)
                             kernel K5 (`ops/relpos_flash.py`), else JAX's
                             einsum path with its bf16 / float32 rounding.
-                            `supports` mirrors JAX's envelope, but K5 on
-                            the card takes d_head <= 128: heads of 136-256
-                            (d 512 / 2 heads, d 256 / 1 head, d 1024 / 4
-                            heads) take the kernel route and raise there
-                            (`relpos_flash.check_envelope`)
+                            `supports` mirrors JAX's envelope and K5 on
+                            the card takes all of it: heads above 128 (d
+                            256 / 1 head, d 1024 / 4 heads) run its wide
+                            route, padded to a multiple of 128
   _ffn_fwd / _ffn_fwd2   -> FFN (swish for the encoder, relu for the decoder)
   _conv_module           -> ConvModule, conv_norm "layer" (the recipe's) or
                             "batch": biased batch statistics over every

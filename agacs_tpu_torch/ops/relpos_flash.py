@@ -21,11 +21,13 @@ einsum path, as JAX's `_rel_attn` does. The two paths round differently
 numbers and is not a fallback. `relpos_mha` runs the plain version
 `relpos_mha_plain` for a CPU tensor and launches K5 for a CUDA tensor or
 raises. K5 is built at head widths `INSTANCES` (32, 64, 128); a head of
-another width inside the envelope up to D_HEAD_MAX is zero-padded to the
-next instance (`instance`, `pad_heads`): the zero columns add exact zeros
-to both score products, the padded output and gradient columns are
-dropped, and the scale stays the real width's d_head^-0.5. Above
-D_HEAD_MAX `check_envelope` raises, naming the envelope. Under autograd it is a
+another width up to 128 is zero-padded to the next instance, and a wider
+one to the next multiple of `CHUNK` (128), which K5's wide route streams
+in 128-wide chunks, the chunk count given at launch (`instance`,
+`pad_heads`): the zero columns add exact zeros to both score products,
+the padded output and gradient columns are dropped, and the scale stays
+the real width's d_head^-0.5. So the card takes exactly JAX's envelope;
+`check_envelope` raises outside it, naming it. Under autograd it is a
 `torch.autograd.Function` (JAX's custom VJP): on the card the forward also
 keeps each row's max and sum and the backward is K5's backward kernel; on
 the CPU the backward is `relpos_mha_bwd_plain`, `_bwd_kernel`'s
@@ -45,7 +47,7 @@ from agacs_tpu_torch.ops import cuda_lib
 MIN_T, MAX_T = 64, 640
 NEG_MASK = -1e30
 INSTANCES = (32, 64, 128)  # the head widths K5 is built at
-D_HEAD_MAX = INSTANCES[-1]  # K5 takes d_head up to this on the card
+CHUNK = 128  # above INSTANCES, heads are padded to a multiple of this (the wide route)
 LAUNCHES = 0  # K5 forward launches since the last reset (chip_smoke.py reads it)
 BWD_LAUNCHES = 0  # K5 backward launches
 
@@ -70,24 +72,25 @@ def supports(t: int, d_model: int, n_head: int, dtype: torch.dtype) -> bool:
 
 
 def instance(d_head: int) -> int:
-    """The K5 instance a head of `d_head` runs at: the least of INSTANCES
-    that holds it (the wrapper zero-pads up to it)."""
+    """The head width K5 runs a head of `d_head` at (the wrapper zero-pads up
+    to it): the least of INSTANCES that holds it, or above them the least
+    multiple of CHUNK (the wide route, in width // CHUNK chunks)."""
     for w in INSTANCES:
         if d_head <= w:
             return w
-    raise ValueError(f"relpos_flash: d_head {d_head} is above the kernel's {D_HEAD_MAX}")
+    return -(-d_head // CHUNK) * CHUNK
 
 
 def check_envelope(t: int, d_model: int, n_head: int) -> int:
-    """The instance K5 runs (T, d, h) at on the card, or a ValueError that
-    names the envelope: JAX's (`supports`: 64 <= T <= 640, d % 128 == 0,
-    d_head % 8 == 0) with d_head <= D_HEAD_MAX."""
+    """The head width K5 runs (T, d, h) at on the card (`instance`), or a
+    ValueError that names the envelope: JAX's (`supports`: 64 <= T <= 640,
+    d % 128 == 0, d_head % 8 == 0)."""
     ok = (MIN_T <= t <= MAX_T and d_model % 128 == 0 and d_model % n_head == 0
-          and (d_model // n_head) % 8 == 0 and d_model // n_head <= D_HEAD_MAX)
+          and (d_model // n_head) % 8 == 0)
     if not ok:
         raise ValueError(f"relpos_flash: T {t}, d {d_model}, {n_head} heads: K5 takes "
                          f"{MIN_T} <= T <= {MAX_T}, d % 128 == 0 and d_head % 8 == 0 "
-                         f"(JAX's envelope) with d_head <= {D_HEAD_MAX}")
+                         "(JAX's envelope)")
     return instance(d_model // n_head)
 
 
@@ -137,8 +140,9 @@ def relpos_mha_plain(qu, qv, k, v, pe, mask, n_head: int,
 
 
 def _check(qu, qv, k, v, pe, mask, n_head: int) -> int:
-    """The checks of both launches; returns the instance (head width) the
-    kernel runs at."""
+    """The checks of both launches; returns the head width the kernel runs
+    at (an instance, or a multiple of CHUNK: the chunk count is width //
+    CHUNK)."""
     b, t, d = qu.shape
     if qu.device.type != "cuda":
         raise ValueError(f"relpos_flash: K5 runs on a CUDA tensor, not on {qu.device}")

@@ -23,8 +23,9 @@ once on one CUDA card.
                                        # shape, DIR's tree and this one in turns
     python3 chip_smoke.py --k8q-turns DIR  # K8q at its three timed shapes,
                                        # DIR's tree and this one in turns
-    python3 chip_smoke.py --k3k5-turns DIR  # K3's forms and K5 at d_head 64,
-                                       # DIR's tree and this one in turns
+    python3 chip_smoke.py --k3k5-turns DIR  # K3's forms and K5 at d_head 64
+                                       # and 128, DIR's tree and this one
+                                       # in turns
     python3 chip_smoke.py --k4-ablate  # K4's split kernels with parts of
                                        # their exchange taken out, timed
     python3 chip_smoke.py --dist-worker OUT [--after FILE] ARGS  # one
@@ -102,15 +103,18 @@ non-zero exit:
      encoder's (8, 468, 256), 4 heads, and at T 64, 67, 128, 129, 257 and
      640, keys and values poisoned past each row's length, and at d_head
      32, 128 and the padded 48 and 96 (K5_WIDTHS) at (8, 468), T 67 and
-     257; bit-identical twice, one launch a call; SDPA with the shifted
-     position scores as its materialised (B, h, T, T) bias timed beside,
-     and the whole PyTorch route (that bias built, then SDPA), at d 256
-     with 4 and 8 heads and d 1024 with 8;
+     257, and on the wide route (K5_WIDE: d_head 160, 256 at 4 heads and
+     at 1, 384, 512, 1024) at T 67 and 257, (8, 468, 1024) with 4 heads
+     and (16, 468, 256) with 1; bit-identical twice, one launch a call;
+     SDPA with the shifted position scores as its materialised (B, h, T,
+     T) bias timed beside, and the whole PyTorch route (that bias built,
+     then SDPA), at d 256 with 4 and 8 heads, d 1024 with 8 and the two
+     timed wide shapes;
   2s. K5's backward (relpos_flash.cu) against its plain version at the
-     training shape (16, 468, 256), 4 heads, the same T and K5_WIDTHS,
-     keys and values poisoned: dqu, dqv, dk, dv, dpe, and a second run
-     bit-identical in dqu, dqv, dk, dv; SDPA's backward with the bias
-     requiring a gradient timed beside;
+     training shape (16, 468, 256), 4 heads, the same T, K5_WIDTHS and
+     K5_WIDE, keys and values poisoned: dqu, dqv, dk, dv, dpe, and a
+     second run bit-identical in dqu, dqv, dk, dv; SDPA's backward with
+     the bias requiring a gradient timed beside;
   2v. K4 (csrc/vocab_lse.cu: forward, dx, dw) against its plain version at
      the CTC head's (7488, 256) x (256, 51865) and the ragged (700, 256) x
      (256, 5000), (300, 128) x (128, 1001), (300, 384) x (384, 1001),
@@ -214,7 +218,7 @@ non-zero exit:
   25. the conformer recipe's serving (run_conformer.sh stage 4 with
      decode_asr.yaml) at full width: conformer 12 x 256 bf16, decoder 6
      blocks, LM 16 x 512 float32, vocabulary 51865, random weights, beam 10,
-     ctc 0.4, lm 0.2, 100 steps, on 8 x 15 s: ms per batch (median of 2), exact launches
+     ctc 0.4, lm 0.2, 100 steps, on 8 x 15 s: ms per batch (one request), exact launches
      (K5 12 per encode, K3 600, K3-f32 1600), the CTC prefix scoring's share;
   26. the same request at 5 steps under torch.profiler: busy, idle share,
      the K5 / K3 / K3-f32 shares and the top kernels;
@@ -358,6 +362,13 @@ non-zero exit:
      1024), ms, busy, idle share, peak memory; (b) a beam-10 request with
      the recipe's LM (K3's rows at d_head 128); (c) card bf16 against CPU
      f32 at 2 + 2 blocks with phases 27's and 31's bounds.
+  51. the recipe's conformer (d 256, 12 + 6 blocks) with one encoder head
+     of 256 (encoder_conf.attention_heads 1), so K5 runs its wide route:
+     (a) the train step at 16 x 15 s (K5 12 + 12 launches a step), ms,
+     busy, idle share, peak memory, finite losses and gradients; (b) a
+     beam-10 request with the recipe's LM, 8 finite hypotheses, K5 12 an
+     encode; (c) card bf16 against CPU f32 at 2 + 1 blocks with phases
+     27's and 31's bounds.
 
 The last three lines are the card's `name, power.limit` (nvidia-smi), a
 JSON line with each kernel's launches, error and times, and the
@@ -368,7 +379,8 @@ the checkout and runs the checks it names, the unmutated source first (a
 mutant that traps its kernel ends the process's CUDA use: the chosen
 mutants after it run in a new process);
 `--k8q-turns DIR` times K8q the same way at its three timed shapes, and
-`--k3k5-turns DIR` K3's forms and K5 at d_head 64 (K3K5_TURN_CASES), with
+`--k3k5-turns DIR` K3's forms and K5 at d_head 64 and 128 (K3K5_TURN_CASES,
+K3K5_TURN_K5), with
 the runtime-width rows entry beside the fixed entries in this tree;
 `--splits` times K3's instances at every S from 1 to 8 (SPLIT_SWEEP), the
 reading `decode_attn.time_splits` was tuned on; `--k4-turns DIR` times K4's
@@ -1352,11 +1364,12 @@ def k8q_turns(other: str) -> None:
                   {str(sh): round(k8q_bound(*sh)["bound_ms"], 5) for sh in shapes}), flush=True)
 
 
-# `--k3k5-turns DIR`: K3's forms and K5 at d_head 64, the shapes the main
-# paths give them (whisper-small's greedy self- and cross-attention, its
-# beam rows with the ancestry map, PE and int8 caches; the conformer
-# decoder's and the LM's rows; the ladder's d_head 48; K5 at the conformer
-# recipe's serving and training shapes), in the tree at DIR and in this
+# `--k3k5-turns DIR`: K3's forms and K5 at d_head 64 and 128, the shapes
+# the main paths give them (whisper-small's greedy self- and
+# cross-attention, its beam rows with the ancestry map, PE and int8 caches;
+# the conformer decoder's and the LM's rows; the ladder's d_head 48; K5 at
+# the conformer recipe's serving and training shapes, and its 128 instance
+# at the XLarge conformer's (8, 468, 1024), 8 heads), in the tree at DIR and in this
 # one, one process a turn (`k3k5_turn`); in this tree also the runtime-width
 # rows entry at the fixed entries' shapes (d_head 48, float32 at 64), fixed
 # and runtime in turns within the process.
@@ -1365,7 +1378,8 @@ K3K5_TURN_CASES = (("K3", 8, 112, 768, 12, 103), ("K3", 8, 752, 768, 12, 749),
                    ("K3-PE", 8, 112, 768, 12, 103), ("K3-int8", 8, 768, 768, 12, 749),
                    ("K3-f32", 80, 112, 512, 8, 103), ("K3@48", 8, 752, 192, 4, 749),
                    ("K3@48", 8, 112, 192, 4, 103))
-K3K5_TURN_K5 = (("K5 fwd", 8, 468, 256, 4), ("K5 bwd", 16, 468, 256, 4))
+K3K5_TURN_K5 = (("K5 fwd", 8, 468, 256, 4), ("K5 bwd", 16, 468, 256, 4),
+                ("K5 fwd", 8, 468, 1024, 8), ("K5 bwd", 8, 468, 1024, 8))
 
 
 def k3k5_turn(root: str) -> int:
@@ -1713,6 +1727,15 @@ K5_SHAPES = ((8, 468), *K5_TAILS)
 K5_WIDTHS = ((256, 8), (1024, 8), (384, 8), (768, 8))
 K5_WIDTH_SHAPES = ((8, 468), (2, 67), (2, 257))
 K5_WIDTH_TIMED = ((1024, 8), (256, 8))
+# K5's wide route (heads above 128, zero-padded to a multiple of 128 and
+# streamed in 128-wide chunks): d_head 160 (640 / 4, padded to 256), 256
+# (1024 / 4 and 256 / 1), 384 (768 / 2), 512 (512 / 1) and 1024 (1024 / 1)
+# at T 67 and 257; timed at (8, 468, 1024) with 4 heads (the bound of the
+# 128 instance's (8, 468, 1024) row: the same 6 b h T^2 d_head) and at
+# (16, 468, 256) with 1 head (phase 51's training shape).
+K5_WIDE = ((640, 4), (1024, 4), (256, 1), (768, 2), (512, 1), (1024, 1))
+K5_WIDE_SHAPES = ((2, 67), (2, 257))
+K5_WIDE_TIMED = ((8, 468, 1024, 4), (16, 468, 256, 1))
 # K3-f32 against its plain version (both float32; they differ by summation
 # order, ~1e-6 of the largest output): 1e-4 x max |plain|.
 K3F32_RTOL = 1e-4
@@ -1757,13 +1780,57 @@ def k5_scale(x, h: int) -> float:
     return (x.shape[-1] // h) ** -0.5
 
 
-def k5_cases() -> list:
-    """(b, t, d, heads, timed) of phases 2r and 2s's forward: the recipe's
-    d 256 / 4 heads at K5_SHAPES (timed at the first), then K5_WIDTHS at
-    K5_WIDTH_SHAPES (timed at K5_WIDTH_TIMED's widths' first shape)."""
-    return ([(b, t, CD, CH, (b, t) == K5_SHAPES[0]) for b, t in K5_SHAPES]
+def k5_cases(shapes=None) -> list:
+    """(b, t, d, heads, timed) of phases 2r and 2s: the recipe's d 256 / 4
+    heads at `shapes` (K5_SHAPES; timed at the first), K5_WIDTHS at
+    K5_WIDTH_SHAPES (timed at K5_WIDTH_TIMED's widths' first shape), then
+    the wide route: K5_WIDE at K5_WIDE_SHAPES and K5_WIDE_TIMED (timed)."""
+    shapes = shapes or K5_SHAPES
+    return ([(b, t, CD, CH, (b, t) == shapes[0]) for b, t in shapes]
             + [(b, t, d, h, (d, h) in K5_WIDTH_TIMED and (b, t) == K5_WIDTH_SHAPES[0])
-               for d, h in K5_WIDTHS for b, t in K5_WIDTH_SHAPES])
+               for d, h in K5_WIDTHS for b, t in K5_WIDTH_SHAPES]
+            + [(b, t, d, h, False) for d, h in K5_WIDE for b, t in K5_WIDE_SHAPES]
+            + [(b, t, d, h, True) for b, t, d, h in K5_WIDE_TIMED])
+
+
+def k5_slot(res: dict, d: int, h: int) -> dict:
+    """Where phases 2r and 2s keep a case's readings: d 256 / 4 heads at the
+    top, d_head 128 and 32 under "w128" and "w32", the wide route under
+    "wide" (its (8, 468, 1024) timing) but d 256 / 1 head under "wide1"
+    (phase 51's width; its (16, 468) timing); the padded 48 and 96 nowhere."""
+    dh = d // h
+    if (d, h) == (CD, CH):
+        return res
+    if dh > 128:
+        return res["wide1" if (d, h) == (256, 1) else "wide"]
+    return res["w128"] if dh == 128 else res["w32"] if dh == 32 else {}
+
+
+def k5_route(dh: int) -> str:
+    """How K5 runs a head of dh on the card, for the printed lines."""
+    from agacs_tpu_torch.ops import relpos_flash
+
+    w = relpos_flash.instance(dh)
+    if w in relpos_flash.INSTANCES:
+        return f"instance {w}"
+    return f"wide route: padded to {w}, {w // relpos_flash.CHUNK} chunks of 128"
+
+
+def k5_design_ops(b: int, t: int, d: int, h: int, bwd: bool) -> int:
+    """The tensor-core operations K5 does at (b, t, d, h), counted from its
+    tiles (T in 64-row tiles, the head at its padded width W, the position
+    block 64 x 128 a 64-key tile): the forward's S and position block once
+    per 128-wide output chunk (NC times on the wide route, once at W <= 128)
+    and P.V once; the backward's dkdv and dq each recompute S, dP and the
+    position block per chunk, then dV, dK (2 units), dQu, dQv and dpe's two
+    halves (5 units). A unit is 2 Tp^2 W a head."""
+    from agacs_tpu_torch.ops import relpos_flash
+
+    w = relpos_flash.instance(d // h)
+    nc = max(1, w // relpos_flash.CHUNK)
+    tp = -(-t // 64) * 64
+    unit = 2 * b * h * tp * tp * w
+    return unit * ((8 * nc + 7) if bwd else (3 * nc + 1))
 
 
 def check_k5(dev, g, timed=True) -> dict:
@@ -1782,11 +1849,10 @@ def check_k5(dev, g, timed=True) -> dict:
     and 32's under "w128" and "w32"."""
     from agacs_tpu_torch.ops import relpos_flash
 
-    res = {"err": 0.0, "w128": {"err": 0.0}, "w32": {"err": 0.0}}
+    res = {"err": 0.0, **{k: {"err": 0.0} for k in ("w128", "w32", "wide", "wide1")}}
     for b, t, d, h, timed_case in k5_cases():
         dh = d // h
-        into = (res if (d, h) == (CD, CH) else res["w128"] if dh == 128
-                else res["w32"] if dh == 32 else {})
+        into = k5_slot(res, d, h)
         clean, bad = k5_inputs(g, dev, b, t, d)
         before = relpos_flash.LAUNCHES
         out = twice(f"K5 ({b}, {t}, {d})", relpos_flash.relpos_mha, *bad, h)
@@ -1794,8 +1860,8 @@ def check_k5(dev, g, timed=True) -> dict:
         err = hold(f"K5 T={t} d_head={dh}", out,
                    relpos_flash.relpos_mha_plain(*(x.float() for x in clean), h), (b, t, d))
         into["err"] = max(into.get("err", 0.0), err)
-        line = (f"phase 2r K5 relpos_flash_fwd ({b}, {t}, {d}) H={h} d_head {dh} (instance "
-                f"{relpos_flash.instance(dh)}): max_abs_err {err:.3e} (bound {KERNEL_RTOL} x "
+        line = (f"phase 2r K5 relpos_flash_fwd ({b}, {t}, {d}) H={h} d_head {dh} "
+                f"({k5_route(dh)}): max_abs_err {err:.3e} (bound {KERNEL_RTOL} x "
                 "max|plain f32|; keys past each length poisoned), bit-identical twice")
         if timed and timed_case:
             sets = [k5_inputs(g, dev, b, t, d)[0] + (h,) for _ in range(4)]
@@ -1814,12 +1880,14 @@ def check_k5(dev, g, timed=True) -> dict:
                                 attn_mask=relpos_sdpa_bias(qu, qv, pe, mask, h), scale=sc),
                             sets, 10)
             wp = sets[0][4].shape[0]
+            ops = 6 * b * h * t * t * dh
             into.update(ms=ms, plain_ms=plain_ms, library_ms=lib, route_ms=route,
-                        **roofline(5 * b * t * d * 2 + wp * d * 2 + b * t * 4,
-                                   6 * b * h * t * t * dh, "bf16"))
+                        design_ops=k5_design_ops(b, t, d, h, False), bound_ops=ops,
+                        **roofline(5 * b * t * d * 2 + wp * d * 2 + b * t * 4, ops, "bf16"))
             line += (f" kernel {ms:.4f} ms plain bf16 {plain_ms:.4f} ms sdpa with the "
                      f"materialised bias {lib:.4f} ms, the whole route (bias built, then "
-                     f"sdpa) {route:.4f} ms bound {into['bound_ms']:.4f} ms")
+                     f"sdpa) {route:.4f} ms bound {into['bound_ms']:.4f} ms; tensor-core "
+                     f"operations done {into['design_ops'] / ops:.2f}x the bound's count")
         print(line, flush=True)
     return res
 
@@ -1859,14 +1927,10 @@ def check_k5_bwd(dev, g, timed=True) -> dict:
     under "w128" and "w32"."""
     from agacs_tpu_torch.ops import relpos_flash
 
-    res = {"err": 0.0, "w128": {"err": 0.0}, "w32": {"err": 0.0}}
-    cases = ([(b, t, CD, CH, (b, t) == K5B_SHAPES[0]) for b, t in K5B_SHAPES]
-             + [(b, t, d, h, (d, h) in K5_WIDTH_TIMED and (b, t) == K5_WIDTH_SHAPES[0])
-                for d, h in K5_WIDTHS for b, t in K5_WIDTH_SHAPES])
-    for b, t, d, h, timed_case in cases:
+    res = {"err": 0.0, **{k: {"err": 0.0} for k in ("w128", "w32", "wide", "wide1")}}
+    for b, t, d, h, timed_case in k5_cases(K5B_SHAPES):
         dh = d // h
-        into = (res if (d, h) == (CD, CH) else res["w128"] if dh == 128
-                else res["w32"] if dh == 32 else {})
+        into = k5_slot(res, d, h)
         clean, bad = k5_inputs(g, dev, b, t, d)
         do = torch.randn(b, t, d, generator=g).to(dev, torch.bfloat16)
         o, m, l = relpos_flash._launch_fwd(*bad, h, stats=True)
@@ -1892,8 +1956,8 @@ def check_k5_bwd(dev, g, timed=True) -> dict:
             errs.append(f"{name} {err:.3e} ({err / (bound / K1B_RTOL):.2e} of max|plain|)")
             into["err"] = max(into.get("err", 0.0), err)
         del got, want, f32
-        line = (f"phase 2s K5 relpos_flash_bwd ({b}, {t}, {d}) H={h} d_head {dh} (instance "
-                f"{relpos_flash.instance(dh)}): " + ", ".join(errs)
+        line = (f"phase 2s K5 relpos_flash_bwd ({b}, {t}, {d}) H={h} d_head {dh} "
+                f"({k5_route(dh)}): " + ", ".join(errs)
                 + f" (bound {K1B_RTOL} x max|plain f32|; keys past each length poisoned; "
                 "a second run bit-identical in dqu, dqv, dk, dv)")
         if timed and timed_case:
@@ -1918,11 +1982,14 @@ def check_k5_bwd(dev, g, timed=True) -> dict:
             # pe read and dpe written, the mask and the row statistics read;
             # operations: the recomputed scores (content and position) and
             # dp, dv, dqu, dk, dqv, dpe: 8 products of 2 T^2 d_head a head
+            ops = 16 * b * h * t * t * dh
             into.update(ms=ms, plain_ms=plain_ms, library_ms=lib,
+                        design_ops=k5_design_ops(b, t, d, h, True), bound_ops=ops,
                         **roofline(10 * b * t * d * 2 + 2 * wp * d * 2 + b * t * 4
-                                   + 2 * b * h * t * 4, 16 * b * h * t * t * dh, "bf16"))
+                                   + 2 * b * h * t * 4, ops, "bf16"))
             line += (f" kernel {ms:.4f} ms plain bf16 {plain_ms:.4f} ms {lib_line} bound "
-                     f"{into['bound_ms']:.4f} ms")
+                     f"{into['bound_ms']:.4f} ms; tensor-core operations done "
+                     f"{into['design_ops'] / ops:.2f}x the bound's count")
             del sets
         print(line, flush=True)
     return res
@@ -3196,10 +3263,10 @@ def reset_decode_counts() -> None:
     reset_int8_counts()
 
 
-def serve(label: str, model, asr_cfg, audio, beam: int, want: dict, timed: int = 2) -> dict:
+def serve(label: str, model, asr_cfg, audio, beam: int, want: dict) -> dict:
     """One serving configuration on 8 x 15 s, 100 steps (beam: loop scan):
-    a warm-up request, then `timed` ones; the first of them must launch
-    exactly `want` (every other counter 0). ms/batch is the median."""
+    a warm-up request, then a timed one that must launch exactly `want`
+    (every other counter 0)."""
     from agacs_tpu_torch.decode.speech2text import Speech2Text
 
     s2t = Speech2Text(model, asr_cfg, beam_size=beam, max_steps=100, loop="scan")
@@ -3207,20 +3274,17 @@ def serve(label: str, model, asr_cfg, audio, beam: int, want: dict, timed: int =
     torch.cuda.synchronize()
     reset_decode_counts()
     torch.cuda.reset_peak_memory_stats()
-    times = []
-    for i in range(timed):
-        t0 = time.perf_counter()
-        out = s2t(audio)
-        times.append(time.perf_counter() - t0)
-        if i == 0:
-            results, launches = out, decode_counts()
+    t0 = time.perf_counter()
+    results = s2t(audio)
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = decode_counts()
     want = {k: want.get(k, 0) for k in launches}
     check(launches == want, f"{label} launches {launches} == {want}")
     check(len(results) == 8 and all(r.tokens[:5] == PRIMER and 5 < len(r.tokens) <= 106
                                     and np.isfinite(r.score) for r in results),
           f"{label}: 8 hypotheses")
     return {"results": results, "launches": {k: v for k, v in launches.items() if v},
-            "ms": statistics.median(times) * 1e3, "times": times, "s2t": s2t,
+            "ms": ms, "s2t": s2t,
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
@@ -3269,7 +3333,7 @@ def w8a16_serve_phase(sd8, dev, audio, int8_greedy: dict) -> dict:
             "K6": 8 * L * n_steps, "K8g": 2 * cfg.n_audio_layer + 2 * L,
             "K8q": 2 * cfg.n_audio_layer + 2 * L}
     with w8a16_env("1"):
-        run = serve("phase 32 W8A16 greedy", model, asr_cfg, audio, 1, want, timed=2)
+        run = serve("phase 32 W8A16 greedy", model, asr_cfg, audio, 1, want)
         # one device kernel a K6 call (no second pass)
         busy, n_events, per_name = exact_profile(
             "W8A16 profile: one launch a K6 call", lambda: run["s2t"](audio),
@@ -3282,8 +3346,7 @@ def w8a16_serve_phase(sd8, dev, audio, int8_greedy: dict) -> dict:
     e_log = rel_l2(lg_g, lg_c)
     k6 = sum(v for name, v in per_name.items() if "w8a16_kernel" in name)
     print(f"phase 32 W8A16 int8 greedy: whisper-small+adapters, int8 trunk, AGACS_W8A16=1, "
-          f"8 x 15 s, {n_steps} steps: {run['ms']:.1f} ms/batch (times "
-          f"{[round(t * 1e3, 1) for t in run['times']]}; phase 16 W8A8: "
+          f"8 x 15 s, {n_steps} steps: {run['ms']:.1f} ms/batch (one request; phase 16 W8A8: "
           f"{int8_greedy['ms']:.1f}), launches {run['launches']}; tokens vs phase 16: "
           f"{agreement(run['results'], int8_greedy['results'])}; first-step logits card vs "
           f"cpu f32 rel L2 {e_log:.3e} (bound {INT8_LOGITS_REL_L2}); profile: busy "
@@ -3351,7 +3414,7 @@ def serving_quant_phase(sd, dev, audio) -> dict:
                 want.update({"K3a": L * n_steps, "K3s": L * n_steps})
             with w8a16_env(env):
                 run = serve(f"phase 33 AGACS_W8A16={env} beam {beam}", model, asr_cfg,
-                            audio, beam, want, timed=1)
+                            audio, beam, want)
             out[(env, beam)] = run
             line.append(f"AGACS_W8A16={env} beam {beam}: {run['ms']:.1f} ms/batch, K6 "
                         f"{run['launches'].get('K6', 0)}")
@@ -3402,8 +3465,8 @@ def side_serve_phase(dev, audio) -> dict:
     n_side = len(cfg.side_network.layers)
     want = {"K1f": cfg.n_audio_layer, "K3": 2 * cfg.n_text_layer * n_steps,
             "K3@48": 2 * n_side * n_steps}
-    greedy = serve("phase 34 side greedy", model, asr_cfg, audio, 1, want, timed=2)
-    beam = serve("phase 34 side beam", model, asr_cfg, audio, BEAM, want, timed=2)
+    greedy = serve("phase 34 side greedy", model, asr_cfg, audio, 1, want)
+    beam = serve("phase 34 side beam", model, asr_cfg, audio, BEAM, want)
     (lg_c, enc_c), (lg_g, _) = (first_step(m, c, audio[:1]) for m, c in
                                 (models["cpu"], models["card"]))
     e_log = rel_l2(lg_g, lg_c)
@@ -3547,9 +3610,9 @@ def int8_cross_phase(model, sd, asr_cfg, audio, bf16_greedy: dict, bf16_beam: di
     enc_layers = model.cfg.n_audio_layer
     # one timed request each: the loop below times both cross-KV forms in turns
     greedy = serve("int8 cross-KV greedy", model8, acfg8, audio, 1,
-                   {"K1f": enc_layers, "K3": per, "K3-int8": per}, timed=1)
+                   {"K1f": enc_layers, "K3": per, "K3-int8": per})
     beam = serve("int8 cross-KV beam", model8, acfg8, audio, BEAM,
-                 {"K1f": enc_layers, "K3a": per, "K3s-int8": per}, timed=1)
+                 {"K1f": enc_layers, "K3a": per, "K3s-int8": per})
     with torch.inference_mode():
         enc, _ = encode(model, asr_cfg, torch.from_numpy(audio).to(dev),
                         torch.full((audio.shape[0],), audio.shape[1], device=dev))
@@ -3610,9 +3673,9 @@ def pe_serve_phase(dev, audio) -> dict:
     asr_cfg = ASRModelConfig(whisper=cfg)
     per = cfg.n_text_layer * (min(len(PRIMER) + 100, cfg.n_text_ctx) - 1)
     greedy = serve("PE greedy", model, asr_cfg, audio, 1,
-                   {"K1f": cfg.n_audio_layer, "K3-PE": per, "K3": per}, timed=2)
+                   {"K1f": cfg.n_audio_layer, "K3-PE": per, "K3": per})
     beam = serve("PE beam", model, asr_cfg, audio, BEAM,
-                 {"K1f": cfg.n_audio_layer, "K3a-PE": per, "K3s": per}, timed=2)
+                 {"K1f": cfg.n_audio_layer, "K3a-PE": per, "K3s": per})
     cpu_cfg = tw.make_config("small", pe_decoder=True, compute_dtype=torch.float32)
     cpu_model = tw.Whisper.from_state_dict(cpu_cfg, sd, device="cpu")
     lg_card, _ = first_step(model, asr_cfg, audio[:1])
@@ -3800,7 +3863,7 @@ def conformer_serve_phase(dev, audio) -> dict:
     `decode_conformer_batch` (the decode CLI's per-batch call): beam 10,
     ctc 0.4, lm 0.2, CONF_S steps. A warm-up, then a request with exact
     launch counts (K5 12 per encode, K3 6 per step, K3-f32 16 per step,
-    nothing else), one more timed; one more with the CTC prefix scoring
+    nothing else), timed; one more with the CTC prefix scoring
     timed apart (synchronised around each call) for its share; a
     CONF_PROFILE_S-step request under the profiler beside the same
     request's wall time; and
@@ -3825,13 +3888,10 @@ def conformer_serve_phase(dev, audio) -> dict:
     t_phase = time.perf_counter()
     request(10)  # warm-up: cuBLAS handles, the kernels' first launches
     reset_decode_counts()
-    times = []
-    for i in range(2):
-        t0 = time.perf_counter()
-        rows, scores = request()
-        times.append(time.perf_counter() - t0)
-        if i == 0:
-            launches = {k: v for k, v in decode_counts().items() if v}
+    t0 = time.perf_counter()
+    rows, scores = request()
+    times = [time.perf_counter() - t0]
+    launches = {k: v for k, v in decode_counts().items() if v}
     want = {"K5": model.cfg.encoder.num_blocks,
             "K3": model.cfg.decoder.num_blocks * CONF_S, "K3-f32": lm.cfg.num_blocks * CONF_S}
     check(launches == want, f"conformer serving launches {launches} == {want}")
@@ -3860,7 +3920,7 @@ def conformer_serve_phase(dev, audio) -> dict:
     print(f"phase 25 conformer serving: conformer 12 x 256 bf16 + decoder 6 + LM 16 x 512 "
           f"f32, vocabulary 51865, 8 x 15 s ({int(lens[0]) // 128 + 1} frames -> 468), beam "
           f"{CONF_BEAM}, ctc {CONF_CTC}, lm {CONF_LM}, {CONF_S} steps: {ms:.1f} ms/batch "
-          f"(median of {[round(t * 1e3, 1) for t in times]}), {120.0 / (ms / 1e3):.1f} x "
+          f"(one request after a warm-up), {120.0 / (ms / 1e3):.1f} x "
           f"realtime, {ms / CONF_S:.2f} ms/step incl. encode; launches {launches}; CTC prefix "
           f"scoring {sum(ctc_s) * 1e3:.1f} ms of a {ctc_req * 1e3:.1f} ms request "
           f"({ctc_share:.1%}, {len(ctc_s)} calls, synchronised around each); lengths "
@@ -5031,7 +5091,7 @@ MUTANTS = {
         "relpos_flash.cu",
         [("y[e] = __float2bfloat16(__bfloat162float(x[e]) * li);", "y[e] = x[e];")], ("k5b",)),
     "K5 bwd key mask ignored in ds": (
-        "relpos_flash.cu", [("* scale + sm.mask[s][c + e];", "* scale;")], ("k5b",)),
+        "relpos_flash.cu", [("* scale + mask_s[c + e];", "* scale;")], ("k5b",)),
     "K5 bwd m written in log2 units": (
         "relpos_flash.cu", [("row_m[at] = m0;", "row_m[at] = m0 * LOG2E;"),
                             ("row_m[at + 8] = m1;", "row_m[at + 8] = m1 * LOG2E;")], ("k5b",)),
@@ -5125,6 +5185,15 @@ MUTANTS = {
     "K5 forward key tail unmasked": (
         "relpos_flash.cu", [("if (k0 + BS > T) {  // the key tail", "if (false) {  // the key tail")],
         ("k5",)),
+    # The wide route (heads above 128): the forward's value tile taken from
+    # chunk 0 in every output chunk's block; dkdv's chunk order without its
+    # own chunk last (its outputs then use another chunk's qu and do / l).
+    "K5 wide forward v of chunk 0": (
+        "relpos_flash.cu", [("&sm.full[s], col + 128 * cc, k0, b);", "&sm.full[s], col, k0, b);")],
+        ("k5",)),
+    "K5 wide dkdv own chunk not last": (
+        "relpos_flash.cu", [("c = col + 128 * ((cc + 1 + it % NC) % NC);",
+                             "c = col + 128 * (it % NC);")], ("k5b",)),
     "K3-PE gate ignored (a fixed 0.5 mix)": (
         "decode_attn.cu", [("const float g = PE ? gate[h] : 0.f;",
                             "const float g = PE ? 0.5f : 0.f;")], ("k3pe",)),
@@ -5548,7 +5617,7 @@ SEAME_DEV = {"train/wav_file.txt": ["data/conversation/NC01FBX_0101/audio.wav",
              "dev_sge/text": ["ni01m-ni01max_0101-00510-00710 third utt"]}
 SEAME_SPLITS = ("train", "valid", "devman", "devsge")
 PREFETCH_BINS = 100000  # phase 40's batch_bins: batches of 2, 2 and 1 utterances
-PREFETCH_PASSES = 3  # passes over those batches a prefetch turn
+PREFETCH_PASSES = 2  # passes over those batches a prefetch turn
 
 
 def seame_corpus(root: str) -> tuple[str, str]:
@@ -6531,8 +6600,7 @@ def large_serve_phase(dev, cfg, sd, audio, int8: bool) -> dict:
         want.update(K2f=la if fused else 0, K8g=enc * la + 2 * lt + 8 * lt * n_steps,
                     K8q=enc * la + 2 * lt)
     label = f"phase 49d whisper-large+adapters {'int8 trunk' if int8 else 'bf16'} greedy"
-    run = serve(label, model, ASRModelConfig(whisper=cfg), audio, dec["beam_size"], want,
-                timed=1)
+    run = serve(label, model, ASRModelConfig(whisper=cfg), audio, dec["beam_size"], want)
     thin = int8_linear.THIN_LAUNCHES  # of the one timed request
     check(not int8 or thin == 8 * lt * n_steps,
           f"{label}: {thin} thin_matmul launches == 8 x {lt} x {n_steps}")
@@ -6642,45 +6710,62 @@ XL_BLOCKS = (24, 6)
 XL_PARITY_BLOCKS = (2, 2)
 XL_SEED = 10
 XL_TRAIN_STEPS = 3
+# Phase 51: the recipe's conformer at its own full width (d 256, units 2048,
+# 12 + 6 blocks, cnn_module_kernel 15, ctc 0.3) with one key changed,
+# encoder_conf.attention_heads 4 -> 1: one head of 256, so K5 runs its wide
+# route (2 chunks of 128); the decoder keeps 4 heads of 64 (K3), the CTC
+# head K4 at K 256. No public conformer preset has heads above 128; JAX's
+# kernel takes any d_head % 8 == 0. Random weights from torch seed H1_SEED.
+H1_WIDTHS = {"enc_attention_heads": 1}
+H1_BLOCKS = (12, 6)
+H1_PARITY_BLOCKS = (2, 1)
+H1_SEED = 11
+H1_TRAIN_STEPS = 3
 
 
-def xlarge_raw(enc_blocks: int, dec_blocks: int) -> dict:
-    return conformer_raw(**XL_WIDTHS, enc_num_blocks=enc_blocks, dec_num_blocks=dec_blocks)
+def width_raw(widths: dict, enc_blocks: int, dec_blocks: int) -> dict:
+    return conformer_raw(**widths, enc_num_blocks=enc_blocks, dec_num_blocks=dec_blocks)
 
 
-def xlarge_step_launches(enc_blocks: int) -> dict:
-    """Kernel launches of one XLarge micro-batch: K5 forward and backward
-    once a block, K4's three passes once."""
+def width_step_launches(enc_blocks: int) -> dict:
+    """Kernel launches of one conformer micro-batch: K5 forward and backward
+    once an encoder block, K4's three passes once."""
     return {"K5": enc_blocks, "K5 bwd": enc_blocks, "K4": 1, "K4 dx": 1, "K4 dw": 1}
 
 
-def xlarge_phase(dev, audio) -> dict:
-    """Phase 50: (a) the XLarge conformer's train step at 16 x 15 s (Adam,
-    WarmupLR, clip 5, SpecAug, dropout 0.1 as the recipe): a warm-up, then
-    XL_TRAIN_STEPS timed steps with exact launches (K5 forward and backward
-    24 a step each, K4 1 + 1 + 1), ms a step, peak memory, one more step
-    under the profiler for the device's busy and idle share; (b) a
-    joint CTC/attention beam-10 request (ctc 0.4, LM 0.2, CONF_S steps, the
-    recipe's LM) on phase 4's 8 x 15 s through `decode_conformer_batch`,
-    one timed after a warm-up, exact launches (K5 24 an encode, K3 at d_head 128 6 a step, K3-f32 16 a
-    step), ms per batch; (c) at XL_PARITY_BLOCKS blocks of the same widths,
-    the card in bf16 against the CPU in float32: a train micro-step within
-    phase 31's rule and bounds, and the encoder output and the first joint
-    step within phase 27's (CONF_REL_L2)."""
+def width_phase(dev, audio, phase: str, label: str, widths: dict, blocks: tuple,
+                parity_blocks: tuple, seed: int, steps: int) -> dict:
+    """Phases 50 and 51: the conformer on train_asr_conformer.yaml with the
+    encoder_conf / decoder_conf `widths` (enc_* / dec_* keys) at `blocks`
+    (encoder, decoder), random weights from torch seed `seed`: (a) the
+    train step at 16 x 15 s (Adam, WarmupLR, clip 5, SpecAug, dropout 0.1
+    as the recipe): a warm-up, then `steps` timed steps with exact launches
+    (K5 forward and backward once an encoder block a step, K4 1 + 1 + 1),
+    finite losses and no non-finite gradient, ms a step, peak memory, one
+    more step under the profiler for the device's busy and idle share; (b)
+    a joint CTC/attention beam-10 request (ctc 0.4, LM 0.2, CONF_S steps,
+    the recipe's LM) on phase 4's 8 x 15 s through `decode_conformer_batch`,
+    one timed after a warm-up, exact launches (K5 once an encoder block an
+    encode, K3 once a decoder block a step, K3-f32 16 a step), 8 finite
+    hypotheses, ms per batch; (c) at `parity_blocks` blocks of the same
+    widths, the card in bf16 against the CPU in float32: a train micro-step
+    within phase 31's rule and bounds, and the encoder output and the first
+    joint step within phase 27's (CONF_REL_L2)."""
     from agacs_tpu_torch.decode.joint_beam import decode_conformer_batch
     from agacs_tpu_torch.models import conformer_asr
-    from agacs_tpu_torch.ops import decode_attn
     from agacs_tpu_torch.train.optim import build_optimizer
     from agacs_tpu_torch.train.trainer import make_train_step
     from agacs_tpu_torch.utils.config import optim_config_from_dict
 
     t_phase = time.perf_counter()
-    enc_blocks, dec_blocks = XL_BLOCKS
-    raw = xlarge_raw(enc_blocks, dec_blocks)
-    model, cfg, sd, raw = conformer_train_model(dev, torch.bfloat16, raw=raw, seed=XL_SEED)
-    check(cfg.encoder.output_size // cfg.encoder.attention_heads == 128
-          and cfg.decoder.d_model // cfg.decoder.attention_heads == 128,
-          "heads of 128 in the encoder and the decoder")
+    enc_blocks, dec_blocks = blocks
+    raw = width_raw(widths, enc_blocks, dec_blocks)
+    model, cfg, sd, raw = conformer_train_model(dev, torch.bfloat16, raw=raw, seed=seed)
+    d, h = cfg.encoder.output_size, cfg.encoder.attention_heads
+    dd, dh = cfg.decoder.d_model, cfg.decoder.attention_heads
+    shape = (f"encoder d {d}, {h} head{'s' if h > 1 else ''} of {d // h}, units "
+             f"{cfg.encoder.linear_units}, {enc_blocks} blocks; decoder {dec_blocks} x {dh} "
+             f"heads of {dd // dh}")
     n_params = sum(p.numel() for p in model.parameters())
     ocfg = optim_config_from_dict(raw)
     opt, sched = build_optimizer(model.parameters(), ocfg)
@@ -6694,7 +6779,7 @@ def xlarge_phase(dev, audio) -> dict:
     reset_conformer_counts()
     torch.cuda.reset_peak_memory_stats()
     times, losses = [], []
-    for _ in range(XL_TRAIN_STEPS):
+    for _ in range(steps):
         t0 = time.perf_counter()
         stats = step([batch])
         torch.cuda.synchronize()
@@ -6702,10 +6787,10 @@ def xlarge_phase(dev, audio) -> dict:
         losses.append((float(stats["loss"]), float(stats["loss_ctc"]), float(stats["loss_att"])))
     train_launches = conformer_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    want = {k: v * XL_TRAIN_STEPS for k, v in xlarge_step_launches(enc_blocks).items()}
-    check(train_launches == want, f"XLarge train launches {train_launches} == {want}")
+    want = {k: v * steps for k, v in width_step_launches(enc_blocks).items()}
+    check(train_launches == want, f"{label} train launches {train_launches} == {want}")
     check(all(np.isfinite(v) for row in losses for v in row)
-          and int(stats["grad_nonfinite_total"]) == 0, f"finite XLarge losses {losses}")
+          and int(stats["grad_nonfinite_total"]) == 0, f"finite {label} losses {losses}")
     ms = statistics.median(times) * 1e3
     busy, n_events, per_name = device_profile(lambda: step([batch]))
 
@@ -6714,17 +6799,16 @@ def xlarge_phase(dev, audio) -> dict:
         return f"{t:.2f} ms ({t / busy:.1%})"
 
     t_enc = ((TRAIN_S * 16000 // 128 + 1 - 1) // 2 - 1) // 2
-    print(f"phase 50a XLarge conformer train: train_asr_conformer.yaml at d 1024, 8 heads of "
-          f"128, units 4096, {enc_blocks} blocks, decoder {dec_blocks} x 8 heads, "
+    print(f"phase {phase}a {label} train: train_asr_conformer.yaml, {shape}, "
           f"{n_params / 1e9:.3f}B parameters, bf16 / f32 masters, Adam, {TRAIN_B} x {TRAIN_S} s "
           f"(T {t_enc}) a step: {ms:.1f} ms/step (median of "
           f"{[round(t * 1e3, 1) for t in times]}), {TRAIN_B * TRAIN_S / (ms / 1e3):.1f} "
           f"audio-s/s; peak {peak_gb:.2f} GB; launches {train_launches} "
-          f"({xlarge_step_launches(enc_blocks)} a step); losses "
+          f"({width_step_launches(enc_blocks)} a step); losses "
           f"{[tuple(round(v, 3) for v in row) for row in losses]}; profile: device busy "
           f"{busy:.1f} ms in {n_events} events, idle {1 - busy / ms:.1%}; K5 fwd "
-          f"{share('relpos_flash_fwd')}, K5 bwd "
-          f"{share('relpos_dkdv', 'relpos_dq', 'relpos_rowdot')}, K4 "
+          f"{share('relpos_flash_fwd', 'relpos_wide_fwd')}, K5 bwd "
+          f"{share('relpos_dkdv', 'relpos_dq', 'relpos_rowdot', 'relpos_wide_d')}, K4 "
           f"{share('vocab_lse')}; built + warm-up {load_s:.1f} s; top: "
           + top_kernels(per_name, 6), flush=True)
     del model, opt, step
@@ -6750,24 +6834,22 @@ def xlarge_phase(dev, audio) -> dict:
     serve_ms = (time.perf_counter() - t0) * 1e3
     serve_launches = {k: v for k, v in decode_counts().items() if v}
     want = {"K5": enc_blocks, "K3": dec_blocks * CONF_S, "K3-f32": lm.cfg.num_blocks * CONF_S}
-    check(serve_launches == want, f"XLarge serving launches {serve_launches} == {want}")
+    check(serve_launches == want, f"{label} serving launches {serve_launches} == {want}")
     check(len(rows) == audio.shape[0] and bool(torch.isfinite(scores).all()),
-          "XLarge serving: 8 finite hypotheses")
-    print(f"phase 50b XLarge conformer serving: bf16 encoder {enc_blocks} x 1024 + decoder "
-          f"{dec_blocks} x 1024 (8 heads of 128), LM 16 x 512 f32, 8 x 15 s, beam {CONF_BEAM}, "
-          f"ctc {CONF_CTC}, lm {CONF_LM}, {CONF_S} steps: {serve_ms:.1f} ms/batch (one request "
-          f"after a warm-up), {120.0 / (serve_ms / 1e3):.1f} x "
-          f"realtime; launches {serve_launches} (K3: the rows kernel at d_head 128, "
-          f"{dec_blocks} a step); lengths {[len(r) for r in rows]}; phase "
-          f"{time.perf_counter() - t_serve:.1f} s", flush=True)
+          f"{label} serving: {audio.shape[0]} finite hypotheses")
+    print(f"phase {phase}b {label} serving: bf16 {shape}, LM {lm.cfg.num_blocks} x "
+          f"{lm.cfg.d_model} f32, 8 x 15 s, beam {CONF_BEAM}, ctc {CONF_CTC}, lm {CONF_LM}, "
+          f"{CONF_S} steps: {serve_ms:.1f} ms/batch (one request after a warm-up), "
+          f"{120.0 / (serve_ms / 1e3):.1f} x realtime; launches {serve_launches}; lengths "
+          f"{[len(r) for r in rows]}; phase {time.perf_counter() - t_serve:.1f} s", flush=True)
     del smodel, lm
     torch.cuda.empty_cache()
 
     t_par = time.perf_counter()
-    raw2 = xlarge_raw(*XL_PARITY_BLOCKS)
-    sd2 = conformer_train_model("cpu", torch.float32, raw=raw2, seed=XL_SEED)[2]
-    train_par = conformer_train_parity(sd2, dev, batch, raw=raw2, phase="50c",
-                                       launches=xlarge_step_launches(XL_PARITY_BLOCKS[0]))
+    raw2 = width_raw(widths, *parity_blocks)
+    sd2 = conformer_train_model("cpu", torch.float32, raw=raw2, seed=seed)[2]
+    train_par = conformer_train_parity(sd2, dev, batch, raw=raw2, phase=f"{phase}c",
+                                       launches=width_step_launches(parity_blocks[0]))
     card_m, card_lm, _, lsd2 = conformer_models(dev, torch.bfloat16, sd2, lm_blocks=2,
                                                 raw=raw2)
     cpu_m, cpu_lm, _, _ = conformer_models("cpu", torch.float32, sd2, lsd2, lm_blocks=2,
@@ -6775,14 +6857,14 @@ def xlarge_phase(dev, audio) -> dict:
     j_cpu, cands, enc_cpu = first_step_joint(cpu_m, cpu_lm, audio[:1])
     j_card, _, enc_card = first_step_joint(card_m, card_lm, audio[:1], cands)
     e_enc, e_joint = rel_l2(enc_card, enc_cpu), rel_l2(j_card, j_cpu)
-    check(enc_card.shape == (1, 468, 1024) and bool(torch.isfinite(enc_card).all())
-          and e_enc <= CONF_REL_L2, f"XLarge encoder rel L2 {e_enc} <= {CONF_REL_L2}")
+    check(enc_card.shape == (1, 468, d) and bool(torch.isfinite(enc_card).all())
+          and e_enc <= CONF_REL_L2, f"{label} encoder rel L2 {e_enc} <= {CONF_REL_L2}")
     check(bool(torch.isfinite(j_card).all()) and e_joint <= CONF_REL_L2,
-          f"XLarge first-step joint scores rel L2 {e_joint} <= {CONF_REL_L2}")
-    print(f"phase 50c XLarge widths at {XL_PARITY_BLOCKS[0]} + {XL_PARITY_BLOCKS[1]} blocks, "
+          f"{label} first-step joint scores rel L2 {e_joint} <= {CONF_REL_L2}")
+    print(f"phase {phase}c {label} widths at {parity_blocks[0]} + {parity_blocks[1]} blocks, "
           f"card bf16 vs cpu f32: serving encoder rel L2 {e_enc:.3e}, first-step joint scores "
           f"rel L2 {e_joint:.3e} (phase 27's bound {CONF_REL_L2}); the train micro-step above "
-          f"(phase 31's rule); phase {time.perf_counter() - t_par:.1f} s; phase 50 "
+          f"(phase 31's rule); phase {time.perf_counter() - t_par:.1f} s; phase {phase} "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     del card_m, card_lm, cpu_m, cpu_lm
     torch.cuda.empty_cache()
@@ -6811,6 +6893,11 @@ def main() -> int:
         return dist_worker(sys.argv[2], sys.argv[3:])
     dev = torch.device("cuda:0")
     t_start = time.perf_counter()
+    laps = [("start", t_start)]
+
+    def lap(name: str) -> None:  # the seconds of each group of phases, printed at the end
+        laps.append((name, time.perf_counter()))
+
     if sys.argv[1:2] == ["--mutants"]:
         mutants(dev, sys.argv[2:])
         return 0
@@ -6857,6 +6944,7 @@ def main() -> int:
         ptxas_entries(cuda_lib.BUILD_LOG.get(name, ""))
         for name in ("packed_flash_fwd", "packed_flash_bwd", "relpos_flash", "int8_mlp",
                      "vocab_lse", "int8_gemm", "decode_attn")), flush=True)
+    lap("1")
 
     # 2-3s. each kernel against its plain version
     g = torch.Generator(device="cpu").manual_seed(0)
@@ -6870,13 +6958,16 @@ def main() -> int:
     k8 = check_k8(dev, g)
     k8q = check_k8q(dev, g)
     k2 = check_k2(dev, g)
+    lap("2-3s before K5")
     k5 = check_k5(dev, g)
     k5b = check_k5_bwd(dev, g)
+    lap("2r-2s")
     k4 = check_k4(dev, g)
     k3f32 = check_k3f32(dev, g)
     k3w = check_k3_widths(dev, g)
     k6 = check_k6(dev, g)
     k3d48 = check_k3_d48(dev, g)
+    lap("2v-3d")
 
     # 4. the slice: Speech2Text, whisper-small + adapters, bf16, 8 x 15 s
     cfg = tw.make_config("small", adapter=True, adapter_encoder=True,
@@ -6931,6 +7022,7 @@ def main() -> int:
           f"{peak_gb:.2f} GB; launches K1 {launches['K1']} (12/encode) K3 "
           f"{launches['K3']} (24/step); weights built+loaded in {load_s:.1f} s",
           flush=True)
+    lap("4")
 
     # 5. card (bf16) vs the port on the CPU (float32), same weights
     one = torch.from_numpy(audio[:1])
@@ -6958,63 +7050,78 @@ def main() -> int:
           f"{ENC_REL_L2}), first-step logits rel L2 {e_log:.3e} (bound "
           f"{LOGITS_REL_L2}); argmax card {int(log_g.argmax())} cpu "
           f"{int(log_c.argmax())}", flush=True)
+    lap("5")
 
     # 6. where the device time of one request goes
     profile_request(s2t, audio, ms_batch, n_steps)
+    lap("6")
 
     # 10-12. the beam request, its profile, and its end-to-end checks
     beam = beam_phase(model, asr_cfg, audio)
     beam_e2e(model, asr_cfg, audio, beam, cpu_model, enc_c)
+    lap("10-12")
 
     # 18. int8 cross-KV serving on the same model
     cross8 = int8_cross_phase(model, sd, asr_cfg, audio, {"s2t": s2t, "results": results},
                               beam)
     del s2t, model, cpu_model, beam["s2t"]
     torch.cuda.empty_cache()
+    lap("18")
 
     # 7-9. the training path
     train = train_phase(sd, dev)
     bf16_loss = train_parity(sd, dev, train["batch"])
+    lap("7-9")
 
     # 13-16. the int8 frozen trunk: training, its profile, parity, serving
     train8 = train_phase(sd, dev, int8=True, bf16=train)
     sd8 = int8_state(sd, dev)
     int8_train_parity(sd8, dev, train["batch"], bf16_loss)
     serve8 = int8_serve_phase(sd8, dev, audio)
+    lap("13-16")
+
     # 32-33. K6: the int8 trunk under AGACS_W8A16, then a serving-quantised
     # model (int8 trunk, token table and logits head)
     w8 = w8a16_serve_phase(sd8, dev, audio, serve8)
     del sd8, serve8["results"]
     serving_quant_phase(sd, dev, audio)
     cli_phase()
+    lap("32-33")
 
     # 19-24. PE attention: serving a PE decoder, training the cs_loss_pe
     # recipe, and the CLIs on a PE recipe
     pe_serve = pe_serve_phase(dev, audio)
     pe_train_phase(dev)
     pe_cli_phase()
+    lap("19-24")
 
     # 34-35. the ladder side network: serving and `sidenetwork` training
     side = side_serve_phase(dev, audio)
     side_train = side_train_phase(dev)
+    lap("34-35")
 
     # 25-28. the conformer recipe's serving (stage 4) and its CLIs (4, 5)
     conf = conformer_serve_phase(dev, audio)
     conformer_cli_phase(conf.pop("sd"))
+    lap("25-28")
 
     # 29-31. the conformer recipe's training (stage 3) at full width
     conf_train = conformer_train_phase(dev)
     conformer_train_parity(conf_train.pop("sd"), dev, conf_train.pop("batch"))
+    lap("29-31")
 
     # 36-38. the TMECS full fine-tune with a CTC head: K4 above K 256
     wctc = whisper_ctc_phase(dev)
     whisper_ctc_parity(wctc.pop("sd"), dev, wctc.pop("batch"))
+    lap("36-38")
 
     # 39. recipes/seame/run.sh stages 0-6 through the port's CLIs
     seame_recipe_phase(smi)
+    lap("39")
 
     # 40. the train CLI's options: resume, batch types, augmentation, prefetch
     trainer_options_phase(sd, dev, smi)
+    lap("40")
 
     # 41-45. the transducer family: K4 at the joint's K 320, the recipe's
     # step, its parity with the CPU, decoding, and the CLIs
@@ -7023,21 +7130,33 @@ def main() -> int:
     trans_train_parity(trans_train["sd"], dev)
     trans_decode_phase(trans_train.pop("sd"), dev)
     trans_cli_phase(smi)
+    lap("41-45")
 
     # 48. multi-GPU training through torchrun: NCCL at one rank (ZeRO-1, DCP,
     # resume), 2 gloo ranks on the one card, the int8 trunk; while its
     # processes start and train, 46-47: the whisper family's fused beam (CTC,
     # LM, n-gram) and long-form transcription with word timestamps
     dist_train_phase(smi, lambda: (whisper_fusion_phase(dev, audio), long_form_phase(dev)))
+    lap("48")
 
     # 49. whisper-large at full width: K4 above K 1024, the kernels at its
     # shapes, the stage-2 step (bf16, int8 trunk), the CTC full fine-tune,
     # greedy serving (bf16, int8 trunk), card against CPU
     large = whisper_large_phase(dev, g, audio)
+    lap("49")
 
     # 50. the conformer at XLarge widths (d 1024, heads of 128): training,
     # beam serving with the LM, and card against CPU at 2 + 2 blocks
-    xl = xlarge_phase(dev, audio)
+    xl = width_phase(dev, audio, "50", "XLarge conformer", XL_WIDTHS, XL_BLOCKS,
+                     XL_PARITY_BLOCKS, XL_SEED, XL_TRAIN_STEPS)
+    lap("50")
+
+    # 51. the recipe's conformer with one encoder head of 256 (K5's wide
+    # route): training, beam serving with the LM, and card against CPU at
+    # 2 + 1 blocks
+    h1 = width_phase(dev, audio, "51", "one-head conformer", H1_WIDTHS, H1_BLOCKS,
+                     H1_PARITY_BLOCKS, H1_SEED, H1_TRAIN_STEPS)
+    lap("51")
 
     check(not any(m.split(".")[0] in ("jax", "jaxlib", "agacs_tpu") for m in sys.modules),
           "no jax, jaxlib or agacs_tpu module was imported")
@@ -7191,6 +7310,20 @@ def main() -> int:
         entry("relpos_flash_bwd at d_head 32 (no main path runs a d_head-32 model: checked "
               "in phase 2s)", "relpos_flash.cu", "agacs_tpu/ops/relpos_flash.py:320", 0,
               k5b["w32"]),
+        entry("relpos_wide_fwd (K5 above d_head 128: heads padded to a multiple of 128, "
+              "streamed in 128-wide chunks, a grid axis over the output's chunks; (8, 468, "
+              "1024), 4 heads of 256; launches: phase 51's)", "relpos_flash.cu",
+              "agacs_tpu/ops/relpos_flash.py:298", h1["train"]["launches"]["K5"], k5["wide"]),
+        entry("relpos_wide_bwd (K5 backward above d_head 128: rowdot, dkdv and dq on the "
+              "chunks; (8, 468, 1024), 4 heads of 256; launches: phase 51's)",
+              "relpos_flash.cu", "agacs_tpu/ops/relpos_flash.py:320",
+              h1["train"]["launches"]["K5 bwd"], k5b["wide"]),
+        entry("relpos_wide_fwd at phase 51's width ((16, 468, 256), 1 head of 256)",
+              "relpos_flash.cu", "agacs_tpu/ops/relpos_flash.py:298",
+              h1["train"]["launches"]["K5"], k5["wide1"]),
+        entry("relpos_wide_bwd at phase 51's width ((16, 468, 256), 1 head of 256)",
+              "relpos_flash.cu", "agacs_tpu/ops/relpos_flash.py:320",
+              h1["train"]["launches"]["K5 bwd"], k5b["wide1"]),
         entry("decode_attn_rows_fwd (K3's plain rows at d_head 128: the XLarge conformer "
               "decoder's self-attention, (80, 112, 1024), 8 heads)", "decode_attn.cu",
               "agacs_tpu/ops/decode_attn.py:140", xl["serve"]["launches"]["K3"], k3w["bf16"]),
@@ -7204,7 +7337,9 @@ def main() -> int:
         k["launches"] > 0 for k in kernels
         if "no decode step" not in k["name"] and "no main path" not in k["name"]),
           "every kernel of the paths launched on its path, K1b none in side training")
-    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s",
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s; seconds "
+          "by group of phases: " + ", ".join(f"{name} {t - laps[i][1]:.1f}"
+                                             for i, (name, t) in enumerate(laps[1:])),
           flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -152,25 +152,29 @@ def test_padded_heads_change_nothing(dh):
 
 
 # (T, d, heads) around the envelope's edges: T 63/64/640/641, d % 128, d_head
-# % 8, and d_head 8 .. 512
+# % 8, and d_head 8 .. 1024
 ENVELOPE = [(t, d, h) for t in (63, 64, 468, 640, 641)
             for d, h in ((128, 2), (128, 4), (128, 16), (256, 2), (256, 8), (256, 32),
                          (384, 8), (384, 3), (512, 4), (512, 2), (768, 8), (1024, 8),
-                         (1024, 4), (192, 4), (1280, 10), (640, 5), (512, 1))]
+                         (1024, 4), (192, 4), (1280, 10), (640, 5), (512, 1), (640, 4),
+                         (768, 2), (1024, 1))]
 
 
 @pytest.mark.parametrize("t,d,h", ENVELOPE)
 def test_envelope_is_jax_supports(t, d, h, monkeypatch):
-    """K5 on the card takes every (T, d, h) JAX's `supports` takes with
-    d_head <= D_HEAD_MAX, at the least instance that holds d_head; it names
-    the envelope when it rejects one, and `supports` (which picks the
-    conformer's path) stays JAX's."""
+    """K5 on the card takes every (T, d, h) JAX's `supports` takes: at the
+    least instance that holds d_head, or above 128 at the least multiple of
+    128 (the wide route); it raises, naming the envelope, exactly where
+    JAX's `supports` says no, and `supports` (which picks the conformer's
+    path) stays JAX's."""
     monkeypatch.setenv("AGACS_RELPOS_FLASH", "interpret")
     jax_ok = jrf.supports(t, d, h, jnp.bfloat16)
     assert relpos_flash.supports(t, d, h, torch.bfloat16) == jax_ok
-    if jax_ok and d // h <= relpos_flash.D_HEAD_MAX:
+    if jax_ok:
         w = relpos_flash.check_envelope(t, d, h)
-        assert w == min(i for i in relpos_flash.INSTANCES if i >= d // h)
+        dh = d // h
+        assert w == (min(i for i in relpos_flash.INSTANCES if i >= dh) if dh <= 128
+                     else -(-dh // 128) * 128)
     else:
         with pytest.raises(ValueError, match="envelope"):
             relpos_flash.check_envelope(t, d, h)
