@@ -49,7 +49,15 @@
 // and rank r merges rows [r BM / C, (r + 1) BM / C) of the C pairs in
 // rank order through distributed shared memory, m = max m_r, s = sum s_r
 // 2^(m_r - m), and stores lse = (m + log2 s) ln 2: no atomics, no second
-// pass, bit-identical from run to run.
+// pass, bit-identical from run to run. x's 64 resident rows fit beside the
+// ring up to K FWD_XK 1536 (`fwd_smem(1536, 64)`: 231,496 bytes). Above it
+// (the kernel's XS instance at 64 rows, route "stream") a ring slot
+// holds a 64 x 64 W chunk and the 64 x 64 x chunk of the same K range, so
+// S is summed over K / 64 chunk pairs and x is read from L2 once per V tile
+// (1 / 64 of W's bytes per row); the online (max, sum) and the cluster's
+// merge are the chunked route's. Streaming x, not splitting K over a
+// cluster, keeps the forward one kernel with one exchange at every K: its
+// shared memory no longer grows with K.
 //
 // Backward at K <= 256 (wgmma; `vocab_lse_dx_kernel`, `vocab_lse_dw_kernel`).
 // It replaced wmma kernels that rebuilt z once for every 128 output columns
@@ -103,8 +111,9 @@
 // dw). A warpgroup's 64 x K f32 accumulator does not fit its registers
 // there (384 a thread at K 768) and x's 128 rows take 192 KB, so the K-wide
 // accumulator is split over a thread-block cluster: C = K / KS ranks (KS
-// 128: C 3 to 8, the portable size at K 1024; 9 and 10 above, up to K_MAX
-// 1280, whisper-large's width, on a non-portable cluster, `CM` WIDE_C)
+// 128: C 3 to 8, the portable size at K 1024; 9 and 10 above, up to K
+// SPLIT128_K 1280, whisper-large's width, on a non-portable cluster, `CM`
+// WIDE_C)
 // work on one output tile (dx:
 // 128 rows, dw: 128 vocabulary columns; two consumer warpgroups of 64), and
 // rank r owns the K-slice [r KS, (r + 1) KS) of the accumulator and of the
@@ -154,6 +163,29 @@
 // GPC holds one such cluster, so ~80 of the 132 SMs work at once; the C
 // entries ask cudaOccupancyMaxActiveClusters first and refuse a launch the
 // card cannot hold.
+//
+// Backward above K 1280 (a conformer at USM's width 1536, and any K JAX's
+// kernel takes; `vocab_lse_split_kernel<DW, MAX_CW, KS2, GR>`). At KS 128
+// the exchange's bytes bound the split kernel (PERF.md, `--k4-ablate`): a
+// rank receives (C - 1) / C x 48 KB a tile for 2 x 128 x 64 x KS products.
+// So a rank takes a slice of KS2 256 instead, on an output tile of 64 rows
+// (dx) or 64 vocabulary columns (dw), one consumer warpgroup: the same
+// exchange bytes a row for twice the products, its 64 x 256 f32 share of
+// the accumulator in 128 registers a thread (m64n256k16 for the second
+// product), and no setmaxnreg (256 threads a block). The wrapper pads K to
+// a multiple of 256, so C = K / 256 is 6 to 16 up to GROUP_K 4096 (6 at K
+// 1536, 8 at 2048: portable; 9 to 16 non-portable, launched after the
+// occupancy check as at K 1280). Above 4096 a cluster cannot grow: the
+// slices are cut into G = ceil(K / 4096) groups of C (the wrapper pads K
+// to 256 C G), a grid axis over the groups; group g's rank r owns output
+// slice g C + r, and its partial S adds, to the product over that slice
+// (the resident operand and the ring as above), those over slices h C + r
+// of the other groups, whose x and W come as 64 x 64 chunk pairs through a
+// second ring of FSTAGES slots (the main ring keeps 3 slots for its room),
+// each chunk's product awaited before the slot is freed. Every group so
+// recomputes S over the whole K, G times the S work of one cluster
+// (PERF.md); the partials are still added in rank order, and only group 0
+// stores db, so the result is bit-identical from run to run.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -178,7 +210,6 @@ constexpr int VT = 64;          // columns of a streamed W tile (dx), of a warpg
 constexpr int DW_BV = 128;      // dw: vocabulary columns a block owns
 constexpr int DW_BN = 64;       // dw: rows of a streamed x tile
 constexpr int MAX_C = 8;        // dx: blocks of a cluster (the portable size)
-constexpr int K_MAX = 1280;     // the widest K the C entries take (whisper-large's d)
 constexpr int STAGES = 4;       // ring slots
 constexpr int CONSUMERS = 256;  // two consumer warpgroups
 constexpr int HTHREADS = CONSUMERS + 128;  // and a producer warpgroup (one warp loads)
@@ -256,15 +287,15 @@ __device__ __forceinline__ void dz_rows(float (&sc)[32], const float* strip, flo
   }
 }
 
-// S = X (the warpgroup's 64 rows, K-major: K / 64 boxes of 128 rows; xd
+// S = X (the warpgroup's 64 rows, K-major: K / 64 boxes of BR rows; xd
 // its descriptor) . the W tile (K x 64, MN-major). Issued and committed.
 // A descriptor's address field counts 16 bytes, so offsets add >> 4.
-template <int K>
+template <int K, int BR = DX_BM>
 __device__ __forceinline__ void issue_s(float (&sc)[32], uint64_t xd, const unsigned char* wt) {
   const uint64_t wd = hop::desc(wt);
 #pragma unroll
   for (int j = 0; j < K / 16; ++j)
-    hop::wgmma_ss_n64_tb(sc, xd + (((j >> 2) * DX_BM * 128 + (j & 3) * 32) >> 4),
+    hop::wgmma_ss_n64_tb(sc, xd + (((j >> 2) * BR * 128 + (j & 3) * 32) >> 4),
                          wd + ((j * 2048) >> 4), j);
   hop::wgmma_commit();
 }
@@ -593,8 +624,15 @@ __host__ __device__ constexpr int fwd_bm(int K) { return fwd_smem(K, 128) <= SME
 static_assert(fwd_bm(HK_MAX) == 128 && fwd_bm(768) == 128 && fwd_bm(896) == 64 &&
                   fwd_smem(1024, 64) <= SMEM_MAX,
               "K4's forward does not fit shared memory at some K up to 1024");
-static_assert(fwd_bm(K_MAX) == 64 && fwd_smem(K_MAX, 64) <= SMEM_MAX,
-              "K4's forward does not fit shared memory at K_MAX");
+constexpr int FWD_XK = 1536;  // the widest K with x's rows resident (64 a block)
+// Above FWD_XK (route "stream"): 64 rows a block, STAGES slots of a 64 x 64
+// W chunk and a 64 x 64 x chunk, the strips and the barriers, at every K.
+__host__ __device__ constexpr size_t fwd_stream_smem() {
+  return 1024 + STAGES * (FWD_KC + 64) * 128 + STRIPS + BARS;
+}
+static_assert(fwd_bm(FWD_XK) == 64 && fwd_smem(FWD_XK, 64) <= SMEM_MAX &&
+                  fwd_smem(FWD_XK + 128, 64) > SMEM_MAX && fwd_stream_smem() <= SMEM_MAX,
+              "K4's forward does not fit shared memory at some K");
 
 // A V tile's bias strip (b log2 e, -inf from column V on): the 16 values
 // of this thread's columns 8j + 2t, 8j + 2t + 1.
@@ -669,13 +707,12 @@ __device__ __forceinline__ void issue_s_rs(float (&sc)[32], const uint32_t (&xa)
   hop::wgmma_commit();
 }
 
-// S (+)= X[:, 64c : 64c + 64] (the warpgroup's 64 rows; xd the descriptor
-// of x's box 0, its boxes BM x 128 bytes) . a 64 x 64 W chunk (MN-major);
+// S (+)= X[:, 64c : 64c + 64] (xc: the descriptor of the warpgroup's 64
+// rows in the 64-column x box of chunk c) . a 64 x 64 W chunk (MN-major);
 // chunk 0 overwrites S. Issued and committed.
-template <int BM>
-__device__ __forceinline__ void issue_chunk(float (&sc)[32], uint64_t xd, const unsigned char* wt,
+__device__ __forceinline__ void issue_chunk(float (&sc)[32], uint64_t xc, const unsigned char* wt,
                                             int c) {
-  const uint64_t xc = xd + ((c * BM * 128) >> 4), wd = hop::desc(wt);
+  const uint64_t wd = hop::desc(wt);
 #pragma unroll
   for (int j = 0; j < 4; ++j)
     hop::wgmma_ss_n64_tb(sc, xc + ((j * 32) >> 4), wd + ((j * 2048) >> 4), c | j);
@@ -719,21 +756,24 @@ __device__ __forceinline__ void fwd_tile(const float (&cur)[32], float (&nx)[32]
 
 // lse of rows [r0, r0 + BM): KC = K (128 or 256; whole W tiles, two S
 // buffers) or FWD_KC (K / 64 chunks a tile, one S buffer); BM / 64
-// consumer warpgroups and a producer warpgroup. Grid (C, row tiles) in
-// clusters of C along x.
-template <int KC, int BM>
+// consumer warpgroups and a producer warpgroup. XS: x's chunks streamed
+// beside W's through the ring (above FWD_XK) instead of resident. Grid (C,
+// row tiles) in clusters of C along x.
+template <int KC, int BM, bool XS = false>
 __global__ void __launch_bounds__(BM * 2 + 128, 1)
 vocab_lse_fwd_kernel(const __grid_constant__ Maps mp, const float* __restrict__ bias,
                      float* __restrict__ lse, int N, int K, int V) {
   constexpr int CONS = BM * 2;        // consumer threads: a warpgroup of 128 per 64 rows
-  constexpr int STAGE = KC * 128;     // bytes of a ring slot: KC W rows x 64 columns
+  constexpr int WST = KC * 128;       // bytes of a slot's W: KC rows x 64 columns
+  constexpr int STAGE = WST + (XS ? BM * 128 : 0);  // and with XS the x chunk (BM x 64)
   constexpr bool WHOLE = KC > FWD_KC;  // a slot holds a whole K x 64 tile
+  static_assert(!(XS && WHOLE), "x is streamed only beside 64 x 64 W chunks");
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
   extern __shared__ unsigned char raw[];
   unsigned char* base = align1024(raw);
   unsigned char* xs = base;
-  unsigned char* ring = base + BM * K * 2;
+  unsigned char* ring = XS ? base : base + BM * K * 2;
   float* strip = reinterpret_cast<float*>(ring + STAGES * STAGE);  // [slot][column]
   uint64_t* bars = reinterpret_cast<uint64_t*>(strip + STAGES * VT);
   uint64_t* xfull = bars;
@@ -759,9 +799,11 @@ vocab_lse_fwd_kernel(const __grid_constant__ Maps mp, const float* __restrict__ 
       if (lane == 0) {
         hop::prefetch_map(&mp.x);
         hop::prefetch_map(&mp.w);
-        hop::mbar_expect_tx(xfull, BM * K * 2);
-        for (int kb = 0; kb < K / 64; ++kb)
-          hop::tma_load_2d(xs + kb * BM * 128, &mp.x, xfull, kb * 64, r0);
+        if (!XS) {
+          hop::mbar_expect_tx(xfull, BM * K * 2);
+          for (int kb = 0; kb < K / 64; ++kb)
+            hop::tma_load_2d(xs + kb * BM * 128, &mp.x, xfull, kb * 64, r0);
+        }
       }
       Pos p;
       for (int it = 0; it < nt; ++it) {
@@ -776,6 +818,7 @@ vocab_lse_fwd_kernel(const __grid_constant__ Maps mp, const float* __restrict__ 
             for (int kb = 0; kb < KC / 64; ++kb)
               hop::tma_load_2d(ring + p.s * STAGE + kb * 8192, &mp.w, &full[p.s], v0,
                                c * KC + kb * 64);
+            if (XS) hop::tma_load_2d(ring + p.s * STAGE + WST, &mp.x, &full[p.s], c * 64, r0);
           } else {
             hop::mbar_arrive(&full[p.s]);
           }
@@ -792,7 +835,7 @@ vocab_lse_fwd_kernel(const __grid_constant__ Maps mp, const float* __restrict__ 
   const int wg = warp >> 2, t = lane & 3;
   const int la = 64 * wg + 16 * (warp & 3) + (lane >> 2);  // rows la and la + 8 of the block
   float ma = -INFINITY, mb = -INFINITY, sa = 0.f, sb = 0.f;
-  hop::mbar_wait(xfull, 0);
+  if (!XS) hop::mbar_wait(xfull, 0);
   if constexpr (WHOLE) {
     uint32_t xa[KC / 4];
     load_xa<KC>(xa, xs + wg * 64 * 128);
@@ -821,7 +864,9 @@ vocab_lse_fwd_kernel(const __grid_constant__ Maps mp, const float* __restrict__ 
         if (c == 0) load_strip(bv, strip + p.s * VT);
         __syncwarp();
         hop::wgmma_fence();
-        issue_chunk<BM>(sc, xd, ring + p.s * STAGE, c);
+        const unsigned char* slot = ring + p.s * STAGE;
+        issue_chunk(sc, XS ? hop::desc(slot + WST + wg * 64 * 128) : xd + ((c * BM * 128) >> 4),
+                    slot, c);
         hop::wgmma_wait_n<1>();  // the previous chunk's product has landed: free its slot
         __syncwarp();
         if (c > 0 && lane == 0) hop::mbar_arrive(&empty[prev.s]);
@@ -880,8 +925,15 @@ constexpr int QBLK = 32 * 16;           // bytes of a quad's S tile: 32 float4
 constexpr int PBLK = 32 * 8;            // bytes of a quad's packed P: 32 pairs of bf16 pairs
 constexpr int RECV_QUADS = 36;          // max over C of C ceil(32 / C): a receive slot
 constexpr int RECV_WIDE = 40;           // the same over C 9 and 10 (above K 1024)
-constexpr int WIDE_C = K_MAX / KS;      // the widest cluster, 10: non-portable
+constexpr int SPLIT128_K = 1280;        // the widest K of KS-wide slices (whisper-large's d)
+constexpr int WIDE_C = SPLIT128_K / KS;  // the widest cluster of KS slices, 10: non-portable
 constexpr int SPLIT_BARS = (1 + 2 * STAGES + 8) * 8;
+constexpr int KS2 = 256;                // above SPLIT128_K: the K-slice of a rank (64-wide tiles)
+constexpr int MAX_CW = 16;              // the widest cluster the card launches (non-portable)
+constexpr int GROUP_K = MAX_CW * KS2;   // above it, a grid axis over groups of output slices
+constexpr int RECV_KS2 = 45;            // max over C 6 to 16 of C ceil(32 / C)
+constexpr int FCHUNK = 2 * 8192;        // a foreign slot: a 64 x 64 x chunk and a 64 x 64 W chunk
+constexpr int FSTAGES = 2;              // foreign slots (the grouped route)
 
 // The split kernels' shared memory, the same at every K (a rank holds a
 // KS-wide slice): the resident slice (128 x KS bf16), the ring (STAGES
@@ -906,8 +958,39 @@ __host__ __device__ constexpr size_t split_smem_wide() {
   return split_smem() + 4 * (RECV_WIDE - RECV_QUADS) * QBLK;
 }
 static_assert(recv_need(3, MAX_C) == RECV_QUADS && recv_need(MAX_C + 1, WIDE_C) == RECV_WIDE &&
-                  split_smem_wide() <= 232448 && WIDE_C * KS == K_MAX && WIDE_C <= 16,
+                  split_smem_wide() <= 232448 && WIDE_C * KS == SPLIT128_K && WIDE_C <= 16,
               "K4's split backward does not fit shared memory, or a cluster, above K 1024");
+// The split kernel's layout for NWG consumer warpgroups (64 rows or
+// columns each), a KSZ-wide slice, ST ring slots, RQ quads of a receive
+// slot and FST foreign slots: the resident slice, the ring, the receive
+// slots and P (two each a warpgroup), the foreign ring, the strips (two
+// tables of ST slots), the block's row or column tables and the barriers.
+__host__ __device__ constexpr size_t split_layout(int nwg, int ksz, int st, int rq, int fst) {
+  return 1024 + 64 * nwg * ksz * 2 + st * ksz * 128 + 2 * nwg * rq * QBLK + 2 * nwg * 32 * PBLK +
+         fst * FCHUNK + 2 * st * VT * 4 + 2 * 128 * 4 + (1 + 2 * st + 4 * nwg + 2 * fst) * 8;
+}
+// Above SPLIT128_K: one warpgroup, KS2 slices; the grouped route (`gr`) gives
+// a main ring slot's room to the foreign ring.
+__host__ __device__ constexpr size_t split2_smem(bool gr) {
+  return split_layout(1, KS2, gr ? STAGES - 1 : STAGES, RECV_KS2, gr ? FSTAGES : 0);
+}
+static_assert(split_layout(2, KS, STAGES, RECV_QUADS, 0) == split_smem() &&
+                  recv_need(SPLIT128_K / KS2 + 1, MAX_CW) == RECV_KS2 &&
+                  split2_smem(false) <= 232448 && split2_smem(true) <= 232448 &&
+                  GROUP_K == 4096 && (SPLIT128_K / KS2 + 1) * KS2 > SPLIT128_K,
+              "K4's split backward does not fit shared memory, or a cluster, above K 1280");
+
+// The groups G of output slices at K above SPLIT128_K (C = K / KS2 / G
+// ranks a cluster, at most MAX_CW), or 0 where the wrapper's padding rule
+// does not give K: a multiple of KS2, above SPLIT128_K, and of KS2 G.
+__host__ __device__ constexpr int split_groups(int K) {
+  return K <= SPLIT128_K || K % KS2 ? 0
+         : (K / KS2) % ((K / KS2 + MAX_CW - 1) / MAX_CW) ? 0
+                                                         : (K / KS2 + MAX_CW - 1) / MAX_CW;
+}
+static_assert(split_groups(1536) == 1 && split_groups(GROUP_K) == 1 && split_groups(4608) == 2 &&
+                  split_groups(4352) == 0 && split_groups(1408) == 0,
+              "K4's split groups");
 
 // Rank r of C owns quads [r 32 / C, (r + 1) 32 / C) of a warpgroup's 32 (a
 // quad: the 4 threads that hold rows a, a + 8); every rank sends it its
@@ -1022,79 +1105,137 @@ __device__ __forceinline__ void load_pa(uint32_t (&pa)[16], const uint32_t* pk, 
 }
 
 // A tile's partial S_r (dx: the warpgroup's 64 rows of x's slice . the W
-// tile; dw: its 64 columns of W's slice^T . the x tile^T) and the second
-// product (dx: dX += P W_tile^T; dw: dW^T += dz^T X_tile). Issued and
-// committed.
-template <bool DW>
+// tile; dw: its 64 columns of W's slice^T . the x tile^T; BR: the rows of
+// dx's resident x boxes) and the second product (dx: dX += P W_tile^T; dw:
+// dW^T += dz^T X_tile). Issued and committed.
+template <bool DW, int KSZ, int BR>
 __device__ __forceinline__ void split_s(float (&sc)[32], uint64_t rd, const unsigned char* slot) {
-  if constexpr (DW) issue_st<KS>(sc, rd, slot);
-  else issue_s<KS>(sc, rd, slot);
+  if constexpr (DW) issue_st<KSZ>(sc, rd, slot);
+  else issue_s<KSZ, BR>(sc, rd, slot);
 }
-template <bool DW>
-__device__ __forceinline__ void split_pv(float (&acc)[KS / 2], const uint32_t (&pa)[16],
+template <bool DW, int KSZ>
+__device__ __forceinline__ void split_pv(float (&acc)[KSZ / 2], const uint32_t (&pa)[16],
                                          const unsigned char* slot) {
-  if constexpr (DW) issue_pv<KS, 1>(acc, pa, slot, 2048, DW_BN * 128);
-  else issue_pv<KS, 0>(acc, pa, slot, 32, 1024);
+  if constexpr (DW) issue_pv<KSZ, 1>(acc, pa, slot, 2048, DW_BN * 128);
+  else issue_pv<KSZ, 0>(acc, pa, slot, 32, 1024);
+}
+
+// The ring position of a ring of S slots: slot s, phase ph.
+template <int S>
+struct SlotPos {
+  int s = 0, ph = 0;
+  __device__ __forceinline__ SlotPos next() const {
+    return s + 1 == S ? SlotPos{0, ph ^ 1} : SlotPos{s + 1, ph};
+  }
+};
+
+// The grouped route: S (+)= the products over the other groups' slices of
+// this rank, n chunk pairs from the foreign ring (a slot: the 64 x 64 x
+// chunk, K-major, then the 64 x 64 W chunk, MN-major; dx: x_chunk .
+// W_chunk, dw: W_chunk^T . x_chunk^T), each awaited before its slot is
+// freed (one arrival a consumer warp).
+template <bool DW>
+__device__ __forceinline__ void foreign_s(float (&sc)[32], const unsigned char* fring,
+                                          uint64_t* ffull, uint64_t* fempty,
+                                          SlotPos<FSTAGES>& fp, int n) {
+  for (int i = 0; i < n; ++i, fp = fp.next()) {
+    hop::mbar_wait(&ffull[fp.s], fp.ph);
+    __syncwarp();
+    hop::wgmma_fence();
+    const unsigned char* f = fring + fp.s * FCHUNK;
+    const uint64_t xd = hop::desc(f), wd = hop::desc(f + 8192);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if constexpr (DW) hop::wgmma_ss_n64_ta(sc, wd + ((j * 2048) >> 4), xd + ((j * 32) >> 4), 1);
+      else hop::wgmma_ss_n64_tb(sc, xd + ((j * 32) >> 4), wd + ((j * 2048) >> 4), 1);
+    }
+    hop::wgmma_commit();
+    hop::wgmma_wait();
+    hop::fence_regs(sc);
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) hop::mbar_arrive(&fempty[fp.s]);
+  }
 }
 
 // dx (DW false: out the (N, K) bf16 dx) or dw (out the (K, Vp) f32 dW, db
-// (Vp,)) at K = C KS: grid (C, row tiles or column blocks) in clusters of C
-// along x, C at most CM (MAX_C, or WIDE_C with a receive slot of RECV_WIDE
-// quads).
-template <bool DW, int CM = MAX_C>
-__global__ void __launch_bounds__(HTHREADS, 1)
+// (Vp,)) at K = C KSZ G: grid (C, row tiles or column blocks, G groups) in
+// clusters of C along x, C at most CM (MAX_C, or WIDE_C with a receive slot
+// of RECV_WIDE quads, or MAX_CW at KSZ KS2). KSZ KS: tiles of 128 rows or
+// columns, two consumer warpgroups; KSZ KS2: tiles of 64, one. GR: the
+// grouped route (G > 1; see the header note).
+template <bool DW, int CM = MAX_C, int KSZ = KS, bool GR = false>
+__global__ void __launch_bounds__(KSZ == KS ? HTHREADS : 256, 1)
 vocab_lse_split_kernel(const __grid_constant__ Maps mp, const float* __restrict__ bias,
                        const float* __restrict__ lse, const float* __restrict__ g,
                        void* __restrict__ out, float* __restrict__ db, int N, int K, int V,
                        int Vp) {
-  constexpr int RQ = CM > MAX_C ? RECV_WIDE : RECV_QUADS;  // quads of a receive slot
+  constexpr int NWG = KSZ == KS ? 2 : 1;  // consumer warpgroups, 64 rows or columns each
+  constexpr int BT = 64 * NWG;            // rows (dx) or columns (dw) of the output tile
+  constexpr int CONS = 128 * NWG;         // consumer threads
+  constexpr int ST = GR ? STAGES - 1 : STAGES;  // ring slots
+  constexpr int SST = KSZ * 128;          // bytes of a ring slot: KSZ x 64 or 64 x KSZ bf16
+  // quads of a receive slot
+  constexpr int RQ = KSZ == KS2 ? RECV_KS2 : CM > MAX_C ? RECV_WIDE : RECV_QUADS;
+  constexpr int FST = GR ? FSTAGES : 0;   // foreign slots
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
   extern __shared__ unsigned char raw[];
   unsigned char* base = align1024(raw);
-  unsigned char* res = base;  // the resident slice: dx x's 128 rows, dw W's 128 columns
-  unsigned char* ring = res + 128 * KS * 2;
-  unsigned char* recv = ring + STAGES * SPLIT_STAGE;  // [slot][wg][RQ]
-  unsigned char* pk = recv + 4 * RQ * QBLK;                 // [slot][wg][32 quads]: P
-  float* st0 = reinterpret_cast<float*>(pk + 4 * 32 * PBLK);  // [ring slot][64]: dx b, dw lse log2 e
-  float* st1 = st0 + STAGES * VT;                       // dw: g
-  float* tb0 = st1 + STAGES * VT;  // the block's 128 rows' lse log2 e (dx) or columns' b (dw)
+  unsigned char* res = base;  // the resident slice: dx x's BT rows, dw W's BT columns
+  unsigned char* ring = res + BT * KSZ * 2;
+  unsigned char* recv = ring + ST * SST;          // [slot][wg][RQ]
+  unsigned char* pk = recv + 2 * NWG * RQ * QBLK;  // [slot][wg][32 quads]: P
+  unsigned char* fring = pk + 2 * NWG * 32 * PBLK;  // [foreign slot]: x chunk, W chunk
+  // [ring slot][64]: dx b, dw lse log2 e
+  float* st0 = reinterpret_cast<float*>(fring + FST * FCHUNK);
+  float* st1 = st0 + ST * VT;                     // dw: g
+  float* tb0 = st1 + ST * VT;  // the block's rows' lse log2 e (dx) or columns' b (dw)
   float* tb1 = tb0 + 128;                // dx: the rows' g
   uint64_t* bars = reinterpret_cast<uint64_t*>(tb1 + 128);
   uint64_t* rfull = bars;
   uint64_t* full = bars + 1;
-  uint64_t* empty = full + STAGES;
-  uint64_t* sfull = empty + STAGES;  // [slot][wg]: every rank's partials of my quads landed
-  uint64_t* pfull = sfull + 4;             // [slot][wg]: every rank's quads of P landed
+  uint64_t* empty = full + ST;
+  uint64_t* sfull = empty + ST;  // [slot][wg]: every rank's partials of my quads landed
+  uint64_t* pfull = sfull + 2 * NWG;       // [slot][wg]: every rank's quads of P landed
+  uint64_t* ffull = pfull + 2 * NWG;       // [foreign slot]
+  uint64_t* fempty = ffull + FST;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int b0 = blockIdx.y * 128, k0 = rank * KS;  // the block's first row (dx) or column (dw)
+  const int grp = GR ? (int)blockIdx.z : 0, n_grp = GR ? (int)gridDim.z : 1;
+  // the block's first row (dx) or column (dw), and the rank's output slice
+  const int b0 = blockIdx.y * BT, k0 = (grp * C + rank) * KSZ;
   const int nt = DW ? (N + DW_BN - 1) / DW_BN : (V + VT - 1) / VT;  // tiles a rank sweeps
+  const int nf = (n_grp - 1) * (KSZ / 64);  // foreign chunk pairs a tile (the grouped route)
   const int q0 = quad0(rank, C), nq = quad0(rank + 1, C) - q0;
   // The bytes a phase of sfull and of pfull awaits: every rank's partials
   // of this rank's quads, and every rank's quads of P.
   const uint32_t s_bytes = C * nq * QBLK, p_bytes = 32 * PBLK;
   if (tid == 0) {
     hop::mbar_init(rfull, 1);
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < ST; ++s) {
       hop::mbar_init(&full[s], 32);  // the producer warp's lanes
-      hop::mbar_init(&empty[s], CONSUMERS / 32);
+      hop::mbar_init(&empty[s], CONS / 32);
     }
-    for (int i = 0; i < 4; ++i) {  // one arrival a phase, the rank's own, with the bytes it awaits
+    for (int s = 0; s < FST; ++s) {
+      hop::mbar_init(&ffull[s], 32);
+      hop::mbar_init(&fempty[s], CONS / 32);
+    }
+    // one arrival a phase, the rank's own, with the bytes it awaits
+    for (int i = 0; i < 2 * NWG; ++i) {
       hop::mbar_init(&sfull[i], 1);
       hop::mbar_init(&pfull[i], 1);
     }
     hop::mbar_fence_init();
-    for (int i = 0; i < 4; ++i) {  // tiles 0 and 1
+    for (int i = 0; i < 2 * NWG; ++i) {  // tiles 0 and 1
       hop::mbar_expect_tx(&sfull[i], s_bytes);
       hop::mbar_expect_tx(&pfull[i], p_bytes);
     }
   }
   cluster.sync();  // every rank's barriers initialised before the first remote store
 
-  if (warp >= CONSUMERS / 32) {  // the producer: the tables and the slice once, then the tiles
-    hop::reg_dealloc<40>();
-    if (warp == CONSUMERS / 32) {  // one warp loads
-      for (int i = lane; i < 128; i += 32) {
+  if (warp >= CONS / 32) {  // the producer: the tables and the slice once, then the tiles
+    if constexpr (NWG == 2) hop::reg_dealloc<40>();
+    if (warp == CONS / 32) {  // one warp loads
+      for (int i = lane; i < BT; i += 32) {
         const int j = b0 + i;
         if (DW) {
           tb0[i] = j < V ? bias[j] : -INFINITY;
@@ -1107,18 +1248,19 @@ vocab_lse_split_kernel(const __grid_constant__ Maps mp, const float* __restrict_
       if (lane == 0) {
         hop::prefetch_map(&mp.x);
         hop::prefetch_map(&mp.w);
-        hop::mbar_expect_tx(rfull, 128 * KS * 2);
-        for (int kb = 0; kb < KS / 64; ++kb) {
+        hop::mbar_expect_tx(rfull, BT * KSZ * 2);
+        for (int kb = 0; kb < KSZ / 64; ++kb) {
           if (DW) {
-            for (int h = 0; h < 2; ++h)
-              hop::tma_load_2d(res + h * KS * 128 + kb * 8192, &mp.w, rfull, b0 + 64 * h,
+            for (int h = 0; h < NWG; ++h)
+              hop::tma_load_2d(res + h * KSZ * 128 + kb * 8192, &mp.w, rfull, b0 + 64 * h,
                                k0 + 64 * kb);
           } else {
-            hop::tma_load_2d(res + kb * DX_BM * 128, &mp.x, rfull, k0 + 64 * kb, b0);
+            hop::tma_load_2d(res + kb * BT * 128, &mp.x, rfull, k0 + 64 * kb, b0);
           }
         }
       }
-      Pos p;
+      SlotPos<ST> p;
+      SlotPos<FSTAGES> fp;
       for (int it = 0; it < nt; ++it, p = p.next()) {
         const int s = p.s, j0 = it * 64;
         hop::mbar_wait(&empty[s], p.ph ^ 1);
@@ -1132,17 +1274,30 @@ vocab_lse_split_kernel(const __grid_constant__ Maps mp, const float* __restrict_
           }
         }
         if (lane == 0) {
-          hop::mbar_expect_tx(&full[s], SPLIT_STAGE);
-          for (int kb = 0; kb < KS / 64; ++kb) {
+          hop::mbar_expect_tx(&full[s], SST);
+          for (int kb = 0; kb < KSZ / 64; ++kb) {
             if (DW)
-              hop::tma_load_2d(ring + s * SPLIT_STAGE + kb * 8192, &mp.x, &full[s],
-                               k0 + 64 * kb, j0);
+              hop::tma_load_2d(ring + s * SST + kb * 8192, &mp.x, &full[s], k0 + 64 * kb, j0);
             else
-              hop::tma_load_2d(ring + s * SPLIT_STAGE + kb * 8192, &mp.w, &full[s], j0,
-                               k0 + 64 * kb);
+              hop::tma_load_2d(ring + s * SST + kb * 8192, &mp.w, &full[s], j0, k0 + 64 * kb);
           }
         } else {
           hop::mbar_arrive(&full[s]);
+        }
+        if constexpr (GR) {  // the other groups' slices of this rank, in 64 x 64 chunk pairs
+          for (int i = 0; i < nf; ++i, fp = fp.next()) {
+            const int h = i / (KSZ / 64);  // the h-th other group
+            const int kk = ((h + (h >= grp)) * C + rank) * KSZ + (i % (KSZ / 64)) * 64;
+            unsigned char* f = fring + fp.s * FCHUNK;
+            hop::mbar_wait(&fempty[fp.s], fp.ph ^ 1);
+            if (lane == 0) {
+              hop::mbar_expect_tx(&ffull[fp.s], FCHUNK);
+              hop::tma_load_2d(f, &mp.x, &ffull[fp.s], kk, DW ? j0 : b0);
+              hop::tma_load_2d(f + 8192, &mp.w, &ffull[fp.s], DW ? b0 : j0, kk);
+            } else {
+              hop::mbar_arrive(&ffull[fp.s]);
+            }
+          }
         }
       }
     }
@@ -1150,59 +1305,62 @@ vocab_lse_split_kernel(const __grid_constant__ Maps mp, const float* __restrict_
     cluster.sync();  // no block exits while another still stores into its shared memory
     return;
   }
-  hop::reg_alloc<232>();
+  if constexpr (NWG == 2) hop::reg_alloc<232>();
 
   const int wg = warp >> 2, tw = tid & 127, t = lane & 3;
   const int ra = 64 * wg + 16 * (warp & 3) + (lane >> 2);  // this thread's rows ra, ra + 8
   const bool lead = tw == 0;  // the warpgroup's thread that posts its barriers' bytes
   float* myrecv = reinterpret_cast<float*>(recv + wg * RQ * QBLK);  // + slot * rslot
   uint32_t* mypk = reinterpret_cast<uint32_t*>(pk + wg * 32 * PBLK);       // + slot * pslot
-  constexpr int rslot = 2 * RQ * QBLK / 4, pslot = 2 * 32 * PBLK / 4;
-  const uint64_t rd = hop::desc(res + wg * (DW ? KS * 128 : 64 * 128));
-  float acc[KS / 2];
+  constexpr int rslot = NWG * RQ * QBLK / 4, pslot = NWG * 32 * PBLK / 4;
+  const uint64_t rd = hop::desc(res + wg * (DW ? KSZ * 128 : 64 * 128));
+  float acc[KSZ / 2];
 #pragma unroll
-  for (int i = 0; i < KS / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < KSZ / 2; ++i) acc[i] = 0.f;
   float sc[32];
   uint32_t pa[16];
 #pragma unroll
   for (int i = 0; i < 16; ++i) pa[i] = 0u;
   float sa[3] = {0.f, 0.f, 0.f}, sb[3] = {0.f, 0.f, 0.f};  // dw's db sums
+  SlotPos<FSTAGES> fp;
   hop::mbar_wait(rfull, 0);
   hop::mbar_wait(&full[0], 0);
   __syncwarp();
   hop::wgmma_fence();
-  split_s<DW>(sc, rd, ring);
+  split_s<DW, KSZ, BT>(sc, rd, ring);
+  if constexpr (GR) foreign_s<DW>(sc, fring, ffull, fempty, fp, nf);
   hop::wgmma_wait();
   hop::fence_regs(sc);
   send_part(myrecv, &sfull[wg], sc, C, rank, tw);
   // Tile it's exchange beside the product of tile it - 1's P (at tile 0 a
   // product of zeros on tile 0's slot, so that no wgmma sits under a
   // condition); the next tile's S_r in flight under both.
-  Pos p, pp;  // tiles it's and it - 1's ring slots
+  SlotPos<ST> p, pp;  // tiles it's and it - 1's ring slots
   for (int it = 0; it < nt; ++it) {
     const bool more = it + 1 < nt;
-    const Pos nx = p.next();
+    const SlotPos<ST> nx = p.next();
     const int x = it & 1;
     if (more) hop::mbar_wait(&full[nx.s], nx.ph);
     __syncwarp();
     hop::wgmma_fence();
     // the next tile's S_r (after the last tile a product whose result is dropped)
-    split_s<DW>(sc, rd, ring + (more ? nx.s : p.s) * SPLIT_STAGE);
-    hop::mbar_wait_cluster(&sfull[x * 2 + wg], (it >> 1) & 1);
-    if (lead) hop::mbar_expect_tx(&sfull[x * 2 + wg], s_bytes);  // tile it + 2's
-    reduce_quads<DW, CM>(myrecv + x * rslot, mypk + x * pslot, &pfull[x * 2 + wg], C, rank, wg,
+    split_s<DW, KSZ, BT>(sc, rd, ring + (more ? nx.s : p.s) * SST);
+    if constexpr (GR) foreign_s<DW>(sc, fring, ffull, fempty, fp, more ? nf : 0);
+    hop::mbar_wait_cluster(&sfull[x * NWG + wg], (it >> 1) & 1);
+    if (lead) hop::mbar_expect_tx(&sfull[x * NWG + wg], s_bytes);  // tile it + 2's
+    reduce_quads<DW, CM>(myrecv + x * rslot, mypk + x * pslot, &pfull[x * NWG + wg], C, rank, wg,
                      st0 + p.s * VT, st1 + p.s * VT, tb0, tb1, sa, sb);
     if (it > 0) {
-      hop::mbar_wait_cluster(&pfull[(x ^ 1) * 2 + wg], ((it - 1) >> 1) & 1);
-      if (lead) hop::mbar_expect_tx(&pfull[(x ^ 1) * 2 + wg], p_bytes);  // tile it + 1's
+      hop::mbar_wait_cluster(&pfull[(x ^ 1) * NWG + wg], ((it - 1) >> 1) & 1);
+      if (lead) hop::mbar_expect_tx(&pfull[(x ^ 1) * NWG + wg], p_bytes);  // tile it + 1's
       load_pa(pa, mypk + (x ^ 1) * pslot, tw);
     }
     __syncwarp();
     hop::wgmma_fence();
-    split_pv<DW>(acc, pa, ring + pp.s * SPLIT_STAGE);
+    split_pv<DW, KSZ>(acc, pa, ring + pp.s * SST);
     hop::wgmma_wait_n<1>();
     hop::fence_regs(sc);
-    if (more) send_part(myrecv + (x ^ 1) * rslot, &sfull[(x ^ 1) * 2 + wg], sc, C, rank, tw);
+    if (more) send_part(myrecv + (x ^ 1) * rslot, &sfull[(x ^ 1) * NWG + wg], sc, C, rank, tw);
     hop::wgmma_wait();
     hop::fence_regs(acc);
     hop::fence_regs(pa);
@@ -1213,18 +1371,18 @@ vocab_lse_split_kernel(const __grid_constant__ Maps mp, const float* __restrict_
   }
   {
     const int x = (nt - 1) & 1;
-    hop::mbar_wait_cluster(&pfull[x * 2 + wg], ((nt - 1) >> 1) & 1);
+    hop::mbar_wait_cluster(&pfull[x * NWG + wg], ((nt - 1) >> 1) & 1);
     load_pa(pa, mypk + x * pslot, tw);
     __syncwarp();
     hop::wgmma_fence();
-    split_pv<DW>(acc, pa, ring + pp.s * SPLIT_STAGE);  // the last tile's product
+    split_pv<DW, KSZ>(acc, pa, ring + pp.s * SST);  // the last tile's product
     hop::wgmma_wait();
     hop::fence_regs(acc);
     hop::fence_regs(pa);
   }
 
   if constexpr (DW) {
-    // db: each rank's quads' columns, their sums added over the warp
+    // db: each rank's quads' columns, their sums added over the warp (group 0's alone)
 #pragma unroll
     for (int m = 0; m < 3; ++m) {
       const int quad = q0 + (warp & 3) + 4 * m;
@@ -1235,19 +1393,19 @@ vocab_lse_split_kernel(const __grid_constant__ Maps mp, const float* __restrict_
         sb[m] += __shfl_xor_sync(0xffffffffu, sb[m], o);
       }
       const int a = b0 + 64 * wg + 16 * (quad >> 3) + (quad & 7);
-      if (lane == 0) db[a] = sa[m], db[a + 8] = sb[m];
+      if (lane == 0 && grp == 0) db[a] = sa[m], db[a + 8] = sb[m];
     }
     // dW[k0 + k, v] = dW^T[v, k]: for each register, a warp fills 4 rows x 32 bytes
     float* dw = static_cast<float*>(out);
 #pragma unroll
-    for (int j = 0; j < KS / 8; ++j)
+    for (int j = 0; j < KSZ / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         dw[(size_t)(k0 + 8 * j + 2 * t + (e & 1)) * Vp + b0 + ra + 8 * (e >> 1)] = acc[4 * j + e];
   } else {  // dx[row, k0 + k] as bf16 pairs
     bf16* dx = static_cast<bf16*>(out);
 #pragma unroll
-    for (int j = 0; j < KS / 8; ++j)
+    for (int j = 0; j < KSZ / 8; ++j)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int row = b0 + ra + 8 * h;
@@ -1285,10 +1443,10 @@ int launch_hk(void (*kern)(KArgs...), dim3 grid, int cluster_x, int threads, siz
   return (int)cudaGetLastError();
 }
 
-// The clusters of C blocks of `kern` (`smem` bytes of shared memory each)
-// that the card holds at once (cudaOccupancyMaxActiveClusters), or a
-// negative error.
-int held_clusters(const void* kern, int C, size_t smem) {
+// The clusters of C blocks of `kern` (`threads` threads and `smem` bytes of
+// shared memory each) that the card holds at once
+// (cudaOccupancyMaxActiveClusters), or a negative error.
+int held_clusters(const void* kern, int C, size_t smem, int threads) {
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e == cudaSuccess && C > MAX_C)
@@ -1296,7 +1454,7 @@ int held_clusters(const void* kern, int C, size_t smem) {
   if (e != cudaSuccess) return -(int)e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(C, 1024);
-  cfg.blockDim = dim3(HTHREADS);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -1310,29 +1468,47 @@ int held_clusters(const void* kern, int C, size_t smem) {
   return e == cudaSuccess ? n : -(int)e;
 }
 
-// The split kernel `kern` above K 1024 on clusters of C (9 or 10, beyond
-// the portable size): launched only where the card holds such a cluster,
-// else cudaErrorInvalidConfiguration (or the query's error).
+// A split kernel `kern` on clusters of C: beyond the portable size (9 to
+// 16) launched only where the card holds such a cluster, else
+// cudaErrorInvalidConfiguration (or the query's error).
 template <typename... KArgs, typename... Args>
-int launch_wide(void (*kern)(KArgs...), dim3 grid, int C, cudaStream_t stream, Args... args) {
-  const int held = held_clusters((const void*)kern, C, split_smem_wide());
-  if (held <= 0) return held < 0 ? -held : (int)cudaErrorInvalidConfiguration;
-  return launch_hk(kern, grid, C, HTHREADS, split_smem_wide(), stream, args...);
+int launch_split(void (*kern)(KArgs...), dim3 grid, int C, int threads, size_t smem,
+                 cudaStream_t stream, Args... args) {
+  if (C > MAX_C) {
+    const int held = held_clusters((const void*)kern, C, smem, threads);
+    if (held <= 0) return held < 0 ? -held : (int)cudaErrorInvalidConfiguration;
+  }
+  return launch_hk(kern, grid, C, threads, smem, stream, args...);
+}
+
+// The split kernel above SPLIT128_K (one warpgroup, KS2 slices) for dx or
+// dw: grouped (GR) where the grid has G > 1 groups along z. Both instances
+// take the same arguments.
+template <bool DW>
+auto ks2_kernel(bool gr) {
+  return gr ? vocab_lse_split_kernel<DW, MAX_CW, KS2, true>
+            : vocab_lse_split_kernel<DW, MAX_CW, KS2, false>;
+}
+template <bool DW, typename... Args>
+int launch_ks2(dim3 grid, cudaStream_t stream, Args... args) {
+  const bool gr = grid.z > 1;
+  return launch_split(ks2_kernel<DW>(gr), grid, grid.x, 256, split2_smem(gr), stream, args...);
 }
 
 }  // namespace
 
-// The row lse of x W + b: x (N, K) bf16, K a multiple of 128 up to K_MAX 1280,
-// rows 16-byte aligned; W (K, V) bf16 in rows of stride ldw (a multiple of
-// 8, >= V; 16-byte aligned); b (V,) f32; lse (N,) f32 out. One launch:
-// blocks of BM rows (`vocab_lse.fwd_tiling`: fwd_bm(K)), each row tile's
-// V sweep split over a cluster of C blocks (1, 2, 4 or 8, no more than V's
-// 64-column tiles). Returns cudaErrorInvalidValue for a shape, BM or C the
-// kernel does not take, else the first launch error or cudaSuccess.
+// The row lse of x W + b: x (N, K) bf16, K a multiple of 128, rows 16-byte
+// aligned; W (K, V) bf16 in rows of stride ldw (a multiple of 8, >= V;
+// 16-byte aligned); b (V,) f32; lse (N,) f32 out. One launch: blocks of BM
+// rows (`vocab_lse.fwd_tiling`: fwd_bm(K)), each row tile's V sweep split
+// over a cluster of C blocks (1, 2, 4 or 8, no more than V's 64-column
+// tiles); above FWD_XK x streamed beside W. Returns cudaErrorInvalidValue
+// for a shape, BM or C the kernel does not take, else the first launch
+// error or cudaSuccess.
 extern "C" int vocab_lse_fwd(const void* x, const void* W, int ldw, const void* b, void* lse,
                              int N, int K, int V, int BM, int C, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  if (N <= 0 || V <= 0 || K <= 0 || K % 128 || K > K_MAX || ldw < V || ldw % 8 ||
+  if (N <= 0 || V <= 0 || K <= 0 || K % 128 || ldw < V || ldw % 8 ||
       BM != fwd_bm(K) || C < 1 || C > MAX_C || (C & (C - 1)) || C > (V + VT - 1) / VT)
     return (int)cudaErrorInvalidValue;
   Maps mp = {};
@@ -1353,36 +1529,51 @@ extern "C" int vocab_lse_fwd(const void* x, const void* W, int ldw, const void* 
   if (BM == 128)
     return launch_hk(vocab_lse_fwd_kernel<FWD_KC, 128>, grid, C, HTHREADS, smem, st, mp, bf,
                      out, N, K, V);
+  if (K > FWD_XK)
+    return launch_hk(vocab_lse_fwd_kernel<FWD_KC, 64, true>, grid, C, 256, fwd_stream_smem(), st,
+                     mp, bf, out, N, K, V);
   return launch_hk(vocab_lse_fwd_kernel<FWD_KC, 64>, grid, C, 256, smem, st, mp, bf, out, N, K,
                    V);
 }
 
 // The gradient of the row lse for g = d loss / d lse (N,) f32: dx (N, K)
 // bf16 out. K <= 256 runs the wgmma kernel on clusters of C blocks (1, 2,
-// 4 or 8, no more than V's 64-column tiles), a wider K the split kernel on
-// clusters of C = K / 128 (`vocab_lse.dx_tiling`; 9 and 10 non-portable).
-// x, W, b, lse and g as for vocab_lse_fwd (lse and g (N,) f32). Returns
-// cudaErrorInvalidValue for a shape or cluster the kernels do not take,
-// cudaErrorInvalidConfiguration where the card holds no cluster of C.
+// 4 or 8, no more than V's 64-column tiles); up to SPLIT128_K the split
+// kernel on clusters of C = K / 128 (`vocab_lse.dx_tiling`; 9 and 10
+// non-portable); above, the split kernel on 64-row tiles with KS2 slices,
+// C = K / 256 / G for G = `split_groups(K)` groups (C 9 to 16
+// non-portable). x, W, b, lse and g as for vocab_lse_fwd (lse and g (N,)
+// f32). Returns cudaErrorInvalidValue for a shape or cluster the kernels do
+// not take, cudaErrorInvalidConfiguration where the card holds no cluster
+// of C.
 extern "C" int vocab_lse_dx(const void* x, const void* W, int ldw, const void* b,
                             const void* lse, const void* g, void* dx, int N, int K, int V,
                             int C, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  if (N <= 0 || V <= 0 || K <= 0 || K % 128 || K > K_MAX || ldw < V || ldw % 8)
+  if (N <= 0 || V <= 0 || K <= 0 || K % 128 || ldw < V || ldw % 8)
     return (int)cudaErrorInvalidValue;
+  const float *bf = (const float*)b, *lf = (const float*)lse, *gf = (const float*)g;
+  Maps mp = {};
+  int rc;
+  if (K > SPLIT128_K) {
+    const int G = split_groups(K);
+    if (G == 0 || C != K / KS2 / G) return (int)cudaErrorInvalidValue;
+    if ((rc = hop_host::encode_bf16(&mp.x, x, N, K, K, 64)) ||
+        (rc = hop_host::encode_bf16(&mp.w, W, K, V, ldw, 64)))
+      return rc;
+    const dim3 grid(C, (N + 63) / 64, G);
+    return launch_ks2<false>(grid, st, mp, bf, lf, gf, dx, (float*)nullptr, N, K, V, 0);
+  }
   if (K > HK_MAX ? C != K / KS
                  : C < 1 || C > MAX_C || (C & (C - 1)) || C > (V + VT - 1) / VT)
     return (int)cudaErrorInvalidValue;
-  Maps mp = {};
-  int rc;
   if ((rc = hop_host::encode_bf16(&mp.x, x, N, K, K, DX_BM)) ||
       (rc = hop_host::encode_bf16(&mp.w, W, K, V, ldw, 64)))
     return rc;
   const dim3 grid(C, (N + DX_BM - 1) / DX_BM);
-  const float *bf = (const float*)b, *lf = (const float*)lse, *gf = (const float*)g;
   if (C > MAX_C)
-    return launch_wide(vocab_lse_split_kernel<false, WIDE_C>, grid, C, st, mp, bf, lf, gf, dx,
-                       (float*)nullptr, N, K, V, 0);
+    return launch_split(vocab_lse_split_kernel<false, WIDE_C>, grid, C, HTHREADS,
+                        split_smem_wide(), st, mp, bf, lf, gf, dx, (float*)nullptr, N, K, V, 0);
   if (K > HK_MAX)
     return launch_hk(vocab_lse_split_kernel<false>, grid, C, HTHREADS, split_smem(), st, mp,
                      bf, lf, gf, dx, (float*)nullptr, N, K, V, 0);
@@ -1394,17 +1585,19 @@ extern "C" int vocab_lse_dx(const void* x, const void* W, int ldw, const void* b
                    (bf16*)dx, N, V);
 }
 
-// dW (K, Vp) f32 and db (Vp,) f32 out, Vp = V rounded up to the 128
-// vocabulary columns of a block (`vocab_lse.dw_tiling`). K <= 256 runs the
-// wgmma kernel, a wider K the split kernel on clusters of K / 128 (9 and 10
-// non-portable, as for vocab_lse_dx). The columns from V on are written as
-// zeros; the caller slices them off.
+// dW (K, Vp) f32 and db (Vp,) f32 out, Vp = V rounded up to the vocabulary
+// columns of a block (`vocab_lse.dw_tiling`: 128, or 64 above SPLIT128_K).
+// K <= 256 runs the wgmma kernel, up to SPLIT128_K the split kernel on
+// clusters of K / 128 (9 and 10 non-portable, as for vocab_lse_dx), above
+// it the split kernel on 64-column blocks with KS2 slices (C and G as for
+// vocab_lse_dx). The columns from V on are written as zeros; the caller
+// slices them off.
 extern "C" int vocab_lse_dw(const void* x, const void* W, int ldw, const void* b,
                             const void* lse, const void* g, void* dw, void* db, int N, int K,
                             int V, int Vp, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  if (N <= 0 || V <= 0 || K <= 0 || K % 128 || K > K_MAX || ldw < V || ldw % 8 || Vp < V ||
-      Vp % DW_BV)
+  if (N <= 0 || V <= 0 || K <= 0 || K % 128 || ldw < V || ldw % 8 || Vp < V ||
+      Vp % (K > SPLIT128_K ? 64 : DW_BV))
     return (int)cudaErrorInvalidValue;
   Maps mp = {};
   int rc;
@@ -1412,9 +1605,17 @@ extern "C" int vocab_lse_dw(const void* x, const void* W, int ldw, const void* b
       (rc = hop_host::encode_bf16(&mp.w, W, K, V, ldw, 64)))
     return rc;
   const float *bf = (const float*)b, *lf = (const float*)lse, *gf = (const float*)g;
+  if (K > SPLIT128_K) {
+    const int G = split_groups(K);
+    if (G == 0) return (int)cudaErrorInvalidValue;
+    const int C = K / KS2 / G;
+    const dim3 grid(C, Vp / 64, G);
+    return launch_ks2<true>(grid, st, mp, bf, lf, gf, dw, (float*)db, N, K, V, Vp);
+  }
   if (K / KS > MAX_C)
-    return launch_wide(vocab_lse_split_kernel<true, WIDE_C>, dim3(K / KS, Vp / DW_BV), K / KS, st,
-                       mp, bf, lf, gf, dw, (float*)db, N, K, V, Vp);
+    return launch_split(vocab_lse_split_kernel<true, WIDE_C>, dim3(K / KS, Vp / DW_BV), K / KS,
+                        HTHREADS, split_smem_wide(), st, mp, bf, lf, gf, dw, (float*)db, N, K, V,
+                        Vp);
   if (K > HK_MAX)
     return launch_hk(vocab_lse_split_kernel<true>, dim3(K / KS, Vp / DW_BV), K / KS,
                      HTHREADS, split_smem(), st, mp, bf, lf, gf, dw, (float*)db, N, K, V,
@@ -1431,13 +1632,20 @@ extern "C" int vocab_lse_dw(const void* x, const void* W, int ldw, const void* b
 // The clusters of the split kernel at K (dx, or dw when `dw`) that the card
 // holds at once (cudaOccupancyMaxActiveClusters), or a negative error.
 extern "C" int vocab_lse_split_clusters(int K, int dw) {
-  if (K <= HK_MAX || K % KS || K > K_MAX) return -(int)cudaErrorInvalidValue;
+  if (K <= HK_MAX || K % KS) return -(int)cudaErrorInvalidValue;
+  if (K > SPLIT128_K) {
+    const int G = split_groups(K);
+    if (G == 0) return -(int)cudaErrorInvalidValue;
+    const void* kern = dw ? (const void*)ks2_kernel<true>(G > 1)
+                          : (const void*)ks2_kernel<false>(G > 1);
+    return held_clusters(kern, K / KS2 / G, split2_smem(G > 1), 256);
+  }
   const int C = K / KS;
   if (C > MAX_C)
     return held_clusters(dw ? (const void*)vocab_lse_split_kernel<true, WIDE_C>
                             : (const void*)vocab_lse_split_kernel<false, WIDE_C>,
-                         C, split_smem_wide());
+                         C, split_smem_wide(), HTHREADS);
   return held_clusters(dw ? (const void*)vocab_lse_split_kernel<true>
                           : (const void*)vocab_lse_split_kernel<false>,
-                       C, split_smem());
+                       C, split_smem(), HTHREADS);
 }

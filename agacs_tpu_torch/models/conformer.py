@@ -566,13 +566,14 @@ def transformer_decode_step(decoder: TransformerDecoder, tokens: torch.Tensor, p
 
 
 def init_params_(module: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Fill a float32 CPU module IN PLACE with the JAX init's distributions:
+    """Fill a float32 module IN PLACE with the JAX init's distributions:
     linears xavier-uniform with zero biases, layer norms 1/0, the conv stem
     normal * sqrt(2 / fan_in), depthwise kernels, position biases and
     embeddings normal * 0.02, a CTC head normal / sqrt(d); buffers keep
-    their zeros / ones."""
+    their zeros / ones. The draws are made on the module's device, from a
+    generator of that device (a CPU module takes a CPU generator)."""
     def normal(p, std):
-        p.copy_(torch.randn(p.shape, generator=generator) * std)
+        p.copy_(torch.randn(p.shape, generator=generator, device=p.device) * std)
 
     with torch.no_grad():
         for name, mod in module.named_modules():
@@ -585,7 +586,8 @@ def init_params_(module: nn.Module, generator: torch.Generator) -> nn.Module:
                     normal(mod.weight, in_f ** -0.5)
                 else:
                     bound = math.sqrt(6.0 / (in_f + out_f))
-                    mod.weight.copy_((torch.rand(mod.weight.shape, generator=generator)
+                    mod.weight.copy_((torch.rand(mod.weight.shape, generator=generator,
+                                                 device=mod.weight.device)
                                       * 2 - 1) * bound)
                 if mod.bias is not None:
                     mod.bias.zero_()

@@ -15,14 +15,14 @@ dw passes over z recomputed from the saved lse:
 float32, as JAX's `_bwd_pallas` returns them). On a CPU tensor it runs the
 plain versions `lse_plain` (JAX `_einsum_ref`) and `lse_bwd_plain` (the
 kernels' arithmetic), on a CUDA tensor it launches K4 or raises: the card
-has no dense-logits fallback. K4 takes bf16 x and w, float32 b, and any K
-up to K_MAX, 1280 (whisper-large's width; above it `streaming_lse` raises
-on a CUDA tensor, while JAX's takes any K). The kernels take K a multiple
-of 128, so the wrapper pads a K
-that is not (the transducer joint's 320 goes to 384): zero columns of x
-and zero rows of w, which add nothing to any product, so lse is exact;
-dx's padded columns and dW's padded rows are dropped. The padding is work
-the kernels do for nothing (20% at K 320). A w whose V is not a multiple
+has no dense-logits fallback. K4 takes bf16 x and w, float32 b, and any K,
+as JAX's does. The kernels take K a multiple of their route's granule
+(`padded_k`: 128 up to K 1280, 256 above, 256 C G above 4096), so the
+wrapper pads a K that is not (the transducer joint's 320 goes to 384, K
+1400 to 1536, K 4224 to 4608): zero columns of x and zero rows of w, which
+add nothing to any product, so lse is exact; dx's padded columns and dW's
+padded rows are dropped. The padding is work the kernels do for nothing
+(20% at K 320, 9% at K 4224). A w whose V is not a multiple
 of 8 (the Whisper vocabulary's 51865) is handed over with its rows padded
 too, for the kernels' 16-byte row stride. Both copies (`_pad_x`,
 `_rows8`) are made once a step: the forward saves them for both backward
@@ -35,9 +35,11 @@ chunks above), S on the tensor cores and an online (max, sum) per row in
 registers; `fwd_tiling` picks the block's rows (128, or 64 where x's 128
 rows do not fit shared memory beside the ring) and splits each row tile's
 V sweep over a cluster of C blocks whose (max, sum) pairs are merged in
-rank order. It replaced a wmma kernel and a combine pass (3.0451 ms at
-the conformer's training shape, (7488, 256) x (256, 51865), on an H100,
-against a bound of 0.2011 ms).
+rank order. Above K 1536 x's 64 rows no longer fit beside the ring, and
+x's 64 x 64 chunks stream through it beside W's (route "stream"). It
+replaced a wmma kernel and a combine pass (3.0451 ms at the conformer's
+training shape, (7488, 256) x (256, 51865), on an H100, against a bound
+of 0.2011 ms).
 
 The backward dispatches by K, never by a failure. At K <= 256 (the
 conformer's 256, the tests' 128) dx and dw are wgmma kernels fed by TMA
@@ -58,7 +60,11 @@ over its slice, the ranks add their partials in rank order through
 distributed shared memory, and each then adds P (or dz^T) times its slice
 into its share of dX (or dW^T). That replaced wmma kernels that rebuilt z
 K / 128 times a pass (147 and 162 ms at (12000, 768) x (768, 51865) on an
-H100, against a bound of 1.93 ms each).
+H100, against a bound of 1.93 ms each). Above K 1280 a rank owns a
+256-wide slice of a 64-row (dx) or 64-column (dw) output tile, on clusters
+of C = K / 256 (6 at K 1536, 8 at 2048; 9 to 16 non-portable); above K
+4096 a grid axis runs over G groups of C slices, each group's cluster
+recomputing S over the whole K (`split_groups`).
 
 The backward computes only the gradients autograd asks for: dx when x
 needs one, dW and db when w or b does (a frozen CTC head pays no dw pass).
@@ -83,11 +89,15 @@ DX_BM = 128       # dx: rows a block owns
 VT = 64           # columns of a streamed W tile
 DW_BV = 128       # dw: vocabulary columns a block owns
 MAX_C = 8         # dx, forward: blocks of a cluster (the portable size)
-K_MAX = 1280      # the widest K the kernels take (whisper-large's d; a cluster of 10 above)
 STAGES = 4        # ring slots
 FWD_KC = 64       # forward: W rows of a ring slot above HK_MAX (64 x 64 chunks)
 SMEM_MAX = 232448  # a block's shared memory on sm_90 (227 KB)
 KS = 128          # above HK_MAX: the K-slice of a cluster rank in dx and dw
+SPLIT128_K = 1280  # the widest K of KS slices (whisper-large's d; clusters of 9 and 10 above 1024)
+KS2 = 256         # above SPLIT128_K: the K-slice of a rank, on 64-row or 64-column tiles
+MAX_CW = 16       # the widest cluster (non-portable): K 4096 in KS2 slices
+GROUP_K = MAX_CW * KS2  # above it, a grid axis over groups of C slices
+FWD_XK = 1536     # forward: the widest K with x's rows resident (64 a block)
 
 
 def _cluster(tiles: int, v: int, sms: int) -> int:
@@ -103,21 +113,36 @@ def _cluster(tiles: int, v: int, sms: int) -> int:
 def fwd_smem(k: int, bm: int) -> int:
     """The forward's shared memory at K and BM rows a block (the source's
     `fwd_smem`): alignment slack, x (BM x K bf16), the ring (STAGES slots
-    of K or FWD_KC W rows x 64 bf16), the bias strips and the barriers."""
+    of K or FWD_KC W rows x 64 bf16), the bias strips and the barriers;
+    above FWD_XK (`fwd_stream_smem`) no resident x, and a slot holds a 64 x
+    64 W chunk and a BM x 64 x chunk."""
+    if k > FWD_XK:
+        return 1024 + STAGES * (FWD_KC + bm) * 128 + STAGES * VT * 4 + (1 + 2 * STAGES) * 8
     kc = k if k <= HK_MAX else FWD_KC
     return 1024 + bm * k * 2 + STAGES * kc * 128 + STAGES * VT * 4 + (1 + 2 * STAGES) * 8
 
 
 def fwd_tiling(n: int, k: int, v: int, sms: int) -> dict:
     """K4's forward: its route ("tiles": whole K x 64 W tiles and two S
-    buffers at K <= 256; "chunks": 64 x 64 chunks above), the rows BM of a
-    block (128, or 64 where x's 128 rows do not fit beside the ring) and
-    the cluster size C that splits each row tile's V sweep: the largest of
-    1, 2, 4, 8 with no more blocks than SMs and no more ranks than V's
-    64-column tiles (`_cluster`, dx's rule)."""
-    bm = DX_BM if fwd_smem(k, DX_BM) <= SMEM_MAX else 64
-    return {"route": "tiles" if k <= HK_MAX else "chunks", "BM": bm,
-            "C": _cluster(-(-n // bm), v, sms)}
+    buffers at K <= 256; "chunks": 64 x 64 W chunks beside x's resident
+    rows up to FWD_XK; "stream": x's 64 x 64 chunks beside W's above), the
+    rows BM of a block (128, or 64 where x's 128 rows do not fit beside the
+    ring, and on the stream route) and the cluster size C that splits each
+    row tile's V sweep: the largest of 1, 2, 4, 8 with no more blocks than
+    SMs and no more ranks than V's 64-column tiles (`_cluster`, dx's
+    rule)."""
+    bm = DX_BM if k <= FWD_XK and fwd_smem(k, DX_BM) <= SMEM_MAX else 64
+    route = "tiles" if k <= HK_MAX else "chunks" if k <= FWD_XK else "stream"
+    return {"route": route, "BM": bm, "C": _cluster(-(-n // bm), v, sms)}
+
+
+def split_groups(k: int) -> tuple[int, int]:
+    """(C, G) of the split backward above SPLIT128_K at a padded K: G =
+    ceil(K / GROUP_K) groups of C = K / 256 / G ranks (the source's
+    `split_groups`)."""
+    n = -(-k // KS2)
+    g = -(-n // MAX_CW)
+    return -(-n // g), g
 
 
 def dx_tiling(n: int, k: int, v: int, sms: int) -> dict:
@@ -126,7 +151,12 @@ def dx_tiling(n: int, k: int, v: int, sms: int) -> dict:
     with no more blocks than SMs and no more ranks than V's 64-column tiles;
     above, the split kernel on (C, ceil(N / 128)) blocks, C = K / KS ranks
     each owning a KS-wide slice of dx's columns (C 9 and 10, above K
-    1024, beyond the portable MAX_C)."""
+    1024, beyond the portable MAX_C). Above SPLIT128_K the split kernel on
+    (C, ceil(N / 64), G) blocks: 64-row tiles, KS2 slices, C ranks (9 to 16
+    non-portable) in each of G groups (`split_groups`)."""
+    if k > SPLIT128_K:
+        c, g = split_groups(k)
+        return {"route": "split", "C": c, "KS": KS2, "G": g, "BM": 64}
     if k > HK_MAX:
         return {"route": "split", "C": k // KS, "KS": KS}
     return {"route": "wgmma", "C": _cluster(-(-n // DX_BM), v, sms)}
@@ -137,7 +167,11 @@ def dw_tiling(k: int) -> dict:
     columns are padded: 128, two warpgroups of 64. At K <= 256 the wgmma
     kernel, each warpgroup keeping its 64 x K dW^T in registers; above, the
     split kernel on clusters of C = K / KS ranks, each owning a KS-wide
-    slice of dW's rows (C 9 and 10 above K 1024, as dx's)."""
+    slice of dW's rows (C 9 and 10 above K 1024, as dx's). Above
+    SPLIT128_K blocks of 64 columns, KS2 slices, C and G as dx's."""
+    if k > SPLIT128_K:
+        c, g = split_groups(k)
+        return {"route": "split", "BV": 64, "C": c, "KS": KS2, "G": g}
     if k > HK_MAX:
         return {"route": "split", "BV": DW_BV, "C": k // KS, "KS": KS}
     return {"route": "wgmma", "BV": DW_BV}
@@ -159,12 +193,17 @@ def lse_bwd_plain(x, w, b, lse, g):
             dz.sum(0))
 
 
-KP = 128  # the kernels' K granule: the wrapper pads K up to a multiple of it
+KP = 128  # the kernels' K granule up to SPLIT128_K: the wrapper pads K up to a multiple of it
 
 
 def padded_k(k: int) -> int:
-    """K as the kernels take it: up to the next multiple of KP."""
-    return -(-k // KP) * KP
+    """K as the kernels take it: up to the next multiple of KP up to
+    SPLIT128_K, of KS2 above it, and of KS2 C G above GROUP_K (every group
+    of C ranks whole)."""
+    if k <= SPLIT128_K:
+        return -(-k // KP) * KP
+    c, g = split_groups(k)
+    return KS2 * c * g
 
 
 def _check(x, w, b) -> None:
@@ -172,9 +211,8 @@ def _check(x, w, b) -> None:
     if w.shape[0] != k or b.shape != (w.shape[1],):
         raise ValueError(f"vocab_lse: x {tuple(x.shape)}, w {tuple(w.shape)}, "
                          f"b {tuple(b.shape)}")
-    if not 0 < k <= K_MAX:
-        raise ValueError(f"vocab_lse: K {k}; K4 takes K up to K_MAX {K_MAX} (padded to a "
-                         f"multiple of {KP} inside)")
+    if k <= 0:
+        raise ValueError(f"vocab_lse: K {k}; K4 takes K >= 1")
     if x.device.type != "cuda":
         raise ValueError(f"vocab_lse: K4 runs on a CUDA tensor, not on {x.device}")
     for name, t, want in (("x", x, torch.bfloat16), ("w", w, torch.bfloat16),

@@ -28,6 +28,9 @@ once on one CUDA card.
                                        # in turns
     python3 chip_smoke.py --k4-ablate  # K4's split kernels with parts of
                                        # their exchange taken out, timed
+    python3 chip_smoke.py --warm-turns  # serving after a full warm-up
+                                       # request and a WARM_STEPS one, in
+                                       # turns
     python3 chip_smoke.py --dist-worker OUT [--after FILE] ARGS  # one
                                        # torchrun rank of phase 48: the
                                        # train CLI on ARGS (once FILE
@@ -355,11 +358,12 @@ non-zero exit:
      trunk; each with ms, peak memory and exact launch counts (busy and
      idle share for (b) and (c); (d)'s profiles are cut for the script's
      time); (e) the card in bf16 against the CPU in float32 at full width
-     on 4 + 4 layers: encoder, first-step logits, and a CTC micro-step.
+     on 2 + 2 layers: encoder, first-step logits, and a CTC micro-step.
   50. the conformer at NeMo's XLarge widths (d 1024, 8 heads of 128, units
-     4096, 24 + 6 blocks) on the recipe's config: (a) the train step at 16
-     x 15 s (K5 24 + 24 launches a step at its 128 instance, K4 at K
-     1024), ms, busy, idle share, peak memory; (b) a beam-10 request with
+     4096; its 24 encoder blocks cut to 12, + 6) on the recipe's config:
+     (a) the train step at 16 x 15 s (K5 12 + 12 launches a step at its
+     128 instance, K4 at K 1024), ms, busy, idle share, peak memory; (b) a
+     beam-10 request with
      the recipe's LM (K3's rows at d_head 128); (c) card bf16 against CPU
      f32 at 2 + 2 blocks with phases 27's and 31's bounds.
   51. the recipe's conformer (d 256, 12 + 6 blocks) with one encoder head
@@ -369,6 +373,12 @@ non-zero exit:
      beam-10 request with the recipe's LM, 8 finite hypotheses, K5 12 an
      encode; (c) card bf16 against CPU f32 at 2 + 1 blocks with phases
      27's and 31's bounds.
+  52. the conformer at Google USM-2B's widths (d 1536, 16 heads of 96,
+     units 6144; its 32 encoder blocks cut to 24, the deepest whose step
+     fits the card with ~10% free; 6 decoder blocks) on the recipe's
+     config, so the CTC head runs K4 at K 1536 (KS-256 slices on clusters
+     of 6) and K5 its 128 instance on padded heads of 96: (a)-(c) as phase
+     51's, the step's peak memory held to 90% of the card.
 
 The last three lines are the card's `name, power.limit` (nvidia-smi), a
 JSON line with each kernel's launches, error and times, and the
@@ -388,7 +398,11 @@ three passes at the whisper CTC head's shape (`k4_times`) in the checkout
 at DIR (e.g. a `git archive` of an earlier commit) and in this one, one
 process each, in turns (DIR, this, this, DIR); `--k4-ablate` times the
 split kernels at that shape with parts of their exchange, or the whole
-exchange, taken out, or with a part's bytes cut (K4_ABLATIONS).
+exchange, taken out, or with a part's bytes cut (K4_ABLATIONS);
+`--warm-turns` times phase 4's model serving beam and greedy requests
+after a warm-up request of 100 steps and of WARM_STEPS, one process each,
+in turns (100, WARM_STEPS, WARM_STEPS, 100), with a second timed request
+in each as a control.
 """
 
 from __future__ import annotations
@@ -582,24 +596,76 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke: check failed: {what}")
 
 
+# What `cuda_ms` saw over the run: its timings, those retaken call by call
+# (by caller), the calls whose hold ran out even then (host gaps may be in
+# their time, by caller), and the largest host time to enqueue a call
+# behind a hold that outlasted it (ms, and the caller). Printed at the end.
+CUDA_MS = {"timings": 0, "retaken": [], "not_held": [], "enqueue_ms": 0.0, "enqueue_by": ""}
+SLEEP_CYCLES_A_MS = 2_000_000  # the SM clock's ~2 GHz: longer where it runs slower
+HOLD_TRIES = 4  # a call's hold doubles up to this many times (2 ms to 16 ms)
+
+
+def held_run(fn, args, hold_ms):
+    """`fn(*args)` enqueued behind a sleep kernel of `hold_ms` between two
+    events: (start, end, host ms to enqueue, held). Held: the start event
+    was still pending once the end event was enqueued, so the events time
+    the device running the calls back to back, not the host's launches."""
+    torch.cuda._sleep(int(SLEEP_CYCLES_A_MS * hold_ms))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    fn(*args)
+    end.record()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    return start, end, enqueue_ms, not start.query()
+
+
 def cuda_ms(fn, arg_sets, iters):
     """Mean device ms per call over `iters` calls, cycling through
     `arg_sets` (distinct buffers larger than the 50 MB L2 together, so each
-    call reads from HBM as in the model). A sleep kernel first holds the
-    stream while the host enqueues every call, so the events time the
-    device running them back to back, not the host's launch rate."""
+    call reads from HBM as in the model). A sleep kernel holds the stream
+    while the host enqueues every call (2 ms a call, 10 at least). Where
+    the hold ran out first (a slow host, or a plain version of many small
+    kernels whose launches fill the stream's queue and block the host
+    until the sleep ends), the timing is retaken call by call, each call
+    behind its own hold of 2 ms, doubled up to HOLD_TRIES times until it
+    outlasts the call's enqueue (`CUDA_MS` counts both)."""
+    caller = sys._getframe(1).f_code.co_name
     for args in arg_sets:
         fn(*args)
     torch.cuda.synchronize()
-    torch.cuda._sleep(200_000_000)  # ~0.1 s of cycles
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for i in range(iters):
-        fn(*arg_sets[i % len(arg_sets)])
-    end.record()
+
+    def loop(*_):
+        for i in range(iters):
+            fn(*arg_sets[i % len(arg_sets)])
+
+    start, end, enqueue_ms, held = held_run(loop, (), 2.0 * max(iters, 5))
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    CUDA_MS["timings"] += 1
+    if held:
+        note_enqueue(enqueue_ms / iters, caller)
+        return start.elapsed_time(end) / iters
+    CUDA_MS["retaken"].append(caller)
+    pairs = []
+    for i in range(iters):
+        hold_ms = 2.0
+        for _ in range(HOLD_TRIES):
+            start, end, enqueue_ms, held = held_run(fn, arg_sets[i % len(arg_sets)], hold_ms)
+            if held:
+                note_enqueue(enqueue_ms, caller)
+                break
+            hold_ms *= 2
+        else:
+            CUDA_MS["not_held"].append(caller)
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in pairs) / iters
+
+
+def note_enqueue(ms: float, caller: str) -> None:
+    if ms > CUDA_MS["enqueue_ms"]:
+        CUDA_MS["enqueue_ms"], CUDA_MS["enqueue_by"] = ms, caller
 
 
 def rel_l2(a, b) -> float:
@@ -2013,6 +2079,16 @@ K4_SHAPES = ((7488, 256, 51865), (700, 256, 5000), (300, 128, 1001), (300, 384, 
              (300, 1024, 1001), (60, 128, 500))
 K4_WIDE = (12000, 768, 51865)
 K4_LSE_RTOL, K4_DB_RTOL = 1e-4, 1e-4
+# Phase 2v above K 1280 (the same bounds): the CTC head of phase 52's
+# conformer at USM-2B's width, 16 x 468 rows (16 x 15 s at 468 encoder
+# frames, phase 52's step) of d 1536 (KS-256 slices on a cluster of 6, the
+# forward's resident rows at their limit); a ragged K 1400
+# (padded to 1536); K 2048 (a cluster of 8; the forward streams x); and K
+# 4224 (padded to 4608: 2 groups of 9 ranks, each recomputing S over the
+# whole K). Each timed beside its plain version and cuBLAS with the logits.
+K4_USM = (7488, 1536, 51865)
+K4_ANY_SHAPES = (K4_USM, (700, 1400, 5000), (3000, 2048, 51865), (300, 4224, 1001))
+K4_ANY_TIMED = (K4_USM, (3000, 2048, 51865), (300, 4224, 1001))
 
 
 def poisoned(t: torch.Tensor, extra: int = 128) -> torch.Tensor:
@@ -2114,18 +2190,21 @@ def k4_backward_tiling(n: int, k: int, v: int, sms: int) -> str:
 
     tx, tw = vocab_lse.dx_tiling(n, k, v, sms), vocab_lse.dw_tiling(k)
     if tx["route"] == "split":
-        return (f"backward split (dx and dw on clusters of C {tx['C']}, KS {tx['KS']}; dw block "
-                f"{tw['BV']} columns)")
+        groups = f", {tx['G']} groups recomputing S" if tx.get("G", 1) > 1 else ""
+        return (f"backward split (dx and dw on clusters of C {tx['C']}, KS {tx['KS']}{groups}; "
+                f"dx block {tx.get('BM', vocab_lse.DX_BM)} rows, dw block {tw['BV']} columns)")
     return f"backward {tx['route']} (dx C {tx['C']}; dw block {tw['BV']} columns)"
 
 
 def check_k4(dev, g, timed=True) -> dict:
     """Phase 2v: K4's forward, dx and dw (csrc/vocab_lse.cu) against their
     plain versions at K4_SHAPES; when timed, their times at the training
-    shape (`k4_times`) and the passes at K4_WIDE (`k4_wide`). Returns
-    {"fwd", "dx", "dw"} results at the training shape (errors at K <= 256)
-    and, when timed, "wide": K4_WIDE's times with the largest errors above
-    K 256."""
+    shape (`k4_times`) and the passes at K4_WIDE (`k4_wide`); then
+    `k4_shapes` at K4_ANY_SHAPES (above K 1280; timed at K4_ANY_TIMED).
+    Returns {"fwd", "dx", "dw"} results at the training shape (errors at K
+    <= 256), "any": {K: results} at K4_ANY_TIMED when timed, and, when
+    timed, "wide": K4_WIDE's times with the largest errors from K 384 to
+    1024."""
     from agacs_tpu_torch.ops import vocab_lse
 
     res = {part: {"err": 0.0} for part in ("fwd", "dx", "dw")}
@@ -2171,6 +2250,10 @@ def check_k4(dev, g, timed=True) -> dict:
         res["wide"] = k4_wide(g, dev, sms)
         for part, r in split.items():
             res["wide"][part]["err"] = max(res["wide"][part]["err"], r["err"])
+    # above K 1280: {K: results} at the timed shapes
+    res["any"] = {shape[1]: r for shape, r in k4_shapes(
+        g, dev, K4_ANY_SHAPES, K4_ANY_TIMED if timed else (), "2v").items()
+        if shape in K4_ANY_TIMED}
     return res
 
 
@@ -2181,12 +2264,14 @@ def k4_waves(n: int, k: int, v: int) -> str:
     from agacs_tpu_torch.ops import cuda_lib, vocab_lse
 
     waves = []
-    for part, dw_flag, tiles in (("dx", 0, -(-n // vocab_lse.DX_BM)),
-                                 ("dw", 1, -(-v // vocab_lse.DW_BV))):
+    tx, tw = vocab_lse.dx_tiling(n, k, v, 132), vocab_lse.dw_tiling(k)
+    groups = tx.get("G", 1)
+    for part, dw_flag, tiles in (("dx", 0, -(-n // tx.get("BM", vocab_lse.DX_BM)) * groups),
+                                 ("dw", 1, -(-v // tw["BV"]) * groups)):
         held = cuda_lib.load("vocab_lse", "vocab_lse_split_clusters",
                              [ctypes.c_int, ctypes.c_int])(k, dw_flag)
         check(held > 0, f"the card holds clusters of the split {part} kernel at K {k}: {held}")
-        waves.append(f"{part} {tiles} tiles x C {k // vocab_lse.KS} on {held} clusters at once: "
+        waves.append(f"{part} {tiles} tiles x C {tx['C']} on {held} clusters at once: "
                      f"{-(-tiles // held)} waves ({tiles / (-(-tiles // held) * held):.1%} full)")
     return "; ".join(waves)
 
@@ -2228,6 +2313,76 @@ def k4_wide(g, dev, sms: int) -> dict:
     return res
 
 
+def k4_shapes(g, dev, shapes, timed, phase: str, iters: int = 5, profiled=()) -> dict:
+    """K4's forward, dx and dw at each (N, K, V) of `shapes` against their
+    plain versions (phase 2v's bounds; b, lse and g NaN past their ends),
+    each wrapper call one launch (its count, and at the `profiled` shapes
+    one device event under the profiler), bit-identical on a second run;
+    the clusters the card holds with the waves their tiles take; the
+    `timed` shapes timed as at the training shape (`k4_times`, `iters`
+    calls). Returns {(N, K, V): {"fwd", "dx", "dw"} results}."""
+    from agacs_tpu_torch.ops import vocab_lse
+
+    out = {}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for n, k, v in shapes:
+        res = {part: {"err": 0.0} for part in ("fwd", "dx", "dw")}
+        x, w, b, gr = k4_inputs(g, dev, n, k, v)
+        b, gr = poisoned(b), poisoned(gr)
+        wp, xp = vocab_lse._rows8(w), vocab_lse._pad_x(x)
+        before = k4_counts()
+        lse = poisoned(vocab_lse._launch_fwd(x, w, b, wp, xp))
+        dx = vocab_lse._launch_dx(x, w, b, lse, gr, wp, xp)
+        dw, db = vocab_lse._launch_dw(x, w, b, lse, gr, wp, xp)
+        lse2 = vocab_lse._launch_fwd(x, w, b, wp, xp)
+        dx2 = vocab_lse._launch_dx(x, w, b, lse, gr, wp, xp)
+        dw2, db2 = vocab_lse._launch_dw(x, w, b, lse, gr, wp, xp)
+        calls = {key: c - before[key] for key, c in k4_counts().items()}
+        check(calls == {"K4": 2, "K4 dx": 2, "K4 dw": 2},
+              f"K4 ({n}, {k}): one launch of each pass a call, {calls}")
+        lse_p = vocab_lse.lse_plain(x.float(), w.float(), b)
+        dx_p, dw_p, db_p = vocab_lse.lse_bwd_plain(x.float(), w.float(), b, lse_p, gr)
+        torch.cuda.synchronize()
+        errs = k4_errors((("fwd", "lse", lse, lse_p, None), ("dx", "dx", dx, dx_p, KERNEL_RTOL),
+                          ("dw", "dW", dw, dw_p, KERNEL_RTOL), ("dw", "db", db, db_p, K4_DB_RTOL)),
+                         n, k, v, res)
+        check(torch.equal(lse, lse2) and torch.equal(dx, dx2) and torch.equal(dw, dw2)
+              and torch.equal(db, db2),
+              f"K4 lse, dx and dw ({n}, {k}) x ({k}, {v}): a second run bit-identical")
+        del lse2, dx2, dw2, db2, lse_p, dx_p, dw_p, db_p
+        torch.cuda.empty_cache()
+        kp = vocab_lse.padded_k(k)
+        tf = vocab_lse.fwd_tiling(n, kp, v, sms)
+        line = (f"phase {phase} K4 vocab_lse ({n}, {k}) x ({k}, {v})"
+                + (f", K padded to {kp}" if kp != k else "") + ": max_abs_err "
+                + ", ".join(f"{nm} {e:.3e}" for nm, e in errs.items())
+                + f" (phase 2v's bounds), all finite; b, lse and g NaN past their ends; "
+                f"bit-identical on a second run; one launch of each pass a call; forward "
+                f"{tf['route']} (BM {tf['BM']}, C {tf['C']}); "
+                + k4_backward_tiling(n, kp, v, sms) + "; " + k4_waves(n, kp, v))
+        if (n, k, v) in profiled:
+            for part, fn, word in (
+                    ("fwd", lambda: vocab_lse._launch_fwd(x, w, b, wp, xp), "vocab_lse_fwd"),
+                    ("dx", lambda: vocab_lse._launch_dx(x, w, b, lse, gr, wp, xp),
+                     "vocab_lse_split_kernel<false"),
+                    ("dw", lambda: vocab_lse._launch_dw(x, w, b, lse, gr, wp, xp),
+                     "vocab_lse_split_kernel<true")):
+                # the wrapper's own copies (dw's cast to w's dtype) aside
+                exact_profile(f"K4 {part} at K {k}: one {word} device event a call", fn,
+                              lambda word=word: {word: 1})
+            line += "; one kernel event a call (profiled)"
+        if (n, k, v) in timed:
+            times, line = k4_times(g, dev, (n, k, v), gr, 1,
+                                   {"fwd": iters, "dx": iters, "dw": iters}, line)
+            for part in res:
+                res[part].update(times[part])
+        out[(n, k, v)] = res
+        print(line, flush=True)
+        del x, w, b, gr, wp, xp, lse, dx, dw, db
+        torch.cuda.empty_cache()
+    return out
+
+
 # `--k4-ablate`: the split kernels at K4_WIDE with parts of their exchange
 # taken out, each an edit of csrc/vocab_lse.cu built outside the checkout as
 # `--mutants` builds: timing only (their outputs are wrong), to show what
@@ -2259,12 +2414,12 @@ K4_ABLATIONS = {
          "      if (r < C && (lane & 7) == 0) hop::st_async(dst, pv, bar, r);"),
         ("p_bytes = 32 * PBLK;", "p_bytes = 32 * PBLK / 8;")],
     "no exchange": [
-        ("    hop::mbar_wait_cluster(&sfull[x * 2 + wg], (it >> 1) & 1);\n", ""),
-        ("    if (lead) hop::mbar_expect_tx(&sfull[x * 2 + wg], s_bytes);  // tile it + 2's\n", ""),
-        ("      hop::mbar_wait_cluster(&pfull[(x ^ 1) * 2 + wg], ((it - 1) >> 1) & 1);\n", ""),
-        ("      if (lead) hop::mbar_expect_tx(&pfull[(x ^ 1) * 2 + wg], p_bytes);  // tile it + 1's\n",
+        ("    hop::mbar_wait_cluster(&sfull[x * NWG + wg], (it >> 1) & 1);\n", ""),
+        ("    if (lead) hop::mbar_expect_tx(&sfull[x * NWG + wg], s_bytes);  // tile it + 2's\n", ""),
+        ("      hop::mbar_wait_cluster(&pfull[(x ^ 1) * NWG + wg], ((it - 1) >> 1) & 1);\n", ""),
+        ("      if (lead) hop::mbar_expect_tx(&pfull[(x ^ 1) * NWG + wg], p_bytes);  // tile it + 1's\n",
          ""),
-        ("    hop::mbar_wait_cluster(&pfull[x * 2 + wg], ((nt - 1) >> 1) & 1);\n", ""),
+        ("    hop::mbar_wait_cluster(&pfull[x * NWG + wg], ((nt - 1) >> 1) & 1);\n", ""),
         ("  for (int j = 0; j < 8; ++j)\n    hop::st_async(", "  for (int j = 0; j < 0; ++j)\n    hop::st_async("),
         ("    if (lq >= nq) break;\n    float4 z;", "    if (true) break;\n    float4 z;")],
 }
@@ -2678,8 +2833,8 @@ def beam_phase(model, asr_cfg, audio) -> dict:
 
     cfg = model.cfg
     s2t = Speech2Text(model, asr_cfg, beam_size=BEAM, max_steps=100, loop="scan")
-    s2t(audio)  # warm-up
-    torch.cuda.synchronize()
+    warm_up(Speech2Text(model, asr_cfg, beam_size=BEAM, max_steps=WARM_STEPS, loop="scan"),
+            audio)
     flash_train.LAUNCHES = decode_attn.LAUNCHES = 0
     decode_attn.ANC_LAUNCHES = decode_attn.SHARED_LAUNCHES = 0
     torch.cuda.reset_peak_memory_stats()
@@ -3156,8 +3311,7 @@ def int8_serve_phase(sd8, dev, audio) -> dict:
     out = model_pair(sd8, dev)
     model, asr_cfg = out["card"]
     s2t = Speech2Text(model, asr_cfg, max_steps=100)
-    s2t(audio)  # warm-up
-    torch.cuda.synchronize()
+    warm_up(Speech2Text(model, asr_cfg, max_steps=WARM_STEPS), audio)
     flash_train.LAUNCHES = decode_attn.LAUNCHES = 0
     reset_int8_counts()
     t0 = time.perf_counter()
@@ -3263,15 +3417,82 @@ def reset_decode_counts() -> None:
     reset_int8_counts()
 
 
+# A warm-up request decodes WARM_STEPS steps: every kernel of a step and of
+# the encode launches in it, and the cuBLAS and cuDNN handles are made, at
+# a twentieth of a 100-step request's time.
+WARM_STEPS = 5
+
+
+def warm_up(s2t, audio) -> None:
+    s2t(audio)
+    torch.cuda.synchronize()
+
+
+def warm_turn(steps: int) -> int:
+    """One turn of `--warm-turns`: phase 4's whisper-small with adapters
+    (bf16, random weights from seed 0) on 8 x 15 s; for beam BEAM (loop
+    scan) and then greedy, a warm-up request of `steps` steps, then two
+    timed 100-step requests (the second a control, warm at every step).
+    Printed as one line, `WARM_TURN {...}` (ms a request), with the
+    caching allocator's cudaMalloc calls during the first timed request."""
+    sys.path.insert(0, ROOT)
+    from agacs_tpu_torch.decode.speech2text import Speech2Text
+    from agacs_tpu_torch.models import whisper as tw
+    from agacs_tpu_torch.models.asr_model import ASRModelConfig
+
+    dev = torch.device("cuda:0")
+    cfg = tw.make_config("small", adapter=True, adapter_encoder=True,
+                         adapter_decoder=True, compute_dtype=torch.bfloat16)
+    sd = tw.init_whisper_params(torch.Generator(device="cpu").manual_seed(0), cfg)
+    model = tw.Whisper.from_state_dict(cfg, sd, device=dev)
+    asr_cfg = ASRModelConfig(whisper=cfg)
+    audio = (np.random.RandomState(0).randn(8, 15 * 16000) * 0.1).astype(np.float32)
+    out = {}
+    for name, beam in (("beam", BEAM), ("greedy", 1)):
+        s2t = Speech2Text(model, asr_cfg, beam_size=beam, max_steps=100, loop="scan")
+        warm_up(Speech2Text(model, asr_cfg, beam_size=beam, max_steps=steps, loop="scan"),
+                audio)
+        times, mallocs = [], torch.cuda.memory_stats().get("num_device_alloc", 0)
+        for i in range(2):
+            t0 = time.perf_counter()
+            s2t(audio)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                mallocs = torch.cuda.memory_stats().get("num_device_alloc", 0) - mallocs
+        out[name] = {"first_ms": times[0], "second_ms": times[1], "mallocs": mallocs}
+    print("WARM_TURN " + json.dumps(out), flush=True)
+    return 0
+
+
+def warm_turns() -> None:
+    """Serving after a warm-up request of 100 steps (a full request) and of
+    WARM_STEPS, in turns (100, WARM_STEPS, WARM_STEPS, 100), one process
+    each (`--warm-turn`): whether the shorter warm-up leaves the timed
+    request anything to warm."""
+    from agacs_tpu_torch.ops import cuda_lib
+
+    for name in ("packed_flash_fwd", "decode_attn"):
+        cuda_lib.build(name)
+    for steps in (100, WARM_STEPS, WARM_STEPS, 100):
+        proc = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                               "--warm-turn", str(steps)], cwd=ROOT, capture_output=True,
+                              text=True, timeout=600)
+        found = [ln for ln in proc.stdout.splitlines() if ln.startswith("WARM_TURN ")]
+        check(proc.returncode == 0 and len(found) == 1,
+              f"warm turn {steps}: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+        print(f"warm-turns, a warm-up of {steps} steps: " + found[0].split(" ", 1)[1],
+              flush=True)
+
+
 def serve(label: str, model, asr_cfg, audio, beam: int, want: dict) -> dict:
     """One serving configuration on 8 x 15 s, 100 steps (beam: loop scan):
-    a warm-up request, then a timed one that must launch exactly `want`
-    (every other counter 0)."""
+    a warm-up request (WARM_STEPS steps), then a timed one that must launch
+    exactly `want` (every other counter 0)."""
     from agacs_tpu_torch.decode.speech2text import Speech2Text
 
     s2t = Speech2Text(model, asr_cfg, beam_size=beam, max_steps=100, loop="scan")
-    s2t(audio)
-    torch.cuda.synchronize()
+    warm_up(Speech2Text(model, asr_cfg, beam_size=beam, max_steps=WARM_STEPS, loop="scan"), audio)
     reset_decode_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -4124,12 +4345,15 @@ def conformer_raw(**widths) -> dict:
 def conformer_train_model(dev, dtype, sd=None, aug: bool = True, raw=None, seed: int = 6):
     """The conformer recipe's trainable model (train_asr_conformer.yaml,
     full width, or the config `raw`; identity MVN statistics) in float32
-    masters under `dtype`, random weights from torch seed `seed` unless `sd`
-    is given; `aug` False turns SpecAug and dropout off.
-    Returns (model, cfg, sd, raw config)."""
+    masters under `dtype`, random weights drawn on `dev` from a generator
+    of it seeded `seed` unless `sd` is given (the host takes ~30 s a
+    billion values; phase 49 makes whisper-large's on the card too); `aug`
+    False turns SpecAug and dropout off. Returns (model, cfg, sd on the
+    CPU, raw config)."""
     import dataclasses
 
     from agacs_tpu_torch.models import conformer_asr
+    from agacs_tpu_torch.models.conformer import init_params_
     from agacs_tpu_torch.utils.config import task_from_dict
 
     raw = raw or conformer_raw()
@@ -4138,9 +4362,15 @@ def conformer_train_model(dev, dtype, sd=None, aug: bool = True, raw=None, seed:
         cfg = dataclasses.replace(cfg, use_specaug=False, encoder=dataclasses.replace(
             cfg.encoder, dropout_rate=0.0))
     if sd is None:
-        sd = conformer_asr.init_conformer_asr_params(torch.Generator().manual_seed(seed), cfg)
+        f32 = {part: dataclasses.replace(getattr(cfg, part), compute_dtype=torch.float32)
+               for part in ("encoder", "decoder")}
+        init = conformer_asr.ConformerASR(dataclasses.replace(cfg, **f32), device=dev)
+        init_params_(init, torch.Generator(device=dev).manual_seed(seed))
+        sd = {k: v.detach() for k, v in init.state_dict().items()}
+        del init
     model = conformer_asr.ConformerASR.from_state_dict(cfg, sd, device=dev,
                                                        param_dtype=torch.float32)
+    sd = {k: v.cpu() for k, v in sd.items()}  # off the card for the step's memory
     return model, cfg, sd, raw
 
 
@@ -4844,9 +5074,9 @@ def trans_decode_phase(sd, dev) -> dict:
     tm = model.transducer
     out, secs = {}, {}
 
-    def timed(name, fn, warm=True):
-        if warm:  # the batched searches' first call; the host searches run warm after them
-            fn()
+    def timed(name, fn, warm=None):
+        if warm is not None:  # the batched searches' first call, on the first 2 utterances'
+            warm()            # first frames; the host searches run warm after them
         torch.cuda.synchronize()
         relpos_flash.LAUNCHES = 0
         t0 = time.perf_counter()
@@ -4865,12 +5095,15 @@ def trans_decode_phase(sd, dev) -> dict:
 
     with torch.inference_mode():
         enc, lens = encode()
-    toks, n = timed("greedy", greedy)
+    short = (enc[:2, :TRANS_HOST_FRAMES], lens[:2].clamp(max=TRANS_HOST_FRAMES))
+    toks, n = timed("greedy", greedy, lambda: ttr.greedy_search_scan(tm, *short))
     check(relpos_flash.LAUNCHES == 12, f"greedy: K5 12 launches an encode ({relpos_flash.LAUNCHES})")
     out["greedy"] = [r[:k].tolist() for r, k in zip(toks.cpu(), n.cpu())]
-    tsd = timed("tsd", lambda: transducer_tsd.tsd_beam_search(tm, enc, lens, beam=TRANS_BEAM))
+    tsd = timed("tsd", lambda: transducer_tsd.tsd_beam_search(tm, enc, lens, beam=TRANS_BEAM),
+                lambda: transducer_tsd.tsd_beam_search(tm, *short, beam=TRANS_BEAM))
     alsd = timed("alsd", lambda: transducer_tsd.alsd_beam_search(tm, enc, lens,
-                                                                  beam=TRANS_BEAM))
+                                                                  beam=TRANS_BEAM),
+                 lambda: transducer_tsd.alsd_beam_search(tm, *short, beam=TRANS_BEAM))
     for name, (t, k, s) in (("tsd", tsd), ("alsd", alsd)):
         check(bool(torch.isfinite(s[:, 0]).all()) and t.shape[:2] == (TRANS_DEC_B, TRANS_BEAM),
               f"{name}: a finite best hypothesis for every utterance")
@@ -4879,7 +5112,7 @@ def trans_decode_phase(sd, dev) -> dict:
     for name, fn in (("default", ttr.default_beam_search),
                      ("nsc", transducer_nsc.nsc_beam_search),
                      ("maes", transducer_nsc.maes_beam_search)):
-        nbest = timed(name, lambda fn=fn: fn(tm, e0, beam_size=TRANS_BEAM), warm=False)
+        nbest = timed(name, lambda fn=fn: fn(tm, e0, beam_size=TRANS_BEAM))
         check(len(nbest) >= 1 and all(np.isfinite(s) for s, _ in nbest),
               f"{name}: finite n-best {[s for s, _ in nbest]}")
         out[name] = nbest[0][1]
@@ -5167,8 +5400,8 @@ MUTANTS = {
                           "      const int quad = (warp & 3) + 4 * m;\n      if (quad >= nq) break;")],
         ("k4",)),
     "K4 split: a rank reads the partials one phase early": (
-        "vocab_lse.cu", [("hop::mbar_wait_cluster(&sfull[x * 2 + wg], (it >> 1) & 1);",
-                          "hop::mbar_wait_cluster(&sfull[x * 2 + wg], ((it >> 1) & 1) ^ 1);")],
+        "vocab_lse.cu", [("hop::mbar_wait_cluster(&sfull[x * NWG + wg], (it >> 1) & 1);",
+                          "hop::mbar_wait_cluster(&sfull[x * NWG + wg], ((it >> 1) & 1) ^ 1);")],
         ("k4",)),
     "K5 shift off by one": (
         "relpos_flash.cu", [("return pw[(16 * warp + r) * PL + 15 - r + c];",
@@ -6504,72 +6737,18 @@ K8_LARGE_SHAPES = ((12000, 1280, 1280), (12000, 1280, 3840), (12000, 1280, 5120)
                    (12000, 5120, 1280), (8, 1280, 1280), (8, 1280, 5120), (8, 5120, 1280))
 LARGE_TRAIN_STEPS = 3
 LARGE_CTC_B, LARGE_CTC_STEPS = 16, 2
-LARGE_PARITY_LAYERS = 4
+LARGE_PARITY_LAYERS = 2
 
 
 def check_k4_large(dev, g) -> dict:
-    """Phase 49a: K4's forward, dx and dw at K4_LARGE_SHAPES against their
-    plain versions (phase 2v's bounds; b, lse and g NaN past their ends),
-    each wrapper call one launch (its count, and at K4_LARGE one device
-    event under the profiler), bit-identical on a second run; the clusters
-    the card holds at K 1280 and 1152 with the waves their tiles take; then
-    K4_LARGE timed (`k4_times`). Returns {"fwd", "dx", "dw"} results, the
-    largest errors over the shapes."""
-    from agacs_tpu_torch.ops import vocab_lse
-
-    res = {part: {"err": 0.0} for part in ("fwd", "dx", "dw")}
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for n, k, v in K4_LARGE_SHAPES:
-        x, w, b, gr = k4_inputs(g, dev, n, k, v)
-        b, gr = poisoned(b), poisoned(gr)
-        wp, xp = vocab_lse._rows8(w), vocab_lse._pad_x(x)
-        before = k4_counts()
-        lse = poisoned(vocab_lse._launch_fwd(x, w, b, wp, xp))
-        dx = vocab_lse._launch_dx(x, w, b, lse, gr, wp, xp)
-        dw, db = vocab_lse._launch_dw(x, w, b, lse, gr, wp, xp)
-        lse2 = vocab_lse._launch_fwd(x, w, b, wp, xp)
-        dx2 = vocab_lse._launch_dx(x, w, b, lse, gr, wp, xp)
-        dw2, db2 = vocab_lse._launch_dw(x, w, b, lse, gr, wp, xp)
-        calls = {key: c - before[key] for key, c in k4_counts().items()}
-        check(calls == {"K4": 2, "K4 dx": 2, "K4 dw": 2},
-              f"K4 ({n}, {k}): one launch of each pass a call, {calls}")
-        lse_p = vocab_lse.lse_plain(x.float(), w.float(), b)
-        dx_p, dw_p, db_p = vocab_lse.lse_bwd_plain(x.float(), w.float(), b, lse_p, gr)
-        torch.cuda.synchronize()
-        errs = k4_errors((("fwd", "lse", lse, lse_p, None), ("dx", "dx", dx, dx_p, KERNEL_RTOL),
-                          ("dw", "dW", dw, dw_p, KERNEL_RTOL), ("dw", "db", db, db_p, K4_DB_RTOL)),
-                         n, k, v, res)
-        check(torch.equal(lse, lse2) and torch.equal(dx, dx2) and torch.equal(dw, dw2)
-              and torch.equal(db, db2),
-              f"K4 lse, dx and dw ({n}, {k}) x ({k}, {v}): a second run bit-identical")
-        del lse2, dx2, dw2, db2, lse_p, dx_p, dw_p, db_p
-        torch.cuda.empty_cache()
-        kp = vocab_lse.padded_k(k)
-        tf = vocab_lse.fwd_tiling(n, kp, v, sms)
-        line = (f"phase 49a K4 vocab_lse ({n}, {k}) x ({k}, {v})"
-                + (f", K padded to {kp}" if kp != k else "") + ": max_abs_err "
-                + ", ".join(f"{nm} {e:.3e}" for nm, e in errs.items())
-                + f" (phase 2v's bounds), all finite; b, lse and g NaN past their ends; "
-                f"bit-identical on a second run; one launch of each pass a call; forward "
-                f"{tf['route']} (BM {tf['BM']}, C {tf['C']}); "
-                + k4_backward_tiling(n, kp, v, sms) + "; " + k4_waves(n, kp, v))
-        if (n, k, v) == K4_LARGE:
-            for part, fn, word in (
-                    ("fwd", lambda: vocab_lse._launch_fwd(x, w, b, wp, xp), "vocab_lse_fwd"),
-                    ("dx", lambda: vocab_lse._launch_dx(x, w, b, lse, gr, wp, xp),
-                     "vocab_lse_split_kernel<false"),
-                    ("dw", lambda: vocab_lse._launch_dw(x, w, b, lse, gr, wp, xp),
-                     "vocab_lse_split_kernel<true")):
-                # the wrapper's own copies (dw's cast to w's dtype) aside
-                exact_profile(f"K4 {part} at K {k}: one {word} device event a call", fn,
-                              lambda word=word: {word: 1})
-            line += "; one kernel event a call (profiled)"
-            times, line = k4_times(g, dev, K4_LARGE, gr, 1, {"fwd": 5, "dx": 5, "dw": 5}, line)
-            for part in res:
-                res[part].update(times[part])
-        print(line, flush=True)
-        del x, w, b, gr, wp, xp, lse, dx, dw, db
-        torch.cuda.empty_cache()
+    """Phase 49a: `k4_shapes` at K4_LARGE_SHAPES, K4_LARGE profiled and
+    timed. Returns {"fwd", "dx", "dw"} results, the largest errors over the
+    shapes with K4_LARGE's times."""
+    out = k4_shapes(g, dev, K4_LARGE_SHAPES, (K4_LARGE,), "49a", profiled=(K4_LARGE,))
+    res = out[K4_LARGE]
+    for r in out.values():
+        for part in res:
+            res[part]["err"] = max(res[part]["err"], r[part]["err"])
     return res
 
 
@@ -6702,11 +6881,13 @@ def whisper_large_phase(dev, g, audio) -> dict:
 # 24 layers, ff 4096) on the recipe's train_asr_conformer.yaml, everything
 # else as the recipe has it, the decoder at 8 heads too: heads of 128
 # throughout, so K5 runs its 128 instance, the decoder's self-attention K3's
-# rows at d_head 128, and the CTC head K4 at K 1024. Random weights from
-# torch seed XL_SEED; the LM the recipe's (16 x 512).
+# rows at d_head 128, and the CTC head K4 at K 1024. The 24 encoder blocks
+# cut to 12 for the script's time (phase 52 runs the deeper, wider model).
+# Random weights from torch seed XL_SEED, drawn on the card; the LM the
+# recipe's (16 x 512).
 XL_WIDTHS = {"enc_output_size": 1024, "enc_attention_heads": 8, "enc_linear_units": 4096,
              "dec_attention_heads": 8}
-XL_BLOCKS = (24, 6)
+XL_BLOCKS = (12, 6)
 XL_PARITY_BLOCKS = (2, 2)
 XL_SEED = 10
 XL_TRAIN_STEPS = 3
@@ -6715,12 +6896,31 @@ XL_TRAIN_STEPS = 3
 # encoder_conf.attention_heads 4 -> 1: one head of 256, so K5 runs its wide
 # route (2 chunks of 128); the decoder keeps 4 heads of 64 (K3), the CTC
 # head K4 at K 256. No public conformer preset has heads above 128; JAX's
-# kernel takes any d_head % 8 == 0. Random weights from torch seed H1_SEED.
+# kernel takes any d_head % 8 == 0. Random weights from torch seed H1_SEED, drawn on the card.
 H1_WIDTHS = {"enc_attention_heads": 1}
 H1_BLOCKS = (12, 6)
 H1_PARITY_BLOCKS = (2, 1)
 H1_SEED = 11
 H1_TRAIN_STEPS = 3
+# Phase 52: the conformer at Google USM's 2B widths (Zhang et al. 2023,
+# "Google USM: Scaling Automatic Speech Recognition Beyond 100 Languages",
+# arXiv:2303.01037: model dimension 1536, 16 heads, 32 blocks) on the
+# recipe's train_asr_conformer.yaml: encoder_conf output_size 1536,
+# attention_heads 16 (d_head 96), linear_units 6144 (4 x 1536), decoder_conf
+# attention_heads 16, everything else as the recipe has it (cnn_module_kernel
+# 15, ctc 0.3, the 6-block decoder, the whisper vocabulary, the LM). So the
+# CTC head runs K4 at K 1536 (KS-256 slices on clusters of 6), K5 its 128
+# instance on heads of 96 zero-padded, and the decoder's self-attention K3's
+# rows at d_head 96. The paper's 32 encoder blocks cut to USM_BLOCKS[0], the
+# deepest of 32, 24 and 16 whose 16 x 15 s step (no activation
+# checkpointing, as JAX's conformer has none) fits the card with ~10%
+# headroom. Random weights from torch seed USM_SEED, drawn on the card.
+USM_WIDTHS = {"enc_output_size": 1536, "enc_attention_heads": 16, "enc_linear_units": 6144,
+              "dec_attention_heads": 16}
+USM_BLOCKS = (24, 6)
+USM_PARITY_BLOCKS = (2, 1)
+USM_SEED = 12
+USM_TRAIN_STEPS = 3
 
 
 def width_raw(widths: dict, enc_blocks: int, dec_blocks: int) -> dict:
@@ -6761,6 +6961,7 @@ def width_phase(dev, audio, phase: str, label: str, widths: dict, blocks: tuple,
     enc_blocks, dec_blocks = blocks
     raw = width_raw(widths, enc_blocks, dec_blocks)
     model, cfg, sd, raw = conformer_train_model(dev, torch.bfloat16, raw=raw, seed=seed)
+    torch.cuda.empty_cache()
     d, h = cfg.encoder.output_size, cfg.encoder.attention_heads
     dd, dh = cfg.decoder.d_model, cfg.decoder.attention_heads
     shape = (f"encoder d {d}, {h} head{'s' if h > 1 else ''} of {d // h}, units "
@@ -6787,6 +6988,7 @@ def width_phase(dev, audio, phase: str, label: str, widths: dict, blocks: tuple,
         losses.append((float(stats["loss"]), float(stats["loss_ctc"]), float(stats["loss_att"])))
     train_launches = conformer_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    card_gb = torch.cuda.get_device_properties(dev).total_memory / 1e9
     want = {k: v * steps for k, v in width_step_launches(enc_blocks).items()}
     check(train_launches == want, f"{label} train launches {train_launches} == {want}")
     check(all(np.isfinite(v) for row in losses for v in row)
@@ -6803,7 +7005,8 @@ def width_phase(dev, audio, phase: str, label: str, widths: dict, blocks: tuple,
           f"{n_params / 1e9:.3f}B parameters, bf16 / f32 masters, Adam, {TRAIN_B} x {TRAIN_S} s "
           f"(T {t_enc}) a step: {ms:.1f} ms/step (median of "
           f"{[round(t * 1e3, 1) for t in times]}), {TRAIN_B * TRAIN_S / (ms / 1e3):.1f} "
-          f"audio-s/s; peak {peak_gb:.2f} GB; launches {train_launches} "
+          f"audio-s/s; peak {peak_gb:.2f} GB ({peak_gb / card_gb:.1%} of the card's "
+          f"{card_gb:.1f} GB); launches {train_launches} "
           f"({width_step_launches(enc_blocks)} a step); losses "
           f"{[tuple(round(v, 3) for v in row) for row in losses]}; profile: device busy "
           f"{busy:.1f} ms in {n_events} events, idle {1 - busy / ms:.1%}; K5 fwd "
@@ -6847,7 +7050,7 @@ def width_phase(dev, audio, phase: str, label: str, widths: dict, blocks: tuple,
 
     t_par = time.perf_counter()
     raw2 = width_raw(widths, *parity_blocks)
-    sd2 = conformer_train_model("cpu", torch.float32, raw=raw2, seed=seed)[2]
+    sd2 = conformer_train_model(dev, torch.float32, raw=raw2, seed=seed)[2]
     train_par = conformer_train_parity(sd2, dev, batch, raw=raw2, phase=f"{phase}c",
                                        launches=width_step_launches(parity_blocks[0]))
     card_m, card_lm, _, lsd2 = conformer_models(dev, torch.bfloat16, sd2, lm_blocks=2,
@@ -6868,7 +7071,9 @@ def width_phase(dev, audio, phase: str, label: str, widths: dict, blocks: tuple,
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     del card_m, card_lm, cpu_m, cpu_lm
     torch.cuda.empty_cache()
-    return {"train": {"launches": train_launches, "ms": ms, "busy": busy, "peak_gb": peak_gb},
+    return {"train": {"launches": train_launches, "ms": ms, "busy": busy, "peak_gb": peak_gb,
+                      "card_gb": card_gb,
+                      "k4_shape": (TRAIN_B * t_enc, d, cfg.decoder.vocab_size)},
             "serve": {"launches": serve_launches, "ms": serve_ms},
             "parity": {"train": train_par, "enc": e_enc, "joint": e_joint}}
 
@@ -6882,6 +7087,8 @@ def main() -> int:
                  "this script needs a CUDA card")
     if sys.argv[1:2] == ["--k3k5-turn"] and len(sys.argv) == 3:
         return k3k5_turn(os.path.abspath(sys.argv[2]))
+    if sys.argv[1:2] == ["--warm-turn"] and len(sys.argv) == 3:
+        return warm_turn(int(sys.argv[2]))
     sys.path.insert(0, ROOT)
     from agacs_tpu_torch.decode.speech2text import Speech2Text
     from agacs_tpu_torch.models import whisper as tw
@@ -6912,6 +7119,9 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--k3k5-turns"] and len(sys.argv) == 3:
         k3k5_turns(sys.argv[2])
+        return 0
+    if sys.argv[1:2] == ["--warm-turns"]:
+        warm_turns()
         return 0
     if sys.argv[1:2] == ["--k4-ablate"]:
         k4_ablate(dev)
@@ -7158,6 +7368,17 @@ def main() -> int:
                      H1_PARITY_BLOCKS, H1_SEED, H1_TRAIN_STEPS)
     lap("51")
 
+    # 52. the conformer at USM-2B's width (d 1536, 16 heads of 96): K4 at K
+    # 1536 on the CTC head, training, beam serving with the LM, and card
+    # against CPU at 2 + 1 blocks
+    usm = width_phase(dev, audio, "52", "USM-2B-width conformer", USM_WIDTHS, USM_BLOCKS,
+                      USM_PARITY_BLOCKS, USM_SEED, USM_TRAIN_STEPS)
+    check(usm["train"]["peak_gb"] <= 0.9 * usm["train"]["card_gb"],
+          f"phase 52's step leaves ~10% of the card free: peak {usm['train']['peak_gb']:.2f} GB")
+    check(usm["train"]["k4_shape"] == K4_USM,
+          f"phase 2v held and timed K4 at phase 52's CTC head: {usm['train']['k4_shape']}")
+    lap("52")
+
     check(not any(m.split(".")[0] in ("jax", "jaxlib", "agacs_tpu") for m in sys.modules),
           "no jax, jaxlib or agacs_tpu module was imported")
 
@@ -7331,12 +7552,31 @@ def main() -> int:
               "of that width: checked in phase 3f)", "decode_attn.cu",
               "agacs_tpu/ops/decode_attn.py:140", 0, k3w["f32"]),
     ]
+    # above K 1280 (phase 2v): phase 52's CTC head at K 1536, and K 2048 and
+    # 4224 (the stream forward, a cluster of 8; two groups of 9) on no path
+    for kk, launches, what in (
+            (1536, usm["train"]["launches"], "phase 52's CTC head at USM-2B's width: KS-256 "
+             "slices on clusters of 6"),
+            (2048, None, "a cluster of 8, the forward streaming x"),
+            (4224, None, "K padded to 4608, 2 groups of 9 ranks each recomputing S")):
+        kernels += [
+            entry(f"vocab_lse_{part} at K {kk} (K4 {part}, {what}"
+                  + ("" if launches else "; no main path runs this K: checked in phase 2v")
+                  + ")", "vocab_lse.cu", f"agacs_tpu/ops/vocab_lse.py:{line}",
+                  launches[key] if launches else 0, k4["any"][kk][part])
+            for part, line, key in (("fwd", 169, "K4"), ("dx", 207, "K4 dx"),
+                                    ("dw", 224, "K4 dw"))]
     check(serve8["launches"]["K2f"] > 0 and serve8["launches"]["K8g"] > 0,
           "int8 serving launched K2f and K8g")
     check(side_train["launches"]["K1b"] == 0 and all(
         k["launches"] > 0 for k in kernels
         if "no decode step" not in k["name"] and "no main path" not in k["name"]),
           "every kernel of the paths launched on its path, K1b none in side training")
+    print(f"cuda_ms: {CUDA_MS['timings']} timings, {len(CUDA_MS['retaken'])} retaken call "
+          f"by call {sorted(set(CUDA_MS['retaken']))}, {len(CUDA_MS['not_held'])} calls whose "
+          f"hold ran out before they were enqueued {sorted(set(CUDA_MS['not_held']))}; the "
+          f"largest host time to enqueue a held call {CUDA_MS['enqueue_ms']:.3f} ms "
+          f"({CUDA_MS['enqueue_by']})", flush=True)
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s; seconds "
           "by group of phases: " + ", ".join(f"{name} {t - laps[i][1]:.1f}"
                                              for i, (name, t) in enumerate(laps[1:])),

@@ -2,7 +2,9 @@
 (`relpos_flash.relpos_mha_plain`, `relpos_mha_bwd_plain`) against
 agacs_tpu's Pallas kernels `_fwd_pallas` and `_bwd_pallas` run in interpret
 mode at d_head 160 (d 640, 4 heads), 256 (d 1024, 4 heads), 512 (d 512, 1
-head) and 1024 (d 1024, 1 head), T 64 and 67 (a partial tile); the card
+head) and 1024 (d 1024, 1 head), T 64 and 67 (a partial tile); at d_head
+512 and 1024 with d_head 64's inputs unscaled, the port's float32 forward
+and backward against a float64 reference within twice JAX's own error; the card
 wrapper's zero-padding of d_head 160 to 256 (K5's wide route, two chunks of
 128) changing nothing; the envelope's head widths above 128; the conformer
 encoder at d 256 with one head (d_head 256) against JAX's; and the bf16
@@ -62,16 +64,18 @@ def _close(out, ref, rtol, what):
     assert err <= bound, f"{what}: max |err| {err} > {rtol} x max |ref| ({bound})"
 
 
-def _inputs(dh: int, t: int, seed: int):
+def _inputs(dh: int, t: int, seed: int, scaled: bool = True):
     """qu, qv, k, v (2, T, d), pe (Wp, d) zero-padded, the additive mask
     (row 1's last 20 keys masked) and the output cotangent, as float32
     numpy; content and position scores of the spread and offset that
     `tests/test_torch_relpos_widths.py` gives d_head 64 (qu's and k's
     means scaled with their spread by (64 / d_head)^0.25, so the content
-    scores' offset stays -8 after the d_head^-0.5 scale)."""
+    scores' offset stays -8 after the d_head^-0.5 scale); `scaled` False:
+    d_head 64's inputs unscaled (scores spread sqrt(d_head / 64) times
+    wider)."""
     d, _ = WIDE[dh]
     rng = np.random.RandomState(seed)
-    sc = (64 / dh) ** 0.25
+    sc = (64 / dh) ** 0.25 if scaled else 1.0
     qu = rng.randn(2, t, d) * 1.5 * sc - sc
     qv = rng.randn(2, t, d) * 1.5 * sc
     k = rng.randn(2, t, d) * 1.5 * sc + sc
@@ -114,6 +118,57 @@ def test_plain_forward_and_backward_match_pallas(dh, t, dtype):
         assert g.dtype == tdt, name
         _close(g, r, rtol, f"{name} d_head {dh} T={t} {dtype}")
     assert relpos_flash.LAUNCHES == relpos_flash.BWD_LAUNCHES == 0
+
+
+def _f64_reference(xs, mask, do, h):
+    """The rel-pos attention's output and its gradients in qu, qv, k, v and
+    pe, in float64 by autograd from the definition (scores, the shift as a
+    gather of columns T-1-q+j, the mask, a softmax, the value product)."""
+    qu, qv, k, v, pe = (torch.from_numpy(x).double().requires_grad_() for x in xs)
+    b, t, d = qu.shape
+    dh = d // h
+
+    def heads(x):
+        return x.reshape(b, t, h, dh).transpose(1, 2)
+
+    peh = pe[: 2 * t - 1].reshape(2 * t - 1, h, dh).transpose(0, 1)
+    cols = (t - 1) - torch.arange(t)[:, None] + torch.arange(t)[None, :]
+    bd = (heads(qv) @ peh.transpose(-1, -2)[None]).gather(3, cols.expand(b, h, t, t))
+    s = ((heads(qu) @ heads(k).transpose(-1, -2) + bd) * dh ** -0.5
+         + torch.from_numpy(mask).double()[:, None, None, :])
+    o = (torch.softmax(s, -1) @ heads(v)).transpose(1, 2).reshape(b, t, d)
+    return o.detach(), torch.autograd.grad(o, (qu, qv, k, v, pe), torch.from_numpy(do).double())
+
+
+@pytest.mark.parametrize("dh,t", [(dh, t) for dh in (512, 1024) for t in (64, 67)])
+def test_unscaled_inputs_float32_backward_within_twice_jax(dh, t):
+    """At d_head 512 and 1024 with d_head 64's inputs unscaled (scores 2.8
+    and 4 times wider: worse conditioned than the scaled cases above), the
+    port's float32 forward and backward (the plain versions a CPU tensor
+    takes) against a float64 reference, each within twice JAX's own
+    float32 error there (`_fwd_pallas` and `_bwd_pallas` interpreted), as
+    max |err| / max |ref|."""
+    xs, mask, do = _inputs(dh, t, seed=dh + t + 1, scaled=False)
+    h = WIDE[dh][1]
+    o64, g64 = _f64_reference(xs, mask, do, h)
+    jx, tx = _pair(xs, "float32")
+    jm = jnp.asarray(mask)
+    oj = jrf._fwd_pallas(*jx, jm, h, True)
+    gj = jrf._bwd_pallas(*jx, jm, oj, jnp.asarray(do), h, True)
+    gj = list(gj[:4]) + [jnp.sum(gj[4], axis=0)]
+    ot = relpos_flash.relpos_mha(*tx, torch.from_numpy(mask), h)
+    gt = relpos_flash.relpos_mha_bwd_plain(*tx, torch.from_numpy(mask), ot,
+                                           torch.from_numpy(do), h)
+
+    def rel(out, ref):
+        return float(np.abs(np.asarray(_np(out), np.float64) - ref.numpy()).max()
+                     / ref.abs().max().item())
+
+    for name, port, jax_out, ref in zip(("o",) + NAMES, [ot, *gt], [oj, *gj], [o64, *g64]):
+        assert port.dtype == torch.float32, name
+        err, jax_err = rel(port, ref), rel(jax_out, ref)
+        assert 0 < jax_err and err <= 2 * jax_err, (
+            f"{name} d_head {dh} T={t}: port {err:.3e} > 2 x JAX's {jax_err:.3e}")
 
 
 def test_padding_160_to_256_changes_nothing():

@@ -196,7 +196,7 @@ def test_fwd_constants_match_the_source():
         assert line in SOURCE, line
     # one launch: the old combine pass and its scratch are gone
     assert "vocab_lse_combine" not in SOURCE and "part_m" not in SOURCE
-    assert SOURCE.count("vocab_lse_fwd_kernel<") == 4
+    assert SOURCE.count("vocab_lse_fwd_kernel<") == 5  # and the stream route's above FWD_XK
 
 
 @pytest.mark.parametrize("n", [60, 300, 700, 7488, 12000])

@@ -269,7 +269,8 @@ def test_tiling_constants_match_the_source():
                  "  if (K > HK_MAX ? C != K / KS",
                  "  const dim3 grid(C, (N + DX_BM - 1) / DX_BM);",
                  "  const int vt0 = rank * n_vt / C, nt = (rank + 1) * n_vt / C - vt0;",
-                 "  const int b0 = blockIdx.y * 128, k0 = rank * KS;",
+                 "  const int b0 = blockIdx.y * BT, k0 = (grp * C + rank) * KSZ;",
+                 "  constexpr int BT = 64 * NWG;            // rows (dx) or columns (dw) of the output tile",
                  "    return launch_hk(vocab_lse_split_kernel<true>, dim3(K / KS, Vp / DW_BV), K / KS,",
                  "  const dim3 grid(Vp / DW_BV);"):
         assert line in SOURCE, line

@@ -6,7 +6,8 @@ runs them); the K padding of the wrapper; a torch model of the split
 backward's arithmetic on clusters of 9 and 10 ranks (each rank's partial S
 over its 128-wide K-slice, added in rank order) against JAX, and without
 its last rank, which must fail; the tiling rules at K 768, 1024 and 1280
-and their constants against the source; and the raise above K_MAX.
+and their constants against the source; and above K 1280 (the KS-256
+routes, `test_torch_vocab_lse_anyk.py`) the wrapper's ask for the card.
 Inputs are made with numpy from a seed, N 200 and V 1001 (ragged against
 every row and column tile).
 
@@ -96,7 +97,7 @@ def test_padding_to_the_kernels_k_is_exact(case):
     versions on them give the unpadded results, and zeros in the padding."""
     k, (x, w, b, lse, g), _, _ = case
     kp = vocab_lse.padded_k(k)
-    assert kp == -(-k // 128) * 128 <= vocab_lse.K_MAX and (kp == k) == (k % 128 == 0)
+    assert kp == -(-k // 128) * 128 <= vocab_lse.SPLIT128_K and (kp == k) == (k % 128 == 0)
     xp, wp = vocab_lse._pad_x(x), vocab_lse._rows8(w)
     assert xp.shape == (N, kp) and wp.shape == (kp, -(-V // 8) * 8)
     assert float(xp[:, k:].abs().sum()) == 0.0 and float(wp[k:].abs().sum()) == 0.0
@@ -187,31 +188,38 @@ def test_wide_cluster_quads_and_shared_memory(c):
     assert portable + 4 * (recv - quads) * 32 * 16 == 217224 <= SMEM
 
 
-def test_limit_constants_match_the_source():
-    assert vocab_lse.K_MAX == _constant("K_MAX") == 1280 == 10 * vocab_lse.KS
-    for line in ("constexpr int WIDE_C = K_MAX / KS;",
+def test_split_route_constants_match_the_source():
+    """The KS-128 split up to SPLIT128_K (1280, a cluster of 10 at most) and
+    the KS-256 routes above it, dispatched by the C entries by K."""
+    assert vocab_lse.SPLIT128_K == _constant("SPLIT128_K") == 1280 == 10 * vocab_lse.KS
+    for line in ("constexpr int WIDE_C = SPLIT128_K / KS;",
                  "  return split_smem() + 4 * (RECV_WIDE - RECV_QUADS) * QBLK;",
-                 "  if (C > MAX_C)\n    return launch_wide(vocab_lse_split_kernel<false, WIDE_C>,",
-                 "  if (K / KS > MAX_C)\n    return launch_wide(vocab_lse_split_kernel<true, WIDE_C>,",
+                 "  if (C > MAX_C)\n    return launch_split(vocab_lse_split_kernel<false, WIDE_C>,",
+                 "  if (K / KS > MAX_C)\n    return launch_split(vocab_lse_split_kernel<true, WIDE_C>,",
                  "    e = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);",
-                 "  e = cudaOccupancyMaxActiveClusters(&n, kern, &cfg);"):
+                 "  e = cudaOccupancyMaxActiveClusters(&n, kern, &cfg);",
+                 "    return launch_ks2<false>(grid, st, mp, bf, lf, gf, dx, (float*)nullptr, N, K, V, 0);",
+                 "    return launch_ks2<true>(grid, st, mp, bf, lf, gf, dw, (float*)db, N, K, V, Vp);"):
         assert line in SOURCE, line
-    # the three C entries refuse K above the limit, and only above it
-    assert SOURCE.count("K % 128 || K > K_MAX ||") == 3
-    assert not re.search(r"K > 1024 \|\|", SOURCE)
+    # the dx and dw entries take the KS-256 route above SPLIT128_K, and no
+    # C entry refuses a K for its size
+    assert SOURCE.count("  if (K > SPLIT128_K) {") == 3
+    assert SOURCE.count("K % 128 || ldw < V || ldw % 8") == 3
+    assert not re.search(r"K > 1024 \|\||K > K_MAX", SOURCE)
 
 
 @pytest.mark.parametrize("k", [1281, 1408, 2048])
-def test_above_the_limit_raises(k):
-    """K4's wrapper refuses K above K_MAX, naming the limit, before it
-    touches a device (meta tensors here); JAX takes any K, so the CPU path
-    (the plain versions) still does."""
+def test_above_1280_the_wrapper_asks_for_the_card(k):
+    """Above K 1280 K4's wrapper takes K (its check passes the shapes) and,
+    before it touches a device (meta tensors here), raises for the device:
+    a tensor off the card never falls back. The CPU path (the plain
+    versions) gives torch.logsumexp."""
     x = torch.empty(4, k, dtype=torch.bfloat16, device="meta")
     w = torch.empty(k, 300, dtype=torch.bfloat16, device="meta")
     b = torch.empty(300, device="meta")
-    with pytest.raises(ValueError, match="K_MAX 1280"):
+    with pytest.raises(ValueError, match="CUDA tensor"):
         vocab_lse._check(x, w, b)
-    with pytest.raises(ValueError, match="K_MAX 1280"):
+    with pytest.raises(ValueError, match="CUDA tensor"):
         vocab_lse._launch_dx(x, w, b, torch.empty(4, device="meta"),
                              torch.empty(4, device="meta"))
     rng = np.random.RandomState(k)

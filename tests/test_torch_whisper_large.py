@@ -67,7 +67,7 @@ def test_presets_equal_jax(size):
 
 def test_large_recipe_config_equals_jax():
     """The stage-2 recipe with `whisper_model: large` in both parts: the same
-    whisper dims as JAX's config, K4's K 1280 within the kernels' limit."""
+    whisper dims as JAX's config, K4's K 1280 within its KS-128 split route."""
     from agacs_tpu_torch.ops import vocab_lse
 
     raw = load_yaml(os.path.join(RECIPES, "seame", "conf",
@@ -81,7 +81,7 @@ def test_large_recipe_config_equals_jax():
                 "adapter", "adapter_encoder", "adapter_decoder"):
         assert getattr(got, key) == getattr(ref, key), key
     assert (got.n_audio_state, got.n_audio_head, got.n_audio_layer) == (1280, 20, 32)
-    assert got.d_audio_head == 64 and got.n_audio_state <= vocab_lse.K_MAX
+    assert got.d_audio_head == 64 and got.n_audio_state <= vocab_lse.SPLIT128_K
 
 
 @pytest.fixture(scope="module")
