@@ -78,14 +78,24 @@
 // run to run, and differs from the unsplit kernel only in the order of
 // its float32 sums.
 //
-// K3s is the same split with the group's j <= 16 queries in the block, on
-// the tensor cores (mma.sync m16n8k16, bf16 in, float32 accumulators; j
-// rows of A padded to 16): each key and value row read once serves all j,
-// and no lane reduces a dot product across lanes. Its tiles are swizzled
-// for ldmatrix; int8 keys and values are widened to bf16 in registers
-// (exact), with their channels paired to suit ldmatrix. It takes the whole
-// chunk in one tile up to 64 KB, and fills the card with fewer, busier
-// blocks.
+// K3s is the same split with a tile of up to 16 of the group's queries in
+// the block (a grid axis over a group's tiles of balanced sizes, so a block's
+// scores take no more shared memory than its queries need), on the tensor cores
+// (mma.sync m16n8k16, bf16 in, float32 accumulators; the tile's rows of A
+// padded to 16): each key and value row read once serves the tile's
+// queries, and no lane reduces a dot product across lanes. Its tiles are
+// swizzled for ldmatrix, a head of 128-256 channels as 64-channel
+// sub-rows whose k-steps the scores sum; int8 keys and values are widened
+// to bf16 in registers (exact), with their channels paired to suit
+// ldmatrix. It takes the whole chunk in one tile up to 64 KB, and fills the
+// card with fewer, busier blocks.
+//
+// Routes (`decode_attn.envelope`, from the shapes alone): a block whose
+// keys fit one table (`decode_attn.short_keys`: 8192 scores, 4096 beside
+// an ancestry map's rows) takes the kernels above (the
+// fixed d_head-64 instances, the runtime-width rows and forms entries, K3s
+// at d_head 64-256 a multiple of 64); everything else, any width and form,
+// the long route at the end of this file.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -99,12 +109,13 @@ typedef __nv_bfloat16 bf16;
 
 namespace {
 
-// Head width of every kernel but K3's plain rows: bf16 rows also run at
-// d_head 48 (the ladder side network's 192 / 4 heads), and bf16 and
-// float32 rows at any d_head up to 256 that is a multiple of 4 (the
-// conformer decoder's and the LM's self-attention): the rows kernel takes
-// the width as a template parameter (`DW`), or its greatest width with the
-// width itself given at launch (`FIXED` false).
+// Head width of the fixed instances and of K3s's 64-channel sub-rows: bf16
+// rows also run at d_head 48 (the ladder side network's 192 / 4 heads), and
+// every form of the rows kernel at a width given at launch up to DH_MAX
+// (plain bf16 and float32 rows a multiple of 4; the ancestry map, PE and
+// int8 a multiple of a 16-byte piece): the rows kernel takes the width as a
+// template parameter (`DW`), or its greatest width with the width itself
+// given at launch (`FIXED` false).
 constexpr int DH = 64;
 constexpr int DH_MAX = 256;
 constexpr int WARPS = 4;
@@ -705,12 +716,15 @@ int launch_rows_at(const void* q, const void* k, const void* v, void* o, int N, 
 }
 
 // K3s's products run on the tensor cores (mma.sync m16n8k16, bf16 in,
-// float32 accumulators): the group's j <= 16 queries are the 16 rows of A
-// (rows j.. zero), so a key or value row read once serves all of them and
+// float32 accumulators): a tile of up to QTILE = 16 of the group's queries
+// are the 16 rows of A (rows past the tile's zero), a grid axis over a
+// group's tiles, so a key or value row read once serves the tile's queries and
 // no lane reduces a dot product across lanes. Tiles hold 128-byte bf16 rows
 // with 16-byte chunk c of row r at chunk c ^ (r % 8), so ldmatrix reads
 // them without bank conflicts.
 __device__ __forceinline__ int swz(int r, int c) { return r * 128 + ((c ^ (r & 7)) << 4); }
+
+constexpr int QTILE = 16;  // K3s's queries a block: the rows of mma.sync's A
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -766,24 +780,24 @@ __device__ __forceinline__ void shared_copy(unsigned char* dst, const KT* src, i
       *reinterpret_cast<uint4*>(dst + (cnt + i / 8) * 128 + (i % 8) * 16) = make_uint4(0, 0, 0, 0);
 }
 
-// q as A fragments, one per 16 channels, straight from global memory:
-// this lane's rows g and g + 8 (rows J.. zero), columns 2t, 2t + 1, and
-// 8 further; int8: bf16(q·s_k), as `query_channel` forms it, with the
+// q as A fragments, one per 16 of the 64 channels from ch0, straight from
+// global memory: this lane's rows g and g + 8 (rows J.. zero), columns 2t,
+// 2t + 1, and 8 further; int8: bf16(q·s_k), as `query_channel` forms it, with the
 // channels paired as `score_tile_i8` pairs the keys' (4t, 4t + 1 for the
 // k-slots 2t, 2t + 1; 4t + 2, 4t + 3 for 2t + 8, 2t + 9: the dot product
 // is the same sum in another order).
 template <typename KT>
 __device__ __forceinline__ void q_fragments(uint32_t (&qa)[4][4], const bf16* q,
                                             const float* k_scale, size_t row0, int J, int D,
-                                            int h) {
+                                            int ch0) {
   const int lane = threadIdx.x & 31, g = lane >> 2, cq = (lane & 3) * 2;
   auto pair = [&](int row, int c) -> uint32_t {
     if (row >= J) return 0u;
     const __nv_bfloat162 x =
-        *reinterpret_cast<const __nv_bfloat162*>(q + (row0 + row) * D + h * DH + c);
+        *reinterpret_cast<const __nv_bfloat162*>(q + (row0 + row) * D + ch0 + c);
     if constexpr (std::is_same<KT, int8_t>::value) {
       const float2 f = __bfloat1622float2(x);
-      return pack_bf16(f.x * k_scale[h * DH + c], f.y * k_scale[h * DH + c + 1]);
+      return pack_bf16(f.x * k_scale[ch0 + c], f.y * k_scale[ch0 + c + 1]);
     }
     return *reinterpret_cast<const uint32_t*>(&x);
   };
@@ -855,11 +869,12 @@ __device__ __forceinline__ void value_step_i8(float (&acc)[2][4], const uint32_t
 }
 
 // The warp's partial output (rows < J, its 16 channels) into rank 0's
-// table, slot `rank`. Column tile e, accumulator element 2r + c (row g +
-// 8r) is channel 8e + 2t + c of the warp's 16 (bf16), or 4t + 2c + e
-// (int8, `value_step_i8`).
+// table, slot `rank`, rows `ld` floats apart. Column tile e, accumulator
+// element 2r + c (row g + 8r) is channel 8e + 2t + c of the warp's 16
+// (bf16), or 4t + 2c + e (int8, `value_step_i8`).
 template <bool QUANT>
-__device__ __forceinline__ void push_partial(float* to0, const float (&acc)[2][4], int J) {
+__device__ __forceinline__ void push_partial(float* to0, const float (&acc)[2][4], int J,
+                                             int ld) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int e = 0; e < 2; ++e)
@@ -867,7 +882,7 @@ __device__ __forceinline__ void push_partial(float* to0, const float (&acc)[2][4
     for (int rc = 0; rc < 4; ++rc) {
       const int row = g + 8 * (rc >> 1), c = rc & 1;
       const int ch = 16 * warp + (QUANT ? 4 * t + 2 * c + e : 8 * e + 2 * t + c);
-      if (row < J) to0[row * DH + ch] = acc[e][rc];
+      if (row < J) to0[row * ld + ch] = acc[e][rc];
     }
 }
 
@@ -877,74 +892,92 @@ __device__ __forceinline__ void push_partial(float* to0, const float (&acc)[2][4
 // larger tile costs no occupancy and saves the ring's waits.
 constexpr int SHARED_WHOLE = 64 * 1024;
 
-// K3s's dynamic shared memory, in bytes: the ring, J x cap float scores,
-// the S x J x DH partials rank 0 receives, and every rank's J maxima and J
-// sums.
-__host__ __device__ __forceinline__ int shared_smem(int cap, int tk, int row, int J, int S) {
-  return ring_slots(cap, tk) * tk * row + 4 * J * (cap + S * (DH + 2));
+// K3s's dynamic shared memory, in bytes: the ring (tiles of `row` bytes
+// a key), J x cap float scores, the S x J x W partials rank 0 receives, and
+// every rank's J maxima and J sums.
+__host__ __device__ __forceinline__ int shared_smem(int cap, int tk, int row, int J, int S,
+                                                    int W) {
+  return ring_slots(cap, tk) * tk * row + 4 * J * (cap + S * (W + 2));
 }
 
-// K3s (KT bf16) and K3s-int8 (KT int8, with k_scale / v_scale). q, o:
-// (G*J, D) group-major (row g*J + i is group g's slot i); k, v: (G, Tp, D);
-// J <= 16. Grid (H, G, S) in clusters of (1, 1, S); tk a multiple of 16.
-// Scores: warp w takes the 8-key column tiles w, w + 4, ... of a tile, and
-// writes the J x cap scores to shared memory; softmax: warp w takes
-// queries w, w + 4, ...; values: warp w takes channels 16w .. 16w + 15.
-template <typename KT>
+// K3s (KT bf16) and K3s-int8 (KT int8, with k_scale / v_scale) at d_head W
+// = M x 64. q, o: (G*JG, H*W) group-major (row g*JG + i is group g's slot
+// i); k, v: (G, Tp, H*W). Grid (H, G x tiles, S) in clusters of (1, 1, S);
+// tk a multiple of 16; a tile holds each key's M 64-channel sub-rows as M
+// swizzled sub-tiles, and the scores sum the M sub-rows' k-steps. Scores:
+// warp w takes the 8-key column tiles w, w + 4, ... of a tile, and writes
+// the J x cap scores to shared memory; softmax: warp w takes queries w, w +
+// 4, ...; values: warp w takes channels 16w .. 16w + 15 of each sub-row.
+template <typename KT, int M = 1>
 __global__ void __launch_bounds__(THREADS)
 decode_attn_shared_kernel(const bf16* __restrict__ q, const KT* __restrict__ k,
                                const KT* __restrict__ v, const float* __restrict__ k_scale,
                                const float* __restrict__ v_scale, bf16* __restrict__ o,
-                               int Tp, int H, int pos, int J, int chunk, int tk) {
+                               int Tp, int H, int pos, int JG, int chunk, int tk) {
   constexpr bool QUANT = std::is_same<KT, int8_t>::value;
-  constexpr int ROW = DH * (int)sizeof(KT);
+  constexpr int ROW = DH * (int)sizeof(KT);  // a 64-channel sub-row
+  constexpr int W = M * DH;
   extern __shared__ __align__(128) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int S = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
   const bool multi = S > 1;
-  const int h = blockIdx.x, gi = blockIdx.y;
+  // blockIdx.y: group gi's query tile ti, each tile a block of its own over
+  // the group's cache; a group's JG queries in the fewest tiles of at most
+  // QTILE, their sizes balanced (T, then what is left: 20 as 10 + 10)
+  const int tiles = (JG + QTILE - 1) / QTILE, T = (JG + tiles - 1) / tiles;
+  const int h = blockIdx.x, gi = blockIdx.y / tiles, ti = blockIdx.y - gi * tiles;
+  const int J = min(T, JG - T * ti);
+  const size_t row0 = (size_t)gi * JG + T * ti;  // the tile's first query row
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, cq = (lane & 3) * 2;
-  const int D = H * DH;
+  const int D = H * W;
   const int nk = pos + 1;
   const int cap = min(chunk, nk);
   const int c0 = rank * chunk;
   const int nkb = max(0, min(chunk, nk - c0));
   const int nt = (nkb + tk - 1) / tk;
   const int slots = ring_slots(cap, tk);
+  const size_t sub = (size_t)tk * ROW;  // a sub-tile's bytes
   unsigned char* ring = smem;
-  float* sc = reinterpret_cast<float*>(ring + (size_t)slots * tk * ROW);
+  float* sc = reinterpret_cast<float*>(ring + (size_t)slots * M * sub);
   float* parts = sc + J * cap;
-  float* xm = parts + S * J * DH;
+  float* xm = parts + S * J * W;
   float* xl = xm + S * J;
-  const KT* kb = k + (size_t)gi * Tp * D + h * DH;
-  const KT* vb = v + (size_t)gi * Tp * D + h * DH;
+  const KT* kb = k + (size_t)gi * Tp * D + h * W;
+  const KT* vb = v + (size_t)gi * Tp * D + h * W;
   if (multi) cluster_arrive_relaxed();
 
   auto fetch = [&](int j) {
     if (j < 2 * nt) {
       const bool val = j >= nt;
       const int t0 = (val ? j - nt : j) * tk;
-      shared_copy<KT>(ring + (size_t)(j % slots) * tk * ROW,
-                      (val ? vb : kb) + (size_t)(c0 + t0) * D, min(tk, nkb - t0), D, val);
+#pragma unroll
+      for (int m = 0; m < M; ++m)
+        shared_copy<KT>(ring + (size_t)(j % slots) * M * sub + m * sub,
+                        (val ? vb : kb) + (size_t)(c0 + t0) * D + m * DH, min(tk, nkb - t0), D,
+                        val);
     }
     cp_commit();
   };
   for (int j = 0; j < slots; ++j) fetch(j);
-  uint32_t qa[4][4];
-  q_fragments<KT>(qa, q, k_scale, (size_t)gi * J, J, D, h);
+  uint32_t qa[M][4][4];
+#pragma unroll
+  for (int m = 0; m < M; ++m) q_fragments<KT>(qa[m], q, k_scale, row0, J, D, h * W + m * DH);
 
   for (int j = 0; j < nt; ++j) {
     cp_wait(slots - 1);
     __syncthreads();
-    const unsigned char* kt = ring + (size_t)(j % slots) * tk * ROW;
+    const unsigned char* kt = ring + (size_t)(j % slots) * M * sub;
     const int t0 = j * tk, cnt = min(tk, nkb - t0);
     for (int n0 = 8 * warp; n0 < cnt; n0 += 8 * WARPS) {
       float c[4] = {0.f, 0.f, 0.f, 0.f};
-      if constexpr (QUANT)
-        score_tile_i8(c, qa, kt, n0);
-      else
-        score_tile(c, qa, kt, n0);
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        if constexpr (QUANT)
+          score_tile_i8(c, qa[m], kt + m * sub, n0);
+        else
+          score_tile(c, qa[m], kt + m * sub, n0);
+      }
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         if (n0 + cq + e < cnt) {
@@ -986,11 +1019,11 @@ decode_attn_shared_kernel(const bf16* __restrict__ q, const KT* __restrict__ k,
       sc[i * cap + t] = __bfloat162float(__float2bfloat16(sc[i * cap + t] / l));
   }
 
-  float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+  float acc[M][2][4] = {};
   for (int j = 0; j < nt; ++j) {
     cp_wait(slots - 1);
     __syncthreads();
-    const unsigned char* vt = ring + (size_t)((nt + j) % slots) * tk * ROW;
+    const unsigned char* vt = ring + (size_t)((nt + j) % slots) * M * sub;
     const int t0 = j * tk, cnt = min(tk, nkb - t0);
     for (int kb0 = 0; kb0 < cnt; kb0 += 16) {
       auto p = [&](int r, int t) { return r < J && t < cnt ? sc[r * cap + t0 + t] : 0.f; };
@@ -998,47 +1031,393 @@ decode_attn_shared_kernel(const bf16* __restrict__ q, const KT* __restrict__ k,
       const uint32_t a[4] = {pack_bf16(p(g, t), p(g, t + 1)), pack_bf16(p(g + 8, t), p(g + 8, t + 1)),
                              pack_bf16(p(g, t + 8), p(g, t + 9)),
                              pack_bf16(p(g + 8, t + 8), p(g + 8, t + 9))};
-      if constexpr (QUANT)
-        value_step_i8(acc, a, vt, kb0);
-      else
-        value_step(acc, a, vt, kb0);
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        if constexpr (QUANT)
+          value_step_i8(acc[m], a, vt + m * sub, kb0);
+        else
+          value_step(acc[m], a, vt + m * sub, kb0);
+      }
     }
     if (nt + j + slots < 2 * nt) __syncthreads();  // the slot is refilled
     fetch(nt + j + slots);
   }
-  push_partial<QUANT>(remote(cluster, multi, parts + rank * J * DH, 0), acc, J);
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+    push_partial<QUANT>(remote(cluster, multi, parts + rank * J * W, 0) + m * DH, acc[m], J, W);
   cluster_sync(cluster, multi);
   if (rank == 0) {
-    for (int idx = tid; idx < J * DH; idx += THREADS) {
+    for (int idx = tid; idx < J * W; idx += THREADS) {
       float s = 0.f;
-      for (int r = 0; r < S; ++r) s += parts[r * J * DH + idx];
-      if (QUANT) s *= v_scale[h * DH + idx % DH];
-      o[((size_t)gi * J + idx / DH) * D + h * DH + idx % DH] = __float2bfloat16(s);
+      for (int r = 0; r < S; ++r) s += parts[r * J * W + idx];
+      if (QUANT) s *= v_scale[h * W + idx % W];
+      o[(row0 + idx / W) * D + h * W + idx % W] = __float2bfloat16(s);
     }
   }
 }
 
-template <typename KT>
+template <typename KT, int M>
 int launch_shared(const void* q, const void* k, const void* v, const void* ks,
-                  const void* vs, void* o, int G, int Tp, int H, int pos, int J, int S,
+                  const void* vs, void* o, int G, int Tp, int H, int pos, int JG, int S,
                   cudaStream_t stream) {
-  if (S < 1 || S > MAX_SPLITS || J < 1 || J > 16) return (int)cudaErrorInvalidValue;
-  constexpr int ROW = DH * (int)sizeof(KT);
+  if (S < 1 || S > MAX_SPLITS || JG < 1) return (int)cudaErrorInvalidValue;
+  constexpr int ROW = M * DH * (int)sizeof(KT);  // a key's bytes in a tile
+  const int tiles = (JG + QTILE - 1) / QTILE, J = (JG + tiles - 1) / tiles;
   const int chunk = (Tp + S - 1) / S, cap = chunk < pos + 1 ? chunk : pos + 1;
   // The whole chunk in one tile when its keys and values take at most
-  // SHARED_WHOLE bytes, else 4 KB tiles; shrunk (multiples of 16 keys)
-  // until the block fits.
+  // SHARED_WHOLE bytes, else 4 KB tiles (16 keys at least); shrunk
+  // (multiples of 16 keys) until the block fits.
   const int whole = (cap + 15) / 16 * 16;
-  int tk = 2 * ROW * whole <= SHARED_WHOLE ? whole : 4096 / ROW;
-  while (tk > 16 && shared_smem(cap, tk, ROW, J, S) > MAX_DYN_SMEM)
+  int tk = 2 * ROW * whole <= SHARED_WHOLE ? whole : 4096 / ROW >= 16 ? 4096 / ROW : 16;
+  while (tk > 16 && shared_smem(cap, tk, ROW, J, S, M * DH) > MAX_DYN_SMEM)
     tk = tk / 32 * 16 > 16 ? tk / 32 * 16 : 16;
-  const size_t smem = shared_smem(cap, tk, ROW, J, S);
+  const size_t smem = shared_smem(cap, tk, ROW, J, S, M * DH);
   if (smem > (size_t)MAX_DYN_SMEM) return (int)cudaErrorInvalidValue;
   static bool opted[MAX_DEVICES] = {};
-  return launch_cluster(decode_attn_shared_kernel<KT>, opted, dim3(H, G, S), S, smem,
+  return launch_cluster(decode_attn_shared_kernel<KT, M>, opted, dim3(H, G * tiles, S), S, smem,
                         MAX_DYN_SMEM, stream,
                         (const bf16*)q, (const KT*)k, (const KT*)v, (const float*)ks,
-                        (const float*)vs, (bf16*)o, Tp, H, pos, J, chunk, tk);
+                        (const float*)vs, (bf16*)o, Tp, H, pos, JG, chunk, tk);
+}
+
+
+// The long route: `_make_kernel_chunked` (decode_attn.py:341-465, the
+// online-softmax carry over time chunks) for every form of the rows kernel
+// (plain, ancestry, PE, int8, float32) and for K3s's groups (one query a
+// block, its group's cache row), at any head width. The split over time
+// and its cluster stay as above; what changes is inside a block. Its keys
+// are walked in passes of kc keys (`decode_attn.PASS_KEYS`, a shape
+// constant), so its scores never need more than kc floats of shared
+// memory: each pass scores its keys, then takes JAX's recurrence, m_new =
+// max(m, max s), alpha = exp(m - m_new), p = exp(s - m_new), l = alpha l
+// + sum p, the value sum acc = alpha acc + sum bf16(p) v (p rounded to the
+// cache's dtype as JAX rounds it, float32 not rounded), each key and value
+// read once. At the end each block pushes (m, l) and its partial output to
+// rank 0, which takes M = max m, e_r = exp(m_r - M), L = sum e_r l_r and
+// O = sum e_r acc_r in rank order and divides once; a block with no keys
+// brings m = -inf, l = 0. Heads wider than PIECE channels are streamed in
+// PIECE-wide pieces: a K tile holds one column piece of its keys (the
+// scores summed over the pieces), and a grid axis over the head's output
+// pieces gives each block the V piece of its own (K is read once per
+// output piece). A head slice whose rows are not 16-byte aligned (any
+// d_head) is copied in the largest unit that divides its bytes, the tail of
+// each 16-byte piece zero-filled in shared memory (q is zero there too), so
+// no cache is ever padded. Bound: bytes, as the rows kernel.
+constexpr int PIECE = 256;       // channels of a head piece
+constexpr int LONG_TILE = 4096;  // bytes of a ring tile (one key at least)
+constexpr int MAX_PASS = 4096;  // keys of a pass at most (its scores)
+// its dynamic shared memory at most (the ring's 32 KB and 16 KB of scores),
+// beside 12.4 KB of static arrays
+constexpr int LONG_DYN_SMEM = 64 * 1024;
+enum { LONG_ROWS = 0, LONG_ANC = 1, LONG_SHARED = 2 };
+
+// A 4-byte copy from global to shared memory (through L1).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+// One 16-byte piece of a tile: `valid` bytes (a multiple of cu, possibly
+// none) from src in copies of `cu` bytes (16, 8, 4 by cp.async; 2 or 1 by
+// plain loads where the head slice's rows are not 4-byte aligned), the
+// rest zero.
+__device__ __forceinline__ void copy_piece(unsigned char* dst, const unsigned char* src,
+                                           int valid, int cu) {
+  if (cu == 16 && valid >= 16) {
+    cp_async16(dst, src);
+    return;
+  }
+  for (int b = 0; b < 16; b += cu) {
+    unsigned char* d = dst + b;
+    if (b >= valid) {
+      for (int z = 0; z < cu; ++z) d[z] = 0;
+    } else if (cu == 8) {
+      cp_async<8>(d, src + b);
+    } else if (cu == 4) {
+      cp_async4(d, src + b);
+    } else if (cu == 2) {
+      *reinterpret_cast<uint16_t*>(d) = *reinterpret_cast<const uint16_t*>(src + b);
+    } else {
+      *d = src[b];
+    }
+  }
+}
+
+// The sum over a key's lpk lanes (lpk a power of 2 given at launch).
+__device__ __forceinline__ float lanes_sum_n(float s, int lpk) {
+  for (int off = lpk >> 1; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  return s;
+}
+
+// MODE: LONG_ROWS (row n reads cache row n), LONG_ANC (row n of group n / J
+// reads position t from row (n / J) J + anc[n, t], clamped into the group),
+// LONG_SHARED (query n reads cache row n / J: K3s's group of J). PE, KT as
+// the rows kernel (q_cs in the query's type, k_cs in the cache's). Grid (N,
+// H x NP, S) in clusters of (1, 1, S), NP = ceil(dh / PIECE); chunk =
+// ceil(Tp / S) keys a block, passes of kc keys, tiles of tk keys (kc a
+// multiple of tk); lpk lanes score a key; cu the copy unit. Dynamic shared
+// memory: MAX_SLOTS ring slots of tk keys x kstride bytes, then kc float
+// scores.
+template <int MODE, bool PE, typename KT>
+__global__ void __launch_bounds__(THREADS)
+decode_attn_long_kernel(const typename Query<KT>::T* __restrict__ q, const KT* __restrict__ k,
+                        const KT* __restrict__ v, const int* __restrict__ anc,
+                        const typename Query<KT>::T* __restrict__ q_cs,
+                        const KT* __restrict__ k_cs, const float* __restrict__ gate,
+                        const float* __restrict__ k_scale, const float* __restrict__ v_scale,
+                        typename Query<KT>::T* __restrict__ o, int Tp, int H, int dh, int pos,
+                        int J, int chunk, int kc, int tk, int lpk, int cu) {
+  typedef typename Query<KT>::T QT;
+  constexpr bool QUANT = std::is_same<KT, int8_t>::value;
+  constexpr bool F32 = std::is_same<KT, float>::value;
+  constexpr int ESZ = (int)sizeof(KT);
+  constexpr int CPL = 16 / ESZ;                      // channels of a piece
+  constexpr int PPL = (PIECE * ESZ / 16 + 31) / 32;  // pieces a lane: 2 for float32
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ float redm[WARPS], redl[WARPS];
+  __shared__ float wpart[WARPS][PIECE];
+  __shared__ float xm[MAX_SPLITS], xl[MAX_SPLITS], xe[MAX_SPLITS];
+  __shared__ float parts[MAX_SPLITS][PIECE];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const bool multi = S > 1;
+  const int np = (dh + PIECE - 1) / PIECE;
+  const int n = blockIdx.x, h = blockIdx.y / np, piece = blockIdx.y - h * np;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int D = H * dh;
+  const int pw = min(PIECE, dh - piece * PIECE);          // the block's output channels
+  const int krow = (min(dh, PIECE) * ESZ + 15) / 16 * 16;  // a key's bytes of a piece
+  const int kstride = (PE ? 2 : 1) * krow;                 // in a K tile: k, then k_cs
+  const int start = rank * chunk;                          // the block's first key
+  const int own = max(0, min(chunk, pos + 1 - start));     // its keys, none past pos
+  const int npass = (own + kc - 1) / kc;
+  const int last_keys = own - (npass - 1) * kc;
+  const int full = kc / tk * (np + 1);                     // the loads of a whole pass
+  const int loads = npass ? (npass - 1) * full + (last_keys + tk - 1) / tk * (np + 1) : 0;
+  unsigned char* ring = smem;
+  float* sc = reinterpret_cast<float*>(smem + (size_t)MAX_SLOTS * tk * kstride);
+  const int base = MODE == LONG_ANC ? n / J * J : MODE == LONG_SHARED ? n / J : n;
+  if (multi) cluster_arrive_relaxed();
+
+  // Load j of the block: of pass p, the K tiles (tile i, column piece c)
+  // i-major, then the V tiles of the block's own piece. Returns whether it
+  // is a V tile.
+  auto load_of = [&](int j, int& pass, int& tile, int& col) -> bool {
+    pass = min(j / full, npass - 1);
+    const int r = j - pass * full;
+    const int tiles = ((pass == npass - 1 ? last_keys : kc) + tk - 1) / tk;
+    if (r < tiles * np) {
+      tile = r / np;
+      col = r - tile * np;
+      return false;
+    }
+    tile = r - tiles * np;
+    col = piece;
+    return true;
+  };
+  // Load j into slot j % MAX_SLOTS as one cp.async group (past the last
+  // load an empty group, so a wait for MAX_SLOTS - 1 pending finds load j).
+  auto fetch = [&](int j) {
+    if (j < loads) {
+      int pass, tile, col;
+      const bool val = load_of(j, pass, tile, col);
+      const int keys = pass == npass - 1 ? last_keys : kc;
+      const int t0 = start + pass * kc + tile * tk, cnt = min(tk, keys - tile * tk);
+      const int cb = min(PIECE, dh - col * PIECE) * ESZ, kp = (cb + 15) / 16;
+      const int per = (PE && !val ? 2 : 1) * kp;
+      unsigned char* dst = ring + (size_t)(j % MAX_SLOTS) * tk * kstride;
+      for (int i = tid; i < cnt * per; i += THREADS) {
+        const int kk = i / per, pc = i - kk * per, t = t0 + kk;
+        const bool cs = PE && !val && pc >= kp;
+        const int p = cs ? pc - kp : pc;
+        const int r = MODE == LONG_ANC ? base + min(max(anc[(size_t)n * Tp + t], 0), J - 1) : base;
+        const KT* src = val ? v : cs ? k_cs : k;
+        copy_piece(dst + kk * (val ? krow : kstride) + (cs ? krow : 0) + p * 16,
+                   reinterpret_cast<const unsigned char*>(src + ((size_t)r * Tp + t) * D + h * dh +
+                                                          col * PIECE) + p * 16,
+                   cb - p * 16, cu);
+      }
+    }
+    cp_commit();
+  };
+  for (int j = 0; j < MAX_SLOTS; ++j) fetch(j);
+
+  // q's channels of column piece c in registers: lane `sub` of a key holds
+  // those of its pieces sub, sub + lpk (zero past the head).
+  const int sub = lane % lpk, kq = lane / lpk, kpp = 32 / lpk;
+  const QT* qn = q + (size_t)n * D + h * dh;
+  const QT* qcn = PE ? q_cs + (size_t)n * D + h * dh : nullptr;
+  float qr[PPL][CPL], qcr[PE ? PPL : 1][PE ? CPL : 1];
+  auto load_q = [&](int col) {
+#pragma unroll
+    for (int pp = 0; pp < PPL; ++pp)
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) {
+        const int at = (sub + pp * lpk) * CPL + c, ch = col * PIECE + at;
+        const bool on = at < PIECE && ch < dh;
+        qr[pp][c] = on ? query_channel<KT>(qn[ch], k_scale, h * dh + ch) : 0.f;
+        if constexpr (PE) qcr[pp][c] = on ? to_float(qcn[ch]) : 0.f;
+      }
+  };
+  const float g = PE ? gate[h] : 0.f;
+  float m_run = -INFINITY, l_run = 0.f;
+  float2 acc[PIECE / 64];
+#pragma unroll
+  for (int i = 0; i < PIECE / 64; ++i) acc[i] = make_float2(0.f, 0.f);
+  int qcol = -1;
+  for (int j = 0; j < loads; ++j) {
+    cp_wait(MAX_SLOTS - 1);
+    __syncthreads();
+    int pass, tile, col;
+    const bool val = load_of(j, pass, tile, col);
+    const int keys = pass == npass - 1 ? last_keys : kc;
+    const int cnt = min(tk, keys - tile * tk);
+    const unsigned char* tl = ring + (size_t)(j % MAX_SLOTS) * tk * kstride;
+    if (!val) {
+      // scores of column piece col, summed into the pass's table
+      if (col != qcol) {
+        load_q(col);
+        qcol = col;
+      }
+      const int kp = (min(PIECE, dh - col * PIECE) * ESZ + 15) / 16;
+      for (int kk0 = warp * kpp; kk0 < cnt; kk0 += WARPS * kpp) {
+        const int kk = kk0 + kq;
+        float s = 0.f, s_cs = 0.f;
+#pragma unroll
+        for (int pp = 0; pp < PPL; ++pp) {
+          const int pc = sub + pp * lpk;
+          if (pc < kp && kk < cnt) {
+            s += dot_piece<KT>(tl + kk * kstride + pc * 16, qr[pp]);
+            if constexpr (PE) s_cs += dot_piece<KT>(tl + kk * kstride + krow + pc * 16, qcr[pp]);
+          }
+        }
+        s = lanes_sum_n(s, lpk);
+        if constexpr (PE) s = (1.f - g) * s + g * lanes_sum_n(s_cs, lpk);
+        if (sub == 0 && kk < cnt) {
+          float* at = sc + tile * tk + kk;
+          *at = col ? *at + s : s;
+        }
+      }
+    } else {
+      if (tile == 0) {
+        // the pass's scores are in: JAX's online-softmax step
+        float mx = -INFINITY;
+        for (int t = tid; t < keys; t += THREADS) mx = fmaxf(mx, sc[t]);
+        mx = block_max(mx, redm);
+        const float m_new = fmaxf(m_run, mx);
+        const float alpha = expf(m_run - m_new);  // 0 on the first pass
+        float ps = 0.f;
+        for (int t = tid; t < keys; t += THREADS) {
+          const float e = expf(sc[t] - m_new);
+          ps += e;
+          sc[t] = F32 ? e : __bfloat162float(__float2bfloat16(e));  // JAX's cast of p
+        }
+        l_run = alpha * l_run + block_sum(ps, redl);
+        m_run = m_new;
+#pragma unroll
+        for (int i = 0; i < PIECE / 64; ++i) {
+          acc[i].x *= alpha;
+          acc[i].y *= alpha;
+        }
+      }
+      for (int kk = warp; kk < cnt; kk += WARPS) {
+        const float w = sc[tile * tk + kk];
+#pragma unroll
+        for (int i = 0; i < PIECE / 64; ++i) {
+          const int c = 2 * lane + 64 * i;
+          if (c < pw) {
+            const float2 f = load_pair(reinterpret_cast<const KT*>(tl + kk * krow) + c);
+            acc[i].x = fmaf(w, f.x, acc[i].x);
+            acc[i].y = fmaf(w, f.y, acc[i].y);
+          }
+        }
+      }
+    }
+    if (j + MAX_SLOTS < loads) __syncthreads();  // the slot is refilled
+    fetch(j + MAX_SLOTS);
+  }
+#pragma unroll
+  for (int i = 0; i < PIECE / 64; ++i) {
+    const int c = 2 * lane + 64 * i;
+    if (c < pw) {
+      wpart[warp][c] = acc[i].x;
+      wpart[warp][c + 1] = acc[i].y;
+    }
+  }
+  __syncthreads();
+  // The warps' sums in warp order; every rank's (m, l) and partial to rank
+  // 0, which merges them in rank order and divides once.
+  float s[PIECE / THREADS];
+#pragma unroll
+  for (int i = 0; i < PIECE / THREADS; ++i) {
+    const int c = tid + i * THREADS;
+    s[i] = 0.f;
+    if (c < pw) {
+      s[i] = wpart[0][c];
+      for (int w = 1; w < WARPS; ++w) s[i] += wpart[w][c];
+    }
+  }
+  if (multi) cluster_wait();
+  if (tid == 0) {
+    *remote(cluster, multi, &xm[rank], 0) = m_run;
+    *remote(cluster, multi, &xl[rank], 0) = l_run;
+  }
+#pragma unroll
+  for (int i = 0; i < PIECE / THREADS; ++i) {
+    const int c = tid + i * THREADS;
+    if (c < pw) remote(cluster, multi, &parts[rank][0], 0)[c] = s[i];
+  }
+  cluster_sync(cluster, multi);
+  if (rank == 0) {
+    float M = xm[0];
+    for (int r = 1; r < S; ++r) M = fmaxf(M, xm[r]);
+    if (tid < S) xe[tid] = expf(xm[tid] - M);  // 0 for a block with no keys
+    __syncthreads();
+    float L = 0.f;
+    for (int r = 0; r < S; ++r) L += xe[r] * xl[r];
+#pragma unroll
+    for (int i = 0; i < PIECE / THREADS; ++i) {
+      const int c = tid + i * THREADS;
+      if (c < pw) {
+        float out = 0.f;
+        for (int r = 0; r < S; ++r) out += xe[r] * parts[r][c];
+        out /= L;
+        const int ch = h * dh + piece * PIECE + c;
+        if (QUANT) out *= v_scale[ch];  // v's scale, after the sum
+        put(o + (size_t)n * D + ch, out);
+      }
+    }
+  }
+}
+
+template <int MODE, bool PE, typename KT>
+int launch_long(const void* q, const void* k, const void* v, const void* anc, const void* q_cs,
+                const void* k_cs, const void* gate, const void* ks, const void* vs, void* o,
+                int N, int Tp, int H, int dh, int pos, int J, int S, int kc,
+                cudaStream_t stream) {
+  if (S < 1 || S > MAX_SPLITS || dh < 1 || J < 1 || kc < 64 || kc % 64 || kc > MAX_PASS)
+    return (int)cudaErrorInvalidValue;
+  constexpr int ESZ = (int)sizeof(KT);
+  constexpr int PPL = (PIECE * ESZ / 16 + 31) / 32;
+  const int krow = ((dh < PIECE ? dh : PIECE) * ESZ + 15) / 16 * 16;
+  const int kstride = (PE ? 2 : 1) * krow;
+  int tk = 64;  // a power of 2, so it divides kc
+  while (tk > 1 && tk * kstride > LONG_TILE) tk >>= 1;
+  int lpk = 1;
+  while (lpk * PPL < krow / 16) lpk <<= 1;
+  const int bytes = dh * ESZ;
+  const int cu = bytes % 16 == 0 ? 16 : bytes % 8 == 0 ? 8 : bytes % 4 == 0 ? 4
+                                                        : bytes % 2 == 0 ? 2 : 1;
+  const int np = (dh + PIECE - 1) / PIECE;
+  const size_t smem = (size_t)MAX_SLOTS * tk * kstride + (size_t)kc * sizeof(float);
+  if (smem > (size_t)LONG_DYN_SMEM || (long long)H * np > 65535) return (int)cudaErrorInvalidValue;
+  typedef typename Query<KT>::T QT;
+  static bool opted[MAX_DEVICES] = {};
+  return launch_cluster(decode_attn_long_kernel<MODE, PE, KT>, opted, dim3(N, H * np, S), S,
+                        smem, LONG_DYN_SMEM, stream, (const QT*)q, (const KT*)k, (const KT*)v,
+                        (const int*)anc, (const QT*)q_cs, (const KT*)k_cs, (const float*)gate,
+                        (const float*)ks, (const float*)vs, (QT*)o, Tp, H, dh, pos, J,
+                        (Tp + S - 1) / S, kc, tk, lpk, cu);
 }
 
 }  // namespace
@@ -1051,9 +1430,10 @@ int launch_shared(const void* q, const void* k, const void* v, const void* ks,
 // aligned; 0 <= pos < Tp; 1 <= S <= 8 blocks a (head, row), one cluster.
 // PE with int8 is refused. Shared memory: the ring (the whole chunk, up
 // to WHOLE_MAX, or at most 8 tiles of 4 KB) and min(ceil(Tp / S), pos +
-// 1) float scores (+ as many ints for K3a), within MAX_DYN_SMEM for pos +
-// 1 <= 8192 (the wrapper's MAX_KEYS; 4096 with a map, MAX_ANC_KEYS).
-// Returns cudaGetLastError() after the launch.
+// 1) float scores (+ as many ints for K3a), within the rows kernel's
+// shared memory for a chunk of up to 8192 keys, 4096 for K3a, at every
+// width (the wrapper's `decode_attn.short_keys`). Returns
+// cudaGetLastError() after the launch.
 extern "C" int decode_attn_fwd(const void* q, const void* k, const void* v,
                                const void* anc, const void* q_cs, const void* k_cs,
                                const void* gate, const void* k_scale,
@@ -1107,20 +1487,91 @@ extern "C" int decode_attn_rows_fwd(const void* q, const void* k, const void* v,
   return launch_rows_at<bf16, 8>(q, k, v, o, N, Tp, H, dw, pos, S, st);
 }
 
-// K3s (k_scale null: bf16 caches) and K3s-int8. q, o: (G*J, H*64) bf16
-// group-major; k, v: (G, Tp, H*64) bf16 or int8 with f32 (H*64,) scales;
-// all contiguous and 16-byte aligned; 0 <= pos < Tp; 1 <= J <= 16; 1 <= S
-// <= 8. Shared memory: J * (min(ceil(Tp / S), pos + 1) + S * 66) floats
-// beside the ring (the whole chunk up to SHARED_WHOLE, else tiles that
-// shrink to 16 keys to fit); the wrapper's bound (J * (pos + 1 + 16 * 64)
-// * 4 <= 200 KB) keeps it within MAX_DYN_SMEM. Returns cudaGetLastError()
-// after the launch.
+// K3s (k_scale null: bf16 caches) and K3s-int8 at d_head dh = 64, 128, 192
+// or 256. q, o: (G*J, H*dh) bf16 group-major; k, v: (G, Tp, H*dh) bf16 or
+// int8 with f32 (H*dh,) scales; all contiguous and 16-byte aligned; 0 <=
+// pos < Tp; J >= 1 (in ceil(J / 16) tiles of ceil(J / tiles)); 1 <= S <= 8.
+// Shared memory: ceil(J / tiles) *
+// (min(ceil(Tp / S), pos + 1) + S * (dh + 2)) floats beside the ring (the
+// whole chunk up to SHARED_WHOLE, else tiles that shrink to 16 keys to
+// fit); the wrapper (`decode_attn.envelope`) sends a call here only where
+// that with a ring of 8 x 16 keys fits MAX_DYN_SMEM. Returns
+// cudaGetLastError() after the launch, cudaErrorInvalidValue for a width
+// or size it does not take.
 extern "C" int decode_attn_shared_fwd(const void* q, const void* k, const void* v,
                                       const void* k_scale, const void* v_scale,
-                                      void* o, int G, int Tp, int H, int pos, int J, int S,
-                                      void* stream) {
+                                      void* o, int G, int Tp, int H, int dh, int pos, int J,
+                                      int S, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (k_scale)
-    return launch_shared<int8_t>(q, k, v, k_scale, v_scale, o, G, Tp, H, pos, J, S, s);
-  return launch_shared<bf16>(q, k, v, nullptr, nullptr, o, G, Tp, H, pos, J, S, s);
+  if (dh % DH || dh < DH || dh > 4 * DH) return (int)cudaErrorInvalidValue;
+#define SHARED(KT, M) launch_shared<KT, M>(q, k, v, k_scale, v_scale, o, G, Tp, H, pos, J, S, s)
+#define WIDTH(KT) \
+  (dh == DH ? SHARED(KT, 1) : dh == 2 * DH ? SHARED(KT, 2) : dh == 3 * DH ? SHARED(KT, 3) \
+                                                                          : SHARED(KT, 4))
+  if (k_scale) return WIDTH(int8_t);
+  return WIDTH(bf16);
+#undef WIDTH
+#undef SHARED
+}
+
+// K3a, K3-PE, K3a-PE, K3-int8 and K3a-int8 at a head width other than 64,
+// given at launch (the short route: a block's keys fit one table): dw <=
+// 256, a multiple of 8 (bf16) or 16 (int8), on the instance of the least
+// greatest width of 64, 128 and 256 that holds it; the arguments as
+// decode_attn_fwd's with H * dw channels. Returns cudaGetLastError() after
+// the launch, cudaErrorInvalidValue for what it does not take (plain rows
+// take decode_attn_rows_fwd).
+extern "C" int decode_attn_forms_fwd(const void* q, const void* k, const void* v,
+                                     const void* anc, const void* q_cs, const void* k_cs,
+                                     const void* gate, const void* k_scale,
+                                     const void* v_scale, void* o, int N, int Tp, int H,
+                                     int dw, int pos, int J, int S, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const bool pe = q_cs != nullptr, quant = k_scale != nullptr;
+  if ((pe && quant) || (!anc && !pe && !quant) || dw <= 0 || dw > DH_MAX ||
+      dw % (quant ? 16 : 8))
+    return (int)cudaErrorInvalidValue;
+#define FORM(ANC, PE, KT, W)                                                               \
+  launch_rows<ANC, PE, KT, W, 16, false>(q, k, v, anc, q_cs, k_cs, gate, k_scale, v_scale, o, \
+                                         N, Tp, H, pos, J, S, st, dw)
+#define AT(ANC, PE, KT) \
+  (dw <= 64 ? FORM(ANC, PE, KT, 64) : dw <= 128 ? FORM(ANC, PE, KT, 128) : FORM(ANC, PE, KT, DH_MAX))
+  if (quant) return anc ? AT(true, false, int8_t) : AT(false, false, int8_t);
+  if (pe) return anc ? AT(true, true, bf16) : AT(false, true, bf16);
+  return AT(true, false, bf16);
+#undef AT
+#undef FORM
+}
+
+// The long route (`decode_attn_long_kernel`): mode 0 plain rows, 1 the
+// ancestry map (anc (N, Tp) int32, groups of J), 2 K3s's shared caches (q
+// (N, H*dh) over (N / J, Tp, H*dh)); bf16, int8 (k_scale, v_scale) or
+// float32 (f32 1) caches; PE (q_cs, k_cs, gate) on modes 0 and 1, not
+// with int8; any dh >= 1; all contiguous, 16-byte aligned; 0 <= pos < Tp;
+// 1 <= S <= 8; kc, the keys of a pass, a multiple of 64 up to 4096.
+// Returns cudaGetLastError() after the launch, cudaErrorInvalidValue for
+// what it does not take.
+extern "C" int decode_attn_long_fwd(const void* q, const void* k, const void* v,
+                                    const void* anc, const void* q_cs, const void* k_cs,
+                                    const void* gate, const void* k_scale, const void* v_scale,
+                                    void* o, int N, int Tp, int H, int dh, int pos, int mode,
+                                    int J, int f32, int S, int kc, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const bool pe = q_cs != nullptr, quant = k_scale != nullptr;
+  if ((pe && quant) || (f32 && quant) || (mode == LONG_SHARED && pe) || mode < 0 || mode > 2 ||
+      (mode == LONG_ANC) != (anc != nullptr))
+    return (int)cudaErrorInvalidValue;
+#define LONG(MODE, PE, KT)                                                                    \
+  launch_long<MODE, PE, KT>(q, k, v, anc, q_cs, k_cs, gate, k_scale, v_scale, o, N, Tp, H, dh, \
+                            pos, J, S, kc, st)
+#define FORMS(MODE)                                                                 \
+  (quant ? LONG(MODE, false, int8_t)                                                \
+         : f32 ? (pe ? LONG(MODE, true, float) : LONG(MODE, false, float))          \
+               : (pe ? LONG(MODE, true, bf16) : LONG(MODE, false, bf16)))
+  if (mode == LONG_SHARED)
+    return quant ? LONG(LONG_SHARED, false, int8_t)
+                 : f32 ? LONG(LONG_SHARED, false, float) : LONG(LONG_SHARED, false, bf16);
+  return mode == LONG_ANC ? FORMS(LONG_ANC) : FORMS(LONG_ROWS);
+#undef FORMS
+#undef LONG
 }

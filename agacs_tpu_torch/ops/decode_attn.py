@@ -20,14 +20,12 @@ nothing but the bytes read.
                                   per-channel scales (K3-int8, K3a-int8);
                                   float32 q and caches: K3-f32 (plain rows
                                   only; the transformer LM's self-attention);
-                                  d_head 48: K3 at the side ladder's head
-                                  width (plain bf16 rows only); plain bf16
-                                  and float32 rows at any d_head <= 256
-                                  that is a multiple of 4 (the conformer
-                                  decoder's and the LM's, `ROWS_D_HEAD_MAX`)
+                                  every form at any d_head (`envelope`
+                                  says which kernel takes a call)
   decode_shared_cache_attention   K3s: the j beam queries of group g over
-                                  ONE shared (Tp, d) cache (cross-KV);
-                                  int8 caches with scales (K3s-int8)
+                                  ONE shared (Tp, d) cache (cross-KV), in
+                                  tiles of QUERY_TILE queries; int8 caches
+                                  with scales (K3s-int8)
 
 The int8 kernels fold the scales as the TPU kernel does: q·s_k is formed
 in float32 and rounded to bf16 before the dot (int8 -> bf16 is exact), p
@@ -46,6 +44,21 @@ plain version's rounding point (the global max and sum first, then
 bf16(exp(s - m) / l), then the partial outputs in rank order).
 `time_splits` picks S from the shapes alone, never from pos;
 `decode_cache_attention_split_ref` is that split in plain PyTorch.
+
+The routes (`envelope`, from the shapes alone): a block whose keys fit
+one table (SHORT_KEYS, SHORT_MAP_KEYS through a map) takes the short
+route above, on the fixed d_head-64 instances (K3s on the tensor cores
+up to its shared memory), the side ladder's 48, the plain rows' runtime
+width (`decode_attn_rows_fwd`) or the other forms'
+(`decode_attn_forms_fwd`: widths up to 256, a multiple of 8, or 16 for
+int8). Everything else takes the long route
+(`decode_attn_long_fwd`, the counterpart of JAX's `_call_chunked`): each
+block walks its keys in passes of PASS_KEYS with JAX's online-softmax
+carry (p rounded to the cache's dtype un-normalised, one division at the
+end), heads streamed in HEAD_PIECE-wide pieces, any d_head, any form, and
+K3s's groups one query a block; `decode_cache_attention_chunked_ref` is
+it in plain PyTorch, and what a CPU tensor runs where the card would
+walk a block's keys in more than one pass.
 """
 
 from __future__ import annotations
@@ -60,26 +73,46 @@ TIME_ALIGN = 16  # cache time axis padding (the JAX bf16 sublane tile)
 TIME_ALIGN_I8 = 32  # int8 cross-KV caches (the JAX int8 sublane tile)
 D_HEAD = 64
 # the ladder side network's head width (n_dim 192 / 4 heads): K3's plain
-# bf16 rows are also built at it; every other form stays at D_HEAD
+# bf16 rows have a fixed instance at it
 D_HEAD_SIDE = 48
 # plain rows (bf16 K3, float32 K3-f32) at any other head width up to this,
 # a multiple of ROWS_D_HEAD_ALIGN (the conformer decoder's and the LM's
 # widths: 36 and 44 in the public small conformers, 128 in the XLarge), on
-# the runtime-width entry (`_rows_at`); the whisper-only forms (ancestry,
-# PE, int8, K3s) stay at D_HEAD. float32 at D_HEAD and bf16 at D_HEAD_SIDE
-# keep their fixed instances: the runtime entry trails them by ~15% at the
-# LM's float32 shape and ~4% at the ladder's self-attention (PERF.md §6)
+# the runtime-width entry (`decode_attn_rows_fwd`). float32 at D_HEAD and
+# bf16 at D_HEAD_SIDE keep their fixed instances: the runtime entry trails
+# them by ~15% at the LM's float32 shape and ~4% at the ladder's
+# self-attention (PERF.md §6)
 ROWS_D_HEAD_MAX = 256
 ROWS_D_HEAD_ALIGN = 4
-MAX_KEYS = 8192  # K3 keeps a block's f32 scores in shared memory
-MAX_ANC_KEYS = 4096  # K3a also keeps each key's physical row there
-MAX_BEAM = 16  # K3s: a lane keeps one accumulator per query of the group
-# K3s's acceptance rule: j x (pos + 1 + 16 x 64) f32 within 200 KB. The
-# kernel's own shared memory (j x (its keys + S x 66) f32 beside a ring of
-# tiles that shrinks to fit) stays inside the card's 227 KB for any call
-# the rule admits.
-SHARED_SMEM_COLS = 16 * D_HEAD
-MAX_SHARED_SMEM = 200 * 1024
+# the other forms' runtime-width entry (`decode_attn_forms_fwd`): d_head up
+# to ROWS_D_HEAD_MAX, a multiple of a 16-byte piece's channels (the long
+# route, which takes them too, read 1.8-2.5x it in one pass at (40, 112,
+# 768), 6 heads of 128: `chip_smoke.py` phase 3w, PERF.md)
+FORMS_ALIGN = {torch.bfloat16: 8, torch.int8: 16}
+# The short route keeps a block's keys in one table of float32 scores:
+# SHORT_KEYS of them, or SHORT_MAP_KEYS where each key's physical row
+# (the ancestry map) sits beside its score. A block with more keys takes
+# the long route, which walks them in passes of PASS_KEYS (its score
+# table; a multiple of 64 up to the source's MAX_PASS): it read 2x (bf16)
+# and 2.8x (float32) slower than the short route at 1032 and 1180 keys a
+# block (`chip_smoke.py` phase 3L, PERF.md). HEAD_PIECE: the channels of
+# the long route's head piece (the source's PIECE).
+SHORT_KEYS = 8192
+SHORT_MAP_KEYS = 4096
+PASS_KEYS = 4096
+HEAD_PIECE = 256
+# K3s takes a group's j queries in the fewest tiles of at most QUERY_TILE
+# (mma.sync's rows), their sizes balanced (`query_tiles`), at d_head 64 to
+# 256 a multiple of 64 (`SHARED_WIDTHS`), where a tile's shared memory fits
+# MAX_DYN_SMEM (the source's): its queries x (its keys + S x (d_head + 2))
+# f32 beside a ring of tiles that shrinks to SHARED_RING_KEYS keys (8
+# tiles of 16).
+QUERY_TILE = 16
+SHARED_WIDTHS = (64, 128, 192, 256)
+SHARED_RING_KEYS = 8 * 16
+MAX_DYN_SMEM = 220 * 1024
+FORMS = ("rows", "anc", "pe", "anc_pe", "shared")
+CACHE_DTYPES = (torch.bfloat16, torch.int8, torch.float32)
 # The split over time (`time_splits`): the H100 SXM's streaming
 # multiprocessors, the largest portable cluster, the fewest keys worth a
 # block, and the blocks a launch should reach (four an SM), as tuned on
@@ -101,6 +134,7 @@ SHARED_LAUNCHES = 0  # K3s
 SHARED_I8_LAUNCHES = 0  # K3s-int8
 F32_LAUNCHES = 0  # K3-f32
 D48_LAUNCHES = 0  # K3 at d_head 48
+LONG_LAUNCHES = 0  # the long route, every form
 # (ancestry, PE, int8) -> the counter of that kernel
 _COUNTER = {(False, False, False): "LAUNCHES", (True, False, False): "ANC_LAUNCHES",
             (False, True, False): "PE_LAUNCHES", (True, True, False): "ANC_PE_LAUNCHES",
@@ -128,6 +162,84 @@ def split_chunks(tp: int, pos: int, splits: int) -> list[tuple[int, int]]:
     ceil(Tp / S) a block, cut at pos (a block past pos takes none)."""
     chunk = -(-tp // splits)
     return [(min(b * chunk, pos + 1), min((b + 1) * chunk, pos + 1)) for b in range(splits)]
+
+
+def short_keys(form: str) -> int:
+    """The keys a block of the short route holds for `form`: SHORT_MAP_KEYS
+    through an ancestry map, else SHORT_KEYS."""
+    return SHORT_MAP_KEYS if form in ("anc", "anc_pe") else SHORT_KEYS
+
+
+def envelope(form: str, d_head: int, beam: int, keys: int, dtype: torch.dtype,
+             splits: int = 1, table_keys: int | None = None) -> str:
+    """The kernel a call takes on the card, from its shapes alone (never
+    pos): `form` one of FORMS ("shared": `decode_shared_cache_attention`,
+    `beam` its queries a group; "anc", "anc_pe": groups of `beam` rows),
+    `keys` the cache's Tp, `dtype` the caches', `splits` the blocks of its
+    split, `table_keys` the keys a short-route block holds (`short_keys`;
+    smaller forces the long route). Returns "d64"
+    (`decode_attn_fwd`), "f32" (K3-f32 at 64), "d48" (the ladder's rows),
+    "rows" (`decode_attn_rows_fwd`), "forms" (`decode_attn_forms_fwd`),
+    "shared" (K3s on the tensor cores) or "long" (`decode_attn_long_fwd`).
+    Raises only where JAX refuses as well: PE with int8 caches (JAX asserts
+    it), int8 caches whose Tp is not a multiple of TIME_ALIGN_I8 (JAX's
+    contract for them), caches of another dtype, and sizes below 1."""
+    if form not in FORMS or dtype not in CACHE_DTYPES:
+        raise ValueError(f"envelope: form {form!r} with {dtype} caches; the kernels take "
+                         f"{FORMS} over {CACHE_DTYPES}")
+    if min(d_head, beam, keys, splits) < 1:
+        raise ValueError(f"envelope: d_head {d_head}, beam {beam}, keys {keys}, splits {splits}")
+    if dtype == torch.int8 and form in ("pe", "anc_pe"):
+        raise ValueError("decode_cache_attention: int8 caches are unsupported for the PE variant")
+    if dtype == torch.int8 and keys % TIME_ALIGN_I8:
+        raise ValueError(f"envelope: int8 caches take Tp a multiple of {TIME_ALIGN_I8}, not {keys}")
+    chunk, table = -(-keys // splits), table_keys or short_keys(form)
+    if form == "shared":
+        fits = (4 * query_tiles(beam)[1] * (chunk + splits * (d_head + 2))
+                + SHARED_RING_KEYS * d_head * dtype.itemsize <= MAX_DYN_SMEM)
+        short = (d_head in SHARED_WIDTHS and dtype != torch.float32 and chunk <= table
+                 and fits)
+        return "shared" if short else "long"
+    if chunk > table:
+        return "long"
+    if dtype == torch.float32:
+        if form != "rows":
+            return "long"
+        return "f32" if d_head == D_HEAD else "rows" if rows_width_ok(d_head, 1) else "long"
+    if d_head == D_HEAD:
+        return "d64"
+    if form == "rows" and dtype == torch.bfloat16:
+        return "d48" if d_head == D_HEAD_SIDE else "rows" if rows_width_ok(d_head, 1) else "long"
+    if d_head <= ROWS_D_HEAD_MAX and d_head % FORMS_ALIGN[dtype] == 0:
+        return "forms"
+    return "long"
+
+
+def query_tiles(beam: int) -> tuple[int, int]:
+    """K3s's tiles a group and the queries of the largest: the fewest tiles
+    of at most QUERY_TILE, their sizes balanced (20 as 10 + 10)."""
+    tiles = -(-beam // QUERY_TILE)
+    return tiles, -(-beam // tiles)
+
+
+def plan(form: str, rows: int, n_head: int, k: torch.Tensor, beam: int = 1,
+         splits: int | None = None) -> tuple[str, int, int]:
+    """(route, S, pass keys) of a call on the card: `envelope` at the split
+    `time_splits` picks (or `splits`), and the long route's PASS_KEYS.
+    `rows`: the query rows, or the groups for "shared", whose long route
+    splits its G x beam queries as rows."""
+    what = "decode_shared_cache_attention" if form == "shared" else "decode_cache_attention"
+    tp, d = k.shape[1:]
+    if d % n_head:
+        raise ValueError(f"{what}: d {d} is not a multiple of {n_head} heads")
+    if form == "shared":  # the launch's blocks: a group's query tiles
+        s = _splits(what, splits, rows * query_tiles(beam)[0], n_head, tp, SHARED_SPLIT_BLOCKS)
+    else:
+        s = _splits(what, splits, rows, n_head, tp)
+    route = envelope(form, d // n_head, beam, tp, k.dtype, s)
+    if form == "shared" and route == "long" and splits is None:
+        s = time_splits(rows * beam, n_head, tp)
+    return route, s, PASS_KEYS
 
 
 def dequantize_kv(x: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -294,6 +406,85 @@ def decode_cache_attention_split_ref(
     return o.to(q.dtype)
 
 
+def decode_cache_attention_chunked_ref(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: int, n_head: int,
+    splits: int, pass_keys: int = PASS_KEYS, *, anc_local: torch.Tensor | None = None,
+    beam: int = 1, shared: bool = False, q_cs: torch.Tensor | None = None,
+    k_cs: torch.Tensor | None = None, gate: torch.Tensor | None = None,
+    k_scale: torch.Tensor | None = None, v_scale: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The long route in plain PyTorch (the split x passes, as
+    `decode_cache_attention_split_ref` is of the split): the caches
+    gathered through `anc_local` first (groups of `beam`), or with
+    `shared` (G*beam, d) queries over (G, Tp, d) caches. Scores in float32
+    (q, or bf16(q·s_k) against int8, dotted with the float32 keys; PE mixed
+    (1 - g)·s + g·s_cs per head). Each block of `split_chunks` walks its
+    keys in passes of `pass_keys` from its first key with JAX's carry
+    (`_make_kernel_chunked`): m_new = max(m, max s), alpha = exp(m - m_new),
+    p = exp(s - m_new), l = alpha l + sum p, acc = alpha acc + sum
+    bf16(p) v (p not rounded over float32 caches). Then, in rank order, M =
+    the blocks' max m, e = exp(m - M), L = sum e l, O = sum e acc; O / L,
+    times s_v for int8; q's dtype."""
+    if anc_local is not None and beam > 1 and not shared:
+        k, v = gather_ancestry(k, anc_local, beam), gather_ancestry(v, anc_local, beam)
+        if k_cs is not None:
+            k_cs = gather_ancestry(k_cs, anc_local, beam)
+    g, tp, d = k.shape
+    j, dh = (beam if shared else 1), d // n_head
+
+    def scores(qx, kx):
+        qf = qx.float()
+        if k_scale is not None:
+            qf = (qf * k_scale.float()).to(torch.bfloat16).float()
+        return torch.einsum("gjhc,gthc->gjht", qf.reshape(g, j, n_head, dh),
+                            kx.float().reshape(g, tp, n_head, dh))[..., : pos + 1]
+
+    s = scores(q, k)
+    if q_cs is not None:
+        gt = gate.float().reshape(1, 1, n_head, 1)
+        s = (1.0 - gt) * s + gt * scores(q_cs, k_cs)
+    vh = v.float().reshape(g, tp, n_head, dh)
+    f32 = k.dtype == torch.float32
+    blocks = []
+    for a, z in split_chunks(tp, pos, splits):
+        m = torch.full(s.shape[:-1], -torch.inf, device=s.device)
+        l, acc = torch.zeros_like(m), torch.zeros(g, j, n_head, dh, device=s.device)
+        for p0 in range(a, z, pass_keys):
+            p1 = min(p0 + pass_keys, z)
+            m_new = torch.maximum(m, s[..., p0:p1].amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s[..., p0:p1] - m_new[..., None])
+            l = alpha * l + p.sum(-1)
+            w = p if f32 else p.to(torch.bfloat16).float()
+            acc = alpha[..., None] * acc + torch.einsum("gjht,gthc->gjhc", w, vh[:, p0:p1])
+            m = m_new
+        blocks.append((m, l, acc))
+    top = torch.stack([m for m, _, _ in blocks]).amax(0)
+    l_all, o = torch.zeros_like(top), torch.zeros_like(blocks[0][2])
+    for m, l, acc in blocks:
+        e = torch.exp(m - top)
+        l_all = l_all + e * l
+        o = o + e[..., None] * acc
+    o = (o / l_all[..., None]).reshape(g * j, d)
+    if v_scale is not None:
+        o = o * v_scale.float()
+    return o.to(q.dtype)
+
+
+def _cpu_long(form: str, rows: int, n_head: int, k: torch.Tensor,
+              beam: int) -> tuple[int, int] | None:
+    """(S, pass keys) where the card would walk a block's keys in more than
+    one pass of the long route, else None (and None for what the card
+    refuses). In one pass the long route is the single-block math with p
+    rounded before, not after, the division: the CPU keeps the
+    single-block plain version there."""
+    if k.dtype not in CACHE_DTYPES or k.shape[-1] % n_head or (
+            k.dtype == torch.int8 and (form in ("pe", "anc_pe") or k.shape[1] % TIME_ALIGN_I8)):
+        return None
+    route, s, kc = plan(form, rows, n_head, k, beam)
+    return (s, kc) if route == "long" and -(-k.shape[1] // s) > kc else None
+
+
 def decode_cache_attention_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: int, n_head: int, *,
     anc_local: torch.Tensor | None = None, beam: int = 1,
@@ -302,9 +493,18 @@ def decode_cache_attention_plain(
     v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """The plain version of the kernel `decode_cache_attention` launches for
-    these arguments (what it runs for a CPU tensor); K3a-int8's is K3-int8's
-    over the caches gathered through the map."""
+    these arguments (what it runs for a CPU tensor): the long route's
+    where the card walks a block's keys in passes, else the single-block
+    one; K3a-int8's is K3-int8's over the caches gathered through the
+    map."""
     anc = anc_local is not None and beam > 1
+    form = ("anc_pe" if q_cs is not None else "anc") if anc else (
+        "pe" if q_cs is not None else "rows")
+    long = _cpu_long(form, k.shape[0], n_head, k, beam if anc else 1)
+    if long is not None:
+        return decode_cache_attention_chunked_ref(
+            q, k, v, pos, n_head, *long, anc_local=anc_local if anc else None, beam=beam,
+            q_cs=q_cs, k_cs=k_cs, gate=gate, k_scale=k_scale, v_scale=v_scale)
     if k_scale is not None:
         if anc:
             k, v = gather_ancestry(k, anc_local, beam), gather_ancestry(v, anc_local, beam)
@@ -320,34 +520,34 @@ def decode_shared_cache_attention_plain(
     beam: int, *, k_scale: torch.Tensor | None = None,
     v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """The plain version of K3s or K3s-int8 (what
+    """The plain version of K3s or K3s-int8, or of the long route where the
+    card walks a block's keys in passes (what
     `decode_shared_cache_attention` runs for a CPU tensor)."""
+    long = _cpu_long("shared", k.shape[0], n_head, k, beam)
+    if long is not None:
+        return decode_cache_attention_chunked_ref(q, k, v, pos, n_head, *long, beam=beam,
+                                                  shared=True, k_scale=k_scale,
+                                                  v_scale=v_scale)
     if k_scale is not None:
         return decode_shared_cache_attention_int8_ref(q, k, v, pos, n_head, beam,
                                                       k_scale, v_scale)
     return decode_shared_cache_attention_ref(q, k, v, pos, n_head, beam)
 
 
-def _check_kernel_inputs(what: str, n_head: int, d: int, tensors,
-                         cache_dtype: torch.dtype = torch.bfloat16,
-                         query_dtype: torch.dtype = torch.bfloat16,
-                         d_head: int = D_HEAD) -> None:
+def _check_kernel_inputs(what: str, tensors, cache_dtype: torch.dtype,
+                         query_dtype: torch.dtype) -> None:
     """What every decode kernel takes: bf16 queries with bf16 or int8
-    caches, or float32 queries with float32 caches (K3-f32); f32 scales and
-    gate, one device, contiguous, 16-byte aligned, d_head 64 (48 for K3's
-    plain bf16 rows at the side ladder's width)."""
+    caches, or float32 queries with float32 caches; f32 scales and gate,
+    one device, contiguous, 16-byte aligned."""
     dev = tensors[0][1].device
     for name, x in tensors:
-        want = {"k": cache_dtype, "v": cache_dtype, "gate": torch.float32,
+        want = {"k": cache_dtype, "v": cache_dtype, "k_cs": cache_dtype, "gate": torch.float32,
                 "k_scale": torch.float32, "v_scale": torch.float32}.get(name, query_dtype)
         if x.dtype != want or x.device != dev:
             raise ValueError(f"{what}: {name} is {x.dtype} on {x.device}; the "
                              f"kernel takes {want} on {dev}")
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"{what}: {name} must be contiguous and 16-byte aligned")
-    if d != n_head * d_head:
-        raise ValueError(f"{what}: d {d} != {n_head} heads x {d_head}; the kernel "
-                         f"takes d_head = {d_head}")
 
 
 def _check_scales(what: str, k: torch.Tensor, k_scale, v_scale) -> None:
@@ -384,6 +584,14 @@ def _splits(what: str, splits: int | None, rows: int, heads: int, tp: int,
     return splits
 
 
+def _stream(q: torch.Tensor) -> int:
+    return torch.cuda.current_stream(q.device).cuda_stream
+
+
+def _count(name: str) -> None:
+    globals()[name] += 1
+
+
 def decode_cache_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -410,14 +618,11 @@ def decode_cache_attention(
     d), k_cs (N, Tp, d) read through the same map, gate (h,) float32
     post-sigmoid. int8: k/v int8 with (d,) float32 k_scale/v_scale and
     Tp % TIME_ALIGN_I8 == 0. PE and int8 together raise, as JAX asserts.
-    float32 q, k and v (K3-f32) take plain rows only: with a map, PE or
-    scales they raise; any other cache dtype raises too. d_head 48 (d ==
-    48 x n_head) takes plain bf16 rows only, as the side ladder launches
-    it; anything else at that width raises. Plain bf16 and float32 rows
-    take any d_head up to ROWS_D_HEAD_MAX that is a multiple of
-    ROWS_D_HEAD_ALIGN; the other forms take D_HEAD only. `splits` (card
+    bf16 queries over bf16 or int8 caches, or float32 queries over float32
+    caches, at any d_head; `envelope` names the kernel. `splits` (card
     only): the blocks a (head, row) is split over, instead of
-    `time_splits`'s."""
+    `time_splits`'s. A block with more keys than `short_keys` takes the
+    long route."""
     pe, quant = q_cs is not None, k_scale is not None
     if pe and quant:
         raise ValueError("decode_cache_attention: int8 caches are unsupported "
@@ -436,22 +641,9 @@ def decode_cache_attention(
     if q.shape != (n, d) or v.shape != k.shape:
         raise ValueError(f"decode_cache_attention: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    form = ("anc_pe" if pe else "anc") if anc else ("pe" if pe else "rows")
+    route, s, kc = plan(form, n, n_head, k, beam if anc else 1, splits)
     ins = [("q", q), ("k", k), ("v", v)]
-    s = _splits("decode_cache_attention", splits, n, n_head, tp)
-    if d == n_head * D_HEAD_SIDE:
-        if anc or pe or quant or k.dtype != torch.bfloat16:
-            raise ValueError("decode_cache_attention: d_head 48 takes plain bf16 rows "
-                             "only (no ancestry map, PE, scales or float32)")
-        return _d48_rows(q, k, v, pos, n_head, s)
-    if k.dtype == torch.float32:
-        if anc or pe or quant:
-            raise ValueError("decode_cache_attention: float32 caches take plain rows "
-                             "only (no ancestry map, PE or scales)")
-        if d == n_head * D_HEAD:
-            return _f32_rows(q, k, v, pos, n_head, s)
-        return _rows_at(q, k, v, pos, n_head, s)
-    if d != n_head * D_HEAD and not (anc or pe or quant):
-        return _rows_at(q, k, v, pos, n_head, s)
     if pe:
         if q_cs.shape != q.shape or k_cs.shape != k.shape or gate.shape != (n_head,):
             raise ValueError(f"decode_cache_attention: q_cs {tuple(q_cs.shape)}, k_cs "
@@ -460,103 +652,61 @@ def decode_cache_attention(
     if quant:
         _check_scales("decode_cache_attention", k, k_scale, v_scale)
         ins += [("k_scale", k_scale), ("v_scale", v_scale)]
-    _check_kernel_inputs("decode_cache_attention", n_head, d, ins,
-                         torch.int8 if quant else torch.bfloat16)
-    max_keys = MAX_ANC_KEYS if anc else MAX_KEYS
-    if pos + 1 > max_keys:
-        raise ValueError(f"decode_cache_attention: pos + 1 = {pos + 1} keys "
-                         f"exceed the kernel's {max_keys}")
+    f32 = k.dtype == torch.float32
+    _check_kernel_inputs("decode_cache_attention", ins, k.dtype,
+                         torch.float32 if f32 else torch.bfloat16)
     if anc and (anc_local.dtype != torch.int32 or anc_local.device != q.device
                 or not anc_local.is_contiguous()):
         raise ValueError(f"decode_cache_attention: anc_local is {anc_local.dtype} on "
                          f"{anc_local.device}; the kernel takes contiguous int32 "
                          f"on {q.device}")
     o = torch.empty_like(q)
-    fn = cuda_lib.load(
-        "decode_attn", "decode_attn_fwd",
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
-    )
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(anc_local if anc else None),
-            _ptr(q_cs), _ptr(k_cs), _ptr(gate), _ptr(k_scale), _ptr(v_scale),
-            o.data_ptr(), n, tp, n_head, pos, beam if anc else 1, s,
-            torch.cuda.current_stream(q.device).cuda_stream)
-    cuda_lib.check(rc, "decode_attn_fwd")
-    counter = _COUNTER[(anc, pe, quant)]
-    globals()[counter] += 1
+    dh = d // n_head
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(anc_local if anc else None),
+            _ptr(q_cs), _ptr(k_cs), _ptr(gate), _ptr(k_scale), _ptr(v_scale), o.data_ptr())
+    if route == "long":
+        _long(ptrs, n, tp, n_head, dh, pos, 1 if anc else 0, beam if anc else 1, f32, s, kc,
+              _stream(q))
+    elif route in ("d64", "forms"):
+        entry, ints = (("decode_attn_fwd", (n, tp, n_head, pos, beam if anc else 1, s))
+                       if route == "d64" else
+                       ("decode_attn_forms_fwd", (n, tp, n_head, dh, pos, beam if anc else 1, s)))
+        fn = cuda_lib.load("decode_attn", entry,
+                           [ctypes.c_void_p] * 10 + [ctypes.c_int] * len(ints) + [ctypes.c_void_p])
+        cuda_lib.check(fn(*ptrs, *ints, _stream(q)), entry)
+        _count(_COUNTER[(anc, pe, quant)])
+    else:  # plain rows: "f32", "d48", "rows"
+        entry, ints, counter = {
+            "f32": ("decode_attn_f32_fwd", (n, tp, n_head, pos, s), "F32_LAUNCHES"),
+            "d48": ("decode_attn_d48_fwd", (n, tp, n_head, pos, s), "D48_LAUNCHES"),
+            "rows": ("decode_attn_rows_fwd", (int(f32), n, tp, n_head, dh, pos, s),
+                     "F32_LAUNCHES" if f32 else "LAUNCHES"),
+        }[route]
+        fn = cuda_lib.load("decode_attn", entry,
+                           [ctypes.c_void_p] * 4 + [ctypes.c_int] * len(ints) + [ctypes.c_void_p])
+        cuda_lib.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), *ints,
+                          _stream(q)), entry)
+        _count(counter)
     return o
 
 
-def _f32_rows(q, k, v, pos: int, n_head: int, splits: int) -> torch.Tensor:
-    """Launch K3-f32 (checked by the caller's shape tests)."""
-    n, tp, d = k.shape
-    _check_kernel_inputs("decode_cache_attention", n_head, d, [("q", q), ("k", k), ("v", v)],
-                         torch.float32, torch.float32)
-    if pos + 1 > MAX_KEYS:
-        raise ValueError(f"decode_cache_attention: pos + 1 = {pos + 1} keys exceed the "
-                         f"kernel's {MAX_KEYS}")
-    o = torch.empty_like(q)
-    fn = cuda_lib.load("decode_attn", "decode_attn_f32_fwd",
-                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), n, tp, n_head, pos,
-            splits, torch.cuda.current_stream(q.device).cuda_stream)
-    cuda_lib.check(rc, "decode_attn_f32_fwd")
-    global F32_LAUNCHES
-    F32_LAUNCHES += 1
-    return o
+def _long(ptrs: tuple, rows: int, tp: int, n_head: int, dh: int, pos: int, mode: int, j: int,
+          f32: bool, splits: int, kc: int, stream: int) -> None:
+    """Launch the long route (`decode_attn_long_fwd`; the caller checked
+    the inputs): mode 0 plain rows, 1 the ancestry map, 2 K3s's groups of
+    j."""
+    fn = cuda_lib.load("decode_attn", "decode_attn_long_fwd",
+                       [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+    cuda_lib.check(fn(*ptrs, rows, tp, n_head, dh, pos, mode, j, int(f32), splits, kc, stream),
+                   "decode_attn_long_fwd")
+    _count("LONG_LAUNCHES")
 
 
 def rows_width_ok(d: int, n_head: int) -> bool:
-    """Do the plain rows take this width (d = n_head x d_head, d_head <=
-    ROWS_D_HEAD_MAX a multiple of ROWS_D_HEAD_ALIGN)?"""
+    """Do the plain rows' runtime-width entry take this width (d = n_head x
+    d_head, d_head <= ROWS_D_HEAD_MAX a multiple of ROWS_D_HEAD_ALIGN)?"""
     dh = d // n_head
     return d % n_head == 0 and 0 < dh <= ROWS_D_HEAD_MAX and dh % ROWS_D_HEAD_ALIGN == 0
-
-
-def _rows_at(q, k, v, pos: int, n_head: int, splits: int) -> torch.Tensor:
-    """Launch K3's or K3-f32's plain rows at a head width other than D_HEAD
-    (checked by the caller's shape tests)."""
-    n, tp, d = k.shape
-    if not rows_width_ok(d, n_head):
-        raise ValueError(f"decode_cache_attention: d {d} in {n_head} heads; plain rows "
-                         f"take d_head <= {ROWS_D_HEAD_MAX}, a multiple of "
-                         f"{ROWS_D_HEAD_ALIGN}, and every other form d_head {D_HEAD}")
-    f32 = k.dtype == torch.float32
-    _check_kernel_inputs("decode_cache_attention", n_head, d, [("q", q), ("k", k), ("v", v)],
-                         k.dtype, k.dtype, d_head=d // n_head)
-    if pos + 1 > MAX_KEYS:
-        raise ValueError(f"decode_cache_attention: pos + 1 = {pos + 1} keys exceed the "
-                         f"kernel's {MAX_KEYS}")
-    o = torch.empty_like(q)
-    fn = cuda_lib.load("decode_attn", "decode_attn_rows_fwd",
-                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), int(f32), n, tp, n_head,
-            d // n_head, pos, splits, torch.cuda.current_stream(q.device).cuda_stream)
-    cuda_lib.check(rc, "decode_attn_rows_fwd")
-    global LAUNCHES, F32_LAUNCHES
-    if f32:
-        F32_LAUNCHES += 1
-    else:
-        LAUNCHES += 1
-    return o
-
-
-def _d48_rows(q, k, v, pos: int, n_head: int, splits: int) -> torch.Tensor:
-    """Launch K3 at d_head 48 (checked by the caller's shape tests)."""
-    n, tp, d = k.shape
-    _check_kernel_inputs("decode_cache_attention", n_head, d, [("q", q), ("k", k), ("v", v)],
-                         d_head=D_HEAD_SIDE)
-    if pos + 1 > MAX_KEYS:
-        raise ValueError(f"decode_cache_attention: pos + 1 = {pos + 1} keys exceed the "
-                         f"kernel's {MAX_KEYS}")
-    o = torch.empty_like(q)
-    fn = cuda_lib.load("decode_attn", "decode_attn_d48_fwd",
-                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), n, tp, n_head, pos,
-            splits, torch.cuda.current_stream(q.device).cuda_stream)
-    cuda_lib.check(rc, "decode_attn_d48_fwd")
-    global D48_LAUNCHES
-    D48_LAUNCHES += 1
-    return o
 
 
 def decode_shared_cache_attention(
@@ -575,42 +725,39 @@ def decode_shared_cache_attention(
     shared caches -> (G*beam, d). Rows are group-major (row g*beam + i is
     utterance g's beam slot i); keys t > pos are masked (pass T_audio - 1
     to mask the time padding). int8 caches: (d,) float32 k_scale/v_scale
-    (K3s-int8). `splits` (card only): the blocks a (head, group) is split
+    (K3s-int8); float32 queries over float32 caches. Any beam and d_head
+    (`envelope`). `splits` (card only): the blocks a (head, group) is split
     over, instead of `time_splits`'s."""
     quant = k_scale is not None
     g, tp, d = k.shape
     if not 0 <= pos < tp:
         raise ValueError(f"decode_shared_cache_attention: pos {pos} outside [0, {tp})")
-    if q.shape != (g * beam, d) or v.shape != k.shape:
+    if beam < 1 or q.shape != (g * beam, d) or v.shape != k.shape:
         raise ValueError(f"decode_shared_cache_attention: q {tuple(q.shape)} for "
                          f"{g} groups of {beam}, k {tuple(k.shape)}, v {tuple(v.shape)}")
     if not _device_path("decode_shared_cache_attention", q):
         return decode_shared_cache_attention_plain(q, k, v, pos, n_head, beam,
                                                    k_scale=k_scale, v_scale=v_scale)
+    route, s, kc = plan("shared", g, n_head, k, beam, splits)
     ins = [("q", q), ("k", k), ("v", v)]
     if quant:
         _check_scales("decode_shared_cache_attention", k, k_scale, v_scale)
         ins += [("k_scale", k_scale), ("v_scale", v_scale)]
-    _check_kernel_inputs("decode_shared_cache_attention", n_head, d, ins,
-                         torch.int8 if quant else torch.bfloat16)
-    s = _splits("decode_shared_cache_attention", splits, g, n_head, tp, SHARED_SPLIT_BLOCKS)
-    smem = beam * (pos + 1 + SHARED_SMEM_COLS) * 4
-    if not 1 <= beam <= MAX_BEAM or smem > MAX_SHARED_SMEM:
-        raise ValueError(f"decode_shared_cache_attention: beam {beam} x {pos + 1} keys "
-                         f"exceed the kernel's {MAX_BEAM} queries or "
-                         f"{MAX_SHARED_SMEM} B of shared memory")
+    f32 = k.dtype == torch.float32
+    _check_kernel_inputs("decode_shared_cache_attention", ins, k.dtype,
+                         torch.float32 if f32 else torch.bfloat16)
     o = torch.empty_like(q)
+    if route == "long":
+        _long((q.data_ptr(), k.data_ptr(), v.data_ptr(), None, None, None, None,
+               _ptr(k_scale), _ptr(v_scale), o.data_ptr()), g * beam, tp, n_head, d // n_head,
+              pos, 2, beam, f32, s, kc, _stream(q))
+        return o
     fn = cuda_lib.load(
         "decode_attn", "decode_attn_shared_fwd",
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
     )
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(k_scale), _ptr(v_scale),
-            o.data_ptr(), g, tp, n_head, pos, beam, s,
-            torch.cuda.current_stream(q.device).cuda_stream)
+            o.data_ptr(), g, tp, n_head, d // n_head, pos, beam, s, _stream(q))
     cuda_lib.check(rc, "decode_attn_shared_fwd")
-    global SHARED_LAUNCHES, SHARED_I8_LAUNCHES
-    if quant:
-        SHARED_I8_LAUNCHES += 1
-    else:
-        SHARED_LAUNCHES += 1
+    _count("SHARED_I8_LAUNCHES" if quant else "SHARED_LAUNCHES")
     return o

@@ -26,6 +26,8 @@ once on one CUDA card.
     python3 chip_smoke.py --k3k5-turns DIR  # K3's forms and K5 at d_head 64
                                        # and 128, DIR's tree and this one
                                        # in turns
+    python3 chip_smoke.py --k3-routes  # decode_attn built, then phases 3L,
+                                       # 3s past 16 queries, 3w and 53-55
     python3 chip_smoke.py --k4-ablate  # K4's split kernels with parts of
                                        # their exchange taken out, timed
     python3 chip_smoke.py --warm-turns  # serving after a full warm-up
@@ -67,9 +69,38 @@ non-zero exit:
      4/57/103, and the full decoder context (10, 448, 768) at pos 447,
      with an ancestry map drawn like a beam run and poisoned cache
      entries (past pos, and every entry the map does not select);
-  3s. K3s (decode_attn.cu, the shared cross-KV, on mma.sync) against its
-     plain version at (8 groups x 5, 752, 768), pos 749, and the split's
-     edges, S = 1 and 16 queries a group;
+  3s. K3s (decode_attn.cu, the shared cross-KV, on mma.sync in tiles of 16
+     queries) against its plain version at (8 groups x 5, 752, 768), pos
+     749, and the split's edges, S = 1 and 16 queries a group; then (after
+     3d) at beams 17, 20 and 32 over (8, 1504, 768), bf16 and int8 (two
+     balanced query tiles a group; beam 20 timed), and at d_head 128, 192
+     and 256 (64-channel sub-rows) at beams 5 and 20 (int8 at 128, beam 5
+     timed), K3s at beam 5 over (8, 18016, 768) in blocks of 6006 keys,
+     and K3a at phase 53's (160, 448, 768), beam 20;
+  3L. K3's long route (decode_attn.cu `decode_attn_long_kernel`: a
+     block's keys in passes with JAX's online-softmax carry, the
+     counterpart of `_call_chunked`) against
+     `decode_cache_attention_chunked_ref` (K3L_CASES): phase 54's calls,
+     the conformer decoder's bf16 rows at (10, 65616, 256), 4 heads, pos
+     8185 / 8191 / 8192 / 8200 and the LM's float32 rows at (10, 65616,
+     512), 8 heads, pos 8200, in passes of PASS_KEYS (both timed); as
+     extra shapes in tables and passes of 1024 the same rows over 8256
+     positions (timed, and beside them the short route at the same
+     shape), K3a at (40, 4608, 768), beam 5, K3-PE at (8, 8256, 768); bf16
+     rows at (10, 65536, 256), pos 65535, in tables and passes of 4096
+     (timed, the short route beside it); K3a-PE in passes of 64, K3-int8 at S = 1 and K3s's groups one query
+     a block; the timed ones beside SDPA on the key slice and the bytes
+     bound; keys past pos poisoned, bit-identical twice, one launch a
+     call;
+  3w. the whisper-only forms (K3a, K3-PE, K3a-PE, K3-int8, K3a-int8) at
+     d_head 32, 48, 128 and 256 on the runtime-width forms entry
+     (`decode_attn_forms_fwd`; d_head 128 timed), then on the long route
+     the plain rows at d_head 320 and 512 (heads in 256-wide pieces, bf16
+     and float32), an odd width (33), K3a at 36, float32 K3a-PE and K3s at
+     d_head 96 (int8) and in float32 (one query a block); the long route
+     timed in one pass beside each form at d_head 128; the short route at
+     the edge of its table (K3W_SHORT: K3a at d_head 128 on (10, 448,
+     768), K3a over 4096 keys, K3-PE and K3-f32 over 8192 in one block);
   3p. K3-PE and K3a-PE (decode_attn.cu, the gated dual-QK scores) against
      their plain version at (8, 112, 768) and (40, 112, 768), beam 5, and
      (10, 448, 768) at pos 447: distinct per-head gates with 0 and 1,
@@ -379,6 +410,23 @@ non-zero exit:
      config, so the CTC head runs K4 at K 1536 (KS-256 slices on clusters
      of 6) and K5 its 128 instance on padded heads of 96: (a)-(c) as phase
      51's, the step's peak memory held to 90% of the card.
+  53. (after phase 12) whisper-small's beam-20 serving: Speech2Text at
+     beam 20 with the decode YAML's maxlenratio 0 (a 448-position self
+     cache, up to 442 steps) on phase 4's model and audio: one timed
+     request after a warm-up, K3a and K3s 12 launches a step exactly, its
+     device busy and idle shares, and the hypotheses rescored on the card
+     and (utterance 0) on the CPU in float32 with phase 12's bounds;
+  54. the long route on its path: the conformer recipe's decoder (6
+     blocks, bf16) and LM (16 blocks, float32) one step at a time at pos
+     8185-8200 over 10 rows whose caches hold 65616 positions (as
+     `joint_beam_decode` sizes them for 65600 steps: blocks of 8202 and
+     9374 keys, past the short route's table of 8192), rows 0-8184 drawn
+     on the card: 6 + 16 long-route launches a step exactly; 2 + 2 blocks against the CPU in float32 on the same
+     caches;
+  55. a whisper decoder at whisper-small's width with 6 heads of 128, PE
+     and int8 cross-KV, 5 steps at beam 5: K3a-PE on the forms entry and
+     K3s-int8 on the tensor cores at d_head 128, 12 launches a step each,
+     logits card bf16 against CPU float32 each step.
 
 The last three lines are the card's `name, power.limit` (nvidia-smi), a
 JSON line with each kernel's launches, error and times, and the
@@ -389,9 +437,8 @@ the checkout and runs the checks it names, the unmutated source first (a
 mutant that traps its kernel ends the process's CUDA use: the chosen
 mutants after it run in a new process);
 `--k8q-turns DIR` times K8q the same way at its three timed shapes, and
-`--k3k5-turns DIR` K3's forms and K5 at d_head 64 and 128 (K3K5_TURN_CASES,
-K3K5_TURN_K5), with
-the runtime-width rows entry beside the fixed entries in this tree;
+`--k3k5-turns DIR` K3's forms (K3s among them) and K5 at d_head 64 and 128
+(K3K5_TURN_CASES, K3K5_TURN_K5);
 `--splits` times K3's instances at every S from 1 to 8 (SPLIT_SWEEP), the
 reading `decode_attn.time_splits` was tuned on; `--k4-turns DIR` times K4's
 three passes at the whisper CTC head's shape (`k4_times`) in the checkout
@@ -1024,15 +1071,15 @@ def check_k3s(dev, g, timed=True) -> dict:
     past pos poisoned, at pos 749 (timed), and the split's edges: pos 0 (S
     3: two empty blocks) and either side of the first chunk edge (251),
     one utterance (S 8, the most) at pos 749, S = 1 at pos 749 (one block a
-    (head, group), a ring of many tiles), and 2 groups of 16 queries (the
-    kernel's MAX_BEAM). Every call twice, bit for bit."""
+    (head, group), a ring of many tiles), and 2 groups of 16 queries (one
+    full query tile). Every call twice, bit for bit."""
     from agacs_tpu_torch.ops import decode_attn
 
     tp, res = 752, {"err": 0.0}
     for groups, j, pos, timed_case, splits in (
             (8, BEAM, 749, True, None), (8, BEAM, 0, False, None), (8, BEAM, 250, False, None),
             (8, BEAM, 251, False, None), (1, BEAM, 749, False, None), (8, BEAM, 749, False, 1),
-            (2, decode_attn.MAX_BEAM, 749, False, None)):
+            (2, decode_attn.QUERY_TILE, 749, False, None)):
         sets = [(*sharp_qkv(g, dev, (groups * j, D), (groups, tp, D), q_scale=0.125),
                  pos, H, j) for _ in range(8 if timed and timed_case else 1)]
         q, k, v, _, _, _ = sets[0]
@@ -1432,18 +1479,19 @@ def k8q_turns(other: str) -> None:
 
 # `--k3k5-turns DIR`: K3's forms and K5 at d_head 64 and 128, the shapes
 # the main paths give them (whisper-small's greedy self- and
-# cross-attention, its beam rows with the ancestry map, PE and int8 caches;
-# the conformer decoder's and the LM's rows; the ladder's d_head 48; K5 at
-# the conformer recipe's serving and training shapes, and its 128 instance
-# at the XLarge conformer's (8, 468, 1024), 8 heads), in the tree at DIR and in this
-# one, one process a turn (`k3k5_turn`); in this tree also the runtime-width
-# rows entry at the fixed entries' shapes (d_head 48, float32 at 64), fixed
-# and runtime in turns within the process.
+# cross-attention, its beam rows with the ancestry map and shared cross-KV,
+# PE and int8 caches; the conformer decoder's and the LM's rows, the LM's
+# also over 6016 positions at 80 rows, one table of 6016 keys a block; the
+# ladder's d_head 48; K5 at the conformer recipe's serving and training
+# shapes, and its 128 instance at the XLarge conformer's (8, 468, 1024), 8
+# heads), in the tree at DIR and in this one, one process a turn
+# (`k3k5_turn`).
 K3K5_TURN_CASES = (("K3", 8, 112, 768, 12, 103), ("K3", 8, 752, 768, 12, 749),
                    ("K3", 80, 112, 256, 4, 99), ("K3a", 40, 112, 768, 12, 103),
                    ("K3-PE", 8, 112, 768, 12, 103), ("K3-int8", 8, 768, 768, 12, 749),
                    ("K3-f32", 80, 112, 512, 8, 103), ("K3@48", 8, 752, 192, 4, 749),
-                   ("K3@48", 8, 112, 192, 4, 103))
+                   ("K3@48", 8, 112, 192, 4, 103), ("K3s", 8, 752, 768, 12, 749),
+                   ("K3-f32", 80, 6016, 512, 8, 5000))
 K3K5_TURN_K5 = (("K5 fwd", 8, 468, 256, 4), ("K5 bwd", 16, 468, 256, 4),
                 ("K5 fwd", 8, 468, 1024, 8), ("K5 bwd", 8, 468, 1024, 8))
 
@@ -1452,9 +1500,7 @@ def k3k5_turn(root: str) -> int:
     """One turn of `--k3k5-turns`: the tree at `root`'s own decode_attn and
     relpos_flash, each case of K3K5_TURN_CASES and K3K5_TURN_K5 timed by
     CUDA events over distinct inputs (cuda_ms); printed as one JSON line,
-    `K3K5_TURN {...}` (ms a call). Where the tree has the runtime-width
-    rows entry, the d_head-48 and float32 cases are timed on it too, the
-    fixed entry and it in turns (fixed, rows, rows, fixed)."""
+    `K3K5_TURN {...}` (ms a call)."""
     sys.path.insert(0, root)
     from agacs_tpu_torch.ops import decode_attn as da
     from agacs_tpu_torch.ops import relpos_flash as rf
@@ -1462,13 +1508,15 @@ def k3k5_turn(root: str) -> int:
     dev = torch.device("cuda:0")
     g = torch.Generator().manual_seed(0)
     out = {}
-    rows_at = getattr(da, "_rows_at", None)
     for kind, n, tp, d, h, pos in K3K5_TURN_CASES:
         sets = []
-        for _ in range(8):
+        big = n * tp * d > 10 ** 8  # drawn on the card, two sets past the L2
+        gd = torch.Generator(device=dev).manual_seed(tp) if big else g
+        for _ in range(2 if big else 8):
             dt = torch.float32 if kind == "K3-f32" else torch.bfloat16
-            q, k, v = ((torch.randn(*sh, generator=g) * 0.5).to(dev, dt)
-                       for sh in ((n, d), (n, tp, d), (n, tp, d)))
+            q, k, v = ((torch.randn(*sh, generator=gd, device=gd.device) * 0.5).to(dev, dt)
+                       for sh in ((n * (BEAM if kind == "K3s" else 1), d), (n, tp, d),
+                                  (n, tp, d)))
             kw = {}
             if kind == "K3a":
                 kw = {"anc_local": torch.randint(0, BEAM, (n, tp), generator=g).to(
@@ -1484,17 +1532,11 @@ def k3k5_turn(root: str) -> int:
                       "v_scale": (torch.rand(d, generator=g) * 0.02).to(dev)}
             sets.append((q, k, v, kw))
         key = f"{kind} ({n}, {tp}, {d}) H={h} pos={pos}"
-        fixed = lambda q, k, v, kw: da.decode_cache_attention(q, k, v, pos, h, **kw)
-        if rows_at is not None and kind in ("K3-f32", "K3@48"):
-            s = da.time_splits(n, h, tp)
-            rows = lambda q, k, v, kw: rows_at(q, k, v, pos, h, s)
-            a, b1 = cuda_ms(fixed, sets, 50), cuda_ms(rows, sets, 50)
-            b2, a2 = cuda_ms(rows, sets, 50), cuda_ms(fixed, sets, 50)
-            out[key] = (a + a2) / 2
-            out[key + " fixed entry"] = [a, a2]
-            out[key + " runtime-width rows entry"] = [b1, b2]
+        if kind == "K3s":
+            call = lambda q, k, v, kw: da.decode_shared_cache_attention(q, k, v, pos, h, BEAM)
         else:
-            out[key] = cuda_ms(fixed, sets, 50)
+            call = lambda q, k, v, kw: da.decode_cache_attention(q, k, v, pos, h, **kw)
+        out[key] = cuda_ms(call, sets, 50)
     for kind, b, t, d, h in K3K5_TURN_K5:
         sets = []
         for _ in range(3):
@@ -2504,6 +2546,8 @@ K3W_CASES = ((80, 112, 256, 8, 99), (2, 752, 256, 8, 749), (80, 112, 144, 4, 99)
              (80, 112, 1024, 8, 103), (2, 752, 1024, 8, 749), (80, 112, 1024, 4, 103),
              (2, 752, 1024, 4, 0), (2, 752, 1024, 4, 749))
 K3W_TIMED = (80, 112, 1024, 8, 99)
+# timed beside it in bf16: d_head 32, 36 and 44 at the beam shape
+K3W_TIMED_NARROW = ((80, 112, 256, 8, 99), (80, 112, 144, 4, 99), (80, 112, 176, 4, 103))
 
 
 def check_k3_widths(dev, g, timed=True) -> dict:
@@ -2512,7 +2556,8 @@ def check_k3_widths(dev, g, timed=True) -> dict:
     plain versions at K3W_CASES, keys past pos poisoned, each call made
     twice and bit-identical, one launch a call; bounds KERNEL_RTOL (bf16)
     and K3F32_RTOL (float32) x max |plain f32|. Timed at K3W_TIMED beside
-    SDPA and the bound. Returns {"bf16": ..., "f32": ...} at d_head 128."""
+    SDPA and the bound, and in bf16 at K3W_TIMED_NARROW. Returns {"bf16":
+    ..., "f32": ...} at d_head 128 and {32 / 36 / 44: ...} in bf16."""
     from agacs_tpu_torch.ops import decode_attn
 
     out = {"bf16": {"err": 0.0}, "f32": {"err": 0.0}}
@@ -2521,9 +2566,10 @@ def check_k3_widths(dev, g, timed=True) -> dict:
         for case in K3W_CASES:
             n, tp, d, h, pos = case
             dh = d // h
+            narrow = kind == "bf16" and case in K3W_TIMED_NARROW
             sets = [tuple(x.to(dtype) for x in sharp_qkv(g, dev, (n, d), (n, tp, d),
                                                          q_scale=dh ** -0.5)) + (pos, h)
-                    for _ in range(8 if timed and case == K3W_TIMED else 1)]
+                    for _ in range(8 if timed and (case == K3W_TIMED or narrow) else 1)]
             q, k, v, _, _ = sets[0]
             before = getattr(decode_attn, counter)
             got = twice(f"K3 {kind} d_head {dh}", decode_attn.decode_cache_attention, q,
@@ -2544,8 +2590,8 @@ def check_k3_widths(dev, g, timed=True) -> dict:
             line = (f"phase {'3' if kind == 'bf16' else '3f'} K3 rows {kind} ({n}, {tp}, {d}) "
                     f"H={h} d_head {dh} pos={pos} S={s}: max_abs_err {err:.3e} (bound {rtol} x "
                     "max|plain f32|), bit-identical twice")
-            if timed and case == K3W_TIMED:
-                res = out[kind]
+            if timed and (case == K3W_TIMED or narrow):
+                res = out[kind] if case == K3W_TIMED else out.setdefault(dh, {"err": err})
                 res["ms"] = cuda_ms(decode_attn.decode_cache_attention, sets, 50)
                 res["plain_ms"] = cuda_ms(decode_attn.decode_cache_attention_ref, sets, 50)
                 lib = sdpa_yardsticks(sets)
@@ -3395,7 +3441,7 @@ DECODE_COUNTERS = {"K3": "LAUNCHES", "K3a": "ANC_LAUNCHES", "K3-PE": "PE_LAUNCHE
                    "K3a-PE": "ANC_PE_LAUNCHES", "K3-int8": "I8_LAUNCHES",
                    "K3a-int8": "ANC_I8_LAUNCHES", "K3s": "SHARED_LAUNCHES",
                    "K3s-int8": "SHARED_I8_LAUNCHES", "K3-f32": "F32_LAUNCHES",
-                   "K3@48": "D48_LAUNCHES"}
+                   "K3@48": "D48_LAUNCHES", "K3-long": "LONG_LAUNCHES"}
 
 
 def decode_counts() -> dict:
@@ -5442,16 +5488,16 @@ MUTANTS = {
                             " * Tp + c0 + t0 + kk) * D + h * dw;")], ("k3pe",)),
     "K3-int8 / K3s-int8 s_v missing": (
         "decode_attn.cu", [("if (QUANT) s[i] *= v_scale[h * dw + c];", ""),
-                           ("if (QUANT) s *= v_scale[h * DH + idx % DH];", "")], ("k3i8",)),
+                           ("if (QUANT) s *= v_scale[h * W + idx % W];", "")], ("k3i8",)),
     "K3-int8 / K3s-int8 s_k applied after the softmax": (
         "decode_attn.cu",
         [("return __bfloat162float(__float2bfloat16(x * k_scale[c]));", "return x;"),
-         ("return pack_bf16(f.x * k_scale[h * DH + c], f.y * k_scale[h * DH + c + 1]);",
+         ("return pack_bf16(f.x * k_scale[ch0 + c], f.y * k_scale[ch0 + c + 1]);",
           "return pack_bf16(f.x, f.y);"),
          ("if (QUANT) s[i] *= v_scale[h * dw + c];",
           "if (QUANT) s[i] *= v_scale[h * dw + c] * k_scale[h * dw + c];"),
-         ("if (QUANT) s *= v_scale[h * DH + idx % DH];",
-          "if (QUANT) s *= v_scale[h * DH + idx % DH] * k_scale[h * DH + idx % DH];")],
+         ("if (QUANT) s *= v_scale[h * W + idx % W];",
+          "if (QUANT) s *= v_scale[h * W + idx % W] * k_scale[h * W + idx % W];")],
         ("k3i8",)),
     "K3 p left unnormalised": (
         "decode_attn.cu", [("const float w = sc[t] / l;", "const float w = sc[t];")], ("k3",)),
@@ -5475,8 +5521,8 @@ MUTANTS = {
         "decode_attn.cu",
         [("for (int r = 0; r < S; ++r) s[i] += parts[r][c];",
           "for (int r = 0; r < S - 1; ++r) s[i] += parts[r][c];"),
-         ("for (int r = 0; r < S; ++r) s += parts[r * J * DH + idx];",
-          "for (int r = 0; r < S - 1; ++r) s += parts[r * J * DH + idx];")],
+         ("for (int r = 0; r < S; ++r) s += parts[r * J * W + idx];",
+          "for (int r = 0; r < S - 1; ++r) s += parts[r * J * W + idx];")],
         ("k3", "k3s")),
     "K3 split: each block's own max and sum": (
         "decode_attn.cu",
@@ -5496,9 +5542,25 @@ MUTANTS = {
         "decode_attn.cu", [("*cluster.map_shared_rank(&xl[rank], tid) = sum;",
                             "*cluster.map_shared_rank(&xl[rank], tid) = nkb ? sum : 1.f;")],
         ("k3",)),
+    "K3 long route without the online rescale (alpha 1)": (
+        "decode_attn.cu", [("const float alpha = expf(m_run - m_new);  // 0 on the first pass",
+                            "const float alpha = 1.f;")], ("k3long",)),
+    "K3 long route: the blocks' partials merged without their maxima's weights": (
+        "decode_attn.cu", [("if (tid < S) xe[tid] = expf(xm[tid] - M);",
+                            "if (tid < S) xe[tid] = 1.f;")], ("k3long",)),
+    "K3 long route: the head's column pieces past the first left out of the scores": (
+        "decode_attn.cu", [("const bool on = at < PIECE && ch < dh;",
+                            "const bool on = at < PIECE && ch < dh && col == 0;")], ("k3forms",)),
+    "K3s at d_head 128-256: every sub-row scored with the first 64 query channels": (
+        "decode_attn.cu", [("q_fragments<KT>(qa[m], q, k_scale, row0, J, D, h * W + m * DH);",
+                            "q_fragments<KT>(qa[m], q, k_scale, row0, J, D, h * W);")],
+        ("k3sw",)),
+    "K3s query tiles: every tile's queries from the group's first row": (
+        "decode_attn.cu", [("const size_t row0 = (size_t)gi * JG + T * ti;",
+                            "const size_t row0 = (size_t)gi * JG;")], ("k3sw",)),
     "K3s split: query i's partial from query i+1": (
-        "decode_attn.cu", [("s += parts[r * J * DH + idx];",
-                            "s += parts[r * J * DH + (idx + DH < J * DH ? idx + DH : idx)];")],
+        "decode_attn.cu", [("s += parts[r * J * W + idx];",
+                            "s += parts[r * J * W + (idx + W < J * W ? idx + W : idx)];")],
         ("k3s",)),
     "K8q: a row's maximum over its first warp only (rows of 2-8 warps)": (
         "int8_gemm.cu", [("for (int w = 0; w < WPR; ++w) m = fmaxf(m, red[w0 + w]);",
@@ -5596,11 +5658,713 @@ MUTANTS = {
 
 # The kernel checks a mutant can name (each run with timed=False); "p15",
 # phase 15's int8 micro-step, is the other.
+
+# ---------------------------------------------------------------------------
+# K3 at every shape JAX's decode kernels take: the long route (phase 3L),
+# K3s past 16 queries (phase 3s, beams 17-32), the whisper-only forms at
+# other widths (phase 3w), and their paths (phases 53-55)
+# ---------------------------------------------------------------------------
+
+# Phase 3L's cases (label, form, rows, Tp, d, heads, positions, cache dtype,
+# beam, forced keys or None, timed): phase 54's own calls, the conformer
+# decoder's bf16 rows and the LM's float32 rows over its caches (65616
+# positions: blocks of 8202 and 9374 keys, past the short route's table of
+# 8192) at its positions, in passes of PASS_KEYS (two or three a block);
+# then, as extra shapes, the same rows over caches of 8256 positions, K3a
+# and K3-PE at whisper-small's width, each in tables and passes of 1024
+# (`forced_long`: at the default tables a block's keys fit the short route
+# there); a 65536-key cache in tables and passes of 4096 (8192 keys a
+# block, two passes; the short route's one table timed beside it); K3a-PE in passes of 64, int8 rows at S = 1 and K3s's groups, one query a
+# block.
+K3L_PHASE54 = ("phase 54's decoder rows", "phase 54's LM rows (K3-f32)")
+K3L_CASES = (
+    (K3L_PHASE54[0], "rows", 10, 65616, 256, 4, (8185, 8191, 8192, 8200), torch.bfloat16, 1,
+     None, True),
+    (K3L_PHASE54[1], "rows", 10, 65616, 512, 8, (8200,), torch.float32, 1, None, True),
+    ("conformer decoder rows", "rows", 10, 8256, 256, 4, (8191, 8192, 8200), torch.bfloat16,
+     1, 1024, True),
+    ("LM rows (K3-f32)", "rows", 10, 8256, 512, 8, (8200,), torch.float32, 1, 1024, True),
+    ("rows at 65536 keys", "rows", 10, 65536, 256, 4, (65535,), torch.bfloat16, 1, 4096, True),
+    ("K3a", "anc", 40, 4608, 768, 12, (4600,), torch.bfloat16, 5, 1024, False),
+    ("K3-PE", "pe", 8, 8256, 768, 12, (8200,), torch.bfloat16, 1, 1024, False),
+    ("K3a-PE, passes of 64", "anc_pe", 10, 448, 768, 12, (447,), torch.bfloat16, 5, 64, False),
+    ("K3-int8, one block", "rows", 8, 1504, 768, 12, (1499,), torch.int8, 1, 1024, False),
+    ("K3s, one query a block", "shared", 2, 8256, 768, 12, (8200,), torch.bfloat16, 5, 1024,
+     False),
+)
+
+
+def card_inputs(gen, form: str, n: int, tp: int, d: int, h: int, beam: int, dtype, dev) -> dict:
+    """Sharp, shifted q, k, v (as `sharp_qkv`) drawn on the card from `gen`,
+    with the form's extras: `anc_local` (a beam run's map), q_cs, k_cs and
+    a gate (PE), int8 caches and scales (`quantize_kv`); float32 for a
+    float32 form. Shared: n groups of `beam` queries."""
+    nq = n * beam if form == "shared" else n
+    qdt = torch.float32 if dtype == torch.float32 else torch.bfloat16
+
+    def rnd(shape, mean, std, scale=1.0):
+        return ((torch.randn(*shape, generator=gen, device=dev) * std + mean) * scale).to(qdt)
+
+    dh = d // h
+    out = {"q": rnd((nq, d), -1.0, 1.5, dh ** -0.5), "k": rnd((n, tp, d), 1.0, 1.5),
+           "v": rnd((n, tp, d), 0.0, 1.0)}
+    if "pe" in form:
+        out.update(q_cs=rnd((nq, d), -1.0, 1.5, dh ** -0.5), k_cs=rnd((n, tp, d), 1.0, 1.5),
+                   gate=torch.cat([torch.tensor([0.0, 1.0], device=dev),
+                                   torch.rand(max(h - 2, 0), generator=gen, device=dev)])[:h])
+    if "anc" in form:
+        own = torch.arange(n, device=dev)[:, None] % beam
+        other = (own + torch.randint(1, beam, (n, tp), generator=gen, device=dev)) % beam
+        out["anc_local"] = torch.where(torch.rand(n, tp, generator=gen, device=dev) < 0.2,
+                                       own, other).to(torch.int32).contiguous()
+    if dtype == torch.int8:
+        from agacs_tpu_torch.models.whisper import quantize_kv
+
+        (out["k"], out["k_scale"]), (out["v"], out["v_scale"]) = (
+            quantize_kv(out["k"]), quantize_kv(out["v"]))
+    return out
+
+
+def poisoned_inputs(x: dict, form: str, beam: int, pos: int) -> dict:
+    """Copies of x's caches with every entry the kernel must not read (past
+    pos, and through a map every entry no row of its group selects) set to
+    a score far above the rest (k, k_cs 0) and a value of 1e4 (127 in
+    int8)."""
+    k = x["k"]
+    bad = unread(x.get("anc_local"), k.shape[0], k.shape[1], beam, pos, k.device)
+    out = dict(x)
+    int8 = k.dtype == torch.int8
+    for name, val in (("k", 127 if int8 else 0.0), ("k_cs", 0.0), ("v", 127 if int8 else 1e4)):
+        if name in x:
+            out[name] = x[name].clone()
+            out[name][bad] = val
+    return out
+
+
+def k3_call(form: str, beam: int, splits=None):
+    """The wrapper call of `form` over an input dict: (q, k, v, pos, h, **x)."""
+    from agacs_tpu_torch.ops import decode_attn as da
+
+    def call(x, pos, h):
+        kw = {n: t for n, t in x.items() if n not in ("q", "k", "v")}
+        if form == "shared":
+            return da.decode_shared_cache_attention(x["q"], x["k"], x["v"], pos, h, beam,
+                                                    splits=splits, **kw)
+        if "anc" in form:
+            kw["beam"] = beam
+        return da.decode_cache_attention(x["q"], x["k"], x["v"], pos, h, splits=splits, **kw)
+    return call
+
+
+@contextlib.contextmanager
+def forced_long(keys, passes: bool = True):
+    """The short route's tables (SHORT_KEYS, SHORT_MAP_KEYS) and, with
+    `passes`, the long route's PASS_KEYS set to `keys` (None: left as they
+    are) inside the block: the long route forced at a short cache."""
+    from agacs_tpu_torch.ops import decode_attn as da
+
+    names = ("SHORT_KEYS", "SHORT_MAP_KEYS") + (("PASS_KEYS",) if passes else ())
+    kept = {n: getattr(da, n) for n in names}
+    for n in names:
+        setattr(da, n, keys or kept[n])
+    try:
+        yield
+    finally:
+        for n, v in kept.items():
+            setattr(da, n, v)
+
+
+def k3_bound(form: str, n: int, pos: int, d: int, beam: int, dtype) -> dict:
+    """K3's bound on the card: the keys and values 0..pos read once (k_cs
+    too for PE; the shared form's caches once a group), q (and q_cs) read
+    and o written; 4 operations a key channel a query (6 for PE), in bf16
+    (int8 widened to bf16) or float32."""
+    esz = {torch.bfloat16: 2, torch.int8: 1, torch.float32: 4}[dtype]
+    qsz = 4 if dtype == torch.float32 else 2
+    nq = n * beam if form == "shared" else n
+    caches = 3 if "pe" in form else 2
+    nbytes = caches * n * (pos + 1) * d * esz + caches * nq * d * qsz
+    ops = (6 if "pe" in form else 4) * nq * (pos + 1) * d
+    return roofline(nbytes, ops, "f32" if dtype == torch.float32 else "bf16")
+
+
+def check_k3_long(dev, g=None, timed=True) -> dict:
+    """Phase 3L: K3's long route (`decode_attn_long_fwd`) against its plain
+    version `decode_cache_attention_chunked_ref` (computed on the card in
+    float32 from the same inputs) at K3L_CASES: every call twice and
+    bit-identical, one LONG launch a call, keys past pos (and every entry
+    a map leaves unread) poisoned in the kernel's input; KERNEL_RTOL x max
+    |plain| (K3F32_RTOL for float32). The timed cases beside the plain
+    version, SDPA on the key slice and the bytes bound. Returns
+    {label: result} of the timed ones."""
+    from agacs_tpu_torch.ops import decode_attn as da
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+    out = {}
+    for label, form, n, tp, d, h, positions, dtype, beam, pk, timed_case in K3L_CASES:
+        x = card_inputs(gen, form, n, tp, d, h, beam, dtype, dev)
+        splits = 1 if "one block" in label else None
+        call = k3_call(form, beam, splits)
+        with forced_long(pk):
+            route, s, kc = da.plan(form, n, h, x["k"], beam, splits)
+        check(route == "long", f"phase 3L {label}: the long route ({route})")
+        rtol = K3F32_RTOL if dtype == torch.float32 else KERNEL_RTOL
+        for pos in positions:
+            before = da.LONG_LAUNCHES
+            with forced_long(pk):
+                got = twice(f"K3 long {label}", call, poisoned_inputs(x, form, beam, pos), pos,
+                            h)
+            check(da.LONG_LAUNCHES == before + 2, f"phase 3L {label}: one launch a call")
+            plain = da.decode_cache_attention_chunked_ref(
+                x["q"], x["k"], x["v"], pos, h, s, kc, shared=form == "shared",
+                **({"beam": beam} if beam > 1 else {}),
+                **{k: v for k, v in x.items() if k not in ("q", "k", "v")})
+            torch.cuda.synchronize()
+            err = (got.float() - plain.float()).abs().max().item()
+            bound = rtol * plain.float().abs().max().item()
+            check(got.shape == plain.shape and got.dtype == x["q"].dtype and err <= bound,
+                  f"phase 3L {label} pos={pos}: max_abs_err {err} <= {bound}")
+            line = (f"phase 3L K3 long route, {label} ({n}, {tp}, {d}) H={h} pos={pos} S={s} "
+                    f"passes of {kc}: max_abs_err {err:.3e} (bound {rtol} x max|plain f32|), "
+                    f"bit-identical twice, one launch a call")
+            if timed and timed_case and pos == positions[-1]:
+                sets = [(x, pos, h), (card_inputs(gen, form, n, tp, d, h, beam, dtype, dev),
+                                      pos, h)]
+                with forced_long(pk):
+                    ms = cuda_ms(call, sets, 20)
+                res = {"err": err, "ms": ms,
+                       "plain_ms": cuda_ms(lambda x_, p, hh: da.decode_cache_attention_chunked_ref(
+                           x_["q"], x_["k"], x_["v"], p, hh, s, kc), sets, 3)}
+                res["library_ms"], backend = sdpa_ms(lambda x_, p, hh: sdpa_one_query(
+                    x_["q"], x_["k"][:, : p + 1], x_["v"][:, : p + 1], p, hh, masked=False),
+                    sets, 20)
+                res.update(k3_bound(form, n, pos, d, beam, dtype))
+                out[label] = res
+                line += (f"; kernel {res['ms']:.4f} ms plain {res['plain_ms']:.4f} ms sdpa on "
+                         f"the key slice ({backend}) {res['library_ms']:.4f} ms bound "
+                         f"{res['bound_ms']:.4f} ms ({res['bound_by']})")
+                if da.plan(form, n, h, x["k"], beam, splits)[0] != "long":  # the table holds it
+                    short = cuda_ms(call, sets, 20)
+                    line += f"; the short route at this shape (one table a block) {short:.4f} ms"
+                    res["short_ms"] = short
+            print(line, flush=True)
+        del x
+    torch.cuda.empty_cache()
+    return out
+
+
+# Phase 3s past 16 queries: whisper-small's beam cross-attention at beams
+# 17, 20 and 32 over 8 utterances' (1504, 768) cross-KV (two query tiles a
+# group), and at d_head 128, 192 and 256 (64-channel sub-rows) at beams 5
+# and 20; pos 1499 (T_audio - 1), bf16 and int8; timed at beam 20 and (int8)
+# at d_head 128, beam 5 (phase 55's cross-attention). And K3a at phase 53's
+# self-attention shape, (8 x 20, 448, 768), pos 447. Then K3s at beam 5
+# with blocks past 4096 keys (K3S_TABLE: 8 groups over 18016 keys, S 3,
+# blocks of 6006; bf16 and int8), within its table of 8192.
+K3S_TABLE = (8, 18016, 18000, 5)
+K3S_CASES = ((64, 17), (64, 20), (64, 32), (128, 5), (128, 20), (192, 5), (192, 20), (256, 5),
+             (256, 20))
+K3S_TIMED = {("bf16", 64, 20), ("int8", 64, 20), ("int8", 128, 5)}
+K3S_WIDE_TP, K3S_WIDE_POS = 1504, 1499
+
+
+def check_k3s_wide(dev, g=None, timed=True) -> dict:
+    """Phase 3s past 16 queries a group and at wider heads (K3S_CASES):
+    K3s and K3s-int8 on the tensor cores in balanced tiles of at most 16
+    queries against their plain versions (float32; int8 in the kernel's
+    folding), keys past pos poisoned, every call twice and bit-identical,
+    one launch a call; K3S_TIMED timed beside SDPA (on the dequantised
+    caches for int8) on the key slice and the bound. Then K3a at (160, 448,
+    768), beam 20. Returns {(kind, d_head, beam): result} of the timed."""
+    from agacs_tpu_torch.ops import decode_attn as da
+
+    gen = torch.Generator(device=dev).manual_seed(32)
+    g, tp, pos, out = 8, K3S_WIDE_TP, K3S_WIDE_POS, {}
+    for kind, dtype in (("bf16", torch.bfloat16), ("int8", torch.int8)):
+        counter = "SHARED_I8_LAUNCHES" if kind == "int8" else "SHARED_LAUNCHES"
+        for dh, j in K3S_CASES:
+            h = D // dh
+            x = card_inputs(gen, "shared", g, tp, D, h, j, dtype, dev)
+            route, s, _ = da.plan("shared", g, h, x["k"], j)
+            check(route == "shared", f"phase 3s d_head {dh} beam {j} {kind}: the tensor cores "
+                  f"({route})")
+            call = k3_call("shared", j)
+            before = getattr(da, counter)
+            got = twice(f"K3s d_head {dh} beam {j} {kind}", call,
+                        poisoned_inputs(x, "shared", j, pos), pos, h)
+            check(getattr(da, counter) == before + 2, f"phase 3s d_head {dh} beam {j}: one "
+                  "launch a call")
+            plain_fn = ((lambda x_, p, hh: da.decode_shared_cache_attention_int8_ref(
+                x_["q"], x_["k"], x_["v"], p, hh, j, x_["k_scale"], x_["v_scale"]))
+                if kind == "int8" else (lambda x_, p, hh: da.decode_shared_cache_attention_ref(
+                    x_["q"].float(), x_["k"].float(), x_["v"].float(), p, hh, j)))
+            err = hold(f"K3s {kind} d_head {dh} beam {j}", got, plain_fn(x, pos, h),
+                       (g * j, tp, D))
+            line = (f"phase 3s K3s {kind} ({g} x {j}, {tp}, {D}) H={h} d_head {dh} pos={pos} "
+                    f"S={s}, query tiles {da.query_tiles(j)} a group: max_abs_err {err:.3e} "
+                    f"(bound {KERNEL_RTOL} x max|plain f32|), bit-identical twice")
+            if timed and (kind, dh, j) in K3S_TIMED:  # buffers past the L2 together
+                sets = [(x, pos, h)] + [(card_inputs(gen, "shared", g, tp, D, h, j, dtype, dev),
+                                         pos, h) for _ in range(3 if kind == "int8" else 1)]
+                lib_sets = [(x_["q"], *((da.dequantize_kv(x_["k"], x_["k_scale"], torch.bfloat16),
+                                         da.dequantize_kv(x_["v"], x_["v_scale"], torch.bfloat16))
+                                        if kind == "int8" else (x_["k"], x_["v"])), p, hh, j)
+                            for x_, p, hh in sets]
+                lib = sdpa_yardsticks(lib_sets, j)
+                res = {"err": err, "ms": cuda_ms(call, sets, 50),
+                       "plain_ms": cuda_ms(plain_fn, sets, 20), "library_ms": lib["library_ms"],
+                       **k3_bound("shared", g, pos, D, j, dtype)}
+                out[(kind, dh, j)] = res
+                line += (f"; kernel {res['ms']:.4f} ms plain {res['plain_ms']:.4f} ms "
+                         f"{lib['text']} bound {res['bound_ms']:.4f} ms")
+            print(line, flush=True)
+    g, tp, pos, j = K3S_TABLE
+    for kind, dtype in (("bf16", torch.bfloat16), ("int8", torch.int8)):
+        x = card_inputs(gen, "shared", g, tp, D, H, j, dtype, dev)
+        route, s, _ = da.plan("shared", g, H, x["k"], j)
+        check(route == "shared", f"phase 3s {kind} over {tp} keys: the tensor cores ({route})")
+        counter = "SHARED_I8_LAUNCHES" if kind == "int8" else "SHARED_LAUNCHES"
+        before = getattr(da, counter)
+        got = twice(f"K3s {kind} over {tp} keys", k3_call("shared", j),
+                    poisoned_inputs(x, "shared", j, pos), pos, H)
+        check(getattr(da, counter) == before + 2, f"phase 3s {kind} over {tp}: one launch")
+        plain = (da.decode_shared_cache_attention_int8_ref(
+            x["q"], x["k"], x["v"], pos, H, j, x["k_scale"], x["v_scale"]) if kind == "int8"
+            else da.decode_shared_cache_attention_ref(x["q"].float(), x["k"].float(),
+                                                      x["v"].float(), pos, H, j))
+        err = hold(f"K3s {kind} over {tp} keys", got, plain, (g * j, tp, D))
+        print(f"phase 3s K3s {kind} ({g} x {j}, {tp}, {D}) H={H} pos={pos} S={s}, blocks of "
+              f"{-(-tp // s)} keys: max_abs_err {err:.3e} (bound {KERNEL_RTOL} x max|plain "
+              "f32|), bit-identical twice", flush=True)
+        del x
+    n, tp, j, pos = 8 * 20, 448, 20, 447
+    x = card_inputs(gen, "anc", n, tp, D, H, j, torch.bfloat16, dev)
+    before = da.ANC_LAUNCHES
+    got = twice("K3a beam 20", k3_call("anc", j), poisoned_inputs(x, "anc", j, pos), pos, H)
+    check(da.ANC_LAUNCHES == before + 2, "phase 3s K3a beam 20: one launch a call")
+    err = hold("K3a beam 20", got, da.decode_cache_attention_anc_ref(
+        x["q"].float(), x["k"].float(), x["v"].float(), pos, H, x["anc_local"], j), (n, tp, D))
+    print(f"phase 3s K3a at phase 53's self-attention ({n}, {tp}, {D}) beam {j} pos={pos} S="
+          f"{da.plan('anc', n, H, x['k'], j)[1]}: max_abs_err {err:.3e}, bit-identical twice",
+          flush=True)
+    return out
+
+
+# Phase 3w's cases: each whisper-only form at d_head 32, 48, 128 and 256 on
+# a beam's self-attention shape (40 rows, 112 keys; int8 128) at
+# whisper-small's width (768 in 24, 16, 6 and 3 heads), pos 103, and the
+# plain rows at d_head 320 and 512 on (8, 752) pos 749 (the long route,
+# heads in 256-wide pieces, bf16 and float32); then widths and forms only
+# the long route takes: an odd width (33), K3a at 36, float32 K3a-PE, and
+# K3s at d_head 96 (int8) and in float32 (one query a block). d_head 128
+# timed, and beside it the long route at the same shape in one pass (the
+# short route's tables forced below its keys). Then the short route at the
+# edge of its table, one block a (head, row) (K3W_SHORT: form, rows, Tp, d,
+# heads, pos, cache dtype, beam, splits, route): K3a at d_head 128 on
+# phase 53's self-cache length (10 rows, 448 keys, pos 447), K3a with a
+# full table of 4096 keys and rows, K3-PE and K3-f32 with full tables of
+# 8192 scores.
+K3W_SHORT = (("anc", 10, 448, 768, 6, 447, torch.bfloat16, 5, None, "forms"),
+             ("anc", 10, 4096, 768, 6, 4095, torch.bfloat16, 5, 1, "forms"),
+             ("pe", 8, 8192, 768, 6, 8191, torch.bfloat16, 1, 1, "forms"),
+             ("rows", 8, 8192, 512, 8, 8191, torch.float32, 1, 1, "f32"))
+K3W_FORMS = ("anc", "pe", "anc_pe", "int8", "anc_int8")
+K3W_WIDTHS = (32, 48, 128, 256)
+K3W_LONG = (("rows", 8, 752, 640, 2, 749, torch.bfloat16, 1), ("rows", 8, 752, 640, 2, 749,
+                                                                 torch.float32, 1),
+            ("rows", 8, 752, 1024, 2, 749, torch.bfloat16, 1),
+            ("rows", 8, 752, 1024, 2, 749, torch.float32, 1),
+            ("rows", 8, 112, 99, 3, 103, torch.bfloat16, 1),
+            ("anc", 40, 112, 144, 4, 103, torch.bfloat16, 5),
+            ("anc_pe", 40, 112, 768, 12, 103, torch.float32, 5),
+            ("shared", 8, 1504, 768, 8, 1499, torch.int8, 5),
+            ("shared", 8, 1504, 768, 12, 1499, torch.float32, 5))
+
+
+def form_plain(form: str, x: dict, pos: int, h: int, beam: int):
+    """The plain version of the short route's kernel for `form` in float32
+    (int8 in the kernel's folding)."""
+    from agacs_tpu_torch.ops import decode_attn as da
+
+    f = {k: (v.float() if v.is_floating_point() else v) for k, v in x.items()}
+    if "int8" in form or x["k"].dtype == torch.int8:
+        k, v = x["k"], x["v"]
+        if "anc" in form:
+            k, v = (da.gather_ancestry(t, x["anc_local"], beam) for t in (k, v))
+        return da.decode_cache_attention_int8_ref(x["q"], k, v, pos, h, x["k_scale"],
+                                                  x["v_scale"])
+    pe = {n: f[n] for n in ("q_cs", "k_cs", "gate") if n in f}
+    if "anc" in form:
+        return da.decode_cache_attention_anc_ref(f["q"], f["k"], f["v"], pos, h,
+                                                 x["anc_local"], beam, **pe)
+    return da.decode_cache_attention_ref(f["q"], f["k"], f["v"], pos, h, **pe)
+
+
+def form_library(form: str, x: dict, pos: int, h: int):
+    """The SDPA call on the key slice that computes `form`'s function where
+    one does (PE: [q (1-g) | q_cs g] against [k | k_cs]; int8: the
+    dequantised caches), and None through a map."""
+    from agacs_tpu_torch.ops import decode_attn as da
+
+    if "anc" in form:
+        return None
+    k, v = x["k"][:, : pos + 1], x["v"][:, : pos + 1]
+    if k.dtype == torch.int8:
+        k = da.dequantize_kv(k, x["k_scale"], torch.bfloat16)
+        v = da.dequantize_kv(v, x["v_scale"], torch.bfloat16)
+    n = k.shape[0]
+    if "pe" in form:
+        g = x["gate"].view(1, h, 1, 1)
+        qh = lambda t: t.view(n, 1, h, -1).transpose(1, 2).float()  # noqa: E731
+        q2 = torch.cat([(1 - g) * qh(x["q"]), g * qh(x["q_cs"])], -1).to(x["q"].dtype)
+        k2 = torch.cat([sdpa_heads(k, h), sdpa_heads(x["k_cs"][:, : pos + 1], h)], -1)
+        return lambda: torch.nn.functional.scaled_dot_product_attention(
+            q2, k2, sdpa_heads(v, h), scale=1.0)
+    return lambda: sdpa_one_query(x["q"], k, v, pos, h, masked=False)
+
+
+def check_k3_forms(dev, g=None, timed=True) -> dict:
+    """Phase 3w: each whisper-only form (K3W_FORMS) at K3W_WIDTHS on the
+    runtime-width forms entry (d_head 64 keeps its fixed instances) against
+    its plain version, then the K3W_LONG cases on the long route against
+    `decode_cache_attention_chunked_ref`; keys past pos and unread map
+    entries poisoned, every call twice and bit-identical, one launch a call
+    of its counter; KERNEL_RTOL (float32: K3F32_RTOL). Timed at d_head 128
+    beside the plain version, SDPA on the key slice and the bound. Returns
+    {form: result at 128}."""
+    from agacs_tpu_torch.ops import decode_attn as da
+
+    gen = torch.Generator(device=dev).manual_seed(33)
+    out = {}
+    for form in K3W_FORMS:
+        int8 = "int8" in form
+        base = form.replace("_int8", "").replace("int8", "rows")
+        counter = DECODE_COUNTERS[{"anc": "K3a", "pe": "K3-PE", "anc_pe": "K3a-PE",
+                                   "int8": "K3-int8", "anc_int8": "K3a-int8"}[form]]
+        for dh in K3W_WIDTHS:
+            n, tp, pos, h, beam = 40, 128 if int8 else 112, 103, D // dh, BEAM
+            dtype = torch.int8 if int8 else torch.bfloat16
+            x = card_inputs(gen, base, n, tp, D, h, beam, dtype, dev)
+            route = da.plan(base, n, h, x["k"], beam if "anc" in form else 1)[0]
+            check(route == "forms", f"phase 3w {form} d_head {dh}: the forms entry ({route})")
+            call = k3_call(base, beam)
+            before = getattr(da, counter)
+            got = twice(f"{form} d_head {dh}", call, poisoned_inputs(x, base, beam, pos), pos, h)
+            check(getattr(da, counter) == before + 2, f"phase 3w {form} d_head {dh}: one launch")
+            err = hold(f"{form} d_head {dh}", got, form_plain(form, x, pos, h, beam), (n, tp, D))
+            line = (f"phase 3w {form} d_head {dh} ({n}, {tp}, {D}) H={h} pos={pos}: max_abs_err "
+                    f"{err:.3e} (bound {KERNEL_RTOL} x max|plain f32|), bit-identical twice")
+            if timed and dh == 128:  # buffers past the L2 together
+                sets = [(x, pos, h)] + [(card_inputs(gen, base, n, tp, D, h, beam, dtype, dev),
+                                         pos, h) for _ in range(4)]
+                lib = [form_library(form, *a) for a in sets]
+                res = {"err": err, "ms": cuda_ms(call, sets, 50),
+                       "plain_ms": cuda_ms(lambda x_, p, hh: form_plain(form, x_, p, hh, beam),
+                                           sets, 20),
+                       "library_ms": None if lib[0] is None else cuda_ms(
+                           lambda f: f(), [(f,) for f in lib], 50),
+                       **k3_bound(base, n, pos, D, 1, dtype)}
+                with forced_long(64, passes=False):
+                    check(da.plan(base, n, h, x["k"], beam if "anc" in form else 1)[0] == "long",
+                          f"phase 3w {form}: the long route forced")
+                    res["long_ms"] = cuda_ms(call, sets, 50)
+                out[form] = res
+                line += (f"; kernel {res['ms']:.4f} ms plain {res['plain_ms']:.4f} ms sdpa on "
+                         f"the key slice " + ("none (through a map)" if lib[0] is None else
+                                              f"{res['library_ms']:.4f} ms")
+                         + f" bound {res['bound_ms']:.4f} ms; the long route at this shape "
+                         f"(one pass) {res['long_ms']:.4f} ms, "
+                         f"{res['long_ms'] / res['ms']:.2f} x the forms entry")
+            print(line, flush=True)
+    for form, n, tp, d, h, pos, dtype, beam, splits, want in K3W_SHORT:
+        x = card_inputs(gen, form, n, tp, d, h, beam, dtype, dev)
+        route, s, _ = da.plan(form, n, h, x["k"], beam, splits)
+        check(route == want, f"phase 3w {form} ({n}, {tp}, {d}) H={h}: {want} ({route})")
+        counter = DECODE_COUNTERS["K3-f32" if dtype == torch.float32 else
+                                  {"anc": "K3a", "pe": "K3-PE"}[form]]
+        before = getattr(da, counter)
+        got = twice(f"{form} ({n}, {tp}, {d}) short", k3_call(form, beam, splits),
+                    poisoned_inputs(x, form, beam, pos), pos, h)
+        check(getattr(da, counter) == before + 2, f"phase 3w {form} ({n}, {tp}): one launch")
+        plain = form_plain(form, x, pos, h, beam)
+        torch.cuda.synchronize()
+        rtol = K3F32_RTOL if dtype == torch.float32 else KERNEL_RTOL
+        err = (got.float() - plain.float()).abs().max().item()
+        bound = rtol * plain.float().abs().max().item()
+        check(got.shape == plain.shape and err <= bound,
+              f"phase 3w short {form} ({n}, {tp}, {d}) H={h} pos={pos}: {err} <= {bound}")
+        print(f"phase 3w short route at its table, {form} d_head {d // h} {str(dtype)[6:]} "
+              f"({n}, {tp}, {d}) H={h} pos={pos} S={s} ({route}): max_abs_err {err:.3e} (bound "
+              f"{rtol} x max|plain f32|), bit-identical twice", flush=True)
+        del x
+    for form, n, tp, d, h, pos, dtype, beam in K3W_LONG:
+        x = card_inputs(gen, form, n, tp, d, h, beam, dtype, dev)
+        route, s, kc = da.plan(form, n, h, x["k"], beam)
+        check(route == "long", f"phase 3w {form} d_head {d // h}: the long route ({route})")
+        before = da.LONG_LAUNCHES
+        call = k3_call(form, beam)
+        got = twice(f"{form} d_head {d // h} long", call, poisoned_inputs(x, form, beam, pos),
+                    pos, h)
+        check(da.LONG_LAUNCHES == before + 2, f"phase 3w {form} d_head {d // h}: one launch")
+        plain = da.decode_cache_attention_chunked_ref(
+            x["q"], x["k"], x["v"], pos, h, s, kc, shared=form == "shared",
+            **({"beam": beam} if beam > 1 else {}),
+            **{k: v for k, v in x.items() if k not in ("q", "k", "v")})
+        torch.cuda.synchronize()
+        rtol = K3F32_RTOL if dtype == torch.float32 else KERNEL_RTOL
+        err = (got.float() - plain.float()).abs().max().item()
+        bound = rtol * plain.float().abs().max().item()
+        check(err <= bound, f"phase 3w long {form} d_head {d // h} {dtype}: {err} <= {bound}")
+        line = (f"phase 3w long route {form} d_head {d // h} {str(dtype)[6:]} ({n}, {tp}, {d}) "
+                f"H={h} pos={pos} S={s}: max_abs_err {err:.3e} (bound {rtol} x max|plain f32|), "
+                "bit-identical twice")
+        print(line, flush=True)
+    return out
+
+
+# Phase 53: whisper-small's beam-20 serving. The decode YAML's maxlenratio
+# 0 gives a 448-position self cache (maxlen = min(frames, 448 - 6) = 442);
+# `Speech2Text` sizes the cache from the step cap, so the cap is 442 here.
+BEAM20 = 20
+
+
+def beam20_phase(model, asr_cfg, audio, cpu_model, enc_cpu) -> dict:
+    """Phase 53: Speech2Text(beam_size 20, maxlenratio 0, loop scan) on phase
+    4's stage-2 whisper-small (full depth and width, bf16) over 8 x 15 s:
+    a warm-up of WARM_STEPS, then one timed request whose K3a (160 rows
+    through the ancestry map over the 448-position self cache) and K3s (20
+    queries a group, two tiles) launches equal 12 a decode step exactly,
+    K1f 12, nothing else; one more under the profiler for the device's
+    busy and idle shares; the hypotheses' reported scores against their
+    teacher-forced rescoring on the card and (utterance 0) on the CPU in
+    float32 (phase 12's bounds)."""
+    from agacs_tpu_torch.decode import beam as tbeam
+    from agacs_tpu_torch.decode.speech2text import Speech2Text
+    from agacs_tpu_torch.models.asr_model import encode
+    from agacs_tpu_torch.ops.decode_attn import pad_time
+
+    cfg = model.cfg
+    s2t = Speech2Text(model, asr_cfg, beam_size=BEAM20, max_steps=None, maxlenratio=0.0,
+                      loop="scan")
+    warm_up(Speech2Text(model, asr_cfg, beam_size=BEAM20, max_steps=WARM_STEPS, loop="scan"),
+            audio)
+    real, steps = tbeam.whisper_decode_step, [0]
+
+    def counted(*a, **k):
+        steps[0] += 1
+        return real(*a, **k)
+
+    tbeam.whisper_decode_step = counted
+    try:
+        reset_decode_counts()
+        t0 = time.perf_counter()
+        results = s2t(audio)
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        tbeam.whisper_decode_step = real
+    launches = {k: v for k, v in decode_counts().items() if v}
+    per = cfg.n_text_layer * steps[0]
+    want = {"K1f": cfg.n_audio_layer, "K3a": per, "K3s": per}
+    check(launches == want, f"phase 53 launches {launches} == {want}")
+    limit = min(len(PRIMER) + s2t._maxlen(750), cfg.n_text_ctx) - 1
+    check(len(results) == 8 and all(r.tokens[:5] == PRIMER and len(r.tokens) <= limit + 2
+                                    and np.isfinite(r.score) for r in results),
+          "phase 53: 8 finite beam-20 hypotheses")
+    busy, n_events, per_name = device_profile(lambda: s2t(audio))
+    k3a = sum(t for name, t in per_name.items() if "decode_attn_kernel<true, false" in name)
+    k3s = sum(t for name, t in per_name.items() if "decode_attn_shared_kernel" in name)
+    dev = next(model.parameters()).device
+    with torch.inference_mode():
+        enc, _ = encode(model, asr_cfg, torch.from_numpy(audio).to(dev),
+                        torch.full((audio.shape[0],), audio.shape[1], device=dev))
+    hyps = [r.tokens for r in results]
+    scores = np.array([r.score for r in results])
+    card = np.abs(rescore(model, enc, hyps, limit) / scores - 1)
+    cpu = abs(rescore(cpu_model, enc_cpu, hyps[:1], limit)[0] / scores[0] - 1)
+    print(f"phase 53 beam-20 slice: whisper-small+adapters bf16, 8 x 15 s, beam {BEAM20}, "
+          f"maxlenratio 0 (self cache {pad_time(limit + 1)} positions), {steps[0]} decode "
+          f"steps, loop scan: {ms:.1f} ms/batch (one request after a warm-up), "
+          f"{120.0 / (ms / 1e3):.1f} x realtime; launches {launches}; profile: device busy "
+          f"{busy:.1f} ms in {n_events} events, busy {busy / ms:.1%} idle {1 - busy / ms:.1%} of "
+          f"the timed request; K3a {k3a:.2f} ms, K3s {k3s:.2f} ms; reported score vs "
+          f"teacher-forced rescore (rel, max over 8) card {card.max():.2e}, cpu f32 (utt 0) "
+          f"{cpu:.2e} (bounds {RESCORE_REL}); lengths {[len(h) for h in hyps]}; top: "
+          + top_kernels(per_name, 6), flush=True)
+    check(card.max() <= RESCORE_REL["card"] and cpu <= RESCORE_REL["cpu"],
+          f"phase 53 rescore rel card {card.max()} cpu {cpu} within {RESCORE_REL}")
+    return {"launches": launches, "ms": ms, "busy_ms": busy, "steps": steps[0]}
+
+
+# Phase 54: the conformer recipe's decoder (6 blocks, bf16) and LM (16
+# blocks, float32) one step at a time at pos 8185-8200 over 10 rows, the
+# caches sized as `joint_beam_decode` sizes them for 65600 steps (65601 ->
+# 65616 positions: blocks of 8202 and 9374 keys, past the short route's
+# table of 8192; 4.0 + 43.0 GB), rows 0-8184 drawn on the card; 2 + 2 blocks
+# of each against the CPU in float32 on the same caches, one step at pos
+# 8201.
+LONG_ROWS, LONG_STEPS, LONG_POS0 = 10, 65600, 8185
+LONG_LM_REL_L2 = 1e-4  # float32 on both sides: summation order
+
+
+def first_blocks(sd: dict, n: int) -> dict:
+    """A state dict without the blocks from index n on (every `blocks.i.`)."""
+    return {k: v for k, v in sd.items()
+            if not (m := re.search(r"(?:^|\.)blocks\.(\d+)\.", k)) or int(m.group(1)) < n}
+
+
+def long_decode_phase(dev) -> dict:
+    """Phase 54: the long route on its path. The recipe's
+    `transformer_decode_step` and `lm_score_step_cached` at full depth on
+    the card from pos LONG_POS0 for 16 steps: every self-attention takes
+    the long route (6 + 16 launches a step exactly, counted by model,
+    nothing else), finite
+    outputs; then 2 + 2 blocks on the card against the CPU in float32 on
+    copies of the same caches (the decoder within CONF_REL_L2, the
+    float32 LM within LONG_LM_REL_L2)."""
+    from agacs_tpu_torch.models import conformer as tconf, lm as tlm
+    from agacs_tpu_torch.ops import decode_attn as da
+
+    model, lm, sd, lsd = conformer_models(dev, torch.bfloat16)
+    dec, total = model.decoder, LONG_STEPS + 1
+    gen = torch.Generator(device=dev).manual_seed(54)
+    kv = tconf.init_decoder_kv_cache(dec.cfg, LONG_ROWS, total, device=dev)
+    lkv = tlm.init_lm_kv_cache(lm.cfg, LONG_ROWS, total, device=dev)
+    for bufs in (*kv.values(), *lkv.values()):
+        for b in bufs:
+            b[:, :LONG_POS0] = (torch.randn(b.shape[0], LONG_POS0, b.shape[2], generator=gen,
+                                            device=dev) * 0.5).to(b.dtype)
+    for bufs, h in ((kv, dec.cfg.attention_heads), (lkv, lm.cfg.attention_heads)):
+        route = da.plan("rows", LONG_ROWS, h, bufs["k"][0])
+        check(route[0] == "long", f"phase 54: caches of {bufs['k'][0].shape} take the long "
+              f"route ({route})")
+    mem = (torch.randn(LONG_ROWS, 468, CD, generator=gen, device=dev)).to(torch.bfloat16)
+    mlens = torch.full((LONG_ROWS,), 468, device=dev)
+    tokens = torch.randint(0, dec.cfg.vocab_size, (LONG_ROWS, 18), generator=gen, device=dev)
+    with torch.inference_mode():
+        cross = tconf.precompute_decoder_cross_kv(dec, mem)
+        by_model = {"decoder": 0, "LM": 0}
+        reset_decode_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i, pos in enumerate(range(LONG_POS0, LONG_POS0 + 16)):
+            before = da.LONG_LAUNCHES
+            logits, kv = tconf.transformer_decode_step(dec, tokens[:, i], pos, kv, cross, mlens)
+            by_model["decoder"] += da.LONG_LAUNCHES - before
+            before = da.LONG_LAUNCHES
+            lp, lkv = tlm.lm_score_step_cached(lm, tokens[:, i], pos, lkv)
+            by_model["LM"] += da.LONG_LAUNCHES - before
+        torch.cuda.synchronize()
+        ms_step = (time.perf_counter() - t0) * 1e3 / 16
+    launches = {k: v for k, v in decode_counts().items() if v}
+    want = {"K3-long": 16 * (dec.cfg.num_blocks + lm.cfg.num_blocks)}
+    check(launches == want and by_model == {"decoder": 16 * dec.cfg.num_blocks,
+                                            "LM": 16 * lm.cfg.num_blocks},
+          f"phase 54 launches {launches} == {want}, by model {by_model}")
+    check(bool(torch.isfinite(logits).all()) and bool(torch.isfinite(lp).all()),
+          "phase 54: finite logits and LM log-probs")
+    # 2 + 2 blocks, card and CPU, on the first two layers' caches as they stand
+    raw2 = conformer_raw(enc_num_blocks=1, dec_num_blocks=2)
+    sd2 = {k: v for k, v in first_blocks(sd, 2).items() if not k.startswith("encoder.blocks.")
+           or k.startswith("encoder.blocks.0.")}
+    errs = {}
+    tok, pos = tokens[:, 16], LONG_POS0 + 16
+    outs = []
+    for d in (dev, "cpu"):
+        m2, lm2, _, _ = conformer_models(d, torch.bfloat16 if d == dev else torch.float32, sd2,
+                                         first_blocks(lsd, 2), lm_blocks=2, raw=raw2)
+        f32 = (lambda t: t.float().cpu()) if d == "cpu" else (lambda t: t.clone())
+        kv2 = {n: tuple(f32(b) for b in bufs[:2]) for n, bufs in kv.items()}
+        lkv2 = {n: tuple(b.clone().to(d) for b in bufs[:2]) for n, bufs in lkv.items()}
+        with torch.inference_mode():
+            c2 = tconf.precompute_decoder_cross_kv(m2.decoder, mem.to(d))
+            lo, _ = tconf.transformer_decode_step(m2.decoder, tok.to(d), pos, kv2, c2,
+                                                  mlens.to(d))
+            ll, _ = tlm.lm_score_step_cached(lm2, tok.to(d), pos, lkv2)
+        outs.append((lo.float().cpu(), ll.float().cpu()))
+    (lo_g, ll_g), (lo_c, ll_c) = outs
+    errs = {"decoder": rel_l2(lo_g, lo_c), "lm": rel_l2(ll_g, ll_c)}
+    print(f"phase 54 long route on the conformer recipe's decode step: decoder 6 x 256 bf16 + "
+          f"LM 16 x 512 f32, {LONG_ROWS} rows over caches of {total} -> "
+          f"{kv['k'][0].shape[1]} positions, pos {LONG_POS0}-{LONG_POS0 + 15}: "
+          f"{ms_step:.2f} ms a step (both models, host clock); launches {launches} "
+          f"({by_model}); 2 + 2 "
+          f"blocks card vs cpu f32 at pos {pos}: decoder logits rel L2 {errs['decoder']:.3e} "
+          f"(bound {CONF_REL_L2}), LM log-probs rel L2 {errs['lm']:.3e} (bound "
+          f"{LONG_LM_REL_L2})", flush=True)
+    check(errs["decoder"] <= CONF_REL_L2 and errs["lm"] <= LONG_LM_REL_L2,
+          f"phase 54 card vs cpu {errs}")
+    del model, lm, kv, lkv
+    torch.cuda.empty_cache()
+    return {"launches": launches, "by_model": by_model, "ms_step": ms_step}
+
+
+# Phase 55: a whisper decoder at whisper-small's width with 6 heads of 128
+# (the one configuration whose decode step takes the whisper-only forms
+# at another width): PE on, int8 cross-KV, beam 5 over 2 utterances, 5
+# steps; its encoder is cut to one layer (the step reads random encoder
+# output).
+H128 = dict(n_text_head=6, pe_attention=True, cross_kv_int8=True, n_audio_layer=1)
+
+
+def heads128_phase(dev) -> dict:
+    """Phase 55: whisper_decode_step at beam 5 on the H128 decoder (12
+    layers, d 768, random weights from torch seed 55), card bf16 against
+    CPU float32 on the same weights, the same int8 cross-KV and scales
+    (made on the card) and the same ancestry map, shuffled between steps:
+    logits rel L2 within LOGITS_REL_L2 each step; launches K3a-PE (the
+    forms entry at d_head 128) and K3s-int8 (the tensor cores at d_head
+    128) 12 a step each, nothing else."""
+    from agacs_tpu_torch.models import whisper as tw
+
+    b, beam, tp, steps = 2, BEAM, 112, 5
+    n = b * beam
+    sd = tw.init_whisper_params(torch.Generator().manual_seed(55), tw.make_config("small",
+                                                                                  **H128))
+    models = {d: tw.Whisper.from_state_dict(tw.make_config("small", compute_dtype=dt, **H128), sd,
+                                            device=d)
+              for d, dt in ((dev, torch.bfloat16), ("cpu", torch.float32))}
+    gen = torch.Generator(device=dev).manual_seed(55)
+    enc = torch.randn(b, 1500, D, generator=gen, device=dev).to(torch.bfloat16)
+    toks = torch.randint(0, 50257, (n, steps), generator=gen, device=dev)
+    perm = torch.tensor([g * beam + (i + 1) % beam for g in range(b) for i in range(beam)])
+    with torch.inference_mode():
+        cross_g = tw.precompute_cross_kv(models[dev], enc)
+    cross_c = {k: (tuple(x.cpu() for x in v) if isinstance(v, (tuple, list)) else v)
+               for k, v in cross_g.items()}
+    kvs = {d: tw.init_self_kv_cache(models[d].cfg, n, tp, device=d, ancestry=True)
+           for d in (dev, "cpu")}
+    reset_decode_counts()
+    errs = []
+    with torch.inference_mode():
+        for p in range(steps):
+            outs = {}
+            for d, cross in ((dev, cross_g), ("cpu", cross_c)):
+                outs[d], kvs[d] = tw.whisper_decode_step(models[d], toks[:, p].to(d), p, kvs[d],
+                                                         cross, beam_groups=beam)
+                kvs[d]["anc"] = kvs[d]["anc"][:, perm.to(d)]
+            errs.append(rel_l2(outs[dev].float().cpu(), outs["cpu"]))
+    launches = {k: v for k, v in decode_counts().items() if v}
+    per = models[dev].cfg.n_text_layer * steps
+    check(launches == {"K3a-PE": per, "K3s-int8": per},
+          f"phase 55 launches {launches} == K3a-PE and K3s-int8 {per}")
+    print(f"phase 55 whisper decoder at d 768 with 6 heads of 128, PE, int8 cross-KV: beam "
+          f"{beam} x {b} utterances, {steps} steps, card bf16 vs cpu f32 logits rel L2 "
+          f"{[f'{e:.3e}' for e in errs]} (bound {LOGITS_REL_L2}); launches {launches}",
+          flush=True)
+    check(all(e <= LOGITS_REL_L2 for e in errs), f"phase 55 logits rel L2 {errs}")
+    del models
+    torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
+
+
 KERNEL_CHECKS = {"k1": check_k1, "k1b": check_k1_train, "k2": check_k2, "k3": check_k3,
                  "k3a": check_k3a, "k3s": check_k3s, "k3f32": check_k3f32, "k3pe": check_k3pe,
                  "k3i8": check_k3i8, "k3d48": check_k3_d48, "k4": check_k4, "k5": check_k5,
                  "k5b": check_k5_bwd, "k6": check_k6, "k8": check_k8, "k8q": check_k8q,
-                 "k3w": check_k3_widths}
+                 "k3w": check_k3_widths, "k3long": check_k3_long, "k3sw": check_k3s_wide,
+                 "k3forms": check_k3_forms}
 
 
 def mutants(dev, only=()) -> None:
@@ -5679,15 +6443,36 @@ def demangled_kernel(mangled: str) -> str:
     a kernel's parameter types hold none)."""
     m = re.search(r"\w+?_kernel(?=E|I)", mangled)
     s = m.group(0) if m else mangled
-    args = re.findall(r"L([bi])(\d+)E", mangled[m.end():]) if m else []
-    tmpl = ("<" + ", ".join(("false", "true")[int(v)] if t == "b" else v
-                            for t, v in args) + ">" if args else "")
+    args = template_args(mangled[m.end():]) if m else None
+    if args is None:
+        args = [("false", "true")[int(v)] if t == "b" else v
+                for t, v in re.findall(r"L([bi])(\d+)E", mangled[m.end():])] if m else []
+    tmpl = "<" + ", ".join(args) + ">" if args else ""
     for j in range(1, len(s)):
         if s[j - 1].isdigit() and not s[j].isdigit():
             digits = re.search(r"\d+$", s[:j]).group()
             if any(int(digits[i:]) == len(s) - j for i in range(len(digits))):
                 return s[j:] + tmpl
     return s + tmpl
+
+
+def template_args(s: str) -> list[str] | None:
+    """The template arguments of a mangled name from its `I`: bool and int
+    literals, and the types bf16, int8 and float (K3's instances differ in
+    their cache type); None for anything else (a class argument)."""
+    if not s.startswith("I"):
+        return []
+    out, i = [], 1
+    types = {"13__nv_bfloat16": "bf16", "a": "int8", "f": "float"}
+    while i < len(s) and s[i] != "E":
+        if m := re.match(r"L([bi])(\d+)E", s[i:]):
+            out.append(("false", "true")[int(m.group(2))] if m.group(1) == "b" else m.group(2))
+        elif m := re.match(r"13__nv_bfloat16|[af](?=[LE]|13)", s[i:]):
+            out.append(types[m.group(0)])
+        else:
+            return None
+        i += m.end()
+    return out
 
 
 def ptxas_entries(log: str) -> str:
@@ -7078,6 +7863,47 @@ def width_phase(dev, audio, phase: str, label: str, widths: dict, blocks: tuple,
             "parity": {"train": train_par, "enc": e_enc, "joint": e_joint}}
 
 
+
+def k3_routes(dev) -> None:
+    """`--k3-routes`: decode_attn.cu built (its registers and spills by
+    instance), then phases 3L, 3s past 16 queries, 3w, 53 (on phase 4's
+    model, with phase 5's CPU model and encoder output), 54 and 55, each as
+    the full run makes it, with the seconds each took."""
+    from agacs_tpu_torch.models import whisper as tw
+    from agacs_tpu_torch.models.asr_model import ASRModelConfig, encode
+    from agacs_tpu_torch.ops import cuda_lib
+
+    t0 = time.perf_counter()
+    cuda_lib.build("decode_attn")
+    print(f"k3-routes: decode_attn built in {time.perf_counter() - t0:.1f} s; ptxas: "
+          + ptxas_entries(cuda_lib.BUILD_LOG.get("decode_attn", "")), flush=True)
+    laps = []
+    for name, fn in (("3L", check_k3_long), ("3s", check_k3s_wide), ("3w", check_k3_forms)):
+        t0 = time.perf_counter()
+        fn(dev)
+        laps.append((name, time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    flags = dict(adapter=True, adapter_encoder=True, adapter_decoder=True)
+    sd = tw.init_whisper_params(torch.Generator(device="cpu").manual_seed(0),
+                                tw.make_config("small", **flags))
+    model = tw.Whisper.from_state_dict(tw.make_config("small", compute_dtype=torch.bfloat16,
+                                                      **flags), sd, device=dev)
+    cpu_cfg = tw.make_config("small", compute_dtype=torch.float32, **flags)
+    cpu_model = tw.Whisper.from_state_dict(cpu_cfg, sd, device="cpu")
+    audio = (np.random.RandomState(0).randn(8, 15 * 16000) * 0.1).astype(np.float32)
+    with torch.inference_mode():
+        enc_c, _ = encode(cpu_model, ASRModelConfig(whisper=cpu_cfg),
+                          torch.from_numpy(audio[:1]), torch.tensor([audio.shape[1]]))
+    beam20_phase(model, ASRModelConfig(whisper=model.cfg), audio, cpu_model, enc_c)
+    laps.append(("53", time.perf_counter() - t0))
+    del model, cpu_model
+    for name, fn in (("54", long_decode_phase), ("55", heads128_phase)):
+        t0 = time.perf_counter()
+        fn(dev)
+        laps.append((name, time.perf_counter() - t0))
+    print("k3-routes: seconds by phase " + ", ".join(f"{n} {t:.1f}" for n, t in laps),
+          flush=True)
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "agacs_tpu_torch")):
         sys.exit("chip_smoke: agacs_tpu_torch/ is not beside this script; "
@@ -7125,6 +7951,9 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--k4-ablate"]:
         k4_ablate(dev)
+        return 0
+    if sys.argv[1:2] == ["--k3-routes"]:
+        k3_routes(dev)
         return 0
 
     # 1. device and build
@@ -7178,6 +8007,11 @@ def main() -> int:
     k6 = check_k6(dev, g)
     k3d48 = check_k3_d48(dev, g)
     lap("2v-3d")
+    # 3L, 3s past 16 queries, 3w: K3 at every shape JAX's decode kernels take
+    k3long = check_k3_long(dev)
+    k3sw = check_k3s_wide(dev)
+    k3forms = check_k3_forms(dev)
+    lap("3L-3w")
 
     # 4. the slice: Speech2Text, whisper-small + adapters, bf16, 8 x 15 s
     cfg = tw.make_config("small", adapter=True, adapter_encoder=True,
@@ -7270,6 +8104,10 @@ def main() -> int:
     beam = beam_phase(model, asr_cfg, audio)
     beam_e2e(model, asr_cfg, audio, beam, cpu_model, enc_c)
     lap("10-12")
+
+    # 53. the beam-20 slice: K3a over 160 rows, K3s at 20 queries a group
+    b20 = beam20_phase(model, asr_cfg, audio, cpu_model, enc_c)
+    lap("53")
 
     # 18. int8 cross-KV serving on the same model
     cross8 = int8_cross_phase(model, sd, asr_cfg, audio, {"s2t": s2t, "results": results},
@@ -7378,6 +8216,13 @@ def main() -> int:
     check(usm["train"]["k4_shape"] == K4_USM,
           f"phase 2v held and timed K4 at phase 52's CTC head: {usm['train']['k4_shape']}")
     lap("52")
+
+    # 54. the long route on the conformer recipe's decoder and LM past 8192
+    # steps; 55. the whisper-only forms at d_head 128 on a whisper decoder
+    longp = long_decode_phase(dev)
+    lap("54")
+    h128 = heads128_phase(dev)
+    lap("55")
 
     check(not any(m.split(".")[0] in ("jax", "jaxlib", "agacs_tpu") for m in sys.modules),
           "no jax, jaxlib or agacs_tpu module was imported")
@@ -7566,6 +8411,44 @@ def main() -> int:
                   launches[key] if launches else 0, k4["any"][kk][part])
             for part, line, key in (("fwd", 169, "K4"), ("dx", 207, "K4 dx"),
                                     ("dw", 224, "K4 dw"))]
+    # K3 at every shape JAX's decode kernels take (phases 3L, 3s, 3w, 53-55)
+    k3_src, k3_chunked, k3_shared = ("decode_attn.cu", "agacs_tpu/ops/decode_attn.py:341",
+                                     "agacs_tpu/ops/decode_attn.py:830")
+    kernels += [
+        entry("decode_attn_long_fwd (K3's long route, the counterpart of _call_chunked: a "
+              "block's keys in passes with the online-softmax carry; phase 54's conformer "
+              "decoder rows, bf16 (10, 65616, 256), 4 heads, pos 8200, three passes of 4096 in "
+              "a block of 8202 keys; launches: phase 54's decoder)", k3_src, k3_chunked,
+              longp["by_model"]["decoder"], k3long[K3L_PHASE54[0]]),
+        entry("decode_attn_long_fwd float32 (phase 54's LM rows, (10, 65616, 512), 8 heads, "
+              "pos 8200, three passes of 4096 in a block of 9374 keys; launches: phase 54's "
+              "LM)", k3_src, k3_chunked, longp["by_model"]["LM"], k3long[K3L_PHASE54[1]]),
+    ] + [entry(f"decode_attn_long_fwd {what}; no main path runs this shape: checked in phase "
+               "3L)", k3_src, k3_chunked, 0, k3long[label])
+         for label, what in (
+             ("rows at 65536 keys", "(bf16 rows at (10, 65536, 256), 4 heads, pos 65535, in "
+              "tables and passes of 4096: two passes a block of 8192 keys"),
+             ("conformer decoder rows", "in passes of 1024 (bf16 rows at (10, 8256, 256), 4 "
+              "heads, pos 8200"),
+             ("LM rows (K3-f32)", "float32 in passes of 1024 (rows at (10, 8256, 512), 8 "
+              "heads, pos 8200"))] + [
+        entry("decode_attn_shared_fwd past 16 beams (K3s at beam 20 in two query tiles, (8 x "
+              "20, 1504, 768); launches: phase 53's)", k3_src, k3_shared,
+              b20["launches"]["K3s"], k3sw[("bf16", 64, 20)]),
+        entry("decode_attn_shared_fwd int8 past 16 beams (K3s-int8 at beam 20; no main path "
+              "runs int8 cross-KV at beam 20: checked in phase 3s)", k3_src, k3_shared, 0,
+              k3sw[("int8", 64, 20)]),
+        entry("decode_attn_forms_fwd (K3a-PE at d_head 128, (40, 112, 768), 6 heads: phase "
+              "55's whisper decoder)", k3_src, "agacs_tpu/ops/decode_attn.py:140",
+              h128["launches"]["K3a-PE"], k3forms["anc_pe"]),
+        entry("decode_attn_shared_fwd int8 at d_head 128 (K3s-int8 on two 64-channel sub-rows, "
+              "(8 x 5, 1504, 768), 6 heads: phase 55's cross-attention)", k3_src, k3_shared,
+              h128["launches"]["K3s-int8"], k3sw[("int8", 128, 5)]),
+    ] + [entry(f"decode_attn_forms_fwd ({name} at d_head 128, (40, 112 or 128, 768), 6 heads; "
+               "no main path runs it: checked in phase 3w)", k3_src,
+               "agacs_tpu/ops/decode_attn.py:140", 0, k3forms[form])
+         for form, name in (("anc", "K3a"), ("pe", "K3-PE"), ("int8", "K3-int8"),
+                            ("anc_int8", "K3a-int8"))]
     check(serve8["launches"]["K2f"] > 0 and serve8["launches"]["K8g"] > 0,
           "int8 serving launched K2f and K8g")
     check(side_train["launches"]["K1b"] == 0 and all(

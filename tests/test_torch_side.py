@@ -178,18 +178,15 @@ def test_decode_attention_d48_plain_matches_jax(pos):
     _close(out, ref, 1e-5, f"K3 d_head 48 pos {pos}")
 
 
-def test_d48_kernel_refuses_other_forms(monkeypatch):
-    """At d_head 48 only K3's plain bf16 rows are built: an ancestry map,
-    PE or float32 caches raise on the device path before any launch."""
-    monkeypatch.setattr(decode_attn, "_device_path", lambda what, q: True)
-    q = torch.empty(6, 192, device="meta", dtype=torch.bfloat16)
+def test_d48_kernel_refuses_other_forms():
+    """The d_head-48 instance takes K3's plain bf16 rows only: an ancestry
+    map or PE at d_head 48 go to the other forms' runtime-width entry, and
+    float32 caches to the plain rows' (`envelope`), never to it."""
     kv = torch.empty(6, 32, 192, device="meta", dtype=torch.bfloat16)
-    anc = torch.empty(6, 32, device="meta", dtype=torch.int32)
-    for kw in (dict(anc_local=anc, beam=3), dict(q_cs=q, k_cs=kv, gate=torch.empty(4))):
-        with pytest.raises(ValueError, match="d_head 48"):
-            decode_attn.decode_cache_attention(q, kv, kv, 3, 4, **kw)
-    with pytest.raises(ValueError, match="d_head 48"):
-        decode_attn.decode_cache_attention(q.float(), kv.float(), kv.float(), 3, 4)
+    assert decode_attn.plan("rows", 6, 4, kv)[0] == "d48"
+    for form in ("anc", "pe", "anc_pe"):
+        assert decode_attn.plan(form, 6, 4, kv, 3 if "anc" in form else 1)[0] == "forms"
+    assert decode_attn.plan("rows", 6, 4, kv.float())[0] == "rows"
 
 
 @pytest.mark.parametrize("preset", ["sidenetwork", "decoder_sidenetwork"])
